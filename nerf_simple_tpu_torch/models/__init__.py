@@ -1,0 +1,67 @@
+"""Model families (port of nerf_simple_tpu/models/__init__.py).
+
+The port runs the NerfMLP family. The hash-grid and CP-grid families are
+ROADMAP Queue A's last item: asking for them raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nerf_simple_tpu_torch.models.nerf import (
+    NerfField,
+    NerfMLP,
+    infer_arch,
+    init_nerf_params,
+    nerf_apply,
+    require_ported,
+)
+
+__all__ = [
+    "NerfMLP",
+    "NerfField",
+    "init_nerf_params",
+    "nerf_apply",
+    "apply_model",
+    "infer_model",
+    "model_from_meta",
+]
+
+_UNPORTED_FAMILIES = ("hashgrid", "cpgrid")
+
+
+def _unported_family(family: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {family} model family is not ported yet: ROADMAP Queue A, "
+        "'the hashgrid/cpgrid families'"
+    )
+
+
+def apply_model(field: NerfField, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    """(B, 6) ``[xyz | unit dir]`` rows -> (B, 4) raw ``[rgb | sigma]``."""
+    return nerf_apply(field, v, compute_dtype)
+
+
+def model_from_meta(meta: dict) -> NerfMLP:
+    """The model a ``model.json`` sidecar describes."""
+    meta = dict(meta)
+    family = meta.pop("family", "nerf")
+    if family in _UNPORTED_FAMILIES:
+        raise _unported_family(family)
+    if family != "nerf":
+        raise ValueError(f"unknown model family {family!r} in model meta")
+    model = NerfMLP(**meta)
+    require_ported(model)
+    return model
+
+
+def infer_model(params) -> NerfMLP:
+    """The model, from a params pytree's layer shapes alone."""
+    p = params
+    if isinstance(p, dict) and "fine" in p and "tables" not in p:
+        p = p["fine"]
+    if isinstance(p, dict) and "tables" in p:
+        raise _unported_family("hashgrid")
+    if isinstance(p, dict) and "basis" in p:
+        raise _unported_family("cpgrid")
+    return infer_arch(params)

@@ -1,0 +1,191 @@
+"""The NeRF MLP as a ``torch.nn.Module``.
+
+Port of nerf_simple_tpu/models/nerf.py, behaviour-equivalent to the
+reference ``Nerf`` module (reference utils/nets.py:8-43) with its quirks:
+positional encoding inside the forward; 5 trunk layers; a skip layer on
+``[h | posx]``; 2 post layers; a sigma head and a feature layer with NO
+activation; a colour head ``[feat | posd] -> H//2 -> 3`` with no sigmoid;
+output ``[rgb | sigma]``.
+
+The JAX package keeps params as a pytree of ``(in, out)`` arrays; that
+pytree, as numpy, stays the interchange format (checkpoints, tests).
+``NerfField.from_jax_params`` / ``to_jax_params`` convert between it and
+the module's ``nn.Linear`` children, whose weights are ``(out, in)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nerf_simple_tpu_torch.ops.encoding import positional_encoder
+
+Params = dict[str, dict[str, np.ndarray]]
+
+# Layer names in forward order (the JAX package's names).
+_LAYERS = (
+    "trunk0", "trunk1", "trunk2", "trunk3", "trunk4", "skip", "post0",
+    "post1", "sigma", "feature", "color0", "color1",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfMLP:
+    """Static architecture config. ``contract`` and ``app_dim`` exist so
+    that ``model.json`` sidecars load; the port does not run them yet
+    (``require_ported``)."""
+
+    Lp: int = 10
+    Ld: int = 4
+    H: int = 256
+    contract: bool = False
+    app_dim: int = 0
+
+    @property
+    def in_Cx(self) -> int:
+        return 6 * self.Lp + 3
+
+    @property
+    def in_Cd(self) -> int:
+        return 6 * self.Ld + 3
+
+    def layer_dims(self) -> dict[str, tuple[int, int]]:
+        H, Cx, Cd = self.H, self.in_Cx, self.in_Cd
+        return {
+            "trunk0": (Cx, H),
+            "trunk1": (H, H),
+            "trunk2": (H, H),
+            "trunk3": (H, H),
+            "trunk4": (H, H),
+            "skip": (H + Cx, H),
+            "post0": (H, H),
+            "post1": (H, H),
+            "sigma": (H, 1),
+            "feature": (H, H),
+            "color0": (H + Cd + self.app_dim, H // 2),
+            "color1": (H // 2, 3),
+        }
+
+
+def require_ported(model: NerfMLP) -> None:
+    """Raise for the NerfMLP variants the port does not run yet."""
+    if model.contract:
+        raise NotImplementedError(
+            "contract=True (scene contraction) is not ported yet: ROADMAP "
+            "Queue A, 'contract with disparity spacing'"
+        )
+    if model.app_dim > 0:
+        raise NotImplementedError(
+            "app_dim > 0 (appearance codes) is not ported yet: ROADMAP "
+            "Queue A, 'pose/appearance'"
+        )
+
+
+def infer_arch(params: Params) -> NerfMLP:
+    """Recover (Lp, Ld, H) from a params pytree's layer shapes ({coarse,
+    fine} pytrees infer from the fine net)."""
+    if "fine" in params and "trunk0" not in params:
+        params = params["fine"]
+    Cx, H = np.shape(params["trunk0"]["w"])
+    Cd = np.shape(params["color0"]["w"])[0] - H
+    if (Cd - 3) % 6:
+        raise ValueError(
+            f"color head fan-in {np.shape(params['color0']['w'])[0]} does "
+            f"not match any pure direction-encoding width (H={H} + 6*Ld + "
+            "3): this looks like an appearance-embedding checkpoint "
+            "(app_dim > 0) — rebuild the model from its model.json sidecar"
+        )
+    return NerfMLP(Lp=(Cx - 3) // 6, Ld=(Cd - 3) // 6, H=H)
+
+
+def init_nerf_params(seed: int, model: NerfMLP = NerfMLP()) -> Params:
+    """Numpy params pytree, W and b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (torch.nn.Linear's default distribution), drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    params: Params = {}
+    for name, (fan_in, fan_out) in model.layer_dims().items():
+        bound = 1.0 / np.sqrt(fan_in)
+        params[name] = {
+            "w": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32),
+            "b": rng.uniform(-bound, bound, (fan_out,)).astype(np.float32),
+        }
+    return params
+
+
+class NerfField(nn.Module):
+    """The NerfMLP field: ``nn.Linear`` children named after the JAX
+    layers; ``forward`` is ``nerf_apply``."""
+
+    def __init__(self, model: NerfMLP = NerfMLP(), device=None):
+        super().__init__()
+        require_ported(model)
+        self.model = model
+        for name, (fan_in, fan_out) in model.layer_dims().items():
+            self.add_module(name, nn.Linear(fan_in, fan_out, device=device))
+
+    @classmethod
+    def from_jax_params(cls, params: Params, device, model: NerfMLP | None = None):
+        """Module from a JAX-layout pytree of ``(in, out)`` weights."""
+        model = model or infer_arch(params)
+        field = cls(model, device="meta")
+        field.to_empty(device=device)
+        with torch.no_grad():
+            for name in _LAYERS:
+                lin = getattr(field, name)
+                w = np.asarray(params[name]["w"], np.float32)
+                lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+                lin.bias.copy_(torch.from_numpy(np.asarray(params[name]["b"], np.float32)))
+        return field
+
+    def to_jax_params(self) -> Params:
+        """Inverse of ``from_jax_params``: numpy ``(in, out)`` pytree."""
+        return {
+            name: {
+                "w": getattr(self, name).weight.detach().cpu().numpy().T.copy(),
+                "b": getattr(self, name).bias.detach().cpu().numpy().copy(),
+            }
+            for name in _LAYERS
+        }
+
+    def forward(self, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        return nerf_apply(self, v, compute_dtype)
+
+
+def _rnd(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Round to ``dtype`` and compute on in f32 (bf16 products are exact
+    in f32, so an f32 matmul of rounded operands is a bf16 matmul with
+    f32 accumulation)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.linear(_rnd(x, dtype), _rnd(lin.weight, dtype), lin.bias)
+
+
+def nerf_apply(
+    field: NerfField, v: torch.Tensor, compute_dtype=torch.float32
+) -> torch.Tensor:
+    """Raw (B, 6) ``[xyz | unit dir]`` rows -> (B, 4) f32 ``[rgb | sigma]``,
+    layer by layer: the plain (``backend="xla"``) oracle.
+
+    ``compute_dtype=torch.bfloat16`` rounds weights and activations to
+    bf16 and accumulates in f32, like the JAX path's
+    ``preferred_element_type=f32``."""
+    dt = compute_dtype
+    posx, posd = positional_encoder(v, Lp=field.model.Lp, Ld=field.model.Ld)
+    posx, posd = _rnd(posx, dt), _rnd(posd, dt)
+    h = posx
+    for name in ("trunk0", "trunk1", "trunk2", "trunk3", "trunk4"):
+        h = _rnd(torch.relu(_dense(getattr(field, name), h, dt)), dt)
+    h = _rnd(torch.relu(_dense(field.skip, torch.cat([h, posx], -1), dt)), dt)
+    for name in ("post0", "post1"):
+        h = _rnd(torch.relu(_dense(getattr(field, name), h, dt)), dt)
+    sigma = _dense(field.sigma, h, dt)
+    feat = _rnd(_dense(field.feature, h, dt), dt)  # no activation (quirk)
+    hc = _rnd(torch.relu(_dense(field.color0, torch.cat([feat, posd], -1), dt)), dt)
+    color = _dense(field.color1, hc, dt)
+    return torch.cat([color, sigma], dim=-1)

@@ -1,0 +1,237 @@
+"""Novel-view render server (port of nerf_simple_tpu/serve.py).
+
+    python -m nerf_simple_tpu_torch.serve --loadpath models/exp/params_10000.npz \\
+        --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000]
+
+Endpoints:
+  GET /health                  -> {"status": "ok", ...}
+  GET /render?r=4&theta=-30&phi=120  -> image/png
+
+The params live on one device. Renders are serialised through a lock
+(one card, one render at a time). PNGs are encoded with the standard
+library (zlib, struct).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import struct
+import threading
+import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from nerf_simple_tpu_torch.kernels.mlp import fused_mlp_forward
+from nerf_simple_tpu_torch.models import infer_model
+from nerf_simple_tpu_torch.models.nerf import NerfField
+from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(frame: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes (8-bit truecolour, no filtering)."""
+    H, W, C = frame.shape
+    if C != 3 or frame.dtype != np.uint8:
+        raise ValueError(f"need (H, W, 3) uint8, got {frame.shape} {frame.dtype}")
+    raw = np.zeros((H, 1 + 3 * W), np.uint8)  # filter byte 0 on every row
+    raw[:, 1:] = frame.reshape(H, 3 * W)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)
+    return (_PNG_SIG + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Inverse of ``encode_png`` (8-bit RGB, filter 0 only): checks the
+    signature and every chunk's CRC."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG")
+    pos, idat, W = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            W, H, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise ValueError("only 8-bit RGB PNGs")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
+    if raw[:, 0].any():
+        raise ValueError("only unfiltered PNG rows")
+    return raw[:, 1:].reshape(H, W, 3).copy()
+
+
+class RenderServer:
+    """Holds the field on its device; thread-safe ``render()``."""
+
+    def __init__(
+        self,
+        params,
+        H: int,
+        W: int,
+        f: float,
+        settings: RenderSettings | None = None,
+        model=None,
+        warmup: bool = True,
+        device="cuda",
+    ):
+        self.device = torch.device(device)
+        self.model = model or infer_model(params)
+        self.field = NerfField.from_jax_params(params, self.device, self.model)
+        self.settings = settings or RenderSettings()
+        self.H, self.W, self.f = H, W, float(f)
+        self._lock = threading.Lock()
+        self.seed = 0
+        if warmup:
+            self.render(4.0, -30.0, 0.0)  # builds the kernel on first use
+
+    def render(self, r: float, theta: float, phi: float) -> np.ndarray:
+        """One (H, W, 3) uint8 frame from spherical camera coords (the
+        reference's dome parametrisation, utils/xyz.py:70-81)."""
+        pose = torch.as_tensor(
+            spherical_to_pose(r, theta, phi)[None], dtype=torch.float32, device=self.device
+        )
+        with self._lock:
+            rays = rays_for_poses(pose, self.H, self.W, self.f)
+            rgb, _ = render_rays_chunked(self.field, rays, self.seed, self.settings)
+            frame = rgb.reshape(self.H, self.W, 3).cpu().numpy()
+        return (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def _make_handler(server: RenderServer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, ctype: str, body: bytes) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, code: int, obj) -> None:
+            self._send(code, "application/json", json.dumps(obj).encode())
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            u = urlparse(self.path)
+            if u.path == "/health":
+                self._json(200, {
+                    "status": "ok",
+                    "frame": [server.H, server.W],
+                    "model": type(server.model).__name__,
+                    "arch": dataclasses.asdict(server.model),
+                    "backend": server.settings.backend,
+                    "occupancy": False,
+                    "proposal": False,
+                    "mip": False,
+                    "device": str(server.device),
+                    "kernel_launches": fused_mlp_forward.launches,
+                })
+                return
+            if u.path != "/render":
+                self._json(404, {"error": f"unknown path {u.path}"})
+                return
+            q = parse_qs(u.query)
+
+            def num(name, default):
+                return float(q[name][0]) if name in q else default
+
+            try:
+                frame = server.render(num("r", 4.0), num("theta", -30.0), num("phi", 0.0))
+            except Exception as e:  # the server keeps running: report as 500
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, "image/png", encode_png(frame))
+
+    return Handler
+
+
+def serve(server: RenderServer, port: int = 8000) -> ThreadingHTTPServer:
+    """Start the HTTP server (returns it; call .serve_forever())."""
+    return ThreadingHTTPServer(("0.0.0.0", port), _make_handler(server))
+
+
+# Flags of the JAX server whose features are not ported: name -> (value
+# that means "off", ROADMAP item).
+_UNPORTED_FLAGS = {
+    "occupancy": (False, "occupancy"),
+    "occ_R": (64, "occupancy"),
+    "proposal_samples": (0, "proposal"),
+    "mip": (False, "mip"),
+    "mip_levels": (1, "mip"),
+    "resample_blur": (0.01, "mip"),
+    "opaque_background": (False, "mip"),
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="NeRF novel-view render server (PyTorch)")
+    ap.add_argument("--loadpath", required=True, help="params .npz or .pth")
+    ap.add_argument("--height", type=int, required=True)
+    ap.add_argument("--width", type=int, required=True)
+    ap.add_argument("--focal", type=float, required=True)
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--backend", default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--samples", type=int, default=128)
+    ap.add_argument("--device", default="cuda", help="torch device to serve from")
+    ap.add_argument("--occupancy", action="store_true")
+    ap.add_argument("--occ-R", type=int, default=64)
+    ap.add_argument("--proposal-samples", type=int, default=0)
+    ap.add_argument("--mip", action="store_true")
+    ap.add_argument("--mip-levels", type=int, default=1, choices=[1, 2])
+    ap.add_argument("--resample-blur", type=float, default=0.01)
+    ap.add_argument("--opaque-background", action="store_true")
+    ap.add_argument("--tn", type=float, default=2.0)
+    ap.add_argument("--tf", type=float, default=6.0)
+    ap.add_argument("--sampling-space", default="linear", choices=["linear", "disparity"])
+    args = ap.parse_args(argv)
+    for name, (off, item) in _UNPORTED_FLAGS.items():
+        if getattr(args, name) != off:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet: ROADMAP Queue A, {item}"
+            )
+
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
+
+    params = load_params(args.loadpath)
+    model = load_model_meta(args.loadpath)  # None -> inferred from shapes
+    settings = RenderSettings(
+        N=args.samples,
+        tn=args.tn,
+        tf=args.tf,
+        sampling_space=args.sampling_space,
+        backend=args.backend,
+        compute_dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+    )
+    srv = RenderServer(
+        params, args.height, args.width, args.focal, settings, model=model,
+        device=args.device,
+    )
+    httpd = serve(srv, args.port)
+    print(f"serving on :{args.port} (frame {args.height}x{args.width}, "
+          f"{args.backend}/{args.dtype}, N={args.samples}, {srv.device})")
+    httpd.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,111 @@
+"""Params IO (port of the export/import half of
+nerf_simple_tpu/train/checkpoint.py).
+
+Params travel as the JAX package's pytree of numpy ``(in, out)`` arrays,
+so files written by either package load in the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def load_model_meta(loadpath: str):
+    """The model of the ``model.json`` sidecar beside a loadpath (the
+    file's directory, or the directory itself and its parent), or None."""
+    from nerf_simple_tpu_torch.models import model_from_meta
+
+    if os.path.isdir(loadpath):
+        cand_dirs = [loadpath, os.path.dirname(os.path.abspath(loadpath))]
+    else:
+        cand_dirs = [os.path.dirname(os.path.abspath(loadpath))]
+    for d in cand_dirs:
+        p = os.path.join(d, "model.json")
+        if os.path.exists(p):
+            with open(p) as fh:
+                return model_from_meta(json.load(fh))
+    return None
+
+
+def export_params_npz(path: str, params) -> None:
+    """One npz with ``<layer>/w`` and ``<layer>/b`` arrays (nested dicts
+    such as coarse/fine become prefixes)."""
+    flat = {}
+
+    def add(prefix, p):
+        for k, v in p.items():
+            if isinstance(v, dict):
+                add(f"{prefix}{k}/", v)
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+
+    add("", params)
+    np.savez(path, **flat)
+
+
+def import_params_npz(path: str):
+    """Inverse of export_params_npz."""
+    with np.load(path) as data:
+        nested: dict = {}
+        for key in data.files:
+            parts = key.split("/")
+            d = nested
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = data[key]
+    return nested
+
+
+# The reference's torch.save(net.state_dict()) format (train.py:84-91):
+# our layer names vs the reference Nerf module's children
+# (utils/nets.py:16-32); weights transpose between (in, out) and (out, in).
+_PTH_LAYER_MAP = {
+    "trunk0": "layers_0.0",
+    "trunk1": "layers_0.2",
+    "trunk2": "layers_0.4",
+    "trunk3": "layers_0.6",
+    "trunk4": "layers_0.8",
+    "skip": "skip_conn_layer.0",
+    "post0": "layers_1.0",
+    "post1": "layers_1.2",
+    "sigma": "sigma_fc.0",
+    "feature": "layers_2",
+    "color0": "color_fc.0",
+    "color1": "color_fc.2",
+}
+
+
+def export_params_pth(path: str, params) -> None:
+    """A state_dict .pth that loads into the reference ``Nerf`` module
+    with ``strict=True``."""
+    if "coarse" in params and "trunk0" not in params:
+        raise ValueError(
+            ".pth export is per-network; pass params['coarse'] or "
+            "params['fine'] (the reference has no two-network format)"
+        )
+    sd = {}
+    for ours, theirs in _PTH_LAYER_MAP.items():
+        sd[f"{theirs}.weight"] = torch.from_numpy(
+            np.asarray(params[ours]["w"], np.float32).T.copy()
+        )
+        sd[f"{theirs}.bias"] = torch.from_numpy(
+            np.asarray(params[ours]["b"], np.float32).copy()
+        )
+    torch.save(sd, path)
+
+
+def import_params_pth(path: str):
+    """A reference state_dict .pth -> params pytree."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    params = {}
+    for ours, theirs in _PTH_LAYER_MAP.items():
+        w = sd.pop(f"{theirs}.weight").numpy()
+        b = sd.pop(f"{theirs}.bias").numpy()
+        params[ours] = {"w": np.ascontiguousarray(w.T), "b": b}
+    if sd:
+        raise ValueError(f"unrecognized keys in state_dict: {sorted(sd)}")
+    return params
