@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The build runs at first use, writes into
 ``nerf_simple_tpu_torch/build/``, and is redone only when the source's
-hash changes. Nothing here runs at import time: machines without
+hash (with the shared ``csrc/*.cuh`` headers) changes. ``build`` starts
+one ``nvcc`` for each of several sources at once. Nothing here runs at import time: machines without
 ``nvcc`` import the package and use the plain PyTorch versions on CPU
 tensors.
 """
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -49,33 +51,44 @@ def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives: keyed by the source's
     and the flags' hash."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(*names: str) -> dict[str, float]:
+    """Compile the named sources whose build is missing, one ``nvcc``
+    each, all started together; returns each compile's wall seconds."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, t0 = _nvcc(), time.perf_counter()
+    jobs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    seconds, failed = {}, []
+    for name, (tmp, proc) in jobs.items():
+        build_log[name] = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))  # atomic: no half-written library
+        else:
+            os.remove(tmp)
+            failed.append(name)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"csrc/{n}.cu:\n{build_log[n]}" for n in failed))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its build is missing, and load it."""
-    if name in _loaded:
-        return _loaded[name]
-    lib_path = library_path(name)
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                capture_output=True, text=True,
-            )
-            build_log[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on csrc/{name}.cu:\n{build_log[name]}"
-                )
-            os.replace(tmp, lib_path)  # atomic: no half-written library
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
-    return lib
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

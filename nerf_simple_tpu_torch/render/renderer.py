@@ -2,9 +2,10 @@
 the point-sampled path).
 
 ``render_rays`` draws stratified ``ts`` and renders through
-``_render_at_ts``: under ``backend="pallas"`` the fused MLP forward
-(kernels/mlp.py) on the feature-major ``(8, B*N)`` input, then
-``composite_T``; under ``backend="xla"`` the layer-by-layer
+``_render_at_ts``: under ``backend="pallas"`` the fused MLP (kernels/
+mlp.py) on the feature-major ``(8, B*N)`` input, then ``composite_T``
+(with gradients enabled, the differentiable ``fused_mlp``, whose backward
+is the fused backward kernel); under ``backend="xla"`` the layer-by-layer
 ``nerf_apply`` oracle, then ``composite``. ``render_rays_chunked`` renders
 any number of rays in fixed-size chunks, padding the last chunk with
 copies of the last ray.
@@ -21,6 +22,7 @@ import torch
 from nerf_simple_tpu_torch.kernels.mlp import (
     FusedWeights,
     _cast_weights,
+    fused_mlp,
     fused_mlp_forward,
     pack_weights,
     supported,
@@ -142,9 +144,13 @@ def _fused_mlp_bn(
     x = torch.zeros((8, rows_p), dtype=torch.float32, device=rays.device)
     x[0:3, :rows] = (oT[:, :, None] + dT[:, :, None] * ts[None]).reshape(3, rows)
     x[3:6, :rows] = unitT[:, :, None].expand(3, B, N).reshape(3, rows)
-    outT = fused_mlp_forward(
-        _packed(field, settings.compute_dtype), x, settings.compute_dtype, model
-    )
+    if torch.is_grad_enabled():
+        wts = pack_weights(field, differentiable=True)
+        outT = fused_mlp(wts, x, settings.compute_dtype, model)
+    else:
+        outT = fused_mlp_forward(
+            _packed(field, settings.compute_dtype), x, settings.compute_dtype, model
+        )
     return outT[:4, :rows].reshape(4, B, N)
 
 

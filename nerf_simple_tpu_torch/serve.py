@@ -9,7 +9,7 @@ Endpoints:
 
 The params live on one device. Renders are serialised through a lock
 (one card, one render at a time). PNGs are encoded with the standard
-library (zlib, struct).
+library (utils/png.py).
 """
 
 from __future__ import annotations
@@ -17,9 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import struct
 import threading
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -31,51 +29,7 @@ from nerf_simple_tpu_torch.models import infer_model
 from nerf_simple_tpu_torch.models.nerf import NerfField
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
 from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
-
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def encode_png(frame: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (8-bit truecolour, no filtering)."""
-    H, W, C = frame.shape
-    if C != 3 or frame.dtype != np.uint8:
-        raise ValueError(f"need (H, W, 3) uint8, got {frame.shape} {frame.dtype}")
-    raw = np.zeros((H, 1 + 3 * W), np.uint8)  # filter byte 0 on every row
-    raw[:, 1:] = frame.reshape(H, 3 * W)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)
-    return (_PNG_SIG + _png_chunk(b"IHDR", ihdr)
-            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
-
-
-def decode_png(data: bytes) -> np.ndarray:
-    """Inverse of ``encode_png`` (8-bit RGB, filter 0 only): checks the
-    signature and every chunk's CRC."""
-    if data[:8] != _PNG_SIG:
-        raise ValueError("not a PNG")
-    pos, idat, W = 8, b"", None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
-        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"bad CRC in {tag!r}")
-        if tag == b"IHDR":
-            W, H, depth, ctype = struct.unpack(">IIBB", body[:10])
-            if (depth, ctype) != (8, 2):
-                raise ValueError("only 8-bit RGB PNGs")
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
-    if raw[:, 0].any():
-        raise ValueError("only unfiltered PNG rows")
-    return raw[:, 1:].reshape(H, W, 3).copy()
+from nerf_simple_tpu_torch.utils.png import decode_png, encode_png  # noqa: F401 (re-exported)
 
 
 class RenderServer:

@@ -1,1 +1,1 @@
-"""Params IO. The training loop is not ported yet."""
+"""Training: config-driven loop, step, checkpoints and metrics."""

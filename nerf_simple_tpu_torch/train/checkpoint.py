@@ -1,17 +1,72 @@
-"""Params IO (port of the export/import half of
-nerf_simple_tpu/train/checkpoint.py).
+"""Checkpoints and params IO (port of nerf_simple_tpu/train/checkpoint.py).
+
+A checkpoint is ``<savepath>/<exp_name>/ckpt_<step>.pth``: the full
+training state (the field's params, Adam's state, the step and the
+generator's state), so a run resumes where it stopped and draws the
+batches it would have drawn. Orbax is absent on the card's machine, so
+the JAX package's Orbax directories are not read here.
 
 Params travel as the JAX package's pytree of numpy ``(in, out)`` arrays,
-so files written by either package load in the other.
+so ``params_<step>.npz`` and ``.pth`` exports written by either package
+load in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import torch
+
+
+def save_checkpoint(direc: str, state) -> str:
+    """Write the train state; returns the path. Overwrites a checkpoint of
+    the same step."""
+    os.makedirs(direc, exist_ok=True)
+    path = os.path.abspath(os.path.join(direc, f"ckpt_{state.step}.pth"))
+    torch.save({
+        "step": state.step,
+        "params": state.field.to_jax_params(),
+        "optimizer": state.optimizer.state_dict(),
+        "generator": state.generator.get_state(),
+    }, path)
+    return path
+
+
+def latest_checkpoint(direc: str) -> str | None:
+    """The ``ckpt_<step>.pth`` with the largest step in ``direc``, or None."""
+    if not os.path.isdir(direc):
+        return None
+    found = [(int(m.group(1)), name) for name in os.listdir(direc)
+             if (m := re.fullmatch(r"ckpt_(\d+)\.pth", name))]
+    return os.path.join(direc, max(found)[1]) if found else None
+
+
+def restore_checkpoint(path: str, state) -> None:
+    """Load a checkpoint into ``state`` (a TrainState of the same model),
+    in place."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    field = state.field
+    with torch.no_grad():
+        for name, p in ck["params"].items():
+            getattr(field, name).weight.copy_(torch.from_numpy(np.ascontiguousarray(p["w"].T)))
+            getattr(field, name).bias.copy_(torch.from_numpy(p["b"]))
+    state.optimizer.load_state_dict(ck["optimizer"])
+    state.generator.set_state(ck["generator"])
+    state.step = int(ck["step"])
+
+
+def save_model_meta(direc: str, model) -> str:
+    """``model.json`` in the experiment dir, so eval and the server
+    rebuild the exact model."""
+    os.makedirs(direc, exist_ok=True)
+    path = os.path.join(direc, "model.json")
+    with open(path, "w") as fh:
+        json.dump({"family": "nerf", **dataclasses.asdict(model)}, fh, indent=1)
+    return path
 
 
 def load_model_meta(loadpath: str):

@@ -1,0 +1,197 @@
+"""The training loop (port of nerf_simple_tpu/train/loop.py, the
+point-sampled single-network path).
+
+Same observable behaviour as the reference ``train()`` (train.py:28-91)
+and the JAX loop: loss and lr every ``ckpt_loss`` iterations, train and
+val renders with MSE/PSNR/SSIM every ``ckpt_images``, a checkpoint every
+``ckpt_model`` and at the end, then ``params_<step>.npz`` and ``.pth``
+exports that this package's server and the JAX package both load.
+
+The loss of every step stays on the device. The host waits for the card
+only at the end of a chunk of ``steps_per_call`` iterations that holds a
+log, image or checkpoint iteration (``chunk_schedule``), so the host
+queues steps ahead of the card. it/s and rays/s are timed between those
+syncs by CUDA events on the card (by the host clock on a CPU run), from
+the second sync on: the first window holds the kernel builds.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from nerf_simple_tpu_torch.config import TrainConfig, train_config_from_dict
+from nerf_simple_tpu_torch.data.blender import load_blender
+from nerf_simple_tpu_torch.data.dataset import RayDataset
+from nerf_simple_tpu_torch.models.nerf import NerfMLP
+from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+from nerf_simple_tpu_torch.train import checkpoint as ckpt
+from nerf_simple_tpu_torch.train.metrics import img_mse, img_psnr, img_ssim
+from nerf_simple_tpu_torch.train.step import (
+    TrainState,
+    build_train_step,
+    lr_schedule,
+    make_train_state,
+)
+from nerf_simple_tpu_torch.utils.tb import Logger, run_log_dir
+
+
+def chunk_schedule(start: int, num_iters: int, steps_per_call: int, boundary_everys: tuple[int, ...]):
+    """Chunks covering [start, num_iters): full ``steps_per_call`` chunks
+    and one remainder; a chunk is a ``boundary`` (the host syncs after
+    it) if an iteration in it hits a cadence of ``boundary_everys`` or it
+    is the last. Yields ``(chunk_start, chunk_len, boundary)``."""
+    n_total = num_iters - start
+    if n_total <= 0:
+        return
+    remainder = n_total % steps_per_call
+    n_chunks = -(-n_total // steps_per_call)
+    for c in range(n_chunks):
+        chunk_start = start + c * steps_per_call
+        last = c == n_chunks - 1
+        spc = remainder if (last and remainder) else steps_per_call
+        boundary = last or any(
+            (chunk_start + j) % every == 0 for every in boundary_everys for j in range(spc)
+        )
+        yield chunk_start, spc, boundary
+
+
+class SteadyStateMeter:
+    """Iterations and seconds between syncs, from the second sync on."""
+
+    def __init__(self, rays_per_iter: int, device: torch.device):
+        self.rays_per_iter = rays_per_iter
+        self.cuda = device.type == "cuda"
+        self._first: tuple[int, Any] | None = None
+        self.iters, self.seconds = 0, 0.0
+
+    def _mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ev.synchronize()
+            return ev
+        return time.perf_counter()
+
+    def sync(self, iters_done: int) -> None:
+        mark = self._mark()
+        if self._first is None:
+            self._first = (iters_done, mark)
+            return
+        it0, m0 = self._first
+        self.iters = iters_done - it0
+        self.seconds = m0.elapsed_time(mark) / 1e3 if self.cuda else mark - m0
+
+    @property
+    def iters_per_sec(self) -> float:
+        return self.iters / max(self.seconds, 1e-9)
+
+    @property
+    def rays_per_sec(self) -> float:
+        return self.iters_per_sec * self.rays_per_iter
+
+
+def train(params_or_cfg: dict[str, Any] | TrainConfig, device=None) -> TrainState:
+    """Run training from a reference-schema config dict or a TrainConfig,
+    on ``device`` (default: the card if there is one). Returns the final
+    TrainState."""
+    cfg = (params_or_cfg if isinstance(params_or_cfg, TrainConfig)
+           else train_config_from_dict(params_or_cfg))
+    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H)
+    exp_dir = os.path.join(cfg.savepath, cfg.exp_name)
+    ckpt.save_model_meta(exp_dir, model)
+    logger = Logger(run_log_dir(cfg.log_dir))
+
+    data = load_blender(cfg.datapath, cfg.half_res, cfg.num_train_imgs, white_bkgd=cfg.white_bkgd)
+    rd = RayDataset.from_blender(data, device)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+
+    state = make_train_state(cfg, model, device)
+    if cfg.resume:
+        latest = ckpt.latest_checkpoint(exp_dir)
+        if latest is not None:
+            ckpt.restore_checkpoint(latest, state)
+            print(f"resumed from {latest} at step {state.step}")
+    step_fn = build_train_step(cfg, model)
+    eval_settings = RenderSettings(
+        N=cfg.Nf, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
+        compute_dtype=cfg.render_dtype, backend=cfg.backend,
+    )
+    lr0, decay = lr_schedule(cfg)
+
+    def render_and_log(split: str, ii: int, i: int) -> None:
+        n = rd.H * rd.W
+        if ii >= rd.split_size(split) // n:
+            print(f"skipping {split} render {ii}: split has {rd.split_size(split) // n} images")
+            return
+        rgb, disp = render_rays_chunked(state.field, rd.rays[split][ii * n : (ii + 1) * n],
+                                        cfg.seed + i, eval_settings, chunk=16384)
+        rgb = rgb.reshape(1, rd.H, rd.W, 3).cpu().numpy()
+        disp = disp.reshape(1, rd.H, rd.W, 1).cpu().numpy()
+        gt = rd.pixels[split][ii * n : (ii + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
+        tag = "train" if split == "train" else "Val"
+        logger.images(f"{tag}/RGB_{ii}", rgb, i + 1)
+        logger.images(f"{tag}/Depth_{ii}", disp / max(disp.max(), 1e-9), i + 1)
+        logger.images(f"{tag}/GT_{ii}", gt, i + 1)
+        psnr = img_psnr(gt, rgb)
+        logger.scalar(f"Loss/{tag}_Img_MSE_{ii}", img_mse(gt, rgb), i + 1)
+        logger.scalar(f"Loss/{tag}_Img_PSNR_{ii}", psnr, i + 1)
+        line = f"{tag} image {ii} | iter: {i + 1} | PSNR {psnr:.3f}"
+        if min(rd.H, rd.W) >= 11:  # SSIM needs one full 11x11 window
+            ssim = img_ssim(gt, rgb)
+            logger.scalar(f"Loss/{tag}_Img_SSIM_{ii}", ssim, i + 1)
+            line += f" | SSIM {ssim:.4f}"
+        print(line)
+
+    meter = SteadyStateMeter(cfg.batch_size, device)
+    start = state.step
+    for chunk_start, spc, boundary in chunk_schedule(
+        start, cfg.num_iters, cfg.steps_per_call, (cfg.ckpt_loss, cfg.ckpt_images, cfg.ckpt_model)
+    ):
+        losses = torch.stack([step_fn(state, rays, pixels) for _ in range(spc)])
+        if not boundary:
+            continue
+        losses = losses.cpu().numpy()  # the host waits for the card here
+        meter.sync(chunk_start + spc - start)
+        for j, loss in enumerate(losses):
+            i = chunk_start + j
+            if i % cfg.ckpt_loss == 0:
+                logger.scalar("Loss/train", float(loss), i + 1)
+                logger.scalar("Train/lr", lr0 * decay ** (i + 1), i + 1)
+                rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s"
+                        if meter.iters else "warmup (kernel builds)")
+                print(f"loss: {float(loss):.6f} | iter: {i + 1} | {rate}")
+        i_last = chunk_start + spc - 1
+        if any((chunk_start + j) % cfg.ckpt_images == 0 for j in range(spc)):
+            for ii in cfg.val_idxs:
+                render_and_log("train", ii, i_last)
+                render_and_log("val", ii, i_last)
+        if any((chunk_start + j) % cfg.ckpt_model == 0 for j in range(spc)):
+            print(f"saved checkpoint {ckpt.save_checkpoint(exp_dir, state)}")
+
+    path = ckpt.save_checkpoint(exp_dir, state)
+    params = state.field.to_jax_params()
+    ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), params)
+    ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params)
+    rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s (steady-state)"
+            if meter.iters else "steady-state throughput n/a (one synced chunk)")
+    print(f"final checkpoint {path} | {rate}")
+    logger.close()
+    return state
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from nerf_simple_tpu_torch.config import load_yaml
+
+    ap = argparse.ArgumentParser(description="Train a NeRF (PyTorch port)")
+    ap.add_argument("--config_path", required=True, help="reference-schema YAML config")
+    ap.add_argument("--device", default=None, help="torch device (default: cuda if present)")
+    args = ap.parse_args(argv)
+    train(load_yaml(args.config_path), device=args.device)
