@@ -7,15 +7,18 @@ NerfMLP(Lp=10, Ld=4, H=256):
 
 1. device: refuses to run without CUDA; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the three CUDA sources from csrc/, one nvcc each, all
+2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
    at once; prints the build time and ptxas registers and spills;
-3. forward kernel vs plain: the fused MLP forward against its plain
-   PyTorch version on one render chunk (16,384 rays of a 400x400, f=555
+3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
+   and the fused render (forward + compositing) against their plain
+   PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
    frame x 128 stratified samples = 2,097,152 rows), f32 and bf16, with
    random weights from a numpy seed;
 4. serve: the novel-view server over HTTP on localhost, three 400x400
    frames through the forward kernel, then the frame against the plain
-   backend;
+   backend; then one frame through ``render_rays_chunked`` with
+   ``fused_eval`` (the render kernel, ten chunks) against the forward
+   kernel plus torch compositing, f32 and bf16;
 5. backward (B2) and train step (B1) vs plain: at 524,288 rows (a
    4096-ray x 128-sample batch drawn from the synthetic scene), f32 and
    bf16: per-tensor gradient errors, loss error, CUDA-event times, and
@@ -27,7 +30,14 @@ NerfMLP(Lp=10, Ld=4, H=256):
    the loss, the val PSNR, a resume and that the server serves the
    exported params; then a few f32 steps from one state through the
    fused step, the two-kernel autograd path (fused_mlp: forward kernel
-   and B2) and the plain path, whose losses must agree.
+   and B2) and the plain path, whose losses must agree;
+7. eval: ``evaluate.test`` (what ``python -m nerf_simple_tpu_torch.
+   evaluate`` runs) on the trained scene's test split with lego.yaml's
+   test_params, ``backend: pallas``, ``compute_dtype: bf16``: stills 0
+   and 1 with their PSNR, normals of still 0, and the orbit video cut to
+   ORBIT_POSES frames (lego.yaml asks for 30);
+8. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+   80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
 line. The line before the last is one JSON object with the kernels; the
@@ -44,6 +54,7 @@ import glob
 import io
 import json
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -66,8 +77,14 @@ SEED = 0
 # occasional activation by one ulp (2^-8 relative), which the later
 # layers carry; 2e-3 bounds that at unit-scale outputs.
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-3}
-# Served frame, pallas vs xla backend at f32: clipped rgb in [0, 1].
+# Served frame, pallas vs xla backend at f32, and fused_eval vs the
+# forward kernel plus torch compositing: clipped rgb in [0, 1].
 FRAME_TOL = 1e-3
+# Disparity of the fused_eval frame against the unfused one, relative:
+# both composite the same raw outputs, summed in another order (the JAX
+# test's bound, tests/test_kernels.py:433).
+DISP_RTOL = 2e-3
+ORBIT_POSES = 10  # eval's orbit video, cut from lego.yaml's 30 frames
 # B1/B2 gradients, per tensor: max abs error over the plain version's max
 # abs value. B2 gets seeded random cotangents on every sample: its weight
 # gradients are sums of random-sign terms over 524,288 rows, and both the
@@ -111,8 +128,9 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def chunk_input(dev):
-    """xT (8, 2,097,152) for the middle chunk of a 400x400 frame, as the
-    renderer builds it."""
+    """x16 (16, 2,097,152) for the middle chunk of a 400x400 frame, as the
+    renderer builds it: rows 0..5 are the forward kernel's xT, row 6 the
+    ts."""
     from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
     from nerf_simple_tpu_torch.ops.sampling import stratified_ts
 
@@ -122,10 +140,11 @@ def chunk_input(dev):
     g.manual_seed(SEED)
     ts = stratified_ts(g, CHUNK, N, 2.0, 6.0, dev)
     dT = rays[:, 3:6].T
-    xT = torch.zeros((8, CHUNK * N), dtype=torch.float32, device=dev)
-    xT[0:3] = (rays[:, :3].T[:, :, None] + dT[:, :, None] * ts[None]).reshape(3, -1)
-    xT[3:6] = (dT / torch.linalg.vector_norm(dT, dim=0, keepdim=True))[:, :, None].expand(3, CHUNK, N).reshape(3, -1)
-    return xT
+    x16 = torch.zeros((16, CHUNK * N), dtype=torch.float32, device=dev)
+    x16[0:3] = (rays[:, :3].T[:, :, None] + dT[:, :, None] * ts[None]).reshape(3, -1)
+    x16[3:6] = (dT / torch.linalg.vector_norm(dT, dim=0, keepdim=True))[:, :, None].expand(3, CHUNK, N).reshape(3, -1)
+    x16[6] = ts.reshape(-1)
+    return x16
 
 
 def get(url: str) -> tuple[bytes, str]:
@@ -139,15 +158,15 @@ def grad_errors(got, want) -> tuple[float, float]:
     return rel, max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
-def phase_build(mlp, _build) -> None:
-    fresh = [n for n in mlp.SOURCES if not _build.library_path(n).exists()]
+def phase_build(sources, _build) -> None:
+    fresh = [n for n in sources if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
-    seconds = _build.build(*mlp.SOURCES)
-    print(f"build: {', '.join(mlp.SOURCES)} ({len(fresh)} compiled, one nvcc each, "
+    seconds = _build.build(*sources)
+    print(f"build: {', '.join(sources)} ({len(fresh)} compiled, one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.2f} s; per source "
           + ", ".join(f"{n} {t:.2f} s" for n, t in seconds.items()), flush=True)
     with open(os.path.join(OUT, "build_log.txt"), "w") as fh:
-        for name in mlp.SOURCES:
+        for name in sources:
             log = _build.build_log.get(name, "")
             fh.write(f"===== {name}\n{log}\n")
             kernel = None
@@ -158,11 +177,11 @@ def phase_build(mlp, _build) -> None:
                     print(f"ptxas {name} {(kernel or '')[:48]}: {line.strip()}")
 
 
-def phase_forward(dev, params, model, mlp):
+def phase_forward(dev, params, model, mlp, x16):
     from nerf_simple_tpu_torch.models.nerf import NerfField
 
     field = NerfField.from_jax_params(params, dev)
-    xT = chunk_input(dev)
+    xT = x16[:8].contiguous()
     wts = mlp.pack_weights(field)
     stats = {}
     with torch.inference_mode():
@@ -183,6 +202,41 @@ def phase_forward(dev, params, model, mlp):
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5)", flush=True)
             check(err_rgb <= TOL[dt] and err_sig <= TOL[dt], f"{name} kernel within tolerance")
             stats[name] = dict(err=max(err_rgb, err_sig), ms=ms, plain_ms=plain_ms)
+    return stats
+
+
+def phase_render(dev, params, model, mlp, x16):
+    """B3 against its plain version on the chunk: each ray's rgb, depth and
+    acc at its head column, zeros elsewhere; CUDA-event ms of both."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+
+    wts = mlp.pack_weights(NerfField.from_jax_params(params, dev))
+    heads = torch.zeros(x16.shape[1], dtype=torch.bool, device=dev)
+    heads[::N] = True
+    stats = {}
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(wts, dt)
+            got = mlp.fused_render(w, x16, N, dt, model)
+            ref = mlp.fused_render_plain(w, x16, N, dt, model)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{name} render kernel output finite")
+            check(bool((got[:, ~heads] == 0).all()) and bool((got[5:] == 0).all()),
+                  f"{name} render kernel: zeros off the head columns")
+            err = (got[:5, heads] - ref[:5, heads]).abs().amax(1).tolist()
+            err_rgb_acc, err_depth = max(err[:3] + err[4:]), err[3]
+            del got, ref
+            ms = cuda_ms(lambda: mlp.fused_render(w, x16, N, dt, model))
+            plain_ms = cuda_ms(lambda: mlp.fused_render_plain(w, x16, N, dt, model))
+            # depth sums w * t with t up to 6: six times the rgb bound
+            print(f"B3 render kernel vs plain {name} at {x16.shape[1]} rows ({CHUNK} rays): max abs err "
+                  f"rgb/acc {err_rgb_acc:.3e} (tol {TOL[dt]:.0e}), depth {err_depth:.3e} (tol "
+                  f"{6 * TOL[dt]:.0e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5)",
+                  flush=True)
+            check(err_rgb_acc <= TOL[dt] and err_depth <= 6 * TOL[dt], f"{name} render kernel within tolerance")
+            stats[name] = dict(err=max(err), ms=ms, plain_ms=plain_ms)
+            torch.cuda.empty_cache()
     return stats
 
 
@@ -234,6 +288,55 @@ def phase_serve(dev, params, model, mlp) -> tuple[int, dict]:
           f"{frame_ms['xla']:.1f} ms; max abs rgb diff {frame_err:.3e} (tol {FRAME_TOL:.0e}), "
           f"served PNG vs xla max diff {u8_err} levels", flush=True)
     check(frame_err <= FRAME_TOL and u8_err <= 1, "served frame matches the plain backend")
+    return launches, frame_ms
+
+
+def phase_fused_frame(dev, params, model, mlp) -> tuple[int, dict]:
+    """One 400x400 frame through render_rays_chunked with fused_eval (the
+    render kernel) against the forward kernel plus torch compositing, same
+    seed, so the same ts. Returns the render kernel's launches in the f32
+    frame and the frame times."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+
+    field = NerfField.from_jax_params(params, dev, model)
+    pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, 0.0)[None], dtype=torch.float32, device=dev)
+    rays = rays_for_poses(pose, H, W, FOCAL)
+
+    def frame(dt, fused):
+        s = RenderSettings(backend="pallas", compute_dtype=dt, fused_eval=fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, disp = render_rays_chunked(field, rays, SEED, s)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, rgb, disp
+
+    mlp.fused_render.launches = 0
+    first_ms, rgb_f, disp_f = frame(torch.float32, True)  # the eval render path
+    launches = mlp.fused_render.launches
+    n_chunks = -(-H * W // CHUNK)
+    check(launches == n_chunks, "every chunk of the fused_eval frame went through the render kernel")
+    frame_ms = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        _, rgb_f, disp_f = frame(dt, True)
+        _, rgb_u, disp_u = frame(dt, False)
+        check(bool(torch.isfinite(rgb_f).all() and torch.isfinite(disp_f).all()), f"{name} fused frame finite")
+        rgb_err = (rgb_f - rgb_u).abs().max().item()
+        disp_err = ((disp_f - disp_u).abs() / disp_u.abs()).max().item()
+        # in turns: unfused, fused, fused, unfused, unfused, fused
+        t = {True: [], False: []}
+        for fused in (False, True, True, False, False, True):
+            t[fused].append(frame(dt, fused)[0])
+        frame_ms[name] = {"fused": float(np.median(t[True])), "unfused": float(np.median(t[False]))}
+        print(f"fused_eval frame {H}x{W}x{N} {name}: render kernel {frame_ms[name]['fused']:.1f} ms, "
+              f"forward kernel + torch compositing {frame_ms[name]['unfused']:.1f} ms (median of 3, "
+              f"in turns); max abs rgb diff {rgb_err:.3e} (tol {FRAME_TOL:.0e}), max rel disparity "
+              f"diff {disp_err:.3e} (tol {DISP_RTOL:.0e})", flush=True)
+        check(rgb_err <= FRAME_TOL and disp_err <= DISP_RTOL, f"{name} fused_eval frame matches")
+    print(f"render kernel launches during the f32 fused_eval frame: {launches} ({n_chunks} chunks; "
+          f"first frame {first_ms:.1f} ms)", flush=True)
     return launches, frame_ms
 
 
@@ -436,6 +539,74 @@ def phase_train(dev, scene, work, mlp):
     return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms)
 
 
+def phase_eval(dev, scene, work, mlp):
+    """evaluate.test on the trained run's test split: stills 0 and 1, the
+    normals of still 0, the orbit video (ORBIT_POSES frames)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.utils.video import read_avi
+
+    tp = load_yaml("configs/lego.yaml")["test_params"]
+    tp.update(loadpath=os.path.join(work, "models", "lego"), datapath=scene,
+              savepath=os.path.join(work, "results"), backend="pallas", compute_dtype="bf16",
+              im_idxs=[0, 1])
+    runs = {"stills": dict(animation=False),
+            "normals": dict(animation=False, im_idxs=[0], normals=True),
+            "orbit": dict(animation=True, num_poses=ORBIT_POSES)}
+    log, secs = io.StringIO(), {}
+    mlp.fused_mlp_forward.launches = 0
+    for name, extra in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            test({**tp, **extra})
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    launches = mlp.fused_mlp_forward.launches
+    text = log.getvalue()
+    with open(os.path.join(OUT, "eval_log.txt"), "w") as fh:
+        fh.write(text)
+    for line in text.splitlines():
+        print("eval:", line, flush=True)
+    psnr = {int(i): float(p) for i, p in re.findall(r"im (\d+): mse=\S+ psnr=(\S+)", text)}
+    out_dir = os.path.join(work, "results", "lego")
+    files = set(os.listdir(out_dir))
+    videos = [f for f in files if f.startswith("nerf_rgb")]
+    check({"rgb_0.png", "rgb_1.png", "depth_0.png", "depth_1.png", "normal_0.png"} <= files,
+          "stills, depth and normal PNGs written")
+    check(len(videos) == 1, "one orbit video written")
+    if videos[0].endswith(".avi"):
+        frames, fps = read_avi(os.path.join(out_dir, videos[0]))
+        check(frames.shape == (ORBIT_POSES, 400, 400, 3) and fps == 15, "the AVI holds the orbit")
+    check(sorted(psnr) == [0, 1] and min(psnr.values()) >= 20.0, "test PSNR >= 20 dB")
+    check(launches > 0, "eval rendered through the forward kernel")
+    res = dict(psnr=psnr, s_per_still=secs["stills"] / 2, s_normals=secs["normals"],
+               s_per_frame=secs["orbit"] / ORBIT_POSES, launches=launches, video=videos[0])
+    print(f"eval: test PSNR {psnr[0]:.2f} / {psnr[1]:.2f} dB; {res['s_per_still']:.2f} s a still, "
+          f"stills + normals of one {secs['normals']:.2f} s, orbit {res['s_per_frame']:.2f} s a frame "
+          f"({ORBIT_POSES} frames, cut from 30; each wall includes loading the scene); "
+          f"forward kernel launches {launches}; video {videos[0]}", flush=True)
+    return res
+
+
+def phase_probe(dev):
+    """The padding probe at full reps: kernel vs plain for each K, ms a
+    launch by differencing launch counts, the ratios."""
+    from nerf_simple_tpu_torch.probes import pad_passes
+
+    pad_passes.pad_passes.launches = 0
+    res = pad_passes.run_probe(dev)
+    launches = pad_passes.pad_passes.launches
+    for K, v in res["K"].items():
+        print(f"B4 probe K={K:3d}: {v['ms']:.4f} ms a launch ({res['reps']} x (256,{K})@({K},{res['TR']})), "
+              f"{v['tflops']:.1f} TFLOP/s at K={K}; plain {v['plain_ms']:.2f} ms; kernel vs plain "
+              f"{v['rel_err']:.2e} of max (tol {pad_passes.REL_TOL:.0e})", flush=True)
+    print(f"B4 probe ratios: K72/K128 {res['K72_over_K128']:.3f}, K72/K80 {res['K72_over_K80']:.3f}, "
+          f"K40/K128 {res['K40_over_K128']:.3f}; TR={res['TR']} columns (64 an SM); launches {launches}",
+          flush=True)
+    return res, launches
+
+
 def train_config(d):
     from nerf_simple_tpu_torch.config import train_config_from_dict
 
@@ -467,15 +638,21 @@ def main() -> None:
     from nerf_simple_tpu_torch.data.synthetic import write_blender_scene
     from nerf_simple_tpu_torch.kernels import _build, mlp
     from nerf_simple_tpu_torch.models.nerf import NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.probes import pad_passes
 
     # 2. build
-    phase_build(mlp, _build)
+    phase_build((*mlp.SOURCES, pad_passes.SOURCE), _build)
 
-    # 3-4. forward kernel vs plain; serving
+    # 3-4. forward and render kernels vs plain; serving; the fused_eval frame
     model = NerfMLP()
     params = init_nerf_params(SEED, model)
-    fwd = phase_forward(dev, params, model, mlp)
+    x16 = chunk_input(dev)
+    fwd = phase_forward(dev, params, model, mlp, x16)
+    rnd = phase_render(dev, params, model, mlp, x16)
+    del x16
+    torch.cuda.empty_cache()
     serve_launches, frame_ms = phase_serve(dev, params, model, mlp)
+    render_launches, fused_frame_ms = phase_fused_frame(dev, params, model, mlp)
 
     with tempfile.TemporaryDirectory() as work:
         scene = os.path.join(work, "scene")
@@ -487,6 +664,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         # 6. train
         tr = phase_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        # 7. eval of the trained run
+        ev = phase_eval(dev, scene, work, mlp)
+    # 8. the padding probe
+    probe, probe_launches = phase_probe(dev)
 
     def entry(name, source, replaces, launches, st, **extra):
         return {"name": name, "route": "cuda", "source": f"nerf_simple_tpu_torch/csrc/{source}",
@@ -501,13 +683,28 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("fused_mlp_forward", "fused_mlp_fwd.cu", "nerf_simple_tpu/kernels/mlp.py:669",
               serve_launches, fwd, frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
-              train_launches=tr["launches"]["fused_mlp_forward"]),
+              train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
+              eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"]),
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, grad_rel_err=b1["f32"]["rel"],
               grad_rel_err_bf16=b1["bf16"]["rel"], loss_rel_err=b1["f32"]["loss_err"],
               loss_rel_err_bf16=b1["bf16"]["loss_err"], step_ms_bf16=tr["step_ms"]),
+        entry("fused_render", "fused_render.cu", "nerf_simple_tpu/kernels/mlp.py:1734",
+              render_launches, rnd, frame_ms=fused_frame_ms["f32"]["fused"],
+              unfused_frame_ms=fused_frame_ms["f32"]["unfused"],
+              frame_ms_bf16=fused_frame_ms["bf16"]["fused"],
+              unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"]),
+        {"name": "pad_passes_probe", "route": "cuda",
+         "source": "nerf_simple_tpu_torch/csrc/pad_passes_probe.cu",
+         "replaces": "scripts/pad_passes_probe.py:82", "launches": probe_launches,
+         "max_abs_err": max(v["max_abs_err"] for v in probe["K"].values()),
+         "ms": probe["K"][72]["ms"], "plain_ms": probe["K"][72]["plain_ms"],
+         "K": {str(K): {"ms": v["ms"], "plain_ms": v["plain_ms"], "tflops": v["tflops"],
+                        "rel_err": v["rel_err"]} for K, v in probe["K"].items()},
+         "TR": probe["TR"], "reps": probe["reps"], "K72_over_K128": probe["K72_over_K128"],
+         "K72_over_K80": probe["K72_over_K80"], "K40_over_K128": probe["K40_over_K128"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,11 @@
-"""Training configuration (port of nerf_simple_tpu/config.py::TrainConfig).
+"""Training and eval configuration (port of nerf_simple_tpu/config.py::
+TrainConfig and TestConfig).
 
 The YAML keys are the JAX package's, so ``configs/lego.yaml`` loads
-unchanged. ``TrainConfig`` holds the keys this package runs, with the JAX
-defaults. A key of a feature that is not ported yet is accepted at its
-JAX default and raises ``NotImplementedError`` at any other value; any
-other unknown key warns, as the JAX reader does.
+unchanged. ``TrainConfig`` and ``TestConfig`` hold the keys this package
+runs, with the JAX defaults. A key of a feature that is not ported yet is
+accepted at its JAX default and raises ``NotImplementedError`` at any
+other value; any other unknown key warns, as the JAX reader does.
 
 The card's machine has no ``yaml``, so ``load_yaml`` reads the subset of
 YAML that the repo's configs use: ``key: value`` lines, one nested map
@@ -112,15 +113,15 @@ for _item, _keys in {
 _CROSS_SECTION_KEYS = {"test_params"}
 
 
-def _filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:
+def _filter_kwargs(cls, d: dict[str, Any], unported: dict[str, tuple[Any, str]]) -> dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     out = {}
     for k, v in d.items():
         v = tuple(v) if isinstance(v, list) else v
         if k in names:
             out[k] = v
-        elif k in _UNPORTED:
-            default, item = _UNPORTED[k]
+        elif k in unported:
+            default, item = unported[k]
             if v != default:
                 raise NotImplementedError(
                     f"config key {k}={v!r} is not ported yet (ROADMAP Queue A, {item}); "
@@ -138,7 +139,91 @@ def _filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:
 def train_config_from_dict(params: dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a reference-schema config dict (the nested
     ``test_params`` section is ignored)."""
-    return TrainConfig(**_filter_kwargs(TrainConfig, params))
+    return TrainConfig(**_filter_kwargs(TrainConfig, params, _UNPORTED))
+
+
+@dataclasses.dataclass(frozen=True)
+class TestConfig:
+    # reference keys (configs/lego.yaml:17-28)
+    loadpath: str
+    datapath: str
+    savepath: str = "./results"
+    exp_name: str = "exp"
+    batch_size: int = 16000  # rays a render chunk (rounded up to a multiple of 1,024)
+    half_res: bool = True
+    im_set: str = "test"
+    im_idxs: tuple[int, ...] = (0,)
+    animation: bool = False
+    num_poses: int = 30
+    theta: float = 30.0
+    # extensions of the JAX package that this package runs
+    tn: float = 2.0
+    tf: float = 6.0
+    N_samples: int = 128  # hardcoded 128 in the reference (rendering.py:102)
+    # the JAX TestConfig accepts it without mip; here it raises (see below)
+    opaque_background: bool = False
+    sampling_space: str = "linear"
+    compute_dtype: str = "f32"
+    backend: str = "xla"
+    seed: int = 0
+    orbit_radius: float = 4.0  # hardcoded r=4 at test.py:33
+    normals: bool = False  # also write normal_<i>.png from density gradients
+    appearance_idx: int = -1  # read only by appearance checkpoints, not ported
+
+    def __post_init__(self):
+        if self.opaque_background:
+            # the JAX TrainConfig's rule (config.py:368-373), which its
+            # TestConfig lacks (ROADMAP Queue C 3)
+            raise ValueError(
+                "opaque_background modifies INTERVAL compositing and "
+                "needs mip=True (the point path already has the 1e10 "
+                "tail absorber built in)"
+            )
+        if self.sampling_space not in ("linear", "disparity"):
+            raise ValueError(
+                f"sampling_space must be 'linear' or 'disparity', got {self.sampling_space!r}"
+            )
+        if self.sampling_space == "disparity" and self.tn <= 0:
+            raise ValueError(
+                f"sampling_space='disparity' needs tn > 0 (bins are uniform in 1/t); got tn={self.tn}"
+            )
+        if self.compute_dtype not in ("f32", "bf16"):
+            raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {self.compute_dtype!r}")
+        if self.backend not in ("xla", "pallas"):
+            raise ValueError(f"backend must be 'xla' or 'pallas', got {self.backend!r}")
+        if self.batch_size <= 0 or self.N_samples <= 0 or self.num_poses <= 0:
+            raise ValueError("batch_size, N_samples and num_poses must be positive")
+
+    @property
+    def render_dtype(self):
+        import torch
+
+        return torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
+
+
+# Keys of the JAX TestConfig whose features are not ported yet, as
+# _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
+_TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
+for _item, _keys in {
+    "hierarchical": {"Nc": 0},
+    "proposal": {"Np": 0},
+    "mip": {"mip": False, "mip_levels": 1, "resample_blur": 0.01},
+    "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
+                  "occ_aabb": 4.0, "occ_group": 1},
+    "data parallelism": {"num_data_shards": 1},
+    "LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
+}.items():
+    _TEST_UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
+
+
+def test_config_from_dict(params: dict[str, Any]) -> TestConfig:
+    """A TestConfig from the ``test_params`` sub-dict (or a full
+    reference dict holding one)."""
+    if "test_params" in params:
+        params = params["test_params"]
+    if params.get("num_data_shards") == 0:  # 0 and 1 both mean one chip
+        params = {k: v for k, v in params.items() if k != "num_data_shards"}
+    return TestConfig(**_filter_kwargs(TestConfig, params, _TEST_UNPORTED))
 
 
 # --- the YAML subset --------------------------------------------------------

@@ -17,55 +17,19 @@
 // deterministic weight-gradient sums), with the compositing between them.
 // A 64-row tile holds half a ray at N = 128, so compositing cannot run
 // inside the tile kernels as it did in the TPU kernel's 1,024-lane tiles;
-// it is its own pass, one warp a ray: each lane takes a run of
-// consecutive samples, and the ray's exclusive prefix sums (of log(1 -
-// alpha) for transmittance, of d_w * w for the suffix sums of the alpha
-// gradient) come from a warp shuffle scan over the lanes' partial sums.
+// it is its own pass, one warp a ray (csrc/composite.cuh, shared with the
+// eval render): each lane takes a run of consecutive samples, and the
+// ray's exclusive prefix sums (of log(1 - alpha) for transmittance, of
+// d_w * w for the suffix sums of the alpha gradient) come from a warp
+// shuffle scan over the lanes' partial sums.
 // The TPU kernel's segment matrix and lane rolls have no counterpart
 // here. The loss sums per-ray terms in a fixed order, so the whole step
 // is bitwise deterministic.
 
+#include "composite.cuh"
 #include "mlp_tile.cuh"
 
 namespace {
-
-__device__ __forceinline__ float softplus(float x) {
-  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.f);
-}
-
-// Exclusive prefix over the warp's lanes of v, and the warp total.
-__device__ __forceinline__ float warp_exclusive(float v, float *total) {
-  const int lane = threadIdx.x & 31;
-  float s = v;
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const float n = __shfl_up_sync(0xffffffffu, s, d);
-    if (lane >= d) s += n;
-  }
-  *total = __shfl_sync(0xffffffffu, s, 31);
-  return s - v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
-  return v;
-}
-
-struct Sample {
-  float delta, alpha, m, e;  // e = exp(-softplus(sigma) * delta)
-};
-
-__device__ __forceinline__ Sample sample_at(const float *out8, const float *x16,
-                                            long long R, long long col, int k, int N) {
-  Sample s;
-  const float t = x16[6 * R + col];
-  s.delta = k == N - 1 ? 1e10f : x16[6 * R + col + 1] - t;
-  s.e = expf(-softplus(out8[3 * R + col]) * s.delta);
-  s.alpha = 1.f - s.e;
-  s.m = fmaxf(1.f - s.alpha, 1e-10f);
-  return s;
-}
 
 // One warp a ray: g (4, R) gets w * d_rgb in rows 0..2 and d_sigma in row
 // 3; loss_ray[b] the ray's share of the loss.

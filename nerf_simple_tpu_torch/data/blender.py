@@ -14,9 +14,13 @@ Behaviour of the JAX loader, which follows the reference
 - ``num_imgs >= 0`` truncates every split to that count;
 - ``f = W / (2 tan(camera_angle_x / 2))`` from the (halved) width.
 
+- metric-depth sidecars ``<path>/depth/<split>/r_<i>.npy`` (written by
+  ``data/synthetic.py``): read when there is one for every kept image of
+  the split (a partial set warns and is ignored), halved like the images
+  under ``half_res``.
+
 Host-side numpy; the arrays go to the device once, in bulk
-(data/dataset.py). Test-split depth/normal maps and metric-depth
-sidecars are not ported.
+(data/dataset.py). The test split's depth/normal PNG maps are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import dataclasses
 import json
 import os
 import re
+import warnings
 
 import numpy as np
 
@@ -47,17 +52,19 @@ def imread_rgb(path: str, white_bkgd: bool = False) -> np.ndarray:
 
 
 def half(img: np.ndarray) -> np.ndarray:
-    """Halve both sides by the 2x2 mean of each block."""
+    """Halve both sides of an (H, W) or (H, W, C) image by the 2x2 mean of
+    each block."""
     H, W = img.shape[:2]
     if H % 2 or W % 2:
         raise ValueError(f"half_res needs even image sides, got {H}x{W}")
-    return img.reshape(H // 2, 2, W // 2, 2, -1).mean(axis=(1, 3))
+    return img.reshape(H // 2, 2, W // 2, 2, *img.shape[2:]).mean(axis=(1, 3))
 
 
 @dataclasses.dataclass
 class BlenderSplit:
     images: np.ndarray  # (N, H, W, 3) float32 in [0, 1]
     poses: np.ndarray  # (N, 4, 4) float32
+    metric_depth: np.ndarray | None = None  # (N, H, W) float32, from the sidecars
 
     def __len__(self) -> int:
         return len(self.images)
@@ -92,6 +99,22 @@ def load_blender(path: str, half_res: bool = True, num_imgs: int = -1,
             img = imread_rgb(paths[i], white_bkgd)
             imgs.append((half(img) if half_res else img).astype(np.float32))
             poses.append(np.asarray(meta["frames"][i]["transform_matrix"], np.float32))
-        splits[split] = BlenderSplit(np.stack(imgs), np.stack(poses))
+        splits[split] = BlenderSplit(np.stack(imgs), np.stack(poses),
+                                     _metric_depth(path, split, n, half_res))
     H, W = splits["test"].images.shape[1:3]
     return BlenderData(splits, H, W, float(W / (2.0 * np.tan(fov / 2.0))))
+
+
+def _metric_depth(path: str, split: str, n: int, half_res: bool) -> np.ndarray | None:
+    """The split's (n, H, W) metric depth from ``<path>/depth/<split>/
+    r_<i>.npy``, all or nothing."""
+    ddir = os.path.join(path, "depth", split)
+    if not os.path.isdir(ddir):
+        return None
+    paths = [os.path.join(ddir, f"r_{i}.npy") for i in range(n)]
+    if not all(os.path.exists(p) for p in paths):
+        warnings.warn(f"{ddir} exists but is missing some of r_0..r_{n - 1}.npy; ignoring "
+                      "metric depth for this split", stacklevel=3)
+        return None
+    maps = [np.load(p).astype(np.float32) for p in paths]
+    return np.stack([half(m).astype(np.float32) if half_res else m for m in maps])

@@ -7,9 +7,9 @@ reference's orbit (r=4, theta=-30), with ground truth rendered by the
 same compositing the model trains against (dense midpoint samples).
 ``write_blender_scene`` lays it out like nerf_synthetic (train/ val/
 test/ PNGs plus transforms_*.json with ``camera_angle_x``), so the
-Blender loader reads it like lego. The JAX package's ``hard`` and
-``unbounded`` styles, depth sidecars, train-view jitter and varied camera
-radii are not ported.
+Blender loader reads it like lego; ``write_depth`` adds the metric-depth
+sidecars. The JAX package's ``hard`` and ``unbounded`` styles, train-view
+jitter and varied camera radii are not ported.
 """
 
 from __future__ import annotations
@@ -71,23 +71,30 @@ def render_gt(
     tn: float = 2.0,
     tf: float = 6.0,
     device="cpu",
-) -> np.ndarray:
+    return_depth: bool = False,
+) -> np.ndarray | tuple[np.ndarray, np.ndarray]:
     """(P, H, W, 3) float32 ground truth in [0, 1]: the analytic field at
-    N midpoint samples a ray, composited and clipped like an eval render."""
-    imgs = []
+    N midpoint samples a ray, composited and clipped like an eval render;
+    with ``return_depth`` also the (P, H, W) expected termination depth
+    sum(w t), the quantity a trained model's composite predicts."""
+    imgs, depths = [], []
     mids = tn + (torch.arange(N, dtype=torch.float32, device=device) + 0.5) * (tf - tn) / N
     for pose in poses:
         rays = rays_for_poses(torch.as_tensor(pose[None], device=device), H, W, f)
-        rgb = []
+        rgb, depth = [], []
         for i in range(0, rays.shape[0], _CHUNK):
             r = rays[i : i + _CHUNK]
             ts = mids.expand(r.shape[0], N)
             dirs = r[:, 3:6]
             locs = r[:, None, :3] + dirs[:, None, :] * ts[..., None]
             unit = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
-            rgb.append(torch.clamp(composite(field(locs), ts, unit).rgb, 0.0, 1.0))
+            comp = composite(field(locs), ts, unit)
+            rgb.append(torch.clamp(comp.rgb, 0.0, 1.0))
+            depth.append(comp.depth)
         imgs.append(torch.cat(rgb).reshape(H, W, 3).cpu().numpy())
-    return np.stack(imgs).astype(np.float32)
+        depths.append(torch.cat(depth).reshape(H, W).cpu().numpy())
+    imgs = np.stack(imgs).astype(np.float32)
+    return (imgs, np.stack(depths).astype(np.float32)) if return_depth else imgs
 
 
 def write_blender_scene(
@@ -98,9 +105,13 @@ def write_blender_scene(
     H: int = 64,
     W: int = 64,
     device="cpu",
+    write_depth: bool = False,
 ) -> None:
     """Write the synthetic scene to ``path`` in nerf_synthetic layout, the
-    images as 8-bit RGB PNGs, with lego's field of view."""
+    images as 8-bit RGB PNGs, with lego's field of view. ``write_depth``
+    also saves each image's metric depth as ``<path>/depth/<split>/
+    r_<i>.npy``, a sidecar directory outside the split directories the
+    Blender loader lists."""
     f = W / (2.0 * np.tan(_FOV_X / 2.0))
     specs = {
         "train": orbit_cameras(n_train),
@@ -110,7 +121,12 @@ def write_blender_scene(
     for split, poses in specs.items():
         split_dir = os.path.join(path, split)
         os.makedirs(split_dir, exist_ok=True)
-        imgs = render_gt(poses, H, W, f, N=192, device=device)
+        imgs, depths = render_gt(poses, H, W, f, N=192, device=device, return_depth=True)
+        if write_depth:
+            ddir = os.path.join(path, "depth", split)
+            os.makedirs(ddir, exist_ok=True)
+            for i, d in enumerate(depths):
+                np.save(os.path.join(ddir, f"r_{i}.npy"), d)
         frames = []
         for i, (img, pose) in enumerate(zip(imgs, poses)):
             with open(os.path.join(split_dir, f"r_{i}.png"), "wb") as fh:

@@ -1,31 +1,205 @@
-"""Eval-side weight loading (port of nerf_simple_tpu/evaluate.py::load_params).
+"""Eval entry point: stills with metrics, and the orbit video (port of
+nerf_simple_tpu/evaluate.py, the point-sampled Blender path).
 
-Stills and orbit videos are not ported yet (ROADMAP Queue A).
+    python -m nerf_simple_tpu_torch.evaluate --config_path configs/lego.yaml [--device cuda|cpu]
+
+Reads the config's ``test_params`` (``TestConfig``), loads the weights,
+then either renders the orbit video (``animation``: radius
+``orbit_radius``, elevation ``-theta``, ``num_poses`` frames) or renders
+``im_idxs`` of ``im_set``: ``rgb_<i>.png`` (gt beside prediction),
+``depth_<i>.png`` (disparity over its max) and, with ``normals``,
+``normal_<i>.png``, printing mse/psnr/ssim a still and the metric-depth
+RMSE where the scene has depth sidecars. The reference's equivalent is
+``test()`` (test.py:18-45).
+
+Hierarchical, proposal, mip and occupancy eval, LLFF (spiral path, NDC),
+the tiny_nerf loader, sharded eval, pose-refined stills and Orbax
+checkpoint directories are not ported: each raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+import re
+import warnings
+from typing import Any
 
-def load_params(loadpath: str):
-    """Numpy params pytree from an npz export or a reference .pth.
-    ``{"field", ...}`` wrappers (pose/appearance training) unwrap to the
-    field; ``{coarse, fine}`` checkpoints to the fine net."""
+import numpy as np
+
+from nerf_simple_tpu_torch.config import TestConfig, load_yaml, test_config_from_dict
+
+
+def load_params(loadpath: str, return_aux: bool = False):
+    """Numpy params pytree from an npz export, a reference .pth, a
+    ``ckpt_<step>.pth`` checkpoint, or an experiment directory (its latest
+    ``ckpt_<step>.pth``). ``{"field", ...}`` wrappers (pose/appearance
+    training) unwrap to the field, and ``return_aux`` also returns the
+    rest as a dict; ``{coarse, fine}`` checkpoints give the fine net."""
+    from nerf_simple_tpu_torch.train import checkpoint as ckpt
+
+    name = os.path.basename(os.path.normpath(loadpath))
+    if os.path.isdir(loadpath) and not name.startswith("ckpt_"):
+        found = ckpt.latest_checkpoint(loadpath)
+        if found is None:
+            if any(n.startswith("ckpt_") for n in os.listdir(loadpath)):
+                raise NotImplementedError(
+                    f"{loadpath!r} holds Orbax ckpt_* directories, which are not readable "
+                    "without orbax; export the params to .npz or .pth first (ROADMAP Queue A, "
+                    "checkpoint full state)"
+                )
+            raise FileNotFoundError(f"no ckpt_*.pth under {loadpath}")
+        loadpath, name = found, os.path.basename(found)
     if loadpath.endswith(".npz"):
-        from nerf_simple_tpu_torch.train.checkpoint import import_params_npz
-
-        params = import_params_npz(loadpath)
+        params = ckpt.import_params_npz(loadpath)
+    elif re.fullmatch(r"ckpt_\d+\.pth", name):
+        params = ckpt.checkpoint_params(loadpath)
     elif loadpath.endswith((".pth", ".pt")):
-        from nerf_simple_tpu_torch.train.checkpoint import import_params_pth
-
-        params = import_params_pth(loadpath)
+        params = ckpt.import_params_pth(loadpath)
     else:
         raise NotImplementedError(
             f"{loadpath!r}: Orbax checkpoint directories are not readable "
             "without orbax; export the params to .npz or .pth first "
             "(ROADMAP Queue A, checkpoint full state)"
         )
+    aux = {}
     if isinstance(params, dict) and "field" in params:
+        aux = {k: v for k, v in params.items() if k != "field"}
         params = params["field"]
     if "fine" in params:
         params = params["fine"]
-    return params
+    return (params, aux) if return_aux else params
+
+
+def _model_for(cfg: TestConfig, params):
+    """The model of the ``model.json`` sidecar, else inferred from the
+    weight shapes, with the JAX package's warning."""
+    from nerf_simple_tpu_torch.models import infer_model
+    from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
+
+    model = load_model_meta(cfg.loadpath)
+    if model is None:
+        model = infer_model(params)
+        warnings.warn(
+            "no model.json sidecar next to the checkpoint; the "
+            "architecture was inferred from weight shapes, which "
+            "cannot recover shape-invariant fields (contract=False "
+            "assumed — a contracted checkpoint would render wrong). "
+            "Keep the sidecar with the weights.",
+            stacklevel=3,
+        )
+    return model
+
+
+def _check_aux(cfg: TestConfig, aux: dict, model) -> None:
+    """Pose deltas are not ported: a checkpoint or sidecar that has them
+    raises. Appearance codes are only dropped when the model reads none."""
+    exp = cfg.loadpath
+    if not os.path.isdir(exp) or os.path.basename(os.path.normpath(exp)).startswith("ckpt_"):
+        exp = os.path.dirname(os.path.normpath(exp))
+    sidecar = cfg.im_set == "train" and not cfg.animation and os.path.exists(
+        os.path.join(exp, "cam_deltas.npz"))
+    if "cams" in aux or sidecar:
+        raise NotImplementedError(
+            "pose-refined checkpoints (per-image camera deltas) are not ported yet: "
+            "ROADMAP Queue A, pose/appearance"
+        )
+    if "app" in aux and model.app_dim > 0:
+        raise NotImplementedError(
+            "appearance-embedding checkpoints are not ported yet: ROADMAP Queue A, pose/appearance"
+        )
+
+
+def _write_png(path: str, img: np.ndarray) -> None:
+    from nerf_simple_tpu_torch.utils.png import encode_png
+
+    with open(path, "wb") as fh:
+        fh.write(encode_png(img))
+
+
+def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
+    """Run evaluation per the reference test_params interface, on
+    ``device`` (default: the card; the CPU only when asked for)."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.ops.rays import orbit_poses
+    from nerf_simple_tpu_torch.render.renderer import (
+        RenderSettings,
+        derive_seed,
+        render_image,
+        render_normals_chunked,
+        render_orbit_video,
+    )
+    from nerf_simple_tpu_torch.train.metrics import img_mse, img_psnr, img_ssim
+    from nerf_simple_tpu_torch.utils.device import require_device
+
+    cfg = (params_or_cfg if isinstance(params_or_cfg, TestConfig)
+           else test_config_from_dict(params_or_cfg))
+    device = require_device(device)
+    if not os.path.exists(cfg.loadpath):
+        raise FileNotFoundError(f"model path doesn't exist: {cfg.loadpath}")  # test.py:19
+    out_dir = os.path.join(cfg.savepath, cfg.exp_name)
+    os.makedirs(out_dir, exist_ok=True)
+
+    params, aux = load_params(cfg.loadpath, return_aux=True)
+    model = _model_for(cfg, params)
+    _check_aux(cfg, aux, model)
+    field = NerfField.from_jax_params(params, device, model)
+    settings = RenderSettings(
+        N=cfg.N_samples, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
+        compute_dtype=cfg.render_dtype, backend=cfg.backend,
+    )
+    data = load_blender(cfg.datapath, cfg.half_res)
+    rd = RayDataset.from_blender(data, device)
+
+    if cfg.animation:
+        poses = orbit_poses(cfg.orbit_radius, -cfg.theta, cfg.num_poses)
+        out = render_orbit_video(field, poses, rd.H, rd.W, rd.f, out_dir, cfg.seed, settings,
+                                 chunk=cfg.batch_size)
+        print(f"wrote {out}")
+        return
+
+    print(f"saving images to {out_dir}")
+    n = rd.H * rd.W
+    for idx in cfg.im_idxs:
+        rgb, disp = render_image(field, rd.rays[cfg.im_set], rd.H, rd.W, idx,
+                                 derive_seed(cfg.seed, idx), settings, chunk=cfg.batch_size)
+        gt = rd.pixels[cfg.im_set][idx * n : (idx + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
+        ssim_txt = ""
+        if min(rd.H, rd.W) >= 11:  # SSIM needs one full 11x11 window
+            ssim_txt = f" ssim={img_ssim(gt, rgb):.4f}"
+        print(f"im {idx}: mse={img_mse(gt, rgb):.5f} psnr={img_psnr(gt, rgb):.2f}" + ssim_txt)
+        # gt beside prediction, like the reference's make_grid (test.py:43-44)
+        _write_png(os.path.join(out_dir, f"rgb_{idx}.png"),
+                   (np.concatenate([gt[0], rgb[0]], axis=1) * 255).astype(np.uint8))
+        d = disp[0, ..., 0]
+        md = data.splits[cfg.im_set].metric_depth
+        if md is not None:
+            # acc == 1 (the 1e10 tail delta saturates the last alpha), so
+            # the predicted depth is 1 / disparity
+            depth_pred = 1.0 / np.maximum(d, 1e-10)
+            valid = np.isfinite(md[idx]) & (md[idx] > 0)
+            rmse = float(np.sqrt(np.mean((depth_pred - md[idx])[valid] ** 2)))
+            print(f"im {idx}: depth_rmse={rmse:.4f} (metric GT)")
+        d = d / max(d.max(), 1e-9)
+        _write_png(os.path.join(out_dir, f"depth_{idx}.png"), (d * 255).astype(np.uint8))
+        if cfg.normals:
+            nrm = render_normals_chunked(field, rd.rays[cfg.im_set][idx * n : (idx + 1) * n],
+                                         derive_seed(cfg.seed, 1000 + idx), settings,
+                                         chunk=cfg.batch_size)
+            nrm = nrm.reshape(rd.H, rd.W, 3).cpu().numpy()
+            _write_png(os.path.join(out_dir, f"normal_{idx}.png"),
+                       ((nrm * 0.5 + 0.5) * 255).astype(np.uint8))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Render NeRF stills or the orbit video (PyTorch)")
+    ap.add_argument("--config_path", required=True, help="reference-schema YAML config")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda; cpu only when asked for)")
+    args = ap.parse_args(argv)
+    test(load_yaml(args.config_path), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,9 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
 - ``fused_mlp``: a ``torch.autograd.Function`` whose forward is the first
   and whose backward is the second;
 - ``fused_train_step`` (csrc/fused_train_step.cu): forward, compositing,
-  the MSE loss and the full backward of one batch of whole rays.
+  the MSE loss and the full backward of one batch of whole rays;
+- ``fused_render`` (csrc/fused_render.cu): forward and point compositing
+  of whole rays, each ray's rgb, depth and acc (the eval render).
 
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are in ``csrc/mlp_tile.cuh``.
@@ -316,6 +318,19 @@ def fused_mlp_backward_plain(
     return _backprop(wts, res, gT[:3], gT[3], compute_dtype, model)
 
 
+def _transmittance(sig: torch.Tensor, ts: torch.Tensor):
+    """Point compositing of (B, N) raw sigma at (B, N) ts, as the TPU
+    kernels composite: (delta with a 1e10 last entry, e = exp(-softplus
+    (sigma) delta), alpha = 1 - e, m = max(1 - alpha, 1e-10), T = exp of
+    the exclusive cumsum of log m)."""
+    delta = torch.cat([ts[:, 1:] - ts[:, :-1], torch.full_like(ts[:, :1], 1e10)], dim=1)
+    e = torch.exp(-torch.nn.functional.softplus(sig) * delta)
+    alpha = 1.0 - e
+    m = torch.clamp(1.0 - alpha, min=1e-10)
+    logm = torch.log(m)
+    return delta, e, alpha, m, torch.exp(torch.cumsum(logm, dim=1) - logm)
+
+
 def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int):
     """The JAX ``_composite_grad_block``, point form: per-sample raw rgb
     and sigma ``out8`` (8, B*N) and ``x16`` -> (per-ray loss (B,), d_rgb
@@ -325,14 +340,8 @@ def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int):
     scale = 1.0 / (3.0 * B)
     rgb = out8[:3].reshape(3, B, N)
     sig = out8[3].reshape(B, N)
-    ts = x16[6].reshape(B, N)
     gt = x16[8:11].reshape(3, B, N)[:, :, 0]
-    delta = torch.cat([ts[:, 1:] - ts[:, :-1], torch.full_like(ts[:, :1], 1e10)], dim=1)
-    e = torch.exp(-torch.nn.functional.softplus(sig) * delta)
-    alpha = 1.0 - e
-    m = torch.clamp(1.0 - alpha, min=1e-10)
-    logm = torch.log(m)
-    T = torch.exp(torch.cumsum(logm, dim=1) - logm)
+    delta, e, alpha, m, T = _transmittance(sig, x16[6].reshape(B, N))
     w = alpha * T
     err = (w[None] * rgb).sum(-1) - gt  # (3, B)
     loss_ray = (err * err).sum(0) * scale
@@ -357,6 +366,27 @@ def fused_train_step_plain(
     out8, res = _forward(wts, x16[:8], compute_dtype, model)
     loss_ray, g_rgb, g_sig = _composite_grad(out8, x16, N)
     return loss_ray.sum(), _backprop(wts, res, g_rgb, g_sig, compute_dtype, model)
+
+
+def fused_render_plain(
+    wts: FusedWeights,
+    x16: torch.Tensor,
+    N: int,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> torch.Tensor:
+    """Plain PyTorch version of the render kernel (see ``fused_render``):
+    the forward, then f32 compositing of whole rays."""
+    out8 = _forward(wts, x16[:8], compute_dtype, model)[0]
+    B = out8.shape[1] // N
+    ts = x16[6].reshape(B, N)
+    _, _, alpha, _, T = _transmittance(out8[3].reshape(B, N), ts)
+    w = alpha * T
+    out = torch.zeros((8, B, N), dtype=out8.dtype, device=out8.device)
+    out[:3, :, 0] = (w[None] * out8[:3].reshape(3, B, N)).sum(-1)
+    out[3, :, 0] = (w * ts).sum(-1)
+    out[4, :, 0] = w.sum(-1)
+    return out.reshape(8, B * N)
 
 
 # --- the CUDA wrappers --------------------------------------------------------
@@ -384,6 +414,10 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _P], _I),
         "fused_mlp_bwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
+    },
+    "fused_render": {
+        "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P], _I),
+        "fused_render_smem_bytes": ([_I] * 4, _LL),
     },
     "fused_train_step": {
         "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P], _I),
@@ -615,3 +649,40 @@ def fused_train_step(
 
 
 fused_train_step.launches = 0
+
+
+def fused_render(
+    wts: FusedWeights,
+    x16: torch.Tensor,
+    N: int,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> torch.Tensor:
+    """Fused forward + point compositing of whole rays (the eval render).
+
+    ``x16 (16, B*N)`` f32: rows 0..2 sample xyz, 3..5 unit view dirs, 6 ts
+    (ascending along each ray; ray b owns columns b*N .. b*N + N - 1), rows
+    7..15 not read. Returns ``(8, B*N)`` f32: at each ray's head column
+    b*N, rows 0..2 the raw rgb, row 3 the depth sum(w t), row 4 the acc
+    sum(w); zeros elsewhere. Compositing is f32 at either compute type."""
+    if model.app_dim > 0:
+        raise ValueError(
+            "the fused eval render kernel has no appearance slot; appearance "
+            "eval renders through fused_mlp_forward and torch compositing"
+        )
+    wts = _prepare(wts, compute_dtype, model)
+    if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
+        raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
+    if _dispatch(x16):
+        return fused_render_plain(wts, x16, N, compute_dtype, model)
+    lib, bf16 = _check_launch("fused_render", wts, x16, "x16", 16, compute_dtype, model)
+    out = torch.empty((8, x16.shape[1]), dtype=torch.float32, device=x16.device)
+    _raise_on(lib.fused_render(
+        x16.data_ptr(), out.data_ptr(), x16.shape[1], N, model.Lp, model.Ld, model.H, bf16,
+        _CPtrs(*_ptrs(wts)), _stream(x16),
+    ), "fused_render")
+    fused_render.launches += 1
+    return out
+
+
+fused_render.launches = 0

@@ -58,3 +58,11 @@ def spherical_to_pose(r: float, theta_deg: float, phi_deg: float) -> np.ndarray:
     trans = np.eye(4)
     trans[2, 3] = r
     return _phi_mat(np.radians(phi_deg)) @ _theta_mat(np.radians(theta_deg)) @ trans
+
+
+def orbit_poses(r: float, theta_deg: float, n_phi: int = 40) -> np.ndarray:
+    """(n_phi, 4, 4) poses sweeping phi over [0, 360] with the endpoint
+    included, so the first and last frames coincide (reference
+    ``poses_to_render``, utils/xyz.py:83-91)."""
+    phis = np.linspace(0.0, 360.0, n_phi)
+    return np.stack([spherical_to_pose(r, theta_deg, p) for p in phis])

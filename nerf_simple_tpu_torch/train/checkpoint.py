@@ -45,6 +45,11 @@ def latest_checkpoint(direc: str) -> str | None:
     return os.path.join(direc, max(found)[1]) if found else None
 
 
+def checkpoint_params(path: str):
+    """The params pytree of a ``ckpt_<step>.pth`` checkpoint."""
+    return torch.load(path, map_location="cpu", weights_only=False)["params"]
+
+
 def restore_checkpoint(path: str, state) -> None:
     """Load a checkpoint into ``state`` (a TrainState of the same model),
     in place."""

@@ -37,6 +37,7 @@ from nerf_simple_tpu_torch.train.step import (
     lr_schedule,
     make_train_state,
 )
+from nerf_simple_tpu_torch.utils.device import require_device
 from nerf_simple_tpu_torch.utils.tb import Logger, run_log_dir
 
 
@@ -95,13 +96,13 @@ class SteadyStateMeter:
         return self.iters_per_sec * self.rays_per_iter
 
 
-def train(params_or_cfg: dict[str, Any] | TrainConfig, device=None) -> TrainState:
+def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainState:
     """Run training from a reference-schema config dict or a TrainConfig,
-    on ``device`` (default: the card if there is one). Returns the final
-    TrainState."""
+    on ``device`` (default: the card; the CPU only when asked for).
+    Returns the final TrainState."""
     cfg = (params_or_cfg if isinstance(params_or_cfg, TrainConfig)
            else train_config_from_dict(params_or_cfg))
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = require_device(device)
     model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H)
     exp_dir = os.path.join(cfg.savepath, cfg.exp_name)
     ckpt.save_model_meta(exp_dir, model)
@@ -192,6 +193,6 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Train a NeRF (PyTorch port)")
     ap.add_argument("--config_path", required=True, help="reference-schema YAML config")
-    ap.add_argument("--device", default=None, help="torch device (default: cuda if present)")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda; cpu only when asked for)")
     args = ap.parse_args(argv)
     train(load_yaml(args.config_path), device=args.device)

@@ -4,7 +4,7 @@ The card's machine has no cv2 or imageio, so the port reads and writes
 PNGs itself. ``decode_png`` takes what image writers produce for 8-bit
 truecolour images: RGB or RGBA, non-interlaced, every row filter of the
 PNG specification (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth).
-``encode_png`` writes unfiltered rows.
+``encode_png`` writes unfiltered rows of RGB, RGBA or 8-bit greyscale.
 """
 
 from __future__ import annotations
@@ -24,13 +24,16 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3|4) uint8 RGB or RGBA -> PNG bytes (filter 0 on every row)."""
-    if img.ndim != 3 or img.shape[2] not in (3, 4) or img.dtype != np.uint8:
-        raise ValueError(f"need (H, W, 3|4) uint8, got {img.shape} {img.dtype}")
+    """(H, W, 3|4) uint8 RGB or RGBA, or (H, W) uint8 greyscale -> PNG
+    bytes (filter 0 on every row)."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3, 4) or img.dtype != np.uint8:
+        raise ValueError(f"need (H, W) or (H, W, 3|4) uint8, got {img.shape} {img.dtype}")
     H, W, C = img.shape
     raw = np.zeros((H, 1 + C * W), np.uint8)
     raw[:, 1:] = img.reshape(H, C * W)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, 2 if C == 3 else 6, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, {1: 0, 3: 2, 4: 6}[C], 0, 0, 0)
     return (_SIG + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))

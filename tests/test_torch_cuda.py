@@ -1,5 +1,6 @@
-"""The CUDA kernels (fused MLP forward, backward, train step) against
-their plain PyTorch versions, on the card. Imports no JAX, so it runs on a machine with the card alone:
+"""The CUDA kernels (fused MLP forward, backward, train step and render;
+the padding probe) against their plain PyTorch versions, on the card.
+Imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
@@ -195,3 +196,42 @@ def test_fused_mlp_autograd_on_the_card(dev):
     (out[:4] ** 2).sum().backward()
     assert mlp.fused_mlp_backward.launches == before + 1
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in field.parameters())
+
+
+# --- the render kernel (B3) and the padding probe (B4) ---------------------------------
+
+# B3 vs plain: the forward's bounds (TOL) on raw rgb; depth sums w * t with
+# t up to 6, so 6x that; acc within TOL. Rows 5..7 and non-head columns 0.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 24),
+                                         (NerfMLP(Lp=3, Ld=1, H=48), 3, 5),
+                                         (NerfMLP(), 40, 128)],
+                         ids=["small-ragged", "odd-widths-short-rays", "flagship"])
+def test_render_kernel_matches_plain(dev, model, B, N, dtype):
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(B, N, dev)
+    before = mlp.fused_render.launches
+    got = mlp.fused_render(wts, x16, N, dtype, model)
+    torch.cuda.synchronize()
+    assert mlp.fused_render.launches == before + 1
+    want = mlp.fused_render_plain(wts, x16, N, dtype, model)
+    assert got.shape == (8, B * N) and bool(torch.isfinite(got).all())
+    heads = torch.zeros(B * N, dtype=torch.bool, device=dev)
+    heads[::N] = True
+    assert bool((got[:, ~heads] == 0).all()) and bool((got[5:] == 0).all())
+    err = (got[:5, heads] - want[:5, heads]).abs().amax(1)
+    assert err[[0, 1, 2, 4]].max().item() <= TOL[dtype] and err[3].item() <= 6 * TOL[dtype], err
+
+
+@pytest.mark.parametrize("K", [40, 72, 80, 128])
+def test_probe_kernel_matches_plain(dev, K):
+    from nerf_simple_tpu_torch.probes import pad_passes
+
+    x, W = pad_passes.inputs(K, 200, dev)  # 200 columns: a ragged last block
+    before = pad_passes.pad_passes.launches
+    got = pad_passes.pad_passes(x, W, 4)
+    torch.cuda.synchronize()
+    assert pad_passes.pad_passes.launches == before + 1
+    want = pad_passes.pad_passes_plain(x, W, 4)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -175,8 +175,12 @@ def test_params_npz_and_pth_round_trip(tmp_path):
     with open(tmp_path / "model.json", "w") as fh:
         json.dump({"family": "nerf", "Lp": 4, "Ld": 2, "H": 32, "contract": False, "app_dim": 0}, fh)
     assert checkpoint.load_model_meta(npz) == SMALL
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="ckpt_"):  # no checkpoint in the directory
         load_params(str(tmp_path))
+    (tmp_path / "ckpt_5").mkdir()  # a JAX run's Orbax checkpoint directory
+    for path in (tmp_path, tmp_path / "ckpt_5"):
+        with pytest.raises(NotImplementedError, match="Orbax"):
+            load_params(str(path))
 
 
 def test_port_imports_no_jax():

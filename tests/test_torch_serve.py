@@ -85,10 +85,10 @@ def test_chunked_equals_unchunked_and_pads_with_last_ray():
 
 
 def test_render_settings_reject_unported():
-    for kw in ({"N_coarse": 64}, {"N_prop": 32}, {"mip": True}, {"fused_eval": True},
-               {"sigma_noise": 1.0}):
+    for kw in ({"N_coarse": 64}, {"N_prop": 32}, {"mip": True}, {"sigma_noise": 1.0}):
         with pytest.raises(NotImplementedError, match="not ported"):
             RenderSettings(**kw)
+    assert RenderSettings(fused_eval=True, backend="pallas").fused_eval  # the fused render kernel
     with pytest.raises(ValueError, match="backend"):
         RenderSettings(backend="cuda")
     field = NerfField.from_jax_params(init_nerf_params(0, SMALL), "cpu")
