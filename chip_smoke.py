@@ -23,24 +23,32 @@ NerfMLP(Lp=10, Ld=4, H=256):
    4096-ray x 128-sample batch drawn from the synthetic scene), f32 and
    bf16: per-tensor gradient errors, loss error, CUDA-event times, and
    the train step's bitwise determinism;
-6. train: writes the synthetic scene (25 train, 2 val, 2 test images at
+6. wgrad: the backward's twelve weight-gradient sums alone at 524,288
+   rows (probes/wgrad.py), f32 and bf16: the kernel in one launch (as B1
+   and B2 run it) and as twelve calls, against float64 sums, the plain
+   version and the library call torch.mm + sum (timed, never used);
+7. train: writes the synthetic scene (25 train, 2 val, 2 test images at
    800x800, loaded at half resolution), trains through ``train()`` (what
    ``python -m nerf_simple_tpu_torch.train`` runs) with lego.yaml's keys,
    ``backend: pallas``, ``compute_dtype: bf16``; checks the launch count,
    the loss, the val PSNR, a resume and that the server serves the
    exported params; then a few f32 steps from one state through the
    fused step, the two-kernel autograd path (fused_mlp: forward kernel
-   and B2) and the plain path, whose losses must agree;
-7. eval: ``evaluate.test`` (what ``python -m nerf_simple_tpu_torch.
+   and B2) and the plain path, whose losses must agree; the bf16 step's
+   kernel time by kernel (torch.profiler) and the device's idle share;
+8. eval: ``evaluate.test`` (what ``python -m nerf_simple_tpu_torch.
    evaluate`` runs) on the trained scene's test split with lego.yaml's
    test_params, ``backend: pallas``, ``compute_dtype: bf16``: stills 0
    and 1 with their PSNR, normals of still 0, and the orbit video cut to
    ORBIT_POSES frames (lego.yaml asks for 30);
-8. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+9. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
-line. The line before the last is one JSON object with the kernels; the
+line. The line before the last is one JSON object with the kernels, each
+with its bound (utils/roofline.py: the larger of its operations over the
+card's peak rate and its bytes over the memory rate) and the time of one
+PyTorch library call computing the same function where there is one; the
 last names the device. The build and train logs go
 to smoke_logs/.
 """
@@ -438,6 +446,52 @@ def phase_backward_and_step(dev, params, model, mlp, x16):
     return stats
 
 
+def phase_wgrad(dev):
+    """The twelve weight-gradient sums alone (probes/wgrad.py): kernel vs
+    float64 sums of the operands as stored (REL_TOL there: f32 1e-4, bf16
+    1e-3 of the largest entry, for the reasons stated beside it) and no
+    less accurate than the plain version; kernel, library and plain ms."""
+    from nerf_simple_tpu_torch.probes import wgrad
+
+    res = wgrad.run(dev)  # raises on a failed check
+    for name in ("f32", "bf16"):
+        v = res[name]
+        print(f"wgrad {name}, twelve sums at {res['rows']} rows: kernel {v['ms']:.3f} ms in one launch "
+              f"({v['ms_single']:.3f} ms as twelve calls), library torch.mm + sum {v['library_ms']:.3f} ms, "
+              f"plain {v['plain_ms']:.3f} ms (median of 5, in turns); bound {v['bound_ms']:.3f} ms "
+              f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; {v['tflops']:.1f} TFLOP/s, "
+              f"{v['gb_s']:.0f} GB/s; from float64 of the operands as stored: kernel {v['rel_err']:.2e} "
+              f"(twelve calls {v['single_rel_err']:.2e}), plain {v['plain_rel_err']:.2e} of max (tol "
+              f"{wgrad.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e}); kernel vs plain "
+              f"max abs {v['max_abs_err']:.3e}; launches {v['launches']}", flush=True)
+    return res
+
+
+def profile_step(step) -> dict:
+    """Device time of each kernel group in one call of ``step`` (ms, mean of
+    10 calls after 3 warm-up) under torch.profiler; {} when the profiler
+    sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+    groups = (("sums", "sums_"), ("sums_reduce", "reduce_kernel"), ("bwd_tile", "bwd_kernel"),
+              ("fwd_tile", "fwd_kernel"), ("compositing", "composite_grad"), ("compositing", "sum_kernel"))
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        group = next((g for g, key in groups if key in e.name), "other")
+        out[group] = out.get(group, 0.0) + e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
+    return out
+
+
 def scalars(log_dir: str, tag: str) -> list[float]:
     rows = []
     for path in glob.glob(os.path.join(log_dir, "run_*", "scalars.csv")):
@@ -465,6 +519,7 @@ def phase_train(dev, scene, work, mlp):
                ckpt_images=150, ckpt_model=150, steps_per_call=50)
     log = io.StringIO()
     mlp.fused_train_step.launches = mlp.fused_mlp_forward.launches = mlp.fused_mlp_backward.launches = 0
+    mlp.wgrad_sums_launches(reset=True)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         state = train(cfg)
@@ -472,7 +527,8 @@ def phase_train(dev, scene, work, mlp):
     train_s = time.perf_counter() - t0
     launches = dict(fused_train_step=mlp.fused_train_step.launches,
                     fused_mlp_forward=mlp.fused_mlp_forward.launches,
-                    fused_mlp_backward=mlp.fused_mlp_backward.launches)
+                    fused_mlp_backward=mlp.fused_mlp_backward.launches,
+                    wgrad_sums=mlp.wgrad_sums_launches())
     cfg.update(resume=True, num_iters=iters + more)
     with contextlib.redirect_stdout(log):
         state = train(cfg)
@@ -491,6 +547,7 @@ def phase_train(dev, scene, work, mlp):
           f"val PSNR(0) {', '.join(f'{p:.2f}' for p in psnr)} dB", flush=True)
     check(launches["fused_train_step"] == iters, "one fused train-step launch a step")
     check(launches["fused_mlp_forward"] > 0, "val renders went through the forward kernel")
+    check(launches["wgrad_sums"] == iters, "one launch of the weight-gradient sums a step")
     check(all(np.isfinite(losses)) and len(losses) == iters + more, "every loss logged and finite")
     check(last <= 0.5 * first, "the loss at least halved")
     check(psnr[-1] > psnr[0], "val PSNR rose")
@@ -516,6 +573,12 @@ def phase_train(dev, scene, work, mlp):
     step_ms = cuda_ms(lambda: [step_fn(state, rays, pixels) for _ in range(20)]) / 20
     print(f"train step bf16 steady state: {step_ms:.3f} ms a step, "
           f"{BATCH / step_ms * 1e3:,.0f} rays/s (CUDA events over 20 steps, median of 5)", flush=True)
+    prof = profile_step(lambda: step_fn(state, rays, pixels))
+    busy = sum(prof.values())
+    print("train step bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {step_ms:.3f} ms, idle share {1 - busy / step_ms:.3f}"
+        if prof else "not measured (the profiler saw no device activity)"), flush=True)
 
     # f32: fused step, two-kernel path (forward kernel + B2), plain path
     cfg32 = train_config({**cfg, "compute_dtype": "f32"})
@@ -536,7 +599,7 @@ def phase_train(dev, scene, work, mlp):
           f"{b2_launches}", flush=True)
     check(diff <= STEP_TOL, "fused, two-kernel and plain steps agree")
     check(b2_launches == 5, "the two-kernel path went through B2 once a step")
-    return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms)
+    return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms, profile=prof)
 
 
 def phase_eval(dev, scene, work, mlp):
@@ -638,7 +701,8 @@ def main() -> None:
     from nerf_simple_tpu_torch.data.synthetic import write_blender_scene
     from nerf_simple_tpu_torch.kernels import _build, mlp
     from nerf_simple_tpu_torch.models.nerf import NerfMLP, init_nerf_params
-    from nerf_simple_tpu_torch.probes import pad_passes
+    from nerf_simple_tpu_torch.probes import pad_passes, wgrad
+    from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
     # 2. build
     phase_build((*mlp.SOURCES, pad_passes.SOURCE), _build)
@@ -662,38 +726,75 @@ def main() -> None:
         # 5. B2 and B1 vs plain at the training batch
         bwd = phase_backward_and_step(dev, params, model, mlp, train_batch(dev, scene))
         torch.cuda.empty_cache()
-        # 6. train
+        # 6. the weight-gradient sums alone
+        wg = phase_wgrad(dev)
+        torch.cuda.empty_cache()
+        # 7. train
         tr = phase_train(dev, scene, work, mlp)
         torch.cuda.empty_cache()
-        # 7. eval of the trained run
+        # 8. eval of the trained run
         ev = phase_eval(dev, scene, work, mlp)
-    # 8. the padding probe
+    # 9. the padding probe
     probe, probe_launches = phase_probe(dev)
 
-    def entry(name, source, replaces, launches, st, **extra):
+    # bounds from the shapes (utils/roofline.py): MACs a row of the forward
+    # (every packed matrix once) and of B1/B2 (forward recompute, W^T g of
+    # the nine transposed matrices, the weight-gradient sums); the bytes
+    # each kernel must move, its f32 inputs and outputs
+    shapes = mlp._weight_shapes(model)
+    fwd_macs = sum(o * k for o, k in shapes.values() if k != 1)
+    train_macs = 2 * fwd_macs + sum(shapes[n][0] * shapes[n][1] for n in mlp._TRANSPOSED)
+    grad_bytes = 4 * sum(o * k for o, k in shapes.values())
+    chunk_rows, batch_rows = CHUNK * N, BATCH * N_SAMPLES
+
+    def bounds(flops, nbytes, nbytes_bf16=None):
+        nb = nbytes if nbytes_bf16 is None else nbytes_bf16
+        return {"bound_ms": bound_ms(flops, nbytes, torch.float32),
+                "bound_by": bound_by(flops, nbytes, torch.float32),
+                "bound_ms_bf16": bound_ms(flops, nb, torch.bfloat16),
+                "bound_by_bf16": bound_by(flops, nb, torch.bfloat16)}
+
+    def entry(name, source, replaces, launches, st, work, library=(None, None), **extra):
         return {"name": name, "route": "cuda", "source": f"nerf_simple_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": st["f32"]["err"],
-                "ms": st["f32"]["ms"], "plain_ms": st["f32"]["plain_ms"],
-                "max_abs_err_bf16": st["bf16"]["err"], "ms_bf16": st["bf16"]["ms"],
-                "plain_ms_bf16": st["bf16"]["plain_ms"], **extra}
+                "ms": st["f32"]["ms"], "plain_ms": st["f32"]["plain_ms"], **bounds(*work),
+                "library_ms": library[0], "max_abs_err_bf16": st["bf16"]["err"],
+                "ms_bf16": st["bf16"]["ms"], "plain_ms_bf16": st["bf16"]["plain_ms"],
+                "library_ms_bf16": library[1], **extra}
 
     b2 = {k: bwd[f"B2_{k}"] for k in ("f32", "bf16")}
     b1 = {k: bwd[f"B1_{k}"] for k in ("f32", "bf16")}
+    sums = {k: dict(err=wg[k]["max_abs_err"], ms=wg[k]["ms"], plain_ms=wg[k]["plain_ms"])
+            for k in ("f32", "bf16")}
+    (wg_flops, wg_bytes), (_, wg_bytes_bf16) = (wgrad.work(model, wg["rows"], dt)
+                                                for dt in (torch.float32, torch.bfloat16))
+    probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
+                   for K in probe["K"]}
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_mlp_forward", "fused_mlp_fwd.cu", "nerf_simple_tpu/kernels/mlp.py:669",
-              serve_launches, fwd, frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
+              serve_launches, fwd, (2 * fwd_macs * chunk_rows, 64 * chunk_rows),
+              frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
-              tr["b2_launches"], b2, grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"]),
+              tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
+              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"]),
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
-              tr["launches"]["fused_train_step"], b1, grad_rel_err=b1["f32"]["rel"],
-              grad_rel_err_bf16=b1["bf16"]["rel"], loss_rel_err=b1["f32"]["loss_err"],
-              loss_rel_err_bf16=b1["bf16"]["loss_err"], step_ms_bf16=tr["step_ms"]),
+              tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
+              grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],
+              loss_rel_err=b1["f32"]["loss_err"], loss_rel_err_bf16=b1["bf16"]["loss_err"],
+              step_ms_bf16=tr["step_ms"], step_profile_ms_bf16=tr["profile"]),
+        entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
+              tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
+              (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),
+              replaces_also="nerf_simple_tpu/kernels/mlp.py:1081",
+              ms_twelve_calls=wg["f32"]["ms_single"], ms_twelve_calls_bf16=wg["bf16"]["ms_single"],
+              rel_err_f64=wg["f32"]["rel_err"], rel_err_f64_bf16=wg["bf16"]["rel_err"],
+              plain_rel_err_f64=wg["f32"]["plain_rel_err"], plain_rel_err_f64_bf16=wg["bf16"]["plain_rel_err"]),
         entry("fused_render", "fused_render.cu", "nerf_simple_tpu/kernels/mlp.py:1734",
-              render_launches, rnd, frame_ms=fused_frame_ms["f32"]["fused"],
-              unfused_frame_ms=fused_frame_ms["f32"]["unfused"],
+              render_launches, rnd, (2 * fwd_macs * chunk_rows, 96 * chunk_rows),
+              frame_ms=fused_frame_ms["f32"]["fused"], unfused_frame_ms=fused_frame_ms["f32"]["unfused"],
               frame_ms_bf16=fused_frame_ms["bf16"]["fused"],
               unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"]),
         {"name": "pad_passes_probe", "route": "cuda",
@@ -701,8 +802,9 @@ def main() -> None:
          "replaces": "scripts/pad_passes_probe.py:82", "launches": probe_launches,
          "max_abs_err": max(v["max_abs_err"] for v in probe["K"].values()),
          "ms": probe["K"][72]["ms"], "plain_ms": probe["K"][72]["plain_ms"],
-         "K": {str(K): {"ms": v["ms"], "plain_ms": v["plain_ms"], "tflops": v["tflops"],
-                        "rel_err": v["rel_err"]} for K, v in probe["K"].items()},
+         "bound_ms": probe_bound[72], "bound_by": "operations", "library_ms": None,
+         "K": {str(K): {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": probe_bound[K],
+                        "tflops": v["tflops"], "rel_err": v["rel_err"]} for K, v in probe["K"].items()},
          "TR": probe["TR"], "reps": probe["reps"], "K72_over_K128": probe["K72_over_K128"],
          "K72_over_K80": probe["K72_over_K80"], "K40_over_K128": probe["K40_over_K128"]},
     ]}))

@@ -26,9 +26,10 @@
 //  2. the backward tile kernel (the forward's layout and matmul loop,
 //     with transposed weights) takes each layer's cotangent back through
 //     W^T and the relu mask and writes it to the workspace;
-//  3. per layer, dW = G A^T over all rows: 64 x 64 output tiles split
-//     over <= 64 row chunks, partial sums reduced in a fixed order, so
+//  3. per layer, dW = G A^T over all rows (csrc/wgrad.cuh): output tiles
+//     split over row chunks, partial sums reduced in a fixed order, so
 //     the result is bitwise deterministic. Bias sums ride the same pass.
+// wgrad_sums runs one of those sums alone, for tests and timing.
 // bf16 rounds where _backprop_tile does: both operands of every product,
 // f32 sums; cotangents are stored rounded, as each use rounds them.
 
@@ -59,6 +60,48 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
   if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, s)) return e;
   return backward(g, rows, Lp, Ld, H, is_bf16, wt, ws.res, ws.gws, ws.part, out, s);
+}
+
+// Launches of the weight-gradient sums kernel by this library so far;
+// with `reset`, the count restarts from 0 after it is read.
+long long wgrad_launch_count(int reset) {
+  const long long n = wgrad_launches;
+  if (reset) wgrad_launches = 0;
+  return n;
+}
+
+// Bytes of the partial-sum scratch wgrad_sums needs.
+long long wgrad_part_bytes(int O, int K, long long Rp, int is_bf16) {
+  const WTask t{nullptr, nullptr, O, K, nullptr, nullptr};
+  return 4LL * wgrad_part_floats(&t, 1, Rp, is_bf16);
+}
+
+// Bytes of the partial-sum scratch wgrad_group needs.
+long long wgrad_group_part_bytes(const WTask *tasks, int n, long long Rp, int is_bf16) {
+  return 4LL * wgrad_part_floats(tasks, n, Rp, is_bf16);
+}
+
+// n <= 12 weight-gradient sums (as wgrad_sums below) in one launch and
+// one reduce, as the backward runs its twelve.
+int wgrad_group(const WTask *tasks, int n, long long Rp, int is_bf16, void *part, void *stream) {
+  for (int i = 0; i < n; ++i) {
+    const WTask &t = tasks[i];
+    if (t.O < 1 || t.K < 1 || t.O > MAX_H || t.K > MAX_H ||
+        (reinterpret_cast<uintptr_t>(t.G) | reinterpret_cast<uintptr_t>(t.A)) % 16)
+      return (int)cudaErrorInvalidValue;
+  }
+  return wgrad_launch(tasks, n, Rp, is_bf16, static_cast<float *>(part),
+                      static_cast<cudaStream_t>(stream));
+}
+
+// One weight-gradient sum alone: dW (O, K) = G A^T and db (O) the row sums of G
+// (db may be null), for planes G (O, Rp) and A (K, Rp) in the compute
+// type, 1 <= O, K <= 256, Rp a multiple of 64, both 16-byte aligned.
+// Launches on `stream`; returns the first CUDA error (0 on success).
+int wgrad_sums(const void *G, int O, const void *A, int K, long long Rp, int is_bf16,
+               float *dW, float *db, void *part, void *stream) {
+  const WTask t{G, A, O, K, dW, db};
+  return wgrad_group(&t, 1, Rp, is_bf16, part, stream);
 }
 
 }  // extern "C"

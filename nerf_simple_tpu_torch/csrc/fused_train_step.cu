@@ -136,6 +136,14 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
   return f > b ? f : b;
 }
 
+// Launches of the weight-gradient sums kernel by this library so far;
+// with `reset`, the count restarts from 0 after it is read.
+long long wgrad_launch_count(int reset) {
+  const long long n = wgrad_launches;
+  if (reset) wgrad_launches = 0;
+  return n;
+}
+
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `loss` is one f32 on the device.
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,

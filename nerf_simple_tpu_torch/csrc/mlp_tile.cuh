@@ -1,7 +1,7 @@
 // Device code shared by the fused NeRF MLP kernels for Hopper (sm_90a):
 // the forward tile kernels (csrc/fused_mlp_fwd.cu, and the first pass of
-// the two training entries), the backward tile kernels, the weight-
-// gradient reduction and the compositing pass of the train step.
+// the two training entries) and the backward tile kernels, with the
+// backward's task table for the weight-gradient sums (csrc/wgrad.cuh).
 //
 // Layout (the TPU kernels' packed layout, kernels/mlp.py::pack_weights):
 // activations feature-major (features, rows); weights (out, in)
@@ -17,7 +17,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "wgrad.cuh"
 
 // Field order of pack_weights' FusedWeights. Outside the anonymous
 // namespace: the extern "C" entries take it, and a parameter type with
@@ -603,148 +603,35 @@ long long bwd_smem_bytes(int H) { return 2LL * (2 * TR * ld(H) + ceil32(H) * LDW
 }  // namespace tc
 
 // ----------------------------------------------------------------------
-// Weight gradients: dW[o][k] = sum over rows of G[o][r] * A[k][r] for one
-// (cotangent plane, residual plane) pair, split over S row chunks. Block
-// (bo, bk, s) sums its chunk for a 64 x 64 output tile into part[s][o][k]
-// (and, for bk = 0 with a bias, sum_r G[o][r] into part[s][O*K + o]);
-// reduce_kernel then adds the S partials in order. Deterministic: every
-// sum runs in a fixed order.
-constexpr int WG = 64;   // output tile
-constexpr int WR = 32;   // rows staged per step
-
-// f32: SIMT, thread (ty, tx) owns o = ty*4 + i, k = tx*4 + j.
-__global__ void __launch_bounds__(THREADS)
-    wgrad_f32(const float *__restrict__ G, int O, const float *__restrict__ A, int K,
-              long long Rp, long long chunk, int with_bias, float *part) {
-  __shared__ __align__(16) float Gs[WR][WG + 4];
-  __shared__ __align__(16) float As[WR][WG + 4];
-  const int o0 = blockIdx.x * WG, k0 = blockIdx.y * WG;
-  const long long r_begin = blockIdx.z * chunk, r_end = min(Rp, r_begin + chunk);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const bool do_bias = with_bias && blockIdx.y == 0;
-  float acc[4][4] = {}, bsum = 0.f;
-  for (long long r0 = r_begin; r0 < r_end; r0 += WR) {
-    for (int idx = threadIdx.x; idx < 2 * WG * (WR / 4); idx += THREADS) {
-      const bool isA = idx >= WG * (WR / 4);
-      const int id = isA ? idx - WG * (WR / 4) : idx;
-      const int f = id / (WR / 4), c = (id % (WR / 4)) * 4;
-      const int feat = (isA ? k0 : o0) + f;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (feat < (isA ? K : O))
-        v = *reinterpret_cast<const float4 *>((isA ? A : G) + feat * Rp + r0 + c);
-      float(*S)[WG + 4] = isA ? As : Gs;
-      S[c][f] = v.x; S[c + 1][f] = v.y; S[c + 2][f] = v.z; S[c + 3][f] = v.w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < WR; ++r) {
-      const float4 gv = *reinterpret_cast<const float4 *>(&Gs[r][ty * 4]);
-      const float4 av = *reinterpret_cast<const float4 *>(&As[r][tx * 4]);
-      const float gg[4] = {gv.x, gv.y, gv.z, gv.w}, aa[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gg[i], aa[j], acc[i][j]);
-    }
-    if (do_bias && threadIdx.x < WG)
-      for (int r = 0; r < WR; ++r) bsum += Gs[r][threadIdx.x];
-    __syncthreads();
-  }
-  float *out = part + blockIdx.z * ((long long)O * K + O);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + ty * 4 + i, k = k0 + tx * 4 + j;
-      if (o < O && k < K) out[(long long)o * K + k] = acc[i][j];
-    }
-  if (do_bias && threadIdx.x < WG && o0 + threadIdx.x < O)
-    out[(long long)O * K + o0 + threadIdx.x] = bsum;
-}
-
-// bf16: mma.sync. Warp w owns o rows 16*(w%4).. and k columns 32*(w/4)..
-// (four n8 tiles). Both planes stage [feature][row]: the contraction runs
-// along rows, contiguous in both.
-constexpr int WLD = WR + 8;  // 20-word rows: conflict-free fragment loads
-
-__global__ void __launch_bounds__(THREADS)
-    wgrad_bf16(const bf16 *__restrict__ G, int O, const bf16 *__restrict__ A, int K,
-               long long Rp, long long chunk, int with_bias, float *part) {
-  __shared__ __align__(16) bf16 Gs[WG * WLD];
-  __shared__ __align__(16) bf16 As[WG * WLD];
-  const int o0 = blockIdx.x * WG, k0 = blockIdx.y * WG;
-  const long long r_begin = blockIdx.z * chunk, r_end = min(Rp, r_begin + chunk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, mo = (warp & 3) * 16, nk = (warp >> 2) * 32;
-  const bool do_bias = with_bias && blockIdx.y == 0;
-  float acc[4][4] = {}, bsum = 0.f;
-  for (long long r0 = r_begin; r0 < r_end; r0 += WR) {
-    for (int idx = threadIdx.x; idx < 2 * WG * (WR / 8); idx += THREADS) {
-      const bool isA = idx >= WG * (WR / 8);
-      const int id = isA ? idx - WG * (WR / 8) : idx;
-      const int f = id / (WR / 8), c = (id % (WR / 8)) * 8;
-      const int feat = (isA ? k0 : o0) + f;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (feat < (isA ? K : O))
-        v = *reinterpret_cast<const uint4 *>((isA ? A : G) + feat * Rp + r0 + c);
-      *reinterpret_cast<uint4 *>((isA ? As : Gs) + f * WLD + c) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < WR; ks += 16) {
-      uint32_t a[4];
-      const bf16 *w0 = Gs + (mo + g) * WLD + ks + 2 * t;
-      a[0] = tc::ld32(w0);
-      a[1] = tc::ld32(w0 + 8 * WLD);
-      a[2] = tc::ld32(w0 + 8);
-      a[3] = tc::ld32(w0 + 8 * WLD + 8);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16 *x0 = As + (nk + nt * 8 + g) * WLD + ks + 2 * t;
-        tc::mma(acc[nt], a, tc::ld32(x0), tc::ld32(x0 + 8));
-      }
-    }
-    if (do_bias && threadIdx.x < WG)
-      for (int r = 0; r < WR; ++r) bsum += __bfloat162float(Gs[threadIdx.x * WLD + r]);
-    __syncthreads();
-  }
-  float *out = part + blockIdx.z * ((long long)O * K + O);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int o = o0 + mo + g + (q >= 2 ? 8 : 0), k = k0 + nk + nt * 8 + 2 * t + (q & 1);
-      if (o < O && k < K) out[(long long)o * K + k] = acc[nt][q];
-    }
-  if (do_bias && threadIdx.x < WG && o0 + threadIdx.x < O)
-    out[(long long)O * K + o0 + threadIdx.x] = bsum;
-}
-
-// dW[i] = sum_s part[s][i] (i < O*K); db[o] = sum_s part[s][O*K + o].
-__global__ void reduce_kernel(const float *__restrict__ part, int S, int O, int K,
-                              float *dW, float *db) {
-  const long long n = (long long)O * K + O;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || (i >= (long long)O * K && !db)) return;
-  float s = 0.f;
-  for (int z = 0; z < S; ++z) s += part[z * n + i];
-  if (i < (long long)O * K) dW[i] = s;
-  else db[i - (long long)O * K] = s;
-}
-
-// Row splits of the weight-gradient sums: enough blocks to fill the card
-// at the training batch, few enough partials to stay small.
-inline int wgrad_splits(long long Rp) { return (int)std::min(64LL, Rp / TR); }
-
-long long max_part_floats(const Layout &L) {
+// The twelve weight-gradient sums of the backward, as csrc/wgrad.cuh
+// takes them: cotangent plane gf (O features) of gws against residual
+// plane af (K features) of res (element size es; null for sizing), into
+// dW and db.
+void wgrad_tasks(const Layout &L, const Grads &out, const void *res, const void *gws,
+                 long long es, WTask w[12]) {
+  struct Task { int gf, O, af, K; float *dW, *db; };
   const int H = L.H, H2 = L.H2;
-  const int OK[5][2] = {{8, H2}, {H2, L.FD}, {H2 + 8, H}, {H, H}, {H, L.FX}};
-  long long m = 0;
-  for (auto &p : OK) m = std::max(m, (long long)p[0] * p[1] + p[0]);
-  return m;
+  const Task t[12] = {
+      {L.gr8(), 8, L.hc(), H2, out.Wc1, out.bc1},
+      {L.gcs(), H2, L.posd(), L.FD, out.Wcd, nullptr},
+      {L.gcs(), H2 + 8, L.h(7), H, out.Wcs, out.bcs},
+      {L.gh(7), H, L.h(6), H, out.Wp1, out.bp1},
+      {L.gh(6), H, L.h(5), H, out.Wp0, out.bp0},
+      {L.gh(5), H, L.h(4), H, out.Wsh, out.bs},
+      {L.gh(5), H, L.posx(), L.FX, out.Wsx, nullptr},
+      {L.gh(4), H, L.h(3), H, out.Wt4, out.bt4},
+      {L.gh(3), H, L.h(2), H, out.Wt3, out.bt3},
+      {L.gh(2), H, L.h(1), H, out.Wt2, out.bt2},
+      {L.gh(1), H, L.h(0), H, out.Wt1, out.bt1},
+      {L.gh(0), H, L.posx(), L.FX, out.W1, out.b1},
+  };
+  for (int i = 0; i < 12; ++i) {
+    const char *g = gws ? static_cast<const char *>(gws) + es * t[i].gf * L.Rp : nullptr;
+    const char *a = res ? static_cast<const char *>(res) + es * t[i].af * L.Rp : nullptr;
+    w[i] = WTask{g, a, t[i].O, t[i].K, t[i].dW, t[i].db};
+  }
 }
 
-// ----------------------------------------------------------------------
 // Backward from output cotangents: the tile kernel, then the twelve
 // weight-gradient sums. `res` holds the forward's residuals; gws and part
 // are scratch.
@@ -766,42 +653,9 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
         static_cast<const float *>(res), static_cast<float *>(gws));
   }
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-
-  struct Task { int gf, O, af, K; float *dW, *db; };
-  const int H2 = L.H2;
-  const Task tasks[12] = {
-      {L.gr8(), 8, L.hc(), H2, out.Wc1, out.bc1},
-      {L.gcs(), H2, L.posd(), L.FD, out.Wcd, nullptr},
-      {L.gcs(), H2 + 8, L.h(7), H, out.Wcs, out.bcs},
-      {L.gh(7), H, L.h(6), H, out.Wp1, out.bp1},
-      {L.gh(6), H, L.h(5), H, out.Wp0, out.bp0},
-      {L.gh(5), H, L.h(4), H, out.Wsh, out.bs},
-      {L.gh(5), H, L.posx(), L.FX, out.Wsx, nullptr},
-      {L.gh(4), H, L.h(3), H, out.Wt4, out.bt4},
-      {L.gh(3), H, L.h(2), H, out.Wt3, out.bt3},
-      {L.gh(2), H, L.h(1), H, out.Wt2, out.bt2},
-      {L.gh(1), H, L.h(0), H, out.Wt1, out.bt1},
-      {L.gh(0), H, L.posx(), L.FX, out.W1, out.b1},
-  };
-  const int S = wgrad_splits(L.Rp);
-  const long long chunk = ((L.Rp + S - 1) / S + WR - 1) / WR * WR;
-  for (const Task &tk : tasks) {
-    const dim3 wg((tk.O + WG - 1) / WG, (tk.K + WG - 1) / WG, S);
-    if (is_bf16)
-      wgrad_bf16<<<wg, THREADS, 0, stream>>>(
-          static_cast<const bf16 *>(gws) + tk.gf * L.Rp, tk.O,
-          static_cast<const bf16 *>(res) + tk.af * L.Rp, tk.K, L.Rp, chunk,
-          tk.db != nullptr, part);
-    else
-      wgrad_f32<<<wg, THREADS, 0, stream>>>(
-          static_cast<const float *>(gws) + tk.gf * L.Rp, tk.O,
-          static_cast<const float *>(res) + tk.af * L.Rp, tk.K, L.Rp, chunk,
-          tk.db != nullptr, part);
-    const long long n = (long long)tk.O * tk.K + tk.O;
-    reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, S, tk.O, tk.K, tk.dW, tk.db);
-    if (cudaError_t e = cudaGetLastError()) return (int)e;
-  }
-  return 0;
+  WTask tasks[12];
+  wgrad_tasks(L, out, res, gws, is_bf16 ? 2 : 4, tasks);
+  return wgrad_launch(tasks, 12, L.Rp, is_bf16, part, stream);
 }
 
 // Forward of all rows through the tile kernel of the compute type; with
@@ -847,7 +701,9 @@ Workspace carve(void *base, long long rows, int Lp, int Ld, int H, int is_bf16) 
   const Layout L = make_layout(rows, Lp, Ld, H);
   const long long es = is_bf16 ? 2 : 4;
   const long long a = align256(es * L.FA() * L.Rp), b = align256(es * L.FG() * L.Rp);
-  const long long c = align256(4LL * wgrad_splits(L.Rp) * max_part_floats(L));
+  WTask tasks[12];
+  wgrad_tasks(L, Grads{}, nullptr, nullptr, es, tasks);
+  const long long c = align256(4LL * wgrad_part_floats(tasks, 12, L.Rp, is_bf16));
   char *p = static_cast<char *>(base);
   return Workspace{p, p + a, reinterpret_cast<float *>(p + a + b), a + b + c};
 }

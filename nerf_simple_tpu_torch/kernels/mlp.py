@@ -11,7 +11,11 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
 - ``fused_train_step`` (csrc/fused_train_step.cu): forward, compositing,
   the MSE loss and the full backward of one batch of whole rays;
 - ``fused_render`` (csrc/fused_render.cu): forward and point compositing
-  of whole rays, each ray's rgb, depth and acc (the eval render).
+  of whole rays, each ray's rgb, depth and acc (the eval render);
+- ``weight_grad`` and ``weight_grads`` (csrc/wgrad.cuh, through
+  csrc/fused_mlp_bwd.cu): the backward's weight-gradient sums alone,
+  ``G A^T`` and the row sums of ``G``, one or up to twelve a launch, as
+  B1 and B2 run them.
 
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are in ``csrc/mlp_tile.cuh``.
@@ -260,6 +264,14 @@ def fused_mlp_forward_plain(
     return _forward(wts, xT, compute_dtype, model)[0]
 
 
+def weight_grad_plain(G: torch.Tensor, A: torch.Tensor, dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the weight-gradient sums: ``(G A^T, row sums of
+    G)`` for planes ``G (O, rows)`` and ``A (K, rows)``, both operands
+    rounded to ``dt`` and summed in f32 (the JAX ``mmT_acc`` and
+    ``dbias``); the bias sums G as stored, rounded to ``dt``."""
+    return _mm(G, A.T, dt), _rnd(G, dt).sum(1)
+
+
 def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
               g_sig: torch.Tensor, dt, model: NerfMLP) -> FusedWeights:
     """The JAX ``_backprop_tile`` from per-sample cotangents ``g_rgb (3,
@@ -276,11 +288,9 @@ def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
     def back(W, g, act):  # mask(act) * W^T g
         return _mm(W.T, g, dt) * (act > 0)
 
-    def dW(g, act):
-        return _mm(g, act.T, dt)
-
-    def db(g):
-        return _rnd(g, dt).sum(1, keepdim=True)
+    def sums(g, act):  # the kernels' twelve weight-gradient sums: (dW, db (O, 1))
+        dW, db = weight_grad_plain(g, act, dt)
+        return dW, db[:, None]
 
     g8 = torch.zeros((8, rows), dtype=g_rgb.dtype, device=g_rgb.device)
     g8[:3] = g_rgb
@@ -291,17 +301,16 @@ def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
     for l, W in ((6, wts.Wp1), (5, wts.Wp0), (4, wts.Wsh), (3, wts.Wt4),
                  (2, wts.Wt3), (1, wts.Wt2), (0, wts.Wt1)):
         g_h[l] = back(W, g_h[l + 1], h[l])
+    (W1, b1), (Wt1, bt1), (Wt2, bt2), (Wt3, bt3), (Wt4, bt4) = (
+        sums(g_h[0], res.posx), sums(g_h[1], h[0]), sums(g_h[2], h[1]),
+        sums(g_h[3], h[2]), sums(g_h[4], h[3]))
+    (Wsh, bs), (Wp0, bp0), (Wp1, bp1) = sums(g_h[5], h[4]), sums(g_h[6], h[5]), sums(g_h[7], h[6])
+    (Wcs, bcs), (Wc1, bc1) = sums(g_cs, h[7]), sums(g8, res.hc)
     return FusedWeights(
-        W1=dW(g_h[0], res.posx), b1=db(g_h[0]),
-        Wt1=dW(g_h[1], h[0]), bt1=db(g_h[1]),
-        Wt2=dW(g_h[2], h[1]), bt2=db(g_h[2]),
-        Wt3=dW(g_h[3], h[2]), bt3=db(g_h[3]),
-        Wt4=dW(g_h[4], h[3]), bt4=db(g_h[4]),
-        Wsh=dW(g_h[5], h[4]), Wsx=dW(g_h[5], res.posx), bs=db(g_h[5]),
-        Wp0=dW(g_h[6], h[5]), bp0=db(g_h[6]),
-        Wp1=dW(g_h[7], h[6]), bp1=db(g_h[7]),
-        Wcs=dW(g_cs, h[7]), bcs=db(g_cs), Wcd=dW(g_hc, res.posd),
-        Wc1=dW(g8, res.hc), bc1=db(g8),
+        W1=W1, b1=b1, Wt1=Wt1, bt1=bt1, Wt2=Wt2, bt2=bt2, Wt3=Wt3, bt3=bt3,
+        Wt4=Wt4, bt4=bt4, Wsh=Wsh, Wsx=sums(g_h[5], res.posx)[0], bs=bs,
+        Wp0=Wp0, bp0=bp0, Wp1=Wp1, bp1=bp1, Wcs=Wcs, bcs=bcs,
+        Wcd=sums(g_hc, res.posd)[0], Wc1=Wc1, bc1=bc1,
     )
 
 
@@ -414,6 +423,11 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _P], _I),
         "fused_mlp_bwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
+        "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
+        "wgrad_part_bytes": ([_I, _I, _LL, _I], _LL),
+        "wgrad_group": ([_P, _I, _LL, _I, _P, _P], _I),
+        "wgrad_group_part_bytes": ([_P, _I, _LL, _I], _LL),
+        "wgrad_launch_count": ([_I], _LL),
     },
     "fused_render": {
         "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P], _I),
@@ -423,6 +437,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P], _I),
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
+        "wgrad_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -686,3 +701,103 @@ def fused_render(
 
 
 fused_render.launches = 0
+
+
+WGRAD_ROW_MULTIPLE = 64  # rows of a plane come in whole 64-row tiles, as in the workspace
+WGRAD_MAX_SUMS = 12  # sums of one launch: the backward's twelve
+
+
+class _CWTask(ctypes.Structure):
+    """The C ``WTask``: one sum's planes, widths and outputs."""
+
+    _fields_ = [("G", ctypes.c_void_p), ("A", ctypes.c_void_p), ("O", ctypes.c_int),
+                ("K", ctypes.c_int), ("dW", ctypes.c_void_p), ("db", ctypes.c_void_p)]
+
+
+def _check_planes(G: torch.Tensor, A: torch.Tensor) -> None:
+    ok_dtype = G.dtype in (torch.float32, torch.bfloat16) and A.dtype == G.dtype
+    if not ok_dtype or G.dim() != 2 or A.dim() != 2:
+        raise ValueError(f"G and A must be 2-d planes, both f32 or both bf16; got "
+                         f"{tuple(G.shape)} {G.dtype} and {tuple(A.shape)} {A.dtype}")
+    (O, R), K = G.shape, A.shape[0]
+    if A.shape[1] != R or R == 0 or R % WGRAD_ROW_MULTIPLE:
+        raise ValueError(f"G and A need the same rows, a positive multiple of "
+                         f"{WGRAD_ROW_MULTIPLE}; got {tuple(G.shape)} and {tuple(A.shape)}")
+    if not (1 <= O <= _MAX_H and 1 <= K <= _MAX_H):
+        raise ValueError(f"the kernel takes 1 <= O, K <= {_MAX_H}; got O={O}, K={K}")
+    if not (G.is_contiguous() and A.is_contiguous()) or A.device != G.device:
+        raise ValueError("G and A must be contiguous planes on one device")
+    if G.device.type == "cuda" and (G.data_ptr() | A.data_ptr()) % 16:
+        raise ValueError("the kernel's 16-byte copies need 16-byte aligned planes")
+
+
+def weight_grads(sums) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """Up to 12 weight-gradient sums at once, as the backward runs its
+    twelve: ``sums`` is a list of ``(G, A, bias)``, every plane pair as
+    ``weight_grad`` takes it, all of one type and row count on one device.
+    On the card they run in one launch of the sums kernel (and one of its
+    reduce); returns ``[(dW, db or None), ...]``."""
+    sums = list(sums)
+    if not 1 <= len(sums) <= WGRAD_MAX_SUMS:
+        raise ValueError(f"1 to {WGRAD_MAX_SUMS} sums a launch; got {len(sums)}")
+    for G, A, _ in sums:
+        _check_planes(G, A)
+    G0 = sums[0][0]
+    if any(G.dtype != G0.dtype or G.shape[1] != G0.shape[1] or G.device != G0.device
+           for G, _, _ in sums):
+        raise ValueError("the sums of one launch share a type, a row count and a device")
+    if _dispatch(G0):
+        return [(dW, db if bias else None)
+                for (dW, db), (_, _, bias) in zip((weight_grad_plain(G, A, G.dtype) for G, A, _ in sums), sums)]
+    lib, bf16, R = _lib("fused_mlp_bwd"), int(G0.dtype == torch.bfloat16), G0.shape[1]
+    out = [(torch.empty((G.shape[0], A.shape[0]), dtype=torch.float32, device=G.device),
+            torch.empty((G.shape[0],), dtype=torch.float32, device=G.device) if bias else None)
+           for G, A, bias in sums]
+    tasks = (_CWTask * len(sums))(*[
+        _CWTask(G.data_ptr(), A.data_ptr(), G.shape[0], A.shape[0], dW.data_ptr(),
+                db.data_ptr() if db is not None else None)
+        for (G, A, _), (dW, db) in zip(sums, out)])
+    ptr = ctypes.cast(tasks, ctypes.c_void_p)
+    part = torch.empty(lib.wgrad_group_part_bytes(ptr, len(sums), R, bf16), dtype=torch.uint8,
+                       device=G0.device)
+    _raise_on(lib.wgrad_group(ptr, len(sums), R, bf16, part.data_ptr(), _stream(G0)), "wgrad_group")
+    weight_grad.launches += 1
+    return out
+
+
+def weight_grad(
+    G: torch.Tensor, A: torch.Tensor, bias: bool = True
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One weight-gradient sum of the backward, alone: for planes ``G (O,
+    R)`` and ``A (K, R)``, both f32 or both bf16, returns ``dW = G A^T``
+    ``(O, K)`` f32 and, with ``bias``, ``db`` ``(O,)`` f32, the row sums
+    of ``G`` (else None). ``1 <= O, K <= 256`` and R a multiple of 64, as
+    the backward's workspace holds them; pad rows of zeros add nothing.
+    ``weight_grad.launches`` counts the kernel's launches by this wrapper
+    and by ``weight_grads``."""
+    _check_planes(G, A)
+    if _dispatch(G):
+        dW, db = weight_grad_plain(G, A, G.dtype)
+        return dW, db if bias else None
+    (O, R), K = G.shape, A.shape[0]
+    lib, bf16 = _lib("fused_mlp_bwd"), int(G.dtype == torch.bfloat16)
+    dW = torch.empty((O, K), dtype=torch.float32, device=G.device)
+    db = torch.empty((O,), dtype=torch.float32, device=G.device) if bias else None
+    part = torch.empty(lib.wgrad_part_bytes(O, K, R, bf16), dtype=torch.uint8, device=G.device)
+    _raise_on(lib.wgrad_sums(G.data_ptr(), O, A.data_ptr(), K, R, bf16, dW.data_ptr(),
+                             db.data_ptr() if bias else None, part.data_ptr(), _stream(G)),
+              "wgrad_sums")
+    weight_grad.launches += 1
+    return dW, db
+
+
+weight_grad.launches = 0
+
+
+def wgrad_sums_launches(reset: bool = False) -> int:
+    """Launches of the weight-gradient sums kernel (csrc/wgrad.cuh) so far,
+    counted inside the libraries that launch it: B1 and B2 run it from C,
+    ``weight_grad`` through B2's library. Libraries not yet loaded count
+    0 and are not built. With ``reset``, the counts restart from 0."""
+    return sum(_lib(name).wgrad_launch_count(int(reset))
+               for name in ("fused_mlp_bwd", "fused_train_step") if name in _build._loaded)

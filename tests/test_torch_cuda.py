@@ -235,3 +235,82 @@ def test_probe_kernel_matches_plain(dev, K):
     want = pad_passes.pad_passes_plain(x, W, 4)
     assert bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# --- the weight-gradient sums alone (csrc/wgrad.cuh) ------------------------------
+
+def _wgrad_shapes(model):
+    from nerf_simple_tpu_torch.probes import wgrad
+
+    return [(s.O, s.K, s.bias) for s in wgrad.sums(model)[0]]
+
+
+WGRAD_SHAPES = sorted(set(_wgrad_shapes(NerfMLP()) + _wgrad_shapes(NerfMLP(Lp=4, Ld=2, H=32))))
+# Against float64 sums of the operands as stored, over the largest entry:
+# f32 rounds each add to nearest; bf16 tensor-core adds do not (B4), so
+# 1e-3 there (chip_smoke.py, probes/wgrad.py). Against plain (f32 sums of
+# the same rounded operands in another order) the same bounds hold.
+WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("O, K, bias", WGRAD_SHAPES, ids=[f"{o}x{k}" + ("" if b else "-nobias")
+                                                           for o, k, b in WGRAD_SHAPES])
+def test_weight_grad_kernel_matches_plain_and_f64(dev, O, K, bias, dtype):
+    rows = 64 * 1001  # not a multiple of any row split
+    rng = np.random.default_rng(O * 1000 + K)
+    u, v = rng.random((O, rows), dtype=np.float32), rng.random((K, rows), dtype=np.float32)
+    G = torch.from_numpy(np.where(u < 0.5, 0.0, 4 * (u - 0.75)).astype(np.float32)).to(dev, dtype)
+    A = torch.from_numpy(np.where(v < 0.5, 0.0, 2 * (v - 0.5)).astype(np.float32)).to(dev, dtype)
+    before = mlp.weight_grad.launches
+    dW, db = mlp.weight_grad(G, A, bias)
+    torch.cuda.synchronize()
+    assert mlp.weight_grad.launches == before + 1
+    assert dW.shape == (O, K) and dW.dtype == torch.float32 and (db is None) != bias
+    want_dW, want_db = mlp.weight_grad_plain(G, A, dtype)
+    ref_dW, ref_db = G.double() @ A.double().T, G.double().sum(1)
+    scale = ref_dW.abs().max().item()
+    for got, want, ref in ((dW, want_dW, ref_dW), (db, want_db, ref_db)):
+        if got is None:
+            continue
+        assert (got - ref).abs().max().item() <= WGRAD_TOL[dtype] * scale
+        assert (got - want).abs().max().item() <= WGRAD_TOL[dtype] * scale
+    dW2, db2 = mlp.weight_grad(G, A, bias)  # deterministic
+    assert torch.equal(dW, dW2) and (db is None or torch.equal(db, db2))
+
+
+def test_weight_grad_kernel_rejects_misaligned_planes(dev):
+    G = torch.zeros(8 * 128 + 1, device=dev)[1:].view(8, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        mlp.weight_grad(G, torch.zeros(16, 128, device=dev))
+
+
+def test_train_step_counts_its_weight_gradient_sums(dev):
+    model = NerfMLP(Lp=4, Ld=2, H=32)
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev))
+    mlp.fused_train_step(wts, _x16(4, 16, dev), 16, torch.float32, model)
+    mlp.wgrad_sums_launches(reset=True)
+    mlp.fused_train_step(wts, _x16(4, 16, dev), 16, torch.float32, model)
+    assert mlp.wgrad_sums_launches() >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_weight_grads_in_one_launch_match_plain(dev, dtype):
+    """The flagship's twelve sums in one launch, as the backward runs them."""
+    from nerf_simple_tpu_torch.probes import wgrad
+
+    ss, FG, FA = wgrad.sums(NerfMLP())
+    G, A = wgrad.planes(FG, FA, 64 * 1001, dev, seed=3)
+    G, A = G.to(dtype), A.to(dtype)
+    pairs = [(G[s.gf : s.gf + s.O], A[s.af : s.af + s.K], s.bias) for s in ss]
+    before = mlp.weight_grad.launches
+    got = mlp.weight_grads(pairs)
+    torch.cuda.synchronize()
+    assert mlp.weight_grad.launches == before + 1
+    for (g, a, bias), (dW, db) in zip(pairs, got):
+        want_dW, want_db = mlp.weight_grad_plain(g, a, dtype)
+        scale = want_dW.abs().max().item()
+        assert (dW - want_dW).abs().max().item() <= WGRAD_TOL[dtype] * scale
+        assert db is None if not bias else (db - want_db).abs().max().item() <= WGRAD_TOL[dtype] * scale
+    again = mlp.weight_grads(pairs)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(got, again))
