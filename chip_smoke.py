@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before CSRC]
 
 Drives the port (nerf_simple_tpu_torch) at the flagship width,
 NerfMLP(Lp=10, Ld=4, H=256):
@@ -8,7 +8,9 @@ NerfMLP(Lp=10, Ld=4, H=256):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
-   at once; prints the build time and ptxas registers and spills;
+   at once; prints the build time and ptxas registers and spills (the
+   bf16 forward tile kernel, csrc/fwd_bf16.cuh, is built into four of
+   them);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -22,7 +24,12 @@ NerfMLP(Lp=10, Ld=4, H=256):
 5. backward (B2) and train step (B1) vs plain: at 524,288 rows (a
    4096-ray x 128-sample batch drawn from the synthetic scene), f32 and
    bf16: per-tensor gradient errors, loss error, CUDA-event times, and
-   the train step's bitwise determinism;
+   the train step's bitwise determinism; with ``--before CSRC`` (a copy
+   of an earlier commit's csrc/, e.g. ``git archive <commit>
+   nerf_simple_tpu_torch/csrc`` unpacked under a gitignored build/), the
+   earlier bf16 forward tile kernel is built from it and timed beside the
+   current one, in turns, at the render chunk and inside B1 (step ms and
+   the profiled forward-tile group);
 6. wgrad: the backward's twelve weight-gradient sums alone at 524,288
    rows (probes/wgrad.py), f32 and bf16: the kernel in one launch (as B1
    and B2 run it) and as twelve calls, against float64 sums, the plain
@@ -55,8 +62,10 @@ to smoke_logs/.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
+import ctypes
 import dataclasses
 import glob
 import io
@@ -164,6 +173,113 @@ def grad_errors(got, want) -> tuple[float, float]:
     """(max over tensors of max abs error / max abs plain, max abs error)."""
     rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() for g, w in zip(got, want))
     return rel, max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def build_before(csrc: str, _build) -> dict:
+    """The forward and train-step sources of another copy of csrc/ (the
+    kernels a change replaces), built with the package's nvcc flags into
+    <csrc>/../build/, one nvcc each in parallel; returns their ctypes
+    libraries by source name."""
+    out = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build")
+    os.makedirs(out, exist_ok=True)
+    jobs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o",
+                                 os.path.join(out, f"{n}.so"), os.path.join(csrc, f"{n}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in ("fused_mlp_fwd", "fused_train_step")}
+    libs = {}
+    for n, proc in jobs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"build of the earlier {n}.cu:\n{log}")
+        libs[n] = ctypes.CDLL(os.path.join(out, f"{n}.so"))
+    return libs
+
+
+def phase_before_after(dev, params, model, mlp, x16_chunk, x16_batch, libs) -> dict:
+    """The earlier bf16 forward tile kernel beside the current one, in
+    turns (earlier, current, current, earlier, median of each): alone at
+    the chunk, and inside B1 at the training batch (step ms and the
+    profiled forward-tile group). Both must match the plain version."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+
+    dt = torch.bfloat16
+    w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), dt)
+    cw = mlp._CPtrs(*mlp._ptrs(w))
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fwd, step = libs["fused_mlp_fwd"], libs["fused_train_step"]
+    fwd.fused_mlp_fwd.argtypes = [P, P, LL, I, I, I, I, mlp._CPtrs, P]
+    fwd.fused_mlp_fwd.restype = I
+    step.fused_train_step.argtypes, step.fused_train_step.restype = mlp._SIGNATURES[
+        "fused_train_step"]["fused_train_step"]
+    step.fused_train_step_workspace_bytes.argtypes = [LL, I, I, I, I, I]
+    step.fused_train_step_workspace_bytes.restype = LL
+    xT = x16_chunk[:8].contiguous()
+    rows = xT.shape[1]
+    out_old = torch.empty((8, rows), dtype=torch.float32, device=dev)
+
+    def old_fwd():
+        mlp._raise_on(fwd.fused_mlp_fwd(xT.data_ptr(), out_old.data_ptr(), rows, model.Lp, model.Ld,
+                                        model.H, 1, cw, mlp._stream(xT)), "earlier fused_mlp_fwd")
+
+    def new_fwd():
+        return mlp.fused_mlp_forward(w, xT, dt, model)
+
+    res = {}
+    with torch.inference_mode():
+        old_fwd()
+        got = new_fwd()
+        ref = mlp.fused_mlp_forward_plain(w, xT, dt, model)
+        err_old = (out_old[:4] - ref[:4]).abs().max().item()
+        err_new = (got[:4] - ref[:4]).abs().max().item()
+        del got, ref
+        check(err_old <= TOL[dt] and err_new <= TOL[dt], "earlier and current bf16 forward match plain")
+        t = {"earlier": [], "current": []}
+        for which in ("earlier", "current", "current", "earlier"):
+            t[which].append(cuda_ms(old_fwd if which == "earlier" else new_fwd))
+        res["fwd_ms"] = {k: float(np.median(v)) for k, v in t.items()}
+        res["fwd_err"] = {"earlier": err_old, "current": err_new}
+    torch.cuda.empty_cache()
+
+    R, Nb = x16_batch.shape[1], N_SAMPLES
+    wt = mlp._transposed(w)
+    ws = torch.empty(step.fused_train_step_workspace_bytes(R, Nb, model.Lp, model.Ld, model.H, 1),
+                     dtype=torch.uint8, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    grads = mlp._empty_grads(model, dev)
+    cg = mlp._CPtrs(*mlp._ptrs(grads))
+
+    def old_step():
+        mlp._raise_on(step.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, 1,
+                                            cw, wt, ws.data_ptr(), loss.data_ptr(), cg, mlp._stream(x16_batch)),
+                      "earlier fused_train_step")
+
+    def new_step():
+        return mlp.fused_train_step(w, x16_batch, Nb, dt, model)
+
+    with torch.no_grad():
+        old_step()
+        l_new, g_new = new_step()
+        rel = grad_errors(g_new, grads)[0]
+        check(abs(l_new.item() / loss.item() - 1) <= LOSS_TOL[dt] and rel <= GRAD_TOL["B1", dt],
+              "current B1 bf16 matches the earlier kernels")
+        del g_new
+        t = {"earlier": [], "current": []}
+        for which in ("earlier", "current", "current", "earlier"):
+            t[which].append(cuda_ms(old_step if which == "earlier" else new_step))
+        res["b1_ms"] = {k: float(np.median(v)) for k, v in t.items()}
+        res["b1_profile"] = {"earlier": profile_step(old_step), "current": profile_step(new_step)}
+        res["b1_grad_rel"] = rel
+    del ws
+    torch.cuda.empty_cache()
+    f, b = res["fwd_ms"], res["b1_ms"]
+    print(f"before/after bf16 forward at {rows} rows: earlier tile kernel {f['earlier']:.3f} ms, current "
+          f"{f['current']:.3f} ms (median of 2 x 5, in turns); vs plain max abs err earlier "
+          f"{res['fwd_err']['earlier']:.3e}, current {res['fwd_err']['current']:.3e}", flush=True)
+    print(f"before/after B1 bf16 at {R} rows: earlier {b['earlier']:.3f} ms, current {b['current']:.3f} ms; "
+          "profiled ms a call: " + "; ".join(
+              f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
+              for k, p in res["b1_profile"].items())
+          + f"; current vs earlier grads {rel:.2e} of max", flush=True)
+    return res
 
 
 def phase_build(sources, _build) -> None:
@@ -482,7 +598,8 @@ def profile_step(step) -> dict:
             step()
         torch.cuda.synchronize()
     groups = (("sums", "sums_"), ("sums_reduce", "reduce_kernel"), ("bwd_tile", "bwd_kernel"),
-              ("fwd_tile", "fwd_kernel"), ("compositing", "composite_grad"), ("compositing", "sum_kernel"))
+              ("fwd_tile", "fwd_kernel"), ("weight_image", "image_kernel"), ("compositing", "composite_grad"),
+              ("compositing", "sum_kernel"))
     out: dict = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -683,6 +800,10 @@ def scene_focal(scene: str) -> float:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch / CUDA port on one GPU.")
+    ap.add_argument("--before", metavar="CSRC", help="a csrc/ directory of an earlier commit (kept out "
+                    "of the committed tree): its bf16 forward tile kernel is timed beside the current one")
+    args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke test runs on the card only")
@@ -726,6 +847,10 @@ def main() -> None:
         # 5. B2 and B1 vs plain at the training batch
         bwd = phase_backward_and_step(dev, params, model, mlp, train_batch(dev, scene))
         torch.cuda.empty_cache()
+        before = None
+        if args.before:  # 5b. the earlier bf16 forward tile kernel beside the current one
+            before = phase_before_after(dev, params, model, mlp, chunk_input(dev), train_batch(dev, scene),
+                                        build_before(args.before, _build))
         # 6. the weight-gradient sums alone
         wg = phase_wgrad(dev)
         torch.cuda.empty_cache()
@@ -770,10 +895,14 @@ def main() -> None:
                                                 for dt in (torch.float32, torch.bfloat16))
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
+    fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_mlp_forward", "fused_mlp_fwd.cu", "nerf_simple_tpu/kernels/mlp.py:669",
               serve_launches, fwd, (2 * fwd_macs * chunk_rows, 64 * chunk_rows),
+              tflops_bf16=2 * fwd_macs * chunk_rows / (fwd["bf16"]["ms"] * 1e9),
+              share_of_bound_bf16=fwd_bound_bf16 / fwd["bf16"]["ms"],
+              source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh", before_after=before,
               frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),

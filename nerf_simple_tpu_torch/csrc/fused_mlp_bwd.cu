@@ -58,7 +58,7 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
-  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, s)) return e;
+  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
   return backward(g, rows, Lp, Ld, H, is_bf16, wt, ws.res, ws.gws, ws.part, out, s);
 }
 

@@ -19,8 +19,9 @@
 // some 35 us at 3.35 TB/s against the forward's ~18 ms in bf16.
 //
 // Design: two passes on one stream. The forward tile kernel of
-// mlp_tile.cuh writes raw rgb and sigma into `out` itself (64-row tiles:
-// half a ray at N = 128, so the tile kernel cannot composite). Then one
+// mlp_tile.cuh writes raw rgb and sigma into `out` itself (64- or 128-row
+// tiles: a ray at N = 128 may span two, so the tile kernel cannot
+// composite). Then one
 // warp a ray composites in place: every lane reads its run of samples,
 // the warp sums, and only after __syncwarp do the lanes overwrite the
 // ray's columns with the head values and zeros. No workspace.
@@ -69,13 +70,19 @@ long long fused_render_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
   return fwd_smem(Lp, Ld, H, is_bf16);
 }
 
+// Bytes of the scratch `image` fused_render needs (0 for f32).
+long long fused_render_image_bytes(int Lp, int Ld, int H, int is_bf16) {
+  return fwd_image_bytes(Lp, Ld, H, is_bf16);
+}
+
 // Launches on `stream` and returns the first CUDA error (0 on success).
-// The caller allocates `out` (8, rows) f32 and checks shapes and types.
+// The caller allocates `out` (8, rows) f32 and the scratch `image`, and
+// checks shapes and types.
 int fused_render(const float *x16, float *out, long long rows, int N, int Lp, int Ld, int H,
-                 int is_bf16, Weights w, void *stream) {
+                 int is_bf16, Weights w, void *image, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int e = forward(x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, s)) return e;
+  if (int e = forward(x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, s)) return e;
   const long long B = rows / N;
   const int rays_per_block = THREADS / 32;
   composite_render<<<(unsigned)((B + rays_per_block - 1) / rays_per_block), THREADS, 0, s>>>(

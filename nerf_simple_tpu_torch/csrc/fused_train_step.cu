@@ -15,8 +15,9 @@
 // Design: the forward tile kernel and the backward of csrc/
 // fused_mlp_bwd.cu (mlp_tile.cuh: residuals in a device-memory workspace,
 // deterministic weight-gradient sums), with the compositing between them.
-// A 64-row tile holds half a ray at N = 128, so compositing cannot run
-// inside the tile kernels as it did in the TPU kernel's 1,024-lane tiles;
+// A tile of 64 rows (128 in the bf16 forward) holds half a ray or one
+// at N = 128, and rays need not line up with tiles, so compositing cannot
+// run inside the tile kernels as it did in the TPU kernel's 1,024-lane tiles;
 // it is its own pass, one warp a ray (csrc/composite.cuh, shared with the
 // eval render): each lane takes a run of consecutive samples, and the
 // ray's exclusive prefix sums (of log(1 - alpha) for transmittance, of
@@ -154,7 +155,7 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
   const int B = (int)(rows / N);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   const StepScratch sc = step_scratch(workspace, ws, rows);
-  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, s)) return e;
+  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
   const int rays_per_block = THREADS / 32;
   composite_grad<<<(B + rays_per_block - 1) / rays_per_block, THREADS, 0, s>>>(
       sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray);

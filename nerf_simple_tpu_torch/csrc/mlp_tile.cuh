@@ -1,7 +1,8 @@
 // Device code shared by the fused NeRF MLP kernels for Hopper (sm_90a):
 // the forward tile kernels (csrc/fused_mlp_fwd.cu, and the first pass of
-// the two training entries) and the backward tile kernels, with the
-// backward's task table for the weight-gradient sums (csrc/wgrad.cuh).
+// the two training entries; bf16 in csrc/fwd_bf16.cuh) and the backward
+// tile kernels, with the backward's task table for the weight-gradient
+// sums (csrc/wgrad.cuh).
 //
 // Layout (the TPU kernels' packed layout, kernels/mlp.py::pack_weights):
 // activations feature-major (features, rows); weights (out, in)
@@ -368,8 +369,8 @@ long long bwd_smem_bytes(int H) { return 4LL * (2 * H * TR + 2 * H * WS_LD); }
 }  // namespace f32
 
 // ----------------------------------------------------------------------
-// bf16: tensor cores. Activations [row][feature] with padded strides;
-// warp w owns output features 32w..32w+31 (two m16 tiles) x all 64 rows
+// bf16 backward: tensor cores (mma.sync). Activations [row][feature] with
+// padded strides; warp w owns output features 32w..32w+31 (two m16 tiles) x all 64 rows
 // (eight n8 tiles): acc[mt][nt] is an m16n8 f32 fragment.
 namespace tc {
 
@@ -392,26 +393,6 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// pos[r][k], k < ld(F); features past F (the stride's pad) are zero, as
-// K-steps of 16 read up to 8 of them against zero weights. With `res`,
-// also the residual plane res[k][row0 + r], k < F.
-__device__ void encode(const float *__restrict__ x, long long rows,
-                       long long row0, int L, int col0, bf16 *pos,
-                       bf16 *res, long long Rp) {
-  const int F = enc_rows(L), lp = ld(F);
-  for (int idx = threadIdx.x; idx < TR * lp; idx += THREADS) {
-    const int r = idx / lp, k = idx % lp;
-    const float v = (row0 + r < rows && k < F) ? encoded(x, rows, row0 + r, L, col0, k) : 0.f;
-    pos[idx] = __float2bfloat16_rn(v);
-  }
-  if (!res) return;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < F * TR; idx += THREADS) {  // row-fastest: coalesced
-    const int k = idx / TR, r = idx % TR;
-    res[k * Rp + row0 + r] = pos[r * lp + k];
-  }
 }
 
 // acc += W[:, :K] @ act^T for this warp's features, over the first O rows
@@ -475,22 +456,6 @@ __device__ __forceinline__ void for_fragments(float acc[2][8][4], F f) {
     }
 }
 
-// out[r][o] = bf16(relu(acc + b[o])) for o < O; with `res`, also the
-// residual plane res[o][row0 + r]. Resets acc.
-__device__ void relu_store(float acc[2][8][4], const void *b, int O, bf16 *out,
-                           int ldo, bf16 *res, long long Rp, long long row0) {
-  for_fragments(acc, [&](int o, int r, const float *c) {
-    if (o >= O) return;
-    const float bo = bias(b, o);
-    __nv_bfloat162 v;
-    v.x = __float2bfloat16_rn(fmaxf(c[0] + bo, 0.f));
-    v.y = __float2bfloat16_rn(fmaxf(c[1] + bo, 0.f));
-    out[r * ldo + o] = v.x;
-    out[(r + 1) * ldo + o] = v.y;
-    if (res) *reinterpret_cast<__nv_bfloat162 *>(res + o * Rp + row0 + r) = v;
-  });
-}
-
 // Backward epilogue: g[r][o] = bf16(acc * (h[o][row0 + r] > 0)) for o < O,
 // into shared `out` and the cotangent plane gout[o][row0 + r]. Resets acc.
 __device__ void mask_store(float acc[2][8][4], int O, const bf16 *h, bf16 *out,
@@ -506,55 +471,6 @@ __device__ void mask_store(float acc[2][8][4], int O, const bf16 *h, bf16 *out,
     out[(r + 1) * ldo + o] = v.y;
     *reinterpret_cast<__nv_bfloat162 *>(gout + at) = v;
   });
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-    fwd_kernel(const float *__restrict__ x, float *__restrict__ out,
-               long long rows, int Lp, int Ld, int H, Weights w, bf16 *res) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  const int FX = L.FX, FD = L.FD, H2 = L.H2;
-  const long long Rp = L.Rp;
-  const int lh = ld(H), lx = ld(FX), lD = ld(FD);
-  bf16 *A = reinterpret_cast<bf16 *>(smem);
-  bf16 *B = A + TR * lh;
-  bf16 *posx = B + TR * lh;
-  bf16 *posd = posx + TR * lx;
-  bf16 *Ws = posd + TR * lD;  // ceil32(H) x LDW
-  const long long row0 = (long long)blockIdx.x * TR;
-  auto Wm = [](const void *p) { return static_cast<const bf16 *>(p); };
-  auto plane = [&](int f) { return res ? res + f * Rp : nullptr; };
-
-  encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp);
-  encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp);
-  float acc[2][8][4] = {};
-  mm_acc(Wm(w.W1), H, FX, posx, lx, Ws, acc);
-  relu_store(acc, w.b1, H, A, lh, plane(L.h(0)), Rp, row0);    // h0 -> A
-  mm_acc(Wm(w.Wt1), H, H, A, lh, Ws, acc);
-  relu_store(acc, w.bt1, H, B, lh, plane(L.h(1)), Rp, row0);   // h1 -> B
-  mm_acc(Wm(w.Wt2), H, H, B, lh, Ws, acc);
-  relu_store(acc, w.bt2, H, A, lh, plane(L.h(2)), Rp, row0);   // h2 -> A
-  mm_acc(Wm(w.Wt3), H, H, A, lh, Ws, acc);
-  relu_store(acc, w.bt3, H, B, lh, plane(L.h(3)), Rp, row0);   // h3 -> B
-  mm_acc(Wm(w.Wt4), H, H, B, lh, Ws, acc);
-  relu_store(acc, w.bt4, H, A, lh, plane(L.h(4)), Rp, row0);   // h4 -> A
-  mm_acc(Wm(w.Wsh), H, H, A, lh, Ws, acc);                     // skip: [h4 | posx]
-  mm_acc(Wm(w.Wsx), H, FX, posx, lx, Ws, acc);
-  relu_store(acc, w.bs, H, B, lh, plane(L.h(5)), Rp, row0);    // h5 -> B
-  mm_acc(Wm(w.Wp0), H, H, B, lh, Ws, acc);
-  relu_store(acc, w.bp0, H, A, lh, plane(L.h(6)), Rp, row0);   // h6 -> A
-  mm_acc(Wm(w.Wp1), H, H, A, lh, Ws, acc);
-  relu_store(acc, w.bp1, H, B, lh, plane(L.h(7)), Rp, row0);   // h7 -> B
-  mm_acc(Wm(w.Wcs), H2, H, B, lh, Ws, acc);                    // folded colour rows
-  mm_acc(Wm(w.Wcd), H2, FD, posd, lD, Ws, acc);
-  relu_store(acc, w.bcs, H2, A, lh, plane(L.hc()), Rp, row0);  // hc -> A
-  __syncthreads();
-  heads<bf16>(w, A, B, lh, 1, H, out, rows, row0);
-}
-
-long long fwd_smem_bytes(int Lp, int Ld, int H) {
-  return 2LL * (TR * (2 * ld(H) + ld(enc_rows(Lp)) + ld(enc_rows(Ld))) +
-                ceil32(H) * LDW);
 }
 
 // The tensor-core twin of f32::bwd_kernel. Both ping-pong buffers start
@@ -601,6 +517,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 long long bwd_smem_bytes(int H) { return 2LL * (2 * TR * ld(H) + ceil32(H) * LDW); }
 
 }  // namespace tc
+
+#include "fwd_bf16.cuh"  // fb: the bf16 forward tile kernel
 
 // ----------------------------------------------------------------------
 // The twelve weight-gradient sums of the backward, as csrc/wgrad.cuh
@@ -659,26 +577,26 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 }
 
 // Forward of all rows through the tile kernel of the compute type; with
-// `res`, the residuals are kept.
+// `res`, the residuals are kept. bf16 builds its weight image in `image`
+// (fwd_image_bytes); f32 does not read it.
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H,
-            bool is_bf16, const Weights &w, void *res, cudaStream_t stream) {
-  const long long smem = is_bf16 ? tc::fwd_smem_bytes(Lp, Ld, H) : f32::fwd_smem_bytes(Lp, Ld, H);
+            bool is_bf16, const Weights &w, void *res, void *image, cudaStream_t stream) {
+  if (is_bf16) return fb::launch(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, stream);
+  const long long smem = f32::fwd_smem_bytes(Lp, Ld, H);
   const dim3 grid((unsigned)((rows + TR - 1) / TR));
-  cudaError_t e;
-  if (is_bf16) {
-    e = cudaFuncSetAttribute(tc::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    tc::fwd_kernel<<<grid, THREADS, smem, stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res));
-  } else {
-    e = cudaFuncSetAttribute(f32::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    f32::fwd_kernel<<<grid, THREADS, smem, stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res));
-  }
+  cudaError_t e = cudaFuncSetAttribute(f32::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  f32::fwd_kernel<<<grid, THREADS, smem, stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res));
   return (int)cudaGetLastError();
 }
 
 long long fwd_smem(int Lp, int Ld, int H, int is_bf16) {
-  return is_bf16 ? tc::fwd_smem_bytes(Lp, Ld, H) : f32::fwd_smem_bytes(Lp, Ld, H);
+  return is_bf16 ? fb::plan_of(Lp, Ld, H).smem_bytes() : f32::fwd_smem_bytes(Lp, Ld, H);
+}
+
+// Bytes of the scratch `image` that forward() needs.
+long long fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
+  return is_bf16 ? fb::plan_of(Lp, Ld, H).image_bytes() : 0;
 }
 
 long long bwd_smem(int H, int is_bf16) {
@@ -689,11 +607,13 @@ bool arch_ok(int Lp, int Ld, int H) {
   return H % 16 == 0 && H >= 16 && H <= MAX_H && Lp >= 1 && Ld >= 1;
 }
 
-// Workspace of the backward, carved from one buffer: residuals, cotangents
-// and the weight-gradient partials, each 256-byte aligned.
+// Workspace of the backward, carved from one buffer: residuals, cotangents,
+// the weight-gradient partials and the forward's weight image, each
+// 256-byte aligned.
 struct Workspace {
   void *res, *gws;
   float *part;
+  void *image;
   long long bytes;
 };
 
@@ -704,8 +624,9 @@ Workspace carve(void *base, long long rows, int Lp, int Ld, int H, int is_bf16) 
   WTask tasks[12];
   wgrad_tasks(L, Grads{}, nullptr, nullptr, es, tasks);
   const long long c = align256(4LL * wgrad_part_floats(tasks, 12, L.Rp, is_bf16));
+  const long long d = align256(fwd_image_bytes(Lp, Ld, H, is_bf16));
   char *p = static_cast<char *>(base);
-  return Workspace{p, p + a, reinterpret_cast<float *>(p + a + b), a + b + c};
+  return Workspace{p, p + a, reinterpret_cast<float *>(p + a + b), p + a + b + c, a + b + c + d};
 }
 
 }  // namespace

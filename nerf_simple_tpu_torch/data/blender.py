@@ -6,9 +6,10 @@ Behaviour of the JAX loader, which follows the reference
 
 - images listed per split and natural-sorted (train/val: every file in
   the split dir; test: only ``r_<n>.png``);
-- 8-bit RGB(A) PNGs read by ``utils/png.py``, then /255; the alpha
-  channel is dropped, as ``cv2.imread`` drops it (``white_bkgd``
-  composites RGBA onto white instead);
+- PNGs read by ``utils/png.py`` as ``cv2.imread`` reads them (any colour
+  type, bit depth and interlace), then /255; the alpha channel is
+  dropped, as ``cv2.imread`` drops it (``white_bkgd`` composites RGBA
+  onto white instead);
 - ``half_res`` halves both sides with an exact 2x2 mean, which is what
   cv2's INTER_AREA computes at a scale of exactly 2; odd sides raise;
 - ``num_imgs >= 0`` truncates every split to that count;
@@ -42,13 +43,24 @@ def _natural_key(s: str):
 
 
 def imread_rgb(path: str, white_bkgd: bool = False) -> np.ndarray:
-    """(H, W, 3) float64 in [0, 1]."""
+    """(H, W, 3) float64, the JAX ``_imread_rgb`` through cv2: without
+    ``white_bkgd`` the image as ``cv2.imread`` reads it (``IMREAD_COLOR``:
+    grey repeated, palette expanded, alpha dropped, 16-bit cut to 8),
+    over 255; with it, the image as stored (``IMREAD_UNCHANGED``) over 255,
+    RGBA composited onto white and grey repeated to three channels (cv2's
+    BGR-to-RGB conversion does that to one channel). At 16 bits both JAX
+    branches divide by 255 too, so values run past 1; the port keeps that."""
     with open(path, "rb") as fh:
-        img = decode_png(fh.read()) / 255.0
-    if img.shape[-1] == 4 and white_bkgd:
+        data = fh.read()
+    if not white_bkgd:
+        return decode_png(data, color=True) / 255.0
+    img = decode_png(data) / 255.0
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 4:
         a = img[..., 3:4]
         return img[..., :3] * a + (1.0 - a)
-    return img[..., :3]
+    return img
 
 
 def half(img: np.ndarray) -> np.ndarray:

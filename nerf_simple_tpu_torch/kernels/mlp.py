@@ -189,6 +189,39 @@ def _cast_weights(wts: FusedWeights, dtype) -> FusedWeights:
     ])
 
 
+IMAGE_ORDER = ("W1", "Wt1", "Wt2", "Wt3", "Wt4", "Wsh", "Wsx", "Wp0", "Wp1", "Wcs", "Wcd", "Wc1")
+
+
+def image_slices(model: NerfMLP) -> list[tuple[str, int, int]]:
+    """The bf16 forward's weight image, in order: (matrix, K-slice index,
+    slice rows). Each slice holds 64 columns of every output row of one
+    matrix, rows padded to the product's N (a multiple of 64, or 8 for
+    ``Wc1``): the order in which csrc/fwd_bf16.cuh multiplies by them."""
+    H = model.H
+    npad = {n: -(-H // 64) * 64 for n in IMAGE_ORDER[:9]}
+    npad.update(Wcs=-(-(H // 2 + 8) // 64) * 64, Wcd=-(-(H // 2 + 8) // 64) * 64, Wc1=8)
+    K = _weight_shapes(model)
+    return [(n, c, npad[n]) for n in IMAGE_ORDER for c in range(-(-K[n][1] // 64))]
+
+
+def weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
+    """Plain version of the bf16 forward's weight image (csrc/
+    fwd_bf16.cuh ``image_kernel``): int16 bit patterns of the bf16
+    weights, slice after slice as ``image_slices`` lists them, each
+    (rows, 64) with zeros past the matrix, in the 128-byte swizzle: the
+    16-byte chunk c of row n is stored at chunk c ^ (n % 8)."""
+    parts = []
+    for name, c, rows in image_slices(model):
+        W = getattr(wts, name).to(torch.bfloat16).view(torch.int16)
+        sl = torch.zeros((rows, 64), dtype=torch.int16, device=W.device)
+        blk = W[:, 64 * c : 64 * c + 64]
+        sl[: blk.shape[0], : blk.shape[1]] = blk
+        n = torch.arange(rows, device=W.device)[:, None]
+        pos = torch.arange(8, device=W.device)[None, :]
+        parts.append(sl.reshape(rows, 8, 8)[n, pos ^ (n % 8)].reshape(-1))
+    return torch.cat(parts)
+
+
 def _encode(xT: torch.Tensor, model: NerfMLP) -> tuple[torch.Tensor, torch.Tensor]:
     """(8, rows) f32 -> posx (FX, rows), posd (FD, rows) in the kernel's
     row order, f32. Pad rows are zero."""
@@ -416,8 +449,10 @@ class _CWeightsT(ctypes.Structure):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
         "fused_mlp_fwd_smem_bytes": ([_I] * 4, _LL),
+        "fused_mlp_fwd_image_bytes": ([_I] * 4, _LL),
+        "fwd_weight_image": ([_CPtrs, _I, _I, _I, _P, _P], _I),
     },
     "fused_mlp_bwd": {
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _P], _I),
@@ -430,8 +465,9 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "wgrad_launch_count": ([_I], _LL),
     },
     "fused_render": {
-        "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P], _I),
+        "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
         "fused_render_smem_bytes": ([_I] * 4, _LL),
+        "fused_render_image_bytes": ([_I] * 4, _LL),
     },
     "fused_train_step": {
         "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P], _I),
@@ -515,6 +551,11 @@ def _dispatch(x: torch.Tensor) -> bool:
     return False
 
 
+def _image_scratch(nbytes, model: NerfMLP, bf16: int, device) -> torch.Tensor:
+    """Scratch for the bf16 forward's weight image (empty for f32)."""
+    return torch.empty(nbytes(model.Lp, model.Ld, model.H, bf16), dtype=torch.uint8, device=device)
+
+
 def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP) -> FusedWeights:
     if not supported(model):
         raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16; got {model}")
@@ -536,9 +577,10 @@ def fused_mlp_forward(
         return fused_mlp_forward_plain(wts, xT, compute_dtype, model)
     lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", 8, compute_dtype, model)
     out = torch.empty((8, xT.shape[1]), dtype=torch.float32, device=xT.device)
+    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
     _raise_on(lib.fused_mlp_fwd(
         xT.data_ptr(), out.data_ptr(), xT.shape[1], model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _stream(xT),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), _stream(xT),
     ), "fused_mlp_fwd")
     fused_mlp_forward.launches += 1
     return out
@@ -692,9 +734,10 @@ def fused_render(
         return fused_render_plain(wts, x16, N, compute_dtype, model)
     lib, bf16 = _check_launch("fused_render", wts, x16, "x16", 16, compute_dtype, model)
     out = torch.empty((8, x16.shape[1]), dtype=torch.float32, device=x16.device)
+    image = _image_scratch(lib.fused_render_image_bytes, model, bf16, x16.device)
     _raise_on(lib.fused_render(
         x16.data_ptr(), out.data_ptr(), x16.shape[1], N, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _stream(x16),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), _stream(x16),
     ), "fused_render")
     fused_render.launches += 1
     return out

@@ -314,3 +314,70 @@ def test_weight_grads_in_one_launch_match_plain(dev, dtype):
         assert db is None if not bias else (db - want_db).abs().max().item() <= WGRAD_TOL[dtype] * scale
     again = mlp.weight_grads(pairs)
     assert all(torch.equal(a[0], b[0]) for a, b in zip(got, again))
+
+
+# --- the bf16 forward tile kernel (csrc/fwd_bf16.cuh) ------------------------------
+
+FWD_TILE = 128  # sample rows of a tile: two warpgroups of 64
+
+
+@pytest.mark.parametrize("rows", [1, FWD_TILE - 1, FWD_TILE, FWD_TILE + 1, 132 * FWD_TILE + 17],
+                         ids=["1", "tile-1", "tile", "tile+1", "persistent-walk"])
+def test_bf16_forward_at_tile_edges(dev, rows):
+    """Row counts around the 128-row tile and past one tile an SM (the
+    persistent grid walks on): every row right, the ragged tile masked."""
+    model = NerfMLP()
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
+                            torch.bfloat16)
+    x = _xT(rows, dev, seed=rows)
+    got = mlp.fused_mlp_forward(wts, x, torch.bfloat16, model)
+    torch.cuda.synchronize()
+    want = mlp.fused_mlp_forward_plain(wts, x, torch.bfloat16, model)
+    assert got.shape == (8, rows) and bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("model", [NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=2, Ld=1, H=256)],
+                         ids=["H16", "H256-small-L"])
+def test_bf16_forward_and_train_step_at_extreme_widths(dev, model):
+    """The narrowest and widest H the kernel takes, with short encodings:
+    the forward, and B1 (the forward with its residual planes)."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
+                            torch.bfloat16)
+    x = _xT(1000, dev)
+    got = mlp.fused_mlp_forward(wts, x, torch.bfloat16, model)
+    want = mlp.fused_mlp_forward_plain(wts, x, torch.bfloat16, model)
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[torch.bfloat16]
+    x16 = _x16(9, 40, dev)
+    loss, grads = mlp.fused_train_step(wts, x16, 40, torch.bfloat16, model)
+    loss_p, grads_p = mlp.fused_train_step_plain(wts, x16, 40, torch.bfloat16, model)
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[torch.bfloat16]
+    errs = _grad_errors(grads, grads_p)
+    assert max(errs.values()) <= GRAD_TOL[torch.bfloat16], errs
+
+
+def test_bf16_train_step_is_bitwise_deterministic(dev):
+    """B1 bf16 over many tiles (more than one an SM): the forward has no
+    atomics and the sums reduce in a fixed order, so two runs agree bit
+    for bit."""
+    model = NerfMLP()
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
+                            torch.bfloat16)
+    x16 = _x16(256, 128, dev, seed=5)
+    loss, got = mlp.fused_train_step(wts, x16, 128, torch.bfloat16, model)
+    loss2, again = mlp.fused_train_step(wts, x16, 128, torch.bfloat16, model)
+    assert loss.item() == loss2.item()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48)], ids=["flagship", "odd-widths"])
+def test_weight_image_kernel_matches_plain(dev, model):
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
+                            torch.bfloat16)
+    lib = mlp._lib("fused_mlp_fwd")
+    image = torch.zeros(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, 1) // 2,
+                        dtype=torch.int16, device=dev)
+    assert lib.fwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.Lp, model.Ld, model.H,
+                                image.data_ptr(), mlp._stream(image)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(image, mlp.weight_image_plain(wts, model))

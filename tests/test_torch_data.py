@@ -29,36 +29,124 @@ def jax_scene(tmp_path_factory):
     return d
 
 
-def _filtered_png(img: np.ndarray, ftype: int) -> bytes:
-    """A PNG whose every row uses row filter ``ftype`` (the PNG spec's
+# PNG kinds: colour type, bit depth, tRNS. The ids "rgb" and "rgba" are the
+# 8-bit truecolour cases the reader took first.
+KINDS = {
+    "rgb": (2, 8, False), "rgba": (6, 8, False), "grey": (0, 8, False), "grey1": (0, 1, False),
+    "grey2": (0, 2, False), "grey4": (0, 4, False), "grey16": (0, 16, False),
+    "grey-trns": (0, 8, True), "greyalpha": (4, 8, False), "greyalpha16": (4, 16, False),
+    "rgb16": (2, 16, False), "rgba16": (6, 16, False), "rgb-trns": (2, 8, True),
+    "rgb16-trns": (2, 16, True), "pal1": (3, 1, False), "pal2": (3, 2, False),
+    "pal4": (3, 4, True), "pal8": (3, 8, True),
+}
+_SPP = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _samples(kind, H=13, W=17, seed=0):
+    """(H, W, samples a pixel) of a kind: random values of its bit depth,
+    with flat patches (the sequential filters' carries), and a pixel that
+    hits the tRNS key."""
+    ctype, depth, _ = KINDS[kind]
+    rng = np.random.default_rng(seed)
+    top = (1 << depth) - 1 if ctype != 3 else min(255, (1 << depth) - 1)
+    img = (rng.uniform(0, 1, (H, W, _SPP[ctype])) ** 2 * top).round().astype(np.uint16)
+    img[min(3, H - 1) : 9, min(4, W - 1) : 12] = top * 3 // 4
+    return img
+
+
+def _filter_rows(rows: np.ndarray, ftypes, bpp: int) -> bytes:
+    """Rows of bytes (h, n), each filtered with its type (the PNG spec's
     filters, written out here independently of the decoder)."""
-    H, W, C = img.shape
-    rows = img.reshape(H, W * C).astype(np.int64)
+    h, n = rows.shape
+    rows = rows.astype(np.int64)
     out = []
-    for y in range(H):
-        x, prior = rows[y], rows[y - 1] if y else np.zeros(W * C, np.int64)
-        a = np.concatenate([np.zeros(C, np.int64), x[:-C]])
-        c = np.concatenate([np.zeros(C, np.int64), prior[:-C]])
-        if ftype == 0:
+    for y in range(h):
+        x, prior = rows[y], rows[y - 1] if y else np.zeros(n, np.int64)
+        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        f = ftypes[y]
+        if f == 0:
             pred = 0
-        elif ftype == 1:
+        elif f == 1:
             pred = a
-        elif ftype == 2:
+        elif f == 2:
             pred = prior
-        elif ftype == 3:
+        elif f == 3:
             pred = (a + prior) // 2
         else:
             p = a + prior - c
             pa, pb, pc = np.abs(p - a), np.abs(p - prior), np.abs(p - c)
             pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prior, c))
-        out.append(bytes([ftype]) + ((x - pred) % 256).astype(np.uint8).tobytes())
+        out.append(bytes([f]) + ((x - pred) % 256).astype(np.uint8).tobytes())
+    return b"".join(out)
 
-    def chunk(tag, data):
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, 2 if C == 3 else 6, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(b"".join(out))) + chunk(b"IEND", b""))
+def _pack(img: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, spp) samples -> (h, rowbytes) bytes: big-endian at 16 bits,
+    MSB first below 8."""
+    h, w, spp = img.shape
+    flat = img.reshape(h, w * spp)
+    if depth == 16:
+        return np.stack([flat >> 8, flat & 0xFF], -1).reshape(h, -1).astype(np.uint8)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    n = -(-w * spp // per)
+    padded = np.zeros((h, n * per), np.int64)
+    padded[:, : w * spp] = flat
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (padded.reshape(h, n, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _png(img, kind, ftype, interlace=False, seed=0) -> bytes:
+    """A PNG of samples `img` written here: every row with filter `ftype`,
+    or a seeded mix of all five where ftype is None; palette and tRNS
+    chunks for the kinds that have them; Adam7 when `interlace`."""
+    ctype, depth, trns = KINDS[kind]
+    H, W, spp = img.shape
+    bpp = max(1, depth * spp // 8)
+    rng = np.random.default_rng(seed)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = b""
+    for x0, y0, dx, dy in passes:
+        sub = img[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = _pack(sub, depth)
+        ft = rng.integers(0, 5, rows.shape[0]) if ftype is None else [ftype] * rows.shape[0]
+        data += _filter_rows(rows, ft, bpp)
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0,
+                                                              int(interlace)))
+    if ctype == 3:
+        n = 1 << depth
+        out += chunk(b"PLTE", np.random.default_rng(99).integers(0, 256, (n, 3)).astype(np.uint8).tobytes())
+    if trns:
+        if ctype == 3:
+            out += chunk(b"tRNS", bytes(range(0, 256, 37))[: (1 << depth) - 1])
+        else:  # the key: the first pixel's colour
+            out += chunk(b"tRNS", b"".join(struct.pack(">H", int(v)) for v in img[0, 0, :spp]))
+    return out + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b"")
+
+
+def _cv2(data: bytes, flags) -> np.ndarray:
+    """What cv2 decodes, in RGB(A) order."""
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+    if img.ndim == 3:
+        img = img[..., [2, 1, 0, 3][: img.shape[-1]]]
+    return img
+
+
+def _check_as_cv2(data: bytes) -> None:
+    for color, flags in ((False, cv2.IMREAD_UNCHANGED), (True, cv2.IMREAD_COLOR)):
+        got, want = decode_png(data, color=color), _cv2(data, flags)
+        assert got.dtype == want.dtype and got.shape == want.shape, (color, got.shape, want.shape)
+        np.testing.assert_array_equal(got, want)
 
 
 def _image(C, seed=0):
@@ -69,36 +157,79 @@ def _image(C, seed=0):
 
 
 @pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
-@pytest.mark.parametrize("C", [3, 4], ids=["rgb", "rgba"])
+@pytest.mark.parametrize("C", list(KINDS))
 def test_png_row_filters(ftype, C):
-    img = _image(C, seed=ftype)
-    np.testing.assert_array_equal(decode_png(_filtered_png(img, ftype)), img)
+    """Every colour type and bit depth with every row filter, against
+    cv2 in both of its read modes; 8-bit truecolour also against the
+    samples written."""
+    img = _samples(C, seed=ftype)
+    data = _png(img, C, ftype)
+    _check_as_cv2(data)
+    if C in ("rgb", "rgba"):
+        np.testing.assert_array_equal(decode_png(data), img.astype(np.uint8))
 
 
-@pytest.mark.parametrize("C", [3, 4], ids=["rgb", "rgba"])
+@pytest.mark.parametrize("size", [(13, 17), (3, 2), (1, 1)], ids=["13x17", "3x2", "1x1"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_png_adam7_interlaced_matches_cv2(kind, size):
+    """Adam7 files written here (rows of mixed filters in each pass);
+    small sides leave some passes empty."""
+    img = _samples(kind, *size, seed=3)
+    _check_as_cv2(_png(img, kind, None, interlace=True, seed=4))
+
+
+@pytest.mark.parametrize("C", ["rgb", "rgba", "grey", "grey16", "rgb16", "rgba16"])
 def test_png_reader_matches_cv2(tmp_path, C):
-    """cv2 (libpng) picks its row filters adaptively, so its files mix
-    filters 0-4."""
-    img = _image(C, seed=7)
+    """Files cv2 (libpng) writes, with its adaptive row filters (a mix of
+    0-4)."""
+    img = _image({"rgb": 3, "rgba": 4, "rgb16": 3, "rgba16": 4}.get(C, 1), seed=7)
+    if C.endswith("16"):
+        img = img.astype(np.uint16) * 257 + np.arange(img.size, dtype=np.uint16).reshape(img.shape) % 251
+    if img.shape[-1] == 1:
+        img = img[..., 0]
     p = str(tmp_path / "a.png")
-    cv2.imwrite(p, cv2.cvtColor(img, cv2.COLOR_RGB2BGR if C == 3 else cv2.COLOR_RGBA2BGRA))
+    cv2.imwrite(p, img if img.ndim == 2 else img[..., [2, 1, 0, 3][: img.shape[-1]]])
     with open(p, "rb") as fh:
-        got = decode_png(fh.read())
-    want = cv2.cvtColor(cv2.imread(p, cv2.IMREAD_UNCHANGED),
-                        cv2.COLOR_BGR2RGB if C == 3 else cv2.COLOR_BGRA2RGBA)
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(decode_png(encode_png(img)), img)
+        data = fh.read()
+    _check_as_cv2(data)
+    np.testing.assert_array_equal(decode_png(data), img)
+    if img.dtype == np.uint8 and img.ndim == 3:
+        np.testing.assert_array_equal(decode_png(encode_png(img)), img)
 
 
 def test_png_reader_rejects_what_it_does_not_take(tmp_path):
+    """16-bit greyscale now decodes as cv2 gives it; a bad CRC and a bad
+    signature still raise."""
     p = str(tmp_path / "g.png")
-    cv2.imwrite(p, np.zeros((4, 4), np.uint16))  # 16-bit greyscale
+    grey16 = (np.arange(16, dtype=np.uint16) * 4099).reshape(4, 4)
+    cv2.imwrite(p, grey16)
     with open(p, "rb") as fh:
-        with pytest.raises(ValueError, match="8-bit"):
-            decode_png(fh.read())
+        data = fh.read()
+    np.testing.assert_array_equal(decode_png(data), cv2.imread(p, cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(decode_png(data), grey16)
     data = encode_png(_image(3))
     with pytest.raises(ValueError, match="CRC"):
         decode_png(data[:40] + bytes([data[40] ^ 1]) + data[41:])
+    with pytest.raises(ValueError, match="not a PNG"):
+        decode_png(b"\x89PNG\r\n\x1a\x00" + data[8:])
+
+
+@pytest.mark.parametrize("kind, white", [
+    ("grey", False), ("pal8", False), ("rgb16", False), ("rgba16", False),
+    ("rgb", True), ("rgba", True), ("rgb16", True), ("rgba16", True), ("grey", True),
+])
+def test_imread_rgb_matches_jax_loader(tmp_path, kind, white):
+    """The port's ``imread_rgb`` and the JAX ``_imread_rgb`` (cv2) on one
+    file give the same arrays. Greyscale under white_bkgd too: cv2's
+    BGR-to-RGB conversion repeats one channel to three."""
+    img = _samples(kind, seed=11)
+    p = str(tmp_path / "im.png")
+    with open(p, "wb") as fh:
+        fh.write(_png(img, kind, None, seed=12))
+    want = jblender._imread_rgb(p, white)
+    got = blender.imread_rgb(p, white)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
 def test_synthetic_scene_matches_jax_render_gt():
@@ -188,3 +319,21 @@ def test_sample_ray_batch_pairs_rays_with_pixels(jax_scene):
     for r, p in zip(rays_b[:5], pix_b[:5]):
         rows = torch.nonzero((rd.rays["train"] == r).all(dim=1))[:, 0]
         assert any(torch.allclose(rd.pixels["train"][i], p) for i in rows)
+
+
+@pytest.mark.parametrize("ftype", [3, 4])
+def test_png_reader_probe_writes_what_it_times(ftype, capsys, monkeypatch):
+    """probes/png_reader.py: its all-one-filter file decodes (here and in
+    cv2) to the image it was made from; one JSON line at a small size."""
+    import json
+    import sys
+
+    from nerf_simple_tpu_torch.probes import png_reader
+
+    img = _image(4, seed=ftype)
+    data = png_reader.filtered_png(img, ftype)
+    np.testing.assert_array_equal(decode_png(data), img)
+    np.testing.assert_array_equal(_cv2(data, cv2.IMREAD_UNCHANGED), img)
+    monkeypatch.setattr(sys, "argv", ["png_reader", "--size", "24", "--reps", "1", "--filter", str(ftype)])
+    png_reader.main()
+    assert json.loads(capsys.readouterr().out)["decode_s"] > 0

@@ -132,3 +132,30 @@ def test_init_params_from_numpy_seed():
     a, b = init_nerf_params(7, SMALL), init_nerf_params(7, SMALL)
     assert all(np.array_equal(a[k]["w"], b[k]["w"]) for k in a)
     assert not isinstance(a["trunk0"]["w"], jax.Array)
+
+
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48), NerfMLP(Lp=1, Ld=1, H=16)],
+                         ids=["flagship", "odd-widths", "H16"])
+def test_weight_image_unswizzles_to_the_packed_weights(model):
+    """The bf16 forward's weight image (csrc/fwd_bf16.cuh streams it into
+    shared memory slice by slice): undoing the 128-byte swizzle of every
+    slice gives back each packed matrix in bf16, zeros past its rows and
+    columns."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), "cpu")),
+                            torch.bfloat16)
+    image = mlp.weight_image_plain(wts, model)
+    slices = mlp.image_slices(model)
+    assert image.numel() * 2 == sum(128 * rows for _, _, rows in slices)
+    got = {n: [] for n in mlp.IMAGE_ORDER}
+    pos = 0
+    for name, c, rows in slices:
+        sl = image[pos : pos + 64 * rows].reshape(rows, 8, 8)
+        pos += 64 * rows
+        n = torch.arange(rows)[:, None]
+        got[name].append(sl[n, torch.arange(8)[None, :] ^ (n % 8)].reshape(rows, 64))  # chunk c at c ^ n % 8
+    for name in mlp.IMAGE_ORDER:
+        W = getattr(wts, name).view(torch.int16)
+        full = torch.cat(got[name], dim=1)
+        O, K = W.shape
+        assert torch.equal(full[:O, :K], W)
+        assert not full[O:].any() and not full[:, K:].any()
