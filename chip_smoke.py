@@ -9,8 +9,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
    limit as nvidia-smi reports them;
 2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
    at once; prints the build time and ptxas registers and spills (the
-   bf16 forward tile kernel, csrc/fwd_bf16.cuh, is built into four of
-   them);
+   bf16 tile kernels, csrc/fwd_bf16.cuh and csrc/bwd_bf16.cuh, are built
+   into four of them);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -27,13 +27,15 @@ NerfMLP(Lp=10, Ld=4, H=256):
    the train step's bitwise determinism; with ``--before CSRC`` (a copy
    of an earlier commit's csrc/, e.g. ``git archive <commit>
    nerf_simple_tpu_torch/csrc`` unpacked under a gitignored build/), the
-   earlier bf16 forward tile kernel is built from it and timed beside the
-   current one, in turns, at the render chunk and inside B1 (step ms and
-   the profiled forward-tile group);
+   earlier train-step source is built from it and B1 bf16 is timed beside
+   the current one, in turns (step ms and the profiled kernel groups),
+   and so is the whole bf16 train step of phase 7;
 6. wgrad: the backward's twelve weight-gradient sums alone at 524,288
    rows (probes/wgrad.py), f32 and bf16: the kernel in one launch (as B1
    and B2 run it) and as twelve calls, against float64 sums, the plain
    version and the library call torch.mm + sum (timed, never used);
+   then the backward tile kernel alone at 524,288 rows
+   (probes/bwd_tile.py), f32 and bf16, against its plain version;
 7. train: writes the synthetic scene (25 train, 2 val, 2 test images at
    800x800, loaded at half resolution), trains through ``train()`` (what
    ``python -m nerf_simple_tpu_torch.train`` runs) with lego.yaml's keys,
@@ -42,7 +44,9 @@ NerfMLP(Lp=10, Ld=4, H=256):
    exported params; then a few f32 steps from one state through the
    fused step, the two-kernel autograd path (fused_mlp: forward kernel
    and B2) and the plain path, whose losses must agree; the bf16 step's
-   kernel time by kernel (torch.profiler) and the device's idle share;
+   wall and the host's time to issue it, its kernel time by kernel and
+   the host's time by torch op (torch.profiler), and the device's idle
+   share;
 8. eval: ``evaluate.test`` (what ``python -m nerf_simple_tpu_torch.
    evaluate`` runs) on the trained scene's test split with lego.yaml's
    test_params, ``backend: pallas``, ``compute_dtype: bf16``: stills 0
@@ -175,111 +179,119 @@ def grad_errors(got, want) -> tuple[float, float]:
     return rel, max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
-def build_before(csrc: str, _build) -> dict:
-    """The forward and train-step sources of another copy of csrc/ (the
-    kernels a change replaces), built with the package's nvcc flags into
-    <csrc>/../build/, one nvcc each in parallel; returns their ctypes
-    libraries by source name."""
-    out = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build")
-    os.makedirs(out, exist_ok=True)
-    jobs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o",
-                                 os.path.join(out, f"{n}.so"), os.path.join(csrc, f"{n}.cu")],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for n in ("fused_mlp_fwd", "fused_train_step")}
-    libs = {}
-    for n, proc in jobs.items():
-        log = proc.communicate()[0]
-        check(proc.returncode == 0, f"build of the earlier {n}.cu:\n{log}")
-        libs[n] = ctypes.CDLL(os.path.join(out, f"{n}.so"))
-    return libs
+def build_before(csrc: str, _build, mlp):
+    """The train-step source of another copy of csrc/ (the kernels a change
+    replaces), built with the package's nvcc flags into <csrc>/../build/;
+    returns its ctypes library, its entries fused_train_step and
+    fused_train_step_workspace_bytes bound as the current library's."""
+    out = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build", "fused_train_step.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out,
+                           os.path.join(csrc, "fused_train_step.cu")], capture_output=True, text=True)
+    check(proc.returncode == 0, f"build of the earlier fused_train_step.cu:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    for entry in ("fused_train_step", "fused_train_step_workspace_bytes"):
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = mlp._SIGNATURES["fused_train_step"][entry]
+    return lib
 
 
-def phase_before_after(dev, params, model, mlp, x16_chunk, x16_batch, libs) -> dict:
-    """The earlier bf16 forward tile kernel beside the current one, in
-    turns (earlier, current, current, earlier, median of each): alone at
-    the chunk, and inside B1 at the training batch (step ms and the
-    profiled forward-tile group). Both must match the plain version."""
+@contextlib.contextmanager
+def earlier_train_step(mlp, lib):
+    """Inside, ``mlp.fused_train_step`` (and so the train step) launches the
+    earlier library ``lib`` and hands it the transposed weights
+    (``mlp._transposed``), as the earlier wrapper did: the step as it was."""
+    lib_of, weights_t = mlp._lib, mlp._weights_t
+    mlp._lib = lambda name: lib if name == "fused_train_step" else lib_of(name)
+    mlp._weights_t = lambda wts, bf16: mlp._transposed(wts)
+    try:
+        yield
+    finally:
+        mlp._lib, mlp._weights_t = lib_of, weights_t
+
+
+def phase_before_after(dev, params, model, mlp, x16_batch, earlier) -> dict:
+    """B1 bf16 of an earlier train-step library beside the current one at
+    the training batch, in turns (earlier, current, current, earlier,
+    median of each): step ms and the profiled kernel groups (the backward
+    tile kernel's among them). Both libraries are called the same way,
+    straight through ctypes with a workspace made once, so the walls hold
+    no wrapper time. The two must agree."""
     from nerf_simple_tpu_torch.models.nerf import NerfField
 
     dt = torch.bfloat16
     w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), dt)
-    cw = mlp._CPtrs(*mlp._ptrs(w))
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fwd, step = libs["fused_mlp_fwd"], libs["fused_train_step"]
-    fwd.fused_mlp_fwd.argtypes = [P, P, LL, I, I, I, I, mlp._CPtrs, P]
-    fwd.fused_mlp_fwd.restype = I
-    step.fused_train_step.argtypes, step.fused_train_step.restype = mlp._SIGNATURES[
-        "fused_train_step"]["fused_train_step"]
-    step.fused_train_step_workspace_bytes.argtypes = [LL, I, I, I, I, I]
-    step.fused_train_step_workspace_bytes.restype = LL
-    xT = x16_chunk[:8].contiguous()
-    rows = xT.shape[1]
-    out_old = torch.empty((8, rows), dtype=torch.float32, device=dev)
-
-    def old_fwd():
-        mlp._raise_on(fwd.fused_mlp_fwd(xT.data_ptr(), out_old.data_ptr(), rows, model.Lp, model.Ld,
-                                        model.H, 1, cw, mlp._stream(xT)), "earlier fused_mlp_fwd")
-
-    def new_fwd():
-        return mlp.fused_mlp_forward(w, xT, dt, model)
-
+    cw, wt = mlp._CPtrs(*mlp._ptrs(w)), mlp._transposed(w)  # an earlier bf16 library may read wt
     res = {}
-    with torch.inference_mode():
-        old_fwd()
-        got = new_fwd()
-        ref = mlp.fused_mlp_forward_plain(w, xT, dt, model)
-        err_old = (out_old[:4] - ref[:4]).abs().max().item()
-        err_new = (got[:4] - ref[:4]).abs().max().item()
-        del got, ref
-        check(err_old <= TOL[dt] and err_new <= TOL[dt], "earlier and current bf16 forward match plain")
-        t = {"earlier": [], "current": []}
-        for which in ("earlier", "current", "current", "earlier"):
-            t[which].append(cuda_ms(old_fwd if which == "earlier" else new_fwd))
-        res["fwd_ms"] = {k: float(np.median(v)) for k, v in t.items()}
-        res["fwd_err"] = {"earlier": err_old, "current": err_new}
-    torch.cuda.empty_cache()
-
     R, Nb = x16_batch.shape[1], N_SAMPLES
-    wt = mlp._transposed(w)
-    ws = torch.empty(step.fused_train_step_workspace_bytes(R, Nb, model.Lp, model.Ld, model.H, 1),
-                     dtype=torch.uint8, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    grads = mlp._empty_grads(model, dev)
-    cg = mlp._CPtrs(*mlp._ptrs(grads))
 
-    def old_step():
-        mlp._raise_on(step.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, 1,
-                                            cw, wt, ws.data_ptr(), loss.data_ptr(), cg, mlp._stream(x16_batch)),
-                      "earlier fused_train_step")
+    def bind(lib, what):
+        ws = torch.empty(lib.fused_train_step_workspace_bytes(R, Nb, model.Lp, model.Ld, model.H, 1),
+                         dtype=torch.uint8, device=dev)
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        grads = mlp._empty_grads(model, dev)
+        cg = mlp._CPtrs(*mlp._ptrs(grads))
 
-    def new_step():
-        return mlp.fused_train_step(w, x16_batch, Nb, dt, model)
+        def step():
+            mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, 1,
+                                               cw, wt, ws.data_ptr(), loss.data_ptr(), cg,
+                                               mlp._stream(x16_batch)), what)
+        return step, loss, grads
+
+    old_step, loss, grads = bind(earlier, "earlier fused_train_step")
+    new_step, l_new, g_new = bind(mlp._lib("fused_train_step"), "fused_train_step")
 
     with torch.no_grad():
         old_step()
-        l_new, g_new = new_step()
+        new_step()
         rel = grad_errors(g_new, grads)[0]
         check(abs(l_new.item() / loss.item() - 1) <= LOSS_TOL[dt] and rel <= GRAD_TOL["B1", dt],
               "current B1 bf16 matches the earlier kernels")
-        del g_new
         t = {"earlier": [], "current": []}
         for which in ("earlier", "current", "current", "earlier"):
             t[which].append(cuda_ms(old_step if which == "earlier" else new_step))
         res["b1_ms"] = {k: float(np.median(v)) for k, v in t.items()}
         res["b1_profile"] = {"earlier": profile_step(old_step), "current": profile_step(new_step)}
         res["b1_grad_rel"] = rel
-    del ws
+    del old_step, new_step
     torch.cuda.empty_cache()
-    f, b = res["fwd_ms"], res["b1_ms"]
-    print(f"before/after bf16 forward at {rows} rows: earlier tile kernel {f['earlier']:.3f} ms, current "
-          f"{f['current']:.3f} ms (median of 2 x 5, in turns); vs plain max abs err earlier "
-          f"{res['fwd_err']['earlier']:.3e}, current {res['fwd_err']['current']:.3e}", flush=True)
+    b = res["b1_ms"]
     print(f"before/after B1 bf16 at {R} rows: earlier {b['earlier']:.3f} ms, current {b['current']:.3f} ms; "
           "profiled ms a call: " + "; ".join(
               f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
               for k, p in res["b1_profile"].items())
           + f"; current vs earlier grads {rel:.2e} of max", flush=True)
     return res
+
+
+def step_walls(step, steps: int = 20, reps: int = 5) -> dict:
+    """ms a call of ``step`` over runs of ``steps`` calls back to back, after
+    one warm-up run: each run's device wall (CUDA events) and the host's
+    time to issue it (perf_counter up to the last call's return, before
+    the synchronize). Where the host issues slower than the card runs, the
+    two agree and the card waits on the host."""
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    walls, hosts = [], []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        hosts.append((time.perf_counter() - t0) * 1e3 / steps)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b) / steps)
+    return {"ms": float(np.median(walls)), "host_ms": float(np.median(hosts)), "walls": walls, "hosts": hosts}
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's mangled name without its anonymous namespace's prefix
+    (``_ZN<n><n characters>``), so that the kernel's own name shows."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    return mangled[m.end() + int(m.group(1)):] if m else mangled
 
 
 def phase_build(sources, _build) -> None:
@@ -298,7 +310,7 @@ def phase_build(sources, _build) -> None:
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1] if "'" in line else line
                 elif "registers" in line or "spill" in line:
-                    print(f"ptxas {name} {(kernel or '')[:48]}: {line.strip()}")
+                    print(f"ptxas {name} {short_name(kernel or '')[:48]}: {line.strip()}")
 
 
 def phase_forward(dev, params, model, mlp, x16):
@@ -574,7 +586,7 @@ def phase_wgrad(dev):
         v = res[name]
         print(f"wgrad {name}, twelve sums at {res['rows']} rows: kernel {v['ms']:.3f} ms in one launch "
               f"({v['ms_single']:.3f} ms as twelve calls), library torch.mm + sum {v['library_ms']:.3f} ms, "
-              f"plain {v['plain_ms']:.3f} ms (median of 5, in turns); bound {v['bound_ms']:.3f} ms "
+              f"plain {v['plain_ms']:.3f} ms (runs of {wgrad.CALLS} calls, median of 5, in turns); bound {v['bound_ms']:.3f} ms "
               f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; {v['tflops']:.1f} TFLOP/s, "
               f"{v['gb_s']:.0f} GB/s; from float64 of the operands as stored: kernel {v['rel_err']:.2e} "
               f"(twelve calls {v['single_rel_err']:.2e}), plain {v['plain_rel_err']:.2e} of max (tol "
@@ -583,10 +595,31 @@ def phase_wgrad(dev):
     return res
 
 
-def profile_step(step) -> dict:
+def phase_bwd_tile(dev):
+    """The backward tile kernel alone (probes/bwd_tile.py): kernel vs plain
+    planes (REL_TOL there: f32 1e-4, bf16 2e-2 of each group's largest
+    entry, for the reasons stated beside it), pad rows zero; kernel and
+    plain ms, the bound and its share."""
+    from nerf_simple_tpu_torch.probes import bwd_tile
+
+    res = bwd_tile.run(dev)  # raises on a failed check
+    for name in ("f32", "bf16"):
+        v = res[name]
+        print(f"bwd_tile {name} at {res['rows']} rows: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
+              f"(a call of {bwd_tile.CALLS} back to back, median of 5, in turns); bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+              f"{100 * v['share_of_bound']:.1f}% of it; {v['gb_s']:.0f} GB/s, {v['tflops']:.1f} TFLOP/s; "
+              f"vs plain {v['rel_err']:.2e} of max (tol {bwd_tile.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e}), "
+              f"max abs {v['max_abs_err']:.3e}, {100 * v['share_differ']:.3f}% of entries differ; "
+              f"launches {v['launches']}", flush=True)
+    return res
+
+
+def profile_step(step, others: dict | None = None, host: dict | None = None) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
-    sees no device activity."""
+    sees no device activity. ``others``, where given, gets the ms of each
+    kernel of the group "other" by name; ``host``, the host's self time
+    of each torch op a call (ms; the profiler's own cost included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -598,14 +631,21 @@ def profile_step(step) -> dict:
             step()
         torch.cuda.synchronize()
     groups = (("sums", "sums_"), ("sums_reduce", "reduce_kernel"), ("bwd_tile", "bwd_kernel"),
-              ("fwd_tile", "fwd_kernel"), ("weight_image", "image_kernel"), ("compositing", "composite_grad"),
-              ("compositing", "sum_kernel"))
+              ("fwd_tile", "fwd_kernel"), ("bwd_image", "bwd_image_kernel"), ("weight_image", "image_kernel"),
+              ("compositing", "composite_grad"), ("compositing", "sum_kernel"))
     out: dict = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue  # not a kernel (a user annotation spans kernels counted on their own)
         group = next((g for g, key in groups if key in e.name), "other")
-        out[group] = out.get(group, 0.0) + e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
+        ms = e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
+        out[group] = out.get(group, 0.0) + ms
+        if group == "other" and others is not None:
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + ms
+    if host is not None:
+        for a in prof.key_averages():
+            if a.self_cpu_time_total > 0:
+                host[a.key[:60]] = a.self_cpu_time_total / 1e4  # us over 10 calls -> ms a call
     return out
 
 
@@ -617,9 +657,11 @@ def scalars(log_dir: str, tag: str) -> list[float]:
     return [v for _, v in sorted(rows)]
 
 
-def phase_train(dev, scene, work, mlp):
-    """Train through train(), resume, serve the export, then the f32
-    fused/two-kernel/plain step comparison. Returns its numbers."""
+def phase_train(dev, scene, work, mlp, earlier=None):
+    """Train through train(), resume, serve the export, time and profile
+    the bf16 step (with ``earlier``, an earlier train-step library, beside
+    the step as it was, in turns), then the f32 fused/two-kernel/plain
+    step comparison. Returns its numbers."""
     from nerf_simple_tpu_torch.config import load_yaml
     from nerf_simple_tpu_torch.evaluate import load_params
     from nerf_simple_tpu_torch.models.nerf import NerfMLP
@@ -637,6 +679,7 @@ def phase_train(dev, scene, work, mlp):
     log = io.StringIO()
     mlp.fused_train_step.launches = mlp.fused_mlp_forward.launches = mlp.fused_mlp_backward.launches = 0
     mlp.wgrad_sums_launches(reset=True)
+    mlp.bwd_tile_launches(reset=True)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         state = train(cfg)
@@ -645,7 +688,7 @@ def phase_train(dev, scene, work, mlp):
     launches = dict(fused_train_step=mlp.fused_train_step.launches,
                     fused_mlp_forward=mlp.fused_mlp_forward.launches,
                     fused_mlp_backward=mlp.fused_mlp_backward.launches,
-                    wgrad_sums=mlp.wgrad_sums_launches())
+                    wgrad_sums=mlp.wgrad_sums_launches(), bwd_tile=mlp.bwd_tile_launches())
     cfg.update(resume=True, num_iters=iters + more)
     with contextlib.redirect_stdout(log):
         state = train(cfg)
@@ -665,6 +708,7 @@ def phase_train(dev, scene, work, mlp):
     check(launches["fused_train_step"] == iters, "one fused train-step launch a step")
     check(launches["fused_mlp_forward"] > 0, "val renders went through the forward kernel")
     check(launches["wgrad_sums"] == iters, "one launch of the weight-gradient sums a step")
+    check(launches["bwd_tile"] == iters, "one launch of the backward tile kernel a step")
     check(all(np.isfinite(losses)) and len(losses) == iters + more, "every loss logged and finite")
     check(last <= 0.5 * first, "the loss at least halved")
     check(psnr[-1] > psnr[0], "val PSNR rose")
@@ -687,15 +731,37 @@ def phase_train(dev, scene, work, mlp):
 
     rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
     rays, pixels = rd.rays["train"], rd.pixels["train"]
-    step_ms = cuda_ms(lambda: [step_fn(state, rays, pixels) for _ in range(20)]) / 20
-    print(f"train step bf16 steady state: {step_ms:.3f} ms a step, "
-          f"{BATCH / step_ms * 1e3:,.0f} rays/s (CUDA events over 20 steps, median of 5)", flush=True)
-    prof = profile_step(lambda: step_fn(state, rays, pixels))
+    def step():
+        return step_fn(state, rays, pixels)
+
+    walls = step_walls(step)
+    step_ms = walls["ms"]
+    print(f"train step bf16 steady state: {step_ms:.3f} ms a step, {BATCH / step_ms * 1e3:,.0f} rays/s "
+          f"(CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); "
+          f"host issues a step in {walls['host_ms']:.3f} ms (runs "
+          f"{', '.join(f'{h:.3f}' for h in walls['hosts'])})", flush=True)
+    others, host = {}, {}
+    prof = profile_step(step, others, host)
     busy = sum(prof.values())
     print("train step bf16 profile, device ms a step: " + (", ".join(
         f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
         + f"; kernels {busy:.3f} of {step_ms:.3f} ms, idle share {1 - busy / step_ms:.3f}"
         if prof else "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step bf16 profile, the group other by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    print(f"train step bf16 profile, host self time a step: torch ops {sum(host.values()):.3f} ms (profiled); "
+          + "; ".join(f"{n} {v:.3f}" for n, v in sorted(host.items(), key=lambda kv: -kv[1])[:10]), flush=True)
+    turns = None
+    if earlier is not None:  # the step as it was (the earlier library) beside this one, in turns
+        t = {"earlier": [], "current": []}
+        for which in ("earlier", "current", "current", "earlier", "earlier", "current"):
+            with earlier_train_step(mlp, earlier) if which == "earlier" else contextlib.nullcontext():
+                t[which].append(step_walls(step))
+        turns = {k: {"ms": float(np.median([r["ms"] for r in v])),
+                     "host_ms": float(np.median([r["host_ms"] for r in v]))} for k, v in t.items()}
+        print("before/after train step bf16 (in turns, each the median of 5 runs of 20 steps; median of 3): "
+              + "; ".join(f"{k} {v['ms']:.3f} ms a step ({BATCH / v['ms'] * 1e3:,.0f} rays/s), host issues "
+                          f"it in {v['host_ms']:.3f} ms" for k, v in turns.items()), flush=True)
 
     # f32: fused step, two-kernel path (forward kernel + B2), plain path
     cfg32 = train_config({**cfg, "compute_dtype": "f32"})
@@ -716,7 +782,8 @@ def phase_train(dev, scene, work, mlp):
           f"{b2_launches}", flush=True)
     check(diff <= STEP_TOL, "fused, two-kernel and plain steps agree")
     check(b2_launches == 5, "the two-kernel path went through B2 once a step")
-    return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms, profile=prof)
+    return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms, host_ms=walls["host_ms"],
+                profile=prof, others=others, turns=turns)
 
 
 def phase_eval(dev, scene, work, mlp):
@@ -802,7 +869,7 @@ def scene_focal(scene: str) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch / CUDA port on one GPU.")
     ap.add_argument("--before", metavar="CSRC", help="a csrc/ directory of an earlier commit (kept out "
-                    "of the committed tree): its bf16 forward tile kernel is timed beside the current one")
+                    "of the committed tree): its train-step source is built and B1 bf16 timed beside the current one")
     args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
@@ -822,7 +889,7 @@ def main() -> None:
     from nerf_simple_tpu_torch.data.synthetic import write_blender_scene
     from nerf_simple_tpu_torch.kernels import _build, mlp
     from nerf_simple_tpu_torch.models.nerf import NerfMLP, init_nerf_params
-    from nerf_simple_tpu_torch.probes import pad_passes, wgrad
+    from nerf_simple_tpu_torch.probes import bwd_tile, pad_passes, wgrad
     from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
     # 2. build
@@ -847,15 +914,17 @@ def main() -> None:
         # 5. B2 and B1 vs plain at the training batch
         bwd = phase_backward_and_step(dev, params, model, mlp, train_batch(dev, scene))
         torch.cuda.empty_cache()
-        before = None
-        if args.before:  # 5b. the earlier bf16 forward tile kernel beside the current one
-            before = phase_before_after(dev, params, model, mlp, chunk_input(dev), train_batch(dev, scene),
-                                        build_before(args.before, _build))
-        # 6. the weight-gradient sums alone
+        before, earlier = None, None
+        if args.before:  # 5b. B1 of an earlier train-step source beside the current one
+            earlier = build_before(args.before, _build, mlp)
+            before = phase_before_after(dev, params, model, mlp, train_batch(dev, scene), earlier)
+        # 6. the weight-gradient sums alone, then the backward tile kernel alone
         wg = phase_wgrad(dev)
         torch.cuda.empty_cache()
+        bt = phase_bwd_tile(dev)
+        torch.cuda.empty_cache()
         # 7. train
-        tr = phase_train(dev, scene, work, mlp)
+        tr = phase_train(dev, scene, work, mlp, earlier)
         torch.cuda.empty_cache()
         # 8. eval of the trained run
         ev = phase_eval(dev, scene, work, mlp)
@@ -893,6 +962,9 @@ def main() -> None:
             for k in ("f32", "bf16")}
     (wg_flops, wg_bytes), (_, wg_bytes_bf16) = (wgrad.work(model, wg["rows"], dt)
                                                 for dt in (torch.float32, torch.bfloat16))
+    tile = {k: dict(err=bt[k]["max_abs_err"], ms=bt[k]["ms"], plain_ms=bt[k]["plain_ms"]) for k in ("f32", "bf16")}
+    (tile_flops, tile_bytes), (_, tile_bytes_bf16) = (bwd_tile.work(model, bt["rows"], dt)
+                                                      for dt in (torch.float32, torch.bfloat16))
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -902,7 +974,7 @@ def main() -> None:
               serve_launches, fwd, (2 * fwd_macs * chunk_rows, 64 * chunk_rows),
               tflops_bf16=2 * fwd_macs * chunk_rows / (fwd["bf16"]["ms"] * 1e9),
               share_of_bound_bf16=fwd_bound_bf16 / fwd["bf16"]["ms"],
-              source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh", before_after=before,
+              source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh",
               frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),
@@ -913,7 +985,8 @@ def main() -> None:
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],
               loss_rel_err=b1["f32"]["loss_err"], loss_rel_err_bf16=b1["bf16"]["loss_err"],
-              step_ms_bf16=tr["step_ms"], step_profile_ms_bf16=tr["profile"]),
+              step_ms_bf16=tr["step_ms"], step_host_ms_bf16=tr["host_ms"], step_profile_ms_bf16=tr["profile"],
+              before_after=before and {**before, "step": tr["turns"]}),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),
@@ -921,6 +994,13 @@ def main() -> None:
               ms_twelve_calls=wg["f32"]["ms_single"], ms_twelve_calls_bf16=wg["bf16"]["ms_single"],
               rel_err_f64=wg["f32"]["rel_err"], rel_err_f64_bf16=wg["bf16"]["rel_err"],
               plain_rel_err_f64=wg["f32"]["plain_rel_err"], plain_rel_err_f64_bf16=wg["bf16"]["plain_rel_err"]),
+        entry("bwd_tile", "bwd_bf16.cuh", "nerf_simple_tpu/kernels/mlp.py:808",
+              tr["launches"]["bwd_tile"], tile, (tile_flops, tile_bytes, tile_bytes_bf16),
+              replaces_also="nerf_simple_tpu/kernels/mlp.py:757", source_f32="nerf_simple_tpu_torch/csrc/mlp_tile.cuh",
+              share_of_bound=bt["f32"]["share_of_bound"], share_of_bound_bf16=bt["bf16"]["share_of_bound"],
+              rel_err=bt["f32"]["rel_err"], rel_err_bf16=bt["bf16"]["rel_err"],
+              gb_s_bf16=bt["bf16"]["gb_s"], probe_launches=bt["bf16"]["launches"],
+              step_profile_ms_bf16=tr["profile"].get("bwd_tile")),
         entry("fused_render", "fused_render.cu", "nerf_simple_tpu/kernels/mlp.py:1734",
               render_launches, rnd, (2 * fwd_macs * chunk_rows, 96 * chunk_rows),
               frame_ms=fused_frame_ms["f32"]["fused"], unfused_frame_ms=fused_frame_ms["f32"]["unfused"],

@@ -23,13 +23,14 @@
 // also lets the weight-gradient sums run as separate, well-shaped
 // reductions:
 //  1. the forward tile kernel recomputes out and writes the residuals;
-//  2. the backward tile kernel (the forward's layout and matmul loop,
-//     with transposed weights) takes each layer's cotangent back through
-//     W^T and the relu mask and writes it to the workspace;
+//  2. the backward tile kernel takes each layer's cotangent back through
+//     W^T and the relu mask and writes it to the workspace (bf16:
+//     csrc/bwd_bf16.cuh; f32: mlp_tile.cuh's f32::bwd_kernel);
 //  3. per layer, dW = G A^T over all rows (csrc/wgrad.cuh): output tiles
 //     split over row chunks, partial sums reduced in a fixed order, so
 //     the result is bitwise deterministic. Bias sums ride the same pass.
-// wgrad_sums runs one of those sums alone, for tests and timing.
+// wgrad_sums runs one of those sums alone, and backward_tile the tile
+// kernel alone, for tests and timing.
 // bf16 rounds where _backprop_tile does: both operands of every product,
 // f32 sums; cotangents are stored rounded, as each use rounds them.
 
@@ -59,15 +60,29 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
   if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
-  return backward(g, rows, Lp, Ld, H, is_bf16, wt, ws.res, ws.gws, ws.part, out, s);
+  return backward(g, rows, Lp, Ld, H, is_bf16, w, wt, ws.res, ws.gws, ws.image, ws.part, out, s);
 }
 
-// Launches of the weight-gradient sums kernel by this library so far;
-// with `reset`, the count restarts from 0 after it is read.
-long long wgrad_launch_count(int reset) {
-  const long long n = wgrad_launches;
-  if (reset) wgrad_launches = 0;
-  return n;
+// Bytes of the scratch `image` backward_tile needs (0 for f32).
+long long bwd_tile_image_bytes(int H, int is_bf16) { return bwd_image_bytes(H, is_bf16); }
+
+// The backward tile kernel alone, on `stream`: from the output cotangents
+// g (rows 0..2 d_rgb, row 3 d_sigma; row stride `rows`) and the residual
+// planes `res` (FA, Rp) to the cotangent planes `gws` (FG, Rp) of the
+// workspace (mlp_tile.cuh's Layout, Rp = rows rounded up to 64), in the
+// compute type, both 16-byte aligned. bf16 builds its weight image from
+// `w` in `image` (bwd_tile_image_bytes); f32 multiplies by `wt`.
+int backward_tile(const float *g, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
+                  WeightsT wt, const void *res, void *gws, void *image, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
+  return bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, wt, res, gws, image, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 backward's weight image alone, into `image`
+// (bwd_tile_image_bytes), on `stream`: for tests.
+int bwd_weight_image(Weights w, int H, void *image, void *stream) {
+  if (!arch_ok(1, 1, H)) return (int)cudaErrorInvalidValue;
+  return bb::build_image(w, bb::Plan{H}, image, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of the partial-sum scratch wgrad_sums needs.

@@ -15,7 +15,7 @@
 // Design: the forward tile kernel and the backward of csrc/
 // fused_mlp_bwd.cu (mlp_tile.cuh: residuals in a device-memory workspace,
 // deterministic weight-gradient sums), with the compositing between them.
-// A tile of 64 rows (128 in the bf16 forward) holds half a ray or one
+// A tile of 64 rows (128 in the bf16 tile kernels) holds half a ray or one
 // at N = 128, and rays need not line up with tiles, so compositing cannot
 // run inside the tile kernels as it did in the TPU kernel's 1,024-lane tiles;
 // it is its own pass, one warp a ray (csrc/composite.cuh, shared with the
@@ -137,14 +137,6 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
   return f > b ? f : b;
 }
 
-// Launches of the weight-gradient sums kernel by this library so far;
-// with `reset`, the count restarts from 0 after it is read.
-long long wgrad_launch_count(int reset) {
-  const long long n = wgrad_launches;
-  if (reset) wgrad_launches = 0;
-  return n;
-}
-
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `loss` is one f32 on the device.
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,
@@ -161,7 +153,7 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
       sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray);
   sum_kernel<<<1, 1024, 0, s>>>(sc.loss_ray, B, loss);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  return backward(sc.g, rows, Lp, Ld, H, is_bf16, wt, ws.res, ws.gws, ws.part, out, s);
+  return backward(sc.g, rows, Lp, Ld, H, is_bf16, w, wt, ws.res, ws.gws, ws.image, ws.part, out, s);
 }
 
 }  // extern "C"

@@ -216,6 +216,8 @@ __device__ __forceinline__ void mma(float (&d)[NACC], int npad, uint64_t da, uin
     mma_n256(d, da, db, acc);
   } else if constexpr (NFIX == 192) {
     mma_n192(d, da, db, acc);
+  } else if constexpr (NFIX == 128) {
+    mma_n128(d, da, db, acc);
   } else {
     switch (npad) {
       case 64: mma_n64(d, da, db, acc); break;

@@ -1,8 +1,8 @@
 // Device code shared by the fused NeRF MLP kernels for Hopper (sm_90a):
 // the forward tile kernels (csrc/fused_mlp_fwd.cu, and the first pass of
 // the two training entries; bf16 in csrc/fwd_bf16.cuh) and the backward
-// tile kernels, with the backward's task table for the weight-gradient
-// sums (csrc/wgrad.cuh).
+// tile kernels (bf16 in csrc/bwd_bf16.cuh), with the backward's task table
+// for the weight-gradient sums (csrc/wgrad.cuh).
 //
 // Layout (the TPU kernels' packed layout, kernels/mlp.py::pack_weights):
 // activations feature-major (features, rows); weights (out, in)
@@ -29,8 +29,9 @@ struct Weights {
   const void *Wcs, *bcs, *Wcd, *Wc1, *bc1;
 };
 
-// Transposes (in, out) of the matrices the backward multiplies a
-// cotangent by, in the compute type (kernels/mlp.py::_transposed).
+// Transposes (in, out) of the matrices the f32 backward multiplies a
+// cotangent by (kernels/mlp.py::_transposed); the bf16 backward reads
+// Weights and transposes into its weight image instead.
 struct WeightsT {
   const void *Wc1T, *WcsT, *Wp1T, *Wp0T, *WshT, *Wt4T, *Wt3T, *Wt2T, *Wt1T;
 };
@@ -51,7 +52,6 @@ constexpr int MAX_H = 256;    // widest layer the shared-memory plan holds
 typedef __nv_bfloat16 bf16;
 
 __host__ __device__ inline int ceil8(int n) { return (n + 7) / 8 * 8; }
-__host__ __device__ inline int ceil32(int n) { return (n + 31) / 32 * 32; }
 __host__ __device__ inline int enc_rows(int L) { return 8 + 2 * ceil8(3 * L); }
 __host__ __device__ inline long long align256(long long b) { return (b + 255) / 256 * 256; }
 
@@ -154,11 +154,6 @@ __device__ void encode(const float *__restrict__ x, long long rows,
   }
 }
 
-__device__ __forceinline__ void cp_async16(float *dst, const float *src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
 // Start copying W[:O, k0:k0+KS_F32] into buf (columns past K are skipped:
 // the multiply stops at K).
 __device__ void stage(const float *__restrict__ W, int O, int K, int k0, float *buf) {
@@ -166,7 +161,7 @@ __device__ void stage(const float *__restrict__ W, int O, int K, int k0, float *
     const int o = idx / (KS_F32 / 4), c = (idx % (KS_F32 / 4)) * 4;
     if (k0 + c < K) cp_async16(buf + o * WS_LD + c, W + (long long)o * K + k0 + c);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 // acc[i][j] += sum_k W[to + 32i][k] * in[k][row_of(j)] over the first O
@@ -187,9 +182,9 @@ __device__ void mm_acc(const float *__restrict__ W, int O, int K,
     const float *cur = Ws + (s & 1) * wsz;
     if (s + 1 < ns) {
       stage(W, O, K, (s + 1) * KS_F32, Ws + ((s + 1) & 1) * wsz);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();
     const int k0 = s * KS_F32, kn = min(KS_F32, K - k0);  // kn: 8 or 16
@@ -368,157 +363,8 @@ long long bwd_smem_bytes(int H) { return 4LL * (2 * H * TR + 2 * H * WS_LD); }
 
 }  // namespace f32
 
-// ----------------------------------------------------------------------
-// bf16 backward: tensor cores (mma.sync). Activations [row][feature] with
-// padded strides; warp w owns output features 32w..32w+31 (two m16 tiles) x all 64 rows
-// (eight n8 tiles): acc[mt][nt] is an m16n8 f32 fragment.
-namespace tc {
-
-constexpr int KS = 32;       // K-slice of a weight matrix staged per step
-constexpr int LDW = KS + 8;  // staged weights [o][k]: 20-word rows, conflict-free
-
-// Row stride (elements) of an activation buffer with F features: F
-// padded so that the stride in 32-bit words is 4 mod 8, which puts the
-// eight rows of a fragment load in distinct banks.
-__host__ __device__ inline int ld(int F) { return F + ((F / 2) % 8 == 4 ? 16 : 8); }
-
-__device__ __forceinline__ uint32_t ld32(const bf16 *p) {
-  return *reinterpret_cast<const uint32_t *>(p);
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += W[:, :K] @ act^T for this warp's features, over the first O rows
-// of W (O, K) row-major. act is [TR][lda]. Weight rows past O (up to the
-// warp tile) and columns past K stage as zeros; act must be finite up to
-// K rounded to 16. Every K-slice starts with a barrier.
-__device__ void mm_acc(const bf16 *__restrict__ W, int O, int K,
-                       const bf16 *act, int lda, bf16 *Ws, float acc[2][8][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, ow = warp * 32;
-  const int O32 = ceil32(O);
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < O32 * (KS / 8); idx += THREADS) {
-      const int o = idx / (KS / 8), c = (idx % (KS / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (o < O && k0 + c < K)
-        v = *reinterpret_cast<const uint4 *>(W + (long long)o * K + k0 + c);
-      *reinterpret_cast<uint4 *>(Ws + o * LDW + c) = v;
-    }
-    __syncthreads();
-    if (ow >= O) continue;
-    for (int ks = 0; ks < KS && k0 + ks < K; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16 *w0 = Ws + (ow + mt * 16 + g) * LDW + ks + 2 * t;
-        a[mt][0] = ld32(w0);
-        a[mt][1] = ld32(w0 + 8 * LDW);
-        a[mt][2] = ld32(w0 + 8);
-        a[mt][3] = ld32(w0 + 8 * LDW + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16 *x0 = act + (nt * 8 + g) * lda + k0 + ks + 2 * t;
-        const uint32_t b0 = ld32(x0), b1 = ld32(x0 + 8);
-        mma(acc[0][nt], a[0], b0, b1);
-        mma(acc[1][nt], a[1], b0, b1);
-      }
-    }
-  }
-}
-
-// Calls f(o, r, c) for each of the thread's fragment elements: feature
-// o, rows r and r + 1 in c[0] and c[1]; then resets them.
-template <typename F>
-__device__ __forceinline__ void for_fragments(float acc[2][8][4], F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int o = warp * 32 + mt * 16 + half * 8 + g;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        float *c = acc[mt][nt] + 2 * half;
-        f(o, nt * 8 + 2 * t, c);
-        c[0] = c[1] = 0.f;
-      }
-    }
-}
-
-// Backward epilogue: g[r][o] = bf16(acc * (h[o][row0 + r] > 0)) for o < O,
-// into shared `out` and the cotangent plane gout[o][row0 + r]. Resets acc.
-__device__ void mask_store(float acc[2][8][4], int O, const bf16 *h, bf16 *out,
-                           int ldo, bf16 *gout, long long Rp, long long row0) {
-  for_fragments(acc, [&](int o, int r, const float *c) {
-    if (o >= O) return;
-    const long long at = o * Rp + row0 + r;
-    const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162 *>(h + at);
-    __nv_bfloat162 v;
-    v.x = __float2bfloat16_rn(__bfloat162float(m.x) > 0.f ? c[0] : 0.f);
-    v.y = __float2bfloat16_rn(__bfloat162float(m.y) > 0.f ? c[1] : 0.f);
-    out[r * ldo + o] = v.x;
-    out[(r + 1) * ldo + o] = v.y;
-    *reinterpret_cast<__nv_bfloat162 *>(gout + at) = v;
-  });
-}
-
-// The tensor-core twin of f32::bwd_kernel. Both ping-pong buffers start
-// zeroed: K = 8 and K = H/2 + 8 steps of 16 read up to 8 features past K.
-__global__ void __launch_bounds__(THREADS, 2)
-    bwd_kernel(const float *__restrict__ g, long long rows, int Lp, int Ld,
-               int H, WeightsT wt, const bf16 *res, bf16 *gws) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  const int H2 = L.H2, lh = ld(H);
-  const long long Rp = L.Rp;
-  bf16 *P = reinterpret_cast<bf16 *>(smem);
-  bf16 *Q = P + TR * lh;
-  bf16 *Ws = Q + TR * lh;
-  const long long row0 = (long long)blockIdx.x * TR;
-  auto Wm = [](const void *p) { return static_cast<const bf16 *>(p); };
-
-  for (int idx = threadIdx.x; idx < 2 * TR * lh; idx += THREADS) P[idx] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 8 * TR; idx += THREADS) {
-    const int k = idx / TR, r = idx % TR;
-    const bool in = row0 + r < rows;
-    const bf16 vr = __float2bfloat16_rn(k < 3 && in ? g[k * rows + row0 + r] : 0.f);
-    const bf16 vs = __float2bfloat16_rn(k == 0 && in ? g[3 * rows + row0 + r] : 0.f);
-    P[r * lh + k] = vr;
-    gws[(L.gr8() + k) * Rp + row0 + r] = vr;
-    Q[r * lh + H2 + k] = vs;
-    gws[(L.gcs() + H2 + k) * Rp + row0 + r] = vs;
-  }
-  float acc[2][8][4] = {};
-  mm_acc(Wm(wt.Wc1T), H2, 8, P, lh, Ws, acc);
-  mask_store(acc, H2, res + L.hc() * Rp, Q, lh, gws + L.gcs() * Rp, Rp, row0);
-  mm_acc(Wm(wt.WcsT), H, H2 + 8, Q, lh, Ws, acc);
-  mask_store(acc, H, res + L.h(7) * Rp, P, lh, gws + L.gh(7) * Rp, Rp, row0);
-  const void *chain[7] = {wt.Wp1T, wt.Wp0T, wt.WshT, wt.Wt4T, wt.Wt3T, wt.Wt2T, wt.Wt1T};
-  for (int l = 6; l >= 0; --l) {  // as in f32::bwd_kernel; g_h7 is in P
-    const bf16 *src = l % 2 == 0 ? P : Q;
-    bf16 *dst = l % 2 == 0 ? Q : P;
-    mm_acc(Wm(chain[6 - l]), H, H, src, lh, Ws, acc);
-    mask_store(acc, H, res + L.h(l) * Rp, dst, lh, gws + L.gh(l) * Rp, Rp, row0);
-  }
-}
-
-long long bwd_smem_bytes(int H) { return 2LL * (2 * TR * ld(H) + ceil32(H) * LDW); }
-
-}  // namespace tc
-
 #include "fwd_bf16.cuh"  // fb: the bf16 forward tile kernel
+#include "bwd_bf16.cuh"  // bb: the bf16 backward tile kernel
 
 // ----------------------------------------------------------------------
 // The twelve weight-gradient sums of the backward, as csrc/wgrad.cuh
@@ -550,27 +396,46 @@ void wgrad_tasks(const Layout &L, const Grads &out, const void *res, const void 
   }
 }
 
-// Backward from output cotangents: the tile kernel, then the twelve
-// weight-gradient sums. `res` holds the forward's residuals; gws and part
-// are scratch.
-int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16,
-             const WeightsT &wt, void *res, void *gws, float *part, const Grads &out,
-             cudaStream_t stream) {
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  const long long smem = is_bf16 ? tc::bwd_smem_bytes(H) : f32::bwd_smem_bytes(H);
-  const dim3 grid((unsigned)(L.Rp / TR));
+// Launches of the backward tile kernels by this library (each source that
+// includes this header is its own library), counted where they launch.
+long long bwd_tile_launches = 0;
+
+// Bytes of the scratch `image` that bwd_tile() needs (bf16: the backward
+// weight image; f32 reads none).
+long long bwd_image_bytes(int H, int is_bf16) { return is_bf16 ? bb::Plan{H}.image_bytes() : 0; }
+
+// The backward tile kernel of the compute type: from the output
+// cotangents g (rows 0..2 d_rgb, row 3 d_sigma; stride `rows`) and the
+// residual planes `res` to every cotangent plane of `gws` (Layout). bf16
+// builds its weight image from `w` in `image` (bwd_image_bytes); f32
+// multiplies by the transposes `wt`.
+int bwd_tile(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16, const Weights &w,
+             const WeightsT &wt, const void *res, void *gws, void *image, cudaStream_t stream) {
+  int e;
   if (is_bf16) {
-    cudaError_t e = cudaFuncSetAttribute(tc::bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    tc::bwd_kernel<<<grid, THREADS, smem, stream>>>(g, rows, Lp, Ld, H, wt,
-        static_cast<const bf16 *>(res), static_cast<bf16 *>(gws));
+    e = bb::launch(g, rows, Lp, Ld, H, w, static_cast<const bf16 *>(res), static_cast<bf16 *>(gws), image,
+                   stream);
   } else {
-    cudaError_t e = cudaFuncSetAttribute(f32::bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    f32::bwd_kernel<<<grid, THREADS, smem, stream>>>(g, rows, Lp, Ld, H, wt,
-        static_cast<const float *>(res), static_cast<float *>(gws));
+    const Layout L = make_layout(rows, Lp, Ld, H);
+    const long long smem = f32::bwd_smem_bytes(H);
+    e = (int)cudaFuncSetAttribute(f32::bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e) return e;
+    f32::bwd_kernel<<<(unsigned)(L.Rp / TR), THREADS, smem, stream>>>(
+        g, rows, Lp, Ld, H, wt, static_cast<const float *>(res), static_cast<float *>(gws));
+    e = (int)cudaGetLastError();
   }
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  if (e == 0) ++bwd_tile_launches;
+  return e;
+}
+
+// Backward from output cotangents: the tile kernel, then the twelve
+// weight-gradient sums. `res` holds the forward's residuals; gws, image
+// and part are scratch.
+int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16, const Weights &w,
+             const WeightsT &wt, void *res, void *gws, void *image, float *part, const Grads &out,
+             cudaStream_t stream) {
+  if (int e = bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, wt, res, gws, image, stream)) return e;
+  const Layout L = make_layout(rows, Lp, Ld, H);
   WTask tasks[12];
   wgrad_tasks(L, out, res, gws, is_bf16 ? 2 : 4, tasks);
   return wgrad_launch(tasks, 12, L.Rp, is_bf16, part, stream);
@@ -600,7 +465,7 @@ long long fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
 }
 
 long long bwd_smem(int H, int is_bf16) {
-  return is_bf16 ? tc::bwd_smem_bytes(H) : f32::bwd_smem_bytes(H);
+  return is_bf16 ? bb::Plan{H}.smem_bytes() : f32::bwd_smem_bytes(H);
 }
 
 bool arch_ok(int Lp, int Ld, int H) {
@@ -608,8 +473,9 @@ bool arch_ok(int Lp, int Ld, int H) {
 }
 
 // Workspace of the backward, carved from one buffer: residuals, cotangents,
-// the weight-gradient partials and the forward's weight image, each
-// 256-byte aligned.
+// the weight-gradient partials and the weight image (the forward's, then
+// the backward's: one after the other on the stream), each 256-byte
+// aligned.
 struct Workspace {
   void *res, *gws;
   float *part;
@@ -624,9 +490,21 @@ Workspace carve(void *base, long long rows, int Lp, int Ld, int H, int is_bf16) 
   WTask tasks[12];
   wgrad_tasks(L, Grads{}, nullptr, nullptr, es, tasks);
   const long long c = align256(4LL * wgrad_part_floats(tasks, 12, L.Rp, is_bf16));
-  const long long d = align256(fwd_image_bytes(Lp, Ld, H, is_bf16));
+  const long long d = align256(std::max(fwd_image_bytes(Lp, Ld, H, is_bf16), bwd_image_bytes(H, is_bf16)));
   char *p = static_cast<char *>(base);
   return Workspace{p, p + a, reinterpret_cast<float *>(p + a + b), p + a + b + c, a + b + c + d};
 }
 
 }  // namespace
+
+extern "C" {
+
+// Launches of the backward tile kernels by this library so far, as
+// wgrad_launch_count counts the sums.
+long long bwd_tile_launch_count(int reset) {
+  const long long n = bwd_tile_launches;
+  if (reset) bwd_tile_launches = 0;
+  return n;
+}
+
+}  // extern "C"

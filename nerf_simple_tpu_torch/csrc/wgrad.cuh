@@ -56,6 +56,21 @@ struct WTask {
 };
 
 namespace {
+
+// 16-byte cp.async copies into shared memory, their commit and wait: the
+// one set of these helpers, for the sums below and for every tile kernel
+// of mlp_tile.cuh (which includes this header first).
+__device__ __forceinline__ void cp_async16(void *dst, const void *src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 namespace wg {
 
 typedef __nv_bfloat16 bf16;
@@ -124,16 +139,6 @@ __device__ __forceinline__ Work work_of(const Group &g, float *part, int esize) 
   return w;
 }
 
-__device__ __forceinline__ void cp16(void *dst, const void *src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Start copying BYTES of each of the first F feature rows of P (row
 // stride Rpb bytes), from byte rb of the row, into S (row stride LDB
 // bytes). With SW (128-byte rows), 16-byte chunk c of row f goes to chunk
@@ -146,7 +151,7 @@ __device__ __forceinline__ void copy_rows(const char *P, int F, long long Rpb, l
 #pragma unroll
   for (int it = 0; it < TO * CPR / THREADS; ++it) {
     const int idx = threadIdx.x + it * THREADS, f = idx / CPR, c = idx % CPR;
-    if (f < F) cp16(S + f * LDB + (SW ? c ^ (f & 7) : c) * 16, P + f * Rpb + rb + c * 16);
+    if (f < F) cp_async16(S + f * LDB + (SW ? c ^ (f & 7) : c) * 16, P + f * Rpb + rb + c * 16);
   }
 }
 
@@ -213,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 1) sums_bf16(const Group g, float *pa
 #pragma unroll
   for (int st = 0; st < NSW - 1; ++st) {
     if (st < nst) load(st);
-    commit();
+    cp_async_commit();
   }
   reinterpret_cast<uint32_t *>(ones)[threadIdx.x] = ONES;  // 8 rows x 128 B of 1.0
   const int wq = threadIdx.x >> 7;
@@ -221,11 +226,11 @@ __global__ void __launch_bounds__(THREADS, 1) sums_bf16(const Group g, float *pa
   const uint64_t dn = sw128_desc(ones);
   float acc[64] = {}, s[64] = {}, bacc[4] = {}, sb[4] = {};
   for (int st = 0; st < nst; ++st) {
-    wait_pending<NSW - 2>();
+    cp_async_wait<NSW - 2>();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // copies visible to wgmma
     __syncthreads();
     if (st + NSW - 1 < nst) load(st + NSW - 1);
-    commit();
+    cp_async_commit();
     if (!active) continue;
     const char *S = smem + (st % NSW) * WSTAGE;
     const uint64_t da = sw128_desc(S + wq * 64 * SWB), db = sw128_desc(S + TO * SWB);
@@ -330,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 1) sums_f32(const Group g, float *par
 #pragma unroll
   for (int st = 0; st < NS32 - 1; ++st) {
     if (st < nst) load(st);
-    commit();
+    cp_async_commit();
   }
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int mn = (w.Fo + 15) / 16, nn = (w.Fk + 15) / 16;  // i, j blocks with a valid row
@@ -338,10 +343,10 @@ __global__ void __launch_bounds__(THREADS, 1) sums_f32(const Group g, float *par
   const bool bias_thread = w.bias && tx < 8;
   float acc[8][8] = {}, bsum = 0.f;
   for (int st = 0; st < nst; ++st) {
-    wait_pending<NS32 - 2>();
+    cp_async_wait<NS32 - 2>();
     __syncthreads();
     if (st + NS32 - 1 < nst) load(st + NS32 - 1);
-    commit();
+    cp_async_commit();
     const float *Gs = buf(st), *As = Gs + TO * LD32;
     if (full) stage_f32<true>(Gs, As, ty, tx, mn, nn, bias_thread, acc, bsum);
     else stage_f32<false>(Gs, As, ty, tx, mn, nn, bias_thread, acc, bsum);
@@ -445,3 +450,15 @@ int wgrad_launch(const WTask *tasks, int n, long long Rp, bool is_bf16, float *p
 }
 
 }  // namespace
+
+extern "C" {
+
+// Launches of the sums kernel by this library so far; with `reset`, the
+// count restarts from 0 after it is read.
+long long wgrad_launch_count(int reset) {
+  const long long n = wgrad_launches;
+  if (reset) wgrad_launches = 0;
+  return n;
+}
+
+}  // extern "C"

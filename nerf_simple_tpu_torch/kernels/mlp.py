@@ -15,7 +15,10 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
 - ``weight_grad`` and ``weight_grads`` (csrc/wgrad.cuh, through
   csrc/fused_mlp_bwd.cu): the backward's weight-gradient sums alone,
   ``G A^T`` and the row sums of ``G``, one or up to twelve a launch, as
-  B1 and B2 run them.
+  B1 and B2 run them;
+- ``backward_tile`` (csrc/bwd_bf16.cuh, f32 in csrc/mlp_tile.cuh, through
+  csrc/fused_mlp_bwd.cu): the backward's tile kernel alone, from residual
+  planes and output cotangents to every layer's cotangent plane.
 
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are in ``csrc/mlp_tile.cuh``.
@@ -204,15 +207,14 @@ def image_slices(model: NerfMLP) -> list[tuple[str, int, int]]:
     return [(n, c, npad[n]) for n in IMAGE_ORDER for c in range(-(-K[n][1] // 64))]
 
 
-def weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
-    """Plain version of the bf16 forward's weight image (csrc/
-    fwd_bf16.cuh ``image_kernel``): int16 bit patterns of the bf16
-    weights, slice after slice as ``image_slices`` lists them, each
-    (rows, 64) with zeros past the matrix, in the 128-byte swizzle: the
-    16-byte chunk c of row n is stored at chunk c ^ (n % 8)."""
+def _swizzled_image(mats: dict, slices) -> torch.Tensor:
+    """int16 bit patterns of the bf16 matrices ``mats`` (name -> (rows, K)),
+    slice after slice as ``slices`` lists them ((name, K-slice, slice
+    rows)), each (rows, 64) with zeros past the matrix, in the 128-byte
+    swizzle: the 16-byte chunk c of row n is stored at chunk c ^ (n % 8)."""
     parts = []
-    for name, c, rows in image_slices(model):
-        W = getattr(wts, name).to(torch.bfloat16).view(torch.int16)
+    for name, c, rows in slices:
+        W = mats[name].to(torch.bfloat16).view(torch.int16)
         sl = torch.zeros((rows, 64), dtype=torch.int16, device=W.device)
         blk = W[:, 64 * c : 64 * c + 64]
         sl[: blk.shape[0], : blk.shape[1]] = blk
@@ -220,6 +222,34 @@ def weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
         pos = torch.arange(8, device=W.device)[None, :]
         parts.append(sl.reshape(rows, 8, 8)[n, pos ^ (n % 8)].reshape(-1))
     return torch.cat(parts)
+
+
+def weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
+    """Plain version of the bf16 forward's weight image (csrc/
+    fwd_bf16.cuh ``image_kernel``): the packed matrices as
+    ``image_slices`` lists them, swizzled (``_swizzled_image``)."""
+    return _swizzled_image({n: getattr(wts, n) for n in IMAGE_ORDER}, image_slices(model))
+
+
+BWD_IMAGE_ORDER = ("Wc1", "Wcs", "Wp1", "Wp0", "Wsh", "Wt4", "Wt3", "Wt2", "Wt1")
+
+
+def bwd_image_slices(model: NerfMLP) -> list[tuple[str, int, int]]:
+    """The bf16 backward's weight image, in order: (matrix, K-slice index,
+    slice rows) of each transposed matrix ``W^T`` (in, out), 64 of its
+    columns a slice, rows padded to a multiple of 64: the order in which
+    csrc/bwd_bf16.cuh multiplies a cotangent by them (``Wc1^T`` with K = 8,
+    ``Wcs^T`` with K = H/2 + 8, then the chain ``Wp1^T`` .. ``Wt1^T``)."""
+    shapes = _weight_shapes(model)
+    return [(n, c, -(-shapes[n][1] // 64) * 64) for n in BWD_IMAGE_ORDER
+            for c in range(-(-shapes[n][0] // 64))]
+
+
+def bwd_weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
+    """Plain version of the bf16 backward's weight image (csrc/
+    bwd_bf16.cuh ``bwd_image_kernel``): each matrix's transpose as
+    ``bwd_image_slices`` lists them, swizzled (``_swizzled_image``)."""
+    return _swizzled_image({n: getattr(wts, n).T for n in BWD_IMAGE_ORDER}, bwd_image_slices(model))
 
 
 def _encode(xT: torch.Tensor, model: NerfMLP) -> tuple[torch.Tensor, torch.Tensor]:
@@ -252,14 +282,75 @@ def _mm(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     return _rnd(a, dtype) @ _rnd(b, dtype)
 
 
+class Layout(NamedTuple):
+    """The backward's workspace (csrc/mlp_tile.cuh's ``Layout``): feature
+    offsets of the residual planes (FA features: posx, posd, h0..h7, hc)
+    and of the cotangent planes (FG: g_rgb8, g_cs = [g_hc ; g_sigma ; 0 x
+    7], g_h7..g_h0), each plane ``(features, rows)``."""
+
+    FX: int
+    FD: int
+    H: int
+
+    @classmethod
+    def of(cls, model: NerfMLP) -> "Layout":
+        return cls(_enc_rows(model.Lp), _enc_rows(model.Ld), model.H)
+
+    posx = property(lambda s: 0)
+    posd = property(lambda s: s.FX)
+    hc = property(lambda s: s.FX + s.FD + 8 * s.H)
+    FA = property(lambda s: s.FX + s.FD + 8 * s.H + s.H // 2)
+    gr8 = property(lambda s: 0)
+    gcs = property(lambda s: 8)
+    FG = property(lambda s: 16 + s.H // 2 + 8 * s.H)
+
+    def h(self, l: int) -> int:
+        return self.FX + self.FD + l * self.H
+
+    def gh(self, l: int) -> int:
+        return 16 + self.H // 2 + (7 - l) * self.H
+
+
+class WgradTask(NamedTuple):
+    """One weight-gradient sum of the backward (csrc/mlp_tile.cuh::
+    wgrad_tasks): the cotangent planes at gf (O features) against the
+    residual planes at af (K features) give ``name``'s gradient, and with
+    ``bias`` its bias's."""
+
+    name: str
+    gf: int
+    O: int
+    af: int
+    K: int
+    bias: bool
+
+
+def wgrad_tasks(model: NerfMLP) -> list[WgradTask]:
+    """The backward's twelve sums, in its order."""
+    L, H, H2 = Layout.of(model), model.H, model.H // 2
+    return [WgradTask("Wc1", L.gr8, 8, L.hc, H2, True), WgradTask("Wcd", L.gcs, H2, L.posd, L.FD, False),
+            WgradTask("Wcs", L.gcs, H2 + 8, L.h(7), H, True), WgradTask("Wp1", L.gh(7), H, L.h(6), H, True),
+            WgradTask("Wp0", L.gh(6), H, L.h(5), H, True), WgradTask("Wsh", L.gh(5), H, L.h(4), H, True),
+            WgradTask("Wsx", L.gh(5), H, L.posx, L.FX, False), WgradTask("Wt4", L.gh(4), H, L.h(3), H, True),
+            WgradTask("Wt3", L.gh(3), H, L.h(2), H, True), WgradTask("Wt2", L.gh(2), H, L.h(1), H, True),
+            WgradTask("Wt1", L.gh(1), H, L.h(0), H, True), WgradTask("W1", L.gh(0), H, L.posx, L.FX, True)]
+
+
 class Residuals(NamedTuple):
-    """What the backward needs of the forward, f32 ``(features, rows)``:
-    the encoded inputs and every relu output."""
+    """What the backward needs of the forward, ``(features, rows)``: the
+    encoded inputs and every relu output."""
 
     posx: torch.Tensor
     posd: torch.Tensor
     h: tuple  # h0..h7, each (H, rows)
     hc: torch.Tensor
+
+    @classmethod
+    def of_planes(cls, res: torch.Tensor, model: NerfMLP) -> "Residuals":
+        """Views of the workspace's residual planes ``res (FA, rows)``."""
+        L = Layout.of(model)
+        return cls(res[L.posx : L.posd], res[L.posd : L.h(0)],
+                   tuple(res[L.h(l) : L.h(l) + L.H] for l in range(8)), res[L.hc : L.FA])
 
 
 def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP):
@@ -305,35 +396,72 @@ def weight_grad_plain(G: torch.Tensor, A: torch.Tensor, dt) -> tuple[torch.Tenso
     return _mm(G, A.T, dt), _rnd(G, dt).sum(1)
 
 
+def _cotangents(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor, g_sig: torch.Tensor, dt):
+    """The g_hc / g_cs / g_h chain of the JAX ``_backprop_tile``, from
+    per-sample cotangents ``g_rgb (3, rows)`` and ``g_sig (rows,)``: (g8
+    = [g_rgb ; 0 x 5], g_cs = [g_hc ; g_sig ; 0 x 7], [g_h0 .. g_h7]).
+    Each is ``mask(h > 0) * W^T g`` of the layer above, both operands
+    rounded to ``dt`` and summed in f32; it is left unrounded, since every
+    use of it (a product, a sum, a plane) rounds it to ``dt``."""
+
+    def back(W, g, act):  # mask(act) * W^T g
+        return _mm(W.T, g, dt) * (act > 0)
+
+    g8 = torch.zeros((8, g_rgb.shape[1]), dtype=g_rgb.dtype, device=g_rgb.device)
+    g8[:3] = g_rgb
+    g_hc = back(wts.Wc1, g8, res.hc)
+    g_cs = torch.cat([g_hc, g_sig[None], torch.zeros_like(g8[:7])])
+    g_h = [None] * 8
+    g_h[7] = back(wts.Wcs, g_cs, res.h[7])
+    for l, W in ((6, wts.Wp1), (5, wts.Wp0), (4, wts.Wsh), (3, wts.Wt4),
+                 (2, wts.Wt3), (1, wts.Wt2), (0, wts.Wt1)):
+        g_h[l] = back(W, g_h[l + 1], res.h[l])
+    return g8, g_cs, g_h
+
+
+def backward_tile_plain(
+    wts: FusedWeights,
+    res: torch.Tensor,
+    g: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> torch.Tensor:
+    """Plain version of the backward tile kernel: from the residual planes
+    ``res (FA, Rp)`` of the workspace and the output cotangents ``g (>= 4,
+    rows)`` (rows 0..2 d_rgb, row 3 d_sigma; rows <= Rp) to the cotangent
+    planes ``(FG, Rp)`` (``Layout``) of the chain ``_cotangents``, each
+    rounded once to ``compute_dtype`` and held in f32 (f64 for f64
+    inputs, a reference). The chain runs over all Rp rows, so a row's
+    planes do not depend on ``rows``; rows past ``rows`` get zero
+    cotangents and are zero."""
+    L, dt = Layout.of(model), compute_dtype
+    ft = torch.float64 if torch.float64 in (res.dtype, g.dtype) else torch.float32
+    g4 = torch.zeros((4, res.shape[1]), dtype=ft, device=res.device)
+    g4[:, : g.shape[1]] = g[:4]
+    g8, g_cs, g_h = _cotangents(wts, Residuals.of_planes(res, model), g4[:3], g4[3], dt)
+    return _rnd(torch.cat([g8, g_cs, *g_h[::-1]]), dt)
+
+
 def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
               g_sig: torch.Tensor, dt, model: NerfMLP) -> FusedWeights:
     """The JAX ``_backprop_tile`` from per-sample cotangents ``g_rgb (3,
     rows)`` and ``g_sig (rows,)`` to packed-layout f32 gradients, summed
-    over rows. Rounding as the kernels round: both operands of every
-    product to ``dt``, f32 sums; the relu mask from the residual; a bias
-    gradient is the row sum of the cotangent as stored (rounded to
-    ``dt``). The TPU kernel took three bias sums (b1, bs, the colour half
-    of bcs) from a rail column of rounded cotangents and the others from
-    f32 ones; at f32 the two agree."""
-    rows = g_rgb.shape[1]
+    over rows: the chain ``_cotangents`` (what ``backward_tile_plain``
+    lays out as planes), then the twelve weight-gradient sums. Rounding
+    as the kernels round: both operands of every product to ``dt``, f32
+    sums; the relu mask from the residual; a bias gradient is the row sum
+    of the cotangent as stored (rounded to ``dt``). The TPU kernel took
+    three bias sums (b1, bs, the colour half of bcs) from a rail column of
+    rounded cotangents and the others from f32 ones; at f32 the two
+    agree."""
     h = res.h
-
-    def back(W, g, act):  # mask(act) * W^T g
-        return _mm(W.T, g, dt) * (act > 0)
+    g8, g_cs, g_h = _cotangents(wts, res, g_rgb, g_sig, dt)
+    g_hc = g_cs[: model.H // 2]
 
     def sums(g, act):  # the kernels' twelve weight-gradient sums: (dW, db (O, 1))
         dW, db = weight_grad_plain(g, act, dt)
         return dW, db[:, None]
 
-    g8 = torch.zeros((8, rows), dtype=g_rgb.dtype, device=g_rgb.device)
-    g8[:3] = g_rgb
-    g_hc = back(wts.Wc1, g8, res.hc)
-    g_cs = torch.cat([g_hc, g_sig[None], torch.zeros_like(g8[:7])])
-    g_h = [None] * 8
-    g_h[7] = back(wts.Wcs, g_cs, h[7])
-    for l, W in ((6, wts.Wp1), (5, wts.Wp0), (4, wts.Wsh), (3, wts.Wt4),
-                 (2, wts.Wt3), (1, wts.Wt2), (0, wts.Wt1)):
-        g_h[l] = back(W, g_h[l + 1], h[l])
     (W1, b1), (Wt1, bt1), (Wt2, bt2), (Wt3, bt3), (Wt4, bt4) = (
         sums(g_h[0], res.posx), sums(g_h[1], h[0]), sums(g_h[2], h[1]),
         sums(g_h[3], h[2]), sums(g_h[4], h[3]))
@@ -463,6 +591,10 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "wgrad_group": ([_P, _I, _LL, _I, _P, _P], _I),
         "wgrad_group_part_bytes": ([_P, _I, _LL, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
+        "bwd_tile_launch_count": ([_I], _LL),
+        "bwd_tile_image_bytes": ([_I, _I], _LL),
+        "backward_tile": ([_P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _P, _P], _I),
+        "bwd_weight_image": ([_CPtrs, _I, _P, _P], _I),
     },
     "fused_render": {
         "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
@@ -474,6 +606,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
+        "bwd_tile_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -598,6 +731,14 @@ def _transposed(wts: FusedWeights) -> _CWeightsT:
     return st
 
 
+def _weights_t(wts: FusedWeights, bf16: int) -> _CWeightsT:
+    """What the backward tile kernel of the compute type reads of the
+    transposes: f32 multiplies by them; bf16 transposes into its weight
+    image from the packed matrices, so it gets null pointers and no copies
+    are made."""
+    return _CWeightsT() if bf16 else _transposed(wts)
+
+
 def _empty_grads(model: NerfMLP, device) -> FusedWeights:
     return FusedWeights(**{
         n: torch.empty(s, dtype=torch.float32, device=device)
@@ -631,7 +772,7 @@ def fused_mlp_backward(
     grads = _empty_grads(model, xT.device)
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _transposed(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
+        _CPtrs(*_ptrs(wts)), _weights_t(wts, bf16), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
         _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
@@ -698,7 +839,7 @@ def fused_train_step(
     grads = _empty_grads(model, x16.device)
     _raise_on(lib.fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _transposed(wts), ws.data_ptr(), loss.data_ptr(),
+        _CPtrs(*_ptrs(wts)), _weights_t(wts, bf16), ws.data_ptr(), loss.data_ptr(),
         _CPtrs(*_ptrs(grads)), _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
@@ -837,10 +978,69 @@ def weight_grad(
 weight_grad.launches = 0
 
 
+def _c_counts(entry: str, reset: bool) -> int:
+    """A launch count kept in C (``<entry>(reset)``), summed over the
+    training libraries that are loaded; libraries not yet loaded count 0
+    and are not built."""
+    return sum(getattr(_lib(name), entry)(int(reset))
+               for name in ("fused_mlp_bwd", "fused_train_step") if name in _build._loaded)
+
+
 def wgrad_sums_launches(reset: bool = False) -> int:
     """Launches of the weight-gradient sums kernel (csrc/wgrad.cuh) so far,
     counted inside the libraries that launch it: B1 and B2 run it from C,
-    ``weight_grad`` through B2's library. Libraries not yet loaded count
-    0 and are not built. With ``reset``, the counts restart from 0."""
-    return sum(_lib(name).wgrad_launch_count(int(reset))
-               for name in ("fused_mlp_bwd", "fused_train_step") if name in _build._loaded)
+    ``weight_grad`` through B2's library. With ``reset``, the counts
+    restart from 0."""
+    return _c_counts("wgrad_launch_count", reset)
+
+
+def bwd_tile_launches(reset: bool = False) -> int:
+    """Launches of the backward tile kernels (bf16: csrc/bwd_bf16.cuh; f32:
+    mlp_tile.cuh) so far, counted inside the libraries that launch them:
+    B1 and B2 once a call, ``backward_tile`` through B2's library. With
+    ``reset``, the counts restart from 0."""
+    return _c_counts("bwd_tile_launch_count", reset)
+
+
+def backward_tile(
+    wts: FusedWeights,
+    res: torch.Tensor,
+    g: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> torch.Tensor:
+    """The backward tile kernel alone: from the residual planes ``res (FA,
+    Rp)`` of the workspace (``Layout``; Rp = rows rounded up to 64) in the
+    compute type and the output cotangents ``g (8, rows)`` f32 (rows 0..2
+    d_rgb, row 3 d_sigma, rows 4..7 not read) to the cotangent planes
+    ``(FG, Rp)`` in the compute type, zero past ``rows``: what B1 and B2
+    run between their forward and their weight-gradient sums.
+    ``backward_tile.launches`` counts the kernel's launches by this
+    wrapper."""
+    wts = _prepare(wts, compute_dtype, model)
+    L = Layout.of(model)
+    rows = g.shape[1] if g.dim() == 2 else 0
+    Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE
+    if rows == 0 or res.dtype != compute_dtype or tuple(res.shape) != (L.FA, Rp) or not res.is_contiguous():
+        raise ValueError(f"res must be contiguous ({L.FA}, {Rp}) {compute_dtype} planes for g of "
+                         f"{rows} rows; got {tuple(res.shape)} {res.dtype}")
+    if res.device != g.device:
+        raise ValueError(f"res on {res.device} and g on {g.device}")
+    if _dispatch(g):
+        if g.dtype != torch.float32 or g.shape[0] != 8:
+            raise ValueError(f"g must be an (8, rows) f32 tensor; got {tuple(g.shape)} {g.dtype}")
+        return backward_tile_plain(wts, res, g, compute_dtype, model).to(compute_dtype)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, g, "g", 8, compute_dtype, model)
+    if res.data_ptr() % 16:
+        raise ValueError("the kernel's 16-byte copies need 16-byte aligned planes")
+    out = torch.empty((L.FG, Rp), dtype=compute_dtype, device=g.device)
+    image = torch.empty(lib.bwd_tile_image_bytes(model.H, bf16), dtype=torch.uint8, device=g.device)
+    _raise_on(lib.backward_tile(
+        g.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
+        _weights_t(wts, bf16), res.data_ptr(), out.data_ptr(), image.data_ptr(), _stream(g),
+    ), "backward_tile")
+    backward_tile.launches += 1
+    return out
+
+
+backward_tile.launches = 0

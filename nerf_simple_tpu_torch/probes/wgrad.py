@@ -17,8 +17,10 @@ them, and as twelve ``weight_grad`` calls), the plain version
 (``weight_grad_plain``) and the library yardstick ``torch.mm(G, A.t())``
 + ``G.sum(1)`` (timed here and never called by the port), and compares
 kernel and plain with float64 sums of the operands as stored. Times are
-CUDA events, the median of 5 in turns kernel / library / twelve calls /
-twelve calls / library / kernel ...; TF32 is off.
+CUDA events around CALLS calls back to back (so the wrapper's host time
+between launches is hidden, as in a step), the median of 5 in turns
+kernel / library / twelve calls / plain / plain / twelve calls / library
+/ kernel ...; TF32 is off.
 
 On the CPU it runs the plain version at 256 rows: it times nothing.
 """
@@ -27,8 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
@@ -37,6 +37,7 @@ from nerf_simple_tpu_torch.models.nerf import NerfMLP
 from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
 ROWS = 524_288  # BATCH x N_SAMPLES of configs/lego.yaml
+CALLS = 10  # calls a timing
 # Kernel against float64 sums of the operands as stored, max abs error
 # over the largest entry of the reference, per sum (dW and db together).
 # Only the f32 accumulation of 524,288 products differs. f32: the sums
@@ -48,39 +49,12 @@ ROWS = 524_288  # BATCH x N_SAMPLES of configs/lego.yaml
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 
-class Sum(NamedTuple):
-    """One sum of the backward (csrc/mlp_tile.cuh::wgrad_tasks): the
-    cotangent plane at feature gf (O features) against the residual plane
-    at af (K features)."""
-
-    name: str
-    gf: int
-    O: int
-    af: int
-    K: int
-    bias: bool
-
-
-def sums(model: NerfMLP) -> tuple[list[Sum], int, int]:
-    """The twelve sums in the backward's order, and the feature counts of
-    the cotangent and residual workspaces (FG, FA)."""
-    H, H2, FX, FD = model.H, model.H // 2, mlp._enc_rows(model.Lp), mlp._enc_rows(model.Ld)
-    posx, posd = 0, FX
-
-    def h(l):
-        return FX + FD + l * H
-
-    def gh(l):
-        return 16 + H2 + (7 - l) * H
-
-    hc, gr8, gcs = FX + FD + 8 * H, 0, 8
-    out = [Sum("Wc1", gr8, 8, hc, H2, True), Sum("Wcd", gcs, H2, posd, FD, False),
-           Sum("Wcs", gcs, H2 + 8, h(7), H, True), Sum("Wp1", gh(7), H, h(6), H, True),
-           Sum("Wp0", gh(6), H, h(5), H, True), Sum("Wsh", gh(5), H, h(4), H, True),
-           Sum("Wsx", gh(5), H, posx, FX, False), Sum("Wt4", gh(4), H, h(3), H, True),
-           Sum("Wt3", gh(3), H, h(2), H, True), Sum("Wt2", gh(2), H, h(1), H, True),
-           Sum("Wt1", gh(1), H, h(0), H, True), Sum("W1", gh(0), H, posx, FX, True)]
-    return out, 16 + H2 + 8 * H, FX + FD + 8 * H + H2
+def sums(model: NerfMLP) -> tuple[list[mlp.WgradTask], int, int]:
+    """The twelve sums in the backward's order (``mlp.wgrad_tasks``), and
+    the feature counts of the cotangent and residual workspaces (FG,
+    FA)."""
+    L = mlp.Layout.of(model)
+    return mlp.wgrad_tasks(model), L.FG, L.FA
 
 
 def planes(FG: int, FA: int, rows: int, device, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,9 +73,11 @@ def planes(FG: int, FA: int, rows: int, device, seed: int = 0) -> tuple[torch.Te
     return out[0], out[1]
 
 
-def _turns_ms(fns: dict, reps: int = 5) -> dict:
+def turns_ms(fns: dict, reps: int = 5, calls: int = 1) -> dict:
     """Median CUDA-event ms of each callable, after a warm-up of each, timed
-    in turns (a b c c b a a b c ...) until each ran ``reps`` times."""
+    in turns (a b c c b a a b c ...) until each ran ``reps`` times. With
+    ``calls`` > 1 each timing spans that many calls back to back and is
+    divided by it: the card then waits on no host work between them."""
     names = list(fns)
     for fn in fns.values():
         fn()
@@ -112,10 +88,11 @@ def _turns_ms(fns: dict, reps: int = 5) -> dict:
         name = order[i % len(order)]
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fns[name]()
+        for _ in range(calls):
+            fns[name]()
         e1.record()
         e1.synchronize()
-        times[name].append(e0.elapsed_time(e1))
+        times[name].append(e0.elapsed_time(e1) / calls)
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
@@ -170,22 +147,17 @@ def run(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
             "kernel": lambda: mlp.weight_grads(pairs),
             "library": lambda: [(torch.mm(g, a.t()), g.sum(1) if bias else None) for g, a, bias in pairs],
             "single": lambda: [mlp.weight_grad(g, a, bias) for g, a, bias in pairs],
+            "plain": lambda: [mlp.weight_grad_plain(g, a, dt) for g, a, _ in pairs],
         }
         before = mlp.weight_grad.launches
         fns["kernel"]()
         launches = mlp.weight_grad.launches - before
-        ms = _turns_ms(fns)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        [mlp.weight_grad_plain(g, a, dt) for g, a, _ in pairs]
-        e0.record()
-        [mlp.weight_grad_plain(g, a, dt) for g, a, _ in pairs]
-        e1.record()
-        e1.synchronize()
+        ms = turns_ms(fns, calls=CALLS)
         flops, nbytes = work(model, rows, dt)
         b = bound_ms(flops, nbytes, dt)
         res[name] = dict(
             ms=ms["kernel"], ms_single=ms["single"], library_ms=ms["library"],
-            plain_ms=e0.elapsed_time(e1), bound_ms=b, bound_by=bound_by(flops, nbytes, dt),
+            plain_ms=ms["plain"], bound_ms=b, bound_by=bound_by(flops, nbytes, dt),
             tflops=flops / (ms["kernel"] * 1e-3) / 1e12, gb_s=nbytes / (ms["kernel"] * 1e-3) / 1e9,
             share_of_bound=b / ms["kernel"], launches=launches, max_abs_err=abs_err,
             rel_err=max(errs.values()), single_rel_err=max(single_errs.values()),

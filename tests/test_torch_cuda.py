@@ -1,5 +1,6 @@
 """The CUDA kernels (fused MLP forward, backward, train step and render;
-the padding probe) against their plain PyTorch versions, on the card.
+the weight-gradient sums and the backward tile kernel alone; the padding
+probe) against their plain PyTorch versions, on the card.
 Imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -381,3 +382,55 @@ def test_weight_image_kernel_matches_plain(dev, model):
                                 image.data_ptr(), mlp._stream(image)) == 0
     torch.cuda.synchronize()
     assert torch.equal(image, mlp.weight_image_plain(wts, model))
+
+
+# --- the bf16 backward tile kernel (csrc/bwd_bf16.cuh) -----------------------------
+
+BWD_ROWS = [1, 63, 64, 65, 127, 128, 129, 132 * 128 + 17]  # the last: a persistent walk, not a 64 multiple
+EDGE_MODELS = [NerfMLP(), NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=3, Ld=1, H=48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", BWD_ROWS, ids=[str(r) for r in BWD_ROWS])
+@pytest.mark.parametrize("model", EDGE_MODELS, ids=["H256", "H16", "H48"])
+def test_backward_tile_matches_plain_at_ragged_rows(dev, model, rows, dtype):
+    """The tile kernel alone against backward_tile_plain on random residual
+    planes (half zero, as after a relu): every cotangent group within the
+    probe's REL_TOL (probes/bwd_tile.py states why), pad rows zero, and two
+    runs equal bit for bit."""
+    from nerf_simple_tpu_torch.probes import bwd_tile
+
+    wts, res, g = bwd_tile.inputs(model, rows, dev, seed=rows)
+    w, res = mlp._cast_weights(wts, dtype), res.to(dtype)
+    before, counted = mlp.backward_tile.launches, mlp.bwd_tile_launches()
+    got = mlp.backward_tile(w, res, g, dtype, model)
+    torch.cuda.synchronize()
+    assert mlp.backward_tile.launches == before + 1 and mlp.bwd_tile_launches() == counted + 1
+    want = mlp.backward_tile_plain(w, res, g, dtype, model)
+    assert got.dtype == dtype and got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+    assert not got[:, rows:].any()
+    errs = bwd_tile.errors(got, want, model)
+    assert max(errs.values()) <= bwd_tile.REL_TOL[dtype], errs
+    assert torch.equal(got, mlp.backward_tile(w, res, g, dtype, model))
+
+
+@pytest.mark.parametrize("model", EDGE_MODELS, ids=["flagship", "H16", "odd-widths"])
+def test_bwd_weight_image_kernel_matches_plain(dev, model):
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
+                            torch.bfloat16)
+    lib = mlp._lib("fused_mlp_bwd")
+    image = torch.zeros(lib.bwd_tile_image_bytes(model.H, 1) // 2, dtype=torch.int16, device=dev)
+    assert lib.bwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.H, image.data_ptr(), mlp._stream(image)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(image, mlp.bwd_weight_image_plain(wts, model))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_step_launches_the_tile_kernel_once(dev, dtype):
+    model = NerfMLP(Lp=4, Ld=2, H=32)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    mlp.fused_train_step(wts, _x16(4, 16, dev), 16, dtype, model)
+    mlp.bwd_tile_launches(reset=True)
+    mlp.fused_train_step(wts, _x16(4, 16, dev), 16, dtype, model)
+    torch.cuda.synchronize()
+    assert mlp.bwd_tile_launches() == 1
