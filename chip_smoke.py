@@ -9,13 +9,17 @@ NerfMLP(Lp=10, Ld=4, H=256):
    limit as nvidia-smi reports them;
 2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
    at once; prints the build time and ptxas registers and spills (the
-   bf16 tile kernels, csrc/fwd_bf16.cuh and csrc/bwd_bf16.cuh, are built
-   into four of them);
+   forward tile kernels, csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the
+   bf16 backward tile kernel, csrc/bwd_bf16.cuh, are built into four of
+   them);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
    frame x 128 stratified samples = 2,097,152 rows), f32 and bf16, with
-   random weights from a numpy seed;
+   random weights from a numpy seed; the f32 forward's TFLOP/s and share
+   of its bound beside one f32 torch.mm of the chunk's rows (TF32 off);
+   with ``--before CSRC``, the earlier f32 forward beside the current one
+   in turns;
 4. serve: the novel-view server over HTTP on localhost, three 400x400
    frames through the forward kernel, then the frame against the plain
    backend; then one frame through ``render_rays_chunked`` with
@@ -27,8 +31,9 @@ NerfMLP(Lp=10, Ld=4, H=256):
    the train step's bitwise determinism; with ``--before CSRC`` (a copy
    of an earlier commit's csrc/, e.g. ``git archive <commit>
    nerf_simple_tpu_torch/csrc`` unpacked under a gitignored build/), the
-   earlier train-step source is built from it and B1 bf16 is timed beside
-   the current one, in turns (step ms and the profiled kernel groups),
+   earlier train-step and forward sources are built from it and B1 bf16
+   and f32 are timed beside the current ones, in turns (step ms and the
+   profiled kernel groups; the f32 forward's times join the f32 line),
    and so is the whole bf16 train step of phase 7;
 6. wgrad: the backward's twelve weight-gradient sums alone at 524,288
    rows (probes/wgrad.py), f32 and bf16: the kernel in one launch (as B1
@@ -179,21 +184,75 @@ def grad_errors(got, want) -> tuple[float, float]:
     return rel, max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
-def build_before(csrc: str, _build, mlp):
-    """The train-step source of another copy of csrc/ (the kernels a change
-    replaces), built with the package's nvcc flags into <csrc>/../build/;
-    returns its ctypes library, its entries fused_train_step and
-    fused_train_step_workspace_bytes bound as the current library's."""
-    out = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build", "fused_train_step.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out,
-                           os.path.join(csrc, "fused_train_step.cu")], capture_output=True, text=True)
-    check(proc.returncode == 0, f"build of the earlier fused_train_step.cu:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    for entry in ("fused_train_step", "fused_train_step_workspace_bytes"):
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = mlp._SIGNATURES["fused_train_step"][entry]
-    return lib
+# the entries of an earlier library that the before/after phases call
+BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_workspace_bytes"),
+                  "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes")}
+
+
+def build_before(csrc: str, _build, mlp) -> dict:
+    """The train-step and forward sources of another copy of csrc/ (the
+    kernels a change replaces), built with the package's nvcc flags into
+    <csrc>/../build/, one nvcc each, both at once; returns their ctypes
+    libraries by source, the entries of BEFORE_ENTRIES bound as the
+    current library's."""
+    outdir = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build")
+    os.makedirs(outdir, exist_ok=True)
+    procs = {n: (os.path.join(outdir, f"{n}.so"), subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", os.path.join(outdir, f"{n}.so"),
+         os.path.join(csrc, f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for n in BEFORE_ENTRIES}
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"build of the earlier {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(out)
+        for entry in BEFORE_ENTRIES[name]:
+            fn = getattr(libs[name], entry)
+            fn.argtypes, fn.restype = mlp._SIGNATURES[name][entry]
+    return libs
+
+
+def in_turns(old, new) -> dict:
+    """CUDA-event ms of ``old`` and ``new`` in turns (earlier, current,
+    current, earlier; each the median of 5 calls): the median of each."""
+    t = {"earlier": [], "current": []}
+    for which in ("earlier", "current", "current", "earlier"):
+        t[which].append(cuda_ms(old if which == "earlier" else new))
+    return {k: float(np.median(v)) for k, v in t.items()}
+
+
+def phase_forward_before_after(dev, params, model, mlp, x16, earlier) -> dict:
+    """The f32 forward of an earlier forward library beside the current one
+    on the render chunk, in turns, both called straight through ctypes with
+    their outputs and weight images made once. The two must agree."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+
+    w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), torch.float32)
+    cw, xT = mlp._CPtrs(*mlp._ptrs(w)), x16[:8].contiguous()
+    R = xT.shape[1]
+
+    def bind(lib, what):
+        out = torch.empty((8, R), dtype=torch.float32, device=dev)
+        image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, 0), dtype=torch.uint8,
+                            device=dev)
+
+        def fwd():
+            mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, 0, cw,
+                                            image.data_ptr(), mlp._stream(xT)), what)
+        return fwd, out
+
+    old, o_old = bind(earlier, "earlier fused_mlp_fwd")
+    new, o_new = bind(mlp._lib("fused_mlp_fwd"), "fused_mlp_fwd")
+    with torch.inference_mode():
+        old()
+        new()
+        torch.cuda.synchronize()
+        err = (o_new[:4] - o_old[:4]).abs().max().item()
+        check(err <= TOL[torch.float32], "current f32 forward matches the earlier kernel")
+        res = {"fwd_ms": in_turns(old, new), "fwd_err": err, "rows": R}
+    del o_old, o_new
+    torch.cuda.empty_cache()
+    return res
 
 
 @contextlib.contextmanager
@@ -210,30 +269,31 @@ def earlier_train_step(mlp, lib):
         mlp._lib, mlp._weights_t = lib_of, weights_t
 
 
-def phase_before_after(dev, params, model, mlp, x16_batch, earlier) -> dict:
-    """B1 bf16 of an earlier train-step library beside the current one at
-    the training batch, in turns (earlier, current, current, earlier,
-    median of each): step ms and the profiled kernel groups (the backward
-    tile kernel's among them). Both libraries are called the same way,
-    straight through ctypes with a workspace made once, so the walls hold
-    no wrapper time. The two must agree."""
+def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfloat16) -> dict:
+    """B1 of an earlier train-step library beside the current one at the
+    training batch, in compute type ``dt``, in turns (earlier, current,
+    current, earlier, median of each): step ms and the profiled kernel
+    groups (the tile kernels' among them). Both libraries are called the
+    same way, straight through ctypes with a workspace made once, so the
+    walls hold no wrapper time. The two must agree."""
     from nerf_simple_tpu_torch.models.nerf import NerfField
 
-    dt = torch.bfloat16
     w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), dt)
     cw, wt = mlp._CPtrs(*mlp._ptrs(w)), mlp._transposed(w)  # an earlier bf16 library may read wt
     res = {}
     R, Nb = x16_batch.shape[1], N_SAMPLES
+    bf16 = int(dt == torch.bfloat16)
+    name = "bf16" if bf16 else "f32"
 
     def bind(lib, what):
-        ws = torch.empty(lib.fused_train_step_workspace_bytes(R, Nb, model.Lp, model.Ld, model.H, 1),
+        ws = torch.empty(lib.fused_train_step_workspace_bytes(R, Nb, model.Lp, model.Ld, model.H, bf16),
                          dtype=torch.uint8, device=dev)
         loss = torch.empty((), dtype=torch.float32, device=dev)
         grads = mlp._empty_grads(model, dev)
         cg = mlp._CPtrs(*mlp._ptrs(grads))
 
         def step():
-            mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, 1,
+            mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, bf16,
                                                cw, wt, ws.data_ptr(), loss.data_ptr(), cg,
                                                mlp._stream(x16_batch)), what)
         return step, loss, grads
@@ -246,16 +306,15 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier) -> dict:
         new_step()
         rel = grad_errors(g_new, grads)[0]
         check(abs(l_new.item() / loss.item() - 1) <= LOSS_TOL[dt] and rel <= GRAD_TOL["B1", dt],
-              "current B1 bf16 matches the earlier kernels")
-        t = {"earlier": [], "current": []}
-        for which in ("earlier", "current", "current", "earlier"):
-            t[which].append(cuda_ms(old_step if which == "earlier" else new_step))
-        res["b1_ms"] = {k: float(np.median(v)) for k, v in t.items()}
+              f"current B1 {name} matches the earlier kernels")
+        res["b1_ms"] = in_turns(old_step, new_step)
         res["b1_profile"] = {"earlier": profile_step(old_step), "current": profile_step(new_step)}
         res["b1_grad_rel"] = rel
     del old_step, new_step
     torch.cuda.empty_cache()
     b = res["b1_ms"]
+    if not bf16:
+        return res
     print(f"before/after B1 bf16 at {R} rows: earlier {b['earlier']:.3f} ms, current {b['current']:.3f} ms; "
           "profiled ms a call: " + "; ".join(
               f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
@@ -314,7 +373,12 @@ def phase_build(sources, _build) -> None:
 
 
 def phase_forward(dev, params, model, mlp, x16):
+    """The forward kernel against its plain version on the chunk, f32 and
+    bf16; then the f32 kernel's rate and share of its bound beside the
+    rate of one f32 torch.mm of the chunk's rows by a 256 x 256 matrix
+    (TF32 off): the SIMT FMA rate a library reaches, timed here only."""
     from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.utils.roofline import bound_ms
 
     field = NerfField.from_jax_params(params, dev)
     xT = x16[:8].contiguous()
@@ -338,6 +402,20 @@ def phase_forward(dev, params, model, mlp, x16):
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5)", flush=True)
             check(err_rgb <= TOL[dt] and err_sig <= TOL[dt], f"{name} kernel within tolerance")
             stats[name] = dict(err=max(err_rgb, err_sig), ms=ms, plain_ms=plain_ms)
+        R = xT.shape[1]
+        flops = 2 * sum(o * k for o, k in mlp._weight_shapes(model).values() if k != 1) * R
+        A = torch.from_numpy(np.random.default_rng(SEED).standard_normal((R, 256), dtype=np.float32)).to(dev)
+        B = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal((256, 256), dtype=np.float32)).to(dev)
+        mm_ms = cuda_ms(lambda: torch.mm(A, B))
+        del A, B
+    f32 = stats["f32"]
+    f32["tflops"] = flops / (f32["ms"] * 1e9)
+    f32["share_of_bound"] = bound_ms(flops, 64 * R, torch.float32) / f32["ms"]
+    f32["mm_tflops"] = 2 * R * 256 * 256 / (mm_ms * 1e9)
+    print(f"forward kernel f32 at {R} rows: {f32['tflops']:.2f} TFLOP/s, {100 * f32['share_of_bound']:.1f}% of its "
+          f"bound ({bound_ms(flops, 64 * R, torch.float32):.2f} ms, operations at 67 TFLOP/s); one f32 torch.mm "
+          f"({R} x 256) @ (256 x 256), TF32 off: {mm_ms:.3f} ms, {f32['mm_tflops']:.2f} TFLOP/s", flush=True)
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -892,14 +970,16 @@ def main() -> None:
     from nerf_simple_tpu_torch.probes import bwd_tile, pad_passes, wgrad
     from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
-    # 2. build
+    # 2. build (with --before, the earlier train-step and forward sources too)
     phase_build((*mlp.SOURCES, pad_passes.SOURCE), _build)
+    earlier = build_before(args.before, _build, mlp) if args.before else {}
 
     # 3-4. forward and render kernels vs plain; serving; the fused_eval frame
     model = NerfMLP()
     params = init_nerf_params(SEED, model)
     x16 = chunk_input(dev)
     fwd = phase_forward(dev, params, model, mlp, x16)
+    fwd_turns = earlier and phase_forward_before_after(dev, params, model, mlp, x16, earlier["fused_mlp_fwd"])
     rnd = phase_render(dev, params, model, mlp, x16)
     del x16
     torch.cuda.empty_cache()
@@ -914,17 +994,27 @@ def main() -> None:
         # 5. B2 and B1 vs plain at the training batch
         bwd = phase_backward_and_step(dev, params, model, mlp, train_batch(dev, scene))
         torch.cuda.empty_cache()
-        before, earlier = None, None
-        if args.before:  # 5b. B1 of an earlier train-step source beside the current one
-            earlier = build_before(args.before, _build, mlp)
-            before = phase_before_after(dev, params, model, mlp, train_batch(dev, scene), earlier)
+        before = None
+        if earlier:  # 5b. B1 (and the f32 forward) of the earlier sources beside the current ones
+            batch = train_batch(dev, scene)
+            before = phase_before_after(dev, params, model, mlp, batch, earlier["fused_train_step"])
+            b32 = phase_before_after(dev, params, model, mlp, batch, earlier["fused_train_step"], torch.float32)
+            del batch
+            before["f32"] = {**fwd_turns, **b32}
+            f, b = fwd_turns["fwd_ms"], b32["b1_ms"]
+            print(f"before/after f32: forward at {fwd_turns['rows']} rows earlier {f['earlier']:.3f} ms, current "
+                  f"{f['current']:.3f} ms (max abs diff {fwd_turns['fwd_err']:.2e}); B1 at {BATCH * N_SAMPLES} rows "
+                  f"earlier {b['earlier']:.3f} ms, current {b['current']:.3f} ms (grads {b32['b1_grad_rel']:.2e} of "
+                  "max); profiled ms a B1 call: " + "; ".join(
+                      f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
+                      for k, p in b32["b1_profile"].items()), flush=True)
         # 6. the weight-gradient sums alone, then the backward tile kernel alone
         wg = phase_wgrad(dev)
         torch.cuda.empty_cache()
         bt = phase_bwd_tile(dev)
         torch.cuda.empty_cache()
         # 7. train
-        tr = phase_train(dev, scene, work, mlp, earlier)
+        tr = phase_train(dev, scene, work, mlp, earlier.get("fused_train_step"))
         torch.cuda.empty_cache()
         # 8. eval of the trained run
         ev = phase_eval(dev, scene, work, mlp)
@@ -974,6 +1064,9 @@ def main() -> None:
               serve_launches, fwd, (2 * fwd_macs * chunk_rows, 64 * chunk_rows),
               tflops_bf16=2 * fwd_macs * chunk_rows / (fwd["bf16"]["ms"] * 1e9),
               share_of_bound_bf16=fwd_bound_bf16 / fwd["bf16"]["ms"],
+              tflops=fwd["f32"]["tflops"], share_of_bound=fwd["f32"]["share_of_bound"],
+              mm_tflops_f32=fwd["f32"]["mm_tflops"],
+              source_f32="nerf_simple_tpu_torch/csrc/fwd_f32.cuh", before_after_f32=fwd_turns or None,
               source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh",
               frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],

@@ -16,21 +16,26 @@
 // multiply-adds in the packed layout, while it reads 32 B and writes
 // 32 B of device memory, so the layer-by-layer plain version's traffic
 // (each 256-wide activation written and read back) is what the fusion
-// removes. The weights (1.2 MB bf16, 2.4 MB f32) stay in L2; every tile
-// streams each layer through shared memory once (64 rows f32, 128 bf16).
+// removes. The weights (1.2 MB bf16, 2.4 MB f32) stay in L2; every
+// 128-row tile streams each layer through shared memory once. In f32 the
+// bound is the FMA pipes (67 TFLOP/s), in bf16 the tensor cores.
 //
-// Design (the tile kernels live in mlp_tile.cuh, shared with the training
-// entries).
+// Design (the tile kernels live in headers of mlp_tile.cuh, shared with
+// the eval render and the training entries). Both compute types run a
+// persistent grid of 128-row tiles, keep one activation tile in shared
+// memory that each layer's epilogue overwrites in place, and stream the
+// weights through an mbarrier ring that a producer warp fills with
+// cp.async.bulk from a weight image a small launch builds first (`image`,
+// fused_mlp_fwd_image_bytes).
 //
-// - f32 (SIMT): one block of 256 threads a tile of 64 rows; activations
-//   as [feature][row]; each thread accumulates an 8 (features) x 8 (rows)
-//   register tile with scalar FMAs. Full f32 products, no TF32. Weight
-//   slices of 16 columns are double-buffered with cp.async, so the next
-//   slice's copy overlaps this one's FMAs. ~196 KB of shared memory.
-// - bf16 (tensor cores, csrc/fwd_bf16.cuh): a persistent grid of 128-row
-//   tiles, wgmma with the sample rows as M, the weights streamed through
-//   an mbarrier ring by a producer warp from a swizzled weight image that
-//   a small launch builds first (`image`, fused_mlp_fwd_image_bytes).
+// - f32 (SIMT, csrc/fwd_f32.cuh): 16 consumer warps, each thread an 8
+//   (features) x 8 (rows) register tile of scalar FMAs over fragments
+//   loaded one k ahead; full f32 products, no TF32. The weight image holds
+//   slices of 16 columns [k][o]. Sigma and the rgb head are summed in the
+//   epilogues of the layers that produce their inputs.
+// - bf16 (tensor cores, csrc/fwd_bf16.cuh): wgmma with the sample rows as
+//   M, two consumer warpgroups of 64 rows; the weight image is swizzled
+//   for wgmma.
 
 #include "mlp_tile.cuh"
 
@@ -41,16 +46,27 @@ long long fused_mlp_fwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
   return fwd_smem(Lp, Ld, H, is_bf16);
 }
 
-// Bytes of the scratch `image` fused_mlp_fwd needs (0 for f32).
+// Bytes of the scratch `image` fused_mlp_fwd needs.
 long long fused_mlp_fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
   return fwd_image_bytes(Lp, Ld, H, is_bf16);
 }
 
-// The bf16 forward's weight image alone, into `image`
+// The forward's weight image of the compute type alone, into `image`
 // (fused_mlp_fwd_image_bytes), on `stream`: for tests.
-int fwd_weight_image(Weights w, int Lp, int Ld, int H, void *image, void *stream) {
+int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image, void *stream) {
   if (!arch_ok(Lp, Ld, H)) return (int)cudaErrorInvalidValue;
-  return fb::build_image(w, fb::plan_of(Lp, Ld, H), image, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return fb::build_image(w, fb::plan_of(Lp, Ld, H), image, s);
+  return ff::build_image(w, ff::plan_of(Lp, Ld, H), image, s);
+}
+
+// The forward as B1 and B2 run it: out, and every residual plane into
+// `res` ((FA, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
+// rounded up to 64, 16-byte aligned): for tests.
+int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, int Ld, int H, int is_bf16,
+                            Weights w, void *res, void *image, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
+  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, static_cast<cudaStream_t>(stream));
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The

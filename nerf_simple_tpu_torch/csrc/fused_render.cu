@@ -19,9 +19,8 @@
 // some 35 us at 3.35 TB/s against the forward's ~18 ms in bf16.
 //
 // Design: two passes on one stream. The forward tile kernel of
-// mlp_tile.cuh writes raw rgb and sigma into `out` itself (64- or 128-row
-// tiles: a ray at N = 128 may span two, so the tile kernel cannot
-// composite). Then one
+// mlp_tile.cuh writes raw rgb and sigma into `out` itself (128-row tiles:
+// a ray at N = 128 may span two, so the tile kernel cannot composite). Then one
 // warp a ray composites in place: every lane reads its run of samples,
 // the warp sums, and only after __syncwarp do the lanes overwrite the
 // ray's columns with the head values and zeros. No workspace.
@@ -70,7 +69,7 @@ long long fused_render_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
   return fwd_smem(Lp, Ld, H, is_bf16);
 }
 
-// Bytes of the scratch `image` fused_render needs (0 for f32).
+// Bytes of the scratch `image` fused_render needs (the forward's weight image).
 long long fused_render_image_bytes(int Lp, int Ld, int H, int is_bf16) {
   return fwd_image_bytes(Lp, Ld, H, is_bf16);
 }

@@ -15,8 +15,8 @@
 // Design: the forward tile kernel and the backward of csrc/
 // fused_mlp_bwd.cu (mlp_tile.cuh: residuals in a device-memory workspace,
 // deterministic weight-gradient sums), with the compositing between them.
-// A tile of 64 rows (128 in the bf16 tile kernels) holds half a ray or one
-// at N = 128, and rays need not line up with tiles, so compositing cannot
+// A tile of 128 rows of the forward (64 in the f32 backward) holds one ray
+// or half of one at N = 128, and rays need not line up with tiles, so compositing cannot
 // run inside the tile kernels as it did in the TPU kernel's 1,024-lane tiles;
 // it is its own pass, one warp a ray (csrc/composite.cuh, shared with the
 // eval render): each lane takes a run of consecutive samples, and the

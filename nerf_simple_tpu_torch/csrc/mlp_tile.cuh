@@ -1,8 +1,9 @@
 // Device code shared by the fused NeRF MLP kernels for Hopper (sm_90a):
-// the forward tile kernels (csrc/fused_mlp_fwd.cu, and the first pass of
-// the two training entries; bf16 in csrc/fwd_bf16.cuh) and the backward
-// tile kernels (bf16 in csrc/bwd_bf16.cuh), with the backward's task table
-// for the weight-gradient sums (csrc/wgrad.cuh).
+// the forward tile kernels (csrc/fused_mlp_fwd.cu, the eval render and
+// the first pass of the two training entries; f32 in csrc/fwd_f32.cuh,
+// bf16 in csrc/fwd_bf16.cuh) and the backward tile kernels (f32 below,
+// bf16 in csrc/bwd_bf16.cuh), with the backward's task table for the
+// weight-gradient sums (csrc/wgrad.cuh).
 //
 // Layout (the TPU kernels' packed layout, kernels/mlp.py::pack_weights):
 // activations feature-major (features, rows); weights (out, in)
@@ -84,50 +85,10 @@ __host__ __device__ inline Layout make_layout(long long rows, int Lp, int Ld, in
   return Layout{enc_rows(Lp), enc_rows(Ld), H, H / 2, (rows + TR - 1) / TR * TR};
 }
 
-// Encoded feature k (< F) of one branch for one sample, in the TPU
-// kernel's row order: 0..2 raw, 3..7 zero, then the sin block (8 + L*c + i
-// = sin(2^i x_c)) and the cos block, each padded to a multiple of 8.
-__device__ float encoded(const float *__restrict__ x, long long rows,
-                         long long row, int L, int col0, int k) {
-  const int sb = ceil8(3 * L);
-  if (k < 3) return x[(long long)(col0 + k) * rows + row];
-  if (k < 8) return 0.f;
-  int j = k - 8;
-  const bool is_cos = j >= sb;
-  if (is_cos) j -= sb;
-  if (j >= 3 * L) return 0.f;
-  const int c = j / L, i = j % L;
-  float s, co;
-  sincosf(ldexpf(x[(long long)(col0 + c) * rows + row], i), &s, &co);
-  return is_cos ? co : s;
-}
-
-// The heads, one output per thread: j = 0..2 rgb from hc (Wc1 rows 0..2),
-// j = 3 sigma from h7 (Wcs row H/2); bias added after the sum. hc[r] and
-// h7[r] address sample r's features with a stride of `ks` elements.
-template <typename T>
-__device__ void heads(const Weights &w, const T *hc, const T *h7, int rs,
-                      int ks, int H, float *__restrict__ out, long long rows,
-                      long long row0) {
-  const int H2 = H / 2;
-  const int j = threadIdx.x / TR, r = threadIdx.x % TR;
-  const T *h = (j < 3 ? hc : h7) + r * rs;
-  const T *wr = j < 3 ? static_cast<const T *>(w.Wc1) + j * H2
-                      : static_cast<const T *>(w.Wcs) + (long long)H2 * H;
-  const int K = j < 3 ? H2 : H;
-  float s = 0.f;
-  for (int k = 0; k < K; ++k) s = fmaf(float(wr[k]), float(h[k * ks]), s);
-  s += j < 3 ? bias(w.bc1, j) : bias(w.bcs, H2);
-  const long long row = row0 + r;
-  if (row < rows) {
-    out[(long long)j * rows + row] = s;
-    out[(long long)(4 + j) * rows + row] = 0.f;
-  }
-}
-
 // ----------------------------------------------------------------------
-// f32: SIMT FMA. Activations [feature][row]. Thread (to, tr) owns
-// features to + 32i (i = 0..7) and rows tr*4 + {0..3}, 32 + tr*4 + {0..3}.
+// The f32 backward tile kernel: SIMT FMA. Activations [feature][row].
+// Thread (to, tr) owns features to + 32i (i = 0..7) and rows tr*4 +
+// {0..3}, 32 + tr*4 + {0..3}.
 namespace f32 {
 
 // Weights stream through two shared buffers [o][k] of KS_F32 columns,
@@ -140,18 +101,6 @@ constexpr int WS_LD = KS_F32 + 4;
 
 __device__ __forceinline__ int row_of(int tr, int j) {
   return (j < 4 ? 0 : 32 - 4) + tr * 4 + j;
-}
-
-// pos[k][r] for k < F; with `res`, also the residual plane res[k][row0 + r].
-__device__ void encode(const float *__restrict__ x, long long rows,
-                       long long row0, int L, int col0, float *pos,
-                       float *res, long long Rp) {
-  const int F = enc_rows(L);
-  for (int idx = threadIdx.x; idx < F * TR; idx += THREADS) {
-    const int k = idx / TR, r = idx % TR;
-    pos[idx] = row0 + r < rows ? encoded(x, rows, row0 + r, L, col0, k) : 0.f;
-    if (res) res[k * Rp + row0 + r] = pos[idx];
-  }
 }
 
 // Start copying W[:O, k0:k0+KS_F32] into buf (columns past K are skipped:
@@ -212,30 +161,6 @@ __device__ void mm_acc(const float *__restrict__ W, int O, int K,
   }
 }
 
-// out[o][r] = relu(acc + b[o]) for the thread's features o < O; with
-// `res`, also the residual plane res[o][row0 + r]. Resets acc.
-__device__ void relu_store(float acc[8][8], const void *b, int O, float *out,
-                           float *res, long long Rp, long long row0, int to, int tr) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int o = to + 32 * i;
-    const float bi = o < O ? bias(b, o) : 0.f;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = fmaxf(acc[i][half * 4 + j] + bi, 0.f);
-        if (o < O) out[o * TR + row_of(tr, half * 4 + j)] = v[j];
-        acc[i][half * 4 + j] = 0.f;
-      }
-      if (res && o < O)
-        *reinterpret_cast<float4 *>(res + o * Rp + row0 + row_of(tr, half * 4)) =
-            make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
 // Backward epilogue: g[o][r] = acc * (h[o][row0 + r] > 0) for o < O, into
 // shared `out` and the cotangent plane gout[o][row0 + r]. Resets acc.
 __device__ void mask_store(float acc[8][8], int O, const float *h, float *out,
@@ -261,57 +186,6 @@ __device__ void mask_store(float acc[8][8], int O, const float *h, float *out,
       for (int j = 0; j < 4; ++j) acc[i][half * 4 + j] = 0.f;
     }
   }
-}
-
-// Forward of one 64-row tile. With `res`, every residual the backward
-// needs (posx, posd, h0..h7, hc) is also written to its plane.
-__global__ void __launch_bounds__(THREADS)
-    fwd_kernel(const float *__restrict__ x, float *__restrict__ out,
-               long long rows, int Lp, int Ld, int H, Weights w, float *res) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  const int FX = L.FX, FD = L.FD, H2 = L.H2;
-  const long long Rp = L.Rp;
-  float *A = reinterpret_cast<float *>(smem);
-  float *B = A + H * TR;
-  float *posx = B + H * TR;
-  float *posd = posx + FX * TR;
-  float *Ws = posd + FD * TR;  // two buffers of H x WS_LD
-  const int wsz = H * WS_LD;
-  const long long row0 = (long long)blockIdx.x * TR;
-  const int to = threadIdx.x >> 3, tr = threadIdx.x & 7;
-  auto Wm = [](const void *p) { return static_cast<const float *>(p); };
-  auto plane = [&](int f) { return res ? res + f * Rp : nullptr; };
-
-  encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp);
-  encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp);
-  float acc[8][8] = {};
-  mm_acc(Wm(w.W1), H, FX, posx, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.b1, H, A, plane(L.h(0)), Rp, row0, to, tr);   // h0 -> A
-  mm_acc(Wm(w.Wt1), H, H, A, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bt1, H, B, plane(L.h(1)), Rp, row0, to, tr);  // h1 -> B
-  mm_acc(Wm(w.Wt2), H, H, B, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bt2, H, A, plane(L.h(2)), Rp, row0, to, tr);  // h2 -> A
-  mm_acc(Wm(w.Wt3), H, H, A, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bt3, H, B, plane(L.h(3)), Rp, row0, to, tr);  // h3 -> B
-  mm_acc(Wm(w.Wt4), H, H, B, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bt4, H, A, plane(L.h(4)), Rp, row0, to, tr);  // h4 -> A
-  mm_acc(Wm(w.Wsh), H, H, A, Ws, wsz, acc, to, tr);               // skip: [h4 | posx]
-  mm_acc(Wm(w.Wsx), H, FX, posx, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bs, H, B, plane(L.h(5)), Rp, row0, to, tr);   // h5 -> B
-  mm_acc(Wm(w.Wp0), H, H, B, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bp0, H, A, plane(L.h(6)), Rp, row0, to, tr);  // h6 -> A
-  mm_acc(Wm(w.Wp1), H, H, A, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bp1, H, B, plane(L.h(7)), Rp, row0, to, tr);  // h7 -> B
-  mm_acc(Wm(w.Wcs), H2, H, B, Ws, wsz, acc, to, tr);              // folded colour rows
-  mm_acc(Wm(w.Wcd), H2, FD, posd, Ws, wsz, acc, to, tr);
-  relu_store(acc, w.bcs, H2, A, plane(L.hc()), Rp, row0, to, tr); // hc -> A
-  __syncthreads();
-  heads<float>(w, A, B, 1, TR, H, out, rows, row0);
-}
-
-long long fwd_smem_bytes(int Lp, int Ld, int H) {
-  return 4LL * (TR * (2 * H + enc_rows(Lp) + enc_rows(Ld)) + 2 * H * WS_LD);
 }
 
 // Backward of one 64-row tile: from the output cotangents g (rows 0..2
@@ -364,6 +238,7 @@ long long bwd_smem_bytes(int H) { return 4LL * (2 * H * TR + 2 * H * WS_LD); }
 }  // namespace f32
 
 #include "fwd_bf16.cuh"  // fb: the bf16 forward tile kernel
+#include "fwd_f32.cuh"   // ff: the f32 forward tile kernel (uses fb's ring helpers)
 #include "bwd_bf16.cuh"  // bb: the bf16 backward tile kernel
 
 // ----------------------------------------------------------------------
@@ -442,26 +317,21 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 }
 
 // Forward of all rows through the tile kernel of the compute type; with
-// `res`, the residuals are kept. bf16 builds its weight image in `image`
-// (fwd_image_bytes); f32 does not read it.
+// `res`, the residuals are kept. Each builds its weight image in `image`
+// (fwd_image_bytes) first.
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H,
             bool is_bf16, const Weights &w, void *res, void *image, cudaStream_t stream) {
   if (is_bf16) return fb::launch(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, stream);
-  const long long smem = f32::fwd_smem_bytes(Lp, Ld, H);
-  const dim3 grid((unsigned)((rows + TR - 1) / TR));
-  cudaError_t e = cudaFuncSetAttribute(f32::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  f32::fwd_kernel<<<grid, THREADS, smem, stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res));
-  return (int)cudaGetLastError();
+  return ff::launch(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, stream);
 }
 
 long long fwd_smem(int Lp, int Ld, int H, int is_bf16) {
-  return is_bf16 ? fb::plan_of(Lp, Ld, H).smem_bytes() : f32::fwd_smem_bytes(Lp, Ld, H);
+  return is_bf16 ? fb::plan_of(Lp, Ld, H).smem_bytes() : ff::plan_of(Lp, Ld, H).smem_bytes();
 }
 
 // Bytes of the scratch `image` that forward() needs.
 long long fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
-  return is_bf16 ? fb::plan_of(Lp, Ld, H).image_bytes() : 0;
+  return is_bf16 ? fb::plan_of(Lp, Ld, H).image_bytes() : ff::plan_of(Lp, Ld, H).image_bytes();
 }
 
 long long bwd_smem(int H, int is_bf16) {
@@ -474,8 +344,8 @@ bool arch_ok(int Lp, int Ld, int H) {
 
 // Workspace of the backward, carved from one buffer: residuals, cotangents,
 // the weight-gradient partials and the weight image (the forward's, then
-// the backward's: one after the other on the stream), each 256-byte
-// aligned.
+// the backward's where bf16 has one: one after the other on the stream),
+// each 256-byte aligned.
 struct Workspace {
   void *res, *gws;
   float *part;

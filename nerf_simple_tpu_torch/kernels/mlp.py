@@ -19,6 +19,9 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
 - ``backward_tile`` (csrc/bwd_bf16.cuh, f32 in csrc/mlp_tile.cuh, through
   csrc/fused_mlp_bwd.cu): the backward's tile kernel alone, from residual
   planes and output cotangents to every layer's cotangent plane.
+- ``forward_residuals`` (csrc/fwd_f32.cuh or csrc/fwd_bf16.cuh, through
+  csrc/fused_mlp_fwd.cu): the forward tile kernel as B1 and B2 run it,
+  its output and every residual plane.
 
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are in ``csrc/mlp_tile.cuh``.
@@ -250,6 +253,53 @@ def bwd_weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
     bwd_bf16.cuh ``bwd_image_kernel``): each matrix's transpose as
     ``bwd_image_slices`` lists them, swizzled (``_swizzled_image``)."""
     return _swizzled_image({n: getattr(wts, n).T for n in BWD_IMAGE_ORDER}, bwd_image_slices(model))
+
+
+F32_IMAGE_ORDER = IMAGE_ORDER[:-1]  # Wc1 is read in the epilogue, not streamed
+F32_KS = 16  # weight columns of a slice of the f32 forward's ring
+F32_ROWS = 128  # sample rows of the f32 forward's tile
+SMEM_LIMIT = 232448  # shared memory a block of the H100
+
+
+def f32_image_slices(model: NerfMLP) -> list[tuple[str, int, int]]:
+    """The f32 forward's weight image, in order: (matrix, K-slice index,
+    slice width OP). Each slice is ``(F32_KS, OP)`` f32, ``[k][o]``: 16
+    columns of a matrix transposed, output features zero-padded to OP =
+    128 per feature group of a thread (256 for H > 128, else 128; 128 for
+    ``Wcs``, of which only the H/2 colour rows are in the image, and
+    ``Wcd``): the order in which csrc/fwd_f32.cuh multiplies by them."""
+    ni = 2 if model.H > 128 else 1
+    K = _weight_shapes(model)
+    return [(n, c, 128 * ni if i < 9 else 128) for i, n in enumerate(F32_IMAGE_ORDER)
+            for c in range(-(-K[n][1] // F32_KS))]
+
+
+def f32_weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
+    """Plain version of the f32 forward's weight image (csrc/fwd_f32.cuh
+    ``image_kernel``): the slices ``f32_image_slices`` lists, flat."""
+    parts = []
+    for name, c, op in f32_image_slices(model):
+        W = getattr(wts, name)
+        if name == "Wcs":
+            W = W[: model.H // 2]
+        sl = torch.zeros((F32_KS, op), dtype=torch.float32, device=W.device)
+        blk = W[:, F32_KS * c : F32_KS * (c + 1)].T
+        sl[: blk.shape[0], : blk.shape[1]] = blk
+        parts.append(sl.reshape(-1))
+    return torch.cat(parts)
+
+
+def f32_forward_smem_bytes(model: NerfMLP) -> int:
+    """Shared memory a block of the f32 forward tile kernel takes
+    (csrc/fwd_f32.cuh ``Plan::smem_bytes``): the activation tile and posx
+    of 128 rows, posd's own tile where it does not fit in posx past eight
+    rows (FX < FD + 8), the ring's stages (2-4, as many as fit in
+    ``SMEM_LIMIT``) and the barrier words."""
+    ni = 2 if model.H > 128 else 1
+    FX, FD = _enc_rows(model.Lp), _enc_rows(model.Ld)
+    fixed = 4 * F32_ROWS * (model.H + FX + (0 if FX >= FD + 8 else FD)) + 2 * 4 * 8
+    stage = 4 * F32_KS * 128 * ni
+    return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), 4) * stage
 
 
 def _encode(xT: torch.Tensor, model: NerfMLP) -> tuple[torch.Tensor, torch.Tensor]:
@@ -580,7 +630,8 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
         "fused_mlp_fwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_fwd_image_bytes": ([_I] * 4, _LL),
-        "fwd_weight_image": ([_CPtrs, _I, _I, _I, _P, _P], _I),
+        "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _P], _I),
+        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P], _I),
     },
     "fused_mlp_bwd": {
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _P], _I),
@@ -685,7 +736,7 @@ def _dispatch(x: torch.Tensor) -> bool:
 
 
 def _image_scratch(nbytes, model: NerfMLP, bf16: int, device) -> torch.Tensor:
-    """Scratch for the bf16 forward's weight image (empty for f32)."""
+    """Scratch for the forward's weight image of the compute type."""
     return torch.empty(nbytes(model.Lp, model.Ld, model.H, bf16), dtype=torch.uint8, device=device)
 
 
@@ -720,6 +771,53 @@ def fused_mlp_forward(
 
 
 fused_mlp_forward.launches = 0
+
+
+def forward_residuals_plain(
+    wts: FusedWeights,
+    xT: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``forward_residuals``: ``_forward``'s output and
+    its residuals laid out as the workspace's planes ``(FA, Rp)``
+    (``Layout``), rounded to ``compute_dtype`` and held in f32. Pad rows
+    (past ``rows``) are zero here; the kernel writes the residuals of a
+    zero input there."""
+    out, r = _forward(wts, xT, compute_dtype, model)
+    L, rows = Layout.of(model), xT.shape[1]
+    res = torch.zeros((L.FA, -(-rows // 64) * 64), dtype=out.dtype, device=xT.device)
+    res[:, :rows] = _rnd(torch.cat([r.posx, r.posd, *r.h, r.hc]), compute_dtype)
+    return out, res
+
+
+def forward_residuals(
+    wts: FusedWeights,
+    xT: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward tile kernel as B1 and B2 run it, keeping every residual:
+    ``(out (8, rows) f32, res (FA, Rp))``, the planes of ``Layout`` (posx,
+    posd, h0..h7, hc) in the compute dtype, Rp = rows rounded up to 64.
+    ``forward_residuals.launches`` counts its launches."""
+    wts = _prepare(wts, compute_dtype, model)
+    if _dispatch(xT):
+        return forward_residuals_plain(wts, xT, compute_dtype, model)
+    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", 8, compute_dtype, model)
+    rows = xT.shape[1]
+    out = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
+    res = torch.empty((Layout.of(model).FA, -(-rows // 64) * 64), dtype=compute_dtype, device=xT.device)
+    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
+    _raise_on(lib.fused_mlp_fwd_residuals(
+        xT.data_ptr(), out.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
+        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), _stream(xT),
+    ), "fused_mlp_fwd_residuals")
+    forward_residuals.launches += 1
+    return out, res
+
+
+forward_residuals.launches = 0
 
 
 def _transposed(wts: FusedWeights) -> _CWeightsT:

@@ -1,6 +1,7 @@
 """The CUDA kernels (fused MLP forward, backward, train step and render;
-the weight-gradient sums and the backward tile kernel alone; the padding
-probe) against their plain PyTorch versions, on the card.
+the forward's residual planes, the weight-gradient sums and the backward
+tile kernel alone; the padding probe) against their plain PyTorch
+versions, on the card.
 Imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
@@ -317,44 +318,78 @@ def test_weight_grads_in_one_launch_match_plain(dev, dtype):
     assert all(torch.equal(a[0], b[0]) for a, b in zip(got, again))
 
 
-# --- the bf16 forward tile kernel (csrc/fwd_bf16.cuh) ------------------------------
+# --- the forward tile kernels (csrc/fwd_bf16.cuh, csrc/fwd_f32.cuh) -----------------
 
-FWD_TILE = 128  # sample rows of a tile: two warpgroups of 64
+FWD_TILE = 128  # sample rows of a tile of both forward tile kernels
+FWD_ROWS = [1, 63, 64, 65, FWD_TILE - 1, FWD_TILE, FWD_TILE + 1, 132 * FWD_TILE + 17]
+DTYPES = [torch.float32, torch.bfloat16]
+DTYPE_IDS = ["f32", "bf16"]
 
 
-@pytest.mark.parametrize("rows", [1, FWD_TILE - 1, FWD_TILE, FWD_TILE + 1, 132 * FWD_TILE + 17],
-                         ids=["1", "tile-1", "tile", "tile+1", "persistent-walk"])
-def test_bf16_forward_at_tile_edges(dev, rows):
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("rows", FWD_ROWS, ids=["1", "63", "64", "65", "tile-1", "tile", "tile+1", "persistent-walk"])
+def test_bf16_forward_at_tile_edges(dev, rows, dtype):
     """Row counts around the 128-row tile and past one tile an SM (the
-    persistent grid walks on): every row right, the ragged tile masked."""
+    persistent grid walks on), in both compute types: every row right,
+    the ragged tile masked."""
     model = NerfMLP()
-    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
-                            torch.bfloat16)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     x = _xT(rows, dev, seed=rows)
-    got = mlp.fused_mlp_forward(wts, x, torch.bfloat16, model)
+    got = mlp.fused_mlp_forward(wts, x, dtype, model)
     torch.cuda.synchronize()
-    want = mlp.fused_mlp_forward_plain(wts, x, torch.bfloat16, model)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, model)
     assert got.shape == (8, rows) and bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
-    assert (got[:4] - want[:4]).abs().max().item() <= TOL[torch.bfloat16]
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("model", [NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=2, Ld=1, H=256)],
-                         ids=["H16", "H256-small-L"])
-def test_bf16_forward_and_train_step_at_extreme_widths(dev, model):
-    """The narrowest and widest H the kernel takes, with short encodings:
-    the forward, and B1 (the forward with its residual planes)."""
-    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
-                            torch.bfloat16)
+WIDTH_MODELS = [NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=2, Ld=1, H=256), NerfMLP(Lp=1, Ld=1, H=32),
+                NerfMLP(Lp=1, Ld=1, H=256), NerfMLP()]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("model", WIDTH_MODELS, ids=["H16", "H256-small-L", "H32", "H256-L1", "flagship"])
+def test_bf16_forward_and_train_step_at_extreme_widths(dev, model, dtype):
+    """The narrowest and widest H the kernels take, with the shortest and
+    the flagship's encodings, in both compute types: the forward, and B1
+    (the forward with its residual planes)."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     x = _xT(1000, dev)
-    got = mlp.fused_mlp_forward(wts, x, torch.bfloat16, model)
-    want = mlp.fused_mlp_forward_plain(wts, x, torch.bfloat16, model)
-    assert (got[:4] - want[:4]).abs().max().item() <= TOL[torch.bfloat16]
+    got = mlp.fused_mlp_forward(wts, x, dtype, model)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, model)
+    assert bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
     x16 = _x16(9, 40, dev)
-    loss, grads = mlp.fused_train_step(wts, x16, 40, torch.bfloat16, model)
-    loss_p, grads_p = mlp.fused_train_step_plain(wts, x16, 40, torch.bfloat16, model)
-    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[torch.bfloat16]
+    loss, grads = mlp.fused_train_step(wts, x16, 40, dtype, model)
+    loss_p, grads_p = mlp.fused_train_step_plain(wts, x16, 40, dtype, model)
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[dtype]
     errs = _grad_errors(grads, grads_p)
-    assert max(errs.values()) <= GRAD_TOL[torch.bfloat16], errs
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("rows", [1, 65, 132 * FWD_TILE + 17], ids=["1", "65", "persistent-walk"])
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=3, Ld=1, H=48)],
+                         ids=["flagship", "H16", "odd-widths"])
+def test_f32_forward_residual_planes_match_plain(dev, model, rows):
+    """The residual planes the f32 forward keeps for B1 and B2 (posx,
+    posd, h0..h7, hc), plane by plane against the plain ``_forward``: the
+    same f32 products summed in another order, so 2e-4 of the plane's
+    largest entry (at least 1); pad rows finite."""
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev))
+    x = _xT(rows, dev, seed=rows)
+    before = mlp.forward_residuals.launches
+    out, res = mlp.forward_residuals(wts, x, torch.float32, model)
+    torch.cuda.synchronize()
+    assert mlp.forward_residuals.launches == before + 1
+    want_out, want = mlp.forward_residuals_plain(wts, x, torch.float32, model)
+    assert res.shape == want.shape and bool(torch.isfinite(res).all())
+    assert (out[:4] - want_out[:4]).abs().max().item() <= TOL[torch.float32]
+    L = mlp.Layout.of(model)
+    planes = {"posx": (L.posx, L.FX), "posd": (L.posd, L.FD), "hc": (L.hc, L.H // 2)}
+    planes.update({f"h{l}": (L.h(l), L.H) for l in range(8)})
+    for name, (f, n) in planes.items():
+        g, w_ = res[f : f + n, :rows], want[f : f + n, :rows]
+        err = (g - w_).abs().max().item()
+        assert err <= 2e-4 * max(1.0, w_.abs().max().item()), (name, err)
 
 
 def test_bf16_train_step_is_bitwise_deterministic(dev):
@@ -371,17 +406,19 @@ def test_bf16_train_step_is_bitwise_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48)], ids=["flagship", "odd-widths"])
-def test_weight_image_kernel_matches_plain(dev, model):
-    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
-                            torch.bfloat16)
+def test_weight_image_kernel_matches_plain(dev, model, dtype):
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     lib = mlp._lib("fused_mlp_fwd")
-    image = torch.zeros(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, 1) // 2,
-                        dtype=torch.int16, device=dev)
-    assert lib.fwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.Lp, model.Ld, model.H,
+    bf16 = int(dtype == torch.bfloat16)
+    nbytes = lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16)
+    image = torch.zeros(nbytes // (2 if bf16 else 4), dtype=torch.int16 if bf16 else torch.float32, device=dev)
+    assert lib.fwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.Lp, model.Ld, model.H, bf16,
                                 image.data_ptr(), mlp._stream(image)) == 0
     torch.cuda.synchronize()
-    assert torch.equal(image, mlp.weight_image_plain(wts, model))
+    want = mlp.weight_image_plain(wts, model) if bf16 else mlp.f32_weight_image_plain(wts, model)
+    assert torch.equal(image, want)
 
 
 # --- the bf16 backward tile kernel (csrc/bwd_bf16.cuh) -----------------------------

@@ -159,3 +159,63 @@ def test_weight_image_unswizzles_to_the_packed_weights(model):
         O, K = W.shape
         assert torch.equal(full[:O, :K], W)
         assert not full[O:].any() and not full[:, K:].any()
+
+
+@pytest.mark.parametrize("model", [NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=2, Ld=1, H=32), NerfMLP()],
+                         ids=["H16", "H32", "flagship"])
+def test_f32_weight_image_unpermutes_to_the_packed_weights(model):
+    """The f32 forward's weight image (csrc/fwd_f32.cuh streams it into
+    shared memory slice by slice): transposing every (16, OP) slice back
+    and joining the slices gives each packed matrix (Wcs: its H/2 colour
+    rows), zeros past its rows and columns."""
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), "cpu"))
+    image = mlp.f32_weight_image_plain(wts, model)
+    slices = mlp.f32_image_slices(model)
+    assert image.dtype == torch.float32 and image.numel() == sum(mlp.F32_KS * op for _, _, op in slices)
+    assert {op for _, _, op in slices} <= {128, 256} and [n for n, c, _ in slices if c == 0] == list(mlp.F32_IMAGE_ORDER)
+    got = {n: [] for n in mlp.F32_IMAGE_ORDER}
+    pos = 0
+    for name, c, op in slices:
+        got[name].append(image[pos : pos + mlp.F32_KS * op].reshape(mlp.F32_KS, op).T)
+        pos += mlp.F32_KS * op
+    for name in mlp.F32_IMAGE_ORDER:
+        W = getattr(wts, name)[: model.H // 2] if name == "Wcs" else getattr(wts, name)
+        full = torch.cat(got[name], dim=1)
+        O, K = W.shape
+        assert torch.equal(full[:O, :K], W), name
+        assert not full[O:].any() and not full[:, K:].any(), name
+
+
+@pytest.mark.parametrize("L", [(10, 4), (1, 1), (1, 4)], ids=["flagship-L", "L1", "posd-apart"])
+def test_f32_forward_plan_fits_the_card(L):
+    """The Python mirror of the f32 forward's shared-memory plan: within
+    the H100's 232,448 bytes a block for every H the kernels take, with two
+    ring stages at least, posd inside the posx tile where it fits."""
+    FX, FD = mlp._enc_rows(L[0]), mlp._enc_rows(L[1])
+    for H in range(16, 257, 16):
+        smem = mlp.f32_forward_smem_bytes(NerfMLP(Lp=L[0], Ld=L[1], H=H))
+        stage = 4 * mlp.F32_KS * (256 if H > 128 else 128)
+        tiles = 4 * mlp.F32_ROWS * (H + FX + (0 if FX >= FD + 8 else FD))
+        assert smem <= mlp.SMEM_LIMIT and smem - tiles >= 2 * stage, H
+    # the flagship: posd in posx, three 16 KB stages
+    assert mlp.f32_forward_smem_bytes(NerfMLP()) == 4 * 128 * (256 + 72) + 64 + 3 * 16384
+
+
+@pytest.mark.parametrize("rows", [1, 100, 128], ids=["1", "ragged", "two-halves"])
+def test_forward_residuals_plain_lays_out_the_forward(rows):
+    """On a CPU tensor ``forward_residuals`` is its plain version: the
+    forward's output, and ``_forward``'s residuals in the workspace's
+    plane layout (Layout), pad rows zero."""
+    model = SMALL
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(4, model), "cpu"))
+    x = torch.from_numpy(_xT(rows, seed=4))
+    mlp.forward_residuals.launches = 0
+    out, res = mlp.forward_residuals(wts, x, torch.float32, model)
+    assert mlp.forward_residuals.launches == 0
+    torch.testing.assert_close(out, mlp.fused_mlp_forward_plain(wts, x, torch.float32, model), rtol=0, atol=0)
+    _, r = mlp._forward(wts, x, torch.float32, model)
+    L = mlp.Layout.of(model)
+    assert res.shape == (L.FA, -(-rows // 64) * 64) and not res[:, rows:].any()
+    assert torch.equal(res[L.posx : L.posd, :rows], r.posx) and torch.equal(res[L.hc :, :rows], r.hc)
+    for l in range(8):
+        assert torch.equal(res[L.h(l) : L.h(l) + L.H, :rows], r.h[l])
