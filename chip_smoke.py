@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--before CSRC]
+    python3 chip_smoke.py [--before CSRC [CSRC ...]]
 
 Drives the port (nerf_simple_tpu_torch) at the flagship width,
 NerfMLP(Lp=10, Ld=4, H=256):
@@ -10,8 +10,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
 2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
    at once; prints the build time and ptxas registers and spills (the
    forward tile kernels, csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the
-   bf16 backward tile kernel, csrc/bwd_bf16.cuh, are built into four of
-   them);
+   backward tile kernels, csrc/bwd_f32.cuh and csrc/bwd_bf16.cuh, are
+   built into four of them);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -31,16 +31,20 @@ NerfMLP(Lp=10, Ld=4, H=256):
    the train step's bitwise determinism; with ``--before CSRC`` (a copy
    of an earlier commit's csrc/, e.g. ``git archive <commit>
    nerf_simple_tpu_torch/csrc`` unpacked under a gitignored build/), the
-   earlier train-step and forward sources are built from it and B1 bf16
-   and f32 are timed beside the current ones, in turns (step ms and the
-   profiled kernel groups; the f32 forward's times join the f32 line),
-   and so is the whole bf16 train step of phase 7;
+   earlier train-step, forward and backward sources are built from it
+   and B1 bf16 and f32 are timed beside the current ones, in turns (step
+   ms and the profiled kernel groups; the f32 forward's times join the
+   f32 line), and so are the f32 backward tile kernel alone (phase 6)
+   and the whole bf16 train step of phase 7;
 6. wgrad: the backward's twelve weight-gradient sums alone at 524,288
    rows (probes/wgrad.py), f32 and bf16: the kernel in one launch (as B1
    and B2 run it) and as twelve calls, against float64 sums, the plain
    version and the library call torch.mm + sum (timed, never used);
    then the backward tile kernel alone at 524,288 rows
-   (probes/bwd_tile.py), f32 and bf16, against its plain version;
+   (probes/bwd_tile.py), f32 and bf16, against its plain version; with
+   ``--before``, the earlier f32 tile kernel (and that of each further
+   copy given: variants of it) beside the current one, in turns, and the
+   max difference of their planes from the current ones;
 7. train: writes the synthetic scene (25 train, 2 val, 2 test images at
    800x800, loaded at half resolution), trains through ``train()`` (what
    ``python -m nerf_simple_tpu_torch.train`` runs) with lego.yaml's keys,
@@ -48,7 +52,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
    the loss, the val PSNR, a resume and that the server serves the
    exported params; then a few f32 steps from one state through the
    fused step, the two-kernel autograd path (fused_mlp: forward kernel
-   and B2) and the plain path, whose losses must agree; the bf16 step's
+   and B2) and the plain path, whose losses must agree, and which
+   launch the f32 backward tile kernel once a kernel step; the bf16 step's
    wall and the host's time to issue it, its kernel time by kernel and
    the host's time by torch op (torch.profiler), and the device's idle
    share;
@@ -74,7 +79,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
-import ctypes
 import dataclasses
 import glob
 import io
@@ -186,30 +190,23 @@ def grad_errors(got, want) -> tuple[float, float]:
 
 # the entries of an earlier library that the before/after phases call
 BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_workspace_bytes"),
-                  "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes")}
+                  "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes"),
+                  "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes")}
 
 
-def build_before(csrc: str, _build, mlp) -> dict:
-    """The train-step and forward sources of another copy of csrc/ (the
-    kernels a change replaces), built with the package's nvcc flags into
-    <csrc>/../build/, one nvcc each, both at once; returns their ctypes
-    libraries by source, the entries of BEFORE_ENTRIES bound as the
-    current library's."""
-    outdir = os.path.join(os.path.dirname(os.path.abspath(csrc)), "build")
-    os.makedirs(outdir, exist_ok=True)
-    procs = {n: (os.path.join(outdir, f"{n}.so"), subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", os.path.join(outdir, f"{n}.so"),
-         os.path.join(csrc, f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for n in BEFORE_ENTRIES}
-    libs = {}
-    for name, (out, proc) in procs.items():
-        log = proc.communicate()[0]
-        check(proc.returncode == 0, f"build of the earlier {name}.cu:\n{log}")
-        libs[name] = ctypes.CDLL(out)
-        for entry in BEFORE_ENTRIES[name]:
-            fn = getattr(libs[name], entry)
-            fn.argtypes, fn.restype = mlp._SIGNATURES[name][entry]
-    return libs
+def build_before(dirs, _build, mlp) -> list[dict]:
+    """The sources of BEFORE_ENTRIES of other copies of csrc/ (the kernels
+    a change replaces, or variants of them), built with the package's nvcc
+    flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
+    by copy, their ctypes libraries by source, those entries bound as the
+    current library's. Prints ptxas's lines of each copy's backward tile
+    kernels."""
+    libs = _build.build_copies(dirs, BEFORE_ENTRIES)
+    for d in dirs:
+        for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
+            if "bwd_kernel" in kernel:
+                print(f"ptxas {d} {short_name(kernel)[:48]}: {line}", flush=True)
+    return [{name: mlp._bind(lib, name, BEFORE_ENTRIES[name]) for name, lib in libs[d].items()} for d in dirs]
 
 
 def in_turns(old, new) -> dict:
@@ -262,7 +259,7 @@ def earlier_train_step(mlp, lib):
     (``mlp._transposed``), as the earlier wrapper did: the step as it was."""
     lib_of, weights_t = mlp._lib, mlp._weights_t
     mlp._lib = lambda name: lib if name == "fused_train_step" else lib_of(name)
-    mlp._weights_t = lambda wts, bf16: mlp._transposed(wts)
+    mlp._weights_t = mlp._transposed
     try:
         yield
     finally:
@@ -364,12 +361,8 @@ def phase_build(sources, _build) -> None:
         for name in sources:
             log = _build.build_log.get(name, "")
             fh.write(f"===== {name}\n{log}\n")
-            kernel = None
-            for line in log.splitlines():
-                if "Compiling entry function" in line:
-                    kernel = line.split("'")[1] if "'" in line else line
-                elif "registers" in line or "spill" in line:
-                    print(f"ptxas {name} {short_name(kernel or '')[:48]}: {line.strip()}")
+            for kernel, line in _build.ptxas_usage(log):
+                print(f"ptxas {name} {short_name(kernel)[:48]}: {line}")
 
 
 def phase_forward(dev, params, model, mlp, x16):
@@ -692,6 +685,24 @@ def phase_bwd_tile(dev):
     return res
 
 
+def phase_bwd_tile_before_after(dev, libs: dict) -> dict:
+    """The f32 tile kernel alone of other fused_mlp_bwd libraries (``libs``:
+    label -> library; "earlier" the parent's) beside the current one on the
+    probe's inputs, in turns (probes/bwd_tile.py ``before_after``; the
+    others get the transposes). Their planes must agree with the current
+    ones within the probe's f32 tolerance."""
+    from nerf_simple_tpu_torch.probes import bwd_tile
+
+    res = bwd_tile.before_after(dev, libs)
+    print(f"before/after f32 tile kernel at {res['rows']} rows (runs of {bwd_tile.CALLS} calls back to back, "
+          "median of 5, in turns): " + ", ".join(f"{k} {res['ms'][k]:.3f} ms" for k in (*libs, "current"))
+          + "; planes max abs diff " + ", ".join(f"{k} {res['max_abs_diff'][k]:.3e} ({res['rel_diff'][k]:.2e} of "
+                                                  "max)" for k in libs), flush=True)
+    for k in libs:
+        check(res["rel_diff"][k] <= bwd_tile.REL_TOL[torch.float32], f"current f32 tile kernel matches {k}'s")
+    return res
+
+
 def profile_step(step, others: dict | None = None, host: dict | None = None) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
@@ -845,6 +856,7 @@ def phase_train(dev, scene, work, mlp, earlier=None):
     cfg32 = train_config({**cfg, "compute_dtype": "f32"})
     paths = {}
     mlp.fused_mlp_backward.launches = 0
+    mlp.bwd_tile_launches(reset=True)
     for name, backend, fused in (("fused", "pallas", True), ("two-kernel", "pallas", False),
                                  ("plain", "xla", False)):
         c = dataclasses.replace(cfg32, backend=backend)
@@ -853,15 +865,16 @@ def phase_train(dev, scene, work, mlp, earlier=None):
             warnings.simplefilter("ignore")
             fn = build_train_step(c, NerfMLP(), fused=fused)
         paths[name] = torch.stack([fn(st, rays, pixels) for _ in range(5)]).cpu().numpy()
-    b2_launches = mlp.fused_mlp_backward.launches
+    b2_launches, f32_tile_launches = mlp.fused_mlp_backward.launches, mlp.bwd_tile_launches()
     diff = max(float(np.max(np.abs(paths[n] / paths["plain"] - 1))) for n in ("fused", "two-kernel"))
     print(f"f32 steps from one state: fused {paths['fused']}, two-kernel {paths['two-kernel']}, "
           f"plain {paths['plain']}; max rel diff {diff:.2e} (tol {STEP_TOL:.0e}); B2 launches "
-          f"{b2_launches}", flush=True)
+          f"{b2_launches}; f32 backward tile kernel launches {f32_tile_launches}", flush=True)
     check(diff <= STEP_TOL, "fused, two-kernel and plain steps agree")
     check(b2_launches == 5, "the two-kernel path went through B2 once a step")
-    return dict(launches=launches, b2_launches=b2_launches, step_ms=step_ms, host_ms=walls["host_ms"],
-                profile=prof, others=others, turns=turns)
+    check(f32_tile_launches == 10, "the fused and two-kernel f32 steps launched the f32 tile kernel once a step")
+    return dict(launches=launches, b2_launches=b2_launches, f32_tile_launches=f32_tile_launches, step_ms=step_ms,
+                host_ms=walls["host_ms"], profile=prof, others=others, turns=turns)
 
 
 def phase_eval(dev, scene, work, mlp):
@@ -946,8 +959,10 @@ def scene_focal(scene: str) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch / CUDA port on one GPU.")
-    ap.add_argument("--before", metavar="CSRC", help="a csrc/ directory of an earlier commit (kept out "
-                    "of the committed tree): its train-step source is built and B1 bf16 timed beside the current one")
+    ap.add_argument("--before", nargs="+", metavar="CSRC", help="csrc/ directories of an earlier commit, "
+                    "then of any variants (kept out of the committed tree): their train-step, forward and backward "
+                    "sources are built; each one's f32 backward tile kernel is timed beside the current one, and "
+                    "the first one's B1, f32 forward and train step beside the current ones")
     args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
@@ -972,7 +987,8 @@ def main() -> None:
 
     # 2. build (with --before, the earlier train-step and forward sources too)
     phase_build((*mlp.SOURCES, pad_passes.SOURCE), _build)
-    earlier = build_before(args.before, _build, mlp) if args.before else {}
+    copies = build_before(args.before, _build, mlp) if args.before else []
+    earlier = copies[0] if copies else {}
 
     # 3-4. forward and render kernels vs plain; serving; the fused_eval frame
     model = NerfMLP()
@@ -1012,6 +1028,8 @@ def main() -> None:
         wg = phase_wgrad(dev)
         torch.cuda.empty_cache()
         bt = phase_bwd_tile(dev)
+        tile_turns = earlier and phase_bwd_tile_before_after(dev, {
+            label: c["fused_mlp_bwd"] for label, c in zip(("earlier", *args.before[1:]), copies)})
         torch.cuda.empty_cache()
         # 7. train
         tr = phase_train(dev, scene, work, mlp, earlier.get("fused_train_step"))
@@ -1087,10 +1105,13 @@ def main() -> None:
               ms_twelve_calls=wg["f32"]["ms_single"], ms_twelve_calls_bf16=wg["bf16"]["ms_single"],
               rel_err_f64=wg["f32"]["rel_err"], rel_err_f64_bf16=wg["bf16"]["rel_err"],
               plain_rel_err_f64=wg["f32"]["plain_rel_err"], plain_rel_err_f64_bf16=wg["bf16"]["plain_rel_err"]),
-        entry("bwd_tile", "bwd_bf16.cuh", "nerf_simple_tpu/kernels/mlp.py:808",
-              tr["launches"]["bwd_tile"], tile, (tile_flops, tile_bytes, tile_bytes_bf16),
-              replaces_also="nerf_simple_tpu/kernels/mlp.py:757", source_f32="nerf_simple_tpu_torch/csrc/mlp_tile.cuh",
+        entry("bwd_tile", "bwd_f32.cuh", "nerf_simple_tpu/kernels/mlp.py:808",
+              tr["f32_tile_launches"], tile, (tile_flops, tile_bytes, tile_bytes_bf16),
+              launches_bf16=tr["launches"]["bwd_tile"],
+              replaces_also="nerf_simple_tpu/kernels/mlp.py:757", source_bf16="nerf_simple_tpu_torch/csrc/bwd_bf16.cuh",
+              before_after_f32=tile_turns or None,
               share_of_bound=bt["f32"]["share_of_bound"], share_of_bound_bf16=bt["bf16"]["share_of_bound"],
+              tflops=bt["f32"]["tflops"],
               rel_err=bt["f32"]["rel_err"], rel_err_bf16=bt["bf16"]["rel_err"],
               gb_s_bf16=bt["bf16"]["gb_s"], probe_launches=bt["bf16"]["launches"],
               step_profile_ms_bf16=tr["profile"].get("bwd_tile")),

@@ -25,7 +25,7 @@
 //  1. the forward tile kernel recomputes out and writes the residuals;
 //  2. the backward tile kernel takes each layer's cotangent back through
 //     W^T and the relu mask and writes it to the workspace (bf16:
-//     csrc/bwd_bf16.cuh; f32: mlp_tile.cuh's f32::bwd_kernel);
+//     csrc/bwd_bf16.cuh; f32: csrc/bwd_f32.cuh);
 //  3. per layer, dW = G A^T over all rows (csrc/wgrad.cuh): output tiles
 //     split over row chunks, partial sums reduced in a fixed order, so
 //     the result is bitwise deterministic. Bias sums ride the same pass.
@@ -51,6 +51,7 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 }
 
 // Launches on `stream`; returns the first CUDA error (0 on success).
+// `wt` is not read (mlp_tile.cuh's WeightsT).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
                   Grads out, void *stream) {
@@ -60,29 +61,30 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
   if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
-  return backward(g, rows, Lp, Ld, H, is_bf16, w, wt, ws.res, ws.gws, ws.image, ws.part, out, s);
+  return backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s);
 }
 
-// Bytes of the scratch `image` backward_tile needs (0 for f32).
+// Bytes of the scratch `image` backward_tile needs (its weight image).
 long long bwd_tile_image_bytes(int H, int is_bf16) { return bwd_image_bytes(H, is_bf16); }
 
 // The backward tile kernel alone, on `stream`: from the output cotangents
 // g (rows 0..2 d_rgb, row 3 d_sigma; row stride `rows`) and the residual
 // planes `res` (FA, Rp) to the cotangent planes `gws` (FG, Rp) of the
 // workspace (mlp_tile.cuh's Layout, Rp = rows rounded up to 64), in the
-// compute type, both 16-byte aligned. bf16 builds its weight image from
-// `w` in `image` (bwd_tile_image_bytes); f32 multiplies by `wt`.
+// compute type, both 16-byte aligned. The kernel builds its weight image
+// from `w` in `image` (bwd_tile_image_bytes); `wt` is not read.
 int backward_tile(const float *g, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
                   WeightsT wt, const void *res, void *gws, void *image, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, wt, res, gws, image, static_cast<cudaStream_t>(stream));
+  return bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, res, gws, image, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 backward's weight image alone, into `image`
+// The backward's weight image of the compute type alone, into `image`
 // (bwd_tile_image_bytes), on `stream`: for tests.
-int bwd_weight_image(Weights w, int H, void *image, void *stream) {
+int bwd_weight_image(Weights w, int H, int is_bf16, void *image, void *stream) {
   if (!arch_ok(1, 1, H)) return (int)cudaErrorInvalidValue;
-  return bb::build_image(w, bb::Plan{H}, image, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bb::build_image(w, bb::Plan{H}, image, s) : fw::build_image(w, fw::Plan{H}, image, s);
 }
 
 // Bytes of the partial-sum scratch wgrad_sums needs.

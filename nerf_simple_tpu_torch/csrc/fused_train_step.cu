@@ -138,7 +138,8 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 }
 
 // Launches on `stream`; returns the first CUDA error (0 on success).
-// `loss` is one f32 on the device.
+// `loss` is one f32 on the device. `wt` is not read (mlp_tile.cuh's
+// WeightsT).
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,
                      int is_bf16, Weights w, WeightsT wt, void *workspace, float *loss,
                      Grads out, void *stream) {
@@ -153,7 +154,7 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
       sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray);
   sum_kernel<<<1, 1024, 0, s>>>(sc.loss_ray, B, loss);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  return backward(sc.g, rows, Lp, Ld, H, is_bf16, w, wt, ws.res, ws.gws, ws.image, ws.part, out, s);
+  return backward(sc.g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s);
 }
 
 }  // extern "C"

@@ -79,12 +79,13 @@ constexpr int WARPS = 16;                 // every warp multiplies; none only co
 constexpr int THREADS = 32 * WARPS;
 constexpr int KS = 16;                    // weight columns of a ring slice
 constexpr int MAX_STAGES = 4;
-constexpr int NMAT = 11;
 using fb::SMEM_LIMIT;
 
 // The matrices in the order the kernel multiplies by them (weight image
 // order): W1, Wt1..Wt4, Wsh, Wsx, Wp0, Wp1, Wcs (its H/2 colour rows), Wcd.
+// Matrix m is the packed (out, in) = (O(m), K(m)) matrix.
 struct Plan {
+  static constexpr int NMAT = 11;
   int H, FX, FD;
   __host__ __device__ int NI() const { return H > 128 ? 2 : 1; }
   __host__ __device__ int O(int m) const { return m < 9 ? H : H / 2; }
@@ -113,6 +114,11 @@ struct Plan {
     return s < 2 ? 2 : s > MAX_STAGES ? MAX_STAGES : (int)s;
   }
   __host__ __device__ long long smem_bytes() const { return stages() * stage_bytes() + fixed_bytes(); }
+  // element (o, k) of matrix m, o < O(m), k < K(m)
+  __device__ float weight(const Weights &w, int m, int k, int o) const {
+    const void *const mats[NMAT] = {w.W1, w.Wt1, w.Wt2, w.Wt3, w.Wt4, w.Wsh, w.Wsx, w.Wp0, w.Wp1, w.Wcs, w.Wcd};
+    return static_cast<const float *>(mats[m])[(long long)o * K(m) + k];
+  }
 };
 
 __host__ __device__ inline Plan plan_of(int Lp, int Ld, int H) { return Plan{H, enc_rows(Lp), enc_rows(Ld)}; }
@@ -122,13 +128,16 @@ __host__ __device__ inline Plan plan_of(int Lp, int Ld, int H) { return Plan{H, 
 // stages, filled in a round of parity (n / stages) % 2. A stage's count
 // of the warps that have read it lets the last of them refill it with the
 // slice due `stages` later, which every thread tracks (tile tn, matrix
-// mn, its slice cn, at byte `off` of the image).
+// mn, its slice cn, at byte `off` of the image). PlanT gives the image's
+// NMAT matrices, their slices() and slice_bytes(): ff's Plan, or the f32
+// backward's (bwd_f32.cuh).
+template <class PlanT>
 struct Ring {
   char *buf;
   uint64_t *full;
   int *count;
   const char *image;
-  Plan P;
+  PlanT P;
   long long ntiles;
   int stage_bytes, stages;
   int stage = 0;
@@ -144,7 +153,7 @@ struct Ring {
     off += P.slice_bytes(mn);
     if (++cn == P.slices(mn)) {
       cn = 0;
-      if (++mn == NMAT) mn = 0, off = 0, tn += gridDim.x;
+      if (++mn == PlanT::NMAT) mn = 0, off = 0, tn += gridDim.x;
     }
   }
   // Thread 0 fills every stage; every thread's cursor moves past them.
@@ -212,9 +221,11 @@ __device__ __forceinline__ void fma_slice(float (&acc)[4 * NI][8], const float *
 }
 
 // acc[:4 NP] += W in[:K] for the next slices(K) slices of the ring (K a
-// multiple of 8); each stage is released by the warp once it has read it.
-template <int NI, int NP>
-__device__ void product(float (&acc)[4 * NI][8], Ring &rg, const float *in, int K, int fo4, int ro4, int lane) {
+// multiple of 8; W^T in the f32 backward's ring); each stage is released
+// by the warp once it has read it.
+template <int NI, int NP, class PlanT>
+__device__ void product(float (&acc)[4 * NI][8], Ring<PlanT> &rg, const float *in, int K, int fo4, int ro4,
+                        int lane) {
   for (int k0 = 0; k0 < K; k0 += KS) {
     fb::mbar_wait(rg.full + rg.stage, rg.phase);
     const float *ws = reinterpret_cast<const float *>(rg.buf + rg.stage * rg.stage_bytes);
@@ -328,7 +339,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float *posx = act + H * ROWS, *posd = posx + (P.posd_in_posx() ? 8 * ROWS : FX * ROWS);
   uint64_t *full = reinterpret_cast<uint64_t *>(posx + FX * ROWS + (P.posd_in_posx() ? 0 : FD * ROWS));
   int *count = reinterpret_cast<int *>(full + MAX_STAGES);
-  Ring rg{buf, full, count, image, P, ntiles, (int)P.stage_bytes(), stages};
+  Ring<Plan> rg{buf, full, count, image, P, ntiles, (int)P.stage_bytes(), stages};
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       fb::mbar_init(full + s, 1);
@@ -409,23 +420,27 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The weight image: matrix m of the Plan's order in slices of KS columns,
-// each slice [k][o] (KS, OP(m)) f32, zero past O and K. One thread a float.
-__global__ void image_kernel(Weights w, Plan P, long long n, float *image) {
-  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= n) return;
+// Float u of a weight image: matrix m of PlanT's order in slices of KS
+// columns, each slice [k][o] (KS, OP(m)) f32, zero past O and K; the
+// weights from PlanT::weight. ff's Plan, or the f32 backward's.
+template <class PlanT>
+__device__ __forceinline__ float image_at(const Weights &w, const PlanT &P, long long u) {
   long long off = u;
   int m = 0;
-  for (; m < NMAT - 1; ++m) {
+  for (; m < PlanT::NMAT - 1; ++m) {
     const long long b = P.slices(m) * P.slice_bytes(m) / 4;
     if (off < b) break;
     off -= b;
   }
-  const void *const mats[NMAT] = {w.W1, w.Wt1, w.Wt2, w.Wt3, w.Wt4, w.Wsh, w.Wsx, w.Wp0, w.Wp1, w.Wcs, w.Wcd};
-  const float *W = static_cast<const float *>(mats[m]);
-  const int OP = P.OP(m), O = P.O(m), K = P.K(m);
+  const int OP = P.OP(m);
   const int c = (int)(off / (KS * OP)), k = c * KS + (int)(off % (KS * OP)) / OP, o = (int)(off % OP);
-  image[u] = o < O && k < K ? W[(long long)o * K + k] : 0.f;
+  return o < P.O(m) && k < P.K(m) ? P.weight(w, m, k, o) : 0.f;
+}
+
+// The weight image (image_at). One thread a float.
+__global__ void image_kernel(Weights w, Plan P, long long n, float *image) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u < n) image[u] = image_at(w, P, u);
 }
 
 int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t stream) {

@@ -5,7 +5,9 @@ with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The build runs at first use, writes into
 ``nerf_simple_tpu_torch/build/``, and is redone only when the source's
 hash (with the shared ``csrc/*.cuh`` headers) changes. ``build`` starts
-one ``nvcc`` for each of several sources at once. Nothing here runs at import time: machines without
+one ``nvcc`` for each of several sources at once; ``build_copies`` builds
+sources of other copies of csrc/ (an earlier commit's, or a variant's)
+the same way, for comparisons on the card. Nothing here runs at import time: machines without
 ``nvcc`` import the package and use the plain PyTorch versions on CPU
 tensors.
 """
@@ -84,6 +86,41 @@ def build(*names: str) -> dict[str, float]:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"csrc/{n}.cu:\n{build_log[n]}" for n in failed))
     return seconds
+
+
+def build_copies(dirs, names) -> dict[str, dict[str, ctypes.CDLL]]:
+    """Compile the named sources of other copies of csrc/ (``dirs``) with
+    the package's flags, each into ``<dir>/../build/``, one ``nvcc`` each,
+    all started together, and load them: ``{dir: {name: library}}``.
+    nvcc's output lands in ``build_log`` under ``<dir>/<name>``; raises on
+    a failed build."""
+    jobs = {}
+    for d in dirs:
+        out = Path(d).resolve().parent / "build"
+        out.mkdir(parents=True, exist_ok=True)
+        for name in names:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(d), "-o", str(out / f"{name}.so"), str(Path(d) / f"{name}.cu")]
+            jobs[d, name] = (out / f"{name}.so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                                 stderr=subprocess.STDOUT, text=True))
+    libs: dict[str, dict[str, ctypes.CDLL]] = {d: {} for d in dirs}
+    for (d, name), (so, proc) in jobs.items():
+        build_log[f"{d}/{name}"] = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {d}/{name}.cu:\n{build_log[f'{d}/{name}']}")
+        libs[d][name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel's mangled name, ptxas's line) for each register and spill
+    line of an nvcc log built with ``-Xptxas -v``."""
+    out, kernel = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            out.append((kernel, line.strip()))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,7 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
   csrc/fused_mlp_bwd.cu): the backward's weight-gradient sums alone,
   ``G A^T`` and the row sums of ``G``, one or up to twelve a launch, as
   B1 and B2 run them;
-- ``backward_tile`` (csrc/bwd_bf16.cuh, f32 in csrc/mlp_tile.cuh, through
+- ``backward_tile`` (csrc/bwd_f32.cuh or csrc/bwd_bf16.cuh, through
   csrc/fused_mlp_bwd.cu): the backward's tile kernel alone, from residual
   planes and output cotangents to every layer's cotangent plane.
 - ``forward_residuals`` (csrc/fwd_f32.cuh or csrc/fwd_bf16.cuh, through
@@ -24,7 +24,7 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
   its output and every residual plane.
 
 Each source's header says what bounds it on the card and how it is laid
-out; the tile kernels they share are in ``csrc/mlp_tile.cuh``.
+out; the tile kernels they share are headers of ``csrc/mlp_tile.cuh``.
 
 Layout, kept from the JAX package so the two can be compared field by
 field: activations are feature-major ``(features, rows)``; the caller
@@ -300,6 +300,48 @@ def f32_forward_smem_bytes(model: NerfMLP) -> int:
     fixed = 4 * F32_ROWS * (model.H + FX + (0 if FX >= FD + 8 else FD)) + 2 * 4 * 8
     stage = 4 * F32_KS * 128 * ni
     return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), 4) * stage
+
+
+F32_BWD_MAX_STAGES = 6  # ring stages of the f32 backward, at most
+
+
+def f32_bwd_image_slices(model: NerfMLP) -> list[tuple[str, int, int]]:
+    """The f32 backward's weight image, in order: (matrix, K-slice index,
+    slice width OP) of each transposed matrix ``W^T`` as
+    ``BWD_IMAGE_ORDER`` lists them. Slice c is ``(F32_KS, OP)`` f32,
+    ``[k][o]``: rows 16c .. 16c + 15 of the packed (out, in) matrix, each
+    zero-padded to OP = 128 output features per feature group of a thread
+    (256 for H > 128, else 128; 128 for ``Wc1^T``, whose H/2 outputs one
+    group holds), and zero past the matrix's rows (``Wc1``'s 8 rows fill
+    half a slice): the order in which csrc/bwd_f32.cuh multiplies a
+    cotangent by them."""
+    ni = 2 if model.H > 128 else 1
+    shapes = _weight_shapes(model)
+    return [(n, c, 128 if n == "Wc1" else 128 * ni) for n in BWD_IMAGE_ORDER
+            for c in range(-(-shapes[n][0] // F32_KS))]
+
+
+def f32_bwd_weight_image_plain(wts: FusedWeights, model: NerfMLP) -> torch.Tensor:
+    """Plain version of the f32 backward's weight image (csrc/bwd_f32.cuh
+    ``bwd_image_kernel``): the slices ``f32_bwd_image_slices`` lists, flat."""
+    parts = []
+    for name, c, op in f32_bwd_image_slices(model):
+        blk = getattr(wts, name)[F32_KS * c : F32_KS * (c + 1)]  # W^T's columns k: W's rows
+        sl = torch.zeros((F32_KS, op), dtype=torch.float32, device=blk.device)
+        sl[: blk.shape[0], : blk.shape[1]] = blk
+        parts.append(sl.reshape(-1))
+    return torch.cat(parts)
+
+
+def f32_backward_smem_bytes(model: NerfMLP) -> int:
+    """Shared memory a block of the f32 backward tile kernel takes
+    (csrc/bwd_f32.cuh ``Plan::smem_bytes``): the cotangent tile of 128
+    rows, the ring's stages (2 to ``F32_BWD_MAX_STAGES``, as many as fit
+    in ``SMEM_LIMIT``) and the barrier words."""
+    ni = 2 if model.H > 128 else 1
+    fixed = 4 * F32_ROWS * model.H + 2 * F32_BWD_MAX_STAGES * 8
+    stage = 4 * F32_KS * 128 * ni
+    return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), F32_BWD_MAX_STAGES) * stage
 
 
 def _encode(xT: torch.Tensor, model: NerfMLP) -> tuple[torch.Tensor, torch.Tensor]:
@@ -645,7 +687,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "bwd_tile_launch_count": ([_I], _LL),
         "bwd_tile_image_bytes": ([_I, _I], _LL),
         "backward_tile": ([_P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _P, _P], _I),
-        "bwd_weight_image": ([_CPtrs, _I, _P, _P], _I),
+        "bwd_weight_image": ([_CPtrs, _I, _I, _P, _P], _I),
     },
     "fused_render": {
         "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
@@ -663,12 +705,17 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
 SOURCES = tuple(_SIGNATURES)
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    for entry, (argtypes, restype) in _SIGNATURES[name].items():
+def _bind(lib: ctypes.CDLL, name: str, entries=None) -> ctypes.CDLL:
+    """Give the entries (all of source ``name``'s by default) of a library
+    of that source their C signatures."""
+    for entry in entries or _SIGNATURES[name]:
         fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = argtypes, restype
+        fn.argtypes, fn.restype = _SIGNATURES[name][entry]
     return lib
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    return _bind(_build.load(name), name)
 
 
 def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
@@ -821,20 +868,21 @@ forward_residuals.launches = 0
 
 
 def _transposed(wts: FusedWeights) -> _CWeightsT:
-    """The backward's transposed matrices; the tensors ride on the struct
-    so they live as long as the launch arguments."""
+    """The backward's transposed matrices, for earlier libraries whose f32
+    backward read them (chip_smoke.py's ``--before``); the tensors ride on
+    the struct so they live as long as the launch arguments."""
     ts = [getattr(wts, n).t().contiguous() for n in _TRANSPOSED]
     st = _CWeightsT(*_ptrs(ts))
     st.keep = ts
     return st
 
 
-def _weights_t(wts: FusedWeights, bf16: int) -> _CWeightsT:
-    """What the backward tile kernel of the compute type reads of the
-    transposes: f32 multiplies by them; bf16 transposes into its weight
-    image from the packed matrices, so it gets null pointers and no copies
-    are made."""
-    return _CWeightsT() if bf16 else _transposed(wts)
+def _weights_t(wts: FusedWeights) -> _CWeightsT:
+    """What the training entries get for their transposes (the C
+    ``WeightsT``): null pointers. Both backward tile kernels transpose into
+    their weight images from the packed matrices, so no copies are made;
+    an earlier library gets ``_transposed`` here instead."""
+    return _CWeightsT()
 
 
 def _empty_grads(model: NerfMLP, device) -> FusedWeights:
@@ -870,7 +918,7 @@ def fused_mlp_backward(
     grads = _empty_grads(model, xT.device)
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _weights_t(wts, bf16), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
+        _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
         _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
@@ -937,7 +985,7 @@ def fused_train_step(
     grads = _empty_grads(model, x16.device)
     _raise_on(lib.fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), _weights_t(wts, bf16), ws.data_ptr(), loss.data_ptr(),
+        _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), loss.data_ptr(),
         _CPtrs(*_ptrs(grads)), _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
@@ -1094,7 +1142,7 @@ def wgrad_sums_launches(reset: bool = False) -> int:
 
 def bwd_tile_launches(reset: bool = False) -> int:
     """Launches of the backward tile kernels (bf16: csrc/bwd_bf16.cuh; f32:
-    mlp_tile.cuh) so far, counted inside the libraries that launch them:
+    csrc/bwd_f32.cuh) so far, counted inside the libraries that launch them:
     B1 and B2 once a call, ``backward_tile`` through B2's library. With
     ``reset``, the counts restart from 0."""
     return _c_counts("bwd_tile_launch_count", reset)
@@ -1135,7 +1183,7 @@ def backward_tile(
     image = torch.empty(lib.bwd_tile_image_bytes(model.H, bf16), dtype=torch.uint8, device=g.device)
     _raise_on(lib.backward_tile(
         g.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
-        _weights_t(wts, bf16), res.data_ptr(), out.data_ptr(), image.data_ptr(), _stream(g),
+        _weights_t(wts), res.data_ptr(), out.data_ptr(), image.data_ptr(), _stream(g),
     ), "backward_tile")
     backward_tile.launches += 1
     return out

@@ -1,6 +1,6 @@
 """The backward tile kernel alone, at the training batch: the kernel
 (``kernels/mlp.py::backward_tile``; bf16 csrc/bwd_bf16.cuh, f32
-csrc/mlp_tile.cuh) against its plain version ``backward_tile_plain``.
+csrc/bwd_f32.cuh) against its plain version ``backward_tile_plain``.
 
     python -m nerf_simple_tpu_torch.probes.bwd_tile
     python -m nerf_simple_tpu_torch.probes.bwd_tile --device cpu   # smoke test
@@ -22,6 +22,12 @@ it reads (h0..h7, hc: 8 H + H/2 features), the rows 0..3 of g, the
 weights, and the cotangent planes it writes (16 + H/2 + 8 H features);
 its operations are the products W^T g of the chain, 2 x (8 H/2 + (H/2 +
 8) H + 7 H^2) a row.
+
+``before_after`` times the f32 tile kernel of other builds of
+csrc/fused_mlp_bwd.cu (an earlier commit's, or a variant's) beside the
+current one on the same inputs, in turns, with the max abs difference
+of their planes from the current ones: ``chip_smoke.py --before`` runs
+it.
 
 On the CPU it runs the wrapper (its plain version) at 256 rows: it times
 nothing.
@@ -135,6 +141,44 @@ def run(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
         del res
         torch.cuda.empty_cache()
     return out
+
+
+def before_after(device, libs: dict, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
+    """The f32 tile kernel of other fused_mlp_bwd libraries (``libs``: label
+    -> library, its ``backward_tile`` and ``bwd_tile_image_bytes`` bound)
+    beside the current one on the probe's inputs: ms of each (label
+    "current" among them), runs of CALLS calls back to back, median of 5
+    in turns; all called straight through ctypes with their outputs and
+    weight images made once, the others given the transposes (an earlier
+    f32 kernel reads them). Also each one's max abs difference from the
+    current planes, and that over the planes' largest entry."""
+    wts, res, g = inputs(model, rows, device)
+    cw = mlp._CPtrs(*mlp._ptrs(wts))
+    L = mlp.Layout.of(model)
+
+    def bind(lib, wt, what):
+        out = torch.empty((L.FG, res.shape[1]), dtype=torch.float32, device=device)
+        image = torch.empty(max(lib.bwd_tile_image_bytes(model.H, 0), 16), dtype=torch.uint8, device=device)
+
+        def call():
+            mlp._raise_on(lib.backward_tile(g.data_ptr(), rows, model.Lp, model.Ld, model.H, 0, cw, wt,
+                                            res.data_ptr(), out.data_ptr(), image.data_ptr(), mlp._stream(g)), what)
+        return call, out
+
+    calls, outs = {}, {}
+    calls["current"], outs["current"] = bind(mlp._lib("fused_mlp_bwd"), mlp._weights_t(wts), "backward_tile")
+    for label, lib in libs.items():
+        calls[label], outs[label] = bind(lib, mlp._transposed(wts), f"{label} backward_tile")
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        diff = {k: (o - outs["current"]).abs().max().item() for k, o in outs.items() if k != "current"}
+        scale = outs["current"].abs().max().clamp_min(1e-30).item()
+        ms = turns_ms(calls, calls=CALLS)
+    del outs
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ms": ms, "max_abs_diff": diff, "rel_diff": {k: d / scale for k, d in diff.items()}}
 
 
 def main(argv=None) -> None:

@@ -232,3 +232,91 @@ def test_probe_smoke_test_on_cpu(capsys):
     assert "times nothing" in capsys.readouterr().out
     flops, nbytes = bwd_tile.work(mlp.FLAGSHIP, bwd_tile.ROWS, torch.bfloat16)
     assert round(flops / 1e12, 3) == 0.519 and round(nbytes / 1e9, 2) == 4.59
+
+
+BWD_WIDTHS = [NerfMLP(), NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=3, Ld=1, H=48), NerfMLP(Lp=2, Ld=1, H=128),
+              NerfMLP(Lp=2, Ld=1, H=144)]
+BWD_WIDTH_IDS = ["flagship", "H16", "H48", "H128", "H144"]
+
+
+@pytest.mark.parametrize("model", BWD_WIDTHS, ids=BWD_WIDTH_IDS)
+def test_f32_bwd_weight_image_gives_the_transposed_weights(model):
+    """The f32 backward's weight image (csrc/bwd_f32.cuh streams it into
+    shared memory slice by slice): joining each matrix's (16, OP) slices
+    [k][o] along k gives its transpose W^T, zeros past its rows and
+    columns, in the order the kernel multiplies by them; OP is 128 for
+    Wc1^T and 128 per feature group of a thread for the others (256 for
+    H > 128): the widths where the kernel's groups switch, H = 128 / 144,
+    and the narrow ones, where the padding must be zero."""
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), "cpu"))
+    image = mlp.f32_bwd_weight_image_plain(wts, model)
+    slices = mlp.f32_bwd_image_slices(model)
+    ni = 2 if model.H > 128 else 1
+    assert [n for n, c, _ in slices if c == 0] == list(mlp.BWD_IMAGE_ORDER)
+    assert all(op == (128 if n == "Wc1" else 128 * ni) for n, _, op in slices)
+    assert image.dtype == torch.float32 and image.numel() == sum(mlp.F32_KS * op for _, _, op in slices)
+    got = {n: [] for n in mlp.BWD_IMAGE_ORDER}
+    pos = 0
+    for name, c, op in slices:
+        got[name].append(image[pos : pos + mlp.F32_KS * op].reshape(mlp.F32_KS, op))
+        pos += mlp.F32_KS * op
+    for name in mlp.BWD_IMAGE_ORDER:
+        WT = getattr(wts, name).T
+        full = torch.cat(got[name], dim=0).T  # (OP, 16 x slices): W^T, padded
+        O, K = WT.shape
+        assert full.shape[1] == -(-K // mlp.F32_KS) * mlp.F32_KS, name
+        assert torch.equal(full[:O, :K], WT), name
+        assert not full[O:].any() and not full[:, K:].any(), name
+
+
+def test_f32_backward_plan_fits_the_card():
+    """The Python mirror of the f32 backward's shared-memory plan: within
+    the H100's 232,448 bytes a block for every H the kernels take, with two
+    ring stages at least; at the flagship the 128 KB cotangent tile and six
+    16 KB stages."""
+    for H in range(16, 257, 16):
+        smem = mlp.f32_backward_smem_bytes(NerfMLP(H=H))
+        stage = 4 * mlp.F32_KS * (256 if H > 128 else 128)
+        assert smem <= mlp.SMEM_LIMIT and smem - 4 * mlp.F32_ROWS * H >= 2 * stage, H
+    assert mlp.f32_backward_smem_bytes(NerfMLP()) == 4 * 128 * 256 + 2 * 6 * 8 + 6 * 16384
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records the transposes (C
+    ``WeightsT``) an entry is given, answers sizes, launches nothing."""
+
+    def __init__(self):
+        self.weights_t = []
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.weights_t += [a for a in args if isinstance(a, mlp._CWeightsT)]
+            return 64 if entry.endswith("_bytes") else 0
+        return call
+
+
+@pytest.mark.parametrize("entry", ["fused_mlp_backward", "fused_train_step", "backward_tile"])
+def test_f32_wrappers_pass_no_transposes(entry, monkeypatch):
+    """The f32 wrappers hand their entries null transposes and make no
+    transposed copies (``_transposed`` is for earlier libraries): run on a
+    stand-in library with the dispatch forced to the kernel path."""
+    model = MODELS[0]
+    _, wts, res, g = _case(model, 64, seed=7)
+    x16 = torch.zeros((16, 64))
+    fake = _FakeLib()
+    monkeypatch.setattr(mlp, "_dispatch", lambda x: False)
+    monkeypatch.setattr(mlp, "_check_launch", lambda *a, **k: (fake, 0))
+    monkeypatch.setattr(mlp, "_stream", lambda x: 0)
+    monkeypatch.setattr(mlp, "_transposed", lambda w: pytest.fail("a transposed copy was made"))
+    wrapper = getattr(mlp, entry)
+    before = wrapper.launches
+    monkeypatch.setattr(wrapper, "launches", before)  # the stand-in's launch is not counted past the test
+    if entry == "fused_mlp_backward":
+        mlp.fused_mlp_backward(wts, x16[:8].contiguous(), g, torch.float32, model)
+    elif entry == "fused_train_step":
+        mlp.fused_train_step(wts, x16, 16, torch.float32, model)
+    else:
+        mlp.backward_tile(wts, res, g, torch.float32, model)
+    assert wrapper.launches == before + 1
+    assert len(fake.weights_t) == 1
+    assert all(getattr(fake.weights_t[0], f) is None for f, _ in mlp._CWeightsT._fields_)

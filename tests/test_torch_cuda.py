@@ -421,15 +421,18 @@ def test_weight_image_kernel_matches_plain(dev, model, dtype):
     assert torch.equal(image, want)
 
 
-# --- the bf16 backward tile kernel (csrc/bwd_bf16.cuh) -----------------------------
+# --- the backward tile kernels (csrc/bwd_f32.cuh, csrc/bwd_bf16.cuh) ---------------
 
 BWD_ROWS = [1, 63, 64, 65, 127, 128, 129, 132 * 128 + 17]  # the last: a persistent walk, not a 64 multiple
-EDGE_MODELS = [NerfMLP(), NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=3, Ld=1, H=48)]
+# H = 128 and 144: where the f32 kernel's feature groups a thread switch from 1 to 2
+EDGE_MODELS = [NerfMLP(), NerfMLP(Lp=1, Ld=1, H=16), NerfMLP(Lp=3, Ld=1, H=48), NerfMLP(Lp=2, Ld=1, H=128),
+               NerfMLP(Lp=2, Ld=1, H=144)]
+EDGE_IDS = ["H256", "H16", "H48", "H128", "H144"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("rows", BWD_ROWS, ids=[str(r) for r in BWD_ROWS])
-@pytest.mark.parametrize("model", EDGE_MODELS, ids=["H256", "H16", "H48"])
+@pytest.mark.parametrize("model", EDGE_MODELS, ids=EDGE_IDS)
 def test_backward_tile_matches_plain_at_ragged_rows(dev, model, rows, dtype):
     """The tile kernel alone against backward_tile_plain on random residual
     planes (half zero, as after a relu): every cotangent group within the
@@ -451,15 +454,19 @@ def test_backward_tile_matches_plain_at_ragged_rows(dev, model, rows, dtype):
     assert torch.equal(got, mlp.backward_tile(w, res, g, dtype, model))
 
 
-@pytest.mark.parametrize("model", EDGE_MODELS, ids=["flagship", "H16", "odd-widths"])
-def test_bwd_weight_image_kernel_matches_plain(dev, model):
-    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)),
-                            torch.bfloat16)
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("model", EDGE_MODELS, ids=EDGE_IDS)
+def test_bwd_weight_image_kernel_matches_plain(dev, model, dtype):
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     lib = mlp._lib("fused_mlp_bwd")
-    image = torch.zeros(lib.bwd_tile_image_bytes(model.H, 1) // 2, dtype=torch.int16, device=dev)
-    assert lib.bwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.H, image.data_ptr(), mlp._stream(image)) == 0
+    bf16 = int(dtype == torch.bfloat16)
+    nbytes = lib.bwd_tile_image_bytes(model.H, bf16)
+    image = torch.zeros(nbytes // (2 if bf16 else 4), dtype=torch.int16 if bf16 else torch.float32, device=dev)
+    assert lib.bwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.H, bf16, image.data_ptr(),
+                                mlp._stream(image)) == 0
     torch.cuda.synchronize()
-    assert torch.equal(image, mlp.bwd_weight_image_plain(wts, model))
+    want = mlp.bwd_weight_image_plain(wts, model) if bf16 else mlp.f32_bwd_weight_image_plain(wts, model)
+    assert torch.equal(image, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
