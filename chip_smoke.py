@@ -62,7 +62,23 @@ NerfMLP(Lp=10, Ld=4, H=256):
    test_params, ``backend: pallas``, ``compute_dtype: bf16``: stills 0
    and 1 with their PSNR, normals of still 0, and the orbit video cut to
    ORBIT_POSES frames (lego.yaml asks for 30);
-9. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+9. hierarchical (``configs/lego_hierarchical.yaml``: Nc = 64 coarse
+   samples, Nf = 192 importance samples, the fine net on the union of
+   256; two nets): (a) B1 with its weights output (``out_weights``)
+   against its plain version at the coarse pass's 262,144 rows (N = 64)
+   and the fine pass's 1,048,576 (N = 256), f32 and bf16, and B2 at
+   1,048,576 rows (planes past 2^31 elements), with the peak device
+   memory; (b) trains through ``train()`` with the config's keys (bf16,
+   pallas), steps cut to 300 + 100 resumed: two B1 launches a step, the
+   loss, val PSNR, the resume, the exported .pth (the fine net), the
+   step's wall, its kernel time by pass (coarse B1, fine B1, sampling),
+   the idle share, the allocator's footprint over 100 steps; then f32
+   steps from one state through the fused two-pass core and the autograd
+   path (fused_mlp: forward kernel and B2), under JAX's bin-flip rule;
+   (c) ``evaluate.test`` with the config's ``test_params`` (Nc = 64,
+   N_samples = 192; bf16, pallas) on the test split: PSNR, s a still, and
+   ms a hierarchical 400x400 frame;
+10. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -134,6 +150,14 @@ LOSS_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}  # relative
 # weight whose gradient sign differs between paths moves 2 lr apart.
 STEP_TOL = 1e-3
 BATCH, N_SAMPLES = 4096, 128
+NC, NF = 64, 192  # configs/lego_hierarchical.yaml: coarse samples, importance samples
+# The hierarchical step, f32, fused two-pass core against the autograd
+# path from one state after one step: the loss to 1e-4 relative, and JAX's
+# bin-flip rule on the parameters (tests/test_kernels.py,
+# test_fused_hierarchical_train_matches_generic): under 0.1% of them
+# farther apart than 5e-5 + 1e-3 |p|. The two paths' coarse weights differ
+# in the last bits, and a u on a CDF edge then picks another fine sample.
+HIER_LOSS_RTOL, BIN_FLIP_SHARE = 1e-4, 1e-3
 OUT = "smoke_logs"
 
 
@@ -194,19 +218,44 @@ BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_wor
                   "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes")}
 
 
+class NoWeightsOutput:
+    """A train-step library from before B1's weights output: its
+    ``fused_train_step`` entry has no ``w_out`` pointer (the one before the
+    stream). Called with the current entry's arguments, it drops that
+    one, which must be null."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        entry = lib.fused_train_step
+        entry.argtypes = entry.argtypes[:-2] + entry.argtypes[-1:]
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def fused_train_step(self, *args):
+        check(args[-2] is None, "a library without the weights output is asked for none")
+        return self.lib.fused_train_step(*args[:-2], args[-1])
+
+
 def build_before(dirs, _build, mlp) -> list[dict]:
     """The sources of BEFORE_ENTRIES of other copies of csrc/ (the kernels
     a change replaces, or variants of them), built with the package's nvcc
     flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
     by copy, their ctypes libraries by source, those entries bound as the
-    current library's. Prints ptxas's lines of each copy's backward tile
-    kernels."""
+    current library's (a train step without the weights output through
+    ``NoWeightsOutput``). Prints ptxas's lines of each copy's backward
+    tile kernels."""
     libs = _build.build_copies(dirs, BEFORE_ENTRIES)
     for d in dirs:
         for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
             if "bwd_kernel" in kernel:
                 print(f"ptxas {d} {short_name(kernel)[:48]}: {line}", flush=True)
-    return [{name: mlp._bind(lib, name, BEFORE_ENTRIES[name]) for name, lib in libs[d].items()} for d in dirs]
+    copies = [{name: mlp._bind(lib, name, BEFORE_ENTRIES[name]) for name, lib in libs[d].items()} for d in dirs]
+    for d, c in zip(dirs, copies):
+        with open(os.path.join(d, "fused_train_step.cu")) as fh:
+            if "w_out" not in fh.read():
+                c["fused_train_step"] = NoWeightsOutput(c["fused_train_step"])
+    return copies
 
 
 def in_turns(old, new) -> dict:
@@ -291,7 +340,7 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
 
         def step():
             mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, bf16,
-                                               cw, wt, ws.data_ptr(), loss.data_ptr(), cg,
+                                               cw, wt, ws.data_ptr(), loss.data_ptr(), cg, None,
                                                mlp._stream(x16_batch)), what)
         return step, loss, grads
 
@@ -304,6 +353,7 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
         rel = grad_errors(g_new, grads)[0]
         check(abs(l_new.item() / loss.item() - 1) <= LOSS_TOL[dt] and rel <= GRAD_TOL["B1", dt],
               f"current B1 {name} matches the earlier kernels")
+        res["b1_bitwise"] = l_new.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(g_new, grads))
         res["b1_ms"] = in_turns(old_step, new_step)
         res["b1_profile"] = {"earlier": profile_step(old_step), "current": profile_step(new_step)}
         res["b1_grad_rel"] = rel
@@ -316,7 +366,8 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
           "profiled ms a call: " + "; ".join(
               f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
               for k, p in res["b1_profile"].items())
-          + f"; current vs earlier grads {rel:.2e} of max", flush=True)
+          + f"; current vs earlier grads {rel:.2e} of max, loss and grads bit-equal: {res['b1_bitwise']}",
+          flush=True)
     return res
 
 
@@ -703,12 +754,21 @@ def phase_bwd_tile_before_after(dev, libs: dict) -> dict:
     return res
 
 
-def profile_step(step, others: dict | None = None, host: dict | None = None) -> dict:
+# With split_b1: the kernels outside B1, by name
+STEP_GROUPS = (("sampling", ("searchsorted", "sort", "Sort", "scan", "distribution", "gather", "random")),
+               ("adam", ("multi_tensor", "adam", "Adam")))
+
+
+def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
     kernel of the group "other" by name; ``host``, the host's self time
-    of each torch op a call (ms; the profiler's own cost included)."""
+    of each torch op a call (ms; the profiler's own cost included). With
+    ``split_b1`` (a hierarchical step: two B1 launches), the kernels are
+    taken in time order and each B1 launch's, from its forward weight
+    image to its sums' reduce, go to "coarse B1" and "fine B1" in turns;
+    the others to STEP_GROUPS or "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -723,10 +783,18 @@ def profile_step(step, others: dict | None = None, host: dict | None = None) -> 
               ("fwd_tile", "fwd_kernel"), ("bwd_image", "bwd_image_kernel"), ("weight_image", "image_kernel"),
               ("compositing", "composite_grad"), ("compositing", "sum_kernel"))
     out: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue  # not a kernel (a user annotation spans kernels counted on their own)
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),  # a user annotation spans kernels
+                     key=lambda e: e.time_range.start)
+    b1, n_b1 = None, 0
+    for e in kernels:
         group = next((g for g, key in groups if key in e.name), "other")
+        if split_b1:
+            if group == "weight_image" and b1 is None:  # the first kernel of a B1 launch
+                b1, n_b1 = ("coarse B1", "fine B1")[n_b1 % 2], n_b1 + 1
+            last = b1 is not None and group == "sums_reduce"  # the last one
+            group = b1 or next((g for g, keys in STEP_GROUPS if any(k in e.name for k in keys)), "other")
+            b1 = None if last else b1
         ms = e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
         out[group] = out.get(group, 0.0) + ms
         if group == "other" and others is not None:
@@ -927,6 +995,281 @@ def phase_eval(dev, scene, work, mlp):
     return res
 
 
+def hier_fields(model, dev):
+    """The hierarchical run's coarse and fine nets at init, as
+    ``make_train_state`` seeds them (``derive_seed(SEED, 0)``, ``(SEED,
+    1)``)."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.render.renderer import derive_seed
+
+    return [NerfField.from_jax_params(init_nerf_params(derive_seed(SEED, k), model), dev, model) for k in (0, 1)]
+
+
+def phase_hier_kernels(dev, scene, model, mlp):
+    """B1 with its weights output against its plain version at the two
+    passes of a hierarchical step (one 4096-ray batch of the scene: Nc =
+    64 stratified samples, 262,144 rows; the union with Nf = 192
+    importance samples of the coarse kernel's bf16 weights, 1,048,576
+    rows), f32 and bf16: weights, loss, gradients; the same launch
+    without the weights output bit-equal; then B2 at 1,048,576 rows on
+    seeded cotangents. Peak device memory of the phase."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.ops.sampling import importance_ts, merge_sorted, stratified_ts
+    from nerf_simple_tpu_torch.train.step import build_x16
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    del rd
+    ts_c = stratified_ts(g, BATCH, NC, 2.0, 6.0, dev)
+    packed = [mlp.pack_weights(f) for f in hier_fields(model, dev)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    with torch.no_grad():
+        x_c = build_x16(rays_b, ts_c, pix_b)
+        w_c = mlp.fused_train_step(mlp._cast_weights(packed[0], torch.bfloat16), x_c, NC, torch.bfloat16, model,
+                                   out_weights=True)[2]
+        x_f = build_x16(rays_b, merge_sorted(ts_c, importance_ts(g, ts_c, w_c, NF)), pix_b)
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            for pas, x16, Np, wts in (("coarse", x_c, NC, packed[0]), ("fine", x_f, NC + NF, packed[1])):
+                w = mlp._cast_weights(wts, dt)
+                rows = x16.shape[1]
+                loss, got, wk = mlp.fused_train_step(w, x16, Np, dt, model, out_weights=True)
+                loss0, got0 = mlp.fused_train_step(w, x16, Np, dt, model)  # w_out null
+                bitwise = loss0.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(got, got0))
+                del got0
+                loss_p, want, wp = mlp.fused_train_step_plain(w, x16, Np, dt, model, out_weights=True)
+                check(bool(torch.isfinite(wk).all()) and all(bool(torch.isfinite(t).all()) for t in got),
+                      f"B1 {pas} {name} finite")
+                w_err = (wk - wp).abs().max().item()
+                rel, abs_err = grad_errors(got, want)
+                loss_err = abs(loss.item() / loss_p.item() - 1)
+                del got, want, wk, wp
+                torch.cuda.empty_cache()
+                st = dict(err=max(abs_err, w_err), w_err=w_err, rel=rel, loss_err=loss_err, rows=rows, N=Np,
+                          ms=cuda_ms(lambda: mlp.fused_train_step(w, x16, Np, dt, model, out_weights=True)),
+                          ms_no_weights=cuda_ms(lambda: mlp.fused_train_step(w, x16, Np, dt, model)),
+                          plain_ms=cuda_ms(lambda: mlp.fused_train_step_plain(w, x16, Np, dt, model, True)))
+                torch.cuda.empty_cache()
+                print(f"B1 out_weights {pas} pass {name} at {rows} rows (N={Np}): weights max abs err {w_err:.3e} "
+                      f"(tol {TOL[dt]:.0e}), grad err {rel:.3e} of max (tol {GRAD_TOL['B1', dt]:.0e}), loss rel err "
+                      f"{loss_err:.2e} (tol {LOSS_TOL[dt]:.0e}); without the weights output bit-equal: {bitwise}; "
+                      f"kernel {st['ms']:.3f} ms ({st['ms_no_weights']:.3f} without the weights), plain "
+                      f"{st['plain_ms']:.3f} ms (median of 5)", flush=True)
+                check(w_err <= TOL[dt] and rel <= GRAD_TOL["B1", dt] and loss_err <= LOSS_TOL[dt],
+                      f"B1 out_weights {pas} {name} within tolerance")
+                check(bitwise, f"B1 {pas} {name}: the weights output changes no loss or gradient")
+                stats[f"{pas}_{name}"] = st
+            # B2 past 2^31 plane elements
+            w = mlp._cast_weights(packed[1], dt)
+            xT = x_f[:8].contiguous()
+            gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=tuple(xT.shape)).astype(np.float32)).to(dev)
+            got = mlp.fused_mlp_backward(w, xT, gT, dt, model)
+            want = mlp.fused_mlp_backward_plain(w, xT, gT, dt, model)
+            rel = grad_errors(got, want)[0]
+            del got, want
+            torch.cuda.empty_cache()
+            print(f"B2 fused_mlp_backward vs plain {name} at {xT.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                  f"{GRAD_TOL['B2', dt]:.0e})", flush=True)
+            check(rel <= GRAD_TOL["B2", dt], f"B2 {name} at {xT.shape[1]} rows within tolerance")
+            stats[f"B2_{name}"] = dict(rel=rel, rows=xT.shape[1])
+            del gT, xT
+            torch.cuda.empty_cache()
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"hierarchical kernel phase: peak device memory {stats['peak_gb']:.2f} GB "
+          "(max_memory_allocated; the f32 plain version of the fine pass the largest)", flush=True)
+    return stats
+
+
+def phase_hier_train(dev, scene, work, mlp):
+    """Train configs/lego_hierarchical.yaml's keys through train() (bf16,
+    pallas), 300 steps + 100 resumed; time and profile the step by pass;
+    then f32 steps from one state, fused two-pass core against the
+    autograd path."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    iters, more = 300, 100
+    cfg = load_yaml("configs/lego_hierarchical.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_hier"),
+               num_iters=iters, ckpt_loss=1, ckpt_images=150, ckpt_model=150, steps_per_call=50)
+    check(cfg["hierarchical"] and (cfg["Nc"], cfg["Nf"]) == (NC, NF) and cfg["backend"] == "pallas"
+          and cfg["compute_dtype"] == "bf16", "the hierarchical config's keys")
+    log = io.StringIO()
+    mlp.fused_train_step.launches = mlp.fused_train_step.weights_launches = mlp.fused_mlp_forward.launches = 0
+    mlp.wgrad_sums_launches(reset=True)
+    mlp.bwd_tile_launches(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fused_train_step=mlp.fused_train_step.launches,
+                    weights_output=mlp.fused_train_step.weights_launches,
+                    fused_mlp_forward=mlp.fused_mlp_forward.launches,
+                    wgrad_sums=mlp.wgrad_sums_launches(), bwd_tile=mlp.bwd_tile_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg.update(resume=True, num_iters=iters + more)
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    resumed = mlp.fused_train_step.launches - launches["fused_train_step"]
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_hier_log.txt"), "w") as fh:
+        fh.write(text)
+    for line in text.splitlines():
+        if "resumed from" in line or "final checkpoint" in line or "Val image" in line:
+            print("train hierarchical:", line, flush=True)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    psnr = scalars(cfg["log_dir"], "Loss/Val_Img_PSNR_0")
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[iters - 50 : iters]))
+    print(f"train hierarchical: {iters} steps in {train_s:.1f} s with builds and renders; launches {launches}; "
+          f"mean loss (coarse + fine) of the first 50 steps {first:.5f}, of steps {iters - 50}-{iters} {last:.5f}; "
+          f"val PSNR(0) {', '.join(f'{p:.2f}' for p in psnr)} dB; peak device memory {peak_gb:.2f} GB", flush=True)
+    check(launches["fused_train_step"] == 2 * iters, "two fused train-step launches a hierarchical step")
+    check(launches["weights_output"] == iters, "one of them, the coarse pass, with the weights output")
+    check(launches["wgrad_sums"] == 2 * iters and launches["bwd_tile"] == 2 * iters,
+          "the sums and the backward tile kernel twice a step")
+    check(launches["fused_mlp_forward"] > 0, "val renders went through the forward kernel")
+    check(all(np.isfinite(losses)) and len(losses) == iters + more, "every loss logged and finite")
+    check(last <= 0.5 * first, "the hierarchical loss at least halved")
+    check(psnr[-1] > psnr[0], "hierarchical val PSNR rose")
+    check("resumed from" in text and resumed == 2 * more and state.step == iters + more, "resume added the steps")
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    fine = load_params(os.path.join(exp, f"params_{iters + more}.pth"))
+    check(np.array_equal(fine["skip"]["w"], state.field.fine.to_jax_params()["skip"]["w"]),
+          "the .pth export is the fine net")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    step_fn = build_train_step(tcfg, model)
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+
+    def step():
+        return step_fn(state, rays, pixels)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    walls = step_walls(step)
+    reserved1 = torch.cuda.memory_reserved()
+    step_ms = walls["ms"]
+    print(f"train step hierarchical bf16 steady state: {step_ms:.3f} ms a step, {BATCH / step_ms * 1e3:,.0f} "
+          f"rays/s (CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); "
+          f"host issues a step in {walls['host_ms']:.3f} ms; allocator reserved {reserved0 / 1e9:.3f} GB before "
+          f"120 steps, {reserved1 / 1e9:.3f} GB after", flush=True)
+    check(reserved1 <= reserved0 + (256 << 20), "the allocator's footprint does not grow step after step")
+    others, host = {}, {}
+    prof = profile_step(step, others, host, split_b1=True)
+    busy = sum(prof.values())
+    print("train step hierarchical bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {step_ms:.3f} ms, idle share {1 - busy / step_ms:.3f}"
+        if prof else "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step hierarchical bf16 profile, the group other by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    print(f"train step hierarchical bf16 profile, host self time a step: torch ops {sum(host.values()):.3f} ms "
+          "(profiled); " + "; ".join(f"{n} {v:.3f}" for n, v in sorted(host.items(), key=lambda kv: -kv[1])[:10]),
+          flush=True)
+    del rd, state
+    torch.cuda.empty_cache()
+
+    # f32: the fused two-pass core against the autograd path, one step from one state
+    cfg32 = dataclasses.replace(tcfg, compute_dtype="f32")
+    runs = {}
+    mlp.fused_mlp_backward.launches = 0
+    for name, fused in (("fused", True), ("autograd", False)):
+        st = make_train_state(cfg32, model, dev)
+        with warnings.catch_warnings():  # the autograd path under pallas warns, as JAX does
+            warnings.simplefilter("ignore")
+            fn = build_train_step(cfg32, model, fused=fused)
+        runs[name] = float(fn(st, rays, pixels)), st.field.to_jax_params()
+        del st
+        torch.cuda.empty_cache()
+    b2_launches = mlp.fused_mlp_backward.launches
+    (l_f, p_f), (l_a, p_a) = runs["fused"], runs["autograd"]
+    bad = total = 0
+    for k in ("coarse", "fine"):
+        for layer in p_a[k]:
+            for n in ("w", "b"):
+                a, b = p_f[k][layer][n], p_a[k][layer][n]
+                bad += int((np.abs(a - b) > 5e-5 + 1e-3 * np.abs(b)).sum())
+                total += a.size
+    loss_rel = abs(l_f / l_a - 1)
+    print(f"f32 hierarchical step from one state: fused two-pass loss {l_f:.6f}, autograd (forward kernel + B2) "
+          f"{l_a:.6f}, rel diff {loss_rel:.2e} (tol {HIER_LOSS_RTOL:.0e}); parameters past the bin-flip rule "
+          f"{bad}/{total} (tol {BIN_FLIP_SHARE:.1%}); B2 launches {b2_launches}", flush=True)
+    check(loss_rel <= HIER_LOSS_RTOL, "fused and autograd hierarchical losses agree")
+    check(bad / total < BIN_FLIP_SHARE, "fused and autograd hierarchical steps agree under the bin-flip rule")
+    check(b2_launches == 2, "the autograd path went through B2 once a pass")
+    return dict(launches=launches, step_ms=step_ms, host_ms=walls["host_ms"], profile=prof, others=others,
+                peak_gb=peak_gb, reserved_gb=(reserved0 / 1e9, reserved1 / 1e9), loss_rel_f32=loss_rel,
+                bin_flips=bad / total, psnr=psnr, exp=exp)
+
+
+def phase_hier_eval(dev, scene, work, mlp, exp):
+    """evaluate.test with lego_hierarchical.yaml's test_params (Nc = 64,
+    N_samples = 192, chunks of 16,384 rays) in bf16 on the pallas backend:
+    stills 0 and 1; then ms a hierarchical 400x400 frame."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models.nerf import NerfPair
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+
+    tp = load_yaml("configs/lego_hierarchical.yaml")["test_params"]
+    check((tp["Nc"], tp["N_samples"]) == (NC, NF), "the hierarchical test_params")
+    tp.update(loadpath=exp, datapath=scene, savepath=os.path.join(work, "results_hier"), backend="pallas",
+              compute_dtype="bf16", im_idxs=[0, 1])
+    log = io.StringIO()
+    mlp.fused_mlp_forward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test(tp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = mlp.fused_mlp_forward.launches
+    text = log.getvalue()
+    for line in text.splitlines():
+        print("eval hierarchical:", line, flush=True)
+    psnr = {int(i): float(p) for i, p in re.findall(r"im (\d+): mse=\S+ psnr=(\S+)", text)}
+    n_chunks = -(-H * W // CHUNK)
+    check(sorted(psnr) == [0, 1] and min(psnr.values()) >= 20.0, "hierarchical test PSNR >= 20 dB")
+    check(launches == 2 * 2 * n_chunks, "each still's chunks went through the forward kernel, coarse and fine")
+
+    pair = NerfPair.from_jax_params(load_params(exp, keep_hierarchy=True), dev)
+    s = RenderSettings(N=NF, N_coarse=NC, backend="pallas", compute_dtype=torch.bfloat16)
+    pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, 0.0)[None], dtype=torch.float32, device=dev)
+    rays = rays_for_poses(pose, H, W, scene_focal(scene))
+    times = []
+    for _ in range(4):  # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, disp = render_rays_chunked(pair, rays, SEED, s, chunk=tp["batch_size"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(disp).all()), "hierarchical frame finite")
+    frame_ms = float(np.median(times[1:]))
+    res = dict(psnr=psnr, s_per_still=secs / 2, frame_ms=frame_ms, launches=launches)
+    print(f"eval hierarchical: test PSNR {psnr[0]:.2f} / {psnr[1]:.2f} dB; {res['s_per_still']:.2f} s a still "
+          f"(evaluate.test wall, loading included); a {H}x{W} frame at Nc={NC} + Nf={NF}, bf16: {frame_ms:.1f} ms "
+          f"(median of 3, runs {', '.join(f'{t:.1f}' for t in times[1:])}); forward kernel launches {launches}",
+          flush=True)
+    return res
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -986,9 +1329,12 @@ def main() -> None:
     from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
     # 2. build (with --before, the earlier train-step and forward sources too)
+    walls, t_phase = {}, time.perf_counter()
     phase_build((*mlp.SOURCES, pad_passes.SOURCE), _build)
     copies = build_before(args.before, _build, mlp) if args.before else []
     earlier = copies[0] if copies else {}
+    walls["build"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 3-4. forward and render kernels vs plain; serving; the fused_eval frame
     model = NerfMLP()
@@ -1021,7 +1367,7 @@ def main() -> None:
             print(f"before/after f32: forward at {fwd_turns['rows']} rows earlier {f['earlier']:.3f} ms, current "
                   f"{f['current']:.3f} ms (max abs diff {fwd_turns['fwd_err']:.2e}); B1 at {BATCH * N_SAMPLES} rows "
                   f"earlier {b['earlier']:.3f} ms, current {b['current']:.3f} ms (grads {b32['b1_grad_rel']:.2e} of "
-                  "max); profiled ms a B1 call: " + "; ".join(
+                  f"max, loss and grads bit-equal: {b32['b1_bitwise']}); profiled ms a B1 call: " + "; ".join(
                       f"{k}: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1]))
                       for k, p in b32["b1_profile"].items()), flush=True)
         # 6. the weight-gradient sums alone, then the backward tile kernel alone
@@ -1036,8 +1382,21 @@ def main() -> None:
         torch.cuda.empty_cache()
         # 8. eval of the trained run
         ev = phase_eval(dev, scene, work, mlp)
-    # 9. the padding probe
+        torch.cuda.empty_cache()
+        # 9. hierarchical: B1's weights output, training, eval
+        walls["single-net path"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        hk = phase_hier_kernels(dev, scene, model, mlp)
+        torch.cuda.empty_cache()
+        ht = phase_hier_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        he = phase_hier_eval(dev, scene, work, mlp, ht["exp"])
+        walls["hierarchical"] = time.perf_counter() - t_phase
+    # 10. the padding probe
+    t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
+    walls["probe"] = time.perf_counter() - t_phase
+    print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
 
     # bounds from the shapes (utils/roofline.py): MACs a row of the forward
     # (every packed matrix once) and of B1/B2 (forward recompute, W^T g of
@@ -1066,6 +1425,14 @@ def main() -> None:
 
     b2 = {k: bwd[f"B2_{k}"] for k in ("f32", "bf16")}
     b1 = {k: bwd[f"B1_{k}"] for k in ("f32", "bf16")}
+    hier_b1 = {}  # B1 with the weights output at the two passes: its numbers and bounds
+    for pas in ("coarse", "fine"):
+        rows = hk[f"{pas}_f32"]["rows"]
+        hier_b1[pas] = {"rows": rows, "N": hk[f"{pas}_f32"]["N"],
+                        **bounds(2 * train_macs * rows, 68 * rows + grad_bytes),
+                        **{f"{k}{'' if dt == 'f32' else '_bf16'}": hk[f"{pas}_{dt}"][k]
+                           for dt in ("f32", "bf16")
+                           for k in ("ms", "ms_no_weights", "plain_ms", "w_err", "rel", "loss_err")}}
     sums = {k: dict(err=wg[k]["max_abs_err"], ms=wg[k]["ms"], plain_ms=wg[k]["plain_ms"])
             for k in ("f32", "bf16")}
     (wg_flops, wg_bytes), (_, wg_bytes_bf16) = (wgrad.work(model, wg["rows"], dt)
@@ -1097,7 +1464,15 @@ def main() -> None:
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],
               loss_rel_err=b1["f32"]["loss_err"], loss_rel_err_bf16=b1["bf16"]["loss_err"],
               step_ms_bf16=tr["step_ms"], step_host_ms_bf16=tr["host_ms"], step_profile_ms_bf16=tr["profile"],
-              before_after=before and {**before, "step": tr["turns"]}),
+              before_after=before and {**before, "step": tr["turns"]},
+              out_weights={"launches": ht["launches"]["weights_output"], "passes": hier_b1},
+              launches_hierarchical=ht["launches"]["fused_train_step"],
+              hierarchical_step_ms_bf16=ht["step_ms"], hierarchical_step_host_ms_bf16=ht["host_ms"],
+              hierarchical_step_profile_ms_bf16=ht["profile"], hierarchical_peak_gb=ht["peak_gb"],
+              hierarchical_f32_loss_rel=ht["loss_rel_f32"], hierarchical_f32_bin_flips=ht["bin_flips"],
+              hierarchical_frame_ms_bf16=he["frame_ms"], hierarchical_eval_psnr=he["psnr"],
+              hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
+              b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"]),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),

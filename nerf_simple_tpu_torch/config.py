@@ -31,7 +31,7 @@ class TrainConfig:
     lr_init: float = 5e-4
     lr_final: float = 4e-4
     Nf: int = 128
-    Nc: int = 64  # read only by hierarchical sampling, which is not ported
+    Nc: int = 64  # coarse samples a ray, live only when hierarchical=True
     num_iters: int = 4000
     ckpt_model: int = 2000
     ckpt_loss: int = 100
@@ -57,12 +57,19 @@ class TrainConfig:
     steps_per_call: int = 20
     resume: bool = False
     log_dir: str = "logs"
+    # coarse + fine nets: Nc stratified samples place Nf importance
+    # samples, and the fine net renders the sorted union of Nc + Nf
+    hierarchical: bool = False
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
                      "ckpt_model", "ckpt_loss", "ckpt_images"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive, got {getattr(self, name)}")
+        if self.hierarchical and self.Nc <= 0:
+            raise ValueError(
+                f"hierarchical=True needs Nc > 0 coarse samples, got Nc={self.Nc}"
+            )
         if self.sampling_space not in ("linear", "disparity"):
             raise ValueError(
                 f"sampling_space must be 'linear' or 'disparity', got {self.sampling_space!r}"
@@ -85,7 +92,6 @@ class TrainConfig:
 # (JAX default, ROADMAP item). At the default a key changes nothing.
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "hierarchical": {"hierarchical": False},
     "proposal": {"proposal": False, "Np": 64, "prop_Lp": 6, "prop_D": 4, "prop_H": 64,
                  "proposal_loss_weight": 1.0, "prop_anneal_frac": 0.0},
     "mip": {"mip": False, "mip_levels": 1, "mip_coarse_weight": 0.1, "resample_blur": 0.01,
@@ -168,6 +174,7 @@ class TestConfig:
     seed: int = 0
     orbit_radius: float = 4.0  # hardcoded r=4 at test.py:33
     normals: bool = False  # also write normal_<i>.png from density gradients
+    Nc: int = 0  # > 0: hierarchical eval, Nc coarse and N_samples importance samples
     appearance_idx: int = -1  # read only by appearance checkpoints, not ported
 
     def __post_init__(self):
@@ -205,7 +212,6 @@ class TestConfig:
 # _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
 _TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "hierarchical": {"Nc": 0},
     "proposal": {"Np": 0},
     "mip": {"mip": False, "mip_levels": 1, "resample_blur": 0.01},
     "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,

@@ -4,13 +4,16 @@
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::fused_train_step (the
 // pallas_call of _train_kernel -> _forward_tile -> _composite_grad_block
-// -> _backprop_tile), point branch without distortion, mip, opaque tail
-// or the weights output.
+// -> _backprop_tile), point branch without distortion, mip or opaque
+// tail, with the optional weights output (`out_weights`, which the
+// hierarchical scheme's importance sampler reads).
 //
 // Contract: x16 (16, B*N) f32 -- rows 0..2 sample xyz, 3..5 unit view
 // dir, 6 ts, 8..10 the ray's gt colour on every sample; ray b's samples
 // are columns b*N .. b*N + N - 1. Returns loss = sum over rays and
-// channels of (rgb_ray - gt)^2 / (3B) and its gradients, f32, packed.
+// channels of (rgb_ray - gt)^2 / (3B) and its gradients, f32, packed;
+// with a non-null w_out, also each sample's compositing weight, f32, at
+// w_out[b*N + k] (a (B, N) row-major array).
 //
 // Design: the forward tile kernel and the backward of csrc/
 // fused_mlp_bwd.cu (mlp_tile.cuh: residuals in a device-memory workspace,
@@ -33,11 +36,12 @@
 namespace {
 
 // One warp a ray: g (4, R) gets w * d_rgb in rows 0..2 and d_sigma in row
-// 3; loss_ray[b] the ray's share of the loss.
+// 3; loss_ray[b] the ray's share of the loss; w_out, where not null, the
+// weights w.
 __global__ void __launch_bounds__(THREADS)
     composite_grad(const float *__restrict__ out8, const float *__restrict__ x16,
                    int B, int N, float scale, float *__restrict__ g,
-                   float *__restrict__ loss_ray) {
+                   float *__restrict__ loss_ray, float *__restrict__ w_out) {
   const int b = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (b >= B) return;
   const int lane = threadIdx.x & 31;
@@ -55,6 +59,7 @@ __global__ void __launch_bounds__(THREADS)
     const float w = s.alpha * expf(run);
     run += logf(s.m);
     for (int c = 0; c < 3; ++c) rgb[c] += w * out8[c * R + base + k];
+    if (w_out) w_out[base + k] = w;
   }
   float d_rgb[3], loss = 0.f;
   for (int c = 0; c < 3; ++c) {
@@ -139,10 +144,10 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `loss` is one f32 on the device. `wt` is not read (mlp_tile.cuh's
-// WeightsT).
+// WeightsT). `w_out` (rows f32) may be null: then no weight is stored.
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,
                      int is_bf16, Weights w, WeightsT wt, void *workspace, float *loss,
-                     Grads out, void *stream) {
+                     Grads out, float *w_out, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = (int)(rows / N);
@@ -151,7 +156,7 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
   if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
   const int rays_per_block = THREADS / 32;
   composite_grad<<<(B + rays_per_block - 1) / rays_per_block, THREADS, 0, s>>>(
-      sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray);
+      sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray, w_out);
   sum_kernel<<<1, 1024, 0, s>>>(sc.loss_ray, B, loss);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   return backward(sc.g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s);

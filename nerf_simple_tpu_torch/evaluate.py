@@ -10,9 +10,11 @@ then either renders the orbit video (``animation``: radius
 ``depth_<i>.png`` (disparity over its max) and, with ``normals``,
 ``normal_<i>.png``, printing mse/psnr/ssim a still and the metric-depth
 RMSE where the scene has depth sidecars. The reference's equivalent is
-``test()`` (test.py:18-45).
+``test()`` (test.py:18-45). With ``Nc > 0`` eval is hierarchical: the
+checkpoint's coarse and fine nets, Nc stratified samples and N_samples
+deterministic importance samples a ray.
 
-Hierarchical, proposal, mip and occupancy eval, LLFF (spiral path, NDC),
+Proposal, mip and occupancy eval, LLFF (spiral path, NDC),
 the tiny_nerf loader, sharded eval, pose-refined stills and Orbax
 checkpoint directories are not ported: each raises NotImplementedError.
 """
@@ -30,12 +32,13 @@ import numpy as np
 from nerf_simple_tpu_torch.config import TestConfig, load_yaml, test_config_from_dict
 
 
-def load_params(loadpath: str, return_aux: bool = False):
+def load_params(loadpath: str, return_aux: bool = False, keep_hierarchy: bool = False):
     """Numpy params pytree from an npz export, a reference .pth, a
     ``ckpt_<step>.pth`` checkpoint, or an experiment directory (its latest
     ``ckpt_<step>.pth``). ``{"field", ...}`` wrappers (pose/appearance
     training) unwrap to the field, and ``return_aux`` also returns the
-    rest as a dict; ``{coarse, fine}`` checkpoints give the fine net."""
+    rest as a dict; ``{coarse, fine}`` checkpoints give the fine net
+    unless ``keep_hierarchy`` (hierarchical eval)."""
     from nerf_simple_tpu_torch.train import checkpoint as ckpt
 
     name = os.path.basename(os.path.normpath(loadpath))
@@ -66,7 +69,7 @@ def load_params(loadpath: str, return_aux: bool = False):
     if isinstance(params, dict) and "field" in params:
         aux = {k: v for k, v in params.items() if k != "field"}
         params = params["field"]
-    if "fine" in params:
+    if "fine" in params and not keep_hierarchy:
         params = params["fine"]
     return (params, aux) if return_aux else params
 
@@ -122,7 +125,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     ``device`` (default: the card; the CPU only when asked for)."""
     from nerf_simple_tpu_torch.data.blender import load_blender
     from nerf_simple_tpu_torch.data.dataset import RayDataset
-    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
     from nerf_simple_tpu_torch.ops.rays import orbit_poses
     from nerf_simple_tpu_torch.render.renderer import (
         RenderSettings,
@@ -142,12 +145,16 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     out_dir = os.path.join(cfg.savepath, cfg.exp_name)
     os.makedirs(out_dir, exist_ok=True)
 
-    params, aux = load_params(cfg.loadpath, return_aux=True)
+    params, aux = load_params(cfg.loadpath, return_aux=True, keep_hierarchy=cfg.Nc > 0)
+    if cfg.Nc > 0 and not (isinstance(params, dict) and "coarse" in params):
+        raise ValueError(
+            "Nc > 0 requests hierarchical eval but the checkpoint has no coarse/fine nets"
+        )
     model = _model_for(cfg, params)
     _check_aux(cfg, aux, model)
-    field = NerfField.from_jax_params(params, device, model)
+    field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
     settings = RenderSettings(
-        N=cfg.N_samples, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
+        N=cfg.N_samples, N_coarse=cfg.Nc, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
         compute_dtype=cfg.render_dtype, backend=cfg.backend,
     )
     data = load_blender(cfg.datapath, cfg.half_res)

@@ -9,7 +9,8 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
 - ``fused_mlp``: a ``torch.autograd.Function`` whose forward is the first
   and whose backward is the second;
 - ``fused_train_step`` (csrc/fused_train_step.cu): forward, compositing,
-  the MSE loss and the full backward of one batch of whole rays;
+  the MSE loss and the full backward of one batch of whole rays, and
+  optionally each sample's compositing weight (``out_weights``);
 - ``fused_render`` (csrc/fused_render.cu): forward and point compositing
   of whole rays, each ray's rgb, depth and acc (the eval render);
 - ``weight_grad`` and ``weight_grads`` (csrc/wgrad.cuh, through
@@ -596,8 +597,9 @@ def _transmittance(sig: torch.Tensor, ts: torch.Tensor):
 def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int):
     """The JAX ``_composite_grad_block``, point form: per-sample raw rgb
     and sigma ``out8`` (8, B*N) and ``x16`` -> (per-ray loss (B,), d_rgb
-    per sample (3, B*N), d_sigma per sample (B*N,)). The loss is
-    sum_c (rgb_ray - gt)^2 / (3B) summed over rays."""
+    per sample (3, B*N), d_sigma per sample (B*N,), the compositing
+    weights (B, N)). The loss is sum_c (rgb_ray - gt)^2 / (3B) summed
+    over rays."""
     B = out8.shape[1] // N
     scale = 1.0 / (3.0 * B)
     rgb = out8[:3].reshape(3, B, N)
@@ -613,7 +615,7 @@ def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int):
     suffix = y.sum(1, keepdim=True) - torch.cumsum(y, dim=1)
     d_alpha = d_w * T - torch.where(1.0 - alpha > 1e-10, suffix / m, 0.0)
     d_sig = d_alpha * e * delta * torch.sigmoid(sig)
-    return loss_ray, (w[None] * d_rgb[:, :, None]).reshape(3, -1), d_sig.reshape(-1)
+    return loss_ray, (w[None] * d_rgb[:, :, None]).reshape(3, -1), d_sig.reshape(-1), w
 
 
 def fused_train_step_plain(
@@ -622,12 +624,15 @@ def fused_train_step_plain(
     N: int,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
-) -> tuple[torch.Tensor, FusedWeights]:
+    out_weights: bool = False,
+):
     """Plain PyTorch version of the train-step kernel: (loss, packed f32
-    gradients) for ``x16 (16, B*N)`` (see ``fused_train_step``)."""
+    gradients[, the compositing weights (B, N) with ``out_weights``]) for
+    ``x16 (16, B*N)`` (see ``fused_train_step``)."""
     out8, res = _forward(wts, x16[:8], compute_dtype, model)
-    loss_ray, g_rgb, g_sig = _composite_grad(out8, x16, N)
-    return loss_ray.sum(), _backprop(wts, res, g_rgb, g_sig, compute_dtype, model)
+    loss_ray, g_rgb, g_sig, w = _composite_grad(out8, x16, N)
+    grads = _backprop(wts, res, g_rgb, g_sig, compute_dtype, model)
+    return (loss_ray.sum(), grads, w) if out_weights else (loss_ray.sum(), grads)
 
 
 def fused_render_plain(
@@ -695,7 +700,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_render_image_bytes": ([_I] * 4, _LL),
     },
     "fused_train_step": {
-        "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P], _I),
+        "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P, _P], _I),
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
@@ -962,19 +967,22 @@ def fused_train_step(
     N: int,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
-) -> tuple[torch.Tensor, FusedWeights]:
+    out_weights: bool = False,
+):
     """One fused forward + compositing + MSE + backward pass.
 
     ``x16 (16, B*N)`` f32: rows 0..2 sample xyz, 3..5 unit view dirs, 6 ts
     (ascending along each ray), 8..10 the ray's gt colour on each of its
     samples, other rows unread; ray b owns columns b*N .. b*N + N - 1.
-    Returns (loss, a 0-d f32 tensor; packed f32 weight gradients)."""
+    Returns (loss, a 0-d f32 tensor; packed f32 weight gradients), and
+    with ``out_weights`` also each sample's compositing weight, f32 (B, N)
+    (the hierarchical scheme's importance sampler reads them)."""
     wts = _prepare(wts, compute_dtype, model)
     if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
         raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
     if _dispatch(x16):
         with torch.no_grad():
-            return fused_train_step_plain(wts, x16, N, compute_dtype, model)
+            return fused_train_step_plain(wts, x16, N, compute_dtype, model, out_weights)
     lib, bf16 = _check_launch("fused_train_step", wts, x16, "x16", 16, compute_dtype, model)
     rows = x16.shape[1]
     ws = torch.empty(
@@ -983,16 +991,19 @@ def fused_train_step(
     )
     loss = torch.empty((), dtype=torch.float32, device=x16.device)
     grads = _empty_grads(model, x16.device)
+    w = torch.empty((rows // N, N), dtype=torch.float32, device=x16.device) if out_weights else None
     _raise_on(lib.fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), loss.data_ptr(),
-        _CPtrs(*_ptrs(grads)), _stream(x16),
+        _CPtrs(*_ptrs(grads)), None if w is None else w.data_ptr(), _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
-    return loss, grads
+    fused_train_step.weights_launches += out_weights
+    return (loss, grads, w) if out_weights else (loss, grads)
 
 
 fused_train_step.launches = 0
+fused_train_step.weights_launches = 0  # of them, with the weights output
 
 
 def fused_render(

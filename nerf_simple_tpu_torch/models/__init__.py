@@ -11,6 +11,7 @@ import torch
 from nerf_simple_tpu_torch.models.nerf import (
     NerfField,
     NerfMLP,
+    NerfPair,
     infer_arch,
     init_nerf_params,
     nerf_apply,
@@ -20,6 +21,7 @@ from nerf_simple_tpu_torch.models.nerf import (
 __all__ = [
     "NerfMLP",
     "NerfField",
+    "NerfPair",
     "init_nerf_params",
     "nerf_apply",
     "apply_model",

@@ -11,6 +11,8 @@ The JAX package keeps params as a pytree of ``(in, out)`` arrays; that
 pytree, as numpy, stays the interchange format (checkpoints, tests).
 ``NerfField.from_jax_params`` / ``to_jax_params`` convert between it and
 the module's ``nn.Linear`` children, whose weights are ``(out, in)``.
+``NerfPair`` holds the hierarchical scheme's coarse and fine fields, the
+JAX ``{"coarse", "fine"}`` pytree.
 """
 
 from __future__ import annotations
@@ -131,15 +133,17 @@ class NerfField(nn.Module):
     def from_jax_params(cls, params: Params, device, model: NerfMLP | None = None):
         """Module from a JAX-layout pytree of ``(in, out)`` weights."""
         model = model or infer_arch(params)
-        field = cls(model, device="meta")
-        field.to_empty(device=device)
+        return cls(model, device="meta").to_empty(device=device).copy_jax_params_(params)
+
+    def copy_jax_params_(self, params: Params) -> "NerfField":
+        """Copy a JAX-layout pytree into the weights, in place."""
         with torch.no_grad():
             for name in _LAYERS:
-                lin = getattr(field, name)
+                lin = getattr(self, name)
                 w = np.asarray(params[name]["w"], np.float32)
                 lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
                 lin.bias.copy_(torch.from_numpy(np.asarray(params[name]["b"], np.float32)))
-        return field
+        return self
 
     def to_jax_params(self) -> Params:
         """Inverse of ``from_jax_params``: numpy ``(in, out)`` pytree."""
@@ -153,6 +157,31 @@ class NerfField(nn.Module):
 
     def forward(self, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
         return nerf_apply(self, v, compute_dtype)
+
+
+class NerfPair(nn.Module):
+    """The hierarchical scheme's two fields of one model: ``coarse`` places
+    the samples of ``fine`` (the JAX ``{"coarse", "fine"}`` params)."""
+
+    def __init__(self, coarse: NerfField, fine: NerfField):
+        super().__init__()
+        if coarse.model != fine.model:
+            raise ValueError(f"coarse and fine fields differ: {coarse.model} vs {fine.model}")
+        self.coarse, self.fine = coarse, fine
+        self.model = fine.model
+
+    @classmethod
+    def from_jax_params(cls, params: dict[str, Params], device, model: NerfMLP | None = None):
+        return cls(*(NerfField.from_jax_params(params[k], device, model) for k in ("coarse", "fine")))
+
+    def copy_jax_params_(self, params: dict[str, Params]) -> "NerfPair":
+        self.coarse.copy_jax_params_(params["coarse"])
+        self.fine.copy_jax_params_(params["fine"])
+        return self
+
+    def to_jax_params(self) -> dict[str, Params]:
+        return {"coarse": self.coarse.to_jax_params(), "fine": self.fine.to_jax_params()}
+
 
 
 def _rnd(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Stratified sample placement (port of nerf_simple_tpu/ops/sampling.py).
+"""Sample placement (port of nerf_simple_tpu/ops/sampling.py): stratified
+samples, and the hierarchical scheme's importance samples and merge.
 
 The JAX package draws from explicit PRNG keys; here an explicit
 ``torch.Generator`` on the tensors' device plays that part. The two give
-different numbers from one seed, so parity tests pass ``ts`` in.
+different numbers from one seed, so parity tests pass ``ts`` in (or use
+``det=True``).
 """
 
 from __future__ import annotations
@@ -67,3 +69,56 @@ def sample_points(
     locs = origins[:, None, :] + dirs[:, None, :] * ts[..., None]
     unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
     return locs, unit_dirs
+
+
+def importance_ts(
+    generator: torch.Generator | None,
+    ts_coarse: torch.Tensor,
+    weights: torch.Tensor,
+    N_fine: int,
+    det: bool = False,
+) -> torch.Tensor:
+    """(B, N_fine) ascending samples drawn by inverse transform from the
+    piecewise-constant PDF of the (B, Nc) coarse ``weights`` over the
+    midpoints of the ascending ``ts_coarse`` (the NeRF paper, sec. 5.2;
+    the interior bins only, each with 1e-5 added). ``det=True`` takes the
+    quantiles ``linspace(0, 1, N_fine)`` and needs no generator; otherwise
+    u are the order statistics of N_fine uniforms, drawn already sorted as
+    the normalised partial sums of N_fine + 1 Exp(1) draws, and the
+    inverse CDF is monotone, so the samples come out sorted with no sort.
+    The result lies within [ts_coarse min, max]."""
+    B = ts_coarse.shape[0]
+    mids = 0.5 * (ts_coarse[:, 1:] + ts_coarse[:, :-1])  # (B, Nc - 1)
+    w = weights[:, 1:-1] + 1e-5
+    pdf = w / w.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, -1)], -1)  # (B, Nc - 1)
+    if det:
+        u = torch.linspace(0.0, 1.0, N_fine, dtype=ts_coarse.dtype, device=ts_coarse.device)
+        u = u.expand(B, N_fine).contiguous()
+    else:
+        e = torch.empty((B, N_fine + 1), dtype=ts_coarse.dtype, device=ts_coarse.device)
+        s = torch.cumsum(e.exponential_(generator=generator), -1)
+        u = s[:, :N_fine] / s[:, N_fine:]
+    return _inv_cdf_interp(cdf, mids, u)
+
+
+def _inv_cdf_interp(cdf: torch.Tensor, values: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear inverse CDF: ``u`` (B, K) in [0, 1] through the
+    ascending (B, M) ``cdf`` onto its support ``values`` (B, M). The bin is
+    ``#(cdf <= u)``, its ends clipped to [0, M - 1]; a bin of mass under
+    1e-8 divides by 1. Monotone in u along each row."""
+    M = cdf.shape[-1]
+    idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(idx - 1, 0, M - 1)
+    above = torch.clamp(idx, 0, M - 1)
+    cdf_b, cdf_a = cdf.gather(-1, below), cdf.gather(-1, above)
+    v_b, v_a = values.gather(-1, below), values.gather(-1, above)
+    denom = torch.where(cdf_a - cdf_b < 1e-8, torch.ones_like(cdf_a), cdf_a - cdf_b)
+    return v_b + (u - cdf_b) / denom * (v_a - v_b)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, Na + Nb) ascending union of the rows of two ascending (B, Na)
+    and (B, Nb) tensors: a stable sort of the concatenation, so equal
+    values keep a's before b's, as the JAX rank merge orders them."""
+    return torch.sort(torch.cat([a, b], -1), dim=-1, stable=True).values

@@ -10,6 +10,10 @@ is the fused backward kernel); under ``backend="xla"`` the layer-by-layer
 any number of rays in fixed-size chunks, padding the last chunk with
 copies of the last ray; with ``fused_eval`` under ``"pallas"`` each chunk
 is one call of the fused render kernel (forward and compositing).
+``render_rays_hierarchical`` is the coarse + fine scheme: the coarse
+field's weights place importance samples, and the fine field renders the
+sorted union; ``render_rays_chunked`` takes that path for a ``NerfPair``
+under ``N_coarse > 0``.
 
 Eval on top of it: ``render_image`` (one still of a split),
 ``render_orbit_video`` (frames to ``utils/video.py``) and
@@ -37,9 +41,14 @@ from nerf_simple_tpu_torch.kernels.mlp import (
     supported,
 )
 from nerf_simple_tpu_torch.models import apply_model
-from nerf_simple_tpu_torch.models.nerf import NerfField
+from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
-from nerf_simple_tpu_torch.ops.sampling import sample_points, stratified_ts_spaced
+from nerf_simple_tpu_torch.ops.sampling import (
+    importance_ts,
+    merge_sorted,
+    sample_points,
+    stratified_ts_spaced,
+)
 from nerf_simple_tpu_torch.ops.volume import CompositeOut, composite, composite_T
 
 
@@ -52,9 +61,11 @@ class RenderSettings:
     ``"pallas"`` = the hand-written fused kernel (the JAX package's CLI
     words). ``fused_eval`` routes ``render_rays_chunked`` under
     ``"pallas"`` through the fused render kernel (forward and compositing
-    in one call); under ``"xla"`` it changes nothing. The other fields
-    after ``backend`` exist in the JAX settings but are not ported yet:
-    setting one raises."""
+    in one call); under ``"xla"`` it changes nothing, and it does not
+    apply under ``N_coarse > 0`` (as in JAX). ``N_coarse > 0`` renders
+    hierarchically: N_coarse stratified samples, then N importance
+    samples. The other fields after ``backend`` exist in the JAX settings
+    but are not ported yet: setting one raises."""
 
     N: int = 128
     tn: float = 2.0
@@ -74,7 +85,6 @@ class RenderSettings:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be f32 or bf16, got {self.compute_dtype}")
         unported = {
-            "N_coarse": (self.N_coarse > 0, "hierarchical sampling"),
             "N_prop": (self.N_prop > 0, "proposal sampling"),
             "mip": (self.mip, "the mip family"),
             "sigma_noise": (self.sigma_noise > 0, "sigma noise (a training regulariser)"),
@@ -113,6 +123,34 @@ def render_rays(
             rays.device, rays.dtype, settings.sampling_space,
         )
     return _render_at_ts(field, rays, ts, settings)
+
+
+def render_rays_hierarchical(
+    coarse: NerfField,
+    fine: NerfField,
+    rays: torch.Tensor,
+    generator: torch.Generator | None,
+    settings: RenderSettings,
+    det_fine: bool = False,
+    ts_coarse: torch.Tensor | None = None,
+) -> tuple[CompositeOut, CompositeOut]:
+    """Coarse + fine rendering (the NeRF paper, sec. 5.2): ``N_coarse``
+    stratified samples (or the (B, N_coarse) ``ts_coarse`` given) through
+    the coarse field; ``N`` importance samples from its detached weights
+    (``det_fine``: the deterministic quantiles); the fine field at the
+    sorted union of both, N_coarse + N a ray. Returns (coarse, fine)."""
+    if settings.N_coarse <= 0:
+        raise ValueError("the hierarchical path needs N_coarse > 0")
+    ts_c = ts_coarse
+    if ts_c is None:
+        ts_c = stratified_ts_spaced(
+            generator, rays.shape[0], settings.N_coarse, settings.tn, settings.tf,
+            rays.device, rays.dtype, settings.sampling_space,
+        )
+    coarse_out = _render_at_ts(coarse, rays, ts_c, settings)
+    ts_f = importance_ts(generator, ts_c, coarse_out.weights.detach(), settings.N, det=det_fine)
+    fine_out = _render_at_ts(fine, rays, merge_sorted(ts_c, ts_f), settings)
+    return coarse_out, fine_out
 
 
 def _render_at_ts(
@@ -217,7 +255,7 @@ def _padded_chunks(rays: torch.Tensor, chunk: int) -> tuple[torch.Tensor, int]:
 
 @torch.inference_mode()
 def render_rays_chunked(
-    field: NerfField,
+    field: NerfField | NerfPair,
     rays: torch.Tensor,
     seed: int,
     settings: RenderSettings = RenderSettings(),
@@ -231,14 +269,20 @@ def render_rays_chunked(
     Chunk ``i`` draws its samples from ``chunk_generator(seed, i)``. With
     ``fused_eval`` under ``backend="pallas"`` a chunk is one call of the
     fused render kernel; otherwise ``render_rays``. Both draw the same
-    samples from the same seed."""
+    samples from the same seed. Under ``N_coarse > 0`` ``field`` is a
+    ``NerfPair`` and a chunk renders hierarchically with the deterministic
+    quantiles (``det_fine``), as JAX eval does."""
     if occ is not None:
         raise NotImplementedError(
             "occupancy-informed sampling is not ported yet: ROADMAP Queue A, occupancy"
         )
+    hier = settings.N_coarse > 0
+    if hier != isinstance(field, NerfPair):
+        raise ValueError("N_coarse > 0 renders a NerfPair (coarse and fine fields), N_coarse = 0 one "
+                         f"NerfField; got N_coarse={settings.N_coarse} and a {type(field).__name__}")
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays, chunk)
-    fused = settings.fused_eval and settings.backend == "pallas"
+    fused = settings.fused_eval and settings.backend == "pallas" and not hier
     rgbs, disps = [], []
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
@@ -248,7 +292,8 @@ def render_rays_chunked(
                                       rays.device, rays.dtype, settings.sampling_space)
             rgb, disp = _fused_render_rays(field, rays_c, ts, settings)
         else:
-            out = render_rays(field, rays_c, g, settings)
+            out = (render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True)[1]
+                   if hier else render_rays(field, rays_c, g, settings))
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103
         rgbs.append(rgb)
         disps.append(disp)
@@ -272,7 +317,7 @@ def _density_grad(field: NerfField, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def render_normals_chunked(
-    field: NerfField,
+    field: NerfField | NerfPair,
     rays: torch.Tensor,
     seed: int,
     settings: RenderSettings = RenderSettings(),
@@ -285,8 +330,12 @@ def render_normals_chunked(
     used, as the JAX package forces its XLA path here. The tail sample is
     left out (its 1e10 delta makes its weight absorb all remaining
     transmittance) and the sum is not renormalised (its length is the
-    coherence of the gradients: ~0 over empty space)."""
-    s = dataclasses.replace(settings, backend="xla", fused_eval=False)
+    coherence of the gradients: ~0 over empty space). A ``NerfPair``
+    gives its fine field, at the plain N setting (normals need one
+    density field)."""
+    if isinstance(field, NerfPair):
+        field = field.fine
+    s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0)
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays[:, :6], chunk)
     outs = []
@@ -305,7 +354,7 @@ def render_normals_chunked(
 
 
 def render_image(
-    field: NerfField,
+    field: NerfField | NerfPair,
     rays_split: torch.Tensor,
     H: int,
     W: int,
@@ -325,7 +374,7 @@ def render_image(
 
 
 def render_orbit_video(
-    field: NerfField,
+    field: NerfField | NerfPair,
     poses: np.ndarray,
     H: int,
     W: int,

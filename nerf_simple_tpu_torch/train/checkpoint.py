@@ -1,7 +1,8 @@
 """Checkpoints and params IO (port of nerf_simple_tpu/train/checkpoint.py).
 
 A checkpoint is ``<savepath>/<exp_name>/ckpt_<step>.pth``: the full
-training state (the field's params, Adam's state, the step and the
+training state (the field's params, ``{"coarse", "fine"}`` for a
+hierarchical run; Adam's state over all of them; the step and the
 generator's state), so a run resumes where it stopped and draws the
 batches it would have drawn. Orbax is absent on the card's machine, so
 the JAX package's Orbax directories are not read here.
@@ -20,6 +21,8 @@ import re
 
 import numpy as np
 import torch
+
+from nerf_simple_tpu_torch.models.nerf import NerfPair
 
 
 def save_checkpoint(direc: str, state) -> str:
@@ -51,14 +54,14 @@ def checkpoint_params(path: str):
 
 
 def restore_checkpoint(path: str, state) -> None:
-    """Load a checkpoint into ``state`` (a TrainState of the same model),
-    in place."""
+    """Load a checkpoint into ``state`` (a TrainState of the same model and
+    scheme: one field, or a coarse and fine pair), in place."""
     ck = torch.load(path, map_location="cpu", weights_only=False)
-    field = state.field
-    with torch.no_grad():
-        for name, p in ck["params"].items():
-            getattr(field, name).weight.copy_(torch.from_numpy(np.ascontiguousarray(p["w"].T)))
-            getattr(field, name).bias.copy_(torch.from_numpy(p["b"]))
+    pair = "coarse" in ck["params"]
+    if pair != isinstance(state.field, NerfPair):
+        raise ValueError(f"{path} holds {'a coarse and fine pair' if pair else 'one field'}; "
+                         "the run trains the other (check `hierarchical`)")
+    state.field.copy_jax_params_(ck["params"])
     state.optimizer.load_state_dict(ck["optimizer"])
     state.generator.set_state(ck["generator"])
     state.step = int(ck["step"])
@@ -141,7 +144,8 @@ _PTH_LAYER_MAP = {
 
 def export_params_pth(path: str, params) -> None:
     """A state_dict .pth that loads into the reference ``Nerf`` module
-    with ``strict=True``."""
+    with ``strict=True``. Takes one network's params: a hierarchical run
+    exports its fine net (``params["fine"]``)."""
     if "coarse" in params and "trunk0" not in params:
         raise ValueError(
             ".pth export is per-network; pass params['coarse'] or "

@@ -1,11 +1,14 @@
 """The training loop (port of nerf_simple_tpu/train/loop.py, the
-point-sampled single-network path).
+point-sampled paths: one network, or the hierarchical coarse + fine pair).
 
 Same observable behaviour as the reference ``train()`` (train.py:28-91)
 and the JAX loop: loss and lr every ``ckpt_loss`` iterations, train and
-val renders with MSE/PSNR/SSIM every ``ckpt_images``, a checkpoint every
-``ckpt_model`` and at the end, then ``params_<step>.npz`` and ``.pth``
-exports that this package's server and the JAX package both load.
+val renders with MSE/PSNR/SSIM every ``ckpt_images`` (hierarchical runs
+render with both nets, ``N_coarse = Nc``), a checkpoint every
+``ckpt_model`` and at the end, then ``params_<step>.npz`` (both nets of a
+hierarchical run) and ``.pth`` (the reference's single-network format:
+the fine net of a hierarchical run) exports that this package's server
+and the JAX package both load.
 
 The loss of every step stays on the device. The host waits for the card
 only at the end of a chunk of ``steps_per_call`` iterations that holds a
@@ -120,8 +123,8 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
             print(f"resumed from {latest} at step {state.step}")
     step_fn = build_train_step(cfg, model)
     eval_settings = RenderSettings(
-        N=cfg.Nf, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
-        compute_dtype=cfg.render_dtype, backend=cfg.backend,
+        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
+        sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
     )
     lr0, decay = lr_schedule(cfg)
 
@@ -178,7 +181,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
     path = ckpt.save_checkpoint(exp_dir, state)
     params = state.field.to_jax_params()
     ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), params)
-    ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params)
+    ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params.get("fine", params))
     rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s (steady-state)"
             if meter.iters else "steady-state throughput n/a (one synced chunk)")
     print(f"final checkpoint {path} | {rate}")

@@ -1,5 +1,6 @@
 """The training step: sample -> render -> loss -> gradients -> Adam (port of
-nerf_simple_tpu/train/step.py, the point-sampled single-network path).
+nerf_simple_tpu/train/step.py, the point-sampled paths: one network, or
+the hierarchical coarse + fine pair).
 
 Learning rate as the reference: Adam starts at the hard-coded 5e-4
 (train.py:43 ignores lr_init; ``honor_lr_init`` fixes that) and
@@ -15,9 +16,14 @@ Cores:
 
 - ``backend="pallas"``: the fused train-step kernel
   (kernels/mlp.py::fused_train_step), one launch a step; its packed
-  gradients go back to the field through the differentiable pack;
+  gradients go back to the field through the differentiable pack.
+  Hierarchical: two launches, as JAX ``train/step.py`` runs them: the
+  coarse net at Nc stratified samples with the weights output, which
+  ``importance_ts`` turns into Nf samples; then the fine net at the
+  sorted union of Nc + Nf. The loss is the sum of the two passes', and
+  each pass's gradients go back to its own net;
 - ``backend="xla"``, or ``fused=False``: autograd over ``render_rays``
-  and the MSE. Under ``backend="pallas"`` that renders through
+  (``render_rays_hierarchical``) and the MSE (of both nets' colours). Under ``backend="pallas"`` that renders through
   ``fused_mlp``, whose backward is the fused backward kernel. This is
   the JAX package's path for configs its single kernel does not take;
   the port's configs all fit the single kernel, so only a caller that
@@ -34,9 +40,14 @@ import torch
 
 from nerf_simple_tpu_torch.config import TrainConfig
 from nerf_simple_tpu_torch.kernels.mlp import fused_train_step, pack_weights
-from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
-from nerf_simple_tpu_torch.ops.sampling import stratified_ts_spaced
-from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays
+from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, NerfPair, init_nerf_params
+from nerf_simple_tpu_torch.ops.sampling import importance_ts, merge_sorted, stratified_ts_spaced
+from nerf_simple_tpu_torch.render.renderer import (
+    RenderSettings,
+    derive_seed,
+    render_rays,
+    render_rays_hierarchical,
+)
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -52,10 +63,11 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """The field, its optimizer, the step count and the generator that
-    draws batches and samples, on the training device."""
+    """The field (a ``NerfPair`` when hierarchical), its optimizer, the
+    step count and the generator that draws batches and samples, on the
+    training device."""
 
-    field: NerfField
+    field: NerfField | NerfPair
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
@@ -63,8 +75,14 @@ class TrainState:
 
 def make_train_state(cfg: TrainConfig, model: NerfMLP, device) -> TrainState:
     """Weights from the numpy seed ``cfg.seed`` (the JAX package draws
-    them from a JAX key: the two inits differ), generator seeded alike."""
-    field = NerfField.from_jax_params(init_nerf_params(cfg.seed, model), device, model)
+    them from a JAX key: the two inits differ), generator seeded alike.
+    Hierarchical: the coarse and fine nets from ``derive_seed(cfg.seed,
+    0)`` and ``derive_seed(cfg.seed, 1)``, one Adam over both."""
+    if cfg.hierarchical:
+        field = NerfPair(*(NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, k), model),
+                                                     device, model) for k in (0, 1)))
+    else:
+        field = NerfField.from_jax_params(init_nerf_params(cfg.seed, model), device, model)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     return TrainState(field, make_optimizer(cfg, field.parameters()), gen)
@@ -83,6 +101,30 @@ def build_x16(rays_b: torch.Tensor, ts: torch.Tensor, pix_b: torch.Tensor) -> to
     return x.reshape(16, B * N)
 
 
+def fused_loss(field: NerfField, rays_b, pix_b, ts, compute_dtype, model: NerfMLP, out_weights=False):
+    """One launch of the fused train step at the (B, N) ``ts``: (loss[, the
+    compositing weights (B, N) with ``out_weights``]); the gradients go
+    back to ``field`` through the differentiable pack."""
+    wts = pack_weights(field, differentiable=True)
+    loss, dwts, *w = fused_train_step(wts, build_x16(rays_b, ts, pix_b), ts.shape[1], compute_dtype,
+                                      model, out_weights)
+    torch.autograd.backward(list(wts), list(dwts))
+    return (loss, *w)
+
+
+def hierarchical_fused_loss(pair: NerfPair, rays_b, pix_b, ts_c, generator, N_fine: int, compute_dtype,
+                            model: NerfMLP, det_fine: bool = False) -> torch.Tensor:
+    """The two fused passes of a hierarchical step (JAX train/step.py, the
+    hierarchical fused core): the coarse net at the stratified ``ts_c``
+    with the weights output; ``N_fine`` importance samples from them
+    (drawn from ``generator``, or the quantiles with ``det_fine``); the
+    fine net at the sorted union. Returns loss_c + loss_f; each pass's
+    gradients go to its own net."""
+    loss_c, w_c = fused_loss(pair.coarse, rays_b, pix_b, ts_c, compute_dtype, model, out_weights=True)
+    ts_all = merge_sorted(ts_c, importance_ts(generator, ts_c, w_c, N_fine, det=det_fine))
+    return loss_c + fused_loss(pair.fine, rays_b, pix_b, ts_all, compute_dtype, model)[0]
+
+
 def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None):
     """``step_fn(state, rays, pixels) -> loss``: one iteration on the
     resident ray set, the loss left on the device (no sync)."""
@@ -97,30 +139,38 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             stacklevel=2,
         )
     settings = RenderSettings(
-        N=cfg.Nf, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
-        compute_dtype=cfg.render_dtype, backend=cfg.backend,
+        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
+        sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
     )
+    N_strat = cfg.Nc if cfg.hierarchical else cfg.Nf  # the stratified samples a ray
     lr0, decay = lr_schedule(cfg)
 
-    def core(field, rays_b, pix_b, ts):
+    def core(field, rays_b, pix_b, ts, g):
+        """The loss of one batch at the stratified ``ts``, gradients left
+        in the fields; ``g`` draws the importance samples."""
+        if fused and cfg.hierarchical:
+            return hierarchical_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model)
         if fused:
-            wts = pack_weights(field, differentiable=True)
-            loss, dwts = fused_train_step(wts, build_x16(rays_b, ts, pix_b), cfg.Nf,
-                                          cfg.render_dtype, model)
-            torch.autograd.backward(list(wts), list(dwts))
-            return loss
-        out = render_rays(field, rays_b, None, settings, ts=ts)
-        loss = torch.mean((out.rgb - pix_b) ** 2)  # raw-colour MSE, train.py:52
+            return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model)[0]
+
+        def mse(rgb):  # raw-colour MSE, train.py:52
+            return torch.mean((rgb - pix_b) ** 2)
+
+        if cfg.hierarchical:  # the standard NeRF loss (paper eqn. 6): both heads to gt
+            coarse, fine = render_rays_hierarchical(field.coarse, field.fine, rays_b, g, settings, ts_coarse=ts)
+            loss = mse(coarse.rgb) + mse(fine.rgb)
+        else:
+            loss = mse(render_rays(field, rays_b, None, settings, ts=ts).rgb)
         loss.backward()
         return loss.detach()
 
     def step_fn(state: TrainState, rays: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
         g = state.generator
         idx = torch.randint(0, rays.shape[0], (cfg.batch_size,), generator=g, device=rays.device)
-        ts = stratified_ts_spaced(g, cfg.batch_size, cfg.Nf, cfg.tn, cfg.tf, rays.device,
+        ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
                                   space=cfg.sampling_space)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = core(state.field, rays[idx], pixels[idx], ts)
+        loss = core(state.field, rays[idx], pixels[idx], ts, g)
         for group in state.optimizer.param_groups:
             group["lr"] = lr0 * decay**state.step
         state.optimizer.step()

@@ -1,4 +1,5 @@
-"""The CUDA kernels (fused MLP forward, backward, train step and render;
+"""The CUDA kernels (fused MLP forward, backward, train step with and
+without its weights output, and render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -150,6 +151,70 @@ def test_train_step_kernel_matches_plain(dev, model, B, N, dtype):
     loss2, again = mlp.fused_train_step(wts, x16, N, dtype, model)  # deterministic
     assert loss2.item() == loss.item()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 64), (NerfMLP(), 41, 64),
+                                         (NerfMLP(Lp=4, Ld=2, H=32), 13, 256), (NerfMLP(), 9, 256)],
+                         ids=["small-N64", "flagship-N64", "small-N256", "flagship-N256"])
+def test_train_step_weights_output_matches_plain(dev, model, B, N, dtype):
+    """B1's ``out_weights`` at the hierarchical scheme's N (2 and 8 samples
+    a lane of the compositing warp), ragged ray counts: the weights within
+    the forward's bound (they are at most 1), loss and gradients as B1's;
+    with ``w_out`` null the same launch gives the same loss and gradients
+    bit for bit."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(B, N, dev)
+    before = mlp.fused_train_step.launches
+    loss, got, w = mlp.fused_train_step(wts, x16, N, dtype, model, out_weights=True)
+    torch.cuda.synchronize()
+    assert mlp.fused_train_step.launches == before + 1
+    loss_p, want, w_p = mlp.fused_train_step_plain(wts, x16, N, dtype, model, out_weights=True)
+    assert w.shape == (B, N) and bool(torch.isfinite(w).all())
+    assert (w - w_p).abs().max().item() <= TOL[dtype]
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[dtype]
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    loss0, got0 = mlp.fused_train_step(wts, x16, N, dtype, model)  # w_out null
+    assert loss0.item() == loss.item()
+    assert all(torch.equal(a, b) for a, b in zip(got, got0))
+
+
+# B1 and B2 past 2^31 plane elements, against plain: per tensor, max abs
+# error over the plain version's max abs value, chip_smoke.py's bounds at
+# the training batch (B2's random cotangents over a million rows cancel,
+# so kernel and plain f32 each land ~1e-3 from float64 there).
+BIG_GRAD_TOL = {("B1", torch.float32): 1e-4, ("B1", torch.bfloat16): 2e-3,
+                ("B2", torch.float32): 1e-2, ("B2", torch.bfloat16): 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_step_and_backward_past_2_31_plane_elements(dev, dtype):
+    """The hierarchical fine pass's size: 4096 rays x 256 samples =
+    1,048,576 rows, whose residual (2,288 features) and cotangent (2,192)
+    planes hold more than 2^31 elements."""
+    model, B, N = NerfMLP(), 4096, 256
+    rows = B * N
+    L = mlp.Layout.of(model)
+    assert min(L.FA, L.FG) * rows > 2**31
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(B, N, dev)
+    loss, got = mlp.fused_train_step(wts, x16, N, dtype, model)
+    torch.cuda.synchronize()
+    loss_p, want = mlp.fused_train_step_plain(wts, x16, N, dtype, model)
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[dtype]
+    assert max(_grad_errors(got, want).values()) <= BIG_GRAD_TOL["B1", dtype]
+    del got, want
+    torch.cuda.empty_cache()
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    xT = x16[:8].contiguous()
+    got = mlp.fused_mlp_backward(wts, xT, g, dtype, model)
+    torch.cuda.synchronize()
+    want = mlp.fused_mlp_backward_plain(wts, xT, g, dtype, model)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert max(_grad_errors(got, want).values()) <= BIG_GRAD_TOL["B2", dtype]
+    del got, want
+    torch.cuda.empty_cache()
 
 
 def test_backward_wrappers_reject_bad_inputs(dev):

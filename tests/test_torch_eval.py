@@ -184,7 +184,7 @@ def test_test_config_defaults_and_checks():
     with pytest.raises(ValueError, match="tn > 0"):
         config.test_config_from_dict({**base, "sampling_space": "disparity", "tn": 0.0})
     assert config.test_config_from_dict({**base, "num_data_shards": 0}).loadpath == "m"
-    for key, value in (("num_data_shards", -1), ("Nc", 64), ("occupancy", True), ("ndc", False)):
+    for key, value in (("num_data_shards", -1), ("Np", 32), ("occupancy", True), ("ndc", False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.test_config_from_dict({**base, key: value})
     with pytest.warns(UserWarning, match="unknown config key"):
