@@ -46,7 +46,7 @@ NerfMLP(Lp=10, Ld=4, H=256):
    copy given: variants of it) beside the current one, in turns, and the
    max difference of their planes from the current ones;
 7. train: writes the synthetic scene (25 train, 2 val, 2 test images at
-   800x800, loaded at half resolution), trains through ``train()`` (what
+   800x800 with their metric-depth sidecars, loaded at half resolution), trains through ``train()`` (what
    ``python -m nerf_simple_tpu_torch.train`` runs) with lego.yaml's keys,
    ``backend: pallas``, ``compute_dtype: bf16``; checks the launch count,
    the loss, the val PSNR, a resume and that the server serves the
@@ -78,7 +78,23 @@ NerfMLP(Lp=10, Ld=4, H=256):
    (c) ``evaluate.test`` with the config's ``test_params`` (Nc = 64,
    N_samples = 192; bf16, pallas) on the test split: PSNR, s a still, and
    ms a hierarchical 400x400 frame;
-10. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+10. the regularisers: (a) B1 with its distortion rail (``dist``, lambda =
+   0.01 as ``configs/colmap360.yaml``) against its plain version in
+   linear and disparity space, f32 and bf16, at the training batch
+   (524,288 rows) and the hierarchical fine pass (1,048,576 rows): loss
+   and gradients to B1's bounds, B1 with and without the rail in turns,
+   ``composite_grad``'s profiled ms with and without it beside its bound
+   and its plain version; (b) trains 300 bf16 steps through ``train()``
+   with each regulariser: lego.yaml's keys + ``distortion_loss_weight``
+   (the fused step, one B1 launch a step, each with the rail; the trained
+   field's distortion below phase 7's field's, trained without it at the
+   same steps and seed), + ``depth_loss_weight`` (autograd through the
+   forward kernel and B2; depth RMSE of a train view against the scene's
+   metric depth falls), + ``sigma_noise`` (the same path), and
+   lego_hierarchical.yaml's keys + ``distortion_loss_weight`` (the fine
+   pass's B1 with the rail); each: the loss halves, ms a step, rays/s,
+   the profile;
+11. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -158,6 +174,16 @@ NC, NF = 64, 192  # configs/lego_hierarchical.yaml: coarse samples, importance s
 # farther apart than 5e-5 + 1e-3 |p|. The two paths' coarse weights differ
 # in the last bits, and a u on a CDF edge then picks another fine sample.
 HIER_LOSS_RTOL, BIN_FLIP_SHARE = 1e-4, 1e-3
+# The regularisers: the distortion weight of configs/colmap360.yaml (the
+# JAX package's 360 recipe); the original NeRF's sigma noise std (1.0); a
+# depth weight of the JAX package's tests; steps of each training run.
+DIST_LAMBDA, SIGMA_NOISE, DEPTH_WEIGHT, REG_ITERS = 0.01, 1.0, 0.1, 300
+# composite_grad's bound, with or without the rail: the bytes it must
+# move, a row (out8's rgb and sigma and the ts read, 20 B; g's four rows
+# written, 16 B) and a ray (the gt colour read, 12 B; its loss written,
+# 4 B); its operations, under 100 f32 ones a row (four passes over a
+# ray, ~25 each, read from the code), take far less time at 67 TFLOP/s.
+COMPOSITE_BYTES_ROW, COMPOSITE_BYTES_RAY, COMPOSITE_FLOPS_ROW = 36, 16, 100
 OUT = "smoke_logs"
 
 
@@ -218,23 +244,25 @@ BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_wor
                   "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes")}
 
 
-class NoWeightsOutput:
-    """A train-step library from before B1's weights output: its
-    ``fused_train_step`` entry has no ``w_out`` pointer (the one before the
-    stream). Called with the current entry's arguments, it drops that
-    one, which must be null."""
+class EarlierTrainStep:
+    """A train-step library of an earlier commit, whose ``fused_train_step``
+    entry lacks arguments the current one has: the distortion rail's five
+    (``dist_on`` .. ``disparity``, before the stream) and, before B1's
+    weights output, ``w_out`` too. Called with the current entry's
+    arguments, it drops those, which must be off (null, 0)."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, lib, has_w_out: bool):
+        self.lib, self.cut = lib, 5 + (not has_w_out)
         entry = lib.fused_train_step
-        entry.argtypes = entry.argtypes[:-2] + entry.argtypes[-1:]
+        entry.argtypes = entry.argtypes[: -1 - self.cut] + entry.argtypes[-1:]
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
 
     def fused_train_step(self, *args):
-        check(args[-2] is None, "a library without the weights output is asked for none")
-        return self.lib.fused_train_step(*args[:-2], args[-1])
+        check(args[-6] == 0 and (self.cut == 5 or args[-7] is None),
+              "an earlier library is asked for no rail it lacks")
+        return self.lib.fused_train_step(*args[: -1 - self.cut], args[-1])
 
 
 def build_before(dirs, _build, mlp) -> list[dict]:
@@ -242,9 +270,9 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     a change replaces, or variants of them), built with the package's nvcc
     flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
     by copy, their ctypes libraries by source, those entries bound as the
-    current library's (a train step without the weights output through
-    ``NoWeightsOutput``). Prints ptxas's lines of each copy's backward
-    tile kernels."""
+    current library's (a train step without the distortion rail or the
+    weights output through ``EarlierTrainStep``). Prints ptxas's lines of
+    each copy's backward tile kernels."""
     libs = _build.build_copies(dirs, BEFORE_ENTRIES)
     for d in dirs:
         for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
@@ -253,8 +281,9 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     copies = [{name: mlp._bind(lib, name, BEFORE_ENTRIES[name]) for name, lib in libs[d].items()} for d in dirs]
     for d, c in zip(dirs, copies):
         with open(os.path.join(d, "fused_train_step.cu")) as fh:
-            if "w_out" not in fh.read():
-                c["fused_train_step"] = NoWeightsOutput(c["fused_train_step"])
+            src = fh.read()
+        if "dist_on" not in src:
+            c["fused_train_step"] = EarlierTrainStep(c["fused_train_step"], "w_out" in src)
     return copies
 
 
@@ -340,8 +369,8 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
 
         def step():
             mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, bf16,
-                                               cw, wt, ws.data_ptr(), loss.data_ptr(), cg, None,
-                                               mlp._stream(x16_batch)), what)
+                                               cw, wt, ws.data_ptr(), loss.data_ptr(), cg, None, 0, 0.0, 0.0,
+                                               0.0, 0, mlp._stream(x16_batch)), what)
         return step, loss, grads
 
     old_step, loss, grads = bind(earlier, "earlier fused_train_step")
@@ -1270,6 +1299,266 @@ def phase_hier_eval(dev, scene, work, mlp, exp):
     return res
 
 
+def kernel_ms(step, key: str, calls: int = 20) -> float:
+    """Device ms of one launch of the kernel whose name holds ``key``, the
+    median over ``calls`` calls of ``step`` (torch.profiler, after one
+    call); nan where the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and key in e.name]
+    return float(np.median(us)) / 1e3 if us else float("nan")
+
+
+def walls_in_turns(fns: dict, steps: int = 10) -> dict:
+    """ms a call of each of ``fns`` (label -> callable) in runs of ``steps``
+    calls back to back (step_walls, median of 5 runs), in turns: the
+    labels in order, then in reverse; the median of each."""
+    t = {k: [] for k in fns}
+    for k in (*fns, *reversed(fns)):
+        t[k].append(step_walls(fns[k], steps)["ms"])
+    return {k: float(np.median(v)) for k, v in t.items()}
+
+
+def phase_dist_kernels(dev, scene, model, mlp):
+    """B1 with the distortion rail (``dist``, lambda = DIST_LAMBDA) against
+    its plain version, in linear and disparity space, f32 and bf16, at the
+    training batch (4096 rays of the scene x 128 stratified samples in
+    that space, 524,288 rows; the flagship net from numpy seed 0) and at
+    the hierarchical fine pass (the union of 64 stratified samples and 192
+    importance samples of the coarse net's bf16 weights, 1,048,576 rows;
+    the fine net): loss and gradients to B1's bounds, the rail adding to
+    the loss; B1 with and without the rail in turns (runs of calls back to
+    back; bf16 also with the rail at weight 0, whose cotangents are those
+    without it, and the kernel groups of B1 with and without it
+    profiled), composite_grad's profiled ms a launch with and without it;
+    the plain versions' ms, B1's and composite_grad's alone."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.ops.sampling import importance_ts, merge_sorted, stratified_ts_spaced
+    from nerf_simple_tpu_torch.train.step import build_x16
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    del rd
+    coarse, fine = (mlp.pack_weights(f) for f in hier_fields(model, dev))
+    single = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    stats = {}
+    with torch.no_grad():
+        for space in ("linear", "disparity"):
+            dist = (DIST_LAMBDA, 2.0, 6.0, space == "disparity")
+            ts = stratified_ts_spaced(g, BATCH, N_SAMPLES, 2.0, 6.0, dev, space=space)
+            ts_c = stratified_ts_spaced(g, BATCH, NC, 2.0, 6.0, dev, space=space)
+            w_c = mlp.fused_train_step(mlp._cast_weights(coarse, torch.bfloat16), build_x16(rays_b, ts_c, pix_b), NC,
+                                       torch.bfloat16, model, out_weights=True)[2]
+            ts_f = merge_sorted(ts_c, importance_ts(g, ts_c, w_c, NF))
+            for pas, ts_p, wts in (("train", ts, single), ("fine", ts_f, fine)):
+                x16, Np = build_x16(rays_b, ts_p, pix_b), ts_p.shape[1]
+                for dt in (torch.float32, torch.bfloat16):
+                    name = "f32" if dt == torch.float32 else "bf16"
+                    w = mlp._cast_weights(wts, dt)
+
+                    def on():
+                        return mlp.fused_train_step(w, x16, Np, dt, model, dist=dist)
+
+                    def off():
+                        return mlp.fused_train_step(w, x16, Np, dt, model)
+
+                    def zero():  # the rail's code at weight 0: the same cotangents as without it
+                        return mlp.fused_train_step(w, x16, Np, dt, model, dist=(0.0, *dist[1:]))
+
+                    loss, got = on()
+                    loss_p, want = mlp.fused_train_step_plain(w, x16, Np, dt, model, dist=dist)
+                    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(t).all()) for t in got),
+                          f"B1 with the rail {pas} {space} {name} finite")
+                    rel, abs_err = grad_errors(got, want)
+                    loss_err = abs(loss.item() / loss_p.item() - 1)
+                    added = loss.item() - off()[0].item()
+                    del got, want
+                    torch.cuda.empty_cache()
+                    out8, rail = mlp.fused_mlp_forward(w, x16[:8].contiguous(), dt, model), mlp._dist_rail(dist, BATCH)
+                    plain_composite_ms = cuda_ms(lambda: mlp._composite_grad(out8, x16, Np, rail))
+                    del out8
+                    if dt == torch.bfloat16:
+                        turns = walls_in_turns({"off": off, "zero": zero, "on": on})
+                    else:  # a call of 47-93 ms: runs of 3 hide the wrapper's host time as well
+                        turns = {"zero": float("nan"), **walls_in_turns({"off": off, "on": on}, steps=3)}
+                    prof = {k: profile_step(f) for k, f in (("off", off), ("on", on))} if dt == torch.bfloat16 else {}
+                    st = dict(err=abs_err, rel=rel, loss_err=loss_err, rows=x16.shape[1], N=Np, dist_added=added,
+                              ms=turns["on"], ms_no_rail=turns["off"], ms_rail_weight_0=turns["zero"], profile=prof,
+                              composite_ms=kernel_ms(on, "composite_grad"),
+                              composite_ms_no_rail=kernel_ms(off, "composite_grad"),
+                              plain_composite_ms=plain_composite_ms,
+                              plain_ms=cuda_ms(lambda: mlp.fused_train_step_plain(w, x16, Np, dt, model, dist=dist),
+                                               reps=3))
+                    torch.cuda.empty_cache()
+                    print(f"B1 dist rail {pas} pass, {space}, {name} at {st['rows']} rows (N={Np}, lambda "
+                          f"{DIST_LAMBDA}): grad err {rel:.3e} of max (tol {GRAD_TOL['B1', dt]:.0e}), max abs "
+                          f"{abs_err:.3e}; loss rel err {loss_err:.2e} (tol {LOSS_TOL[dt]:.0e}), the rail adds "
+                          f"{added:.3e}; B1 {st['ms']:.3f} ms with the rail, {st['ms_no_rail']:.3f} without, "
+                          f"{st['ms_rail_weight_0']:.3f} with it at weight 0 (runs of {10 if prof else 3} calls, "
+                          "median of 5, in turns)" + "".join(f"; profiled {k}: " + ", ".join(
+                              f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1])) for k, p in prof.items())
+                          + f"; composite_grad {st['composite_ms']:.4f} ms with, "
+                          f"{st['composite_ms_no_rail']:.4f} without (profiled, median of 20), its plain version (torch "
+                          f"cumsums, with the rail) {plain_composite_ms:.3f} ms; plain B1 {st['plain_ms']:.3f} ms",
+                          flush=True)
+                    check(rel <= GRAD_TOL["B1", dt] and loss_err <= LOSS_TOL[dt],
+                          f"B1 with the rail {pas} {space} {name} within B1's bounds")
+                    check(added > 0, f"the rail adds to the loss ({pas} {space} {name})")
+                    stats[f"{pas}_{space}_{name}"] = st
+                del x16
+                torch.cuda.empty_cache()
+    return stats
+
+
+def probe_distortion(field, rays, dev) -> float:
+    """The distortion (s-space, point form, mean over rays) of ``field``'s
+    weights on ``rays`` at 128 bin midpoints on [2, 6], f32 forward kernel."""
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.ops.volume import distortion_loss, s_norm
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays
+
+    ts = stratified_ts(None, rays.shape[0], N_SAMPLES, 2.0, 6.0, dev, det=True)
+    with torch.no_grad():
+        out = render_rays(field, rays, None, RenderSettings(N=N_SAMPLES, backend="pallas"), ts=ts)
+    return float(distortion_loss(out.weights, s_norm(ts, 2.0, 6.0)))
+
+
+def phase_reg_train(dev, scene, work, mlp):
+    """Train through train() (bf16, pallas, seed 0, REG_ITERS steps) with
+    each regulariser: lego.yaml's keys + distortion_loss_weight
+    DIST_LAMBDA (the fused step, one B1 launch a step with the rail; the
+    trained field's distortion on 16,000 rays of train view 0 against
+    phase 7's field at the same steps and seed, which trained without it:
+    lower); + depth_loss_weight DEPTH_WEIGHT (autograd through the forward
+    kernel and B2, no B1; the depth RMSE on those rays against the
+    metric-depth sidecar falls from the initial field's); + sigma_noise
+    SIGMA_NOISE (the same path; the loss at least halves);
+    lego_hierarchical.yaml's keys + distortion_loss_weight DIST_LAMBDA
+    (two B1 launches a step, the fine one with the rail). Each: the loss,
+    the launches, ms a step and rays/s (step_walls), the step's profile."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    data = load_blender(scene, True, 25)
+    check(data.splits["train"].metric_depth is not None, "the scene's metric-depth sidecars")
+    rd = RayDataset.from_blender(data, dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    pixels4 = torch.cat([pixels, torch.as_tensor(data.splits["train"].metric_depth.reshape(-1, 1), device=dev)], 1)
+    n = rd.H * rd.W
+    probe = rays[:n:10]  # 16,000 rays of train view 0
+    probe_depth = pixels4[:n:10, 3]
+
+    def depth_rmse(field):
+        ts = stratified_ts(None, probe.shape[0], N_SAMPLES, 2.0, 6.0, dev, det=True)
+        with torch.no_grad():
+            out = render_rays(field, probe, None, RenderSettings(N=N_SAMPLES, backend="pallas"), ts=ts)
+        return float(torch.sqrt(torch.mean((out.depth - probe_depth) ** 2)))
+
+    runs = {"distortion": ("configs/lego.yaml", dict(distortion_loss_weight=DIST_LAMBDA)),
+            "depth": ("configs/lego.yaml", dict(depth_loss_weight=DEPTH_WEIGHT)),
+            "sigma_noise": ("configs/lego.yaml", dict(sigma_noise=SIGMA_NOISE)),
+            "hierarchical_distortion": ("configs/lego_hierarchical.yaml",
+                                        dict(distortion_loss_weight=DIST_LAMBDA))}
+    res = {}
+    for name, (path, kw) in runs.items():
+        cfg = load_yaml(path)
+        cfg.update(datapath=scene, savepath=os.path.join(work, "models_reg"), exp_name=name,
+                   log_dir=os.path.join(work, f"logs_{name}"), backend="pallas", compute_dtype="bf16",
+                   num_iters=REG_ITERS, ckpt_loss=1, ckpt_images=10 * REG_ITERS, ckpt_model=REG_ITERS,
+                   steps_per_call=50, **kw)
+        tcfg = train_config(cfg)
+        model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+        mlp.fused_train_step.launches = mlp.fused_train_step.weights_launches = 0
+        mlp.fused_train_step.dist_launches = mlp.fused_mlp_backward.launches = mlp.fused_mlp_forward.launches = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(log):
+            warnings.simplefilter("always")
+            state = train(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(fused_train_step=mlp.fused_train_step.launches,
+                        weights_output=mlp.fused_train_step.weights_launches,
+                        dist_rail=mlp.fused_train_step.dist_launches,
+                        fused_mlp_backward=mlp.fused_mlp_backward.launches,
+                        fused_mlp_forward=mlp.fused_mlp_forward.launches)
+        with open(os.path.join(OUT, f"train_{name}_log.txt"), "w") as fh:
+            fh.write(log.getvalue())
+        losses = scalars(cfg["log_dir"], "Loss/train")
+        first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+        fallback = [str(w.message) for w in caught if "ineligible" in str(w.message)]
+        check(len(losses) == REG_ITERS and all(np.isfinite(losses)), f"{name}: every loss logged and finite")
+        check(last <= 0.5 * first, f"{name}: the loss at least halved")
+        st = dict(launches=launches, first=first, last=last, train_s=train_s, fallback=bool(fallback))
+        if name == "distortion":
+            check(launches["fused_train_step"] == REG_ITERS and launches["dist_rail"] == REG_ITERS,
+                  "distortion: one B1 launch a step, each with the rail")
+            plain = NerfField.from_jax_params(
+                load_params(os.path.join(work, "models", "lego", f"params_{REG_ITERS}.npz")), dev)
+            st["probe_distortion"], st["probe_distortion_without"] = (probe_distortion(state.field, probe, dev),
+                                                                      probe_distortion(plain, probe, dev))
+            check(st["probe_distortion"] < st["probe_distortion_without"],
+                  "the field trained with the rail has less distortion than the one trained without it")
+        elif name == "hierarchical_distortion":
+            check(launches["fused_train_step"] == 2 * REG_ITERS and launches["weights_output"] == REG_ITERS
+                  and launches["dist_rail"] == REG_ITERS,
+                  "hierarchical distortion: two B1 launches a step, the coarse with the weights, the fine with the rail")
+        else:
+            check(launches["fused_train_step"] == 0 and launches["fused_mlp_backward"] == REG_ITERS
+                  and launches["fused_mlp_forward"] >= REG_ITERS and fallback,
+                  f"{name}: the autograd path (forward kernel and B2 once a step), with JAX's warning")
+        if name == "depth":
+            st["depth_rmse"] = depth_rmse(state.field)
+            st["depth_rmse_init"] = depth_rmse(make_train_state(tcfg, model, dev).field)
+            check(st["depth_rmse"] < st["depth_rmse_init"], "depth RMSE of train view 0 fell")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            step_fn = build_train_step(tcfg, model)
+        pix = pixels4 if name == "depth" else pixels
+
+        def step():
+            return step_fn(state, rays, pix)
+
+        walls = step_walls(step)
+        prof = profile_step(step, split_b1=name == "hierarchical_distortion")
+        busy = sum(prof.values())
+        st.update(step_ms=walls["ms"], host_ms=walls["host_ms"], profile=prof,
+                  idle=1 - busy / walls["ms"] if prof else None)
+        extra = "".join(f"; {k} {st[k]:.5f}" for k in ("probe_distortion", "probe_distortion_without", "depth_rmse",
+                                                         "depth_rmse_init") if k in st)
+        print(f"train {name} ({os.path.basename(path)} + {kw}, bf16): {REG_ITERS} steps in {train_s:.1f} s; launches "
+              f"{launches}; mean loss of the first 50 steps {first:.5f}, of the last 50 {last:.5f}{extra}; "
+              f"{walls['ms']:.3f} ms a step ({BATCH / walls['ms'] * 1e3:,.0f} rays/s; runs "
+              f"{', '.join(f'{w:.3f}' for w in walls['walls'])}), host issues it in {walls['host_ms']:.3f} ms; "
+              "profile, device ms a step: " + (", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+                  + f"; idle share {st['idle']:.3f}" if prof else "not measured")
+              + (f"; warned: {fallback[0]}" if fallback else ""), flush=True)
+        res[name] = st
+        del state, step_fn
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -1351,8 +1640,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         scene = os.path.join(work, "scene")
         t0 = time.perf_counter()
-        write_blender_scene(scene, n_train=25, n_val=2, n_test=2, H=800, W=800, device=dev)
-        print(f"scene: 25/2/2 images at 800x800 written in {time.perf_counter() - t0:.1f} s", flush=True)
+        write_blender_scene(scene, n_train=25, n_val=2, n_test=2, H=800, W=800, device=dev, write_depth=True)
+        print(f"scene: 25/2/2 images at 800x800 and their metric depth written in {time.perf_counter() - t0:.1f} s",
+              flush=True)
         # 5. B2 and B1 vs plain at the training batch
         bwd = phase_backward_and_step(dev, params, model, mlp, train_batch(dev, scene))
         torch.cuda.empty_cache()
@@ -1392,7 +1682,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         he = phase_hier_eval(dev, scene, work, mlp, ht["exp"])
         walls["hierarchical"] = time.perf_counter() - t_phase
-    # 10. the padding probe
+        # 10. the regularisers: B1's distortion rail vs plain, training with each
+        t_phase = time.perf_counter()
+        dk = phase_dist_kernels(dev, scene, model, mlp)
+        torch.cuda.empty_cache()
+        rt = phase_reg_train(dev, scene, work, mlp)
+        walls["regularisers"] = time.perf_counter() - t_phase
+    # 11. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -1440,6 +1736,33 @@ def main() -> None:
     tile = {k: dict(err=bt[k]["max_abs_err"], ms=bt[k]["ms"], plain_ms=bt[k]["plain_ms"]) for k in ("f32", "bf16")}
     (tile_flops, tile_bytes), (_, tile_bytes_bf16) = (bwd_tile.work(model, bt["rows"], dt)
                                                       for dt in (torch.float32, torch.bfloat16))
+    dist = {"launches": rt["distortion"]["launches"]["dist_rail"],
+            "launches_hierarchical": rt["hierarchical_distortion"]["launches"]["dist_rail"],
+            "source": "nerf_simple_tpu_torch/csrc/fused_train_step.cu (composite_grad, dist_grad)",
+            "replaces": "nerf_simple_tpu/kernels/mlp.py:1343-1410", "lambda": DIST_LAMBDA,
+            "max_abs_err": max(v["err"] for k, v in dk.items() if k.endswith("f32")),
+            "max_abs_err_bf16": max(v["err"] for k, v in dk.items() if k.endswith("bf16")),
+            # the rail's kernel, composite_grad, at the training batch (f32 compositing at either type)
+            "ms": dk["train_linear_f32"]["composite_ms"], "plain_ms": dk["train_linear_f32"]["plain_composite_ms"],
+            "ms_bf16": dk["train_linear_bf16"]["composite_ms"],
+            "plain_ms_bf16": dk["train_linear_bf16"]["plain_composite_ms"], "library_ms": None,
+            "b1_ms": dk["train_linear_f32"]["ms"], "b1_ms_no_rail": dk["train_linear_f32"]["ms_no_rail"],
+            "b1_ms_bf16": dk["train_linear_bf16"]["ms"], "b1_ms_no_rail_bf16": dk["train_linear_bf16"]["ms_no_rail"],
+            "b1_ms_rail_weight_0_bf16": dk["train_linear_bf16"]["ms_rail_weight_0"],
+            "b1_plain_ms": dk["train_linear_f32"]["plain_ms"], "cases": dk,
+            "training": {k: {m: v[m] for m in ("step_ms", "host_ms", "idle", "profile", "launches", "first", "last")}
+                         | {m: v[m] for m in v if m.startswith(("probe", "depth"))} for k, v in rt.items()}}
+    for pas in ("train", "fine"):  # composite_grad's bound at each pass, with the rail
+        rows = dk[f"{pas}_linear_f32"]["rows"]
+        nbytes = COMPOSITE_BYTES_ROW * rows + COMPOSITE_BYTES_RAY * BATCH
+        dist[f"composite_{pas}"] = {
+            "rows": rows, "bound_ms": bound_ms(COMPOSITE_FLOPS_ROW * rows, nbytes, torch.float32),
+            "bound_by": bound_by(COMPOSITE_FLOPS_ROW * rows, nbytes, torch.float32),
+            **{f"ms_{sp}_{dt}": dk[f"{pas}_{sp}_{dt}"]["composite_ms"] for sp in ("linear", "disparity")
+               for dt in ("f32", "bf16")},
+            **{f"ms_no_rail_{sp}_{dt}": dk[f"{pas}_{sp}_{dt}"]["composite_ms_no_rail"]
+               for sp in ("linear", "disparity") for dt in ("f32", "bf16")}}
+    dist["bound_ms"], dist["bound_by"] = dist["composite_train"]["bound_ms"], dist["composite_train"]["bound_by"]
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -1472,7 +1795,7 @@ def main() -> None:
               hierarchical_f32_loss_rel=ht["loss_rel_f32"], hierarchical_f32_bin_flips=ht["bin_flips"],
               hierarchical_frame_ms_bf16=he["frame_ms"], hierarchical_eval_psnr=he["psnr"],
               hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
-              b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"]),
+              b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),

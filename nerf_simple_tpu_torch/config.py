@@ -60,6 +60,12 @@ class TrainConfig:
     # coarse + fine nets: Nc stratified samples place Nf importance
     # samples, and the fine net renders the sorted union of Nc + Nf
     hierarchical: bool = False
+    # training regularisers: Gaussian noise on raw sigma (single net), a
+    # masked L2 on expected depth against the scene's metric-depth
+    # sidecars, the mip-NeRF 360 distortion loss in s-space
+    sigma_noise: float = 0.0
+    depth_loss_weight: float = 0.0
+    distortion_loss_weight: float = 0.0
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -80,6 +86,12 @@ class TrainConfig:
             raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {self.compute_dtype!r}")
         if self.backend not in ("xla", "pallas"):
             raise ValueError(f"backend must be 'xla' or 'pallas', got {self.backend!r}")
+        if self.sigma_noise < 0:
+            raise ValueError(f"sigma_noise must be >= 0, got {self.sigma_noise}")
+        if self.depth_loss_weight < 0:
+            raise ValueError(f"depth_loss_weight must be >= 0, got {self.depth_loss_weight}")
+        if self.distortion_loss_weight < 0:
+            raise ValueError(f"distortion_loss_weight must be >= 0, got {self.distortion_loss_weight}")
 
     @property
     def render_dtype(self):
@@ -97,8 +109,6 @@ for _item, _keys in {
     "mip": {"mip": False, "mip_levels": 1, "mip_coarse_weight": 0.1, "resample_blur": 0.01,
             "opaque_background": False, "mip_multiscale": False},
     "contract with disparity spacing": {"contract": False},
-    "regularisers (sigma noise, depth, distortion)": {
-        "sigma_noise": 0.0, "depth_loss_weight": 0.0, "distortion_loss_weight": 0.0},
     "pose/appearance": {"appearance_dim": 0, "pose_opt": False, "pose_lr_init": 1e-3,
                         "pose_lr_final": 1e-5, "pose_warmup": 300, "pose_freeze_at": 0,
                         "pe_anneal_until": 0, "train_im_idxs": ()},
@@ -180,7 +190,8 @@ class TestConfig:
     def __post_init__(self):
         if self.opaque_background:
             # the JAX TrainConfig's rule (config.py:368-373), which its
-            # TestConfig lacks (ROADMAP Queue C 3)
+            # TestConfig lacks (ROADMAP, Queue C's deliberate behaviour
+            # changes)
             raise ValueError(
                 "opaque_background modifies INTERVAL compositing and "
                 "needs mip=True (the point path already has the 1e10 "

@@ -10,7 +10,8 @@ Port of nerf_simple_tpu/kernels/mlp.py, point variant:
   and whose backward is the second;
 - ``fused_train_step`` (csrc/fused_train_step.cu): forward, compositing,
   the MSE loss and the full backward of one batch of whole rays, and
-  optionally each sample's compositing weight (``out_weights``);
+  optionally each sample's compositing weight (``out_weights``) and the
+  point-form distortion loss in the loss and its gradient (``dist``);
 - ``fused_render`` (csrc/fused_render.cu): forward and point compositing
   of whole rays, each ray's rgb, depth and acc (the eval render);
 - ``weight_grad`` and ``weight_grads`` (csrc/wgrad.cuh, through
@@ -58,6 +59,7 @@ import torch
 
 from nerf_simple_tpu_torch.kernels import _build
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, require_ported
+from nerf_simple_tpu_torch.ops.volume import s_norm
 
 FLAGSHIP = NerfMLP()
 _MAX_H = 256  # widest layer the kernel's shared-memory plan holds
@@ -594,28 +596,71 @@ def _transmittance(sig: torch.Tensor, ts: torch.Tensor):
     return delta, e, alpha, m, torch.exp(torch.cumsum(logm, dim=1) - logm)
 
 
-def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int):
+def _distortion_rail(w: torch.Tensor, s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The point-form distortion of each ray, ``(B,)``, and its gradient
+    in the (B, N) weights ``w`` at sorted positions ``s``: the tail
+    sample's weight is dropped (``wm``) and its gap to the next sample is
+    0; the prefix sums A, Bm of wm and wm * s and their suffix sums give
+    the cross term and its gradient in O(N). The gradient is exactly 0 at
+    the tail, whose weight the loss does not read."""
+    wm = torch.cat([w[:, :-1], torch.zeros_like(w[:, :1])], 1)
+    d_s = torch.cat([s[:, 1:] - s[:, :-1], torch.zeros_like(s[:, :1])], 1)
+    wms = wm * s
+    A_in, Bm_in = torch.cumsum(wm, 1), torch.cumsum(wms, 1)
+    cross = s * (A_in - wm) - (Bm_in - wms)  # exclusive prefixes
+    SA = wm.sum(1, keepdim=True) - A_in  # suffix sums (j > k)
+    SBm = wms.sum(1, keepdim=True) - Bm_in
+    dist_ray = (wm * (2.0 * cross) + wm * wm * d_s / 3.0).sum(1)
+    d_w = 2.0 * (cross + SBm - s * SA) + (2.0 / 3.0) * wm * d_s
+    return dist_ray, torch.cat([d_w[:, :-1], torch.zeros_like(d_w[:, :1])], 1)
+
+
+def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int, dist: tuple | None = None):
     """The JAX ``_composite_grad_block``, point form: per-sample raw rgb
     and sigma ``out8`` (8, B*N) and ``x16`` -> (per-ray loss (B,), d_rgb
     per sample (3, B*N), d_sigma per sample (B*N,), the compositing
     weights (B, N)). The loss is sum_c (rgb_ray - gt)^2 / (3B) summed
-    over rays."""
+    over rays.
+
+    ``dist = (d_scale, tn, tf, disparity)`` adds the distortion rail:
+    ``d_scale`` times the point-form distortion of each ray in s-space
+    (``ops/volume.py::distortion_loss`` before its mean: the tail sample
+    dropped, the gap to the next sample 0 there), and its gradient to
+    d_w, exactly 0 at the tail."""
     B = out8.shape[1] // N
     scale = 1.0 / (3.0 * B)
     rgb = out8[:3].reshape(3, B, N)
     sig = out8[3].reshape(B, N)
     gt = x16[8:11].reshape(3, B, N)[:, :, 0]
-    delta, e, alpha, m, T = _transmittance(sig, x16[6].reshape(B, N))
+    ts = x16[6].reshape(B, N)
+    delta, e, alpha, m, T = _transmittance(sig, ts)
     w = alpha * T
     err = (w[None] * rgb).sum(-1) - gt  # (3, B)
     loss_ray = (err * err).sum(0) * scale
     d_rgb = 2.0 * scale * err
     d_w = (rgb * d_rgb[:, :, None]).sum(0)
+    if dist is not None:
+        d_scale, tn, tf, disparity = dist
+        dist_ray, d_w_dist = _distortion_rail(w, s_norm(ts, tn, tf, disparity))
+        loss_ray = loss_ray + d_scale * dist_ray
+        d_w = d_w + d_scale * d_w_dist
     y = d_w * w
     suffix = y.sum(1, keepdim=True) - torch.cumsum(y, dim=1)
     d_alpha = d_w * T - torch.where(1.0 - alpha > 1e-10, suffix / m, 0.0)
     d_sig = d_alpha * e * delta * torch.sigmoid(sig)
     return loss_ray, (w[None] * d_rgb[:, :, None]).reshape(3, -1), d_sig.reshape(-1), w
+
+
+def _dist_rail(dist: tuple | None, B: int) -> tuple | None:
+    """``dist = (weight, tn, tf, disparity)`` of ``fused_train_step`` ->
+    the rail's ``(weight / B, tn, tf, disparity)``: the loss is a mean
+    over rays, the rail sums them (JAX kernels/mlp.py:1619-1622)."""
+    if dist is None:
+        return None
+    weight, tn, tf, disparity = dist
+    if not weight >= 0 or not tf > tn or (disparity and not tn > 0):
+        raise ValueError(f"dist needs weight >= 0, tf > tn, and tn > 0 in disparity space; got {dist}")
+    return (float(weight) / B, float(tn), float(tf), bool(disparity))
 
 
 def fused_train_step_plain(
@@ -625,12 +670,13 @@ def fused_train_step_plain(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     out_weights: bool = False,
+    dist: tuple | None = None,
 ):
     """Plain PyTorch version of the train-step kernel: (loss, packed f32
     gradients[, the compositing weights (B, N) with ``out_weights``]) for
-    ``x16 (16, B*N)`` (see ``fused_train_step``)."""
+    ``x16 (16, B*N)`` (see ``fused_train_step``; ``dist`` as it takes it)."""
     out8, res = _forward(wts, x16[:8], compute_dtype, model)
-    loss_ray, g_rgb, g_sig, w = _composite_grad(out8, x16, N)
+    loss_ray, g_rgb, g_sig, w = _composite_grad(out8, x16, N, _dist_rail(dist, x16.shape[1] // N))
     grads = _backprop(wts, res, g_rgb, g_sig, compute_dtype, model)
     return (loss_ray.sum(), grads, w) if out_weights else (loss_ray.sum(), grads)
 
@@ -671,7 +717,7 @@ class _CWeightsT(ctypes.Structure):
     _fields_ = [(f"{name}T", ctypes.c_void_p) for name in _TRANSPOSED]
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
         "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
@@ -700,7 +746,8 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_render_image_bytes": ([_I] * 4, _LL),
     },
     "fused_train_step": {
-        "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P, _P], _I),
+        "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P,
+                              _I, _F, _F, _F, _I, _P], _I),
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
@@ -968,6 +1015,7 @@ def fused_train_step(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     out_weights: bool = False,
+    dist: tuple | None = None,
 ):
     """One fused forward + compositing + MSE + backward pass.
 
@@ -976,13 +1024,21 @@ def fused_train_step(
     samples, other rows unread; ray b owns columns b*N .. b*N + N - 1.
     Returns (loss, a 0-d f32 tensor; packed f32 weight gradients), and
     with ``out_weights`` also each sample's compositing weight, f32 (B, N)
-    (the hierarchical scheme's importance sampler reads them)."""
+    (the hierarchical scheme's importance sampler reads them).
+
+    ``dist = (weight, tn, tf, disparity)`` (JAX's) adds ``weight`` times
+    the point-form distortion loss of the rays' weights at their ts
+    normalised to s in [0, 1] (linearly, or in 1/t with ``disparity``),
+    averaged over rays, to the loss, and its gradient to the backward
+    (the kernel's distortion rail). ``fused_train_step.dist_launches``
+    counts the launches with it."""
     wts = _prepare(wts, compute_dtype, model)
     if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
         raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
+    rail = _dist_rail(dist, x16.shape[1] // N)
     if _dispatch(x16):
         with torch.no_grad():
-            return fused_train_step_plain(wts, x16, N, compute_dtype, model, out_weights)
+            return fused_train_step_plain(wts, x16, N, compute_dtype, model, out_weights, dist)
     lib, bf16 = _check_launch("fused_train_step", wts, x16, "x16", 16, compute_dtype, model)
     rows = x16.shape[1]
     ws = torch.empty(
@@ -992,18 +1048,22 @@ def fused_train_step(
     loss = torch.empty((), dtype=torch.float32, device=x16.device)
     grads = _empty_grads(model, x16.device)
     w = torch.empty((rows // N, N), dtype=torch.float32, device=x16.device) if out_weights else None
+    d_scale, tn, tf, disparity = rail or (0.0, 0.0, 0.0, False)
     _raise_on(lib.fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), loss.data_ptr(),
-        _CPtrs(*_ptrs(grads)), None if w is None else w.data_ptr(), _stream(x16),
+        _CPtrs(*_ptrs(grads)), None if w is None else w.data_ptr(),
+        int(rail is not None), d_scale, tn, tf, int(disparity), _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
     fused_train_step.weights_launches += out_weights
+    fused_train_step.dist_launches += rail is not None
     return (loss, grads, w) if out_weights else (loss, grads)
 
 
 fused_train_step.launches = 0
 fused_train_step.weights_launches = 0  # of them, with the weights output
+fused_train_step.dist_launches = 0  # of them, with the distortion rail
 
 
 def fused_render(

@@ -1,4 +1,5 @@
-"""Emission-absorption compositing (port of nerf_simple_tpu/ops/volume.py).
+"""Emission-absorption compositing and the distortion regulariser (port of
+nerf_simple_tpu/ops/volume.py, point form).
 
 Plain torch, as the JAX package leaves it to XLA outside any kernel. The
 reference quirks (utils/rendering.py:47-85) stay: softplus density; raw,
@@ -63,3 +64,31 @@ def composite(
     alpha, weights = _weights(rgb_sigma[..., 3], ts, unit_dirs)
     rgb = torch.sum(weights[..., None] * rgb_sigma[..., :3], dim=1)
     return _finish(rgb, alpha, weights, ts)
+
+
+def s_norm(ts: torch.Tensor, tn: float, tf: float, disparity: bool = False) -> torch.Tensor:
+    """Sample distances in the sampling parametrisation s in [0, 1] (JAX
+    ``train/step.py::_s_norm``): affine in t, or in 1/t with
+    ``disparity``. The distortion loss is measured in s."""
+    if disparity:
+        return (1.0 / tn - 1.0 / torch.clamp(ts, min=1e-10)) / (1.0 / tn - 1.0 / tf)
+    return (ts - tn) / (tf - tn)
+
+
+def distortion_loss(weights: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """The mip-NeRF 360 distortion loss (eqn. 15) in point form, O(N) by
+    cumsums, averaged over rays (JAX ``ops/volume.py::distortion_loss``):
+    sum_ij w_i w_j |t_i - t_j| + sum_i w_i^2 delta_i / 3 over (B, N)
+    weights at sorted (B, N) ts. The tail sample is left out: its weight
+    is the 1e10 absorber's leftover transmittance."""
+    return _distortion_core(weights[:, :-1], ts[:, :-1], ts[:, 1:] - ts[:, :-1])
+
+
+def _distortion_core(w: torch.Tensor, m: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Weights ``w`` at sorted positions ``m`` with widths ``delta``: the
+    cross term 2 sum_j w_j (m_j A_j - B_j) with A, B the exclusive prefix
+    sums of w and w m, plus the self term."""
+    acc = torch.cumsum(w, dim=-1)
+    acc_m = torch.cumsum(w * m, dim=-1)
+    cross = 2.0 * torch.sum(w * (m * (acc - w) - (acc_m - w * m)), dim=-1)
+    return torch.mean(cross + torch.sum(w * w * delta, dim=-1) / 3.0)

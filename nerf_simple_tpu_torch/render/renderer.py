@@ -64,8 +64,11 @@ class RenderSettings:
     in one call); under ``"xla"`` it changes nothing, and it does not
     apply under ``N_coarse > 0`` (as in JAX). ``N_coarse > 0`` renders
     hierarchically: N_coarse stratified samples, then N importance
-    samples. The other fields after ``backend`` exist in the JAX settings
-    but are not ported yet: setting one raises."""
+    samples. ``sigma_noise > 0`` (a training regulariser) adds
+    ``sigma_noise * N(0, 1)`` to raw sigma before compositing in
+    ``render_rays``; the hierarchical render applies none, as in JAX.
+    ``N_prop`` and ``mip`` exist in the JAX settings but are not ported
+    yet: setting one raises."""
 
     N: int = 128
     tn: float = 2.0
@@ -84,10 +87,11 @@ class RenderSettings:
             raise ValueError(f"backend must be 'xla' or 'pallas', got {self.backend!r}")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be f32 or bf16, got {self.compute_dtype}")
+        if self.sigma_noise < 0:
+            raise ValueError(f"sigma_noise must be >= 0, got {self.sigma_noise}")
         unported = {
             "N_prop": (self.N_prop > 0, "proposal sampling"),
             "mip": (self.mip, "the mip family"),
-            "sigma_noise": (self.sigma_noise > 0, "sigma noise (a training regulariser)"),
         }
         for name, (on, item) in unported.items():
             if on:
@@ -113,16 +117,26 @@ def render_rays(
     generator: torch.Generator | None,
     settings: RenderSettings = RenderSettings(),
     ts: torch.Tensor | None = None,
+    noise: torch.Tensor | None = None,
 ) -> CompositeOut:
     """Render (B, 6) ``[origin | direction]`` rays (direction
     unnormalised) at stratified ``ts`` drawn from ``generator``, or at the
-    (B, N) ``ts`` given. ``.rgb`` is raw, like the reference."""
+    (B, N) ``ts`` given. ``.rgb`` is raw, like the reference.
+
+    With ``settings.sigma_noise > 0`` the (B, N) standard normal ``noise``
+    given, or else one drawn from ``generator`` after the ts, times
+    ``sigma_noise`` is added to raw sigma. At 0 nothing is drawn, so the
+    generator's stream and every result stay as without the setting."""
     if ts is None:
         ts = stratified_ts_spaced(
             generator, rays.shape[0], settings.N, settings.tn, settings.tf,
             rays.device, rays.dtype, settings.sampling_space,
         )
-    return _render_at_ts(field, rays, ts, settings)
+    if settings.sigma_noise > 0 and noise is None:
+        if generator is None:
+            raise ValueError("sigma_noise > 0 draws its noise from a generator: pass one, or the noise")
+        noise = torch.randn(ts.shape, generator=generator, dtype=ts.dtype, device=ts.device)
+    return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None)
 
 
 def render_rays_hierarchical(
@@ -133,12 +147,16 @@ def render_rays_hierarchical(
     settings: RenderSettings,
     det_fine: bool = False,
     ts_coarse: torch.Tensor | None = None,
+    return_ts: bool = False,
 ) -> tuple[CompositeOut, CompositeOut]:
     """Coarse + fine rendering (the NeRF paper, sec. 5.2): ``N_coarse``
     stratified samples (or the (B, N_coarse) ``ts_coarse`` given) through
     the coarse field; ``N`` importance samples from its detached weights
     (``det_fine``: the deterministic quantiles); the fine field at the
-    sorted union of both, N_coarse + N a ray. Returns (coarse, fine)."""
+    sorted union of both, N_coarse + N a ray. Returns (coarse, fine), and
+    with ``return_ts`` also ``(ts_coarse, ts_union)``, the ts each render
+    composited (the distortion loss reads the union). No sigma noise is
+    added, whatever ``settings.sigma_noise`` says, as in JAX."""
     if settings.N_coarse <= 0:
         raise ValueError("the hierarchical path needs N_coarse > 0")
     ts_c = ts_coarse
@@ -149,23 +167,33 @@ def render_rays_hierarchical(
         )
     coarse_out = _render_at_ts(coarse, rays, ts_c, settings)
     ts_f = importance_ts(generator, ts_c, coarse_out.weights.detach(), settings.N, det=det_fine)
-    fine_out = _render_at_ts(fine, rays, merge_sorted(ts_c, ts_f), settings)
+    ts_all = merge_sorted(ts_c, ts_f)
+    fine_out = _render_at_ts(fine, rays, ts_all, settings)
+    if return_ts:
+        return coarse_out, fine_out, (ts_c, ts_all)
     return coarse_out, fine_out
 
 
 def _render_at_ts(
-    field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings
+    field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings,
+    noise: torch.Tensor | None = None,
 ) -> CompositeOut:
+    """Render at the (B, N) ``ts``; with ``noise`` (B, N), raw sigma gains
+    ``settings.sigma_noise * noise`` before compositing, on both backends."""
     B, N = ts.shape
     if settings.backend == "pallas":
         outT = _fused_mlp_bn(field, rays, ts, settings)
+        if noise is not None:
+            outT = torch.cat([outT[:3], (outT[3] + settings.sigma_noise * noise)[None]])
         dirs = rays[:, 3:6]
         unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
         return composite_T(outT, ts, unit_dirs)
     locs, unit_dirs = sample_points(rays, ts)
     query = torch.cat([locs, unit_dirs[:, None, :].expand(B, N, 3)], dim=-1)
-    out = apply_model(field, query.reshape(B * N, 6), settings.compute_dtype)
-    return composite(out.reshape(B, N, 4), ts, unit_dirs)
+    out = apply_model(field, query.reshape(B * N, 6), settings.compute_dtype).reshape(B, N, 4)
+    if noise is not None:
+        out = torch.cat([out[..., :3], (out[..., 3] + settings.sigma_noise * noise)[..., None]], dim=-1)
+    return composite(out, ts, unit_dirs)
 
 
 def _require_kernel_arch(field: NerfField) -> None:

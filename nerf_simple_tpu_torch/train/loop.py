@@ -20,6 +20,7 @@ the second sync on: the first window holds the kernel builds.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any
@@ -31,7 +32,7 @@ from nerf_simple_tpu_torch.config import TrainConfig, train_config_from_dict
 from nerf_simple_tpu_torch.data.blender import load_blender
 from nerf_simple_tpu_torch.data.dataset import RayDataset
 from nerf_simple_tpu_torch.models.nerf import NerfMLP
-from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+from nerf_simple_tpu_torch.render.renderer import render_rays_chunked
 from nerf_simple_tpu_torch.train import checkpoint as ckpt
 from nerf_simple_tpu_torch.train.metrics import img_mse, img_psnr, img_ssim
 from nerf_simple_tpu_torch.train.step import (
@@ -39,6 +40,7 @@ from nerf_simple_tpu_torch.train.step import (
     build_train_step,
     lr_schedule,
     make_train_state,
+    render_settings,
 )
 from nerf_simple_tpu_torch.utils.device import require_device
 from nerf_simple_tpu_torch.utils.tb import Logger, run_log_dir
@@ -114,6 +116,15 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
     data = load_blender(cfg.datapath, cfg.half_res, cfg.num_train_imgs, white_bkgd=cfg.white_bkgd)
     rd = RayDataset.from_blender(data, device)
     rays, pixels = rd.rays["train"], rd.pixels["train"]
+    if cfg.depth_loss_weight > 0:  # the metric depth rides as a 4th pixel channel (step.py splits it)
+        md = data.splits["train"].metric_depth
+        if md is None:
+            raise ValueError(
+                "depth_loss_weight > 0 but the train split has no metric depth sidecars "
+                f"({cfg.datapath}/depth/train/r_<i>.npy — data/synthetic.py "
+                "write_blender_scene(write_depth=True) emits them)"
+            )
+        pixels = torch.cat([pixels, torch.as_tensor(md.reshape(-1, 1), device=device)], dim=1)
 
     state = make_train_state(cfg, model, device)
     if cfg.resume:
@@ -122,10 +133,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
             ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} at step {state.step}")
     step_fn = build_train_step(cfg, model)
-    eval_settings = RenderSettings(
-        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
-        sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
-    )
+    eval_settings = dataclasses.replace(render_settings(cfg), sigma_noise=0.0)  # no training noise
     lr0, decay = lr_schedule(cfg)
 
     def render_and_log(split: str, ii: int, i: int) -> None:

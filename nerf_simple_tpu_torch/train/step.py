@@ -21,13 +21,21 @@ Cores:
   coarse net at Nc stratified samples with the weights output, which
   ``importance_ts`` turns into Nf samples; then the fine net at the
   sorted union of Nc + Nf. The loss is the sum of the two passes', and
-  each pass's gradients go back to its own net;
+  each pass's gradients go back to its own net. ``distortion_loss_weight
+  > 0`` runs in the kernel (its distortion rail): on the single net, and
+  on the hierarchical fine pass only;
 - ``backend="xla"``, or ``fused=False``: autograd over ``render_rays``
-  (``render_rays_hierarchical``) and the MSE (of both nets' colours). Under ``backend="pallas"`` that renders through
-  ``fused_mlp``, whose backward is the fused backward kernel. This is
-  the JAX package's path for configs its single kernel does not take;
-  the port's configs all fit the single kernel, so only a caller that
-  asks for it (``fused=False``) gets it, with the JAX warning.
+  (``render_rays_hierarchical``) and the loss JAX's ``loss_fn`` builds:
+  the MSE (of both nets' colours), ``depth_loss_weight`` times the masked
+  depth L2 (of both nets), ``distortion_loss_weight`` times the
+  distortion in s-space (of the fine net's weights at the union). Under
+  ``backend="pallas"`` that renders through ``fused_mlp``, whose backward
+  is the fused backward kernel. This is the JAX package's path for what
+  its single kernel does not take: ``sigma_noise > 0`` or
+  ``depth_loss_weight > 0`` choose it by default, with JAX's warning, and
+  ``fused=True`` with either raises. ``sigma_noise`` noises raw sigma in
+  the single-net render; the hierarchical render applies none, as in JAX
+  (which still leaves its fused kernel for it).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from nerf_simple_tpu_torch.config import TrainConfig
 from nerf_simple_tpu_torch.kernels.mlp import fused_train_step, pack_weights
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, NerfPair, init_nerf_params
 from nerf_simple_tpu_torch.ops.sampling import importance_ts, merge_sorted, stratified_ts_spaced
+from nerf_simple_tpu_torch.ops.volume import CompositeOut, distortion_loss, s_norm
 from nerf_simple_tpu_torch.render.renderer import (
     RenderSettings,
     derive_seed,
@@ -101,66 +110,142 @@ def build_x16(rays_b: torch.Tensor, ts: torch.Tensor, pix_b: torch.Tensor) -> to
     return x.reshape(16, B * N)
 
 
-def fused_loss(field: NerfField, rays_b, pix_b, ts, compute_dtype, model: NerfMLP, out_weights=False):
-    """One launch of the fused train step at the (B, N) ``ts``: (loss[, the
-    compositing weights (B, N) with ``out_weights``]); the gradients go
+def fused_loss(field: NerfField, rays_b, pix_b, ts, compute_dtype, model: NerfMLP, out_weights=False,
+               dist: tuple | None = None):
+    """One launch of the fused train step at the (B, N) ``ts`` (with the
+    distortion rail ``dist``, as ``fused_train_step`` takes it): (loss[,
+    the compositing weights (B, N) with ``out_weights``]); the gradients go
     back to ``field`` through the differentiable pack."""
     wts = pack_weights(field, differentiable=True)
     loss, dwts, *w = fused_train_step(wts, build_x16(rays_b, ts, pix_b), ts.shape[1], compute_dtype,
-                                      model, out_weights)
+                                      model, out_weights, dist)
     torch.autograd.backward(list(wts), list(dwts))
     return (loss, *w)
 
 
 def hierarchical_fused_loss(pair: NerfPair, rays_b, pix_b, ts_c, generator, N_fine: int, compute_dtype,
-                            model: NerfMLP, det_fine: bool = False) -> torch.Tensor:
+                            model: NerfMLP, det_fine: bool = False, dist: tuple | None = None) -> torch.Tensor:
     """The two fused passes of a hierarchical step (JAX train/step.py, the
     hierarchical fused core): the coarse net at the stratified ``ts_c``
     with the weights output; ``N_fine`` importance samples from them
     (drawn from ``generator``, or the quantiles with ``det_fine``); the
-    fine net at the sorted union. Returns loss_c + loss_f; each pass's
-    gradients go to its own net."""
+    fine net at the sorted union, with the distortion rail ``dist``.
+    Returns loss_c + loss_f; each pass's gradients go to its own net."""
     loss_c, w_c = fused_loss(pair.coarse, rays_b, pix_b, ts_c, compute_dtype, model, out_weights=True)
     ts_all = merge_sorted(ts_c, importance_ts(generator, ts_c, w_c, N_fine, det=det_fine))
-    return loss_c + fused_loss(pair.fine, rays_b, pix_b, ts_all, compute_dtype, model)[0]
+    return loss_c + fused_loss(pair.fine, rays_b, pix_b, ts_all, compute_dtype, model, dist=dist)[0]
+
+
+def _s_norm(cfg: TrainConfig, ts: torch.Tensor) -> torch.Tensor:
+    """Sample distances in the config's sampling parametrisation, s in
+    [0, 1] (JAX ``_s_norm``): where the distortion loss is measured."""
+    return s_norm(ts, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
+
+
+def _depth_term(out: CompositeOut, gt_d: torch.Tensor) -> torch.Tensor:
+    """Masked L2 on the expected depth (JAX ``_depth_term``): rays whose
+    gt depth is not finite or <= 0 (holes) add nothing; the mean is over
+    the valid rays. A hole's gt is replaced before the difference, so it
+    adds no NaN to the gradient either."""
+    valid = torch.isfinite(gt_d) & (gt_d > 0)
+    sq = torch.where(valid, (out.depth - torch.where(valid, gt_d, 0.0)) ** 2, 0.0)
+    return torch.sum(sq) / torch.clamp(torch.sum(valid), min=1)
+
+
+def kernel_refusal(cfg: TrainConfig) -> str | None:
+    """Why the fused train kernel does not take ``cfg`` (JAX's reasons), or
+    None: its backward is the MSE's (and the distortion rail's) alone."""
+    if cfg.sigma_noise != 0.0:
+        return "sigma_noise > 0"
+    if cfg.depth_loss_weight > 0:
+        return "depth_loss_weight > 0 (the fused kernel's backward is MSE-only)"
+    return None
+
+
+def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair, rays_b, pix_b, ts, generator,
+                  settings: RenderSettings, det_fine: bool = False, noise=None) -> torch.Tensor:
+    """The differentiable loss of one batch at the stratified ``ts``, as
+    JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
+    ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
+    ``pix_b``'s 4th channel), plus ``distortion_loss_weight`` times the
+    distortion of the weights at ``_s_norm`` of the ts. Hierarchical: the
+    standard NeRF loss (paper eqn. 6), both heads to gt, the depth term on
+    both, the distortion on the fine net's weights at the union (what
+    eval renders). ``generator`` draws the importance samples (the
+    quantiles with ``det_fine``) and the sigma noise (or ``noise``, a
+    (B, N) standard normal, is taken)."""
+    gt_d = None
+    if cfg.depth_loss_weight > 0:
+        pix_b, gt_d = pix_b[:, :3], pix_b[:, 3]
+
+    def mse(rgb):
+        return torch.mean((rgb - pix_b) ** 2)
+
+    if cfg.hierarchical:
+        coarse, fine, (_, ts_all) = render_rays_hierarchical(field.coarse, field.fine, rays_b, generator, settings,
+                                                             det_fine=det_fine, ts_coarse=ts, return_ts=True)
+        loss = mse(coarse.rgb) + mse(fine.rgb)
+        if gt_d is not None:
+            loss = loss + cfg.depth_loss_weight * (_depth_term(coarse, gt_d) + _depth_term(fine, gt_d))
+        if cfg.distortion_loss_weight > 0:
+            loss = loss + cfg.distortion_loss_weight * distortion_loss(fine.weights, _s_norm(cfg, ts_all))
+        return loss
+    out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise)
+    loss = mse(out.rgb)
+    if gt_d is not None:
+        loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
+    if cfg.distortion_loss_weight > 0:
+        loss = loss + cfg.distortion_loss_weight * distortion_loss(out.weights, _s_norm(cfg, ts))
+    return loss
+
+
+def render_settings(cfg: TrainConfig) -> RenderSettings:
+    """The training render's settings (the sigma noise with them)."""
+    return RenderSettings(
+        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
+        sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
+        sigma_noise=cfg.sigma_noise,
+    )
 
 
 def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None):
     """``step_fn(state, rays, pixels) -> loss``: one iteration on the
-    resident ray set, the loss left on the device (no sync)."""
+    resident ray set, the loss left on the device (no sync). With
+    ``depth_loss_weight > 0``, ``pixels`` carries the metric depth as a
+    4th channel (train/loop.py packs it)."""
+    refusal = kernel_refusal(cfg)
     if fused is None:
-        fused = cfg.backend == "pallas"
+        fused = cfg.backend == "pallas" and refusal is None
     if fused and cfg.backend != "pallas":
         raise ValueError("the fused train step is the pallas backend's")
+    if fused and refusal:
+        raise ValueError(f"the fused train kernel does not take {refusal}; build the step with "
+                         "fused=None or fused=False (autograd through fused_mlp)")
     if cfg.backend == "pallas" and not fused:
         warnings.warn(
+            f"backend='pallas' requested but the fused train kernel is ineligible ({refusal}); "
+            "falling back to the autodiff path (through fused_mlp) for this step" if refusal else
             "backend='pallas' requested but the fused train kernel is not used "
             "(fused=False); running autograd through fused_mlp instead",
             stacklevel=2,
         )
-    settings = RenderSettings(
-        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
-        sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
-    )
+    settings = render_settings(cfg)
     N_strat = cfg.Nc if cfg.hierarchical else cfg.Nf  # the stratified samples a ray
     lr0, decay = lr_schedule(cfg)
+    dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
+            if cfg.distortion_loss_weight > 0 else None)
 
     def core(field, rays_b, pix_b, ts, g):
         """The loss of one batch at the stratified ``ts``, gradients left
-        in the fields; ``g`` draws the importance samples."""
+        in the fields; ``g`` draws the importance samples (and the sigma
+        noise)."""
         if fused and cfg.hierarchical:
-            return hierarchical_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model)
+            return hierarchical_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model,
+                                           dist=dist)
         if fused:
-            return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model)[0]
+            return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model, dist=dist)[0]
 
-        def mse(rgb):  # raw-colour MSE, train.py:52
-            return torch.mean((rgb - pix_b) ** 2)
-
-        if cfg.hierarchical:  # the standard NeRF loss (paper eqn. 6): both heads to gt
-            coarse, fine = render_rays_hierarchical(field.coarse, field.fine, rays_b, g, settings, ts_coarse=ts)
-            loss = mse(coarse.rgb) + mse(fine.rgb)
-        else:
-            loss = mse(render_rays(field, rays_b, None, settings, ts=ts).rgb)
+        loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings)
         loss.backward()
         return loss.detach()
 

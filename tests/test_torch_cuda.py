@@ -1,5 +1,5 @@
 """The CUDA kernels (fused MLP forward, backward, train step with and
-without its weights output, and render;
+without its weights output and its distortion rail, and render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -178,6 +178,53 @@ def test_train_step_weights_output_matches_plain(dev, model, B, N, dtype):
     loss0, got0 = mlp.fused_train_step(wts, x16, N, dtype, model)  # w_out null
     assert loss0.item() == loss.item()
     assert all(torch.equal(a, b) for a, b in zip(got, got0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("disparity", [False, True], ids=["linear", "disparity"])
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 64), (NerfMLP(), 41, 128),
+                                         (NerfMLP(Lp=4, Ld=2, H=32), 13, 256), (NerfMLP(Lp=3, Ld=1, H=48), 3, 5)],
+                         ids=["small-N64", "flagship-N128", "small-N256", "odd-widths-short-rays"])
+def test_train_step_distortion_rail_matches_plain(dev, model, B, N, disparity, dtype):
+    """B1 with the distortion rail (``dist``) at ragged ray counts and 1 to
+    8 samples a lane of the compositing warp, in linear and disparity
+    space: loss and gradients within B1's bounds of the plain version; the
+    rail adds to the loss; deterministic."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(B, N, dev)
+    dist = (0.05, 2.0, 6.0, disparity)
+    before = (mlp.fused_train_step.launches, mlp.fused_train_step.dist_launches)
+    loss, got = mlp.fused_train_step(wts, x16, N, dtype, model, dist=dist)
+    torch.cuda.synchronize()
+    assert (mlp.fused_train_step.launches, mlp.fused_train_step.dist_launches) == (before[0] + 1, before[1] + 1)
+    loss_p, want = mlp.fused_train_step_plain(wts, x16, N, dtype, model, dist=dist)
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[dtype]
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    assert loss.item() > mlp.fused_train_step(wts, x16, N, dtype, model)[0].item()
+    loss2, again = mlp.fused_train_step(wts, x16, N, dtype, model, dist=dist)
+    assert loss2.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_step_without_the_rail_is_unchanged(dev, dtype):
+    """``dist=None`` is the launch without the argument, and the rail at
+    weight 0 adds exactly nothing: loss and gradients bit-equal; only
+    launches with ``dist`` count in ``dist_launches``; a bad rail raises."""
+    model = NerfMLP()
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(40, 128, dev)
+    before = mlp.fused_train_step.dist_launches
+    loss, got = mlp.fused_train_step(wts, x16, 128, dtype, model)
+    runs = [mlp.fused_train_step(wts, x16, 128, dtype, model, dist=None)]
+    assert mlp.fused_train_step.dist_launches == before
+    runs += [mlp.fused_train_step(wts, x16, 128, dtype, model, dist=(0.0, 2.0, 6.0, d)) for d in (False, True)]
+    assert mlp.fused_train_step.dist_launches == before + 2
+    for loss0, got0 in runs:
+        assert loss0.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(got, got0))
+    for bad in ((0.01, 6.0, 2.0, False), (0.01, 0.0, 6.0, True), (-0.01, 2.0, 6.0, False)):
+        with pytest.raises(ValueError, match="dist"):
+            mlp.fused_train_step(wts, x16, 128, dtype, model, dist=bad)
 
 
 # B1 and B2 past 2^31 plane elements, against plain: per tensor, max abs

@@ -125,10 +125,12 @@ def test_lego_yaml_loads_and_unported_keys_raise():
     assert (cfg.batch_size, cfg.Nf, cfg.compute_dtype, cfg.steps_per_call) == (4096, 128, "bf16", 100)
     assert cfg.val_idxs == (0, 1) and cfg.render_dtype == torch.bfloat16
     for key, value in (("proposal", True), ("mip", True), ("num_data_shards", 4),
-                       ("sigma_noise", 0.1), ("model_family", "hashgrid"), ("appearance_dim", 4),
-                       ("distortion_loss_weight", 0.01), ("contract", True), ("occupancy", True)):
+                       ("model_family", "hashgrid"), ("appearance_dim", 4),
+                       ("contract", True), ("occupancy", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.train_config_from_dict({"datapath": "d", key: value})
+    for key, value in (("sigma_noise", 0.1), ("distortion_loss_weight", 0.01)):  # ported: they load
+        assert getattr(config.train_config_from_dict({"datapath": "d", key: value}), key) == value
     with pytest.warns(UserWarning, match="heirarchical"):
         config.train_config_from_dict({"datapath": "d", "heirarchical": True})
     with pytest.raises(ValueError, match="backend"):
