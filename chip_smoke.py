@@ -94,7 +94,28 @@ NerfMLP(Lp=10, Ld=4, H=256):
    lego_hierarchical.yaml's keys + ``distortion_loss_weight`` (the fine
    pass's B1 with the rail); each: the loss halves, ms a step, rays/s,
    the profile;
-11. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+11. proposal sampling (``configs/lego_proposal.yaml``: a ProposalMLP(Lp=6,
+   D=4, H=64) at Np = 64 probes places the main field's Nf = 128
+   samples): (a) the fused proposal core (``train/step.py::
+   proposal_fused_loss``) with the CUDA B1 against the same core with
+   B1's plain version, one batch of 4096 rays, the same probes and
+   samples, f32 and bf16, the rail off and at lambda = 0.01: loss, both
+   nets' gradients and the main field's weights to B1's bounds, one B1
+   launch with the weights output and the rail together; B1 at that
+   batch with both, the weights alone and neither, in turns; the core's
+   other pieces alone (the proposal MLP, the sampling, the interlevel
+   loss); (b) trains the config's keys + ``distortion_loss_weight: 0.01``
+   through ``train()`` (bf16, pallas), 300 + 100 resumed steps: one B1
+   launch a step with the weights and the rail, the loss halves, val PSNR
+   rises, the interlevel loss of 4096 held-out val rays falls from step
+   50 to step 300; the step's wall, host issue, kernel time by pass and
+   idle share, the allocator's peak; f32 fused and autograd steps from
+   one state under JAX's rule; (c) ``evaluate.test`` with its
+   ``test_params`` (Np = 64, N_samples = 128): PSNR, s a still, ms a
+   proposal 400x400 frame; (d) ``python -m nerf_simple_tpu_torch.serve
+   --proposal-samples 64`` in a process of its own serves one frame over
+   HTTP, which matches ``render_rays_chunked`` to 1 level;
+12. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -178,6 +199,13 @@ HIER_LOSS_RTOL, BIN_FLIP_SHARE = 1e-4, 1e-3
 # JAX package's 360 recipe); the original NeRF's sigma noise std (1.0); a
 # depth weight of the JAX package's tests; steps of each training run.
 DIST_LAMBDA, SIGMA_NOISE, DEPTH_WEIGHT, REG_ITERS = 0.01, 1.0, 0.1, 300
+# configs/lego_proposal.yaml: proposal probes a ray (Nf = N_SAMPLES main
+# samples). Its f32 fused and autograd steps from one state: JAX's rule
+# (tests/test_proposal.py, test_proposal_fused_matches_xla): loss rtol
+# 1e-4, every parameter within atol 5e-5 + rtol 2e-3. Both paths place
+# the same samples (one proposal net, one generator), so no sample flips.
+NP_PROP = 64
+PROP_LOSS_RTOL, PROP_PARAM_ATOL, PROP_PARAM_RTOL = 1e-4, 5e-5, 2e-3
 # composite_grad's bound, with or without the rail: the bytes it must
 # move, a row (out8's rgb and sigma and the ts read, 20 B; g's four rows
 # written, 16 B) and a ray (the gt colour read, 12 B; its loss written,
@@ -788,7 +816,12 @@ STEP_GROUPS = (("sampling", ("searchsorted", "sort", "Sort", "scan", "distributi
                ("adam", ("multi_tensor", "adam", "Adam")))
 
 
-def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False) -> dict:
+# With split_proposal: the proposal MLP's matmuls (cuBLAS kernels), by name
+PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
+
+
+def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
+                 split_proposal: bool = False) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
@@ -797,7 +830,14 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     ``split_b1`` (a hierarchical step: two B1 launches), the kernels are
     taken in time order and each B1 launch's, from its forward weight
     image to its sums' reduce, go to "coarse B1" and "fine B1" in turns;
-    the others to STEP_GROUPS or "other"."""
+    the others to STEP_GROUPS or "other". With ``split_proposal`` (a
+    proposal step: one B1 launch), the kernels in time order go to "B1"
+    (its launch, as above), "adam" (by name), "proposal matmuls" (cuBLAS
+    kernels, by name: the proposal MLP's forward and backward products),
+    and the rest to "before B1" (probes, the proposal MLP's encoding and
+    activations, its weights, the importance samples, x16, the pack) or
+    "after B1" (the pack's backward, the interlevel loss, the proposal
+    MLP's backward passes) as they fall in the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -815,10 +855,24 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)),  # a user annotation spans kernels
                      key=lambda e: e.time_range.start)
-    b1, n_b1 = None, 0
+    b1, n_b1, after_b1 = None, 0, False
     for e in kernels:
         group = next((g for g, key in groups if key in e.name), "other")
-        if split_b1:
+        if split_proposal:
+            if group == "weight_image" and b1 is None:
+                b1 = "B1"
+            adam = any(k in e.name for k in STEP_GROUPS[1][1])
+            if b1:
+                group = b1
+                if "reduce_kernel" in e.name and "native" not in e.name:  # the sums' reduce, B1's last
+                    b1, after_b1 = None, True
+            elif adam:
+                group, after_b1 = "adam", False
+            elif PROP_MATMUL.search(e.name):
+                group = "proposal matmuls"
+            else:
+                group = "after B1" if after_b1 else "before B1"
+        elif split_b1:
             if group == "weight_image" and b1 is None:  # the first kernel of a B1 launch
                 b1, n_b1 = ("coarse B1", "fine B1")[n_b1 % 2], n_b1 + 1
             last = b1 is not None and group == "sums_reduce"  # the last one
@@ -1559,6 +1613,432 @@ def phase_reg_train(dev, scene, work, mlp):
     return res
 
 
+def prop_pair(model, dev):
+    """The proposal run's nets at init, as ``make_train_state`` seeds them:
+    the proposal net from ``derive_seed(SEED, 0)``, the main field from
+    ``(SEED, 1)``."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.models.proposal import (
+        ProposalField,
+        ProposalMLP,
+        ProposalPair,
+        init_proposal_params,
+    )
+    from nerf_simple_tpu_torch.render.renderer import derive_seed
+
+    pm = ProposalMLP()
+    return ProposalPair(ProposalField.from_jax_params(init_proposal_params(derive_seed(SEED, 0), pm), dev, pm),
+                        NerfField.from_jax_params(init_nerf_params(derive_seed(SEED, 1), model), dev, model))
+
+
+@contextlib.contextmanager
+def plain_b1(mlp):
+    """The train step's B1 swapped for its plain version (no launch), for
+    the comparison of a whole core with and without the kernel."""
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    def plain(wts, x16, N, compute_dtype, model, out_weights=False, dist=None):
+        with torch.no_grad():
+            return mlp.fused_train_step_plain(mlp._cast_weights(wts, compute_dtype), x16, N, compute_dtype, model,
+                                              out_weights, dist)
+
+    kernel, step_mod.fused_train_step = step_mod.fused_train_step, plain
+    try:
+        yield
+    finally:
+        step_mod.fused_train_step = kernel
+
+
+def max_rel(got: dict, want: dict) -> float:
+    """Max over tensors of max |got - want| over max |want|."""
+    return max(((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() for n, w in want.items())
+
+
+def phase_prop_kernels(dev, scene, model, mlp):
+    """The fused proposal core (``train/step.py::proposal_fused_loss``) with
+    the CUDA B1 against the same core with B1's plain version: one batch of
+    4096 rays of the scene, NP_PROP stratified probes, N_SAMPLES
+    importance samples of the initial proposal net's bf16 weights, the
+    same probes and samples handed to both; nets from numpy seeds as the
+    run seeds them; f32 and bf16, the rail off and at DIST_LAMBDA. Loss,
+    both nets' gradients and the main field's weights to B1's bounds; one
+    B1 launch, with the weights output and the rail. Then B1 at those
+    samples (524,288 rows) with the weights output and the rail, with the
+    weights output alone and with neither, in turns; and the core's other
+    pieces alone (bf16): the proposal MLP's forward and backward, the
+    sampling, the interlevel loss and its backward."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights
+    from nerf_simple_tpu_torch.ops.sampling import importance_ts, stratified_ts
+    from nerf_simple_tpu_torch.ops.volume import interlevel_loss
+    from nerf_simple_tpu_torch.train.step import build_x16, proposal_fused_loss
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    del rd
+    pair0 = prop_pair(model, dev)
+    ts_p = stratified_ts(g, BATCH, NP_PROP, 2.0, 6.0, dev)
+    with torch.no_grad():
+        w_prop = proposal_weights(pair0.prop, rays_b, ts_p, torch.bfloat16)
+        ts_f = importance_ts(g, ts_p, w_prop, N_SAMPLES)
+    params = pair0.to_jax_params()
+    stats = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        for dist in (None, (DIST_LAMBDA, 2.0, 6.0, False)):
+            runs = {}
+            for which in ("kernel", "plain"):
+                pair = ProposalPair.from_jax_params(params, dev)
+                before = (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches)
+                with plain_b1(mlp) if which == "plain" else contextlib.nullcontext():
+                    loss, w_f = proposal_fused_loss(pair, rays_b, pix_b, ts_p, None, N_SAMPLES, dt, model, 1.0,
+                                                    dist=dist, ts_f=ts_f)
+                torch.cuda.synchronize()
+                launched = (mlp.fused_train_step.launches - before[0],
+                            mlp.fused_train_step.weights_dist_launches - before[1])
+                runs[which] = (loss.item(), w_f, {k: {n: p.grad for n, p in getattr(pair, k).named_parameters()}
+                                                  for k in ("prop", "fine")}, launched)
+            (loss, w, grads, launched), (loss_p, w_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+            st = dict(w_err=(w - w_p).abs().max().item(), loss_err=abs(loss / loss_p - 1),
+                      fine_rel=max_rel(grads["fine"], grads_p["fine"]),
+                      prop_rel=max_rel(grads["prop"], grads_p["prop"]), launched=launched)
+            tag = f"{name} {'rail' if dist else 'no rail'}"
+            print(f"proposal core, B1 vs plain, {tag} at {BATCH * N_SAMPLES} rows (Np={NP_PROP}): weights max abs err "
+                  f"{st['w_err']:.3e} (tol {TOL[dt]:.0e}), loss rel err {st['loss_err']:.2e} (tol "
+                  f"{LOSS_TOL[dt]:.0e}), main field grads {st['fine_rel']:.3e} of max, proposal net grads "
+                  f"{st['prop_rel']:.3e} of max (tol {GRAD_TOL['B1', dt]:.0e}); launches (B1, with weights and "
+                  f"rail) {launched}, plain {launched_p}", flush=True)
+            check(launched == (1, int(dist is not None)) and launched_p == (0, 0),
+                  f"the proposal core launched B1 once ({tag}), with the weights and the rail together")
+            check(st["w_err"] <= TOL[dt] and st["loss_err"] <= LOSS_TOL[dt]
+                  and max(st["fine_rel"], st["prop_rel"]) <= GRAD_TOL["B1", dt],
+                  f"the proposal core with B1 matches plain ({tag})")
+            stats[f"{name}_{'dist' if dist else 'no_dist'}"] = st
+            del runs, grads, grads_p
+            torch.cuda.empty_cache()
+    # B1 at the proposal batch with both outputs, the weights alone, neither: in turns
+    x16 = build_x16(rays_b, ts_f, pix_b)
+    dist = (DIST_LAMBDA, 2.0, 6.0, False)
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            wts = mlp._cast_weights(mlp.pack_weights(pair0.fine), dt)
+            fns = {"weights_and_rail": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model, True, dist),
+                   "weights": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model, True),
+                   "neither": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model)}
+            turns = walls_in_turns(fns, steps=10 if dt == torch.bfloat16 else 3)
+            stats[f"turns_{name}"] = turns
+            stats[f"plain_ms_{name}"] = cuda_ms(lambda: mlp.fused_train_step_plain(
+                wts, x16, N_SAMPLES, dt, model, True, dist), reps=3)
+            print(f"B1 at the proposal batch, {name}, {BATCH * N_SAMPLES} rows (runs of "
+                  f"{10 if dt == torch.bfloat16 else 3} calls, median of 5, in turns): " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in turns.items()) + f"; plain (both) {stats[f'plain_ms_{name}']:.3f} ms",
+                  flush=True)
+    # the core's other pieces alone, bf16: kernel ms a call (profiled) and wall ms a call (runs of 20)
+    cot = torch.from_numpy(np.random.default_rng(SEED).normal(size=(BATCH, NP_PROP)).astype(np.float32)).to(dev)
+    wp = w_prop.detach().clone().requires_grad_(True)
+
+    def prop_mlp():
+        proposal_weights(pair0.prop, rays_b, ts_p, torch.bfloat16).backward(cot)
+
+    def sampling():
+        return importance_ts(g, stratified_ts(g, BATCH, NP_PROP, 2.0, 6.0, dev), w_prop, N_SAMPLES)
+
+    def interlevel():
+        interlevel_loss(w, ts_f, wp, ts_p).backward()
+
+    pieces = {}
+    for k, fn in (("proposal_mlp", prop_mlp), ("sampling", sampling), ("interlevel", interlevel)):
+        pieces[k] = dict(kernel_ms=sum(profile_step(fn).values()), wall_ms=step_walls(fn)["ms"])
+    stats["pieces"] = pieces
+    print("proposal pieces alone, bf16, a call (kernel ms profiled / wall ms of runs of 20): " + "; ".join(
+        f"{k} {v['kernel_ms']:.3f} / {v['wall_ms']:.3f}" for k, v in pieces.items())
+        + " (the proposal MLP: encoding, 5 products and relus at 262,144 rows, its weights, their backward)",
+        flush=True)
+    del x16, cot, wp
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_prop_train(dev, scene, work, mlp):
+    """Train configs/lego_proposal.yaml's keys + distortion_loss_weight
+    DIST_LAMBDA through train() (bf16, pallas), 300 steps + 100 resumed:
+    one B1 launch a step with the weights output and the rail together;
+    the loss halves, val PSNR rises, the interlevel loss of a held-out
+    batch (4096 val rays, deterministic probes and samples) at step 300
+    below its value at step 50. The step's wall, host issue and profile
+    by pass, the allocator's peak; then f32 steps from one state through
+    the fused proposal core and the autograd path under JAX's rule."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.models.proposal import ProposalPair
+    from nerf_simple_tpu_torch.ops.volume import interlevel_loss
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_proposal
+    from nerf_simple_tpu_torch.train.checkpoint import checkpoint_params
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    iters, more = 300, 100
+    cfg = load_yaml("configs/lego_proposal.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_prop"),
+               num_iters=iters, ckpt_loss=1, ckpt_images=150, ckpt_model=150, steps_per_call=50,
+               distortion_loss_weight=DIST_LAMBDA)
+    check(cfg["proposal"] and (cfg["Np"], cfg["Nf"]) == (NP_PROP, N_SAMPLES) and cfg["backend"] == "pallas"
+          and cfg["compute_dtype"] == "bf16", "the proposal config's keys")
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    log = io.StringIO()
+    b1 = mlp.fused_train_step
+    b1.launches = b1.weights_launches = b1.dist_launches = b1.weights_dist_launches = 0
+    mlp.fused_mlp_forward.launches = 0
+    mlp.wgrad_sums_launches(reset=True)
+    mlp.bwd_tile_launches(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fused_train_step=b1.launches, weights_output=b1.weights_launches, dist_rail=b1.dist_launches,
+                    weights_and_rail=b1.weights_dist_launches, fused_mlp_forward=mlp.fused_mlp_forward.launches,
+                    wgrad_sums=mlp.wgrad_sums_launches(), bwd_tile=mlp.bwd_tile_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg.update(resume=True, num_iters=iters + more)
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    resumed = b1.weights_dist_launches - launches["weights_and_rail"]
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_prop_log.txt"), "w") as fh:
+        fh.write(text)
+    for line in text.splitlines():
+        if "resumed from" in line or "final checkpoint" in line or "Val image" in line:
+            print("train proposal:", line, flush=True)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    psnr = scalars(cfg["log_dir"], "Loss/Val_Img_PSNR_0")
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[iters - 50 : iters]))
+    exp = os.path.join(work, "models", cfg["exp_name"])
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    held, held_pix = sample_ray_batch(g, rd.rays["val"], rd.pixels["val"], BATCH)
+    s_eval = RenderSettings(N=N_SAMPLES, N_prop=NP_PROP, backend="pallas", compute_dtype=torch.bfloat16)
+
+    def held_out(field):
+        """(interlevel, mse) of the held-out batch, probes and samples deterministic."""
+        with torch.no_grad():
+            out, (tp, wp, tf) = render_rays_proposal(field, held, None, s_eval, det_fine=True, return_aux=True)
+        return float(interlevel_loss(out.weights, tf, wp, tp)), float(torch.mean((out.rgb - held_pix) ** 2))
+
+    il = {"init": held_out(make_train_state(tcfg, model, dev).field)}
+    for k in (50, iters):
+        il[k] = held_out(ProposalPair.from_jax_params(checkpoint_params(os.path.join(exp, f"ckpt_{k}.pth")), dev))
+    print(f"train proposal: {iters} steps in {train_s:.1f} s with builds and renders; launches {launches}; mean "
+          f"loss (MSE + interlevel + distortion) of the first 50 steps {first:.5f}, of steps {iters - 50}-{iters} "
+          f"{last:.5f}; val PSNR(0) {', '.join(f'{p:.2f}' for p in psnr)} dB; held-out batch (interlevel, MSE) "
+          + ", ".join(f"step {k}: ({v[0]:.5f}, {v[1]:.5f})" for k, v in il.items())
+          + f"; peak device memory {peak_gb:.2f} GB", flush=True)
+    check(launches["fused_train_step"] == iters and launches["weights_and_rail"] == iters,
+          "one B1 launch a proposal step, with the weights output and the rail together")
+    check(launches["wgrad_sums"] == iters and launches["bwd_tile"] == iters,
+          "the sums and the backward tile kernel once a step")
+    check(launches["fused_mlp_forward"] > 0, "val renders went through the forward kernel")
+    check(all(np.isfinite(losses)) and len(losses) == iters + more, "every loss logged and finite")
+    check(last <= 0.5 * first, "the proposal loss at least halved")
+    check(psnr[-1] > psnr[0], "proposal val PSNR rose")
+    check(il[iters][0] < il[50][0], "the held-out interlevel loss fell from step 50 to step 300")
+    check("resumed from" in text and resumed == more and state.step == iters + more, "resume added the steps")
+    fine = load_params(os.path.join(exp, f"params_{iters + more}.pth"))
+    check(np.array_equal(fine["skip"]["w"], state.field.fine.to_jax_params()["skip"]["w"]),
+          "the .pth export is the main field")
+
+    step_fn = build_train_step(tcfg, model)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+
+    def step():
+        return step_fn(state, rays, pixels)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    walls = step_walls(step)
+    reserved1 = torch.cuda.memory_reserved()
+    step_ms = walls["ms"]
+    others, host = {}, {}
+    prof = profile_step(step, others, host, split_proposal=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / step_ms if prof else None
+    print(f"train step proposal bf16 steady state: {step_ms:.3f} ms a step, {BATCH / step_ms * 1e3:,.0f} rays/s "
+          f"(CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host "
+          f"issues a step in {walls['host_ms']:.3f} ms; allocator reserved {reserved0 / 1e9:.3f} GB before 120 "
+          f"steps, {reserved1 / 1e9:.3f} GB after", flush=True)
+    print("train step proposal bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {step_ms:.3f} ms, idle share {idle:.3f}"
+        if prof else "not measured (the profiler saw no device activity)"), flush=True)
+    print(f"train step proposal bf16 profile, host self time a step: torch ops {sum(host.values()):.3f} ms "
+          "(profiled); " + "; ".join(f"{n} {v:.3f}" for n, v in sorted(host.items(), key=lambda kv: -kv[1])[:10]),
+          flush=True)
+    check(reserved1 <= reserved0 + (256 << 20), "the allocator's footprint does not grow step after step")
+    del state
+    torch.cuda.empty_cache()
+
+    # f32: the fused proposal core against the autograd path, one step from one state
+    cfg32 = dataclasses.replace(tcfg, compute_dtype="f32")
+    runs = {}
+    mlp.fused_mlp_backward.launches = 0
+    for name, fused in (("fused", True), ("autograd", False)):
+        st = make_train_state(cfg32, model, dev)
+        with warnings.catch_warnings():  # the autograd path under pallas warns, as JAX does
+            warnings.simplefilter("ignore")
+            fn = build_train_step(cfg32, model, fused=fused)
+        runs[name] = float(fn(st, rays, pixels)), st.field.to_jax_params()
+        del st
+        torch.cuda.empty_cache()
+    b2_launches = mlp.fused_mlp_backward.launches
+    (l_f, p_f), (l_a, p_a) = runs["fused"], runs["autograd"]
+    bad = total = 0
+    for k in ("prop", "fine"):
+        for layer in p_a[k]:
+            for n in ("w", "b"):
+                a, b = p_f[k][layer][n], p_a[k][layer][n]
+                bad += int((np.abs(a - b) > PROP_PARAM_ATOL + PROP_PARAM_RTOL * np.abs(b)).sum())
+                total += a.size
+    loss_rel = abs(l_f / l_a - 1)
+    print(f"f32 proposal step from one state: fused core loss {l_f:.6f}, autograd (forward kernel + B2) {l_a:.6f}, "
+          f"rel diff {loss_rel:.2e} (tol {PROP_LOSS_RTOL:.0e}); parameters past atol {PROP_PARAM_ATOL:.0e} + rtol "
+          f"{PROP_PARAM_RTOL:.0e}: {bad}/{total} (tol 0); B2 launches {b2_launches}", flush=True)
+    check(loss_rel <= PROP_LOSS_RTOL and bad == 0, "fused and autograd proposal steps agree under JAX's rule")
+    check(b2_launches == 1, "the autograd path went through B2 once")
+    return dict(launches=launches, step_ms=step_ms, host_ms=walls["host_ms"], profile=prof, others=others,
+                idle=idle, peak_gb=peak_gb, reserved_gb=(reserved0 / 1e9, reserved1 / 1e9), loss_rel_f32=loss_rel,
+                params_past_rule=bad, psnr=psnr, held_out=il, first=first, last=last, exp=exp)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_prop_eval(dev, scene, work, mlp, exp):
+    """evaluate.test with lego_proposal.yaml's test_params (Np = 64,
+    N_samples = 128, chunks of 16,384 rays) in bf16 on the pallas backend:
+    stills 0 and 1; ms a proposal 400x400 frame; then
+    ``python -m nerf_simple_tpu_torch.serve --proposal-samples 64`` in a
+    process of its own serves one frame over HTTP, which must match
+    ``render_rays_chunked`` to 1 level."""
+    import sys
+
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models.proposal import ProposalPair
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.serve import decode_png
+
+    tp = load_yaml("configs/lego_proposal.yaml")["test_params"]
+    check((tp["Np"], tp["N_samples"]) == (NP_PROP, N_SAMPLES), "the proposal test_params")
+    tp.update(loadpath=exp, datapath=scene, savepath=os.path.join(work, "results_prop"), backend="pallas",
+              compute_dtype="bf16", im_idxs=[0, 1])
+    log = io.StringIO()
+    mlp.fused_mlp_forward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test(tp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = mlp.fused_mlp_forward.launches
+    text = log.getvalue()
+    for line in text.splitlines():
+        print("eval proposal:", line, flush=True)
+    psnr = {int(i): float(p) for i, p in re.findall(r"im (\d+): mse=\S+ psnr=(\S+)", text)}
+    n_chunks = -(-H * W // CHUNK)
+    check(sorted(psnr) == [0, 1] and min(psnr.values()) >= 20.0, "proposal test PSNR >= 20 dB")
+    check(launches == 2 * n_chunks, "each still's chunks went through the forward kernel once")
+
+    pair = ProposalPair.from_jax_params(load_params(exp, keep_hierarchy=True), dev)
+    s = RenderSettings(N=N_SAMPLES, N_prop=NP_PROP, backend="pallas", compute_dtype=torch.bfloat16)
+    focal = scene_focal(scene)
+
+    def frame(phi):
+        pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, phi)[None], dtype=torch.float32, device=dev)
+        return render_rays_chunked(pair, rays_for_poses(pose, H, W, focal), 0, s, chunk=tp["batch_size"])
+
+    times = []
+    mlp.fused_mlp_forward.launches = 0
+    for _ in range(4):  # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, disp = frame(0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    frame_launches = mlp.fused_mlp_forward.launches // 4
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(disp).all()), "proposal frame finite")
+    check(frame_launches == n_chunks, "a proposal frame's chunks went through the forward kernel")
+    frame_ms = float(np.median(times[1:]))
+
+    # the CLI server, in a process of its own, with the proposal samples
+    port = free_port()
+    served_log = open(os.path.join(OUT, "serve_prop_log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath", os.path.join(exp, "params_400.npz"),
+         "--height", str(H), "--width", str(W), "--focal", repr(float(focal)), "--backend", "pallas", "--dtype", "bf16",
+         "--samples", str(N_SAMPLES), "--proposal-samples", str(NP_PROP), "--port", str(port)],
+        stdout=served_log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                health = json.loads(get(url + "/health")[0])
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    with open(served_log.name) as fh:
+                        print(fh.read()[-3000:], flush=True)
+                    check(False, "the proposal server started")
+                time.sleep(1.0)
+        t0 = time.perf_counter()
+        data, ctype = get(f"{url}/render?r=4&theta=-30&phi=30")
+        http_ms = (time.perf_counter() - t0) * 1e3
+        health_after = json.loads(get(url + "/health")[0])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        served_log.close()
+    check(health["proposal"] is True and ctype == "image/png", "/health of the proposal server")
+    served = decode_png(data)
+    want = (frame(30.0)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
+    u8_err = int(np.abs(served.astype(int) - want.astype(int)).max())
+    served_launches = health_after["kernel_launches"] - health["kernel_launches"]
+    res = dict(psnr=psnr, s_per_still=secs / 2, frame_ms=frame_ms, launches=launches, frame_launches=frame_launches,
+               served_u8_err=u8_err, served_launches=served_launches, http_ms=http_ms)
+    print(f"eval proposal: test PSNR {psnr[0]:.2f} / {psnr[1]:.2f} dB; {res['s_per_still']:.2f} s a still "
+          f"(evaluate.test wall, loading included); a {H}x{W} frame at Np={NP_PROP} + N={N_SAMPLES}, bf16: "
+          f"{frame_ms:.1f} ms (median of 3, runs {', '.join(f'{t:.1f}' for t in times[1:])}); forward kernel "
+          f"launches {launches} (stills), {frame_launches} a frame; served over HTTP by the CLI with "
+          f"--proposal-samples {NP_PROP}: {len(data)} B PNG in {http_ms:.1f} ms, {served_launches} forward launches, "
+          f"max diff from render_rays_chunked {u8_err} levels", flush=True)
+    check(u8_err <= 1, "the served proposal frame matches render_rays_chunked to 1 level")
+    check(served_launches == n_chunks, "the served frame's chunks went through the forward kernel")
+    return res
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -1688,7 +2168,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         rt = phase_reg_train(dev, scene, work, mlp)
         walls["regularisers"] = time.perf_counter() - t_phase
-    # 11. the padding probe
+        # 11. proposal sampling: the core with B1 vs plain, training, eval, serving
+        t_phase = time.perf_counter()
+        pk = phase_prop_kernels(dev, scene, model, mlp)
+        torch.cuda.empty_cache()
+        pt = phase_prop_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        pe = phase_prop_eval(dev, scene, work, mlp, pt["exp"])
+        walls["proposal"] = time.perf_counter() - t_phase
+    # 12. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -1763,6 +2251,18 @@ def main() -> None:
             **{f"ms_no_rail_{sp}_{dt}": dk[f"{pas}_{sp}_{dt}"]["composite_ms_no_rail"]
                for sp in ("linear", "disparity") for dt in ("f32", "bf16")}}
     dist["bound_ms"], dist["bound_by"] = dist["composite_train"]["bound_ms"], dist["composite_train"]["bound_by"]
+    proposal = {  # B1 with the weights output and the rail in one launch: the proposal step's
+        "weights_dist_launches": pt["launches"]["weights_and_rail"], "launches": pt["launches"],
+        "core_vs_plain": {k: v for k, v in pk.items() if k.startswith(("f32", "bf16"))},
+        "b1_turns_ms": {"f32": pk["turns_f32"], "bf16": pk["turns_bf16"]},
+        "b1_plain_ms": {"f32": pk["plain_ms_f32"], "bf16": pk["plain_ms_bf16"]},
+        "rows": BATCH * N_SAMPLES, **bounds(2 * train_macs * BATCH * N_SAMPLES, 68 * BATCH * N_SAMPLES + grad_bytes),
+        "pieces_bf16": pk["pieces"], "step_ms_bf16": pt["step_ms"], "step_host_ms_bf16": pt["host_ms"],
+        "step_profile_ms_bf16": pt["profile"], "idle_share": pt["idle"], "peak_gb": pt["peak_gb"],
+        "held_out_interlevel_mse": {str(k): v for k, v in pt["held_out"].items()},
+        "f32_loss_rel": pt["loss_rel_f32"], "f32_params_past_rule": pt["params_past_rule"],
+        "eval_psnr": pe["psnr"], "eval_s_per_still": pe["s_per_still"], "frame_ms_bf16": pe["frame_ms"],
+        "served_u8_err": pe["served_u8_err"]}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -1778,6 +2278,8 @@ def main() -> None:
               source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh",
               frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
+              proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
+              proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
@@ -1795,7 +2297,8 @@ def main() -> None:
               hierarchical_f32_loss_rel=ht["loss_rel_f32"], hierarchical_f32_bin_flips=ht["bin_flips"],
               hierarchical_frame_ms_bf16=he["frame_ms"], hierarchical_eval_psnr=he["psnr"],
               hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
-              b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist),
+              b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist,
+              weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),

@@ -66,6 +66,19 @@ class TrainConfig:
     sigma_noise: float = 0.0
     depth_loss_weight: float = 0.0
     distortion_loss_weight: float = 0.0
+    # proposal sampling (mip-NeRF 360): a density-only ProposalMLP(prop_Lp,
+    # prop_D, prop_H) probed at Np stratified samples places the Nf samples
+    # of the main field, and the interlevel loss (times
+    # proposal_loss_weight) distils it from the main field's weights; for
+    # the first prop_anneal_frac * num_iters steps the placing histogram
+    # is raised to a power ramping 0 -> 1
+    proposal: bool = False
+    Np: int = 64
+    prop_Lp: int = 6
+    prop_D: int = 4
+    prop_H: int = 64
+    proposal_loss_weight: float = 1.0
+    prop_anneal_frac: float = 0.0
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -75,6 +88,28 @@ class TrainConfig:
         if self.hierarchical and self.Nc <= 0:
             raise ValueError(
                 f"hierarchical=True needs Nc > 0 coarse samples, got Nc={self.Nc}"
+            )
+        if self.proposal and self.hierarchical:
+            raise ValueError(
+                "proposal and hierarchical are alternative sampling schemes (proposal replaces "
+                "the coarse NeRF with a tiny density MLP); enable at most one"
+            )
+        if self.proposal and self.Np <= 0:
+            raise ValueError(f"proposal=True needs Np > 0 probe samples, got Np={self.Np}")
+        if self.proposal and min(self.prop_Lp, self.prop_D, self.prop_H) <= 0:
+            raise ValueError(
+                "proposal MLP dims must be positive, got "
+                f"prop_Lp={self.prop_Lp} prop_D={self.prop_D} prop_H={self.prop_H}"
+            )
+        if self.proposal_loss_weight < 0:
+            raise ValueError(f"proposal_loss_weight must be >= 0, got {self.proposal_loss_weight}")
+        if not 0.0 <= self.prop_anneal_frac <= 1.0:
+            raise ValueError(
+                f"prop_anneal_frac must be in [0, 1] (fraction of num_iters), got {self.prop_anneal_frac}"
+            )
+        if self.prop_anneal_frac > 0 and not self.proposal:
+            raise ValueError(
+                "prop_anneal_frac > 0 anneals proposal-guided sample placement and needs proposal=True"
             )
         if self.sampling_space not in ("linear", "disparity"):
             raise ValueError(
@@ -104,8 +139,6 @@ class TrainConfig:
 # (JAX default, ROADMAP item). At the default a key changes nothing.
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "proposal": {"proposal": False, "Np": 64, "prop_Lp": 6, "prop_D": 4, "prop_H": 64,
-                 "proposal_loss_weight": 1.0, "prop_anneal_frac": 0.0},
     "mip": {"mip": False, "mip_levels": 1, "mip_coarse_weight": 0.1, "resample_blur": 0.01,
             "opaque_background": False, "mip_multiscale": False},
     "contract with disparity spacing": {"contract": False},
@@ -185,9 +218,15 @@ class TestConfig:
     orbit_radius: float = 4.0  # hardcoded r=4 at test.py:33
     normals: bool = False  # also write normal_<i>.png from density gradients
     Nc: int = 0  # > 0: hierarchical eval, Nc coarse and N_samples importance samples
+    Np: int = 0  # > 0: proposal eval, Np probes of the proposal net place N_samples
     appearance_idx: int = -1  # read only by appearance checkpoints, not ported
 
     def __post_init__(self):
+        if self.Np > 0 and self.Nc > 0:
+            raise ValueError(
+                "Np > 0 (proposal-guided eval) and Nc > 0 (hierarchical eval) are alternative "
+                "samplers; set at most one"
+            )
         if self.opaque_background:
             # the JAX TrainConfig's rule (config.py:368-373), which its
             # TestConfig lacks (ROADMAP, Queue C's deliberate behaviour
@@ -223,7 +262,6 @@ class TestConfig:
 # _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
 _TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "proposal": {"Np": 0},
     "mip": {"mip": False, "mip_levels": 1, "resample_blur": 0.01},
     "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
                   "occ_aabb": 4.0, "occ_group": 1},

@@ -12,9 +12,11 @@ then either renders the orbit video (``animation``: radius
 RMSE where the scene has depth sidecars. The reference's equivalent is
 ``test()`` (test.py:18-45). With ``Nc > 0`` eval is hierarchical: the
 checkpoint's coarse and fine nets, Nc stratified samples and N_samples
-deterministic importance samples a ray.
+deterministic importance samples a ray. With ``Np > 0`` it renders with
+the proposal scheme: the checkpoint's proposal net at Np probes (bin
+midpoints) places N_samples deterministic samples of its main field.
 
-Proposal, mip and occupancy eval, LLFF (spiral path, NDC),
+Mip and occupancy eval, LLFF (spiral path, NDC),
 the tiny_nerf loader, sharded eval, pose-refined stills and Orbax
 checkpoint directories are not ported: each raises NotImplementedError.
 """
@@ -37,8 +39,9 @@ def load_params(loadpath: str, return_aux: bool = False, keep_hierarchy: bool = 
     ``ckpt_<step>.pth`` checkpoint, or an experiment directory (its latest
     ``ckpt_<step>.pth``). ``{"field", ...}`` wrappers (pose/appearance
     training) unwrap to the field, and ``return_aux`` also returns the
-    rest as a dict; ``{coarse, fine}`` checkpoints give the fine net
-    unless ``keep_hierarchy`` (hierarchical eval)."""
+    rest as a dict; ``{coarse, fine}`` and ``{prop, fine}`` checkpoints
+    give the fine net unless ``keep_hierarchy`` (hierarchical or proposal
+    eval)."""
     from nerf_simple_tpu_torch.train import checkpoint as ckpt
 
     name = os.path.basename(os.path.normpath(loadpath))
@@ -126,6 +129,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     from nerf_simple_tpu_torch.data.blender import load_blender
     from nerf_simple_tpu_torch.data.dataset import RayDataset
     from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
+    from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
     from nerf_simple_tpu_torch.ops.rays import orbit_poses
     from nerf_simple_tpu_torch.render.renderer import (
         RenderSettings,
@@ -145,16 +149,24 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     out_dir = os.path.join(cfg.savepath, cfg.exp_name)
     os.makedirs(out_dir, exist_ok=True)
 
-    params, aux = load_params(cfg.loadpath, return_aux=True, keep_hierarchy=cfg.Nc > 0)
+    params, aux = load_params(cfg.loadpath, return_aux=True, keep_hierarchy=cfg.Nc > 0 or cfg.Np > 0)
     if cfg.Nc > 0 and not (isinstance(params, dict) and "coarse" in params):
         raise ValueError(
             "Nc > 0 requests hierarchical eval but the checkpoint has no coarse/fine nets"
         )
+    if cfg.Np > 0 and not (isinstance(params, dict) and "prop" in params):
+        raise ValueError(
+            "Np > 0 requests proposal-guided eval but the checkpoint has no proposal net "
+            "(train with proposal: true)"
+        )
     model = _model_for(cfg, params)
     _check_aux(cfg, aux, model)
-    field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
+    if cfg.Np > 0:  # the proposal arch from its weight shapes, which determine it
+        field = ProposalPair.from_jax_params(params, device, model, infer_proposal_arch(params["prop"]))
+    else:
+        field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
     settings = RenderSettings(
-        N=cfg.N_samples, N_coarse=cfg.Nc, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
+        N=cfg.N_samples, N_coarse=cfg.Nc, N_prop=cfg.Np, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
         compute_dtype=cfg.render_dtype, backend=cfg.backend,
     )
     data = load_blender(cfg.datapath, cfg.half_res)

@@ -1031,7 +1031,8 @@ def fused_train_step(
     normalised to s in [0, 1] (linearly, or in 1/t with ``disparity``),
     averaged over rays, to the loss, and its gradient to the backward
     (the kernel's distortion rail). ``fused_train_step.dist_launches``
-    counts the launches with it."""
+    counts the launches with it, ``weights_dist_launches`` those with the
+    weights output and the rail at once (the proposal scheme's)."""
     wts = _prepare(wts, compute_dtype, model)
     if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
         raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
@@ -1058,12 +1059,14 @@ def fused_train_step(
     fused_train_step.launches += 1
     fused_train_step.weights_launches += out_weights
     fused_train_step.dist_launches += rail is not None
+    fused_train_step.weights_dist_launches += out_weights and rail is not None
     return (loss, grads, w) if out_weights else (loss, grads)
 
 
 fused_train_step.launches = 0
 fused_train_step.weights_launches = 0  # of them, with the weights output
 fused_train_step.dist_launches = 0  # of them, with the distortion rail
+fused_train_step.weights_dist_launches = 0  # of them, with both at once
 
 
 def fused_render(

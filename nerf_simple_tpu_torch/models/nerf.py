@@ -28,13 +28,6 @@ from nerf_simple_tpu_torch.ops.encoding import positional_encoder
 
 Params = dict[str, dict[str, np.ndarray]]
 
-# Layer names in forward order (the JAX package's names).
-_LAYERS = (
-    "trunk0", "trunk1", "trunk2", "trunk3", "trunk4", "skip", "post0",
-    "post1", "sigma", "feature", "color0", "color1",
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class NerfMLP:
     """Static architecture config. ``contract`` and ``app_dim`` exist so
@@ -118,27 +111,30 @@ def init_nerf_params(seed: int, model: NerfMLP = NerfMLP()) -> Params:
     return params
 
 
-class NerfField(nn.Module):
-    """The NerfMLP field: ``nn.Linear`` children named after the JAX
-    layers; ``forward`` is ``nerf_apply``."""
+class LinearField(nn.Module):
+    """An MLP of ``nn.Linear`` children named after the JAX layers of
+    ``model.layer_dims()``, in its order; converts to and from the JAX
+    pytree of ``(in, out)`` weights. ``infer_arch`` recovers a subclass's
+    model from such a pytree."""
 
-    def __init__(self, model: NerfMLP = NerfMLP(), device=None):
+    infer_arch = None
+
+    def __init__(self, model, device=None):
         super().__init__()
-        require_ported(model)
         self.model = model
         for name, (fan_in, fan_out) in model.layer_dims().items():
             self.add_module(name, nn.Linear(fan_in, fan_out, device=device))
 
     @classmethod
-    def from_jax_params(cls, params: Params, device, model: NerfMLP | None = None):
+    def from_jax_params(cls, params: Params, device, model=None):
         """Module from a JAX-layout pytree of ``(in, out)`` weights."""
-        model = model or infer_arch(params)
+        model = model or cls.infer_arch(params)
         return cls(model, device="meta").to_empty(device=device).copy_jax_params_(params)
 
-    def copy_jax_params_(self, params: Params) -> "NerfField":
+    def copy_jax_params_(self, params: Params):
         """Copy a JAX-layout pytree into the weights, in place."""
         with torch.no_grad():
-            for name in _LAYERS:
+            for name in self.model.layer_dims():
                 lin = getattr(self, name)
                 w = np.asarray(params[name]["w"], np.float32)
                 lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
@@ -152,8 +148,18 @@ class NerfField(nn.Module):
                 "w": getattr(self, name).weight.detach().cpu().numpy().T.copy(),
                 "b": getattr(self, name).bias.detach().cpu().numpy().copy(),
             }
-            for name in _LAYERS
+            for name in self.model.layer_dims()
         }
+
+
+class NerfField(LinearField):
+    """The NerfMLP field; ``forward`` is ``nerf_apply``."""
+
+    infer_arch = staticmethod(infer_arch)
+
+    def __init__(self, model: NerfMLP = NerfMLP(), device=None):
+        require_ported(model)
+        super().__init__(model, device)
 
     def forward(self, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
         return nerf_apply(self, v, compute_dtype)

@@ -1,5 +1,6 @@
 """Sample placement (port of nerf_simple_tpu/ops/sampling.py): stratified
-samples, and the hierarchical scheme's importance samples and merge.
+samples, the hierarchical scheme's importance samples and merge, and the
+proposal scheme's placement anneal.
 
 The JAX package draws from explicit PRNG keys; here an explicit
 ``torch.Generator`` on the tensors' device plays that part. The two give
@@ -122,3 +123,12 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     and (B, Nb) tensors: a stable sort of the concatenation, so equal
     values keep a's before b's, as the JAX rank merge orders them."""
     return torch.sort(torch.cat([a, b], -1), dim=-1, stable=True).values
+
+
+def anneal_weights(w: torch.Tensor, a: float | None) -> torch.Tensor:
+    """The placement anneal (JAX ``anneal_weights``): ``max(w, 1e-8) ** a``,
+    so an exponent ramping 0 -> 1 moves sample placement from uniform to
+    the weights' histogram; ``a = None`` is the identity."""
+    if a is None:
+        return w
+    return torch.pow(torch.clamp(w, min=1e-8), a)

@@ -1,5 +1,6 @@
-"""Emission-absorption compositing and the distortion regulariser (port of
-nerf_simple_tpu/ops/volume.py, point form).
+"""Emission-absorption compositing, the distortion regulariser and the
+proposal scheme's interlevel loss (port of nerf_simple_tpu/ops/volume.py,
+point form).
 
 Plain torch, as the JAX package leaves it to XLA outside any kernel. The
 reference quirks (utils/rendering.py:47-85) stay: softplus density; raw,
@@ -38,6 +39,12 @@ def _weights(sigma: torch.Tensor, ts: torch.Tensor, unit_dirs: torch.Tensor):
     log_trans = torch.log(torch.clamp(1.0 - alpha, min=1e-10))
     excl = torch.cumsum(log_trans, dim=-1) - log_trans
     return alpha, alpha * torch.exp(excl)
+
+
+def weights_from_sigma(sigma: torch.Tensor, ts: torch.Tensor, unit_dirs: torch.Tensor) -> torch.Tensor:
+    """(B, N) compositing weights alone from (B, N) raw sigma at ascending
+    ts: the colour-free slice of ``composite`` (the proposal net's)."""
+    return _weights(sigma, ts, unit_dirs)[1]
 
 
 def _finish(rgb, alpha, weights, ts) -> CompositeOut:
@@ -92,3 +99,29 @@ def _distortion_core(w: torch.Tensor, m: torch.Tensor, delta: torch.Tensor) -> t
     acc_m = torch.cumsum(w * m, dim=-1)
     cross = 2.0 * torch.sum(w * (m * (acc - w) - (acc_m - w * m)), dim=-1)
     return torch.mean(cross + torch.sum(w * w * delta, dim=-1) / 3.0)
+
+
+def interlevel_loss(w: torch.Tensor, ts: torch.Tensor, w_prop: torch.Tensor, ts_prop: torch.Tensor) -> torch.Tensor:
+    """Proposal supervision, mip-NeRF 360 eqn. 13 in point form (JAX
+    ``ops/volume.py::interlevel_loss``). The (B, Np) proposal weights at
+    ascending ``ts_prop`` own the Np cells between the midpoints of
+    ``ts_prop``; the main field's (B, N) weights ``w`` at ascending ``ts``
+    fall into them, and each cell's mass ``bound_j`` must be covered:
+    ``mean_rays sum_j relu(bound_j - w_prop_j)^2 / (w_prop_j + 1e-4)``.
+    The main field's tail sample is left out (its weight is the 1e10
+    absorber's leftover transmittance). The caller detaches ``w``: the
+    proposal distils from the main field, never the other way."""
+    mids = 0.5 * (ts_prop[:, 1:] + ts_prop[:, :-1])  # (B, Np - 1) interior edges
+    return _interlevel_core(w[:, :-1], ts[:, :-1], w_prop, mids)
+
+
+def _interlevel_core(wi: torch.Tensor, ti: torch.Tensor, w_prop: torch.Tensor,
+                     interior_edges: torch.Tensor) -> torch.Tensor:
+    """Mass ``wi`` at positions ``ti`` binned against the proposal cells
+    that ``interior_edges`` (B, Np - 1) separate: the bin of t is
+    ``#(interior_edges <= t)`` (a t on an edge goes to the cell above it);
+    only under-coverage is penalised."""
+    idx = torch.searchsorted(interior_edges.contiguous(), ti.contiguous(), right=True)
+    bound = torch.zeros_like(w_prop).scatter_add_(1, idx, wi.to(w_prop.dtype))
+    excess = torch.relu(bound - w_prop)
+    return torch.mean(torch.sum(excess**2 / (w_prop + 1e-4), dim=-1))

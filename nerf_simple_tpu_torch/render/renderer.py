@@ -13,7 +13,10 @@ is one call of the fused render kernel (forward and compositing).
 ``render_rays_hierarchical`` is the coarse + fine scheme: the coarse
 field's weights place importance samples, and the fine field renders the
 sorted union; ``render_rays_chunked`` takes that path for a ``NerfPair``
-under ``N_coarse > 0``.
+under ``N_coarse > 0``. ``render_rays_proposal`` is mip-NeRF 360's
+scheme: the proposal net's weights at ``N_prop`` probes place the main
+field's N samples; ``render_rays_chunked`` takes that path for a
+``ProposalPair`` under ``N_prop > 0``.
 
 Eval on top of it: ``render_image`` (one still of a split),
 ``render_orbit_video`` (frames to ``utils/video.py``) and
@@ -42,8 +45,10 @@ from nerf_simple_tpu_torch.kernels.mlp import (
 )
 from nerf_simple_tpu_torch.models import apply_model
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
+from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
 from nerf_simple_tpu_torch.ops.sampling import (
+    anneal_weights,
     importance_ts,
     merge_sorted,
     sample_points,
@@ -62,13 +67,15 @@ class RenderSettings:
     words). ``fused_eval`` routes ``render_rays_chunked`` under
     ``"pallas"`` through the fused render kernel (forward and compositing
     in one call); under ``"xla"`` it changes nothing, and it does not
-    apply under ``N_coarse > 0`` (as in JAX). ``N_coarse > 0`` renders
-    hierarchically: N_coarse stratified samples, then N importance
-    samples. ``sigma_noise > 0`` (a training regulariser) adds
-    ``sigma_noise * N(0, 1)`` to raw sigma before compositing in
-    ``render_rays``; the hierarchical render applies none, as in JAX.
-    ``N_prop`` and ``mip`` exist in the JAX settings but are not ported
-    yet: setting one raises."""
+    apply under ``N_coarse > 0`` or ``N_prop > 0`` (as in JAX).
+    ``N_coarse > 0`` renders hierarchically: N_coarse stratified samples,
+    then N importance samples. ``N_prop > 0`` renders with the proposal
+    scheme: N_prop probes of the proposal net, then N samples of the main
+    field from its weights. ``sigma_noise > 0`` (a training regulariser)
+    adds ``sigma_noise * N(0, 1)`` to raw sigma before compositing in
+    ``render_rays``; the hierarchical and proposal renders apply none, as
+    in JAX. ``mip`` exists in the JAX settings but is not ported yet:
+    setting it raises."""
 
     N: int = 128
     tn: float = 2.0
@@ -89,15 +96,8 @@ class RenderSettings:
             raise ValueError(f"compute_dtype must be f32 or bf16, got {self.compute_dtype}")
         if self.sigma_noise < 0:
             raise ValueError(f"sigma_noise must be >= 0, got {self.sigma_noise}")
-        unported = {
-            "N_prop": (self.N_prop > 0, "proposal sampling"),
-            "mip": (self.mip, "the mip family"),
-        }
-        for name, (on, item) in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"RenderSettings.{name} is not ported yet: ROADMAP, {item}"
-                )
+        if self.mip:
+            raise NotImplementedError("RenderSettings.mip is not ported yet: ROADMAP, the mip family")
 
 
 def _packed(field: NerfField, dtype) -> FusedWeights:
@@ -172,6 +172,44 @@ def render_rays_hierarchical(
     if return_ts:
         return coarse_out, fine_out, (ts_c, ts_all)
     return coarse_out, fine_out
+
+
+def render_rays_proposal(
+    pair: ProposalPair,
+    rays: torch.Tensor,
+    generator: torch.Generator | None,
+    settings: RenderSettings,
+    det_fine: bool = False,
+    ts_prop: torch.Tensor | None = None,
+    return_aux: bool = False,
+    prop_anneal: float | None = None,
+):
+    """Proposal-guided rendering (mip-NeRF 360; JAX ``render_rays_proposal``,
+    its point branch): ``N_prop`` stratified probes (or the (B, N_prop)
+    ``ts_prop`` given; bin midpoints under ``det_fine``), the proposal
+    net's weights there, and the main field ``pair.fine`` at ``N``
+    importance samples of those weights, detached and raised to
+    ``prop_anneal`` (``anneal_weights``; the deterministic quantiles under
+    ``det_fine``). The main field sees only its N samples. With
+    ``return_aux`` also ``(ts_prop, w_prop, ts_fine)``, ``w_prop``
+    differentiable in the proposal net (the interlevel loss reads them).
+    No sigma noise is added, whatever ``settings.sigma_noise`` says, as in
+    JAX."""
+    if settings.N_prop <= 0:
+        raise ValueError("the proposal path needs N_prop > 0")
+    ts_p = ts_prop
+    if ts_p is None:
+        ts_p = stratified_ts_spaced(
+            generator, rays.shape[0], settings.N_prop, settings.tn, settings.tf,
+            rays.device, rays.dtype, settings.sampling_space, det=det_fine,
+        )
+    w_prop = proposal_weights(pair.prop, rays, ts_p, settings.compute_dtype)
+    ts_f = importance_ts(generator, ts_p, anneal_weights(w_prop.detach(), prop_anneal), settings.N,
+                         det=det_fine)
+    out = _render_at_ts(pair.fine, rays, ts_f, settings)
+    if return_aux:
+        return out, (ts_p, w_prop, ts_f)
+    return out
 
 
 def _render_at_ts(
@@ -283,7 +321,7 @@ def _padded_chunks(rays: torch.Tensor, chunk: int) -> tuple[torch.Tensor, int]:
 
 @torch.inference_mode()
 def render_rays_chunked(
-    field: NerfField | NerfPair,
+    field: NerfField | NerfPair | ProposalPair,
     rays: torch.Tensor,
     seed: int,
     settings: RenderSettings = RenderSettings(),
@@ -299,18 +337,23 @@ def render_rays_chunked(
     fused render kernel; otherwise ``render_rays``. Both draw the same
     samples from the same seed. Under ``N_coarse > 0`` ``field`` is a
     ``NerfPair`` and a chunk renders hierarchically with the deterministic
-    quantiles (``det_fine``), as JAX eval does."""
+    quantiles (``det_fine``), as JAX eval does; under ``N_prop > 0`` it is
+    a ``ProposalPair`` and a chunk renders with the proposal scheme, its
+    probes at bin midpoints and its samples at the quantiles, so a frame
+    is deterministic end to end."""
     if occ is not None:
         raise NotImplementedError(
             "occupancy-informed sampling is not ported yet: ROADMAP Queue A, occupancy"
         )
-    hier = settings.N_coarse > 0
-    if hier != isinstance(field, NerfPair):
-        raise ValueError("N_coarse > 0 renders a NerfPair (coarse and fine fields), N_coarse = 0 one "
-                         f"NerfField; got N_coarse={settings.N_coarse} and a {type(field).__name__}")
+    hier, prop = settings.N_coarse > 0, settings.N_prop > 0
+    want = NerfPair if hier else ProposalPair if prop else NerfField
+    if not isinstance(field, want):
+        raise ValueError(f"N_coarse={settings.N_coarse}, N_prop={settings.N_prop} renders a {want.__name__} "
+                         "(N_coarse > 0: a NerfPair of coarse and fine fields; N_prop > 0: a ProposalPair; "
+                         f"else one NerfField); got a {type(field).__name__}")
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays, chunk)
-    fused = settings.fused_eval and settings.backend == "pallas" and not hier
+    fused = settings.fused_eval and settings.backend == "pallas" and not (hier or prop)
     rgbs, disps = [], []
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
@@ -320,8 +363,12 @@ def render_rays_chunked(
                                       rays.device, rays.dtype, settings.sampling_space)
             rgb, disp = _fused_render_rays(field, rays_c, ts, settings)
         else:
-            out = (render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True)[1]
-                   if hier else render_rays(field, rays_c, g, settings))
+            if hier:
+                out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True)[1]
+            elif prop:
+                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True)
+            else:
+                out = render_rays(field, rays_c, g, settings)
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103
         rgbs.append(rgb)
         disps.append(disp)
@@ -345,7 +392,7 @@ def _density_grad(field: NerfField, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def render_normals_chunked(
-    field: NerfField | NerfPair,
+    field: NerfField | NerfPair | ProposalPair,
     rays: torch.Tensor,
     seed: int,
     settings: RenderSettings = RenderSettings(),
@@ -358,12 +405,12 @@ def render_normals_chunked(
     used, as the JAX package forces its XLA path here. The tail sample is
     left out (its 1e10 delta makes its weight absorb all remaining
     transmittance) and the sum is not renormalised (its length is the
-    coherence of the gradients: ~0 over empty space). A ``NerfPair``
-    gives its fine field, at the plain N setting (normals need one
-    density field)."""
-    if isinstance(field, NerfPair):
+    coherence of the gradients: ~0 over empty space). A ``NerfPair`` or
+    ``ProposalPair`` gives its fine field, at the plain N setting (normals
+    need one density field)."""
+    if isinstance(field, (NerfPair, ProposalPair)):
         field = field.fine
-    s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0)
+    s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0, N_prop=0)
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays[:, :6], chunk)
     outs = []
@@ -382,7 +429,7 @@ def render_normals_chunked(
 
 
 def render_image(
-    field: NerfField | NerfPair,
+    field: NerfField | NerfPair | ProposalPair,
     rays_split: torch.Tensor,
     H: int,
     W: int,
@@ -402,7 +449,7 @@ def render_image(
 
 
 def render_orbit_video(
-    field: NerfField | NerfPair,
+    field: NerfField | NerfPair | ProposalPair,
     poses: np.ndarray,
     H: int,
     W: int,

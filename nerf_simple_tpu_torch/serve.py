@@ -1,13 +1,17 @@
 """Novel-view render server (port of nerf_simple_tpu/serve.py).
 
     python -m nerf_simple_tpu_torch.serve --loadpath models/exp/params_10000.npz \\
-        --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000]
+        --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000] \\
+        [--proposal-samples 64]
 
 Endpoints:
   GET /health                  -> {"status": "ok", ...}
   GET /render?r=4&theta=-30&phi=120  -> image/png
 
-The params live on one device. Renders are serialised through a lock
+With ``--proposal-samples Np`` (a proposal-trained checkpoint, its
+``{prop, fine}`` params) the proposal net at Np probes places the
+``--samples`` of the main field in each frame. The params live on one
+device. Renders are serialised through a lock
 (one card, one render at a time). PNGs are encoded with the standard
 library (utils/png.py).
 """
@@ -27,6 +31,7 @@ import torch
 from nerf_simple_tpu_torch.kernels.mlp import fused_mlp_forward
 from nerf_simple_tpu_torch.models import infer_model
 from nerf_simple_tpu_torch.models.nerf import NerfField
+from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
 from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
 from nerf_simple_tpu_torch.utils.png import decode_png, encode_png  # noqa: F401 (re-exported)
@@ -48,8 +53,17 @@ class RenderServer:
     ):
         self.device = torch.device(device)
         self.model = model or infer_model(params)
-        self.field = NerfField.from_jax_params(params, self.device, self.model)
         self.settings = settings or RenderSettings()
+        self.prop_model = None
+        if self.settings.N_prop > 0:
+            if not (isinstance(params, dict) and "prop" in params):
+                raise ValueError(
+                    "settings.N_prop > 0 needs a proposal-trained checkpoint ({'prop', 'fine'} params)"
+                )
+            self.prop_model = infer_proposal_arch(params["prop"])
+            self.field = ProposalPair.from_jax_params(params, self.device, self.model, self.prop_model)
+        else:
+            self.field = NerfField.from_jax_params(params, self.device, self.model)
         self.H, self.W, self.f = H, W, float(f)
         self._lock = threading.Lock()
         self.seed = 0
@@ -94,7 +108,7 @@ def _make_handler(server: RenderServer):
                     "arch": dataclasses.asdict(server.model),
                     "backend": server.settings.backend,
                     "occupancy": False,
-                    "proposal": False,
+                    "proposal": server.prop_model is not None,
                     "mip": False,
                     "device": str(server.device),
                     "kernel_launches": fused_mlp_forward.launches,
@@ -128,7 +142,6 @@ def serve(server: RenderServer, port: int = 8000) -> ThreadingHTTPServer:
 _UNPORTED_FLAGS = {
     "occupancy": (False, "occupancy"),
     "occ_R": (64, "occupancy"),
-    "proposal_samples": (0, "proposal"),
     "mip": (False, "mip"),
     "mip_levels": (1, "mip"),
     "resample_blur": (0.01, "mip"),
@@ -167,10 +180,11 @@ def main(argv=None) -> None:
     from nerf_simple_tpu_torch.evaluate import load_params
     from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
 
-    params = load_params(args.loadpath)
+    params = load_params(args.loadpath, keep_hierarchy=args.proposal_samples > 0)
     model = load_model_meta(args.loadpath)  # None -> inferred from shapes
     settings = RenderSettings(
         N=args.samples,
+        N_prop=args.proposal_samples,
         tn=args.tn,
         tf=args.tf,
         sampling_space=args.sampling_space,
@@ -183,7 +197,8 @@ def main(argv=None) -> None:
     )
     httpd = serve(srv, args.port)
     print(f"serving on :{args.port} (frame {args.height}x{args.width}, "
-          f"{args.backend}/{args.dtype}, N={args.samples}, {srv.device})")
+          f"{args.backend}/{args.dtype}, N={args.samples}"
+          + (f", Np={args.proposal_samples}" if args.proposal_samples > 0 else "") + f", {srv.device})")
     httpd.serve_forever()
 
 

@@ -2,7 +2,7 @@
 
 A checkpoint is ``<savepath>/<exp_name>/ckpt_<step>.pth``: the full
 training state (the field's params, ``{"coarse", "fine"}`` for a
-hierarchical run; Adam's state over all of them; the step and the
+hierarchical run, ``{"prop", "fine"}`` for a proposal run; Adam's state over all of them; the step and the
 generator's state), so a run resumes where it stopped and draws the
 batches it would have drawn. Orbax is absent on the card's machine, so
 the JAX package's Orbax directories are not read here.
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from nerf_simple_tpu_torch.models.nerf import NerfPair
+from nerf_simple_tpu_torch.models.proposal import ProposalPair
 
 
 def save_checkpoint(direc: str, state) -> str:
@@ -53,14 +54,28 @@ def checkpoint_params(path: str):
     return torch.load(path, map_location="cpu", weights_only=False)["params"]
 
 
+_SCHEMES = {NerfPair: "a coarse and fine pair (hierarchical)",
+            ProposalPair: "a proposal net and a main field (proposal)"}
+
+
+def _scheme(params_or_field) -> str:
+    """Which of the three schemes a params pytree or a field holds."""
+    if isinstance(params_or_field, dict):
+        kind = NerfPair if "coarse" in params_or_field else ProposalPair if "prop" in params_or_field else None
+    else:
+        kind = type(params_or_field)
+    return _SCHEMES.get(kind, "one field")
+
+
 def restore_checkpoint(path: str, state) -> None:
     """Load a checkpoint into ``state`` (a TrainState of the same model and
-    scheme: one field, or a coarse and fine pair), in place."""
+    scheme: one field, a coarse and fine pair, or a proposal net and a
+    main field), in place."""
     ck = torch.load(path, map_location="cpu", weights_only=False)
-    pair = "coarse" in ck["params"]
-    if pair != isinstance(state.field, NerfPair):
-        raise ValueError(f"{path} holds {'a coarse and fine pair' if pair else 'one field'}; "
-                         "the run trains the other (check `hierarchical`)")
+    held, trained = _scheme(ck["params"]), _scheme(state.field)
+    if held != trained:
+        raise ValueError(f"{path} holds {held}; the run trains {trained} (check `hierarchical` and "
+                         "`proposal`)")
     state.field.copy_jax_params_(ck["params"])
     state.optimizer.load_state_dict(ck["optimizer"])
     state.generator.set_state(ck["generator"])
@@ -96,7 +111,7 @@ def load_model_meta(loadpath: str):
 
 def export_params_npz(path: str, params) -> None:
     """One npz with ``<layer>/w`` and ``<layer>/b`` arrays (nested dicts
-    such as coarse/fine become prefixes)."""
+    such as coarse/fine or prop/fine become prefixes)."""
     flat = {}
 
     def add(prefix, p):
@@ -144,12 +159,12 @@ _PTH_LAYER_MAP = {
 
 def export_params_pth(path: str, params) -> None:
     """A state_dict .pth that loads into the reference ``Nerf`` module
-    with ``strict=True``. Takes one network's params: a hierarchical run
-    exports its fine net (``params["fine"]``)."""
-    if "coarse" in params and "trunk0" not in params:
+    with ``strict=True``. Takes one network's params: a hierarchical or
+    proposal run exports its fine net (``params["fine"]``)."""
+    if ("coarse" in params or "prop" in params) and "trunk0" not in params:
         raise ValueError(
-            ".pth export is per-network; pass params['coarse'] or "
-            "params['fine'] (the reference has no two-network format)"
+            ".pth export is per-network; pass params['fine'] (or "
+            "params['coarse']; the reference has no two-network format)"
         )
     sd = {}
     for ours, theirs in _PTH_LAYER_MAP.items():

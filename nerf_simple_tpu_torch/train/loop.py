@@ -1,14 +1,16 @@
 """The training loop (port of nerf_simple_tpu/train/loop.py, the
-point-sampled paths: one network, or the hierarchical coarse + fine pair).
+point-sampled paths: one network, the hierarchical coarse + fine pair, or
+the proposal scheme).
 
 Same observable behaviour as the reference ``train()`` (train.py:28-91)
 and the JAX loop: loss and lr every ``ckpt_loss`` iterations, train and
 val renders with MSE/PSNR/SSIM every ``ckpt_images`` (hierarchical runs
-render with both nets, ``N_coarse = Nc``), a checkpoint every
-``ckpt_model`` and at the end, then ``params_<step>.npz`` (both nets of a
-hierarchical run) and ``.pth`` (the reference's single-network format:
-the fine net of a hierarchical run) exports that this package's server
-and the JAX package both load.
+render with both nets, ``N_coarse = Nc``; proposal runs with the proposal
+net placing the main field's samples, ``N_prop = Np``), a checkpoint
+every ``ckpt_model`` and at the end, then ``params_<step>.npz`` (both
+nets of a hierarchical or proposal run) and ``.pth`` (the reference's
+single-network format: the fine net of a two-net run) exports that this
+package's server and the JAX package both load.
 
 The loss of every step stays on the device. The host waits for the card
 only at the end of a chunk of ``steps_per_call`` iterations that holds a

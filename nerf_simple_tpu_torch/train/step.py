@@ -1,6 +1,7 @@
 """The training step: sample -> render -> loss -> gradients -> Adam (port of
-nerf_simple_tpu/train/step.py, the point-sampled paths: one network, or
-the hierarchical coarse + fine pair).
+nerf_simple_tpu/train/step.py, the point-sampled paths: one network, the
+hierarchical coarse + fine pair, or the proposal scheme's proposal net and
+main field).
 
 Learning rate as the reference: Adam starts at the hard-coded 5e-4
 (train.py:43 ignores lr_init; ``honor_lr_init`` fixes that) and
@@ -21,21 +22,30 @@ Cores:
   coarse net at Nc stratified samples with the weights output, which
   ``importance_ts`` turns into Nf samples; then the fine net at the
   sorted union of Nc + Nf. The loss is the sum of the two passes', and
-  each pass's gradients go back to its own net. ``distortion_loss_weight
-  > 0`` runs in the kernel (its distortion rail): on the single net, and
-  on the hierarchical fine pass only;
+  each pass's gradients go back to its own net. Proposal: one launch, as
+  JAX's fused proposal core runs it: the proposal net's weights at Np
+  stratified probes (plain torch, under autograd) place Nf importance
+  samples; the main field at them with the weights output; the
+  interlevel loss of the proposal weights against those (detached by
+  construction) trains the proposal net. ``distortion_loss_weight > 0``
+  runs in the kernel (its distortion rail): on the single net, on the
+  hierarchical fine pass, and on the proposal scheme's main field, in the
+  launch that also gives the weights;
 - ``backend="xla"``, or ``fused=False``: autograd over ``render_rays``
   (``render_rays_hierarchical``) and the loss JAX's ``loss_fn`` builds:
   the MSE (of both nets' colours), ``depth_loss_weight`` times the masked
   depth L2 (of both nets), ``distortion_loss_weight`` times the
-  distortion in s-space (of the fine net's weights at the union). Under
+  distortion in s-space (of the fine net's weights at the union);
+  proposal: ``render_rays_proposal``, the MSE, ``proposal_loss_weight``
+  times the interlevel loss on the main field's detached weights, the
+  depth term and the distortion at the main field's samples. Under
   ``backend="pallas"`` that renders through ``fused_mlp``, whose backward
   is the fused backward kernel. This is the JAX package's path for what
   its single kernel does not take: ``sigma_noise > 0`` or
   ``depth_loss_weight > 0`` choose it by default, with JAX's warning, and
   ``fused=True`` with either raises. ``sigma_noise`` noises raw sigma in
-  the single-net render; the hierarchical render applies none, as in JAX
-  (which still leaves its fused kernel for it).
+  the single-net render; the hierarchical and proposal renders apply
+  none, as in JAX (which still leaves its fused kernel for them).
 """
 
 from __future__ import annotations
@@ -48,14 +58,29 @@ import torch
 
 from nerf_simple_tpu_torch.config import TrainConfig
 from nerf_simple_tpu_torch.kernels.mlp import fused_train_step, pack_weights
+import numpy as np
+
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, NerfPair, init_nerf_params
-from nerf_simple_tpu_torch.ops.sampling import importance_ts, merge_sorted, stratified_ts_spaced
-from nerf_simple_tpu_torch.ops.volume import CompositeOut, distortion_loss, s_norm
+from nerf_simple_tpu_torch.models.proposal import (
+    ProposalField,
+    ProposalPair,
+    init_proposal_params,
+    proposal_from_train_config,
+    proposal_weights,
+)
+from nerf_simple_tpu_torch.ops.sampling import (
+    anneal_weights,
+    importance_ts,
+    merge_sorted,
+    stratified_ts_spaced,
+)
+from nerf_simple_tpu_torch.ops.volume import CompositeOut, distortion_loss, interlevel_loss, s_norm
 from nerf_simple_tpu_torch.render.renderer import (
     RenderSettings,
     derive_seed,
     render_rays,
     render_rays_hierarchical,
+    render_rays_proposal,
 )
 
 
@@ -72,11 +97,12 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """The field (a ``NerfPair`` when hierarchical), its optimizer, the
+    """The field (a ``NerfPair`` when hierarchical, a ``ProposalPair`` with
+    proposal sampling), its optimizer, the
     step count and the generator that draws batches and samples, on the
     training device."""
 
-    field: NerfField | NerfPair
+    field: NerfField | NerfPair | ProposalPair
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
@@ -86,10 +112,17 @@ def make_train_state(cfg: TrainConfig, model: NerfMLP, device) -> TrainState:
     """Weights from the numpy seed ``cfg.seed`` (the JAX package draws
     them from a JAX key: the two inits differ), generator seeded alike.
     Hierarchical: the coarse and fine nets from ``derive_seed(cfg.seed,
-    0)`` and ``derive_seed(cfg.seed, 1)``, one Adam over both."""
+    0)`` and ``derive_seed(cfg.seed, 1)``; proposal: the proposal net and
+    the main field alike; one Adam over both."""
     if cfg.hierarchical:
         field = NerfPair(*(NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, k), model),
                                                      device, model) for k in (0, 1)))
+    elif cfg.proposal:
+        prop_model = proposal_from_train_config(cfg)
+        field = ProposalPair(
+            ProposalField.from_jax_params(init_proposal_params(derive_seed(cfg.seed, 0), prop_model), device,
+                                          prop_model),
+            NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, 1), model), device, model))
     else:
         field = NerfField.from_jax_params(init_nerf_params(cfg.seed, model), device, model)
     gen = torch.Generator(device=device)
@@ -136,6 +169,37 @@ def hierarchical_fused_loss(pair: NerfPair, rays_b, pix_b, ts_c, generator, N_fi
     return loss_c + fused_loss(pair.fine, rays_b, pix_b, ts_all, compute_dtype, model, dist=dist)[0]
 
 
+def proposal_fused_loss(pair: ProposalPair, rays_b, pix_b, ts_p, generator, N_fine: int, compute_dtype,
+                        model: NerfMLP, loss_weight: float = 1.0, anneal: float | None = None,
+                        dist: tuple | None = None, ts_f: torch.Tensor | None = None):
+    """The fused proposal core (JAX train/step.py, its point form): the
+    proposal weights at the (B, Np) probes ``ts_p``, under autograd;
+    ``N_fine`` importance samples of them, detached and annealed by
+    ``anneal`` (drawn from ``generator``, or the ``ts_f`` given); one launch of the fused train step on the main
+    field there, with the weights output and the distortion rail
+    ``dist``; the interlevel loss of the proposal weights against the
+    kernel's (which carry no gradient). The main field's gradients come
+    from the kernel, the proposal net's from ``loss_weight`` times the
+    interlevel loss. Returns (loss_mse + loss_weight * interlevel, the
+    main field's (B, N_fine) weights)."""
+    w_prop = proposal_weights(pair.prop, rays_b, ts_p, compute_dtype)
+    if ts_f is None:
+        ts_f = importance_ts(generator, ts_p, anneal_weights(w_prop.detach(), anneal), N_fine)
+    loss_mse, w_f = fused_loss(pair.fine, rays_b, pix_b, ts_f, compute_dtype, model, out_weights=True, dist=dist)
+    il = interlevel_loss(w_f, ts_f, w_prop, ts_p)
+    (loss_weight * il).backward()
+    return loss_mse + loss_weight * il.detach(), w_f
+
+
+def _prop_anneal(cfg: TrainConfig, step: int) -> float | None:
+    """The placement anneal's exponent at ``step`` (JAX ``_prop_anneal``):
+    a ramp 0 -> 1 over the first ``prop_anneal_frac * num_iters`` steps,
+    in f32 as JAX computes it; None when the anneal is off."""
+    if cfg.prop_anneal_frac <= 0:
+        return None
+    return float(np.clip(np.float32(step) / np.float32(cfg.prop_anneal_frac * cfg.num_iters), 0.0, 1.0))
+
+
 def _s_norm(cfg: TrainConfig, ts: torch.Tensor) -> torch.Tensor:
     """Sample distances in the config's sampling parametrisation, s in
     [0, 1] (JAX ``_s_norm``): where the distortion loss is measured."""
@@ -162,8 +226,9 @@ def kernel_refusal(cfg: TrainConfig) -> str | None:
     return None
 
 
-def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair, rays_b, pix_b, ts, generator,
-                  settings: RenderSettings, det_fine: bool = False, noise=None) -> torch.Tensor:
+def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, rays_b, pix_b, ts, generator,
+                  settings: RenderSettings, det_fine: bool = False, noise=None,
+                  prop_anneal: float | None = None) -> torch.Tensor:
     """The differentiable loss of one batch at the stratified ``ts``, as
     JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
     ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
@@ -171,9 +236,13 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair, rays_b, pix_b, 
     distortion of the weights at ``_s_norm`` of the ts. Hierarchical: the
     standard NeRF loss (paper eqn. 6), both heads to gt, the depth term on
     both, the distortion on the fine net's weights at the union (what
-    eval renders). ``generator`` draws the importance samples (the
-    quantiles with ``det_fine``) and the sigma noise (or ``noise``, a
-    (B, N) standard normal, is taken)."""
+    eval renders). Proposal (``ts`` are the probes): the MSE of the main
+    field, ``proposal_loss_weight`` times the interlevel loss of the
+    proposal weights against the main field's detached ones, the depth
+    term, the distortion of the main field's weights at its samples; the
+    placement annealed by ``prop_anneal``. ``generator`` draws the
+    importance samples (the quantiles with ``det_fine``) and the sigma
+    noise (or ``noise``, a (B, N) standard normal, is taken)."""
     gt_d = None
     if cfg.depth_loss_weight > 0:
         pix_b, gt_d = pix_b[:, :3], pix_b[:, 3]
@@ -190,6 +259,15 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair, rays_b, pix_b, 
         if cfg.distortion_loss_weight > 0:
             loss = loss + cfg.distortion_loss_weight * distortion_loss(fine.weights, _s_norm(cfg, ts_all))
         return loss
+    if cfg.proposal:
+        out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
+                                                         ts_prop=ts, return_aux=True, prop_anneal=prop_anneal)
+        loss = mse(out.rgb) + cfg.proposal_loss_weight * interlevel_loss(out.weights.detach(), ts_f, w_prop, ts_p)
+        if gt_d is not None:
+            loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
+        if cfg.distortion_loss_weight > 0:
+            loss = loss + cfg.distortion_loss_weight * distortion_loss(out.weights, _s_norm(cfg, ts_f))
+        return loss
     out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise)
     loss = mse(out.rgb)
     if gt_d is not None:
@@ -202,7 +280,8 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair, rays_b, pix_b, 
 def render_settings(cfg: TrainConfig) -> RenderSettings:
     """The training render's settings (the sigma noise with them)."""
     return RenderSettings(
-        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, tn=cfg.tn, tf=cfg.tf,
+        N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, N_prop=cfg.Np if cfg.proposal else 0,
+        tn=cfg.tn, tf=cfg.tf,
         sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
         sigma_noise=cfg.sigma_noise,
     )
@@ -230,22 +309,26 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             stacklevel=2,
         )
     settings = render_settings(cfg)
-    N_strat = cfg.Nc if cfg.hierarchical else cfg.Nf  # the stratified samples a ray
+    # the stratified samples a ray: coarse samples, proposal probes or the samples
+    N_strat = cfg.Nc if cfg.hierarchical else cfg.Np if cfg.proposal else cfg.Nf
     lr0, decay = lr_schedule(cfg)
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
 
-    def core(field, rays_b, pix_b, ts, g):
+    def core(field, rays_b, pix_b, ts, g, anneal):
         """The loss of one batch at the stratified ``ts``, gradients left
         in the fields; ``g`` draws the importance samples (and the sigma
-        noise)."""
+        noise); ``anneal`` is the proposal's placement anneal."""
         if fused and cfg.hierarchical:
             return hierarchical_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model,
                                            dist=dist)
+        if fused and cfg.proposal:
+            return proposal_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model,
+                                       cfg.proposal_loss_weight, anneal, dist=dist)[0]
         if fused:
             return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model, dist=dist)[0]
 
-        loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings)
+        loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings, prop_anneal=anneal)
         loss.backward()
         return loss.detach()
 
@@ -255,7 +338,7 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
                                   space=cfg.sampling_space)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = core(state.field, rays[idx], pixels[idx], ts, g)
+        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step))
         for group in state.optimizer.param_groups:
             group["lr"] = lr0 * decay**state.step
         state.optimizer.step()

@@ -1,5 +1,6 @@
 """The CUDA kernels (fused MLP forward, backward, train step with and
-without its weights output and its distortion rail, and render;
+without its weights output and its distortion rail, both at once, and
+the fused proposal core that launches it so; render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -225,6 +226,113 @@ def test_train_step_without_the_rail_is_unchanged(dev, dtype):
     for bad in ((0.01, 6.0, 2.0, False), (0.01, 0.0, 6.0, True), (-0.01, 2.0, 6.0, False)):
         with pytest.raises(ValueError, match="dist"):
             mlp.fused_train_step(wts, x16, 128, dtype, model, dist=bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("disparity", [False, True], ids=["linear", "disparity"])
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 64), (NerfMLP(), 41, 128),
+                                         (NerfMLP(Lp=3, Ld=1, H=48), 13, 256)],
+                         ids=["small-N64", "flagship-N128", "odd-widths-N256"])
+def test_train_step_weights_output_with_the_rail_matches_plain(dev, model, B, N, disparity, dtype):
+    """B1 with ``out_weights`` and ``dist`` in one launch (the proposal
+    scheme's step): weights, loss and gradients within B1's bounds of the
+    plain version; the launch counts in ``weights_dist_launches``; without
+    the weights output the same launch gives the same loss and gradients
+    bit for bit."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16(B, N, dev)
+    dist = (0.01, 2.0, 6.0, disparity)
+    before = (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches)
+    loss, got, w = mlp.fused_train_step(wts, x16, N, dtype, model, out_weights=True, dist=dist)
+    torch.cuda.synchronize()
+    assert (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
+    loss_p, want, w_p = mlp.fused_train_step_plain(wts, x16, N, dtype, model, out_weights=True, dist=dist)
+    assert w.shape == (B, N) and bool(torch.isfinite(w).all())
+    assert (w - w_p).abs().max().item() <= TOL[dtype]
+    assert abs(loss.item() / loss_p.item() - 1) <= LOSS_TOL[dtype]
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    loss0, got0 = mlp.fused_train_step(wts, x16, N, dtype, model, dist=dist)
+    assert mlp.fused_train_step.weights_dist_launches == before[1] + 1
+    assert loss0.item() == loss.item() and all(torch.equal(a, b) for a, b in zip(got, got0))
+
+
+def _plain_train_step(wts, x16, N, compute_dtype, model, out_weights=False, dist=None):
+    """Stand-in for ``mlp.fused_train_step`` that runs its plain version."""
+    with torch.no_grad():
+        return mlp.fused_train_step_plain(mlp._cast_weights(wts, compute_dtype), x16, N, compute_dtype, model,
+                                          out_weights, dist)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dist", [None, (0.01, 2.0, 6.0, False)], ids=["no-dist", "dist"])
+def test_fused_proposal_core_on_the_card(dev, monkeypatch, dist, dtype):
+    """The fused proposal core (train/step.py::proposal_fused_loss) with
+    the CUDA B1 against the same core with B1's plain version, the same
+    probes and samples: loss, both nets' gradients and the main field's
+    weights within B1's bounds; one launch, with the weights output and
+    (with ``dist``) the rail."""
+    from nerf_simple_tpu_torch.models.proposal import ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, pm, B, Np, Nf = NerfMLP(Lp=4, Ld=2, H=64), ProposalMLP(Lp=4, D=2, H=32), 64, 16, 32
+    params = {"prop": init_proposal_params(0, pm), "fine": init_nerf_params(1, model)}
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(B, 3))
+    rays = torch.from_numpy(np.concatenate([-4.0 * d / np.linalg.norm(d, axis=1, keepdims=True), d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ts_p = stratified_ts(g, B, Np, 2.0, 6.0, dev)
+    ts_f = stratified_ts(g, B, Nf, 2.0, 6.0, dev)
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(step_mod, "fused_train_step", _plain_train_step)
+        pair = ProposalPair.from_jax_params(params, dev)
+        before = (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches)
+        loss, w_f = step_mod.proposal_fused_loss(pair, rays, pix, ts_p, None, Nf, dtype, model, 1.0, dist=dist,
+                                                 ts_f=ts_f)
+        torch.cuda.synchronize()
+        launched = (mlp.fused_train_step.launches - before[0], mlp.fused_train_step.weights_dist_launches - before[1])
+        grads = {n: p.grad.clone() for n, p in pair.named_parameters()}
+        runs[name] = loss.item(), w_f, grads, launched
+    (loss, w, grads, launched), (loss_p, w_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+    assert launched == (1, int(dist is not None)) and launched_p == (0, 0)
+    assert (w - w_p).abs().max().item() <= TOL[dtype]
+    assert abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for n, gp in grads_p.items():
+        assert bool(torch.isfinite(grads[n]).all())
+        err = ((grads[n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (n, err)
+
+
+def test_proposal_train_step_on_the_card(dev, tmp_path):
+    """One step of the proposal training path: pallas, bf16, the
+    distortion rail on; one B1 launch with the weights output and the
+    rail; both nets' parameters moved."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    cfg = TrainConfig(datapath=str(tmp_path), Nf=32, batch_size=256, backend="pallas", compute_dtype="bf16",
+                      net_H=64, net_Lp=4, net_Ld=2, proposal=True, Np=16, prop_Lp=4, prop_D=2, prop_H=32,
+                      distortion_loss_weight=0.01)
+    model = NerfMLP(Lp=4, Ld=2, H=64)
+    state = make_train_state(cfg, model, dev)
+    rays = torch.cat([torch.zeros(1000, 3), torch.randn(1000, 3)], 1).to(dev)
+    rays[:, :3] = rays[:, 3:] * -4.0
+    pixels = torch.rand(1000, 3, device=dev)
+    w0 = (state.field.prop.trunk1.weight.detach().clone(), state.field.fine.trunk1.weight.detach().clone())
+    before = (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches)
+    loss = build_train_step(cfg, model)(state, rays, pixels)
+    assert (mlp.fused_train_step.launches, mlp.fused_train_step.weights_dist_launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
+    assert bool(torch.isfinite(loss)) and state.step == 1
+    assert not torch.equal(w0[0], state.field.prop.trunk1.weight)
+    assert not torch.equal(w0[1], state.field.fine.trunk1.weight)
 
 
 # B1 and B2 past 2^31 plane elements, against plain: per tensor, max abs

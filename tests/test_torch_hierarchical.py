@@ -384,8 +384,8 @@ def test_lego_hierarchical_yaml_loads_and_nc_is_checked():
     for mod in (config, jconfig):
         with pytest.raises(ValueError, match="hierarchical=True needs Nc > 0"):
             mod.TrainConfig(datapath="d", hierarchical=True, Nc=0)
-    with pytest.raises(NotImplementedError, match="proposal"):
-        config.train_config_from_dict({"datapath": "d", "proposal": True})
+    with pytest.raises(ValueError, match="proposal and hierarchical"):
+        config.train_config_from_dict({**d, "proposal": True})
 
 
 def test_hierarchical_checkpoint_resumes_bit_for_bit(tmp_path):
