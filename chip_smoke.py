@@ -115,7 +115,29 @@ NerfMLP(Lp=10, Ld=4, H=256):
    proposal 400x400 frame; (d) ``python -m nerf_simple_tpu_torch.serve
    --proposal-samples 64`` in a process of its own serves one frame over
    HTTP, which matches ``render_rays_chunked`` to 1 level;
-12. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+12. mip cone casting (``configs/lego_mip.yaml``: mip_levels 2, one
+   flagship net for both levels, Nf = 128 intervals a ray): (a) the
+   cone-cast kernel variants against their plain versions, nets from
+   ``derive_seed(0, 0)``, variances from the frames' real cone radii
+   (2 / sqrt(12) / focal), f32 and bf16: the forward with the integrated
+   encoder at a 2,097,152-row render chunk (and at zero variance bit-equal
+   to the point forward), B1 with mip at the training batch (524,288 rows)
+   plain, with the weights output, with the opaque tail, and with the
+   interval rail and per-ray loss weights on row 14, B2 with mip on seeded
+   cotangents, each with its ms and its plain version's; (b) trains the
+   config's keys through ``train()`` (bf16, pallas), 300 + 100 resumed
+   steps: two cone-cast B1 launches a step (``mip_launches`` 600, one of
+   each pair with the weights output, 300), the loss halves, val PSNR
+   rises; the step's wall, host issue, kernel time by pass (coarse B1,
+   fine B1, between them, Adam; resample_edges and an x16 build alone)
+   and idle share; f32 fused and autograd (forward kernel and B2, both
+   with mip) steps from one state under JAX's rule; (c) ``evaluate.test``
+   with its ``test_params``: PSNR, s a still, ms a two-level 400x400 mip
+   frame; ``python -m nerf_simple_tpu_torch.serve --mip --mip-levels 2``
+   in a process of its own serves one frame over HTTP, which matches
+   ``render_rays_chunked`` to 1 level; with ``--before``, B1's point
+   launch must be bit-equal to the earlier library's (phase 5b);
+13. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -206,6 +228,12 @@ DIST_LAMBDA, SIGMA_NOISE, DEPTH_WEIGHT, REG_ITERS = 0.01, 1.0, 0.1, 300
 # the same samples (one proposal net, one generator), so no sample flips.
 NP_PROP = 64
 PROP_LOSS_RTOL, PROP_PARAM_ATOL, PROP_PARAM_RTOL = 1e-4, 5e-5, 2e-3
+# The two-level mip step, f32, fused core against the autograd path from
+# one state after one step: the loss to JAX's rtol 2e-4 (tests/test_mip.py,
+# test_fused_two_level_mip_matches_xla_loss_and_grads) and the bin-flip
+# rule of phase 9 on the parameters: the fine edges are resampled from the
+# coarse weights, which the two paths compute in other orders.
+MIP_LOSS_RTOL = 2e-4
 # composite_grad's bound, with or without the rail: the bytes it must
 # move, a row (out8's rgb and sigma and the ts read, 20 B; g's four rows
 # written, 16 B) and a ray (the gt colour read, 12 B; its loss written,
@@ -272,25 +300,29 @@ BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_wor
                   "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes")}
 
 
-class EarlierTrainStep:
-    """A train-step library of an earlier commit, whose ``fused_train_step``
-    entry lacks arguments the current one has: the distortion rail's five
-    (``dist_on`` .. ``disparity``, before the stream) and, before B1's
-    weights output, ``w_out`` too. Called with the current entry's
-    arguments, it drops those, which must be off (null, 0)."""
+class EarlierEntries:
+    """A library of an earlier commit whose entries lack trailing arguments
+    (just before the stream) that the current ones have: ``cuts`` maps an
+    entry to their count (the train step's ``mip`` and ``opaque_tail``,
+    before them the rail's five, ``dist_on`` .. ``disparity``, and before
+    those ``w_out``; the forward's ``mip``). Called with the current
+    entry's arguments, an entry drops those, which must be off (0, null)."""
 
-    def __init__(self, lib, has_w_out: bool):
-        self.lib, self.cut = lib, 5 + (not has_w_out)
-        entry = lib.fused_train_step
-        entry.argtypes = entry.argtypes[: -1 - self.cut] + entry.argtypes[-1:]
+    def __init__(self, lib, cuts: dict):
+        self.lib, self.cuts = lib, cuts
+        for name, cut in cuts.items():
+            entry = getattr(lib, name)
+            entry.argtypes = entry.argtypes[: -1 - cut] + entry.argtypes[-1:]
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        fn, cut = getattr(self.lib, name), self.cuts.get(name, 0)
+        if not cut:
+            return fn
 
-    def fused_train_step(self, *args):
-        check(args[-6] == 0 and (self.cut == 5 or args[-7] is None),
-              "an earlier library is asked for no rail it lacks")
-        return self.lib.fused_train_step(*args[: -1 - self.cut], args[-1])
+        def call(*args):
+            check(not any(args[-1 - cut : -1]), f"an earlier {name} is asked for nothing it lacks")
+            return fn(*args[: -1 - cut], args[-1])
+        return call
 
 
 def build_before(dirs, _build, mlp) -> list[dict]:
@@ -299,8 +331,9 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
     by copy, their ctypes libraries by source, those entries bound as the
     current library's (a train step without the distortion rail or the
-    weights output through ``EarlierTrainStep``). Prints ptxas's lines of
-    each copy's backward tile kernels."""
+    weights output, or a train step or forward without mip, through
+    ``EarlierEntries``). Prints ptxas's lines of each copy's backward tile
+    kernels."""
     libs = _build.build_copies(dirs, BEFORE_ENTRIES)
     for d in dirs:
         for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
@@ -310,8 +343,12 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     for d, c in zip(dirs, copies):
         with open(os.path.join(d, "fused_train_step.cu")) as fh:
             src = fh.read()
-        if "dist_on" not in src:
-            c["fused_train_step"] = EarlierTrainStep(c["fused_train_step"], "w_out" in src)
+        cut = 2 * ("int opaque_tail" not in src) + 5 * ("dist_on" not in src) + ("w_out" not in src)
+        if cut:
+            c["fused_train_step"] = EarlierEntries(c["fused_train_step"], {"fused_train_step": cut})
+        with open(os.path.join(d, "fused_mlp_fwd.cu")) as fh:
+            if "int mip" not in fh.read():
+                c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": 1})
     return copies
 
 
@@ -341,7 +378,7 @@ def phase_forward_before_after(dev, params, model, mlp, x16, earlier) -> dict:
 
         def fwd():
             mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, 0, cw,
-                                            image.data_ptr(), mlp._stream(xT)), what)
+                                            image.data_ptr(), 0, mlp._stream(xT)), what)
         return fwd, out
 
     old, o_old = bind(earlier, "earlier fused_mlp_fwd")
@@ -398,7 +435,7 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
         def step():
             mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, bf16,
                                                cw, wt, ws.data_ptr(), loss.data_ptr(), cg, None, 0, 0.0, 0.0,
-                                               0.0, 0, mlp._stream(x16_batch)), what)
+                                               0.0, 0, 0, 0, mlp._stream(x16_batch)), what)
         return step, loss, grads
 
     old_step, loss, grads = bind(earlier, "earlier fused_train_step")
@@ -821,7 +858,7 @@ PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
 
 
 def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
-                 split_proposal: bool = False) -> dict:
+                 split_proposal: bool = False, split_mip: bool = False) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
@@ -837,7 +874,12 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     and the rest to "before B1" (probes, the proposal MLP's encoding and
     activations, its weights, the importance samples, x16, the pack) or
     "after B1" (the pack's backward, the interlevel loss, the proposal
-    MLP's backward passes) as they fall in the step."""
+    MLP's backward passes) as they fall in the step. With ``split_mip``
+    (a two-level mip step: two B1 launches on one pack), the kernels in
+    time order go to "coarse B1" and "fine B1" (each launch, as above),
+    "adam" (by name), and the rest to "before B1" (the edges, the pack,
+    the coarse x16), "between B1s" (resample_edges, the fine x16) or
+    "after B1" (the pack's backward) as they fall in the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -855,10 +897,22 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)),  # a user annotation spans kernels
                      key=lambda e: e.time_range.start)
-    b1, n_b1, after_b1 = None, 0, False
+    b1, n_b1, after_b1, phase = None, 0, False, "before B1"
     for e in kernels:
         group = next((g for g, key in groups if key in e.name), "other")
-        if split_proposal:
+        if split_mip:
+            if group == "weight_image" and b1 is None:  # the first kernel of a B1 launch
+                b1, n_b1 = ("coarse B1", "fine B1")[n_b1 % 2], n_b1 + 1
+            if b1:
+                last = group == "sums_reduce"  # the last one
+                group = b1
+                if last:
+                    b1, phase = None, "between B1s" if b1 == "coarse B1" else "after B1"
+            elif any(k in e.name for k in STEP_GROUPS[1][1]):
+                group, phase = "adam", "before B1"
+            else:
+                group = phase
+        elif split_proposal:
             if group == "weight_image" and b1 is None:
                 b1 = "B1"
             adam = any(k in e.name for k in STEP_GROUPS[1][1])
@@ -2039,6 +2093,400 @@ def phase_prop_eval(dev, scene, work, mlp, exp):
     return res
 
 
+def mip_chunk_input(dev, focal: float = FOCAL):
+    """The mip forward's (16, 2,097,152) input for the middle chunk of a
+    400x400 frame as the mip render builds it (render/renderer.py::
+    _fused_mlp_bn_mip): N + 1 stratified edges a ray, the frustum
+    Gaussians' means in rows 0..2, unit dirs 3..5, diagonal variances
+    11..13, for the frame's cone radius 2 / sqrt(12) / focal."""
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.ops.sampling import frustum_gaussians_T, stratified_ts
+
+    pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, 0.0)[None], dtype=torch.float32, device=dev)
+    rays = rays_for_poses(pose, H, W, focal)[72000 : 72000 + CHUNK]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    edges = stratified_ts(g, CHUNK, N + 1, 2.0, 6.0, dev)
+    meanT, unitT, varT, _ = frustum_gaussians_T(rays, edges, mip_radius(focal))
+    x16 = torch.zeros((16, CHUNK, N), dtype=torch.float32, device=dev)
+    x16[0:3], x16[3:6], x16[11:14] = meanT, unitT[:, :, None], varT
+    return x16.reshape(16, CHUNK * N)
+
+
+def mip_radius(focal: float) -> float:
+    """A pixel's world-space half-width at unit distance: the cone radius
+    a unit of t that the entry points compute (mip-NeRF sec. 3.1)."""
+    return 2.0 / np.sqrt(12.0) / focal
+
+
+def phase_mip_kernels(dev, scene, model, mlp):
+    """The cone-cast variants against their plain versions, nets from
+    ``derive_seed(SEED, 0)`` (the mip run's init): the forward with the
+    integrated encoder at a 2,097,152-row render chunk (and at zero
+    variance bit-equal to the point forward); B1 with mip at the training
+    batch (4096 rays x N_SAMPLES intervals of the scene, 524,288 rows, the
+    scene's cone radius) in four cases: plain, with the weights output,
+    with the opaque tail, with the interval rail and per-ray loss weights
+    in [0.25, 2] on row 14; B2 with mip on seeded cotangents. f32 and
+    bf16; ms (CUDA events, median of 5) and the plain version's."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.render.renderer import derive_seed
+    from nerf_simple_tpu_torch.train.step import build_x16_mip
+
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(derive_seed(SEED, 0), model), dev))
+    stats = {}
+    x = mip_chunk_input(dev)
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            before = mlp.fused_mlp_forward.mip_launches
+            got = mlp.fused_mlp_forward(w, x, dt, model, mip=True)
+            torch.cuda.synchronize()
+            launched = mlp.fused_mlp_forward.mip_launches - before
+            want = mlp.fused_mlp_forward_plain(w, x, dt, model, mip=True)
+            err = (got[:4] - want[:4]).abs().max().item()
+            x0 = x.clone()
+            x0[11:14] = 0.0
+            point_equal = torch.equal(mlp.fused_mlp_forward(w, x0, dt, model, mip=True),
+                                      mlp.fused_mlp_forward(w, x0[:8].contiguous(), dt, model))
+            del got, want, x0
+            st = dict(err=err, ms=cuda_ms(lambda: mlp.fused_mlp_forward(w, x, dt, model, mip=True)),
+                      point_ms=cuda_ms(lambda: mlp.fused_mlp_forward(w, x[:8].contiguous(), dt, model)),
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_forward_plain(w, x, dt, model, mip=True), reps=3),
+                      rows=x.shape[1], point_equal=point_equal)
+            torch.cuda.empty_cache()
+            print(f"mip forward (integrated encoder) vs plain {name} at {x.shape[1]} rows: max abs err {err:.3e} "
+                  f"(tol {TOL[dt]:.0e}); kernel {st['ms']:.3f} ms (the point forward {st['point_ms']:.3f} ms), plain "
+                  f"{st['plain_ms']:.3f} ms; at zero variance bit-equal to the point forward: {point_equal}",
+                  flush=True)
+            check(launched == 1 and err <= TOL[dt], f"the mip forward {name} matches plain")
+            check(point_equal, f"the mip forward {name} at zero variance is the point forward")
+            stats[f"fwd_{name}"] = st
+    del x
+    torch.cuda.empty_cache()
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    del rd
+    edges = stratified_ts(g, BATCH, N_SAMPLES + 1, 2.0, 6.0, dev)
+    x16 = build_x16_mip(rays_b, edges, pix_b, mip_radius(scene_focal(scene)))
+    x16_lw = x16.clone()
+    x16_lw[14] = torch.from_numpy(np.random.default_rng(SEED).uniform(0.25, 2.0, BATCH).astype(np.float32)).to(
+        dev).repeat_interleave(N_SAMPLES)
+    cases = {"plain": (x16, {}), "weights": (x16, dict(out_weights=True)), "opaque": (x16, dict(opaque_tail=True)),
+             "rail": (x16_lw, dict(dist=(DIST_LAMBDA, 2.0, 6.0, False)))}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            for case, (xc, kw) in cases.items():
+                before = (mlp.fused_train_step.mip_launches, mlp.fused_train_step.opaque_launches)
+                out = mlp.fused_train_step(w, xc, N_SAMPLES, dt, model, mip=True, **kw)
+                torch.cuda.synchronize()
+                launched = (mlp.fused_train_step.mip_launches - before[0],
+                            mlp.fused_train_step.opaque_launches - before[1])
+                want = mlp.fused_train_step_plain(w, xc, N_SAMPLES, dt, model, mip=True, **kw)
+                check(all(bool(torch.isfinite(t).all()) for t in out[1]), f"B1 mip {case} {name} finite")
+                rel, abs_err = grad_errors(out[1], want[1])
+                loss_err = abs(out[0].item() / want[0].item() - 1)
+                w_err = (out[2] - want[2]).abs().max().item() if kw.get("out_weights") else 0.0
+                del out, want
+                torch.cuda.empty_cache()
+                st = dict(err=max(abs_err, w_err), rel=rel, loss_err=loss_err, w_err=w_err, rows=xc.shape[1],
+                          ms=cuda_ms(lambda: mlp.fused_train_step(w, xc, N_SAMPLES, dt, model, mip=True, **kw)),
+                          plain_ms=cuda_ms(lambda: mlp.fused_train_step_plain(w, xc, N_SAMPLES, dt, model, mip=True,
+                                                                              **kw), reps=3))
+                torch.cuda.empty_cache()
+                print(f"B1 mip {case} vs plain {name} at {xc.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                      f"{GRAD_TOL['B1', dt]:.0e}), loss rel err {loss_err:.2e} (tol {LOSS_TOL[dt]:.0e})"
+                      + (f", weights max abs err {w_err:.3e} (tol {TOL[dt]:.0e})" if kw.get("out_weights") else "")
+                      + f"; kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms; launches (mip, opaque) "
+                      f"{launched}", flush=True)
+                check(launched == (1, int(case == "opaque")), f"B1 mip {case} {name} counted")
+                check(rel <= GRAD_TOL["B1", dt] and loss_err <= LOSS_TOL[dt] and w_err <= TOL[dt],
+                      f"B1 mip {case} {name} within tolerance")
+                stats[f"b1_{case}_{name}"] = st
+            gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, x16.shape[1])).astype(np.float32)).to(dev)
+            got = mlp.fused_mlp_backward(w, x16, gT, dt, model, mip=True)
+            want = mlp.fused_mlp_backward_plain(w, x16, gT, dt, model, mip=True)
+            rel, abs_err = grad_errors(got, want)
+            del got, want
+            torch.cuda.empty_cache()
+            st = dict(err=abs_err, rel=rel, rows=x16.shape[1],
+                      ms=cuda_ms(lambda: mlp.fused_mlp_backward(w, x16, gT, dt, model, mip=True)),
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_backward_plain(w, x16, gT, dt, model, mip=True), reps=3))
+            torch.cuda.empty_cache()
+            print(f"B2 mip vs plain {name} at {x16.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                  f"{GRAD_TOL['B2', dt]:.0e}); kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms", flush=True)
+            check(rel <= GRAD_TOL["B2", dt], f"B2 mip {name} within tolerance")
+            stats[f"b2_{name}"] = st
+            del gT
+    del x16, x16_lw
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_mip_train(dev, scene, work, mlp):
+    """Train configs/lego_mip.yaml's keys through train() (bf16, pallas,
+    mip_levels 2: two cone-cast B1 launches a step on one pack, the coarse
+    one with the weights output), 300 steps + 100 resumed; the step's
+    wall, host issue and profile by pass (kernels in time order: before
+    B1, coarse B1, between the two (resample_edges, the fine x16), fine B1,
+    after B1, Adam; resample_edges and one x16 build also alone), the idle
+    share; then f32 steps from one state, the fused core against the
+    autograd path (the forward kernel and B2, both with mip)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.ops.sampling import resample_edges, stratified_ts
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, build_x16_mip, make_train_state
+
+    iters, more = 300, 100
+    cfg = load_yaml("configs/lego_mip.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_mip"),
+               num_iters=iters, ckpt_loss=1, ckpt_images=150, ckpt_model=150, steps_per_call=50)
+    check(cfg["mip"] and cfg["mip_levels"] == 2 and cfg["Nf"] == N_SAMPLES and cfg["backend"] == "pallas"
+          and cfg["compute_dtype"] == "bf16", "the mip config's keys")
+    b1 = mlp.fused_train_step
+    counts = ("launches", "weights_launches", "mip_launches", "opaque_launches", "dist_launches")
+    for c in counts:
+        setattr(b1, c, 0)
+    mlp.fused_mlp_forward.launches = mlp.fused_mlp_forward.mip_launches = 0
+    mlp.wgrad_sums_launches(reset=True)
+    mlp.bwd_tile_launches(reset=True)
+    log = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {c: getattr(b1, c) for c in counts}
+    launches.update(fused_mlp_forward=mlp.fused_mlp_forward.launches,
+                    fused_mlp_forward_mip=mlp.fused_mlp_forward.mip_launches,
+                    wgrad_sums=mlp.wgrad_sums_launches(), bwd_tile=mlp.bwd_tile_launches())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg.update(resume=True, num_iters=iters + more)
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    resumed = b1.mip_launches - launches["mip_launches"]
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_mip_log.txt"), "w") as fh:
+        fh.write(text)
+    for line in text.splitlines():
+        if "resumed from" in line or "final checkpoint" in line or "Val image" in line:
+            print("train mip:", line, flush=True)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    psnr = scalars(cfg["log_dir"], "Loss/Val_Img_PSNR_0")
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[iters - 50 : iters]))
+    print(f"train mip: {iters} steps in {train_s:.1f} s with builds and renders; launches {launches}; mean loss "
+          f"(0.1 coarse + fine) of the first 50 steps {first:.5f}, of steps {iters - 50}-{iters} {last:.5f}; val "
+          f"PSNR(0) {', '.join(f'{p:.2f}' for p in psnr)} dB; peak device memory {peak_gb:.2f} GB", flush=True)
+    check(launches["launches"] == launches["mip_launches"] == 2 * iters,
+          "two cone-cast B1 launches a mip_levels: 2 step")
+    check(launches["weights_launches"] == iters and launches["opaque_launches"] == launches["dist_launches"] == 0,
+          "one of them, the coarse level, with the weights output")
+    check(launches["wgrad_sums"] == 2 * iters and launches["bwd_tile"] == 2 * iters,
+          "the sums and the backward tile kernel twice a step")
+    check(launches["fused_mlp_forward_mip"] > 0 and launches["fused_mlp_forward_mip"] == launches["fused_mlp_forward"],
+          "val renders went through the forward kernel's integrated encoder")
+    check(all(np.isfinite(losses)) and len(losses) == iters + more, "every loss logged and finite")
+    check(last <= 0.5 * first, "the mip loss at least halved")
+    check(psnr[-1] > psnr[0], "mip val PSNR rose")
+    check("resumed from" in text and resumed == 2 * more and state.step == iters + more, "resume added the steps")
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    check(np.array_equal(load_params(os.path.join(exp, f"params_{iters + more}.pth"))["skip"]["w"],
+                         state.field.to_jax_params()["skip"]["w"]), "the .pth export is the field")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    radius = mip_radius(scene_focal(scene))
+    step_fn = build_train_step(tcfg, model, base_radius=radius)
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+
+    def step():
+        return step_fn(state, rays, pixels)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = step_walls(step)
+    step_ms = walls["ms"]
+    others, host = {}, {}
+    prof = profile_step(step, others, host, split_mip=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / step_ms if prof else None
+    # the pieces between the two B1 launches, alone (bf16 weights of the trained field)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    rays_b, pix_b = sample_ray_batch(g, rays, pixels, BATCH)
+    edges = stratified_ts(g, BATCH, N_SAMPLES + 1, 2.0, 6.0, dev)
+    w_c = torch.rand((BATCH, N_SAMPLES), generator=g, device=dev)
+    pieces = {"resample_edges": sum(profile_step(lambda: resample_edges(g, edges, w_c, N_SAMPLES)).values()),
+              "x16_build": sum(profile_step(lambda: build_x16_mip(rays_b, edges, pix_b, radius)).values())}
+    print(f"train step mip bf16 steady state: {step_ms:.3f} ms a step, {BATCH / step_ms * 1e3:,.0f} rays/s (CUDA "
+          f"events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a "
+          f"step in {walls['host_ms']:.3f} ms", flush=True)
+    print("train step mip bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {step_ms:.3f} ms, idle share {idle:.3f}; alone, kernel ms a call: "
+        f"resample_edges {pieces['resample_edges']:.3f}, one x16 build {pieces['x16_build']:.3f}"
+        if prof else "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step mip bf16 profile, the group other by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    print(f"train step mip bf16 profile, host self time a step: torch ops {sum(host.values()):.3f} ms (profiled); "
+          + "; ".join(f"{n} {v:.3f}" for n, v in sorted(host.items(), key=lambda kv: -kv[1])[:10]), flush=True)
+    del state, rd
+    torch.cuda.empty_cache()
+
+    # f32: the fused two-level core against the autograd path, one step from one state
+    cfg32 = dataclasses.replace(tcfg, compute_dtype="f32")
+    runs = {}
+    mlp.fused_mlp_backward.launches = mlp.fused_mlp_backward.mip_launches = 0
+    for name, fused in (("fused", True), ("autograd", False)):
+        st = make_train_state(cfg32, model, dev)
+        with warnings.catch_warnings():  # the autograd path under pallas warns, as JAX does
+            warnings.simplefilter("ignore")
+            fn = build_train_step(cfg32, model, fused=fused, base_radius=radius)
+        runs[name] = float(fn(st, rays, pixels)), st.field.to_jax_params()
+        del st
+        torch.cuda.empty_cache()
+    b2_launches = (mlp.fused_mlp_backward.launches, mlp.fused_mlp_backward.mip_launches)
+    (l_f, p_f), (l_a, p_a) = runs["fused"], runs["autograd"]
+    bad = total = 0
+    for layer in p_a:
+        for n in ("w", "b"):
+            a, b = p_f[layer][n], p_a[layer][n]
+            bad += int((np.abs(a - b) > 5e-5 + 1e-3 * np.abs(b)).sum())
+            total += a.size
+    loss_rel = abs(l_f / l_a - 1)
+    print(f"f32 mip step from one state: fused two-level core loss {l_f:.6f}, autograd (forward kernel + B2, mip) "
+          f"{l_a:.6f}, rel diff {loss_rel:.2e} (tol {MIP_LOSS_RTOL:.0e}); parameters past the bin-flip rule "
+          f"{bad}/{total} (tol {BIN_FLIP_SHARE:.1%}); B2 launches (all, mip) {b2_launches}", flush=True)
+    check(loss_rel <= MIP_LOSS_RTOL, "fused and autograd mip losses agree")
+    check(bad / total < BIN_FLIP_SHARE, "fused and autograd mip steps agree under the bin-flip rule")
+    check(b2_launches == (2, 2), "the autograd path went through B2's mip variant once a level")
+    return dict(launches=launches, step_ms=step_ms, host_ms=walls["host_ms"], profile=prof, pieces=pieces,
+                idle=idle, peak_gb=peak_gb, loss_rel_f32=loss_rel, bin_flips=bad / total, psnr=psnr, first=first,
+                last=last, exp=exp, b2_launches=b2_launches[1])
+
+
+def phase_mip_eval(dev, scene, work, mlp, exp):
+    """evaluate.test with lego_mip.yaml's test_params (mip_levels 2,
+    N_samples 128, chunks of 16,384 rays) in bf16 on the pallas backend:
+    stills 0 and 1; ms a two-level 400x400 mip frame; then ``python -m
+    nerf_simple_tpu_torch.serve --mip --mip-levels 2`` in a process of its
+    own serves one frame over HTTP, which must match
+    ``render_rays_chunked`` to 1 level."""
+    import sys
+
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.serve import decode_png
+
+    tp = load_yaml("configs/lego_mip.yaml")["test_params"]
+    check(tp["mip"] and tp["mip_levels"] == 2 and tp["N_samples"] == N_SAMPLES, "the mip test_params")
+    tp.update(loadpath=exp, datapath=scene, savepath=os.path.join(work, "results_mip"), backend="pallas",
+              compute_dtype="bf16", im_idxs=[0, 1])
+    log = io.StringIO()
+    mlp.fused_mlp_forward.launches = mlp.fused_mlp_forward.mip_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test(tp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = mlp.fused_mlp_forward.mip_launches
+    text = log.getvalue()
+    for line in text.splitlines():
+        print("eval mip:", line, flush=True)
+    psnr = {int(i): float(p) for i, p in re.findall(r"im (\d+): mse=\S+ psnr=(\S+)", text)}
+    n_chunks = -(-H * W // CHUNK)
+    check(sorted(psnr) == [0, 1] and min(psnr.values()) >= 20.0, "mip test PSNR >= 20 dB")
+    check(launches == mlp.fused_mlp_forward.launches == 2 * 2 * n_chunks,
+          "each still's chunks went through the mip forward kernel, at both levels")
+
+    field = NerfField.from_jax_params(load_params(exp), dev)
+    focal = scene_focal(scene)
+    s = RenderSettings(N=N_SAMPLES, backend="pallas", compute_dtype=torch.bfloat16, mip=True, mip_levels=2,
+                       base_radius=mip_radius(focal))
+
+    def frame(phi):
+        pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, phi)[None], dtype=torch.float32, device=dev)
+        return render_rays_chunked(field, rays_for_poses(pose, H, W, focal), 0, s, chunk=tp["batch_size"])
+
+    times = []
+    for _ in range(4):  # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, disp = frame(0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(disp).all()), "mip frame finite")
+    frame_ms = float(np.median(times[1:]))
+
+    port = free_port()
+    served_log = open(os.path.join(OUT, "serve_mip_log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath", os.path.join(exp, "params_400.npz"),
+         "--height", str(H), "--width", str(W), "--focal", repr(float(focal)), "--backend", "pallas", "--dtype", "bf16",
+         "--samples", str(N_SAMPLES), "--mip", "--mip-levels", "2", "--port", str(port)],
+        stdout=served_log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                health = json.loads(get(url + "/health")[0])
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    with open(served_log.name) as fh:
+                        print(fh.read()[-3000:], flush=True)
+                    check(False, "the mip server started")
+                time.sleep(1.0)
+        t0 = time.perf_counter()
+        data, ctype = get(f"{url}/render?r=4&theta=-30&phi=30")
+        http_ms = (time.perf_counter() - t0) * 1e3
+        health_after = json.loads(get(url + "/health")[0])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        served_log.close()
+    check(health["mip"] is True and ctype == "image/png", "/health of the mip server")
+    served = decode_png(data)
+    want = (frame(30.0)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
+    u8_err = int(np.abs(served.astype(int) - want.astype(int)).max())
+    served_launches = health_after["kernel_launches"] - health["kernel_launches"]
+    res = dict(psnr=psnr, s_per_still=secs / 2, frame_ms=frame_ms, launches=launches, served_u8_err=u8_err,
+               served_launches=served_launches, http_ms=http_ms)
+    print(f"eval mip: test PSNR {psnr[0]:.2f} / {psnr[1]:.2f} dB; {res['s_per_still']:.2f} s a still (evaluate.test "
+          f"wall, loading included); a {H}x{W} two-level mip frame at N={N_SAMPLES}, bf16: {frame_ms:.1f} ms (median "
+          f"of 3, runs {', '.join(f'{t:.1f}' for t in times[1:])}); mip forward launches {launches} (stills); served "
+          f"over HTTP by the CLI with --mip --mip-levels 2: {len(data)} B PNG in {http_ms:.1f} ms, {served_launches} "
+          f"forward launches, max diff from render_rays_chunked {u8_err} levels", flush=True)
+    check(u8_err <= 1, "the served mip frame matches render_rays_chunked to 1 level")
+    check(served_launches == 2 * n_chunks, "the served frame's chunks went through the forward kernel, both levels")
+    return res
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -2133,6 +2581,8 @@ def main() -> None:
             b32 = phase_before_after(dev, params, model, mlp, batch, earlier["fused_train_step"], torch.float32)
             del batch
             before["f32"] = {**fwd_turns, **b32}
+            check(before["b1_bitwise"] and b32["b1_bitwise"],
+                  "B1's point launch, bf16 and f32, bit-equal to the earlier library's")
             f, b = fwd_turns["fwd_ms"], b32["b1_ms"]
             print(f"before/after f32: forward at {fwd_turns['rows']} rows earlier {f['earlier']:.3f} ms, current "
                   f"{f['current']:.3f} ms (max abs diff {fwd_turns['fwd_err']:.2e}); B1 at {BATCH * N_SAMPLES} rows "
@@ -2176,7 +2626,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         pe = phase_prop_eval(dev, scene, work, mlp, pt["exp"])
         walls["proposal"] = time.perf_counter() - t_phase
-    # 12. the padding probe
+        # 12. mip cone casting: the cone-cast kernel variants vs plain, training, eval, serving
+        t_phase = time.perf_counter()
+        mk = phase_mip_kernels(dev, scene, model, mlp)
+        torch.cuda.empty_cache()
+        mt = phase_mip_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        me = phase_mip_eval(dev, scene, work, mlp, mt["exp"])
+        walls["mip"] = time.perf_counter() - t_phase
+    # 13. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -2263,6 +2721,46 @@ def main() -> None:
         "f32_loss_rel": pt["loss_rel_f32"], "f32_params_past_rule": pt["params_past_rule"],
         "eval_psnr": pe["psnr"], "eval_s_per_still": pe["s_per_still"], "frame_ms_bf16": pe["frame_ms"],
         "served_u8_err": pe["served_u8_err"]}
+    # the cone-cast variants: the forward reads 9 of its 16 input rows (means,
+    # dirs, variances) and writes 8; B1 reads 15 (row 15 is unread) and B2 9
+    # with its 8 cotangent rows, and each writes the packed gradients
+    mip_fwd = {k: dict(err=mk[f"fwd_{k}"]["err"], ms=mk[f"fwd_{k}"]["ms"], plain_ms=mk[f"fwd_{k}"]["plain_ms"])
+               for k in ("f32", "bf16")}
+    mip_b2 = {k: dict(err=mk[f"b2_{k}"]["err"], ms=mk[f"b2_{k}"]["ms"], plain_ms=mk[f"b2_{k}"]["plain_ms"])
+              for k in ("f32", "bf16")}
+
+    def mip_fields(st, flops, nbytes, launches, **extra):
+        return {"launches": launches, "max_abs_err": st["f32"]["err"], "ms": st["f32"]["ms"],
+                "plain_ms": st["f32"]["plain_ms"], "max_abs_err_bf16": st["bf16"]["err"], "ms_bf16": st["bf16"]["ms"],
+                "plain_ms_bf16": st["bf16"]["plain_ms"], **bounds(flops, nbytes), "library_ms": None, **extra}
+
+    mip_b1 = {case: {f"{k}{'' if dt == 'f32' else '_bf16'}": mk[f"b1_{case}_{dt}"][k] for dt in ("f32", "bf16")
+                     for k in ("ms", "plain_ms", "rel", "loss_err", "w_err")} for case in ("plain", "weights", "opaque",
+                                                                                       "rail")}
+    mip_train = {  # the two-level mip step: two cone-cast B1 launches, the coarse one with the weights output
+        **mip_fields({k: dict(err=max(mk[f"b1_{c}_{k}"]["err"] for c in mip_b1), ms=mk[f"b1_plain_{k}"]["ms"],
+                              plain_ms=mk[f"b1_plain_{k}"]["plain_ms"]) for k in ("f32", "bf16")},
+                     2 * train_macs * batch_rows, 4 * 15 * batch_rows + grad_bytes, mt["launches"]["mip_launches"]),
+        "source": "nerf_simple_tpu_torch/csrc/fused_train_step.cu (composite_grad, dist_grad, rail_pos; "
+                  "composite.cuh sample_at; the encoders of fwd_f32.cuh and fwd_bf16.cuh)",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:1283-1291, :1317-1328, :1353-1373, :1406, :473-477",
+        "weights_launches": mt["launches"]["weights_launches"], "opaque_launches": mt["launches"]["opaque_launches"],
+        "cases": mip_b1, "step_ms_bf16": mt["step_ms"], "step_host_ms_bf16": mt["host_ms"],
+        "step_profile_ms_bf16": mt["profile"], "pieces_ms_bf16": mt["pieces"], "idle_share": mt["idle"],
+        "peak_gb": mt["peak_gb"], "f32_loss_rel": mt["loss_rel_f32"], "f32_bin_flips": mt["bin_flips"],
+        "eval_psnr": me["psnr"], "eval_s_per_still": me["s_per_still"], "frame_ms_bf16": me["frame_ms"],
+        "served_u8_err": me["served_u8_err"]}
+    mip_rows = mk["fwd_f32"]["rows"]
+    mip_forward = {**mip_fields(mip_fwd, 2 * fwd_macs * mip_rows, 4 * 17 * mip_rows, me["launches"],
+                                point_ms=mk["fwd_f32"]["point_ms"], point_ms_bf16=mk["fwd_bf16"]["point_ms"],
+                                rows=mip_rows, train_launches=mt["launches"]["fused_mlp_forward_mip"],
+                                served_launches=me["served_launches"]),
+                   "source": "nerf_simple_tpu_torch/csrc/fwd_f32.cuh, fwd_bf16.cuh (encode)",
+                   "replaces": "nerf_simple_tpu/kernels/mlp.py:473-477 (Sv :175)"}
+    mip_backward = {**mip_fields(mip_b2, 2 * train_macs * batch_rows, 4 * 17 * batch_rows + grad_bytes,
+                                 mt["b2_launches"], rows=batch_rows),
+                    "source": "nerf_simple_tpu_torch/csrc/fused_mlp_bwd.cu (the forward's encoders)",
+                    "replaces": "nerf_simple_tpu/kernels/mlp.py:702, :717"}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -2280,10 +2778,11 @@ def main() -> None:
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
               proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
               proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
-              eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"]),
+              eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"],
+              mip=mip_forward),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
-              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"]),
+              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward),
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],
@@ -2298,7 +2797,7 @@ def main() -> None:
               hierarchical_frame_ms_bf16=he["frame_ms"], hierarchical_eval_psnr=he["psnr"],
               hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
               b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist,
-              weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal),
+              weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),

@@ -79,6 +79,17 @@ class TrainConfig:
     prop_H: int = 64
     proposal_loss_weight: float = 1.0
     prop_anneal_frac: float = 0.0
+    # mip-NeRF cone casting: every sample is a conical frustum between two
+    # of Nf + 1 edges, encoded by the integrated positional encoding;
+    # mip_levels: 2 renders a coarse and a fine level with one network, the
+    # fine edges resampled from the coarse weights (resample_blur the
+    # padding), the loss mip_coarse_weight * coarse + fine;
+    # opaque_background makes the last interval absorb what is left
+    mip: bool = False
+    mip_levels: int = 1
+    mip_coarse_weight: float = 0.1
+    resample_blur: float = 0.01
+    opaque_background: bool = False
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -127,6 +138,40 @@ class TrainConfig:
             raise ValueError(f"depth_loss_weight must be >= 0, got {self.depth_loss_weight}")
         if self.distortion_loss_weight < 0:
             raise ValueError(f"distortion_loss_weight must be >= 0, got {self.distortion_loss_weight}")
+        # the JAX TrainConfig's mip rules (nerf_simple_tpu/config.py:335-390, :451)
+        if self.mip and self.hierarchical:
+            raise ValueError(
+                "mip=True is incompatible with hierarchical: cone casting integrates frustum VOLUMES "
+                "(NerfMLP IPE only) and draws its own interval edges"
+            )
+        if self.mip_levels not in (1, 2):
+            raise ValueError(f"mip_levels must be 1 or 2, got {self.mip_levels}")
+        if self.resample_blur < 0:
+            raise ValueError(f"resample_blur must be >= 0, got {self.resample_blur}")
+        if self.opaque_background and not self.mip:
+            raise ValueError(
+                "opaque_background modifies INTERVAL compositing and needs mip=True (the point path "
+                "already has the 1e10 tail absorber built in)"
+            )
+        if self.mip_levels == 2 and not self.mip:
+            raise ValueError("mip_levels=2 (coarse+fine cone casting) requires mip=True")
+        if self.mip_levels == 2 and self.proposal:
+            raise ValueError(
+                "mip_levels=2 and proposal=True both define the coarse level (shared-MLP cone "
+                "resampling vs the proposal histogram); pick one"
+            )
+        if self.mip_levels == 2 and self.distortion_loss_weight > 0:
+            raise ValueError(
+                "distortion_loss_weight > 0 with mip_levels=2 is not supported (the fine level's "
+                "interval edges live inside the two-level renderer)"
+            )
+        if self.mip_coarse_weight < 0:
+            raise ValueError(f"mip_coarse_weight must be >= 0, got {self.mip_coarse_weight}")
+        if self.mip and self.proposal:
+            raise NotImplementedError(
+                "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
+                "ported yet: ROADMAP Queue A item 5, mip x proposal"
+            )
 
     @property
     def render_dtype(self):
@@ -139,8 +184,7 @@ class TrainConfig:
 # (JAX default, ROADMAP item). At the default a key changes nothing.
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "mip": {"mip": False, "mip_levels": 1, "mip_coarse_weight": 0.1, "resample_blur": 0.01,
-            "opaque_background": False, "mip_multiscale": False},
+    "mip multiscale training": {"mip_multiscale": False},
     "contract with disparity spacing": {"contract": False},
     "pose/appearance": {"appearance_dim": 0, "pose_opt": False, "pose_lr_init": 1e-3,
                         "pose_lr_final": 1e-5, "pose_warmup": 300, "pose_freeze_at": 0,
@@ -209,6 +253,11 @@ class TestConfig:
     tn: float = 2.0
     tf: float = 6.0
     N_samples: int = 128  # hardcoded 128 in the reference (rendering.py:102)
+    # cone-cast eval (the radius from the eval frame's focal), at one or
+    # two levels, the fine level's edges resampled with resample_blur
+    mip: bool = False
+    mip_levels: int = 1
+    resample_blur: float = 0.01
     # the JAX TestConfig accepts it without mip; here it raises (see below)
     opaque_background: bool = False
     sampling_space: str = "linear"
@@ -227,7 +276,23 @@ class TestConfig:
                 "Np > 0 (proposal-guided eval) and Nc > 0 (hierarchical eval) are alternative "
                 "samplers; set at most one"
             )
-        if self.opaque_background:
+        if self.mip and self.Nc > 0:  # the JAX TestConfig's mip rules (config.py:736-759)
+            raise ValueError(
+                "mip=True (cone-cast eval) draws its own interval edges; it excludes Nc point "
+                "resampling (mip_levels: 2 is the cone-cast hierarchical scheme)"
+            )
+        if self.mip and self.mip_levels == 2 and self.Np > 0:
+            raise ValueError("mip_levels=2 and Np > 0 both define the coarse level; pick one")
+        if self.mip_levels not in (1, 2):
+            raise ValueError(f"mip_levels must be 1 or 2, got {self.mip_levels}")
+        if self.mip_levels == 2 and not self.mip:
+            raise ValueError("mip_levels=2 (coarse+fine cone casting) requires mip=True")
+        if self.mip and self.Np > 0:
+            raise NotImplementedError(
+                "mip=True with Np > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported "
+                "yet: ROADMAP Queue A item 5, mip x proposal"
+            )
+        if self.opaque_background and not self.mip:
             # the JAX TrainConfig's rule (config.py:368-373), which its
             # TestConfig lacks (ROADMAP, Queue C's deliberate behaviour
             # changes)
@@ -262,7 +327,6 @@ class TestConfig:
 # _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
 _TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "mip": {"mip": False, "mip_levels": 1, "resample_blur": 0.01},
     "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
                   "occ_aabb": 4.0, "occ_group": 1},
     "data parallelism": {"num_data_shards": 1},

@@ -4,9 +4,12 @@
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_fused_mlp_bwd (the
 // pallas_call of _bwd_kernel -> _forward_tile -> _backprop_tile ->
-// _accumulate_grads), with want_dx=False, point variant, no anneal.
+// _accumulate_grads), with want_dx=False, point and mip variants (the mip
+// one recomputes the forward with the integrated encoder, :702, :717), no
+// anneal.
 //
-// Contract: x (8, rows) f32 as for the forward; g (8, rows) f32 with
+// Contract: x (8, rows) f32 as for the forward, or (16, rows) with `mip`
+// (csrc/fused_mlp_fwd.cu); g (8, rows) f32 with
 // d_rgb in rows 0..2 and d_sigma in row 3 (rows 4..7 are not read).
 // Gradients are f32 in the packed shapes. Biases come out as row sums of
 // the cotangents (the TPU kernel carried three of them on a constant
@@ -54,13 +57,13 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 // `wt` is not read (mlp_tile.cuh's WeightsT).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
-                  Grads out, void *stream) {
+                  Grads out, int mip, void *stream) {
   if (!arch_ok(Lp, Ld, H)) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
-  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
+  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, s)) return e;
   return backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s);
 }
 

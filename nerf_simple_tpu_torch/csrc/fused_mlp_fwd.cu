@@ -3,11 +3,15 @@
 // sample rows, with every intermediate activation kept in shared memory.
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::fused_mlp_forward (the
-// pallas_call of _fwd_kernel -> _forward_tile -> _encode), point variant
-// only (no mip, BARF anneal, appearance rail or contraction).
+// pallas_call of _fwd_kernel -> _forward_tile -> _encode), point and mip
+// variants (no BARF anneal, appearance rail or contraction).
 //
 // Contract (same as the TPU kernel): x is (8, rows) f32 feature-major --
-// rows 0..2 sample xyz, rows 3..5 unit view direction. out is (8, rows)
+// rows 0..2 sample xyz, rows 3..5 unit view direction; with `mip`, x is
+// (16, rows): rows 0..2 the frustum Gaussians' means, 3..5 the unit view
+// direction, 11..13 their diagonal variances, and the encoder is the
+// integrated one (mip-NeRF's IPE: each sin and cos of coordinate c at
+// frequency 2^i times exp(-0.5 * 4^i * var_c)). out is (8, rows)
 // f32: raw rgb in rows 0..2, raw sigma in row 3, zeros in rows 4..7. The
 // weights are pack_weights' FusedWeights, (out, in) row-major; matrices
 // in the compute type (f32 or bf16), biases f32.
@@ -64,19 +68,19 @@ int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image,
 // `res` ((FA, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
 // rounded up to 64, 16-byte aligned): for tests.
 int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, int Ld, int H, int is_bf16,
-                            Weights w, void *res, void *image, void *stream) {
+                            Weights w, void *res, void *image, int mip, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, static_cast<cudaStream_t>(stream));
+  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip != 0, static_cast<cudaStream_t>(stream));
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller allocates `out` (8, rows) f32 and the scratch `image`, and checks
 // shapes and types.
 int fused_mlp_fwd(const float *x, float *out, long long rows, int Lp, int Ld,
-                  int H, int is_bf16, Weights w, void *image, void *stream) {
+                  int H, int is_bf16, Weights w, void *image, int mip, void *stream) {
   if (!arch_ok(Lp, Ld, H)) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image,
+  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, mip != 0,
                  static_cast<cudaStream_t>(stream));
 }
 

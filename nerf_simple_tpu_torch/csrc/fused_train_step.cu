@@ -1,13 +1,14 @@
-// Fused NeRF train step for Hopper (sm_90a): forward, point compositing,
-// the MSE loss and its gradient, and the full backward to the packed
-// weight gradients, for one batch of whole rays.
+// Fused NeRF train step for Hopper (sm_90a): forward, compositing, the
+// MSE loss and its gradient, and the full backward to the packed weight
+// gradients, for one batch of whole rays.
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::fused_train_step (the
 // pallas_call of _train_kernel -> _forward_tile -> _composite_grad_block
-// -> _backprop_tile), point branch without mip or opaque tail, with the
-// optional weights output (`out_weights`, which the hierarchical scheme's
-// importance sampler reads) and the optional distortion rail in point
-// form (`dist`, _composite_grad_block's non-mip branch).
+// -> _backprop_tile), point and mip branches, with the optional weights
+// output (`out_weights`, which the hierarchical scheme's importance
+// sampler and mip's fine level read), the optional distortion rail
+// (`dist`, point form and interval form) and, under mip, the optional
+// opaque tail (`opaque_tail`, mip-NeRF 360's opaque background).
 //
 // Contract: x16 (16, B*N) f32 -- rows 0..2 sample xyz, 3..5 unit view
 // dir, 6 ts, 8..10 the ray's gt colour on every sample; ray b's samples
@@ -22,6 +23,17 @@
 // prefix sums of wm and wm * s, d_k = s_{k+1} - s_k and 0 at the tail;
 // dist_scale is the loss weight over B. With dist_on == 0 the kernels do
 // exactly what they do without the rail.
+//
+// Mip (cone casting; train/step.py::build_x16_mip): rows 0..2 hold the
+// frustum Gaussians' means and 11..13 their diagonal variances, which the
+// forward's integrated encoder reads; row 6 holds each interval's width,
+// composited as the delta itself (no 1e10 tail, so acc < 1 where light
+// passes), row 7 its near edge t0, row 14 the ray's loss weight on its
+// samples: the ray's squared error and d_rgb are scaled by it. The rail
+// takes its interval form: s_k the midpoint of s(t0) and s(t0 + width),
+// d_k = s(t0 + width) - s(t0), and no tail is dropped. With opaque_tail
+// the last interval's delta is 1e10 and the rail drops it (wm and d_k 0
+// there, its d_w term 0), though compositing keeps it.
 //
 // Design: the forward tile kernel and the backward of csrc/
 // fused_mlp_bwd.cu (mlp_tile.cuh: residuals in a device-memory workspace,
@@ -45,28 +57,50 @@
 namespace {
 
 // The distortion rail's parameters: s = (t - a) / den, or with
-// `disparity` (a - 1 / max(t, 1e-10)) / den.
+// `disparity` (a - 1 / max(t, 1e-10)) / den; and the compositing's form
+// (`mip`: intervals; `opaque`: the last interval's delta is 1e10).
 struct DistRail {
   int on, disparity;
   float scale, a, den;
+  bool mip, opaque;
+  // the rail drops the tail sample in point form, and the last interval
+  // under an opaque tail
+  __device__ bool drops(int k, int N) const { return k == N - 1 && (!mip || opaque); }
 };
 
 __device__ __forceinline__ float s_of(const DistRail &d, float t) {
   return d.disparity ? (d.a - 1.f / fmaxf(t, 1e-10f)) / d.den : (t - d.a) / d.den;
 }
 
+// The rail's position of sample k at column `col` in s-space, and with
+// `ds` its width: point form, s(t_k) and s(t_{k+1}) - s(t_k) (not read at
+// the tail, which the rail drops); interval form, the midpoint of s(t0)
+// and s(t0 + width) and their difference.
+__device__ __forceinline__ float rail_pos(const DistRail &d, const float *x16, long long R, long long col,
+                                          int k, int N, float *ds) {
+  if (d.mip) {
+    const float t0 = x16[7 * R + col], s0 = s_of(d, t0), s1 = s_of(d, t0 + x16[6 * R + col]);
+    if (ds) *ds = s1 - s0;
+    return 0.5f * (s0 + s1);
+  }
+  const float s = s_of(d, x16[6 * R + col]);
+  if (ds && k < N - 1) *ds = s_of(d, x16[6 * R + col + 1]) - s;
+  return s;
+}
+
 // The rail at sample k of a ray at column `col` with weight w: advances
 // the inclusive prefixes *A, *Bm (of wm and wm * s) and returns the
-// rail's d_w term (0 at the tail), its loss term in *dl. atot, btot: the
-// ray's totals of wm and wm * s.
+// rail's d_w term (0 where the rail drops the sample), its loss term in
+// *dl. atot, btot: the ray's totals of wm and wm * s.
 __device__ __forceinline__ float dist_grad(const DistRail &d, const float *x16, long long R,
                                            long long col, int k, int N, float w, float atot,
                                            float btot, float *A, float *Bm, float *dl) {
-  if (k == N - 1) {  // the tail: wm = 0 and d_s = 0, so it adds nothing
+  if (d.drops(k, N)) {  // wm = 0 and d_s = 0, so it adds nothing
     *dl = 0.f;
     return 0.f;
   }
-  const float s = s_of(d, x16[6 * R + col]), ds = s_of(d, x16[6 * R + col + 1]) - s;
+  float ds;
+  const float s = rail_pos(d, x16, R, col, k, N, &ds);
   const float cross = s * *A - *Bm;  // exclusive prefixes
   *A += w;
   *Bm += w * s;
@@ -76,7 +110,8 @@ __device__ __forceinline__ float dist_grad(const DistRail &d, const float *x16, 
 
 // One warp a ray: g (4, R) gets w * d_rgb in rows 0..2 and d_sigma in row
 // 3; loss_ray[b] the ray's share of the loss; w_out, where not null, the
-// weights w; with dist.on, the distortion rail in the loss and in d_w.
+// weights w; with dist.on, the distortion rail in the loss and in d_w;
+// dist.mip and dist.opaque choose the compositing's form.
 __global__ void __launch_bounds__(THREADS)
     composite_grad(const float *__restrict__ out8, const float *__restrict__ x16,
                    int B, int N, float scale, float *__restrict__ g,
@@ -86,29 +121,36 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
   const long long R = (long long)B * N, base = (long long)b * N;
   const int per = (N + 31) / 32, k0 = min(N, lane * per), k1 = min(N, k0 + per);
+  const bool mip = dist.mip, opq = dist.opaque;
 
   // transmittance: exclusive prefix of log m over the ray
   float local = 0.f, tot;
-  for (int k = k0; k < k1; ++k) local += logf(sample_at(out8, x16, R, base + k, k, N).m);
+  for (int k = k0; k < k1; ++k) local += logf(sample_at(out8, x16, R, base + k, k, N, mip, opq).m);
   const float pre = warp_exclusive(local, &tot);
   float rgb[3] = {0.f, 0.f, 0.f};
   float run = pre, la = 0.f, lb = 0.f;  // the rail's partial sums of wm and wm * s
   for (int k = k0; k < k1; ++k) {
-    const Sample s = sample_at(out8, x16, R, base + k, k, N);
+    const Sample s = sample_at(out8, x16, R, base + k, k, N, mip, opq);
     const float w = s.alpha * expf(run);
     run += logf(s.m);
     for (int c = 0; c < 3; ++c) rgb[c] += w * out8[c * R + base + k];
     if (w_out) w_out[base + k] = w;
-    if (dist.on && k < N - 1) {
+    if (dist.on && !dist.drops(k, N)) {
       la += w;
-      lb += w * s_of(dist, x16[6 * R + base + k]);
+      lb += w * rail_pos(dist, x16, R, base + k, k, N, nullptr);
     }
   }
+  const float lw = mip ? x16[14 * R + base] : 1.f;  // the ray's loss weight under mip
   float d_rgb[3], loss = 0.f;
   for (int c = 0; c < 3; ++c) {
     const float err = warp_sum(rgb[c]) - x16[(8 + c) * R + base];
-    loss += err * err;
-    d_rgb[c] = 2.f * scale * err;
+    if (mip) {
+      loss += lw * err * err;
+      d_rgb[c] = 2.f * scale * lw * err;
+    } else {
+      loss += err * err;
+      d_rgb[c] = 2.f * scale * err;
+    }
   }
   if (lane == 0) loss_ray[b] = loss * scale;
   float a_pre = 0.f, b_pre = 0.f, atot = 0.f, btot = 0.f;
@@ -122,7 +164,7 @@ __global__ void __launch_bounds__(THREADS)
   run = pre;
   float A = a_pre, Bm = b_pre, dl, dist_loss = 0.f;
   for (int k = k0; k < k1; ++k) {
-    const Sample s = sample_at(out8, x16, R, base + k, k, N);
+    const Sample s = sample_at(out8, x16, R, base + k, k, N, mip, opq);
     const float w = s.alpha * expf(run);
     run += logf(s.m);
     float d_w = 0.f;
@@ -144,7 +186,7 @@ __global__ void __launch_bounds__(THREADS)
   Bm = b_pre;
   for (int k = k0; k < k1; ++k) {
     const long long col = base + k;
-    const Sample s = sample_at(out8, x16, R, col, k, N);
+    const Sample s = sample_at(out8, x16, R, col, k, N, mip, opq);
     const float T = expf(run), w = s.alpha * T;
     run += logf(s.m);
     float d_w = 0.f;
@@ -207,23 +249,25 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 // WeightsT). `w_out` (rows f32) may be null: then no weight is stored.
 // With dist_on, the distortion rail (see the contract above) with
 // dist_scale = its loss weight / B, the near and far distances tn < tf,
-// and `disparity` for s in 1/t (then tn > 0).
+// and `disparity` for s in 1/t (then tn > 0). `mip` and `opaque_tail`
+// (which needs `mip`): the cone-cast path of the contract above.
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,
                      int is_bf16, Weights w, WeightsT wt, void *workspace, float *loss,
                      Grads out, float *w_out, int dist_on, float dist_scale, float tn, float tf,
-                     int disparity, void *stream) {
+                     int disparity, int mip, int opaque_tail, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   if (dist_on && !(tf > tn && (!disparity || tn > 0.f))) return (int)cudaErrorInvalidValue;
+  if (opaque_tail && !mip) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = (int)(rows / N);
-  DistRail dist{dist_on != 0, disparity != 0, dist_scale, 0.f, 1.f};
+  DistRail dist{dist_on != 0, disparity != 0, dist_scale, 0.f, 1.f, mip != 0, opaque_tail != 0};
   if (dist.on) {  // the constants in double, rounded once, as the plain version's
     dist.a = disparity ? (float)(1.0 / tn) : tn;
     dist.den = disparity ? (float)(1.0 / tn - 1.0 / tf) : (float)((double)tf - tn);
   }
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   const StepScratch sc = step_scratch(workspace, ws, rows);
-  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, s)) return e;
+  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, s)) return e;
   const int rays_per_block = THREADS / 32;
   composite_grad<<<(B + rays_per_block - 1) / rays_per_block, THREADS, 0, s>>>(
       sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray, w_out, dist);

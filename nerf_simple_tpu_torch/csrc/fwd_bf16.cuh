@@ -4,8 +4,9 @@
 // first pass of B1 and B2, which also keep the residuals).
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_forward_tile (:497) with
-// _encode (:410), in bf16: the encoding, the nine chained products and
-// the rgb/sigma heads of a tile of sample rows.
+// _encode (:410), in bf16: the encoding (the point one, or with `var` the
+// integrated one of the mip path, :473-477), the nine chained products
+// and the rgb/sigma heads of a tile of sample rows.
 //
 // What bounds it: the tensor cores (~0.54 M multiply-adds a sample row:
 // 2.28 ms at 2,097,152 rows at 989 TFLOP/s); with residuals, the
@@ -328,16 +329,21 @@ __device__ __forceinline__ void put(char *tile, int r, int k, float v) {
 // start). Two threads a row: the first writes posx's raw coordinates, the
 // second posd's, and they split the frequencies of both branches (Lp of
 // posx, then Ld of posd), each frequency the sin and cos of three
-// channels from three independent sincosf. Rows past `rows` encode to
-// zero.
+// channels from three independent sincosf. With `var` (the mip path's
+// three variance rows, stride `rows`), posx's sin and cos of coordinate c
+// at frequency 2^i are damped by exp(-0.5 * 4^i * var_c) before they are
+// rounded to bf16. Rows past `rows` encode to zero.
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int Lp,
-                       int Ld, char *posx, char *posd, int tid) {
+                       int Ld, char *posx, char *posd, int tid, const float *__restrict__ var) {
   const int r = tid & (ROWS - 1), half = tid >> 6;
   const long long row = row0 + r;
   const bool in = row < rows;
-  float v[6];
+  float v[6], va[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < 6; ++c) v[c] = in ? x[(long long)c * rows + row] : 0.f;
+  if (var && in)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) va[c] = var[(long long)c * rows + row];
 #pragma unroll
   for (int c = 0; c < 3; ++c) put(half ? posd : posx, r, c, half ? v[3 + c] : v[c]);
   const int n = Lp + Ld, f0 = half ? (n + 1) / 2 : 0, f1 = half ? n : (n + 1) / 2;
@@ -350,6 +356,13 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       if (in) sincosf(ldexpf(bx ? v[c] : v[3 + c], i), &s[c], &co[c]);
+    if (bx && var)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = expf(-0.5f * ldexpf(va[c], 2 * i));
+        s[c] *= d;
+        co[c] *= d;
+      }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       put(t, r, 8 + L * c + i, s[c]);
@@ -403,7 +416,7 @@ __device__ void store_planes(const char *tile, int F, bf16 *plane, long long Rp,
 template <int HF>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld,
-               int H_, Weights w, const char *__restrict__ image, bf16 *res) {
+               int H_, Weights w, const char *__restrict__ image, bf16 *res, const float *__restrict__ var) {
   constexpr int NH = HF ? ceil64(HF) : 0, NC = HF ? ceil64(HF / 2 + 8) : 0;
   const int H = HF ? HF : H_;
   extern __shared__ unsigned char smem_raw[];
@@ -476,7 +489,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (keep) store_planes(act, O, plane(f), Rp, row0, tid);
     };
     bar_wg(wq);  // the last tile's reads of posx, posd and the heads are done
-    encode(x, rows, row0, Lp, Ld, posx, posd, tid);
+    encode(x, rows, row0, Lp, Ld, posx, posd, tid, var);
     to_async();
     bar_wg(wq);
     if (keep) {
@@ -566,7 +579,7 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 // The weight image, then the persistent grid: one block an SM, at most one
 // a tile. `image` holds P.image_bytes(), 16-byte aligned.
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w,
-           bf16 *res, void *image, cudaStream_t stream) {
+           bf16 *res, void *image, const float *var, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
@@ -579,7 +592,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   const long long ntiles = (rows + TILE - 1) / TILE;
   const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
   kernel<<<grid, THREADS, P.smem_bytes(), stream>>>(x, out, rows, Lp, Ld, H, w,
-                                                    static_cast<const char *>(image), res);
+                                                    static_cast<const char *>(image), res, var);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@
 // first pass of B1 and B2, which also keep the residuals).
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_forward_tile (:497) with
-// _encode (:410), in f32: the encoding, the nine chained products and the
-// rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
+// _encode (:410), in f32: the encoding (the point one, or with `var` the
+// integrated one of the mip path, :473-477), the nine chained products
+// and the rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
 // at f32: full f32 FMA products (no TF32), the f32 bias added after the
 // sum, relu, the encoding with the accurate sincosf. Only the order of
 // the sums differs from the plain version.
@@ -62,7 +63,11 @@
 //    dot.
 //  - Encoding: four threads a row; each sincosf of a (coordinate,
 //    frequency) pair writes both its sin row and its cos row. posx at the
-//    start of a tile, posd in the skip layer's epilogue.
+//    start of a tile, posd in the skip layer's epilogue. Mip (`var`, the
+//    variance rows of the input): each sin and cos of posx's coordinate c
+//    at frequency 2^i is multiplied by exp(-0.5 * 4^i * var_c) before it
+//    is stored, in the tile and in the residual planes alike, so B1's and
+//    B2's weight gradients (read from the planes) need no change.
 //  - Residuals (with `res`): each epilogue also stores its float4s to the
 //    feature planes along the rows (eight lanes a feature: a 128-byte line).
 //  - Ragged rows: rows past `rows` encode to zero and are not output; a
@@ -301,15 +306,22 @@ __device__ __forceinline__ void epilogue(float (&acc)[4 * NI][8], const float *b
 // also into its residual planes. Four threads a row: each (coordinate,
 // frequency) pair takes one sincosf for its sin row and its cos row; the
 // raw rows, the zero rows and the pad rows of the 8-aligned blocks are
-// written too. Rows past `rows` encode to zero.
+// written too. With `var` (three rows of stride `rows`: the coordinates'
+// variances), the sin and cos of coordinate c at frequency 2^i are damped
+// by exp(-0.5 * 4^i * var_c). Rows past `rows` encode to zero.
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int L, int col0, float *pos,
-                       float *plane, long long Rp, int t) {
+                       float *plane, long long Rp, int t, const float *__restrict__ var) {
   const int r = t & (ROWS - 1), q = t >> 7, sb = ceil8(3 * L);
   const long long row = row0 + r;
   const bool in = row < rows, keep = plane != nullptr && row < Rp;
   for (int p = q; p < 3 * L; p += 4) {  // sin(2^i x_c) in row 8 + L c + i = 8 + p, its cos sb rows on
     float s = 0.f, co = 0.f;
     if (in) sincosf(ldexpf(x[(long long)(col0 + p / L) * rows + row], p % L), &s, &co);
+    if (var && in) {
+      const float d = expf(-0.5f * ldexpf(var[(long long)(p / L) * rows + row], 2 * (p % L)));
+      s *= d;
+      co *= d;
+    }
     pos[(8 + p) * ROWS + r] = s;
     pos[(8 + sb + p) * ROWS + r] = co;
     if (keep) {
@@ -326,10 +338,11 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
 }
 
 // NI: the feature groups of a thread in the H-wide layers (2 for H > 128).
+// `var`: null, or the mip path's variance rows (encode).
 template <int NI>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld, int H,
-               Weights w, const char *__restrict__ image, float *res) {
+               Weights w, const char *__restrict__ image, float *res, const float *__restrict__ var) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan P = plan_of(Lp, Ld, H);
   const int stages = P.stages(), FX = P.FX, FD = P.FD, H2 = H / 2;
@@ -367,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
     };
     __syncthreads();  // the last tile's reads of posx, posd and the slots are done
-    encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t);
+    encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t, var);
     __syncthreads();
     product<NI, NI>(acc, rg, posx, FX, fo4, ro4, lane);  // W1
     dense(w.b1, L.h(0), nullptr, 0, 0);
@@ -383,7 +396,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     product<NI, NI>(acc, rg, posx, FX, fo4, ro4, lane);
     __syncthreads();  // every product has read `act` and posx
     epilogue<NI, NI>(acc, Wm(w.bs), H, act, plane(L.h(5)), Rp, row0, nullptr, 0, 0, slots, fo4, ro4, lane, fw);
-    encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp, t);  // for Wcd, over posx
+    encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp, t, nullptr);  // for Wcd, over posx
     __syncthreads();
     product<NI, NI>(acc, rg, act, H, fo4, ro4, lane);  // Wp0
     dense(w.bp0, L.h(6), nullptr, 0, 0);
@@ -450,9 +463,10 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 }
 
 // The weight image, then the persistent grid: one block an SM, at most one
-// a tile. `image` holds P.image_bytes(), 16-byte aligned.
+// a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
+// the variance rows of the mip path's input.
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w, float *res,
-           void *image, cudaStream_t stream) {
+           void *image, const float *var, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
@@ -465,7 +479,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   const long long ntiles = (rows + ROWS - 1) / ROWS;
   const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
   kernel<<<grid, THREADS, P.smem_bytes(), stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<const char *>(image),
-                                                    res);
+                                                    res, var);
   return (int)cudaGetLastError();
 }
 

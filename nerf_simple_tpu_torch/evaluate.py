@@ -15,8 +15,10 @@ checkpoint's coarse and fine nets, Nc stratified samples and N_samples
 deterministic importance samples a ray. With ``Np > 0`` it renders with
 the proposal scheme: the checkpoint's proposal net at Np probes (bin
 midpoints) places N_samples deterministic samples of its main field.
+With ``mip`` it casts cones (at ``mip_levels`` 1 or 2), their radius
+``2 / sqrt(12) / focal`` of the eval frames; normals render point samples.
 
-Mip and occupancy eval, LLFF (spiral path, NDC),
+Mip with Np (mip-NeRF 360), occupancy eval, LLFF (spiral path, NDC),
 the tiny_nerf loader, sharded eval, pose-refined stills and Orbax
 checkpoint directories are not ported: each raises NotImplementedError.
 """
@@ -165,12 +167,15 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
         field = ProposalPair.from_jax_params(params, device, model, infer_proposal_arch(params["prop"]))
     else:
         field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
-    settings = RenderSettings(
-        N=cfg.N_samples, N_coarse=cfg.Nc, N_prop=cfg.Np, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
-        compute_dtype=cfg.render_dtype, backend=cfg.backend,
-    )
     data = load_blender(cfg.datapath, cfg.half_res)
     rd = RayDataset.from_blender(data, device)
+    settings = RenderSettings(
+        N=cfg.N_samples, N_coarse=cfg.Nc, N_prop=cfg.Np, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
+        compute_dtype=cfg.render_dtype, backend=cfg.backend, mip=cfg.mip, mip_levels=cfg.mip_levels,
+        resample_blur=cfg.resample_blur, opaque_background=cfg.opaque_background,
+        # the cone radius from the eval frames' focal (JAX evaluate.py:208-211)
+        base_radius=2.0 / 12.0**0.5 / rd.f if cfg.mip else 0.0,
+    )
 
     if cfg.animation:
         poses = orbit_poses(cfg.orbit_radius, -cfg.theta, cfg.num_poses)
@@ -195,8 +200,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
         d = disp[0, ..., 0]
         md = data.splits[cfg.im_set].metric_depth
         if md is not None:
-            # acc == 1 (the 1e10 tail delta saturates the last alpha), so
-            # the predicted depth is 1 / disparity
+            # the predicted depth is 1 / disparity = depth / acc
             depth_pred = 1.0 / np.maximum(d, 1e-10)
             valid = np.isfinite(md[idx]) & (md[idx] > 0)
             rmse = float(np.sqrt(np.mean((depth_pred - md[idx])[valid] ** 2)))

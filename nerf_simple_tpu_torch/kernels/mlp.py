@@ -1,7 +1,8 @@
 """The fused NeRF MLP kernels: hand-written CUDA kernels and their plain
 PyTorch versions.
 
-Port of nerf_simple_tpu/kernels/mlp.py, point variant:
+Port of nerf_simple_tpu/kernels/mlp.py, point and mip (cone-cast)
+variants:
 
 - ``fused_mlp_forward`` (csrc/fused_mlp_fwd.cu): the MLP forward;
 - ``fused_mlp_backward`` (csrc/fused_mlp_bwd.cu): the weight gradients
@@ -32,6 +33,12 @@ Layout, kept from the JAX package so the two can be compared field by
 field: activations are feature-major ``(features, rows)``; the caller
 passes ``xT (8, rows)`` (rows 0..2 sample xyz, 3..5 unit view dir) and
 gets ``(8, rows)`` back (raw rgb rows 0..2, raw sigma row 3, zeros 4..7).
+With ``mip`` (mip-NeRF's cone casting) the input has 16 rows: rows 0..2
+the frustum Gaussians' means, 11..13 their diagonal variances, and the
+encoder is the integrated one: each sin and cos row of coordinate c at
+frequency 2^i is damped by ``exp(-0.5 * 4^i * var_c)`` (the raw rows and
+the direction branch are not). The damped posx is what the residual
+planes hold, so the backward's weight gradients need no change.
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -347,21 +354,27 @@ def f32_backward_smem_bytes(model: NerfMLP) -> int:
     return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), F32_BWD_MAX_STAGES) * stage
 
 
-def _encode(xT: torch.Tensor, model: NerfMLP) -> tuple[torch.Tensor, torch.Tensor]:
-    """(8, rows) f32 -> posx (FX, rows), posd (FD, rows) in the kernel's
-    row order, f32. Pad rows are zero."""
+def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(>= 6, rows) f32 -> posx (FX, rows), posd (FD, rows) in the kernel's
+    row order, f32. Pad rows are zero. With ``var`` (3, rows), the
+    integrated encoder: posx's sin and cos rows of coordinate c at
+    frequency 2^i times ``exp(-0.5 * 4^i * var_c)``."""
 
-    def branch(x3, L):
+    def branch(x3, L, v3=None):
         sb = _sin_block(L)
         freqs = 2.0 ** torch.arange(L, dtype=x3.dtype, device=x3.device)
         ang = (x3[:, None, :] * freqs[None, :, None]).reshape(3 * L, -1)
         out = torch.zeros((_enc_rows(L), x3.shape[1]), dtype=x3.dtype, device=x3.device)
         out[0:3] = x3
-        out[8 : 8 + 3 * L] = torch.sin(ang)
-        out[8 + sb : 8 + sb + 3 * L] = torch.cos(ang)
+        s, c = torch.sin(ang), torch.cos(ang)
+        if v3 is not None:
+            damp = torch.exp(-0.5 * (v3[:, None, :] * (freqs * freqs)[None, :, None]).reshape(3 * L, -1))
+            s, c = s * damp, c * damp
+        out[8 : 8 + 3 * L] = s
+        out[8 + sb : 8 + sb + 3 * L] = c
         return out
 
-    return branch(xT[0:3], model.Lp), branch(xT[3:6], model.Ld)
+    return branch(xT[0:3], model.Lp, var), branch(xT[3:6], model.Ld)
 
 
 def _rnd(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -448,10 +461,16 @@ class Residuals(NamedTuple):
                    tuple(res[L.h(l) : L.h(l) + L.H] for l in range(8)), res[L.hc : L.FA])
 
 
-def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP):
-    """The JAX ``_forward_tile``: (8, rows) -> (out (8, rows), Residuals)."""
+def _x_rows(mip: bool) -> int:
+    """Rows of the kernels' sample input: 8, or 16 with ``mip``'s variances."""
+    return 16 if mip else 8
+
+
+def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP, mip: bool = False):
+    """The JAX ``_forward_tile``: (8, rows), or (16, rows) with ``mip``
+    (variances in rows 11..13), -> (out (8, rows), Residuals)."""
     H2 = model.H // 2
-    posx, posd = _encode(xT, model)
+    posx, posd = _encode(xT, model, xT[11:14] if mip else None)
 
     def dense(W, b, h):
         return torch.relu(_mm(W, h, dt) + b)
@@ -477,10 +496,11 @@ def fused_mlp_forward_plain(
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: same weights, same
     numerics (the JAX ``_forward_tile``), any device."""
-    return _forward(wts, xT, compute_dtype, model)[0]
+    return _forward(wts, xT, compute_dtype, model, mip)[0]
 
 
 def weight_grad_plain(G: torch.Tensor, A: torch.Tensor, dt) -> tuple[torch.Tensor, torch.Tensor]:
@@ -576,19 +596,25 @@ def fused_mlp_backward_plain(
     gT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> FusedWeights:
     """Plain PyTorch version of the backward kernel: ``gT (8, rows)`` with
     d_rgb in rows 0..2 and d_sigma in row 3 -> packed f32 gradients."""
-    _, res = _forward(wts, xT, compute_dtype, model)
+    _, res = _forward(wts, xT, compute_dtype, model, mip)
     return _backprop(wts, res, gT[:3], gT[3], compute_dtype, model)
 
 
-def _transmittance(sig: torch.Tensor, ts: torch.Tensor):
-    """Point compositing of (B, N) raw sigma at (B, N) ts, as the TPU
-    kernels composite: (delta with a 1e10 last entry, e = exp(-softplus
-    (sigma) delta), alpha = 1 - e, m = max(1 - alpha, 1e-10), T = exp of
-    the exclusive cumsum of log m)."""
-    delta = torch.cat([ts[:, 1:] - ts[:, :-1], torch.full_like(ts[:, :1], 1e10)], dim=1)
+def _point_deltas(ts: torch.Tensor) -> torch.Tensor:
+    """The deltas of point compositing at (B, N) ts: t[k+1] - t[k], 1e10
+    for the last sample."""
+    return torch.cat([ts[:, 1:] - ts[:, :-1], torch.full_like(ts[:, :1], 1e10)], dim=1)
+
+
+def _transmittance(sig: torch.Tensor, delta: torch.Tensor):
+    """Compositing of (B, N) raw sigma over (B, N) ``delta``, as the TPU
+    kernels composite: (delta, e = exp(-softplus(sigma) delta), alpha = 1
+    - e, m = max(1 - alpha, 1e-10), T = exp of the exclusive cumsum of
+    log m)."""
     e = torch.exp(-torch.nn.functional.softplus(sig) * delta)
     alpha = 1.0 - e
     m = torch.clamp(1.0 - alpha, min=1e-10)
@@ -596,15 +622,23 @@ def _transmittance(sig: torch.Tensor, ts: torch.Tensor):
     return delta, e, alpha, m, torch.exp(torch.cumsum(logm, dim=1) - logm)
 
 
-def _distortion_rail(w: torch.Tensor, s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The point-form distortion of each ray, ``(B,)``, and its gradient
-    in the (B, N) weights ``w`` at sorted positions ``s``: the tail
-    sample's weight is dropped (``wm``) and its gap to the next sample is
-    0; the prefix sums A, Bm of wm and wm * s and their suffix sums give
-    the cross term and its gradient in O(N). The gradient is exactly 0 at
-    the tail, whose weight the loss does not read."""
-    wm = torch.cat([w[:, :-1], torch.zeros_like(w[:, :1])], 1)
-    d_s = torch.cat([s[:, 1:] - s[:, :-1], torch.zeros_like(s[:, :1])], 1)
+def _distortion_rail(w: torch.Tensor, s: torch.Tensor, d_s: torch.Tensor | None = None,
+                     drop_tail: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distortion of each ray, ``(B,)``, and its gradient in the (B, N)
+    weights ``w`` at sorted positions ``s`` with widths ``d_s``. Point
+    form (``d_s`` None): ``d_s`` is the gap to the next sample, 0 at the
+    tail. Interval form: ``s`` the interval midpoints and ``d_s`` their
+    widths. With ``drop_tail`` the tail's weight is dropped (``wm``) and
+    its width is 0; the prefix sums A, Bm of wm and wm * s and their
+    suffix sums give the cross term and its gradient in O(N). With
+    ``drop_tail`` the gradient is exactly 0 at the tail, whose weight the
+    loss does not read."""
+    if d_s is None:
+        d_s = torch.cat([s[:, 1:] - s[:, :-1], torch.zeros_like(s[:, :1])], 1)
+    wm = w
+    if drop_tail:
+        wm = torch.cat([w[:, :-1], torch.zeros_like(w[:, :1])], 1)
+        d_s = torch.cat([d_s[:, :-1], torch.zeros_like(d_s[:, :1])], 1)
     wms = wm * s
     A_in, Bm_in = torch.cumsum(wm, 1), torch.cumsum(wms, 1)
     cross = s * (A_in - wm) - (Bm_in - wms)  # exclusive prefixes
@@ -612,36 +646,62 @@ def _distortion_rail(w: torch.Tensor, s: torch.Tensor) -> tuple[torch.Tensor, to
     SBm = wms.sum(1, keepdim=True) - Bm_in
     dist_ray = (wm * (2.0 * cross) + wm * wm * d_s / 3.0).sum(1)
     d_w = 2.0 * (cross + SBm - s * SA) + (2.0 / 3.0) * wm * d_s
-    return dist_ray, torch.cat([d_w[:, :-1], torch.zeros_like(d_w[:, :1])], 1)
+    if drop_tail:
+        d_w = torch.cat([d_w[:, :-1], torch.zeros_like(d_w[:, :1])], 1)
+    return dist_ray, d_w
 
 
-def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int, dist: tuple | None = None):
-    """The JAX ``_composite_grad_block``, point form: per-sample raw rgb
-    and sigma ``out8`` (8, B*N) and ``x16`` -> (per-ray loss (B,), d_rgb
-    per sample (3, B*N), d_sigma per sample (B*N,), the compositing
-    weights (B, N)). The loss is sum_c (rgb_ray - gt)^2 / (3B) summed
-    over rays.
+def _composite_grad(out8: torch.Tensor, x16: torch.Tensor, N: int, dist: tuple | None = None,
+                    mip: bool = False, opaque_tail: bool = False):
+    """The JAX ``_composite_grad_block``: per-sample raw rgb and sigma
+    ``out8`` (8, B*N) and ``x16`` -> (per-ray loss (B,), d_rgb per sample
+    (3, B*N), d_sigma per sample (B*N,), the compositing weights (B, N)).
+    The loss is sum_c (rgb_ray - gt)^2 / (3B) summed over rays.
+
+    Point form: the deltas are the gaps of the ts in row 6, 1e10 for the
+    last sample. Interval form (``mip``): row 6 holds the interval widths,
+    composited as they are (with ``opaque_tail``, the last one is 1e10),
+    and each ray's loss is weighted by its row 14.
 
     ``dist = (d_scale, tn, tf, disparity)`` adds the distortion rail:
-    ``d_scale`` times the point-form distortion of each ray in s-space
-    (``ops/volume.py::distortion_loss`` before its mean: the tail sample
-    dropped, the gap to the next sample 0 there), and its gradient to
-    d_w, exactly 0 at the tail."""
+    ``d_scale`` times the distortion of each ray in s-space, and its
+    gradient to d_w. Point form (``ops/volume.py::distortion_loss`` before
+    its mean): at the ts, the tail sample dropped, the gap to the next
+    sample 0 there, the gradient exactly 0 at the tail. Interval form
+    (``distortion_loss_intervals``): at the midpoints of s(t0) and s(t0 +
+    width), t0 from row 7, on the s-widths; the tail is dropped only under
+    ``opaque_tail``."""
     B = out8.shape[1] // N
     scale = 1.0 / (3.0 * B)
     rgb = out8[:3].reshape(3, B, N)
     sig = out8[3].reshape(B, N)
     gt = x16[8:11].reshape(3, B, N)[:, :, 0]
-    ts = x16[6].reshape(B, N)
-    delta, e, alpha, m, T = _transmittance(sig, ts)
+    row6 = x16[6].reshape(B, N)
+    if mip:
+        delta = row6
+        if opaque_tail:
+            delta = torch.cat([row6[:, :-1], torch.full_like(row6[:, :1], 1e10)], dim=1)
+    else:
+        delta = _point_deltas(row6)
+    delta, e, alpha, m, T = _transmittance(sig, delta)
     w = alpha * T
     err = (w[None] * rgb).sum(-1) - gt  # (3, B)
-    loss_ray = (err * err).sum(0) * scale
-    d_rgb = 2.0 * scale * err
+    if mip:
+        lw = x16[14].reshape(B, N)[:, 0]
+        loss_ray = (lw * err * err).sum(0) * scale
+        d_rgb = 2.0 * scale * lw * err
+    else:
+        loss_ray = (err * err).sum(0) * scale
+        d_rgb = 2.0 * scale * err
     d_w = (rgb * d_rgb[:, :, None]).sum(0)
     if dist is not None:
         d_scale, tn, tf, disparity = dist
-        dist_ray, d_w_dist = _distortion_rail(w, s_norm(ts, tn, tf, disparity))
+        if mip:
+            t0 = x16[7].reshape(B, N)
+            s0, s1 = s_norm(t0, tn, tf, disparity), s_norm(t0 + row6, tn, tf, disparity)
+            dist_ray, d_w_dist = _distortion_rail(w, 0.5 * (s0 + s1), s1 - s0, drop_tail=opaque_tail)
+        else:
+            dist_ray, d_w_dist = _distortion_rail(w, s_norm(row6, tn, tf, disparity))
         loss_ray = loss_ray + d_scale * dist_ray
         d_w = d_w + d_scale * d_w_dist
     y = d_w * w
@@ -671,12 +731,16 @@ def fused_train_step_plain(
     model: NerfMLP = FLAGSHIP,
     out_weights: bool = False,
     dist: tuple | None = None,
+    mip: bool = False,
+    opaque_tail: bool = False,
 ):
     """Plain PyTorch version of the train-step kernel: (loss, packed f32
     gradients[, the compositing weights (B, N) with ``out_weights``]) for
-    ``x16 (16, B*N)`` (see ``fused_train_step``; ``dist`` as it takes it)."""
-    out8, res = _forward(wts, x16[:8], compute_dtype, model)
-    loss_ray, g_rgb, g_sig, w = _composite_grad(out8, x16, N, _dist_rail(dist, x16.shape[1] // N))
+    ``x16 (16, B*N)`` (see ``fused_train_step``; ``dist``, ``mip`` and
+    ``opaque_tail`` as it takes them)."""
+    out8, res = _forward(wts, x16 if mip else x16[:8], compute_dtype, model, mip)
+    loss_ray, g_rgb, g_sig, w = _composite_grad(out8, x16, N, _dist_rail(dist, x16.shape[1] // N), mip,
+                                                opaque_tail)
     grads = _backprop(wts, res, g_rgb, g_sig, compute_dtype, model)
     return (loss_ray.sum(), grads, w) if out_weights else (loss_ray.sum(), grads)
 
@@ -693,7 +757,7 @@ def fused_render_plain(
     out8 = _forward(wts, x16[:8], compute_dtype, model)[0]
     B = out8.shape[1] // N
     ts = x16[6].reshape(B, N)
-    _, _, alpha, _, T = _transmittance(out8[3].reshape(B, N), ts)
+    _, _, alpha, _, T = _transmittance(out8[3].reshape(B, N), _point_deltas(ts))
     w = alpha * T
     out = torch.zeros((8, B, N), dtype=out8.dtype, device=out8.device)
     out[:3, :, 0] = (w[None] * out8[:3].reshape(3, B, N)).sum(-1)
@@ -720,14 +784,14 @@ class _CWeightsT(ctypes.Structure):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P], _I),
         "fused_mlp_fwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_fwd_image_bytes": ([_I] * 4, _LL),
         "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _P], _I),
-        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P], _I),
+        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P], _I),
     },
     "fused_mlp_bwd": {
-        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _P], _I),
+        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P], _I),
         "fused_mlp_bwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
         "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
@@ -747,7 +811,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     },
     "fused_train_step": {
         "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P,
-                              _I, _F, _F, _F, _I, _P], _I),
+                              _I, _F, _F, _F, _I, _I, _I, _P], _I),
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
@@ -783,8 +847,9 @@ def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
 
 def _check_launch(name: str, wts: FusedWeights, x: torch.Tensor, x_name: str, x_rows: int,
                   compute_dtype, model: NerfMLP) -> tuple[ctypes.CDLL, int]:
-    """Raise on what the kernels do not take; returns the library and the
-    bf16 flag."""
+    """Raise on what the kernels do not take (``x`` must have ``x_rows``
+    rows: 16 for the train step and under mip, else 8); returns the
+    library and the bf16 flag."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the kernels compute in f32 or bf16, not {compute_dtype}")
     if model.H > _MAX_H:
@@ -842,7 +907,7 @@ def _image_scratch(nbytes, model: NerfMLP, bf16: int, device) -> torch.Tensor:
 def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP) -> FusedWeights:
     if not supported(model):
         raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16; got {model}")
-    require_ported(model)  # the point variant only: no contraction, no appearance rail
+    require_ported(model)  # no contraction, no appearance rail
     return _cast_weights(wts, compute_dtype)
 
 
@@ -851,25 +916,31 @@ def fused_mlp_forward(
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> torch.Tensor:
     """Fused MLP forward: ``xT (8, rows)`` f32 -> ``(8, rows)`` f32, raw
     rgb in rows 0..2, raw sigma in row 3, zeros in rows 4..7. ``rows``
-    may be any count (the kernel masks the ragged tile)."""
+    may be any count (the kernel masks the ragged tile). With ``mip``,
+    ``xT`` is (16, rows): the frustum Gaussians' means in rows 0..2, unit
+    dirs 3..5, diagonal variances 11..13, read by the integrated encoder;
+    ``fused_mlp_forward.mip_launches`` counts those launches."""
     wts = _prepare(wts, compute_dtype, model)
     if _dispatch(xT):
-        return fused_mlp_forward_plain(wts, xT, compute_dtype, model)
-    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", 8, compute_dtype, model)
+        return fused_mlp_forward_plain(wts, xT, compute_dtype, model, mip)
+    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
     out = torch.empty((8, xT.shape[1]), dtype=torch.float32, device=xT.device)
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
     _raise_on(lib.fused_mlp_fwd(
         xT.data_ptr(), out.data_ptr(), xT.shape[1], model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), image.data_ptr(), _stream(xT),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), _stream(xT),
     ), "fused_mlp_fwd")
     fused_mlp_forward.launches += 1
+    fused_mlp_forward.mip_launches += mip
     return out
 
 
 fused_mlp_forward.launches = 0
+fused_mlp_forward.mip_launches = 0  # of them, with the integrated encoder
 
 
 def forward_residuals_plain(
@@ -877,13 +948,14 @@ def forward_residuals_plain(
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``forward_residuals``: ``_forward``'s output and
     its residuals laid out as the workspace's planes ``(FA, Rp)``
     (``Layout``), rounded to ``compute_dtype`` and held in f32. Pad rows
     (past ``rows``) are zero here; the kernel writes the residuals of a
     zero input there."""
-    out, r = _forward(wts, xT, compute_dtype, model)
+    out, r = _forward(wts, xT, compute_dtype, model, mip)
     L, rows = Layout.of(model), xT.shape[1]
     res = torch.zeros((L.FA, -(-rows // 64) * 64), dtype=out.dtype, device=xT.device)
     res[:, :rows] = _rnd(torch.cat([r.posx, r.posd, *r.h, r.hc]), compute_dtype)
@@ -895,22 +967,24 @@ def forward_residuals(
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward tile kernel as B1 and B2 run it, keeping every residual:
     ``(out (8, rows) f32, res (FA, Rp))``, the planes of ``Layout`` (posx,
-    posd, h0..h7, hc) in the compute dtype, Rp = rows rounded up to 64.
-    ``forward_residuals.launches`` counts its launches."""
+    posd, h0..h7, hc) in the compute dtype, Rp = rows rounded up to 64;
+    ``xT`` as ``fused_mlp_forward`` takes it (with ``mip``, posx is the
+    damped encoding). ``forward_residuals.launches`` counts its launches."""
     wts = _prepare(wts, compute_dtype, model)
     if _dispatch(xT):
-        return forward_residuals_plain(wts, xT, compute_dtype, model)
-    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", 8, compute_dtype, model)
+        return forward_residuals_plain(wts, xT, compute_dtype, model, mip)
+    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
     rows = xT.shape[1]
     out = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
     res = torch.empty((Layout.of(model).FA, -(-rows // 64) * 64), dtype=compute_dtype, device=xT.device)
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
     _raise_on(lib.fused_mlp_fwd_residuals(
         xT.data_ptr(), out.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), _stream(xT),
+        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), _stream(xT),
     ), "fused_mlp_fwd_residuals")
     forward_residuals.launches += 1
     return out, res
@@ -950,18 +1024,21 @@ def fused_mlp_backward(
     gT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> FusedWeights:
     """Fused MLP backward: the packed f32 weight gradients of
-    sum(out * gT) for ``out = fused_mlp_forward(wts, xT)``, with
+    sum(out * gT) for ``out = fused_mlp_forward(wts, xT, mip=mip)``, with
     ``gT (8, rows)`` f32 (rows 0..2 d_rgb, row 3 d_sigma, rows 4..7 not
-    read). No gradient for ``xT``."""
+    read). No gradient for ``xT``. With ``mip`` the forward it recomputes
+    is the integrated encoder's (``fused_mlp_backward.mip_launches``)."""
     wts = _prepare(wts, compute_dtype, model)
     if _dispatch(xT):
         with torch.no_grad():
-            return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model)
-    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", 8, compute_dtype, model)
-    if gT.shape != xT.shape or gT.dtype != torch.float32 or gT.device != xT.device or not gT.is_contiguous():
-        raise ValueError(f"gT must be a contiguous {tuple(xT.shape)} f32 tensor on {xT.device}")
+            return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
+    if (gT.shape != (8, xT.shape[1]) or gT.dtype != torch.float32 or gT.device != xT.device
+            or not gT.is_contiguous()):
+        raise ValueError(f"gT must be a contiguous (8, {xT.shape[1]}) f32 tensor on {xT.device}")
     rows = xT.shape[1]
     if rows == 0:
         raise ValueError("fused_mlp_backward needs at least one row")
@@ -971,28 +1048,30 @@ def fused_mlp_backward(
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
-        _stream(xT),
+        int(mip), _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
+    fused_mlp_backward.mip_launches += mip
     return grads
 
 
 fused_mlp_backward.launches = 0
+fused_mlp_backward.mip_launches = 0  # of them, recomputing the integrated encoder
 
 
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xT, compute_dtype, model, *wts):
+    def forward(ctx, xT, compute_dtype, model, mip, *wts):
         ctx.save_for_backward(xT, *wts)
-        ctx.compute_dtype, ctx.model = compute_dtype, model
-        return fused_mlp_forward(FusedWeights(*wts), xT, compute_dtype, model)
+        ctx.compute_dtype, ctx.model, ctx.mip = compute_dtype, model, mip
+        return fused_mlp_forward(FusedWeights(*wts), xT, compute_dtype, model, mip)
 
     @staticmethod
     def backward(ctx, g):
         xT, *wts = ctx.saved_tensors
         grads = fused_mlp_backward(FusedWeights(*wts), xT, g.contiguous(),
-                                   ctx.compute_dtype, ctx.model)
-        return (None, None, None, *grads)
+                                   ctx.compute_dtype, ctx.model, ctx.mip)
+        return (None, None, None, None, *grads)
 
 
 def fused_mlp(
@@ -1000,12 +1079,13 @@ def fused_mlp(
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
+    mip: bool = False,
 ) -> torch.Tensor:
     """Differentiable fused MLP (the JAX ``fused_mlp`` with
     ``want_dx=False``): forward ``fused_mlp_forward``, backward
-    ``fused_mlp_backward``. Gradients reach the packed weights only;
-    ``xT`` gets none."""
-    return _FusedMLP.apply(xT, compute_dtype, model, *wts)
+    ``fused_mlp_backward``, both with ``mip`` as given. Gradients reach
+    the packed weights only; ``xT`` gets none."""
+    return _FusedMLP.apply(xT, compute_dtype, model, mip, *wts)
 
 
 def fused_train_step(
@@ -1016,6 +1096,8 @@ def fused_train_step(
     model: NerfMLP = FLAGSHIP,
     out_weights: bool = False,
     dist: tuple | None = None,
+    mip: bool = False,
+    opaque_tail: bool = False,
 ):
     """One fused forward + compositing + MSE + backward pass.
 
@@ -1032,14 +1114,27 @@ def fused_train_step(
     averaged over rays, to the loss, and its gradient to the backward
     (the kernel's distortion rail). ``fused_train_step.dist_launches``
     counts the launches with it, ``weights_dist_launches`` those with the
-    weights output and the rail at once (the proposal scheme's)."""
+    weights output and the rail at once (the proposal scheme's).
+
+    ``mip`` (mip-NeRF's cone casting, train/step.py::build_x16_mip's
+    layout): rows 0..2 hold the frustum Gaussians' means, 11..13 their
+    diagonal variances (the integrated encoder), 6 the interval widths,
+    composited as they are (no 1e10 tail), 7 the intervals' near edges t0
+    (read by the rail alone), 14 each ray's loss weight on its samples;
+    the rail takes its interval form. ``opaque_tail`` (with ``mip`` only;
+    mip-NeRF 360's opaque background) makes the last interval's delta 1e10
+    and drops it from the rail. ``mip_launches`` and ``opaque_launches``
+    count those launches."""
     wts = _prepare(wts, compute_dtype, model)
     if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
         raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
+    if opaque_tail and not mip:
+        raise ValueError("opaque_tail changes interval compositing and needs mip=True")
     rail = _dist_rail(dist, x16.shape[1] // N)
     if _dispatch(x16):
         with torch.no_grad():
-            return fused_train_step_plain(wts, x16, N, compute_dtype, model, out_weights, dist)
+            return fused_train_step_plain(wts, x16, N, compute_dtype, model, out_weights, dist, mip,
+                                          opaque_tail)
     lib, bf16 = _check_launch("fused_train_step", wts, x16, "x16", 16, compute_dtype, model)
     rows = x16.shape[1]
     ws = torch.empty(
@@ -1054,12 +1149,14 @@ def fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), loss.data_ptr(),
         _CPtrs(*_ptrs(grads)), None if w is None else w.data_ptr(),
-        int(rail is not None), d_scale, tn, tf, int(disparity), _stream(x16),
+        int(rail is not None), d_scale, tn, tf, int(disparity), int(mip), int(opaque_tail), _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
     fused_train_step.weights_launches += out_weights
     fused_train_step.dist_launches += rail is not None
     fused_train_step.weights_dist_launches += out_weights and rail is not None
+    fused_train_step.mip_launches += mip
+    fused_train_step.opaque_launches += opaque_tail
     return (loss, grads, w) if out_weights else (loss, grads)
 
 
@@ -1067,6 +1164,8 @@ fused_train_step.launches = 0
 fused_train_step.weights_launches = 0  # of them, with the weights output
 fused_train_step.dist_launches = 0  # of them, with the distortion rail
 fused_train_step.weights_dist_launches = 0  # of them, with both at once
+fused_train_step.mip_launches = 0  # of them, cone-cast: the integrated encoder and interval compositing
+fused_train_step.opaque_launches = 0  # of them, with the opaque last interval
 
 
 def fused_render(

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_simple_tpu_torch.ops.encoding import positional_encoder
+from nerf_simple_tpu_torch.ops.encoding import ipe_encoder, positional_encoder
 
 Params = dict[str, dict[str, np.ndarray]]
 
@@ -210,8 +210,22 @@ def nerf_apply(
     ``compute_dtype=torch.bfloat16`` rounds weights and activations to
     bf16 and accumulates in f32, like the JAX path's
     ``preferred_element_type=f32``."""
-    dt = compute_dtype
     posx, posd = positional_encoder(v, Lp=field.model.Lp, Ld=field.model.Ld)
+    return _apply_encoded(field, posx, posd, compute_dtype)
+
+
+def nerf_apply_mip(
+    field: NerfField, mean: torch.Tensor, var: torch.Tensor, dirs: torch.Tensor, compute_dtype=torch.float32
+) -> torch.Tensor:
+    """The mip forward (JAX ``nerf_apply_mip``, without contraction): the
+    frustum Gaussians' (B, 3) means and diagonal variances and the (B, 3)
+    unit dirs through ``ipe_encoder``, then the same layers as
+    ``nerf_apply``, so a mip checkpoint is a plain one."""
+    posx, posd = ipe_encoder(mean, var, dirs, Lp=field.model.Lp, Ld=field.model.Ld)
+    return _apply_encoded(field, posx, posd, compute_dtype)
+
+
+def _apply_encoded(field: NerfField, posx: torch.Tensor, posd: torch.Tensor, dt) -> torch.Tensor:
     posx, posd = _rnd(posx, dt), _rnd(posd, dt)
     h = posx
     for name in ("trunk0", "trunk1", "trunk2", "trunk3", "trunk4"):

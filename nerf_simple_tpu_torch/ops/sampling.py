@@ -1,6 +1,8 @@
 """Sample placement (port of nerf_simple_tpu/ops/sampling.py): stratified
-samples, the hierarchical scheme's importance samples and merge, and the
-proposal scheme's placement anneal.
+samples, the hierarchical scheme's importance samples and merge, the
+proposal scheme's placement anneal, and mip-NeRF's cone casting: the
+conical-frustum Gaussians of interval samples and the fine level's
+resampled interval edges.
 
 The JAX package draws from explicit PRNG keys; here an explicit
 ``torch.Generator`` on the tensors' device plays that part. The two give
@@ -132,3 +134,92 @@ def anneal_weights(w: torch.Tensor, a: float | None) -> torch.Tensor:
     if a is None:
         return w
     return torch.pow(torch.clamp(w, min=1e-8), a)
+
+
+def resample_edges(
+    generator: torch.Generator | None,
+    edges: torch.Tensor,
+    weights: torch.Tensor,
+    N_new: int,
+    blur: float = 0.01,
+    det: bool = False,
+) -> torch.Tensor:
+    """Mip-NeRF's fine-level resampling (Barron et al. 2021, sec. 3.2):
+    ``N_new + 1`` ascending edges drawn from the piecewise-constant
+    histogram of the (B, N) interval ``weights`` over the (B, N + 1)
+    ascending ``edges``, after the 2-tap max filter and the uniform
+    padding ``w' = (max(w_{k-1}, w_k) + max(w_k, w_{k+1})) / 2 + blur``.
+    ``det=True`` takes the quantiles ``linspace(0, 1, N_new + 1)``;
+    otherwise the sorted uniforms come from N_new + 2 Exp(1) draws of
+    ``generator``, as in ``importance_ts``. The inverse CDF runs against
+    the edges themselves, so the result lies within [edges min, max]."""
+    B = weights.shape[0]
+    wpad = torch.cat([weights[:, :1], weights, weights[:, -1:]], -1)
+    wmax = torch.maximum(wpad[:, :-1], wpad[:, 1:])  # (B, N + 1)
+    w = 0.5 * (wmax[:, :-1] + wmax[:, 1:]) + blur
+    pdf = w / w.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, -1)], -1)  # (B, N + 1)
+    n_draw = N_new + 1
+    if det:
+        u = torch.linspace(0.0, 1.0, n_draw, dtype=edges.dtype, device=edges.device)
+        u = u.expand(B, n_draw).contiguous()
+    else:
+        e = torch.empty((B, n_draw + 1), dtype=edges.dtype, device=edges.device)
+        s = torch.cumsum(e.exponential_(generator=generator), -1)
+        u = s[:, :n_draw] / s[:, n_draw:]
+    return _inv_cdf_interp(cdf, edges, u)
+
+
+def frustum_moments(t0: torch.Tensor, t1: torch.Tensor, base_radius):
+    """The conical frustum between ``t0`` and ``t1`` as a Gaussian
+    (mip-NeRF eqn. 7, the stable form): (mu_t, sig_t2, sig_r2), its mean
+    and variance along the ray and its variance across it, for a cone of
+    radius ``base_radius * t`` (a scalar or a tensor that broadcasts)."""
+    t_mu = 0.5 * (t0 + t1)
+    t_d = 0.5 * (t1 - t0)
+    denom = 3.0 * t_mu**2 + t_d**2
+    mu_t = t_mu + 2.0 * t_mu * t_d**2 / denom
+    sig_t2 = t_d**2 / 3.0 - (4.0 * t_d**4 * (12.0 * t_mu**2 - t_d**2)) / (15.0 * denom**2)
+    sig_r2 = base_radius**2 * (t_mu**2 / 4.0 + 5.0 * t_d**2 / 12.0 - 4.0 * t_d**4 / (15.0 * denom))
+    return mu_t, sig_t2, sig_r2
+
+
+def interval_moments(t0: torch.Tensor, t1: torch.Tensor, radius, shape: str = "cone"):
+    """``frustum_moments`` for ``shape="cone"`` (pinhole frames). The NDC
+    cylinder of LLFF scenes is not ported."""
+    if shape == "cylinder":
+        raise NotImplementedError(
+            "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A, LLFF/NDC")
+    if shape != "cone":
+        raise ValueError(f"mip_shape must be 'cone' or 'cylinder', got {shape!r}")
+    return frustum_moments(t0, t1, radius)
+
+
+def frustum_gaussians_T(rays: torch.Tensor, edges: torch.Tensor, radius, shape: str = "cone"):
+    """The interval Gaussians of (B, >= 6) rays at (B, N + 1) edges in the
+    kernels' feature-major layout, shared by the fused train step's input
+    and the mip render: (meanT (3, B, N), unitT (3, B), varT (3, B, N),
+    mu_t (B, N)). The diagonal covariance is ``sig_t2 d^2 + sig_r2 (1 -
+    d^2 / |d|^2)`` along the unnormalised direction d."""
+    oT, dT = rays[:, :3].T, rays[:, 3:6].T
+    n2 = torch.sum(dT * dT, dim=0, keepdim=True)  # (1, B)
+    unitT = dT / torch.sqrt(n2)
+    mu_t, sig_t2, sig_r2 = interval_moments(edges[:, :-1], edges[:, 1:], radius, shape)
+    meanT = oT[:, :, None] + dT[:, :, None] * mu_t[None]
+    d2T = dT * dT
+    varT = sig_t2[None] * d2T[:, :, None] + sig_r2[None] * (1.0 - d2T / n2)[:, :, None]
+    return meanT, unitT, varT, mu_t
+
+
+def conical_gaussian(rays: torch.Tensor, t_edges: torch.Tensor, base_radius, shape: str = "cone"):
+    """The interval Gaussians in the row-major layout: (means (B, N, 3),
+    vars (B, N, 3), t_mids (B, N), the Gaussian centres' distances along
+    the ray). ``base_radius`` is ``2 / sqrt(12) / focal`` for a pinhole
+    frame, or a (B, 1) tensor of radii."""
+    origins, d = rays[:, :3], rays[:, 3:6]
+    mu_t, sig_t2, sig_r2 = interval_moments(t_edges[:, :-1], t_edges[:, 1:], base_radius, shape)
+    means = origins[:, None, :] + d[:, None, :] * mu_t[..., None]
+    d2 = d**2
+    n2 = torch.sum(d2, dim=-1, keepdim=True)
+    vars_ = sig_t2[..., None] * d2[:, None, :] + sig_r2[..., None] * (1.0 - d2[:, None, :] / n2[:, None, :])
+    return means, vars_, mu_t

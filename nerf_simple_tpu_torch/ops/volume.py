@@ -1,6 +1,7 @@
 """Emission-absorption compositing, the distortion regulariser and the
-proposal scheme's interlevel loss (port of nerf_simple_tpu/ops/volume.py,
-point form).
+proposal scheme's interlevel loss (port of nerf_simple_tpu/ops/volume.py):
+point form, and the interval form of the mip path (finite interval widths,
+no 1e10 tail unless ``opaque_tail``).
 
 Plain torch, as the JAX package leaves it to XLA outside any kernel. The
 reference quirks (utils/rendering.py:47-85) stay: softplus density; raw,
@@ -33,12 +34,40 @@ class CompositeOut(NamedTuple):
 
 def _weights(sigma: torch.Tensor, ts: torch.Tensor, unit_dirs: torch.Tensor):
     deltas = ts[:, 1:] - ts[:, :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], dim=-1)
+    return _interval_weights(sigma, torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], dim=-1), unit_dirs)
+
+
+def _interval_weights(sigma: torch.Tensor, deltas: torch.Tensor, unit_dirs: torch.Tensor):
+    """(alpha, weights) of (B, N) raw sigma over (B, N) ``deltas``."""
     deltas = deltas * torch.linalg.vector_norm(unit_dirs, dim=-1, keepdim=True)
     alpha = 1.0 - torch.exp(-F.softplus(sigma) * deltas)
     log_trans = torch.log(torch.clamp(1.0 - alpha, min=1e-10))
     excl = torch.cumsum(log_trans, dim=-1) - log_trans
     return alpha, alpha * torch.exp(excl)
+
+
+def composite_intervals(
+    rgb_sigma: torch.Tensor,
+    t_edges: torch.Tensor,
+    t_mids: torch.Tensor,
+    unit_dirs: torch.Tensor,
+    opaque_tail: bool = False,
+) -> CompositeOut:
+    """``composite`` for interval samples (the mip path): (B, N, 4) raw
+    outputs of the frustums between the (B, N + 1) ascending ``t_edges``;
+    the deltas are the interval widths, with no 1e10 tail, so light that
+    passes every interval stays unabsorbed (acc < 1). ``opaque_tail``
+    (mip-NeRF 360's opaque background) makes the last interval's delta
+    1e10. Depth and disparity use the frustum centres ``t_mids`` (B, N)."""
+    deltas = t_edges[:, 1:] - t_edges[:, :-1]
+    if opaque_tail:
+        deltas = torch.cat([deltas[:, :-1], torch.full_like(deltas[:, -1:], 1e10)], -1)
+    alpha, weights = _interval_weights(rgb_sigma[..., 3], deltas, unit_dirs)
+    rgb = torch.sum(weights[..., None] * rgb_sigma[..., :3], dim=1)
+    depth = torch.sum(weights * t_mids, dim=-1)
+    acc = torch.sum(weights, dim=-1)
+    disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
+    return CompositeOut(rgb, disp, alpha, acc, weights, depth)
 
 
 def weights_from_sigma(sigma: torch.Tensor, ts: torch.Tensor, unit_dirs: torch.Tensor) -> torch.Tensor:
@@ -99,6 +128,19 @@ def _distortion_core(w: torch.Tensor, m: torch.Tensor, delta: torch.Tensor) -> t
     acc_m = torch.cumsum(w * m, dim=-1)
     cross = 2.0 * torch.sum(w * (m * (acc - w) - (acc_m - w * m)), dim=-1)
     return torch.mean(cross + torch.sum(w * w * delta, dim=-1) / 3.0)
+
+
+def distortion_loss_intervals(weights: torch.Tensor, edges: torch.Tensor, opaque_tail: bool = False) -> torch.Tensor:
+    """The distortion loss in its interval form (mip-NeRF 360 eqn. 15 as
+    published; JAX ``distortion_loss_intervals``): (B, N) interval weights
+    at the midpoints of the (B, N + 1) ascending ``edges`` (in s-space),
+    the self term on the interval widths, no tail dropped, except under
+    ``opaque_tail``, whose last interval is the background absorber."""
+    m = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    delta = edges[:, 1:] - edges[:, :-1]
+    if opaque_tail:
+        weights, m, delta = weights[:, :-1], m[:, :-1], delta[:, :-1]
+    return _distortion_core(weights, m, delta)
 
 
 def interlevel_loss(w: torch.Tensor, ts: torch.Tensor, w_prop: torch.Tensor, ts_prop: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,13 @@ sorted union; ``render_rays_chunked`` takes that path for a ``NerfPair``
 under ``N_coarse > 0``. ``render_rays_proposal`` is mip-NeRF 360's
 scheme: the proposal net's weights at ``N_prop`` probes place the main
 field's N samples; ``render_rays_chunked`` takes that path for a
-``ProposalPair`` under ``N_prop > 0``.
+``ProposalPair`` under ``N_prop > 0``. ``render_rays_mip`` is mip-NeRF's
+cone casting (``mip``): N + 1 stratified edges, the conical frustums
+between them as Gaussians through the integrated encoder (under
+``"pallas"`` the forward kernel's), interval compositing in torch; with
+``mip_levels: 2`` the same field renders a coarse level, whose detached
+weights resample the fine level's edges. ``render_rays`` and
+``render_rays_chunked`` take that path under ``mip``.
 
 Eval on top of it: ``render_image`` (one still of a split),
 ``render_orbit_video`` (frames to ``utils/video.py``) and
@@ -44,17 +50,20 @@ from nerf_simple_tpu_torch.kernels.mlp import (
     supported,
 )
 from nerf_simple_tpu_torch.models import apply_model
-from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
+from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair, nerf_apply_mip
 from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
+    conical_gaussian,
+    frustum_gaussians_T,
     importance_ts,
     merge_sorted,
+    resample_edges,
     sample_points,
     stratified_ts_spaced,
 )
-from nerf_simple_tpu_torch.ops.volume import CompositeOut, composite, composite_T
+from nerf_simple_tpu_torch.ops.volume import CompositeOut, composite, composite_intervals, composite_T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +83,14 @@ class RenderSettings:
     field from its weights. ``sigma_noise > 0`` (a training regulariser)
     adds ``sigma_noise * N(0, 1)`` to raw sigma before compositing in
     ``render_rays``; the hierarchical and proposal renders apply none, as
-    in JAX. ``mip`` exists in the JAX settings but is not ported yet:
-    setting it raises."""
+    in JAX. ``mip`` casts cones (``render_rays_mip``): ``base_radius`` is
+    the cone's radius a unit of t, ``2 / sqrt(12) / focal`` for a pinhole
+    frame (the entry points compute it); ``mip_levels: 2`` renders a
+    coarse and a fine level with one field, the fine edges resampled with
+    ``resample_blur``; ``opaque_background`` makes the last interval
+    absorb what is left (mip only). ``mip_shape`` is ``"cone"``: the NDC
+    cylinder is not ported. Mip excludes ``N_coarse`` (JAX's rule); mip
+    with ``N_prop`` (mip-NeRF 360's composition) is not ported yet."""
 
     N: int = 128
     tn: float = 2.0
@@ -86,6 +101,11 @@ class RenderSettings:
     N_coarse: int = 0
     N_prop: int = 0
     mip: bool = False
+    base_radius: float = 0.0
+    mip_levels: int = 1
+    mip_shape: str = "cone"
+    resample_blur: float = 0.01
+    opaque_background: bool = False
     fused_eval: bool = False
     sigma_noise: float = 0.0
 
@@ -96,8 +116,29 @@ class RenderSettings:
             raise ValueError(f"compute_dtype must be f32 or bf16, got {self.compute_dtype}")
         if self.sigma_noise < 0:
             raise ValueError(f"sigma_noise must be >= 0, got {self.sigma_noise}")
-        if self.mip:
-            raise NotImplementedError("RenderSettings.mip is not ported yet: ROADMAP, the mip family")
+        if self.mip_levels not in (1, 2):
+            raise ValueError(f"mip_levels must be 1 or 2, got {self.mip_levels}")
+        if self.mip_levels == 2 and not self.mip:
+            raise ValueError("mip_levels=2 (coarse+fine cone casting) requires mip=True")
+        if self.opaque_background and not self.mip:
+            raise ValueError("opaque_background modifies INTERVAL compositing and needs mip=True")
+        if self.resample_blur < 0:
+            raise ValueError(f"resample_blur must be >= 0, got {self.resample_blur}")
+        if self.mip and self.N_coarse > 0:
+            raise ValueError(
+                "mip rendering excludes hierarchical sampling: cone casting draws its own interval "
+                "edges (mip_levels=2 is the cone-cast hierarchical scheme)"
+            )
+        if self.mip and self.N_prop > 0:
+            raise NotImplementedError(
+                "mip with N_prop > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported yet: "
+                "ROADMAP Queue A item 5, mip x proposal"
+            )
+        if self.mip_shape == "cylinder":
+            raise NotImplementedError(
+                "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A, LLFF/NDC")
+        if self.mip_shape != "cone":
+            raise ValueError(f"mip_shape must be 'cone' or 'cylinder', got {self.mip_shape!r}")
 
 
 def _packed(field: NerfField, dtype) -> FusedWeights:
@@ -126,7 +167,15 @@ def render_rays(
     With ``settings.sigma_noise > 0`` the (B, N) standard normal ``noise``
     given, or else one drawn from ``generator`` after the ts, times
     ``sigma_noise`` is added to raw sigma. At 0 nothing is drawn, so the
-    generator's stream and every result stay as without the setting."""
+    generator's stream and every result stay as without the setting.
+
+    Under ``settings.mip`` it is ``render_rays_mip`` (no ``ts``: the
+    cone-cast path draws its own edges; the fine level's output under
+    ``mip_levels: 2``)."""
+    if settings.mip:
+        if ts is not None or noise is not None:
+            raise ValueError("mip rendering draws its own interval edges: pass edges to render_rays_mip")
+        return render_rays_mip(field, rays, generator, settings)
     if ts is None:
         ts = stratified_ts_spaced(
             generator, rays.shape[0], settings.N, settings.tn, settings.tf,
@@ -137,6 +186,94 @@ def render_rays(
             raise ValueError("sigma_noise > 0 draws its noise from a generator: pass one, or the noise")
         noise = torch.randn(ts.shape, generator=generator, dtype=ts.dtype, device=ts.device)
     return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None)
+
+
+def render_rays_mip(
+    field: NerfField,
+    rays: torch.Tensor,
+    generator: torch.Generator | None,
+    settings: RenderSettings,
+    edges: torch.Tensor | None = None,
+    edges_fine: torch.Tensor | None = None,
+    return_coarse: bool = False,
+):
+    """Cone-cast rendering (mip-NeRF; JAX ``_render_mip``): N + 1
+    stratified edges drawn from ``generator`` (or the (B, N + 1)
+    ``edges`` given), the N frustums between them through
+    ``_mip_level``. With ``mip_levels: 2`` the same field renders again at
+    the fine edges that ``resample_edges`` draws from the coarse level's
+    detached weights (or ``edges_fine``), and the fine output is
+    returned, with ``return_coarse`` as (coarse, fine). With
+    ``sigma_noise > 0`` each level's raw sigma gains ``sigma_noise``
+    times a standard normal drawn from ``generator`` after that level's
+    edges."""
+    B, N = rays.shape[0], settings.N
+    if edges is None:
+        edges = stratified_ts_spaced(generator, B, N + 1, settings.tn, settings.tf, rays.device,
+                                     rays.dtype, settings.sampling_space)
+
+    def level(e):
+        noise = None
+        if settings.sigma_noise > 0:
+            if generator is None:
+                raise ValueError("sigma_noise > 0 draws its noise from a generator: pass one")
+            noise = torch.randn((B, N), generator=generator, dtype=rays.dtype, device=rays.device)
+        return _mip_level(field, rays, e, settings, noise)
+
+    out_c = level(edges)
+    if settings.mip_levels < 2:
+        return out_c
+    if edges_fine is None:
+        edges_fine = resample_edges(generator, edges, out_c.weights.detach(), N, blur=settings.resample_blur)
+    out_f = level(edges_fine)
+    return (out_c, out_f) if return_coarse else out_f
+
+
+def _mip_level(field: NerfField, rays: torch.Tensor, edges: torch.Tensor, settings: RenderSettings,
+               noise: torch.Tensor | None = None) -> CompositeOut:
+    """One cone-cast level at the (B, N + 1) ``edges`` (JAX ``_mip_level``):
+    the frustum Gaussians through the integrated encoder (under
+    ``"pallas"`` the forward kernel's, ``_fused_mlp_bn_mip``; else
+    ``nerf_apply_mip``), ``sigma_noise * noise`` on raw sigma, then
+    ``composite_intervals`` (with ``opaque_background``'s tail)."""
+    B, N = edges.shape[0], edges.shape[1] - 1
+    dirs = rays[:, 3:6]
+    unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    if settings.backend == "pallas":
+        outT, t_mids = _fused_mlp_bn_mip(field, rays, edges, settings)
+        out = outT.permute(1, 2, 0)
+    else:
+        means, vars_, t_mids = conical_gaussian(rays, edges, settings.base_radius, settings.mip_shape)
+        q = unit_dirs[:, None, :].expand(B, N, 3).reshape(B * N, 3)
+        out = nerf_apply_mip(field, means.reshape(B * N, 3), vars_.reshape(B * N, 3), q,
+                             settings.compute_dtype).reshape(B, N, 4)
+    if noise is not None:
+        out = torch.cat([out[..., :3], (out[..., 3] + settings.sigma_noise * noise)[..., None]], dim=-1)
+    return composite_intervals(out, edges, t_mids, unit_dirs, opaque_tail=settings.opaque_background)
+
+
+def _fused_mlp_bn_mip(field: NerfField, rays: torch.Tensor, edges: torch.Tensor,
+                      settings: RenderSettings) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel with the integrated encoder over a (B, N)
+    interval grid (JAX ``_fused_mlp_bn_mip``): its (16, B*N) input from
+    ``frustum_gaussians_T`` (means rows 0..2, unit dirs 3..5, variances
+    11..13) -> (channel-major (4, B, N) raw outputs, (B, N) frustum
+    centres). With gradients enabled, the differentiable ``fused_mlp``
+    (its backward recomputes the same forward: B2's mip variant)."""
+    _require_kernel_arch(field)
+    B, N = edges.shape[0], edges.shape[1] - 1
+    meanT, unitT, varT, mu_t = frustum_gaussians_T(rays, edges, settings.base_radius, settings.mip_shape)
+    x = torch.zeros((16, B, N), dtype=torch.float32, device=rays.device)
+    x[0:3] = meanT
+    x[3:6] = unitT[:, :, None]
+    x[11:14] = varT
+    x = x.reshape(16, B * N)
+    if torch.is_grad_enabled():
+        outT = fused_mlp(pack_weights(field, differentiable=True), x, settings.compute_dtype, field.model, mip=True)
+    else:
+        outT = fused_mlp_forward(_packed(field, settings.compute_dtype), x, settings.compute_dtype, field.model,
+                                 mip=True)
+    return outT[:4].reshape(4, B, N), mu_t
 
 
 def render_rays_hierarchical(
@@ -340,7 +477,9 @@ def render_rays_chunked(
     quantiles (``det_fine``), as JAX eval does; under ``N_prop > 0`` it is
     a ``ProposalPair`` and a chunk renders with the proposal scheme, its
     probes at bin midpoints and its samples at the quantiles, so a frame
-    is deterministic end to end."""
+    is deterministic end to end. Under ``mip`` a chunk casts cones
+    (``render_rays_mip``, its draws from the chunk's generator, as JAX
+    eval draws them)."""
     if occ is not None:
         raise NotImplementedError(
             "occupancy-informed sampling is not ported yet: ROADMAP Queue A, occupancy"
@@ -353,7 +492,7 @@ def render_rays_chunked(
                          f"else one NerfField); got a {type(field).__name__}")
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays, chunk)
-    fused = settings.fused_eval and settings.backend == "pallas" and not (hier or prop)
+    fused = settings.fused_eval and settings.backend == "pallas" and not (hier or prop or settings.mip)
     rgbs, disps = [], []
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
@@ -407,10 +546,12 @@ def render_normals_chunked(
     transmittance) and the sum is not renormalised (its length is the
     coherence of the gradients: ~0 over empty space). A ``NerfPair`` or
     ``ProposalPair`` gives its fine field, at the plain N setting (normals
-    need one density field)."""
+    need one density field); a mip field renders point samples, as JAX
+    does."""
     if isinstance(field, (NerfPair, ProposalPair)):
         field = field.fine
-    s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0, N_prop=0)
+    s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0, N_prop=0, mip=False,
+                            mip_levels=1, opaque_background=False)
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays[:, :6], chunk)
     outs = []

@@ -2,7 +2,7 @@
 
     python -m nerf_simple_tpu_torch.serve --loadpath models/exp/params_10000.npz \\
         --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000] \\
-        [--proposal-samples 64]
+        [--proposal-samples 64 | --mip [--mip-levels 2] [--resample-blur B] [--opaque-background]]
 
 Endpoints:
   GET /health                  -> {"status": "ok", ...}
@@ -10,7 +10,9 @@ Endpoints:
 
 With ``--proposal-samples Np`` (a proposal-trained checkpoint, its
 ``{prop, fine}`` params) the proposal net at Np probes places the
-``--samples`` of the main field in each frame. The params live on one
+``--samples`` of the main field in each frame. With ``--mip`` (a
+mip-trained checkpoint) each frame casts cones of radius ``2 / sqrt(12) /
+focal``, at ``--mip-levels`` 1 or 2. The params live on one
 device. Renders are serialised through a lock
 (one card, one render at a time). PNGs are encoded with the standard
 library (utils/png.py).
@@ -109,7 +111,7 @@ def _make_handler(server: RenderServer):
                     "backend": server.settings.backend,
                     "occupancy": False,
                     "proposal": server.prop_model is not None,
-                    "mip": False,
+                    "mip": server.settings.mip,
                     "device": str(server.device),
                     "kernel_launches": fused_mlp_forward.launches,
                 })
@@ -142,10 +144,6 @@ def serve(server: RenderServer, port: int = 8000) -> ThreadingHTTPServer:
 _UNPORTED_FLAGS = {
     "occupancy": (False, "occupancy"),
     "occ_R": (64, "occupancy"),
-    "mip": (False, "mip"),
-    "mip_levels": (1, "mip"),
-    "resample_blur": (0.01, "mip"),
-    "opaque_background": (False, "mip"),
 }
 
 
@@ -180,8 +178,6 @@ def main(argv=None) -> None:
     from nerf_simple_tpu_torch.evaluate import load_params
     from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
 
-    params = load_params(args.loadpath, keep_hierarchy=args.proposal_samples > 0)
-    model = load_model_meta(args.loadpath)  # None -> inferred from shapes
     settings = RenderSettings(
         N=args.samples,
         N_prop=args.proposal_samples,
@@ -190,7 +186,15 @@ def main(argv=None) -> None:
         sampling_space=args.sampling_space,
         backend=args.backend,
         compute_dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        mip=args.mip,
+        mip_levels=args.mip_levels,
+        resample_blur=args.resample_blur,
+        opaque_background=args.opaque_background,
+        # a pixel's world-space half-width at unit distance (mip-NeRF sec. 3.1)
+        base_radius=2.0 / 12.0**0.5 / args.focal if args.mip else 0.0,
     )
+    params = load_params(args.loadpath, keep_hierarchy=args.proposal_samples > 0)
+    model = load_model_meta(args.loadpath)  # None -> inferred from shapes
     srv = RenderServer(
         params, args.height, args.width, args.focal, settings, model=model,
         device=args.device,
@@ -198,7 +202,8 @@ def main(argv=None) -> None:
     httpd = serve(srv, args.port)
     print(f"serving on :{args.port} (frame {args.height}x{args.width}, "
           f"{args.backend}/{args.dtype}, N={args.samples}"
-          + (f", Np={args.proposal_samples}" if args.proposal_samples > 0 else "") + f", {srv.device})")
+          + (f", Np={args.proposal_samples}" if args.proposal_samples > 0 else "")
+          + (f", mip levels {args.mip_levels}" if args.mip else "") + f", {srv.device})")
     httpd.serve_forever()
 
 

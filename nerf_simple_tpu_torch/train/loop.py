@@ -1,12 +1,13 @@
-"""The training loop (port of nerf_simple_tpu/train/loop.py, the
-point-sampled paths: one network, the hierarchical coarse + fine pair, or
-the proposal scheme).
+"""The training loop (port of nerf_simple_tpu/train/loop.py: one network,
+the hierarchical coarse + fine pair, the proposal scheme, or one network
+casting cones, mip-NeRF's path).
 
 Same observable behaviour as the reference ``train()`` (train.py:28-91)
 and the JAX loop: loss and lr every ``ckpt_loss`` iterations, train and
 val renders with MSE/PSNR/SSIM every ``ckpt_images`` (hierarchical runs
 render with both nets, ``N_coarse = Nc``; proposal runs with the proposal
-net placing the main field's samples, ``N_prop = Np``), a checkpoint
+net placing the main field's samples, ``N_prop = Np``; mip runs cast
+cones with the train frames' radius, ``2 / sqrt(12) / focal``), a checkpoint
 every ``ckpt_model`` and at the end, then ``params_<step>.npz`` (both
 nets of a hierarchical or proposal run) and ``.pth`` (the reference's
 single-network format: the fine net of a two-net run) exports that this
@@ -23,6 +24,7 @@ the second sync on: the first window holds the kernel builds.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Any
@@ -134,8 +136,11 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         if latest is not None:
             ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} at step {state.step}")
-    step_fn = build_train_step(cfg, model)
-    eval_settings = dataclasses.replace(render_settings(cfg), sigma_noise=0.0)  # no training noise
+    # mip's cone radius: a pixel's world-space half-width at unit distance
+    # (2 / sqrt(12) times the direction grid's spacing 1 / f; mip-NeRF sec. 3.1)
+    base_radius = 2.0 / math.sqrt(12.0) / rd.f if cfg.mip else 0.0
+    step_fn = build_train_step(cfg, model, base_radius=base_radius)
+    eval_settings = dataclasses.replace(render_settings(cfg, base_radius), sigma_noise=0.0)  # no training noise
     lr0, decay = lr_schedule(cfg)
 
     def render_and_log(split: str, ii: int, i: int) -> None:

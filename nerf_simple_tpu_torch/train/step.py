@@ -1,7 +1,7 @@
 """The training step: sample -> render -> loss -> gradients -> Adam (port of
-nerf_simple_tpu/train/step.py, the point-sampled paths: one network, the
-hierarchical coarse + fine pair, or the proposal scheme's proposal net and
-main field).
+nerf_simple_tpu/train/step.py: one network, the hierarchical coarse + fine
+pair, the proposal scheme's proposal net and main field, or one network
+casting cones, mip-NeRF's path, at one or two levels).
 
 Learning rate as the reference: Adam starts at the hard-coded 5e-4
 (train.py:43 ignores lr_init; ``honor_lr_init`` fixes that) and
@@ -30,7 +30,15 @@ Cores:
   construction) trains the proposal net. ``distortion_loss_weight > 0``
   runs in the kernel (its distortion rail): on the single net, on the
   hierarchical fine pass, and on the proposal scheme's main field, in the
-  launch that also gives the weights;
+  launch that also gives the weights. Mip (``mip_fused_loss``): the
+  stratified draw is Nf + 1 interval edges, and B1 runs its cone-cast
+  variant (the integrated encoder, interval compositing, the per-ray loss
+  weight): once a step at ``mip_levels: 1`` (with the interval form of the
+  rail under ``distortion_loss_weight``), twice at ``mip_levels: 2``, both
+  launches on the same packed weights: the coarse level with the weights
+  output, from which ``resample_edges`` draws the fine level's edges; the
+  loss and the gradients are ``mip_coarse_weight`` times the coarse
+  level's plus the fine level's;
 - ``backend="xla"``, or ``fused=False``: autograd over ``render_rays``
   (``render_rays_hierarchical``) and the loss JAX's ``loss_fn`` builds:
   the MSE (of both nets' colours), ``depth_loss_weight`` times the masked
@@ -38,9 +46,11 @@ Cores:
   distortion in s-space (of the fine net's weights at the union);
   proposal: ``render_rays_proposal``, the MSE, ``proposal_loss_weight``
   times the interlevel loss on the main field's detached weights, the
-  depth term and the distortion at the main field's samples. Under
-  ``backend="pallas"`` that renders through ``fused_mlp``, whose backward
-  is the fused backward kernel. This is the JAX package's path for what
+  depth term and the distortion at the main field's samples; mip:
+  ``render_rays_mip`` at both levels, the loss weighted as the fused
+  core's, the interval distortion. Under ``backend="pallas"`` that
+  renders through ``fused_mlp`` (its mip variant under mip), whose
+  backward is the fused backward kernel. This is the JAX package's path for what
   its single kernel does not take: ``sigma_noise > 0`` or
   ``depth_loss_weight > 0`` choose it by default, with JAX's warning, and
   ``fused=True`` with either raises. ``sigma_noise`` noises raw sigma in
@@ -70,16 +80,25 @@ from nerf_simple_tpu_torch.models.proposal import (
 )
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
+    frustum_gaussians_T,
     importance_ts,
     merge_sorted,
+    resample_edges,
     stratified_ts_spaced,
 )
-from nerf_simple_tpu_torch.ops.volume import CompositeOut, distortion_loss, interlevel_loss, s_norm
+from nerf_simple_tpu_torch.ops.volume import (
+    CompositeOut,
+    distortion_loss,
+    distortion_loss_intervals,
+    interlevel_loss,
+    s_norm,
+)
 from nerf_simple_tpu_torch.render.renderer import (
     RenderSettings,
     derive_seed,
     render_rays,
     render_rays_hierarchical,
+    render_rays_mip,
     render_rays_proposal,
 )
 
@@ -141,6 +160,62 @@ def build_x16(rays_b: torch.Tensor, ts: torch.Tensor, pix_b: torch.Tensor) -> to
     x[6] = ts
     x[8:11] = pix_b.T[:, :, None]
     return x.reshape(16, B * N)
+
+
+def build_x16_mip(rays_b: torch.Tensor, edges: torch.Tensor, pix_b: torch.Tensor, base_radius,
+                  shape: str = "cone") -> torch.Tensor:
+    """The fused step's (16, B*N) input under mip (JAX ``_build_x16_mip``)
+    at (B, N + 1) interval ``edges``: the frustum Gaussians' means in rows
+    0..2, unit dirs 3..5, the interval widths 6, their near edges t0 7,
+    the gt colour 8..10, the diagonal variances 11..13, the ray's loss
+    weight 14 (1: multiscale training's footprint weights are not
+    ported)."""
+    B, N = edges.shape[0], edges.shape[1] - 1
+    meanT, unitT, varT, _ = frustum_gaussians_T(rays_b, edges, base_radius, shape)
+    t0, t1 = edges[:, :-1], edges[:, 1:]
+    x = torch.zeros((16, B, N), dtype=torch.float32, device=rays_b.device)
+    x[0:3] = meanT
+    x[3:6] = unitT[:, :, None]
+    x[6] = t1 - t0
+    x[7] = t0
+    x[8:11] = pix_b[:, :3].T[:, :, None]
+    x[11:14] = varT
+    x[14] = 1.0
+    return x.reshape(16, B * N)
+
+
+def mip_fused_loss(field: NerfField, rays_b, pix_b, edges, generator, compute_dtype, model: NerfMLP,
+                   base_radius, mip_levels: int = 1, coarse_weight: float = 0.1, blur: float = 0.01,
+                   opaque_tail: bool = False, dist: tuple | None = None,
+                   edges_fine: torch.Tensor | None = None) -> torch.Tensor:
+    """The fused mip core (JAX train/step.py, its mip core): B1's cone-cast
+    variant at the (B, N + 1) stratified ``edges``, with ``dist`` (its
+    interval form) and ``opaque_tail``. At ``mip_levels: 2`` the same
+    packed weights serve both levels: the coarse launch with the weights
+    output (which carries no gradient: the stop-gradient on the
+    resampling), the fine edges that ``resample_edges`` draws from it
+    (from ``generator``; or the ``edges_fine`` given), the fine launch
+    there; the loss is
+    ``coarse_weight * loss_c + loss_f``, and the gradients the same sum of
+    the two launches', taken to the field through one differentiable
+    pack. Returns the loss."""
+    N = edges.shape[1] - 1
+    wts = pack_weights(field, differentiable=True)
+
+    def launch(e, **kw):
+        return fused_train_step(wts, build_x16_mip(rays_b, e, pix_b, base_radius), N, compute_dtype, model,
+                                mip=True, opaque_tail=opaque_tail, **kw)
+
+    if mip_levels == 2:
+        loss_c, dw_c, w_c = launch(edges, out_weights=True)
+        if edges_fine is None:
+            edges_fine = resample_edges(generator, edges, w_c, N, blur=blur)
+        loss_f, dw_f = launch(edges_fine)
+        torch.autograd.backward(list(wts), [coarse_weight * a + b for a, b in zip(dw_c, dw_f)])
+        return coarse_weight * loss_c + loss_f
+    loss, dwts = launch(edges, dist=dist)
+    torch.autograd.backward(list(wts), list(dwts))
+    return loss
 
 
 def fused_loss(field: NerfField, rays_b, pix_b, ts, compute_dtype, model: NerfMLP, out_weights=False,
@@ -228,7 +303,7 @@ def kernel_refusal(cfg: TrainConfig) -> str | None:
 
 def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, rays_b, pix_b, ts, generator,
                   settings: RenderSettings, det_fine: bool = False, noise=None,
-                  prop_anneal: float | None = None) -> torch.Tensor:
+                  prop_anneal: float | None = None, edges_fine: torch.Tensor | None = None) -> torch.Tensor:
     """The differentiable loss of one batch at the stratified ``ts``, as
     JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
     ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
@@ -240,15 +315,36 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     field, ``proposal_loss_weight`` times the interlevel loss of the
     proposal weights against the main field's detached ones, the depth
     term, the distortion of the main field's weights at its samples; the
-    placement annealed by ``prop_anneal``. ``generator`` draws the
-    importance samples (the quantiles with ``det_fine``) and the sigma
-    noise (or ``noise``, a (B, N) standard normal, is taken)."""
+    placement annealed by ``prop_anneal``. Mip (``ts`` are the Nf + 1
+    interval edges): ``render_rays_mip``, the MSE, ``mip_coarse_weight``
+    times the coarse level's plus the fine level's at ``mip_levels: 2``
+    (the fine edges resampled, or ``edges_fine``), the depth term of the
+    last level, the interval distortion at ``mip_levels: 1``.
+    ``generator`` draws the importance samples (the quantiles with
+    ``det_fine``) and the sigma noise (or ``noise``, a (B, N) standard
+    normal, is taken; under mip it is always drawn)."""
     gt_d = None
     if cfg.depth_loss_weight > 0:
         pix_b, gt_d = pix_b[:, :3], pix_b[:, 3]
 
     def mse(rgb):
         return torch.mean((rgb - pix_b) ** 2)
+
+    if cfg.mip:
+        outs = render_rays_mip(field, rays_b, generator, settings, edges=ts, edges_fine=edges_fine,
+                               return_coarse=True)
+        if cfg.mip_levels == 2:
+            out = outs[1]
+            loss = cfg.mip_coarse_weight * mse(outs[0].rgb) + mse(out.rgb)
+        else:
+            out = outs
+            loss = mse(out.rgb)
+        if gt_d is not None:
+            loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
+        if cfg.distortion_loss_weight > 0:
+            loss = loss + cfg.distortion_loss_weight * distortion_loss_intervals(
+                out.weights, _s_norm(cfg, ts), opaque_tail=cfg.opaque_background)
+        return loss
 
     if cfg.hierarchical:
         coarse, fine, (_, ts_all) = render_rays_hierarchical(field.coarse, field.fine, rays_b, generator, settings,
@@ -277,21 +373,29 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     return loss
 
 
-def render_settings(cfg: TrainConfig) -> RenderSettings:
-    """The training render's settings (the sigma noise with them)."""
+def render_settings(cfg: TrainConfig, base_radius: float = 0.0) -> RenderSettings:
+    """The training render's settings (the sigma noise with them; under
+    mip the cone radius ``base_radius`` and the mip keys)."""
     return RenderSettings(
         N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, N_prop=cfg.Np if cfg.proposal else 0,
         tn=cfg.tn, tf=cfg.tf,
         sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
-        sigma_noise=cfg.sigma_noise,
+        sigma_noise=cfg.sigma_noise, mip=cfg.mip, base_radius=base_radius if cfg.mip else 0.0,
+        mip_levels=cfg.mip_levels, resample_blur=cfg.resample_blur, opaque_background=cfg.opaque_background,
     )
 
 
-def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None):
+def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None, base_radius: float = 0.0):
     """``step_fn(state, rays, pixels) -> loss``: one iteration on the
     resident ray set, the loss left on the device (no sync). With
     ``depth_loss_weight > 0``, ``pixels`` carries the metric depth as a
-    4th channel (train/loop.py packs it)."""
+    4th channel (train/loop.py packs it). Under mip, ``base_radius`` is
+    the frame's cone radius a unit of t, ``2 / sqrt(12) / focal`` (the
+    loop passes it)."""
+    if cfg.mip and base_radius <= 0:
+        raise ValueError(
+            "cfg.mip=True needs base_radius > 0 (2/sqrt(12)/focal; the train driver passes it automatically)"
+        )
     refusal = kernel_refusal(cfg)
     if fused is None:
         fused = cfg.backend == "pallas" and refusal is None
@@ -308,9 +412,9 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             "(fused=False); running autograd through fused_mlp instead",
             stacklevel=2,
         )
-    settings = render_settings(cfg)
-    # the stratified samples a ray: coarse samples, proposal probes or the samples
-    N_strat = cfg.Nc if cfg.hierarchical else cfg.Np if cfg.proposal else cfg.Nf
+    settings = render_settings(cfg, base_radius)
+    # the stratified draw a ray: coarse samples, proposal probes, mip's interval edges or the samples
+    N_strat = cfg.Nc if cfg.hierarchical else cfg.Np if cfg.proposal else cfg.Nf + 1 if cfg.mip else cfg.Nf
     lr0, decay = lr_schedule(cfg)
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
@@ -319,6 +423,10 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         """The loss of one batch at the stratified ``ts``, gradients left
         in the fields; ``g`` draws the importance samples (and the sigma
         noise); ``anneal`` is the proposal's placement anneal."""
+        if fused and cfg.mip:
+            return mip_fused_loss(field, rays_b, pix_b, ts, g, cfg.render_dtype, model, base_radius,
+                                  cfg.mip_levels, cfg.mip_coarse_weight, cfg.resample_blur,
+                                  cfg.opaque_background, dist=dist)
         if fused and cfg.hierarchical:
             return hierarchical_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model,
                                            dist=dist)

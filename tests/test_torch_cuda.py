@@ -1,6 +1,8 @@
 """The CUDA kernels (fused MLP forward, backward, train step with and
 without its weights output and its distortion rail, both at once, and
-the fused proposal core that launches it so; render;
+the fused proposal core that launches it so; the cone-cast (mip)
+variants of the forward, the backward and the train step, and the
+two-level mip core; render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -698,3 +700,178 @@ def test_train_step_launches_the_tile_kernel_once(dev, dtype):
     mlp.fused_train_step(wts, _x16(4, 16, dev), 16, dtype, model)
     torch.cuda.synchronize()
     assert mlp.bwd_tile_launches() == 1
+
+
+# --- the mip (cone-cast) variants ---------------------------------------------
+
+MIP_RADIUS = 0.02  # a cone radius a unit of t: variances to ~2e-3, which damp the high octaves
+
+
+def _rays_mip(B, dev, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, 3))
+    rays = np.concatenate([-4.0 * d / np.linalg.norm(d, axis=1, keepdims=True) + rng.normal(0, 0.2, (B, 3)), d], 1)
+    return (torch.from_numpy(rays.astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(dev))
+
+
+def _x16_mip(B, N, dev, seed=0, lw=False):
+    """B1's mip input (train/step.py::build_x16_mip) at sorted random
+    edges; with ``lw``, loss weights in [0.25, 2] on row 14."""
+    from nerf_simple_tpu_torch.train.step import build_x16_mip
+
+    rays, pix = _rays_mip(B, dev, seed)
+    edges = torch.from_numpy(np.sort(np.random.default_rng(seed + 1).uniform(2, 6, (B, N + 1)), -1)
+                             .astype(np.float32)).to(dev)
+    x = build_x16_mip(rays, edges, pix, MIP_RADIUS)
+    if lw:
+        w = torch.from_numpy(np.random.default_rng(seed + 2).uniform(0.25, 2.0, B).astype(np.float32)).to(dev)
+        x[14] = w.repeat_interleave(N)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", CASES, ids=CASE_IDS)
+def test_forward_mip_matches_plain(dev, model, rows, dtype):
+    """The forward with the integrated encoder (``mip=True``: 16 input
+    rows, variances in rows 11..13) against its plain version at ragged
+    rows; it counts in ``mip_launches``; at zero variance it is the point
+    forward bit for bit (each damp factor is exactly 1)."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    B = -(-rows // 8)
+    x = _x16_mip(B, 8, dev)[:, :rows].contiguous()
+    before = (mlp.fused_mlp_forward.launches, mlp.fused_mlp_forward.mip_launches)
+    got = mlp.fused_mlp_forward(wts, x, dtype, model, mip=True)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_forward.launches, mlp.fused_mlp_forward.mip_launches) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, model, mip=True)
+    assert bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
+    point = mlp.fused_mlp_forward(wts, x[:8].contiguous(), dtype, model)
+    assert not torch.equal(got, point)  # the variances damp
+    x0 = x.clone()
+    x0[11:14] = 0.0
+    assert torch.equal(mlp.fused_mlp_forward(wts, x0, dtype, model, mip=True), point)
+    with pytest.raises(ValueError, match="16"):
+        mlp.fused_mlp_forward(wts, x[:8].contiguous(), dtype, model, mip=True)
+
+
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48)], ids=["flagship", "odd-widths"])
+def test_f32_forward_mip_residual_planes_match_plain(dev, model):
+    """The f32 forward keeps the damped encoding in posx's residual plane,
+    which B1's and B2's weight gradients read: every plane against the
+    plain ``_forward`` with mip."""
+    rows = 132 * FWD_TILE + 17
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev))
+    x = _x16_mip(-(-rows // 8), 8, dev, seed=3)[:, :rows].contiguous()
+    out, res = mlp.forward_residuals(wts, x, torch.float32, model, mip=True)
+    torch.cuda.synchronize()
+    want_out, want = mlp.forward_residuals_plain(wts, x, torch.float32, model, mip=True)
+    assert (out[:4] - want_out[:4]).abs().max().item() <= TOL[torch.float32]
+    err = (res[:, :rows] - want[:, :rows]).abs().max().item()
+    assert err <= 2e-4 * max(1.0, want[:, :rows].abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", CASES, ids=CASE_IDS)
+def test_backward_mip_matches_plain(dev, model, rows, dtype):
+    """B2 recomputing the forward with the integrated encoder (``mip``)
+    against its plain version; it counts in ``mip_launches``."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x = _x16_mip(-(-rows // 8), 8, dev, seed=4)[:, :rows].contiguous()
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    before = (mlp.fused_mlp_backward.launches, mlp.fused_mlp_backward.mip_launches)
+    got = mlp.fused_mlp_backward(wts, x, g, dtype, model, mip=True)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_backward.launches, mlp.fused_mlp_backward.mip_launches) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_mlp_backward_plain(wts, x, g, dtype, model, mip=True)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+
+
+MIP_CASES = {"plain": dict(), "weights": dict(out_weights=True), "opaque": dict(opaque_tail=True),
+             "rail": dict(dist=(0.05, 2.0, 6.0, False), lw=True),
+             "rail-opaque-disparity": dict(dist=(0.05, 2.0, 6.0, True), opaque_tail=True, lw=True, out_weights=True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(MIP_CASES))
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 64), (NerfMLP(), 41, 128),
+                                         (NerfMLP(Lp=3, Ld=1, H=48), 3, 5)],
+                         ids=["small-N64", "flagship-N128", "odd-widths-short-rays"])
+def test_train_step_mip_matches_plain(dev, model, B, N, case, dtype):
+    """B1's cone-cast variant (the integrated encoder, interval
+    compositing, the per-ray loss weight of row 14, the opaque tail, the
+    interval rail, the weights output) at ragged ray counts against its
+    plain version: loss, gradients and weights within B1's bounds; the
+    launch counts in ``mip_launches`` (and ``opaque_launches``);
+    deterministic."""
+    kw = dict(MIP_CASES[case])
+    x16 = _x16_mip(B, N, dev, seed=5, lw=kw.pop("lw", False))
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    counts = ("launches", "mip_launches", "opaque_launches")
+    before = [getattr(mlp.fused_train_step, c) for c in counts]
+    out = mlp.fused_train_step(wts, x16, N, dtype, model, mip=True, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(mlp.fused_train_step, c) - b for c, b in zip(counts, before)] == [
+        1, 1, int(kw.get("opaque_tail", False))]
+    want = mlp.fused_train_step_plain(wts, x16, N, dtype, model, mip=True, **kw)
+    assert abs(out[0].item() / want[0].item() - 1) <= LOSS_TOL[dtype]
+    errs = _grad_errors(out[1], want[1])
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    if kw.get("out_weights"):
+        assert out[2].shape == (B, N) and (out[2] - want[2]).abs().max().item() <= TOL[dtype]
+    again = mlp.fused_train_step(wts, x16, N, dtype, model, mip=True, **kw)
+    assert again[0].item() == out[0].item() and all(torch.equal(a, b) for a, b in zip(out[1], again[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_two_level_mip_core_on_the_card(dev, monkeypatch, dtype):
+    """The fused two-level mip core (train/step.py::mip_fused_loss) with
+    the CUDA B1 against the same core with B1's plain version, the same
+    edges and fine edges: loss and gradients within B1's bounds; two
+    launches, both cone-cast, one with the weights output; then one step
+    of the mip training path (pallas, bf16, mip_levels 2)."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, B, N = NerfMLP(Lp=4, Ld=2, H=64), 64, 32
+    params = init_nerf_params(1, model)
+    rays, pix = _rays_mip(B, dev, 6)
+    rng = np.random.default_rng(7)
+    edges, edges_f = (torch.from_numpy(np.sort(rng.uniform(2, 6, (B, N + 1)), -1).astype(np.float32)).to(dev)
+                      for _ in range(2))
+
+    def plain(wts, x16, N, compute_dtype, model, out_weights=False, dist=None, mip=False, opaque_tail=False):
+        with torch.no_grad():
+            return mlp.fused_train_step_plain(mlp._cast_weights(wts, compute_dtype), x16, N, compute_dtype, model,
+                                              out_weights, dist, mip, opaque_tail)
+
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(step_mod, "fused_train_step", plain)
+        field = NerfField.from_jax_params(params, dev)
+        counts = ("launches", "mip_launches", "weights_launches")
+        before = [getattr(mlp.fused_train_step, c) for c in counts]
+        loss = step_mod.mip_fused_loss(field, rays, pix, edges, None, dtype, model, MIP_RADIUS, mip_levels=2,
+                                       edges_fine=edges_f)
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.clone() for n, p in field.named_parameters()},
+                      [getattr(mlp.fused_train_step, c) - b for c, b in zip(counts, before)])
+    monkeypatch.undo()
+    (loss, grads, launched), (loss_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+    assert launched == [2, 2, 1] and launched_p == [0, 0, 0]
+    assert abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for n, gp in grads_p.items():
+        err = ((grads[n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (n, err)
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=256, backend="pallas", compute_dtype="bf16", net_H=64,
+                      net_Lp=4, net_Ld=2, mip=True, mip_levels=2)
+    state = step_mod.make_train_state(cfg, model, dev)
+    all_rays = _rays_mip(1000, dev, 8)[0]
+    w0 = state.field.trunk1.weight.detach().clone()
+    before = mlp.fused_train_step.mip_launches
+    out = step_mod.build_train_step(cfg, model, base_radius=MIP_RADIUS)(state, all_rays, torch.rand(1000, 3, device=dev))
+    assert mlp.fused_train_step.mip_launches == before + 2
+    assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.trunk1.weight)

@@ -179,12 +179,13 @@ def test_test_config_defaults_and_checks():
     base = {"loadpath": "m", "datapath": "d"}
     with pytest.raises(ValueError, match="needs mip=True"):  # the JAX TrainConfig's words
         config.test_config_from_dict({**base, "opaque_background": True})
-    with pytest.raises(NotImplementedError, match="mip"):
-        config.test_config_from_dict({**base, "mip": True, "opaque_background": True})
+    assert config.test_config_from_dict({**base, "mip": True, "opaque_background": True}).opaque_background
+    with pytest.raises(NotImplementedError, match="mip x proposal"):
+        config.test_config_from_dict({**base, "mip": True, "Np": 32})
     with pytest.raises(ValueError, match="tn > 0"):
         config.test_config_from_dict({**base, "sampling_space": "disparity", "tn": 0.0})
     assert config.test_config_from_dict({**base, "num_data_shards": 0}).loadpath == "m"
-    for key, value in (("num_data_shards", -1), ("mip_levels", 2), ("occupancy", True), ("ndc", False)):
+    for key, value in (("num_data_shards", -1), ("occ_R", 32), ("occupancy", True), ("ndc", False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.test_config_from_dict({**base, key: value})
     assert config.test_config_from_dict({**base, "Np": 32}).Np == 32  # ported: proposal eval

@@ -541,9 +541,12 @@ def test_lego_proposal_yaml_loads_and_each_check_raises():
     for mod in (config, jconfig):
         with pytest.raises(ValueError, match="alternative samplers"):
             mod.TestConfig(loadpath="m", datapath="d", Np=8, Nc=8)
-    for key, value in (("mip", True), ("mip_levels", 2), ("opaque_background", True)):
-        with pytest.raises(NotImplementedError, match="mip"):
-            config.train_config_from_dict({**d, key: value})
+    with pytest.raises(NotImplementedError, match="mip x proposal"):
+        config.train_config_from_dict({**d, "mip": True})
+    for key, value, match in (("mip_levels", 2, "requires mip=True"), ("opaque_background", True, "needs mip=True")):
+        for mod in (config, jconfig):  # JAX's rules, in JAX's words
+            with pytest.raises(ValueError, match=match):
+                mod.train_config_from_dict({**d, key: value})
     with pytest.raises(NotImplementedError, match="mip"):
         config.test_config_from_dict({**d["test_params"], "mip": True})
 
