@@ -11,7 +11,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
    at once; prints the build time and ptxas registers and spills (the
    forward tile kernels, csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the
    backward tile kernels, csrc/bwd_f32.cuh and csrc/bwd_bf16.cuh, are
-   built into four of them);
+   built into four of them; the input-gradient kernel, csrc/input_grad.cuh,
+   into B2's);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -137,7 +138,30 @@ NerfMLP(Lp=10, Ld=4, H=256):
    in a process of its own serves one frame over HTTP, which matches
    ``render_rays_chunked`` to 1 level; with ``--before``, B1's point
    launch must be bit-equal to the earlier library's (phase 5b);
-13. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+13. pose refinement (BARF: ``pose_opt``, ``pe_anneal_until``,
+   ``pose_freeze_at`` with lego.yaml's keys): (a) the pose kernel variants
+   against their plain versions, f32 and bf16: the forward with the anneal
+   windows (alpha 0.3 and 1) at a 2,097,152-row chunk beside the forward
+   without them (at alpha 1 bit-equal to it), B2 with ``want_dx`` at the
+   training batch with and without the windows (its weight gradients
+   bit-equal to the launch without ``want_dx``), the input-gradient kernel
+   alone (csrc/input_grad.cuh, probes/input_grad.py) beside its plain
+   version and a torch.mm yardstick; with ``--before``, the forward and B2
+   without the new arguments bit-equal to the earlier library's; (b) 300
+   steps through ``train()`` with the freeze at 150: one forward and one B2
+   launch with the input gradient a step before it (the windows until step
+   100), one B1 launch a step after it; the pose step's wall, kernel ms by
+   pass, idle share and peak memory; (c) the JAX package's recipe
+   (scripts/pose_freeze_bench.py: 12 train images at 100x100 perturbed by
+   0.02 rad / 0.05, 4000 steps) unrefined and refined (anneal
+   and freeze at 3/8): test PSNR of both and the rig's residual error; the
+   refined rotation must keep at most POSE_ROT_KEPT of the perturbation's
+   (the translation is reported); an f32 pose step's loss and gradients
+   (field, dr, dt) through the kernels against the xla step from one
+   state; (d) ``evaluate.test`` of the refined run's train stills from the
+   checkpoint's live deltas and from the freeze's sidecar, beside the
+   unrefined render;
+14. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -297,7 +321,8 @@ def grad_errors(got, want) -> tuple[float, float]:
 # the entries of an earlier library that the before/after phases call
 BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_workspace_bytes"),
                   "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes"),
-                  "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes")}
+                  "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes", "fused_mlp_bwd",
+                                    "fused_mlp_bwd_workspace_bytes")}
 
 
 class EarlierEntries:
@@ -305,8 +330,10 @@ class EarlierEntries:
     (just before the stream) that the current ones have: ``cuts`` maps an
     entry to their count (the train step's ``mip`` and ``opaque_tail``,
     before them the rail's five, ``dist_on`` .. ``disparity``, and before
-    those ``w_out``; the forward's ``mip``). Called with the current
-    entry's arguments, an entry drops those, which must be off (0, null)."""
+    those ``w_out``; the forward's anneal windows ``wx``, ``wd`` and before
+    them ``mip``; B2's ``wx``, ``wd``, ``dx`` and before them ``mip``).
+    Called with the current entry's arguments, an entry drops those, which
+    must be off (0, null)."""
 
     def __init__(self, lib, cuts: dict):
         self.lib, self.cuts = lib, cuts
@@ -331,8 +358,8 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
     by copy, their ctypes libraries by source, those entries bound as the
     current library's (a train step without the distortion rail or the
-    weights output, or a train step or forward without mip, through
-    ``EarlierEntries``). Prints ptxas's lines of each copy's backward tile
+    weights output, or a train step, forward or B2 without mip or the pose
+    arguments, through ``EarlierEntries``). Prints ptxas's lines of each copy's backward tile
     kernels."""
     libs = _build.build_copies(dirs, BEFORE_ENTRIES)
     for d in dirs:
@@ -347,8 +374,15 @@ def build_before(dirs, _build, mlp) -> list[dict]:
         if cut:
             c["fused_train_step"] = EarlierEntries(c["fused_train_step"], {"fused_train_step": cut})
         with open(os.path.join(d, "fused_mlp_fwd.cu")) as fh:
-            if "int mip" not in fh.read():
-                c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": 1})
+            src = fh.read()
+        cut = ("int mip" not in src) + 2 * ("const float *wx" not in src)
+        if cut:
+            c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": cut})
+        with open(os.path.join(d, "fused_mlp_bwd.cu")) as fh:
+            src = fh.read()
+        cut = ("int mip" not in src) + 3 * ("float *dx" not in src)
+        if cut:
+            c["fused_mlp_bwd"] = EarlierEntries(c["fused_mlp_bwd"], {"fused_mlp_bwd": cut})
     return copies
 
 
@@ -378,7 +412,7 @@ def phase_forward_before_after(dev, params, model, mlp, x16, earlier) -> dict:
 
         def fwd():
             mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, 0, cw,
-                                            image.data_ptr(), 0, mlp._stream(xT)), what)
+                                            image.data_ptr(), 0, None, None, mlp._stream(xT)), what)
         return fwd, out
 
     old, o_old = bind(earlier, "earlier fused_mlp_fwd")
@@ -858,7 +892,7 @@ PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
 
 
 def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
-                 split_proposal: bool = False, split_mip: bool = False) -> dict:
+                 split_proposal: bool = False, split_mip: bool = False, split_pose: bool = False) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
@@ -879,7 +913,14 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     time order go to "coarse B1" and "fine B1" (each launch, as above),
     "adam" (by name), and the rest to "before B1" (the edges, the pack,
     the coarse x16), "between B1s" (resample_edges, the fine x16) or
-    "after B1" (the pack's backward) as they fall in the step."""
+    "after B1" (the pack's backward) as they fall in the step. With
+    ``split_pose`` (a pose step: the forward kernel, then B2 with the input
+    gradient), the kernels in time order go to "forward" (the forward's
+    weight image and tile kernel), "B2" (its recompute, tile kernel, sums
+    and reduce), "input grad" (csrc/input_grad.cuh), "adam" (by name), and
+    the rest to "rays and compositing" (the ray refinement, the input
+    build, the pack, torch compositing and their autograd); ``others``
+    then gets that group by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -897,10 +938,23 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)),  # a user annotation spans kernels
                      key=lambda e: e.time_range.start)
-    b1, n_b1, after_b1, phase = None, 0, False, "before B1"
+    b1, n_b1, after_b1, phase, n_fwd = None, 0, False, "before B1", 0
     for e in kernels:
         group = next((g for g, key in groups if key in e.name), "other")
-        if split_mip:
+        if split_pose:
+            if group == "sums_reduce" and "native" in e.name:  # a torch reduction, not the sums'
+                group = "other"
+            if "input_grad_kernel" in e.name:
+                group = "input grad"
+            elif any(k in e.name for k in STEP_GROUPS[1][1]):
+                group, n_fwd = "adam", 0  # the step's last kernels
+            elif group in ("weight_image", "fwd_tile"):
+                group, n_fwd = ("forward" if n_fwd < 2 else "B2"), n_fwd + 1  # the forward's image, tile; B2's
+            elif group in ("bwd_image", "bwd_tile", "sums", "sums_reduce"):
+                group = "B2"
+            else:
+                group = "rays and compositing"
+        elif split_mip:
             if group == "weight_image" and b1 is None:  # the first kernel of a B1 launch
                 b1, n_b1 = ("coarse B1", "fine B1")[n_b1 % 2], n_b1 + 1
             if b1:
@@ -934,7 +988,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
             b1 = None if last else b1
         ms = e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
         out[group] = out.get(group, 0.0) + ms
-        if group == "other" and others is not None:
+        if group in ("other", "rays and compositing") and others is not None:
             others[e.name[:60]] = others.get(e.name[:60], 0.0) + ms
     if host is not None:
         for a in prof.key_averages():
@@ -2487,6 +2541,514 @@ def phase_mip_eval(dev, scene, work, mlp, exp):
     return res
 
 
+# Pose refinement (configs/lego.yaml + pose_opt): the recipe's length, the
+# JAX package's own (scripts/pose_freeze_bench.py; at 3000 steps the
+# translation ends above the perturbation), its perturbation of the train
+# poses, the share of the perturbation's rotation the refined rig may keep
+# (measured 0.73 at 4000 steps, 0.788 at 3000; the unrefined rig keeps 1),
+# and the f32 pose step's bounds from one state. The kernel
+# step and the xla step sum in other orders: the loss to LOSS_TOL's f32
+# bound, each gradient tensor (the field's and the delta tables') within
+# 1e-3 of its largest entry (the dr/dt gradients are sums over every ray
+# of an image, ~20,000 of 524,288 rows).
+POSE_ITERS, POSE_DR, POSE_DT, POSE_SEED = 4000, 0.02, 0.05, 7
+POSE_ROT_KEPT = 0.85
+POSE_GRAD_RTOL = 1e-3
+# dx against plain, max abs error over max |dx|: the input-gradient kernel
+# on the same cotangent planes sums in another order (probes/input_grad.py).
+# B2's dx also carries B2's own forward, whose relu masks can differ from
+# the plain chain's where a pre-activation lies within the forward's
+# rounding of 0; that row's dx then moves by a whole term (f32: 2.8e-2 of
+# max |dx| at one row of 524,288). So B2's dx must equal the input-gradient
+# kernel on the kernels' own planes bit for bit, every row past DX_TOL from
+# plain (the position and direction rows each against their own largest
+# entry) must have a flipped mask, the plain chain on the kernel's own masks
+# must give it within DX_TOL at every row (probes/input_grad.py::explain_dx),
+# and under DX_ROW_SHARE of the rows may lie past DX_TOL. The same rule
+# must catch both planted faults there.
+DX_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+# DX_ROW_SHARE: the most rows past DX_TOL measured in a sound run, with
+# room (f32 3.05e-5 at 524,288 rows, none in the card tests; bf16 1.46e-3
+# at 4,113 rows, 5.7e-4 at 524,288), far below the least share a planted
+# fault puts past it (0.66, bf16 at 524,288 rows).
+DX_ROW_SHARE = {torch.float32: 1e-4, torch.bfloat16: 3e-3}
+
+
+def _rotation(r) -> np.ndarray:
+    th = np.linalg.norm(r)
+    if th < 1e-12:
+        return np.eye(3)
+    k = r / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def perturb_train_poses(scene: str, seed: int = POSE_SEED) -> None:
+    """Rotate each train camera by POSE_DR rad about a random axis and move
+    it by POSE_DT in a random direction (scripts/pose_freeze_bench.py:64-77,
+    the JAX package's miscalibrated rig), in place."""
+    path = os.path.join(scene, "transforms_train.json")
+    with open(path) as fh:
+        tj = json.load(fh)
+    rng = np.random.default_rng(seed)
+    for fr in tj["frames"]:
+        p = np.array(fr["transform_matrix"], np.float64)
+        er = rng.normal(size=3)
+        er *= POSE_DR / max(np.linalg.norm(er), 1e-9)
+        et = rng.normal(size=3)
+        et *= POSE_DT / max(np.linalg.norm(et), 1e-9)
+        p[:3, :3] = _rotation(er) @ p[:3, :3]
+        p[:3, 3] += et
+        fr["transform_matrix"] = p.tolist()
+    with open(path, "w") as fh:
+        json.dump(tj, fh)
+
+
+def rig_error(clean: str, pert: str, dr=None, dt=None) -> dict:
+    """Mean rotation (rad) and translation error of the train rig of
+    ``pert`` against ``clean``, refined by the deltas (``dr``, ``dt``: a
+    camera's rays rotate by R(dr) about its centre, which moves by dt):
+    as they stand ("rot", "trans"), and after the one rigid motion of the
+    whole rig that best maps its centres onto the clean ones ("rot_aligned",
+    "trans_aligned"; Kabsch), since a field trained on a rig moved as a
+    whole is as good: what BARF's evaluation aligns away."""
+    poses = []
+    for scene in (clean, pert):
+        with open(os.path.join(scene, "transforms_train.json")) as fh:
+            poses.append(np.array([f["transform_matrix"] for f in json.load(fh)["frames"]], np.float64))
+    (pc, pp), n = poses, len(poses[0])
+    R = np.stack([pp[i, :3, :3] if dr is None else _rotation(np.asarray(dr[i], np.float64)) @ pp[i, :3, :3]
+                  for i in range(n)])
+    c = pp[:, :3, 3] + (0.0 if dt is None else np.asarray(dt, np.float64))
+    Rg, cg = pc[:, :3, :3], pc[:, :3, 3]
+    U, _, Vt = np.linalg.svd((c - c.mean(0)).T @ (cg - cg.mean(0)))
+    A = Vt.T @ np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))]) @ U.T  # rotation: c - mean -> cg - mean
+
+    def errs(Rs, cs):
+        cos = (np.einsum("nij,nij->n", Rs, Rg) - 1.0) / 2.0  # trace(R Rg^T)
+        return float(np.mean(np.arccos(np.clip(cos, -1.0, 1.0)))), float(np.mean(np.linalg.norm(cs - cg, axis=1)))
+
+    rot, trans = errs(R, c)
+    rot_a, trans_a = errs(A[None] @ R, (c - c.mean(0)) @ A.T + cg.mean(0))
+    return dict(rot=rot, trans=trans, rot_aligned=rot_a, trans_aligned=trans_a)
+
+
+def phase_pose_kernels(dev, scene, model, mlp, earlier) -> dict:
+    """13a. The pose kernel variants against their plain versions, nets
+    from numpy seed SEED: the forward with the anneal windows (alpha 0.3
+    and 1) at a 2,097,152-row render chunk, timed beside the forward
+    without them and the plain one; at alpha 1 (every window 1) bit-equal
+    to the forward without windows. B2 with ``want_dx`` at the training
+    batch (524,288 rows) with and without the windows: its weight
+    gradients and dx against plain, its weight gradients bit-equal to the
+    same launch without ``want_dx``, timed beside it. The input-gradient
+    kernel alone (probes/input_grad.py): ms, plain, the torch.mm
+    yardstick, share of its bound. With ``earlier`` (an earlier commit's
+    libraries), the forward and B2 without windows or dx bit-equal to
+    theirs. f32 and bf16."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    stats = {}
+    x = chunk_input(dev)[:8].contiguous()
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            none = mlp.fused_mlp_forward(w, x, dt, model)
+            errs = {}
+            for alpha in (0.3, 1.0):
+                enc_w = mlp.anneal_row_weights(model, alpha, dev)
+                before = mlp.fused_mlp_forward.anneal_launches
+                got = mlp.fused_mlp_forward(w, x, dt, model, enc_w=enc_w)
+                torch.cuda.synchronize()
+                check(mlp.fused_mlp_forward.anneal_launches == before + 1, "the windowed forward is counted")
+                want = mlp.fused_mlp_forward_plain(w, x, dt, model, enc_w=enc_w)
+                errs[alpha] = (got[:4] - want[:4]).abs().max().item()
+                if alpha == 1.0:
+                    ones_equal = torch.equal(got, none)
+                del got, want
+                torch.cuda.empty_cache()
+            enc_w = mlp.anneal_row_weights(model, 0.3, dev)
+            ms = turns_ms({"windows": lambda: mlp.fused_mlp_forward(w, x, dt, model, enc_w=enc_w),
+                           "none": lambda: mlp.fused_mlp_forward(w, x, dt, model)})
+            st = dict(err=max(errs.values()), err_a03=errs[0.3], err_a1=errs[1.0], ms=ms["windows"],
+                      ms_no_windows=ms["none"], rows=x.shape[1], alpha1_bit_equal=ones_equal,
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_forward_plain(w, x, dt, model, enc_w=enc_w), reps=3))
+            if earlier:
+                st["bit_equal_earlier"] = torch.equal(none, earlier_forward(mlp, earlier["fused_mlp_fwd"], w, x, dt,
+                                                                            model))
+            del none
+            torch.cuda.empty_cache()
+            print(f"pose forward (anneal windows) vs plain {name} at {x.shape[1]} rows: max abs err alpha 0.3 "
+                  f"{errs[0.3]:.3e}, alpha 1 {errs[1.0]:.3e} (tol {TOL[dt]:.0e}); in turns: windows {st['ms']:.3f} ms, "
+                  f"none {st['ms_no_windows']:.3f} ms; plain {st['plain_ms']:.3f} ms; alpha 1 bit-equal to no windows: "
+                  f"{ones_equal}" + (f"; no windows bit-equal to the earlier library's: {st['bit_equal_earlier']}"
+                                     if earlier else ""), flush=True)
+            check(max(errs.values()) <= TOL[dt], f"the windowed forward {name} matches plain")
+            check(ones_equal and st.get("bit_equal_earlier", True), f"the forward {name} without windows unchanged")
+            stats[f"fwd_{name}"] = st
+    del x
+    torch.cuda.empty_cache()
+
+    x16 = train_batch(dev, scene)
+    x = x16[:8].contiguous()
+    del x16
+    gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, x.shape[1])).astype(np.float32)).to(dev)
+    b2 = mlp.fused_mlp_backward
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            for case, enc_w in (("", None), ("_windows", mlp.anneal_row_weights(model, 0.3, dev))):
+                before = (b2.dx_launches, mlp.input_grad_launches())
+                grads, dx = b2(w, x, gT, dt, model, want_dx=True, enc_w=enc_w)
+                torch.cuda.synchronize()
+                check((b2.dx_launches, mlp.input_grad_launches()) == (before[0] + 1, before[1] + 1),
+                      "B2 with want_dx counted, its input-gradient kernel counted in C")
+                alone = b2(w, x, gT, dt, model, enc_w=enc_w)
+                bit_equal = all(torch.equal(a, c) for a, c in zip(grads, alone))
+                _, res = mlp.forward_residuals(w, x, dt, model, enc_w=enc_w)
+                gws = mlp.backward_tile(w, res, gT, dt, model)
+                del res
+                composed = torch.equal(dx, mlp.input_grad(w, x, gws, dt, model, enc_w))
+                del gws
+                if earlier and enc_w is None:
+                    bit_equal_earlier = all(torch.equal(a, c) for a, c in zip(
+                        alone, earlier_backward(mlp, earlier["fused_mlp_bwd"], w, x, gT, dt, model)))
+                want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, model, want_dx=True, enc_w=enc_w)
+                rel, abs_err = grad_errors(grads, want)
+                dx_rel = ((dx - dx_p).abs().max() / dx_p.abs().max()).item()
+                ex = ig_probe.explain_dx(w, x, gT, dx, dx_p, dt, model, enc_w, DX_TOL[dt])
+                del grads, dx, alone, want, dx_p
+                torch.cuda.empty_cache()
+                ms = turns_ms({"dx": lambda: b2(w, x, gT, dt, model, want_dx=True, enc_w=enc_w),
+                               "no_dx": lambda: b2(w, x, gT, dt, model, enc_w=enc_w)})
+                st = dict(err=abs_err, rel=rel, dx_rel=dx_rel, dx_rows=ex, ms=ms["dx"], ms_no_dx=ms["no_dx"],
+                          rows=x.shape[1], bit_equal_no_dx=bit_equal, dx_equal_composed=composed,
+                          plain_ms=cuda_ms(lambda: mlp.fused_mlp_backward_plain(w, x, gT, dt, model, want_dx=True,
+                                                                                enc_w=enc_w), reps=3))
+                if earlier and enc_w is None:
+                    st["bit_equal_earlier"] = bit_equal_earlier
+                torch.cuda.empty_cache()
+                print(f"B2 want_dx{case} vs plain {name} at {x.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                      f"{GRAD_TOL['B2', dt]:.0e}); dx err {dx_rel:.3e} of max |dx|, rows past {DX_TOL[dt]:.0e} of it "
+                      f"{ex['n_past']} ({ex['share']:.2e}, tol {DX_ROW_SHARE[dt]:.0e}), rows with a flipped relu mask "
+                      f"{ex['n_flipped']}, rows past without one {ex['n_unexplained']}, on the kernel's own masks "
+                      f"{ex['own_masks_err']:.2e} of max |dx|; planted faults: " + ", ".join(
+                          f"{k} {f['share']:.2e} of the rows past ({f['n_unexplained']} without a flipped mask)"
+                          for k, f in ex["faults"].items()) + "; dx bit-equal to the input-gradient kernel on the "
+                      f"kernels' own planes: {composed}; in turns: with dx {st['ms']:.3f} ms, without "
+                      f"{st['ms_no_dx']:.3f} ms; plain {st['plain_ms']:.3f} ms; grads bit-equal to the launch without "
+                      f"dx: {bit_equal}"
+                      + (f"; without dx or windows bit-equal to the earlier library's: {bit_equal_earlier}"
+                         if earlier and enc_w is None else ""), flush=True)
+                check(rel <= GRAD_TOL["B2", dt] and composed and ex["n_unexplained"] == 0
+                      and ex["own_masks_err"] <= DX_TOL[dt] and ex["share"] <= DX_ROW_SHARE[dt],
+                      f"B2 want_dx{case} {name} within tolerance")
+                check(all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
+                      f"the dx rule catches both planted faults ({name}{case})")
+                check(bit_equal and st.get("bit_equal_earlier", True), f"B2 {name}'s weight gradients unchanged")
+                stats[f"b2_{name}{case}"] = st
+    del x, gT
+    torch.cuda.empty_cache()
+    ig = ig_probe.run(dev, model)
+    for name in ("f32", "bf16"):
+        v = ig[name]
+        print(f"input-gradient kernel alone {name} at {ig['rows']} rows: {v['ms']:.3f} ms (windows "
+              f"{v['ms_anneal']:.3f}), plain {v['plain_ms']:.3f} ms, torch.mm yardstick {v['library_ms']:.3f} ms; bound "
+              f"{v['bound_ms']:.3f} ms ({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it, {v['tflops']:.1f} "
+              f"TFLOP/s; dx err {v['rel_err']:.2e} of max |dx| (windows {ig[name + '_anneal']['rel_err']:.2e}; tol "
+              f"{ig_probe.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e})", flush=True)
+    stats["input_grad"] = ig
+    return stats
+
+
+def earlier_forward(mlp, lib, w, x, dt, model) -> torch.Tensor:
+    """The forward of an earlier library (no windows, no mip), straight
+    through ctypes."""
+    bf16 = int(dt == torch.bfloat16)
+    out = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device)
+    image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16), dtype=torch.uint8,
+                        device=x.device)
+    mlp._raise_on(lib.fused_mlp_fwd(x.data_ptr(), out.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
+                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, mlp._stream(x)),
+                  "earlier fused_mlp_fwd")
+    return out
+
+
+def earlier_backward(mlp, lib, w, x, gT, dt, model):
+    """B2 of an earlier library (no windows, no dx, no mip)."""
+    bf16 = int(dt == torch.bfloat16)
+    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16),
+                     dtype=torch.uint8, device=x.device)
+    grads = mlp._empty_grads(model, x.device)
+    mlp._raise_on(lib.fused_mlp_bwd(x.data_ptr(), gT.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
+                                    mlp._CPtrs(*mlp._ptrs(w)), mlp._weights_t(w), ws.data_ptr(),
+                                    mlp._CPtrs(*mlp._ptrs(grads)), 0, None, None, None, mlp._stream(x)),
+                  "earlier fused_mlp_bwd")
+    return grads
+
+
+def phase_pose_train(dev, scene, work, mlp) -> dict:
+    """13b. The pose step, lego.yaml's keys + pose_opt (warmup 15),
+    pe_anneal_until 100 and pose_freeze_at 150 (steps_per_call 50) through
+    train() (bf16, pallas), 300 steps on the phase-7 scene: before the
+    freeze one forward and one B2 launch with the input gradient a step,
+    with the windows until step 100; after it one B1 launch a step; the
+    sidecar written. Then the pose step itself mid-anneal (step 50, from
+    a fresh state): its wall (CUDA events) and host issue, kernel ms by
+    pass (torch.profiler, kernels in time order: the forward, B2, the
+    input-gradient kernel, Adam, the rest: the ray and compositing
+    autograd), idle share, peak memory."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    iters, freeze, until = 300, 150, 100
+    cfg = load_yaml("configs/lego.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models_pose"), log_dir=os.path.join(work, "logs_pose"),
+               backend="pallas", compute_dtype="bf16", num_iters=iters, ckpt_loss=1, ckpt_images=500,
+               ckpt_model=freeze, steps_per_call=50, pose_opt=True, pose_warmup=15, pe_anneal_until=until,
+               pose_freeze_at=freeze)
+    check(cfg["Nf"] == N_SAMPLES and cfg["batch_size"] == BATCH, "lego's keys")
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.anneal_launches = b2.launches = b2.dx_launches = b2.anneal_launches = b1.launches = 0
+    mlp.input_grad_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fused_mlp_forward=fwd.launches, forward_anneal=fwd.anneal_launches, b2=b2.launches,
+                    b2_dx=b2.dx_launches, b2_anneal=b2.anneal_launches, input_grad=mlp.input_grad_launches(),
+                    fused_train_step=b1.launches)
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_pose_log.txt"), "w") as fh:
+        fh.write(text)
+    exp = os.path.join(work, "models_pose", cfg["exp_name"])
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    print(f"train pose: {iters} steps in {train_s:.1f} s with renders; launches {launches}; "
+          + next(line for line in text.splitlines() if "pose freeze at step" in line), flush=True)
+    check(launches["b2_dx"] == launches["b2"] == launches["input_grad"] == freeze,
+          "one B2 launch with the input gradient a step before the freeze")
+    check(launches["b2_anneal"] == until and launches["forward_anneal"] >= until,
+          "the forward and B2 with the windows until pe_anneal_until")
+    check(launches["fused_train_step"] == iters - freeze, "one B1 launch a step after the freeze")
+    check(os.path.exists(os.path.join(exp, "cam_deltas.npz")) and state.cams is None, "the freeze baked the deltas")
+    check(all(np.isfinite(losses)) and len(losses) == iters, "every loss logged and finite")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    n_pix = rd.H * rd.W
+    st = make_train_state(tcfg, model, dev, n_images=rays.shape[0] // n_pix)
+    step_fn = build_train_step(tcfg, model, rays_per_image=n_pix)
+
+    def step():  # mid-anneal: the windows and the input gradient on every call
+        st.step = 50
+        return step_fn(st, rays, pixels)
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = step_walls(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    others = {}
+    prof = profile_step(step, others, split_pose=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step pose bf16 (mid-anneal): {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} rays/s "
+          f"(CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host "
+          f"issues a step in {walls['host_ms']:.3f} ms; peak device memory {peak_gb:.2f} GB", flush=True)
+    print("train step pose bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {walls['ms']:.3f} ms, idle share {idle:.3f}" if prof else
+        "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step pose bf16 profile, the autograd group by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    del st, rd, state
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"], profile=prof,
+                idle=idle, peak_gb=peak_gb, train_s=train_s)
+
+
+def phase_pose_recipe(dev, work, mlp) -> dict:
+    """13c. The JAX package's pose recipe (scripts/pose_freeze_bench.py) on
+    the port's blob scene: 12 train (elevation-jittered, seed 3), 2 val, 2
+    test images at 100x100, the train poses perturbed by POSE_DR rad /
+    POSE_DT; lego.yaml's keys, POSE_ITERS steps (bf16, pallas) without
+    refinement, and with pose_opt (warmup 1/20 of the run), the anneal
+    and the freeze at 3/8. Test PSNR of both on the clean test poses (bf16
+    pallas renders, N = 128), the rig's mean residual rotation and
+    translation before and after; the refined rotation must be at most
+    POSE_ROT_KEPT of the perturbation's and the mean test PSNR not below
+    the unrefined run's. The translation is reported, not held: for a
+    small object at the rig's centre a camera's sideways shift and a turn
+    about its centre move the image alike, and the deltas take it up as
+    rotation (the dt path's gradient is held to xla below). Then an
+    f32 pose step's loss and gradients (the field's, dr, dt) from one
+    state, through the kernels (the forward and B2 with the input
+    gradient and the windows) against the xla autograd step."""
+    import shutil
+
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.data.synthetic import write_blender_scene
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.metrics import img_psnr
+    from nerf_simple_tpu_torch.train.step import CamDeltas, autograd_loss, render_settings
+
+    clean, pert = os.path.join(work, "pose_clean"), os.path.join(work, "pose_pert")
+    write_blender_scene(clean, n_train=12, n_val=2, n_test=2, H=100, W=100, device=dev, train_jitter=3)
+    shutil.copytree(clean, pert)
+    perturb_train_poses(pert)
+    before = rig_error(clean, pert)
+    check(abs(before["rot"] - POSE_DR) < 1e-4 and abs(before["trans"] - POSE_DT) < 1e-4,  # f32 poses in the json
+          "the rig is perturbed as asked")
+    base = load_yaml("configs/lego.yaml")
+    base.update(datapath=pert, half_res=False, backend="pallas", compute_dtype="bf16", num_iters=POSE_ITERS,
+                steps_per_call=40, ckpt_loss=POSE_ITERS, ckpt_images=POSE_ITERS, ckpt_model=POSE_ITERS,
+                num_train_imgs=12)
+    q = 3 * POSE_ITERS // 8
+    runs = {"unrefined": {}, "refined": dict(pose_opt=True, pose_warmup=POSE_ITERS // 20, pe_anneal_until=q,
+                                             pose_freeze_at=q, ckpt_model=q)}
+    data = load_blender(clean, False)
+    test_rays = RayDataset.from_blender(data, dev).rays["test"]
+    gts = data.splits["test"].images
+    s = RenderSettings(N=N_SAMPLES, compute_dtype=torch.bfloat16, backend="pallas")
+    out = {"rig_before": before}
+    for name, kw in runs.items():
+        cfg = {**base, **kw, "exp_name": name, "savepath": os.path.join(work, "models_recipe"),
+               "log_dir": os.path.join(work, f"logs_{name}")}
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            state = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rgb, _ = render_rays_chunked(state.field, test_rays, 1, s, chunk=10240)
+        rgb = rgb.reshape(-1, 100, 100, 3).cpu().numpy()
+        psnr = [float(img_psnr(gts[j : j + 1], rgb[j : j + 1])) for j in range(len(gts))]
+        res = dict(test_psnr=psnr, wall_s=wall, exp=os.path.join(work, "models_recipe", name))
+        if kw:
+            sidecar = os.path.join(res["exp"], "cam_deltas.npz")
+            with np.load(sidecar) as d:
+                res["rig_after"] = rig_error(clean, pert, d["dr"], d["dt"])
+                res["freeze_step"] = int(d["freeze_step"])
+            shutil.copy(sidecar, os.path.join(OUT, "pose_recipe_cam_deltas.npz"))
+            for scene, label in ((clean, "clean"), (pert, "perturbed")):
+                shutil.copy(os.path.join(scene, "transforms_train.json"),
+                            os.path.join(OUT, f"pose_recipe_transforms_train_{label}.json"))
+        out[name] = res
+        ra = res.get("rig_after")
+        print(f"pose recipe {name}: {POSE_ITERS} steps in {wall:.1f} s; test PSNR "
+              f"{', '.join(f'{p:.2f}' for p in psnr)} dB" + (
+                  f"; the rig's mean error before {before['rot']:.4f} rad / {before['trans']:.4f}, after "
+                  f"{ra['rot']:.4f} rad / {ra['trans']:.4f}; the rig aligned as a whole: before "
+                  f"{before['rot_aligned']:.4f} rad / {before['trans_aligned']:.4f}, after {ra['rot_aligned']:.4f} "
+                  f"rad / {ra['trans_aligned']:.4f} (the freeze at step {res['freeze_step']})" if kw else ""),
+              flush=True)
+        del state
+        torch.cuda.empty_cache()
+    after = out["refined"]["rig_after"]
+    out["rot_kept"] = after["rot"] / before["rot"]
+    print(f"pose recipe: the refined rig keeps {out['rot_kept']:.3f} of the perturbation's rotation (at most "
+          f"{POSE_ROT_KEPT}) and {after['trans'] / before['trans']:.3f} of its translation (not held); test PSNR "
+          f"refined - unrefined by image: " + ", ".join(
+              f"{a - b:+.2f}" for a, b in zip(out["refined"]["test_psnr"], out["unrefined"]["test_psnr"])) + " dB",
+          flush=True)
+    check(out["rot_kept"] <= POSE_ROT_KEPT, "the refined rig recovers the perturbation's rotation")
+    check(np.mean(out["refined"]["test_psnr"]) >= np.mean(out["unrefined"]["test_psnr"]),
+          "the refined run's test PSNR is not below the unrefined run's")
+
+    # f32: one pose step's loss and gradients from one state, kernels against xla
+    tcfg = train_config({**base, **runs["refined"], "compute_dtype": "f32"})
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    rd = RayDataset.from_blender(load_blender(pert, False, 12), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    idx = torch.randint(0, rd.rays["train"].shape[0], (BATCH,), generator=g, device=dev)
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+
+    ts = stratified_ts(g, BATCH, N_SAMPLES, 2.0, 6.0, dev)
+    dr, dt = (np.random.default_rng(SEED + k).normal(0, 0.01, (12, 3)).astype(np.float32) for k in (1, 2))
+    got = {}
+    mlp.fused_mlp_backward.dx_launches = mlp.fused_mlp_backward.anneal_launches = 0
+    for backend in ("pallas", "xla"):
+        field = NerfField.from_jax_params(init_nerf_params(SEED, model), dev, model)
+        cams = CamDeltas(12, dev).copy_tables_({"dr": dr, "dt": dt})
+        c = dataclasses.replace(tcfg, backend=backend)
+        loss = autograd_loss(c, field, rd.rays["train"][idx], rd.pixels["train"][idx], ts, None, render_settings(c),
+                             cams=cams, im_b=idx // 10000, enc_alpha=0.5)
+        loss.backward()
+        got[backend] = (loss.item(), {n: p.grad.clone() for n, p in field.named_parameters()},
+                        {k: getattr(cams, k).grad.clone() for k in ("dr", "dt")})
+        del field, cams
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    loss_rel = abs(lp / lx - 1)
+    field_rel = max(((fp[n] - fx[n]).abs().max() / fx[n].abs().max()).item() for n in fx)
+    cams_rel = {k: ((cp[k] - cx[k]).abs().max() / cx[k].abs().max()).item() for k in cx}
+    print(f"f32 pose step from one state, the kernels (forward + B2 with the input gradient and windows at alpha 0.5) "
+          f"against xla: loss rel {loss_rel:.2e} (tol {LOSS_TOL[torch.float32]:.0e}); field grads {field_rel:.2e} of max, "
+          f"dr {cams_rel['dr']:.2e}, dt {cams_rel['dt']:.2e} (tol {POSE_GRAD_RTOL:.0e}); B2 launches with dx "
+          f"{mlp.fused_mlp_backward.dx_launches}, with windows {mlp.fused_mlp_backward.anneal_launches}", flush=True)
+    check(loss_rel <= LOSS_TOL[torch.float32] and field_rel <= POSE_GRAD_RTOL and max(cams_rel.values()) <= POSE_GRAD_RTOL,
+          "the f32 kernel pose step matches the xla step")
+    check(mlp.fused_mlp_backward.dx_launches == mlp.fused_mlp_backward.anneal_launches == 1,
+          "the kernel pose step ran B2 with the input gradient and the windows")
+    out.update(loss_rel_f32=loss_rel, field_rel_f32=field_rel, cams_rel_f32=cams_rel, clean=clean, pert=pert)
+    return out
+
+
+def phase_pose_eval(dev, work, recipe) -> dict:
+    """13d. evaluate.test of the refined recipe run's train stills 0 and 1
+    (bf16, pallas, N_samples 128): from the checkpoint at the freeze (its
+    live camera deltas) and from the final one (plain, with the
+    cam_deltas.npz sidecar), each beside the same field's render of the
+    unrefined (perturbed) train poses."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, derive_seed, render_image
+    from nerf_simple_tpu_torch.train.metrics import img_psnr
+
+    exp, pert = recipe["refined"]["exp"], recipe["pert"]
+    data = load_blender(pert, False)
+    rd = RayDataset.from_blender(data, dev)
+    s = RenderSettings(N=N_SAMPLES, compute_dtype=torch.bfloat16, backend="pallas")
+    out = {}
+    for label, loadpath in (("checkpoint", os.path.join(exp, f"ckpt_{recipe['refined']['freeze_step']}.pth")),
+                            ("sidecar", exp)):
+        params, aux = load_params(loadpath, return_aux=True)
+        check(("cams" in aux) == (label == "checkpoint"), f"the {label} eval's deltas")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            test(dict(loadpath=loadpath, datapath=pert, savepath=os.path.join(work, f"eval_pose_{label}"),
+                      half_res=False, im_set="train", im_idxs=[0, 1], N_samples=N_SAMPLES, compute_dtype="bf16",
+                      backend="pallas", batch_size=16384))
+        refined = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", log.getvalue())]
+        field = NerfField.from_jax_params(params, dev)
+        unrefined = [float(img_psnr(data.splits["train"].images[i : i + 1],
+                                    render_image(field, rd.rays["train"], 100, 100, i, derive_seed(0, i), s)[0]))
+                     for i in (0, 1)]
+        out[label] = dict(refined=refined, unrefined=unrefined)
+        print(f"pose eval ({label}): train stills 0, 1 from the refined poses PSNR "
+              f"{', '.join(f'{p:.2f}' for p in refined)} dB; the same field at the perturbed poses "
+              f"{', '.join(f'{p:.2f}' for p in unrefined)} dB", flush=True)
+        check(len(refined) == 2 and all(np.isfinite(refined)), f"the {label} eval rendered refined stills")
+    return out
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -2543,6 +3105,7 @@ def main() -> None:
     from nerf_simple_tpu_torch.kernels import _build, mlp
     from nerf_simple_tpu_torch.models.nerf import NerfMLP, init_nerf_params
     from nerf_simple_tpu_torch.probes import bwd_tile, pad_passes, wgrad
+    from nerf_simple_tpu_torch.utils.roofline import input_grad_work
     from nerf_simple_tpu_torch.utils.roofline import bound_by, bound_ms
 
     # 2. build (with --before, the earlier train-step and forward sources too)
@@ -2634,7 +3197,17 @@ def main() -> None:
         torch.cuda.empty_cache()
         me = phase_mip_eval(dev, scene, work, mlp, mt["exp"])
         walls["mip"] = time.perf_counter() - t_phase
-    # 13. the padding probe
+        # 13. pose refinement: the windows and the input gradient vs plain, the pose step, the recipe, eval
+        t_phase = time.perf_counter()
+        posek = phase_pose_kernels(dev, scene, model, mlp, earlier)
+        torch.cuda.empty_cache()
+        poset = phase_pose_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        poser = phase_pose_recipe(dev, work, mlp)
+        torch.cuda.empty_cache()
+        posee = phase_pose_eval(dev, work, poser)
+        walls["pose"] = time.perf_counter() - t_phase
+    # 14. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -2761,6 +3334,38 @@ def main() -> None:
                                  mt["b2_launches"], rows=batch_rows),
                     "source": "nerf_simple_tpu_torch/csrc/fused_mlp_bwd.cu (the forward's encoders)",
                     "replaces": "nerf_simple_tpu/kernels/mlp.py:702, :717"}
+    # the pose variants: the windowed forward (the forward's work), B2 with
+    # want_dx (B2's work and the input gradient's), the input-gradient
+    # kernel alone (probes/input_grad.py's reckoning)
+    pose_fwd = {k: dict(err=posek[f"fwd_{k}"]["err"], ms=posek[f"fwd_{k}"]["ms"],
+                        plain_ms=posek[f"fwd_{k}"]["plain_ms"]) for k in ("f32", "bf16")}
+    anneal = {**mip_fields(pose_fwd, 2 * fwd_macs * chunk_rows, 64 * chunk_rows, poset["launches"]["forward_anneal"],
+                           rows=chunk_rows, alpha=0.3, **{f"{m}{'' if k == 'f32' else '_bf16'}": posek[f"fwd_{k}"][m]
+                                                          for k in ("f32", "bf16")
+                                                          for m in ("ms_no_windows", "err_a03", "err_a1",
+                                                                    "alpha1_bit_equal", "bit_equal_earlier")
+                                                          if m in posek[f"fwd_{k}"]}),
+              "source": "nerf_simple_tpu_torch/csrc/fwd_f32.cuh, fwd_bf16.cuh (encode: wx, wd)",
+              "replaces": "nerf_simple_tpu/kernels/mlp.py:491-493 (_encode), :613, :648-650 (enc_w), :378 "
+                          "(anneal_row_weights)"}
+    ig = posek["input_grad"]
+    ig_flops, ig_bytes = input_grad_work(model, ig["rows"], torch.float32)
+    dx_b2 = {k: dict(err=posek[f"b2_{k}"]["err"], ms=posek[f"b2_{k}"]["ms"], plain_ms=posek[f"b2_{k}"]["plain_ms"])
+             for k in ("f32", "bf16")}
+    want_dx = {**mip_fields(dx_b2, 2 * train_macs * batch_rows + ig_flops, 64 * batch_rows + grad_bytes + 32 * batch_rows,
+                            poset["launches"]["b2_dx"], rows=batch_rows, anneal_launches=poset["launches"]["b2_anneal"],
+                            **{f"{m}{c}{'' if k == 'f32' else '_bf16'}": posek[f"b2_{k}{c}"][m]
+                               for k in ("f32", "bf16") for c in ("", "_windows")
+                               for m in ("rel", "dx_rel", "dx_rows", "ms_no_dx", "bit_equal_no_dx",
+                                         "dx_equal_composed", "bit_equal_earlier")
+                               if m in posek[f"b2_{k}{c}"]}),
+               "source": "nerf_simple_tpu_torch/csrc/fused_mlp_bwd.cu (dx; the forward's encoders: wx, wd)",
+               "replaces": "nerf_simple_tpu/kernels/mlp.py:733-746, :1107, :1118-1120, :707",
+               "pose_step": {"step_ms_bf16": poset["step_ms"], "step_host_ms_bf16": poset["host_ms"],
+                             "step_profile_ms_bf16": poset["profile"], "idle_share": poset["idle"],
+                             "peak_gb": poset["peak_gb"], "launches": poset["launches"],
+                             "recipe": {k: v for k, v in poser.items() if k not in ("clean", "pert")},
+                             "eval": posee}}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -2779,10 +3384,24 @@ def main() -> None:
               proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
               proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"],
-              mip=mip_forward),
+              mip=mip_forward, anneal=anneal),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
-              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward),
+              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward, want_dx=want_dx),
+        {"name": "input_grad", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh",
+         "replaces": "nerf_simple_tpu/kernels/mlp.py:871-938 (_input_grad_tile), :733-746 (_bwd_kernel's want_dx), "
+                     ":865-868 (the encoded inputs' cotangents)",
+         "launches": poset["launches"]["input_grad"], "max_abs_err": ig["f32"]["max_abs_err"], "ms": ig["f32"]["ms"],
+         "plain_ms": ig["f32"]["plain_ms"], "bound_ms": ig["f32"]["bound_ms"], "bound_by": ig["f32"]["bound_by"],
+         "library_ms": ig["f32"]["library_ms"], "max_abs_err_bf16": ig["bf16"]["max_abs_err"],
+         "ms_bf16": ig["bf16"]["ms"], "plain_ms_bf16": ig["bf16"]["plain_ms"], "bound_ms_bf16": ig["bf16"]["bound_ms"],
+         "bound_by_bf16": ig["bf16"]["bound_by"], "library_ms_bf16": ig["bf16"]["library_ms"], "rows": ig["rows"],
+         "rel_err": ig["f32"]["rel_err"], "rel_err_bf16": ig["bf16"]["rel_err"],
+         "rel_err_windows": ig["f32_anneal"]["rel_err"], "rel_err_windows_bf16": ig["bf16_anneal"]["rel_err"],
+         "ms_windows": ig["f32"]["ms_anneal"], "ms_windows_bf16": ig["bf16"]["ms_anneal"],
+         "share_of_bound": ig["f32"]["share_of_bound"], "share_of_bound_bf16": ig["bf16"]["share_of_bound"],
+         "flops": ig_flops, "bytes": ig_bytes,
+         "step_profile_ms_bf16": poset["profile"].get("input grad")},
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],

@@ -90,6 +90,20 @@ class TrainConfig:
     mip_coarse_weight: float = 0.1
     resample_blur: float = 0.01
     opaque_background: bool = False
+    # BARF-style camera-pose refinement: per-train-image se(3) deltas (an
+    # axis-angle rotation about the camera centre and a world translation)
+    # refine every sampled ray and train through ray generation, on their
+    # own Adam schedule (pose_lr_init -> pose_lr_final, exponential), at lr
+    # 0 for the first pose_warmup steps; pose_freeze_at bakes them into the
+    # ray set (<exp_dir>/cam_deltas.npz keeps them) and the run finishes as
+    # the plain config, on the fused train step; pe_anneal_until ramps the
+    # encoder's octaves in (BARF's coarse-to-fine windows), done at that step
+    pose_opt: bool = False
+    pose_lr_init: float = 1e-3
+    pose_lr_final: float = 1e-5
+    pose_warmup: int = 300
+    pose_freeze_at: int = 0
+    pe_anneal_until: int = 0
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -172,6 +186,48 @@ class TrainConfig:
                 "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
                 "ported yet: ROADMAP Queue A item 5, mip x proposal"
             )
+        self._check_pose()
+
+    def _check_pose(self):
+        """The JAX TrainConfig's pose rules (nerf_simple_tpu/config.py:
+        578-643), then the port's: pose with mip or proposal is not ported."""
+        if self.pose_opt and (self.pose_lr_init <= 0 or self.pose_lr_final <= 0):
+            raise ValueError(
+                f"pose_lr_init/pose_lr_final must be positive, got {self.pose_lr_init}/{self.pose_lr_final}")
+        if self.pose_freeze_at < 0:
+            raise ValueError(f"pose_freeze_at must be >= 0, got {self.pose_freeze_at}")
+        if self.pose_freeze_at > 0:
+            if not self.pose_opt:
+                raise ValueError("pose_freeze_at > 0 without pose_opt: there are no pose deltas to freeze")
+            if self.pose_freeze_at <= self.pose_warmup:
+                raise ValueError(
+                    f"pose_freeze_at ({self.pose_freeze_at}) must exceed pose_warmup ({self.pose_warmup}): "
+                    "pose lr is zero through the warmup, so freezing before it ends would bake untrained "
+                    "(identity) deltas")
+            if self.pose_freeze_at >= self.num_iters:
+                raise ValueError(
+                    f"pose_freeze_at ({self.pose_freeze_at}) must be < num_iters ({self.num_iters}); for "
+                    "poses trained to the end just leave pose_freeze_at at 0")
+        if self.pe_anneal_until < 0:
+            raise ValueError(f"pe_anneal_until must be >= 0, got {self.pe_anneal_until}")
+        if self.pe_anneal_until > 0:
+            if not self.pose_opt:
+                raise ValueError(
+                    "pe_anneal_until > 0 without pose_opt: PE annealing exists to stabilize joint pose "
+                    "refinement (and by itself only slows convergence)")
+            if self.mip:
+                raise ValueError(
+                    "pe_anneal_until is not plumbed through the mip IPE encoder (IPE's variance damping "
+                    "plays the same low-pass role)")
+            if self.pose_freeze_at and self.pe_anneal_until > self.pose_freeze_at:
+                raise ValueError(
+                    f"pe_anneal_until ({self.pe_anneal_until}) must finish by pose_freeze_at "
+                    f"({self.pose_freeze_at}): the post-freeze fused kernel computes the standard "
+                    "full-frequency encoder")
+        if self.pose_opt and (self.mip or self.proposal):
+            raise NotImplementedError(
+                f"pose_opt with {'mip' if self.mip else 'proposal'}=True is not ported yet (it needs "
+                "_input_grad_tile_mip, or the proposal net's own ray gradient): ROADMAP Queue A item 6")
 
     @property
     def render_dtype(self):
@@ -186,9 +242,8 @@ _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
     "mip multiscale training": {"mip_multiscale": False},
     "contract with disparity spacing": {"contract": False},
-    "pose/appearance": {"appearance_dim": 0, "pose_opt": False, "pose_lr_init": 1e-3,
-                        "pose_lr_final": 1e-5, "pose_warmup": 300, "pose_freeze_at": 0,
-                        "pe_anneal_until": 0, "train_im_idxs": ()},
+    "item 6, appearance codes": {"appearance_dim": 0},
+    "item 2, train_im_idxs": {"train_im_idxs": ()},
     "the hashgrid/cpgrid families": {
         "model_family": "nerf", "hash_L": 8, "hash_F": 4, "hash_log2_T": 14, "hash_Nmin": 16,
         "hash_Nmax": 256, "hash_H": 64, "hash_aabb": 4.0, "hash_grad_mode": "sample",

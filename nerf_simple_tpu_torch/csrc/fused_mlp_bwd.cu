@@ -4,9 +4,11 @@
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_fused_mlp_bwd (the
 // pallas_call of _bwd_kernel -> _forward_tile -> _backprop_tile ->
-// _accumulate_grads), with want_dx=False, point and mip variants (the mip
-// one recomputes the forward with the integrated encoder, :702, :717), no
-// anneal.
+// _accumulate_grads), point and mip variants (the mip one recomputes the
+// forward with the integrated encoder, :702, :717), with or without BARF's
+// anneal windows in the recompute (:707, :1107, :1118-1120); with dx (the
+// point variant's want_dx, :733-746) also the input gradient of
+// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh.
 //
 // Contract: x (8, rows) f32 as for the forward, or (16, rows) with `mip`
 // (csrc/fused_mlp_fwd.cu); g (8, rows) f32 with
@@ -34,10 +36,14 @@
 //     the result is bitwise deterministic. Bias sums ride the same pass.
 // wgrad_sums runs one of those sums alone, and backward_tile the tile
 // kernel alone, for tests and timing.
+//  4. with dx: the input-gradient kernel (csrc/input_grad.cuh) from the
+//     cotangent planes of step 2, which stay in the workspace; input_grad
+//     runs it alone.
 // bf16 rounds where _backprop_tile does: both operands of every product,
 // f32 sums; cotangents are stored rounded, as each use rounds them.
 
 #include "mlp_tile.cuh"
+#include "input_grad.cuh"  // ig: the input-gradient kernel
 
 extern "C" {
 
@@ -47,24 +53,46 @@ long long fused_mlp_bwd_workspace_bytes(long long rows, int Lp, int Ld, int H, i
   return carve(nullptr, rows, Lp, Ld, H, is_bf16).bytes + align256(4LL * 8 * L.Rp);
 }
 
-// Dynamic shared memory of the largest tile kernel, in bytes.
+// Dynamic shared memory of the largest kernel, in bytes.
 long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
-  const long long f = fwd_smem(Lp, Ld, H, is_bf16), b = bwd_smem(H, is_bf16);
-  return f > b ? f : b;
+  const long long f = fwd_smem(Lp, Ld, H, is_bf16), b = bwd_smem(H, is_bf16), i = ig::smem_bytes(H);
+  return std::max(std::max(f, b), i);
 }
 
 // Launches on `stream`; returns the first CUDA error (0 on success).
-// `wt` is not read (mlp_tile.cuh's WeightsT).
+// `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
+// anneal windows of the forward it recomputes (FX and FD floats on the
+// card). `dx`: null, or (8, rows) f32 for the input gradient (point only:
+// not with `mip`).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
-                  Grads out, int mip, void *stream) {
-  if (!arch_ok(Lp, Ld, H)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
+                  Grads out, int mip, const float *wx, const float *wd, float *dx, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || dx))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
-  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, s)) return e;
-  return backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s);
+  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd, s)) return e;
+  if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s)) return e;
+  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s) : 0;
+}
+
+// The input-gradient kernel alone, on `stream`: from the cotangent planes
+// `gws` ((FG, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
+// rounded up to 64) and x (8, rows) f32 to dx (8, rows) f32, with the
+// anneal windows wx, wd (or null): for tests and timing.
+int input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
+               const float *wx, const float *wd, float *dx, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
+  return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream));
+}
+
+// Launches of the input-gradient kernel by this library so far, as
+// bwd_tile_launch_count counts the tile kernels.
+long long input_grad_launch_count(int reset) {
+  const long long n = ig::launches;
+  if (reset) ig::launches = 0;
+  return n;
 }
 
 // Bytes of the scratch `image` backward_tile needs (its weight image).

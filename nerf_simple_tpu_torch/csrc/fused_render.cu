@@ -81,7 +81,8 @@ int fused_render(const float *x16, float *out, long long rows, int N, int Lp, in
                  int is_bf16, Weights w, void *image, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int e = forward(x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, s)) return e;
+  if (int e = forward(x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, nullptr, nullptr, s))
+    return e;
   const long long B = rows / N;
   const int rays_per_block = THREADS / 32;
   composite_render<<<(unsigned)((B + rays_per_block - 1) / rays_per_block), THREADS, 0, s>>>(

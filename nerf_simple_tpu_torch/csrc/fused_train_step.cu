@@ -267,7 +267,8 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
   }
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   const StepScratch sc = step_scratch(workspace, ws, rows);
-  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, s)) return e;
+  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, nullptr, nullptr, s))
+    return e;
   const int rays_per_block = THREADS / 32;
   composite_grad<<<(B + rays_per_block - 1) / rays_per_block, THREADS, 0, s>>>(
       sc.out8, x16, B, N, 1.f / (3.f * B), sc.g, sc.loss_ray, w_out, dist);

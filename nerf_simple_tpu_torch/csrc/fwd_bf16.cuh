@@ -5,7 +5,8 @@
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_forward_tile (:497) with
 // _encode (:410), in bf16: the encoding (the point one, or with `var` the
-// integrated one of the mip path, :473-477), the nine chained products
+// integrated one of the mip path, :473-477; with `wx`/`wd` BARF's anneal
+// windows, :491-494, in f32 before the rounding), the nine chained products
 // and the rgb/sigma heads of a tile of sample rows.
 //
 // What bounds it: the tensor cores (~0.54 M multiply-adds a sample row:
@@ -332,9 +333,13 @@ __device__ __forceinline__ void put(char *tile, int r, int k, float v) {
 // channels from three independent sincosf. With `var` (the mip path's
 // three variance rows, stride `rows`), posx's sin and cos of coordinate c
 // at frequency 2^i are damped by exp(-0.5 * 4^i * var_c) before they are
-// rounded to bf16. Rows past `rows` encode to zero.
+// rounded to bf16. With `wx`, `wd` (the anneal windows of posx and posd,
+// one float an encoded row), each row is multiplied by its window in f32,
+// before the rounding; with null windows nothing is multiplied. Rows past
+// `rows` encode to zero.
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int Lp,
-                       int Ld, char *posx, char *posd, int tid, const float *__restrict__ var) {
+                       int Ld, char *posx, char *posd, int tid, const float *__restrict__ var,
+                       const float *__restrict__ wx, const float *__restrict__ wd) {
   const int r = tid & (ROWS - 1), half = tid >> 6;
   const long long row = row0 + r;
   const bool in = row < rows;
@@ -344,8 +349,13 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   if (var && in)
 #pragma unroll
     for (int c = 0; c < 3; ++c) va[c] = var[(long long)c * rows + row];
+  const float *rw = half ? wd : wx;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) put(half ? posd : posx, r, c, half ? v[3 + c] : v[c]);
+  for (int c = 0; c < 3; ++c) {
+    float u = half ? v[3 + c] : v[c];
+    if (rw) u *= __ldg(rw + c);
+    put(half ? posd : posx, r, c, u);
+  }
   const int n = Lp + Ld, f0 = half ? (n + 1) / 2 : 0, f1 = half ? n : (n + 1) / 2;
 #pragma unroll 2
   for (int f = f0; f < f1; ++f) {
@@ -362,6 +372,13 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
         const float d = expf(-0.5f * ldexpf(va[c], 2 * i));
         s[c] *= d;
         co[c] *= d;
+      }
+    const float *ew = bx ? wx : wd;
+    if (ew)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        s[c] *= __ldg(ew + 8 + L * c + i);
+        co[c] *= __ldg(ew + 8 + sb + L * c + i);
       }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -416,7 +433,8 @@ __device__ void store_planes(const char *tile, int F, bf16 *plane, long long Rp,
 template <int HF>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld,
-               int H_, Weights w, const char *__restrict__ image, bf16 *res, const float *__restrict__ var) {
+               int H_, Weights w, const char *__restrict__ image, bf16 *res, const float *__restrict__ var,
+               const float *__restrict__ wx, const float *__restrict__ wd) {
   constexpr int NH = HF ? ceil64(HF) : 0, NC = HF ? ceil64(HF / 2 + 8) : 0;
   const int H = HF ? HF : H_;
   extern __shared__ unsigned char smem_raw[];
@@ -489,7 +507,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (keep) store_planes(act, O, plane(f), Rp, row0, tid);
     };
     bar_wg(wq);  // the last tile's reads of posx, posd and the heads are done
-    encode(x, rows, row0, Lp, Ld, posx, posd, tid, var);
+    encode(x, rows, row0, Lp, Ld, posx, posd, tid, var, wx, wd);
     to_async();
     bar_wg(wq);
     if (keep) {
@@ -577,9 +595,10 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 }
 
 // The weight image, then the persistent grid: one block an SM, at most one
-// a tile. `image` holds P.image_bytes(), 16-byte aligned.
+// a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
+// the mip path's variance rows; `wx`, `wd`: null, or the anneal windows.
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w,
-           bf16 *res, void *image, const float *var, cudaStream_t stream) {
+           bf16 *res, void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
@@ -592,7 +611,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   const long long ntiles = (rows + TILE - 1) / TILE;
   const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
   kernel<<<grid, THREADS, P.smem_bytes(), stream>>>(x, out, rows, Lp, Ld, H, w,
-                                                    static_cast<const char *>(image), res, var);
+                                                    static_cast<const char *>(image), res, var, wx, wd);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_forward_tile (:497) with
 // _encode (:410), in f32: the encoding (the point one, or with `var` the
-// integrated one of the mip path, :473-477), the nine chained products
+// integrated one of the mip path, :473-477; with `wx`/`wd` BARF's anneal
+// windows, :491-493), the nine chained products
 // and the rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
 // at f32: full f32 FMA products (no TF32), the f32 bias added after the
 // sum, relu, the encoding with the accurate sincosf. Only the order of
@@ -67,7 +68,11 @@
 //    variance rows of the input): each sin and cos of posx's coordinate c
 //    at frequency 2^i is multiplied by exp(-0.5 * 4^i * var_c) before it
 //    is stored, in the tile and in the residual planes alike, so B1's and
-//    B2's weight gradients (read from the planes) need no change.
+//    B2's weight gradients (read from the planes) need no change. The
+//    anneal windows (`wx`, `wd`: FX and FD floats on the card, pose
+//    refinement's coarse-to-fine encoder) multiply each encoded row of
+//    posx and posd by its weight in the same place; with null windows
+//    nothing is multiplied, so those launches are the same as without.
 //  - Residuals (with `res`): each epilogue also stores its float4s to the
 //    feature planes along the rows (eight lanes a feature: a 128-byte line).
 //  - Ragged rows: rows past `rows` encode to zero and are not output; a
@@ -308,9 +313,12 @@ __device__ __forceinline__ void epilogue(float (&acc)[4 * NI][8], const float *b
 // raw rows, the zero rows and the pad rows of the 8-aligned blocks are
 // written too. With `var` (three rows of stride `rows`: the coordinates'
 // variances), the sin and cos of coordinate c at frequency 2^i are damped
-// by exp(-0.5 * 4^i * var_c). Rows past `rows` encode to zero.
+// by exp(-0.5 * 4^i * var_c). With `ew` (the branch's anneal windows, one
+// float an encoded row), each row is multiplied by its window after that.
+// Rows past `rows` encode to zero.
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int L, int col0, float *pos,
-                       float *plane, long long Rp, int t, const float *__restrict__ var) {
+                       float *plane, long long Rp, int t, const float *__restrict__ var,
+                       const float *__restrict__ ew) {
   const int r = t & (ROWS - 1), q = t >> 7, sb = ceil8(3 * L);
   const long long row = row0 + r;
   const bool in = row < rows, keep = plane != nullptr && row < Rp;
@@ -322,6 +330,10 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
       s *= d;
       co *= d;
     }
+    if (ew) {
+      s *= __ldg(ew + 8 + p);
+      co *= __ldg(ew + 8 + sb + p);
+    }
     pos[(8 + p) * ROWS + r] = s;
     pos[(8 + sb + p) * ROWS + r] = co;
     if (keep) {
@@ -331,18 +343,21 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   }
   for (int k = q; k < 8 + 2 * sb; k += 4) {
     if (k >= 8 && (k - 8) % sb < 3 * L) continue;  // a sin or cos row
-    const float v = k < 3 && in ? x[(long long)(col0 + k) * rows + row] : 0.f;
+    float v = k < 3 && in ? x[(long long)(col0 + k) * rows + row] : 0.f;
+    if (ew) v *= __ldg(ew + k);
     pos[k * ROWS + r] = v;
     if (keep) plane[k * Rp + row] = v;
   }
 }
 
 // NI: the feature groups of a thread in the H-wide layers (2 for H > 128).
-// `var`: null, or the mip path's variance rows (encode).
+// `var`: null, or the mip path's variance rows; `wx`, `wd`: null, or the
+// anneal windows of posx and posd (encode).
 template <int NI>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld, int H,
-               Weights w, const char *__restrict__ image, float *res, const float *__restrict__ var) {
+               Weights w, const char *__restrict__ image, float *res, const float *__restrict__ var,
+               const float *__restrict__ wx, const float *__restrict__ wd) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan P = plan_of(Lp, Ld, H);
   const int stages = P.stages(), FX = P.FX, FD = P.FD, H2 = H / 2;
@@ -380,7 +395,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
     };
     __syncthreads();  // the last tile's reads of posx, posd and the slots are done
-    encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t, var);
+    encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t, var, wx);
     __syncthreads();
     product<NI, NI>(acc, rg, posx, FX, fo4, ro4, lane);  // W1
     dense(w.b1, L.h(0), nullptr, 0, 0);
@@ -396,7 +411,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     product<NI, NI>(acc, rg, posx, FX, fo4, ro4, lane);
     __syncthreads();  // every product has read `act` and posx
     epilogue<NI, NI>(acc, Wm(w.bs), H, act, plane(L.h(5)), Rp, row0, nullptr, 0, 0, slots, fo4, ro4, lane, fw);
-    encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp, t, nullptr);  // for Wcd, over posx
+    encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp, t, nullptr, wd);  // for Wcd, over posx
     __syncthreads();
     product<NI, NI>(acc, rg, act, H, fo4, ro4, lane);  // Wp0
     dense(w.bp0, L.h(6), nullptr, 0, 0);
@@ -464,9 +479,10 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 
 // The weight image, then the persistent grid: one block an SM, at most one
 // a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
-// the variance rows of the mip path's input.
+// the variance rows of the mip path's input; `wx`, `wd`: null, or the
+// anneal windows (FX and FD floats on the card).
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w, float *res,
-           void *image, const float *var, cudaStream_t stream) {
+           void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
@@ -479,7 +495,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   const long long ntiles = (rows + ROWS - 1) / ROWS;
   const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
   kernel<<<grid, THREADS, P.smem_bytes(), stream>>>(x, out, rows, Lp, Ld, H, w, static_cast<const char *>(image),
-                                                    res, var);
+                                                    res, var, wx, wd);
   return (int)cudaGetLastError();
 }
 

@@ -164,11 +164,15 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 // `res`, the residuals are kept. Each builds its weight image in `image`
 // (fwd_image_bytes) first. With `mip`, x has 16 rows of stride `rows` and
 // the encoder is the integrated one, on the variances of rows 11..13.
+// `wx`, `wd`: null, or the anneal windows of posx and posd (FX and FD
+// floats on the card), which multiply each encoded row.
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
-            const Weights &w, void *res, void *image, bool mip, cudaStream_t stream) {
+            const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
+            cudaStream_t stream) {
   const float *var = mip ? x + 11 * rows : nullptr;
-  if (is_bf16) return fb::launch(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, stream);
-  return ff::launch(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, stream);
+  if (is_bf16)
+    return fb::launch(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, wx, wd, stream);
+  return ff::launch(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, wx, wd, stream);
 }
 
 long long fwd_smem(int Lp, int Ld, int H, int is_bf16) {

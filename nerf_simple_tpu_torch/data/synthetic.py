@@ -8,8 +8,9 @@ same compositing the model trains against (dense midpoint samples).
 ``write_blender_scene`` lays it out like nerf_synthetic (train/ val/
 test/ PNGs plus transforms_*.json with ``camera_angle_x``), so the
 Blender loader reads it like lego; ``write_depth`` adds the metric-depth
-sidecars. The JAX package's ``hard`` and ``unbounded`` styles, train-view
-jitter and varied camera radii are not ported.
+sidecars; ``train_jitter`` jitters the train cameras' elevation (the JAX
+writer's seed). The JAX package's ``hard`` and ``unbounded`` styles and
+varied camera radii are not ported.
 """
 
 from __future__ import annotations
@@ -106,15 +107,19 @@ def write_blender_scene(
     W: int = 64,
     device="cpu",
     write_depth: bool = False,
+    train_jitter: int = 0,
 ) -> None:
     """Write the synthetic scene to ``path`` in nerf_synthetic layout, the
     images as 8-bit RGB PNGs, with lego's field of view. ``write_depth``
     also saves each image's metric depth as ``<path>/depth/<split>/
     r_<i>.npy``, a sidecar directory outside the split directories the
-    Blender loader lists."""
+    Blender loader lists. ``train_jitter``: the seed of the train cameras'
+    elevation jitter (``orbit_cameras``' ``seed_jitter``); 0 keeps every
+    train view at theta = -30, a circle of views, as the JAX writer's
+    default does."""
     f = W / (2.0 * np.tan(_FOV_X / 2.0))
     specs = {
-        "train": orbit_cameras(n_train),
+        "train": orbit_cameras(n_train, seed_jitter=train_jitter),
         "val": orbit_cameras(n_val, seed_jitter=1),
         "test": orbit_cameras(n_test, seed_jitter=2),
     }

@@ -17,10 +17,15 @@ the proposal scheme: the checkpoint's proposal net at Np probes (bin
 midpoints) places N_samples deterministic samples of its main field.
 With ``mip`` it casts cones (at ``mip_levels`` 1 or 2), their radius
 ``2 / sqrt(12) / focal`` of the eval frames; normals render point samples.
+A pose-refined run's train-split stills render from the refined poses:
+the camera deltas of the checkpoint's ``{"field", "cams"}`` params, or
+after a pose freeze those of the ``cam_deltas.npz`` sidecar beside it,
+baked into the train rays; val and test poses are never refined.
 
 Mip with Np (mip-NeRF 360), occupancy eval, LLFF (spiral path, NDC),
-the tiny_nerf loader, sharded eval, pose-refined stills and Orbax
-checkpoint directories are not ported: each raises NotImplementedError.
+the tiny_nerf loader, sharded eval, appearance-embedding checkpoints and
+Orbax checkpoint directories are not ported: each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import warnings
 from typing import Any
 
 import numpy as np
+import torch
 
 from nerf_simple_tpu_torch.config import TestConfig, load_yaml, test_config_from_dict
 
@@ -99,22 +105,32 @@ def _model_for(cfg: TestConfig, params):
     return model
 
 
-def _check_aux(cfg: TestConfig, aux: dict, model) -> None:
-    """Pose deltas are not ported: a checkpoint or sidecar that has them
-    raises. Appearance codes are only dropped when the model reads none."""
+def cam_deltas(cfg: TestConfig, aux: dict) -> tuple[np.ndarray, np.ndarray] | None:
+    """The (dr, dt) camera-delta tables a train-split still renders from
+    (JAX evaluate.py:222-265): the checkpoint's live ``cams``, or the
+    ``cam_deltas.npz`` sidecar of a pose freeze in the experiment dir (the
+    loadpath's directory, or the directory holding a params file or a
+    ``ckpt_<step>``); None for other splits, the orbit video, or a run
+    without refinement."""
+    if cfg.im_set != "train" or cfg.animation:
+        return None
+    if "cams" in aux:
+        return np.asarray(aux["cams"]["dr"], np.float32), np.asarray(aux["cams"]["dt"], np.float32)
     exp = cfg.loadpath
     if not os.path.isdir(exp) or os.path.basename(os.path.normpath(exp)).startswith("ckpt_"):
         exp = os.path.dirname(os.path.normpath(exp))
-    sidecar = cfg.im_set == "train" and not cfg.animation and os.path.exists(
-        os.path.join(exp, "cam_deltas.npz"))
-    if "cams" in aux or sidecar:
-        raise NotImplementedError(
-            "pose-refined checkpoints (per-image camera deltas) are not ported yet: "
-            "ROADMAP Queue A, pose/appearance"
-        )
+    sidecar = os.path.join(exp, "cam_deltas.npz")
+    if not os.path.exists(sidecar):
+        return None
+    with np.load(sidecar) as d:
+        return d["dr"].astype(np.float32), d["dt"].astype(np.float32)
+
+
+def _check_aux(aux: dict, model) -> None:
+    """Appearance codes are only dropped when the model reads none."""
     if "app" in aux and model.app_dim > 0:
         raise NotImplementedError(
-            "appearance-embedding checkpoints are not ported yet: ROADMAP Queue A, pose/appearance"
+            "appearance-embedding checkpoints are not ported yet: ROADMAP Queue A item 6, appearance"
         )
 
 
@@ -132,7 +148,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     from nerf_simple_tpu_torch.data.dataset import RayDataset
     from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
     from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
-    from nerf_simple_tpu_torch.ops.rays import orbit_poses
+    from nerf_simple_tpu_torch.ops.rays import bake_cam_deltas, orbit_poses
     from nerf_simple_tpu_torch.render.renderer import (
         RenderSettings,
         derive_seed,
@@ -162,13 +178,22 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
             "(train with proposal: true)"
         )
     model = _model_for(cfg, params)
-    _check_aux(cfg, aux, model)
+    _check_aux(aux, model)
     if cfg.Np > 0:  # the proposal arch from its weight shapes, which determine it
         field = ProposalPair.from_jax_params(params, device, model, infer_proposal_arch(params["prop"]))
     else:
         field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
     data = load_blender(cfg.datapath, cfg.half_res)
     rd = RayDataset.from_blender(data, device)
+    deltas = cam_deltas(cfg, aux)
+    if deltas is not None:  # the train split's refined rig: only train images have deltas
+        n_train = rd.split_size("train") // (rd.H * rd.W)
+        if n_train == len(deltas[0]):
+            rd.rays["train"] = bake_cam_deltas(rd.rays["train"], *(torch.as_tensor(t, device=device) for t in deltas),
+                                               rd.H * rd.W)
+        else:
+            print(f"pose deltas cover {len(deltas[0])} train images but the split has {n_train}; "
+                  "skipping eval-time refinement")
     settings = RenderSettings(
         N=cfg.N_samples, N_coarse=cfg.Nc, N_prop=cfg.Np, tn=cfg.tn, tf=cfg.tf, sampling_space=cfg.sampling_space,
         compute_dtype=cfg.render_dtype, backend=cfg.backend, mip=cfg.mip, mip_levels=cfg.mip_levels,

@@ -6,9 +6,14 @@ variants:
 
 - ``fused_mlp_forward`` (csrc/fused_mlp_fwd.cu): the MLP forward;
 - ``fused_mlp_backward`` (csrc/fused_mlp_bwd.cu): the weight gradients
-  for per-sample output cotangents (the TPU ``_fused_mlp_bwd``);
+  for per-sample output cotangents (the TPU ``_fused_mlp_bwd``), and with
+  ``want_dx`` the gradient of the input rows too (csrc/input_grad.cuh,
+  the TPU ``_input_grad_tile``);
 - ``fused_mlp``: a ``torch.autograd.Function`` whose forward is the first
   and whose backward is the second;
+- ``input_grad`` (csrc/input_grad.cuh, through csrc/fused_mlp_bwd.cu):
+  the input-gradient kernel alone, from the backward's cotangent planes
+  to ``dL/dx``;
 - ``fused_train_step`` (csrc/fused_train_step.cu): forward, compositing,
   the MSE loss and the full backward of one batch of whole rays, and
   optionally each sample's compositing weight (``out_weights``) and the
@@ -38,7 +43,11 @@ the frustum Gaussians' means, 11..13 their diagonal variances, and the
 encoder is the integrated one: each sin and cos row of coordinate c at
 frequency 2^i is damped by ``exp(-0.5 * 4^i * var_c)`` (the raw rows and
 the direction branch are not). The damped posx is what the residual
-planes hold, so the backward's weight gradients need no change.
+planes hold, so the backward's weight gradients need no change. BARF's
+anneal windows (``enc_w``, ``anneal_row_weights``: pose refinement's
+coarse-to-fine encoder) multiply each encoded row of posx and posd by its
+octave's weight the same way, in the forward and in the backward's
+recompute.
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -354,11 +363,30 @@ def f32_backward_smem_bytes(model: NerfMLP) -> int:
     return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), F32_BWD_MAX_STAGES) * stage
 
 
-def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def anneal_row_weights(model: NerfMLP, alpha: float, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """BARF's anneal windows in the kernels' encoded-row layout: (wx (FX,),
+    wd (FD,)) f32. The raw rows carry 1; octave i's sin and cos rows of
+    every coordinate carry ``ops/encoding.py::anneal_weights(L, alpha)[i]``;
+    pad rows carry 1 (their weight columns are zero). The JAX
+    ``anneal_row_weights`` (its row 3, the bias rail, is a pad row here)."""
+    from nerf_simple_tpu_torch.ops.encoding import anneal_weights
+
+    def rows(L):
+        w = anneal_weights(L, alpha, torch.float32, device)
+        pad = torch.ones(_sin_block(L) - 3 * L, dtype=torch.float32, device=device)
+        blk = torch.cat([w.repeat(3), pad])
+        return torch.cat([torch.ones(8, dtype=torch.float32, device=device), blk, blk]).contiguous()
+
+    return rows(model.Lp), rows(model.Ld)
+
+
+def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
+            enc_w: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(>= 6, rows) f32 -> posx (FX, rows), posd (FD, rows) in the kernel's
     row order, f32. Pad rows are zero. With ``var`` (3, rows), the
     integrated encoder: posx's sin and cos rows of coordinate c at
-    frequency 2^i times ``exp(-0.5 * 4^i * var_c)``."""
+    frequency 2^i times ``exp(-0.5 * 4^i * var_c)``. With the anneal
+    windows ``enc_w = (wx, wd)`` each row times its weight."""
 
     def branch(x3, L, v3=None):
         sb = _sin_block(L)
@@ -374,7 +402,33 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None) -
         out[8 + sb : 8 + sb + 3 * L] = c
         return out
 
-    return branch(xT[0:3], model.Lp, var), branch(xT[3:6], model.Ld)
+    posx, posd = branch(xT[0:3], model.Lp, var), branch(xT[3:6], model.Ld)
+    if enc_w is not None:
+        posx, posd = posx * enc_w[0].to(posx.dtype)[:, None], posd * enc_w[1].to(posd.dtype)[:, None]
+    return posx, posd
+
+
+def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tensor,
+                      model: NerfMLP) -> torch.Tensor:
+    """The transpose of ``_encode`` (without windows or variances) at the
+    inputs ``xT``: the encoded rows' cotangents ``g_posx (FX, rows)`` and
+    ``g_posd (FD, rows)`` -> ``dx (8, rows)``. A raw row passes through; a
+    sin row of coordinate c at frequency 2^i adds ``2^i cos(2^i x_c)``
+    times its cotangent to x_c, a cos row ``-2^i sin(2^i x_c)``; posx feeds
+    rows 0..2, posd rows 3..5; rows 6..7 are zero (the JAX
+    ``_input_grad_tile`` without contraction)."""
+
+    def branch(x3, g, L):
+        sb = _sin_block(L)
+        freqs = 2.0 ** torch.arange(L, dtype=x3.dtype, device=x3.device)
+        ang = (x3[:, None, :] * freqs[None, :, None]).reshape(3 * L, -1)
+        dang = g[8 : 8 + 3 * L] * torch.cos(ang) - g[8 + sb : 8 + sb + 3 * L] * torch.sin(ang)
+        return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1)
+
+    dx = torch.zeros((8, xT.shape[1]), dtype=g_posx.dtype, device=xT.device)
+    dx[0:3] = branch(xT[0:3].to(g_posx.dtype), g_posx, model.Lp)
+    dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd, model.Ld)
+    return dx
 
 
 def _rnd(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -466,11 +520,13 @@ def _x_rows(mip: bool) -> int:
     return 16 if mip else 8
 
 
-def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP, mip: bool = False):
+def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP, mip: bool = False,
+             enc_w: tuple | None = None):
     """The JAX ``_forward_tile``: (8, rows), or (16, rows) with ``mip``
-    (variances in rows 11..13), -> (out (8, rows), Residuals)."""
+    (variances in rows 11..13), -> (out (8, rows), Residuals); ``enc_w``
+    the anneal windows."""
     H2 = model.H // 2
-    posx, posd = _encode(xT, model, xT[11:14] if mip else None)
+    posx, posd = _encode(xT, model, xT[11:14] if mip else None, enc_w)
 
     def dense(W, b, h):
         return torch.relu(_mm(W, h, dt) + b)
@@ -497,10 +553,12 @@ def fused_mlp_forward_plain(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
+    enc_w: tuple | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: same weights, same
-    numerics (the JAX ``_forward_tile``), any device."""
-    return _forward(wts, xT, compute_dtype, model, mip)[0]
+    numerics (the JAX ``_forward_tile``, with the anneal windows
+    ``enc_w``), any device."""
+    return _forward(wts, xT, compute_dtype, model, mip, enc_w)[0]
 
 
 def weight_grad_plain(G: torch.Tensor, A: torch.Tensor, dt) -> tuple[torch.Tensor, torch.Tensor]:
@@ -558,7 +616,7 @@ def backward_tile_plain(
 
 
 def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
-              g_sig: torch.Tensor, dt, model: NerfMLP) -> FusedWeights:
+              g_sig: torch.Tensor, dt, model: NerfMLP, want_pos: bool = False):
     """The JAX ``_backprop_tile`` from per-sample cotangents ``g_rgb (3,
     rows)`` and ``g_sig (rows,)`` to packed-layout f32 gradients, summed
     over rows: the chain ``_cotangents`` (what ``backward_tile_plain``
@@ -568,7 +626,8 @@ def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
     of the cotangent as stored (rounded to ``dt``). The TPU kernel took
     three bias sums (b1, bs, the colour half of bcs) from a rail column of
     rounded cotangents and the others from f32 ones; at f32 the two
-    agree."""
+    agree. With ``want_pos`` also the cotangent planes the input gradient
+    reads, ``(g_h0, g_h5, g_hc)``."""
     h = res.h
     g8, g_cs, g_h = _cotangents(wts, res, g_rgb, g_sig, dt)
     g_hc = g_cs[: model.H // 2]
@@ -582,12 +641,48 @@ def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
         sums(g_h[3], h[2]), sums(g_h[4], h[3]))
     (Wsh, bs), (Wp0, bp0), (Wp1, bp1) = sums(g_h[5], h[4]), sums(g_h[6], h[5]), sums(g_h[7], h[6])
     (Wcs, bcs), (Wc1, bc1) = sums(g_cs, h[7]), sums(g8, res.hc)
-    return FusedWeights(
+    grads = FusedWeights(
         W1=W1, b1=b1, Wt1=Wt1, bt1=bt1, Wt2=Wt2, bt2=bt2, Wt3=Wt3, bt3=bt3,
         Wt4=Wt4, bt4=bt4, Wsh=Wsh, Wsx=sums(g_h[5], res.posx)[0], bs=bs,
         Wp0=Wp0, bp0=bp0, Wp1=Wp1, bp1=bp1, Wcs=Wcs, bcs=bcs,
         Wcd=sums(g_hc, res.posd)[0], Wc1=Wc1, bc1=bc1,
     )
+    return (grads, (g_h[0], g_h[5], g_hc)) if want_pos else grads
+
+
+def _input_grad(wts: FusedWeights, xT: torch.Tensor, g_h0: torch.Tensor, g_h5: torch.Tensor,
+                g_hc: torch.Tensor, dt, model: NerfMLP, enc_w: tuple | None = None) -> torch.Tensor:
+    """The JAX ``_bwd_kernel``'s ``want_dx`` branch from the cotangent
+    planes (rows, as stored) of the first layer ``g_h0``, the skip layer
+    ``g_h5`` and the colour head ``g_hc``: the encoded inputs' cotangents
+    ``g_posx = W1^T g_h0 + Wsx^T g_h5`` and ``g_posd = Wcd^T g_hc`` (both
+    operands rounded to ``dt``, f32 sums: the JAX ``mTg``), times the
+    anneal windows, then the encoder's transpose in f32 (f64 for f64
+    planes) -> ``dx (8, rows)``."""
+    g_posx = _mm(wts.W1.T, g_h0, dt) + _mm(wts.Wsx.T, g_h5, dt)
+    g_posd = _mm(wts.Wcd.T, g_hc, dt)
+    if enc_w is not None:
+        g_posx, g_posd = g_posx * enc_w[0].to(g_posx.dtype)[:, None], g_posd * enc_w[1].to(g_posd.dtype)[:, None]
+    return _encode_transpose(xT, g_posx, g_posd, model)
+
+
+def input_grad_plain(
+    wts: FusedWeights,
+    xT: torch.Tensor,
+    gws: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+    enc_w: tuple | None = None,
+) -> torch.Tensor:
+    """Plain version of the input-gradient kernel (see ``input_grad``):
+    from the backward's cotangent planes ``gws (FG, Rp)`` (``Layout``; as
+    ``backward_tile`` gives them) and the inputs ``xT (8, rows)`` to ``dx
+    (8, rows)``, f32 (f64 for f64 planes, a reference)."""
+    L, rows = Layout.of(model), xT.shape[1]
+    g = gws[:, :rows]
+    dx = _input_grad(wts, xT, g[L.gh(0) : L.gh(0) + L.H], g[L.gh(5) : L.gh(5) + L.H],
+                     g[L.gcs : L.gcs + L.H // 2], compute_dtype, model, enc_w)
+    return dx if gws.dtype == torch.float64 else dx.float()
 
 
 def fused_mlp_backward_plain(
@@ -597,11 +692,19 @@ def fused_mlp_backward_plain(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
-) -> FusedWeights:
+    want_dx: bool = False,
+    enc_w: tuple | None = None,
+):
     """Plain PyTorch version of the backward kernel: ``gT (8, rows)`` with
-    d_rgb in rows 0..2 and d_sigma in row 3 -> packed f32 gradients."""
-    _, res = _forward(wts, xT, compute_dtype, model, mip)
-    return _backprop(wts, res, gT[:3], gT[3], compute_dtype, model)
+    d_rgb in rows 0..2 and d_sigma in row 3 -> packed f32 gradients, and
+    with ``want_dx`` ``(grads, dx (8, rows))``; the forward it recomputes
+    with the anneal windows ``enc_w``."""
+    _, res = _forward(wts, xT, compute_dtype, model, mip, enc_w)
+    out = _backprop(wts, res, gT[:3], gT[3], compute_dtype, model, want_pos=want_dx)
+    if not want_dx:
+        return out
+    grads, (g_h0, g_h5, g_hc) = out
+    return grads, _input_grad(wts, xT, g_h0, g_h5, g_hc, compute_dtype, model, enc_w)
 
 
 def _point_deltas(ts: torch.Tensor) -> torch.Tensor:
@@ -784,14 +887,17 @@ class _CWeightsT(ctypes.Structure):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P, _P, _P], _I),
         "fused_mlp_fwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_fwd_image_bytes": ([_I] * 4, _LL),
         "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _P], _I),
-        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P], _I),
+        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _P], _I),
     },
     "fused_mlp_bwd": {
-        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P], _I),
+        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _P],
+                          _I),
+        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _P], _I),
+        "input_grad_launch_count": ([_I], _LL),
         "fused_mlp_bwd_smem_bytes": ([_I] * 4, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
         "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
@@ -911,36 +1017,72 @@ def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP) -> FusedWeights:
     return _cast_weights(wts, compute_dtype)
 
 
+def _enc_w_ptrs(enc_w: tuple | None, model: NerfMLP, device, mip: bool = False, want_dx: bool = False):
+    """Check the anneal windows ``enc_w = (wx (FX,), wd (FD,))`` (contiguous
+    f32 on ``device``, as ``anneal_row_weights`` makes them); returns their
+    pointers, or (None, None) without windows. The cone-cast encoder takes
+    neither the windows nor the input gradient (JAX config.py:627-631 for
+    the first; the second needs ``_input_grad_tile_mip``)."""
+    if mip and (enc_w is not None or want_dx):
+        raise NotImplementedError(
+            "the anneal windows and the input gradient under mip (pose refinement with cone casting, "
+            "_input_grad_tile_mip) are not ported yet: ROADMAP Queue A item 6")
+    if enc_w is None:
+        return None, None
+    L = Layout.of(model)
+    for name, t, n in zip(("wx", "wd"), enc_w, (L.FX, L.FD)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != device or not t.is_contiguous():
+            raise ValueError(f"enc_w's {name} must be a contiguous ({n},) f32 tensor on {device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return tuple(t.data_ptr() for t in enc_w)
+
+
+INPUT_GRAD_MAX_L = (10, 4)  # octaves of posx and posd the input-gradient kernel holds (the flagship's)
+
+
+def _check_input_grad_arch(model: NerfMLP) -> None:
+    if model.Lp > INPUT_GRAD_MAX_L[0] or model.Ld > INPUT_GRAD_MAX_L[1]:
+        raise ValueError(f"the input-gradient kernel holds Lp <= {INPUT_GRAD_MAX_L[0]} and Ld <= "
+                         f"{INPUT_GRAD_MAX_L[1]}; got {model}")
+
+
 def fused_mlp_forward(
     wts: FusedWeights,
     xT: torch.Tensor,
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
+    enc_w: tuple | None = None,
 ) -> torch.Tensor:
     """Fused MLP forward: ``xT (8, rows)`` f32 -> ``(8, rows)`` f32, raw
     rgb in rows 0..2, raw sigma in row 3, zeros in rows 4..7. ``rows``
     may be any count (the kernel masks the ragged tile). With ``mip``,
     ``xT`` is (16, rows): the frustum Gaussians' means in rows 0..2, unit
     dirs 3..5, diagonal variances 11..13, read by the integrated encoder;
-    ``fused_mlp_forward.mip_launches`` counts those launches."""
+    ``fused_mlp_forward.mip_launches`` counts those launches. ``enc_w =
+    (wx, wd)`` (``anneal_row_weights``, on the input's device) multiplies
+    each encoded row by its anneal window;
+    ``fused_mlp_forward.anneal_launches`` counts those launches."""
     wts = _prepare(wts, compute_dtype, model)
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
-        return fused_mlp_forward_plain(wts, xT, compute_dtype, model, mip)
+        return fused_mlp_forward_plain(wts, xT, compute_dtype, model, mip, enc_w)
     lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
     out = torch.empty((8, xT.shape[1]), dtype=torch.float32, device=xT.device)
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
     _raise_on(lib.fused_mlp_fwd(
         xT.data_ptr(), out.data_ptr(), xT.shape[1], model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), _stream(xT),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), wx, wd, _stream(xT),
     ), "fused_mlp_fwd")
     fused_mlp_forward.launches += 1
     fused_mlp_forward.mip_launches += mip
+    fused_mlp_forward.anneal_launches += enc_w is not None
     return out
 
 
 fused_mlp_forward.launches = 0
 fused_mlp_forward.mip_launches = 0  # of them, with the integrated encoder
+fused_mlp_forward.anneal_launches = 0  # of them, with the anneal windows
 
 
 def forward_residuals_plain(
@@ -949,13 +1091,14 @@ def forward_residuals_plain(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
+    enc_w: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``forward_residuals``: ``_forward``'s output and
     its residuals laid out as the workspace's planes ``(FA, Rp)``
     (``Layout``), rounded to ``compute_dtype`` and held in f32. Pad rows
     (past ``rows``) are zero here; the kernel writes the residuals of a
     zero input there."""
-    out, r = _forward(wts, xT, compute_dtype, model, mip)
+    out, r = _forward(wts, xT, compute_dtype, model, mip, enc_w)
     L, rows = Layout.of(model), xT.shape[1]
     res = torch.zeros((L.FA, -(-rows // 64) * 64), dtype=out.dtype, device=xT.device)
     res[:, :rows] = _rnd(torch.cat([r.posx, r.posd, *r.h, r.hc]), compute_dtype)
@@ -968,15 +1111,18 @@ def forward_residuals(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
+    enc_w: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward tile kernel as B1 and B2 run it, keeping every residual:
     ``(out (8, rows) f32, res (FA, Rp))``, the planes of ``Layout`` (posx,
     posd, h0..h7, hc) in the compute dtype, Rp = rows rounded up to 64;
-    ``xT`` as ``fused_mlp_forward`` takes it (with ``mip``, posx is the
-    damped encoding). ``forward_residuals.launches`` counts its launches."""
+    ``xT`` and ``enc_w`` as ``fused_mlp_forward`` takes them (with ``mip``,
+    posx is the damped encoding; with ``enc_w``, the windowed one).
+    ``forward_residuals.launches`` counts its launches."""
     wts = _prepare(wts, compute_dtype, model)
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
-        return forward_residuals_plain(wts, xT, compute_dtype, model, mip)
+        return forward_residuals_plain(wts, xT, compute_dtype, model, mip, enc_w)
     lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
     rows = xT.shape[1]
     out = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
@@ -984,7 +1130,7 @@ def forward_residuals(
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
     _raise_on(lib.fused_mlp_fwd_residuals(
         xT.data_ptr(), out.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), _stream(xT),
+        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), wx, wd, _stream(xT),
     ), "fused_mlp_fwd_residuals")
     forward_residuals.launches += 1
     return out, res
@@ -1025,17 +1171,28 @@ def fused_mlp_backward(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
-) -> FusedWeights:
+    want_dx: bool = False,
+    enc_w: tuple | None = None,
+):
     """Fused MLP backward: the packed f32 weight gradients of
-    sum(out * gT) for ``out = fused_mlp_forward(wts, xT, mip=mip)``, with
-    ``gT (8, rows)`` f32 (rows 0..2 d_rgb, row 3 d_sigma, rows 4..7 not
-    read). No gradient for ``xT``. With ``mip`` the forward it recomputes
-    is the integrated encoder's (``fused_mlp_backward.mip_launches``)."""
+    sum(out * gT) for ``out = fused_mlp_forward(wts, xT, mip=mip,
+    enc_w=enc_w)``, with ``gT (8, rows)`` f32 (rows 0..2 d_rgb, row 3
+    d_sigma, rows 4..7 not read). With ``mip`` the forward it recomputes
+    is the integrated encoder's (``fused_mlp_backward.mip_launches``),
+    with ``enc_w`` the windowed one (``anneal_launches``). With
+    ``want_dx`` it returns ``(grads, dx)``: ``dx (8, rows)`` f32 is the
+    gradient of that sum in ``xT`` (rows 0..5; rows 6..7 zero), which the
+    input-gradient kernel (csrc/input_grad.cuh) computes after the weight
+    gradients from the backward's cotangent planes
+    (``fused_mlp_backward.dx_launches``); the windows get no gradient."""
     wts = _prepare(wts, compute_dtype, model)
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip, want_dx)
     if _dispatch(xT):
         with torch.no_grad():
-            return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip)
+            return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
     lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
+    if want_dx:
+        _check_input_grad_arch(model)
     if (gT.shape != (8, xT.shape[1]) or gT.dtype != torch.float32 or gT.device != xT.device
             or not gT.is_contiguous()):
         raise ValueError(f"gT must be a contiguous (8, {xT.shape[1]}) f32 tensor on {xT.device}")
@@ -1045,33 +1202,40 @@ def fused_mlp_backward(
     ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(rows, model.Lp, model.Ld, model.H, bf16),
                      dtype=torch.uint8, device=xT.device)
     grads = _empty_grads(model, xT.device)
+    dx = torch.empty((8, rows), dtype=torch.float32, device=xT.device) if want_dx else None
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
-        int(mip), _stream(xT),
+        int(mip), wx, wd, None if dx is None else dx.data_ptr(), _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
     fused_mlp_backward.mip_launches += mip
-    return grads
+    fused_mlp_backward.dx_launches += want_dx
+    fused_mlp_backward.anneal_launches += enc_w is not None
+    return (grads, dx) if want_dx else grads
 
 
 fused_mlp_backward.launches = 0
 fused_mlp_backward.mip_launches = 0  # of them, recomputing the integrated encoder
+fused_mlp_backward.dx_launches = 0  # of them, with the input gradient (want_dx)
+fused_mlp_backward.anneal_launches = 0  # of them, recomputing with the anneal windows
 
 
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xT, compute_dtype, model, mip, *wts):
+    def forward(ctx, xT, compute_dtype, model, mip, enc_w, *wts):
         ctx.save_for_backward(xT, *wts)
-        ctx.compute_dtype, ctx.model, ctx.mip = compute_dtype, model, mip
-        return fused_mlp_forward(FusedWeights(*wts), xT, compute_dtype, model, mip)
+        ctx.compute_dtype, ctx.model, ctx.mip, ctx.enc_w = compute_dtype, model, mip, enc_w
+        return fused_mlp_forward(FusedWeights(*wts), xT, compute_dtype, model, mip, enc_w)
 
     @staticmethod
     def backward(ctx, g):
         xT, *wts = ctx.saved_tensors
-        grads = fused_mlp_backward(FusedWeights(*wts), xT, g.contiguous(),
-                                   ctx.compute_dtype, ctx.model, ctx.mip)
-        return (None, None, None, None, *grads)
+        want_dx = ctx.needs_input_grad[0]
+        out = fused_mlp_backward(FusedWeights(*wts), xT, g.contiguous(), ctx.compute_dtype, ctx.model,
+                                 ctx.mip, want_dx, ctx.enc_w)
+        grads, dx = out if want_dx else (out, None)
+        return (dx, None, None, None, None, *grads)
 
 
 def fused_mlp(
@@ -1080,12 +1244,19 @@ def fused_mlp(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     mip: bool = False,
+    enc_w: tuple | None = None,
 ) -> torch.Tensor:
-    """Differentiable fused MLP (the JAX ``fused_mlp`` with
-    ``want_dx=False``): forward ``fused_mlp_forward``, backward
-    ``fused_mlp_backward``, both with ``mip`` as given. Gradients reach
-    the packed weights only; ``xT`` gets none."""
-    return _FusedMLP.apply(xT, compute_dtype, model, mip, *wts)
+    """Differentiable fused MLP (the JAX ``fused_mlp``): forward
+    ``fused_mlp_forward``, backward ``fused_mlp_backward``, both with
+    ``mip`` and the anneal windows ``enc_w`` as given. Gradients reach the
+    packed weights, and ``xT`` when autograd asks for it (B2's
+    ``want_dx``, the input-gradient kernel: pose refinement trains through
+    ray generation). The windows are a schedule and get no gradient."""
+    if mip and xT.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the input gradient under mip (pose refinement with cone casting, _input_grad_tile_mip) is not "
+            "ported yet: ROADMAP Queue A item 6")
+    return _FusedMLP.apply(xT, compute_dtype, model, mip, enc_w, *wts)
 
 
 def fused_train_step(
@@ -1319,6 +1490,58 @@ def bwd_tile_launches(reset: bool = False) -> int:
     B1 and B2 once a call, ``backward_tile`` through B2's library. With
     ``reset``, the counts restart from 0."""
     return _c_counts("bwd_tile_launch_count", reset)
+
+
+def input_grad_launches(reset: bool = False) -> int:
+    """Launches of the input-gradient kernel (csrc/input_grad.cuh) so far,
+    counted inside B2's library, which launches it: from
+    ``fused_mlp_backward(want_dx=True)`` and ``input_grad``. With
+    ``reset``, the count restarts from 0; 0 when the library is not
+    loaded (it is not built)."""
+    if "fused_mlp_bwd" not in _build._loaded:
+        return 0
+    return _lib("fused_mlp_bwd").input_grad_launch_count(int(reset))
+
+
+def input_grad(
+    wts: FusedWeights,
+    xT: torch.Tensor,
+    gws: torch.Tensor,
+    compute_dtype=torch.bfloat16,
+    model: NerfMLP = FLAGSHIP,
+    enc_w: tuple | None = None,
+) -> torch.Tensor:
+    """The input-gradient kernel alone, as ``fused_mlp_backward(want_dx=
+    True)`` runs it after its weight gradients: from the backward's
+    cotangent planes ``gws (FG, Rp)`` in the compute type (``Layout``; Rp
+    = rows rounded up to 64; it reads g_h0, g_h5 and g_hc) and the inputs
+    ``xT (8, rows)`` f32 to ``dx (8, rows)`` f32 (``input_grad_plain``),
+    with the anneal windows ``enc_w``. ``input_grad.launches`` counts the
+    kernel's launches by this wrapper."""
+    wts = _prepare(wts, compute_dtype, model)
+    L = Layout.of(model)
+    rows = xT.shape[1] if xT.dim() == 2 else 0
+    Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE
+    if rows == 0 or gws.dtype != compute_dtype or tuple(gws.shape) != (L.FG, Rp) or not gws.is_contiguous():
+        raise ValueError(f"gws must be contiguous ({L.FG}, {Rp}) {compute_dtype} planes for xT of "
+                         f"{rows} rows; got {tuple(gws.shape)} {gws.dtype}")
+    if gws.device != xT.device:
+        raise ValueError(f"gws on {gws.device} and xT on {xT.device}")
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device)
+    if _dispatch(xT):
+        return input_grad_plain(wts, xT, gws, compute_dtype, model, enc_w)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", 8, compute_dtype, model)
+    _check_input_grad_arch(model)
+    dx = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
+    _raise_on(lib.input_grad(
+        gws.data_ptr(), xT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
+        wx, wd, dx.data_ptr(), _stream(xT),
+    ), "input_grad")
+    input_grad.launches += 1
+    return dx
+
+
+input_grad.launches = 0
 
 
 def backward_tile(

@@ -39,9 +39,11 @@ def _unported_family(family: str) -> NotImplementedError:
     )
 
 
-def apply_model(field: NerfField, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-    """(B, 6) ``[xyz | unit dir]`` rows -> (B, 4) raw ``[rgb | sigma]``."""
-    return nerf_apply(field, v, compute_dtype)
+def apply_model(field: NerfField, v: torch.Tensor, compute_dtype=torch.float32,
+                enc_alpha: float | None = None) -> torch.Tensor:
+    """(B, 6) ``[xyz | unit dir]`` rows -> (B, 4) raw ``[rgb | sigma]``;
+    ``enc_alpha`` anneals the encoder (``nerf_apply``)."""
+    return nerf_apply(field, v, compute_dtype, enc_alpha)
 
 
 def model_from_meta(meta: dict) -> NerfMLP:

@@ -76,7 +76,7 @@ def require_ported(model: NerfMLP) -> None:
     if model.app_dim > 0:
         raise NotImplementedError(
             "app_dim > 0 (appearance codes) is not ported yet: ROADMAP "
-            "Queue A, 'pose/appearance'"
+            "Queue A item 6, appearance"
         )
 
 
@@ -161,8 +161,8 @@ class NerfField(LinearField):
         require_ported(model)
         super().__init__(model, device)
 
-    def forward(self, v: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-        return nerf_apply(self, v, compute_dtype)
+    def forward(self, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None) -> torch.Tensor:
+        return nerf_apply(self, v, compute_dtype, enc_alpha)
 
 
 class NerfPair(nn.Module):
@@ -202,15 +202,18 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def nerf_apply(
-    field: NerfField, v: torch.Tensor, compute_dtype=torch.float32
+    field: NerfField, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None
 ) -> torch.Tensor:
     """Raw (B, 6) ``[xyz | unit dir]`` rows -> (B, 4) f32 ``[rgb | sigma]``,
     layer by layer: the plain (``backend="xla"``) oracle.
 
     ``compute_dtype=torch.bfloat16`` rounds weights and activations to
     bf16 and accumulates in f32, like the JAX path's
-    ``preferred_element_type=f32``."""
-    posx, posd = positional_encoder(v, Lp=field.model.Lp, Ld=field.model.Ld)
+    ``preferred_element_type=f32``. ``enc_alpha``: the BARF anneal
+    progress in [0, 1] (``ops/encoding.py::anneal_weights``), the
+    pose-refinement companion ``pe_anneal_until``; None is the standard
+    encoder."""
+    posx, posd = positional_encoder(v, Lp=field.model.Lp, Ld=field.model.Ld, alpha=enc_alpha)
     return _apply_encoded(field, posx, posd, compute_dtype)
 
 

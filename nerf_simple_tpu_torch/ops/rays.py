@@ -4,6 +4,11 @@ Reference conventions (utils/xyz.py:38-52): pixel (row r, col c) maps to
 the camera-frame direction ``((c - W//2)/f, -(r - H//2)/f, -1)`` on an
 integer-centred grid; rays are row-major over the image; directions are
 not normalised.
+
+``rodrigues_rotate``, ``apply_cam_deltas`` and ``bake_cam_deltas`` are the
+differentiable per-image pose deltas of BARF-style camera refinement
+(``pose_opt``): the train step refines its sampled rays with them, and a
+pose freeze bakes them into the whole ray set.
 """
 
 from __future__ import annotations
@@ -33,6 +38,48 @@ def rays_for_poses(poses: torch.Tensor, H: int, W: int, f: float) -> torch.Tenso
     world_dirs = (poses[:, None, :3, :3] * cam_dirs[None, :, None, :]).sum(-1)
     origins = poses[:, None, :3, 3].expand_as(world_dirs)
     return torch.cat([origins, world_dirs], dim=-1).reshape(-1, 6)
+
+
+# Camera-pose refinement: per-image se(3) deltas, an axis-angle rotation
+# about the camera centre and a world translation (JAX ops/rays.py:181-257).
+
+
+def rodrigues_rotate(rvec: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors ``v`` (..., 3) by the axis-angle ``rvec`` (..., 3).
+
+    Rodrigues' formula with the even coefficients ``sin(t)/t`` and ``(1 -
+    cos t)/t^2 == 2 sin^2(t/2)/t^2``: near zero both take their series, and
+    the exact branches use the half-angle form and a clamp that keeps every
+    intermediate of the gradient in f32's normal range, so the gradient at
+    the zero rotation (the initial delta) is finite. A naive ``(1 - cos
+    t)/max(t^2, 1e-24)`` has a finite value there but a 0/0 gradient."""
+    sq = torch.sum(rvec * rvec, dim=-1, keepdim=True)
+    th = torch.sqrt(torch.clamp(sq, min=1e-24))
+    small = sq < 1e-8
+    sinc = torch.where(small, 1.0 - sq / 6.0, torch.sin(th) / th)
+    half = torch.sin(0.5 * th) / th  # -> 1/2 as th -> 0, no cancellation
+    cosc = torch.where(small, 0.5 - sq / 24.0, 2.0 * half * half)
+    cr = torch.linalg.cross(rvec, v, dim=-1)
+    crr = torch.linalg.cross(rvec, cr, dim=-1)
+    return v + sinc * cr + cosc * crr
+
+
+def apply_cam_deltas(rays: torch.Tensor, dr: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """Refine packed ``[origin | direction | ...]`` rays by per-ray (B, 3)
+    deltas: directions rotate by ``rodrigues_rotate(dr, .)`` (about the
+    camera centre), origins move by ``dt`` (world frame); columns past 6
+    pass through. The identity at the zero delta."""
+    return torch.cat([rays[:, :3] + dt, rodrigues_rotate(dr, rays[:, 3:6]), rays[:, 6:]], dim=-1)
+
+
+def bake_cam_deltas(rays: torch.Tensor, dr_tbl: torch.Tensor, dt_tbl: torch.Tensor,
+                    rays_per_image: int) -> torch.Tensor:
+    """Per-image (n_images, 3) delta tables applied to a whole ray set in
+    one pass: row i belongs to image ``i // rays_per_image`` (the row-major
+    [image, pixel] layout of ``rays_for_poses``). Equal to the per-ray
+    ``apply_cam_deltas`` by construction."""
+    im = torch.arange(rays.shape[0], device=rays.device) // rays_per_image
+    return apply_cam_deltas(rays, dr_tbl[im], dt_tbl[im])
 
 
 # Spherical ("dome orbit") poses, reference utils/xyz.py:55-81: host numpy.

@@ -22,7 +22,11 @@ between them as Gaussians through the integrated encoder (under
 ``"pallas"`` the forward kernel's), interval compositing in torch; with
 ``mip_levels: 2`` the same field renders a coarse level, whose detached
 weights resample the fine level's edges. ``render_rays`` and
-``render_rays_chunked`` take that path under ``mip``.
+``render_rays_chunked`` take that path under ``mip``. Pose refinement:
+``enc_alpha`` (the BARF anneal progress) windows the encoder of the point
+renders (in the forward kernel under ``"pallas"``), and where the rays
+carry a gradient ``fused_mlp`` gives its input rows theirs, which
+autograd carries into the rays (and so into the per-image camera deltas).
 
 Eval on top of it: ``render_image`` (one still of a split),
 ``render_orbit_video`` (frames to ``utils/video.py``) and
@@ -43,6 +47,7 @@ import torch
 from nerf_simple_tpu_torch.kernels.mlp import (
     FusedWeights,
     _cast_weights,
+    anneal_row_weights,
     fused_mlp,
     fused_mlp_forward,
     fused_render,
@@ -159,10 +164,13 @@ def render_rays(
     settings: RenderSettings = RenderSettings(),
     ts: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
+    enc_alpha: float | None = None,
 ) -> CompositeOut:
     """Render (B, 6) ``[origin | direction]`` rays (direction
     unnormalised) at stratified ``ts`` drawn from ``generator``, or at the
-    (B, N) ``ts`` given. ``.rgb`` is raw, like the reference.
+    (B, N) ``ts`` given. ``.rgb`` is raw, like the reference. ``enc_alpha``:
+    the BARF anneal progress in [0, 1] of the encoder, or None (the
+    standard one).
 
     With ``settings.sigma_noise > 0`` the (B, N) standard normal ``noise``
     given, or else one drawn from ``generator`` after the ts, times
@@ -175,6 +183,8 @@ def render_rays(
     if settings.mip:
         if ts is not None or noise is not None:
             raise ValueError("mip rendering draws its own interval edges: pass edges to render_rays_mip")
+        if enc_alpha is not None:
+            raise ValueError("the anneal windows are not plumbed through the integrated encoder (as in JAX)")
         return render_rays_mip(field, rays, generator, settings)
     if ts is None:
         ts = stratified_ts_spaced(
@@ -185,7 +195,7 @@ def render_rays(
         if generator is None:
             raise ValueError("sigma_noise > 0 draws its noise from a generator: pass one, or the noise")
         noise = torch.randn(ts.shape, generator=generator, dtype=ts.dtype, device=ts.device)
-    return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None)
+    return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None, enc_alpha)
 
 
 def render_rays_mip(
@@ -285,6 +295,7 @@ def render_rays_hierarchical(
     det_fine: bool = False,
     ts_coarse: torch.Tensor | None = None,
     return_ts: bool = False,
+    enc_alpha: float | None = None,
 ) -> tuple[CompositeOut, CompositeOut]:
     """Coarse + fine rendering (the NeRF paper, sec. 5.2): ``N_coarse``
     stratified samples (or the (B, N_coarse) ``ts_coarse`` given) through
@@ -293,7 +304,8 @@ def render_rays_hierarchical(
     sorted union of both, N_coarse + N a ray. Returns (coarse, fine), and
     with ``return_ts`` also ``(ts_coarse, ts_union)``, the ts each render
     composited (the distortion loss reads the union). No sigma noise is
-    added, whatever ``settings.sigma_noise`` says, as in JAX."""
+    added, whatever ``settings.sigma_noise`` says, as in JAX. ``enc_alpha``
+    anneals both fields' encoders."""
     if settings.N_coarse <= 0:
         raise ValueError("the hierarchical path needs N_coarse > 0")
     ts_c = ts_coarse
@@ -302,10 +314,10 @@ def render_rays_hierarchical(
             generator, rays.shape[0], settings.N_coarse, settings.tn, settings.tf,
             rays.device, rays.dtype, settings.sampling_space,
         )
-    coarse_out = _render_at_ts(coarse, rays, ts_c, settings)
+    coarse_out = _render_at_ts(coarse, rays, ts_c, settings, enc_alpha=enc_alpha)
     ts_f = importance_ts(generator, ts_c, coarse_out.weights.detach(), settings.N, det=det_fine)
     ts_all = merge_sorted(ts_c, ts_f)
-    fine_out = _render_at_ts(fine, rays, ts_all, settings)
+    fine_out = _render_at_ts(fine, rays, ts_all, settings, enc_alpha=enc_alpha)
     if return_ts:
         return coarse_out, fine_out, (ts_c, ts_all)
     return coarse_out, fine_out
@@ -351,13 +363,14 @@ def render_rays_proposal(
 
 def _render_at_ts(
     field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings,
-    noise: torch.Tensor | None = None,
+    noise: torch.Tensor | None = None, enc_alpha: float | None = None,
 ) -> CompositeOut:
     """Render at the (B, N) ``ts``; with ``noise`` (B, N), raw sigma gains
-    ``settings.sigma_noise * noise`` before compositing, on both backends."""
+    ``settings.sigma_noise * noise`` before compositing, on both backends;
+    ``enc_alpha`` anneals the encoder."""
     B, N = ts.shape
     if settings.backend == "pallas":
-        outT = _fused_mlp_bn(field, rays, ts, settings)
+        outT = _fused_mlp_bn(field, rays, ts, settings, enc_alpha)
         if noise is not None:
             outT = torch.cat([outT[:3], (outT[3] + settings.sigma_noise * noise)[None]])
         dirs = rays[:, 3:6]
@@ -365,7 +378,7 @@ def _render_at_ts(
         return composite_T(outT, ts, unit_dirs)
     locs, unit_dirs = sample_points(rays, ts)
     query = torch.cat([locs, unit_dirs[:, None, :].expand(B, N, 3)], dim=-1)
-    out = apply_model(field, query.reshape(B * N, 6), settings.compute_dtype).reshape(B, N, 4)
+    out = apply_model(field, query.reshape(B * N, 6), settings.compute_dtype, enc_alpha).reshape(B, N, 4)
     if noise is not None:
         out = torch.cat([out[..., :3], (out[..., 3] + settings.sigma_noise * noise)[..., None]], dim=-1)
     return composite(out, ts, unit_dirs)
@@ -385,7 +398,9 @@ def _kernel_input(rays: torch.Tensor, ts: torch.Tensor, n_rows: int) -> torch.Te
     """The kernels' feature-major input for a (B, N) ray/sample grid:
     rows 0..2 the sample xyz along the unnormalised direction (the
     reference quirk at utils/rendering.py:31-36), rows 3..5 the unit view
-    direction; with ``n_rows`` = 16 also row 6 the ts. Other rows zero."""
+    direction; with ``n_rows`` = 16 also row 6 the ts. Other rows zero.
+    Differentiable in ``rays``: the unit direction through its
+    normalisation."""
     B, N = ts.shape
     oT = rays[:, :3].T
     dT = rays[:, 3:6].T
@@ -399,18 +414,23 @@ def _kernel_input(rays: torch.Tensor, ts: torch.Tensor, n_rows: int) -> torch.Te
 
 
 def _fused_mlp_bn(
-    field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings
+    field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings,
+    enc_alpha: float | None = None,
 ) -> torch.Tensor:
-    """Fused MLP over a (B, N) ray/sample grid -> channel-major (4, B, N)."""
+    """Fused MLP over a (B, N) ray/sample grid -> channel-major (4, B, N).
+    ``enc_alpha`` windows the kernel's encoder (``anneal_row_weights``);
+    where the rays carry a gradient (pose refinement), the backward gives
+    the input rows theirs too (B2's ``want_dx``)."""
     _require_kernel_arch(field)
     B, N = ts.shape
     x = _kernel_input(rays, ts, 8)
+    enc_w = None if enc_alpha is None else anneal_row_weights(field.model, enc_alpha, rays.device)
     if torch.is_grad_enabled():
         wts = pack_weights(field, differentiable=True)
-        outT = fused_mlp(wts, x, settings.compute_dtype, field.model)
+        outT = fused_mlp(wts, x, settings.compute_dtype, field.model, enc_w=enc_w)
     else:
         outT = fused_mlp_forward(
-            _packed(field, settings.compute_dtype), x, settings.compute_dtype, field.model
+            _packed(field, settings.compute_dtype), x, settings.compute_dtype, field.model, enc_w=enc_w
         )
     return outT[:4].reshape(4, B, N)
 
@@ -464,10 +484,13 @@ def render_rays_chunked(
     settings: RenderSettings = RenderSettings(),
     chunk: int = 16384,
     occ: torch.Tensor | None = None,
+    enc_alpha: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render R rays in fixed-size chunks -> (rgb clipped to [0, 1] (R, 3),
     disparity (R,)), the remainder included (the reference drops it,
-    utils/rendering.py:100).
+    utils/rendering.py:100). ``enc_alpha``: the BARF anneal progress of a
+    mid-anneal training preview (the encoder the field is being trained
+    with), or None; with it no chunk takes the fused render kernel.
 
     Chunk ``i`` draws its samples from ``chunk_generator(seed, i)``. With
     ``fused_eval`` under ``backend="pallas"`` a chunk is one call of the
@@ -485,6 +508,8 @@ def render_rays_chunked(
             "occupancy-informed sampling is not ported yet: ROADMAP Queue A, occupancy"
         )
     hier, prop = settings.N_coarse > 0, settings.N_prop > 0
+    if enc_alpha is not None and (prop or settings.mip):
+        raise ValueError("the anneal windows are for the point and hierarchical renders (as in JAX)")
     want = NerfPair if hier else ProposalPair if prop else NerfField
     if not isinstance(field, want):
         raise ValueError(f"N_coarse={settings.N_coarse}, N_prop={settings.N_prop} renders a {want.__name__} "
@@ -492,7 +517,8 @@ def render_rays_chunked(
                          f"else one NerfField); got a {type(field).__name__}")
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays, chunk)
-    fused = settings.fused_eval and settings.backend == "pallas" and not (hier or prop or settings.mip)
+    fused = (settings.fused_eval and settings.backend == "pallas" and enc_alpha is None
+             and not (hier or prop or settings.mip))
     rgbs, disps = [], []
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
@@ -503,11 +529,12 @@ def render_rays_chunked(
             rgb, disp = _fused_render_rays(field, rays_c, ts, settings)
         else:
             if hier:
-                out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True)[1]
+                out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True,
+                                               enc_alpha=enc_alpha)[1]
             elif prop:
                 out = render_rays_proposal(field, rays_c, g, settings, det_fine=True)
             else:
-                out = render_rays(field, rays_c, g, settings)
+                out = render_rays(field, rays_c, g, settings, enc_alpha=enc_alpha)
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103
         rgbs.append(rgb)
         disps.append(disp)

@@ -2,9 +2,12 @@
 
 A checkpoint is ``<savepath>/<exp_name>/ckpt_<step>.pth``: the full
 training state (the field's params, ``{"coarse", "fine"}`` for a
-hierarchical run, ``{"prop", "fine"}`` for a proposal run; Adam's state over all of them; the step and the
+hierarchical run, ``{"prop", "fine"}`` for a proposal run, and while pose
+refinement trains the JAX ``{"field", "cams"}`` wrapper with the camera
+delta tables; Adam's state over all of them; the step and the
 generator's state), so a run resumes where it stopped and draws the
-batches it would have drawn. Orbax is absent on the card's machine, so
+batches it would have drawn. After a pose freeze the checkpoint is
+plain-shaped again. Orbax is absent on the card's machine, so
 the JAX package's Orbax directories are not read here.
 
 Params travel as the JAX package's pytree of numpy ``(in, out)`` arrays,
@@ -31,9 +34,12 @@ def save_checkpoint(direc: str, state) -> str:
     the same step."""
     os.makedirs(direc, exist_ok=True)
     path = os.path.abspath(os.path.join(direc, f"ckpt_{state.step}.pth"))
+    params = state.field.to_jax_params()
+    if getattr(state, "cams", None) is not None:
+        params = {"field": params, "cams": state.cams.tables()}
     torch.save({
         "step": state.step,
-        "params": state.field.to_jax_params(),
+        "params": params,
         "optimizer": state.optimizer.state_dict(),
         "generator": state.generator.get_state(),
     }, path)
@@ -47,6 +53,11 @@ def latest_checkpoint(direc: str) -> str | None:
     found = [(int(m.group(1)), name) for name in os.listdir(direc)
              if (m := re.fullmatch(r"ckpt_(\d+)\.pth", name))]
     return os.path.join(direc, max(found)[1]) if found else None
+
+
+def checkpoint_step(path: str) -> int:
+    """The step of a ``ckpt_<step>.pth`` path, from its name."""
+    return int(re.fullmatch(r"ckpt_(\d+)\.pth", os.path.basename(path)).group(1))
 
 
 def checkpoint_params(path: str):
@@ -72,11 +83,19 @@ def restore_checkpoint(path: str, state) -> None:
     scheme: one field, a coarse and fine pair, or a proposal net and a
     main field), in place."""
     ck = torch.load(path, map_location="cpu", weights_only=False)
-    held, trained = _scheme(ck["params"]), _scheme(state.field)
+    params, cams = ck["params"], getattr(state, "cams", None)
+    if ("field" in params) != (cams is not None):
+        raise ValueError(f"{path} {'holds' if 'field' in params else 'has no'} camera deltas; the run trains "
+                         f"{'them' if cams is not None else 'none'} (check `pose_opt`, and a resume past "
+                         "`pose_freeze_at`)")
+    if cams is not None:
+        cams.copy_tables_(params["cams"])
+        params = params["field"]
+    held, trained = _scheme(params), _scheme(state.field)
     if held != trained:
         raise ValueError(f"{path} holds {held}; the run trains {trained} (check `hierarchical` and "
                          "`proposal`)")
-    state.field.copy_jax_params_(ck["params"])
+    state.field.copy_jax_params_(params)
     state.optimizer.load_state_dict(ck["optimizer"])
     state.generator.set_state(ck["generator"])
     state.step = int(ck["step"])

@@ -19,6 +19,17 @@ log, image or checkpoint iteration (``chunk_schedule``), so the host
 queues steps ahead of the card. it/s and rays/s are timed between those
 syncs by CUDA events on the card (by the host clock on a CPU run), from
 the second sync on: the first window holds the kernel builds.
+
+Pose refinement (``pose_opt``): the state holds one camera delta a train
+image; train-split renders use the refined poses (val poses are never
+refined), and before ``pe_anneal_until`` they render with the annealed
+encoder the field is being trained with. ``pose_freeze_at`` is aligned up
+to a ``steps_per_call`` boundary (JAX's rule): there the deltas go to
+``<exp_dir>/cam_deltas.npz`` (``dr``, ``dt``, ``freeze_step``), are baked
+into the training rays, the state drops them (``freeze_pose_state``) and
+the run finishes on the plain config's step (the fused kernel under
+``"pallas"``). A checkpoint at the boundary is pre-freeze; a resume past
+it re-bakes from the sidecar.
 """
 
 from __future__ import annotations
@@ -36,12 +47,14 @@ from nerf_simple_tpu_torch.config import TrainConfig, train_config_from_dict
 from nerf_simple_tpu_torch.data.blender import load_blender
 from nerf_simple_tpu_torch.data.dataset import RayDataset
 from nerf_simple_tpu_torch.models.nerf import NerfMLP
+from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas, bake_cam_deltas
 from nerf_simple_tpu_torch.render.renderer import render_rays_chunked
 from nerf_simple_tpu_torch.train import checkpoint as ckpt
 from nerf_simple_tpu_torch.train.metrics import img_mse, img_psnr, img_ssim
 from nerf_simple_tpu_torch.train.step import (
     TrainState,
     build_train_step,
+    freeze_pose_state,
     lr_schedule,
     make_train_state,
     render_settings,
@@ -130,16 +143,45 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
             )
         pixels = torch.cat([pixels, torch.as_tensor(md.reshape(-1, 1), device=device)], dim=1)
 
-    state = make_train_state(cfg, model, device)
+    n_pix = rd.H * rd.W
+    # two-phase pose refinement: the freeze at the first steps_per_call
+    # boundary >= pose_freeze_at, then the plain config
+    freeze_at, cfg_frozen = 0, cfg
+    if cfg.pose_opt and cfg.pose_freeze_at:
+        freeze_at = min(-(-cfg.pose_freeze_at // cfg.steps_per_call) * cfg.steps_per_call, cfg.num_iters)
+        cfg_frozen = dataclasses.replace(cfg, pose_opt=False, pose_freeze_at=0, pe_anneal_until=0)
+    frozen, cam_tbl = False, None  # after the freeze: the baked deltas, numpy (dr, dt)
+    sidecar = os.path.join(exp_dir, "cam_deltas.npz")
+    state = make_train_state(cfg, model, device, n_images=rd.split_size("train") // n_pix if cfg.pose_opt else None)
     if cfg.resume:
         latest = ckpt.latest_checkpoint(exp_dir)
         if latest is not None:
+            # a checkpoint at the boundary is pre-freeze (the freeze saves none)
+            if freeze_at and ckpt.checkpoint_step(latest) > freeze_at:
+                if not os.path.exists(sidecar):
+                    raise FileNotFoundError(
+                        f"resuming past pose_freeze_at ({ckpt.checkpoint_step(latest)} > {freeze_at}) but {sidecar} "
+                        "is missing: cannot re-apply the baked pose refinement")
+                with np.load(sidecar) as d:
+                    cam_tbl = (d["dr"], d["dt"])
+                rays = bake_cam_deltas(rays, *(torch.as_tensor(t, device=device) for t in cam_tbl), n_pix)
+                state, frozen = make_train_state(cfg_frozen, model, device), True
             ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} at step {state.step}")
     # mip's cone radius: a pixel's world-space half-width at unit distance
     # (2 / sqrt(12) times the direction grid's spacing 1 / f; mip-NeRF sec. 3.1)
     base_radius = 2.0 / math.sqrt(12.0) / rd.f if cfg.mip else 0.0
-    step_fn = build_train_step(cfg, model, base_radius=base_radius)
+    step_fns = {}
+
+    def step_fn_for(pose: bool):
+        """The step of the pose phase, or of the plain config (after a
+        freeze, or without pose refinement), built at first use."""
+        if pose not in step_fns:
+            c = cfg if pose else cfg_frozen
+            step_fns[pose] = build_train_step(c, model, base_radius=base_radius,
+                                              **({"rays_per_image": n_pix} if c.pose_opt else {}))
+        return step_fns[pose]
+
     eval_settings = dataclasses.replace(render_settings(cfg, base_radius), sigma_noise=0.0)  # no training noise
     lr0, decay = lr_schedule(cfg)
 
@@ -148,8 +190,19 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         if ii >= rd.split_size(split) // n:
             print(f"skipping {split} render {ii}: split has {rd.split_size(split) // n} images")
             return
-        rgb, disp = render_rays_chunked(state.field, rd.rays[split][ii * n : (ii + 1) * n],
-                                        cfg.seed + i, eval_settings, chunk=16384)
+        rays_img = rd.rays[split][ii * n : (ii + 1) * n]
+        if cfg.pose_opt and split == "train":  # the refined pose, what the field is fit to
+            if frozen:
+                dr_i, dt_i = (torch.as_tensor(t[ii], device=device) for t in cam_tbl)
+            else:
+                dr_i, dt_i = state.cams.dr.detach()[ii], state.cams.dt.detach()[ii]
+            rays_img = apply_cam_deltas(rays_img, dr_i.expand(n, 3), dt_i.expand(n, 3))
+        # mid-anneal previews render with the encoder the field is being trained with
+        enc_alpha = None
+        if cfg.pe_anneal_until > 0 and not frozen and i + 1 < cfg.pe_anneal_until:
+            enc_alpha = (i + 1) / cfg.pe_anneal_until
+        rgb, disp = render_rays_chunked(state.field, rays_img, cfg.seed + i, eval_settings, chunk=16384,
+                                        enc_alpha=enc_alpha)
         rgb = rgb.reshape(1, rd.H, rd.W, 3).cpu().numpy()
         disp = disp.reshape(1, rd.H, rd.W, 1).cpu().numpy()
         gt = rd.pixels[split][ii * n : (ii + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
@@ -169,33 +222,59 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
 
     meter = SteadyStateMeter(cfg.batch_size, device)
     start = state.step
-    for chunk_start, spc, boundary in chunk_schedule(
-        start, cfg.num_iters, cfg.steps_per_call, (cfg.ckpt_loss, cfg.ckpt_images, cfg.ckpt_model)
-    ):
-        losses = torch.stack([step_fn(state, rays, pixels) for _ in range(spc)])
-        if not boundary:
-            continue
-        losses = losses.cpu().numpy()  # the host waits for the card here
-        meter.sync(chunk_start + spc - start)
-        for j, loss in enumerate(losses):
-            i = chunk_start + j
-            if i % cfg.ckpt_loss == 0:
-                logger.scalar("Loss/train", float(loss), i + 1)
-                logger.scalar("Train/lr", lr0 * decay ** (i + 1), i + 1)
-                rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s"
-                        if meter.iters else "warmup (kernel builds)")
-                print(f"loss: {float(loss):.6f} | iter: {i + 1} | {rate}")
-        i_last = chunk_start + spc - 1
-        if any((chunk_start + j) % cfg.ckpt_images == 0 for j in range(spc)):
-            for ii in cfg.val_idxs:
-                render_and_log("train", ii, i_last)
-                render_and_log("val", ii, i_last)
-        if any((chunk_start + j) % cfg.ckpt_model == 0 for j in range(spc)):
-            print(f"saved checkpoint {ckpt.save_checkpoint(exp_dir, state)}")
+
+    def walk(w_start: int, w_end: int) -> None:
+        step_fn = step_fn_for(cfg.pose_opt and not frozen)
+        for chunk_start, spc, boundary in chunk_schedule(
+            w_start, w_end, cfg.steps_per_call, (cfg.ckpt_loss, cfg.ckpt_images, cfg.ckpt_model)
+        ):
+            losses = torch.stack([step_fn(state, rays, pixels) for _ in range(spc)])
+            if not boundary:
+                continue
+            losses = losses.cpu().numpy()  # the host waits for the card here
+            meter.sync(chunk_start + spc - start)
+            for j, loss in enumerate(losses):
+                i = chunk_start + j
+                if i % cfg.ckpt_loss == 0:
+                    logger.scalar("Loss/train", float(loss), i + 1)
+                    logger.scalar("Train/lr", lr0 * decay ** (i + 1), i + 1)
+                    rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s"
+                            if meter.iters else "warmup (kernel builds)")
+                    print(f"loss: {float(loss):.6f} | iter: {i + 1} | {rate}")
+            i_last = chunk_start + spc - 1
+            if any((chunk_start + j) % cfg.ckpt_images == 0 for j in range(spc)):
+                for ii in cfg.val_idxs:
+                    render_and_log("train", ii, i_last)
+                    render_and_log("val", ii, i_last)
+            if any((chunk_start + j) % cfg.ckpt_model == 0 for j in range(spc)):
+                print(f"saved checkpoint {ckpt.save_checkpoint(exp_dir, state)}")
+
+    def do_freeze() -> None:
+        """Persist and bake the deltas, drop them from the state (Adam's
+        moments carry over), and take the plain step from here on."""
+        nonlocal state, rays, frozen, cam_tbl, meter, start
+        tables = state.cams.tables()
+        np.savez(sidecar, dr=tables["dr"], dt=tables["dt"], freeze_step=state.step)
+        rays = bake_cam_deltas(rays, state.cams.dr.detach(), state.cams.dt.detach(), n_pix)
+        state = freeze_pose_state(state)
+        cam_tbl, frozen = (tables["dr"], tables["dt"]), True
+        meter, start = SteadyStateMeter(cfg.batch_size, device), state.step  # the plain step's rate from here
+        print(f"pose freeze at step {state.step}: deltas baked into the ray set (|dr| max "
+              f"{np.abs(tables['dr']).max():.4f} rad, |dt| max {np.abs(tables['dt']).max():.4f}); continuing on "
+              f"the plain {cfg.backend} step")
+
+    if freeze_at and not frozen:
+        walk(start, freeze_at)
+        do_freeze()
+        walk(state.step, cfg.num_iters)
+    else:
+        walk(start, cfg.num_iters)
 
     path = ckpt.save_checkpoint(exp_dir, state)
     params = state.field.to_jax_params()
-    ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), params)
+    # per-image deltas still training ride beside the field (the JAX {"field", "cams"} params)
+    export = {"field": params, "cams": state.cams.tables()} if state.cams is not None else params
+    ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), export)
     ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params.get("fine", params))
     rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s (steady-state)"
             if meter.iters else "steady-state throughput n/a (one synced chunk)")

@@ -56,6 +56,17 @@ Cores:
   ``fused=True`` with either raises. ``sigma_noise`` noises raw sigma in
   the single-net render; the hierarchical and proposal renders apply
   none, as in JAX (which still leaves its fused kernel for them).
+
+Pose refinement (``pose_opt``, BARF): the state also holds per-image
+camera deltas (``CamDeltas``, the JAX ``params["cams"]``) on a second
+Adam group with its own schedule (lr 0 through ``pose_warmup``). A step
+refines its sampled rays by their images' deltas (``apply_cam_deltas``)
+and takes the autograd path through ``fused_mlp``, whose input rows then
+carry a gradient: B2 also gives the gradient of the kernel's input rows, which autograd
+carries through ray generation into the delta tables; under
+``pe_anneal_until`` the encoder's anneal windows ride the forward and B2.
+The fused train step (B1) does not take it (JAX's rule); it takes over
+after ``freeze_pose_state``, once the deltas are baked into the ray set.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ import math
 import warnings
 
 import torch
+from torch import nn
 
 from nerf_simple_tpu_torch.config import TrainConfig
 from nerf_simple_tpu_torch.kernels.mlp import fused_train_step, pack_weights
@@ -78,6 +90,7 @@ from nerf_simple_tpu_torch.models.proposal import (
     proposal_from_train_config,
     proposal_weights,
 )
+from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
     frustum_gaussians_T,
@@ -109,9 +122,46 @@ def lr_schedule(cfg: TrainConfig):
     return lr0, math.exp(math.log(cfg.lr_final / cfg.lr_init) / cfg.num_iters)
 
 
-def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
+def pose_lr(cfg: TrainConfig, step: int) -> float:
+    """The pose deltas' learning rate at update ``step`` (JAX
+    ``pose_schedule``): 0 through ``pose_warmup``, then ``pose_lr_init *
+    pose_decay**step`` counted from the start, ``pose_decay = exp(ln(
+    pose_lr_final / pose_lr_init) / num_iters)``."""
+    if step < cfg.pose_warmup:
+        return 0.0
+    return cfg.pose_lr_init * math.exp(math.log(cfg.pose_lr_final / cfg.pose_lr_init) / cfg.num_iters) ** step
+
+
+class CamDeltas(nn.Module):
+    """Per-train-image camera deltas (the JAX ``params["cams"]``): ``dr``,
+    axis-angle rotations about the camera centres, and ``dt``, world
+    translations, each (n_images, 3), zero (the identity) at the start."""
+
+    def __init__(self, n_images: int, device=None):
+        super().__init__()
+        self.dr = nn.Parameter(torch.zeros((n_images, 3), dtype=torch.float32, device=device))
+        self.dt = nn.Parameter(torch.zeros((n_images, 3), dtype=torch.float32, device=device))
+
+    def tables(self) -> dict:
+        """The JAX ``{"dr", "dt"}`` pytree, numpy."""
+        return {"dr": self.dr.detach().cpu().numpy().copy(), "dt": self.dt.detach().cpu().numpy().copy()}
+
+    def copy_tables_(self, tables: dict) -> "CamDeltas":
+        with torch.no_grad():
+            for k in ("dr", "dt"):
+                getattr(self, k).copy_(torch.as_tensor(np.asarray(tables[k], np.float32)))
+        return self
+
+
+def make_optimizer(cfg: TrainConfig, params, cams: CamDeltas | None = None) -> torch.optim.Adam:
+    """Adam over ``params``; with ``cams``, the deltas in a second param
+    group ("cams") on the pose schedule (the JAX ``multi_transform``: its
+    moments and step count update through the warmup, at lr 0)."""
     lr0, _ = lr_schedule(cfg)
-    return torch.optim.Adam(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+    groups = [{"params": list(params), "name": "field"}]
+    if cams is not None:
+        groups.append({"params": list(cams.parameters()), "name": "cams", "lr": pose_lr(cfg, 0)})
+    return torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
 
 
 @dataclasses.dataclass
@@ -119,20 +169,23 @@ class TrainState:
     """The field (a ``NerfPair`` when hierarchical, a ``ProposalPair`` with
     proposal sampling), its optimizer, the
     step count and the generator that draws batches and samples, on the
-    training device."""
+    training device; with ``pose_opt`` (until a freeze) the camera deltas
+    ``cams``."""
 
     field: NerfField | NerfPair | ProposalPair
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
+    cams: CamDeltas | None = None
 
 
-def make_train_state(cfg: TrainConfig, model: NerfMLP, device) -> TrainState:
+def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | None = None) -> TrainState:
     """Weights from the numpy seed ``cfg.seed`` (the JAX package draws
     them from a JAX key: the two inits differ), generator seeded alike.
     Hierarchical: the coarse and fine nets from ``derive_seed(cfg.seed,
     0)`` and ``derive_seed(cfg.seed, 1)``; proposal: the proposal net and
-    the main field alike; one Adam over both."""
+    the main field alike; one Adam over both. ``pose_opt`` needs
+    ``n_images`` (train images: the delta tables' rows)."""
     if cfg.hierarchical:
         field = NerfPair(*(NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, k), model),
                                                      device, model) for k in (0, 1)))
@@ -144,9 +197,31 @@ def make_train_state(cfg: TrainConfig, model: NerfMLP, device) -> TrainState:
             NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, 1), model), device, model))
     else:
         field = NerfField.from_jax_params(init_nerf_params(cfg.seed, model), device, model)
+    cams = None
+    if cfg.pose_opt:
+        if n_images is None:
+            raise ValueError("pose_opt needs n_images (rows of the per-image delta tables); train() passes "
+                             "the train-split image count")
+        cams = CamDeltas(n_images, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
-    return TrainState(field, make_optimizer(cfg, field.parameters()), gen)
+    return TrainState(field, make_optimizer(cfg, field.parameters(), cams), gen, cams=cams)
+
+
+def freeze_pose_state(state: TrainState) -> TrainState:
+    """Drop the camera deltas (JAX ``freeze_pose_state``, at
+    ``pose_freeze_at``): a state of the bare field whose Adam is the plain
+    field optimizer, with the field's moments and step counts carried
+    over, so its trajectory runs on across the freeze. Bake the deltas
+    into the ray set first (``bake_cam_deltas``): dropping them unbaked
+    un-refines the rig."""
+    old = state.optimizer
+    params = list(state.field.parameters())
+    opt = torch.optim.Adam(params, lr=old.param_groups[0]["lr"], betas=(0.9, 0.999), eps=1e-8)
+    for p in params:
+        if p in old.state:
+            opt.state[p] = old.state[p]
+    return TrainState(state.field, opt, state.generator, state.step)
 
 
 def build_x16(rays_b: torch.Tensor, ts: torch.Tensor, pix_b: torch.Tensor) -> torch.Tensor:
@@ -293,7 +368,11 @@ def _depth_term(out: CompositeOut, gt_d: torch.Tensor) -> torch.Tensor:
 
 def kernel_refusal(cfg: TrainConfig) -> str | None:
     """Why the fused train kernel does not take ``cfg`` (JAX's reasons), or
-    None: its backward is the MSE's (and the distortion rail's) alone."""
+    None: its backward is the MSE's (and the distortion rail's) alone, and
+    it gives no gradient to the rays (pose refinement's path is autograd
+    through ``fused_mlp`` with the input gradient)."""
+    if cfg.pose_opt:
+        return "pose_opt (the camera deltas train through B2's input gradient)"
     if cfg.sigma_noise != 0.0:
         return "sigma_noise > 0"
     if cfg.depth_loss_weight > 0:
@@ -301,9 +380,22 @@ def kernel_refusal(cfg: TrainConfig) -> str | None:
     return None
 
 
+def anneal_alpha(cfg: TrainConfig, step: int) -> float | None:
+    """BARF's anneal progress at ``step`` (JAX ``loss_fn``: clip(step /
+    pe_anneal_until, 0, 1) in f32), or None when the anneal is off or done
+    (at 1 every window is exactly 1: the standard encoder, which the
+    kernels then run without windows)."""
+    if cfg.pe_anneal_until <= 0:
+        return None
+    alpha = float(np.clip(np.float32(step) / np.float32(cfg.pe_anneal_until), 0.0, 1.0))
+    return alpha if alpha < 1.0 else None
+
+
 def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, rays_b, pix_b, ts, generator,
                   settings: RenderSettings, det_fine: bool = False, noise=None,
-                  prop_anneal: float | None = None, edges_fine: torch.Tensor | None = None) -> torch.Tensor:
+                  prop_anneal: float | None = None, edges_fine: torch.Tensor | None = None,
+                  cams: CamDeltas | None = None, im_b: torch.Tensor | None = None,
+                  enc_alpha: float | None = None) -> torch.Tensor:
     """The differentiable loss of one batch at the stratified ``ts``, as
     JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
     ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
@@ -322,7 +414,12 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     last level, the interval distortion at ``mip_levels: 1``.
     ``generator`` draws the importance samples (the quantiles with
     ``det_fine``) and the sigma noise (or ``noise``, a (B, N) standard
-    normal, is taken; under mip it is always drawn)."""
+    normal, is taken; under mip it is always drawn). Pose refinement: the
+    rays refined by the deltas ``cams`` of their images ``im_b`` first (the
+    loss then reaches the tables through ray generation), and the point
+    renders annealed by ``enc_alpha``."""
+    if cams is not None:
+        rays_b = apply_cam_deltas(rays_b, cams.dr[im_b], cams.dt[im_b])
     gt_d = None
     if cfg.depth_loss_weight > 0:
         pix_b, gt_d = pix_b[:, :3], pix_b[:, 3]
@@ -348,7 +445,8 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
 
     if cfg.hierarchical:
         coarse, fine, (_, ts_all) = render_rays_hierarchical(field.coarse, field.fine, rays_b, generator, settings,
-                                                             det_fine=det_fine, ts_coarse=ts, return_ts=True)
+                                                             det_fine=det_fine, ts_coarse=ts, return_ts=True,
+                                                             enc_alpha=enc_alpha)
         loss = mse(coarse.rgb) + mse(fine.rgb)
         if gt_d is not None:
             loss = loss + cfg.depth_loss_weight * (_depth_term(coarse, gt_d) + _depth_term(fine, gt_d))
@@ -364,7 +462,7 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
         if cfg.distortion_loss_weight > 0:
             loss = loss + cfg.distortion_loss_weight * distortion_loss(out.weights, _s_norm(cfg, ts_f))
         return loss
-    out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise)
+    out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise, enc_alpha=enc_alpha)
     loss = mse(out.rgb)
     if gt_d is not None:
         loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
@@ -385,17 +483,22 @@ def render_settings(cfg: TrainConfig, base_radius: float = 0.0) -> RenderSetting
     )
 
 
-def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None, base_radius: float = 0.0):
+def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None, base_radius: float = 0.0,
+                     rays_per_image: int | None = None):
     """``step_fn(state, rays, pixels) -> loss``: one iteration on the
     resident ray set, the loss left on the device (no sync). With
     ``depth_loss_weight > 0``, ``pixels`` carries the metric depth as a
     4th channel (train/loop.py packs it). Under mip, ``base_radius`` is
     the frame's cone radius a unit of t, ``2 / sqrt(12) / focal`` (the
-    loop passes it)."""
+    loop passes it). ``pose_opt`` needs ``rays_per_image`` (H * W: ray i
+    belongs to image i // rays_per_image) and a state with ``cams``."""
     if cfg.mip and base_radius <= 0:
         raise ValueError(
             "cfg.mip=True needs base_radius > 0 (2/sqrt(12)/focal; the train driver passes it automatically)"
         )
+    if cfg.pose_opt and rays_per_image is None:
+        raise ValueError("pose_opt needs rays_per_image (= H*W) to map sampled rays to their images; train() "
+                         "passes it")
     refusal = kernel_refusal(cfg)
     if fused is None:
         fused = cfg.backend == "pallas" and refusal is None
@@ -404,7 +507,7 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     if fused and refusal:
         raise ValueError(f"the fused train kernel does not take {refusal}; build the step with "
                          "fused=None or fused=False (autograd through fused_mlp)")
-    if cfg.backend == "pallas" and not fused:
+    if cfg.backend == "pallas" and not fused and not cfg.pose_opt:  # pose's path is this one: no warning
         warnings.warn(
             f"backend='pallas' requested but the fused train kernel is ineligible ({refusal}); "
             "falling back to the autodiff path (through fused_mlp) for this step" if refusal else
@@ -419,10 +522,11 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
 
-    def core(field, rays_b, pix_b, ts, g, anneal):
+    def core(field, rays_b, pix_b, ts, g, anneal, cams=None, im_b=None, enc_alpha=None):
         """The loss of one batch at the stratified ``ts``, gradients left
-        in the fields; ``g`` draws the importance samples (and the sigma
-        noise); ``anneal`` is the proposal's placement anneal."""
+        in the fields (and in the camera deltas ``cams``); ``g`` draws the
+        importance samples (and the sigma noise); ``anneal`` is the
+        proposal's placement anneal, ``enc_alpha`` BARF's."""
         if fused and cfg.mip:
             return mip_fused_loss(field, rays_b, pix_b, ts, g, cfg.render_dtype, model, base_radius,
                                   cfg.mip_levels, cfg.mip_coarse_weight, cfg.resample_blur,
@@ -436,7 +540,8 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         if fused:
             return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model, dist=dist)[0]
 
-        loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings, prop_anneal=anneal)
+        loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings, prop_anneal=anneal, cams=cams, im_b=im_b,
+                             enc_alpha=enc_alpha)
         loss.backward()
         return loss.detach()
 
@@ -446,9 +551,15 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
                                   space=cfg.sampling_space)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step))
+        pose = {}
+        if cfg.pose_opt:
+            if state.cams is None:
+                raise ValueError("pose_opt trains the camera deltas: the state has none (make_train_state with "
+                                 "n_images; a frozen state takes the plain config's step)")
+            pose = dict(cams=state.cams, im_b=idx // rays_per_image, enc_alpha=anneal_alpha(cfg, state.step))
+        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step), **pose)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr0 * decay**state.step
+            group["lr"] = pose_lr(cfg, state.step) if group.get("name") == "cams" else lr0 * decay**state.step
         state.optimizer.step()
         state.step += 1
         return loss

@@ -2,7 +2,9 @@
 without its weights output and its distortion rail, both at once, and
 the fused proposal core that launches it so; the cone-cast (mip)
 variants of the forward, the backward and the train step, and the
-two-level mip core; render;
+two-level mip core; the pose variants: the forward with the anneal
+windows, the backward with the input gradient (``want_dx``), the
+input-gradient kernel alone, a pose loss against the xla one; render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -875,3 +877,196 @@ def test_two_level_mip_core_on_the_card(dev, monkeypatch, dtype):
     out = step_mod.build_train_step(cfg, model, base_radius=MIP_RADIUS)(state, all_rays, torch.rand(1000, 3, device=dev))
     assert mlp.fused_train_step.mip_launches == before + 2
     assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.trunk1.weight)
+
+
+# --- pose refinement: the anneal windows and the input gradient (B2's want_dx) ---------------
+
+# dx against plain, over max |dx|: both sum the same operands (bf16 values
+# are exact in f32) in f32 in another order; the transpose scales octave i
+# by 2^i, so those ulps reach dx unevenly (probes/input_grad.py's bounds).
+DX_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+# B2's dx against plain also carries B2's own forward, whose relu masks
+# can differ from the plain chain's where a pre-activation lies within the
+# forward's rounding of 0; that row's dx then moves by a whole term (bf16
+# at the flagship: 0.032 of max |dx| at a row). So B2's dx must equal the
+# input-gradient kernel on the kernels' own planes bit for bit, every row
+# past DX_TOL from plain (the position and direction rows each against
+# their own largest entry) must have a flipped mask, the plain chain on the
+# kernel's own masks must give B2's dx within DX_TOL at every row
+# (probes/input_grad.py::explain_dx), and under DX_ROW_SHARE of the rows
+# may lie past DX_TOL.
+# DX_ROW_SHARE: the most rows past DX_TOL measured in a sound run, with
+# room (f32 3.05e-5 at 524,288 rows, none in the card tests; bf16 1.46e-3
+# at 4,113 rows, 5.7e-4 at 524,288), far below the least share a planted
+# fault puts past it (0.66, bf16 at 524,288 rows).
+DX_ROW_SHARE = {torch.float32: 1e-4, torch.bfloat16: 3e-3}
+POSE_CASES = [(NerfMLP(Lp=4, Ld=2, H=32), 1000), (NerfMLP(Lp=3, Ld=1, H=48), 65), (NerfMLP(), 4096 + 17),
+              (NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)]
+POSE_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged", "flagship-63", "H64-1"]
+
+
+def _dx_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("alpha", [0.3, 1.0], ids=["a0.3", "a1"])
+@pytest.mark.parametrize("model, rows", CASES, ids=CASE_IDS)
+def test_forward_anneal_matches_plain(dev, model, rows, alpha, dtype):
+    """The forward with BARF's anneal windows (``enc_w``) against its plain
+    version at ragged rows; it counts in ``anneal_launches``; at alpha 1
+    (every window exactly 1) it is the forward without windows bit for
+    bit, as is the f32 one's residual posx plane."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x = _xT(rows, dev, seed=5)
+    enc_w = mlp.anneal_row_weights(model, alpha, dev)
+    before = (mlp.fused_mlp_forward.launches, mlp.fused_mlp_forward.anneal_launches)
+    got = mlp.fused_mlp_forward(wts, x, dtype, model, enc_w=enc_w)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_forward.launches, mlp.fused_mlp_forward.anneal_launches) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, model, enc_w=enc_w)
+    assert bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
+    plain = mlp.fused_mlp_forward(wts, x, dtype, model)
+    assert torch.equal(got, plain) == (alpha == 1.0)
+    if alpha == 1.0:
+        _, res_w = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
+        _, res = mlp.forward_residuals(wts, x, dtype, model)
+        assert torch.equal(res_w, res)
+    with pytest.raises(ValueError, match="enc_w"):
+        mlp.fused_mlp_forward(wts, x, dtype, model, enc_w=(enc_w[0][:-1].contiguous(), enc_w[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("windows", [False, True], ids=["no-windows", "a0.3"])
+@pytest.mark.parametrize("model, rows", POSE_CASES, ids=POSE_IDS)
+def test_input_grad_kernel_matches_plain(dev, model, rows, windows, dtype):
+    """The input-gradient kernel alone (``input_grad``) against
+    ``input_grad_plain`` on the backward tile kernel's cotangent planes of
+    random output cotangents, at ragged row counts (rows not a multiple of
+    64, one row): ``dx`` within DX_TOL of max |dx|, rows 6..7 zero, the
+    launch counted by the wrapper and in C."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
+    x = _xT(rows, dev, seed=6)
+    enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    _, res = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
+    gws = mlp.backward_tile(wts, res, g, dtype, model)
+    before = (mlp.input_grad.launches, mlp.input_grad_launches())
+    got = mlp.input_grad(wts, x, gws, dtype, model, enc_w)
+    torch.cuda.synchronize()
+    assert (mlp.input_grad.launches, mlp.input_grad_launches()) == (before[0] + 1, before[1] + 1)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, model, enc_w)
+    assert got.shape == (8, rows) and bool(torch.isfinite(got).all()) and bool((got[6:] == 0).all())
+    assert _dx_err(got, want) <= DX_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("windows", [False, True], ids=["no-windows", "a0.3"])
+@pytest.mark.parametrize("model, rows", CASES, ids=CASE_IDS)
+def test_backward_want_dx_matches_plain(dev, model, rows, windows, dtype):
+    """B2 with ``want_dx`` (and the anneal windows in its recompute)
+    against its plain version: the weight gradients within B2's bounds,
+    ``dx`` bit-equal to the input-gradient kernel on the planes of the
+    forward and backward tile kernels, every row past DX_TOL from plain
+    explained by a flipped relu mask, within DX_TOL of the plain chain on
+    the kernel's own masks, and under DX_ROW_SHARE of its rows past
+    DX_TOL; two planted faults (an octave window halved) caught by the
+    same rule; the weight gradients bit-equal to the same launch without
+    ``want_dx`` (the input gradient runs after them); the counters
+    ``dx_launches``, ``anneal_launches`` and the C count."""
+    from nerf_simple_tpu_torch.probes.input_grad import explain_dx
+
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x = _xT(rows, dev, seed=8)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
+    b = mlp.fused_mlp_backward
+    before = (b.launches, b.dx_launches, b.anneal_launches, mlp.input_grad_launches())
+    got, dx = b(wts, x, g, dtype, model, want_dx=True, enc_w=enc_w)
+    torch.cuda.synchronize()
+    assert (b.launches, b.dx_launches, b.anneal_launches, mlp.input_grad_launches()) == (
+        before[0] + 1, before[1] + 1, before[2] + windows, before[3] + 1)
+    want, dx_p = mlp.fused_mlp_backward_plain(wts, x, g, dtype, model, want_dx=True, enc_w=enc_w)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    _, res = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
+    assert torch.equal(dx, mlp.input_grad(wts, x, mlp.backward_tile(wts, res, g, dtype, model), dtype, model, enc_w))
+    ex = explain_dx(wts, x, g, dx, dx_p, dtype, model, enc_w, DX_TOL[dtype])
+    print(f"dx rows: {ex}")
+    assert ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dtype], ex
+    assert ex["share"] <= DX_ROW_SHARE[dtype], ex
+    assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()), ex
+    alone = b(wts, x, g, dtype, model, enc_w=enc_w)
+    assert all(torch.equal(a, c) for a, c in zip(got, alone))
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        b(wts, _x16_mip(-(-rows // 8), 8, dev)[:, :rows].contiguous(), g, dtype, model, mip=True, want_dx=True)
+
+
+def test_fused_mlp_gives_xT_its_gradient(dev):
+    """The differentiable ``fused_mlp`` on an xT that needs a gradient:
+    autograd gets ``dx`` from B2 (one launch with the input gradient) and
+    carries it through the unit-direction normalisation to the rays; an
+    xT that needs none gets none, and B2 runs without ``want_dx``."""
+    model, rows = NerfMLP(Lp=4, Ld=2, H=32), 512
+    field = NerfField.from_jax_params(init_nerf_params(3, model), dev)
+    base = _xT(rows, dev, seed=10)
+    g = torch.from_numpy(np.random.default_rng(11).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    for needs in (True, False):
+        xT = base.clone().requires_grad_(needs)
+        before = mlp.fused_mlp_backward.dx_launches
+        out = mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), xT, torch.float32, model)
+        (out * g).sum().backward()
+        assert mlp.fused_mlp_backward.dx_launches == before + needs
+        if needs:
+            want = mlp.fused_mlp_backward_plain(mlp.pack_weights(field), base, g, torch.float32, model,
+                                                want_dx=True)[1]
+            assert _dx_err(xT.grad, want) <= DX_TOL[torch.float32]
+        else:
+            assert xT.grad is None
+
+
+def test_pose_step_on_the_card_matches_xla(dev):
+    """One f32 pose loss from one state (``autograd_loss`` with the camera
+    deltas of each ray's image, the anneal at alpha 0.4) through the
+    forward kernel and B2 with the input gradient and the windows, against
+    the same loss on the xla backend: the loss to LOSS_TOL, the gradients
+    of the field and of the dr/dt tables within 1e-3 of each one's largest
+    entry (f32 sums in other orders over the batch); then one pallas pose
+    step through ``build_train_step`` moves the deltas past the warmup."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train.step import (CamDeltas, autograd_loss, build_train_step, make_train_state,
+                                                  render_settings)
+
+    model, n_img, hw, B, N = NerfMLP(Lp=6, Ld=3, H=64), 4, 256, 512, 32
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=6,
+                      net_Ld=3, pose_opt=True, pose_warmup=0, pe_anneal_until=10)
+    rng = np.random.default_rng(12)
+    d = rng.normal(size=(n_img * hw, 3))
+    rays = torch.from_numpy(np.concatenate([-4.0 * d / np.linalg.norm(d, axis=1, keepdims=True), d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (n_img * hw, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n_img * hw, B)).to(dev)
+    ts = torch.from_numpy(np.sort(rng.uniform(2, 6, (B, N)), -1).astype(np.float32)).to(dev)
+    tables = {k: rng.normal(0, 0.02, (n_img, 3)).astype(np.float32) for k in ("dr", "dt")}
+    got = {}
+    for backend in ("pallas", "xla"):
+        field = NerfField.from_jax_params(init_nerf_params(4, model), dev)
+        cams = CamDeltas(n_img, dev).copy_tables_(tables)
+        c = dataclasses.replace(cfg, backend=backend)
+        before = mlp.fused_mlp_backward.dx_launches
+        loss = autograd_loss(c, field, rays[idx], pix[idx], ts, None, render_settings(c), cams=cams,
+                             im_b=idx // hw, enc_alpha=0.4)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert mlp.fused_mlp_backward.dx_launches == before + (backend == "pallas")
+        got[backend] = (loss.item(), [p.grad for p in field.parameters()], [cams.dr.grad, cams.dt.grad])
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    assert abs(lp / lx - 1) <= LOSS_TOL[torch.float32]
+    for a, b in zip(fp + cp, fx + cx):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
+    state = make_train_state(cfg, model, dev, n_images=n_img)
+    out = build_train_step(cfg, model, rays_per_image=hw)(state, rays, pix)
+    assert bool(torch.isfinite(out)) and float(state.cams.dr.detach().abs().max()) > 0

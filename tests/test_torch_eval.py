@@ -348,19 +348,57 @@ def test_load_params_resolves_experiment_dirs(tmp_path):
     assert "trunk0" in params and set(aux) == {"cams"}
 
 
-def test_evaluate_rejects_pose_refined_checkpoints(exp, tmp_path):
-    from nerf_simple_tpu.train.checkpoint import export_params_npz
+def test_evaluate_rejects_pose_refined_checkpoints(exp, midpoints, tmp_path, capsys):
+    """A pose-refined npz (the JAX ``{"field", "cams"}`` params): its train
+    stills render from the refined poses, as the JAX ``evaluate.test``
+    renders them (the PNGs to 1 level, the metrics); a delta table that
+    does not cover the train split is rejected with JAX's message and the
+    stills render unrefined, as with the field alone; test stills are
+    never refined."""
+    import cv2
 
-    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu.evaluate import test as jtest
+    from nerf_simple_tpu.train.checkpoint import export_params_npz, save_model_meta
 
-    _, scene, params = exp
-    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.evaluate import load_params, test
 
-    path = str(tmp_path / "params_1.npz")
-    export_params_npz(path, {"field": load_params(params), "cams": {"dr": np.zeros((2, 3)),
-                                                                    "dt": np.zeros((2, 3))}})
-    with pytest.raises(NotImplementedError, match="pose"):
-        test(dict(loadpath=path, datapath=scene, savepath=str(tmp_path), half_res=False), device="cpu")
+    root, scene, params = exp
+    field = load_params(params)
+    rng = np.random.default_rng(3)
+    paths = {}
+    for name, n_img in (("fit", 2), ("short", 1)):
+        d = tmp_path / name
+        os.makedirs(d)
+        export_params_npz(str(d / "params_1.npz"), {"field": field, "cams": {
+            "dr": rng.normal(0, 0.05, (n_img, 3)).astype(np.float32),
+            "dt": rng.normal(0, 0.1, (n_img, 3)).astype(np.float32)}})
+        save_model_meta(str(d), _jm(SMALL))
+        paths[name] = str(d / "params_1.npz")
+    cfg = dict(datapath=scene, batch_size=256, half_res=False, im_set="train", im_idxs=[0, 1], N_samples=8,
+               exp_name="e")
+
+    def stills(where):
+        return [cv2.imread(str(tmp_path / where / "e" / f"rgb_{i}.png"), cv2.IMREAD_UNCHANGED) for i in (0, 1)]
+
+    jtest({**cfg, "loadpath": paths["fit"], "savepath": str(tmp_path / "jfit")})
+    jout = capsys.readouterr().out
+    test({**cfg, "loadpath": paths["fit"], "savepath": str(tmp_path / "fit_out")}, device="cpu")
+    out = capsys.readouterr().out
+    got, want = _metrics(out), _metrics(jout)
+    for i in (0, 1):
+        assert abs(got[i][0] - want[i][0]) <= 0.01 and abs(got[i][1] - want[i][1]) <= 1e-3
+    for a, b in zip(stills("fit_out"), stills("jfit")):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    test({**cfg, "loadpath": params, "savepath": str(tmp_path / "plain")}, device="cpu")
+    test({**cfg, "loadpath": paths["short"], "savepath": str(tmp_path / "short_out")}, device="cpu")
+    out = capsys.readouterr().out
+    assert "pose deltas cover 1 train images but the split has 2; skipping eval-time refinement" in out
+    for a, b, c in zip(stills("short_out"), stills("plain"), stills("fit_out")):
+        assert (a == b).all() and (a != c).any()
+    test({**cfg, "im_set": "test", "loadpath": paths["fit"], "savepath": str(tmp_path / "test_fit")}, device="cpu")
+    test({**cfg, "im_set": "test", "loadpath": params, "savepath": str(tmp_path / "test_plain")}, device="cpu")
+    for a, b in zip(stills("test_fit"), stills("test_plain")):
+        assert (a == b).all()
 
 
 # --- the device default ------------------------------------------------------------------

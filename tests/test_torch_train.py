@@ -181,10 +181,10 @@ def test_fused_mlp_backward_matches_jax(model, dt, jdt):
         wts, vjp = jax.vjp(lambda p: jmlp.pack_weights(p, model=_jm(model)), _jax(params))
         want = vjp(jmlp._fused_mlp_bwd(wts, jnp.asarray(x), jnp.asarray(g), 128, jdt, _jm(model)))[0]
     field = NerfField.from_jax_params(params, "cpu")
-    xt = torch.from_numpy(x).requires_grad_()
+    xt = torch.from_numpy(x)  # needs no gradient: weights only, like want_dx=False
     out = mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), xt, dt, model)
     out.backward(torch.from_numpy(g))
-    assert xt.grad is None  # weights only, like want_dx=False
+    assert xt.grad is None
     _assert_grads(_field_grads(field), want, dt)
 
 
