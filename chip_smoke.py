@@ -19,8 +19,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
    frame x 128 stratified samples = 2,097,152 rows), f32 and bf16, with
    random weights from a numpy seed; the f32 forward's TFLOP/s and share
    of its bound beside one f32 torch.mm of the chunk's rows (TF32 off);
-   with ``--before CSRC``, the earlier f32 forward beside the current one
-   in turns;
+   with ``--before CSRC``, the earlier forward beside the current one in
+   turns, f32 and bf16, bit-equal;
 4. serve: the novel-view server over HTTP on localhost, three 400x400
    frames through the forward kernel, then the frame against the plain
    backend; then one frame through ``render_rays_chunked`` with
@@ -161,7 +161,24 @@ NerfMLP(Lp=10, Ld=4, H=256):
    state; (d) ``evaluate.test`` of the refined run's train stills from the
    checkpoint's live deltas and from the freeze's sidecar, beside the
    unrefined render;
-14. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+14. appearance codes (``appearance_dim: 8`` with lego.yaml's keys): (a) the
+   appearance variants against their plain versions at the training batch
+   (524,288 rows, each ray's code in input rows 8..15), f32 and bf16: the
+   forward with the code rows beside the forward through the model without
+   codes (zero codes bit-equal to it), B2 with ``want_dx`` (dWca, the codes'
+   rows of dx, held row by row as 13a holds the pose dx) beside B2 without
+   codes, the input-gradient kernel alone with the code rows; with
+   ``--before``, B2 with ``want_dx`` and no codes bit-equal to the earlier
+   library's; (b) 100 steps through ``train()``: one forward and one B2
+   launch with the code rows and the input gradient a step, no B1, the
+   checkpoint and npz with the code table; ``evaluate.test`` under the mean
+   code (with normals), under image 0's, and an orbit; the appearance step's
+   wall, kernel ms by pass and idle share, a pose + appearance step's wall;
+   60 steps each with ``pose_opt``, with lego_hierarchical.yaml's keys and
+   with lego_proposal.yaml's, each evaluated under a code; (c) the JAX
+   package's exposure-twin recipe at the flagship width: the loss with codes
+   below 0.35 of the loss without, the twins' brightness ratio in (1.4, 2.3);
+15. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -330,19 +347,30 @@ class EarlierEntries:
     (just before the stream) that the current ones have: ``cuts`` maps an
     entry to their count (the train step's ``mip`` and ``opaque_tail``,
     before them the rail's five, ``dist_on`` .. ``disparity``, and before
-    those ``w_out``; the forward's anneal windows ``wx``, ``wd`` and before
-    them ``mip``; B2's ``wx``, ``wd``, ``dx`` and before them ``mip``).
-    Called with the current entry's arguments, an entry drops those, which
-    must be off (0, null)."""
+    those ``w_out``; the forward's ``app``, before it the anneal windows
+    ``wx``, ``wd`` and before them ``mip``; B2's ``app``, before it ``wx``,
+    ``wd``, ``dx`` and before them ``mip``; the backward tile kernel's
+    ``app``); ``tails`` maps a sizing entry (no stream) to the count of its
+    last arguments that the earlier one lacks (the sizes' ``app``). Called
+    with the current entry's arguments, an entry drops those, which must be
+    off (0, null)."""
 
-    def __init__(self, lib, cuts: dict):
-        self.lib, self.cuts = lib, cuts
-        for name, cut in cuts.items():
+    def __init__(self, lib, cuts: dict, tails: dict | None = None):
+        self.lib, self.cuts, self.tails = lib, {k: v for k, v in cuts.items() if v}, tails or {}
+        for name, cut in self.cuts.items():
             entry = getattr(lib, name)
             entry.argtypes = entry.argtypes[: -1 - cut] + entry.argtypes[-1:]
+        for name, n in self.tails.items():
+            entry = getattr(lib, name)
+            entry.argtypes = entry.argtypes[:-n]
 
     def __getattr__(self, name):
-        fn, cut = getattr(self.lib, name), self.cuts.get(name, 0)
+        fn, cut, tail = getattr(self.lib, name), self.cuts.get(name, 0), self.tails.get(name, 0)
+        if tail:
+            def sized(*args):
+                check(not any(args[-tail:]), f"an earlier {name} is asked for nothing it lacks")
+                return fn(*args[:-tail])
+            return sized
         if not cut:
             return fn
 
@@ -358,9 +386,9 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     flags into <csrc>/../build/, one nvcc each, all at once; returns, copy
     by copy, their ctypes libraries by source, those entries bound as the
     current library's (a train step without the distortion rail or the
-    weights output, or a train step, forward or B2 without mip or the pose
-    arguments, through ``EarlierEntries``). Prints ptxas's lines of each copy's backward tile
-    kernels."""
+    weights output, or a train step, forward or B2 without mip, the pose
+    arguments or the appearance flag, through ``EarlierEntries``). Prints
+    ptxas's lines of each copy's backward tile kernels."""
     libs = _build.build_copies(dirs, BEFORE_ENTRIES)
     for d in dirs:
         for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
@@ -375,14 +403,18 @@ def build_before(dirs, _build, mlp) -> list[dict]:
             c["fused_train_step"] = EarlierEntries(c["fused_train_step"], {"fused_train_step": cut})
         with open(os.path.join(d, "fused_mlp_fwd.cu")) as fh:
             src = fh.read()
-        cut = ("int mip" not in src) + 2 * ("const float *wx" not in src)
+        no_app = int("int app" not in src)
+        cut = ("int mip" not in src) + 2 * ("const float *wx" not in src) + no_app
         if cut:
-            c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": cut})
+            c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": cut},
+                                                {"fused_mlp_fwd_image_bytes": no_app})
         with open(os.path.join(d, "fused_mlp_bwd.cu")) as fh:
             src = fh.read()
-        cut = ("int mip" not in src) + 3 * ("float *dx" not in src)
+        no_app = int("int app" not in src)
+        cut = ("int mip" not in src) + 3 * ("float *dx" not in src) + no_app
         if cut:
-            c["fused_mlp_bwd"] = EarlierEntries(c["fused_mlp_bwd"], {"fused_mlp_bwd": cut})
+            c["fused_mlp_bwd"] = EarlierEntries(c["fused_mlp_bwd"], {"fused_mlp_bwd": cut, "backward_tile": no_app},
+                                                {"fused_mlp_bwd_workspace_bytes": no_app})
     return copies
 
 
@@ -395,24 +427,25 @@ def in_turns(old, new) -> dict:
     return {k: float(np.median(v)) for k, v in t.items()}
 
 
-def phase_forward_before_after(dev, params, model, mlp, x16, earlier) -> dict:
-    """The f32 forward of an earlier forward library beside the current one
-    on the render chunk, in turns, both called straight through ctypes with
-    their outputs and weight images made once. The two must agree."""
+def phase_forward_before_after(dev, params, model, mlp, x16, earlier, dt=torch.float32) -> dict:
+    """The forward (compute type ``dt``) of an earlier forward library
+    beside the current one on the render chunk, in turns, both called
+    straight through ctypes with their outputs and weight images made once.
+    The two must agree (``bit_equal``: to the bit)."""
     from nerf_simple_tpu_torch.models.nerf import NerfField
 
-    w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), torch.float32)
+    w = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(params, dev)), dt)
     cw, xT = mlp._CPtrs(*mlp._ptrs(w)), x16[:8].contiguous()
-    R = xT.shape[1]
+    R, bf16 = xT.shape[1], int(dt == torch.bfloat16)
 
     def bind(lib, what):
         out = torch.empty((8, R), dtype=torch.float32, device=dev)
-        image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, 0), dtype=torch.uint8,
+        image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, 0), dtype=torch.uint8,
                             device=dev)
 
         def fwd():
-            mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, 0, cw,
-                                            image.data_ptr(), 0, None, None, mlp._stream(xT)), what)
+            mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, bf16, cw,
+                                            image.data_ptr(), 0, None, None, 0, mlp._stream(xT)), what)
         return fwd, out
 
     old, o_old = bind(earlier, "earlier fused_mlp_fwd")
@@ -422,8 +455,8 @@ def phase_forward_before_after(dev, params, model, mlp, x16, earlier) -> dict:
         new()
         torch.cuda.synchronize()
         err = (o_new[:4] - o_old[:4]).abs().max().item()
-        check(err <= TOL[torch.float32], "current f32 forward matches the earlier kernel")
-        res = {"fwd_ms": in_turns(old, new), "fwd_err": err, "rows": R}
+        check(err <= TOL[dt], "current forward matches the earlier kernel")
+        res = {"fwd_ms": in_turns(old, new), "fwd_err": err, "rows": R, "bit_equal": torch.equal(o_new, o_old)}
     del o_old, o_new
     torch.cuda.empty_cache()
     return res
@@ -892,7 +925,8 @@ PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
 
 
 def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
-                 split_proposal: bool = False, split_mip: bool = False, split_pose: bool = False) -> dict:
+                 split_proposal: bool = False, split_mip: bool = False, split_pose: bool = False,
+                 rest: str = "rays and compositing") -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
@@ -918,7 +952,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     gradient), the kernels in time order go to "forward" (the forward's
     weight image and tile kernel), "B2" (its recompute, tile kernel, sums
     and reduce), "input grad" (csrc/input_grad.cuh), "adam" (by name), and
-    the rest to "rays and compositing" (the ray refinement, the input
+    the rest to ``rest`` (the ray refinement or the code gather, the input
     build, the pack, torch compositing and their autograd); ``others``
     then gets that group by kernel."""
     from torch.autograd import DeviceType
@@ -953,7 +987,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
             elif group in ("bwd_image", "bwd_tile", "sums", "sums_reduce"):
                 group = "B2"
             else:
-                group = "rays and compositing"
+                group = rest
         elif split_mip:
             if group == "weight_image" and b1 is None:  # the first kernel of a B1 launch
                 b1, n_b1 = ("coarse B1", "fine B1")[n_b1 % 2], n_b1 + 1
@@ -988,7 +1022,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
             b1 = None if last else b1
         ms = e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
         out[group] = out.get(group, 0.0) + ms
-        if group in ("other", "rays and compositing") and others is not None:
+        if group in ("other", rest) and others is not None:
             others[e.name[:60]] = others.get(e.name[:60], 0.0) + ms
     if host is not None:
         for a in prof.key_averages():
@@ -2767,29 +2801,33 @@ def phase_pose_kernels(dev, scene, model, mlp, earlier) -> dict:
 
 
 def earlier_forward(mlp, lib, w, x, dt, model) -> torch.Tensor:
-    """The forward of an earlier library (no windows, no mip), straight
-    through ctypes."""
+    """The forward of an earlier library (no windows, no mip, no codes),
+    straight through ctypes."""
     bf16 = int(dt == torch.bfloat16)
     out = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device)
-    image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16), dtype=torch.uint8,
+    image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, 0), dtype=torch.uint8,
                         device=x.device)
     mlp._raise_on(lib.fused_mlp_fwd(x.data_ptr(), out.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
-                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, 0, mlp._stream(x)),
                   "earlier fused_mlp_fwd")
     return out
 
 
-def earlier_backward(mlp, lib, w, x, gT, dt, model):
-    """B2 of an earlier library (no windows, no dx, no mip)."""
+def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False):
+    """B2 of an earlier library (no windows, no mip, no codes; with
+    ``want_dx`` also dx, which an earlier library without the input
+    gradient refuses)."""
     bf16 = int(dt == torch.bfloat16)
-    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16),
+    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16, 0),
                      dtype=torch.uint8, device=x.device)
     grads = mlp._empty_grads(model, x.device)
+    dx = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device) if want_dx else None
     mlp._raise_on(lib.fused_mlp_bwd(x.data_ptr(), gT.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
                                     mlp._CPtrs(*mlp._ptrs(w)), mlp._weights_t(w), ws.data_ptr(),
-                                    mlp._CPtrs(*mlp._ptrs(grads)), 0, None, None, None, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(grads)), 0, None, None, None if dx is None else dx.data_ptr(),
+                                    0, mlp._stream(x)),
                   "earlier fused_mlp_bwd")
-    return grads
+    return (grads, dx) if want_dx else grads
 
 
 def phase_pose_train(dev, scene, work, mlp) -> dict:
@@ -3049,6 +3087,393 @@ def phase_pose_eval(dev, work, recipe) -> dict:
     return out
 
 
+# Appearance codes (configs/lego.yaml + appearance_dim): the code width
+# (the kernels' eight rows, full), the steps of the runs through train()
+# (flagship, and each with pose refinement, the hierarchical pair and the
+# proposal scheme), and the exposure-twin recipe's (the JAX package's
+# 1200, tests/test_pose_app.py:513-573) with its bounds: the loss with
+# codes below APP_LOSS_RATIO of the loss without, the twins' brightness
+# ratio in APP_BRIGHTNESS (1 / 0.55 injected).
+APP_DIM, APP_ITERS, APP_SIDE_ITERS, APP_TWIN_ITERS = 8, 100, 60, 1200
+APP_LOSS_RATIO, APP_BRIGHTNESS = 0.35, (1.4, 2.3)
+
+
+def app_batch(dev, scene, x16=None):
+    """Phase 5's training batch (524,288 rows) as an appearance model's
+    kernel input: xyz and unit dirs in rows 0..5, each ray's code (APP_DIM
+    values from N(0, 0.5), numpy seed SEED) on its samples in rows 8..15."""
+    x16 = train_batch(dev, scene) if x16 is None else x16
+    x = torch.zeros_like(x16)
+    x[:6] = x16[:6]
+    codes = np.random.default_rng(SEED).normal(0, 0.5, (APP_DIM, BATCH)).astype(np.float32)
+    x[8 : 8 + APP_DIM] = torch.from_numpy(np.repeat(codes, N_SAMPLES, axis=1)).to(dev)
+    return x
+
+
+def app_fields(dev, seed: int = SEED):
+    """(the flagship appearance model, its field from numpy seed ``seed``,
+    the model without codes, its field of the same weights but color0's
+    code columns)."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+
+    model, plain = NerfMLP(app_dim=APP_DIM), NerfMLP()
+    params = init_nerf_params(seed, model)
+    cut = {**params, "color0": {"w": params["color0"]["w"][: plain.H + plain.in_Cd], "b": params["color0"]["b"]}}
+    return (model, NerfField.from_jax_params(params, dev, model), plain,
+            NerfField.from_jax_params(cut, dev, plain))
+
+
+def phase_app_kernels(dev, scene, mlp, earlier) -> dict:
+    """14a. The appearance variants against their plain versions at the
+    training batch (``app_batch``: 524,288 rows, codes in rows 8..15), the
+    flagship appearance model from numpy seed SEED, f32 and bf16: the
+    forward with the code rows beside the forward of the same rows through
+    the model without codes (color0's code columns cut), in turns, and with
+    zero codes bit-equal to it; B2 with ``want_dx`` (the recompute with the
+    codes, dWca in Wcd's last eight columns, the codes' rows of dx) held as
+    13a holds the pose dx (``explain_dx``: every row past DX_TOL from plain
+    explained by a flipped relu mask, the code rows against their own
+    largest entry, three planted faults caught), its weight gradients
+    bit-equal to the launch without ``want_dx``, beside B2 with
+    ``want_dx`` through the model without codes, in turns; the
+    input-gradient kernel alone with the code rows (probes/input_grad.py).
+    With ``earlier``, B2 with ``want_dx`` and no codes bit-equal (grads
+    and dx) to the earlier library's."""
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+
+    model, field, plain, plain_field = app_fields(dev)
+    x16 = train_batch(dev, scene)
+    x = app_batch(dev, scene, x16)
+    del x16
+    x8 = x[:8].contiguous()
+    x0 = x.clone()
+    x0[8:] = 0
+    gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, x.shape[1])).astype(np.float32)).to(dev)
+    fwd, b2 = mlp.fused_mlp_forward, mlp.fused_mlp_backward
+    stats = {}
+    FD0 = mlp._enc_rows(model.Ld)
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(mlp.pack_weights(field), dt)
+            wp = mlp._cast_weights(mlp.pack_weights(plain_field), dt)
+            before = fwd.app_launches
+            got = fwd(w, x, dt, model)
+            torch.cuda.synchronize()
+            check(fwd.app_launches == before + 1, "the forward with codes is counted")
+            want = mlp.fused_mlp_forward_plain(w, x, dt, model)
+            err = (got[:4] - want[:4]).abs().max().item()
+            zero_equal = torch.equal(fwd(w, x0, dt, model), fwd(wp, x8, dt, plain))
+            del got, want
+            ms = turns_ms({"codes": lambda: fwd(w, x, dt, model), "none": lambda: fwd(wp, x8, dt, plain)})
+            st = dict(err=err, ms=ms["codes"], ms_no_codes=ms["none"], rows=x.shape[1], zero_codes_bit_equal=zero_equal,
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_forward_plain(w, x, dt, model), reps=3))
+            print(f"appearance forward vs plain {name} at {x.shape[1]} rows: max abs err {err:.3e} (tol "
+                  f"{TOL[dt]:.0e}); in turns: codes {st['ms']:.3f} ms, the model without codes {st['ms_no_codes']:.3f} "
+                  f"ms; plain {st['plain_ms']:.3f} ms; zero codes bit-equal to the model without codes: {zero_equal}",
+                  flush=True)
+            check(err <= TOL[dt] and zero_equal, f"the appearance forward {name} matches plain")
+            stats[f"fwd_{name}"] = st
+            torch.cuda.empty_cache()
+
+            before = (b2.app_launches, b2.dx_launches, mlp.input_grad_launches())
+            grads, dx = b2(w, x, gT, dt, model, want_dx=True)
+            torch.cuda.synchronize()
+            check((b2.app_launches, b2.dx_launches, mlp.input_grad_launches()) == tuple(b + 1 for b in before),
+                  "B2 with codes and want_dx counted, its input-gradient kernel counted in C")
+            alone = b2(w, x, gT, dt, model)
+            bit_equal = all(torch.equal(a, c) for a, c in zip(grads, alone))
+            del alone
+            _, res = mlp.forward_residuals(w, x, dt, model)
+            posd = mlp.Layout.of(model).posd
+            code_plane = torch.equal(res[posd + FD0 : posd + FD0 + 8, : x.shape[1]].float(), x[8:16].to(dt).float())
+            composed = torch.equal(dx, mlp.input_grad(w, x, mlp.backward_tile(w, res, gT, dt, model), dt, model))
+            del res
+            want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, model, want_dx=True)
+            rel, abs_err = grad_errors(grads, want)
+            wca_rel = ((grads.Wcd[:, FD0:] - want.Wcd[:, FD0:]).abs().max() / want.Wcd[:, FD0:].abs().max()).item()
+            code_rel = ((dx[8:] - dx_p[8:]).abs().max() / dx_p[8:].abs().max()).item()
+            ex = ig_probe.explain_dx(w, x, gT, dx, dx_p, dt, model, None, DX_TOL[dt])
+            pad_zero = bool((dx[6:8] == 0).all())
+            del grads, dx, want, dx_p
+            torch.cuda.empty_cache()
+            st = dict(err=abs_err, rel=rel, wca_rel=wca_rel, code_rel=code_rel, dx_rows=ex, rows=x.shape[1],
+                      bit_equal_no_dx=bit_equal, dx_equal_composed=composed, code_plane_equal=code_plane)
+            if earlier:
+                g_now, dx_now = b2(wp, x8, gT, dt, plain, want_dx=True)
+                g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], wp, x8, gT, dt, plain, want_dx=True)
+                st["bit_equal_earlier"] = all(torch.equal(a, c) for a, c in zip(g_now, g_old)) and torch.equal(
+                    dx_now, dx_old)
+                del g_now, dx_now, g_old, dx_old
+            ms = turns_ms({"codes": lambda: b2(w, x, gT, dt, model, want_dx=True),
+                           "none": lambda: b2(wp, x8, gT, dt, plain, want_dx=True)})
+            st.update(ms=ms["codes"], ms_no_codes=ms["none"],
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_backward_plain(w, x, gT, dt, model, want_dx=True), reps=3))
+            torch.cuda.empty_cache()
+            print(f"appearance B2 (want_dx) vs plain {name} at {x.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                  f"{GRAD_TOL['B2', dt]:.0e}), dWca {wca_rel:.3e} of its max; dx's code rows {code_rel:.3e} of their max "
+                  "(a row with a flipped relu mask moves by a whole term: held row by row below); "
+                  f"dx rows past {DX_TOL[dt]:.0e} {ex['n_past']} ({ex['share']:.2e}, tol {DX_ROW_SHARE[dt]:.0e}), with a "
+                  f"flipped relu mask {ex['n_flipped']}, past without one {ex['n_unexplained']}, on the kernel's own "
+                  f"masks {ex['own_masks_err']:.2e}; planted faults: " + ", ".join(
+                      f"{k} {f['share']:.2e} past ({f['n_unexplained']} unexplained)" for k, f in ex["faults"].items())
+                  + f"; dx bit-equal to the input-gradient kernel on the kernels' planes: {composed}; the code plane "
+                  f"holds the codes: {code_plane}; grads bit-equal to the launch without dx: {bit_equal}; in turns: "
+                  f"codes {st['ms']:.3f} ms, the model without codes {st['ms_no_codes']:.3f} ms; plain "
+                  f"{st['plain_ms']:.3f} ms" + (f"; without codes (with dx) bit-equal to the earlier library's: "
+                                               f"{st['bit_equal_earlier']}" if earlier else ""), flush=True)
+            check(rel <= GRAD_TOL["B2", dt] and wca_rel <= GRAD_TOL["B2", dt] and composed
+                  and code_plane and pad_zero and ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dt]
+                  and ex["share"] <= DX_ROW_SHARE[dt], f"appearance B2 {name} within tolerance")
+            check(len(ex["faults"]) == 3 and all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
+                  f"the dx rule catches the three planted faults ({name})")
+            check(bit_equal and st.get("bit_equal_earlier", True), f"B2 {name} unchanged without codes")
+            stats[f"b2_{name}"] = st
+    del x, x8, x0, gT
+    torch.cuda.empty_cache()
+    ig = ig_probe.run(dev, model)
+    for name in ("f32", "bf16"):
+        v = ig[name]
+        print(f"input-gradient kernel alone with codes {name} at {ig['rows']} rows: {v['ms']:.3f} ms (windows "
+              f"{v['ms_anneal']:.3f}), plain {v['plain_ms']:.3f} ms, torch.mm yardstick {v['library_ms']:.3f} ms; bound "
+              f"{v['bound_ms']:.3f} ms ({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; dx err "
+              f"{v['rel_err']:.2e} of max |dx|, code rows {v['code_rel_err']:.2e} of theirs", flush=True)
+    stats["input_grad"] = ig
+    return stats
+
+
+def app_run(cfg: dict, what: str, mlp) -> tuple:
+    """train() of ``cfg`` with the launch counts reset before it: (the
+    state, the launches, the losses, the wall, the log's text)."""
+    from nerf_simple_tpu_torch.train.loop import train
+
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.app_launches = b2.launches = b2.app_launches = b2.dx_launches = b1.launches = 0
+    mlp.input_grad_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(forward=fwd.launches, forward_app=fwd.app_launches, b2=b2.launches, b2_app=b2.app_launches,
+                    b2_dx=b2.dx_launches, input_grad=mlp.input_grad_launches(), fused_train_step=b1.launches)
+    text = log.getvalue()
+    with open(os.path.join(OUT, f"train_app_{what}_log.txt"), "w") as fh:
+        fh.write(text)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    return state, launches, losses, wall, text
+
+
+def app_eval(exp: str, scene: str, work: str, label: str, **kw) -> dict:
+    """evaluate.test of an appearance run's still 0 (bf16, pallas) with
+    ``kw`` (``appearance_idx``, ``normals``, the sampler's keys): PSNR, the
+    wall, the still's PNG bytes."""
+    from nerf_simple_tpu_torch.evaluate import test
+
+    out_dir = os.path.join(work, f"eval_app_{label}")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test({**dict(loadpath=exp, datapath=scene, savepath=out_dir, im_idxs=[0], N_samples=N_SAMPLES,
+                     compute_dtype="bf16", backend="pallas", batch_size=16384), **kw})
+    wall = time.perf_counter() - t0
+    text = log.getvalue()
+    with open(os.path.join(OUT, f"eval_app_{label}_log.txt"), "w") as fh:
+        fh.write(text)
+    if kw.get("animation"):
+        return dict(wall_s=wall, video=bool(glob.glob(os.path.join(out_dir, "exp", "nerf_rgb*"))))
+    psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", text)]
+    with open(os.path.join(out_dir, "exp", "rgb_0.png"), "rb") as fh:
+        png = fh.read()
+    normals = os.path.exists(os.path.join(out_dir, "exp", "normal_0.png"))
+    check(len(psnr) == 1 and np.isfinite(psnr[0]) and (normals or not kw.get("normals")),
+          f"the appearance eval ({label}) rendered its still")
+    return dict(psnr=psnr[0], wall_s=wall, png=png, normals=normals)
+
+
+def phase_app_train(dev, scene, work, mlp) -> dict:
+    """14b. Appearance codes through train() (bf16, pallas) on the phase-7
+    scene: lego.yaml's keys + ``appearance_dim: 8``, APP_ITERS steps: one
+    forward and one B2 launch with the code rows and the input gradient a
+    step, no B1; the loss falls; the checkpoint and params npz carry the
+    code table (no reference .pth); ``evaluate.test`` of still 0 under the
+    mean code (with normals), under image 0's code, and a 2-frame orbit.
+    Then the appearance step itself (from a fresh state): its wall and
+    host issue, kernel ms by pass (torch.profiler, kernels in time order:
+    forward, B2, input grad, Adam, the rest: the code gather, the input
+    build, the pack, compositing and their autograd), idle share, peak
+    memory. Then APP_SIDE_ITERS steps each of the same keys with
+    ``pose_opt`` (the deltas and the codes through one input gradient a
+    step; its step's wall), of lego_hierarchical.yaml's keys + the codes
+    (both nets take them: two B2 launches a step) and of lego_proposal.yaml's
+    (the main field takes them), each evaluated on one still under a code."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train import checkpoint as ckpt
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    def keys(path, what, iters, **kw):
+        cfg = load_yaml(path)
+        cfg.update(datapath=scene, savepath=os.path.join(work, "models_app"), exp_name=what,
+                   log_dir=os.path.join(work, f"logs_app_{what}"), backend="pallas", compute_dtype="bf16",
+                   num_iters=iters, ckpt_loss=1, ckpt_images=iters, ckpt_model=iters, steps_per_call=20,
+                   appearance_dim=APP_DIM, **kw)
+        return cfg
+
+    out = {}
+    cfg = keys("configs/lego.yaml", "lego", APP_ITERS)
+    check(cfg["Nf"] == N_SAMPLES and cfg["batch_size"] == BATCH, "lego's keys")
+    state, launches, losses, wall, _ = app_run(cfg, "lego", mlp)
+    exp = os.path.join(work, "models_app", "lego")
+    table = state.app.tables()
+    held = ckpt.checkpoint_params(os.path.join(exp, f"ckpt_{APP_ITERS}.pth"))
+    npz = ckpt.import_params_npz(os.path.join(exp, f"params_{APP_ITERS}.npz"))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train appearance (lego.yaml + appearance_dim {APP_DIM}): {APP_ITERS} steps in {wall:.1f} s with renders; "
+          f"launches {launches}; loss {first:.5f} -> {last:.5f} (means of the first and last 10); the code table "
+          f"{table.shape}, |code| max {np.abs(table).max():.4f}", flush=True)
+    check(launches["b2_app"] == launches["b2_dx"] == launches["input_grad"] == launches["b2"] == APP_ITERS,
+          "one B2 launch with the code rows and the input gradient a step")
+    check(launches["forward_app"] == launches["forward"] >= APP_ITERS and launches["fused_train_step"] == 0,
+          "every forward with the code rows, no B1")
+    check(all(np.isfinite(losses)) and len(losses) == APP_ITERS and last < first, "the appearance loss falls")
+    check(table.shape == (25, APP_DIM) and np.abs(table).max() > 0, "the codes train")
+    check(set(held) == {"field", "app"} and np.array_equal(npz["app"], table)
+          and not os.path.exists(os.path.join(exp, f"params_{APP_ITERS}.pth")),
+          "the checkpoint and the npz carry the code table, no reference .pth")
+    ev = {"mean": app_eval(exp, scene, work, "mean", appearance_idx=-1, normals=True),
+          "image_0": app_eval(exp, scene, work, "image_0", appearance_idx=0),
+          "orbit": app_eval(exp, scene, work, "orbit", appearance_idx=0, animation=True, num_poses=2)}
+    check(ev["mean"]["png"] != ev["image_0"]["png"] and ev["orbit"]["video"], "the codes condition the eval")
+    print(f"eval appearance: still 0 under the mean code {ev['mean']['psnr']:.2f} dB ({ev['mean']['wall_s']:.1f} s with "
+          f"normals), under image 0's {ev['image_0']['psnr']:.2f} dB ({ev['image_0']['wall_s']:.1f} s); a 2-frame orbit "
+          f"in {ev['orbit']['wall_s']:.1f} s", flush=True)
+    out.update(launches=launches, loss_first=first, loss_last=last, train_s=wall,
+               eval={k: {m: v for m, v in e.items() if m != "png"} for k, e in ev.items()})
+    del state
+    torch.cuda.empty_cache()
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H, app_dim=APP_DIM)
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    n_pix = rd.H * rd.W
+
+    def step_of(c):
+        st = make_train_state(c, model, dev, n_images=rays.shape[0] // n_pix)
+        fn = build_train_step(c, model, rays_per_image=n_pix)
+        return lambda: fn(st, rays, pixels)
+
+    step = step_of(tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    walls = step_walls(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    others = {}
+    prof = profile_step(step, others, split_pose=True, rest="gather and compositing")
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step appearance bf16: {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} rays/s (CUDA "
+          f"events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a "
+          f"step in {walls['host_ms']:.3f} ms; peak device memory {peak_gb:.2f} GB", flush=True)
+    print("train step appearance bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {walls['ms']:.3f} ms, idle share {idle:.3f}" if prof else
+        "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step appearance bf16 profile, the gather and compositing group by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    pose_step = step_of(dataclasses.replace(tcfg, pose_opt=True, pose_warmup=0))
+    pose_walls = step_walls(pose_step)
+    print(f"train step pose + appearance bf16: {pose_walls['ms']:.3f} ms a step (host {pose_walls['host_ms']:.3f} ms)",
+          flush=True)
+    out.update(step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle,
+               peak_gb=peak_gb, pose_step_ms=pose_walls["ms"], pose_host_ms=pose_walls["host_ms"])
+    del step, pose_step, rd, rays, pixels
+    torch.cuda.empty_cache()
+
+    side = {"pose": ("configs/lego.yaml", dict(pose_opt=True, pose_warmup=10), dict(im_set="train"), 1),
+            "hierarchical": ("configs/lego_hierarchical.yaml", {}, dict(Nc=NC, N_samples=NF), 2),
+            "proposal": ("configs/lego_proposal.yaml", {}, dict(Np=NP_PROP), 1)}
+    for what, (path, kw, ev_kw, b2_a_step) in side.items():
+        c = keys(path, what, APP_SIDE_ITERS, **kw)
+        state, launches, losses, wall, _ = app_run(c, what, mlp)
+        e = app_eval(os.path.join(work, "models_app", what), scene, work, what, appearance_idx=0, **ev_kw)
+        moved = float(np.abs(state.app.tables()).max())
+        print(f"train appearance + {what}: {APP_SIDE_ITERS} steps in {wall:.1f} s; launches {launches}; loss "
+              f"{np.mean(losses[:10]):.5f} -> {np.mean(losses[-10:]):.5f}; |code| max {moved:.4f}"
+              + (f", |dr| max {float(state.cams.dr.detach().abs().max()):.4f}" if what == "pose" else "")
+              + f"; eval still 0 under image 0's code {e['psnr']:.2f} dB", flush=True)
+        check(launches["b2_app"] == launches["b2_dx"] == launches["input_grad"] == b2_a_step * APP_SIDE_ITERS
+              and launches["fused_train_step"] == 0, f"appearance + {what}: B2 with the code rows, no B1")
+        check(all(np.isfinite(losses)) and moved > 0 and (what != "pose" or float(state.cams.dr.detach().abs().max()) > 0),
+              f"appearance + {what} trains the codes")
+        out[what] = dict(launches=launches, loss_first=float(np.mean(losses[:10])),
+                         loss_last=float(np.mean(losses[-10:])), train_s=wall, eval_psnr=e["psnr"])
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_app_twins(dev, work, mlp) -> dict:
+    """14c. The JAX package's exposure-twin recipe at the flagship width:
+    its scene (3 train views at 32x32 and a twin of each at 0.55 of its
+    brightness, the same pose; data/synthetic.py::add_exposure_twins),
+    lego.yaml's keys (bf16, pallas, 4096 rays x 128 samples a step) with
+    ``appearance_dim: 8`` and without, APP_TWIN_ITERS steps each from the
+    same seed: the loss (the mean of the last 10 steps) with codes below
+    APP_LOSS_RATIO of the loss without; the first twin pair's rays rendered
+    under the bright twin's code and under the dim twin's, their mean
+    brightness ratio in APP_BRIGHTNESS (1 / 0.55 = 1.82 injected)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.data.synthetic import add_exposure_twins, write_blender_scene
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    scene = os.path.join(work, "app_twins")
+    write_blender_scene(scene, n_train=3, n_val=1, n_test=1, H=32, W=32, device=dev, train_jitter=3)
+    check(add_exposure_twins(scene) == 6, "the twin scene has six train views")
+    data = load_blender(scene, False)
+    rd = RayDataset.from_blender(data, dev)
+    n_pix = data.H * data.W
+    base = load_yaml("configs/lego.yaml")
+    base.update(datapath=scene, half_res=False, backend="pallas", compute_dtype="bf16", num_iters=APP_TWIN_ITERS)
+    out = {}
+    for A in (APP_DIM, 0):
+        cfg = train_config({**base, "appearance_dim": A})
+        model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, app_dim=A)
+        st = make_train_state(cfg, model, dev, n_images=6 if A else None)
+        step = build_train_step(cfg, model, rays_per_image=n_pix)
+        t0 = time.perf_counter()
+        losses = torch.stack([step(st, rd.rays["train"], rd.pixels["train"]) for _ in range(APP_TWIN_ITERS)])
+        loss = float(losses[-10:].mean())
+        out[A] = dict(loss=loss, wall_s=time.perf_counter() - t0, state=st)
+    st = out[APP_DIM].pop("state")
+    out[0].pop("state")
+    table = st.app.table.detach()
+    s = RenderSettings(N=N_SAMPLES, compute_dtype=torch.bfloat16, backend="pallas")
+    bright = [float(render_rays_chunked(st.field, rd.rays["train"][:n_pix], 5, s, chunk=1024, app=table[i])[0].mean())
+              for i in (0, 3)]
+    ratio = bright[0] / max(bright[1], 1e-9)
+    loss_ratio = out[APP_DIM]["loss"] / out[0]["loss"]
+    print(f"appearance exposure twins (flagship, bf16, {APP_TWIN_ITERS} steps): loss with codes "
+          f"{out[APP_DIM]['loss']:.5f}, without {out[0]['loss']:.5f}, ratio {loss_ratio:.3f} (below {APP_LOSS_RATIO}); "
+          f"image 0 rendered under its own code and its twin's: brightness {bright[0]:.4f} / {bright[1]:.4f} = "
+          f"{ratio:.3f} (in {APP_BRIGHTNESS}; 1 / 0.55 = 1.818 injected); {out[APP_DIM]['wall_s']:.1f} s / "
+          f"{out[0]['wall_s']:.1f} s", flush=True)
+    check(loss_ratio < APP_LOSS_RATIO, "the codes absorb the twins' exposure gap")
+    check(APP_BRIGHTNESS[0] < ratio < APP_BRIGHTNESS[1], "the twins' codes reproduce the injected exposure")
+    del st, rd
+    torch.cuda.empty_cache()
+    return dict(loss_app=out[APP_DIM]["loss"], loss_plain=out[0]["loss"], loss_ratio=loss_ratio, brightness=bright,
+                ratio=ratio, wall_s=[out[APP_DIM]["wall_s"], out[0]["wall_s"]])
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -3122,6 +3547,15 @@ def main() -> None:
     x16 = chunk_input(dev)
     fwd = phase_forward(dev, params, model, mlp, x16)
     fwd_turns = earlier and phase_forward_before_after(dev, params, model, mlp, x16, earlier["fused_mlp_fwd"])
+    fwd_turns_bf16 = earlier and phase_forward_before_after(dev, params, model, mlp, x16, earlier["fused_mlp_fwd"],
+                                                            torch.bfloat16)
+    if earlier:
+        check(fwd_turns["bit_equal"] and fwd_turns_bf16["bit_equal"],
+              "the forward, f32 and bf16, bit-equal to the earlier library's")
+        f = fwd_turns_bf16["fwd_ms"]
+        print(f"before/after bf16 forward at {fwd_turns_bf16['rows']} rows: earlier {f['earlier']:.3f} ms, current "
+              f"{f['current']:.3f} ms; bit-equal: {fwd_turns_bf16['bit_equal']} (f32: {fwd_turns['bit_equal']})",
+              flush=True)
     rnd = phase_render(dev, params, model, mlp, x16)
     del x16
     torch.cuda.empty_cache()
@@ -3207,7 +3641,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         posee = phase_pose_eval(dev, work, poser)
         walls["pose"] = time.perf_counter() - t_phase
-    # 14. the padding probe
+        # 14. appearance codes: the code rows vs plain, the appearance steps, eval, the exposure twins
+        t_phase = time.perf_counter()
+        appk = phase_app_kernels(dev, scene, mlp, earlier)
+        torch.cuda.empty_cache()
+        appt = phase_app_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        appr = phase_app_twins(dev, work, mlp)
+        walls["appearance"] = time.perf_counter() - t_phase
+    # 15. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -3366,6 +3808,56 @@ def main() -> None:
                              "peak_gb": poset["peak_gb"], "launches": poset["launches"],
                              "recipe": {k: v for k, v in poser.items() if k not in ("clean", "pert")},
                              "eval": posee}}
+    # the appearance variants: the forward with the code rows reads 14 of its
+    # 16 input rows (xyz, dirs, the code) and writes 8; B2 with the codes and
+    # want_dx reads those 14 and its 4 cotangent rows and writes dx's 16 and
+    # the packed gradients; the input-gradient kernel with the code rows
+    # (probes/input_grad.py's reckoning)
+    app_model = NerfMLP(app_dim=APP_DIM)
+    app_shapes = mlp._weight_shapes(app_model)
+    app_fwd_macs = sum(o * k for o, k in app_shapes.values() if k != 1)
+    app_train_macs = 2 * app_fwd_macs + sum(app_shapes[n][0] * app_shapes[n][1] for n in mlp._TRANSPOSED)
+    app_grad_bytes = 4 * sum(o * k for o, k in app_shapes.values())
+    app_rows, app_ig = appk["fwd_f32"]["rows"], appk["input_grad"]
+    aig_flops, aig_bytes = input_grad_work(app_model, app_ig["rows"], torch.float32)
+
+    def app_stats(prefix):
+        return {k: dict(err=appk[f"{prefix}_{k}"]["err"], ms=appk[f"{prefix}_{k}"]["ms"],
+                        plain_ms=appk[f"{prefix}_{k}"]["plain_ms"]) for k in ("f32", "bf16")}
+
+    def app_extra(prefix, names):
+        return {f"{m}{'' if k == 'f32' else '_bf16'}": appk[f"{prefix}_{k}"][m] for k in ("f32", "bf16")
+                for m in names if m in appk[f"{prefix}_{k}"]}
+
+    app_forward = {**mip_fields(app_stats("fwd"), 2 * app_fwd_macs * app_rows, 88 * app_rows,
+                                appt["launches"]["forward_app"], rows=app_rows,
+                                **app_extra("fwd", ("ms_no_codes", "zero_codes_bit_equal"))),
+                   "source": "nerf_simple_tpu_torch/csrc/fwd_f32.cuh, fwd_bf16.cuh (encode: the code rows after posd; "
+                             "Wcd's last eight columns, Wca)",
+                   "replaces": "nerf_simple_tpu/kernels/mlp.py:541-545, :589-594, :624-641 (FusedWeightsApp.Wca "
+                               ":222-258, packed :350-360)"}
+    app_backward = {**mip_fields(app_stats("b2"), 2 * app_train_macs * app_rows + aig_flops,
+                                 (56 + 16 + 64) * app_rows + app_grad_bytes, appt["launches"]["b2_app"], rows=app_rows,
+                                 **app_extra("b2", ("rel", "wca_rel", "code_rel", "dx_rows", "ms_no_codes",
+                                                    "bit_equal_no_dx", "dx_equal_composed", "code_plane_equal",
+                                                    "bit_equal_earlier"))),
+                    "source": "nerf_simple_tpu_torch/csrc/fused_mlp_bwd.cu (the recompute with the codes; Wcd's sum "
+                              "over posd's code rows: dWca; input_grad.cuh: the code rows of dx)",
+                    "replaces": "nerf_simple_tpu/kernels/mlp.py:716-724, :747-748, :854-857, :867, :1140-1145",
+                    "app_step": {**{k: v for k, v in appt.items() if k != "walls"}, "twins": appr}}
+    app_input_grad = {
+        "launches": appt["launches"]["input_grad"], "max_abs_err": app_ig["f32"]["max_abs_err"],
+        "ms": app_ig["f32"]["ms"], "plain_ms": app_ig["f32"]["plain_ms"], "bound_ms": app_ig["f32"]["bound_ms"],
+        "bound_by": app_ig["f32"]["bound_by"], "library_ms": app_ig["f32"]["library_ms"],
+        "max_abs_err_bf16": app_ig["bf16"]["max_abs_err"], "ms_bf16": app_ig["bf16"]["ms"],
+        "plain_ms_bf16": app_ig["bf16"]["plain_ms"], "bound_ms_bf16": app_ig["bf16"]["bound_ms"],
+        "bound_by_bf16": app_ig["bf16"]["bound_by"], "library_ms_bf16": app_ig["bf16"]["library_ms"],
+        "rows": app_ig["rows"], "rel_err": app_ig["f32"]["rel_err"], "rel_err_bf16": app_ig["bf16"]["rel_err"],
+        "code_rel_err": app_ig["f32"]["code_rel_err"], "code_rel_err_bf16": app_ig["bf16"]["code_rel_err"],
+        "ms_no_codes": ig["f32"]["ms"], "ms_no_codes_bf16": ig["bf16"]["ms"], "flops": aig_flops, "bytes": aig_bytes,
+        "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh (KDA: the code slots; dx rows 8..15)",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:867, :747-748, :1140-1145",
+        "step_profile_ms_bf16": appt["profile"].get("input grad")}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -3378,16 +3870,18 @@ def main() -> None:
               tflops=fwd["f32"]["tflops"], share_of_bound=fwd["f32"]["share_of_bound"],
               mm_tflops_f32=fwd["f32"]["mm_tflops"],
               source_f32="nerf_simple_tpu_torch/csrc/fwd_f32.cuh", before_after_f32=fwd_turns or None,
+              before_after_bf16=fwd_turns_bf16 or None,
               source_bf16="nerf_simple_tpu_torch/csrc/fwd_bf16.cuh",
               frame_ms=frame_ms["pallas"], plain_frame_ms=frame_ms["xla"],
               train_launches=tr["launches"]["fused_mlp_forward"], eval_launches=ev["launches"],
               proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
               proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"],
-              mip=mip_forward, anneal=anneal),
+              mip=mip_forward, anneal=anneal, app=app_forward),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
-              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward, want_dx=want_dx),
+              grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward, want_dx=want_dx,
+              app=app_backward),
         {"name": "input_grad", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh",
          "replaces": "nerf_simple_tpu/kernels/mlp.py:871-938 (_input_grad_tile), :733-746 (_bwd_kernel's want_dx), "
                      ":865-868 (the encoded inputs' cotangents)",
@@ -3401,7 +3895,7 @@ def main() -> None:
          "ms_windows": ig["f32"]["ms_anneal"], "ms_windows_bf16": ig["bf16"]["ms_anneal"],
          "share_of_bound": ig["f32"]["share_of_bound"], "share_of_bound_bf16": ig["bf16"]["share_of_bound"],
          "flops": ig_flops, "bytes": ig_bytes,
-         "step_profile_ms_bf16": poset["profile"].get("input grad")},
+         "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad},
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],

@@ -104,6 +104,11 @@ class TrainConfig:
     pose_warmup: int = 300
     pose_freeze_at: int = 0
     pe_anneal_until: int = 0
+    # NeRF-W-style appearance codes: a trainable (train images,
+    # appearance_dim) table, zero at the start, on the main learning-rate
+    # schedule; each ray's image's code conditions the colour head only.
+    # Eval renders the mean code, or one image's (TestConfig.appearance_idx)
+    appearance_dim: int = 0
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -187,6 +192,30 @@ class TrainConfig:
                 "ported yet: ROADMAP Queue A item 5, mip x proposal"
             )
         self._check_pose()
+        self._check_appearance()
+
+    def _check_appearance(self):
+        """The JAX TrainConfig's appearance rules (nerf_simple_tpu/config.py:
+        543-572, :596-601; the family and the data-sharding rules hold by
+        construction: their keys are not ported), then the port's: more
+        than 8 code rows under "pallas" raise (the kernels' input has 8
+        rows for the code; JAX falls back to its XLA path)."""
+        if self.appearance_dim < 0:
+            raise ValueError(f"appearance_dim must be >= 0, got {self.appearance_dim}")
+        if self.appearance_dim == 0:
+            return
+        if self.mip:
+            raise ValueError(
+                "appearance_dim > 0 is not plumbed through the mip IPE path; use point-sampled configs "
+                "(plain/hierarchical/proposal/occupancy)")
+        if self.pose_freeze_at > 0:
+            raise ValueError(
+                "pose_freeze_at cannot combine with appearance_dim: freezing drops the per-image params "
+                "wrapper, but appearance codes must stay trainable for the whole run (freeze is pose-only)")
+        if self.appearance_dim > 8 and self.backend == "pallas":
+            raise ValueError(
+                f"appearance_dim={self.appearance_dim} > 8 under backend 'pallas': the kernels' 16-row input "
+                "holds 8 code rows; use backend 'xla' (JAX falls back to it with a warning, the port raises)")
 
     def _check_pose(self):
         """The JAX TrainConfig's pose rules (nerf_simple_tpu/config.py:
@@ -242,7 +271,6 @@ _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
     "mip multiscale training": {"mip_multiscale": False},
     "contract with disparity spacing": {"contract": False},
-    "item 6, appearance codes": {"appearance_dim": 0},
     "item 2, train_im_idxs": {"train_im_idxs": ()},
     "the hashgrid/cpgrid families": {
         "model_family": "nerf", "hash_L": 8, "hash_F": 4, "hash_log2_T": 14, "hash_Nmin": 16,
@@ -323,7 +351,9 @@ class TestConfig:
     normals: bool = False  # also write normal_<i>.png from density gradients
     Nc: int = 0  # > 0: hierarchical eval, Nc coarse and N_samples importance samples
     Np: int = 0  # > 0: proposal eval, Np probes of the proposal net place N_samples
-    appearance_idx: int = -1  # read only by appearance checkpoints, not ported
+    # appearance checkpoints: the train image whose code conditions the
+    # render, or -1 for the mean code (NeRF-W's canonical look)
+    appearance_idx: int = -1
 
     def __post_init__(self):
         if self.Np > 0 and self.Nc > 0:

@@ -8,12 +8,16 @@
 // forward with the integrated encoder, :702, :717), with or without BARF's
 // anneal windows in the recompute (:707, :1107, :1118-1120); with dx (the
 // point variant's want_dx, :733-746) also the input gradient of
-// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh.
+// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh; for an
+// appearance model (`app`) the recompute with the codes (:716-724), dWca
+// (:854-857) and the codes' rows of dx (:867, :747-748, :1140-1145).
 //
 // Contract: x (8, rows) f32 as for the forward, or (16, rows) with `mip`
-// (csrc/fused_mlp_fwd.cu); g (8, rows) f32 with
+// or `app` (csrc/fused_mlp_fwd.cu); g (8, rows) f32 with
 // d_rgb in rows 0..2 and d_sigma in row 3 (rows 4..7 are not read).
-// Gradients are f32 in the packed shapes. Biases come out as row sums of
+// Gradients are f32 in the packed shapes: with `app`, Wcd's last eight
+// columns are dWca = g_hc app8^T, from the same sum over posd's plane,
+// which holds the codes' rows. Biases come out as row sums of
 // the cotangents (the TPU kernel carried three of them on a constant
 // "rail" column of the encoded input; the port keeps biases apart).
 //
@@ -47,44 +51,50 @@
 
 extern "C" {
 
-// Bytes of the workspace fused_mlp_bwd needs.
-long long fused_mlp_bwd_workspace_bytes(long long rows, int Lp, int Ld, int H, int is_bf16) {
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  return carve(nullptr, rows, Lp, Ld, H, is_bf16).bytes + align256(4LL * 8 * L.Rp);
+// Bytes of the workspace fused_mlp_bwd needs (`app`: an appearance
+// model's, as every entry below takes it).
+long long fused_mlp_bwd_workspace_bytes(long long rows, int Lp, int Ld, int H, int is_bf16, int app) {
+  const Layout L = make_layout(rows, Lp, Ld, H, app != 0);
+  return carve(nullptr, rows, Lp, Ld, H, is_bf16, app != 0).bytes + align256(4LL * 8 * L.Rp);
 }
 
 // Dynamic shared memory of the largest kernel, in bytes.
-long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
-  const long long f = fwd_smem(Lp, Ld, H, is_bf16), b = bwd_smem(H, is_bf16), i = ig::smem_bytes(H);
+long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) {
+  const long long f = fwd_smem(Lp, Ld, H, is_bf16, app != 0), b = bwd_smem(H, is_bf16),
+                  i = ig::smem_bytes(H, app != 0);
   return std::max(std::max(f, b), i);
 }
 
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
-// anneal windows of the forward it recomputes (FX and FD floats on the
-// card). `dx`: null, or (8, rows) f32 for the input gradient (point only:
-// not with `mip`).
+// anneal windows of the forward it recomputes (FX and enc_rows(Ld) floats
+// on the card). `dx`: null, or (8, rows) f32 for the input gradient, (16,
+// rows) with `app` (point only: not with `mip`).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
-                  Grads out, int mip, const float *wx, const float *wd, float *dx, void *stream) {
+                  Grads out, int mip, const float *wx, const float *wd, float *dx, int app, void *stream) {
   if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0 || (mip && (wx || dx))) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || dx || app))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
+  const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16, app != 0);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
-  if (int e = forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd, s)) return e;
-  if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s)) return e;
-  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s) : 0;
+  if (int e = app ? forward<true>(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, false, wx, wd, s)
+                  : forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd, s))
+    return e;
+  if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s, app != 0))
+    return e;
+  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s, app != 0) : 0;
 }
 
 // The input-gradient kernel alone, on `stream`: from the cotangent planes
 // `gws` ((FG, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
-// rounded up to 64) and x (8, rows) f32 to dx (8, rows) f32, with the
-// anneal windows wx, wd (or null): for tests and timing.
+// rounded up to 64) and x (8, rows) f32 to dx (8, rows) f32 (both 16 rows
+// with `app`), with the anneal windows wx, wd (or null): for tests and
+// timing.
 int input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
-               const float *wx, const float *wd, float *dx, void *stream) {
+               const float *wx, const float *wd, float *dx, int app, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream));
+  return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream), app != 0);
 }
 
 // Launches of the input-gradient kernel by this library so far, as
@@ -101,13 +111,14 @@ long long bwd_tile_image_bytes(int H, int is_bf16) { return bwd_image_bytes(H, i
 // The backward tile kernel alone, on `stream`: from the output cotangents
 // g (rows 0..2 d_rgb, row 3 d_sigma; row stride `rows`) and the residual
 // planes `res` (FA, Rp) to the cotangent planes `gws` (FG, Rp) of the
-// workspace (mlp_tile.cuh's Layout, Rp = rows rounded up to 64), in the
-// compute type, both 16-byte aligned. The kernel builds its weight image
-// from `w` in `image` (bwd_tile_image_bytes); `wt` is not read.
+// workspace (mlp_tile.cuh's Layout, Rp = rows rounded up to 64; `app`:
+// an appearance model's), in the compute type, both 16-byte aligned. The
+// kernel builds its weight image from `w` in `image`
+// (bwd_tile_image_bytes); `wt` is not read.
 int backward_tile(const float *g, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
-                  WeightsT wt, const void *res, void *gws, void *image, void *stream) {
+                  WeightsT wt, const void *res, void *gws, void *image, int app, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, res, gws, image, static_cast<cudaStream_t>(stream));
+  return bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, res, gws, image, static_cast<cudaStream_t>(stream), app != 0);
 }
 
 // The backward's weight image of the compute type alone, into `image`

@@ -5,17 +5,23 @@
 // Replaces: nerf_simple_tpu/kernels/mlp.py::fused_mlp_forward (the
 // pallas_call of _fwd_kernel -> _forward_tile -> _encode), point and mip
 // variants, with or without BARF's anneal windows (enc_w, :613, :648-650;
-// applied in _encode, :491-493); no appearance rail or contraction.
+// applied in _encode, :491-493), and the point variant with the appearance
+// rail (app8, :541-545, :589-594, :624-641); no contraction.
 //
 // Contract (same as the TPU kernel): x is (8, rows) f32 feature-major --
 // rows 0..2 sample xyz, rows 3..5 unit view direction; with `mip`, x is
 // (16, rows): rows 0..2 the frustum Gaussians' means, 3..5 the unit view
 // direction, 11..13 their diagonal variances, and the encoder is the
 // integrated one (mip-NeRF's IPE: each sin and cos of coordinate c at
-// frequency 2^i times exp(-0.5 * 4^i * var_c)). `wx` (FX floats) and
-// `wd` (FD floats), on the card, are null or the anneal windows: each
-// encoded row of posx and posd times its window (mlp.py::
-// anneal_row_weights). out is (8, rows)
+// frequency 2^i times exp(-0.5 * 4^i * var_c)). With `app` (an appearance
+// model; not with `mip`), x is (16, rows): rows 8..15 the image's code
+// (app_dim rows, zeros after), broadcast over its samples; the encoder
+// copies them into posd after its encoded rows, and Wcd (H/2, FD + 8)
+// holds Wca as its last eight columns (pack_weights), so hc_pre = Wcs h7
+// + [Wcd | Wca] [posd ; app8]: the TPU kernel's sum in one product. `wx`
+// (FX floats) and `wd` (enc_rows(Ld) floats), on the card, are null or
+// the anneal windows: each encoded row of posx and posd times its window
+// (mlp.py::anneal_row_weights; the code rows have none). out is (8, rows)
 // f32: raw rgb in rows 0..2, raw sigma in row 3, zeros in rows 4..7. The
 // weights are pack_weights' FusedWeights, (out, in) row-major; matrices
 // in the compute type (f32 or bf16), biases f32.
@@ -49,23 +55,24 @@
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes.
-long long fused_mlp_fwd_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
-  return fwd_smem(Lp, Ld, H, is_bf16);
+// Dynamic shared memory one block needs, in bytes (`app`: an appearance
+// model's, as every entry below takes it).
+long long fused_mlp_fwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) {
+  return fwd_smem(Lp, Ld, H, is_bf16, app != 0);
 }
 
 // Bytes of the scratch `image` fused_mlp_fwd needs.
-long long fused_mlp_fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
-  return fwd_image_bytes(Lp, Ld, H, is_bf16);
+long long fused_mlp_fwd_image_bytes(int Lp, int Ld, int H, int is_bf16, int app) {
+  return fwd_image_bytes(Lp, Ld, H, is_bf16, app != 0);
 }
 
 // The forward's weight image of the compute type alone, into `image`
 // (fused_mlp_fwd_image_bytes), on `stream`: for tests.
-int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image, void *stream) {
+int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image, int app, void *stream) {
   if (!arch_ok(Lp, Ld, H)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return fb::build_image(w, fb::plan_of(Lp, Ld, H), image, s);
-  return ff::build_image(w, ff::plan_of(Lp, Ld, H), image, s);
+  if (is_bf16) return fb::build_image(w, fb::plan_of(Lp, Ld, H, app != 0), image, s);
+  return ff::build_image(w, ff::plan_of(Lp, Ld, H, app != 0), image, s);
 }
 
 // The forward as B1 and B2 run it: out, and every residual plane into
@@ -73,10 +80,11 @@ int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image,
 // rounded up to 64, 16-byte aligned): for tests.
 int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, int Ld, int H, int is_bf16,
                             Weights w, void *res, void *image, int mip, const float *wx, const float *wd,
-                            void *stream) {
-  if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip != 0, wx, wd,
-                 static_cast<cudaStream_t>(stream));
+                            int app, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || rows <= 0 || (mip && app)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return app ? forward<true>(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, false, wx, wd, s)
+             : forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip != 0, wx, wd, s);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
@@ -84,11 +92,12 @@ int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, 
 // shapes and types.
 int fused_mlp_fwd(const float *x, float *out, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, void *image, int mip, const float *wx, const float *wd,
-                  void *stream) {
-  if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
+                  int app, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr) || (mip && app)) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  return forward(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, mip != 0, wx, wd,
-                 static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return app ? forward<true>(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, wx, wd, s)
+             : forward(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, mip != 0, wx, wd, s);
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@
 //
 // Contract (the TPU kernel's): x16 (16, B*N) f32 -- rows 0..2 sample xyz,
 // 3..5 unit view dir, 6 ts (ray b's samples are columns b*N .. b*N+N-1),
-// rows 7..15 not read. out (8, B*N) f32: at each ray's head column b*N,
+// rows 7..15 not read (no appearance model: it has no slot for codes and
+// the Layout without them; such a model renders through the forward
+// kernel, as in JAX, mlp.py:1714). out (8, B*N) f32: at each ray's head column b*N,
 // rows 0..2 the raw rgb sum_k w_k c_k, row 3 the depth sum_k w_k t_k, row
 // 4 the acc sum_k w_k; every other entry 0. Compositing is f32 at both
 // compute types (csrc/composite.cuh: softplus sigma, a 1e10 last delta,

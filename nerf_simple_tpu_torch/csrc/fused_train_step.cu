@@ -10,7 +10,10 @@
 // (`dist`, point form and interval form) and, under mip, the optional
 // opaque tail (`opaque_tail`, mip-NeRF 360's opaque background).
 //
-// Contract: x16 (16, B*N) f32 -- rows 0..2 sample xyz, 3..5 unit view
+// Contract (no appearance model: its rows 8..10 carry the gt colour, so
+// there is no slot for codes, and its Layout is the one without them;
+// appearance trains on the forward kernel and B2, as in JAX, mlp.py:1559):
+// x16 (16, B*N) f32 -- rows 0..2 sample xyz, 3..5 unit view
 // dir, 6 ts, 8..10 the ray's gt colour on every sample; ray b's samples
 // are columns b*N .. b*N + N - 1. Returns loss = sum over rays and
 // channels of (rgb_ray - gt)^2 / (3B) and its gradients, f32, packed;

@@ -7,7 +7,9 @@
 // _encode (:410), in bf16: the encoding (the point one, or with `var` the
 // integrated one of the mip path, :473-477; with `wx`/`wd` BARF's anneal
 // windows, :491-494, in f32 before the rounding), the nine chained products
-// and the rgb/sigma heads of a tile of sample rows.
+// and the rgb/sigma heads of a tile of sample rows; with APP, the
+// appearance rail (:541-545, :589-594: hc_pre += Wca app8) as eight more
+// posd rows that Wcd's last eight columns (Wca) multiply.
 //
 // What bounds it: the tensor cores (~0.54 M multiply-adds a sample row:
 // 2.28 ms at 2,097,152 rows at 989 TFLOP/s); with residuals, the
@@ -108,7 +110,10 @@ struct Plan {
   __host__ __device__ long long smem_bytes() const { return fixed_bytes() + stages() * stage_bytes(); }
 };
 
-__host__ __device__ inline Plan plan_of(int Lp, int Ld, int H) { return Plan{H, enc_rows(Lp), enc_rows(Ld)}; }
+// `app`: posd holds the eight appearance-code rows too (posd_rows).
+__host__ __device__ inline Plan plan_of(int Lp, int Ld, int H, bool app = false) {
+  return Plan{H, enc_rows(Lp), posd_rows(Ld, app)};
+}
 
 // Byte offset of (row, feature n) in a tile of 64-feature chunks: 16-byte
 // chunk c of a 128-byte row r sits at c ^ (r % 8), as wgmma reads it.
@@ -388,6 +393,20 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   }
 }
 
+// An appearance model's codes (`code`: eight rows of stride `rows`) into
+// posd's rows enc_rows(Ld) .. + 7 of the warpgroup's rows, as they are (no
+// window), rounded to bf16 like every posd row (the TPU kernel's _mm(Wca,
+// app8) rounds them the same); two threads a row, four codes each. Rows
+// past `rows` get zero codes.
+__device__ void encode_codes(const float *__restrict__ code, long long rows, long long row0, int Ld,
+                             char *posd, int tid) {
+  const int r = tid & (ROWS - 1), half = tid >> 6;
+  const long long row = row0 + r;
+#pragma unroll
+  for (int j = 4 * half; j < 4 * half + 4; ++j)
+    put(posd, r, enc_rows(Ld) + j, row < rows ? code[(long long)j * rows + row] : 0.f);
+}
+
 // Features 0..F-1 (F a multiple of 8) of the tile to their residual
 // planes plane[f][row0 + r], row stride Rp. Eight lanes take one feature,
 // 8 rows each, so a warp writes four whole 128-byte lines a store. Lane
@@ -429,8 +448,11 @@ __device__ void store_planes(const char *tile, int F, bf16 *plane, long long Rp,
 
 // HF: the width H where it is fixed at build time (the flagship's 256), so
 // that the product widths and the epilogues' bounds are constants; 0
-// where H is taken at run time.
-template <int HF>
+// where H is taken at run time. APP: an appearance model's (16 input
+// rows, the codes in rows 8..15, which posd's last eight rows hold; a
+// compile-time switch, so the kernels without codes are the same code as
+// before they existed).
+template <int HF, bool APP>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld,
                int H_, Weights w, const char *__restrict__ image, bf16 *res, const float *__restrict__ var,
@@ -440,7 +462,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ unsigned char smem_raw[];
   char *smem = reinterpret_cast<char *>(smem_raw) +
                ((1024 - (__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);  // swizzle atoms
-  const Plan P{H, enc_rows(Lp), enc_rows(Ld)};
+  // built here, not by plan_of: through that call nvcc compiles the kernels
+  // without codes into longer, slower code than this line gives
+  const Plan P{H, enc_rows(Lp), enc_rows(Ld) + (APP ? 8 : 0)};
   const int ntc = P.tile_chunks(), stages = P.stages();
   Ring rg{smem + CONSUMERS * ntc * CHUNK, nullptr, nullptr, (int)P.stage_bytes(), stages};
   float *heads = reinterpret_cast<float *>(rg.buf + stages * rg.stage_bytes);  // [CONSUMERS][4][ROWS]
@@ -489,7 +513,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   char *act = smem + wq * ntc * CHUNK;
   char *posx = act + chunks(H) * CHUNK, *posd = posx + chunks(FX) * CHUNK;
   float *hd = heads + wq * 4 * ROWS;  // rgb in rows 0..2, sigma in row 3
-  const Layout L = make_layout(rows, Lp, Ld, H);
+  const Layout L = make_layout(rows, Lp, Ld, H, APP);
   const long long Rp = L.Rp;
   const int nh = P.npad(0), nc = P.npad(9);
   const float *bc1 = bias_s + 8 * H + H2 + 8;
@@ -508,6 +532,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     bar_wg(wq);  // the last tile's reads of posx, posd and the heads are done
     encode(x, rows, row0, Lp, Ld, posx, posd, tid, var, wx, wd);
+    if constexpr (APP) encode_codes(x + 8 * rows, rows, row0, Ld, posd, tid);
     to_async();
     bar_wg(wq);
     if (keep) {
@@ -531,7 +556,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     dense(6, H, -1, L.h(6));
     product<NH>(d, rg, act, H, nh, false);  // Wp1
     dense(7, H, -1, L.h(7));
-    product<NC>(d, rg, act, H, nc, false);  // Wcs h7 (colour rows and sigma) + Wcd posd
+    product<NC>(d, rg, act, H, nc, false);  // Wcs h7 (colour rows and sigma) + Wcd posd (+ Wca codes)
     product<NC>(d, rg, posd, FD, nc, true);
     dense(8, H2, H2, L.hc());
     product<8>(d8, rg, act, H2, 8, false);  // Wc1 hc: rgb
@@ -596,15 +621,17 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 
 // The weight image, then the persistent grid: one block an SM, at most one
 // a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
-// the mip path's variance rows; `wx`, `wd`: null, or the anneal windows.
+// the mip path's variance rows; `wx`, `wd`: null, or the anneal windows;
+// APP: an appearance model's (x has 16 rows, the codes in rows 8..15).
+template <bool APP>
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w,
            bf16 *res, void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
-  const Plan P = plan_of(Lp, Ld, H);
+  const Plan P = plan_of(Lp, Ld, H, APP);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kernel = H == 256 ? fwd_kernel<256> : fwd_kernel<0>;
+  auto kernel = H == 256 ? fwd_kernel<256, APP> : fwd_kernel<0, APP>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes());
   if (e != cudaSuccess) return (int)e;

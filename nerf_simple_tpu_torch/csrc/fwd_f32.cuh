@@ -7,8 +7,9 @@
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_forward_tile (:497) with
 // _encode (:410), in f32: the encoding (the point one, or with `var` the
 // integrated one of the mip path, :473-477; with `wx`/`wd` BARF's anneal
-// windows, :491-493), the nine chained products
-// and the rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
+// windows, :491-493; with APP the appearance rail, :541-545, :589-594,
+// as eight more posd rows under Wcd's last eight columns, Wca), the nine
+// chained products and the rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
 // at f32: full f32 FMA products (no TF32), the f32 bias added after the
 // sum, relu, the encoding with the accurate sincosf. Only the order of
 // the sums differs from the plain version.
@@ -69,7 +70,7 @@
 //    at frequency 2^i is multiplied by exp(-0.5 * 4^i * var_c) before it
 //    is stored, in the tile and in the residual planes alike, so B1's and
 //    B2's weight gradients (read from the planes) need no change. The
-//    anneal windows (`wx`, `wd`: FX and FD floats on the card, pose
+//    anneal windows (`wx`, `wd`: FX and enc_rows(Ld) floats on the card, pose
 //    refinement's coarse-to-fine encoder) multiply each encoded row of
 //    posx and posd by its weight in the same place; with null windows
 //    nothing is multiplied, so those launches are the same as without.
@@ -131,7 +132,10 @@ struct Plan {
   }
 };
 
-__host__ __device__ inline Plan plan_of(int Lp, int Ld, int H) { return Plan{H, enc_rows(Lp), enc_rows(Ld)}; }
+// `app`: posd holds the eight appearance-code rows too (posd_rows).
+__host__ __device__ inline Plan plan_of(int Lp, int Ld, int H, bool app = false) {
+  return Plan{H, enc_rows(Lp), posd_rows(Ld, app)};
+}
 
 // The weight ring as the block walks it: slice n of the block's sequence
 // (every tile's slices in image order, tile after tile) sits in stage n %
@@ -350,16 +354,35 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   }
 }
 
+// An appearance model's codes (`code`: eight rows of stride `rows`) into
+// posd's rows F0 = enc_rows(Ld) .. + 7 of the tile's rows (and of their
+// residual plane, with `plane`), as they are, with no window; four
+// threads a row. Rows past `rows` get zero codes.
+__device__ void encode_codes(const float *__restrict__ code, long long rows, long long row0, int F0, float *pos,
+                             float *plane, long long Rp, int t) {
+  const int r = t & (ROWS - 1), q = t >> 7;
+  const long long row = row0 + r;
+  const bool in = row < rows, keep = plane != nullptr && row < Rp;
+  for (int j = q; j < 8; j += 4) {
+    const float v = in ? code[(long long)j * rows + row] : 0.f;
+    pos[(F0 + j) * ROWS + r] = v;
+    if (keep) plane[(F0 + j) * Rp + row] = v;
+  }
+}
+
 // NI: the feature groups of a thread in the H-wide layers (2 for H > 128).
 // `var`: null, or the mip path's variance rows; `wx`, `wd`: null, or the
-// anneal windows of posx and posd (encode).
-template <int NI>
+// anneal windows of posx and posd (encode); APP: an appearance model's (16
+// input rows, the codes in rows 8..15, which posd's last eight rows hold;
+// a compile-time switch, so the kernels without codes are the same code as
+// before they existed).
+template <int NI, bool APP>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld, int H,
                Weights w, const char *__restrict__ image, float *res, const float *__restrict__ var,
                const float *__restrict__ wx, const float *__restrict__ wd) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Plan P = plan_of(Lp, Ld, H);
+  const Plan P = plan_of(Lp, Ld, H, APP);
   const int stages = P.stages(), FX = P.FX, FD = P.FD, H2 = H / 2;
   const long long ntiles = (rows + ROWS - 1) / ROWS;
   char *buf = reinterpret_cast<char *>(smem);
@@ -380,7 +403,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int t = threadIdx.x, lane = t & 31, wq = t >> 5, fw = wq & 7;
   const int fo4 = 4 * (4 * fw + (lane >> 3)), ro4 = 4 * (8 * (wq >> 3) + (lane & 7));
-  const Layout L = make_layout(rows, Lp, Ld, H);
+  const Layout L = make_layout(rows, Lp, Ld, H, APP);
   const long long Rp = L.Rp;
   auto Wm = [](const void *p) { return static_cast<const float *>(p); };
   float *slots = posx;  // the heads' partial sums, once posx is read
@@ -412,6 +435,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();  // every product has read `act` and posx
     epilogue<NI, NI>(acc, Wm(w.bs), H, act, plane(L.h(5)), Rp, row0, nullptr, 0, 0, slots, fo4, ro4, lane, fw);
     encode(x, rows, row0, Ld, 3, posd, plane(L.posd()), Rp, t, nullptr, wd);  // for Wcd, over posx
+    if constexpr (APP) encode_codes(x + 8 * rows, rows, row0, enc_rows(Ld), posd, plane(L.posd()), Rp, t);
     __syncthreads();
     product<NI, NI>(acc, rg, act, H, fo4, ro4, lane);  // Wp0
     dense(w.bp0, L.h(6), nullptr, 0, 0);
@@ -426,7 +450,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         out[3 * rows + row] = s + __ldg(Wm(w.bcs) + H2);
       }
     }
-    product<NI, 1>(acc, rg, act, H, fo4, ro4, lane);  // Wcs h7 (colour rows) + Wcd posd
+    product<NI, 1>(acc, rg, act, H, fo4, ro4, lane);  // Wcs h7 (colour rows) + Wcd posd (+ Wca codes)
     product<NI, 1>(acc, rg, posd, FD, fo4, ro4, lane);
     __syncthreads();  // every product has read `act`; sigma has read its slots
     epilogue<NI, 1>(acc, Wm(w.bcs), H2, act, plane(L.hc()), Rp, row0, Wm(w.Wc1), H2, 3, slots, fo4, ro4, lane,
@@ -480,15 +504,17 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 // The weight image, then the persistent grid: one block an SM, at most one
 // a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
 // the variance rows of the mip path's input; `wx`, `wd`: null, or the
-// anneal windows (FX and FD floats on the card).
+// anneal windows (FX and enc_rows(Ld) floats on the card); APP: an
+// appearance model's (x has 16 rows, the codes in rows 8..15).
+template <bool APP>
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w, float *res,
            void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
-  const Plan P = plan_of(Lp, Ld, H);
+  const Plan P = plan_of(Lp, Ld, H, APP);
   if (int e = build_image(w, P, image, stream)) return e;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kernel = P.NI() == 2 ? fwd_kernel<2> : fwd_kernel<1>;
+  auto kernel = P.NI() == 2 ? fwd_kernel<2, APP> : fwd_kernel<1, APP>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes());
   if (e != cudaSuccess) return (int)e;

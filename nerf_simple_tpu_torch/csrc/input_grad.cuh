@@ -9,15 +9,20 @@
 // (:733-746): the encoded inputs' cotangents of _backprop_tile (:865-868,
 // g_posx = W1^T g_h0 + Wsx^T g_h5 and g_posd = Wcd^T g_hc, its mTg
 // products, :784-790), times BARF's anneal windows, through the
-// encoder's transpose _input_grad_tile (:871-938, without contraction).
+// encoder's transpose _input_grad_tile (:871-938, without contraction);
+// for an appearance model also the code gradients g_app = Wca^T g_hc
+// (:867), appended as rows 8..15 of dx (:747-748, :1140-1145).
 //
 // Contract: the workspace's cotangent planes (mlp_tile.cuh's Layout) g_h0,
 // g_h5 and g_hc (the first H/2 rows of g_cs), each (features, Rp) in the
 // compute type; W1, Wsx and Wcd of the packed weights in the compute type;
-// x (8, rows) f32 (rows 0..2 xyz, 3..5 the unit direction); wx (FX floats)
-// and wd (FD floats) on the card, or both null. dx (8, rows) f32: rows
-// 0..2 from posx, 3..5 from posd, 6..7 zero; rows past `rows` are not
-// written. Numerics of mTg: both operands in the compute type, f32 sums
+// x (8, rows) f32 (rows 0..2 xyz, 3..5 the unit direction; 16 rows for an
+// appearance model, of which rows 0..5 are read); wx (FX floats) and wd
+// (enc_rows(Ld) floats) on the card, or both null. dx (8, rows) f32: rows
+// 0..2 from posx, 3..5 from posd, 6..7 zero; for an appearance model
+// (`app`: Wcd holds Wca as its last eight columns, posd_rows) dx is (16,
+// rows) and rows 8..15 are Wca^T g_hc, the codes' cotangents, which pass
+// through no encoder and no window. Rows past `rows` are not written. Numerics of mTg: both operands in the compute type, f32 sums
 // (a bf16 product is exact in f32, so an f32 FMA of bf16 values is the
 // bf16 product with f32 accumulation); the angles in f32 with the
 // accurate sincosf (bf16 angles would corrupt the high octaves'
@@ -38,8 +43,9 @@
 // row anyway. A block (512 threads, one an SM: a persistent grid) copies
 // the three weight slices it needs into shared memory once, as f32 and
 // transposed to [o][slot]: only the columns a row of x reads (3 raw, 3 Lp
-// sin, 3 Lp cos of posx in KX = 64 slots; 27 of posd in KD = 32), 147 KB
-// at H = 256. Each thread then walks the H cotangent rows of its sample
+// sin, 3 Lp cos of posx in KX = 64 slots; 27 of posd in KD = 32, and
+// with appearance codes their eight in eight more slots, KDA = 40), 147
+// KB at H = 256 (151 KB with codes). Each thread then walks the H cotangent rows of its sample
 // row (coalesced loads along the rows, the next one fetched ahead),
 // multiplying each into 64 f32 accumulators with weights read as float4
 // broadcasts; posx first (W1 on g_h0 and Wsx on g_h5 into one set of
@@ -54,10 +60,13 @@ namespace ig {
 constexpr int THREADS = 512;
 constexpr int LXM = 10, KX = 64;  // octaves of posx held; slots: 3 raw + 3 LXM sin + 3 LXM cos, padded
 constexpr int LDM = 4, KD = 32;   // the same for posd
+constexpr int KDA = KD + 8;       // posd's slots with the eight appearance-code columns after them
 
 long long launches = 0;  // of this library, counted where they launch
 
-__host__ __device__ inline long long smem_bytes(int H) { return 4LL * (2LL * H * KX + (long long)(H / 2) * KD); }
+__host__ __device__ inline long long smem_bytes(int H, bool app = false) {
+  return 4LL * (2LL * H * KX + (long long)(H / 2) * (app ? KDA : KD));
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -77,11 +86,14 @@ __device__ __forceinline__ int column(int s, int L) {
 // One branch of the encoder's transpose for the calling thread's row: the
 // f32 products of its O cotangent rows ga (and gb, TWO) with the slot
 // weights sa (and sb) [o][K], times the windows ew (or none), then the
-// transpose at the row's three coordinates xc (stride `rows`) into d.
+// transpose at the row's three coordinates xc (stride `rows`) into d; the
+// products of the slots past KD (the appearance codes', K = KDA) go to
+// `code` as they are.
 template <class T, int K, int LM, bool TWO>
 __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
                                        const float *sa, const float *sb, int O, const float *__restrict__ xc,
-                                       long long rows, int L, const float *__restrict__ ew, float d[3]) {
+                                       long long rows, int L, const float *__restrict__ ew, float d[3],
+                                       float *code = nullptr) {
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
@@ -140,9 +152,13 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     }
     d[c] = dc;
   }
+  if constexpr (K == KDA)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) code[j] = acc[KD + j];
 }
 
-template <class T>
+// KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16 rows).
+template <class T, int KP>
 __global__ void __launch_bounds__(THREADS, 1)
     input_grad_kernel(const T *__restrict__ g0, const T *__restrict__ g5, const T *__restrict__ gc, long long Rp,
                       const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
@@ -156,16 +172,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     sA[u] = k < 0 ? 0.f : to_f(W1[o * FX + k]);
     sB[u] = k < 0 ? 0.f : to_f(Wsx[o * FX + k]);
   }
-  for (int u = threadIdx.x; u < H2 * KD; u += THREADS) {  // Wcd^T
-    const int o = u / KD, k = column<LDM>(u % KD, Ld);
+  for (int u = threadIdx.x; u < H2 * KP; u += THREADS) {  // Wcd^T (its Wca columns in the slots past KD)
+    const int o = u / KP, s = u % KP, k = s < KD ? column<LDM>(s, Ld) : enc_rows(Ld) + s - KD;
     sC[u] = k < 0 ? 0.f : to_f(Wcd[o * FD + k]);
   }
   __syncthreads();
   for (long long row = (long long)blockIdx.x * THREADS + threadIdx.x; row < rows;
        row += (long long)gridDim.x * THREADS) {
-    float d[3], e[3];
+    float d[3], e[3], code[8];
     branch<T, KX, LXM, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
-    branch<T, KD, LDM, false>(gc + row, nullptr, Rp, sC, nullptr, H2, x + 3 * rows + row, rows, Ld, wd, e);
+    branch<T, KP, LDM, false>(gc + row, nullptr, Rp, sC, nullptr, H2, x + 3 * rows + row, rows, Ld, wd, e, code);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       dx[c * rows + row] = d[c];
@@ -173,37 +189,41 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     dx[6 * rows + row] = 0.f;
     dx[7 * rows + row] = 0.f;
+    if constexpr (KP == KDA)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dx[(8 + j) * rows + row] = code[j];
   }
 }
 
 template <class T>
 int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, int H, const Weights &w,
-             const float *wx, const float *wd, float *dx, cudaStream_t stream) {
-  const Layout L = make_layout(rows, Lp, Ld, H);
-  const long long es = sizeof(T), smem = smem_bytes(H);
+             const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app) {
+  const Layout L = make_layout(rows, Lp, Ld, H, app);
+  const long long es = sizeof(T), smem = smem_bytes(H, app);
+  auto kernel = app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(input_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (rows + THREADS - 1) / THREADS;
   const unsigned grid = (unsigned)(blocks < sms ? blocks : sms);
   auto plane = [&](int f) { return reinterpret_cast<const T *>(gws + es * f * L.Rp); };
-  input_grad_kernel<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       plane(L.gh(0)), plane(L.gh(5)), plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD,
       static_cast<const T *>(w.W1), static_cast<const T *>(w.Wsx), static_cast<const T *>(w.Wcd), wx, wd, dx);
   return (int)cudaGetLastError();
 }
 
-// dx (8, rows) from the cotangent planes `gws` of the workspace, on
-// `stream`; counts the launch.
+// dx (8, rows), or (16, rows) with `app`, from the cotangent planes `gws`
+// of the workspace, on `stream`; counts the launch.
 int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
-           const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream) {
+           const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false) {
   if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
   const char *g = static_cast<const char *>(gws);
-  const int e = is_bf16 ? launch_t<bf16>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream)
-                        : launch_t<float>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream);
+  const int e = is_bf16 ? launch_t<bf16>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app)
+                        : launch_t<float>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app);
   if (e == 0) ++launches;
   return e;
 }

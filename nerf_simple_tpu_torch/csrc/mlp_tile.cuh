@@ -58,6 +58,10 @@ typedef __nv_bfloat16 bf16;
 
 __host__ __device__ inline int ceil8(int n) { return (n + 7) / 8 * 8; }
 __host__ __device__ inline int enc_rows(int L) { return 8 + 2 * ceil8(3 * L); }
+// Rows of the posd tile and plane: the encoded direction, and with `app`
+// the eight appearance-code rows after it (the input's rows 8..15, which
+// Wca, packed into Wcd's last eight columns, multiplies).
+__host__ __device__ inline int posd_rows(int Ld, bool app) { return enc_rows(Ld) + (app ? 8 : 0); }
 __host__ __device__ inline long long align256(long long b) { return (b + 255) / 256 * 256; }
 
 __device__ __forceinline__ float bias(const void *b, int o) {
@@ -68,7 +72,9 @@ __device__ __forceinline__ float bias(const void *b, int o) {
 // Workspace of the backward: the forward's residuals and the backward's
 // cotangents, each a (features, Rp) plane in the compute type, Rp = rows
 // rounded up to a whole tile. Pad rows hold finite residuals and zero
-// cotangents, so they add nothing to a weight gradient.
+// cotangents, so they add nothing to a weight gradient. With appearance
+// codes the posd plane has eight more rows (posd_rows), and every plane
+// after it moves down by eight.
 struct Layout {
   int FX, FD, H, H2;
   long long Rp;
@@ -85,8 +91,8 @@ struct Layout {
   __host__ __device__ int FG() const { return 16 + H2 + 8 * H; }
 };
 
-__host__ __device__ inline Layout make_layout(long long rows, int Lp, int Ld, int H) {
-  return Layout{enc_rows(Lp), enc_rows(Ld), H, H / 2, (rows + TR - 1) / TR * TR};
+__host__ __device__ inline Layout make_layout(long long rows, int Lp, int Ld, int H, bool app = false) {
+  return Layout{enc_rows(Lp), posd_rows(Ld, app), H, H / 2, (rows + TR - 1) / TR * TR};
 }
 
 #include "fwd_bf16.cuh"  // fb: the bf16 forward tile kernel
@@ -98,7 +104,8 @@ __host__ __device__ inline Layout make_layout(long long rows, int Lp, int Ld, in
 // The twelve weight-gradient sums of the backward, as csrc/wgrad.cuh
 // takes them: cotangent plane gf (O features) of gws against residual
 // plane af (K features) of res (element size es; null for sizing), into
-// dW and db.
+// dW and db. With appearance codes Wcd's sum runs over posd's eight code
+// rows too: its last eight columns are dWca.
 void wgrad_tasks(const Layout &L, const Grads &out, const void *res, const void *gws,
                  long long es, WTask w[12]) {
   struct Task { int gf, O, af, K; float *dW, *db; };
@@ -136,13 +143,19 @@ long long bwd_image_bytes(int H, int is_bf16) {
 
 // The backward tile kernel of the compute type: from the output
 // cotangents g (rows 0..2 d_rgb, row 3 d_sigma; stride `rows`) and the
-// residual planes `res` to every cotangent plane of `gws` (Layout). Each
-// builds its weight image from `w` in `image` (bwd_image_bytes) first.
+// residual planes `res` to every cotangent plane of `gws` (Layout; `app`:
+// the appearance model's). Each builds its weight image from `w` in
+// `image` (bwd_image_bytes) first. The tile kernels read the relu outputs
+// h0..h7 and hc, never posx or posd; an appearance model's posd has eight
+// more rows, which moves each of those planes by eight, so they get the
+// planes from eight rows on and walk them in the layout without codes.
 int bwd_tile(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16, const Weights &w,
-             const void *res, void *gws, void *image, cudaStream_t stream) {
-  const int e = is_bf16 ? bb::launch(g, rows, Lp, Ld, H, w, static_cast<const bf16 *>(res),
+             const void *res, void *gws, void *image, cudaStream_t stream, bool app = false) {
+  const long long shift = app ? 8 * make_layout(rows, Lp, Ld, H).Rp * (is_bf16 ? 2 : 4) : 0;
+  const char *r = static_cast<const char *>(res) + shift;
+  const int e = is_bf16 ? bb::launch(g, rows, Lp, Ld, H, w, reinterpret_cast<const bf16 *>(r),
                                      static_cast<bf16 *>(gws), image, stream)
-                        : fw::launch(g, rows, Lp, Ld, H, w, static_cast<const float *>(res),
+                        : fw::launch(g, rows, Lp, Ld, H, w, reinterpret_cast<const float *>(r),
                                      static_cast<float *>(gws), image, stream);
   if (e == 0) ++bwd_tile_launches;
   return e;
@@ -150,11 +163,12 @@ int bwd_tile(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 
 // Backward from output cotangents: the tile kernel, then the twelve
 // weight-gradient sums. `res` holds the forward's residuals; gws, image
-// and part are scratch.
+// and part are scratch. `app`: the appearance model's Layout.
 int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16, const Weights &w,
-             void *res, void *gws, void *image, float *part, const Grads &out, cudaStream_t stream) {
-  if (int e = bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, res, gws, image, stream)) return e;
-  const Layout L = make_layout(rows, Lp, Ld, H);
+             void *res, void *gws, void *image, float *part, const Grads &out, cudaStream_t stream,
+             bool app = false) {
+  if (int e = bwd_tile(g, rows, Lp, Ld, H, is_bf16, w, res, gws, image, stream, app)) return e;
+  const Layout L = make_layout(rows, Lp, Ld, H, app);
   WTask tasks[12];
   wgrad_tasks(L, out, res, gws, is_bf16 ? 2 : 4, tasks);
   return wgrad_launch(tasks, 12, L.Rp, is_bf16, part, stream);
@@ -164,24 +178,30 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 // `res`, the residuals are kept. Each builds its weight image in `image`
 // (fwd_image_bytes) first. With `mip`, x has 16 rows of stride `rows` and
 // the encoder is the integrated one, on the variances of rows 11..13.
-// `wx`, `wd`: null, or the anneal windows of posx and posd (FX and FD
-// floats on the card), which multiply each encoded row.
+// `wx`, `wd`: null, or the anneal windows of posx and posd (FX and
+// enc_rows(Ld) floats on the card), which multiply each encoded row. With
+// APP (an appearance model; not with `mip`), x has 16 rows and rows 8..15
+// are the appearance codes: the encoder copies them, unencoded and without
+// a window, into posd's last eight rows, where Wcd's last eight columns
+// (Wca) read them. APP is a compile-time switch: the train-step and render
+// entries, which take no codes, build the forward kernels without it only.
+template <bool APP = false>
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
             const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
             cudaStream_t stream) {
   const float *var = mip ? x + 11 * rows : nullptr;
   if (is_bf16)
-    return fb::launch(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, wx, wd, stream);
-  return ff::launch(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, wx, wd, stream);
+    return fb::launch<APP>(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, wx, wd, stream);
+  return ff::launch<APP>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, wx, wd, stream);
 }
 
-long long fwd_smem(int Lp, int Ld, int H, int is_bf16) {
-  return is_bf16 ? fb::plan_of(Lp, Ld, H).smem_bytes() : ff::plan_of(Lp, Ld, H).smem_bytes();
+long long fwd_smem(int Lp, int Ld, int H, int is_bf16, bool app = false) {
+  return is_bf16 ? fb::plan_of(Lp, Ld, H, app).smem_bytes() : ff::plan_of(Lp, Ld, H, app).smem_bytes();
 }
 
 // Bytes of the scratch `image` that forward() needs.
-long long fwd_image_bytes(int Lp, int Ld, int H, int is_bf16) {
-  return is_bf16 ? fb::plan_of(Lp, Ld, H).image_bytes() : ff::plan_of(Lp, Ld, H).image_bytes();
+long long fwd_image_bytes(int Lp, int Ld, int H, int is_bf16, bool app = false) {
+  return is_bf16 ? fb::plan_of(Lp, Ld, H, app).image_bytes() : ff::plan_of(Lp, Ld, H, app).image_bytes();
 }
 
 long long bwd_smem(int H, int is_bf16) { return is_bf16 ? bb::Plan{H}.smem_bytes() : fw::Plan{H}.smem_bytes(); }
@@ -201,14 +221,14 @@ struct Workspace {
   long long bytes;
 };
 
-Workspace carve(void *base, long long rows, int Lp, int Ld, int H, int is_bf16) {
-  const Layout L = make_layout(rows, Lp, Ld, H);
+Workspace carve(void *base, long long rows, int Lp, int Ld, int H, int is_bf16, bool app = false) {
+  const Layout L = make_layout(rows, Lp, Ld, H, app);
   const long long es = is_bf16 ? 2 : 4;
   const long long a = align256(es * L.FA() * L.Rp), b = align256(es * L.FG() * L.Rp);
   WTask tasks[12];
   wgrad_tasks(L, Grads{}, nullptr, nullptr, es, tasks);
   const long long c = align256(4LL * wgrad_part_floats(tasks, 12, L.Rp, is_bf16));
-  const long long d = align256(std::max(fwd_image_bytes(Lp, Ld, H, is_bf16), bwd_image_bytes(H, is_bf16)));
+  const long long d = align256(std::max(fwd_image_bytes(Lp, Ld, H, is_bf16, app), bwd_image_bytes(H, is_bf16)));
   char *p = static_cast<char *>(base);
   return Workspace{p, p + a, reinterpret_cast<float *>(p + a + b), p + a + b + c, a + b + c + d};
 }

@@ -9,8 +9,10 @@ same compositing the model trains against (dense midpoint samples).
 test/ PNGs plus transforms_*.json with ``camera_angle_x``), so the
 Blender loader reads it like lego; ``write_depth`` adds the metric-depth
 sidecars; ``train_jitter`` jitters the train cameras' elevation (the JAX
-writer's seed). The JAX package's ``hard`` and ``unbounded`` styles and
-varied camera radii are not ported.
+writer's seed). ``add_exposure_twins`` gives every train view a darker
+twin at the same pose (the appearance codes' check). The JAX package's
+``hard`` and ``unbounded`` styles and varied camera radii are not
+ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
 from nerf_simple_tpu_torch.ops.volume import composite
-from nerf_simple_tpu_torch.utils.png import encode_png
+from nerf_simple_tpu_torch.utils.png import decode_png, encode_png
 
 _FOV_X = 0.6911112070083618  # lego's camera_angle_x
 _CHUNK = 65536  # rays a pass of render_gt
@@ -139,3 +141,26 @@ def write_blender_scene(
             frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": pose.tolist()})
         with open(os.path.join(path, f"transforms_{split}.json"), "w") as fh:
             json.dump({"camera_angle_x": _FOV_X, "frames": frames}, fh)
+
+
+def add_exposure_twins(path: str, factor: float = 0.55) -> int:
+    """Give each of the n train views of the scene at ``path`` an exposure
+    twin: train image n + i is image i times ``factor``, cut to 8 bits, at
+    image i's pose (the JAX package's exposure-twin fixture,
+    tests/test_pose_app.py:476-507, which writes the same bytes with cv2).
+    Equal poses mean equal rays, so only a per-image appearance code can
+    tell the twins apart. Returns the train views now in the scene."""
+    tj_path = os.path.join(path, "transforms_train.json")
+    with open(tj_path) as fh:
+        tj = json.load(fh)
+    frames = tj["frames"]
+    n = len(frames)
+    for i in range(n):
+        with open(os.path.join(path, "train", f"r_{i}.png"), "rb") as fh:
+            img = decode_png(fh.read(), color=True).astype(np.float64)
+        with open(os.path.join(path, "train", f"r_{n + i}.png"), "wb") as fh:
+            fh.write(encode_png((img * factor).astype(np.uint8)))
+        frames.append({"file_path": f"./train/r_{n + i}", "transform_matrix": frames[i]["transform_matrix"]})
+    with open(tj_path, "w") as fh:
+        json.dump(tj, fh)
+    return 2 * n

@@ -20,12 +20,14 @@ With ``mip`` it casts cones (at ``mip_levels`` 1 or 2), their radius
 A pose-refined run's train-split stills render from the refined poses:
 the camera deltas of the checkpoint's ``{"field", "cams"}`` params, or
 after a pose freeze those of the ``cam_deltas.npz`` sidecar beside it,
-baked into the train rays; val and test poses are never refined.
+baked into the train rays; val and test poses are never refined. An
+appearance checkpoint (``{"field", "app"}``) renders its stills, normals
+and orbit under one code: the table's mean for ``appearance_idx`` -1
+(NeRF-W's canonical look), else train image ``appearance_idx``'s.
 
 Mip with Np (mip-NeRF 360), occupancy eval, LLFF (spiral path, NDC),
-the tiny_nerf loader, sharded eval, appearance-embedding checkpoints and
-Orbax checkpoint directories are not ported: each raises
-NotImplementedError.
+the tiny_nerf loader, sharded eval and Orbax checkpoint directories are
+not ported: each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -126,12 +128,23 @@ def cam_deltas(cfg: TestConfig, aux: dict) -> tuple[np.ndarray, np.ndarray] | No
         return d["dr"].astype(np.float32), d["dt"].astype(np.float32)
 
 
-def _check_aux(aux: dict, model) -> None:
-    """Appearance codes are only dropped when the model reads none."""
-    if "app" in aux and model.app_dim > 0:
-        raise NotImplementedError(
-            "appearance-embedding checkpoints are not ported yet: ROADMAP Queue A item 6, appearance"
-        )
+def appearance_code(cfg: TestConfig, aux: dict, model) -> np.ndarray | None:
+    """The (app_dim,) code an appearance checkpoint renders with (JAX
+    evaluate.py:97-106): the mean of its ``app`` table for
+    ``appearance_idx`` -1, else that train image's row; None for a model
+    that reads no code. An index past the table raises (JAX's gather
+    clamps it)."""
+    if model.app_dim == 0:
+        return None
+    if "app" not in aux:
+        raise ValueError(f"the model reads appearance codes (app_dim={model.app_dim}) but the checkpoint holds "
+                         "no 'app' table")
+    table = np.asarray(aux["app"], np.float32)
+    if cfg.appearance_idx < 0:
+        return table.mean(axis=0)
+    if cfg.appearance_idx >= len(table):
+        raise IndexError(f"appearance_idx {cfg.appearance_idx} of a code table of {len(table)} train images")
+    return table[cfg.appearance_idx]
 
 
 def _write_png(path: str, img: np.ndarray) -> None:
@@ -178,7 +191,8 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
             "(train with proposal: true)"
         )
     model = _model_for(cfg, params)
-    _check_aux(aux, model)
+    code = appearance_code(cfg, aux, model)
+    app = None if code is None else torch.as_tensor(code, device=device)
     if cfg.Np > 0:  # the proposal arch from its weight shapes, which determine it
         field = ProposalPair.from_jax_params(params, device, model, infer_proposal_arch(params["prop"]))
     else:
@@ -205,7 +219,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     if cfg.animation:
         poses = orbit_poses(cfg.orbit_radius, -cfg.theta, cfg.num_poses)
         out = render_orbit_video(field, poses, rd.H, rd.W, rd.f, out_dir, cfg.seed, settings,
-                                 chunk=cfg.batch_size)
+                                 chunk=cfg.batch_size, app=app)
         print(f"wrote {out}")
         return
 
@@ -213,7 +227,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     n = rd.H * rd.W
     for idx in cfg.im_idxs:
         rgb, disp = render_image(field, rd.rays[cfg.im_set], rd.H, rd.W, idx,
-                                 derive_seed(cfg.seed, idx), settings, chunk=cfg.batch_size)
+                                 derive_seed(cfg.seed, idx), settings, chunk=cfg.batch_size, app=app)
         gt = rd.pixels[cfg.im_set][idx * n : (idx + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
         ssim_txt = ""
         if min(rd.H, rd.W) >= 11:  # SSIM needs one full 11x11 window

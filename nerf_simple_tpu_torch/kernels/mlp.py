@@ -47,7 +47,14 @@ planes hold, so the backward's weight gradients need no change. BARF's
 anneal windows (``enc_w``, ``anneal_row_weights``: pose refinement's
 coarse-to-fine encoder) multiply each encoded row of posx and posd by its
 octave's weight the same way, in the forward and in the backward's
-recompute.
+recompute. An appearance model (``model.app_dim`` > 0, NeRF-W's per-image
+codes) takes 16 input rows, its code in rows 8..15 (``app_dim`` of them,
+zeros after), which only the colour head reads: ``hc_pre = Wcs h7 + Wcd
+posd + Wca app8``. The port packs ``Wca`` as eight more columns of ``Wcd``
+and the encoder copies the code rows after posd's encoded rows, so the
+kernels run that sum as one product, ``[Wcd | Wca] [posd ; app8]``, and
+the backward's ``Wcd`` sum and input gradient give ``dWca`` and the codes'
+gradients with no new pass (``_posd_rows``).
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -119,6 +126,13 @@ def _perm(L: int) -> np.ndarray:
     return perm
 
 
+def _posd_rows(model) -> int:
+    """Rows of posd as the kernels hold it: the encoded direction, and for
+    an appearance model the eight code rows after it (the input's rows
+    8..15), which ``Wcd``'s last eight columns (``Wca``) multiply."""
+    return _enc_rows(model.Ld) + (8 if model.app_dim > 0 else 0)
+
+
 def _valid(L: int) -> np.ndarray:
     """1 on kernel rows that carry a real feature, 0 on pad rows."""
     sb = _sin_block(L)
@@ -152,7 +166,7 @@ class FusedWeights(NamedTuple):
     bp1: torch.Tensor
     Wcs: torch.Tensor  # (H//2 + 8, H): Wcf·Wfeature rows, then sigma, then 7 zero rows
     bcs: torch.Tensor  # (H//2 + 8, 1): Wcf·b_feature + b_color0 ; b_sigma ; 0
-    Wcd: torch.Tensor  # (H//2, FD) color0, posd half
+    Wcd: torch.Tensor  # (H//2, FD) color0, posd half; with app_dim, Wca as 8 more columns
     Wc1: torch.Tensor  # (8, H//2) color1: rgb rows 0..2, zero rows 3..7
     bc1: torch.Tensor
 
@@ -161,7 +175,10 @@ def pack_weights(field: NerfField, differentiable: bool = False) -> FusedWeights
     """Repack the field's layers into the kernel layout, f32, on the
     field's device. The feature-layer fold is computed in float64 and
     rounded once. With ``differentiable`` (and gradients enabled) the
-    result carries autograd history back to the field's parameters."""
+    result carries autograd history back to the field's parameters. An
+    appearance model's ``Wcd`` is ``[Wcd | Wca]``: ``color0``'s code
+    columns, then zero columns to eight (the JAX ``FusedWeightsApp.Wca``,
+    kernels/mlp.py:350-360)."""
     if not differentiable:
         with torch.no_grad():
             return pack_weights(field, differentiable=True)
@@ -186,6 +203,9 @@ def pack_weights(field: NerfField, differentiable: bool = False) -> FusedWeights
         return torch.zeros(shape, dtype=torch.float64, device=dev)
 
     Wcf = w["color0"][:, :H]
+    Wcd = perm_pad(w["color0"][:, H : H + Cd], model.Ld)
+    if model.app_dim > 0:
+        Wcd = torch.cat([Wcd, w["color0"][:, H + Cd :], zeros(H // 2, 8 - model.app_dim)], 1)
     fields = dict(
         W1=perm_pad(w["trunk0"], model.Lp), b1=col(b["trunk0"]),
         Wt1=w["trunk1"], bt1=col(b["trunk1"]),
@@ -198,7 +218,7 @@ def pack_weights(field: NerfField, differentiable: bool = False) -> FusedWeights
         Wp1=w["post1"], bp1=col(b["post1"]),
         Wcs=torch.cat([Wcf @ w["feature"], w["sigma"], zeros(7, H)]),
         bcs=col(torch.cat([Wcf @ b["feature"] + b["color0"], b["sigma"], zeros(7)])),
-        Wcd=perm_pad(w["color0"][:, H : H + Cd], model.Ld),
+        Wcd=Wcd,
         Wc1=torch.cat([w["color1"], zeros(5, H // 2)]),
         bc1=col(torch.cat([b["color1"], zeros(5)])),
     )
@@ -315,7 +335,7 @@ def f32_forward_smem_bytes(model: NerfMLP) -> int:
     rows (FX < FD + 8), the ring's stages (2-4, as many as fit in
     ``SMEM_LIMIT``) and the barrier words."""
     ni = 2 if model.H > 128 else 1
-    FX, FD = _enc_rows(model.Lp), _enc_rows(model.Ld)
+    FX, FD = _enc_rows(model.Lp), _posd_rows(model)
     fixed = 4 * F32_ROWS * (model.H + FX + (0 if FX >= FD + 8 else FD)) + 2 * 4 * 8
     stage = 4 * F32_KS * 128 * ni
     return fixed + min(max((SMEM_LIMIT - fixed) // stage, 2), 4) * stage
@@ -365,10 +385,12 @@ def f32_backward_smem_bytes(model: NerfMLP) -> int:
 
 def anneal_row_weights(model: NerfMLP, alpha: float, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """BARF's anneal windows in the kernels' encoded-row layout: (wx (FX,),
-    wd (FD,)) f32. The raw rows carry 1; octave i's sin and cos rows of
-    every coordinate carry ``ops/encoding.py::anneal_weights(L, alpha)[i]``;
-    pad rows carry 1 (their weight columns are zero). The JAX
-    ``anneal_row_weights`` (its row 3, the bias rail, is a pad row here)."""
+    wd (enc_rows(Ld),)) f32. The raw rows carry 1; octave i's sin and cos
+    rows of every coordinate carry ``ops/encoding.py::anneal_weights(L,
+    alpha)[i]``; pad rows carry 1 (their weight columns are zero). The JAX
+    ``anneal_row_weights`` (its row 3, the bias rail, is a pad row here).
+    An appearance model's code rows, after posd's encoded rows, take no
+    window: JAX anneals only encoded rows (``_encode`` :491-493)."""
     from nerf_simple_tpu_torch.ops.encoding import anneal_weights
 
     def rows(L):
@@ -386,7 +408,9 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
     row order, f32. Pad rows are zero. With ``var`` (3, rows), the
     integrated encoder: posx's sin and cos rows of coordinate c at
     frequency 2^i times ``exp(-0.5 * 4^i * var_c)``. With the anneal
-    windows ``enc_w = (wx, wd)`` each row times its weight."""
+    windows ``enc_w = (wx, wd)`` each encoded row times its weight. For an
+    appearance model posd ends with the input's code rows 8..15 as they
+    are (``_posd_rows``)."""
 
     def branch(x3, L, v3=None):
         sb = _sin_block(L)
@@ -405,6 +429,8 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
     posx, posd = branch(xT[0:3], model.Lp, var), branch(xT[3:6], model.Ld)
     if enc_w is not None:
         posx, posd = posx * enc_w[0].to(posx.dtype)[:, None], posd * enc_w[1].to(posd.dtype)[:, None]
+    if model.app_dim > 0:
+        posd = torch.cat([posd, xT[8:16]])
     return posx, posd
 
 
@@ -416,7 +442,9 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
     sin row of coordinate c at frequency 2^i adds ``2^i cos(2^i x_c)``
     times its cotangent to x_c, a cos row ``-2^i sin(2^i x_c)``; posx feeds
     rows 0..2, posd rows 3..5; rows 6..7 are zero (the JAX
-    ``_input_grad_tile`` without contraction)."""
+    ``_input_grad_tile`` without contraction). For an appearance model dx
+    is (16, rows): posd's code rows pass their cotangents through to rows
+    8..15 (the JAX ``g_app``, appended at kernels/mlp.py:747-748)."""
 
     def branch(x3, g, L):
         sb = _sin_block(L)
@@ -425,9 +453,12 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
         dang = g[8 : 8 + 3 * L] * torch.cos(ang) - g[8 + sb : 8 + sb + 3 * L] * torch.sin(ang)
         return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1)
 
-    dx = torch.zeros((8, xT.shape[1]), dtype=g_posx.dtype, device=xT.device)
+    FD0 = _enc_rows(model.Ld)
+    dx = torch.zeros((_x_rows(False, model), xT.shape[1]), dtype=g_posx.dtype, device=xT.device)
     dx[0:3] = branch(xT[0:3].to(g_posx.dtype), g_posx, model.Lp)
-    dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd, model.Ld)
+    dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd[:FD0], model.Ld)
+    if model.app_dim > 0:
+        dx[8:16] = g_posd[FD0 : FD0 + 8]
     return dx
 
 
@@ -456,7 +487,8 @@ class Layout(NamedTuple):
 
     @classmethod
     def of(cls, model: NerfMLP) -> "Layout":
-        return cls(_enc_rows(model.Lp), _enc_rows(model.Ld), model.H)
+        """An appearance model's posd plane has its eight code rows too."""
+        return cls(_enc_rows(model.Lp), _posd_rows(model), model.H)
 
     posx = property(lambda s: 0)
     posd = property(lambda s: s.FX)
@@ -515,16 +547,18 @@ class Residuals(NamedTuple):
                    tuple(res[L.h(l) : L.h(l) + L.H] for l in range(8)), res[L.hc : L.FA])
 
 
-def _x_rows(mip: bool) -> int:
-    """Rows of the kernels' sample input: 8, or 16 with ``mip``'s variances."""
-    return 16 if mip else 8
+def _x_rows(mip: bool, model: NerfMLP = FLAGSHIP) -> int:
+    """Rows of the kernels' sample input: 8, or 16 with ``mip``'s variances
+    or an appearance model's codes (rows 8..15)."""
+    return 16 if mip or model.app_dim > 0 else 8
 
 
 def _forward(wts: FusedWeights, xT: torch.Tensor, dt, model: NerfMLP, mip: bool = False,
              enc_w: tuple | None = None):
     """The JAX ``_forward_tile``: (8, rows), or (16, rows) with ``mip``
-    (variances in rows 11..13), -> (out (8, rows), Residuals); ``enc_w``
-    the anneal windows."""
+    (variances in rows 11..13) or an appearance model (codes in rows
+    8..15, read through posd and ``Wcd``'s code columns), -> (out (8,
+    rows), Residuals); ``enc_w`` the anneal windows."""
     H2 = model.H // 2
     posx, posd = _encode(xT, model, xT[11:14] if mip else None, enc_w)
 
@@ -656,13 +690,17 @@ def _input_grad(wts: FusedWeights, xT: torch.Tensor, g_h0: torch.Tensor, g_h5: t
     planes (rows, as stored) of the first layer ``g_h0``, the skip layer
     ``g_h5`` and the colour head ``g_hc``: the encoded inputs' cotangents
     ``g_posx = W1^T g_h0 + Wsx^T g_h5`` and ``g_posd = Wcd^T g_hc`` (both
-    operands rounded to ``dt``, f32 sums: the JAX ``mTg``), times the
-    anneal windows, then the encoder's transpose in f32 (f64 for f64
-    planes) -> ``dx (8, rows)``."""
+    operands rounded to ``dt``, f32 sums: the JAX ``mTg``; for an
+    appearance model its last eight rows are ``g_app = Wca^T g_hc``), the
+    encoded rows times the anneal windows, then the encoder's transpose in
+    f32 (f64 for f64 planes) -> ``dx (8, rows)``, or (16, rows) with the
+    codes' cotangents in rows 8..15."""
     g_posx = _mm(wts.W1.T, g_h0, dt) + _mm(wts.Wsx.T, g_h5, dt)
     g_posd = _mm(wts.Wcd.T, g_hc, dt)
     if enc_w is not None:
-        g_posx, g_posd = g_posx * enc_w[0].to(g_posx.dtype)[:, None], g_posd * enc_w[1].to(g_posd.dtype)[:, None]
+        wd = torch.ones(g_posd.shape[0], dtype=g_posd.dtype, device=g_posd.device)
+        wd[: enc_w[1].shape[0]] = enc_w[1]
+        g_posx, g_posd = g_posx * enc_w[0].to(g_posx.dtype)[:, None], g_posd * wd[:, None]
     return _encode_transpose(xT, g_posx, g_posd, model)
 
 
@@ -677,7 +715,8 @@ def input_grad_plain(
     """Plain version of the input-gradient kernel (see ``input_grad``):
     from the backward's cotangent planes ``gws (FG, Rp)`` (``Layout``; as
     ``backward_tile`` gives them) and the inputs ``xT (8, rows)`` to ``dx
-    (8, rows)``, f32 (f64 for f64 planes, a reference)."""
+    (8, rows)`` (for an appearance model both 16 rows, dx's rows 8..15 the
+    codes'), f32 (f64 for f64 planes, a reference)."""
     L, rows = Layout.of(model), xT.shape[1]
     g = gws[:, :rows]
     dx = _input_grad(wts, xT, g[L.gh(0) : L.gh(0) + L.H], g[L.gh(5) : L.gh(5) + L.H],
@@ -697,8 +736,8 @@ def fused_mlp_backward_plain(
 ):
     """Plain PyTorch version of the backward kernel: ``gT (8, rows)`` with
     d_rgb in rows 0..2 and d_sigma in row 3 -> packed f32 gradients, and
-    with ``want_dx`` ``(grads, dx (8, rows))``; the forward it recomputes
-    with the anneal windows ``enc_w``."""
+    with ``want_dx`` ``(grads, dx (8, rows))`` (16 rows for an appearance
+    model); the forward it recomputes with the anneal windows ``enc_w``."""
     _, res = _forward(wts, xT, compute_dtype, model, mip, enc_w)
     out = _backprop(wts, res, gT[:3], gT[3], compute_dtype, model, want_pos=want_dx)
     if not want_dx:
@@ -887,19 +926,19 @@ class _CWeightsT(ctypes.Structure):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P, _P, _P], _I),
-        "fused_mlp_fwd_smem_bytes": ([_I] * 4, _LL),
-        "fused_mlp_fwd_image_bytes": ([_I] * 4, _LL),
-        "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _P], _I),
-        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P, _P, _I, _P], _I),
+        "fused_mlp_fwd_smem_bytes": ([_I] * 5, _LL),
+        "fused_mlp_fwd_image_bytes": ([_I] * 5, _LL),
+        "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _I, _P], _I),
+        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _I, _P], _I),
     },
     "fused_mlp_bwd": {
-        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _P],
+        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _I, _P],
                           _I),
-        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _P], _I),
+        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _P], _I),
         "input_grad_launch_count": ([_I], _LL),
-        "fused_mlp_bwd_smem_bytes": ([_I] * 4, _LL),
-        "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
+        "fused_mlp_bwd_smem_bytes": ([_I] * 5, _LL),
+        "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
         "wgrad_part_bytes": ([_I, _I, _LL, _I], _LL),
         "wgrad_group": ([_P, _I, _LL, _I, _P, _P], _I),
@@ -907,7 +946,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "wgrad_launch_count": ([_I], _LL),
         "bwd_tile_launch_count": ([_I], _LL),
         "bwd_tile_image_bytes": ([_I, _I], _LL),
-        "backward_tile": ([_P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _P, _P], _I),
+        "backward_tile": ([_P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _P, _I, _P], _I),
         "bwd_weight_image": ([_CPtrs, _I, _I, _P, _P], _I),
     },
     "fused_render": {
@@ -942,7 +981,7 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
     H, H2 = model.H, model.H // 2
-    FX, FD = _enc_rows(model.Lp), _enc_rows(model.Ld)
+    FX, FD = _enc_rows(model.Lp), _posd_rows(model)
     shapes = dict(W1=(H, FX), Wsh=(H, H), Wsx=(H, FX), Wcs=(H2 + 8, H),
                   bcs=(H2 + 8, 1), Wcd=(H2, FD), Wc1=(8, H2), bc1=(8, 1))
     for n in ("t1", "t2", "t3", "t4", "p0", "p1"):
@@ -954,8 +993,8 @@ def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
 def _check_launch(name: str, wts: FusedWeights, x: torch.Tensor, x_name: str, x_rows: int,
                   compute_dtype, model: NerfMLP) -> tuple[ctypes.CDLL, int]:
     """Raise on what the kernels do not take (``x`` must have ``x_rows``
-    rows: 16 for the train step and under mip, else 8); returns the
-    library and the bf16 flag."""
+    rows: 16 for the train step, under mip and for an appearance model,
+    else 8); returns the library and the bf16 flag."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the kernels compute in f32 or bf16, not {compute_dtype}")
     if model.H > _MAX_H:
@@ -975,7 +1014,8 @@ def _check_launch(name: str, wts: FusedWeights, x: torch.Tensor, x_name: str, x_
             )
     lib = _lib(name)
     bf16 = int(compute_dtype == torch.bfloat16)
-    smem = getattr(lib, f"{name}_smem_bytes")(model.Lp, model.Ld, model.H, bf16)
+    app = (int(model.app_dim > 0),) if name in ("fused_mlp_fwd", "fused_mlp_bwd") else ()
+    smem = getattr(lib, f"{name}_smem_bytes")(model.Lp, model.Ld, model.H, bf16, *app)
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"{model} needs {smem} B of shared memory a block; the card has {limit}")
@@ -1005,21 +1045,31 @@ def _dispatch(x: torch.Tensor) -> bool:
     return False
 
 
-def _image_scratch(nbytes, model: NerfMLP, bf16: int, device) -> torch.Tensor:
-    """Scratch for the forward's weight image of the compute type."""
-    return torch.empty(nbytes(model.Lp, model.Ld, model.H, bf16), dtype=torch.uint8, device=device)
+def _image_scratch(nbytes, model: NerfMLP, bf16: int, device, *app) -> torch.Tensor:
+    """Scratch for the forward's weight image of the compute type (``app``:
+    the appearance flag, for the entries that take it)."""
+    return torch.empty(nbytes(model.Lp, model.Ld, model.H, bf16, *app), dtype=torch.uint8, device=device)
 
 
-def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP) -> FusedWeights:
+def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP, mip: bool = False) -> FusedWeights:
     if not supported(model):
-        raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16; got {model}")
-    require_ported(model)  # no contraction, no appearance rail
+        raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16, app_dim <= 8; got {model}")
+    require_ported(model)  # no contraction
+    if mip and model.app_dim > 0:
+        raise ValueError("appearance codes and the integrated encoder both need the input's rows 8..15 "
+                         "(the JAX fused_mlp_forward's rule); mip with appearance_dim is refused")
     return _cast_weights(wts, compute_dtype)
 
 
+def _app(model: NerfMLP) -> int:
+    """The C entries' appearance flag."""
+    return int(model.app_dim > 0)
+
+
 def _enc_w_ptrs(enc_w: tuple | None, model: NerfMLP, device, mip: bool = False, want_dx: bool = False):
-    """Check the anneal windows ``enc_w = (wx (FX,), wd (FD,))`` (contiguous
-    f32 on ``device``, as ``anneal_row_weights`` makes them); returns their
+    """Check the anneal windows ``enc_w = (wx (FX,), wd (enc_rows(Ld),))``
+    (contiguous f32 on ``device``, as ``anneal_row_weights`` makes them;
+    an appearance model's code rows take none); returns their
     pointers, or (None, None) without windows. The cone-cast encoder takes
     neither the windows nor the input gradient (JAX config.py:627-631 for
     the first; the second needs ``_input_grad_tile_mip``)."""
@@ -1029,8 +1079,7 @@ def _enc_w_ptrs(enc_w: tuple | None, model: NerfMLP, device, mip: bool = False, 
             "_input_grad_tile_mip) are not ported yet: ROADMAP Queue A item 6")
     if enc_w is None:
         return None, None
-    L = Layout.of(model)
-    for name, t, n in zip(("wx", "wd"), enc_w, (L.FX, L.FD)):
+    for name, t, n in zip(("wx", "wd"), enc_w, (_enc_rows(model.Lp), _enc_rows(model.Ld))):
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) or t.device != device or not t.is_contiguous():
             raise ValueError(f"enc_w's {name} must be a contiguous ({n},) f32 tensor on {device}; got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
@@ -1059,30 +1108,35 @@ def fused_mlp_forward(
     may be any count (the kernel masks the ragged tile). With ``mip``,
     ``xT`` is (16, rows): the frustum Gaussians' means in rows 0..2, unit
     dirs 3..5, diagonal variances 11..13, read by the integrated encoder;
-    ``fused_mlp_forward.mip_launches`` counts those launches. ``enc_w =
-    (wx, wd)`` (``anneal_row_weights``, on the input's device) multiplies
-    each encoded row by its anneal window;
+    ``fused_mlp_forward.mip_launches`` counts those launches. For an
+    appearance model (``model.app_dim > 0``; not with ``mip``) ``xT`` is
+    (16, rows) with each sample's code in rows 8..15 (``app_dim`` rows,
+    zeros after); ``fused_mlp_forward.app_launches`` counts those
+    launches. ``enc_w = (wx, wd)`` (``anneal_row_weights``, on the input's
+    device) multiplies each encoded row by its anneal window;
     ``fused_mlp_forward.anneal_launches`` counts those launches."""
-    wts = _prepare(wts, compute_dtype, model)
+    wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
         return fused_mlp_forward_plain(wts, xT, compute_dtype, model, mip, enc_w)
-    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
+    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip, model), compute_dtype, model)
     out = torch.empty((8, xT.shape[1]), dtype=torch.float32, device=xT.device)
-    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
+    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device, _app(model))
     _raise_on(lib.fused_mlp_fwd(
         xT.data_ptr(), out.data_ptr(), xT.shape[1], model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), wx, wd, _stream(xT),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), wx, wd, _app(model), _stream(xT),
     ), "fused_mlp_fwd")
     fused_mlp_forward.launches += 1
     fused_mlp_forward.mip_launches += mip
     fused_mlp_forward.anneal_launches += enc_w is not None
+    fused_mlp_forward.app_launches += _app(model)
     return out
 
 
 fused_mlp_forward.launches = 0
 fused_mlp_forward.mip_launches = 0  # of them, with the integrated encoder
 fused_mlp_forward.anneal_launches = 0  # of them, with the anneal windows
+fused_mlp_forward.app_launches = 0  # of them, an appearance model's (the code rows)
 
 
 def forward_residuals_plain(
@@ -1117,20 +1171,21 @@ def forward_residuals(
     ``(out (8, rows) f32, res (FA, Rp))``, the planes of ``Layout`` (posx,
     posd, h0..h7, hc) in the compute dtype, Rp = rows rounded up to 64;
     ``xT`` and ``enc_w`` as ``fused_mlp_forward`` takes them (with ``mip``,
-    posx is the damped encoding; with ``enc_w``, the windowed one).
+    posx is the damped encoding; with ``enc_w``, the windowed one; for an
+    appearance model posd's plane ends with the code rows).
     ``forward_residuals.launches`` counts its launches."""
-    wts = _prepare(wts, compute_dtype, model)
+    wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
         return forward_residuals_plain(wts, xT, compute_dtype, model, mip, enc_w)
-    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
+    lib, bf16 = _check_launch("fused_mlp_fwd", wts, xT, "xT", _x_rows(mip, model), compute_dtype, model)
     rows = xT.shape[1]
     out = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
     res = torch.empty((Layout.of(model).FA, -(-rows // 64) * 64), dtype=compute_dtype, device=xT.device)
-    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device)
+    image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device, _app(model))
     _raise_on(lib.fused_mlp_fwd_residuals(
         xT.data_ptr(), out.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), wx, wd, _stream(xT),
+        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), wx, wd, _app(model), _stream(xT),
     ), "fused_mlp_fwd_residuals")
     forward_residuals.launches += 1
     return out, res
@@ -1179,18 +1234,21 @@ def fused_mlp_backward(
     enc_w=enc_w)``, with ``gT (8, rows)`` f32 (rows 0..2 d_rgb, row 3
     d_sigma, rows 4..7 not read). With ``mip`` the forward it recomputes
     is the integrated encoder's (``fused_mlp_backward.mip_launches``),
-    with ``enc_w`` the windowed one (``anneal_launches``). With
-    ``want_dx`` it returns ``(grads, dx)``: ``dx (8, rows)`` f32 is the
-    gradient of that sum in ``xT`` (rows 0..5; rows 6..7 zero), which the
+    with ``enc_w`` the windowed one (``anneal_launches``), for an
+    appearance model the one with the codes of ``xT``'s rows 8..15
+    (``app_launches``; ``Wcd``'s last eight columns are then ``dWca``).
+    With ``want_dx`` it returns ``(grads, dx)``: ``dx (8, rows)`` f32 is
+    the gradient of that sum in ``xT`` (rows 0..5; rows 6..7 zero; for an
+    appearance model (16, rows), rows 8..15 the codes'), which the
     input-gradient kernel (csrc/input_grad.cuh) computes after the weight
     gradients from the backward's cotangent planes
     (``fused_mlp_backward.dx_launches``); the windows get no gradient."""
-    wts = _prepare(wts, compute_dtype, model)
+    wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip, want_dx)
     if _dispatch(xT):
         with torch.no_grad():
             return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
-    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(mip), compute_dtype, model)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(mip, model), compute_dtype, model)
     if want_dx:
         _check_input_grad_arch(model)
     if (gT.shape != (8, xT.shape[1]) or gT.dtype != torch.float32 or gT.device != xT.device
@@ -1199,19 +1257,20 @@ def fused_mlp_backward(
     rows = xT.shape[1]
     if rows == 0:
         raise ValueError("fused_mlp_backward needs at least one row")
-    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(rows, model.Lp, model.Ld, model.H, bf16),
+    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(rows, model.Lp, model.Ld, model.H, bf16, _app(model)),
                      dtype=torch.uint8, device=xT.device)
     grads = _empty_grads(model, xT.device)
-    dx = torch.empty((8, rows), dtype=torch.float32, device=xT.device) if want_dx else None
+    dx = torch.empty((_x_rows(False, model), rows), dtype=torch.float32, device=xT.device) if want_dx else None
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
-        int(mip), wx, wd, None if dx is None else dx.data_ptr(), _stream(xT),
+        int(mip), wx, wd, None if dx is None else dx.data_ptr(), _app(model), _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
     fused_mlp_backward.mip_launches += mip
     fused_mlp_backward.dx_launches += want_dx
     fused_mlp_backward.anneal_launches += enc_w is not None
+    fused_mlp_backward.app_launches += _app(model)
     return (grads, dx) if want_dx else grads
 
 
@@ -1219,6 +1278,7 @@ fused_mlp_backward.launches = 0
 fused_mlp_backward.mip_launches = 0  # of them, recomputing the integrated encoder
 fused_mlp_backward.dx_launches = 0  # of them, with the input gradient (want_dx)
 fused_mlp_backward.anneal_launches = 0  # of them, recomputing with the anneal windows
+fused_mlp_backward.app_launches = 0  # of them, an appearance model's (the code rows, dWca)
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -1251,7 +1311,8 @@ def fused_mlp(
     ``mip`` and the anneal windows ``enc_w`` as given. Gradients reach the
     packed weights, and ``xT`` when autograd asks for it (B2's
     ``want_dx``, the input-gradient kernel: pose refinement trains through
-    ray generation). The windows are a schedule and get no gradient."""
+    ray generation, appearance codes through rows 8..15). The windows are
+    a schedule and get no gradient."""
     if mip and xT.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "the input gradient under mip (pose refinement with cone casting, _input_grad_tile_mip) is not "
@@ -1295,7 +1356,16 @@ def fused_train_step(
     the rail takes its interval form. ``opaque_tail`` (with ``mip`` only;
     mip-NeRF 360's opaque background) makes the last interval's delta 1e10
     and drops it from the rail. ``mip_launches`` and ``opaque_launches``
-    count those launches."""
+    count those launches.
+
+    No appearance model (JAX's rule, kernels/mlp.py:1559-1562): rows
+    8..10 carry the gt colour, so there is no slot for codes; appearance
+    trains on the forward kernel and B2 (``fused_mlp``)."""
+    if model.app_dim > 0:
+        raise ValueError(
+            "the single fused train kernel has no appearance slot (its x16 rows 8..10 carry gt colors); "
+            "appearance training runs the forward kernel and B2 (fused_mlp, train/step.py's autograd path)"
+        )
     wts = _prepare(wts, compute_dtype, model)
     if N <= 0 or x16.dim() != 2 or x16.shape[1] % N or x16.shape[1] == 0:
         raise ValueError(f"x16 must hold whole rays of N={N} samples; got {tuple(x16.shape)}")
@@ -1516,7 +1586,9 @@ def input_grad(
     cotangent planes ``gws (FG, Rp)`` in the compute type (``Layout``; Rp
     = rows rounded up to 64; it reads g_h0, g_h5 and g_hc) and the inputs
     ``xT (8, rows)`` f32 to ``dx (8, rows)`` f32 (``input_grad_plain``),
-    with the anneal windows ``enc_w``. ``input_grad.launches`` counts the
+    with the anneal windows ``enc_w``; for an appearance model ``xT`` and
+    ``dx`` have 16 rows, dx's rows 8..15 the codes' cotangents
+    (``input_grad.app_launches``). ``input_grad.launches`` counts the
     kernel's launches by this wrapper."""
     wts = _prepare(wts, compute_dtype, model)
     L = Layout.of(model)
@@ -1530,18 +1602,20 @@ def input_grad(
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device)
     if _dispatch(xT):
         return input_grad_plain(wts, xT, gws, compute_dtype, model, enc_w)
-    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", 8, compute_dtype, model)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(False, model), compute_dtype, model)
     _check_input_grad_arch(model)
-    dx = torch.empty((8, rows), dtype=torch.float32, device=xT.device)
+    dx = torch.empty((_x_rows(False, model), rows), dtype=torch.float32, device=xT.device)
     _raise_on(lib.input_grad(
         gws.data_ptr(), xT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
-        wx, wd, dx.data_ptr(), _stream(xT),
+        wx, wd, dx.data_ptr(), _app(model), _stream(xT),
     ), "input_grad")
     input_grad.launches += 1
+    input_grad.app_launches += _app(model)
     return dx
 
 
 input_grad.launches = 0
+input_grad.app_launches = 0  # of them, an appearance model's (dx's code rows)
 
 
 def backward_tile(
@@ -1579,7 +1653,7 @@ def backward_tile(
     image = torch.empty(lib.bwd_tile_image_bytes(model.H, bf16), dtype=torch.uint8, device=g.device)
     _raise_on(lib.backward_tile(
         g.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
-        _weights_t(wts), res.data_ptr(), out.data_ptr(), image.data_ptr(), _stream(g),
+        _weights_t(wts), res.data_ptr(), out.data_ptr(), image.data_ptr(), _app(model), _stream(g),
     ), "backward_tile")
     backward_tile.launches += 1
     return out

@@ -25,6 +25,7 @@ __all__ = [
     "init_nerf_params",
     "nerf_apply",
     "apply_model",
+    "zeros_app_for",
     "infer_model",
     "model_from_meta",
 ]
@@ -40,10 +41,22 @@ def _unported_family(family: str) -> NotImplementedError:
 
 
 def apply_model(field: NerfField, v: torch.Tensor, compute_dtype=torch.float32,
-                enc_alpha: float | None = None) -> torch.Tensor:
+                enc_alpha: float | None = None, app: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 6) ``[xyz | unit dir]`` rows -> (B, 4) raw ``[rgb | sigma]``;
-    ``enc_alpha`` anneals the encoder (``nerf_apply``)."""
-    return nerf_apply(field, v, compute_dtype, enc_alpha)
+    ``enc_alpha`` anneals the encoder; ``app`` (B, app_dim) are the
+    appearance codes, required iff ``model.app_dim > 0`` (``nerf_apply``).
+    Density-only consumers (normals) pass ``zeros_app_for``: sigma never
+    sees the code."""
+    return nerf_apply(field, v, compute_dtype, enc_alpha, app)
+
+
+def zeros_app_for(model: NerfMLP, n: int, device=None) -> torch.Tensor | None:
+    """(n, app_dim) zero appearance codes for density-only forwards of an
+    appearance model (sigma does not read the code), or None when the model
+    takes none."""
+    if model.app_dim > 0:
+        return torch.zeros((n, model.app_dim), dtype=torch.float32, device=device)
+    return None
 
 
 def model_from_meta(meta: dict) -> NerfMLP:

@@ -5,7 +5,9 @@ reference ``Nerf`` module (reference utils/nets.py:8-43) with its quirks:
 positional encoding inside the forward; 5 trunk layers; a skip layer on
 ``[h | posx]``; 2 post layers; a sigma head and a feature layer with NO
 activation; a colour head ``[feat | posd] -> H//2 -> 3`` with no sigmoid;
-output ``[rgb | sigma]``.
+output ``[rgb | sigma]``. With ``app_dim > 0`` (NeRF-W-style per-image
+appearance codes) the colour head also reads a code of that width,
+appended to the direction encoding, so the density does not see it.
 
 The JAX package keeps params as a pytree of ``(in, out)`` arrays; that
 pytree, as numpy, stays the interchange format (checkpoints, tests).
@@ -30,8 +32,10 @@ Params = dict[str, dict[str, np.ndarray]]
 
 @dataclasses.dataclass(frozen=True)
 class NerfMLP:
-    """Static architecture config. ``contract`` and ``app_dim`` exist so
-    that ``model.json`` sidecars load; the port does not run them yet
+    """Static architecture config. ``app_dim``: the width of the per-image
+    appearance code the colour head reads (0: none; the codes themselves
+    are the train step's ``AppCodes``). ``contract`` exists so that
+    ``model.json`` sidecars load; the port does not run it yet
     (``require_ported``)."""
 
     Lp: int = 10
@@ -73,10 +77,15 @@ def require_ported(model: NerfMLP) -> None:
             "contract=True (scene contraction) is not ported yet: ROADMAP "
             "Queue A, 'contract with disparity spacing'"
         )
-    if model.app_dim > 0:
-        raise NotImplementedError(
-            "app_dim > 0 (appearance codes) is not ported yet: ROADMAP "
-            "Queue A item 6, appearance"
+
+
+def check_app(model: NerfMLP, app: torch.Tensor | None) -> None:
+    """Raise unless ``app`` suits ``model``: (..., app_dim) codes for an
+    appearance model, None for any other (the JAX ``nerf_apply``'s rule)."""
+    if (app is None) != (model.app_dim == 0) or (app is not None and app.shape[-1] != model.app_dim):
+        raise ValueError(
+            f"model.app_dim={model.app_dim} but app is {None if app is None else tuple(app.shape)}: appearance "
+            "models need matching (B, app_dim) codes (and only they accept them)"
         )
 
 
@@ -161,8 +170,9 @@ class NerfField(LinearField):
         require_ported(model)
         super().__init__(model, device)
 
-    def forward(self, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None) -> torch.Tensor:
-        return nerf_apply(self, v, compute_dtype, enc_alpha)
+    def forward(self, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None,
+                app: torch.Tensor | None = None) -> torch.Tensor:
+        return nerf_apply(self, v, compute_dtype, enc_alpha, app)
 
 
 class NerfPair(nn.Module):
@@ -202,7 +212,8 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def nerf_apply(
-    field: NerfField, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None
+    field: NerfField, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None,
+    app: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Raw (B, 6) ``[xyz | unit dir]`` rows -> (B, 4) f32 ``[rgb | sigma]``,
     layer by layer: the plain (``backend="xla"``) oracle.
@@ -212,8 +223,14 @@ def nerf_apply(
     ``preferred_element_type=f32``. ``enc_alpha``: the BARF anneal
     progress in [0, 1] (``ops/encoding.py::anneal_weights``), the
     pose-refinement companion ``pe_anneal_until``; None is the standard
-    encoder."""
-    posx, posd = positional_encoder(v, Lp=field.model.Lp, Ld=field.model.Ld, alpha=enc_alpha)
+    encoder. ``app``: (B, app_dim) per-row appearance codes, required iff
+    ``model.app_dim > 0``, appended to the direction encoding, so they
+    condition the colour head only."""
+    model = field.model
+    check_app(model, app)
+    posx, posd = positional_encoder(v, Lp=model.Lp, Ld=model.Ld, alpha=enc_alpha)
+    if app is not None:
+        posd = torch.cat([posd, app.to(posd.dtype)], dim=-1)
     return _apply_encoded(field, posx, posd, compute_dtype)
 
 

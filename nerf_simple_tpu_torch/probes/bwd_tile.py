@@ -162,7 +162,7 @@ def before_after(device, libs: dict, model: NerfMLP = mlp.FLAGSHIP, rows: int = 
 
         def call():
             mlp._raise_on(lib.backward_tile(g.data_ptr(), rows, model.Lp, model.Ld, model.H, 0, cw, wt,
-                                            res.data_ptr(), out.data_ptr(), image.data_ptr(), mlp._stream(g)), what)
+                                            res.data_ptr(), out.data_ptr(), image.data_ptr(), 0, mlp._stream(g)), what)
         return call, out
 
     calls, outs = {}, {}

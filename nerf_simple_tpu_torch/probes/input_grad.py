@@ -41,7 +41,14 @@ and the row's dx moves by a whole term. So a row past the tolerance must
 be a row with a flipped mask, and on the kernel's own masks the plain
 chain must give B2's dx within the tolerance at every row. Two planted
 faults show what the rule catches: the plain chain's dx with one octave
-window halved in the input gradient only.
+window halved in the input gradient only. For an appearance model (dx of
+16 rows, the codes' cotangents in rows 8..15) the code rows are held
+against their own largest entry too, and a third planted fault halves
+them.
+
+For an appearance model (``run(device, model)`` with ``model.app_dim >
+0``) x has 16 rows, a code from N(0, 0.5) in rows 8..8 + app_dim a row,
+and the kernel also gives the codes' rows of dx.
 """
 
 from __future__ import annotations
@@ -69,8 +76,8 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 
 
 def inputs(model: NerfMLP, rows: int, device, seed: int = 0):
-    """(packed f32 weights, cotangent planes (FG, Rp) f32, x (8, rows) f32)
-    from numpy seed ``seed``."""
+    """(packed f32 weights, cotangent planes (FG, Rp) f32, x (8, rows) f32;
+    16 rows with an appearance model's codes) from numpy seed ``seed``."""
     rng = np.random.default_rng(seed)
     L = mlp.Layout.of(model)
     Rp = -(-rows // 64) * 64
@@ -81,11 +88,12 @@ def inputs(model: NerfMLP, rows: int, device, seed: int = 0):
             u = rng.random((n, rows), dtype=np.float32)
             g = np.where(u < 0.5, 0.0, rng.standard_normal((n, rows), dtype=np.float32)).astype(np.float32)
             gws[a : a + n, :rows] = torch.from_numpy(g)
-    x = np.zeros((8, rows), np.float32)
+    x = np.zeros((mlp._x_rows(False, model), rows), np.float32)
     x[:3] = rng.uniform(-4, 4, (3, rows))
     d = rng.normal(size=(3, rows))
     x[3:6] = d / np.linalg.norm(d, axis=0, keepdims=True)
-    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(seed, model), device))
+    x[8 : 8 + model.app_dim] = rng.normal(0, 0.5, (model.app_dim, rows))
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(seed, model), device, model))
     return wts, gws, torch.from_numpy(x).to(device)
 
 
@@ -122,28 +130,31 @@ def _fault_windows(model: NerfMLP, enc_w: tuple | None, branch: int, device) -> 
 
 
 def row_err(dx: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """(rows,) the error of each row of ``dx`` (8, rows) against ``want``:
-    the larger of max |diff| over the position rows 0..2 by max
-    |want[0:3]| and over the direction rows 3..5 by max |want[3:6]|. The
+    """(rows,) the error of each row of ``dx`` (8 or 16, rows) against
+    ``want``: the largest of max |diff| over the position rows 0..2 by max
+    |want[0:3]|, over the direction rows 3..5 by max |want[3:6]| and, for
+    an appearance model, over the code rows 8..15 by max |want[8:16]|. The
     direction's gradient runs ~2^(Lp - Ld) below the position's, so one
-    scale for both would hide an error in it."""
+    scale for all would hide an error in it."""
     d = (dx - want).abs()
-    return torch.maximum(d[0:3].amax(0) / want[0:3].abs().max().clamp_min(1e-30),
-                         d[3:6].amax(0) / want[3:6].abs().max().clamp_min(1e-30))
+    parts = [(0, 3), (3, 6)] + ([(8, 16)] if dx.shape[0] == 16 else [])
+    return torch.stack([d[a:b].amax(0) / want[a:b].abs().max().clamp_min(1e-30) for a, b in parts]).amax(0)
 
 
 def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None = None,
                tol: float | None = None) -> dict:
-    """B2's ``dx`` (8, rows) against the plain chain's ``dx_plain`` for the
-    same weights ``wts`` (cast to ``dt``), inputs ``x`` (8, rows), output
+    """B2's ``dx`` (8, rows; 16 for an appearance model) against the plain
+    chain's ``dx_plain`` for the same weights ``wts`` (cast to ``dt``),
+    inputs ``x`` (8 or 16, rows), output
     cotangents ``g`` (8, rows) and windows ``enc_w``: ``n_past`` rows
     whose ``row_err`` exceeds ``tol`` (default REL_TOL; ``share`` of the
     rows); ``n_flipped`` rows where a relu mask of the forward kernel's
     residual planes (what B2 recomputes) differs from the plain chain's;
     ``n_unexplained`` rows past with no flipped mask; ``own_masks_err``,
     the largest ``row_err`` of dx against the plain chain on the kernel's
-    planes. ``faults``: for each planted fault (``_fault_windows``) its
-    ``share`` and ``n_unexplained`` against ``dx_plain``."""
+    planes. ``faults``: for each planted fault (``_fault_windows``; for an
+    appearance model also the code rows halved) its ``share`` and
+    ``n_unexplained`` against ``dx_plain``."""
     tol = REL_TOL[dt] if tol is None else tol
     rows = x.shape[1]
     past = row_err(dx, dx_plain) > tol
@@ -158,8 +169,13 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     del own
     gws = mlp.backward_tile_plain(wts, res_plain, g, dt, model)
     del res_plain
-    for name, branch in (("posx_top_octave_half", 0), ("posd_low_octave_half", 1)):
-        bad = mlp.input_grad_plain(wts, x, gws, dt, model, _fault_windows(model, enc_w, branch, x.device))
+    faults = [("posx_top_octave_half", 0), ("posd_low_octave_half", 1)]
+    for name, branch in faults + ([("code_rows_half", None)] if model.app_dim > 0 else []):
+        if branch is None:
+            bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w)
+            bad[8:16] *= 0.5
+        else:
+            bad = mlp.input_grad_plain(wts, x, gws, dt, model, _fault_windows(model, enc_w, branch, x.device))
         fpast = row_err(bad, dx_plain) > tol
         out["faults"][name] = dict(share=fpast.float().mean().item(), n_unexplained=int((fpast & ~flipped).sum()))
         del bad
@@ -186,10 +202,14 @@ def run(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
             err = ((got - want).abs().max() / want.abs().max()).item()
             out[name + case] = dict(rel_err=err, max_abs_err=(got - want).abs().max().item(),
                                     max_abs_dx=want.abs().max().item(), launches=launches,
-                                    rows_6_7_zero=bool((got[6:] == 0).all()))
-            if err > REL_TOL[dt] or not out[name + case]["rows_6_7_zero"]:
-                raise RuntimeError(f"{name}{case} input gradient: kernel {err:.3e} of max |dx| from plain > "
-                                   f"{REL_TOL[dt]:.0e}, or rows 6..7 not zero")
+                                    rows_6_7_zero=bool((got[6:8] == 0).all()))
+            if model.app_dim > 0:  # the codes' rows against their own largest entry
+                out[name + case]["code_rel_err"] = ((got[8:] - want[8:]).abs().max() / want[8:].abs().max()).item()
+            if (max(err, out[name + case].get("code_rel_err", 0.0)) > REL_TOL[dt]
+                    or not out[name + case]["rows_6_7_zero"]):
+                raise RuntimeError(f"{name}{case} input gradient: kernel {err:.3e} of max |dx| from plain (code rows "
+                                   f"{out[name + case].get('code_rel_err')}) > {REL_TOL[dt]:.0e}, or rows 6..7 not "
+                                   "zero")
             del got, want
         ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, model),
                        "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, model),

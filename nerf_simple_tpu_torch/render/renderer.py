@@ -27,6 +27,12 @@ weights resample the fine level's edges. ``render_rays`` and
 renders (in the forward kernel under ``"pallas"``), and where the rays
 carry a gradient ``fused_mlp`` gives its input rows theirs, which
 autograd carries into the rays (and so into the per-image camera deltas).
+Appearance codes (``app``, an appearance model's per-ray codes, or one
+code for a whole chunked render) condition the colour head of the point
+renders: under ``"pallas"`` they ride the kernels' input rows 8..15 (and
+their gradients come back in the input gradient's rows 8..15), under
+``"xla"`` the query's last columns; a chunked render with a code takes no
+fused render kernel.
 
 Eval on top of it: ``render_image`` (one still of a split),
 ``render_orbit_video`` (frames to ``utils/video.py``) and
@@ -54,8 +60,8 @@ from nerf_simple_tpu_torch.kernels.mlp import (
     pack_weights,
     supported,
 )
-from nerf_simple_tpu_torch.models import apply_model
-from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair, nerf_apply_mip
+from nerf_simple_tpu_torch.models import apply_model, zeros_app_for
+from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair, check_app, nerf_apply_mip
 from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
 from nerf_simple_tpu_torch.ops.sampling import (
@@ -165,12 +171,14 @@ def render_rays(
     ts: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     enc_alpha: float | None = None,
+    app: torch.Tensor | None = None,
 ) -> CompositeOut:
     """Render (B, 6) ``[origin | direction]`` rays (direction
     unnormalised) at stratified ``ts`` drawn from ``generator``, or at the
     (B, N) ``ts`` given. ``.rgb`` is raw, like the reference. ``enc_alpha``:
     the BARF anneal progress in [0, 1] of the encoder, or None (the
-    standard one).
+    standard one). ``app``: (B, app_dim) appearance codes of an appearance
+    model's rays (required iff ``app_dim > 0``).
 
     With ``settings.sigma_noise > 0`` the (B, N) standard normal ``noise``
     given, or else one drawn from ``generator`` after the ts, times
@@ -185,6 +193,8 @@ def render_rays(
             raise ValueError("mip rendering draws its own interval edges: pass edges to render_rays_mip")
         if enc_alpha is not None:
             raise ValueError("the anneal windows are not plumbed through the integrated encoder (as in JAX)")
+        if app is not None:
+            raise ValueError("appearance codes are not plumbed through the integrated encoder (as in JAX)")
         return render_rays_mip(field, rays, generator, settings)
     if ts is None:
         ts = stratified_ts_spaced(
@@ -195,7 +205,7 @@ def render_rays(
         if generator is None:
             raise ValueError("sigma_noise > 0 draws its noise from a generator: pass one, or the noise")
         noise = torch.randn(ts.shape, generator=generator, dtype=ts.dtype, device=ts.device)
-    return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None, enc_alpha)
+    return _render_at_ts(field, rays, ts, settings, noise if settings.sigma_noise > 0 else None, enc_alpha, app)
 
 
 def render_rays_mip(
@@ -296,6 +306,7 @@ def render_rays_hierarchical(
     ts_coarse: torch.Tensor | None = None,
     return_ts: bool = False,
     enc_alpha: float | None = None,
+    app: torch.Tensor | None = None,
 ) -> tuple[CompositeOut, CompositeOut]:
     """Coarse + fine rendering (the NeRF paper, sec. 5.2): ``N_coarse``
     stratified samples (or the (B, N_coarse) ``ts_coarse`` given) through
@@ -305,7 +316,8 @@ def render_rays_hierarchical(
     with ``return_ts`` also ``(ts_coarse, ts_union)``, the ts each render
     composited (the distortion loss reads the union). No sigma noise is
     added, whatever ``settings.sigma_noise`` says, as in JAX. ``enc_alpha``
-    anneals both fields' encoders."""
+    anneals both fields' encoders; both take the codes ``app`` (JAX
+    render/renderer.py:548, :561)."""
     if settings.N_coarse <= 0:
         raise ValueError("the hierarchical path needs N_coarse > 0")
     ts_c = ts_coarse
@@ -314,10 +326,10 @@ def render_rays_hierarchical(
             generator, rays.shape[0], settings.N_coarse, settings.tn, settings.tf,
             rays.device, rays.dtype, settings.sampling_space,
         )
-    coarse_out = _render_at_ts(coarse, rays, ts_c, settings, enc_alpha=enc_alpha)
+    coarse_out = _render_at_ts(coarse, rays, ts_c, settings, enc_alpha=enc_alpha, app=app)
     ts_f = importance_ts(generator, ts_c, coarse_out.weights.detach(), settings.N, det=det_fine)
     ts_all = merge_sorted(ts_c, ts_f)
-    fine_out = _render_at_ts(fine, rays, ts_all, settings, enc_alpha=enc_alpha)
+    fine_out = _render_at_ts(fine, rays, ts_all, settings, enc_alpha=enc_alpha, app=app)
     if return_ts:
         return coarse_out, fine_out, (ts_c, ts_all)
     return coarse_out, fine_out
@@ -332,6 +344,7 @@ def render_rays_proposal(
     ts_prop: torch.Tensor | None = None,
     return_aux: bool = False,
     prop_anneal: float | None = None,
+    app: torch.Tensor | None = None,
 ):
     """Proposal-guided rendering (mip-NeRF 360; JAX ``render_rays_proposal``,
     its point branch): ``N_prop`` stratified probes (or the (B, N_prop)
@@ -343,7 +356,8 @@ def render_rays_proposal(
     ``return_aux`` also ``(ts_prop, w_prop, ts_fine)``, ``w_prop``
     differentiable in the proposal net (the interlevel loss reads them).
     No sigma noise is added, whatever ``settings.sigma_noise`` says, as in
-    JAX."""
+    JAX. The codes ``app`` condition the main field only (JAX
+    render/renderer.py:669)."""
     if settings.N_prop <= 0:
         raise ValueError("the proposal path needs N_prop > 0")
     ts_p = ts_prop
@@ -355,7 +369,7 @@ def render_rays_proposal(
     w_prop = proposal_weights(pair.prop, rays, ts_p, settings.compute_dtype)
     ts_f = importance_ts(generator, ts_p, anneal_weights(w_prop.detach(), prop_anneal), settings.N,
                          det=det_fine)
-    out = _render_at_ts(pair.fine, rays, ts_f, settings)
+    out = _render_at_ts(pair.fine, rays, ts_f, settings, app=app)
     if return_aux:
         return out, (ts_p, w_prop, ts_f)
     return out
@@ -363,22 +377,24 @@ def render_rays_proposal(
 
 def _render_at_ts(
     field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings,
-    noise: torch.Tensor | None = None, enc_alpha: float | None = None,
+    noise: torch.Tensor | None = None, enc_alpha: float | None = None, app: torch.Tensor | None = None,
 ) -> CompositeOut:
     """Render at the (B, N) ``ts``; with ``noise`` (B, N), raw sigma gains
     ``settings.sigma_noise * noise`` before compositing, on both backends;
-    ``enc_alpha`` anneals the encoder."""
+    ``enc_alpha`` anneals the encoder; ``app`` (B, app_dim), each ray's
+    appearance code, broadcast over its samples (JAX :356-375)."""
     B, N = ts.shape
     if settings.backend == "pallas":
-        outT = _fused_mlp_bn(field, rays, ts, settings, enc_alpha)
+        outT = _fused_mlp_bn(field, rays, ts, settings, enc_alpha, app)
         if noise is not None:
             outT = torch.cat([outT[:3], (outT[3] + settings.sigma_noise * noise)[None]])
         dirs = rays[:, 3:6]
         unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
         return composite_T(outT, ts, unit_dirs)
     locs, unit_dirs = sample_points(rays, ts)
-    query = torch.cat([locs, unit_dirs[:, None, :].expand(B, N, 3)], dim=-1)
-    out = apply_model(field, query.reshape(B * N, 6), settings.compute_dtype, enc_alpha).reshape(B, N, 4)
+    query = torch.cat([locs, unit_dirs[:, None, :].expand(B, N, 3)], dim=-1).reshape(B * N, 6)
+    app_q = None if app is None else app[:, None, :].expand(B, N, app.shape[-1]).reshape(B * N, -1)
+    out = apply_model(field, query, settings.compute_dtype, enc_alpha, app_q).reshape(B, N, 4)
     if noise is not None:
         out = torch.cat([out[..., :3], (out[..., 3] + settings.sigma_noise * noise)[..., None]], dim=-1)
     return composite(out, ts, unit_dirs)
@@ -415,15 +431,23 @@ def _kernel_input(rays: torch.Tensor, ts: torch.Tensor, n_rows: int) -> torch.Te
 
 def _fused_mlp_bn(
     field: NerfField, rays: torch.Tensor, ts: torch.Tensor, settings: RenderSettings,
-    enc_alpha: float | None = None,
+    enc_alpha: float | None = None, app: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused MLP over a (B, N) ray/sample grid -> channel-major (4, B, N).
     ``enc_alpha`` windows the kernel's encoder (``anneal_row_weights``);
-    where the rays carry a gradient (pose refinement), the backward gives
-    the input rows theirs too (B2's ``want_dx``)."""
+    an appearance model's codes ``app`` (B, app_dim) ride input rows 8..15
+    (JAX ``_fused_mlp_bn``, :487-492: each ray's code on its samples, zero
+    rows past app_dim). Where the rays or the codes carry a gradient (pose
+    refinement, appearance training), the backward gives the input rows
+    theirs too (B2's ``want_dx``)."""
     _require_kernel_arch(field)
+    model = field.model
+    check_app(model, app)
     B, N = ts.shape
     x = _kernel_input(rays, ts, 8)
+    if app is not None:
+        codes = app.to(torch.float32).T[:, :, None].expand(model.app_dim, B, N).reshape(model.app_dim, B * N)
+        x = torch.cat([x, codes, x.new_zeros((8 - model.app_dim, B * N))])
     enc_w = None if enc_alpha is None else anneal_row_weights(field.model, enc_alpha, rays.device)
     if torch.is_grad_enabled():
         wts = pack_weights(field, differentiable=True)
@@ -485,12 +509,16 @@ def render_rays_chunked(
     chunk: int = 16384,
     occ: torch.Tensor | None = None,
     enc_alpha: float | None = None,
+    app: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render R rays in fixed-size chunks -> (rgb clipped to [0, 1] (R, 3),
     disparity (R,)), the remainder included (the reference drops it,
     utils/rendering.py:100). ``enc_alpha``: the BARF anneal progress of a
     mid-anneal training preview (the encoder the field is being trained
     with), or None; with it no chunk takes the fused render kernel.
+    ``app``: an appearance model's (app_dim,) code for the whole render
+    (broadcast to every ray, JAX :868-874); with it no chunk takes the
+    fused render kernel, which has no slot for codes.
 
     Chunk ``i`` draws its samples from ``chunk_generator(seed, i)``. With
     ``fused_eval`` under ``backend="pallas"`` a chunk is one call of the
@@ -517,8 +545,9 @@ def render_rays_chunked(
                          f"else one NerfField); got a {type(field).__name__}")
     R = rays.shape[0]
     rays, chunk = _padded_chunks(rays, chunk)
-    fused = (settings.fused_eval and settings.backend == "pallas" and enc_alpha is None
+    fused = (settings.fused_eval and settings.backend == "pallas" and enc_alpha is None and app is None
              and not (hier or prop or settings.mip))
+    app_c = None if app is None else torch.as_tensor(app, dtype=torch.float32, device=rays.device).expand(chunk, -1)
     rgbs, disps = [], []
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
@@ -530,11 +559,11 @@ def render_rays_chunked(
         else:
             if hier:
                 out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True,
-                                               enc_alpha=enc_alpha)[1]
+                                               enc_alpha=enc_alpha, app=app_c)[1]
             elif prop:
-                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True)
+                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True, app=app_c)
             else:
-                out = render_rays(field, rays_c, g, settings, enc_alpha=enc_alpha)
+                out = render_rays(field, rays_c, g, settings, enc_alpha=enc_alpha, app=app_c)
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103
         rgbs.append(rgb)
         disps.append(disp)
@@ -551,9 +580,10 @@ def _density_grad(field: NerfField, x: torch.Tensor, dtype) -> torch.Tensor:
     """d softplus(sigma) / dx at (rows, 3) positions."""
     x = x.detach().requires_grad_(True)
     dirs = torch.zeros_like(x)
-    dirs[:, 2] = -1.0  # sigma does not read the direction
+    dirs[:, 2] = -1.0  # sigma does not read the direction (nor an appearance code)
     with torch.enable_grad():
-        sigma = apply_model(field, torch.cat([x, dirs], dim=-1), dtype)[:, 3]
+        sigma = apply_model(field, torch.cat([x, dirs], dim=-1), dtype,
+                            app=zeros_app_for(field.model, x.shape[0], x.device))[:, 3]
         return torch.autograd.grad(torch.nn.functional.softplus(sigma).sum(), x)[0]
 
 
@@ -574,7 +604,8 @@ def render_normals_chunked(
     coherence of the gradients: ~0 over empty space). A ``NerfPair`` or
     ``ProposalPair`` gives its fine field, at the plain N setting (normals
     need one density field); a mip field renders point samples, as JAX
-    does."""
+    does; an appearance model renders with zero codes (the weights and the
+    density do not read them)."""
     if isinstance(field, (NerfPair, ProposalPair)):
         field = field.fine
     s = dataclasses.replace(settings, backend="xla", fused_eval=False, N_coarse=0, N_prop=0, mip=False,
@@ -587,7 +618,7 @@ def render_normals_chunked(
         ts = stratified_ts_spaced(chunk_generator(seed, i, rays.device), chunk, s.N, s.tn, s.tf,
                                   rays.device, rays.dtype, s.sampling_space)
         with torch.no_grad():
-            weights = _render_at_ts(field, rays_c, ts, s).weights
+            weights = _render_at_ts(field, rays_c, ts, s, app=zeros_app_for(field.model, chunk, rays.device)).weights
             locs, _ = sample_points(rays_c, ts)
         g = torch.cat([_density_grad(field, x, s.compute_dtype)
                        for x in locs.reshape(-1, 3).split(_GRAD_ROWS)])
@@ -605,14 +636,16 @@ def render_image(
     seed: int,
     settings: RenderSettings = RenderSettings(),
     chunk: int = 16384,
+    app: torch.Tensor | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Image ``im_idx`` of a split's ray tensor -> host numpy (1, H, W, 3)
-    rgb in [0, 1] and (1, H, W, 1) disparity (utils/rendering.py:88-113)."""
+    rgb in [0, 1] and (1, H, W, 1) disparity (utils/rendering.py:88-113);
+    ``app``: an appearance model's code (``render_rays_chunked``)."""
     n = H * W
     if not 0 <= im_idx < rays_split.shape[0] // n:
         raise IndexError(f"image {im_idx} of a split with {rays_split.shape[0] // n} images")
     rgb, disp = render_rays_chunked(field, rays_split[im_idx * n : (im_idx + 1) * n], seed,
-                                    settings, chunk)
+                                    settings, chunk, app=app)
     return rgb.reshape(1, H, W, 3).cpu().numpy(), disp.reshape(1, H, W, 1).cpu().numpy()
 
 
@@ -627,11 +660,13 @@ def render_orbit_video(
     settings: RenderSettings = RenderSettings(),
     chunk: int = 16384,
     fps: int = 15,
+    app: torch.Tensor | None = None,
 ) -> str:
     """Render the (P, 4, 4) poses and write them as a video of frame size
     (W, H) at ``fps`` (utils/rendering.py:116-160, which passed (H, W));
-    frame ``i`` is rendered from ``derive_seed(seed, i)``. Returns the
-    written path (utils/video.py picks the format)."""
+    frame ``i`` is rendered from ``derive_seed(seed, i)`` (with an
+    appearance model's code ``app``). Returns the written path
+    (utils/video.py picks the format)."""
     from nerf_simple_tpu_torch.utils.video import open_video
 
     device = next(field.parameters()).device
@@ -642,7 +677,7 @@ def render_orbit_video(
     try:
         for i in range(len(poses)):
             rgb, _ = render_rays_chunked(field, rays_all[i * n : (i + 1) * n], derive_seed(seed, i),
-                                         settings, chunk)
+                                         settings, chunk, app=app)
             writer.write((rgb.reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8))
     finally:
         writer.close()

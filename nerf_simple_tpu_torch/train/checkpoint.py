@@ -3,12 +3,12 @@
 A checkpoint is ``<savepath>/<exp_name>/ckpt_<step>.pth``: the full
 training state (the field's params, ``{"coarse", "fine"}`` for a
 hierarchical run, ``{"prop", "fine"}`` for a proposal run, and while pose
-refinement trains the JAX ``{"field", "cams"}`` wrapper with the camera
-delta tables; Adam's state over all of them; the step and the
-generator's state), so a run resumes where it stopped and draws the
-batches it would have drawn. After a pose freeze the checkpoint is
-plain-shaped again. Orbax is absent on the card's machine, so
-the JAX package's Orbax directories are not read here.
+refinement or appearance codes train the JAX ``{"field", "cams", "app"}``
+wrapper with the camera delta tables and the code table; Adam's state
+over all of them; the step and the generator's state), so a run resumes
+where it stopped and draws the batches it would have drawn. After a
+pose freeze the checkpoint is plain-shaped again. Orbax is absent on the
+card's machine, so the JAX package's Orbax directories are not read here.
 
 Params travel as the JAX package's pytree of numpy ``(in, out)`` arrays,
 so ``params_<step>.npz`` and ``.pth`` exports written by either package
@@ -29,14 +29,21 @@ from nerf_simple_tpu_torch.models.nerf import NerfPair
 from nerf_simple_tpu_torch.models.proposal import ProposalPair
 
 
+def state_params(state):
+    """The params pytree of a train state: the field's, wrapped as JAX's
+    ``{"field", "cams", "app"}`` while camera deltas or appearance codes
+    train (each key present when its table is)."""
+    params = state.field.to_jax_params()
+    extras = {k: getattr(state, k).tables() for k in ("cams", "app") if getattr(state, k, None) is not None}
+    return {"field": params, **extras} if extras else params
+
+
 def save_checkpoint(direc: str, state) -> str:
     """Write the train state; returns the path. Overwrites a checkpoint of
     the same step."""
     os.makedirs(direc, exist_ok=True)
     path = os.path.abspath(os.path.join(direc, f"ckpt_{state.step}.pth"))
-    params = state.field.to_jax_params()
-    if getattr(state, "cams", None) is not None:
-        params = {"field": params, "cams": state.cams.tables()}
+    params = state_params(state)
     torch.save({
         "step": state.step,
         "params": params,
@@ -83,13 +90,17 @@ def restore_checkpoint(path: str, state) -> None:
     scheme: one field, a coarse and fine pair, or a proposal net and a
     main field), in place."""
     ck = torch.load(path, map_location="cpu", weights_only=False)
-    params, cams = ck["params"], getattr(state, "cams", None)
-    if ("field" in params) != (cams is not None):
-        raise ValueError(f"{path} {'holds' if 'field' in params else 'has no'} camera deltas; the run trains "
-                         f"{'them' if cams is not None else 'none'} (check `pose_opt`, and a resume past "
-                         "`pose_freeze_at`)")
-    if cams is not None:
-        cams.copy_tables_(params["cams"])
+    params = ck["params"]
+    for key, what, knob in (("cams", "camera deltas", "`pose_opt`, and a resume past `pose_freeze_at`"),
+                            ("app", "appearance codes", "`appearance_dim`")):
+        table = getattr(state, key, None)
+        held = "field" in params and key in params
+        if held != (table is not None):
+            raise ValueError(f"{path} {'holds' if held else 'has no'} {what}; the run trains "
+                             f"{'them' if table is not None else 'none'} (check {knob})")
+        if table is not None:
+            table.copy_tables_(params[key])
+    if "field" in params:
         params = params["field"]
     held, trained = _scheme(params), _scheme(state.field)
     if held != trained:

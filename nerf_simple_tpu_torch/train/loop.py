@@ -30,6 +30,13 @@ into the training rays, the state drops them (``freeze_pose_state``) and
 the run finishes on the plain config's step (the fused kernel under
 ``"pallas"``). A checkpoint at the boundary is pre-freeze; a resume past
 it re-bakes from the sidecar.
+
+Appearance codes (``appearance_dim``): the state holds one code a train
+image; train-split renders use the image's own code, val renders the
+mean code (NeRF-W's canonical look). The checkpoints and
+``params_<N>.npz`` carry the JAX ``{"field", "app"[, "cams"]}`` params;
+the reference-format ``.pth`` export is skipped (the widened colour head
+does not fit the reference ``Nerf``), as JAX skips it.
 """
 
 from __future__ import annotations
@@ -125,7 +132,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
     cfg = (params_or_cfg if isinstance(params_or_cfg, TrainConfig)
            else train_config_from_dict(params_or_cfg))
     device = require_device(device)
-    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H)
+    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, app_dim=cfg.appearance_dim)
     exp_dir = os.path.join(cfg.savepath, cfg.exp_name)
     ckpt.save_model_meta(exp_dir, model)
     logger = Logger(run_log_dir(cfg.log_dir))
@@ -152,7 +159,8 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         cfg_frozen = dataclasses.replace(cfg, pose_opt=False, pose_freeze_at=0, pe_anneal_until=0)
     frozen, cam_tbl = False, None  # after the freeze: the baked deltas, numpy (dr, dt)
     sidecar = os.path.join(exp_dir, "cam_deltas.npz")
-    state = make_train_state(cfg, model, device, n_images=rd.split_size("train") // n_pix if cfg.pose_opt else None)
+    aux = cfg.pose_opt or cfg.appearance_dim > 0  # per-image tables: one row a train image
+    state = make_train_state(cfg, model, device, n_images=rd.split_size("train") // n_pix if aux else None)
     if cfg.resume:
         latest = ckpt.latest_checkpoint(exp_dir)
         if latest is not None:
@@ -179,7 +187,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         if pose not in step_fns:
             c = cfg if pose else cfg_frozen
             step_fns[pose] = build_train_step(c, model, base_radius=base_radius,
-                                              **({"rays_per_image": n_pix} if c.pose_opt else {}))
+                                              **({"rays_per_image": n_pix} if aux else {}))
         return step_fns[pose]
 
     eval_settings = dataclasses.replace(render_settings(cfg, base_radius), sigma_noise=0.0)  # no training noise
@@ -201,8 +209,12 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         enc_alpha = None
         if cfg.pe_anneal_until > 0 and not frozen and i + 1 < cfg.pe_anneal_until:
             enc_alpha = (i + 1) / cfg.pe_anneal_until
+        app = None
+        if state.app is not None:  # the image's own code; val views have none: the mean code
+            table = state.app.table.detach()
+            app = table[ii] if split == "train" else table.mean(0)
         rgb, disp = render_rays_chunked(state.field, rays_img, cfg.seed + i, eval_settings, chunk=16384,
-                                        enc_alpha=enc_alpha)
+                                        enc_alpha=enc_alpha, app=app)
         rgb = rgb.reshape(1, rd.H, rd.W, 3).cpu().numpy()
         disp = disp.reshape(1, rd.H, rd.W, 1).cpu().numpy()
         gt = rd.pixels[split][ii * n : (ii + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
@@ -272,10 +284,10 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
 
     path = ckpt.save_checkpoint(exp_dir, state)
     params = state.field.to_jax_params()
-    # per-image deltas still training ride beside the field (the JAX {"field", "cams"} params)
-    export = {"field": params, "cams": state.cams.tables()} if state.cams is not None else params
-    ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), export)
-    ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params.get("fine", params))
+    # per-image tables still training ride beside the field (the JAX {"field", "cams"/"app"} params)
+    ckpt.export_params_npz(os.path.join(exp_dir, f"params_{state.step}.npz"), ckpt.state_params(state))
+    if cfg.appearance_dim == 0:  # the widened colour head does not fit the reference Nerf (JAX loop.py:521)
+        ckpt.export_params_pth(os.path.join(exp_dir, f"params_{state.step}.pth"), params.get("fine", params))
     rate = (f"{meter.iters_per_sec:.1f} it/s | {meter.rays_per_sec:,.0f} rays/s (steady-state)"
             if meter.iters else "steady-state throughput n/a (one synced chunk)")
     print(f"final checkpoint {path} | {rate}")

@@ -67,6 +67,15 @@ carries through ray generation into the delta tables; under
 ``pe_anneal_until`` the encoder's anneal windows ride the forward and B2.
 The fused train step (B1) does not take it (JAX's rule); it takes over
 after ``freeze_pose_state``, once the deltas are baked into the ray set.
+
+Appearance codes (``appearance_dim``, NeRF-W): the state also holds a
+per-image code table (``AppCodes``, the JAX ``params["app"]``), zero at
+the start, on a third Adam group ("app") on the main schedule. A step
+gathers its rays' codes (after the pose deltas, when both train) and
+takes the same autograd path through ``fused_mlp``: the codes ride the
+kernels' input rows 8..15, B2's input gradient gives their rows of dx,
+and autograd carries those through the gather into the table (JAX's
+``pallas_aux`` path). B1 has no slot for codes.
 """
 
 from __future__ import annotations
@@ -153,14 +162,38 @@ class CamDeltas(nn.Module):
         return self
 
 
-def make_optimizer(cfg: TrainConfig, params, cams: CamDeltas | None = None) -> torch.optim.Adam:
+class AppCodes(nn.Module):
+    """Per-train-image appearance codes (the JAX ``params["app"]``): a
+    (n_images, appearance_dim) table, zero at the start (a no-op code: the
+    photometric gradient breaks the symmetry)."""
+
+    def __init__(self, n_images: int, dim: int, device=None):
+        super().__init__()
+        self.table = nn.Parameter(torch.zeros((n_images, dim), dtype=torch.float32, device=device))
+
+    def tables(self) -> np.ndarray:
+        """The JAX ``params["app"]`` array, numpy."""
+        return self.table.detach().cpu().numpy().copy()
+
+    def copy_tables_(self, table) -> "AppCodes":
+        with torch.no_grad():
+            self.table.copy_(torch.as_tensor(np.asarray(table, np.float32)))
+        return self
+
+
+def make_optimizer(cfg: TrainConfig, params, cams: CamDeltas | None = None,
+                   app: AppCodes | None = None) -> torch.optim.Adam:
     """Adam over ``params``; with ``cams``, the deltas in a second param
     group ("cams") on the pose schedule (the JAX ``multi_transform``: its
-    moments and step count update through the warmup, at lr 0)."""
+    moments and step count update through the warmup, at lr 0); with
+    ``app``, the appearance codes in a group ("app") on the main schedule
+    (JAX train/step.py:127-131)."""
     lr0, _ = lr_schedule(cfg)
     groups = [{"params": list(params), "name": "field"}]
     if cams is not None:
         groups.append({"params": list(cams.parameters()), "name": "cams", "lr": pose_lr(cfg, 0)})
+    if app is not None:
+        groups.append({"params": list(app.parameters()), "name": "app"})
     return torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -170,13 +203,14 @@ class TrainState:
     proposal sampling), its optimizer, the
     step count and the generator that draws batches and samples, on the
     training device; with ``pose_opt`` (until a freeze) the camera deltas
-    ``cams``."""
+    ``cams``; with ``appearance_dim`` the appearance codes ``app``."""
 
     field: NerfField | NerfPair | ProposalPair
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
     cams: CamDeltas | None = None
+    app: AppCodes | None = None
 
 
 def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | None = None) -> TrainState:
@@ -184,8 +218,9 @@ def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | N
     them from a JAX key: the two inits differ), generator seeded alike.
     Hierarchical: the coarse and fine nets from ``derive_seed(cfg.seed,
     0)`` and ``derive_seed(cfg.seed, 1)``; proposal: the proposal net and
-    the main field alike; one Adam over both. ``pose_opt`` needs
-    ``n_images`` (train images: the delta tables' rows)."""
+    the main field alike; one Adam over both. ``pose_opt`` and
+    ``appearance_dim`` need ``n_images`` (train images: the delta and code
+    tables' rows)."""
     if cfg.hierarchical:
         field = NerfPair(*(NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, k), model),
                                                      device, model) for k in (0, 1)))
@@ -197,15 +232,14 @@ def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | N
             NerfField.from_jax_params(init_nerf_params(derive_seed(cfg.seed, 1), model), device, model))
     else:
         field = NerfField.from_jax_params(init_nerf_params(cfg.seed, model), device, model)
-    cams = None
-    if cfg.pose_opt:
-        if n_images is None:
-            raise ValueError("pose_opt needs n_images (rows of the per-image delta tables); train() passes "
-                             "the train-split image count")
-        cams = CamDeltas(n_images, device)
+    if (cfg.pose_opt or cfg.appearance_dim > 0) and n_images is None:
+        raise ValueError("pose_opt / appearance_dim need n_images (rows of the per-image delta/code tables); "
+                         "train() passes the train-split image count")
+    cams = CamDeltas(n_images, device) if cfg.pose_opt else None
+    app = AppCodes(n_images, cfg.appearance_dim, device) if cfg.appearance_dim > 0 else None
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
-    return TrainState(field, make_optimizer(cfg, field.parameters(), cams), gen, cams=cams)
+    return TrainState(field, make_optimizer(cfg, field.parameters(), cams, app), gen, cams=cams, app=app)
 
 
 def freeze_pose_state(state: TrainState) -> TrainState:
@@ -369,10 +403,13 @@ def _depth_term(out: CompositeOut, gt_d: torch.Tensor) -> torch.Tensor:
 def kernel_refusal(cfg: TrainConfig) -> str | None:
     """Why the fused train kernel does not take ``cfg`` (JAX's reasons), or
     None: its backward is the MSE's (and the distortion rail's) alone, and
-    it gives no gradient to the rays (pose refinement's path is autograd
-    through ``fused_mlp`` with the input gradient)."""
+    it gives no gradient to the rays or to appearance codes (pose
+    refinement's and appearance's path is autograd through ``fused_mlp``
+    with the input gradient)."""
     if cfg.pose_opt:
         return "pose_opt (the camera deltas train through B2's input gradient)"
+    if cfg.appearance_dim > 0:
+        return "appearance_dim > 0 (the codes train through B2's input gradient)"
     if cfg.sigma_noise != 0.0:
         return "sigma_noise > 0"
     if cfg.depth_loss_weight > 0:
@@ -395,7 +432,7 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
                   settings: RenderSettings, det_fine: bool = False, noise=None,
                   prop_anneal: float | None = None, edges_fine: torch.Tensor | None = None,
                   cams: CamDeltas | None = None, im_b: torch.Tensor | None = None,
-                  enc_alpha: float | None = None) -> torch.Tensor:
+                  enc_alpha: float | None = None, app: AppCodes | None = None) -> torch.Tensor:
     """The differentiable loss of one batch at the stratified ``ts``, as
     JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
     ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
@@ -417,9 +454,13 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     normal, is taken; under mip it is always drawn). Pose refinement: the
     rays refined by the deltas ``cams`` of their images ``im_b`` first (the
     loss then reaches the tables through ray generation), and the point
-    renders annealed by ``enc_alpha``."""
+    renders annealed by ``enc_alpha``. Appearance codes: each ray's image's
+    row of ``app`` (gathered after the pose deltas, JAX ``loss_fn``)
+    conditions both hierarchical nets, or the proposal scheme's main
+    field, or the single net."""
     if cams is not None:
         rays_b = apply_cam_deltas(rays_b, cams.dr[im_b], cams.dt[im_b])
+    app_b = None if app is None else app.table[im_b]
     gt_d = None
     if cfg.depth_loss_weight > 0:
         pix_b, gt_d = pix_b[:, :3], pix_b[:, 3]
@@ -446,7 +487,7 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     if cfg.hierarchical:
         coarse, fine, (_, ts_all) = render_rays_hierarchical(field.coarse, field.fine, rays_b, generator, settings,
                                                              det_fine=det_fine, ts_coarse=ts, return_ts=True,
-                                                             enc_alpha=enc_alpha)
+                                                             enc_alpha=enc_alpha, app=app_b)
         loss = mse(coarse.rgb) + mse(fine.rgb)
         if gt_d is not None:
             loss = loss + cfg.depth_loss_weight * (_depth_term(coarse, gt_d) + _depth_term(fine, gt_d))
@@ -455,14 +496,15 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
         return loss
     if cfg.proposal:
         out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
-                                                         ts_prop=ts, return_aux=True, prop_anneal=prop_anneal)
+                                                         ts_prop=ts, return_aux=True, prop_anneal=prop_anneal,
+                                                         app=app_b)
         loss = mse(out.rgb) + cfg.proposal_loss_weight * interlevel_loss(out.weights.detach(), ts_f, w_prop, ts_p)
         if gt_d is not None:
             loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
         if cfg.distortion_loss_weight > 0:
             loss = loss + cfg.distortion_loss_weight * distortion_loss(out.weights, _s_norm(cfg, ts_f))
         return loss
-    out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise, enc_alpha=enc_alpha)
+    out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise, enc_alpha=enc_alpha, app=app_b)
     loss = mse(out.rgb)
     if gt_d is not None:
         loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
@@ -490,15 +532,17 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     ``depth_loss_weight > 0``, ``pixels`` carries the metric depth as a
     4th channel (train/loop.py packs it). Under mip, ``base_radius`` is
     the frame's cone radius a unit of t, ``2 / sqrt(12) / focal`` (the
-    loop passes it). ``pose_opt`` needs ``rays_per_image`` (H * W: ray i
-    belongs to image i // rays_per_image) and a state with ``cams``."""
+    loop passes it). ``pose_opt`` and ``appearance_dim`` need
+    ``rays_per_image`` (H * W: ray i belongs to image i // rays_per_image)
+    and a state with ``cams`` / ``app``."""
     if cfg.mip and base_radius <= 0:
         raise ValueError(
             "cfg.mip=True needs base_radius > 0 (2/sqrt(12)/focal; the train driver passes it automatically)"
         )
-    if cfg.pose_opt and rays_per_image is None:
-        raise ValueError("pose_opt needs rays_per_image (= H*W) to map sampled rays to their images; train() "
-                         "passes it")
+    aux = cfg.pose_opt or cfg.appearance_dim > 0
+    if aux and rays_per_image is None:
+        raise ValueError("pose_opt / appearance_dim need rays_per_image (= H*W) to map sampled rays to their "
+                         "images; train() passes it")
     refusal = kernel_refusal(cfg)
     if fused is None:
         fused = cfg.backend == "pallas" and refusal is None
@@ -507,7 +551,7 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     if fused and refusal:
         raise ValueError(f"the fused train kernel does not take {refusal}; build the step with "
                          "fused=None or fused=False (autograd through fused_mlp)")
-    if cfg.backend == "pallas" and not fused and not cfg.pose_opt:  # pose's path is this one: no warning
+    if cfg.backend == "pallas" and not fused and not aux:  # pose's and appearance's path is this one: no warning
         warnings.warn(
             f"backend='pallas' requested but the fused train kernel is ineligible ({refusal}); "
             "falling back to the autodiff path (through fused_mlp) for this step" if refusal else
@@ -522,11 +566,12 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
 
-    def core(field, rays_b, pix_b, ts, g, anneal, cams=None, im_b=None, enc_alpha=None):
+    def core(field, rays_b, pix_b, ts, g, anneal, cams=None, im_b=None, enc_alpha=None, app=None):
         """The loss of one batch at the stratified ``ts``, gradients left
-        in the fields (and in the camera deltas ``cams``); ``g`` draws the
-        importance samples (and the sigma noise); ``anneal`` is the
-        proposal's placement anneal, ``enc_alpha`` BARF's."""
+        in the fields (and in the camera deltas ``cams`` and the codes
+        ``app``); ``g`` draws the importance samples (and the sigma noise);
+        ``anneal`` is the proposal's placement anneal, ``enc_alpha``
+        BARF's."""
         if fused and cfg.mip:
             return mip_fused_loss(field, rays_b, pix_b, ts, g, cfg.render_dtype, model, base_radius,
                                   cfg.mip_levels, cfg.mip_coarse_weight, cfg.resample_blur,
@@ -541,7 +586,7 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model, dist=dist)[0]
 
         loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings, prop_anneal=anneal, cams=cams, im_b=im_b,
-                             enc_alpha=enc_alpha)
+                             enc_alpha=enc_alpha, app=app)
         loss.backward()
         return loss.detach()
 
@@ -551,13 +596,20 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
                                   space=cfg.sampling_space)
         state.optimizer.zero_grad(set_to_none=True)
-        pose = {}
+        extras = {}
         if cfg.pose_opt:
             if state.cams is None:
                 raise ValueError("pose_opt trains the camera deltas: the state has none (make_train_state with "
                                  "n_images; a frozen state takes the plain config's step)")
-            pose = dict(cams=state.cams, im_b=idx // rays_per_image, enc_alpha=anneal_alpha(cfg, state.step))
-        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step), **pose)
+            extras = dict(cams=state.cams, enc_alpha=anneal_alpha(cfg, state.step))
+        if cfg.appearance_dim > 0:
+            if state.app is None:
+                raise ValueError("appearance_dim trains the appearance codes: the state has none (make_train_state "
+                                 "with n_images)")
+            extras["app"] = state.app
+        if aux:
+            extras["im_b"] = idx // rays_per_image
+        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step), **extras)
         for group in state.optimizer.param_groups:
             group["lr"] = pose_lr(cfg, state.step) if group.get("name") == "cams" else lr0 * decay**state.step
         state.optimizer.step()

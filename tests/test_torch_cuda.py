@@ -4,7 +4,10 @@ the fused proposal core that launches it so; the cone-cast (mip)
 variants of the forward, the backward and the train step, and the
 two-level mip core; the pose variants: the forward with the anneal
 windows, the backward with the input gradient (``want_dx``), the
-input-gradient kernel alone, a pose loss against the xla one; render;
+input-gradient kernel alone, a pose loss against the xla one; the
+appearance variants: the forward, the backward and the input-gradient
+kernel with the code rows, an appearance (and pose) loss against the xla
+one; render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -631,15 +634,17 @@ def test_bf16_train_step_is_bitwise_deterministic(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48)], ids=["flagship", "odd-widths"])
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48), NerfMLP(app_dim=8)],
+                         ids=["flagship", "odd-widths", "flagship-app"])
 def test_weight_image_kernel_matches_plain(dev, model, dtype):
-    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev, model)),
+                            dtype)
     lib = mlp._lib("fused_mlp_fwd")
     bf16 = int(dtype == torch.bfloat16)
-    nbytes = lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16)
+    nbytes = lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, mlp._app(model))
     image = torch.zeros(nbytes // (2 if bf16 else 4), dtype=torch.int16 if bf16 else torch.float32, device=dev)
     assert lib.fwd_weight_image(mlp._CPtrs(*mlp._ptrs(wts)), model.Lp, model.Ld, model.H, bf16,
-                                image.data_ptr(), mlp._stream(image)) == 0
+                                image.data_ptr(), mlp._app(model), mlp._stream(image)) == 0
     torch.cuda.synchronize()
     want = mlp.weight_image_plain(wts, model) if bf16 else mlp.f32_weight_image_plain(wts, model)
     assert torch.equal(image, want)
@@ -1070,3 +1075,198 @@ def test_pose_step_on_the_card_matches_xla(dev):
     state = make_train_state(cfg, model, dev, n_images=n_img)
     out = build_train_step(cfg, model, rays_per_image=hw)(state, rays, pix)
     assert bool(torch.isfinite(out)) and float(state.cams.dr.detach().abs().max()) > 0
+
+
+# --- appearance codes: the code rows of the forward, B2 and the input gradient ---------------
+
+APP_CASES = [(NerfMLP(Lp=4, Ld=2, H=32, app_dim=3), 1000), (NerfMLP(Lp=3, Ld=1, H=48, app_dim=8), 65),
+             (NerfMLP(app_dim=8), 4096 + 17), (NerfMLP(Lp=10, Ld=4, H=64, app_dim=5), 1)]
+APP_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged", "H64-1"]
+
+
+def _x16_app(model, rows, dev, seed):
+    """An appearance model's kernel input: xyz and unit dirs as ``_xT``,
+    each row's code (app_dim rows from N(0, 0.5)) in rows 8..15, zero
+    after."""
+    x = torch.zeros((16, rows), dtype=torch.float32, device=dev)
+    x[:8] = _xT(rows, dev, seed)
+    codes = np.random.default_rng(seed + 100).normal(0, 0.5, (model.app_dim, rows)).astype(np.float32)
+    x[8 : 8 + model.app_dim] = torch.from_numpy(codes).to(dev)
+    return x
+
+
+def _without_codes(model, dev, seed):
+    """(the appearance model's field, the model without codes, its field
+    with the same weights but color0's code columns)."""
+    import dataclasses
+
+    params = init_nerf_params(seed, model)
+    plain_model = dataclasses.replace(model, app_dim=0)
+    H, Cd = model.H, plain_model.in_Cd
+    cut = {**params, "color0": {"w": params["color0"]["w"][: H + Cd], "b": params["color0"]["b"]}}
+    return (NerfField.from_jax_params(params, dev, model), plain_model,
+            NerfField.from_jax_params(cut, dev, plain_model))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", APP_CASES, ids=APP_IDS)
+def test_forward_with_codes_matches_plain(dev, model, rows, dtype):
+    """The forward with the code rows against its plain version at ragged
+    rows, counted in ``app_launches``; its residual posd plane ends with the
+    codes (rounded to the compute type); other codes move the colour, never
+    sigma (bit for bit); zero codes give the model without codes (color0's
+    code columns cut) bit for bit: the fold adds nothing else."""
+    field, plain_model, plain_field = _without_codes(model, dev, 0)
+    wts = mlp._cast_weights(mlp.pack_weights(field), dtype)
+    x = _x16_app(model, rows, dev, 5)
+    f = mlp.fused_mlp_forward
+    before = (f.launches, f.app_launches)
+    got = f(wts, x, dtype, model)
+    torch.cuda.synchronize()
+    assert (f.launches, f.app_launches) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, model)
+    assert bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
+    x2 = x.clone()
+    x2[8 : 8 + model.app_dim] += 1.0
+    other = f(wts, x2, dtype, model)
+    assert torch.equal(other[3], got[3]) and (other[:3] - got[:3]).abs().max().item() > 1e-3
+    _, res = mlp.forward_residuals(wts, x, dtype, model)
+    L, FD0 = mlp.Layout.of(model), mlp._enc_rows(model.Ld)
+    assert torch.equal(res[L.posd + FD0 : L.posd + FD0 + 8, :rows].float(), x[8:16].to(dtype).float())
+    x0 = x.clone()
+    x0[8:] = 0
+    zero = f(wts, x0, dtype, model)
+    no_codes = f(mlp._cast_weights(mlp.pack_weights(plain_field), dtype), x0[:8].contiguous(), dtype, plain_model)
+    assert torch.equal(zero, no_codes)
+    with pytest.raises(ValueError, match="rows 8..15"):
+        f(wts, x, dtype, model, mip=True)
+    with pytest.raises(ValueError, match="xT must be"):
+        f(wts, x[:8].contiguous(), dtype, model)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("windows", [False, True], ids=["no-windows", "a0.3"])
+@pytest.mark.parametrize("model, rows", APP_CASES[:3], ids=APP_IDS[:3])
+def test_backward_with_codes_matches_plain(dev, model, rows, windows, dtype):
+    """B2 with ``want_dx`` on an appearance model (the recompute with the
+    codes, ``dWca`` in ``Wcd``'s last eight columns, the codes' rows of
+    dx) against its plain version: the weight gradients within B2's
+    bounds; dx (16 rows) bit-equal to the input-gradient kernel on the
+    forward and backward tile kernels' planes; held row by row as the pose
+    dx is (``explain_dx``, the code rows against their own largest entry,
+    a planted fault in them caught); rows 6..7 and the pad code rows zero;
+    the weight gradients bit-equal to the launch without ``want_dx``; the
+    counters ``app_launches``, ``dx_launches`` and the C count."""
+    from nerf_simple_tpu_torch.probes.input_grad import explain_dx
+
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev, model)),
+                            dtype)
+    x = _x16_app(model, rows, dev, 8)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
+    b = mlp.fused_mlp_backward
+    before = (b.launches, b.app_launches, b.dx_launches, mlp.input_grad_launches())
+    got, dx = b(wts, x, g, dtype, model, want_dx=True, enc_w=enc_w)
+    torch.cuda.synchronize()
+    assert (b.launches, b.app_launches, b.dx_launches, mlp.input_grad_launches()) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    want, dx_p = mlp.fused_mlp_backward_plain(wts, x, g, dtype, model, want_dx=True, enc_w=enc_w)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    FD0 = mlp._enc_rows(model.Ld)
+    dwca = ((got.Wcd[:, FD0:] - want.Wcd[:, FD0:]).abs().max() / want.Wcd[:, FD0:].abs().max()).item()
+    assert dwca <= GRAD_TOL[dtype], dwca
+    assert dx.shape == (16, rows) and bool((dx[6:8] == 0).all()) and bool((dx[8 + model.app_dim :] == 0).all())
+    _, res = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
+    assert torch.equal(dx, mlp.input_grad(wts, x, mlp.backward_tile(wts, res, g, dtype, model), dtype, model, enc_w))
+    ex = explain_dx(wts, x, g, dx, dx_p, dtype, model, enc_w, DX_TOL[dtype])
+    print(f"dx rows: {ex}")
+    assert ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dtype], ex
+    assert ex["share"] <= DX_ROW_SHARE[dtype], ex
+    assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()) and "code_rows_half" in ex["faults"], ex
+    alone = b(wts, x, g, dtype, model, enc_w=enc_w)
+    assert all(torch.equal(a, c) for a, c in zip(got, alone))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", APP_CASES, ids=APP_IDS)
+def test_input_grad_kernel_with_codes_matches_plain(dev, model, rows, dtype):
+    """The input-gradient kernel alone on an appearance model's planes
+    against ``input_grad_plain``: dx (16 rows) within DX_TOL of max |dx|,
+    the code rows within DX_TOL of their own largest entry, rows 6..7
+    zero, counted in ``input_grad.app_launches``; its rows 0..5 bit-equal
+    to the kernel's on the same planes laid out without the code rows."""
+    import dataclasses
+
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev, model)),
+                            dtype)
+    x = _x16_app(model, rows, dev, 6)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    _, res = mlp.forward_residuals(wts, x, dtype, model)
+    gws = mlp.backward_tile(wts, res, g, dtype, model)
+    before = (mlp.input_grad.launches, mlp.input_grad.app_launches)
+    got = mlp.input_grad(wts, x, gws, dtype, model)
+    torch.cuda.synchronize()
+    assert (mlp.input_grad.launches, mlp.input_grad.app_launches) == (before[0] + 1, before[1] + 1)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, model)
+    assert got.shape == (16, rows) and bool(torch.isfinite(got).all()) and bool((got[6:8] == 0).all())
+    assert _dx_err(got, want) <= DX_TOL[dtype]
+    assert _dx_err(got[8:], want[8:]) <= DX_TOL[dtype]
+    plain_model = dataclasses.replace(model, app_dim=0)
+    FD0 = mlp._enc_rows(model.Ld)
+    w0 = wts._replace(Wcd=wts.Wcd[:, :FD0].contiguous())
+    L, L0 = mlp.Layout.of(model), mlp.Layout.of(plain_model)
+    assert L.FG == L0.FG  # the cotangent planes do not move
+    no_codes = mlp.input_grad(w0, x[:8].contiguous(), gws, dtype, plain_model)
+    assert torch.equal(got[:8], no_codes)
+
+
+def test_appearance_step_on_the_card_matches_xla(dev):
+    """One f32 loss from one state with appearance codes and the camera
+    deltas of each ray's image (``autograd_loss``, the anneal at alpha
+    0.4) through the forward kernel and B2 with the code rows and the
+    input gradient, against the same loss on the xla backend: the loss to
+    LOSS_TOL, the gradients of the field, of the code table and of the
+    dr/dt tables within 1e-3 of each one's largest entry; then one pallas
+    step through ``build_train_step`` moves the codes (and the deltas)."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train.step import (AppCodes, CamDeltas, autograd_loss, build_train_step,
+                                                  make_train_state, render_settings)
+
+    model, n_img, hw, B, N = NerfMLP(Lp=6, Ld=3, H=64, app_dim=8), 4, 256, 512, 32
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=6,
+                      net_Ld=3, pose_opt=True, pose_warmup=0, pe_anneal_until=10, appearance_dim=8)
+    rng = np.random.default_rng(13)
+    d = rng.normal(size=(n_img * hw, 3))
+    rays = torch.from_numpy(np.concatenate([-4.0 * d / np.linalg.norm(d, axis=1, keepdims=True), d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (n_img * hw, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n_img * hw, B)).to(dev)
+    ts = torch.from_numpy(np.sort(rng.uniform(2, 6, (B, N)), -1).astype(np.float32)).to(dev)
+    tables = {k: rng.normal(0, 0.02, (n_img, 3)).astype(np.float32) for k in ("dr", "dt")}
+    codes = rng.normal(0, 0.3, (n_img, 8)).astype(np.float32)
+    got = {}
+    for backend in ("pallas", "xla"):
+        field = NerfField.from_jax_params(init_nerf_params(4, model), dev, model)
+        cams = CamDeltas(n_img, dev).copy_tables_(tables)
+        app = AppCodes(n_img, 8, dev).copy_tables_(codes)
+        c = dataclasses.replace(cfg, backend=backend)
+        before = (mlp.fused_mlp_backward.dx_launches, mlp.fused_mlp_backward.app_launches)
+        loss = autograd_loss(c, field, rays[idx], pix[idx], ts, None, render_settings(c), cams=cams,
+                             im_b=idx // hw, enc_alpha=0.4, app=app)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (mlp.fused_mlp_backward.dx_launches, mlp.fused_mlp_backward.app_launches) == (
+            before[0] + (backend == "pallas"), before[1] + (backend == "pallas"))
+        got[backend] = (loss.item(), [p.grad for p in field.parameters()], [cams.dr.grad, cams.dt.grad, app.table.grad])
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    assert abs(lp / lx - 1) <= LOSS_TOL[torch.float32]
+    for a, b in zip(fp + cp, fx + cx):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
+    state = make_train_state(cfg, model, dev, n_images=n_img)
+    out = build_train_step(cfg, model, rays_per_image=hw)(state, rays, pix)
+    assert bool(torch.isfinite(out)) and float(state.app.table.detach().abs().max()) > 0
+    assert float(state.cams.dr.detach().abs().max()) > 0

@@ -105,8 +105,9 @@ def test_unported_families_and_variants_raise():
         model_from_meta({"family": "cpgrid"})
     with pytest.raises(NotImplementedError, match="contract"):
         model_from_meta({"family": "nerf", "contract": True})
-    with pytest.raises(NotImplementedError, match="app_dim"):
-        NerfField(NerfMLP(Lp=2, Ld=2, H=16, app_dim=2))
+    with pytest.raises(NotImplementedError, match="contract"):
+        NerfField(NerfMLP(Lp=2, Ld=2, H=16, contract=True))
+    assert NerfField(NerfMLP(Lp=2, Ld=2, H=16, app_dim=2)).color0.in_features == 16 + 15 + 2  # ported
     assert model_from_meta({"family": "nerf", "Lp": 4, "Ld": 2, "H": 32}) == SMALL
 
 

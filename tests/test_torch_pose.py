@@ -517,8 +517,9 @@ POSE_RULES = [
 
 def test_pose_config_keys_load_and_each_rule_raises():
     """lego.yaml with the pose keys loads; each of JAX's pose rules raises
-    in both packages; pose with mip or proposal and ``appearance_dim`` raise
-    NotImplementedError naming ROADMAP Queue A item 6."""
+    in both packages; pose with mip or proposal raises NotImplementedError
+    naming ROADMAP Queue A item 6; pose with ``appearance_dim`` loads (the
+    real-capture recipe), but not with ``pose_freeze_at`` (JAX's rule)."""
     d = config.load_yaml("configs/lego.yaml")
     keys = dict(pose_opt=True, pose_lr_init=2e-3, pose_lr_final=2e-5, pose_warmup=100, pose_freeze_at=1500,
                 pe_anneal_until=1500)
@@ -533,8 +534,9 @@ def test_pose_config_keys_load_and_each_rule_raises():
         jconfig.TrainConfig(datapath="d", **kw)  # JAX composes them
         with pytest.raises(NotImplementedError, match="Queue A item 6"):
             config.TrainConfig(datapath="d", **kw)
-    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
-        config.train_config_from_dict({"datapath": "d", "appearance_dim": 4})
+    assert config.train_config_from_dict({**d, "pose_opt": True, "appearance_dim": 4}).appearance_dim == 4
+    with pytest.raises(ValueError, match="pose_freeze_at cannot combine with appearance_dim"):
+        config.train_config_from_dict({**d, **keys, "appearance_dim": 4})
     field = NerfField.from_jax_params(init_nerf_params(9, SMALL), "cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 6"):  # the input gradient under mip
         mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), torch.zeros((16, 8), requires_grad=True),
