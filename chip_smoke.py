@@ -178,7 +178,26 @@ NerfMLP(Lp=10, Ld=4, H=256):
    with lego_proposal.yaml's, each evaluated under a code; (c) the JAX
    package's exposure-twin recipe at the flagship width: the loss with codes
    below 0.35 of the loss without, the twins' brightness ratio in (1.4, 2.3);
-15. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+15. pose refinement with mip and with proposal: (a) the input gradient's mip
+   instantiation (csrc/input_grad.cuh, ``MIP``) at the mip training batch
+   (524,288 rows at the scene's cone radius), f32 and bf16: B2 with ``mip``
+   and ``want_dx`` against plain by ``explain_dx``'s rule (the mean,
+   direction and variance rows each held row by row, its two mip faults
+   caught, the zero rows zero), its grads bit-equal to the launch without
+   dx; the kernel alone against plain with two planted faults (the damp
+   dropped, the variance rows halved), its ms beside the point kernel's,
+   plain and the torch.mm yardstick, and its bound; with ``--before``, B2
+   under mip without dx and the point B2 with dx bit-equal to the earlier
+   library's, and every kernel without mip the same SASS as the earlier
+   library's; (b) lego_mip.yaml's keys + ``pose_opt`` (warmup 10, freeze at
+   100) through ``train()`` for 150 steps on a copy of the phase-7 scene
+   with perturbed train poses: two B2 launches with the mip input gradient
+   a step before the freeze, the fused mip core after it, the loss falls,
+   the rig's error before and after, the step's wall and profile by pass,
+   a refined train still; (c) lego_proposal.yaml's keys + ``pose_opt`` +
+   ``pe_anneal_until: 40`` for 60 steps with a mid-anneal preview: the
+   loss falls, the deltas move, the step's wall;
+16. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -926,7 +945,7 @@ PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
 
 def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
                  split_proposal: bool = False, split_mip: bool = False, split_pose: bool = False,
-                 rest: str = "rays and compositing") -> dict:
+                 rest: str = "rays and compositing", forwards: int = 1) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
     10 calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
@@ -949,8 +968,9 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     the coarse x16), "between B1s" (resample_edges, the fine x16) or
     "after B1" (the pack's backward) as they fall in the step. With
     ``split_pose`` (a pose step: the forward kernel, then B2 with the input
-    gradient), the kernels in time order go to "forward" (the forward's
-    weight image and tile kernel), "B2" (its recompute, tile kernel, sums
+    gradient), the kernels in time order go to "forward" (the weight image
+    and tile kernel of each of the step's ``forwards`` forward launches: 2
+    for a two-level mip step), "B2" (its recompute, tile kernel, sums
     and reduce), "input grad" (csrc/input_grad.cuh), "adam" (by name), and
     the rest to ``rest`` (the ray refinement or the code gather, the input
     build, the pack, torch compositing and their autograd); ``others``
@@ -983,7 +1003,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
             elif any(k in e.name for k in STEP_GROUPS[1][1]):
                 group, n_fwd = "adam", 0  # the step's last kernels
             elif group in ("weight_image", "fwd_tile"):
-                group, n_fwd = ("forward" if n_fwd < 2 else "B2"), n_fwd + 1  # the forward's image, tile; B2's
+                group, n_fwd = ("forward" if n_fwd < 2 * forwards else "B2"), n_fwd + 1  # the forwards'; B2's
             elif group in ("bwd_image", "bwd_tile", "sums", "sums_reduce"):
                 group = "B2"
             else:
@@ -2813,10 +2833,10 @@ def earlier_forward(mlp, lib, w, x, dt, model) -> torch.Tensor:
     return out
 
 
-def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False):
-    """B2 of an earlier library (no windows, no mip, no codes; with
-    ``want_dx`` also dx, which an earlier library without the input
-    gradient refuses)."""
+def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False, mip: bool = False):
+    """B2 of an earlier library (no windows, no codes; with ``want_dx``
+    also dx, which an earlier library without the input gradient refuses;
+    with ``mip`` its mip recompute, not with dx)."""
     bf16 = int(dt == torch.bfloat16)
     ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16, 0),
                      dtype=torch.uint8, device=x.device)
@@ -2824,8 +2844,8 @@ def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False):
     dx = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device) if want_dx else None
     mlp._raise_on(lib.fused_mlp_bwd(x.data_ptr(), gT.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
                                     mlp._CPtrs(*mlp._ptrs(w)), mlp._weights_t(w), ws.data_ptr(),
-                                    mlp._CPtrs(*mlp._ptrs(grads)), 0, None, None, None if dx is None else dx.data_ptr(),
-                                    0, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(grads)), int(mip), None, None,
+                                    None if dx is None else dx.data_ptr(), 0, mlp._stream(x)),
                   "earlier fused_mlp_bwd")
     return (grads, dx) if want_dx else grads
 
@@ -3474,6 +3494,361 @@ def phase_app_twins(dev, work, mlp) -> dict:
                 ratio=ratio, wall_s=[out[APP_DIM]["wall_s"], out[0]["wall_s"]])
 
 
+# Pose refinement with mip and with proposal (phase 15): the mip run's
+# steps and freeze (configs/lego_mip.yaml's keys + pose_opt, cut from
+# 10,000 steps), the proposal run's steps and anneal (lego_proposal.yaml's
+# keys + pose_opt; one mid-anneal preview at step 30).
+PM_ITERS, PM_WARMUP, PM_FREEZE = 150, 10, 100
+PP_ITERS, PP_ANNEAL, PP_PREVIEW = 60, 40, 30
+
+
+def sass_by_kernel(so: str) -> dict:
+    """{kernel's short name: its SASS instructions, addresses stripped} of a
+    library, by cuobjdump; the input-gradient kernel's names lose the
+    ``false`` of its MIP switch (``Lb0E``), so a launch without mip pairs
+    with the same kernel of a library that has no switch."""
+    cuobj = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobj, "-sass", so], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = short_name(m.group(1))
+            name = name.replace("Lb0E", "") if "input_grad_kernel" in name else name
+            funcs[name] = []
+        elif name and re.match(r"\s+/\*[0-9a-f]+\*/", line):
+            funcs[name].append(re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip())
+    return funcs
+
+
+def phase_pose_mip_kernels(dev, scene, model, mlp, earlier, before_dir) -> dict:
+    """15a. The input gradient's mip instantiation, nets from numpy seed
+    SEED, f32 and bf16: B2 with ``mip`` and ``want_dx`` at the mip training
+    batch (4096 rays x N_SAMPLES intervals of the scene at its cone radius,
+    524,288 rows, as ``_fused_mlp_bn_mip`` builds it) against
+    ``fused_mlp_backward_plain(mip=True, want_dx=True)`` by
+    ``probes/input_grad.py::explain_dx``'s rule (the mean, direction and
+    variance rows each held row by row; DX_TOL, DX_ROW_SHARE; the rows JAX
+    leaves zero exactly zero; its two mip faults caught), its weight
+    gradients bit-equal to the launch without dx, dx bit-equal to the mip
+    kernel on the tile kernels' planes; B2 with and without dx in turns
+    beside the plain version. The kernel alone (``probes/input_grad.py::
+    run_mip``): against plain with its planted faults, its ms beside the
+    point kernel's on the same planes, the plain version and the torch.mm
+    yardstick, its bound. With ``earlier`` (an earlier commit's libraries): B2 under mip
+    without dx and every launch without mip (B2 with dx on the point batch)
+    bit-equal to the earlier library's, and the SASS of each earlier library
+    kernel by kernel against the current one's (all but the two mip
+    instantiations identical)."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.kernels import _build
+    from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+    from nerf_simple_tpu_torch.train.step import build_x16_mip
+
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    del rd
+    edges = stratified_ts(g, BATCH, N_SAMPLES + 1, 2.0, 6.0, dev)
+    x = build_x16_mip(rays_b, edges, pix_b, mip_radius(scene_focal(scene)))
+    x[6:11] = 0.0  # the render's input: means, dirs, variances only
+    x[14] = 0.0
+    x8 = train_batch(dev, scene)[:8].contiguous()
+    gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, x.shape[1])).astype(np.float32)).to(dev)
+    b2 = mlp.fused_mlp_backward
+    stats = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            before = (b2.mip_dx_launches, mlp.input_grad_mip_launches())
+            grads, dx = b2(w, x, gT, dt, model, mip=True, want_dx=True)
+            torch.cuda.synchronize()
+            check((b2.mip_dx_launches, mlp.input_grad_mip_launches()) == (before[0] + 1, before[1] + 1),
+                  "B2 with mip and dx counted, its mip input-gradient kernel counted in C")
+            alone = b2(w, x, gT, dt, model, mip=True)
+            bit_equal = all(torch.equal(a, c) for a, c in zip(grads, alone))
+            _, res = mlp.forward_residuals(w, x, dt, model, mip=True)
+            gws = mlp.backward_tile(w, res, gT, dt, model)
+            del res
+            composed = torch.equal(dx, mlp.input_grad(w, x, gws, dt, model, mip=True))
+            del gws
+            zero_rows = bool((dx[list(ig_probe.MIP_ZERO_ROWS)] == 0).all())
+            st = {}
+            if earlier:
+                lib = earlier["fused_mlp_bwd"]
+                st["mip_no_dx_bit_equal_earlier"] = all(torch.equal(a, c) for a, c in zip(
+                    alone, earlier_backward(mlp, lib, w, x, gT, dt, model, mip=True)))
+                pg, pdx = b2(w, x8, gT, dt, model, want_dx=True)
+                eg, edx = earlier_backward(mlp, lib, w, x8, gT, dt, model, want_dx=True)
+                st["point_dx_bit_equal_earlier"] = (all(torch.equal(a, c) for a, c in zip(pg, eg))
+                                                    and torch.equal(pdx, edx))
+                del pg, pdx, eg, edx
+            want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, model, mip=True, want_dx=True)
+            rel, abs_err = grad_errors(grads, want)
+            ex = ig_probe.explain_dx(w, x, gT, dx, dx_p, dt, model, None, DX_TOL[dt], mip=True)
+            del grads, dx, alone, want, dx_p
+            torch.cuda.empty_cache()
+            ms = turns_ms({"dx": lambda: b2(w, x, gT, dt, model, mip=True, want_dx=True),
+                           "no_dx": lambda: b2(w, x, gT, dt, model, mip=True)})
+            st.update(err=abs_err, rel=rel, dx_rows=ex, ms=ms["dx"], ms_no_dx=ms["no_dx"], rows=x.shape[1],
+                      bit_equal_no_dx=bit_equal, dx_equal_composed=composed, zero_rows_zero=zero_rows,
+                      plain_ms=cuda_ms(lambda: mlp.fused_mlp_backward_plain(w, x, gT, dt, model, mip=True,
+                                                                            want_dx=True), reps=3))
+            torch.cuda.empty_cache()
+            print(f"B2 mip want_dx vs plain {name} at {x.shape[1]} rows: grad err {rel:.3e} of max (tol "
+                  f"{GRAD_TOL['B2', dt]:.0e}); dx rows past {DX_TOL[dt]:.0e} (mean, direction and variance rows each "
+                  f"of their max) {ex['n_past']} ({ex['share']:.2e}, tol {DX_ROW_SHARE[dt]:.0e}), with a flipped relu "
+                  f"mask {ex['n_flipped']}, past without one {ex['n_unexplained']}, on the kernel's own masks "
+                  f"{ex['own_masks_err']:.2e}; planted faults: " + ", ".join(
+                      f"{k} {f['share']:.2e} past ({f['n_unexplained']} without a flipped mask)"
+                      for k, f in ex["faults"].items()) + f"; rows {ig_probe.MIP_ZERO_ROWS} zero: {zero_rows}; dx bit-equal "
+                  f"to the mip input-gradient kernel on the kernels' own planes: {composed}; in turns: with dx "
+                  f"{st['ms']:.3f} ms, without {st['ms_no_dx']:.3f} ms; plain {st['plain_ms']:.3f} ms; grads "
+                  f"bit-equal to the launch without dx: {bit_equal}" + (
+                      f"; without dx bit-equal to the earlier library's: {st['mip_no_dx_bit_equal_earlier']}; "
+                      f"the point launch with dx bit-equal to the earlier library's: "
+                      f"{st['point_dx_bit_equal_earlier']}" if earlier else ""), flush=True)
+            check(rel <= GRAD_TOL["B2", dt] and composed and zero_rows and ex["n_unexplained"] == 0
+                  and ex["own_masks_err"] <= DX_TOL[dt] and ex["share"] <= DX_ROW_SHARE[dt],
+                  f"B2 mip want_dx {name} within tolerance")
+            check(all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
+                  f"the mip dx rule catches both planted faults ({name})")
+            check(bit_equal and st.get("mip_no_dx_bit_equal_earlier", True)
+                  and st.get("point_dx_bit_equal_earlier", True), f"B2 {name}: the launches without dx, or without "
+                  "mip, unchanged")
+            stats[f"b2_{name}"] = st
+    del x, x8, gT, rays_b, pix_b, edges
+    torch.cuda.empty_cache()
+    ig = ig_probe.run_mip(dev, model)
+    for name in ("f32", "bf16"):
+        v = ig[name]
+        print(f"mip input-gradient kernel alone {name} at {ig['rows']} rows: {v['ms']:.3f} ms (the point kernel on "
+              f"the same planes {v['point_ms']:.3f} ms), plain {v['plain_ms']:.3f} ms, torch.mm yardstick "
+              f"{v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+              f"{100 * v['share_of_bound']:.1f}% of it; dx err {v['rel_err']:.2e} by row group (variance rows "
+              f"{v['var_rel_err']:.2e}; tol {ig_probe.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e}); "
+              f"planted faults {', '.join(f'{k} {e:.2e}' for k, e in v['fault_err'].items())}", flush=True)
+    stats["input_grad"] = ig
+    if earlier:
+        sass = {}
+        for src in BEFORE_ENTRIES:
+            cur = sass_by_kernel(str(_build.library_path(src)))
+            old = sass_by_kernel(os.path.join(os.path.dirname(os.path.abspath(before_dir)), "build", f"{src}.so"))
+            mip = sorted(k for k in cur if "input_grad_kernel" in k and "Lb1E" in k)
+            same = [k for k in cur if k not in mip and old.get(k) == cur[k]]
+            sass[src] = dict(identical=len(same), kernels=len(cur), mip=len(mip), earlier=len(old),
+                             differ=sorted(k[:60] for k in cur if k not in mip and k not in same))
+        print("SASS against the earlier libraries, kernel by kernel: " + "; ".join(
+            f"{src} {v['identical']} of {v['kernels'] - v['mip']} identical ({v['mip']} mip kernels new; the earlier "
+            f"library has {v['earlier']})" + (f", differ: {v['differ']}" if v["differ"] else "")
+            for src, v in sass.items()), flush=True)
+        check(all(not v["differ"] and v["identical"] == v["earlier"] for v in sass.values()),
+              "every kernel without mip builds to the earlier library's SASS")
+        stats["sass"] = sass
+    return stats
+
+
+def phase_pose_mip_train(dev, scene, work, mlp) -> dict:
+    """15b. Pose refinement with cone casting through train() (bf16,
+    pallas): configs/lego_mip.yaml's keys (mip_levels 2) + pose_opt,
+    pose_warmup PM_WARMUP, pose_freeze_at PM_FREEZE, PM_ITERS steps, on a
+    copy of the phase-7 scene whose train poses are perturbed as the pose
+    recipe's (``perturb_train_poses``). Before the freeze each step runs
+    two mip forwards and two B2 launches with the mip input gradient
+    (counted by the wrapper and in C); after it, the fused mip core (two
+    cone-cast B1 launches a step). The loss falls, the deltas are nonzero,
+    the rig's error before and after (``rig_error``); then a pose + mip step
+    from a fresh state: its wall and host issue, kernel ms by pass
+    (``profile_step(split_pose, forwards=2)``), idle share; then
+    ``evaluate.test`` of train still 0 from the refined rig (the sidecar)."""
+    import shutil
+
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    pert = os.path.join(work, "pose_mip_scene")
+    shutil.copytree(scene, pert)
+    perturb_train_poses(pert)
+    rig_before = rig_error(scene, pert)
+    cfg = load_yaml("configs/lego_mip.yaml")
+    cfg.update(datapath=pert, savepath=os.path.join(work, "models_pm"), log_dir=os.path.join(work, "logs_pm"),
+               num_iters=PM_ITERS, ckpt_loss=1, ckpt_images=PM_ITERS, ckpt_model=PM_FREEZE, steps_per_call=50,
+               pose_opt=True, pose_warmup=PM_WARMUP, pose_freeze_at=PM_FREEZE)
+    check(cfg["mip"] and cfg["mip_levels"] == 2 and cfg["backend"] == "pallas" and cfg["compute_dtype"] == "bf16",
+          "the mip config's keys")
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.mip_launches = b2.launches = b2.dx_launches = b2.mip_dx_launches = 0
+    b1.launches = b1.mip_launches = b1.weights_launches = 0
+    mlp.input_grad_launches(reset=True)
+    mlp.input_grad_mip_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(forward=fwd.launches, forward_mip=fwd.mip_launches, b2=b2.launches, b2_dx=b2.dx_launches,
+                    b2_mip_dx=b2.mip_dx_launches, input_grad=mlp.input_grad_launches(),
+                    input_grad_mip=mlp.input_grad_mip_launches(), b1=b1.launches, b1_mip=b1.mip_launches,
+                    b1_weights=b1.weights_launches)
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_pose_mip_log.txt"), "w") as fh:
+        fh.write(text)
+    exp = os.path.join(work, "models_pm", cfg["exp_name"])
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    with np.load(os.path.join(exp, "cam_deltas.npz")) as d:
+        dr, dt, freeze_step = d["dr"], d["dt"], int(d["freeze_step"])
+    rig_after = rig_error(scene, pert, dr, dt)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train pose + mip: {PM_ITERS} steps in {train_s:.1f} s with renders; launches {launches}; loss (0.1 coarse "
+          f"+ fine) {first:.5f} -> {last:.5f} (means of the first and last 10); |dr| max {np.abs(dr).max():.4f}, "
+          f"|dt| max {np.abs(dt).max():.4f}; the rig's mean error before {rig_before['rot']:.4f} rad / "
+          f"{rig_before['trans']:.4f}, after {rig_after['rot']:.4f} rad / {rig_after['trans']:.4f} (aligned as a "
+          f"whole: before {rig_before['rot_aligned']:.4f} / {rig_before['trans_aligned']:.4f}, after "
+          f"{rig_after['rot_aligned']:.4f} / {rig_after['trans_aligned']:.4f}); "
+          + next(line for line in text.splitlines() if "pose freeze at step" in line), flush=True)
+    check(freeze_step == PM_FREEZE and state.cams is None, "the freeze baked the deltas at pose_freeze_at")
+    check(launches["b2_mip_dx"] == launches["b2_dx"] == launches["b2"] == launches["input_grad_mip"]
+          == launches["input_grad"] == 2 * freeze_step, "two B2 launches with the mip input gradient a step before the "
+          "freeze, counted where they launch")
+    check(launches["b1_mip"] == launches["b1"] == 2 * (PM_ITERS - freeze_step)
+          and launches["b1_weights"] == PM_ITERS - freeze_step,
+          "the fused mip core (two cone-cast B1 launches a step) after the freeze")
+    check(launches["forward_mip"] == launches["forward"] >= 2 * freeze_step, "the mip forwards (and the val renders)")
+    check(all(np.isfinite(losses)) and len(losses) == PM_ITERS and last < first, "the pose + mip loss fell")
+    check(np.abs(dr).max() > 0 and np.abs(dt).max() > 0, "the deltas moved")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    rd = RayDataset.from_blender(load_blender(pert, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    n_pix = rd.H * rd.W
+    st = make_train_state(tcfg, model, dev, n_images=rays.shape[0] // n_pix)
+    step_fn = build_train_step(tcfg, model, base_radius=mip_radius(rd.f), rays_per_image=n_pix)
+
+    def step():
+        return step_fn(st, rays, pixels)
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = step_walls(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    others = {}
+    prof = profile_step(step, others, split_pose=True, forwards=2, rest="frustums, compositing and rays")
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step pose + mip bf16 (two levels): {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} "
+          f"rays/s (CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); "
+          f"host issues a step in {walls['host_ms']:.3f} ms; peak device memory {peak_gb:.2f} GB", flush=True)
+    print("train step pose + mip bf16 profile, device ms a step: " + (", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+        + f"; kernels {busy:.3f} of {walls['ms']:.3f} ms, idle share {idle:.3f}" if prof else
+        "not measured (the profiler saw no device activity)"), flush=True)
+    print("train step pose + mip bf16 profile, the frustum/compositing group by kernel, ms a step: " + "; ".join(
+        f"{n} {v:.3f}" for n, v in sorted(others.items(), key=lambda kv: -kv[1])[:8]), flush=True)
+    del st, step_fn, rd, rays, pixels, state
+    torch.cuda.empty_cache()
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test(dict(loadpath=exp, datapath=pert, savepath=os.path.join(work, "eval_pm"), im_set="train", im_idxs=[0],
+                  mip=True, mip_levels=2, N_samples=N_SAMPLES, compute_dtype="bf16", backend="pallas",
+                  batch_size=16384))
+    eval_s = time.perf_counter() - t0
+    psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", log.getvalue())]
+    print(f"eval pose + mip: train still 0 from the refined rig (the sidecar), two levels: PSNR "
+          f"{', '.join(f'{p:.2f}' for p in psnr)} dB in {eval_s:.1f} s", flush=True)
+    check(len(psnr) == 1 and np.isfinite(psnr[0]), "the refined mip still rendered")
+    return dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s, rig_before=rig_before,
+                rig_after=rig_after, dr_max=float(np.abs(dr).max()), dt_max=float(np.abs(dt).max()),
+                step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle,
+                peak_gb=peak_gb, eval_psnr=psnr[0], eval_s=eval_s)
+
+
+def phase_pose_prop_train(dev, scene, work, mlp) -> dict:
+    """15c. Pose refinement with proposal sampling through train() (bf16,
+    pallas): configs/lego_proposal.yaml's keys + pose_opt and
+    pe_anneal_until PP_ANNEAL, PP_ITERS steps on the phase-7 scene, one
+    preview (val and train renders) at PP_PREVIEW, mid-anneal: each step
+    runs the main field's forward and B2 with the input gradient (the
+    anneal windows until PP_ANNEAL), the proposal MLP in plain autograd, no
+    B1. The loss falls and the deltas are nonzero; then the step's wall
+    from a fresh state mid-anneal (step 20)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    cfg = load_yaml("configs/lego_proposal.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models_pp"), log_dir=os.path.join(work, "logs_pp"),
+               num_iters=PP_ITERS, ckpt_loss=1, ckpt_images=PP_PREVIEW, ckpt_model=PP_ITERS, steps_per_call=10,
+               pose_opt=True, pose_warmup=PM_WARMUP, pe_anneal_until=PP_ANNEAL)
+    check(cfg["proposal"] and cfg["backend"] == "pallas" and cfg["compute_dtype"] == "bf16", "the proposal keys")
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.anneal_launches = b2.launches = b2.dx_launches = b2.anneal_launches = b1.launches = 0
+    mlp.input_grad_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(forward=fwd.launches, forward_anneal=fwd.anneal_launches, b2=b2.launches, b2_dx=b2.dx_launches,
+                    b2_anneal=b2.anneal_launches, input_grad=mlp.input_grad_launches(), b1=b1.launches)
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_pose_prop_log.txt"), "w") as fh:
+        fh.write(text)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    dr_max = float(state.cams.dr.detach().abs().max())
+    dt_max = float(state.cams.dt.detach().abs().max())
+    print(f"train pose + proposal: {PP_ITERS} steps in {train_s:.1f} s with a preview at step {PP_PREVIEW} "
+          f"(mid-anneal, alpha {PP_PREVIEW / PP_ANNEAL:.2f}); launches {launches}; loss {first:.5f} -> {last:.5f} "
+          f"(means of the first and last 10); |dr| max {dr_max:.4f}, |dt| max {dt_max:.4f}", flush=True)
+    check(launches["b2_dx"] == launches["b2"] == launches["input_grad"] == PP_ITERS and launches["b1"] == 0,
+          "one B2 launch with the input gradient a step, no B1")
+    check(launches["b2_anneal"] == PP_ANNEAL and launches["forward_anneal"] > PP_ANNEAL,
+          "the main field annealed until pe_anneal_until, the preview mid-anneal")
+    check(all(np.isfinite(losses)) and len(losses) == PP_ITERS and last < first, "the pose + proposal loss fell")
+    check(dr_max > 0 and dt_max > 0, "the deltas moved")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    n_pix = rd.H * rd.W
+    st = make_train_state(tcfg, model, dev, n_images=rays.shape[0] // n_pix)
+    step_fn = build_train_step(tcfg, model, rays_per_image=n_pix)
+
+    def step():  # mid-anneal: the windows and the input gradient on every call
+        st.step = 20
+        return step_fn(st, rays, pixels)
+
+    walls = step_walls(step)
+    print(f"train step pose + proposal bf16 (mid-anneal): {walls['ms']:.3f} ms a step, "
+          f"{BATCH / walls['ms'] * 1e3:,.0f} rays/s (CUDA events over 20 steps, median of 5; runs "
+          f"{', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a step in {walls['host_ms']:.3f} ms",
+          flush=True)
+    del st, step_fn, rd, rays, pixels, state
+    torch.cuda.empty_cache()
+    return dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s, dr_max=dr_max, dt_max=dt_max,
+                step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"])
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -3649,7 +4024,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         appr = phase_app_twins(dev, work, mlp)
         walls["appearance"] = time.perf_counter() - t_phase
-    # 15. the padding probe
+        # 15. pose with mip and proposal: the mip input gradient vs plain, training through the freeze, eval
+        t_phase = time.perf_counter()
+        pmk = phase_pose_mip_kernels(dev, scene, model, mlp, earlier, args.before[0] if args.before else None)
+        torch.cuda.empty_cache()
+        pmt = phase_pose_mip_train(dev, scene, work, mlp)
+        torch.cuda.empty_cache()
+        ppt = phase_pose_prop_train(dev, scene, work, mlp)
+        walls["pose with mip and proposal"] = time.perf_counter() - t_phase
+    # 16. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -3858,6 +4241,26 @@ def main() -> None:
         "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh (KDA: the code slots; dx rows 8..15)",
         "replaces": "nerf_simple_tpu/kernels/mlp.py:867, :747-748, :1140-1145",
         "step_profile_ms_bf16": appt["profile"].get("input grad")}
+    # the mip input gradient (probes/input_grad.py's reckoning, mip=True: nine
+    # x rows read, sixteen dx rows written)
+    igm = pmk["input_grad"]
+    igm_flops, igm_bytes = input_grad_work(model, igm["rows"], torch.float32, mip=True)
+    input_grad_mip = {
+        "name": "input_grad_mip", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:941-1078 (_input_grad_tile_mip), :738-742 (_bwd_kernel's mip "
+                    "and want_dx)",
+        "launches": pmt["launches"]["input_grad_mip"], "max_abs_err": igm["f32"]["max_abs_err"], "ms": igm["f32"]["ms"],
+        "plain_ms": igm["f32"]["plain_ms"], "bound_ms": igm["f32"]["bound_ms"], "bound_by": igm["f32"]["bound_by"],
+        "library_ms": igm["f32"]["library_ms"], "max_abs_err_bf16": igm["bf16"]["max_abs_err"],
+        "ms_bf16": igm["bf16"]["ms"], "plain_ms_bf16": igm["bf16"]["plain_ms"], "bound_ms_bf16": igm["bf16"]["bound_ms"],
+        "bound_by_bf16": igm["bf16"]["bound_by"], "library_ms_bf16": igm["bf16"]["library_ms"],
+        "variant": "input_grad_kernel<T, KD, MIP = true>", "rows": igm["rows"], "flops": igm_flops, "bytes": igm_bytes,
+        **{f"{m}{'' if k == 'f32' else '_bf16'}": igm[k][m] for k in ("f32", "bf16")
+           for m in ("rel_err", "var_rel_err", "point_ms", "share_of_bound", "fault_err")},
+        "b2_mip_dx": {k: {m: v for m, v in pmk[f"b2_{k}"].items()} for k in ("f32", "bf16")},
+        "sass_vs_earlier": pmk.get("sass"),
+        "step_profile_ms_bf16": pmt["profile"].get("input grad"),
+        "pose_mip_step": {k: v for k, v in pmt.items()}, "pose_proposal_step": {k: v for k, v in ppt.items()}}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -3896,6 +4299,7 @@ def main() -> None:
          "share_of_bound": ig["f32"]["share_of_bound"], "share_of_bound_bf16": ig["bf16"]["share_of_bound"],
          "flops": ig_flops, "bytes": ig_bytes,
          "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad},
+        input_grad_mip,
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],

@@ -189,7 +189,7 @@ class TrainConfig:
         if self.mip and self.proposal:
             raise NotImplementedError(
                 "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
-                "ported yet: ROADMAP Queue A item 5, mip x proposal"
+                "ported yet: ROADMAP Queue A item 2, mip x proposal"
             )
         self._check_pose()
         self._check_appearance()
@@ -219,7 +219,9 @@ class TrainConfig:
 
     def _check_pose(self):
         """The JAX TrainConfig's pose rules (nerf_simple_tpu/config.py:
-        578-643), then the port's: pose with mip or proposal is not ported."""
+        578-643). Pose composes with mip (one or two levels) and with
+        proposal sampling, as in JAX; pose with mip and proposal together
+        raises with mip x proposal (``__post_init__``, Queue A item 2)."""
         if self.pose_opt and (self.pose_lr_init <= 0 or self.pose_lr_final <= 0):
             raise ValueError(
                 f"pose_lr_init/pose_lr_final must be positive, got {self.pose_lr_init}/{self.pose_lr_final}")
@@ -253,10 +255,6 @@ class TrainConfig:
                     f"pe_anneal_until ({self.pe_anneal_until}) must finish by pose_freeze_at "
                     f"({self.pose_freeze_at}): the post-freeze fused kernel computes the standard "
                     "full-frequency encoder")
-        if self.pose_opt and (self.mip or self.proposal):
-            raise NotImplementedError(
-                f"pose_opt with {'mip' if self.mip else 'proposal'}=True is not ported yet (it needs "
-                "_input_grad_tile_mip, or the proposal net's own ray gradient): ROADMAP Queue A item 6")
 
     @property
     def render_dtype(self):
@@ -269,19 +267,19 @@ class TrainConfig:
 # (JAX default, ROADMAP item). At the default a key changes nothing.
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "mip multiscale training": {"mip_multiscale": False},
-    "contract with disparity spacing": {"contract": False},
-    "item 2, train_im_idxs": {"train_im_idxs": ()},
-    "the hashgrid/cpgrid families": {
+    "item 2, mip multiscale training": {"mip_multiscale": False},
+    "item 3, contract with disparity spacing": {"contract": False},
+    "item 4, train_im_idxs": {"train_im_idxs": ()},
+    "item 8, the hashgrid/cpgrid families": {
         "model_family": "nerf", "hash_L": 8, "hash_F": 4, "hash_log2_T": 14, "hash_Nmin": 16,
         "hash_Nmax": 256, "hash_H": 64, "hash_aabb": 4.0, "hash_grad_mode": "sample",
         "hash_fwd_mode": "exact", "cp_Rs": (64, 256), "cp_Cs": 32, "cp_Ca": 96, "cp_P": 27,
         "cp_H": 64, "cp_aabb": 4.0, "cp_lr_grid": 2e-2},
-    "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_update_every": 16,
+    "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_update_every": 16,
                   "occ_decay": 0.95, "occ_floor": 0.01, "occ_aabb": 4.0},
-    "data parallelism": {"num_data_shards": 1, "distributed": False, "shard_dataset": False},
-    "LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
-    "tracing and debug guards": {"profile_dir": "", "debug_nan": False},
+    "item 9, data parallelism": {"num_data_shards": 1, "distributed": False, "shard_dataset": False},
+    "item 6, LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
+    "item 4, tracing and debug guards": {"profile_dir": "", "debug_nan": False},
 }.items():
     _UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
 
@@ -300,7 +298,7 @@ def _filter_kwargs(cls, d: dict[str, Any], unported: dict[str, tuple[Any, str]])
             default, item = unported[k]
             if v != default:
                 raise NotImplementedError(
-                    f"config key {k}={v!r} is not ported yet (ROADMAP Queue A, {item}); "
+                    f"config key {k}={v!r} is not ported yet (ROADMAP Queue A {item}); "
                     f"only its JAX default {default!r} is accepted"
                 )
         elif k not in _CROSS_SECTION_KEYS:
@@ -375,7 +373,7 @@ class TestConfig:
         if self.mip and self.Np > 0:
             raise NotImplementedError(
                 "mip=True with Np > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported "
-                "yet: ROADMAP Queue A item 5, mip x proposal"
+                "yet: ROADMAP Queue A item 2, mip x proposal"
             )
         if self.opaque_background and not self.mip:
             # the JAX TrainConfig's rule (config.py:368-373), which its
@@ -412,10 +410,10 @@ class TestConfig:
 # _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
 _TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
+    "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
                   "occ_aabb": 4.0, "occ_group": 1},
-    "data parallelism": {"num_data_shards": 1},
-    "LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
+    "item 9, data parallelism": {"num_data_shards": 1},
+    "item 6, LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
 }.items():
     _TEST_UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
 

@@ -8,9 +8,11 @@
 // forward with the integrated encoder, :702, :717), with or without BARF's
 // anneal windows in the recompute (:707, :1107, :1118-1120); with dx (the
 // point variant's want_dx, :733-746) also the input gradient of
-// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh; for an
-// appearance model (`app`) the recompute with the codes (:716-724), dWca
-// (:854-857) and the codes' rows of dx (:867, :747-748, :1140-1145).
+// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh, and
+// with `mip` and dx its mip instantiation, _input_grad_tile_mip
+// (:941-1078, :738-742; no contraction); for an appearance model (`app`)
+// the recompute with the codes (:716-724), dWca (:854-857) and the codes'
+// rows of dx (:867, :747-748, :1140-1145).
 //
 // Contract: x (8, rows) f32 as for the forward, or (16, rows) with `mip`
 // or `app` (csrc/fused_mlp_fwd.cu); g (8, rows) f32 with
@@ -69,12 +71,13 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) 
 // `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
 // anneal windows of the forward it recomputes (FX and enc_rows(Ld) floats
 // on the card). `dx`: null, or (8, rows) f32 for the input gradient, (16,
-// rows) with `app` (point only: not with `mip`).
+// rows) with `app` or `mip` (under mip rows 0..2 d/d(mean), 3..5 d/d(dir),
+// 11..13 d/d(variance); not with the windows or codes, as in JAX).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
                   Grads out, int mip, const float *wx, const float *wd, float *dx, int app, void *stream) {
   if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0 || (mip && (wx || dx || app))) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || app))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16, app != 0);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
@@ -83,18 +86,19 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
     return e;
   if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s, app != 0))
     return e;
-  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s, app != 0) : 0;
+  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s, app != 0, mip != 0) : 0;
 }
 
 // The input-gradient kernel alone, on `stream`: from the cotangent planes
 // `gws` ((FG, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
 // rounded up to 64) and x (8, rows) f32 to dx (8, rows) f32 (both 16 rows
-// with `app`), with the anneal windows wx, wd (or null): for tests and
-// timing.
+// with `app` or `mip`), with the anneal windows wx, wd (or null): for tests
+// and timing.
 int input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
-               const float *wx, const float *wd, float *dx, int app, void *stream) {
+               const float *wx, const float *wd, float *dx, int app, int mip, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
-  return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream), app != 0);
+  return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream), app != 0,
+                    mip != 0);
 }
 
 // Launches of the input-gradient kernel by this library so far, as
@@ -102,6 +106,13 @@ int input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, 
 long long input_grad_launch_count(int reset) {
   const long long n = ig::launches;
   if (reset) ig::launches = 0;
+  return n;
+}
+
+// Of them, the launches of its mip instantiation.
+long long input_grad_mip_launch_count(int reset) {
+  const long long n = ig::mip_launches;
+  if (reset) ig::mip_launches = 0;
   return n;
 }
 

@@ -11,7 +11,9 @@
 // products, :784-790), times BARF's anneal windows, through the
 // encoder's transpose _input_grad_tile (:871-938, without contraction);
 // for an appearance model also the code gradients g_app = Wca^T g_hc
-// (:867), appended as rows 8..15 of dx (:747-748, :1140-1145).
+// (:867), appended as rows 8..15 of dx (:747-748, :1140-1145); under mip
+// (cone casting) the integrated encoder's transpose instead,
+// _input_grad_tile_mip (:941-1078, without contraction; :738-742).
 //
 // Contract: the workspace's cotangent planes (mlp_tile.cuh's Layout) g_h0,
 // g_h5 and g_hc (the first H/2 rows of g_cs), each (features, Rp) in the
@@ -32,10 +34,25 @@
 // zero weight columns, so they are not read (the port's row 3 is a pad
 // row: no bias rail). Lp <= 10 and Ld <= 4 (LXM, LDM).
 //
+// Mip (`MIP`, a compile-time switch like the code slots, so the launches
+// without it keep their code): x is (16, rows) with the frustum
+// Gaussians' means in rows 0..2, unit dirs 3..5 and diagonal variances
+// 11..13; posx's sin and cos rows of coordinate c at 2^i were damped in
+// the forward by damp = exp(-0.5 4^i v_c) (the raw rows and posd are
+// not). So a damped row's cotangent g feeds two chains: the angle chain,
+// g f'(ang) damp into the mean as above, and the damp chain, -0.5 g
+// f(ang) damp, which adds 4^i times it to d/d(v_c). dx is (16, rows):
+// rows 0..2 d/d(mean), 3..5 d/d(unit dir), 11..13 d/d(variance), the
+// rest zero. One expf a (coordinate, octave) pair, shared by its sin and
+// cos rows, in f32 as the forward computes it; no windows and no codes
+// under mip (the JAX config's rules).
+//
 // What bounds it (flagship, 524,288 rows): in bf16 the bytes, 640 plane
 // rows x 2 B, x and dx, ~1,344 B a row: 0.21 ms at 3.35 TB/s (its 83,968
 // flop a row take 0.045 ms on the tensor cores); in f32 the operations,
-// 0.66 ms at 67 TFLOP/s (its bytes 0.41 ms).
+// 0.66 ms at 67 TFLOP/s (its bytes 0.41 ms). Under mip it reads 9 rows of
+// x and writes 16 of dx, ~1,380 B a row in bf16 (0.22 ms); the products
+// are the same.
 //
 // Design: simple SIMT, one thread a sample row, chosen over mma.sync for
 // a first kernel that is right: the products are skinny (K = H rows of
@@ -62,7 +79,8 @@ constexpr int LXM = 10, KX = 64;  // octaves of posx held; slots: 3 raw + 3 LXM 
 constexpr int LDM = 4, KD = 32;   // the same for posd
 constexpr int KDA = KD + 8;       // posd's slots with the eight appearance-code columns after them
 
-long long launches = 0;  // of this library, counted where they launch
+long long launches = 0;      // of this library, counted where they launch
+long long mip_launches = 0;  // of them, the integrated encoder's transpose (MIP)
 
 __host__ __device__ inline long long smem_bytes(int H, bool app = false) {
   return 4LL * (2LL * H * KX + (long long)(H / 2) * (app ? KDA : KD));
@@ -88,12 +106,14 @@ __device__ __forceinline__ int column(int s, int L) {
 // weights sa (and sb) [o][K], times the windows ew (or none), then the
 // transpose at the row's three coordinates xc (stride `rows`) into d; the
 // products of the slots past KD (the appearance codes', K = KDA) go to
-// `code` as they are.
-template <class T, int K, int LM, bool TWO>
+// `code` as they are. MIP: the sin and cos rows were damped by the
+// variances vc (stride `rows`); d gets the angle chain, dv the damp chain.
+template <class T, int K, int LM, bool TWO, bool MIP = false>
 __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
                                        const float *sa, const float *sb, int O, const float *__restrict__ xc,
                                        long long rows, int L, const float *__restrict__ ew, float d[3],
-                                       float *code = nullptr) {
+                                       float *code = nullptr, const float *__restrict__ vc = nullptr,
+                                       float *dv = nullptr) {
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
@@ -137,6 +157,8 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     float dc = acc[c];
     if (ew) dc *= __ldg(ew + c);
     const float xv = xc[(long long)c * rows];
+    float vv = 0.f, dvc = 0.f;
+    if constexpr (MIP) vv = vc[(long long)c * rows];
 #pragma unroll
     for (int i = 0; i < LM; ++i) {
       if (i < L) {
@@ -147,18 +169,26 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
         }
         float s, co;
         sincosf(ldexpf(xv, i), &s, &co);
+        if constexpr (MIP) {  // the row's cotangents through the damp: both chains carry it
+          const float damp = expf(-0.5f * ldexpf(vv, 2 * i));
+          gs *= damp;
+          gc *= damp;
+          dvc += ldexpf(gs * s + gc * co, 2 * i);
+        }
         dc += ldexpf(gs * co - gc * s, i);
       }
     }
     d[c] = dc;
+    if constexpr (MIP) dv[c] = -0.5f * dvc;
   }
   if constexpr (K == KDA)
 #pragma unroll
     for (int j = 0; j < 8; ++j) code[j] = acc[KD + j];
 }
 
-// KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16 rows).
-template <class T, int KP>
+// KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16
+// rows); MIP: the integrated encoder's transpose (x and dx of 16 rows).
+template <class T, int KP, bool MIP = false>
 __global__ void __launch_bounds__(THREADS, 1)
     input_grad_kernel(const T *__restrict__ g0, const T *__restrict__ g5, const T *__restrict__ gc, long long Rp,
                       const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
@@ -180,7 +210,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (long long row = (long long)blockIdx.x * THREADS + threadIdx.x; row < rows;
        row += (long long)gridDim.x * THREADS) {
     float d[3], e[3], code[8];
-    branch<T, KX, LXM, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
+    if constexpr (MIP) {
+      float dv[3];
+      branch<T, KX, LXM, true, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, nullptr, d, nullptr,
+                                     x + 11 * rows + row, dv);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dx[(11 + c) * rows + row] = dv[c];
+#pragma unroll
+      for (int j = 8; j < 11; ++j) dx[j * rows + row] = 0.f;
+      dx[14 * rows + row] = 0.f;
+      dx[15 * rows + row] = 0.f;
+    } else {
+      branch<T, KX, LXM, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
+    }
     branch<T, KP, LDM, false>(gc + row, nullptr, Rp, sC, nullptr, H2, x + 3 * rows + row, rows, Ld, wd, e, code);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -197,10 +239,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <class T>
 int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, int H, const Weights &w,
-             const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app) {
+             const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app, bool mip) {
   const Layout L = make_layout(rows, Lp, Ld, H, app);
   const long long es = sizeof(T), smem = smem_bytes(H, app);
-  auto kernel = app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
+  auto kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -216,15 +258,21 @@ int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, in
   return (int)cudaGetLastError();
 }
 
-// dx (8, rows), or (16, rows) with `app`, from the cotangent planes `gws`
-// of the workspace, on `stream`; counts the launch.
+// dx (8, rows), or (16, rows) with `app` or `mip`, from the cotangent
+// planes `gws` of the workspace, on `stream`; counts the launch (and the
+// mip ones apart).
 int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
-           const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false) {
-  if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
+           const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false,
+           bool mip = false) {
+  if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr) || (mip && (wx || app)))
+    return (int)cudaErrorInvalidValue;
   const char *g = static_cast<const char *>(gws);
-  const int e = is_bf16 ? launch_t<bf16>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app)
-                        : launch_t<float>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app);
-  if (e == 0) ++launches;
+  const int e = is_bf16 ? launch_t<bf16>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, mip)
+                        : launch_t<float>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, mip);
+  if (e == 0) {
+    ++launches;
+    mip_launches += mip;
+  }
   return e;
 }
 

@@ -8,7 +8,7 @@ variants:
 - ``fused_mlp_backward`` (csrc/fused_mlp_bwd.cu): the weight gradients
   for per-sample output cotangents (the TPU ``_fused_mlp_bwd``), and with
   ``want_dx`` the gradient of the input rows too (csrc/input_grad.cuh,
-  the TPU ``_input_grad_tile``);
+  the TPU ``_input_grad_tile``, and under mip ``_input_grad_tile_mip``);
 - ``fused_mlp``: a ``torch.autograd.Function`` whose forward is the first
   and whose backward is the second;
 - ``input_grad`` (csrc/input_grad.cuh, through csrc/fused_mlp_bwd.cu):
@@ -435,28 +435,48 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
 
 
 def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tensor,
-                      model: NerfMLP) -> torch.Tensor:
-    """The transpose of ``_encode`` (without windows or variances) at the
-    inputs ``xT``: the encoded rows' cotangents ``g_posx (FX, rows)`` and
-    ``g_posd (FD, rows)`` -> ``dx (8, rows)``. A raw row passes through; a
-    sin row of coordinate c at frequency 2^i adds ``2^i cos(2^i x_c)``
-    times its cotangent to x_c, a cos row ``-2^i sin(2^i x_c)``; posx feeds
-    rows 0..2, posd rows 3..5; rows 6..7 are zero (the JAX
-    ``_input_grad_tile`` without contraction). For an appearance model dx
-    is (16, rows): posd's code rows pass their cotangents through to rows
-    8..15 (the JAX ``g_app``, appended at kernels/mlp.py:747-748)."""
+                      model: NerfMLP, mip: bool = False) -> torch.Tensor:
+    """The transpose of ``_encode`` (without windows) at the inputs ``xT``:
+    the encoded rows' cotangents ``g_posx (FX, rows)`` and ``g_posd (FD,
+    rows)`` -> ``dx (8, rows)``. A raw row passes through; a sin row of
+    coordinate c at frequency 2^i adds ``2^i cos(2^i x_c)`` times its
+    cotangent to x_c, a cos row ``-2^i sin(2^i x_c)``; posx feeds rows
+    0..2, posd rows 3..5; rows 6..7 are zero (the JAX ``_input_grad_tile``
+    without contraction). For an appearance model dx is (16, rows): posd's
+    code rows pass their cotangents through to rows 8..15 (the JAX
+    ``g_app``, appended at kernels/mlp.py:747-748).
 
-    def branch(x3, g, L):
+    With ``mip`` (``xT`` (16, rows), the variances in rows 11..13), the
+    integrated encoder's transpose (the JAX ``_input_grad_tile_mip``
+    without contraction): posx's sin and cos rows were damped by ``damp =
+    exp(-0.5 * 4^i * v_c)``, so their cotangents take the angle chain
+    ``g * f'(ang) * damp`` into the mean, and the damp chain ``-0.5 * g *
+    f(ang) * damp``, ``4^i`` times which goes to ``v_c``; posd is not
+    damped. dx is (16, rows): rows 0..2 d/d(mean), 3..5 d/d(unit dir),
+    11..13 d/d(variance), the rest zero."""
+
+    def branch(x3, g, L, v3=None):
         sb = _sin_block(L)
         freqs = 2.0 ** torch.arange(L, dtype=x3.dtype, device=x3.device)
         ang = (x3[:, None, :] * freqs[None, :, None]).reshape(3 * L, -1)
-        dang = g[8 : 8 + 3 * L] * torch.cos(ang) - g[8 + sb : 8 + sb + 3 * L] * torch.sin(ang)
-        return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1)
+        gs, gc = g[8 : 8 + 3 * L], g[8 + sb : 8 + sb + 3 * L]
+        s, c = torch.sin(ang), torch.cos(ang)
+        dv = None
+        if v3 is not None:  # both chains see the damped rows; the damp chain goes to v by 4^i
+            f2 = (freqs * freqs)[None, :, None]
+            damp = torch.exp(-0.5 * (v3[:, None, :] * f2).reshape(3 * L, -1))
+            s, c = s * damp, c * damp
+            dv = (-0.5 * (gs * s + gc * c)).reshape(3, L, -1).mul(f2).sum(1)
+        dang = gs * c - gc * s
+        return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1), dv
 
     FD0 = _enc_rows(model.Ld)
-    dx = torch.zeros((_x_rows(False, model), xT.shape[1]), dtype=g_posx.dtype, device=xT.device)
-    dx[0:3] = branch(xT[0:3].to(g_posx.dtype), g_posx, model.Lp)
-    dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd[:FD0], model.Ld)
+    dt = g_posx.dtype
+    dx = torch.zeros((_x_rows(mip, model), xT.shape[1]), dtype=dt, device=xT.device)
+    dx[0:3], dv = branch(xT[0:3].to(dt), g_posx, model.Lp, xT[11:14].to(dt) if mip else None)
+    dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd[:FD0], model.Ld)[0]
+    if mip:
+        dx[11:14] = dv
     if model.app_dim > 0:
         dx[8:16] = g_posd[FD0 : FD0 + 8]
     return dx
@@ -685,7 +705,8 @@ def _backprop(wts: FusedWeights, res: Residuals, g_rgb: torch.Tensor,
 
 
 def _input_grad(wts: FusedWeights, xT: torch.Tensor, g_h0: torch.Tensor, g_h5: torch.Tensor,
-                g_hc: torch.Tensor, dt, model: NerfMLP, enc_w: tuple | None = None) -> torch.Tensor:
+                g_hc: torch.Tensor, dt, model: NerfMLP, enc_w: tuple | None = None,
+                mip: bool = False) -> torch.Tensor:
     """The JAX ``_bwd_kernel``'s ``want_dx`` branch from the cotangent
     planes (rows, as stored) of the first layer ``g_h0``, the skip layer
     ``g_h5`` and the colour head ``g_hc``: the encoded inputs' cotangents
@@ -694,14 +715,15 @@ def _input_grad(wts: FusedWeights, xT: torch.Tensor, g_h0: torch.Tensor, g_h5: t
     appearance model its last eight rows are ``g_app = Wca^T g_hc``), the
     encoded rows times the anneal windows, then the encoder's transpose in
     f32 (f64 for f64 planes) -> ``dx (8, rows)``, or (16, rows) with the
-    codes' cotangents in rows 8..15."""
+    codes' cotangents in rows 8..15; with ``mip`` the integrated encoder's
+    transpose, dx (16, rows) (``_encode_transpose``)."""
     g_posx = _mm(wts.W1.T, g_h0, dt) + _mm(wts.Wsx.T, g_h5, dt)
     g_posd = _mm(wts.Wcd.T, g_hc, dt)
     if enc_w is not None:
         wd = torch.ones(g_posd.shape[0], dtype=g_posd.dtype, device=g_posd.device)
         wd[: enc_w[1].shape[0]] = enc_w[1]
         g_posx, g_posd = g_posx * enc_w[0].to(g_posx.dtype)[:, None], g_posd * wd[:, None]
-    return _encode_transpose(xT, g_posx, g_posd, model)
+    return _encode_transpose(xT, g_posx, g_posd, model, mip)
 
 
 def input_grad_plain(
@@ -711,16 +733,18 @@ def input_grad_plain(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     enc_w: tuple | None = None,
+    mip: bool = False,
 ) -> torch.Tensor:
     """Plain version of the input-gradient kernel (see ``input_grad``):
     from the backward's cotangent planes ``gws (FG, Rp)`` (``Layout``; as
     ``backward_tile`` gives them) and the inputs ``xT (8, rows)`` to ``dx
     (8, rows)`` (for an appearance model both 16 rows, dx's rows 8..15 the
-    codes'), f32 (f64 for f64 planes, a reference)."""
+    codes'; with ``mip`` both 16 rows, the integrated encoder's
+    transpose), f32 (f64 for f64 planes, a reference)."""
     L, rows = Layout.of(model), xT.shape[1]
     g = gws[:, :rows]
     dx = _input_grad(wts, xT, g[L.gh(0) : L.gh(0) + L.H], g[L.gh(5) : L.gh(5) + L.H],
-                     g[L.gcs : L.gcs + L.H // 2], compute_dtype, model, enc_w)
+                     g[L.gcs : L.gcs + L.H // 2], compute_dtype, model, enc_w, mip)
     return dx if gws.dtype == torch.float64 else dx.float()
 
 
@@ -737,13 +761,14 @@ def fused_mlp_backward_plain(
     """Plain PyTorch version of the backward kernel: ``gT (8, rows)`` with
     d_rgb in rows 0..2 and d_sigma in row 3 -> packed f32 gradients, and
     with ``want_dx`` ``(grads, dx (8, rows))`` (16 rows for an appearance
-    model); the forward it recomputes with the anneal windows ``enc_w``."""
+    model and under ``mip``); the forward it recomputes with the anneal
+    windows ``enc_w``."""
     _, res = _forward(wts, xT, compute_dtype, model, mip, enc_w)
     out = _backprop(wts, res, gT[:3], gT[3], compute_dtype, model, want_pos=want_dx)
     if not want_dx:
         return out
     grads, (g_h0, g_h5, g_hc) = out
-    return grads, _input_grad(wts, xT, g_h0, g_h5, g_hc, compute_dtype, model, enc_w)
+    return grads, _input_grad(wts, xT, g_h0, g_h5, g_hc, compute_dtype, model, enc_w, mip)
 
 
 def _point_deltas(ts: torch.Tensor) -> torch.Tensor:
@@ -935,8 +960,9 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_bwd": {
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _I, _P],
                           _I),
-        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _P], _I),
+        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _P], _I),
         "input_grad_launch_count": ([_I], _LL),
+        "input_grad_mip_launch_count": ([_I], _LL),
         "fused_mlp_bwd_smem_bytes": ([_I] * 5, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
@@ -1066,17 +1092,15 @@ def _app(model: NerfMLP) -> int:
     return int(model.app_dim > 0)
 
 
-def _enc_w_ptrs(enc_w: tuple | None, model: NerfMLP, device, mip: bool = False, want_dx: bool = False):
+def _enc_w_ptrs(enc_w: tuple | None, model: NerfMLP, device, mip: bool = False):
     """Check the anneal windows ``enc_w = (wx (FX,), wd (enc_rows(Ld),))``
     (contiguous f32 on ``device``, as ``anneal_row_weights`` makes them;
     an appearance model's code rows take none); returns their
     pointers, or (None, None) without windows. The cone-cast encoder takes
-    neither the windows nor the input gradient (JAX config.py:627-631 for
-    the first; the second needs ``_input_grad_tile_mip``)."""
-    if mip and (enc_w is not None or want_dx):
-        raise NotImplementedError(
-            "the anneal windows and the input gradient under mip (pose refinement with cone casting, "
-            "_input_grad_tile_mip) are not ported yet: ROADMAP Queue A item 6")
+    no windows (the JAX config's rule, config.py:627-631)."""
+    if mip and enc_w is not None:
+        raise ValueError("the anneal windows are not plumbed through the integrated encoder (mip), as in JAX "
+                         "(config.py:627-631: pe_anneal_until with mip raises)")
     if enc_w is None:
         return None, None
     for name, t, n in zip(("wx", "wd"), enc_w, (_enc_rows(model.Lp), _enc_rows(model.Ld))):
@@ -1239,12 +1263,15 @@ def fused_mlp_backward(
     (``app_launches``; ``Wcd``'s last eight columns are then ``dWca``).
     With ``want_dx`` it returns ``(grads, dx)``: ``dx (8, rows)`` f32 is
     the gradient of that sum in ``xT`` (rows 0..5; rows 6..7 zero; for an
-    appearance model (16, rows), rows 8..15 the codes'), which the
-    input-gradient kernel (csrc/input_grad.cuh) computes after the weight
+    appearance model (16, rows), rows 8..15 the codes'; under ``mip`` (16,
+    rows): rows 0..2 d/d(mean), 3..5 d/d(unit dir), 11..13 d/d(variance),
+    the rest zero), which the input-gradient kernel (csrc/input_grad.cuh,
+    its mip instantiation under ``mip``) computes after the weight
     gradients from the backward's cotangent planes
-    (``fused_mlp_backward.dx_launches``); the windows get no gradient."""
+    (``fused_mlp_backward.dx_launches``, of them ``mip_dx_launches``); the
+    windows get no gradient."""
     wts = _prepare(wts, compute_dtype, model, mip)
-    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip, want_dx)
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
         with torch.no_grad():
             return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
@@ -1260,7 +1287,7 @@ def fused_mlp_backward(
     ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(rows, model.Lp, model.Ld, model.H, bf16, _app(model)),
                      dtype=torch.uint8, device=xT.device)
     grads = _empty_grads(model, xT.device)
-    dx = torch.empty((_x_rows(False, model), rows), dtype=torch.float32, device=xT.device) if want_dx else None
+    dx = torch.empty((_x_rows(mip, model), rows), dtype=torch.float32, device=xT.device) if want_dx else None
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
@@ -1269,6 +1296,7 @@ def fused_mlp_backward(
     fused_mlp_backward.launches += 1
     fused_mlp_backward.mip_launches += mip
     fused_mlp_backward.dx_launches += want_dx
+    fused_mlp_backward.mip_dx_launches += mip and want_dx
     fused_mlp_backward.anneal_launches += enc_w is not None
     fused_mlp_backward.app_launches += _app(model)
     return (grads, dx) if want_dx else grads
@@ -1277,6 +1305,7 @@ def fused_mlp_backward(
 fused_mlp_backward.launches = 0
 fused_mlp_backward.mip_launches = 0  # of them, recomputing the integrated encoder
 fused_mlp_backward.dx_launches = 0  # of them, with the input gradient (want_dx)
+fused_mlp_backward.mip_dx_launches = 0  # of those, under mip (the integrated encoder's transpose)
 fused_mlp_backward.anneal_launches = 0  # of them, recomputing with the anneal windows
 fused_mlp_backward.app_launches = 0  # of them, an appearance model's (the code rows, dWca)
 
@@ -1311,12 +1340,9 @@ def fused_mlp(
     ``mip`` and the anneal windows ``enc_w`` as given. Gradients reach the
     packed weights, and ``xT`` when autograd asks for it (B2's
     ``want_dx``, the input-gradient kernel: pose refinement trains through
-    ray generation, appearance codes through rows 8..15). The windows are
-    a schedule and get no gradient."""
-    if mip and xT.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the input gradient under mip (pose refinement with cone casting, _input_grad_tile_mip) is not "
-            "ported yet: ROADMAP Queue A item 6")
+    ray generation, under mip through the frustum Gaussians' means,
+    directions and variances; appearance codes through rows 8..15). The
+    windows are a schedule and get no gradient."""
     return _FusedMLP.apply(xT, compute_dtype, model, mip, enc_w, *wts)
 
 
@@ -1573,6 +1599,14 @@ def input_grad_launches(reset: bool = False) -> int:
     return _lib("fused_mlp_bwd").input_grad_launch_count(int(reset))
 
 
+def input_grad_mip_launches(reset: bool = False) -> int:
+    """Of ``input_grad_launches``, those of the kernel's mip instantiation
+    (the integrated encoder's transpose), counted in C where they launch."""
+    if "fused_mlp_bwd" not in _build._loaded:
+        return 0
+    return _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
+
+
 def input_grad(
     wts: FusedWeights,
     xT: torch.Tensor,
@@ -1580,6 +1614,7 @@ def input_grad(
     compute_dtype=torch.bfloat16,
     model: NerfMLP = FLAGSHIP,
     enc_w: tuple | None = None,
+    mip: bool = False,
 ) -> torch.Tensor:
     """The input-gradient kernel alone, as ``fused_mlp_backward(want_dx=
     True)`` runs it after its weight gradients: from the backward's
@@ -1588,9 +1623,11 @@ def input_grad(
     ``xT (8, rows)`` f32 to ``dx (8, rows)`` f32 (``input_grad_plain``),
     with the anneal windows ``enc_w``; for an appearance model ``xT`` and
     ``dx`` have 16 rows, dx's rows 8..15 the codes' cotangents
-    (``input_grad.app_launches``). ``input_grad.launches`` counts the
+    (``input_grad.app_launches``); with ``mip`` (no windows, no codes)
+    ``xT`` and ``dx`` have 16 rows, the integrated encoder's transpose
+    (``input_grad.mip_launches``). ``input_grad.launches`` counts the
     kernel's launches by this wrapper."""
-    wts = _prepare(wts, compute_dtype, model)
+    wts = _prepare(wts, compute_dtype, model, mip)
     L = Layout.of(model)
     rows = xT.shape[1] if xT.dim() == 2 else 0
     Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE
@@ -1599,23 +1636,25 @@ def input_grad(
                          f"{rows} rows; got {tuple(gws.shape)} {gws.dtype}")
     if gws.device != xT.device:
         raise ValueError(f"gws on {gws.device} and xT on {xT.device}")
-    wx, wd = _enc_w_ptrs(enc_w, model, xT.device)
+    wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
-        return input_grad_plain(wts, xT, gws, compute_dtype, model, enc_w)
-    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(False, model), compute_dtype, model)
+        return input_grad_plain(wts, xT, gws, compute_dtype, model, enc_w, mip)
+    lib, bf16 = _check_launch("fused_mlp_bwd", wts, xT, "xT", _x_rows(mip, model), compute_dtype, model)
     _check_input_grad_arch(model)
-    dx = torch.empty((_x_rows(False, model), rows), dtype=torch.float32, device=xT.device)
+    dx = torch.empty((_x_rows(mip, model), rows), dtype=torch.float32, device=xT.device)
     _raise_on(lib.input_grad(
         gws.data_ptr(), xT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
-        wx, wd, dx.data_ptr(), _app(model), _stream(xT),
+        wx, wd, dx.data_ptr(), _app(model), int(mip), _stream(xT),
     ), "input_grad")
     input_grad.launches += 1
     input_grad.app_launches += _app(model)
+    input_grad.mip_launches += mip
     return dx
 
 
 input_grad.launches = 0
 input_grad.app_launches = 0  # of them, an appearance model's (dx's code rows)
+input_grad.mip_launches = 0  # of them, the integrated encoder's transpose (mip)
 
 
 def backward_tile(

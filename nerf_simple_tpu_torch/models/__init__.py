@@ -1,7 +1,7 @@
 """Model families (port of nerf_simple_tpu/models/__init__.py).
 
 The port runs the NerfMLP family. The hash-grid and CP-grid families are
-ROADMAP Queue A's last item: asking for them raises.
+ROADMAP Queue A item 8: asking for them raises.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ _UNPORTED_FAMILIES = ("hashgrid", "cpgrid")
 
 def _unported_family(family: str) -> NotImplementedError:
     return NotImplementedError(
-        f"the {family} model family is not ported yet: ROADMAP Queue A, "
+        f"the {family} model family is not ported yet: ROADMAP Queue A item 8, "
         "'the hashgrid/cpgrid families'"
     )
 

@@ -75,7 +75,7 @@ def require_ported(model: NerfMLP) -> None:
     if model.contract:
         raise NotImplementedError(
             "contract=True (scene contraction) is not ported yet: ROADMAP "
-            "Queue A, 'contract with disparity spacing'"
+            "Queue A item 3, 'contract with disparity spacing'"
         )
 
 

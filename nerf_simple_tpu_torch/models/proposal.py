@@ -84,7 +84,7 @@ class ProposalField(LinearField):
     def __init__(self, model: ProposalMLP = ProposalMLP(), device=None):
         if model.contract:
             raise NotImplementedError(
-                "contract=True (scene contraction) is not ported yet: ROADMAP Queue A, "
+                "contract=True (scene contraction) is not ported yet: ROADMAP Queue A item 3, "
                 "'contract with disparity spacing'"
             )
         super().__init__(model, device)

@@ -189,7 +189,7 @@ def interval_moments(t0: torch.Tensor, t1: torch.Tensor, radius, shape: str = "c
     cylinder of LLFF scenes is not ported."""
     if shape == "cylinder":
         raise NotImplementedError(
-            "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A, LLFF/NDC")
+            "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A item 6, LLFF/NDC")
     if shape != "cone":
         raise ValueError(f"mip_shape must be 'cone' or 'cylinder', got {shape!r}")
     return frustum_moments(t0, t1, radius)

@@ -49,6 +49,16 @@ them.
 For an appearance model (``run(device, model)`` with ``model.app_dim >
 0``) x has 16 rows, a code from N(0, 0.5) in rows 8..8 + app_dim a row,
 and the kernel also gives the codes' rows of dx.
+
+Under mip (``run(device, model, mip=True)``: the kernel's mip
+instantiation, the integrated encoder's transpose) x has 16 rows, the
+means uniform in [-4, 4], the diagonal variances in rows 11..13
+log-uniform in [1e-6, 1e-2] (so the damp exp(-0.5 4^i v) of the top
+octaves runs from ~1 to ~0), and dx has 16 rows: the variance rows 11..13
+are held against their own largest entry too. The window faults do not
+apply (mip takes no windows); ``explain_dx`` plants two others there: the
+damp dropped from the transpose (the plain chain at zero variance), and
+the variance rows halved.
 """
 
 from __future__ import annotations
@@ -73,11 +83,13 @@ ALPHA = 0.3  # the anneal progress of the windowed case
 # so the sums' few ulps reach dx unevenly: 1e-4 (f32) and 5e-3 (bf16)
 # are wide.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+MIP_ZERO_ROWS = (6, 7, 8, 9, 10, 14, 15)  # dx's rows that the mip transpose leaves zero (JAX :1068-1077)
 
 
-def inputs(model: NerfMLP, rows: int, device, seed: int = 0):
+def inputs(model: NerfMLP, rows: int, device, seed: int = 0, mip: bool = False):
     """(packed f32 weights, cotangent planes (FG, Rp) f32, x (8, rows) f32;
-    16 rows with an appearance model's codes) from numpy seed ``seed``."""
+    16 rows with an appearance model's codes or under ``mip``, its
+    variances in rows 11..13) from numpy seed ``seed``."""
     rng = np.random.default_rng(seed)
     L = mlp.Layout.of(model)
     Rp = -(-rows // 64) * 64
@@ -88,24 +100,26 @@ def inputs(model: NerfMLP, rows: int, device, seed: int = 0):
             u = rng.random((n, rows), dtype=np.float32)
             g = np.where(u < 0.5, 0.0, rng.standard_normal((n, rows), dtype=np.float32)).astype(np.float32)
             gws[a : a + n, :rows] = torch.from_numpy(g)
-    x = np.zeros((mlp._x_rows(False, model), rows), np.float32)
+    x = np.zeros((mlp._x_rows(mip, model), rows), np.float32)
     x[:3] = rng.uniform(-4, 4, (3, rows))
     d = rng.normal(size=(3, rows))
     x[3:6] = d / np.linalg.norm(d, axis=0, keepdims=True)
     x[8 : 8 + model.app_dim] = rng.normal(0, 0.5, (model.app_dim, rows))
+    if mip:
+        x[11:14] = 10.0 ** rng.uniform(-6, -2, (3, rows))
     wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(seed, model), device, model))
     return wts, gws, torch.from_numpy(x).to(device)
 
 
-def library(wts, x, gws, dt, model: NerfMLP) -> torch.Tensor:
+def library(wts, x, gws, dt, model: NerfMLP, mip: bool = False) -> torch.Tensor:
     """The yardstick: torch.mm in ``dt`` for the three products, the
-    transpose's tail in torch."""
+    transpose's tail in torch (the integrated encoder's under ``mip``)."""
     L, rows = mlp.Layout.of(model), x.shape[1]
     g = gws[:, :rows]
     gx = (torch.mm(wts.W1.T, g[L.gh(0) : L.gh(0) + L.H]).float()
           + torch.mm(wts.Wsx.T, g[L.gh(5) : L.gh(5) + L.H]).float())
     gd = torch.mm(wts.Wcd.T, g[L.gcs : L.gcs + L.H // 2]).float()
-    return mlp._encode_transpose(x, gx, gd, model)
+    return mlp._encode_transpose(x, gx, gd, model, mip)
 
 
 def mask_flips(res: torch.Tensor, res_plain: torch.Tensor, model: NerfMLP, rows: int) -> torch.Tensor:
@@ -129,20 +143,21 @@ def _fault_windows(model: NerfMLP, enc_w: tuple | None, branch: int, device) -> 
     return tuple(w)
 
 
-def row_err(dx: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+def row_err(dx: torch.Tensor, want: torch.Tensor, mip: bool = False) -> torch.Tensor:
     """(rows,) the error of each row of ``dx`` (8 or 16, rows) against
     ``want``: the largest of max |diff| over the position rows 0..2 by max
     |want[0:3]|, over the direction rows 3..5 by max |want[3:6]| and, for
-    an appearance model, over the code rows 8..15 by max |want[8:16]|. The
+    an appearance model, over the code rows 8..15 by max |want[8:16]| (under
+    ``mip``, over the variance rows 11..13 by max |want[11:14]|). The
     direction's gradient runs ~2^(Lp - Ld) below the position's, so one
     scale for all would hide an error in it."""
     d = (dx - want).abs()
-    parts = [(0, 3), (3, 6)] + ([(8, 16)] if dx.shape[0] == 16 else [])
+    parts = [(0, 3), (3, 6)] + ([(11, 14)] if mip else [(8, 16)] if dx.shape[0] == 16 else [])
     return torch.stack([d[a:b].amax(0) / want[a:b].abs().max().clamp_min(1e-30) for a, b in parts]).amax(0)
 
 
 def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None = None,
-               tol: float | None = None) -> dict:
+               tol: float | None = None, mip: bool = False) -> dict:
     """B2's ``dx`` (8, rows; 16 for an appearance model) against the plain
     chain's ``dx_plain`` for the same weights ``wts`` (cast to ``dt``),
     inputs ``x`` (8 or 16, rows), output
@@ -153,30 +168,43 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     ``n_unexplained`` rows past with no flipped mask; ``own_masks_err``,
     the largest ``row_err`` of dx against the plain chain on the kernel's
     planes. ``faults``: for each planted fault (``_fault_windows``; for an
-    appearance model also the code rows halved) its ``share`` and
-    ``n_unexplained`` against ``dx_plain``."""
+    appearance model also the code rows halved; under ``mip`` (x and dx of
+    16 rows, no windows) instead the damp dropped from the transpose and
+    the variance rows halved) its ``share`` and ``n_unexplained`` against
+    ``dx_plain``."""
     tol = REL_TOL[dt] if tol is None else tol
     rows = x.shape[1]
-    past = row_err(dx, dx_plain) > tol
-    _, res = mlp.forward_residuals(wts, x, dt, model, enc_w=enc_w)
-    _, res_plain = mlp.forward_residuals_plain(wts, x, dt, model, enc_w=enc_w)
+    past = row_err(dx, dx_plain, mip) > tol
+    _, res = mlp.forward_residuals(wts, x, dt, model, mip, enc_w)
+    _, res_plain = mlp.forward_residuals_plain(wts, x, dt, model, mip, enc_w)
     flipped = mask_flips(res, res_plain, model, rows)
-    own = mlp.input_grad_plain(wts, x, mlp.backward_tile_plain(wts, res.float(), g, dt, model), dt, model, enc_w)
+    own = mlp.input_grad_plain(wts, x, mlp.backward_tile_plain(wts, res.float(), g, dt, model), dt, model, enc_w,
+                               mip)
     del res
     out = dict(n_past=int(past.sum()), share=past.float().mean().item(), n_flipped=int(flipped.sum()),
                n_unexplained=int((past & ~flipped).sum()),
-               own_masks_err=row_err(dx, own).max().item(), rows=rows, tol=tol, faults={})
+               own_masks_err=row_err(dx, own, mip).max().item(), rows=rows, tol=tol, faults={})
     del own
     gws = mlp.backward_tile_plain(wts, res_plain, g, dt, model)
     del res_plain
-    faults = [("posx_top_octave_half", 0), ("posd_low_octave_half", 1)]
-    for name, branch in faults + ([("code_rows_half", None)] if model.app_dim > 0 else []):
-        if branch is None:
-            bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w)
-            bad[8:16] *= 0.5
+    if mip:
+        faults = [("damp_dropped", None), ("variance_rows_half", None)]
+    else:
+        faults = [("posx_top_octave_half", 0), ("posd_low_octave_half", 1)]
+        faults += [("code_rows_half", None)] if model.app_dim > 0 else []
+    for name, branch in faults:
+        if name == "damp_dropped":  # the transpose at zero variance: no damp on either chain
+            x0 = x.clone()
+            x0[11:14] = 0.0
+            bad = mlp.input_grad_plain(wts, x0, gws, dt, model, mip=True)
+            del x0
+        elif branch is None:  # the variance rows (mip) or the code rows halved
+            bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w, mip)
+            lo, hi = (11, 14) if mip else (8, 16)
+            bad[lo:hi] *= 0.5
         else:
             bad = mlp.input_grad_plain(wts, x, gws, dt, model, _fault_windows(model, enc_w, branch, x.device))
-        fpast = row_err(bad, dx_plain) > tol
+        fpast = row_err(bad, dx_plain, mip) > tol
         out["faults"][name] = dict(share=fpast.float().mean().item(), n_unexplained=int((fpast & ~flipped).sum()))
         del bad
     return out
@@ -225,6 +253,59 @@ def run(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
     return out
 
 
+def run_mip(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
+    """On the card, per compute type: the kernel's mip instantiation on the
+    probe's mip inputs against the plain version (``row_err`` by row group,
+    the rows that must be zero exactly zero), the two planted faults
+    (``damp_dropped``, ``variance_rows_half``) against plain by the same
+    measure, which must exceed REL_TOL; then, in turns, the kernel with mip,
+    the point kernel on the same planes and x's first eight rows, the plain
+    version and the library yardstick: ms of each, the bound and its share.
+    Raises if a check fails."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wts, gws32, x = inputs(model, rows, device, mip=True)
+    x8 = x[:8].contiguous()
+    out = {"rows": rows}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        w = mlp._cast_weights(wts, dt)
+        gws = gws32 if dt == torch.float32 else gws32.to(dt)
+        before = (mlp.input_grad.mip_launches, mlp.input_grad_mip_launches())
+        got = mlp.input_grad(w, x, gws, dt, model, mip=True)
+        launches = (mlp.input_grad.mip_launches - before[0], mlp.input_grad_mip_launches() - before[1])
+        want = mlp.input_grad_plain(w, x, gws, dt, model, mip=True)
+        err = row_err(got, want, mip=True).max().item()
+        x0 = x.clone()
+        x0[11:14] = 0.0
+        faults = {"damp_dropped": mlp.input_grad_plain(w, x0, gws, dt, model, mip=True)}
+        del x0
+        faults["variance_rows_half"] = want.clone()
+        faults["variance_rows_half"][11:14] *= 0.5
+        fault_err = {k: row_err(v, want, mip=True).max().item() for k, v in faults.items()}
+        del faults
+        st = dict(rel_err=err, max_abs_err=(got - want).abs().max().item(), max_abs_dx=want.abs().max().item(),
+                  var_rel_err=((got[11:14] - want[11:14]).abs().max() / want[11:14].abs().max()).item(),
+                  launches=launches[0], launches_in_c=launches[1], fault_err=fault_err,
+                  zero_rows_zero=bool((got[list(MIP_ZERO_ROWS)] == 0).all()))
+        del got, want
+        if (err > REL_TOL[dt] or not st["zero_rows_zero"] or launches != (1, 1)
+                or min(fault_err.values()) <= REL_TOL[dt]):
+            raise RuntimeError(f"{name} mip input gradient: {st}")
+        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, model, mip=True),
+                       "point": lambda: mlp.input_grad(w, x8, gws, dt, model),
+                       "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, model, mip=True),
+                       "library": lambda: library(w, x, gws, dt, model, mip=True)}, calls=CALLS)
+        flops, nbytes = input_grad_work(model, rows, dt, mip=True)
+        b = bound_ms(flops, nbytes, dt)
+        st.update(ms=ms["kernel"], point_ms=ms["point"], plain_ms=ms["plain"], library_ms=ms["library"],
+                  bound_ms=b, bound_by=bound_by(flops, nbytes, dt), share_of_bound=b / ms["kernel"],
+                  gb_s=nbytes / (ms["kernel"] * 1e-3) / 1e9, flops=flops, bytes=nbytes)
+        out[name] = st
+        del gws
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="the input-gradient kernel alone")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu for a smoke test")
@@ -235,13 +316,18 @@ def main(argv=None) -> None:
     if device.type == "cpu":
         model = mlp.FLAGSHIP
         wts, gws, x = inputs(model, 256, device)
+        _, _, xm = inputs(model, 256, device, mip=True)
         for dt in (torch.float32, torch.bfloat16):
             got = mlp.input_grad(wts, x, gws.to(dt), dt, model, mlp.anneal_row_weights(model, ALPHA))
-            if got.shape != (8, 256) or not bool(torch.isfinite(got).all()):
+            mip = mlp.input_grad(wts, xm, gws.to(dt), dt, model, mip=True)
+            if (got.shape != (8, 256) or mip.shape != (16, 256) or not bool(torch.isfinite(got).all())
+                    or not bool(torch.isfinite(mip).all())):
                 raise RuntimeError(f"{dt}: plain input gradient bad")
-        print("CPU smoke test only: the plain input gradient ran at 256 rows; it times nothing on the CPU")
+        print("CPU smoke test only: the plain input gradient (point and mip) ran at 256 rows; it times nothing on "
+              "the CPU")
         return
     res = run(device)
+    res["mip"] = run_mip(device)
     print(f"{torch.cuda.get_device_name(device)}: input gradient at {res['rows']} rows")
     for name in ("f32", "bf16"):
         v = res[name]
@@ -249,6 +335,10 @@ def main(argv=None) -> None:
               f"library {v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
               f"{100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} of max |dx| "
               f"(windows {res[name + '_anneal']['rel_err']:.2e})")
+        v = res["mip"][name]
+        print(f"{name} mip: kernel {v['ms']:.3f} ms (point {v['point_ms']:.3f}), plain {v['plain_ms']:.3f} ms, library "
+              f"{v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+              f"{100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
     print(json.dumps(res))
 
 

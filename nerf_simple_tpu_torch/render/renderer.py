@@ -143,11 +143,11 @@ class RenderSettings:
         if self.mip and self.N_prop > 0:
             raise NotImplementedError(
                 "mip with N_prop > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported yet: "
-                "ROADMAP Queue A item 5, mip x proposal"
+                "ROADMAP Queue A item 2, mip x proposal"
             )
         if self.mip_shape == "cylinder":
             raise NotImplementedError(
-                "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A, LLFF/NDC")
+                "mip_shape='cylinder' (NDC-warped LLFF rays) is not ported yet: ROADMAP Queue A item 6, LLFF/NDC")
         if self.mip_shape != "cone":
             raise ValueError(f"mip_shape must be 'cone' or 'cylinder', got {self.mip_shape!r}")
 
@@ -279,7 +279,11 @@ def _fused_mlp_bn_mip(field: NerfField, rays: torch.Tensor, edges: torch.Tensor,
     ``frustum_gaussians_T`` (means rows 0..2, unit dirs 3..5, variances
     11..13) -> (channel-major (4, B, N) raw outputs, (B, N) frustum
     centres). With gradients enabled, the differentiable ``fused_mlp``
-    (its backward recomputes the same forward: B2's mip variant)."""
+    (its backward recomputes the same forward: B2's mip variant); where the
+    rays carry a gradient (pose refinement), B2's input gradient gives the
+    means, directions and variances theirs (the input-gradient kernel's
+    mip instantiation), which autograd carries through
+    ``frustum_gaussians_T`` to the rays."""
     _require_kernel_arch(field)
     B, N = edges.shape[0], edges.shape[1] - 1
     meanT, unitT, varT, mu_t = frustum_gaussians_T(rays, edges, settings.base_radius, settings.mip_shape)
@@ -345,6 +349,7 @@ def render_rays_proposal(
     return_aux: bool = False,
     prop_anneal: float | None = None,
     app: torch.Tensor | None = None,
+    enc_alpha: float | None = None,
 ):
     """Proposal-guided rendering (mip-NeRF 360; JAX ``render_rays_proposal``,
     its point branch): ``N_prop`` stratified probes (or the (B, N_prop)
@@ -357,7 +362,9 @@ def render_rays_proposal(
     differentiable in the proposal net (the interlevel loss reads them).
     No sigma noise is added, whatever ``settings.sigma_noise`` says, as in
     JAX. The codes ``app`` condition the main field only (JAX
-    render/renderer.py:669)."""
+    render/renderer.py:669), and ``enc_alpha`` (BARF's anneal progress)
+    anneals the main field's encoder only (JAX :665-670): the proposal
+    MLP keeps its own."""
     if settings.N_prop <= 0:
         raise ValueError("the proposal path needs N_prop > 0")
     ts_p = ts_prop
@@ -369,7 +376,7 @@ def render_rays_proposal(
     w_prop = proposal_weights(pair.prop, rays, ts_p, settings.compute_dtype)
     ts_f = importance_ts(generator, ts_p, anneal_weights(w_prop.detach(), prop_anneal), settings.N,
                          det=det_fine)
-    out = _render_at_ts(pair.fine, rays, ts_f, settings, app=app)
+    out = _render_at_ts(pair.fine, rays, ts_f, settings, enc_alpha=enc_alpha, app=app)
     if return_aux:
         return out, (ts_p, w_prop, ts_f)
     return out
@@ -515,7 +522,8 @@ def render_rays_chunked(
     disparity (R,)), the remainder included (the reference drops it,
     utils/rendering.py:100). ``enc_alpha``: the BARF anneal progress of a
     mid-anneal training preview (the encoder the field is being trained
-    with), or None; with it no chunk takes the fused render kernel.
+    with; the proposal scheme's main field only), or None; with it no
+    chunk takes the fused render kernel.
     ``app``: an appearance model's (app_dim,) code for the whole render
     (broadcast to every ray, JAX :868-874); with it no chunk takes the
     fused render kernel, which has no slot for codes.
@@ -533,11 +541,11 @@ def render_rays_chunked(
     eval draws them)."""
     if occ is not None:
         raise NotImplementedError(
-            "occupancy-informed sampling is not ported yet: ROADMAP Queue A, occupancy"
+            "occupancy-informed sampling is not ported yet: ROADMAP Queue A item 5, occupancy"
         )
     hier, prop = settings.N_coarse > 0, settings.N_prop > 0
-    if enc_alpha is not None and (prop or settings.mip):
-        raise ValueError("the anneal windows are for the point and hierarchical renders (as in JAX)")
+    if enc_alpha is not None and settings.mip:
+        raise ValueError("the anneal windows are for the point renders: not with mip (as in JAX)")
     want = NerfPair if hier else ProposalPair if prop else NerfField
     if not isinstance(field, want):
         raise ValueError(f"N_coarse={settings.N_coarse}, N_prop={settings.N_prop} renders a {want.__name__} "
@@ -561,7 +569,8 @@ def render_rays_chunked(
                 out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True,
                                                enc_alpha=enc_alpha, app=app_c)[1]
             elif prop:
-                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True, app=app_c)
+                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True, app=app_c,
+                                           enc_alpha=enc_alpha)
             else:
                 out = render_rays(field, rays_c, g, settings, enc_alpha=enc_alpha, app=app_c)
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103

@@ -142,8 +142,8 @@ def serve(server: RenderServer, port: int = 8000) -> ThreadingHTTPServer:
 # Flags of the JAX server whose features are not ported: name -> (value
 # that means "off", ROADMAP item).
 _UNPORTED_FLAGS = {
-    "occupancy": (False, "occupancy"),
-    "occ_R": (64, "occupancy"),
+    "occupancy": (False, "item 5, occupancy"),
+    "occ_R": (64, "item 5, occupancy"),
 }
 
 

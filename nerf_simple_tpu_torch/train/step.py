@@ -65,8 +65,15 @@ and takes the autograd path through ``fused_mlp``, whose input rows then
 carry a gradient: B2 also gives the gradient of the kernel's input rows, which autograd
 carries through ray generation into the delta tables; under
 ``pe_anneal_until`` the encoder's anneal windows ride the forward and B2.
+Under mip (one or two levels) B2's input gradient is the integrated
+encoder's transpose, d/d(mean, direction, variance), which autograd carries
+through ``frustum_gaussians_T`` into the deltas (no anneal: JAX's rule).
+With proposal sampling the main field's ray gradient comes from B2 the same
+way (the anneal on the main field only) and the proposal MLP's from plain
+autograd through its probe positions.
 The fused train step (B1) does not take it (JAX's rule); it takes over
-after ``freeze_pose_state``, once the deltas are baked into the ray set.
+after ``freeze_pose_state``, once the deltas are baked into the ray set
+(the mip and proposal forms of B1 too).
 
 Appearance codes (``appearance_dim``, NeRF-W): the state also holds a
 per-image code table (``AppCodes``, the JAX ``params["app"]``), zero at
@@ -444,7 +451,8 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     field, ``proposal_loss_weight`` times the interlevel loss of the
     proposal weights against the main field's detached ones, the depth
     term, the distortion of the main field's weights at its samples; the
-    placement annealed by ``prop_anneal``. Mip (``ts`` are the Nf + 1
+    placement annealed by ``prop_anneal`` (and the main field's encoder by
+    ``enc_alpha``). Mip (``ts`` are the Nf + 1
     interval edges): ``render_rays_mip``, the MSE, ``mip_coarse_weight``
     times the coarse level's plus the fine level's at ``mip_levels: 2``
     (the fine edges resampled, or ``edges_fine``), the depth term of the
@@ -453,11 +461,13 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     ``det_fine``) and the sigma noise (or ``noise``, a (B, N) standard
     normal, is taken; under mip it is always drawn). Pose refinement: the
     rays refined by the deltas ``cams`` of their images ``im_b`` first (the
-    loss then reaches the tables through ray generation), and the point
-    renders annealed by ``enc_alpha``. Appearance codes: each ray's image's
-    row of ``app`` (gathered after the pose deltas, JAX ``loss_fn``)
-    conditions both hierarchical nets, or the proposal scheme's main
-    field, or the single net."""
+    loss then reaches the tables through ray generation; under mip through
+    the frustum Gaussians of both levels, the fine edges resampled from the
+    detached coarse weights), and the point renders annealed by
+    ``enc_alpha`` (the proposal scheme's main field only). Appearance
+    codes: each ray's image's row of ``app`` (gathered after the pose
+    deltas, JAX ``loss_fn``) conditions both hierarchical nets, or the
+    proposal scheme's main field, or the single net."""
     if cams is not None:
         rays_b = apply_cam_deltas(rays_b, cams.dr[im_b], cams.dt[im_b])
     app_b = None if app is None else app.table[im_b]
@@ -497,7 +507,7 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     if cfg.proposal:
         out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
                                                          ts_prop=ts, return_aux=True, prop_anneal=prop_anneal,
-                                                         app=app_b)
+                                                         app=app_b, enc_alpha=enc_alpha)
         loss = mse(out.rgb) + cfg.proposal_loss_weight * interlevel_loss(out.weights.detach(), ts_f, w_prop, ts_p)
         if gt_d is not None:
             loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)

@@ -21,21 +21,24 @@ def bound_ms(flops: float, nbytes: float, dtype) -> float:
     return max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S) * 1e3
 
 
-def input_grad_work(model, rows: int, dtype) -> tuple[float, float]:
+def input_grad_work(model, rows: int, dtype, mip: bool = False) -> tuple[float, float]:
     """FLOPs and bytes of the input-gradient kernel (csrc/input_grad.cuh)
     for ``rows`` sample rows of ``model`` (a NerfMLP): it reads the 2 H +
     H/2 cotangent plane rows a row in ``dtype`` and x's six used rows (24
-    B), and writes dx (32 B; 64 B, 16 rows, for an appearance model); its
+    B; nine under ``mip``, the variances too, 36 B), and writes dx (32 B;
+    64 B, 16 rows, for an appearance model or under ``mip``); its
     products need the 3 + 6 Lp posx columns of W1 and Wsx and the 3 + 6 Ld
     posd columns of Wcd (and the app_dim code columns of an appearance
     model), 2 (2 H (3 + 6 Lp) + H/2 (3 + 6 Ld + app_dim)) flop a row (the
-    transpose's sincosf left out). At the flagship, 524,288 rows: bf16
-    bound by its bytes (0.21 ms), f32 by its operations (0.56 ms)."""
+    transpose's sincosf, and under mip its expf and damp chain, left out).
+    At the flagship, 524,288 rows: bf16 bound by its bytes (0.21 ms; 0.22
+    under mip), f32 by its operations (0.56 ms)."""
     H, H2 = model.H, model.H // 2
     nx, nd = 3 + 6 * model.Lp, 3 + 6 * model.Ld + model.app_dim
     es = torch.finfo(dtype).bits // 8
-    dx_bytes = 64 if model.app_dim > 0 else 32
-    return 2.0 * (2 * H * nx + H2 * nd) * rows, (es * (2 * H + H2) + 24 + dx_bytes) * rows
+    x_bytes = 36 if mip else 24
+    dx_bytes = 64 if model.app_dim > 0 or mip else 32
+    return 2.0 * (2 * H * nx + H2 * nd) * rows, (es * (2 * H + H2) + x_bytes + dx_bytes) * rows
 
 
 def bound_by(flops: float, nbytes: float, dtype) -> str:

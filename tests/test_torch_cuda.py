@@ -24,6 +24,7 @@ import torch
 
 from nerf_simple_tpu_torch.kernels import mlp
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+from nerf_simple_tpu_torch.probes import input_grad as ig_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -1004,8 +1005,9 @@ def test_backward_want_dx_matches_plain(dev, model, rows, windows, dtype):
     assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()), ex
     alone = b(wts, x, g, dtype, model, enc_w=enc_w)
     assert all(torch.equal(a, c) for a, c in zip(got, alone))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        b(wts, _x16_mip(-(-rows // 8), 8, dev)[:, :rows].contiguous(), g, dtype, model, mip=True, want_dx=True)
+    # under mip B2 launches the input gradient's mip instantiation: 16 rows (held below)
+    _, dx16 = b(wts, _x16_mip(-(-rows // 8), 8, dev)[:, :rows].contiguous(), g, dtype, model, mip=True, want_dx=True)
+    assert dx16.shape == (16, rows)
 
 
 def test_fused_mlp_gives_xT_its_gradient(dev):
@@ -1270,3 +1272,161 @@ def test_appearance_step_on_the_card_matches_xla(dev):
     out = build_train_step(cfg, model, rays_per_image=hw)(state, rays, pix)
     assert bool(torch.isfinite(out)) and float(state.app.table.detach().abs().max()) > 0
     assert float(state.cams.dr.detach().abs().max()) > 0
+
+
+# --- pose refinement with mip: the input gradient's mip instantiation -----------------------------
+
+def _x16_pose_mip(rows, dev, seed):
+    """The mip kernels' input for the input gradient: means uniform in
+    [-4, 4], unit dirs, variances log-uniform in [1e-6, 1e-2] in rows
+    11..13 (the damp of the top octaves from ~1 to ~0); other rows zero."""
+    return ig_probe.inputs(NerfMLP(), rows, dev, seed=seed, mip=True)[2]
+
+
+MIP_ZERO_ROWS = list(ig_probe.MIP_ZERO_ROWS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", POSE_CASES, ids=POSE_IDS)
+def test_input_grad_kernel_mip_matches_plain(dev, model, rows, dtype):
+    """The input-gradient kernel's mip instantiation alone (``input_grad(mip=
+    True)``) against ``input_grad_plain(mip=True)`` on the backward tile
+    kernel's planes, at ragged row counts: every row group (means, dirs,
+    variances) within DX_TOL of its own largest entry, the rows JAX leaves
+    zero exactly zero; two planted faults (the damp dropped, the variance
+    rows halved) lie past DX_TOL by the same measure; the launch counted by
+    the wrapper and in C. At zero variance its rows 0..5 are the point
+    launch's on the same planes bit for bit (damp exactly 1)."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
+    x = _x16_pose_mip(rows, dev, seed=6)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    _, res = mlp.forward_residuals(wts, x, dtype, model, mip=True)
+    gws = mlp.backward_tile(wts, res, g, dtype, model)
+    before = (mlp.input_grad.launches, mlp.input_grad.mip_launches, mlp.input_grad_launches(),
+              mlp.input_grad_mip_launches())
+    got = mlp.input_grad(wts, x, gws, dtype, model, mip=True)
+    torch.cuda.synchronize()
+    assert (mlp.input_grad.launches, mlp.input_grad.mip_launches, mlp.input_grad_launches(),
+            mlp.input_grad_mip_launches()) == tuple(n + 1 for n in before)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, model, mip=True)
+    assert got.shape == (16, rows) and bool(torch.isfinite(got).all()) and bool((got[MIP_ZERO_ROWS] == 0).all())
+    assert ig_probe.row_err(got, want, mip=True).max().item() <= DX_TOL[dtype]
+    x0 = x.clone()
+    x0[11:14] = 0.0
+    bad = {"damp_dropped": mlp.input_grad_plain(wts, x0, gws, dtype, model, mip=True), "variance_rows_half": want.clone()}
+    bad["variance_rows_half"][11:14] *= 0.5
+    for name, b in bad.items():
+        assert ig_probe.row_err(b, want, mip=True).max().item() > DX_TOL[dtype], name
+    at0 = mlp.input_grad(wts, x0, gws, dtype, model, mip=True)
+    point = mlp.input_grad(wts, x0[:8].contiguous(), gws, dtype, model)
+    assert torch.equal(at0[:6], point[:6]) and bool((at0[MIP_ZERO_ROWS] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", POSE_CASES, ids=POSE_IDS)
+def test_backward_mip_want_dx_matches_plain(dev, model, rows, dtype):
+    """B2 with ``mip`` and ``want_dx`` against its plain version by
+    ``explain_dx``'s rule (mip: the mean, direction and variance rows each
+    against their own largest entry): the weight gradients within B2's
+    bounds and bit-equal to B2 with mip and without dx, dx bit-equal to the
+    mip input-gradient kernel on the tile kernels' planes, every row past
+    DX_TOL from plain explained by a flipped relu mask, within DX_TOL of the
+    plain chain on the kernel's own masks, under DX_ROW_SHARE past DX_TOL;
+    both planted faults caught; the counters ``mip_dx_launches`` and the C
+    count."""
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x = _x16_pose_mip(rows, dev, seed=8)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    b = mlp.fused_mlp_backward
+    before = (b.launches, b.mip_launches, b.dx_launches, b.mip_dx_launches, mlp.input_grad_mip_launches())
+    got, dx = b(wts, x, g, dtype, model, mip=True, want_dx=True)
+    torch.cuda.synchronize()
+    assert (b.launches, b.mip_launches, b.dx_launches, b.mip_dx_launches,
+            mlp.input_grad_mip_launches()) == tuple(n + 1 for n in before)
+    want, dx_p = mlp.fused_mlp_backward_plain(wts, x, g, dtype, model, mip=True, want_dx=True)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    assert dx.shape == (16, rows) and bool((dx[MIP_ZERO_ROWS] == 0).all())
+    _, res = mlp.forward_residuals(wts, x, dtype, model, mip=True)
+    assert torch.equal(dx, mlp.input_grad(wts, x, mlp.backward_tile(wts, res, g, dtype, model), dtype, model, mip=True))
+    ex = ig_probe.explain_dx(wts, x, g, dx, dx_p, dtype, model, None, DX_TOL[dtype], mip=True)
+    print(f"mip dx rows: {ex}")
+    assert ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dtype], ex
+    assert ex["share"] <= DX_ROW_SHARE[dtype], ex
+    assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()), ex
+    alone = b(wts, x, g, dtype, model, mip=True)
+    assert all(torch.equal(a, c) for a, c in zip(got, alone))
+    with pytest.raises(ValueError, match="windows"):
+        b(wts, x, g, dtype, model, mip=True, want_dx=True, enc_w=mlp.anneal_row_weights(model, 0.3, dev))
+
+
+@pytest.mark.parametrize("kind", ["mip1", "mip2", "proposal"])
+def test_pose_mip_and_proposal_steps_on_the_card(dev, kind):
+    """One f32 pose loss from one state with mip (one and two levels) or
+    with proposal sampling (the anneal at alpha 0.4) through the kernels
+    (the forward and B2 with the input gradient: its mip instantiation
+    under mip) against the same loss on the xla backend, at the same edges
+    (and fine edges) or probes and samples: the loss to LOSS_TOL, each
+    gradient of the field(s) within 1e-3 of the largest gradient entry of
+    the field(s), and dr and dt within 1e-3 of the larger of their largest
+    entries. (Per tensor the scale can be a sum that cancels: with the
+    random fine edges of ``mip2``, an interval of 2e-6, trunk0's gradient
+    peaks at 2.6e-6 against 3e-3 elsewhere and dt's at 1.7e-4 against dr's
+    6.2e-3, and the xla and pallas paths differ there by 2.2e-3 / 4.5e-3 of
+    that peak on the CPU too, where both run plain torch.) The launches
+    counted where they launch (no plain fallback); then one pallas pose
+    step through ``build_train_step`` moves the deltas."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.models.proposal import ProposalField, ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.train.step import (CamDeltas, autograd_loss, build_train_step, make_train_state,
+                                                  render_settings)
+
+    model, n_img, hw, B, N = NerfMLP(Lp=6, Ld=3, H=64), 4, 256, 512, 32
+    extra = (dict(mip=True, mip_levels=int(kind[-1])) if kind.startswith("mip") else
+             dict(proposal=True, Np=16, prop_Lp=4, prop_D=2, prop_H=32, pe_anneal_until=10))
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=6,
+                      net_Ld=3, pose_opt=True, pose_warmup=0, **extra)
+    rng = np.random.default_rng(13)
+    d = rng.normal(size=(n_img * hw, 3))
+    rays = torch.from_numpy(np.concatenate([-4.0 * d / np.linalg.norm(d, axis=1, keepdims=True), d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (n_img * hw, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n_img * hw, B)).to(dev)
+    n_ts = N + 1 if cfg.mip else cfg.Np
+    ts = torch.from_numpy(np.sort(rng.uniform(2, 6, (B, n_ts)), -1).astype(np.float32)).to(dev)
+    fine = torch.from_numpy(np.sort(rng.uniform(2, 6, (B, N + 1)), -1).astype(np.float32)).to(dev)
+    tables = {k: rng.normal(0, 0.02, (n_img, 3)).astype(np.float32) for k in ("dr", "dt")}
+    radius = 2.0 / 12.0**0.5 / 100.0
+    got = {}
+    for backend in ("pallas", "xla"):
+        if cfg.proposal:
+            pm = ProposalMLP(Lp=4, D=2, H=32)
+            field = ProposalPair(ProposalField.from_jax_params(init_proposal_params(3, pm), dev, pm),
+                                 NerfField.from_jax_params(init_nerf_params(4, model), dev))
+        else:
+            field = NerfField.from_jax_params(init_nerf_params(4, model), dev)
+        cams = CamDeltas(n_img, dev).copy_tables_(tables)
+        c = dataclasses.replace(cfg, backend=backend)
+        b2 = mlp.fused_mlp_backward
+        before = (b2.dx_launches, b2.mip_dx_launches, mlp.input_grad_launches(), mlp.input_grad_mip_launches())
+        loss = autograd_loss(c, field, rays[idx], pix[idx], ts, None, render_settings(c, radius), det_fine=True,
+                             edges_fine=fine if cfg.mip_levels == 2 else None, cams=cams, im_b=idx // hw,
+                             enc_alpha=0.4 if cfg.proposal else None)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = (backend == "pallas") * (cfg.mip_levels if cfg.mip else 1)
+        n_mip = n if cfg.mip else 0
+        assert (b2.dx_launches, b2.mip_dx_launches, mlp.input_grad_launches(),
+                mlp.input_grad_mip_launches()) == (before[0] + n, before[1] + n_mip, before[2] + n, before[3] + n_mip)
+        got[backend] = (loss.item(), [p.grad for p in field.parameters()], [cams.dr.grad, cams.dt.grad])
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    assert abs(lp / lx - 1) <= LOSS_TOL[torch.float32]
+    for ps, xs in ((fp, fx), (cp, cx)):
+        scale = max(t.abs().max().item() for t in xs)
+        for a, b in zip(ps, xs):
+            assert (a - b).abs().max().item() <= 1e-3 * scale
+    state = make_train_state(cfg, model, dev, n_images=n_img)
+    out = build_train_step(cfg, model, rays_per_image=hw, base_radius=radius)(state, rays, pix)
+    assert bool(torch.isfinite(out)) and float(state.cams.dr.detach().abs().max()) > 0

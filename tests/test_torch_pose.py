@@ -323,9 +323,11 @@ def test_input_grad_equals_autograd_of_the_plain_forward_in_f64(alpha):
     gws = mlp.backward_tile_plain(wts, res, g, torch.float64, SMALL)
     np.testing.assert_allclose(mlp.input_grad_plain(wts, x, gws, torch.float64, SMALL, enc_w).numpy(),
                                xr.grad.numpy(), atol=1e-12)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        mlp.fused_mlp_backward(wts, torch.zeros((16, 64)), torch.zeros((8, 64)), torch.float32, SMALL, mip=True,
-                               want_dx=True)
+    # under mip B2 gives the integrated encoder's input gradient, 16 rows (tests/test_torch_pose_mip.py)
+    w32 = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(12, SMALL), "cpu"))
+    _, dx16 = mlp.fused_mlp_backward(w32, torch.zeros((16, 64)), torch.zeros((8, 64)), torch.float32, SMALL, mip=True,
+                                     want_dx=True)
+    assert dx16.shape == (16, 64)
 
 
 # --- the pose loss of one batch -------------------------------------------------------------------------
@@ -517,9 +519,11 @@ POSE_RULES = [
 
 def test_pose_config_keys_load_and_each_rule_raises():
     """lego.yaml with the pose keys loads; each of JAX's pose rules raises
-    in both packages; pose with mip or proposal raises NotImplementedError
-    naming ROADMAP Queue A item 6; pose with ``appearance_dim`` loads (the
-    real-capture recipe), but not with ``pose_freeze_at`` (JAX's rule)."""
+    in both packages; pose with mip or with proposal loads in both (the
+    port composes them since Queue A item 1 landed), pose with both raises
+    NotImplementedError naming ROADMAP Queue A item 2 (mip x proposal);
+    pose with ``appearance_dim`` loads (the real-capture recipe), but not
+    with ``pose_freeze_at`` (JAX's rule)."""
     d = config.load_yaml("configs/lego.yaml")
     keys = dict(pose_opt=True, pose_lr_init=2e-3, pose_lr_final=2e-5, pose_warmup=100, pose_freeze_at=1500,
                 pe_anneal_until=1500)
@@ -531,16 +535,18 @@ def test_pose_config_keys_load_and_each_rule_raises():
         with pytest.raises(ValueError):
             jconfig.TrainConfig(datapath="d", **kw)
     for kw in (dict(pose_opt=True, mip=True), dict(pose_opt=True, proposal=True)):
-        jconfig.TrainConfig(datapath="d", **kw)  # JAX composes them
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            config.TrainConfig(datapath="d", **kw)
+        jconfig.TrainConfig(datapath="d", **kw)  # both packages compose them
+        assert config.TrainConfig(datapath="d", **kw).pose_opt
+    jconfig.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True)
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True)
     assert config.train_config_from_dict({**d, "pose_opt": True, "appearance_dim": 4}).appearance_dim == 4
     with pytest.raises(ValueError, match="pose_freeze_at cannot combine with appearance_dim"):
         config.train_config_from_dict({**d, **keys, "appearance_dim": 4})
     field = NerfField.from_jax_params(init_nerf_params(9, SMALL), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):  # the input gradient under mip
-        mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), torch.zeros((16, 8), requires_grad=True),
-                      torch.float32, SMALL, mip=True)
+    x16 = torch.zeros((16, 8), requires_grad=True)  # the input gradient under mip: 16 rows
+    mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), x16, torch.float32, SMALL, mip=True).sum().backward()
+    assert x16.grad.shape == (16, 8) and (x16.grad[6:11] == 0).all()
 
 
 def test_write_blender_scene_train_jitter_matches_jax(tmp_path):
