@@ -7,12 +7,13 @@ NerfMLP(Lp=10, Ld=4, H=256):
 
 1. device: refuses to run without CUDA; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the five CUDA sources from csrc/, one nvcc each, all
+2. build: compiles the six CUDA sources from csrc/, one nvcc each, all
    at once; prints the build time and ptxas registers and spills (the
    forward tile kernels, csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the
    backward tile kernels, csrc/bwd_f32.cuh and csrc/bwd_bf16.cuh, are
-   built into four of them; the input-gradient kernel, csrc/input_grad.cuh,
-   into B2's);
+   built into five of them; the forward tile kernels' contracted
+   instantiations into csrc/fused_contract.cu's alone; the input-gradient
+   kernel, csrc/input_grad.cuh, into B2's);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -188,7 +189,6 @@ NerfMLP(Lp=10, Ld=4, H=256):
    dropped, the variance rows halved), its ms beside the point kernel's,
    plain and the torch.mm yardstick, and its bound; with ``--before``, B2
    under mip without dx and the point B2 with dx bit-equal to the earlier
-   library's, and every kernel without mip the same SASS as the earlier
    library's; (b) lego_mip.yaml's keys + ``pose_opt`` (warmup 10, freeze at
    100) through ``train()`` for 150 steps on a copy of the phase-7 scene
    with perturbed train poses: two B2 launches with the mip input gradient
@@ -197,7 +197,25 @@ NerfMLP(Lp=10, Ld=4, H=256):
    a refined train still; (c) lego_proposal.yaml's keys + ``pose_opt`` +
    ``pe_anneal_until: 40`` for 60 steps with a mid-anneal preview: the
    loss falls, the deltas move, the step's wall;
-16. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+16. scene contraction, on a scene of the ``unbounded`` style (30/2/2 views
+   at 200x200, cameras at radius 3..6): (a) the forward tile kernels'
+   contracted instantiations (csrc/fused_contract.cu) as the forward, B2,
+   B1 (the 360 recipe's launch: weights output, disparity-space rail) and
+   B3 run them at a 524,288-row batch of the scene (rows moved onto both
+   sides of the unit sphere and out to |x| ~ 30), point and mip, f32 and
+   bf16, against their plain versions; bit-equal to the launches without
+   contract inside the unit ball; a planted fault caught; with and without
+   contract in turns; with ``--before``, the forward and B2 without
+   contract bit-equal to the earlier library's and every kernel of the
+   earlier libraries the same SASS; (b) configs/colmap360.yaml's keys (the
+   360 recipe) at the flagship width for 300 + 100 resumed steps, one
+   contracted B1 launch a step; the step's wall and profile beside the
+   recipe without contract; one f32 step fused against autograd; the recipe
+   at a reduced width for 300 steps (the loss halves, the held-out
+   interlevel loss falls); eval (a still, a 2-frame orbit), one frame
+   served over HTTP, a single-net fused_eval frame; (c) mip + contract at
+   two levels, 100 steps and a still;
+17. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -358,13 +376,15 @@ def grad_errors(got, want) -> tuple[float, float]:
 BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_workspace_bytes"),
                   "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes"),
                   "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes", "fused_mlp_bwd",
-                                    "fused_mlp_bwd_workspace_bytes")}
+                                    "fused_mlp_bwd_workspace_bytes"),
+                  "fused_render": ("fused_render_image_bytes",)}
 
 
 class EarlierEntries:
     """A library of an earlier commit whose entries lack trailing arguments
     (just before the stream) that the current ones have: ``cuts`` maps an
-    entry to their count (the train step's ``mip`` and ``opaque_tail``,
+    entry to their count (each entry's ``contract`` last; before it the
+    train step's ``mip`` and ``opaque_tail``,
     before them the rail's five, ``dist_on`` .. ``disparity``, and before
     those ``w_out``; the forward's ``app``, before it the anneal windows
     ``wx``, ``wd`` and before them ``mip``; B2's ``app``, before it ``wx``,
@@ -417,20 +437,21 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     for d, c in zip(dirs, copies):
         with open(os.path.join(d, "fused_train_step.cu")) as fh:
             src = fh.read()
-        cut = 2 * ("int opaque_tail" not in src) + 5 * ("dist_on" not in src) + ("w_out" not in src)
+        no_contract = int("int contract" not in src)
+        cut = no_contract + 2 * ("int opaque_tail" not in src) + 5 * ("dist_on" not in src) + ("w_out" not in src)
         if cut:
             c["fused_train_step"] = EarlierEntries(c["fused_train_step"], {"fused_train_step": cut})
         with open(os.path.join(d, "fused_mlp_fwd.cu")) as fh:
             src = fh.read()
-        no_app = int("int app" not in src)
-        cut = ("int mip" not in src) + 2 * ("const float *wx" not in src) + no_app
+        no_app, no_contract = int("int app" not in src), int("int contract" not in src)
+        cut = ("int mip" not in src) + 2 * ("const float *wx" not in src) + no_app + no_contract
         if cut:
             c["fused_mlp_fwd"] = EarlierEntries(c["fused_mlp_fwd"], {"fused_mlp_fwd": cut},
                                                 {"fused_mlp_fwd_image_bytes": no_app})
         with open(os.path.join(d, "fused_mlp_bwd.cu")) as fh:
             src = fh.read()
-        no_app = int("int app" not in src)
-        cut = ("int mip" not in src) + 3 * ("float *dx" not in src) + no_app
+        no_app, no_contract = int("int app" not in src), int("int contract" not in src)
+        cut = ("int mip" not in src) + 3 * ("float *dx" not in src) + no_app + no_contract
         if cut:
             c["fused_mlp_bwd"] = EarlierEntries(c["fused_mlp_bwd"], {"fused_mlp_bwd": cut, "backward_tile": no_app},
                                                 {"fused_mlp_bwd_workspace_bytes": no_app})
@@ -464,7 +485,7 @@ def phase_forward_before_after(dev, params, model, mlp, x16, earlier, dt=torch.f
 
         def fwd():
             mlp._raise_on(lib.fused_mlp_fwd(xT.data_ptr(), out.data_ptr(), R, model.Lp, model.Ld, model.H, bf16, cw,
-                                            image.data_ptr(), 0, None, None, 0, mlp._stream(xT)), what)
+                                            image.data_ptr(), 0, None, None, 0, 0, mlp._stream(xT)), what)
         return fwd, out
 
     old, o_old = bind(earlier, "earlier fused_mlp_fwd")
@@ -521,7 +542,7 @@ def phase_before_after(dev, params, model, mlp, x16_batch, earlier, dt=torch.bfl
         def step():
             mlp._raise_on(lib.fused_train_step(x16_batch.data_ptr(), R, Nb, model.Lp, model.Ld, model.H, bf16,
                                                cw, wt, ws.data_ptr(), loss.data_ptr(), cg, None, 0, 0.0, 0.0,
-                                               0.0, 0, 0, 0, mlp._stream(x16_batch)), what)
+                                               0.0, 0, 0, 0, 0, mlp._stream(x16_batch)), what)
         return step, loss, grads
 
     old_step, loss, grads = bind(earlier, "earlier fused_train_step")
@@ -2828,7 +2849,7 @@ def earlier_forward(mlp, lib, w, x, dt, model) -> torch.Tensor:
     image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, 0), dtype=torch.uint8,
                         device=x.device)
     mlp._raise_on(lib.fused_mlp_fwd(x.data_ptr(), out.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
-                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, 0, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, 0, 0, mlp._stream(x)),
                   "earlier fused_mlp_fwd")
     return out
 
@@ -2845,7 +2866,7 @@ def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False, mip: 
     mlp._raise_on(lib.fused_mlp_bwd(x.data_ptr(), gT.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
                                     mlp._CPtrs(*mlp._ptrs(w)), mlp._weights_t(w), ws.data_ptr(),
                                     mlp._CPtrs(*mlp._ptrs(grads)), int(mip), None, None,
-                                    None if dx is None else dx.data_ptr(), 0, mlp._stream(x)),
+                                    None if dx is None else dx.data_ptr(), 0, 0, mlp._stream(x)),
                   "earlier fused_mlp_bwd")
     return (grads, dx) if want_dx else grads
 
@@ -3505,8 +3526,10 @@ PP_ITERS, PP_ANNEAL, PP_PREVIEW = 60, 40, 30
 def sass_by_kernel(so: str) -> dict:
     """{kernel's short name: its SASS instructions, addresses stripped} of a
     library, by cuobjdump; the input-gradient kernel's names lose the
-    ``false`` of its MIP switch (``Lb0E``), so a launch without mip pairs
-    with the same kernel of a library that has no switch."""
+    ``false`` of its MIP switch (``Lb0E``), and the forward tile kernels'
+    the ``false`` of their last switch, CONTRACT, so a launch without mip
+    or contract pairs with the same kernel of a library that has no
+    switch."""
     cuobj = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([cuobj, "-sass", so], capture_output=True, text=True, check=True).stdout
     funcs, name = {}, None
@@ -3515,13 +3538,14 @@ def sass_by_kernel(so: str) -> dict:
         if m:
             name = short_name(m.group(1))
             name = name.replace("Lb0E", "") if "input_grad_kernel" in name else name
+            name = re.sub(r"(fwd_kernelILi-?\d+ELb[01]E)Lb0EE", r"\1E", name)
             funcs[name] = []
         elif name and re.match(r"\s+/\*[0-9a-f]+\*/", line):
             funcs[name].append(re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip())
     return funcs
 
 
-def phase_pose_mip_kernels(dev, scene, model, mlp, earlier, before_dir) -> dict:
+def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
     """15a. The input gradient's mip instantiation, nets from numpy seed
     SEED, f32 and bf16: B2 with ``mip`` and ``want_dx`` at the mip training
     batch (4096 rays x N_SAMPLES intervals of the scene at its cone radius,
@@ -3537,12 +3561,10 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier, before_dir) -> dict:
     point kernel's on the same planes, the plain version and the torch.mm
     yardstick, its bound. With ``earlier`` (an earlier commit's libraries): B2 under mip
     without dx and every launch without mip (B2 with dx on the point batch)
-    bit-equal to the earlier library's, and the SASS of each earlier library
-    kernel by kernel against the current one's (all but the two mip
-    instantiations identical)."""
+    bit-equal to the earlier library's (the SASS of every library against
+    the earlier one's: ``sass_against_earlier``, phase 16a)."""
     from nerf_simple_tpu_torch.data.blender import load_blender
     from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
-    from nerf_simple_tpu_torch.kernels import _build
     from nerf_simple_tpu_torch.models.nerf import NerfField, init_nerf_params
     from nerf_simple_tpu_torch.ops.sampling import stratified_ts
     from nerf_simple_tpu_torch.probes import input_grad as ig_probe
@@ -3636,23 +3658,28 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier, before_dir) -> dict:
               f"{v['var_rel_err']:.2e}; tol {ig_probe.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e}); "
               f"planted faults {', '.join(f'{k} {e:.2e}' for k, e in v['fault_err'].items())}", flush=True)
     stats["input_grad"] = ig
-    if earlier:
-        sass = {}
-        for src in BEFORE_ENTRIES:
-            cur = sass_by_kernel(str(_build.library_path(src)))
-            old = sass_by_kernel(os.path.join(os.path.dirname(os.path.abspath(before_dir)), "build", f"{src}.so"))
-            mip = sorted(k for k in cur if "input_grad_kernel" in k and "Lb1E" in k)
-            same = [k for k in cur if k not in mip and old.get(k) == cur[k]]
-            sass[src] = dict(identical=len(same), kernels=len(cur), mip=len(mip), earlier=len(old),
-                             differ=sorted(k[:60] for k in cur if k not in mip and k not in same))
-        print("SASS against the earlier libraries, kernel by kernel: " + "; ".join(
-            f"{src} {v['identical']} of {v['kernels'] - v['mip']} identical ({v['mip']} mip kernels new; the earlier "
-            f"library has {v['earlier']})" + (f", differ: {v['differ']}" if v["differ"] else "")
-            for src, v in sass.items()), flush=True)
-        check(all(not v["differ"] and v["identical"] == v["earlier"] for v in sass.values()),
-              "every kernel without mip builds to the earlier library's SASS")
-        stats["sass"] = sass
     return stats
+
+
+def sass_against_earlier(before_dir, _build) -> dict:
+    """Each library of BEFORE_ENTRIES against the earlier commit's, kernel
+    by kernel (``sass_by_kernel``): every kernel of the earlier library
+    must build to the same SASS in the current one; the current one's
+    other kernels are new."""
+    sass = {}
+    for src in BEFORE_ENTRIES:
+        cur = sass_by_kernel(str(_build.library_path(src)))
+        old = sass_by_kernel(os.path.join(os.path.dirname(os.path.abspath(before_dir)), "build", f"{src}.so"))
+        same = [k for k in old if cur.get(k) == old[k]]
+        sass[src] = dict(identical=len(same), earlier=len(old), kernels=len(cur),
+                         new=sorted(k[:60] for k in cur if k not in old),
+                         differ=sorted(k[:60] for k in old if k not in same))
+    print("SASS against the earlier libraries, kernel by kernel: " + "; ".join(
+        f"{src} {v['identical']} of the earlier {v['earlier']} identical, {len(v['new'])} new"
+        + (f", differ: {v['differ']}" if v["differ"] else "") for src, v in sass.items()), flush=True)
+    check(all(not v["differ"] and v["identical"] == v["earlier"] for v in sass.values()),
+          "every kernel of the earlier libraries builds to the same SASS")
+    return sass
 
 
 def phase_pose_mip_train(dev, scene, work, mlp) -> dict:
@@ -3849,6 +3876,517 @@ def phase_pose_prop_train(dev, scene, work, mlp) -> dict:
                 step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"])
 
 
+# Scene contraction (phase 16): the unbounded scene, the JAX bench's layout
+# (scripts/unbounded_bench.py:124-128: train_jitter 3, cameras at radius
+# 3..6) cut to 30 train, 2 val and 2 test views at 200x200 (the bench: 100
+# / 2 / 4); its bounds (the bench's tn 1, tf 30); the 360 recipe's steps
+# (configs/colmap360.yaml runs 20,000) and the mip + contract run's; the
+# rows placed by the unit sphere and far out in the kernel checks' batch.
+UNB_VIEWS, UNB_HW, UNB_TN, UNB_TF = (30, 2, 2), 200, 1.0, 30.0
+C360_ITERS, C360_MORE, CMIP_ITERS = 300, 100, 100
+# The recipe at a reduced width and batch, which leaves the mean-colour
+# plateau within C360_ITERS steps on this scene (at the flagship's width
+# and batch the loss falls 42% in 300 steps and the held-out interlevel
+# loss rises, on the plain path as on the kernels; PERF.md, section 6).
+C360_SMALL = dict(net_H=128, Nf=64, Np=32, batch_size=1024)
+EDGE_RAYS = 64  # the batch's last rays: their samples at |x| = 1 -+ 1e-4..1e-2 and 28..32
+
+
+def unbounded_batch(dev, scene, mip: bool = False):
+    """B1's (16, 524,288) input for a 4096-ray batch of the unbounded scene
+    as the 360 step builds it: N_SAMPLES disparity-stratified samples on
+    [UNB_TN, UNB_TF] a ray (under mip N_SAMPLES + 1 edges, the frustum
+    Gaussians at the scene's cone radius); then the samples of the last
+    EDGE_RAYS rays are moved onto both sides of the unit sphere and out
+    to |x| ~ 30 (numpy seed SEED), so that every case of the contraction
+    is in the batch."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts_spaced
+    from nerf_simple_tpu_torch.train.step import build_x16, build_x16_mip
+
+    rd = RayDataset.from_blender(load_blender(scene, False, UNB_VIEWS[0]), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    rays_b, pix_b = sample_ray_batch(g, rd.rays["train"], rd.pixels["train"], BATCH)
+    ts = stratified_ts_spaced(g, BATCH, N_SAMPLES + mip, UNB_TN, UNB_TF, dev, space="disparity")
+    x = build_x16_mip(rays_b, ts, pix_b, mip_radius(scene_focal(scene, UNB_HW))) if mip else build_x16(rays_b, ts, pix_b)
+    rng = np.random.default_rng(SEED)
+    n = EDGE_RAYS * N_SAMPLES
+    u = rng.normal(size=(3, n))
+    u /= np.linalg.norm(u, axis=0, keepdims=True)
+    eps = rng.uniform(1e-4, 1e-2, n)
+    r = np.select([np.arange(n) % 3 == 0, np.arange(n) % 3 == 1], [1.0 - eps, 1.0 + eps], rng.uniform(28, 32, n))
+    x[0:3, -n:] = torch.from_numpy((u * r).astype(np.float32)).to(dev)
+    return x
+
+
+def into_the_ball(x):
+    """``x`` with every sample moved inside the unit ball (rows 0..2 scaled
+    to |x| <= 0.999), the rest unchanged."""
+    y = x.clone()
+    n = y[0:3].norm(dim=0)
+    y[0:3] *= torch.where(n > 0.999, 0.999 / n, 1.0)
+    return y
+
+
+@contextlib.contextmanager
+def faulty_plain(mlp, fault: str):
+    """A fault planted in the plain versions: ``raw`` leaves posx's raw rows
+    uncontracted, ``var`` drops the variance warp under mip."""
+    encode, contract = mlp._encode, mlp._contract
+    if fault == "raw":
+        def raw(xT, model, var=None, enc_w=None):
+            posx, posd = encode(xT, model, var, enc_w)
+            return torch.cat([xT[0:3], posx[3:]]), posd
+        mlp._encode = raw
+    else:
+        mlp._contract = lambda xyz, var: (contract(xyz, var)[0], var)
+    try:
+        yield
+    finally:
+        mlp._encode, mlp._contract = encode, contract
+
+
+def phase_contract_kernels(dev, scene, mlp, earlier, before_dir) -> dict:
+    """16a. The contracted instantiations of the forward tile kernels
+    (csrc/fused_contract.cu) as the forward, B2's recompute, B1 and B3 run
+    them, nets from numpy seed SEED, f32 and bf16, at the unbounded batch
+    (``unbounded_batch``: 524,288 rows, point and mip) against their plain
+    versions, with the error measures and bounds of phases 3-5 (B1 the 360
+    recipe's launch: the weights output and the disparity-space rail; under
+    mip the weights output and the opaque tail); each bit-equal to the
+    launch without contract where every sample lies inside the unit ball
+    (the forward on the batch's own such rows; B2, B1 and B3 on the batch
+    moved into the ball); a fault planted in the plain version (the raw
+    rows left uncontracted; under mip the variance warp dropped) caught;
+    the forward and B1 with and without contract in turns. With
+    ``earlier``: the forward and B2 without contract bit-equal to the
+    earlier library's on this batch, and every kernel of the earlier
+    libraries the same SASS (``sass_against_earlier``)."""
+    from nerf_simple_tpu_torch.kernels import _build
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+
+    model, cm = NerfMLP(), NerfMLP(contract=True)
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    stats = {}
+    before = mlp.contract_launches()
+    for mip in (False, True):
+        x = unbounded_batch(dev, scene, mip)
+        xf = x if mip else x[:8].contiguous()
+        norm = x[0:3].norm(dim=0)
+        inside = norm <= 1.0
+        x_in = into_the_ball(x)
+        xf_in = x_in if mip else x_in[:8].contiguous()
+        gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, x.shape[1])).astype(np.float32)).to(dev)
+        kw = dict(out_weights=True, opaque_tail=True) if mip else dict(out_weights=True,
+                                                                     dist=(DIST_LAMBDA, UNB_TN, UNB_TF, True))
+        form = "mip" if mip else "point"
+        with torch.no_grad():
+            for dt in (torch.float32, torch.bfloat16):
+                name = "f32" if dt == torch.float32 else "bf16"
+                w = mlp._cast_weights(packed, dt)
+                st = dict(rows=x.shape[1], inside_rows=int(inside.sum()), far_rows=int((norm > 20).sum()))
+                # the forward
+                got = mlp.fused_mlp_forward(w, xf, dt, cm, mip=mip)
+                want = mlp.fused_mlp_forward_plain(w, xf, dt, cm, mip=mip)
+                st["fwd_err"] = (got[:4] - want[:4]).abs().max().item()
+                unc = mlp.fused_mlp_forward(w, xf, dt, model, mip=mip)
+                st["fwd_inside_bit_equal"] = torch.equal(got[:, inside], unc[:, inside])
+                with faulty_plain(mlp, "var" if mip else "raw"):
+                    st["fault_err"] = (got[:4] - mlp.fused_mlp_forward_plain(w, xf, dt, cm, mip=mip)[:4]).abs().max().item()
+                if earlier:
+                    st["fwd_no_contract_bit_equal_earlier"] = mip or torch.equal(
+                        unc, earlier_forward(mlp, earlier["fused_mlp_fwd"], w, xf, dt, model))
+                del got, want, unc
+                # B2's recompute
+                g2 = mlp.fused_mlp_backward(w, xf, gT, dt, cm, mip=mip)
+                st["b2_rel"], st["b2_err"] = grad_errors(g2, mlp.fused_mlp_backward_plain(w, xf, gT, dt, cm, mip=mip))
+                st["b2_inside_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                    mlp.fused_mlp_backward(w, xf_in, gT, dt, cm, mip=mip),
+                    mlp.fused_mlp_backward(w, xf_in, gT, dt, model, mip=mip)))
+                if earlier:
+                    st["b2_no_contract_bit_equal_earlier"] = all(torch.equal(a, b) for a, b in zip(
+                        mlp.fused_mlp_backward(w, xf, gT, dt, model, mip=mip),
+                        earlier_backward(mlp, earlier["fused_mlp_bwd"], w, xf, gT, dt, model, mip=mip)))
+                del g2
+                # B1
+                out = mlp.fused_train_step(w, x, N_SAMPLES, dt, cm, mip=mip, **kw)
+                ref = mlp.fused_train_step_plain(w, x, N_SAMPLES, dt, cm, mip=mip, **kw)
+                st["b1_loss_err"] = abs(out[0].item() / ref[0].item() - 1)
+                st["b1_rel"], st["b1_err"] = grad_errors(out[1], ref[1])
+                st["b1_w_err"] = (out[2] - ref[2]).abs().max().item()
+                a, b = (mlp.fused_train_step(w, x_in, N_SAMPLES, dt, m, mip=mip, **kw) for m in (cm, model))
+                st["b1_inside_bit_equal"] = a[0].item() == b[0].item() and all(
+                    torch.equal(p, q) for p, q in zip(a[1], b[1])) and torch.equal(a[2], b[2])
+                del out, ref, a, b
+                torch.cuda.empty_cache()
+                # B3 (point compositing: the eval render of a single net)
+                if not mip:
+                    r3 = mlp.fused_render(w, x, N_SAMPLES, dt, cm)
+                    st["b3_err"] = (r3[:3] - mlp.fused_render_plain(w, x, N_SAMPLES, dt, cm)[:3]).abs().max().item()
+                    st["b3_inside_bit_equal"] = torch.equal(mlp.fused_render(w, x_in, N_SAMPLES, dt, cm),
+                                                            mlp.fused_render(w, x_in, N_SAMPLES, dt, model))
+                    del r3
+                    # ms in turns (the forward; B1 as the 360 step launches it), and the plain versions
+                    ms = turns_ms({"fwd": lambda: mlp.fused_mlp_forward(w, xf, dt, cm),
+                                   "fwd_none": lambda: mlp.fused_mlp_forward(w, xf, dt, model),
+                                   "b1": lambda: mlp.fused_train_step(w, x, N_SAMPLES, dt, cm, **kw),
+                                   "b1_none": lambda: mlp.fused_train_step(w, x, N_SAMPLES, dt, model, **kw),
+                                   "b2": lambda: mlp.fused_mlp_backward(w, xf, gT, dt, cm),
+                                   "b3": lambda: mlp.fused_render(w, x, N_SAMPLES, dt, cm)})
+                    st.update({f"{k}_ms": v for k, v in ms.items()})
+                    st["fwd_plain_ms"] = cuda_ms(lambda: mlp.fused_mlp_forward_plain(w, xf, dt, cm), reps=3)
+                    st["b1_plain_ms"] = cuda_ms(lambda: mlp.fused_train_step_plain(w, x, N_SAMPLES, dt, cm, **kw),
+                                                reps=3)
+                    st["b2_plain_ms"] = cuda_ms(lambda: mlp.fused_mlp_backward_plain(w, xf, gT, dt, cm), reps=3)
+                    st["b3_plain_ms"] = cuda_ms(lambda: mlp.fused_render_plain(w, x, N_SAMPLES, dt, cm), reps=3)
+                torch.cuda.empty_cache()
+                stats[f"{form}_{name}"] = st
+                print(f"contract {form} {name} at {st['rows']} rows ({st['inside_rows']} inside the unit ball, "
+                      f"{st['far_rows']} past 20): forward vs plain {st['fwd_err']:.2e} (tol {TOL[dt]:.0e}), "
+                      f"bit-equal to the launch without contract on the rows inside: {st['fwd_inside_bit_equal']}; "
+                      f"planted fault ({'variance warp dropped' if mip else 'raw rows uncontracted'}) "
+                      f"{st['fault_err']:.2e}; B2 grads {st['b2_rel']:.2e} of max (tol {GRAD_TOL['B2', dt]:.0e}); "
+                      f"B1 ({', '.join(kw)}) loss {st['b1_loss_err']:.2e}, grads {st['b1_rel']:.2e} (tol "
+                      f"{GRAD_TOL['B1', dt]:.0e}), weights {st['b1_w_err']:.2e}; inside the ball bit-equal: B2 "
+                      f"{st['b2_inside_bit_equal']}, B1 {st['b1_inside_bit_equal']}"
+                      + (f", B3 {st['b3_inside_bit_equal']}; B3 vs plain {st['b3_err']:.2e}" if not mip else "")
+                      + ("".join(f"; {k} {v}" for k, v in st.items() if k.endswith("earlier"))), flush=True)
+                if not mip:
+                    print(f"contract {name} in turns at {st['rows']} rows: forward {st['fwd_ms']:.3f} ms (without "
+                          f"contract {st['fwd_none_ms']:.3f}), B1 {st['b1_ms']:.3f} ({st['b1_none_ms']:.3f}), B2 "
+                          f"{st['b2_ms']:.3f}, B3 {st['b3_ms']:.3f}; plain forward {st['fwd_plain_ms']:.3f}, B1 "
+                          f"{st['b1_plain_ms']:.3f}, B2 {st['b2_plain_ms']:.3f}, B3 {st['b3_plain_ms']:.3f}",
+                          flush=True)
+                check(st["fwd_err"] <= TOL[dt] and st["b2_rel"] <= GRAD_TOL["B2", dt]
+                      and st["b1_loss_err"] <= LOSS_TOL[dt] and st["b1_rel"] <= GRAD_TOL["B1", dt]
+                      and st["b1_w_err"] <= TOL[dt] and st.get("b3_err", 0.0) <= TOL[dt],
+                      f"the contracted kernels ({form}, {name}) match their plain versions")
+                check(st["fwd_inside_bit_equal"] and st["b2_inside_bit_equal"] and st["b1_inside_bit_equal"]
+                      and st.get("b3_inside_bit_equal", True), f"contracted launches ({form}, {name}) bit-equal to "
+                      "the launches without contract inside the unit ball")
+                check(st["fault_err"] > 5 * TOL[dt], f"the planted fault ({form}, {name}) is caught")
+                check(all(v for k, v in st.items() if k.endswith("earlier")),
+                      f"launches without contract ({form}, {name}) bit-equal to the earlier library's")
+        del x, xf, x_in, xf_in, gT
+        torch.cuda.empty_cache()
+    stats["launches_here"] = mlp.contract_launches() - before
+    if earlier:
+        stats["sass"] = sass_against_earlier(before_dir, _build)
+    for k, line in _build.ptxas_usage(_build.build_log.get("fused_contract", "")):
+        if "fwd_kernel" in k:
+            print(f"ptxas fused_contract {short_name(k)[:48]}: {line}", flush=True)
+    return stats
+
+
+def c360_config(scene: str, work: str) -> dict:
+    """configs/colmap360.yaml's keys, with the unbounded scene in the
+    blender layout for its LLFF capture (its dataset, llff_factor and ndc
+    keys dropped: LLFF is ROADMAP Queue A item 6), the scene's bounds, its
+    full resolution, and C360_ITERS steps."""
+    from nerf_simple_tpu_torch.config import load_yaml
+
+    cfg = {k: v for k, v in load_yaml("configs/colmap360.yaml").items()
+           if k not in ("dataset", "llff_factor", "ndc", "test_params")}
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_c360"),
+               exp_name="c360", tn=UNB_TN, tf=UNB_TF, half_res=False, num_train_imgs=UNB_VIEWS[0],
+               num_iters=C360_ITERS, ckpt_loss=1, ckpt_images=150, ckpt_model=50, steps_per_call=50)
+    return cfg
+
+
+def phase_contract_train(dev, scene, work, mlp) -> dict:
+    """16b. The 360 recipe (``c360_config``: contract, disparity spacing,
+    proposal Np 64, the distortion rail, Nf 128, bf16, pallas, the
+    flagship net) through train(), C360_ITERS steps and C360_MORE resumed,
+    on the unbounded scene: one contracted B1 launch a step with the
+    weights output and the rail (counted in Python and in C); every loss
+    finite and the loss falling; the held-out interlevel loss (4096 val
+    rays, deterministic probes and samples) at steps 50 and C360_ITERS.
+    The bf16 step's wall, host issue and profile by pass, the idle share;
+    the proposal step without contract on the same scene beside it. One
+    f32 step from one state through the fused core (B1) and through the
+    autograd path (the forward and B2), under JAX's rule. The recipe at
+    C360_SMALL's sizes, C360_ITERS steps: the loss halves and the held-out
+    interlevel loss falls. Then ``evaluate.test`` (one test still, a
+    2-frame orbit), the CLI server with the recipe's samples, one 400x400
+    frame over HTTP matched to ``render_rays_chunked`` to 1 level, and a
+    single-net fused_eval frame of the contracted field (B3)."""
+    import sys
+
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models import model_from_train_config
+    from nerf_simple_tpu_torch.models.proposal import ProposalMLP, ProposalPair
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.ops.volume import interlevel_loss
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked, render_rays_proposal
+    from nerf_simple_tpu_torch.serve import decode_png
+    from nerf_simple_tpu_torch.train.checkpoint import checkpoint_params, load_model_meta
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    cfg = c360_config(scene, work)
+    tcfg = train_config(cfg)
+    cm = model_from_train_config(tcfg)
+    check(cm.contract and (cm.Lp, cm.Ld, cm.H) == (10, 4, 256) and tcfg.proposal and (tcfg.Np, tcfg.Nf) == (64, 128)
+          and tcfg.sampling_space == "disparity" and tcfg.distortion_loss_weight == DIST_LAMBDA
+          and tcfg.backend == "pallas" and tcfg.compute_dtype == "bf16", "the 360 recipe's keys")
+    b1, fwd, b2, b3 = mlp.fused_train_step, mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_render
+    for f in (b1, fwd, b2, b3):
+        f.launches = f.contract_launches = 0
+    b1.weights_dist_launches = 0
+    mlp.contract_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(b1=b1.launches, b1_contract=b1.contract_launches, weights_and_rail=b1.weights_dist_launches,
+                    forward_contract=fwd.contract_launches)
+    cfg.update(resume=True, num_iters=C360_ITERS + C360_MORE)
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_c360_log.txt"), "w") as fh:
+        fh.write(text)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    psnr = scalars(cfg["log_dir"], "Loss/Val_Img_PSNR_0")
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[C360_ITERS - 50 : C360_ITERS]))
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    check(load_model_meta(exp) == cm, "the sidecar carries the contracted model")
+
+    rd = RayDataset.from_blender(load_blender(scene, False, UNB_VIEWS[0]), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    held, _ = sample_ray_batch(g, rd.rays["val"], rd.pixels["val"], BATCH)
+    s_eval = RenderSettings(N=N_SAMPLES, N_prop=tcfg.Np, tn=UNB_TN, tf=UNB_TF, sampling_space="disparity",
+                            backend="pallas", compute_dtype=torch.bfloat16)
+    pm = ProposalMLP(tcfg.prop_Lp, tcfg.prop_D, tcfg.prop_H, contract=True)
+
+    def held_out(field):
+        with torch.no_grad():
+            out, (tp, wp, tf) = render_rays_proposal(field, held, None, s_eval, det_fine=True, return_aux=True)
+        return float(interlevel_loss(out.weights, tf, wp, tp))
+
+    il = {"init": held_out(make_train_state(tcfg, cm, dev).field)}
+    for k in (50, C360_ITERS):
+        il[k] = held_out(ProposalPair.from_jax_params(checkpoint_params(os.path.join(exp, f"ckpt_{k}.pth")), dev,
+                                                      cm, pm))
+    print(f"train 360 recipe: {C360_ITERS} steps in {train_s:.1f} s with builds and renders; launches {launches}; "
+          f"mean loss (MSE + interlevel + distortion) of the first 50 steps {first:.5f}, of steps "
+          f"{C360_ITERS - 50}-{C360_ITERS} {last:.5f} (ratio {last / first:.3f}); val PSNR(0) "
+          f"{', '.join(f'{p:.2f}' for p in psnr)} dB; held-out interlevel loss "
+          + ", ".join(f"step {k}: {v:.5f}" for k, v in il.items()), flush=True)
+    check(launches["b1"] == launches["b1_contract"] == launches["weights_and_rail"] == C360_ITERS,
+          "one contracted B1 launch a 360 step, with the weights output and the rail")
+    check(b1.contract_launches == C360_ITERS + C360_MORE and "resumed from" in text
+          and state.step == C360_ITERS + C360_MORE, "the resume added its contracted steps")
+    check(all(np.isfinite(losses)) and len(losses) == C360_ITERS + C360_MORE, "every 360 loss logged and finite")
+    check(last < first, "the 360 loss fell")
+
+    # f32: the fused 360 core against the autograd path, one step from one state
+    cfg32 = dataclasses.replace(tcfg, compute_dtype="f32")
+    runs = {}
+    for name, fused in (("fused", True), ("autograd", False)):
+        st = make_train_state(cfg32, cm, dev)
+        with warnings.catch_warnings():  # the autograd path under pallas warns, as JAX does
+            warnings.simplefilter("ignore")
+            fn = build_train_step(cfg32, cm, fused=fused)
+        runs[name] = float(fn(st, rd.rays["train"], rd.pixels["train"])), st.field.to_jax_params()
+        del st
+    (l_f, p_f), (l_a, p_a) = runs["fused"], runs["autograd"]
+    bad = total = 0
+    for k in ("prop", "fine"):
+        for layer in p_a[k]:
+            for n in ("w", "b"):
+                a, b = p_f[k][layer][n], p_a[k][layer][n]
+                bad += int((np.abs(a - b) > PROP_PARAM_ATOL + PROP_PARAM_RTOL * np.abs(b)).sum())
+                total += a.size
+    loss_rel_f32 = abs(l_f / l_a - 1)
+    print(f"f32 360 step from one state: fused core (contracted B1) loss {l_f:.6f}, autograd (contracted forward + "
+          f"B2) {l_a:.6f}, rel diff {loss_rel_f32:.2e} (tol {PROP_LOSS_RTOL:.0e}); parameters past atol "
+          f"{PROP_PARAM_ATOL:.0e} + rtol {PROP_PARAM_RTOL:.0e}: {bad}/{total} (tol 0)", flush=True)
+    check(loss_rel_f32 <= PROP_LOSS_RTOL and bad == 0, "the fused and autograd 360 steps agree under JAX's rule")
+
+    # the recipe at C360_SMALL's sizes: out of the plateau within C360_ITERS steps
+    small = {**c360_config(scene, work), **C360_SMALL, "exp_name": "c360_small",
+             "log_dir": os.path.join(work, "logs_c360_small")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        train(small)
+    s_losses = scalars(small["log_dir"], "Loss/train")
+    s_first, s_last = float(np.mean(s_losses[:50])), float(np.mean(s_losses[-50:]))
+    stcfg = train_config(small)
+    s_model, s_pm = model_from_train_config(stcfg), ProposalMLP(stcfg.prop_Lp, stcfg.prop_D, stcfg.prop_H, contract=True)
+    s_held = RenderSettings(N=stcfg.Nf, N_prop=stcfg.Np, tn=UNB_TN, tf=UNB_TF, sampling_space="disparity",
+                            backend="pallas", compute_dtype=torch.bfloat16)
+    s_il = {}
+    for k in (50, C360_ITERS):
+        f = ProposalPair.from_jax_params(checkpoint_params(os.path.join(work, "models", "c360_small", f"ckpt_{k}.pth")),
+                                         dev, s_model, s_pm)
+        with torch.no_grad():
+            out, (tp_, wp_, tf_) = render_rays_proposal(f, held, None, s_held, det_fine=True, return_aux=True)
+        s_il[k] = float(interlevel_loss(out.weights, tf_, wp_, tp_))
+    print(f"train 360 recipe at {C360_SMALL}: mean loss of the first 50 steps {s_first:.5f}, of the last 50 "
+          f"{s_last:.5f} (ratio {s_last / s_first:.3f}); held-out interlevel loss " + ", ".join(
+              f"step {k}: {v:.5f}" for k, v in s_il.items()), flush=True)
+    check(all(np.isfinite(s_losses)) and s_last <= 0.5 * s_first, "the 360 recipe at the reduced sizes: loss halves")
+    check(s_il[C360_ITERS] < s_il[50], "the 360 recipe at the reduced sizes: the held-out interlevel loss falls")
+
+    step_fn = build_train_step(tcfg, cm)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+
+    def step():
+        return step_fn(state, rays, pixels)
+
+    walls = step_walls(step)
+    prof = profile_step(step, None, None, split_proposal=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    ncfg = dataclasses.replace(tcfg, contract=False)
+    plain_state = make_train_state(ncfg, model_from_train_config(ncfg), dev)
+    plain_fn = build_train_step(ncfg, model_from_train_config(ncfg))
+    plain_walls = step_walls(lambda: plain_fn(plain_state, rays, pixels))
+    plain_prof = profile_step(lambda: plain_fn(plain_state, rays, pixels), None, None, split_proposal=True)
+    del plain_state
+    print(f"train step 360 recipe bf16: {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} rays/s (CUDA "
+          f"events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a "
+          f"step in {walls['host_ms']:.3f} ms; profile, device ms a step: " + (", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+              + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured")
+          + f". The proposal step without contract, same scene: {plain_walls['ms']:.3f} ms (host "
+          f"{plain_walls['host_ms']:.3f}), kernels {sum(plain_prof.values()):.3f} (B1 {plain_prof.get('B1', 0):.3f})",
+          flush=True)
+
+    # eval: one test still, a 2-frame orbit
+    tp = dict(loadpath=exp, datapath=scene, savepath=os.path.join(work, "results_c360"), exp_name="c360",
+              batch_size=16384, half_res=False, im_set="test", im_idxs=[0], N_samples=N_SAMPLES, Np=tcfg.Np,
+              sampling_space="disparity", tn=UNB_TN, tf=UNB_TF, backend="pallas", compute_dtype="bf16")
+    elog = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(elog):
+        test(tp)
+        test({**tp, "animation": True, "num_poses": 2})
+    eval_s = time.perf_counter() - t0
+    etext = elog.getvalue()
+    for line in etext.splitlines():
+        print("eval 360 recipe:", line, flush=True)
+    eval_psnr = [float(p) for p in re.findall(r"im 0: mse=\S+ psnr=(\S+)", etext)]
+    videos = glob.glob(os.path.join(work, "results_c360", "c360", "nerf_rgb*"))
+    check(len(eval_psnr) == 1 and np.isfinite(eval_psnr[0]) and len(videos) == 1, "the 360 eval: a still, a video")
+
+    # the CLI server with the recipe's samples, one 400x400 frame
+    pair = ProposalPair.from_jax_params(load_params(exp, keep_hierarchy=True), dev, cm, pm)
+    focal = scene_focal(scene)
+    s_frame = dataclasses.replace(s_eval, compute_dtype=torch.bfloat16)
+    port = free_port()
+    served_log = open(os.path.join(OUT, "serve_c360_log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath",
+         os.path.join(exp, f"params_{C360_ITERS + C360_MORE}.npz"), "--height", str(H), "--width", str(W), "--focal",
+         repr(float(focal)), "--backend", "pallas", "--dtype", "bf16", "--samples", str(N_SAMPLES),
+         "--proposal-samples", str(tcfg.Np), "--tn", str(UNB_TN), "--tf", str(UNB_TF), "--sampling-space",
+         "disparity", "--port", str(port)], stdout=served_log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                health = json.loads(get(url + "/health")[0])
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    with open(served_log.name) as fh:
+                        print(fh.read()[-3000:], flush=True)
+                    check(False, "the 360 server started")
+                time.sleep(1.0)
+        data, ctype = get(f"{url}/render?r=4.5&theta=-30&phi=30")
+        health_after = json.loads(get(url + "/health")[0])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        served_log.close()
+    pose = torch.as_tensor(spherical_to_pose(4.5, -30.0, 30.0)[None], dtype=torch.float32, device=dev)
+    frays = rays_for_poses(pose, H, W, focal)
+    want = (render_rays_chunked(pair, frays, 0, s_frame)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
+    u8_err = int(np.abs(decode_png(data).astype(int) - want.astype(int)).max())
+    served_launches = health_after["kernel_launches"] - health["kernel_launches"]
+    print(f"served 360 recipe: /health proposal {health['proposal']}; a {H}x{W} PNG over HTTP, {served_launches} "
+          f"forward launches (contracted: the sidecar), max diff from render_rays_chunked {u8_err} levels", flush=True)
+    check(health["proposal"] is True and ctype == "image/png" and u8_err <= 1,
+          "the served 360 frame matches render_rays_chunked to 1 level")
+
+    # the contracted field's eval render kernel: a single-net fused_eval frame (B3)
+    s_b3 = RenderSettings(N=N_SAMPLES, tn=UNB_TN, tf=UNB_TF, sampling_space="disparity", backend="pallas",
+                          compute_dtype=torch.bfloat16, fused_eval=True)
+    rgb, _ = render_rays_chunked(pair.fine, frays, 0, s_b3)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(rgb).all()), "the single-net fused_eval frame of the contracted field is finite")
+    launches.update(b1_contract_all=b1.contract_launches, forward_contract_all=fwd.contract_launches,
+                    b2_contract=b2.contract_launches, b3_contract=b3.contract_launches,
+                    c_contract=mlp.contract_launches())
+    check(launches["c_contract"] == sum(launches[k] for k in ("b1_contract_all", "forward_contract_all",
+                                                              "b2_contract", "b3_contract"))
+          and launches["b2_contract"] == 1 and launches["b3_contract"] > 0,
+          "every contracted launch of the run counted in C as in the wrappers; B2 and B3 ran contracted")
+    print(f"360 recipe launches (counted from the first step to here): {launches}", flush=True)
+    return dict(launches=launches, step_ms=walls["ms"], host_ms=walls["host_ms"], profile=prof, idle=idle,
+                no_contract_step_ms=plain_walls["ms"], no_contract_host_ms=plain_walls["host_ms"],
+                no_contract_profile=plain_prof, first=first, last=last, psnr=psnr, held_out=il,
+                eval_psnr=eval_psnr[0], eval_s=eval_s, served_u8_err=u8_err, served_launches=served_launches,
+                train_s=train_s, loss_rel_f32=loss_rel_f32, params_past_rule=bad,
+                small=dict(sizes=C360_SMALL, first=s_first, last=s_last, held_out=s_il))
+
+
+def phase_contract_mip(dev, scene, work, mlp) -> dict:
+    """16c. mip + contract: configs/lego_mip.yaml's keys (two levels, one
+    net) with contract and disparity spacing on the unbounded scene's
+    bounds, CMIP_ITERS bf16 steps through train() (two contracted
+    cone-cast B1 launches a step), then one test still by evaluate.test
+    (the sidecar rebuilds the contracted model)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.train.loop import train
+
+    cfg = load_yaml("configs/lego_mip.yaml")
+    tp = cfg.pop("test_params")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_cmip"),
+               exp_name="cmip", contract=True, sampling_space="disparity", tn=UNB_TN, tf=UNB_TF, half_res=False,
+               num_train_imgs=UNB_VIEWS[0], num_iters=CMIP_ITERS, ckpt_loss=1, ckpt_images=10**6,
+               ckpt_model=CMIP_ITERS, steps_per_call=50)
+    b1 = mlp.fused_train_step
+    b1.launches = b1.mip_launches = b1.contract_launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train(cfg)
+        tp.update(loadpath=os.path.join(work, "models", "cmip"), datapath=scene,
+                  savepath=os.path.join(work, "results_cmip"), half_res=False, im_idxs=[0], sampling_space="disparity",
+                  tn=UNB_TN, tf=UNB_TF, backend="pallas", compute_dtype="bf16")
+        test(tp)
+    secs = time.perf_counter() - t0
+    text = log.getvalue()
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    psnr = [float(p) for p in re.findall(r"im 0: mse=\S+ psnr=(\S+)", text)]
+    launches = dict(b1=b1.launches, mip=b1.mip_launches, contract=b1.contract_launches)
+    print(f"mip + contract: {CMIP_ITERS} steps (two levels) and a still in {secs:.1f} s; B1 launches {launches}; "
+          f"mean loss of the first 20 steps {np.mean(losses[:20]):.5f}, of the last 20 {np.mean(losses[-20:]):.5f}; "
+          f"test still PSNR {psnr}", flush=True)
+    check(launches == dict(b1=2 * CMIP_ITERS, mip=2 * CMIP_ITERS, contract=2 * CMIP_ITERS),
+          "two contracted cone-cast B1 launches a mip + contract step")
+    check(all(np.isfinite(losses)) and np.mean(losses[-20:]) < np.mean(losses[:20]) and len(psnr) == 1
+          and np.isfinite(psnr[0]), "mip + contract trains and evaluates")
+    return dict(launches=launches, first=float(np.mean(losses[:20])), last=float(np.mean(losses[-20:])),
+                psnr=psnr[0], seconds=secs)
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -3873,10 +4411,11 @@ def train_config(d):
     return train_config_from_dict(d)
 
 
-def scene_focal(scene: str) -> float:
+def scene_focal(scene: str, width: int = W) -> float:
+    """The focal length of the scene's field of view at ``width`` pixels."""
     with open(os.path.join(scene, "transforms_train.json")) as fh:
         fov = json.load(fh)["camera_angle_x"]
-    return 400 / (2.0 * np.tan(fov / 2.0))
+    return width / (2.0 * np.tan(fov / 2.0))
 
 
 def main() -> None:
@@ -4026,13 +4565,26 @@ def main() -> None:
         walls["appearance"] = time.perf_counter() - t_phase
         # 15. pose with mip and proposal: the mip input gradient vs plain, training through the freeze, eval
         t_phase = time.perf_counter()
-        pmk = phase_pose_mip_kernels(dev, scene, model, mlp, earlier, args.before[0] if args.before else None)
+        pmk = phase_pose_mip_kernels(dev, scene, model, mlp, earlier)
         torch.cuda.empty_cache()
         pmt = phase_pose_mip_train(dev, scene, work, mlp)
         torch.cuda.empty_cache()
         ppt = phase_pose_prop_train(dev, scene, work, mlp)
         walls["pose with mip and proposal"] = time.perf_counter() - t_phase
-    # 16. the padding probe
+        # 16. scene contraction: the contracted kernels vs plain, the 360 recipe, mip + contract
+        t_phase = time.perf_counter()
+        unb = os.path.join(work, "unbounded")
+        write_blender_scene(unb, *UNB_VIEWS, H=UNB_HW, W=UNB_HW, device=dev, train_jitter=3, style="unbounded",
+                            camera_r_range=(3.0, 6.0))
+        print(f"scene: unbounded style, {'/'.join(map(str, UNB_VIEWS))} images at {UNB_HW}x{UNB_HW}, cameras at "
+              f"radius 3..6, written in {time.perf_counter() - t_phase:.1f} s", flush=True)
+        ck = phase_contract_kernels(dev, unb, mlp, earlier, args.before[0] if args.before else None)
+        torch.cuda.empty_cache()
+        ct = phase_contract_train(dev, unb, work, mlp)
+        torch.cuda.empty_cache()
+        cmip = phase_contract_mip(dev, unb, work, mlp)
+        walls["contract"] = time.perf_counter() - t_phase
+    # 17. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -4258,9 +4810,50 @@ def main() -> None:
         **{f"{m}{'' if k == 'f32' else '_bf16'}": igm[k][m] for k in ("f32", "bf16")
            for m in ("rel_err", "var_rel_err", "point_ms", "share_of_bound", "fault_err")},
         "b2_mip_dx": {k: {m: v for m, v in pmk[f"b2_{k}"].items()} for k in ("f32", "bf16")},
-        "sass_vs_earlier": pmk.get("sass"),
         "step_profile_ms_bf16": pmt["profile"].get("input grad"),
         "pose_mip_step": {k: v for k, v in pmt.items()}, "pose_proposal_step": {k: v for k, v in ppt.items()}}
+    # the contracted instantiations (csrc/fused_contract.cu) as each kernel
+    # runs them, at the unbounded batch: the work of the kernel without
+    # contract (the contraction's ~30 operations a row are below its
+    # rounding), the same bytes
+    c_rows = ck["point_f32"]["rows"]
+
+    def contract_entry(kernel, replaces, launches, flops, nbytes, **extra):
+        st = {dt: ck[f"point_{dt}"] for dt in ("f32", "bf16")}
+        return {"name": "fwd_tile (contract)", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/fused_contract.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(ck[f"{f}_f32"][f"{kernel}_err"] for f in ("point", "mip") if f"{kernel}_err" in
+                                   ck[f"{f}_f32"]),
+                "ms": st["f32"][f"{kernel}_ms"], "plain_ms": st["f32"][f"{kernel}_plain_ms"], **bounds(flops, nbytes),
+                "library_ms": None,
+                "max_abs_err_bf16": max(ck[f"{f}_bf16"][f"{kernel}_err"] for f in ("point", "mip") if f"{kernel}_err"
+                                        in ck[f"{f}_bf16"]),
+                "ms_bf16": st["bf16"][f"{kernel}_ms"], "plain_ms_bf16": st["bf16"][f"{kernel}_plain_ms"],
+                "library_ms_bf16": None, "rows": c_rows,
+                **{f"{k}_{f}_{dt}": ck[f"{f}_{dt}"][k] for f in ("point", "mip") for dt in ("f32", "bf16")
+                   for k in (f"{kernel}_inside_bit_equal", f"{kernel}_rel") if k in ck[f"{f}_{dt}"]}, **extra}
+
+    contract = {
+        "fwd": contract_entry("fwd", "nerf_simple_tpu/kernels/mlp.py:437-456 (_encode's contract branch), reached "
+                              "from :669", ct["launches"]["forward_contract_all"], 2 * fwd_macs * c_rows, 64 * c_rows,
+                              ms_no_contract=ck["point_f32"]["fwd_none_ms"],
+                              ms_no_contract_bf16=ck["point_bf16"]["fwd_none_ms"],
+                              fault_err={k: v["fault_err"] for k, v in ck.items() if isinstance(v, dict)
+                                         and "fault_err" in v}, sass_vs_earlier=ck.get("sass"),
+                              c_launches=ct["launches"]["c_contract"]),
+        "b2": contract_entry("b2", "nerf_simple_tpu/kernels/mlp.py:437-456 (_encode's contract branch), reached from "
+                             "B2's recompute :1147", ct["launches"]["b2_contract"], 2 * train_macs * c_rows,
+                             64 * c_rows + grad_bytes),
+        "b1": contract_entry("b1", "nerf_simple_tpu/kernels/mlp.py:437-456 (_encode's contract branch), reached from "
+                             ":1623", ct["launches"]["b1_contract_all"] + cmip["launches"]["contract"],
+                             2 * train_macs * c_rows, 68 * c_rows + grad_bytes,
+                             ms_no_contract=ck["point_f32"]["b1_none_ms"],
+                             ms_no_contract_bf16=ck["point_bf16"]["b1_none_ms"],
+                             launches_360=ct["launches"]["b1_contract_all"], launches_mip=cmip["launches"]["contract"],
+                             c360_step={k: v for k, v in ct.items() if k != "launches"}, mip_contract=cmip),
+        "b3": contract_entry("b3", "nerf_simple_tpu/kernels/mlp.py:437-456 (_encode's contract branch), reached from "
+                             ":1734", ct["launches"]["b3_contract"], 2 * fwd_macs * c_rows, 96 * c_rows),
+    }
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -4280,11 +4873,11 @@ def main() -> None:
               proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
               proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"],
-              mip=mip_forward, anneal=anneal, app=app_forward),
+              mip=mip_forward, anneal=anneal, app=app_forward, contract={**contract["fwd"], "name": "fused_mlp_forward"}),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward, want_dx=want_dx,
-              app=app_backward),
+              app=app_backward, contract={**contract["b2"], "name": "fused_mlp_backward"}),
         {"name": "input_grad", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/input_grad.cuh",
          "replaces": "nerf_simple_tpu/kernels/mlp.py:871-938 (_input_grad_tile), :733-746 (_bwd_kernel's want_dx), "
                      ":865-868 (the encoded inputs' cotangents)",
@@ -4314,7 +4907,8 @@ def main() -> None:
               hierarchical_frame_ms_bf16=he["frame_ms"], hierarchical_eval_psnr=he["psnr"],
               hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
               b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist,
-              weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train),
+              weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train,
+              contract={**contract["b1"], "name": "fused_train_step"}),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),
@@ -4336,7 +4930,7 @@ def main() -> None:
               render_launches, rnd, (2 * fwd_macs * chunk_rows, 96 * chunk_rows),
               frame_ms=fused_frame_ms["f32"]["fused"], unfused_frame_ms=fused_frame_ms["f32"]["unfused"],
               frame_ms_bf16=fused_frame_ms["bf16"]["fused"],
-              unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"]),
+              unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"], contract={**contract["b3"], "name": "fused_render"}),
         {"name": "pad_passes_probe", "route": "cuda",
          "source": "nerf_simple_tpu_torch/csrc/pad_passes_probe.cu",
          "replaces": "scripts/pad_passes_probe.py:82", "launches": probe_launches,

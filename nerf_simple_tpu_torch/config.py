@@ -21,6 +21,13 @@ import re
 import warnings
 from typing import Any
 
+# What a contracted model cannot train through yet: every path that needs
+# the gradient of the sample positions (pose refinement, appearance codes).
+CONTRACT_INPUT_GRAD = (
+    "ROADMAP Queue B item 3, the contract branch of the input-gradient kernel (the contraction's Jacobian in "
+    "JAX _input_grad_tile)"
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -46,6 +53,11 @@ class TrainConfig:
     seed: int = 0
     honor_lr_init: bool = False  # the reference's Adam ignores lr_init
     sampling_space: str = "linear"
+    # mip-NeRF 360's scene contraction: the model (main field and proposal
+    # net) squashes all of space into the radius-2 ball before its encoder;
+    # a model field, so the model.json sidecar carries it to eval. Pair it
+    # with sampling_space: disparity and a far tf for unbounded scenes
+    contract: bool = False
     white_bkgd: bool = False
     compute_dtype: str = "f32"
     backend: str = "xla"
@@ -191,6 +203,12 @@ class TrainConfig:
                 "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
                 "ported yet: ROADMAP Queue A item 2, mip x proposal"
             )
+        if self.contract and (self.pose_opt or self.appearance_dim > 0):
+            what = "pose_opt" if self.pose_opt else f"appearance_dim={self.appearance_dim}"
+            raise NotImplementedError(
+                f"contract=True with {what} trains through the gradient of the contracted positions, which is not "
+                f"ported yet: {CONTRACT_INPUT_GRAD}"
+            )
         self._check_pose()
         self._check_appearance()
 
@@ -268,7 +286,6 @@ class TrainConfig:
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
     "item 2, mip multiscale training": {"mip_multiscale": False},
-    "item 3, contract with disparity spacing": {"contract": False},
     "item 4, train_im_idxs": {"train_im_idxs": ()},
     "item 8, the hashgrid/cpgrid families": {
         "model_family": "nerf", "hash_L": 8, "hash_F": 4, "hash_log2_T": 14, "hash_Nmin": 16,
@@ -312,7 +329,15 @@ def _filter_kwargs(cls, d: dict[str, Any], unported: dict[str, tuple[Any, str]])
 
 def train_config_from_dict(params: dict[str, Any]) -> TrainConfig:
     """A TrainConfig from a reference-schema config dict (the nested
-    ``test_params`` section is ignored)."""
+    ``test_params`` section is ignored). The JAX rule on contraction with
+    NDC (config.py:441-449) is checked here, where the unported ``dataset``
+    and ``ndc`` keys still are: two unbounded-scene warps at once is a
+    ValueError, before LLFF itself raises as unported."""
+    if params.get("contract") and params.get("dataset") == "llff" and params.get("ndc", True):
+        raise ValueError(
+            "contract=True is redundant/incompatible with NDC (both are unbounded-scene warps); set ndc: false "
+            "for contracted LLFF captures"
+        )
     return TrainConfig(**_filter_kwargs(TrainConfig, params, _UNPORTED))
 
 

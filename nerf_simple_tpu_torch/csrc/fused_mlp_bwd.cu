@@ -10,7 +10,8 @@
 // point variant's want_dx, :733-746) also the input gradient of
 // _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh, and
 // with `mip` and dx its mip instantiation, _input_grad_tile_mip
-// (:941-1078, :738-742; no contraction); for an appearance model (`app`)
+// (:941-1078, :738-742; no contraction: dx of a contracted model is not
+// ported); for an appearance model (`app`)
 // the recompute with the codes (:716-724), dWca (:854-857) and the codes'
 // rows of dx (:867, :747-748, :1140-1145).
 //
@@ -70,19 +71,22 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) 
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
 // anneal windows of the forward it recomputes (FX and enc_rows(Ld) floats
-// on the card). `dx`: null, or (8, rows) f32 for the input gradient, (16,
+// on the card). `contract`: a contracted model's recompute (no windows,
+// codes or dx). `dx`: null, or (8, rows) f32 for the input gradient, (16,
 // rows) with `app` or `mip` (under mip rows 0..2 d/d(mean), 3..5 d/d(dir),
 // 11..13 d/d(variance); not with the windows or codes, as in JAX).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
-                  Grads out, int mip, const float *wx, const float *wd, float *dx, int app, void *stream) {
+                  Grads out, int mip, const float *wx, const float *wd, float *dx, int app, int contract,
+                  void *stream) {
   if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0 || (mip && (wx || app))) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || app)) || (contract && (app || dx))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16, app != 0);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
   if (int e = app ? forward<true>(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, false, wx, wd, s)
-                  : forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd, s))
+                  : forward_point(contract != 0, x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0,
+                                  wx, wd, s))
     return e;
   if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s, app != 0))
     return e;

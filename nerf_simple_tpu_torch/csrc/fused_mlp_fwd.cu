@@ -6,7 +6,9 @@
 // pallas_call of _fwd_kernel -> _forward_tile -> _encode), point and mip
 // variants, with or without BARF's anneal windows (enc_w, :613, :648-650;
 // applied in _encode, :491-493), and the point variant with the appearance
-// rail (app8, :541-545, :589-594, :624-641); no contraction.
+// rail (app8, :541-545, :589-594, :624-641); with `contract` the point
+// and mip variants of a contracted model (_encode's contraction,
+// :437-456), through csrc/fused_contract.cu's kernels.
 //
 // Contract (same as the TPU kernel): x is (8, rows) f32 feature-major --
 // rows 0..2 sample xyz, rows 3..5 unit view direction; with `mip`, x is
@@ -21,7 +23,10 @@
 // + [Wcd | Wca] [posd ; app8]: the TPU kernel's sum in one product. `wx`
 // (FX floats) and `wd` (enc_rows(Ld) floats), on the card, are null or
 // the anneal windows: each encoded row of posx and posd times its window
-// (mlp.py::anneal_row_weights; the code rows have none). out is (8, rows)
+// (mlp.py::anneal_row_weights; the code rows have none). With `contract`
+// (not with `app` or the windows), rows 0..2 are contracted, and under
+// mip the variances warped, before the encoder (csrc/fused_contract.cu,
+// which set_contract_forward hands in). out is (8, rows)
 // f32: raw rgb in rows 0..2, raw sigma in row 3, zeros in rows 4..7. The
 // weights are pack_weights' FusedWeights, (out, in) row-major; matrices
 // in the compute type (f32 or bf16), biases f32.
@@ -80,11 +85,11 @@ int fwd_weight_image(Weights w, int Lp, int Ld, int H, int is_bf16, void *image,
 // rounded up to 64, 16-byte aligned): for tests.
 int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, int Ld, int H, int is_bf16,
                             Weights w, void *res, void *image, int mip, const float *wx, const float *wd,
-                            int app, void *stream) {
-  if (!arch_ok(Lp, Ld, H) || rows <= 0 || (mip && app)) return (int)cudaErrorInvalidValue;
+                            int app, int contract, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || rows <= 0 || (mip && app) || (contract && app)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return app ? forward<true>(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, false, wx, wd, s)
-             : forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip != 0, wx, wd, s);
+             : forward_point(contract != 0, x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip != 0, wx, wd, s);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
@@ -92,12 +97,13 @@ int fused_mlp_fwd_residuals(const float *x, float *out, long long rows, int Lp, 
 // shapes and types.
 int fused_mlp_fwd(const float *x, float *out, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, void *image, int mip, const float *wx, const float *wd,
-                  int app, void *stream) {
-  if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr) || (mip && app)) return (int)cudaErrorInvalidValue;
+                  int app, int contract, void *stream) {
+  if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr) || (mip && app) || (contract && app))
+    return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return app ? forward<true>(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, wx, wd, s)
-             : forward(x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, mip != 0, wx, wd, s);
+             : forward_point(contract != 0, x, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, mip != 0, wx, wd, s);
 }
 
 }  // extern "C"

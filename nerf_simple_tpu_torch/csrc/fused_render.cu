@@ -2,7 +2,8 @@
 // compositing of whole rays, giving each ray's rgb, depth and acc.
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::fused_render (the pallas_call
-// of _render_kernel -> _forward_tile, then segmented compositing).
+// of _render_kernel -> _forward_tile, then segmented compositing); with
+// `contract`, a contracted model's forward (csrc/fused_contract.cu).
 //
 // Contract (the TPU kernel's): x16 (16, B*N) f32 -- rows 0..2 sample xyz,
 // 3..5 unit view dir, 6 ts (ray b's samples are columns b*N .. b*N+N-1),
@@ -80,10 +81,11 @@ long long fused_render_image_bytes(int Lp, int Ld, int H, int is_bf16) {
 // The caller allocates `out` (8, rows) f32 and the scratch `image`, and
 // checks shapes and types.
 int fused_render(const float *x16, float *out, long long rows, int N, int Lp, int Ld, int H,
-                 int is_bf16, Weights w, void *image, void *stream) {
+                 int is_bf16, Weights w, void *image, int contract, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int e = forward(x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, nullptr, nullptr, s))
+  if (int e = forward_point(contract != 0, x16, out, rows, Lp, Ld, H, is_bf16, w, nullptr, image, false, nullptr,
+                            nullptr, s))
     return e;
   const long long B = rows / N;
   const int rays_per_block = THREADS / 32;

@@ -8,7 +8,10 @@
 // output (`out_weights`, which the hierarchical scheme's importance
 // sampler and mip's fine level read), the optional distortion rail
 // (`dist`, point form and interval form) and, under mip, the optional
-// opaque tail (`opaque_tail`, mip-NeRF 360's opaque background).
+// opaque tail (`opaque_tail`, mip-NeRF 360's opaque background); with
+// `contract`, a contracted model's forward (the encoder's scene
+// contraction, point and mip: csrc/fused_contract.cu), whose residual
+// planes hold the contracted posx, so the backward is unchanged.
 //
 // Contract (no appearance model: its rows 8..10 carry the gt colour, so
 // there is no slot for codes, and its Layout is the one without them;
@@ -257,7 +260,7 @@ long long fused_train_step_smem_bytes(int Lp, int Ld, int H, int is_bf16) {
 int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, int H,
                      int is_bf16, Weights w, WeightsT wt, void *workspace, float *loss,
                      Grads out, float *w_out, int dist_on, float dist_scale, float tn, float tf,
-                     int disparity, int mip, int opaque_tail, void *stream) {
+                     int disparity, int mip, int opaque_tail, int contract, void *stream) {
   if (!arch_ok(Lp, Ld, H) || N <= 0 || rows <= 0 || rows % N) return (int)cudaErrorInvalidValue;
   if (dist_on && !(tf > tn && (!disparity || tn > 0.f))) return (int)cudaErrorInvalidValue;
   if (opaque_tail && !mip) return (int)cudaErrorInvalidValue;
@@ -270,7 +273,8 @@ int fused_train_step(const float *x16, long long rows, int N, int Lp, int Ld, in
   }
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16);
   const StepScratch sc = step_scratch(workspace, ws, rows);
-  if (int e = forward(x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, nullptr, nullptr, s))
+  if (int e = forward_point(contract != 0, x16, sc.out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0,
+                            nullptr, nullptr, s))
     return e;
   const int rays_per_block = THREADS / 32;
   composite_grad<<<(B + rays_per_block - 1) / rays_per_block, THREADS, 0, s>>>(

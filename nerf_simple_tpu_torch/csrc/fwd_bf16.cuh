@@ -9,7 +9,8 @@
 // windows, :491-494, in f32 before the rounding), the nine chained products
 // and the rgb/sigma heads of a tile of sample rows; with APP, the
 // appearance rail (:541-545, :589-594: hc_pre += Wca app8) as eight more
-// posd rows that Wcd's last eight columns (Wca) multiply.
+// posd rows that Wcd's last eight columns (Wca) multiply; with CONTRACT,
+// the scene contraction of a contracted model (:437-456).
 //
 // What bounds it: the tensor cores (~0.54 M multiply-adds a sample row:
 // 2.28 ms at 2,097,152 rows at 989 TFLOP/s); with residuals, the
@@ -340,8 +341,12 @@ __device__ __forceinline__ void put(char *tile, int r, int k, float v) {
 // at frequency 2^i are damped by exp(-0.5 * 4^i * var_c) before they are
 // rounded to bf16. With `wx`, `wd` (the anneal windows of posx and posd,
 // one float an encoded row), each row is multiplied by its window in f32,
-// before the rounding; with null windows nothing is multiplied. Rows past
+// before the rounding; with null windows nothing is multiplied. With
+// CONTRACT (a compile-time switch), both threads first contract the row's
+// coordinates, and under mip its variances, in f32 (contract_point): the
+// raw rows and the angles of posx are then the contracted ones. Rows past
 // `rows` encode to zero.
+template <bool CONTRACT = false>
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int Lp,
                        int Ld, char *posx, char *posd, int tid, const float *__restrict__ var,
                        const float *__restrict__ wx, const float *__restrict__ wd) {
@@ -354,6 +359,7 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   if (var && in)
 #pragma unroll
     for (int c = 0; c < 3; ++c) va[c] = var[(long long)c * rows + row];
+  if constexpr (CONTRACT) contract_point(v, va, var != nullptr);
   const float *rw = half ? wd : wx;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -451,8 +457,9 @@ __device__ void store_planes(const char *tile, int F, bf16 *plane, long long Rp,
 // where H is taken at run time. APP: an appearance model's (16 input
 // rows, the codes in rows 8..15, which posd's last eight rows hold; a
 // compile-time switch, so the kernels without codes are the same code as
-// before they existed).
-template <int HF, bool APP>
+// before they existed). CONTRACT: a contracted model's (the encoder's
+// scene contraction; a compile-time switch for the same reason).
+template <int HF, bool APP, bool CONTRACT = false>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld,
                int H_, Weights w, const char *__restrict__ image, bf16 *res, const float *__restrict__ var,
@@ -531,7 +538,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (keep) store_planes(act, O, plane(f), Rp, row0, tid);
     };
     bar_wg(wq);  // the last tile's reads of posx, posd and the heads are done
-    encode(x, rows, row0, Lp, Ld, posx, posd, tid, var, wx, wd);
+    encode<CONTRACT>(x, rows, row0, Lp, Ld, posx, posd, tid, var, wx, wd);
     if constexpr (APP) encode_codes(x + 8 * rows, rows, row0, Ld, posd, tid);
     to_async();
     bar_wg(wq);
@@ -622,8 +629,9 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 // The weight image, then the persistent grid: one block an SM, at most one
 // a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
 // the mip path's variance rows; `wx`, `wd`: null, or the anneal windows;
-// APP: an appearance model's (x has 16 rows, the codes in rows 8..15).
-template <bool APP>
+// APP: an appearance model's (x has 16 rows, the codes in rows 8..15);
+// CONTRACT: a contracted model's.
+template <bool APP, bool CONTRACT = false>
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w,
            bf16 *res, void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H, APP);
@@ -631,7 +639,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kernel = H == 256 ? fwd_kernel<256, APP> : fwd_kernel<0, APP>;
+  auto kernel = H == 256 ? fwd_kernel<256, APP, CONTRACT> : fwd_kernel<0, APP, CONTRACT>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes());
   if (e != cudaSuccess) return (int)e;

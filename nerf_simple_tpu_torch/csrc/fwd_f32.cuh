@@ -8,7 +8,8 @@
 // _encode (:410), in f32: the encoding (the point one, or with `var` the
 // integrated one of the mip path, :473-477; with `wx`/`wd` BARF's anneal
 // windows, :491-493; with APP the appearance rail, :541-545, :589-594,
-// as eight more posd rows under Wcd's last eight columns, Wca), the nine
+// as eight more posd rows under Wcd's last eight columns, Wca; with
+// CONTRACT the scene contraction of a contracted model, :437-456), the nine
 // chained products and the rgb/sigma heads of a tile of sample rows. Numerics are the TPU kernel's
 // at f32: full f32 FMA products (no TF32), the f32 bias added after the
 // sum, relu, the encoding with the accurate sincosf. Only the order of
@@ -319,18 +320,43 @@ __device__ __forceinline__ void epilogue(float (&acc)[4 * NI][8], const float *b
 // variances), the sin and cos of coordinate c at frequency 2^i are damped
 // by exp(-0.5 * 4^i * var_c). With `ew` (the branch's anneal windows, one
 // float an encoded row), each row is multiplied by its window after that.
+// With CONTRACT (a compile-time switch; posx's branch, col0 = 0), each of
+// the row's four threads first contracts the row's coordinates, and under
+// mip its variances (contract_point), and encodes those: the raw rows too,
+// so the residual plane holds the contracted posx that the backward reads.
 // Rows past `rows` encode to zero.
+template <bool CONTRACT = false>
 __device__ void encode(const float *__restrict__ x, long long rows, long long row0, int L, int col0, float *pos,
                        float *plane, long long Rp, int t, const float *__restrict__ var,
                        const float *__restrict__ ew) {
   const int r = t & (ROWS - 1), q = t >> 7, sb = ceil8(3 * L);
   const long long row = row0 + r;
   const bool in = row < rows, keep = plane != nullptr && row < Rp;
+  float cx[3] = {0.f, 0.f, 0.f}, cv[3] = {0.f, 0.f, 0.f};  // CONTRACT: the contracted row
+  if constexpr (CONTRACT) {
+    if (in)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cx[c] = x[(long long)(col0 + c) * rows + row];
+        if (var) cv[c] = var[(long long)c * rows + row];
+      }
+    contract_point(cx, cv, var != nullptr);
+  }
+  auto pick = [](const float (&a)[3], int c) { return c == 0 ? a[0] : c == 1 ? a[1] : a[2]; };
   for (int p = q; p < 3 * L; p += 4) {  // sin(2^i x_c) in row 8 + L c + i = 8 + p, its cos sb rows on
     float s = 0.f, co = 0.f;
-    if (in) sincosf(ldexpf(x[(long long)(col0 + p / L) * rows + row], p % L), &s, &co);
+    if constexpr (CONTRACT) {
+      if (in) sincosf(ldexpf(pick(cx, p / L), p % L), &s, &co);
+    } else {
+      if (in) sincosf(ldexpf(x[(long long)(col0 + p / L) * rows + row], p % L), &s, &co);
+    }
     if (var && in) {
-      const float d = expf(-0.5f * ldexpf(var[(long long)(p / L) * rows + row], 2 * (p % L)));
+      float vc;
+      if constexpr (CONTRACT)
+        vc = pick(cv, p / L);
+      else
+        vc = var[(long long)(p / L) * rows + row];
+      const float d = expf(-0.5f * ldexpf(vc, 2 * (p % L)));
       s *= d;
       co *= d;
     }
@@ -347,7 +373,11 @@ __device__ void encode(const float *__restrict__ x, long long rows, long long ro
   }
   for (int k = q; k < 8 + 2 * sb; k += 4) {
     if (k >= 8 && (k - 8) % sb < 3 * L) continue;  // a sin or cos row
-    float v = k < 3 && in ? x[(long long)(col0 + k) * rows + row] : 0.f;
+    float v;
+    if constexpr (CONTRACT)
+      v = k < 3 ? pick(cx, k) : 0.f;
+    else
+      v = k < 3 && in ? x[(long long)(col0 + k) * rows + row] : 0.f;
     if (ew) v *= __ldg(ew + k);
     pos[k * ROWS + r] = v;
     if (keep) plane[k * Rp + row] = v;
@@ -375,8 +405,9 @@ __device__ void encode_codes(const float *__restrict__ code, long long rows, lon
 // anneal windows of posx and posd (encode); APP: an appearance model's (16
 // input rows, the codes in rows 8..15, which posd's last eight rows hold;
 // a compile-time switch, so the kernels without codes are the same code as
-// before they existed).
-template <int NI, bool APP>
+// before they existed); CONTRACT: a contracted model's (posx's encoder
+// contracts the coordinates; a compile-time switch for the same reason).
+template <int NI, bool APP, bool CONTRACT = false>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const float *__restrict__ x, float *__restrict__ out, long long rows, int Lp, int Ld, int H,
                Weights w, const char *__restrict__ image, float *res, const float *__restrict__ var,
@@ -418,7 +449,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
     };
     __syncthreads();  // the last tile's reads of posx, posd and the slots are done
-    encode(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t, var, wx);
+    encode<CONTRACT>(x, rows, row0, Lp, 0, posx, plane(L.posx()), Rp, t, var, wx);
     __syncthreads();
     product<NI, NI>(acc, rg, posx, FX, fo4, ro4, lane);  // W1
     dense(w.b1, L.h(0), nullptr, 0, 0);
@@ -505,8 +536,9 @@ int build_image(const Weights &w, const Plan &P, void *image, cudaStream_t strea
 // a tile. `image` holds P.image_bytes(), 16-byte aligned. `var`: null, or
 // the variance rows of the mip path's input; `wx`, `wd`: null, or the
 // anneal windows (FX and enc_rows(Ld) floats on the card); APP: an
-// appearance model's (x has 16 rows, the codes in rows 8..15).
-template <bool APP>
+// appearance model's (x has 16 rows, the codes in rows 8..15); CONTRACT:
+// a contracted model's.
+template <bool APP, bool CONTRACT = false>
 int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, const Weights &w, float *res,
            void *image, const float *var, const float *wx, const float *wd, cudaStream_t stream) {
   const Plan P = plan_of(Lp, Ld, H, APP);
@@ -514,7 +546,7 @@ int launch(const float *x, float *out, long long rows, int Lp, int Ld, int H, co
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kernel = P.NI() == 2 ? fwd_kernel<2, APP> : fwd_kernel<1, APP>;
+  auto kernel = P.NI() == 2 ? fwd_kernel<2, APP, CONTRACT> : fwd_kernel<1, APP, CONTRACT>;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem_bytes());
   if (e != cudaSuccess) return (int)e;

@@ -68,6 +68,36 @@ __device__ __forceinline__ float bias(const void *b, int o) {
   return static_cast<const float *>(b)[o];
 }
 
+// Scene contraction of one sample (mip-NeRF 360, eqn. 10), in place on
+// its coordinates y[0..2]: n = |y| (its square summed without FMAs, as the
+// plain version sums it, floored at 1e-20), y unchanged for n <= 1, else
+// y * g with g = (2 - 1/n) / n, so that all of space lands in the radius-2
+// ball. With `mip`, the three variances v[0..2] first go through the
+// contraction's Jacobian at the uncontracted mean (the linearised Gaussian
+// warp, eqn. 8-9): v_c = g^2 v_c + 2 g c m_c v_c + c^2 m_c sum_j m_j v_j,
+// m = y^2, c = g'(n) / n = (-2/n^2 + 2/n^3) / n. Inside the ball nothing is
+// touched (g = 1, c = 0): a contracted launch equals one without there, to
+// the bit.
+__device__ __forceinline__ void contract_point(float *y, float *v, bool mip) {
+  const float n = sqrtf(fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(y[0], y[0]), __fmul_rn(y[1], y[1])),
+                                        __fmul_rn(y[2], y[2])), 1e-20f));
+  if (n <= 1.f) return;
+  const float g = (2.f - 1.f / n) / n;
+  if (mip) {
+    const float c = (-2.f / (n * n) + 2.f / (n * n * n)) / n;
+    float m2[3], m2v = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      m2[k] = y[k] * y[k];
+      m2v += m2[k] * v[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = g * g * v[k] + 2.f * g * c * m2[k] * v[k] + c * c * m2[k] * m2v;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) y[k] *= g;
+}
+
 // ----------------------------------------------------------------------
 // Workspace of the backward: the forward's residuals and the backward's
 // cotangents, each a (features, Rp) plane in the compute type, Rp = rows
@@ -134,6 +164,9 @@ void wgrad_tasks(const Layout &L, const Grads &out, const void *res, const void 
 // Launches of the backward tile kernels by this library (each source that
 // includes this header is its own library), counted where they launch.
 long long bwd_tile_launches = 0;
+// Launches of the forward tile kernels' contracted instantiations
+// (csrc/fused_contract.cu), counted where they launch.
+long long fwd_contract_launches = 0;
 
 // Bytes of the scratch `image` that bwd_tile() needs: the backward weight
 // image of the compute type.
@@ -185,15 +218,47 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 // a window, into posd's last eight rows, where Wcd's last eight columns
 // (Wca) read them. APP is a compile-time switch: the train-step and render
 // entries, which take no codes, build the forward kernels without it only.
-template <bool APP = false>
+// CONTRACT (a contracted model's; not with APP): the encoder contracts
+// rows 0..2, and under mip warps the variances, before it encodes them
+// (contract_point). Only csrc/fused_contract.cu instantiates it
+// (forward_point), which counts its launches in fwd_contract_launches.
+template <bool APP = false, bool CONTRACT = false>
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
             const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
             cudaStream_t stream) {
+  static_assert(!(APP && CONTRACT), "no appearance model is contracted");
   const float *var = mip ? x + 11 * rows : nullptr;
-  if (is_bf16)
-    return fb::launch<APP>(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, wx, wd, stream);
-  return ff::launch<APP>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, wx, wd, stream);
+  const int e =
+      is_bf16
+          ? fb::launch<APP, CONTRACT>(x, out, rows, Lp, Ld, H, w, static_cast<bf16 *>(res), image, var, wx, wd, stream)
+          : ff::launch<APP, CONTRACT>(x, out, rows, Lp, Ld, H, w, static_cast<float *>(res), image, var, wx, wd,
+                                      stream);
+  if (CONTRACT && e == 0) ++fwd_contract_launches;
+  return e;
 }
+
+// The contracted forward: fused_contract_fwd of csrc/fused_contract.cu, a
+// library of its own, which set_contract_forward hands to this one. The
+// contracted tile kernels are built there once, not into every library
+// that runs a forward: nvcc's code for a kernel depends on the other
+// kernels of its translation unit, and beside contracted instantiations
+// the bf16 forward without contract built to other SASS (192 more
+// instructions at H = 256 in the train-step and render libraries).
+#ifndef CONTRACT_LIBRARY  // csrc/fused_contract.cu itself builds no forward without contract
+typedef int (*ContractForward)(const float *, float *, long long, int, int, int, int, Weights, void *, void *,
+                               int, void *);
+ContractForward contract_forward = nullptr;
+
+// forward() of a model without codes, contracted (through contract_forward;
+// no windows) or not.
+int forward_point(bool contract, const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
+                  const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
+                  cudaStream_t stream) {
+  if (!contract) return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, wx, wd, stream);
+  if (!contract_forward || wx) return (int)cudaErrorInvalidValue;
+  return contract_forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, stream);
+}
+#endif
 
 long long fwd_smem(int Lp, int Ld, int H, int is_bf16, bool app = false) {
   return is_bf16 ? fb::plan_of(Lp, Ld, H, app).smem_bytes() : ff::plan_of(Lp, Ld, H, app).smem_bytes();
@@ -244,5 +309,11 @@ long long bwd_tile_launch_count(int reset) {
   if (reset) bwd_tile_launches = 0;
   return n;
 }
+
+// Where forward_point finds the contracted forward (csrc/fused_contract.cu's
+// fused_contract_fwd).
+#ifndef CONTRACT_LIBRARY
+void set_contract_forward(void *f) { contract_forward = reinterpret_cast<ContractForward>(f); }
+#endif
 
 }  // extern "C"

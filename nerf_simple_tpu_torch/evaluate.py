@@ -33,6 +33,7 @@ not ported: each raises NotImplementedError.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
 import warnings
@@ -89,21 +90,23 @@ def load_params(loadpath: str, return_aux: bool = False, keep_hierarchy: bool = 
 
 def _model_for(cfg: TestConfig, params):
     """The model of the ``model.json`` sidecar, else inferred from the
-    weight shapes, with the JAX package's warning."""
+    weight shapes, with the JAX package's warning (given, as there, only
+    when the inferred model is not contracted: the shapes never say so)."""
     from nerf_simple_tpu_torch.models import infer_model
     from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
 
     model = load_model_meta(cfg.loadpath)
     if model is None:
         model = infer_model(params)
-        warnings.warn(
-            "no model.json sidecar next to the checkpoint; the "
-            "architecture was inferred from weight shapes, which "
-            "cannot recover shape-invariant fields (contract=False "
-            "assumed — a contracted checkpoint would render wrong). "
-            "Keep the sidecar with the weights.",
-            stacklevel=3,
-        )
+        if not model.contract:
+            warnings.warn(
+                "no model.json sidecar next to the checkpoint; the "
+                "architecture was inferred from weight shapes, which "
+                "cannot recover shape-invariant fields (contract=False "
+                "assumed — a contracted checkpoint would render wrong). "
+                "Keep the sidecar with the weights.",
+                stacklevel=3,
+            )
     return model
 
 
@@ -193,8 +196,9 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     model = _model_for(cfg, params)
     code = appearance_code(cfg, aux, model)
     app = None if code is None else torch.as_tensor(code, device=device)
-    if cfg.Np > 0:  # the proposal arch from its weight shapes, which determine it
-        field = ProposalPair.from_jax_params(params, device, model, infer_proposal_arch(params["prop"]))
+    if cfg.Np > 0:  # the proposal arch from its weight shapes; contract, which they cannot tell, from the model's
+        prop_model = dataclasses.replace(infer_proposal_arch(params["prop"]), contract=model.contract)
+        field = ProposalPair.from_jax_params(params, device, model, prop_model)
     else:
         field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
     data = load_blender(cfg.datapath, cfg.half_res)

@@ -2,7 +2,7 @@
 PyTorch versions.
 
 Port of nerf_simple_tpu/kernels/mlp.py, point and mip (cone-cast)
-variants:
+variants, each with or without the scene contraction:
 
 - ``fused_mlp_forward`` (csrc/fused_mlp_fwd.cu): the MLP forward;
 - ``fused_mlp_backward`` (csrc/fused_mlp_bwd.cu): the weight gradients
@@ -31,6 +31,10 @@ variants:
   csrc/fused_mlp_fwd.cu): the forward tile kernel as B1 and B2 run it,
   its output and every residual plane.
 
+A contracted model's forward tile kernels are built into a library of
+their own (csrc/fused_contract.cu), which each of the others calls for
+it (``_link_contract``).
+
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are headers of ``csrc/mlp_tile.cuh``.
 
@@ -54,7 +58,14 @@ posd + Wca app8``. The port packs ``Wca`` as eight more columns of ``Wcd``
 and the encoder copies the code rows after posd's encoded rows, so the
 kernels run that sum as one product, ``[Wcd | Wca] [posd ; app8]``, and
 the backward's ``Wcd`` sum and input gradient give ``dWca`` and the codes'
-gradients with no new pass (``_posd_rows``).
+gradients with no new pass (``_posd_rows``). A contracted model
+(``model.contract``, mip-NeRF 360's unbounded scenes) has the encoder of
+posx contract rows 0..2 first, ``x g(n)`` with ``g = (2 - 1/n) / n``
+outside the unit ball and 1 inside, and under mip warp the variance rows
+through the contraction's Jacobian; the residual planes hold the
+contracted posx, so the backward's weight gradients need no change. No
+gradient reaches the input of a contracted model yet (ROADMAP Queue B
+item 3): ``fused_mlp`` and ``want_dx`` raise there.
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -80,6 +91,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nerf_simple_tpu_torch.config import CONTRACT_INPUT_GRAD
 from nerf_simple_tpu_torch.kernels import _build
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, require_ported
 from nerf_simple_tpu_torch.ops.volume import s_norm
@@ -410,7 +422,11 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
     frequency 2^i times ``exp(-0.5 * 4^i * var_c)``. With the anneal
     windows ``enc_w = (wx, wd)`` each encoded row times its weight. For an
     appearance model posd ends with the input's code rows 8..15 as they
-    are (``_posd_rows``)."""
+    are (``_posd_rows``). A contracted model's posx encodes the contracted
+    rows 0..2 (``_contract``)."""
+    if model.contract:
+        xyz, var = _contract(xT[0:3], var)
+        xT = torch.cat([xyz, xT[3:]])
 
     def branch(x3, L, v3=None):
         sb = _sin_block(L)
@@ -432,6 +448,25 @@ def _encode(xT: torch.Tensor, model: NerfMLP, var: torch.Tensor | None = None,
     if model.app_dim > 0:
         posd = torch.cat([posd, xT[8:16]])
     return posx, posd
+
+
+def _contract(xyz: torch.Tensor, var: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The JAX kernel's contraction (``_encode``, kernels/mlp.py:437-456)
+    of rows ``xyz (3, rows)``: ``n = sqrt(max(x0^2 + x1^2 + x2^2, 1e-20))``
+    (summed in this order, as the CUDA encoder sums it), ``g = 1`` inside
+    the unit ball and ``(2 - 1/n) / n`` outside; with ``var (3, rows)`` the
+    linearised Gaussian warp of the variances at the uncontracted means:
+    ``g^2 v + 2 g c m2 v + c^2 m2 (m2 . v)``, ``c = (-2/n^2 + 2/n^3) / n``
+    outside (0 inside), ``m2 = xyz^2``. Inside the ball both are unchanged."""
+    n = torch.sqrt(torch.clamp(xyz[0:1] ** 2 + xyz[1:2] ** 2 + xyz[2:3] ** 2, min=1e-20))
+    inside = n <= 1.0
+    g = torch.where(inside, 1.0, (2.0 - 1.0 / n) / n)
+    if var is not None:
+        c = torch.where(inside, 0.0, (-2.0 / n**2 + 2.0 / n**3) / n)
+        m2 = xyz**2
+        m2v = m2[0:1] * var[0:1] + m2[1:2] * var[1:2] + m2[2:3] * var[2:3]
+        var = g**2 * var + 2.0 * g * c * m2 * var + c**2 * m2 * m2v
+    return xyz * g, var
 
 
 def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tensor,
@@ -470,6 +505,8 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
         dang = gs * c - gc * s
         return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1), dv
 
+    if model.contract:
+        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
     FD0 = _enc_rows(model.Ld)
     dt = g_posx.dtype
     dx = torch.zeros((_x_rows(mip, model), xT.shape[1]), dtype=dt, device=xT.device)
@@ -951,15 +988,17 @@ class _CWeightsT(ctypes.Structure):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P, _P, _I, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _I, _P, _P, _I, _I, _P], _I),
         "fused_mlp_fwd_smem_bytes": ([_I] * 5, _LL),
         "fused_mlp_fwd_image_bytes": ([_I] * 5, _LL),
         "fwd_weight_image": ([_CPtrs, _I, _I, _I, _I, _P, _I, _P], _I),
-        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _I, _P], _I),
+        "fused_mlp_fwd_residuals": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _I, _I, _P], _I),
+        "set_contract_forward": ([_P], None),
     },
     "fused_mlp_bwd": {
-        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _I, _P],
-                          _I),
+        "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _I, _I,
+                           _P], _I),
+        "set_contract_forward": ([_P], None),
         "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _P], _I),
         "input_grad_launch_count": ([_I], _LL),
         "input_grad_mip_launch_count": ([_I], _LL),
@@ -976,17 +1015,23 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "bwd_weight_image": ([_CPtrs, _I, _I, _P, _P], _I),
     },
     "fused_render": {
-        "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P, _P], _I),
+        "fused_render": ([_P, _P, _LL, _I, _I, _I, _I, _I, _CPtrs, _P, _I, _P], _I),
+        "set_contract_forward": ([_P], None),
         "fused_render_smem_bytes": ([_I] * 4, _LL),
         "fused_render_image_bytes": ([_I] * 4, _LL),
     },
     "fused_train_step": {
         "fused_train_step": ([_P, _LL, _I, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _P, _CPtrs, _P,
-                              _I, _F, _F, _F, _I, _I, _I, _P], _I),
+                              _I, _F, _F, _F, _I, _I, _I, _I, _P], _I),
+        "set_contract_forward": ([_P], None),
         "fused_train_step_smem_bytes": ([_I] * 4, _LL),
         "fused_train_step_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_launch_count": ([_I], _LL),
         "bwd_tile_launch_count": ([_I], _LL),
+    },
+    "fused_contract": {
+        "fused_contract_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P], _I),
+        "fwd_contract_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -1003,6 +1048,13 @@ def _bind(lib: ctypes.CDLL, name: str, entries=None) -> ctypes.CDLL:
 
 def _lib(name: str) -> ctypes.CDLL:
     return _bind(_build.load(name), name)
+
+
+def _link_contract(lib: ctypes.CDLL) -> None:
+    """Hand a library the contracted forward (csrc/fused_contract.cu, a
+    library of its own: mlp_tile.cuh's forward_point), building it first
+    if it is not built."""
+    lib.set_contract_forward(ctypes.cast(_lib("fused_contract").fused_contract_fwd, ctypes.c_void_p).value)
 
 
 def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
@@ -1039,6 +1091,8 @@ def _check_launch(name: str, wts: FusedWeights, x: torch.Tensor, x_name: str, x_
                 f"{tuple(t.shape)} {t.dtype} on {t.device}"
             )
     lib = _lib(name)
+    if model.contract:
+        _link_contract(lib)
     bf16 = int(compute_dtype == torch.bfloat16)
     app = (int(model.app_dim > 0),) if name in ("fused_mlp_fwd", "fused_mlp_bwd") else ()
     smem = getattr(lib, f"{name}_smem_bytes")(model.Lp, model.Ld, model.H, bf16, *app)
@@ -1080,7 +1134,7 @@ def _image_scratch(nbytes, model: NerfMLP, bf16: int, device, *app) -> torch.Ten
 def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP, mip: bool = False) -> FusedWeights:
     if not supported(model):
         raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16, app_dim <= 8; got {model}")
-    require_ported(model)  # no contraction
+    require_ported(model)  # no contracted appearance model
     if mip and model.app_dim > 0:
         raise ValueError("appearance codes and the integrated encoder both need the input's rows 8..15 "
                          "(the JAX fused_mlp_forward's rule); mip with appearance_dim is refused")
@@ -1138,7 +1192,9 @@ def fused_mlp_forward(
     zeros after); ``fused_mlp_forward.app_launches`` counts those
     launches. ``enc_w = (wx, wd)`` (``anneal_row_weights``, on the input's
     device) multiplies each encoded row by its anneal window;
-    ``fused_mlp_forward.anneal_launches`` counts those launches."""
+    ``fused_mlp_forward.anneal_launches`` counts those launches. A
+    contracted model's launches (``contract_launches``) run the encoder's
+    contraction (point and mip)."""
     wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
     if _dispatch(xT):
@@ -1148,9 +1204,10 @@ def fused_mlp_forward(
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device, _app(model))
     _raise_on(lib.fused_mlp_fwd(
         xT.data_ptr(), out.data_ptr(), xT.shape[1], model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), wx, wd, _app(model), _stream(xT),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(mip), wx, wd, _app(model), int(model.contract), _stream(xT),
     ), "fused_mlp_fwd")
     fused_mlp_forward.launches += 1
+    fused_mlp_forward.contract_launches += model.contract
     fused_mlp_forward.mip_launches += mip
     fused_mlp_forward.anneal_launches += enc_w is not None
     fused_mlp_forward.app_launches += _app(model)
@@ -1161,6 +1218,7 @@ fused_mlp_forward.launches = 0
 fused_mlp_forward.mip_launches = 0  # of them, with the integrated encoder
 fused_mlp_forward.anneal_launches = 0  # of them, with the anneal windows
 fused_mlp_forward.app_launches = 0  # of them, an appearance model's (the code rows)
+fused_mlp_forward.contract_launches = 0  # of them, a contracted model's
 
 
 def forward_residuals_plain(
@@ -1209,7 +1267,8 @@ def forward_residuals(
     image = _image_scratch(lib.fused_mlp_fwd_image_bytes, model, bf16, xT.device, _app(model))
     _raise_on(lib.fused_mlp_fwd_residuals(
         xT.data_ptr(), out.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), wx, wd, _app(model), _stream(xT),
+        _CPtrs(*_ptrs(wts)), res.data_ptr(), image.data_ptr(), int(mip), wx, wd, _app(model), int(model.contract),
+        _stream(xT),
     ), "fused_mlp_fwd_residuals")
     forward_residuals.launches += 1
     return out, res
@@ -1269,9 +1328,13 @@ def fused_mlp_backward(
     its mip instantiation under ``mip``) computes after the weight
     gradients from the backward's cotangent planes
     (``fused_mlp_backward.dx_launches``, of them ``mip_dx_launches``); the
-    windows get no gradient."""
+    windows get no gradient. A contracted model recomputes the contracted
+    forward (``contract_launches``); it takes no ``want_dx`` (ROADMAP Queue
+    B item 3)."""
     wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
+    if want_dx and model.contract:
+        raise NotImplementedError(f"want_dx of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
     if _dispatch(xT):
         with torch.no_grad():
             return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
@@ -1291,7 +1354,7 @@ def fused_mlp_backward(
     _raise_on(lib.fused_mlp_bwd(
         xT.data_ptr(), gT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), _CPtrs(*_ptrs(grads)),
-        int(mip), wx, wd, None if dx is None else dx.data_ptr(), _app(model), _stream(xT),
+        int(mip), wx, wd, None if dx is None else dx.data_ptr(), _app(model), int(model.contract), _stream(xT),
     ), "fused_mlp_bwd")
     fused_mlp_backward.launches += 1
     fused_mlp_backward.mip_launches += mip
@@ -1299,6 +1362,7 @@ def fused_mlp_backward(
     fused_mlp_backward.mip_dx_launches += mip and want_dx
     fused_mlp_backward.anneal_launches += enc_w is not None
     fused_mlp_backward.app_launches += _app(model)
+    fused_mlp_backward.contract_launches += model.contract
     return (grads, dx) if want_dx else grads
 
 
@@ -1308,6 +1372,7 @@ fused_mlp_backward.dx_launches = 0  # of them, with the input gradient (want_dx)
 fused_mlp_backward.mip_dx_launches = 0  # of those, under mip (the integrated encoder's transpose)
 fused_mlp_backward.anneal_launches = 0  # of them, recomputing with the anneal windows
 fused_mlp_backward.app_launches = 0  # of them, an appearance model's (the code rows, dWca)
+fused_mlp_backward.contract_launches = 0  # of them, recomputing a contracted model's forward
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -1342,7 +1407,11 @@ def fused_mlp(
     ``want_dx``, the input-gradient kernel: pose refinement trains through
     ray generation, under mip through the frustum Gaussians' means,
     directions and variances; appearance codes through rows 8..15). The
-    windows are a schedule and get no gradient."""
+    windows are a schedule and get no gradient. A contracted model takes no
+    input that needs a gradient (ROADMAP Queue B item 3): that raises here,
+    before any launch."""
+    if model.contract and xT.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
     return _FusedMLP.apply(xT, compute_dtype, model, mip, enc_w, *wts)
 
 
@@ -1386,7 +1455,10 @@ def fused_train_step(
 
     No appearance model (JAX's rule, kernels/mlp.py:1559-1562): rows
     8..10 carry the gt colour, so there is no slot for codes; appearance
-    trains on the forward kernel and B2 (``fused_mlp``)."""
+    trains on the forward kernel and B2 (``fused_mlp``). A contracted
+    model's launches (``contract_launches``) contract rows 0..2 (and under
+    mip warp the variances) in the forward's encoder; compositing and the
+    rail read the ts and are unchanged."""
     if model.app_dim > 0:
         raise ValueError(
             "the single fused train kernel has no appearance slot (its x16 rows 8..10 carry gt colors); "
@@ -1416,7 +1488,8 @@ def fused_train_step(
         x16.data_ptr(), rows, N, model.Lp, model.Ld, model.H, bf16,
         _CPtrs(*_ptrs(wts)), _weights_t(wts), ws.data_ptr(), loss.data_ptr(),
         _CPtrs(*_ptrs(grads)), None if w is None else w.data_ptr(),
-        int(rail is not None), d_scale, tn, tf, int(disparity), int(mip), int(opaque_tail), _stream(x16),
+        int(rail is not None), d_scale, tn, tf, int(disparity), int(mip), int(opaque_tail), int(model.contract),
+        _stream(x16),
     ), "fused_train_step")
     fused_train_step.launches += 1
     fused_train_step.weights_launches += out_weights
@@ -1424,6 +1497,7 @@ def fused_train_step(
     fused_train_step.weights_dist_launches += out_weights and rail is not None
     fused_train_step.mip_launches += mip
     fused_train_step.opaque_launches += opaque_tail
+    fused_train_step.contract_launches += model.contract
     return (loss, grads, w) if out_weights else (loss, grads)
 
 
@@ -1433,6 +1507,7 @@ fused_train_step.dist_launches = 0  # of them, with the distortion rail
 fused_train_step.weights_dist_launches = 0  # of them, with both at once
 fused_train_step.mip_launches = 0  # of them, cone-cast: the integrated encoder and interval compositing
 fused_train_step.opaque_launches = 0  # of them, with the opaque last interval
+fused_train_step.contract_launches = 0  # of them, a contracted model's
 
 
 def fused_render(
@@ -1448,7 +1523,8 @@ def fused_render(
     (ascending along each ray; ray b owns columns b*N .. b*N + N - 1), rows
     7..15 not read. Returns ``(8, B*N)`` f32: at each ray's head column
     b*N, rows 0..2 the raw rgb, row 3 the depth sum(w t), row 4 the acc
-    sum(w); zeros elsewhere. Compositing is f32 at either compute type."""
+    sum(w); zeros elsewhere. Compositing is f32 at either compute type. A
+    contracted model's forward contracts rows 0..2 (``contract_launches``)."""
     if model.app_dim > 0:
         raise ValueError(
             "the fused eval render kernel has no appearance slot; appearance "
@@ -1464,13 +1540,15 @@ def fused_render(
     image = _image_scratch(lib.fused_render_image_bytes, model, bf16, x16.device)
     _raise_on(lib.fused_render(
         x16.data_ptr(), out.data_ptr(), x16.shape[1], N, model.Lp, model.Ld, model.H, bf16,
-        _CPtrs(*_ptrs(wts)), image.data_ptr(), _stream(x16),
+        _CPtrs(*_ptrs(wts)), image.data_ptr(), int(model.contract), _stream(x16),
     ), "fused_render")
     fused_render.launches += 1
+    fused_render.contract_launches += model.contract
     return out
 
 
 fused_render.launches = 0
+fused_render.contract_launches = 0  # of them, a contracted model's
 
 
 WGRAD_ROW_MULTIPLE = 64  # rows of a plane come in whole 64-row tiles, as in the workspace
@@ -1607,6 +1685,16 @@ def input_grad_mip_launches(reset: bool = False) -> int:
     return _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
 
 
+def contract_launches(reset: bool = False) -> int:
+    """Launches of the forward tile kernels' contracted instantiations so
+    far (csrc/fused_contract.cu: for the forward, B2's recompute, B1 and
+    B3), counted in C where they launch. With ``reset``, the count restarts
+    from 0; 0 when the library is not loaded (it is not built)."""
+    if "fused_contract" not in _build._loaded:
+        return 0
+    return _lib("fused_contract").fwd_contract_launch_count(int(reset))
+
+
 def input_grad(
     wts: FusedWeights,
     xT: torch.Tensor,
@@ -1626,8 +1714,11 @@ def input_grad(
     (``input_grad.app_launches``); with ``mip`` (no windows, no codes)
     ``xT`` and ``dx`` have 16 rows, the integrated encoder's transpose
     (``input_grad.mip_launches``). ``input_grad.launches`` counts the
-    kernel's launches by this wrapper."""
+    kernel's launches by this wrapper. A contracted model raises (ROADMAP
+    Queue B item 3)."""
     wts = _prepare(wts, compute_dtype, model, mip)
+    if model.contract:
+        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
     L = Layout.of(model)
     rows = xT.shape[1] if xT.dim() == 2 else 0
     Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE

@@ -28,6 +28,7 @@ __all__ = [
     "zeros_app_for",
     "infer_model",
     "model_from_meta",
+    "model_from_train_config",
 ]
 
 _UNPORTED_FAMILIES = ("hashgrid", "cpgrid")
@@ -57,6 +58,15 @@ def zeros_app_for(model: NerfMLP, n: int, device=None) -> torch.Tensor | None:
     if model.app_dim > 0:
         return torch.zeros((n, model.app_dim), dtype=torch.float32, device=device)
     return None
+
+
+def model_from_train_config(cfg) -> NerfMLP:
+    """The main field's model of a TrainConfig (JAX models/__init__.py:
+    139-142): ``contract`` is wired from ``cfg.contract``, as it is into the
+    proposal net (``proposal_from_train_config``)."""
+    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, contract=cfg.contract, app_dim=cfg.appearance_dim)
+    require_ported(model)
+    return model
 
 
 def model_from_meta(meta: dict) -> NerfMLP:

@@ -8,6 +8,10 @@ activation; a colour head ``[feat | posd] -> H//2 -> 3`` with no sigmoid;
 output ``[rgb | sigma]``. With ``app_dim > 0`` (NeRF-W-style per-image
 appearance codes) the colour head also reads a code of that width,
 appended to the direction encoding, so the density does not see it.
+With ``contract`` (mip-NeRF 360's scene contraction, for unbounded
+scenes) the sample positions are contracted into the radius-2 ball before
+the encoder, and under mip the frustum Gaussians through the contraction's
+linearisation.
 
 The JAX package keeps params as a pytree of ``(in, out)`` arrays; that
 pytree, as numpy, stays the interchange format (checkpoints, tests).
@@ -26,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_simple_tpu_torch.ops.encoding import ipe_encoder, positional_encoder
+from nerf_simple_tpu_torch.config import CONTRACT_INPUT_GRAD
+from nerf_simple_tpu_torch.ops.encoding import contract_gaussian, ipe_encoder, positional_encoder, scene_contraction
 
 Params = dict[str, dict[str, np.ndarray]]
 
@@ -34,9 +39,9 @@ Params = dict[str, dict[str, np.ndarray]]
 class NerfMLP:
     """Static architecture config. ``app_dim``: the width of the per-image
     appearance code the colour head reads (0: none; the codes themselves
-    are the train step's ``AppCodes``). ``contract`` exists so that
-    ``model.json`` sidecars load; the port does not run it yet
-    (``require_ported``)."""
+    are the train step's ``AppCodes``). ``contract``: the positions go
+    through ``scene_contraction`` before the encoder (not with appearance
+    codes yet: ``require_ported``)."""
 
     Lp: int = 10
     Ld: int = 4
@@ -71,11 +76,12 @@ class NerfMLP:
 
 
 def require_ported(model: NerfMLP) -> None:
-    """Raise for the NerfMLP variants the port does not run yet."""
-    if model.contract:
+    """Raise for the NerfMLP variants the port does not run yet: a
+    contracted appearance model (its codes train through the input
+    gradient, which has no contraction Jacobian yet)."""
+    if model.contract and model.app_dim > 0:
         raise NotImplementedError(
-            "contract=True (scene contraction) is not ported yet: ROADMAP "
-            "Queue A item 3, 'contract with disparity spacing'"
+            f"contract=True with appearance codes (app_dim={model.app_dim}) is not ported yet: {CONTRACT_INPUT_GRAD}"
         )
 
 
@@ -225,9 +231,12 @@ def nerf_apply(
     pose-refinement companion ``pe_anneal_until``; None is the standard
     encoder. ``app``: (B, app_dim) per-row appearance codes, required iff
     ``model.app_dim > 0``, appended to the direction encoding, so they
-    condition the colour head only."""
+    condition the colour head only. A contracted model contracts the
+    positions first (JAX models/nerf.py:192-196)."""
     model = field.model
     check_app(model, app)
+    if model.contract:
+        v = torch.cat([scene_contraction(v[..., :3]), v[..., 3:]], dim=-1)
     posx, posd = positional_encoder(v, Lp=model.Lp, Ld=model.Ld, alpha=enc_alpha)
     if app is not None:
         posd = torch.cat([posd, app.to(posd.dtype)], dim=-1)
@@ -237,10 +246,13 @@ def nerf_apply(
 def nerf_apply_mip(
     field: NerfField, mean: torch.Tensor, var: torch.Tensor, dirs: torch.Tensor, compute_dtype=torch.float32
 ) -> torch.Tensor:
-    """The mip forward (JAX ``nerf_apply_mip``, without contraction): the
-    frustum Gaussians' (B, 3) means and diagonal variances and the (B, 3)
-    unit dirs through ``ipe_encoder``, then the same layers as
-    ``nerf_apply``, so a mip checkpoint is a plain one."""
+    """The mip forward (JAX ``nerf_apply_mip``): the frustum Gaussians'
+    (B, 3) means and diagonal variances (through ``contract_gaussian`` for
+    a contracted model) and the (B, 3) unit dirs through ``ipe_encoder``,
+    then the same layers as ``nerf_apply``, so a mip checkpoint is a plain
+    one."""
+    if field.model.contract:
+        mean, var = contract_gaussian(mean, var)
     posx, posd = ipe_encoder(mean, var, dirs, Lp=field.model.Lp, Ld=field.model.Ld)
     return _apply_encoded(field, posx, posd, compute_dtype)
 

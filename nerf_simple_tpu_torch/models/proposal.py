@@ -1,7 +1,8 @@
 """The density-only proposal MLP of mip-NeRF 360's sampling scheme (port of
 nerf_simple_tpu/models/proposal.py, the point-sampled form).
 
-A small MLP, ``[x | gamma(x)] -> D x (H, relu) -> sigma``, probed at
+A small MLP, ``[x | gamma(x)] -> D x (H, relu) -> sigma`` (``x`` contracted
+first when ``contract``, as the main field's), probed at
 ``Np`` stratified samples a ray; its compositing weights place the main
 field's samples, and the interlevel loss (ops/volume.py) distils it from
 the main field's weights. It stays plain PyTorch (``F.linear``), as the
@@ -24,15 +25,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from nerf_simple_tpu_torch.models.nerf import LinearField, NerfField, NerfMLP, Params, _rnd
-from nerf_simple_tpu_torch.ops.encoding import gamma
+from nerf_simple_tpu_torch.ops.encoding import gamma, scene_contraction
 from nerf_simple_tpu_torch.ops.volume import weights_from_sigma
 
 
 @dataclasses.dataclass(frozen=True)
 class ProposalMLP:
     """Static architecture: ``Lp`` position-encoding octaves, ``D`` hidden
-    layers of width ``H``. ``contract`` exists so that the JAX arch
-    loads; the port does not run it yet."""
+    layers of width ``H``. ``contract``: the positions go through
+    ``scene_contraction`` first; it must match the main field's (the
+    weights cannot tell, so eval copies it from the main model)."""
 
     Lp: int = 6
     D: int = 4
@@ -51,7 +53,7 @@ class ProposalMLP:
 
 
 def proposal_from_train_config(cfg) -> ProposalMLP:
-    return ProposalMLP(Lp=cfg.prop_Lp, D=cfg.prop_D, H=cfg.prop_H)
+    return ProposalMLP(Lp=cfg.prop_Lp, D=cfg.prop_D, H=cfg.prop_H, contract=cfg.contract)
 
 
 def infer_proposal_arch(params: Params) -> ProposalMLP:
@@ -82,11 +84,6 @@ class ProposalField(LinearField):
     infer_arch = staticmethod(infer_proposal_arch)
 
     def __init__(self, model: ProposalMLP = ProposalMLP(), device=None):
-        if model.contract:
-            raise NotImplementedError(
-                "contract=True (scene contraction) is not ported yet: ROADMAP Queue A item 3, "
-                "'contract with disparity spacing'"
-            )
         super().__init__(model, device)
 
 
@@ -119,8 +116,11 @@ def proposal_sigma(field: ProposalField, locs: torch.Tensor, compute_dtype=torch
     """Raw (pre-softplus) density at (..., 3) positions -> (...,) f32. In
     bf16 it rounds where JAX rounds: the input ``[x | gamma(x)]``, each
     weight, and each activation after its relu; products accumulate and
-    biases add in f32, and the sigma head stays f32."""
+    biases add in f32, and the sigma head stays f32. A contracted net
+    contracts the positions first (JAX models/proposal.py:114-117)."""
     dt = compute_dtype
+    if field.model.contract:
+        locs = scene_contraction(locs)
 
     def dense(lin, h):  # h is rounded already: round the weight alone
         return F.linear(h, _rnd(lin.weight, dt), lin.bias)

@@ -1,5 +1,6 @@
-"""Sinusoidal positional encoding and mip-NeRF's integrated positional
-encoding (port of nerf_simple_tpu/ops/encoding.py).
+"""Sinusoidal positional encoding, mip-NeRF's integrated positional
+encoding and mip-NeRF 360's scene contraction (port of
+nerf_simple_tpu/ops/encoding.py).
 
 Reference layout (reference utils/xyz.py:6-36): per scalar channel ``u``
 the 2L features ``[sin(u), cos(u), sin(2u), cos(2u), ...]`` interleaved
@@ -46,6 +47,34 @@ def positional_encoder(
     posx = torch.cat([xyz, gamma(xyz, Lp, alpha)], dim=-1)
     posd = torch.cat([d, gamma(d, Ld, alpha)], dim=-1)
     return posx, posd
+
+
+def scene_contraction(x: torch.Tensor) -> torch.Tensor:
+    """mip-NeRF 360's scene contraction (Barron et al. 2022, eqn. 10) of
+    (..., 3) points: ``x`` for ``|x| <= 1``, else ``(2 - 1/|x|) x / |x|``,
+    so all of space lands in the radius-2 ball (the identity inside the
+    unit ball, C1 at its boundary). The norm is floored at 1e-10. Applied
+    at the model boundary (``nerf_apply``, ``proposal_sigma``), so every
+    consumer, the normals' autograd included, sees the same field."""
+    n = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-10)
+    return torch.where(n <= 1.0, x, (2.0 - 1.0 / n) * (x / n))
+
+
+def contract_gaussian(mean: torch.Tensor, var: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The linearised contraction of diagonal Gaussians (mip-NeRF 360,
+    eqn. 8-9): ``(contract(mean), diag(J diag(var) J^T))`` with J the
+    contraction's Jacobian at the mean. For ``contract(x) = g(r) x``, ``g =
+    (2 - 1/r) / r`` outside the unit ball, ``c = g'(r) / r``, ``m = mean^2``:
+    ``var'_i = g^2 v_i + 2 g c m_i v_i + c^2 m_i sum_j m_j v_j``. Inside the
+    ball g = 1 and c = 0: the identity, exactly."""
+    r = torch.clamp(torch.linalg.vector_norm(mean, dim=-1, keepdim=True), min=1e-10)
+    inside = r <= 1.0
+    g = torch.where(inside, 1.0, (2.0 - 1.0 / r) / r)
+    c = torch.where(inside, 0.0, (-2.0 / r**2 + 2.0 / r**3) / r)  # g'(r) / r
+    m2 = mean**2
+    m2v = torch.sum(m2 * var, dim=-1, keepdim=True)
+    var_out = g**2 * var + 2.0 * g * c * m2 * var + c**2 * m2 * m2v
+    return g * mean, var_out
 
 
 def gamma_ipe(mean: torch.Tensor, var: torch.Tensor, L: int = 10) -> torch.Tensor:

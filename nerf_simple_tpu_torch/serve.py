@@ -62,7 +62,8 @@ class RenderServer:
                 raise ValueError(
                     "settings.N_prop > 0 needs a proposal-trained checkpoint ({'prop', 'fine'} params)"
                 )
-            self.prop_model = infer_proposal_arch(params["prop"])
+            # the arch from the weight shapes; contract, which they cannot tell, from the main model (JAX serve.py:96-99)
+            self.prop_model = dataclasses.replace(infer_proposal_arch(params["prop"]), contract=self.model.contract)
             self.field = ProposalPair.from_jax_params(params, self.device, self.model, self.prop_model)
         else:
             self.field = NerfField.from_jax_params(params, self.device, self.model)

@@ -53,7 +53,7 @@ import torch
 from nerf_simple_tpu_torch.config import TrainConfig, train_config_from_dict
 from nerf_simple_tpu_torch.data.blender import load_blender
 from nerf_simple_tpu_torch.data.dataset import RayDataset
-from nerf_simple_tpu_torch.models.nerf import NerfMLP
+from nerf_simple_tpu_torch.models import model_from_train_config
 from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas, bake_cam_deltas
 from nerf_simple_tpu_torch.render.renderer import render_rays_chunked
 from nerf_simple_tpu_torch.train import checkpoint as ckpt
@@ -132,7 +132,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
     cfg = (params_or_cfg if isinstance(params_or_cfg, TrainConfig)
            else train_config_from_dict(params_or_cfg))
     device = require_device(device)
-    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, app_dim=cfg.appearance_dim)
+    model = model_from_train_config(cfg)
     exp_dir = os.path.join(cfg.savepath, cfg.exp_name)
     ckpt.save_model_meta(exp_dir, model)
     logger = Logger(run_log_dir(cfg.log_dir))

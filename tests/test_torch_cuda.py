@@ -1430,3 +1430,287 @@ def test_pose_mip_and_proposal_steps_on_the_card(dev, kind):
     state = make_train_state(cfg, model, dev, n_images=n_img)
     out = build_train_step(cfg, model, rays_per_image=hw, base_radius=radius)(state, rays, pix)
     assert bool(torch.isfinite(out)) and float(state.cams.dr.detach().abs().max()) > 0
+
+
+# --- scene contraction: the encoder's contracted instantiations (CONTRACT) ---------------------
+
+CONTRACT_CASES = [(NerfMLP(Lp=4, Ld=2, H=32), 1000), (NerfMLP(Lp=3, Ld=1, H=48), 65), (NerfMLP(), 4096 + 17)]
+CONTRACT_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged"]
+
+
+def _contracted(model):
+    import dataclasses
+
+    return dataclasses.replace(model, contract=True)
+
+
+def _x_contract(rows, dev, seed, mip=False, inside_only=False):
+    """Sample rows on both sides of the unit ball: a third at |x| in [0.2,
+    0.999], a third in [1.001, 3], the rest at 25..35 (an unbounded
+    scene's background); unit dirs; under ``mip`` 16 rows, the variances
+    (rows 11..13) log-uniform in [1e-6, 1e-1]. ``inside_only``: every row
+    inside the ball."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(3, rows))
+    u /= np.linalg.norm(u, axis=0, keepdims=True)
+    radius = np.concatenate([rng.uniform(0.2, 0.999, rows - 2 * (rows // 3)), rng.uniform(1.001, 3.0, rows // 3),
+                             rng.uniform(25.0, 35.0, rows // 3)])
+    radius = rng.uniform(0.0, 0.999, rows) if inside_only else rng.permutation(radius)
+    d = rng.normal(size=(3, rows))
+    x = np.zeros((16 if mip else 8, rows), np.float32)
+    x[:3] = u * radius
+    x[3:6] = d / np.linalg.norm(d, axis=0, keepdims=True)
+    if mip:
+        x[11:14] = 10.0 ** rng.uniform(-6, -1, (3, rows))
+    return torch.from_numpy(x).to(dev), torch.from_numpy(radius <= 1.0).to(dev)
+
+
+def _faulty_plain(monkeypatch, fault):
+    """Plant a fault in the plain version: ``raw`` leaves posx's raw rows
+    uncontracted, ``var`` drops the variance warp under mip."""
+    if fault == "raw":
+        encode = mlp._encode
+
+        def raw(xT, model, var=None, enc_w=None):
+            posx, posd = encode(xT, model, var, enc_w)
+            return torch.cat([xT[0:3], posx[3:]]), posd
+        monkeypatch.setattr(mlp, "_encode", raw)
+    else:
+        contract = mlp._contract
+        monkeypatch.setattr(mlp, "_contract", lambda xyz, var: (contract(xyz, var)[0], var))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mip", [False, True], ids=["point", "mip"])
+@pytest.mark.parametrize("model, rows", CONTRACT_CASES, ids=CONTRACT_IDS)
+def test_forward_contract_matches_plain(dev, model, rows, mip, dtype):
+    """The forward of a contracted model (the encoder's contraction, and
+    under mip its variance warp) against its plain version at ragged rows
+    on both sides of the unit ball and far out; counted in Python and in C;
+    at the rows inside the ball bit-equal to the launch without contract,
+    elsewhere not."""
+    cm = _contracted(model)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x, inside = _x_contract(rows, dev, 1, mip)
+    before = (mlp.fused_mlp_forward.contract_launches, mlp.contract_launches())
+    got = mlp.fused_mlp_forward(wts, x, dtype, cm, mip=mip)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_forward.contract_launches, mlp.contract_launches()) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, cm, mip=mip)
+    assert bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
+    plain_launch = mlp.fused_mlp_forward(wts, x, dtype, model, mip=mip)
+    assert torch.equal(got[:, inside], plain_launch[:, inside])
+    assert (got[:4, ~inside] - plain_launch[:4, ~inside]).abs().max().item() > TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fault", ["raw", "var"])
+def test_forward_contract_catches_a_planted_fault(dev, monkeypatch, fault, dtype):
+    """A fault planted in the plain version of the flagship's contracted
+    forward, the raw rows left uncontracted (point) or the variance warp
+    dropped (mip), puts it past the tolerance from the kernel: the check
+    above would catch a kernel with that fault."""
+    model, mip = NerfMLP(), fault == "var"
+    cm = _contracted(model)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x, _ = _x_contract(4096 + 17, dev, 1, mip)
+    got = mlp.fused_mlp_forward(wts, x, dtype, cm, mip=mip)
+    assert (got[:4] - mlp.fused_mlp_forward_plain(wts, x, dtype, cm, mip=mip)[:4]).abs().max().item() <= TOL[dtype]
+    _faulty_plain(monkeypatch, fault)
+    faulty = mlp.fused_mlp_forward_plain(wts, x, dtype, cm, mip=mip)
+    assert (got[:4] - faulty[:4]).abs().max().item() > 5 * TOL[dtype]
+
+
+@pytest.mark.parametrize("mip", [False, True], ids=["point", "mip"])
+@pytest.mark.parametrize("model", [NerfMLP(), NerfMLP(Lp=3, Ld=1, H=48)], ids=["flagship", "odd-widths"])
+def test_f32_forward_contract_residual_planes_match_plain(dev, model, mip):
+    """The f32 forward of a contracted model keeps the contracted encoding
+    in posx's residual plane (its raw rows too), which B1's and B2's weight
+    gradients read: every plane against the plain ``_forward``."""
+    rows = 132 * FWD_TILE + 17
+    cm = _contracted(model)
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev))
+    x, _ = _x_contract(rows, dev, 2, mip)
+    out, res = mlp.forward_residuals(wts, x, torch.float32, cm, mip=mip)
+    torch.cuda.synchronize()
+    want_out, want = mlp.forward_residuals_plain(wts, x, torch.float32, cm, mip=mip)
+    assert (out[:4] - want_out[:4]).abs().max().item() <= TOL[torch.float32]
+    assert (res[0:3, :rows] - want[0:3, :rows]).abs().max().item() <= 1e-6  # the contracted raw rows
+    err = (res[:, :rows] - want[:, :rows]).abs().max().item()
+    assert err <= 2e-4 * max(1.0, want[:, :rows].abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mip", [False, True], ids=["point", "mip"])
+@pytest.mark.parametrize("model, rows", CONTRACT_CASES, ids=CONTRACT_IDS)
+def test_backward_contract_matches_plain(dev, model, rows, mip, dtype):
+    """B2 recomputing a contracted model's forward against its plain
+    version; counted; with every row inside the ball bit-equal to B2
+    without contract; no input gradient (ROADMAP Queue B item 3)."""
+    cm = _contracted(model)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x, _ = _x_contract(rows, dev, 3, mip)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    before = (mlp.fused_mlp_backward.contract_launches, mlp.contract_launches())
+    got = mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip)
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_backward.contract_launches, mlp.contract_launches()) == (before[0] + 1, before[1] + 1)
+    errs = _grad_errors(got, mlp.fused_mlp_backward_plain(wts, x, g, dtype, cm, mip=mip))
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    xi, _ = _x_contract(rows, dev, 4, mip, inside_only=True)
+    assert all(torch.equal(a, b) for a, b in zip(mlp.fused_mlp_backward(wts, xi, g, dtype, cm, mip=mip),
+                                                 mlp.fused_mlp_backward(wts, xi, g, dtype, model, mip=mip)))
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip, want_dx=True)
+
+
+def _x16_contract(B, N, dev, seed, mip=False, inside_only=False):
+    """B1's input for a contracted model: rays from r = 3..6 (an unbounded
+    scene's cameras) at sorted random ts in [0.5, 30] (or their interval
+    edges under mip, cone radius MIP_RADIUS), the gt colour on each
+    sample; ``inside_only``: rays from near the origin with ts in [0, 0.5]."""
+    from nerf_simple_tpu_torch.train.step import build_x16, build_x16_mip
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (rng.normal(0, 0.05, (B, 3)) if inside_only else -rng.uniform(3, 6, (B, 1)) * d
+         + rng.normal(0, 0.3, (B, 3)))
+    lo, hi = (0.0, 0.5) if inside_only else (0.5, 30.0)
+    rays = torch.from_numpy(np.concatenate([o, d], 1).astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(dev)
+    ts = torch.from_numpy(np.sort(rng.uniform(lo, hi, (B, N + mip)), -1).astype(np.float32)).to(dev)
+    return build_x16_mip(rays, ts, pix, MIP_RADIUS) if mip else build_x16(rays, ts, pix)
+
+
+CONTRACT_B1_CASES = {"point": dict(), "point-weights-rail-disparity": dict(out_weights=True,
+                                                                          dist=(0.01, 0.5, 30.0, True)),
+                     "mip": dict(mip=True), "mip-weights-opaque": dict(mip=True, out_weights=True, opaque_tail=True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CONTRACT_B1_CASES))
+@pytest.mark.parametrize("model, B, N", [(NerfMLP(Lp=4, Ld=2, H=32), 37, 64), (NerfMLP(), 41, 128)],
+                         ids=["small-N64", "flagship-N128"])
+def test_train_step_contract_matches_plain(dev, model, B, N, case, dtype):
+    """B1 of a contracted model, point and cone-cast, with the weights
+    output and the disparity-space rail of the 360 recipe, against its
+    plain version: loss, gradients and weights within B1's bounds;
+    counted; deterministic; on rays that stay inside the ball bit-equal
+    to B1 without contract."""
+    kw = CONTRACT_B1_CASES[case]
+    mip = kw.get("mip", False)
+    cm = _contracted(model)
+    x16 = _x16_contract(B, N, dev, 5, mip)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    before = (mlp.fused_train_step.contract_launches, mlp.contract_launches())
+    out = mlp.fused_train_step(wts, x16, N, dtype, cm, **kw)
+    torch.cuda.synchronize()
+    assert (mlp.fused_train_step.contract_launches, mlp.contract_launches()) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_train_step_plain(wts, x16, N, dtype, cm, **kw)
+    assert abs(out[0].item() / want[0].item() - 1) <= LOSS_TOL[dtype]
+    errs = _grad_errors(out[1], want[1])
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    if kw.get("out_weights"):
+        assert (out[2] - want[2]).abs().max().item() <= TOL[dtype]
+    again = mlp.fused_train_step(wts, x16, N, dtype, cm, **kw)
+    assert again[0].item() == out[0].item() and all(torch.equal(a, b) for a, b in zip(out[1], again[1]))
+    xi = _x16_contract(B, N, dev, 6, mip, inside_only=True)
+    a, b = mlp.fused_train_step(wts, xi, N, dtype, cm, **kw), mlp.fused_train_step(wts, xi, N, dtype, model, **kw)
+    assert a[0].item() == b[0].item() and all(torch.equal(p, q) for p, q in zip(a[1], b[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_render_contract_matches_plain(dev, dtype):
+    """B3 of a contracted model against its plain version; counted; on
+    rays inside the ball bit-equal to B3 without contract."""
+    model = NerfMLP()
+    cm = _contracted(model)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    x16 = _x16_contract(67, 128, dev, 7)
+    before = (mlp.fused_render.contract_launches, mlp.contract_launches())
+    got = mlp.fused_render(wts, x16, 128, dtype, cm)
+    torch.cuda.synchronize()
+    assert (mlp.fused_render.contract_launches, mlp.contract_launches()) == (before[0] + 1, before[1] + 1)
+    want = mlp.fused_render_plain(wts, x16, 128, dtype, cm)
+    assert (got[:3] - want[:3]).abs().max().item() <= TOL[dtype]
+    assert ((got[3] - want[3]).abs() / want[3].abs().clamp_min(1.0)).max().item() <= 1e-3
+    xi = _x16_contract(67, 128, dev, 8, inside_only=True)
+    assert torch.equal(mlp.fused_render(wts, xi, 128, dtype, cm), mlp.fused_render(wts, xi, 128, dtype, model))
+
+
+def test_contract_refusals_on_the_card(dev):
+    """What a contracted model does not run yet raises before any launch
+    (ROADMAP Queue B item 3): ``fused_mlp`` on an input that needs a
+    gradient, the input-gradient kernel; appearance codes with contract."""
+    model = NerfMLP(Lp=4, Ld=2, H=32, contract=True)
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, NerfMLP(Lp=4, Ld=2, H=32)), dev))
+    x, _ = _x_contract(256, dev, 9)
+    before = mlp.contract_launches()
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        mlp.fused_mlp(wts, x.requires_grad_(True), torch.float32, model)
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        mlp.input_grad(wts, x.detach(), torch.zeros(1, device=dev), torch.float32, model)
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        NerfField(NerfMLP(Lp=4, Ld=2, H=32, contract=True, app_dim=2), dev)
+    assert mlp.contract_launches() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_360_recipe_core_and_step_on_the_card(dev, monkeypatch, dtype):
+    """The 360 recipe's fused core (proposal sampling + the disparity-space
+    distortion rail, contracted main field and proposal net) with the CUDA
+    B1 against the same core with B1's plain version at the same probes
+    and samples: the loss and every gradient of both nets within B1's
+    bounds; one contracted B1 launch with the weights output and the rail;
+    then one step of the recipe through ``build_train_step``."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.models.proposal import ProposalField, ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, pm, B, Np, N = NerfMLP(Lp=6, Ld=3, H=64, contract=True), ProposalMLP(Lp=4, D=2, H=32, contract=True), \
+        256, 32, 64
+    rng = np.random.default_rng(10)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([-rng.uniform(3, 6, (B, 1)) * d, d], 1).astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(dev)
+    ts_p, ts_f = (torch.from_numpy(1.0 / np.sort(rng.uniform(1 / 30.0, 1 / 0.5, (B, n)), -1)[:, ::-1].copy()
+                                   .astype(np.float32)).to(dev) for n in (Np, N))
+    dist = (0.01, 0.5, 30.0, True)
+
+    def plain(wts, x16, N, compute_dtype, model, out_weights=False, dist=None, mip=False, opaque_tail=False):
+        with torch.no_grad():
+            return mlp.fused_train_step_plain(mlp._cast_weights(wts, compute_dtype), x16, N, compute_dtype, model,
+                                              out_weights, dist, mip, opaque_tail)
+
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(step_mod, "fused_train_step", plain)
+        pair = ProposalPair(ProposalField.from_jax_params(init_proposal_params(3, pm), dev, pm),
+                            NerfField.from_jax_params(init_nerf_params(4, NerfMLP(Lp=6, Ld=3, H=64)), dev, model))
+        before = (mlp.fused_train_step.contract_launches, mlp.fused_train_step.weights_dist_launches)
+        loss, _ = step_mod.proposal_fused_loss(pair, rays, pix, ts_p, None, N, dtype, model, dist=dist, ts_f=ts_f)
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.clone() for n, p in pair.named_parameters()},
+                      (mlp.fused_train_step.contract_launches - before[0],
+                       mlp.fused_train_step.weights_dist_launches - before[1]))
+    monkeypatch.undo()
+    (loss, grads, launched), (loss_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+    assert launched == (1, 1) and launched_p == (0, 0)
+    assert abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for n, gp in grads_p.items():
+        err = ((grads[n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (n, err)
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="bf16", net_H=64, net_Lp=6,
+                      net_Ld=3, contract=True, sampling_space="disparity", tn=0.5, tf=30.0, proposal=True, Np=Np,
+                      prop_Lp=4, prop_D=2, prop_H=32, distortion_loss_weight=0.01)
+    state = step_mod.make_train_state(cfg, model, dev)
+    assert state.field.prop.model.contract and state.field.fine.model.contract
+    w0 = state.field.fine.trunk1.weight.detach().clone()
+    before = mlp.contract_launches()
+    out = step_mod.build_train_step(cfg, model)(state, rays, pix)
+    assert mlp.contract_launches() == before + 1
+    assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.fine.trunk1.weight)

@@ -108,8 +108,10 @@ def test_unsupported_arch_and_device_raise():
         mlp.fused_mlp_forward(wts, torch.zeros(8, 128), torch.float32, NerfMLP(Lp=4, Ld=2, H=24))
     with pytest.raises(ValueError, match="device"):
         mlp.fused_mlp_forward(wts, torch.zeros(8, 128, device="meta"), torch.float32, SMALL)
-    with pytest.raises(NotImplementedError, match="contract"):  # never silently dropped
-        mlp.fused_mlp_forward(wts, torch.zeros(8, 128), torch.float32, NerfMLP(Lp=4, Ld=2, H=32, contract=True))
+    contracted = NerfMLP(Lp=4, Ld=2, H=32, contract=True)  # the forward runs; an input gradient is not ported
+    assert mlp.fused_mlp_forward(wts, torch.zeros(8, 128), torch.float32, contracted).shape == (8, 128)
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):  # never silently dropped
+        mlp.fused_mlp(wts, torch.zeros(8, 128, requires_grad=True), torch.float32, contracted)
 
 
 def test_encode_rows_match_jax_layout():

@@ -103,10 +103,12 @@ def test_unported_families_and_variants_raise():
         model_from_meta({"family": "hashgrid"})
     with pytest.raises(NotImplementedError, match="cpgrid"):
         model_from_meta({"family": "cpgrid"})
+    assert model_from_meta({"family": "nerf", "contract": True}).contract  # ported
+    assert NerfField(NerfMLP(Lp=2, Ld=2, H=16, contract=True)).model.contract
+    with pytest.raises(NotImplementedError, match="contract"):  # a contracted appearance model is not
+        model_from_meta({"family": "nerf", "contract": True, "app_dim": 2})
     with pytest.raises(NotImplementedError, match="contract"):
-        model_from_meta({"family": "nerf", "contract": True})
-    with pytest.raises(NotImplementedError, match="contract"):
-        NerfField(NerfMLP(Lp=2, Ld=2, H=16, contract=True))
+        NerfField(NerfMLP(Lp=2, Ld=2, H=16, contract=True, app_dim=2))
     assert NerfField(NerfMLP(Lp=2, Ld=2, H=16, app_dim=2)).color0.in_features == 16 + 15 + 2  # ported
     assert model_from_meta({"family": "nerf", "Lp": 4, "Ld": 2, "H": 32}) == SMALL
 

@@ -368,7 +368,8 @@ def test_pose_with_mip_and_proposal_configs_load_and_the_rules_raise():
     pose_opt load in both packages; JAX's rules raise in both: pose + mip +
     ``pe_anneal_until`` and mip + ``appearance_dim`` (ValueError); the port
     still refuses pose + mip + proposal (mip x proposal, Queue A item 2)
-    and pose + ``contract`` (Queue A item 3), which JAX composes."""
+    and pose + ``contract`` (the input gradient's contraction, Queue B item
+    3), which JAX composes."""
     pose = dict(pose_opt=True, pose_warmup=10, pose_freeze_at=100)
     for path, extra in (("configs/lego_mip.yaml", {}), ("configs/lego_mip.yaml", {"mip_levels": 1}),
                         ("configs/lego_proposal.yaml", {"pe_anneal_until": 40})):
@@ -385,7 +386,7 @@ def test_pose_with_mip_and_proposal_configs_load_and_the_rules_raise():
     jconfig.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True, Np=8)  # JAX composes it
     with pytest.raises(NotImplementedError, match="Queue A item 2"):
         config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True, Np=8)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
         config.train_config_from_dict({"datapath": "d", "pose_opt": True, "contract": True})
     for levels in (1, 2):
         cfg = config.TrainConfig(datapath="d", pose_opt=True, mip=True, mip_levels=levels)

@@ -182,8 +182,8 @@ def test_proposal_arch_round_trip_and_init_shapes():
     assert proposal_from_train_config(cfg) == m
     pair = ProposalPair.from_jax_params(_params(0), "cpu")
     assert set(pair.to_jax_params()) == {"prop", "fine"} and pair.model == SMALL
-    with pytest.raises(NotImplementedError, match="contract"):
-        ProposalField(ProposalMLP(contract=True))
+    assert ProposalField(ProposalMLP(contract=True)).model.contract  # ported: the net contracts its positions
+    assert proposal_from_train_config(config.TrainConfig(datapath="d", proposal=True, contract=True)).contract
 
 
 @pytest.mark.parametrize("dt, jdt", DTYPES, ids=DTYPE_IDS)

@@ -125,10 +125,12 @@ def test_lego_yaml_loads_and_unported_keys_raise():
     assert (cfg.batch_size, cfg.Nf, cfg.compute_dtype, cfg.steps_per_call) == (4096, 128, "bf16", 100)
     assert cfg.val_idxs == (0, 1) and cfg.render_dtype == torch.bfloat16
     for key, value in (("mip_multiscale", True), ("num_data_shards", 4),
-                       ("model_family", "hashgrid"), ("train_im_idxs", [0]),
-                       ("contract", True), ("occupancy", True)):
+                       ("model_family", "hashgrid"), ("train_im_idxs", [0]), ("occupancy", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.train_config_from_dict({"datapath": "d", key: value})
+    assert config.train_config_from_dict({"datapath": "d", "contract": True}).contract  # ported
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):  # not with pose refinement yet
+        config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True})
     for key, value in (("sigma_noise", 0.1), ("distortion_loss_weight", 0.01), ("proposal", True),
                        ("Np", 32), ("prop_H", 32), ("proposal_loss_weight", 0.5)):  # ported: they load
         assert getattr(config.train_config_from_dict({"datapath": "d", "proposal": True, key: value}), key) == value
