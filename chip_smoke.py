@@ -8,12 +8,14 @@ NerfMLP(Lp=10, Ld=4, H=256):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles the six CUDA sources from csrc/, one nvcc each, all
-   at once; prints the build time and ptxas registers and spills (the
-   forward tile kernels, csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the
-   backward tile kernels, csrc/bwd_f32.cuh and csrc/bwd_bf16.cuh, are
-   built into five of them; the forward tile kernels' contracted
-   instantiations into csrc/fused_contract.cu's alone; the input-gradient
-   kernel, csrc/input_grad.cuh, into B2's);
+   at once (csrc/fused_contract.cu, first run in phase 16, in a process
+   of its own beside phases 3-15, waited for before phase 16); prints the
+   build time and ptxas registers and spills (the forward tile kernels,
+   csrc/fwd_f32.cuh and csrc/fwd_bf16.cuh, and the backward tile kernels,
+   csrc/bwd_f32.cuh and csrc/bwd_bf16.cuh, are built into five of them;
+   the forward tile kernels' contracted instantiations and the input
+   gradient's contract instantiation into csrc/fused_contract.cu's alone;
+   the input-gradient kernel, csrc/input_grad.cuh, into B2's);
 3. forward kernel and render kernel (B3) vs plain: the fused MLP forward
    and the fused render (forward + compositing) against their plain
    PyTorch versions on one render chunk (16,384 rays of a 400x400, f=555
@@ -154,7 +156,7 @@ NerfMLP(Lp=10, Ld=4, H=256):
    100), one B1 launch a step after it; the pose step's wall, kernel ms by
    pass, idle share and peak memory; (c) the JAX package's recipe
    (scripts/pose_freeze_bench.py: 12 train images at 100x100 perturbed by
-   0.02 rad / 0.05, 4000 steps) unrefined and refined (anneal
+   0.02 rad / 0.05; 3000 steps, cut from its 4000) unrefined and refined (anneal
    and freeze at 3/8): test PSNR of both and the rig's residual error; the
    refined rotation must keep at most POSE_ROT_KEPT of the perturbation's
    (the translation is reported); an f32 pose step's loss and gradients
@@ -215,7 +217,27 @@ NerfMLP(Lp=10, Ld=4, H=256):
    interlevel loss falls); eval (a still, a 2-frame orbit), one frame
    served over HTTP, a single-net fused_eval frame; (c) mip + contract at
    two levels, 100 steps and a still;
-17. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+17. pose refinement and appearance codes on a contracted model, on the
+   same scene: (a) the input-gradient kernel's contract instantiation
+   (csrc/fused_contract.cu) in B2 with ``want_dx`` at the 524,288-row
+   batch, f32 and bf16, against plain by ``explain_dx``'s row rule (its
+   planted faults, the contraction's two among them, caught), its grads
+   bit-equal to the launch without dx, bit-equal inside the ball to B2
+   without contract, also with the codes and the windows; the contracted
+   forward with the windows and with the codes against plain; the kernel
+   alone beside the kernel without contract, plain, a torch.mm yardstick
+   and its bound; with ``--before``, the launches without contract
+   bit-equal to the earlier library's; (b) configs/colmap360.yaml's keys
+   with its pose block switched on, 120 steps with a freeze at 30 on a
+   copy of the scene with perturbed train poses: the contract input
+   gradient a step before the freeze, the fused 360 core after it, the
+   loss, the rig's error, the step's wall and profile, a refined still;
+   (c) the same keys + appearance codes + pose with the anneal, 40 steps,
+   a still under the mean code; (d) the same keys without the proposal net
+   on a single net (pose with a freeze, pose with the anneal, codes) and a
+   hierarchical pair (pose, codes + pose), 40 steps each and a still each;
+   the first one's export served over HTTP by the CLI, one frame;
+18. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -239,6 +261,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -2105,6 +2128,47 @@ def phase_prop_train(dev, scene, work, mlp):
                 params_past_rule=bad, psnr=psnr, held_out=il, first=first, last=last, exp=exp)
 
 
+def cli_frame(loadpath: str, focal: float, args: list, log_name: str, what: str, r: float = 4.5):
+    """``python -m nerf_simple_tpu_torch.serve`` of ``loadpath`` (H x W,
+    bf16, pallas, N_SAMPLES, and ``args``) in a process of its own: one
+    frame at radius ``r``, theta -30, phi 30 over HTTP, between two
+    /health reads; the server stopped. (PNG bytes, content type, the two
+    /health answers, the request's ms.) Its output goes to
+    OUT/``log_name``; ``what`` names the check that it started."""
+    port = free_port()
+    served_log = open(os.path.join(OUT, log_name), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath", loadpath, "--height", str(H), "--width",
+         str(W), "--focal", repr(float(focal)), "--backend", "pallas", "--dtype", "bf16", "--samples", str(N_SAMPLES),
+         *args, "--port", str(port)], stdout=served_log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                health = json.loads(get(url + "/health")[0])
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    with open(served_log.name) as fh:
+                        print(fh.read()[-3000:], flush=True)
+                    check(False, what)
+                time.sleep(1.0)
+        t0 = time.perf_counter()
+        data, ctype = get(f"{url}/render?r={r:g}&theta=-30&phi=30")
+        http_ms = (time.perf_counter() - t0) * 1e3
+        health_after = json.loads(get(url + "/health")[0])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        served_log.close()
+    return data, ctype, health, health_after, http_ms
+
+
 def free_port() -> int:
     import socket
 
@@ -2120,8 +2184,6 @@ def phase_prop_eval(dev, scene, work, mlp, exp):
     ``python -m nerf_simple_tpu_torch.serve --proposal-samples 64`` in a
     process of its own serves one frame over HTTP, which must match
     ``render_rays_chunked`` to 1 level."""
-    import sys
-
     from nerf_simple_tpu_torch.config import load_yaml
     from nerf_simple_tpu_torch.evaluate import load_params, test
     from nerf_simple_tpu_torch.models.proposal import ProposalPair
@@ -2172,38 +2234,9 @@ def phase_prop_eval(dev, scene, work, mlp, exp):
     frame_ms = float(np.median(times[1:]))
 
     # the CLI server, in a process of its own, with the proposal samples
-    port = free_port()
-    served_log = open(os.path.join(OUT, "serve_prop_log.txt"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath", os.path.join(exp, "params_400.npz"),
-         "--height", str(H), "--width", str(W), "--focal", repr(float(focal)), "--backend", "pallas", "--dtype", "bf16",
-         "--samples", str(N_SAMPLES), "--proposal-samples", str(NP_PROP), "--port", str(port)],
-        stdout=served_log, stderr=subprocess.STDOUT)
-    url = f"http://127.0.0.1:{port}"
-    try:
-        deadline = time.time() + 240
-        while True:
-            try:
-                health = json.loads(get(url + "/health")[0])
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    with open(served_log.name) as fh:
-                        print(fh.read()[-3000:], flush=True)
-                    check(False, "the proposal server started")
-                time.sleep(1.0)
-        t0 = time.perf_counter()
-        data, ctype = get(f"{url}/render?r=4&theta=-30&phi=30")
-        http_ms = (time.perf_counter() - t0) * 1e3
-        health_after = json.loads(get(url + "/health")[0])
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        served_log.close()
+    data, ctype, health, health_after, http_ms = cli_frame(
+        os.path.join(exp, "params_400.npz"), focal, ["--proposal-samples", str(NP_PROP)], "serve_prop_log.txt",
+        "the proposal server started", r=4.0)
     check(health["proposal"] is True and ctype == "image/png", "/health of the proposal server")
     served = decode_png(data)
     want = (frame(30.0)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
@@ -2517,8 +2550,6 @@ def phase_mip_eval(dev, scene, work, mlp, exp):
     nerf_simple_tpu_torch.serve --mip --mip-levels 2`` in a process of its
     own serves one frame over HTTP, which must match
     ``render_rays_chunked`` to 1 level."""
-    import sys
-
     from nerf_simple_tpu_torch.config import load_yaml
     from nerf_simple_tpu_torch.evaluate import load_params, test
     from nerf_simple_tpu_torch.models.nerf import NerfField
@@ -2567,38 +2598,9 @@ def phase_mip_eval(dev, scene, work, mlp, exp):
     check(bool(torch.isfinite(rgb).all() and torch.isfinite(disp).all()), "mip frame finite")
     frame_ms = float(np.median(times[1:]))
 
-    port = free_port()
-    served_log = open(os.path.join(OUT, "serve_mip_log.txt"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath", os.path.join(exp, "params_400.npz"),
-         "--height", str(H), "--width", str(W), "--focal", repr(float(focal)), "--backend", "pallas", "--dtype", "bf16",
-         "--samples", str(N_SAMPLES), "--mip", "--mip-levels", "2", "--port", str(port)],
-        stdout=served_log, stderr=subprocess.STDOUT)
-    url = f"http://127.0.0.1:{port}"
-    try:
-        deadline = time.time() + 240
-        while True:
-            try:
-                health = json.loads(get(url + "/health")[0])
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    with open(served_log.name) as fh:
-                        print(fh.read()[-3000:], flush=True)
-                    check(False, "the mip server started")
-                time.sleep(1.0)
-        t0 = time.perf_counter()
-        data, ctype = get(f"{url}/render?r=4&theta=-30&phi=30")
-        http_ms = (time.perf_counter() - t0) * 1e3
-        health_after = json.loads(get(url + "/health")[0])
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        served_log.close()
+    data, ctype, health, health_after, http_ms = cli_frame(
+        os.path.join(exp, "params_400.npz"), focal, ["--mip", "--mip-levels", "2"], "serve_mip_log.txt",
+        "the mip server started", r=4.0)
     check(health["mip"] is True and ctype == "image/png", "/health of the mip server")
     served = decode_png(data)
     want = (frame(30.0)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
@@ -2616,9 +2618,10 @@ def phase_mip_eval(dev, scene, work, mlp, exp):
     return res
 
 
-# Pose refinement (configs/lego.yaml + pose_opt): the recipe's length, the
-# JAX package's own (scripts/pose_freeze_bench.py; at 3000 steps the
-# translation ends above the perturbation), its perturbation of the train
+# Pose refinement (configs/lego.yaml + pose_opt): the recipe's length, cut
+# from the JAX package's 4000 (scripts/pose_freeze_bench.py) to keep the
+# script inside its time limit (at 3000 steps the translation ends above
+# the perturbation; it is not held), its perturbation of the train
 # poses, the share of the perturbation's rotation the refined rig may keep
 # (measured 0.73 at 4000 steps, 0.788 at 3000; the unrefined rig keeps 1),
 # and the f32 pose step's bounds from one state. The kernel
@@ -2626,7 +2629,7 @@ def phase_mip_eval(dev, scene, work, mlp, exp):
 # bound, each gradient tensor (the field's and the delta tables') within
 # 1e-3 of its largest entry (the dr/dt gradients are sums over every ray
 # of an image, ~20,000 of 524,288 rows).
-POSE_ITERS, POSE_DR, POSE_DT, POSE_SEED = 4000, 0.02, 0.05, 7
+POSE_ITERS, POSE_DR, POSE_DT, POSE_SEED = 3000, 0.02, 0.05, 7
 POSE_ROT_KEPT = 0.85
 POSE_GRAD_RTOL = 1e-3
 # dx against plain, max abs error over max |dx|: the input-gradient kernel
@@ -2841,32 +2844,37 @@ def phase_pose_kernels(dev, scene, model, mlp, earlier) -> dict:
     return stats
 
 
-def earlier_forward(mlp, lib, w, x, dt, model) -> torch.Tensor:
-    """The forward of an earlier library (no windows, no mip, no codes),
-    straight through ctypes."""
-    bf16 = int(dt == torch.bfloat16)
+def earlier_forward(mlp, lib, w, x, dt, model, enc_w=None) -> torch.Tensor:
+    """The forward of an earlier library (no mip, no contract; the windows
+    ``enc_w`` and an appearance model's codes as the current one takes
+    them, which an earlier library without them refuses), straight through
+    ctypes."""
+    bf16, app = int(dt == torch.bfloat16), mlp._app(model)
+    wx, wd = mlp._enc_w_ptrs(enc_w, model, x.device)
     out = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device)
-    image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, 0), dtype=torch.uint8,
+    image = torch.empty(lib.fused_mlp_fwd_image_bytes(model.Lp, model.Ld, model.H, bf16, app), dtype=torch.uint8,
                         device=x.device)
     mlp._raise_on(lib.fused_mlp_fwd(x.data_ptr(), out.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
-                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, None, None, 0, 0, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(w)), image.data_ptr(), 0, wx, wd, app, 0, mlp._stream(x)),
                   "earlier fused_mlp_fwd")
     return out
 
 
-def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False, mip: bool = False):
-    """B2 of an earlier library (no windows, no codes; with ``want_dx``
-    also dx, which an earlier library without the input gradient refuses;
-    with ``mip`` its mip recompute, not with dx)."""
-    bf16 = int(dt == torch.bfloat16)
-    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16, 0),
+def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False, mip: bool = False, enc_w=None):
+    """B2 of an earlier library (no contract; the windows ``enc_w`` and an
+    appearance model's codes as the current one takes them; with
+    ``want_dx`` also dx, which an earlier library without the input
+    gradient refuses; with ``mip`` its mip recompute, not with dx)."""
+    bf16, app = int(dt == torch.bfloat16), mlp._app(model)
+    wx, wd = mlp._enc_w_ptrs(enc_w, model, x.device, mip)
+    ws = torch.empty(lib.fused_mlp_bwd_workspace_bytes(x.shape[1], model.Lp, model.Ld, model.H, bf16, app),
                      dtype=torch.uint8, device=x.device)
     grads = mlp._empty_grads(model, x.device)
-    dx = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device) if want_dx else None
+    dx = torch.empty((mlp._x_rows(mip, model), x.shape[1]), dtype=torch.float32, device=x.device) if want_dx else None
     mlp._raise_on(lib.fused_mlp_bwd(x.data_ptr(), gT.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, bf16,
                                     mlp._CPtrs(*mlp._ptrs(w)), mlp._weights_t(w), ws.data_ptr(),
-                                    mlp._CPtrs(*mlp._ptrs(grads)), int(mip), None, None,
-                                    None if dx is None else dx.data_ptr(), 0, 0, mlp._stream(x)),
+                                    mlp._CPtrs(*mlp._ptrs(grads)), int(mip), wx, wd,
+                                    None if dx is None else dx.data_ptr(), app, 0, mlp._stream(x)),
                   "earlier fused_mlp_bwd")
     return (grads, dx) if want_dx else grads
 
@@ -4113,8 +4121,6 @@ def phase_contract_train(dev, scene, work, mlp) -> dict:
     2-frame orbit), the CLI server with the recipe's samples, one 400x400
     frame over HTTP matched to ``render_rays_chunked`` to 1 level, and a
     single-net fused_eval frame of the contracted field (B3)."""
-    import sys
-
     from nerf_simple_tpu_torch.data.blender import load_blender
     from nerf_simple_tpu_torch.data.dataset import RayDataset, sample_ray_batch
     from nerf_simple_tpu_torch.evaluate import load_params, test
@@ -4282,37 +4288,10 @@ def phase_contract_train(dev, scene, work, mlp) -> dict:
     pair = ProposalPair.from_jax_params(load_params(exp, keep_hierarchy=True), dev, cm, pm)
     focal = scene_focal(scene)
     s_frame = dataclasses.replace(s_eval, compute_dtype=torch.bfloat16)
-    port = free_port()
-    served_log = open(os.path.join(OUT, "serve_c360_log.txt"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "nerf_simple_tpu_torch.serve", "--loadpath",
-         os.path.join(exp, f"params_{C360_ITERS + C360_MORE}.npz"), "--height", str(H), "--width", str(W), "--focal",
-         repr(float(focal)), "--backend", "pallas", "--dtype", "bf16", "--samples", str(N_SAMPLES),
-         "--proposal-samples", str(tcfg.Np), "--tn", str(UNB_TN), "--tf", str(UNB_TF), "--sampling-space",
-         "disparity", "--port", str(port)], stdout=served_log, stderr=subprocess.STDOUT)
-    url = f"http://127.0.0.1:{port}"
-    try:
-        deadline = time.time() + 240
-        while True:
-            try:
-                health = json.loads(get(url + "/health")[0])
-                break
-            except OSError:
-                if proc.poll() is not None or time.time() > deadline:
-                    with open(served_log.name) as fh:
-                        print(fh.read()[-3000:], flush=True)
-                    check(False, "the 360 server started")
-                time.sleep(1.0)
-        data, ctype = get(f"{url}/render?r=4.5&theta=-30&phi=30")
-        health_after = json.loads(get(url + "/health")[0])
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        served_log.close()
+    data, ctype, health, health_after, _ = cli_frame(
+        os.path.join(exp, f"params_{C360_ITERS + C360_MORE}.npz"), focal,
+        ["--proposal-samples", str(tcfg.Np), "--tn", str(UNB_TN), "--tf", str(UNB_TF), "--sampling-space", "disparity"],
+        "serve_c360_log.txt", "the 360 server started")
     pose = torch.as_tensor(spherical_to_pose(4.5, -30.0, 30.0)[None], dtype=torch.float32, device=dev)
     frays = rays_for_poses(pose, H, W, focal)
     want = (render_rays_chunked(pair, frays, 0, s_frame)[0].reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
@@ -4385,6 +4364,461 @@ def phase_contract_mip(dev, scene, work, mlp) -> dict:
           and np.isfinite(psnr[0]), "mip + contract trains and evaluates")
     return dict(launches=launches, first=float(np.mean(losses[:20])), last=float(np.mean(losses[-20:])),
                 psnr=psnr[0], seconds=secs)
+
+
+# Pose refinement and appearance codes on a contracted model (phase 17):
+# configs/colmap360.yaml's pose block (:52-58: pose_opt, pose_warmup 600
+# and pose_freeze_at 5000 of its 20,000 steps), cut with the run to
+# C360P_ITERS steps at the same fractions (the warmup 3%, the freeze at
+# 25%); the appearance run's steps and anneal; the anneal progress of the
+# kernel checks' windows.
+C360P_ITERS, C360P_WARMUP, C360P_FREEZE = 120, 4, 30
+CAPP_ITERS, CAPP_ANNEAL, CPOSE_ALPHA = 40, 20, 0.3
+
+
+def phase_pose_contract_kernels(dev, scene, mlp, earlier) -> dict:
+    """17a. The input gradient's contract instantiation (csrc/fused_contract.cu)
+    and the contracted forward with the windows and the code rows, nets
+    from numpy seed SEED, f32 and bf16, at the unbounded batch
+    (``unbounded_batch``: 524,288 rows, 18,000-odd inside the unit ball):
+    B2 with ``contract`` and ``want_dx`` against
+    ``fused_mlp_backward_plain(want_dx=True)`` by ``explain_dx``'s row rule
+    (its planted faults caught: the octave windows, and the contraction's
+    two, the Jacobian's ``c (x . dy) x`` term dropped and the angles taken
+    at the uncontracted x), its weight gradients bit-equal to the launch
+    without dx, dx bit-equal to the contract kernel on the tile kernels'
+    planes and, at the rows inside the ball, to B2 without contract; the
+    same for an appearance model (APP_DIM codes) with the windows at
+    CPOSE_ALPHA; the contracted forward with the windows and with the codes
+    against plain, bit-equal inside the ball to the launch without
+    contract; B2 with and without dx in turns. The kernel alone
+    (``probes/input_grad.py::run_contract``): against plain with the two
+    faults, its ms beside the kernel without contract on the same planes,
+    the plain version and the torch.mm yardstick, its bound. With
+    ``earlier``: the launches without contract (the forward with the
+    windows, with the codes; B2 with dx, with the codes and the windows)
+    bit-equal to the earlier library's (the SASS: phase 16a)."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+
+    model, cm = NerfMLP(), NerfMLP(contract=True)
+    am, cam = NerfMLP(app_dim=APP_DIM), NerfMLP(contract=True, app_dim=APP_DIM)
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    packed_app = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, am), dev, am))
+    x = unbounded_batch(dev, scene)[:8].contiguous()
+    rows = x.shape[1]
+    inside = x[0:3].norm(dim=0) <= 1.0
+    rng = np.random.default_rng(SEED)
+    codes = torch.from_numpy(rng.normal(0, 0.5, (APP_DIM, rows)).astype(np.float32)).to(dev)
+    xa = torch.cat([x, codes, torch.zeros((8 - APP_DIM, rows), device=dev)]).contiguous()
+    gT = torch.from_numpy(rng.normal(size=(8, rows)).astype(np.float32)).to(dev)
+    enc_w = mlp.anneal_row_weights(cm, CPOSE_ALPHA, dev)
+    b2, fwd = mlp.fused_mlp_backward, mlp.fused_mlp_forward
+    stats = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w, wa = mlp._cast_weights(packed, dt), mlp._cast_weights(packed_app, dt)
+            st = dict(rows=rows, inside_rows=int(inside.sum()))
+            for case, (ww, xx, m, um, e) in {"": (w, x, cm, model, None),
+                                             "_codes_windows": (wa, xa, cam, am, enc_w)}.items():
+                before = (b2.dx_launches, b2.contract_launches, mlp.input_grad_contract_launches(),
+                          mlp.input_grad_launches())
+                grads, dx = b2(ww, xx, gT, dt, m, want_dx=True, enc_w=e)
+                torch.cuda.synchronize()
+                check((b2.dx_launches, b2.contract_launches, mlp.input_grad_contract_launches(),
+                       mlp.input_grad_launches()) == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1),
+                      "B2 with contract and dx counted, its contract input-gradient kernel counted in C")
+                alone = b2(ww, xx, gT, dt, m, enc_w=e)
+                st[f"bit_equal_no_dx{case}"] = all(torch.equal(a, c) for a, c in zip(grads, alone))
+                del alone
+                _, res = mlp.forward_residuals(ww, xx, dt, m, enc_w=e)
+                gws = mlp.backward_tile(ww, res, gT, dt, m)
+                del res
+                st[f"dx_equal_composed{case}"] = torch.equal(dx, mlp.input_grad(ww, xx, gws, dt, m, e))
+                del gws
+                st[f"dx_inside_bit_equal{case}"] = torch.equal(dx[:, inside],
+                                                              b2(ww, xx, gT, dt, um, want_dx=True, enc_w=e)[1][:, inside])
+                if earlier:
+                    g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], ww, xx, gT, dt, um, want_dx=True,
+                                                     enc_w=e)
+                    g_new, dx_new = b2(ww, xx, gT, dt, um, want_dx=True, enc_w=e)
+                    st[f"b2_dx_no_contract_bit_equal_earlier{case}"] = torch.equal(dx_old, dx_new) and all(
+                        torch.equal(a, c) for a, c in zip(g_old, g_new))
+                    del g_old, dx_old, g_new, dx_new
+                want, dx_p = mlp.fused_mlp_backward_plain(ww, xx, gT, dt, m, want_dx=True, enc_w=e)
+                st[f"rel{case}"], st[f"err{case}"] = grad_errors(grads, want)
+                ex = ig_probe.explain_dx(ww, xx, gT, dx, dx_p, dt, m, e, DX_TOL[dt])
+                st[f"dx_rows{case}"] = ex
+                del grads, dx, want, dx_p
+                torch.cuda.empty_cache()
+                print(f"B2 contract want_dx{case.replace('_', ' ')} {name} at {rows} rows ({st['inside_rows']} inside "
+                      f"the unit ball): grad err {st[f'rel{case}']:.3e} of max (tol {GRAD_TOL['B2', dt]:.0e}); dx rows "
+                      f"past {DX_TOL[dt]:.0e} {ex['n_past']} ({ex['share']:.2e}, tol {DX_ROW_SHARE[dt]:.0e}), with a "
+                      f"flipped relu mask {ex['n_flipped']}, past without one {ex['n_unexplained']}, on the kernel's "
+                      f"own masks {ex['own_masks_err']:.2e}; planted faults: " + ", ".join(
+                          f"{k} {f['share']:.2e} past ({f['n_unexplained']} without a flipped mask)"
+                          for k, f in ex["faults"].items()) + f"; dx bit-equal to the contract kernel on the kernels' "
+                      f"planes: {st[f'dx_equal_composed{case}']}, inside the ball to B2 without contract: "
+                      f"{st[f'dx_inside_bit_equal{case}']}; grads bit-equal to the launch without dx: "
+                      f"{st[f'bit_equal_no_dx{case}']}" + "".join(f"; {k} {v}" for k, v in st.items()
+                                                                   if k.endswith(f"earlier{case}")), flush=True)
+                check(st[f"rel{case}"] <= GRAD_TOL["B2", dt] and st[f"dx_equal_composed{case}"]
+                      and ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dt]
+                      and ex["share"] <= DX_ROW_SHARE[dt], f"B2 contract want_dx{case} {name} within tolerance")
+                check(set(ig_probe.CONTRACT_FAULTS) <= set(ex["faults"])
+                      and all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
+                      f"the dx rule catches every planted fault, the contraction's two among them ({name}{case})")
+                check(st[f"bit_equal_no_dx{case}"] and st[f"dx_inside_bit_equal{case}"]
+                      and st.get(f"b2_dx_no_contract_bit_equal_earlier{case}", True),
+                      f"B2 contract {name}{case}: the grads without dx, the rows inside the ball and the launch "
+                      "without contract unchanged")
+            # the contracted forward with the windows, with the codes
+            for case, (ww, xx, m, um, e) in {"windows": (w, x, cm, model, enc_w),
+                                             "codes": (wa, xa, cam, am, None)}.items():
+                before = (fwd.contract_launches, fwd.anneal_launches, fwd.app_launches, mlp.contract_launches())
+                got = fwd(ww, xx, dt, m, enc_w=e)
+                torch.cuda.synchronize()
+                check((fwd.contract_launches, fwd.anneal_launches, fwd.app_launches, mlp.contract_launches()) == (
+                    before[0] + 1, before[1] + (e is not None), before[2] + (m.app_dim > 0), before[3] + 1),
+                      f"the contracted forward with the {case} counted")
+                st[f"fwd_{case}_err"] = (got[:4] - mlp.fused_mlp_forward_plain(ww, xx, dt, m, enc_w=e)[:4]).abs().max().item()
+                unc = fwd(ww, xx, dt, um, enc_w=e)
+                st[f"fwd_{case}_inside_bit_equal"] = torch.equal(got[:, inside], unc[:, inside])
+                if earlier:
+                    st[f"fwd_{case}_no_contract_bit_equal_earlier"] = torch.equal(
+                        unc, earlier_forward(mlp, earlier["fused_mlp_fwd"], ww, xx, dt, um, e))
+                del got, unc
+                ms = turns_ms({"contract": lambda: fwd(ww, xx, dt, m, enc_w=e), "none": lambda: fwd(ww, xx, dt, um,
+                                                                                                    enc_w=e)})
+                st[f"fwd_{case}_ms"], st[f"fwd_{case}_none_ms"] = ms["contract"], ms["none"]
+                st[f"fwd_{case}_plain_ms"] = cuda_ms(lambda: mlp.fused_mlp_forward_plain(ww, xx, dt, m, enc_w=e),
+                                                     reps=3)
+                print(f"contracted forward with the {case} {name} at {rows} rows: vs plain {st[f'fwd_{case}_err']:.2e} "
+                      f"(tol {TOL[dt]:.0e}), bit-equal inside the ball to the launch without contract: "
+                      f"{st[f'fwd_{case}_inside_bit_equal']}; in turns {ms['contract']:.3f} ms, without contract "
+                      f"{ms['none']:.3f} ms; plain {st[f'fwd_{case}_plain_ms']:.3f} ms"
+                      + "".join(f"; {k} {v}" for k, v in st.items() if k.startswith(f"fwd_{case}")
+                                and k.endswith("earlier")), flush=True)
+                check(st[f"fwd_{case}_err"] <= TOL[dt] and st[f"fwd_{case}_inside_bit_equal"]
+                      and st.get(f"fwd_{case}_no_contract_bit_equal_earlier", True),
+                      f"the contracted forward with the {case} ({name}) matches plain, and the launch without contract")
+            ms = turns_ms({"dx": lambda: b2(w, x, gT, dt, cm, want_dx=True), "no_dx": lambda: b2(w, x, gT, dt, cm)})
+            st.update(ms=ms["dx"], ms_no_dx=ms["no_dx"], plain_ms=cuda_ms(
+                lambda: mlp.fused_mlp_backward_plain(w, x, gT, dt, cm, want_dx=True), reps=3))
+            print(f"B2 contract {name} in turns: with dx {st['ms']:.3f} ms, without {st['ms_no_dx']:.3f} ms; plain "
+                  f"{st['plain_ms']:.3f} ms", flush=True)
+            stats[name] = st
+            torch.cuda.empty_cache()
+    del x, xa, gT, codes
+    torch.cuda.empty_cache()
+    ig = ig_probe.run_contract(dev)
+    for name in ("f32", "bf16"):
+        v = ig[name]
+        print(f"contract input-gradient kernel alone {name} at {ig['rows']} rows ({ig['inside_rows']} inside the unit "
+              f"ball): {v['ms']:.3f} ms (without contract on the same planes {v['point_ms']:.3f} ms), plain "
+              f"{v['plain_ms']:.3f} ms, torch.mm yardstick {v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms "
+              f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; dx err {v['rel_err']:.2e} by row group (tol "
+              f"{ig_probe.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e}); inside the ball bit-equal "
+              f"to the kernel without contract: {v['inside_bit_equal']}; planted faults "
+              f"{', '.join(f'{k} {e:.2e}' for k, e in v['fault_err'].items())}", flush=True)
+    stats["input_grad"] = ig
+    return stats
+
+
+def c360_pose_config(scene: str, work: str) -> dict:
+    """``c360_config`` with configs/colmap360.yaml's pose block switched on,
+    cut to C360P_ITERS steps (C360P_WARMUP, C360P_FREEZE)."""
+    cfg = c360_config(scene, work)
+    cfg.update(exp_name="c360_pose", log_dir=os.path.join(work, "logs_c360_pose"), num_iters=C360P_ITERS,
+               ckpt_images=C360P_ITERS, ckpt_model=C360P_FREEZE, steps_per_call=10, pose_opt=True,
+               pose_warmup=C360P_WARMUP, pose_freeze_at=C360P_FREEZE)
+    return cfg
+
+
+def phase_pose_contract_train(dev, scene, work, mlp) -> dict:
+    """17b. configs/colmap360.yaml's keys with its pose block switched on
+    (``c360_pose_config``: contract, disparity, proposal Np 64, distortion
+    0.01, pose_opt, the warmup and the freeze cut to the run) through
+    train() (bf16, pallas, the flagship) on a copy of the unbounded scene
+    whose train poses are perturbed as the pose recipe's
+    (``perturb_train_poses``). Before the freeze each step runs the
+    contracted forward and B2 with the contract input gradient (counted by
+    the wrapper and in C), the proposal net in plain autograd; after it the
+    fused 360 core (one contracted B1 launch a step). The loss, the deltas,
+    the rig's error before and after (rotations and translations kept);
+    the pose step's wall and profile from a fresh state before the freeze;
+    then ``evaluate.test`` of train still 0 from the refined rig."""
+    import shutil
+
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.models import model_from_train_config
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    pert = os.path.join(work, "unbounded_pose")
+    shutil.copytree(scene, pert)
+    perturb_train_poses(pert)
+    rig_before = rig_error(scene, pert)
+    cfg = c360_pose_config(pert, work)
+    tcfg = train_config(cfg)
+    cm = model_from_train_config(tcfg)
+    check(cm.contract and (cm.Lp, cm.Ld, cm.H) == (10, 4, 256) and tcfg.proposal and tcfg.Np == 64
+          and tcfg.sampling_space == "disparity" and tcfg.distortion_loss_weight == DIST_LAMBDA and tcfg.pose_opt
+          and tcfg.compute_dtype == "bf16", "the 360 recipe's keys with its pose block")
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.contract_launches = b2.launches = b2.dx_launches = b2.contract_launches = 0
+    b1.launches = b1.contract_launches = b1.weights_dist_launches = 0
+    mlp.input_grad_launches(reset=True)
+    mlp.contract_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(forward=fwd.launches, forward_contract=fwd.contract_launches, b2=b2.launches,
+                    b2_dx=b2.dx_launches, b2_contract=b2.contract_launches,
+                    input_grad_contract=mlp.input_grad_contract_launches(), input_grad=mlp.input_grad_launches(),
+                    b1=b1.launches, b1_contract=b1.contract_launches, b1_weights_and_rail=b1.weights_dist_launches,
+                    c_contract=mlp.contract_launches())
+    text = log.getvalue()
+    with open(os.path.join(OUT, "train_c360_pose_log.txt"), "w") as fh:
+        fh.write(text)
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    with np.load(os.path.join(exp, "cam_deltas.npz")) as d:
+        dr, dt, freeze_step = d["dr"], d["dt"], int(d["freeze_step"])
+    rig_after = rig_error(scene, pert, dr, dt)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    kept = {k: rig_after[k] / rig_before[k] for k in ("rot", "trans", "rot_aligned", "trans_aligned")}
+    print(f"train 360 recipe + pose: {C360P_ITERS} steps in {train_s:.1f} s with renders; launches {launches}; loss "
+          f"(MSE + interlevel + distortion) {first:.5f} -> {last:.5f} (means of the first and last 10); |dr| max "
+          f"{np.abs(dr).max():.4f}, |dt| max {np.abs(dt).max():.4f}; the rig's mean error before "
+          f"{rig_before['rot']:.4f} rad / {rig_before['trans']:.4f}, after {rig_after['rot']:.4f} rad / "
+          f"{rig_after['trans']:.4f} (kept: rotations {kept['rot']:.3f}, translations {kept['trans']:.3f}; aligned as "
+          f"a whole {kept['rot_aligned']:.3f} / {kept['trans_aligned']:.3f}); "
+          + next(line for line in text.splitlines() if "pose freeze at step" in line), flush=True)
+    check(freeze_step == C360P_FREEZE and state.cams is None, "the freeze baked the deltas at pose_freeze_at")
+    check(launches["b2_dx"] == launches["b2_contract"] == launches["b2"] == launches["input_grad_contract"]
+          == launches["input_grad"] == C360P_FREEZE, "one contracted B2 launch with the contract input gradient a "
+          "step before the freeze, counted where it launches")
+    check(launches["b1"] == launches["b1_contract"] == launches["b1_weights_and_rail"] == C360P_ITERS - C360P_FREEZE,
+          "the fused 360 core (one contracted B1 launch with the weights and the rail a step) after the freeze")
+    check(launches["forward_contract"] == launches["forward"] >= C360P_FREEZE
+          and launches["c_contract"] == launches["forward_contract"] + launches["b2_contract"] + launches["b1_contract"],
+          "the contracted forwards (and the val renders), every contracted launch counted in C")
+    check(all(np.isfinite(losses)) and len(losses) == C360P_ITERS and last < first, "the 360 pose loss fell")
+    check(np.abs(dr).max() > 0 and np.abs(dt).max() > 0, "the deltas moved")
+
+    rd = RayDataset.from_blender(load_blender(pert, False, UNB_VIEWS[0]), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    n_pix = rd.H * rd.W
+    st = make_train_state(tcfg, cm, dev, n_images=rays.shape[0] // n_pix)
+    step_fn = build_train_step(tcfg, cm, rays_per_image=n_pix)
+
+    def step():  # before the freeze: the input gradient on every call
+        return step_fn(st, rays, pixels)
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = step_walls(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    others = {}
+    prof = profile_step(step, others, split_pose=True, rest="proposal net, rays, sampling and compositing")
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step 360 recipe + pose bf16 (before the freeze): {walls['ms']:.3f} ms a step, "
+          f"{BATCH / walls['ms'] * 1e3:,.0f} rays/s (CUDA events over 20 steps, median of 5; runs "
+          f"{', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a step in {walls['host_ms']:.3f} ms; peak "
+          f"device memory {peak_gb:.2f} GB; profile, device ms a step: " + (", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+              + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured"), flush=True)
+    del st, step_fn, rd, rays, pixels, state
+    torch.cuda.empty_cache()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        test(dict(loadpath=exp, datapath=pert, savepath=os.path.join(work, "eval_c360_pose"), im_set="train",
+                  im_idxs=[0], half_res=False, N_samples=N_SAMPLES, Np=tcfg.Np, sampling_space="disparity",
+                  tn=UNB_TN, tf=UNB_TF, compute_dtype="bf16", backend="pallas", batch_size=16384))
+    eval_s = time.perf_counter() - t0
+    psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", log.getvalue())]
+    print(f"eval 360 recipe + pose: train still 0 from the refined rig (the sidecar): PSNR "
+          f"{', '.join(f'{p:.2f}' for p in psnr)} dB in {eval_s:.1f} s", flush=True)
+    check(len(psnr) == 1 and np.isfinite(psnr[0]), "the refined 360 still rendered")
+    return dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s, rig_before=rig_before,
+                rig_after=rig_after, kept=kept, dr_max=float(np.abs(dr).max()), dt_max=float(np.abs(dt).max()),
+                step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle,
+                peak_gb=peak_gb, eval_psnr=psnr[0], eval_s=eval_s, pert=pert)
+
+
+def phase_app_contract_train(dev, pert, work, mlp) -> dict:
+    """17c. Appearance codes on a contracted model through train() (bf16,
+    pallas, the flagship): the 360 recipe's keys (``c360_config``, the
+    proposal main field) + ``appearance_dim`` APP_DIM + ``pose_opt`` with
+    ``pe_anneal_until`` CAPP_ANNEAL (no freeze: JAX's rule with codes),
+    CAPP_ITERS steps on the perturbed unbounded scene of 17b: each step the
+    contracted forward with the code rows (and the windows until the
+    anneal ends) and B2 with the codes and the contract input gradient
+    (its KDA slots), counted; no B1. The loss and the code table; then
+    ``evaluate.test`` of test still 0 under the mean code."""
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.train.loop import train
+
+    cfg = c360_config(pert, work)
+    cfg.update(exp_name="c360_app", log_dir=os.path.join(work, "logs_c360_app"), num_iters=CAPP_ITERS,
+               ckpt_images=10**6, ckpt_model=CAPP_ITERS, steps_per_call=10, appearance_dim=APP_DIM, pose_opt=True,
+               pose_warmup=C360P_WARMUP, pe_anneal_until=CAPP_ANNEAL)
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    for f in (fwd, b2):
+        f.launches = f.contract_launches = f.app_launches = f.anneal_launches = 0
+    b2.dx_launches = b1.launches = 0
+    mlp.input_grad_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(forward=fwd.launches, forward_contract=fwd.contract_launches, forward_app=fwd.app_launches,
+                    forward_anneal=fwd.anneal_launches, b2=b2.launches, b2_contract=b2.contract_launches,
+                    b2_app=b2.app_launches, b2_anneal=b2.anneal_launches, b2_dx=b2.dx_launches,
+                    input_grad_contract=mlp.input_grad_contract_launches(), b1=b1.launches)
+    with open(os.path.join(OUT, "train_c360_app_log.txt"), "w") as fh:
+        fh.write(log.getvalue())
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    table = state.app.tables()
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        test(dict(loadpath=exp, datapath=pert, savepath=os.path.join(work, "eval_c360_app"), im_idxs=[0],
+                  half_res=False, N_samples=N_SAMPLES, Np=NP_PROP, sampling_space="disparity", tn=UNB_TN, tf=UNB_TF,
+                  compute_dtype="bf16", backend="pallas", batch_size=16384, appearance_idx=-1))
+    psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", log.getvalue())]
+    print(f"train 360 recipe + appearance_dim {APP_DIM} + pose (anneal to {CAPP_ANNEAL}): {CAPP_ITERS} steps in "
+          f"{train_s:.1f} s; launches {launches}; loss {first:.5f} -> {last:.5f} (means of the first and last 10); "
+          f"code table |max| {np.abs(table).max():.4f}, spread over images {float(table.std(0).mean()):.4f}; eval "
+          f"under the mean code: PSNR {psnr}", flush=True)
+    check(launches["b2"] == launches["b2_contract"] == launches["b2_app"] == launches["b2_dx"]
+          == launches["input_grad_contract"] == CAPP_ITERS and launches["b2_anneal"] == CAPP_ANNEAL
+          and launches["b1"] == 0, "one contracted B2 launch with the codes and the contract input gradient a step "
+          "(the windows until the anneal ends), no B1")
+    check(launches["forward_contract"] == launches["forward_app"] == launches["forward"] >= CAPP_ITERS
+          and launches["forward_anneal"] >= CAPP_ANNEAL, "the contracted forwards with the code rows and the windows")
+    check(all(np.isfinite(losses)) and len(losses) == CAPP_ITERS and np.abs(table).max() > 0 and len(psnr) == 1
+          and np.isfinite(psnr[0]), "the contracted appearance run trains, its codes move, and it evaluates")
+    return dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s,
+                code_max=float(np.abs(table).max()), eval_psnr=psnr[0])
+
+
+# the single nets and the hierarchical pairs of phase 17d: steps, the pose
+# freeze of the first run (and the anneal's end of the second), Nc
+CNET_ITERS, CNET_FREEZE, CNET_NC = 40, 20, 64
+CNET_RUNS = {
+    "single + pose (freeze)": dict(pose_opt=True, pose_freeze_at=CNET_FREEZE),
+    "single + pose + anneal": dict(pose_opt=True, pe_anneal_until=CNET_FREEZE),
+    "single + codes": dict(appearance_dim=APP_DIM),
+    "hierarchical + pose": dict(hierarchical=True, Nc=CNET_NC, pose_opt=True),
+    "hierarchical + codes + pose": dict(hierarchical=True, Nc=CNET_NC, appearance_dim=APP_DIM, pose_opt=True),
+}
+
+
+def phase_pose_app_contract_nets(dev, pert, work, mlp) -> dict:
+    """17d. Pose refinement and appearance codes on a contracted single net
+    and hierarchical pair (CNET_RUNS) through train() (bf16, pallas, the
+    flagship, Nf 128, 4096 rays) on the perturbed unbounded scene of 17b:
+    the 360 recipe's keys (``c360_config``) without the proposal net and the
+    distortion, CNET_ITERS steps each. Before a freeze each step is the
+    contracted forward (with the windows until the anneal ends, with the
+    code rows) and one B2 launch a net with the contract input gradient;
+    after the first run's freeze at CNET_FREEZE, one contracted B1 launch a
+    step; counted. Each run's loss, then ``evaluate.test`` of one still
+    (the refined train still of a pose run, test still 0 under the mean
+    code of a codes run). The first run's export served by the CLI server,
+    one frame over HTTP matched to ``render_rays_chunked`` to 1 level."""
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.serve import decode_png
+    from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
+    from nerf_simple_tpu_torch.train.loop import train
+
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    out = {}
+    for i, (name, kw) in enumerate(CNET_RUNS.items()):
+        cfg = c360_config(pert, work)
+        cfg.update(exp_name=f"cnet{i}", log_dir=os.path.join(work, f"logs_cnet{i}"), num_iters=CNET_ITERS,
+                   ckpt_images=10**6, ckpt_model=CNET_ITERS, steps_per_call=10, proposal=False,
+                   distortion_loss_weight=0.0, pose_warmup=C360P_WARMUP, **kw)
+        tcfg = train_config(cfg)
+        hier, n_nets = tcfg.hierarchical, 2 if tcfg.hierarchical else 1
+        fwd.launches = fwd.contract_launches = b2.launches = b2.contract_launches = b2.dx_launches = 0
+        b1.launches = b1.contract_launches = 0
+        mlp.input_grad_launches(reset=True)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            train(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(forward=fwd.launches, forward_contract=fwd.contract_launches, b2=b2.launches,
+                        b2_contract=b2.contract_launches, b2_dx=b2.dx_launches,
+                        input_grad_contract=mlp.input_grad_contract_launches(), b1=b1.launches,
+                        b1_contract=b1.contract_launches)
+        with open(os.path.join(OUT, f"train_cnet{i}_log.txt"), "w") as fh:
+            fh.write(log.getvalue())
+        losses = scalars(cfg["log_dir"], "Loss/train")
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        exp = os.path.join(work, "models", cfg["exp_name"])
+        before_freeze = tcfg.pose_freeze_at or CNET_ITERS
+        elog = io.StringIO()
+        with contextlib.redirect_stdout(elog):
+            test(dict(loadpath=exp, datapath=pert, savepath=os.path.join(work, f"eval_cnet{i}"), im_idxs=[0],
+                      im_set="test" if tcfg.appearance_dim else "train", half_res=False, N_samples=N_SAMPLES,
+                      Nc=CNET_NC if hier else 0, sampling_space="disparity", tn=UNB_TN, tf=UNB_TF,
+                      compute_dtype="bf16", backend="pallas", batch_size=16384,
+                      **(dict(appearance_idx=-1) if tcfg.appearance_dim else {})))
+        psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", elog.getvalue())]
+        print(f"train {name} + contract: {CNET_ITERS} steps in {train_s:.1f} s; launches {launches}; loss "
+              f"{first:.5f} -> {last:.5f} (means of the first and last 10); eval still 0: PSNR {psnr}", flush=True)
+        check(launches["b2"] == launches["b2_contract"] == launches["b2_dx"] == launches["input_grad_contract"]
+              == n_nets * before_freeze, f"{name}: one contracted B2 launch with the contract input gradient a net "
+              "and step before any freeze")
+        check(launches["b1"] == launches["b1_contract"] == CNET_ITERS - before_freeze,
+              f"{name}: one contracted B1 launch a step after the freeze, none before")
+        check(launches["forward_contract"] == launches["forward"] >= n_nets * before_freeze,
+              f"{name}: the contracted forwards")
+        check(all(np.isfinite(losses)) and len(losses) == CNET_ITERS and len(psnr) == 1 and np.isfinite(psnr[0]),
+              f"{name}: every loss finite, the still rendered")
+        out[name] = dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s, eval_psnr=psnr[0],
+                         exp=exp)
+
+    # the first run's export (a contracted single net, its rig refined and baked) served over HTTP
+    exp = out["single + pose (freeze)"]["exp"]
+    path = os.path.join(exp, f"params_{CNET_ITERS}.npz")
+    focal = scene_focal(pert)
+    data, ctype, health, health_after, _ = cli_frame(
+        path, focal, ["--tn", str(UNB_TN), "--tf", str(UNB_TF), "--sampling-space", "disparity"],
+        "serve_cnet_log.txt", "the contracted pose model's server started")
+    field = NerfField.from_jax_params(load_params(path), dev, load_model_meta(path))
+    s = RenderSettings(N=N_SAMPLES, tn=UNB_TN, tf=UNB_TF, sampling_space="disparity", backend="pallas",
+                       compute_dtype=torch.bfloat16)
+    pose = torch.as_tensor(spherical_to_pose(4.5, -30.0, 30.0)[None], dtype=torch.float32, device=dev)
+    want = render_rays_chunked(field, rays_for_poses(pose, H, W, focal), 0, s)[0]
+    want = (want.reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
+    u8_err = int(np.abs(decode_png(data).astype(int) - want.astype(int)).max())
+    served = health_after["kernel_launches"] - health["kernel_launches"]
+    print(f"served single + pose + contract: a {H}x{W} PNG over HTTP, {served} forward launches, max diff from "
+          f"render_rays_chunked {u8_err} levels", flush=True)
+    check(field.model.contract and ctype == "image/png" and served > 0 and u8_err <= 1,
+          "the served contracted pose model's frame matches render_rays_chunked to 1 level")
+    out["served"] = dict(u8_err=u8_err, launches=served)
+    return out
 
 
 def phase_probe(dev):
@@ -4584,7 +5018,18 @@ def main() -> None:
         torch.cuda.empty_cache()
         cmip = phase_contract_mip(dev, unb, work, mlp)
         walls["contract"] = time.perf_counter() - t_phase
-    # 17. the padding probe
+        # 17. pose refinement and appearance codes on a contracted model: the contract input gradient and the
+        # contracted forward with the windows and the codes vs plain, the 360 recipe's pose block, codes
+        t_phase = time.perf_counter()
+        pck = phase_pose_contract_kernels(dev, unb, mlp, earlier)
+        torch.cuda.empty_cache()
+        pct = phase_pose_contract_train(dev, unb, work, mlp)
+        torch.cuda.empty_cache()
+        pca = phase_app_contract_train(dev, pct["pert"], work, mlp)
+        torch.cuda.empty_cache()
+        pcn = phase_pose_app_contract_nets(dev, pct["pert"], work, mlp)
+        walls["pose and appearance with contract"] = time.perf_counter() - t_phase
+    # 18. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -4854,6 +5299,40 @@ def main() -> None:
         "b3": contract_entry("b3", "nerf_simple_tpu/kernels/mlp.py:437-456 (_encode's contract branch), reached from "
                              ":1734", ct["launches"]["b3_contract"], 2 * fwd_macs * c_rows, 96 * c_rows),
     }
+    # the contracted forward with the windows and the codes, B2 with the
+    # contract input gradient (phase 17a), and their launches on the main
+    # path (17b-d)
+    nets = {k: {m: v for m, v in r.items() if m != "exp"} for k, r in pcn.items()}
+    nets_dx = sum(r["launches"]["input_grad_contract"] for k, r in pcn.items() if k != "served")
+    contract["fwd"].update(
+        windows_codes={k: {m: v for m, v in pck[k].items() if m.startswith("fwd_")} for k in ("f32", "bf16")},
+        launches_pose_app=pct["launches"]["forward_contract"] + pca["launches"]["forward_contract"],
+        launches_app=pca["launches"]["forward_app"], launches_windows=pca["launches"]["forward_anneal"])
+    contract["b2"].update(
+        want_dx={k: {m: v for m, v in pck[k].items() if not m.startswith("fwd_")} for k in ("f32", "bf16")},
+        launches_dx=pct["launches"]["b2_dx"] + pca["launches"]["b2_dx"], launches_app=pca["launches"]["b2_app"],
+        launches_windows=pca["launches"]["b2_anneal"])
+    contract["b1"].update(launches_pose=pct["launches"]["b1_contract"])
+    igc = pck["input_grad"]
+    igc_flops, igc_bytes = input_grad_work(NerfMLP(contract=True), igc["rows"], torch.float32)
+    input_grad_contract = {
+        "name": "input_grad_contract", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/fused_contract.cu",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:898-906, :933-938 (_input_grad_tile's contract branch), "
+                    ":733-746 (_bwd_kernel's want_dx)",
+        "launches": pct["launches"]["input_grad_contract"] + pca["launches"]["input_grad_contract"] + nets_dx,
+        "max_abs_err": igc["f32"]["max_abs_err"], "ms": igc["f32"]["ms"], "plain_ms": igc["f32"]["plain_ms"],
+        "bound_ms": igc["f32"]["bound_ms"], "bound_by": igc["f32"]["bound_by"], "library_ms": igc["f32"]["library_ms"],
+        "max_abs_err_bf16": igc["bf16"]["max_abs_err"], "ms_bf16": igc["bf16"]["ms"],
+        "plain_ms_bf16": igc["bf16"]["plain_ms"], "bound_ms_bf16": igc["bf16"]["bound_ms"],
+        "bound_by_bf16": igc["bf16"]["bound_by"], "library_ms_bf16": igc["bf16"]["library_ms"],
+        "variant": "input_grad_kernel<T, KD or KDA, MIP = false, CONTRACT = true> (csrc/input_grad.cuh)",
+        "rows": igc["rows"], "inside_rows": igc["inside_rows"], "flops": igc_flops, "bytes": igc_bytes,
+        **{f"{m}{'' if k == 'f32' else '_bf16'}": igc[k][m] for k in ("f32", "bf16")
+           for m in ("rel_err", "point_ms", "share_of_bound", "fault_err", "inside_bit_equal")},
+        "launches_pose": pct["launches"]["input_grad_contract"], "launches_app": pca["launches"]["input_grad_contract"],
+        "step_profile_ms_bf16": pct["profile"].get("input grad"),
+        "launches_nets": nets_dx, "c360_pose": {k: v for k, v in pct.items() if k != "pert"}, "c360_app": pca,
+        "contract_nets": nets}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -4893,6 +5372,7 @@ def main() -> None:
          "flops": ig_flops, "bytes": ig_bytes,
          "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad},
         input_grad_mip,
+        input_grad_contract,
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],

@@ -21,11 +21,11 @@ import re
 import warnings
 from typing import Any
 
-# What a contracted model cannot train through yet: every path that needs
-# the gradient of the sample positions (pose refinement, appearance codes).
-CONTRACT_INPUT_GRAD = (
-    "ROADMAP Queue B item 3, the contract branch of the input-gradient kernel (the contraction's Jacobian in "
-    "JAX _input_grad_tile)"
+# What a contracted model cannot train through yet: the gradient of the
+# frustum Gaussians under mip (pose refinement with mip and contract).
+CONTRACT_MIP_INPUT_GRAD = (
+    "ROADMAP Queue B item 4, the contract branch of the mip input-gradient kernel (the linearised Gaussian "
+    "warp's Jacobian in JAX _input_grad_tile_mip)"
 )
 
 
@@ -203,11 +203,10 @@ class TrainConfig:
                 "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
                 "ported yet: ROADMAP Queue A item 2, mip x proposal"
             )
-        if self.contract and (self.pose_opt or self.appearance_dim > 0):
-            what = "pose_opt" if self.pose_opt else f"appearance_dim={self.appearance_dim}"
+        if self.contract and self.pose_opt and self.mip:
             raise NotImplementedError(
-                f"contract=True with {what} trains through the gradient of the contracted positions, which is not "
-                f"ported yet: {CONTRACT_INPUT_GRAD}"
+                "contract=True with pose_opt and mip trains through the gradient of the contracted frustum "
+                f"Gaussians, which is not ported yet: {CONTRACT_MIP_INPUT_GRAD}"
             )
         self._check_pose()
         self._check_appearance()

@@ -8,10 +8,11 @@
 // forward with the integrated encoder, :702, :717), with or without BARF's
 // anneal windows in the recompute (:707, :1107, :1118-1120); with dx (the
 // point variant's want_dx, :733-746) also the input gradient of
-// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh, and
-// with `mip` and dx its mip instantiation, _input_grad_tile_mip
-// (:941-1078, :738-742; no contraction: dx of a contracted model is not
-// ported); for an appearance model (`app`)
+// _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh, with
+// `mip` and dx its mip instantiation, _input_grad_tile_mip (:941-1078,
+// :738-742; without contraction), and with `contract` and dx (no mip) its
+// contract instantiation, built in csrc/fused_contract.cu (:898-906,
+// :933-938); for an appearance model (`app`)
 // the recompute with the codes (:716-724), dWca (:854-857) and the codes'
 // rows of dx (:867, :747-748, :1140-1145).
 //
@@ -71,42 +72,47 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) 
 // Launches on `stream`; returns the first CUDA error (0 on success).
 // `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
 // anneal windows of the forward it recomputes (FX and enc_rows(Ld) floats
-// on the card). `contract`: a contracted model's recompute (no windows,
-// codes or dx). `dx`: null, or (8, rows) f32 for the input gradient, (16,
-// rows) with `app` or `mip` (under mip rows 0..2 d/d(mean), 3..5 d/d(dir),
-// 11..13 d/d(variance); not with the windows or codes, as in JAX).
+// on the card). `contract`: a contracted model's recompute and input
+// gradient (not both with mip). `dx`: null, or (8, rows) f32 for the input
+// gradient, (16, rows) with `app` or `mip` (under mip rows 0..2
+// d/d(mean), 3..5 d/d(dir), 11..13 d/d(variance); not with the windows or
+// codes, as in JAX).
 int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld,
                   int H, int is_bf16, Weights w, WeightsT wt, void *workspace,
                   Grads out, int mip, const float *wx, const float *wd, float *dx, int app, int contract,
                   void *stream) {
   if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0 || (mip && (wx || app)) || (contract && (app || dx))) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || app)) || (contract && mip && dx)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16, app != 0);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);
-  if (int e = app ? forward<true>(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, false, wx, wd, s)
-                  : forward_point(contract != 0, x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0,
-                                  wx, wd, s))
+  if (int e = contract ? forward_contract(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd,
+                                          app != 0, s)
+              : app    ? forward<true>(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, false, wx, wd, s)
+                       : forward(x, out8, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.image, mip != 0, wx, wd, s))
     return e;
   if (int e = backward(g, rows, Lp, Ld, H, is_bf16, w, ws.res, ws.gws, ws.image, ws.part, out, s, app != 0))
     return e;
-  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s, app != 0, mip != 0) : 0;
+  return dx ? ig::launch(ws.gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, s, app != 0, mip != 0, contract != 0)
+            : 0;
 }
 
 // The input-gradient kernel alone, on `stream`: from the cotangent planes
 // `gws` ((FG, Rp) of mlp_tile.cuh's Layout in the compute type, Rp = rows
 // rounded up to 64) and x (8, rows) f32 to dx (8, rows) f32 (both 16 rows
-// with `app` or `mip`), with the anneal windows wx, wd (or null): for tests
-// and timing.
+// with `app` or `mip`), with the anneal windows wx, wd (or null); a
+// contracted model's with `contract` (through set_contract_input_grad):
+// for tests and timing.
 int input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, int is_bf16, Weights w,
-               const float *wx, const float *wd, float *dx, int app, int mip, void *stream) {
+               const float *wx, const float *wd, float *dx, int app, int mip, int contract, void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
   return ig::launch(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, static_cast<cudaStream_t>(stream), app != 0,
-                    mip != 0);
+                    mip != 0, contract != 0);
 }
 
 // Launches of the input-gradient kernel by this library so far, as
-// bwd_tile_launch_count counts the tile kernels.
+// bwd_tile_launch_count counts the tile kernels (a contracted model's are
+// counted in csrc/fused_contract.cu's library, which launches them).
 long long input_grad_launch_count(int reset) {
   const long long n = ig::launches;
   if (reset) ig::launches = 0;
@@ -119,6 +125,10 @@ long long input_grad_mip_launch_count(int reset) {
   if (reset) ig::mip_launches = 0;
   return n;
 }
+
+// Where ig::launch finds the contract instantiation (csrc/fused_contract.cu's
+// fused_contract_input_grad).
+void set_contract_input_grad(void *f) { ig::contract_input_grad = reinterpret_cast<ig::ContractInputGrad>(f); }
 
 // Bytes of the scratch `image` backward_tile needs (its weight image).
 long long bwd_tile_image_bytes(int H, int is_bf16) { return bwd_image_bytes(H, is_bf16); }

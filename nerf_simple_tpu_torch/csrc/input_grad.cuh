@@ -1,9 +1,10 @@
 // The input-gradient kernel of the fused NeRF MLP backward for Hopper
 // (sm_90a): dL/dx of the MLP's input rows, from the cotangent planes the
 // backward tile kernel leaves in the workspace. Included by
-// fused_mlp_bwd.cu after mlp_tile.cuh (whose Layout, Weights and helpers
-// it uses); fused_mlp_bwd launches it after the weight-gradient sums when
-// it is asked for dx (pose refinement trains through ray generation).
+// fused_mlp_bwd.cu and (its CONTRACT instantiation) fused_contract.cu,
+// after mlp_tile.cuh (whose Layout, Weights and helpers it uses);
+// fused_mlp_bwd launches it after the weight-gradient sums when it is
+// asked for dx (pose refinement trains through ray generation).
 //
 // Replaces: nerf_simple_tpu/kernels/mlp.py::_bwd_kernel's want_dx branch
 // (:733-746): the encoded inputs' cotangents of _backprop_tile (:865-868,
@@ -13,7 +14,9 @@
 // for an appearance model also the code gradients g_app = Wca^T g_hc
 // (:867), appended as rows 8..15 of dx (:747-748, :1140-1145); under mip
 // (cone casting) the integrated encoder's transpose instead,
-// _input_grad_tile_mip (:941-1078, without contraction; :738-742).
+// _input_grad_tile_mip (:941-1078, without contraction; :738-742); for
+// a contracted model without mip the contract branch of _input_grad_tile
+// (:898-906, :933-938), in the CONTRACT instantiation.
 //
 // Contract: the workspace's cotangent planes (mlp_tile.cuh's Layout) g_h0,
 // g_h5 and g_hc (the first H/2 rows of g_cs), each (features, Rp) in the
@@ -46,6 +49,17 @@
 // rest zero. One expf a (coordinate, octave) pair, shared by its sin and
 // cos rows, in f32 as the forward computes it; no windows and no codes
 // under mip (the JAX config's rules).
+//
+// Contract (`CONTRACT`, a compile-time switch whose instantiations are
+// built into csrc/fused_contract.cu's library alone; B2 reaches them
+// through set_contract_input_grad, so the kernels without it keep their
+// code): each row contracts x's rows 0..2 with mlp_tile.cuh's
+// contract_point, the forward's own arithmetic, so the angles of sincosf
+// are the forward's contracted coordinates to the bit; posx's transpose is
+// taken there, and the contraction's transpose (contract_transpose: g dy
+// + c (x . dy) x at the uncontracted x) then goes onto d[0..2]. posd and
+// the code rows are not contracted. Windows and codes compose with it; mip
+// does not (the mip Jacobian is not ported).
 //
 // What bounds it (flagship, 524,288 rows): in bf16 the bytes, 640 plane
 // rows x 2 B, x and dx, ~1,344 B a row: 0.21 ms at 3.35 TB/s (its 83,968
@@ -108,7 +122,10 @@ __device__ __forceinline__ int column(int s, int L) {
 // products of the slots past KD (the appearance codes', K = KDA) go to
 // `code` as they are. MIP: the sin and cos rows were damped by the
 // variances vc (stride `rows`); d gets the angle chain, dv the damp chain.
-template <class T, int K, int LM, bool TWO, bool MIP = false>
+// CX: the transpose is taken at the contracted coordinates (contract_point
+// of the row xc, after the products, so that they hold no register
+// through them).
+template <class T, int K, int LM, bool TWO, bool MIP = false, bool CX = false>
 __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
                                        const float *sa, const float *sb, int O, const float *__restrict__ xc,
                                        long long rows, int L, const float *__restrict__ ew, float d[3],
@@ -152,11 +169,22 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     b = bn;
   }
   const int sbk = ceil8(3 * L);
+  float cx[3];
+  if constexpr (CX) {
+    float v[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cx[c] = xc[(long long)c * rows];
+    contract_point(cx, v, false);
+  }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float dc = acc[c];
     if (ew) dc *= __ldg(ew + c);
-    const float xv = xc[(long long)c * rows];
+    float xv;
+    if constexpr (CX)
+      xv = cx[c];
+    else
+      xv = xc[(long long)c * rows];
     float vv = 0.f, dvc = 0.f;
     if constexpr (MIP) vv = vc[(long long)c * rows];
 #pragma unroll
@@ -187,8 +215,9 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
 }
 
 // KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16
-// rows); MIP: the integrated encoder's transpose (x and dx of 16 rows).
-template <class T, int KP, bool MIP = false>
+// rows); MIP: the integrated encoder's transpose (x and dx of 16 rows);
+// CONTRACT: a contracted model's (not with MIP).
+template <class T, int KP, bool MIP = false, bool CONTRACT = false>
 __global__ void __launch_bounds__(THREADS, 1)
     input_grad_kernel(const T *__restrict__ g0, const T *__restrict__ g5, const T *__restrict__ gc, long long Rp,
                       const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
@@ -220,6 +249,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 8; j < 11; ++j) dx[j * rows + row] = 0.f;
       dx[14 * rows + row] = 0.f;
       dx[15 * rows + row] = 0.f;
+    } else if constexpr (CONTRACT) {  // posx's transpose at the contracted row, then the contraction's
+      branch<T, KX, LXM, true, false, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
+      float xo[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) xo[c] = x[c * rows + row];
+      contract_transpose(xo, d);
     } else {
       branch<T, KX, LXM, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
     }
@@ -237,12 +272,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <class T>
+// CONTRACT: a contracted model's instantiations (and no other is built).
+template <class T, bool CONTRACT = false>
 int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, int H, const Weights &w,
              const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app, bool mip) {
   const Layout L = make_layout(rows, Lp, Ld, H, app);
   const long long es = sizeof(T), smem = smem_bytes(H, app);
-  auto kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
+  decltype(&input_grad_kernel<T, KD>) kernel;
+  if constexpr (CONTRACT)
+    kernel = app ? input_grad_kernel<T, KDA, false, true> : input_grad_kernel<T, KD, false, true>;
+  else
+    kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -258,12 +298,37 @@ int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, in
   return (int)cudaGetLastError();
 }
 
+#ifdef CONTRACT_LIBRARY
+// dx (8, rows), or (16, rows) with `app`, of a contracted model from the
+// cotangent planes `gws` of the workspace, on `stream`; counts the launch.
+int launch_contract(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
+                    const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app) {
+  if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
+  const char *g = static_cast<const char *>(gws);
+  const int e = is_bf16 ? launch_t<bf16, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, false)
+                        : launch_t<float, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, false);
+  if (e == 0) ++launches;
+  return e;
+}
+#else
+// The contract instantiation: csrc/fused_contract.cu's
+// fused_contract_input_grad, which set_contract_input_grad hands to this
+// library (as mlp_tile.cuh's contract_forward, and for the same reason).
+typedef int (*ContractInputGrad)(const void *, const float *, long long, int, int, int, int, Weights, const float *,
+                                 const float *, float *, int, void *);
+ContractInputGrad contract_input_grad = nullptr;
+
 // dx (8, rows), or (16, rows) with `app` or `mip`, from the cotangent
 // planes `gws` of the workspace, on `stream`; counts the launch (and the
-// mip ones apart).
+// mip ones apart). A contracted model's (`contract`, not with mip) goes
+// to contract_input_grad, whose library counts it.
 int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
            const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false,
-           bool mip = false) {
+           bool mip = false, bool contract = false) {
+  if (contract) {
+    if (mip || !contract_input_grad) return (int)cudaErrorInvalidValue;
+    return contract_input_grad(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, app, stream);
+  }
   if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr) || (mip && (wx || app)))
     return (int)cudaErrorInvalidValue;
   const char *g = static_cast<const char *>(gws);
@@ -275,6 +340,7 @@ int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int 
   }
   return e;
 }
+#endif
 
 }  // namespace ig
 }  // namespace

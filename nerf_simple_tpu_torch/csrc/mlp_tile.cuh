@@ -68,19 +68,24 @@ __device__ __forceinline__ float bias(const void *b, int o) {
   return static_cast<const float *>(b)[o];
 }
 
+// |y| of a sample as the contraction takes it: its squares summed in order
+// without FMAs, as the plain version sums them, floored at 1e-20.
+__device__ __forceinline__ float contract_norm(const float *y) {
+  return sqrtf(fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(y[0], y[0]), __fmul_rn(y[1], y[1])), __fmul_rn(y[2], y[2])),
+                     1e-20f));
+}
+
 // Scene contraction of one sample (mip-NeRF 360, eqn. 10), in place on
-// its coordinates y[0..2]: n = |y| (its square summed without FMAs, as the
-// plain version sums it, floored at 1e-20), y unchanged for n <= 1, else
-// y * g with g = (2 - 1/n) / n, so that all of space lands in the radius-2
-// ball. With `mip`, the three variances v[0..2] first go through the
-// contraction's Jacobian at the uncontracted mean (the linearised Gaussian
-// warp, eqn. 8-9): v_c = g^2 v_c + 2 g c m_c v_c + c^2 m_c sum_j m_j v_j,
-// m = y^2, c = g'(n) / n = (-2/n^2 + 2/n^3) / n. Inside the ball nothing is
-// touched (g = 1, c = 0): a contracted launch equals one without there, to
-// the bit.
+// its coordinates y[0..2]: n = |y| (contract_norm), y unchanged for n <= 1,
+// else y * g with g = (2 - 1/n) / n, so that all of space lands in the
+// radius-2 ball. With `mip`, the three variances v[0..2] first go through
+// the contraction's Jacobian at the uncontracted mean (the linearised
+// Gaussian warp, eqn. 8-9): v_c = g^2 v_c + 2 g c m_c v_c + c^2 m_c sum_j
+// m_j v_j, m = y^2, c = g'(n) / n = (-2/n^2 + 2/n^3) / n. Inside the ball
+// nothing is touched (g = 1, c = 0): a contracted launch equals one without
+// there, to the bit.
 __device__ __forceinline__ void contract_point(float *y, float *v, bool mip) {
-  const float n = sqrtf(fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(y[0], y[0]), __fmul_rn(y[1], y[1])),
-                                        __fmul_rn(y[2], y[2])), 1e-20f));
+  const float n = contract_norm(y);
   if (n <= 1.f) return;
   const float g = (2.f - 1.f / n) / n;
   if (mip) {
@@ -96,6 +101,19 @@ __device__ __forceinline__ void contract_point(float *y, float *v, bool mip) {
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) y[k] *= g;
+}
+
+// The transpose of contract_point (without mip) at the uncontracted sample
+// x[0..2]: the cotangent d[0..2] of the contracted coordinates becomes, in
+// place, that of x, g d + c (x . d) x (the Jacobian g I + c x x^T is
+// symmetric); inside the ball d is left as it is (g = 1, c = 0).
+__device__ __forceinline__ void contract_transpose(const float *x, float *d) {
+  const float n = contract_norm(x);
+  if (n <= 1.f) return;
+  const float g = (2.f - 1.f / n) / n, c = (-2.f / (n * n) + 2.f / (n * n * n)) / n;
+  const float dot = x[0] * d[0] + x[1] * d[1] + x[2] * d[2];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d[k] = g * d[k] + c * dot * x[k];
 }
 
 // ----------------------------------------------------------------------
@@ -218,15 +236,15 @@ int backward(const float *g, long long rows, int Lp, int Ld, int H, bool is_bf16
 // a window, into posd's last eight rows, where Wcd's last eight columns
 // (Wca) read them. APP is a compile-time switch: the train-step and render
 // entries, which take no codes, build the forward kernels without it only.
-// CONTRACT (a contracted model's; not with APP): the encoder contracts
-// rows 0..2, and under mip warps the variances, before it encodes them
-// (contract_point). Only csrc/fused_contract.cu instantiates it
-// (forward_point), which counts its launches in fwd_contract_launches.
+// CONTRACT (a contracted model's): the encoder contracts rows 0..2, and
+// under mip warps the variances, before it encodes them (contract_point);
+// the windows multiply the encoded rows after that, and the code rows are
+// posd's, never contracted. Only csrc/fused_contract.cu instantiates it
+// (forward_contract), which counts its launches in fwd_contract_launches.
 template <bool APP = false, bool CONTRACT = false>
 int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
             const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
             cudaStream_t stream) {
-  static_assert(!(APP && CONTRACT), "no appearance model is contracted");
   const float *var = mip ? x + 11 * rows : nullptr;
   const int e =
       is_bf16
@@ -246,17 +264,24 @@ int forward(const float *x, float *out, long long rows, int Lp, int Ld, int H, b
 // instructions at H = 256 in the train-step and render libraries).
 #ifndef CONTRACT_LIBRARY  // csrc/fused_contract.cu itself builds no forward without contract
 typedef int (*ContractForward)(const float *, float *, long long, int, int, int, int, Weights, void *, void *,
-                               int, void *);
+                               int, const float *, const float *, int, void *);
 ContractForward contract_forward = nullptr;
 
-// forward() of a model without codes, contracted (through contract_forward;
-// no windows) or not.
+// forward() of a contracted model (through contract_forward), with the
+// windows or none, with the codes (`app`) or none.
+int forward_contract(const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
+                     const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd, bool app,
+                     cudaStream_t stream) {
+  if (!contract_forward) return (int)cudaErrorInvalidValue;
+  return contract_forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, wx, wd, app, stream);
+}
+
+// forward() of a model without codes, contracted or not.
 int forward_point(bool contract, const float *x, float *out, long long rows, int Lp, int Ld, int H, bool is_bf16,
                   const Weights &w, void *res, void *image, bool mip, const float *wx, const float *wd,
                   cudaStream_t stream) {
   if (!contract) return forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, wx, wd, stream);
-  if (!contract_forward || wx) return (int)cudaErrorInvalidValue;
-  return contract_forward(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, stream);
+  return forward_contract(x, out, rows, Lp, Ld, H, is_bf16, w, res, image, mip, wx, wd, false, stream);
 }
 #endif
 
@@ -310,7 +335,7 @@ long long bwd_tile_launch_count(int reset) {
   return n;
 }
 
-// Where forward_point finds the contracted forward (csrc/fused_contract.cu's
+// Where forward_contract finds the contracted forward (csrc/fused_contract.cu's
 // fused_contract_fwd).
 #ifndef CONTRACT_LIBRARY
 void set_contract_forward(void *f) { contract_forward = reinterpret_cast<ContractForward>(f); }

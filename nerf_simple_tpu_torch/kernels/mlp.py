@@ -8,7 +8,8 @@ variants, each with or without the scene contraction:
 - ``fused_mlp_backward`` (csrc/fused_mlp_bwd.cu): the weight gradients
   for per-sample output cotangents (the TPU ``_fused_mlp_bwd``), and with
   ``want_dx`` the gradient of the input rows too (csrc/input_grad.cuh,
-  the TPU ``_input_grad_tile``, and under mip ``_input_grad_tile_mip``);
+  the TPU ``_input_grad_tile``, and under mip ``_input_grad_tile_mip``;
+  a contracted model's through csrc/fused_contract.cu);
 - ``fused_mlp``: a ``torch.autograd.Function`` whose forward is the first
   and whose backward is the second;
 - ``input_grad`` (csrc/input_grad.cuh, through csrc/fused_mlp_bwd.cu):
@@ -31,9 +32,9 @@ variants, each with or without the scene contraction:
   csrc/fused_mlp_fwd.cu): the forward tile kernel as B1 and B2 run it,
   its output and every residual plane.
 
-A contracted model's forward tile kernels are built into a library of
-their own (csrc/fused_contract.cu), which each of the others calls for
-it (``_link_contract``).
+A contracted model's forward tile kernels and input-gradient kernel are
+built into a library of their own (csrc/fused_contract.cu), which each of
+the others calls for them (``_link_contract``).
 
 Each source's header says what bounds it on the card and how it is laid
 out; the tile kernels they share are headers of ``csrc/mlp_tile.cuh``.
@@ -63,9 +64,12 @@ gradients with no new pass (``_posd_rows``). A contracted model
 posx contract rows 0..2 first, ``x g(n)`` with ``g = (2 - 1/n) / n``
 outside the unit ball and 1 inside, and under mip warp the variance rows
 through the contraction's Jacobian; the residual planes hold the
-contracted posx, so the backward's weight gradients need no change. No
-gradient reaches the input of a contracted model yet (ROADMAP Queue B
-item 3): ``fused_mlp`` and ``want_dx`` raise there.
+contracted posx, so the backward's weight gradients need no change; its
+input gradient takes the encoder's transpose at the contracted rows and
+then the contraction's, ``g dy + c (x . dy) x`` (``_encode_transpose``).
+The windows and the code rows compose with the contraction as without
+it. Under mip no gradient reaches the input of a contracted model yet
+(ROADMAP Queue B item 4): ``fused_mlp`` and ``want_dx`` raise there.
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -91,9 +95,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerf_simple_tpu_torch.config import CONTRACT_INPUT_GRAD
+from nerf_simple_tpu_torch.config import CONTRACT_MIP_INPUT_GRAD
 from nerf_simple_tpu_torch.kernels import _build
-from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, require_ported
+from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP
 from nerf_simple_tpu_torch.ops.volume import s_norm
 
 FLAGSHIP = NerfMLP()
@@ -458,15 +462,32 @@ def _contract(xyz: torch.Tensor, var: torch.Tensor | None) -> tuple[torch.Tensor
     linearised Gaussian warp of the variances at the uncontracted means:
     ``g^2 v + 2 g c m2 v + c^2 m2 (m2 . v)``, ``c = (-2/n^2 + 2/n^3) / n``
     outside (0 inside), ``m2 = xyz^2``. Inside the ball both are unchanged."""
-    n = torch.sqrt(torch.clamp(xyz[0:1] ** 2 + xyz[1:2] ** 2 + xyz[2:3] ** 2, min=1e-20))
-    inside = n <= 1.0
-    g = torch.where(inside, 1.0, (2.0 - 1.0 / n) / n)
+    g, c = _contract_scales(xyz)
     if var is not None:
-        c = torch.where(inside, 0.0, (-2.0 / n**2 + 2.0 / n**3) / n)
         m2 = xyz**2
         m2v = m2[0:1] * var[0:1] + m2[1:2] * var[1:2] + m2[2:3] * var[2:3]
         var = g**2 * var + 2.0 * g * c * m2 * var + c**2 * m2 * m2v
     return xyz * g, var
+
+
+def _contract_scales(xyz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``g`` and ``c`` of the contraction at ``xyz (3, rows)``, each (1,
+    rows), from ``n = sqrt(max(x0^2 + x1^2 + x2^2, 1e-20))`` (summed in this
+    order, as the CUDA kernels sum it): ``g = (2 - 1/n) / n`` and ``c =
+    (-2/n^2 + 2/n^3) / n`` outside the unit ball, 1 and 0 inside."""
+    n = torch.sqrt(torch.clamp(xyz[0:1] ** 2 + xyz[1:2] ** 2 + xyz[2:3] ** 2, min=1e-20))
+    inside = n <= 1.0
+    g = torch.where(inside, 1.0, (2.0 - 1.0 / n) / n)
+    return g, torch.where(inside, 0.0, (-2.0 / (n * n) + 2.0 / (n * n * n)) / n)
+
+
+def _contract_transpose(xyz: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The transpose of the contraction (without mip) at the uncontracted
+    ``xyz (3, rows)``: the cotangent ``dy`` of the contracted rows -> that
+    of ``xyz``, ``g dy + c (x . dy) x`` (its Jacobian ``g I + c x x^T`` is
+    symmetric; ``_contract_scales``); ``dy`` inside the unit ball."""
+    g, c = _contract_scales(xyz)
+    return g * dy + c * (xyz * dy).sum(0, keepdim=True) * xyz
 
 
 def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tensor,
@@ -479,7 +500,12 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
     0..2, posd rows 3..5; rows 6..7 are zero (the JAX ``_input_grad_tile``
     without contraction). For an appearance model dx is (16, rows): posd's
     code rows pass their cotangents through to rows 8..15 (the JAX
-    ``g_app``, appended at kernels/mlp.py:747-748).
+    ``g_app``, appended at kernels/mlp.py:747-748). A contracted model's
+    posx was encoded at the contracted rows (``_contract``): its transpose
+    is taken there, and the contraction's at the uncontracted ``x``
+    (``_contract_transpose``) takes it to rows 0..2 (the JAX
+    ``_input_grad_tile``'s contract branch, :898-906, :933-938); posd and
+    the code rows are not contracted.
 
     With ``mip`` (``xT`` (16, rows), the variances in rows 11..13), the
     integrated encoder's transpose (the JAX ``_input_grad_tile_mip``
@@ -505,12 +531,18 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
         dang = gs * c - gc * s
         return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1), dv
 
-    if model.contract:
-        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
+    if model.contract and mip:
+        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
+                                  f"{CONTRACT_MIP_INPUT_GRAD}")
     FD0 = _enc_rows(model.Ld)
     dt = g_posx.dtype
     dx = torch.zeros((_x_rows(mip, model), xT.shape[1]), dtype=dt, device=xT.device)
-    dx[0:3], dv = branch(xT[0:3].to(dt), g_posx, model.Lp, xT[11:14].to(dt) if mip else None)
+    xyz = xT[0:3].to(dt)
+    if model.contract:
+        dx[0:3] = _contract_transpose(xyz, branch(_contract(xyz, None)[0], g_posx, model.Lp)[0])
+        dv = None
+    else:
+        dx[0:3], dv = branch(xyz, g_posx, model.Lp, xT[11:14].to(dt) if mip else None)
     dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd[:FD0], model.Ld)[0]
     if mip:
         dx[11:14] = dv
@@ -999,7 +1031,8 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_mlp_bwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _CWeightsT, _P, _CPtrs, _I, _P, _P, _P, _I, _I,
                            _P], _I),
         "set_contract_forward": ([_P], None),
-        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _P], _I),
+        "set_contract_input_grad": ([_P], None),
+        "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _I, _P], _I),
         "input_grad_launch_count": ([_I], _LL),
         "input_grad_mip_launch_count": ([_I], _LL),
         "fused_mlp_bwd_smem_bytes": ([_I] * 5, _LL),
@@ -1030,8 +1063,10 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "bwd_tile_launch_count": ([_I], _LL),
     },
     "fused_contract": {
-        "fused_contract_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P], _I),
+        "fused_contract_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _I, _P], _I),
         "fwd_contract_launch_count": ([_I], _LL),
+        "fused_contract_input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _P], _I),
+        "input_grad_contract_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -1050,11 +1085,15 @@ def _lib(name: str) -> ctypes.CDLL:
     return _bind(_build.load(name), name)
 
 
-def _link_contract(lib: ctypes.CDLL) -> None:
-    """Hand a library the contracted forward (csrc/fused_contract.cu, a
-    library of its own: mlp_tile.cuh's forward_point), building it first
-    if it is not built."""
-    lib.set_contract_forward(ctypes.cast(_lib("fused_contract").fused_contract_fwd, ctypes.c_void_p).value)
+def _link_contract(lib: ctypes.CDLL, name: str) -> None:
+    """Hand library ``name`` the contracted forward (csrc/fused_contract.cu,
+    a library of its own: mlp_tile.cuh's forward_contract) and, B2's, the
+    input gradient's contract instantiation (input_grad.cuh's
+    contract_input_grad), building it first if it is not built."""
+    contracted = _lib("fused_contract")
+    lib.set_contract_forward(ctypes.cast(contracted.fused_contract_fwd, ctypes.c_void_p).value)
+    if "set_contract_input_grad" in _SIGNATURES[name]:
+        lib.set_contract_input_grad(ctypes.cast(contracted.fused_contract_input_grad, ctypes.c_void_p).value)
 
 
 def _weight_shapes(model: NerfMLP) -> dict[str, tuple[int, int]]:
@@ -1092,7 +1131,7 @@ def _check_launch(name: str, wts: FusedWeights, x: torch.Tensor, x_name: str, x_
             )
     lib = _lib(name)
     if model.contract:
-        _link_contract(lib)
+        _link_contract(lib, name)
     bf16 = int(compute_dtype == torch.bfloat16)
     app = (int(model.app_dim > 0),) if name in ("fused_mlp_fwd", "fused_mlp_bwd") else ()
     smem = getattr(lib, f"{name}_smem_bytes")(model.Lp, model.Ld, model.H, bf16, *app)
@@ -1134,7 +1173,6 @@ def _image_scratch(nbytes, model: NerfMLP, bf16: int, device, *app) -> torch.Ten
 def _prepare(wts: FusedWeights, compute_dtype, model: NerfMLP, mip: bool = False) -> FusedWeights:
     if not supported(model):
         raise ValueError(f"fused kernel needs H % 16 == 0, H >= 16, app_dim <= 8; got {model}")
-    require_ported(model)  # no contracted appearance model
     if mip and model.app_dim > 0:
         raise ValueError("appearance codes and the integrated encoder both need the input's rows 8..15 "
                          "(the JAX fused_mlp_forward's rule); mip with appearance_dim is refused")
@@ -1329,12 +1367,14 @@ def fused_mlp_backward(
     gradients from the backward's cotangent planes
     (``fused_mlp_backward.dx_launches``, of them ``mip_dx_launches``); the
     windows get no gradient. A contracted model recomputes the contracted
-    forward (``contract_launches``); it takes no ``want_dx`` (ROADMAP Queue
-    B item 3)."""
+    forward (``contract_launches``), and its dx is the input-gradient
+    kernel's contract instantiation (csrc/fused_contract.cu,
+    ``input_grad_contract_launches``); under mip it takes no ``want_dx``
+    (ROADMAP Queue B item 4)."""
     wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
-    if want_dx and model.contract:
-        raise NotImplementedError(f"want_dx of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
+    if want_dx and model.contract and mip:
+        raise NotImplementedError(f"want_dx of a contracted mip model is not ported yet: {CONTRACT_MIP_INPUT_GRAD}")
     if _dispatch(xT):
         with torch.no_grad():
             return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
@@ -1407,11 +1447,12 @@ def fused_mlp(
     ``want_dx``, the input-gradient kernel: pose refinement trains through
     ray generation, under mip through the frustum Gaussians' means,
     directions and variances; appearance codes through rows 8..15). The
-    windows are a schedule and get no gradient. A contracted model takes no
-    input that needs a gradient (ROADMAP Queue B item 3): that raises here,
-    before any launch."""
-    if model.contract and xT.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
+    windows are a schedule and get no gradient. A contracted model under mip
+    takes no input that needs a gradient (ROADMAP Queue B item 4): that
+    raises here, before any launch."""
+    if model.contract and mip and xT.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
+                                  f"{CONTRACT_MIP_INPUT_GRAD}")
     return _FusedMLP.apply(xT, compute_dtype, model, mip, enc_w, *wts)
 
 
@@ -1668,13 +1709,15 @@ def bwd_tile_launches(reset: bool = False) -> int:
 
 def input_grad_launches(reset: bool = False) -> int:
     """Launches of the input-gradient kernel (csrc/input_grad.cuh) so far,
-    counted inside B2's library, which launches it: from
-    ``fused_mlp_backward(want_dx=True)`` and ``input_grad``. With
-    ``reset``, the count restarts from 0; 0 when the library is not
-    loaded (it is not built)."""
+    counted inside the libraries that launch it: from
+    ``fused_mlp_backward(want_dx=True)`` and ``input_grad``, B2's library,
+    and for a contracted model csrc/fused_contract.cu's
+    (``input_grad_contract_launches``). With ``reset``, the counts restart
+    from 0; 0 for a library that is not loaded (it is not built)."""
+    n = input_grad_contract_launches(reset)
     if "fused_mlp_bwd" not in _build._loaded:
-        return 0
-    return _lib("fused_mlp_bwd").input_grad_launch_count(int(reset))
+        return n
+    return n + _lib("fused_mlp_bwd").input_grad_launch_count(int(reset))
 
 
 def input_grad_mip_launches(reset: bool = False) -> int:
@@ -1683,6 +1726,14 @@ def input_grad_mip_launches(reset: bool = False) -> int:
     if "fused_mlp_bwd" not in _build._loaded:
         return 0
     return _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
+
+
+def input_grad_contract_launches(reset: bool = False) -> int:
+    """Of ``input_grad_launches``, those of the kernel's contract
+    instantiation (csrc/fused_contract.cu), counted in C where they launch."""
+    if "fused_contract" not in _build._loaded:
+        return 0
+    return _lib("fused_contract").input_grad_contract_launch_count(int(reset))
 
 
 def contract_launches(reset: bool = False) -> int:
@@ -1714,11 +1765,13 @@ def input_grad(
     (``input_grad.app_launches``); with ``mip`` (no windows, no codes)
     ``xT`` and ``dx`` have 16 rows, the integrated encoder's transpose
     (``input_grad.mip_launches``). ``input_grad.launches`` counts the
-    kernel's launches by this wrapper. A contracted model raises (ROADMAP
-    Queue B item 3)."""
+    kernel's launches by this wrapper. A contracted model's is the kernel's
+    contract instantiation (``input_grad.contract_launches``); under mip it
+    raises (ROADMAP Queue B item 4)."""
     wts = _prepare(wts, compute_dtype, model, mip)
-    if model.contract:
-        raise NotImplementedError(f"the input gradient of a contracted model is not ported yet: {CONTRACT_INPUT_GRAD}")
+    if model.contract and mip:
+        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
+                                  f"{CONTRACT_MIP_INPUT_GRAD}")
     L = Layout.of(model)
     rows = xT.shape[1] if xT.dim() == 2 else 0
     Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE
@@ -1735,17 +1788,19 @@ def input_grad(
     dx = torch.empty((_x_rows(mip, model), rows), dtype=torch.float32, device=xT.device)
     _raise_on(lib.input_grad(
         gws.data_ptr(), xT.data_ptr(), rows, model.Lp, model.Ld, model.H, bf16, _CPtrs(*_ptrs(wts)),
-        wx, wd, dx.data_ptr(), _app(model), int(mip), _stream(xT),
+        wx, wd, dx.data_ptr(), _app(model), int(mip), int(model.contract), _stream(xT),
     ), "input_grad")
     input_grad.launches += 1
     input_grad.app_launches += _app(model)
     input_grad.mip_launches += mip
+    input_grad.contract_launches += model.contract
     return dx
 
 
 input_grad.launches = 0
 input_grad.app_launches = 0  # of them, an appearance model's (dx's code rows)
 input_grad.mip_launches = 0  # of them, the integrated encoder's transpose (mip)
+input_grad.contract_launches = 0  # of them, a contracted model's (csrc/fused_contract.cu)
 
 
 def backward_tile(

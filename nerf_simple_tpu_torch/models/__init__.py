@@ -15,7 +15,6 @@ from nerf_simple_tpu_torch.models.nerf import (
     infer_arch,
     init_nerf_params,
     nerf_apply,
-    require_ported,
 )
 
 __all__ = [
@@ -64,9 +63,7 @@ def model_from_train_config(cfg) -> NerfMLP:
     """The main field's model of a TrainConfig (JAX models/__init__.py:
     139-142): ``contract`` is wired from ``cfg.contract``, as it is into the
     proposal net (``proposal_from_train_config``)."""
-    model = NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, contract=cfg.contract, app_dim=cfg.appearance_dim)
-    require_ported(model)
-    return model
+    return NerfMLP(Lp=cfg.net_Lp, Ld=cfg.net_Ld, H=cfg.net_H, contract=cfg.contract, app_dim=cfg.appearance_dim)
 
 
 def model_from_meta(meta: dict) -> NerfMLP:
@@ -77,9 +74,7 @@ def model_from_meta(meta: dict) -> NerfMLP:
         raise _unported_family(family)
     if family != "nerf":
         raise ValueError(f"unknown model family {family!r} in model meta")
-    model = NerfMLP(**meta)
-    require_ported(model)
-    return model
+    return NerfMLP(**meta)
 
 
 def infer_model(params) -> NerfMLP:

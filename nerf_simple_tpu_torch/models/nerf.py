@@ -30,7 +30,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_simple_tpu_torch.config import CONTRACT_INPUT_GRAD
 from nerf_simple_tpu_torch.ops.encoding import contract_gaussian, ipe_encoder, positional_encoder, scene_contraction
 
 Params = dict[str, dict[str, np.ndarray]]
@@ -40,8 +39,7 @@ class NerfMLP:
     """Static architecture config. ``app_dim``: the width of the per-image
     appearance code the colour head reads (0: none; the codes themselves
     are the train step's ``AppCodes``). ``contract``: the positions go
-    through ``scene_contraction`` before the encoder (not with appearance
-    codes yet: ``require_ported``)."""
+    through ``scene_contraction`` before the encoder."""
 
     Lp: int = 10
     Ld: int = 4
@@ -73,16 +71,6 @@ class NerfMLP:
             "color0": (H + Cd + self.app_dim, H // 2),
             "color1": (H // 2, 3),
         }
-
-
-def require_ported(model: NerfMLP) -> None:
-    """Raise for the NerfMLP variants the port does not run yet: a
-    contracted appearance model (its codes train through the input
-    gradient, which has no contraction Jacobian yet)."""
-    if model.contract and model.app_dim > 0:
-        raise NotImplementedError(
-            f"contract=True with appearance codes (app_dim={model.app_dim}) is not ported yet: {CONTRACT_INPUT_GRAD}"
-        )
 
 
 def check_app(model: NerfMLP, app: torch.Tensor | None) -> None:
@@ -173,7 +161,6 @@ class NerfField(LinearField):
     infer_arch = staticmethod(infer_arch)
 
     def __init__(self, model: NerfMLP = NerfMLP(), device=None):
-        require_ported(model)
         super().__init__(model, device)
 
     def forward(self, v: torch.Tensor, compute_dtype=torch.float32, enc_alpha: float | None = None,

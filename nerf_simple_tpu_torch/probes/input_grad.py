@@ -59,11 +59,19 @@ are held against their own largest entry too. The window faults do not
 apply (mip takes no windows); ``explain_dx`` plants two others there: the
 damp dropped from the transpose (the plain chain at zero variance), and
 the variance rows halved.
+
+For a contracted model (``run_contract``: the kernel's contract
+instantiation, csrc/fused_contract.cu) the positions' radii are
+log-uniform in [0.1, 32] (about a third inside the unit ball), and
+``explain_dx`` plants the contraction's two faults besides
+(``CONTRACT_FAULTS``, ``planted``): the transpose's ``c (x . dy) x`` term
+dropped, and the encoder's transpose taken at the uncontracted rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import numpy as np
@@ -84,6 +92,7 @@ ALPHA = 0.3  # the anneal progress of the windowed case
 # are wide.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 MIP_ZERO_ROWS = (6, 7, 8, 9, 10, 14, 15)  # dx's rows that the mip transpose leaves zero (JAX :1068-1077)
+CONTRACT_FAULTS = ("jacobian_c_dropped", "angles_uncontracted")  # the faults ``planted`` plants
 
 
 def inputs(model: NerfMLP, rows: int, device, seed: int = 0, mip: bool = False):
@@ -102,6 +111,8 @@ def inputs(model: NerfMLP, rows: int, device, seed: int = 0, mip: bool = False):
             gws[a : a + n, :rows] = torch.from_numpy(g)
     x = np.zeros((mlp._x_rows(mip, model), rows), np.float32)
     x[:3] = rng.uniform(-4, 4, (3, rows))
+    if model.contract:  # radii log-uniform in [0.1, 32]: both sides of the unit sphere
+        x[:3] *= 10.0 ** rng.uniform(-1, 1.5, rows) / np.linalg.norm(x[:3], axis=0)
     d = rng.normal(size=(3, rows))
     x[3:6] = d / np.linalg.norm(d, axis=0, keepdims=True)
     x[8 : 8 + model.app_dim] = rng.normal(0, 0.5, (model.app_dim, rows))
@@ -143,6 +154,27 @@ def _fault_windows(model: NerfMLP, enc_w: tuple | None, branch: int, device) -> 
     return tuple(w)
 
 
+@contextlib.contextmanager
+def planted(fault: str):
+    """One of CONTRACT_FAULTS planted in the plain input gradient of a
+    contracted model: ``jacobian_c_dropped`` leaves the contraction's
+    transpose at ``g dy`` (its ``c (x . dy) x`` term dropped);
+    ``angles_uncontracted`` takes the encoder's transpose at the
+    uncontracted rows (the forward's plain version is patched too, so plant
+    it only around ``input_grad_plain`` on planes made before)."""
+    contract, transpose = mlp._contract, mlp._contract_transpose
+    if fault == "jacobian_c_dropped":
+        mlp._contract_transpose = lambda xyz, dy: mlp._contract_scales(xyz)[0] * dy
+    elif fault == "angles_uncontracted":
+        mlp._contract = lambda xyz, var: (xyz, var)
+    else:
+        raise ValueError(f"no planted fault {fault!r}; the faults are {CONTRACT_FAULTS}")
+    try:
+        yield
+    finally:
+        mlp._contract, mlp._contract_transpose = contract, transpose
+
+
 def row_err(dx: torch.Tensor, want: torch.Tensor, mip: bool = False) -> torch.Tensor:
     """(rows,) the error of each row of ``dx`` (8 or 16, rows) against
     ``want``: the largest of max |diff| over the position rows 0..2 by max
@@ -170,8 +202,8 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     planes. ``faults``: for each planted fault (``_fault_windows``; for an
     appearance model also the code rows halved; under ``mip`` (x and dx of
     16 rows, no windows) instead the damp dropped from the transpose and
-    the variance rows halved) its ``share`` and ``n_unexplained`` against
-    ``dx_plain``."""
+    the variance rows halved; for a contracted model also CONTRACT_FAULTS)
+    its ``share`` and ``n_unexplained`` against ``dx_plain``."""
     tol = REL_TOL[dt] if tol is None else tol
     rows = x.shape[1]
     past = row_err(dx, dx_plain, mip) > tol
@@ -192,8 +224,12 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     else:
         faults = [("posx_top_octave_half", 0), ("posd_low_octave_half", 1)]
         faults += [("code_rows_half", None)] if model.app_dim > 0 else []
+        faults += [(name, "contract") for name in CONTRACT_FAULTS] if model.contract else []
     for name, branch in faults:
-        if name == "damp_dropped":  # the transpose at zero variance: no damp on either chain
+        if branch == "contract":
+            with planted(name):
+                bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w)
+        elif name == "damp_dropped":  # the transpose at zero variance: no damp on either chain
             x0 = x.clone()
             x0[11:14] = 0.0
             bad = mlp.input_grad_plain(wts, x0, gws, dt, model, mip=True)
@@ -306,6 +342,60 @@ def run_mip(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
     return out
 
 
+def run_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
+    """On the card, per compute type: the kernel's contract instantiation
+    (csrc/fused_contract.cu) on a contracted ``model``'s probe inputs (radii
+    on both sides of the unit sphere) against the plain version
+    (``row_err``), bit-equal to the kernel without contract on the rows
+    inside the ball; CONTRACT_FAULTS planted in the plain version, which
+    must be past REL_TOL; then, in turns, the contract kernel, the kernel
+    without contract on the same planes and x, the plain version and the
+    library yardstick: ms of each, the bound and its share. Raises if a
+    check fails."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cm, pm = dataclasses.replace(model, contract=True), dataclasses.replace(model, contract=False)
+    wts, gws32, x = inputs(cm, rows, device)
+    inside = x[:3].norm(dim=0) <= 1.0
+    out = {"rows": rows, "inside_rows": int(inside.sum())}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        w = mlp._cast_weights(wts, dt)
+        gws = gws32 if dt == torch.float32 else gws32.to(dt)
+        before = (mlp.input_grad.contract_launches, mlp.input_grad_contract_launches())
+        got = mlp.input_grad(w, x, gws, dt, cm)
+        launches = (mlp.input_grad.contract_launches - before[0], mlp.input_grad_contract_launches() - before[1])
+        want = mlp.input_grad_plain(w, x, gws, dt, cm)
+        err = row_err(got, want).max().item()
+        fault_err = {}
+        for fault in CONTRACT_FAULTS:
+            with planted(fault):
+                fault_err[fault] = row_err(mlp.input_grad_plain(w, x, gws, dt, cm), want).max().item()
+        unc = mlp.input_grad(w, x, gws, dt, pm)
+        st = dict(rel_err=err, max_abs_err=(got - want).abs().max().item(), max_abs_dx=want.abs().max().item(),
+                  launches=launches[0], launches_in_c=launches[1], fault_err=fault_err,
+                  inside_bit_equal=torch.equal(got[:, inside], unc[:, inside]),
+                  rows_6_7_zero=bool((got[6:8] == 0).all()))
+        del got, want, unc
+        if (err > REL_TOL[dt] or not st["rows_6_7_zero"] or not st["inside_bit_equal"] or launches != (1, 1)
+                or min(fault_err.values()) <= REL_TOL[dt]):
+            raise RuntimeError(f"{name} contract input gradient: {st}")
+        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, cm),
+                       "point": lambda: mlp.input_grad(w, x, gws, dt, pm),
+                       "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, cm),
+                       "library": lambda: library(w, x, gws, dt, cm)}, calls=CALLS)
+        flops, nbytes = input_grad_work(cm, rows, dt)
+        b = bound_ms(flops, nbytes, dt)
+        st.update(ms=ms["kernel"], point_ms=ms["point"], plain_ms=ms["plain"], library_ms=ms["library"],
+                  bound_ms=b, bound_by=bound_by(flops, nbytes, dt), share_of_bound=b / ms["kernel"],
+                  gb_s=nbytes / (ms["kernel"] * 1e-3) / 1e9, flops=flops, bytes=nbytes)
+        out[name] = st
+        del gws
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="the input-gradient kernel alone")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu for a smoke test")
@@ -317,17 +407,21 @@ def main(argv=None) -> None:
         model = mlp.FLAGSHIP
         wts, gws, x = inputs(model, 256, device)
         _, _, xm = inputs(model, 256, device, mip=True)
+        cm = NerfMLP(contract=True)
+        _, _, xc = inputs(cm, 256, device)
         for dt in (torch.float32, torch.bfloat16):
             got = mlp.input_grad(wts, x, gws.to(dt), dt, model, mlp.anneal_row_weights(model, ALPHA))
             mip = mlp.input_grad(wts, xm, gws.to(dt), dt, model, mip=True)
-            if (got.shape != (8, 256) or mip.shape != (16, 256) or not bool(torch.isfinite(got).all())
-                    or not bool(torch.isfinite(mip).all())):
+            con = mlp.input_grad(wts, xc, gws.to(dt), dt, cm)
+            if (got.shape != (8, 256) or mip.shape != (16, 256) or con.shape != (8, 256)
+                    or not all(bool(torch.isfinite(t).all()) for t in (got, mip, con))):
                 raise RuntimeError(f"{dt}: plain input gradient bad")
-        print("CPU smoke test only: the plain input gradient (point and mip) ran at 256 rows; it times nothing on "
-              "the CPU")
+        print("CPU smoke test only: the plain input gradient (point, mip and contract) ran at 256 rows; it times "
+              "nothing on the CPU")
         return
     res = run(device)
     res["mip"] = run_mip(device)
+    res["contract"] = run_contract(device)
     print(f"{torch.cuda.get_device_name(device)}: input gradient at {res['rows']} rows")
     for name in ("f32", "bf16"):
         v = res[name]
@@ -339,6 +433,10 @@ def main(argv=None) -> None:
         print(f"{name} mip: kernel {v['ms']:.3f} ms (point {v['point_ms']:.3f}), plain {v['plain_ms']:.3f} ms, library "
               f"{v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
               f"{100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
+        v = res["contract"][name]
+        print(f"{name} contract: kernel {v['ms']:.3f} ms (without contract {v['point_ms']:.3f}), plain "
+              f"{v['plain_ms']:.3f} ms, library {v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms "
+              f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
     print(json.dumps(res))
 
 

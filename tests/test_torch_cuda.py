@@ -7,7 +7,9 @@ windows, the backward with the input gradient (``want_dx``), the
 input-gradient kernel alone, a pose loss against the xla one; the
 appearance variants: the forward, the backward and the input-gradient
 kernel with the code rows, an appearance (and pose) loss against the xla
-one; render;
+one; the contracted variants: the forward (with the windows and the code
+rows), B2 (with the input gradient's contract instantiation), the
+input-gradient kernel alone, B1 and render;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -1547,7 +1549,8 @@ def test_f32_forward_contract_residual_planes_match_plain(dev, model, mip):
 def test_backward_contract_matches_plain(dev, model, rows, mip, dtype):
     """B2 recomputing a contracted model's forward against its plain
     version; counted; with every row inside the ball bit-equal to B2
-    without contract; no input gradient (ROADMAP Queue B item 3)."""
+    without contract; under mip no input gradient (ROADMAP Queue B item 4),
+    without it the input gradient's contract instantiation."""
     cm = _contracted(model)
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     x, _ = _x_contract(rows, dev, 3, mip)
@@ -1561,8 +1564,12 @@ def test_backward_contract_matches_plain(dev, model, rows, mip, dtype):
     xi, _ = _x_contract(rows, dev, 4, mip, inside_only=True)
     assert all(torch.equal(a, b) for a, b in zip(mlp.fused_mlp_backward(wts, xi, g, dtype, cm, mip=mip),
                                                  mlp.fused_mlp_backward(wts, xi, g, dtype, model, mip=mip)))
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip, want_dx=True)
+    if mip:
+        with pytest.raises(NotImplementedError, match="Queue B item 4"):
+            mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip, want_dx=True)
+    else:
+        with_dx, dx = mlp.fused_mlp_backward(wts, x, g, dtype, cm, want_dx=True)
+        assert all(torch.equal(a, b) for a, b in zip(with_dx, got)) and bool(torch.isfinite(dx).all())
 
 
 def _x16_contract(B, N, dev, seed, mip=False, inside_only=False):
@@ -1642,19 +1649,145 @@ def test_render_contract_matches_plain(dev, dtype):
 
 def test_contract_refusals_on_the_card(dev):
     """What a contracted model does not run yet raises before any launch
-    (ROADMAP Queue B item 3): ``fused_mlp`` on an input that needs a
-    gradient, the input-gradient kernel; appearance codes with contract."""
+    (ROADMAP Queue B item 4): under mip ``fused_mlp`` on an input that
+    needs a gradient, B2's ``want_dx`` and the input-gradient kernel; a
+    contracted appearance model builds."""
     model = NerfMLP(Lp=4, Ld=2, H=32, contract=True)
     wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, NerfMLP(Lp=4, Ld=2, H=32)), dev))
-    x, _ = _x_contract(256, dev, 9)
-    before = mlp.contract_launches()
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        mlp.fused_mlp(wts, x.requires_grad_(True), torch.float32, model)
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        mlp.input_grad(wts, x.detach(), torch.zeros(1, device=dev), torch.float32, model)
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        NerfField(NerfMLP(Lp=4, Ld=2, H=32, contract=True, app_dim=2), dev)
-    assert mlp.contract_launches() == before
+    x, _ = _x_contract(256, dev, 9, mip=True)
+    before = (mlp.contract_launches(), mlp.input_grad_launches())
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        mlp.fused_mlp(wts, x.clone().requires_grad_(True), torch.float32, model, mip=True)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        mlp.fused_mlp_backward(wts, x, torch.zeros((8, 256), device=dev), torch.float32, model, mip=True,
+                               want_dx=True)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        mlp.input_grad(wts, x, torch.zeros(1, device=dev), torch.float32, model, mip=True)
+    assert NerfField(NerfMLP(Lp=4, Ld=2, H=32, contract=True, app_dim=2), dev).model.app_dim == 2
+    assert (mlp.contract_launches(), mlp.input_grad_launches()) == before
+
+
+# --- pose refinement and appearance codes on a contracted model ---------------------------------------------------
+
+CPOSE_CASES = [(NerfMLP(Lp=4, Ld=2, H=32), 1000), (NerfMLP(Lp=3, Ld=1, H=48), 65), (NerfMLP(), 4096 + 17)]
+CPOSE_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged"]
+CPOSE_KINDS = {"point": (False, 0), "windows": (True, 0), "codes": (False, 3), "windows-codes": (True, 8)}
+
+
+def _cpose(model, rows, dev, kind, seed):
+    """(the contracted model of ``kind`` (with ``app_dim`` code rows), its
+    input x (rows on both sides of the unit ball; 16 rows with codes), the
+    rows inside the ball, the windows at alpha 0.3 or None)."""
+    import dataclasses
+
+    windows, app_dim = CPOSE_KINDS[kind]
+    cm = dataclasses.replace(model, contract=True, app_dim=app_dim)
+    x, inside = _x_contract(rows, dev, seed)
+    if app_dim:
+        codes = np.random.default_rng(seed + 1).normal(0, 0.5, (app_dim, rows)).astype(np.float32)
+        x = torch.cat([x, torch.from_numpy(codes).to(dev), torch.zeros((8 - app_dim, rows), device=dev)])
+    return cm, x, inside, mlp.anneal_row_weights(cm, 0.3, dev) if windows else None
+
+
+def _uncontracted(model):
+    import dataclasses
+
+    return dataclasses.replace(model, contract=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(CPOSE_KINDS))
+@pytest.mark.parametrize("model, rows", CPOSE_CASES, ids=CPOSE_IDS)
+def test_forward_contract_with_windows_and_codes_matches_plain(dev, model, rows, kind, dtype):
+    """The contracted forward with the anneal windows and/or the code rows
+    (the new contracted instantiations of csrc/fused_contract.cu) against
+    its plain version; counted (wrapper and C); at the rows inside the ball
+    bit-equal to the same launch without contract, elsewhere not."""
+    cm, x, inside, enc_w = _cpose(model, rows, dev, kind, 20)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, cm), dev, cm)), dtype)
+    f = mlp.fused_mlp_forward
+    before = (f.contract_launches, f.anneal_launches, f.app_launches, mlp.contract_launches())
+    got = f(wts, x, dtype, cm, enc_w=enc_w)
+    torch.cuda.synchronize()
+    assert (f.contract_launches, f.anneal_launches, f.app_launches, mlp.contract_launches()) == (
+        before[0] + 1, before[1] + (enc_w is not None), before[2] + (cm.app_dim > 0), before[3] + 1)
+    want = mlp.fused_mlp_forward_plain(wts, x, dtype, cm, enc_w=enc_w)
+    assert bool(torch.isfinite(got).all()) and bool((got[4:] == 0).all())
+    assert (got[:4] - want[:4]).abs().max().item() <= TOL[dtype]
+    unc = f(wts, x, dtype, _uncontracted(cm), enc_w=enc_w)
+    assert torch.equal(got[:, inside], unc[:, inside])
+    assert (got[:4, ~inside] - unc[:4, ~inside]).abs().max().item() > TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(CPOSE_KINDS))
+@pytest.mark.parametrize("model, rows", CPOSE_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)],
+                         ids=CPOSE_IDS + ["flagship-63", "H64-1"])
+def test_input_grad_kernel_contract_matches_plain(dev, model, rows, kind, dtype):
+    """The input-gradient kernel's contract instantiation alone
+    (``input_grad`` of a contracted model, csrc/fused_contract.cu) on the
+    backward tile kernel's planes against ``input_grad_plain``: dx within
+    DX_TOL by row group (``row_err``), rows 6..7 zero; counted by the
+    wrapper and in the contract library's C count (B2's library's stays);
+    at the rows inside the ball bit-equal to the kernel without contract
+    on the same planes (its angles are the forward's own contracted
+    coordinates; inside the ball they are x); the two planted faults of the
+    contraction past DX_TOL."""
+    cm, x, inside, enc_w = _cpose(model, rows, dev, kind, 21)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, cm), dev, cm)), dtype)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    _, res = mlp.forward_residuals(wts, x, dtype, cm, enc_w=enc_w)
+    gws = mlp.backward_tile(wts, res, g, dtype, cm)
+    before = (mlp.input_grad.contract_launches, mlp.input_grad_contract_launches(), mlp.input_grad_launches())
+    got = mlp.input_grad(wts, x, gws, dtype, cm, enc_w)
+    torch.cuda.synchronize()
+    assert (mlp.input_grad.contract_launches, mlp.input_grad_contract_launches(), mlp.input_grad_launches()) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, cm, enc_w)
+    assert got.shape == x.shape and bool(torch.isfinite(got).all()) and bool((got[6:8] == 0).all())
+    assert ig_probe.row_err(got, want).max().item() <= DX_TOL[dtype]
+    unc = mlp.input_grad(wts, x, gws, dtype, _uncontracted(cm), enc_w)
+    assert torch.equal(got[:, inside], unc[:, inside])
+    if rows > 1:
+        for fault in ig_probe.CONTRACT_FAULTS:
+            with ig_probe.planted(fault):
+                bad = mlp.input_grad_plain(wts, x, gws, dtype, cm, enc_w)
+            assert ig_probe.row_err(bad, want).max().item() > DX_TOL[dtype], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", list(CPOSE_KINDS))
+@pytest.mark.parametrize("model, rows", CPOSE_CASES, ids=CPOSE_IDS)
+def test_backward_contract_want_dx_matches_plain(dev, model, rows, kind, dtype):
+    """B2 with ``want_dx`` on a contracted model (with the windows and/or
+    the codes) against its plain version: the weight gradients within
+    B2's bounds and bit-equal to the launch without dx; dx bit-equal to the
+    input-gradient kernel on the forward and backward tile kernels' planes
+    and held row by row (``explain_dx``: every row past DX_TOL explained by
+    a flipped relu mask, under DX_ROW_SHARE of them; every planted fault,
+    the contraction's two among them, caught); counted."""
+    cm, x, _, enc_w = _cpose(model, rows, dev, kind, 22)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, cm), dev, cm)), dtype)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    b = mlp.fused_mlp_backward
+    before = (b.dx_launches, b.contract_launches, mlp.input_grad_contract_launches(), mlp.contract_launches())
+    got, dx = b(wts, x, g, dtype, cm, want_dx=True, enc_w=enc_w)
+    torch.cuda.synchronize()
+    assert (b.dx_launches, b.contract_launches, mlp.input_grad_contract_launches(), mlp.contract_launches()) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    want, dx_p = mlp.fused_mlp_backward_plain(wts, x, g, dtype, cm, want_dx=True, enc_w=enc_w)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    _, res = mlp.forward_residuals(wts, x, dtype, cm, enc_w=enc_w)
+    assert torch.equal(dx, mlp.input_grad(wts, x, mlp.backward_tile(wts, res, g, dtype, cm), dtype, cm, enc_w))
+    ex = ig_probe.explain_dx(wts, x, g, dx, dx_p, dtype, cm, enc_w, DX_TOL[dtype])
+    print(f"dx rows: {ex}")
+    assert ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dtype], ex
+    assert ex["share"] <= DX_ROW_SHARE[dtype], ex
+    assert set(ig_probe.CONTRACT_FAULTS) <= set(ex["faults"]), ex
+    assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()), ex
+    alone = b(wts, x, g, dtype, cm, enc_w=enc_w)
+    assert all(torch.equal(a, c) for a, c in zip(got, alone))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1714,3 +1847,85 @@ def test_360_recipe_core_and_step_on_the_card(dev, monkeypatch, dtype):
     out = step_mod.build_train_step(cfg, model)(state, rays, pix)
     assert mlp.contract_launches() == before + 1
     assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.fine.trunk1.weight)
+
+
+CPOSE_STEPS = {
+    "single-pose-anneal": dict(pose_opt=True),
+    "single-app": dict(appearance_dim=8),
+    "hierarchical-pose": dict(hierarchical=True, Nc=16, pose_opt=True),
+    "hierarchical-app-pose": dict(hierarchical=True, Nc=16, appearance_dim=8, pose_opt=True),
+}
+
+
+@pytest.mark.parametrize("kind", list(CPOSE_STEPS))
+def test_contract_pose_and_appearance_steps_on_the_card_match_xla(dev, kind):
+    """One f32 loss from one state of a contracted single net or
+    hierarchical pair with the camera deltas of each ray's image and/or
+    appearance codes (``autograd_loss``; the single net's pose loss at
+    anneal alpha 0.4) through the contracted forward (with the windows or
+    the code rows) and B2 with the input gradient's contract
+    instantiation, against the same loss on the xla backend: the loss to
+    LOSS_TOL, each gradient of the field(s) within 1e-3 of the largest
+    gradient entry of the field(s), and each of dr, dt and the code table
+    within 1e-3 of the largest entry of the three (the scales of
+    ``test_pose_mip_and_proposal_steps_on_the_card``); the contracted B2
+    launches with dx counted where they launch (one a net, no plain
+    fallback); then one pallas step through ``build_train_step`` moves the
+    deltas and the codes."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.models.nerf import NerfPair
+    from nerf_simple_tpu_torch.train.step import (AppCodes, CamDeltas, autograd_loss, build_train_step,
+                                                  make_train_state, render_settings)
+
+    kw = CPOSE_STEPS[kind]
+    app_dim, hier = kw.get("appearance_dim", 0), kw.get("hierarchical", False)
+    model, n_img, hw, B, N = NerfMLP(Lp=6, Ld=3, H=64, contract=True, app_dim=app_dim), 4, 256, 512, 32
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=6,
+                      net_Ld=3, contract=True, sampling_space="disparity", tn=0.5, tf=30.0, pose_warmup=0, **kw)
+    rng = np.random.default_rng(14)
+    d = rng.normal(size=(n_img * hw, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([-rng.uniform(3, 6, (n_img * hw, 1)) * d, d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (n_img * hw, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n_img * hw, B)).to(dev)
+    # samples from 1 to 12 along rays from radius 3..6 towards the origin: both sides of the unit ball
+    ts = torch.from_numpy(np.sort(rng.uniform(1, 12, (B, cfg.Nc if hier else N)), -1).astype(np.float32)).to(dev)
+    tables = {k: rng.normal(0, 0.02, (n_img, 3)).astype(np.float32) for k in ("dr", "dt")}
+    codes = rng.normal(0, 0.3, (n_img, max(app_dim, 1))).astype(np.float32)
+    got = {}
+    for backend in ("pallas", "xla"):
+        if hier:
+            field = NerfPair.from_jax_params({"coarse": init_nerf_params(3, model), "fine": init_nerf_params(4, model)},
+                                             dev, model)
+        else:
+            field = NerfField.from_jax_params(init_nerf_params(4, model), dev, model)
+        cams = CamDeltas(n_img, dev).copy_tables_(tables) if cfg.pose_opt else None
+        app = AppCodes(n_img, app_dim, dev).copy_tables_(codes) if app_dim else None
+        c = dataclasses.replace(cfg, backend=backend)
+        b2 = mlp.fused_mlp_backward
+        before = (b2.dx_launches, b2.contract_launches, mlp.input_grad_contract_launches())
+        loss = autograd_loss(c, field, rays[idx], pix[idx], ts, None, render_settings(c), det_fine=True, cams=cams,
+                             im_b=idx // hw, enc_alpha=0.4 if kind == "single-pose-anneal" else None, app=app)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = (backend == "pallas") * (2 if hier else 1)
+        assert (b2.dx_launches, b2.contract_launches, mlp.input_grad_contract_launches()) == (
+            before[0] + n, before[1] + n, before[2] + n)
+        extra = ([cams.dr.grad, cams.dt.grad] if cams is not None else []) + ([app.table.grad] if app else [])
+        got[backend] = (loss.item(), [p.grad for p in field.parameters()], extra)
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    assert abs(lp / lx - 1) <= LOSS_TOL[torch.float32]
+    for ps, xs in ((fp, fx), (cp, cx)):
+        scale = max(t.abs().max().item() for t in xs)
+        for a, b in zip(ps, xs):
+            assert (a - b).abs().max().item() <= 1e-3 * scale
+    state = make_train_state(cfg, model, dev, n_images=n_img)
+    out = build_train_step(cfg, model, rays_per_image=hw)(state, rays, pix)
+    assert bool(torch.isfinite(out))
+    if cfg.pose_opt:
+        assert float(state.cams.dr.detach().abs().max()) > 0
+    if app_dim:
+        assert float(state.app.table.detach().abs().max()) > 0
