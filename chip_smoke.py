@@ -237,7 +237,27 @@ NerfMLP(Lp=10, Ld=4, H=256):
    on a single net (pose with a freeze, pose with the anneal, codes) and a
    hierarchical pair (pose, codes + pose), 40 steps each and a still each;
    the first one's export served over HTTP by the CLI, one frame;
-18. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+18. the mip-NeRF 360 composition, on the same scene: (a) the input
+   gradient's MIP && CONTRACT instantiation (csrc/fused_contract.cu) in B2
+   with mip, ``contract`` and ``want_dx`` at the 524,288-row batch under
+   mip, f32 and bf16, against plain by ``explain_dx``'s row rule, its
+   grads bit-equal to the launch without dx, bit-equal inside the ball to
+   B2 with mip without contract; with and without dx in turns; the kernel
+   alone against plain with three planted faults of the coupled transpose,
+   beside the MIP kernel on the same planes, plain, a torch.mm yardstick
+   and its bound; with ``--before``, B2 with mip and dx without contract
+   bit-equal to the earlier library's; (b) configs/colmap360.yaml + mip +
+   the opaque background, 60 steps through the fused mip x proposal core
+   (one contracted cone-cast B1 launch a step with the weights output, the
+   interval rail and the opaque tail), the loss falls; the step's wall and
+   profile; a still; one frame served over HTTP by the CLI with ``--mip
+   --proposal-samples 64``; (c) the same + its pose block, 40 steps with a
+   freeze at 20 on the perturbed copy of the scene: the MIP && CONTRACT
+   input gradient a step before the freeze, the fused core after it, the
+   pose step's wall and profile; (d) 20 steps each of pose + mip + contract
+   (lego_mip.yaml's keys) and of pose + mip x proposal (lego_proposal.yaml's
+   keys + mip, on the phase-7 scene);
+19. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -400,7 +420,8 @@ BEFORE_ENTRIES = {"fused_train_step": ("fused_train_step", "fused_train_step_wor
                   "fused_mlp_fwd": ("fused_mlp_fwd", "fused_mlp_fwd_image_bytes"),
                   "fused_mlp_bwd": ("backward_tile", "bwd_tile_image_bytes", "fused_mlp_bwd",
                                     "fused_mlp_bwd_workspace_bytes"),
-                  "fused_render": ("fused_render_image_bytes",)}
+                  "fused_render": ("fused_render_image_bytes",),
+                  "fused_contract": ("fwd_contract_launch_count",)}
 
 
 class EarlierEntries:
@@ -4821,6 +4842,368 @@ def phase_pose_app_contract_nets(dev, pert, work, mlp) -> dict:
     return out
 
 
+# The mip-NeRF 360 composition (phase 18): configs/colmap360.yaml + mip:
+# true (the anti-aliased variant its comments describe) with the opaque
+# background, cut to M360_ITERS steps; with its pose block, M360P_ITERS
+# steps with the freeze at M360P_FREEZE (half the run; the warmup
+# C360P_WARMUP); the sub-cases pose + mip + contract (lego_mip.yaml's keys
+# on the contracted scene) and pose + mip x proposal (lego_proposal.yaml's
+# keys + mip on the phase-7 scene), M360S_ITERS steps each.
+M360_ITERS, M360P_ITERS, M360P_FREEZE, M360S_ITERS = 60, 40, 20, 20
+
+
+def phase_mip360_kernels(dev, scene, mlp, earlier) -> dict:
+    """18a. The input gradient's ``MIP && CONTRACT`` instantiation
+    (csrc/fused_contract.cu), nets from numpy seed SEED, f32 and bf16, at
+    the unbounded batch under mip (``unbounded_batch(mip=True)``: 524,288
+    frustum Gaussians, their means on both sides of the unit sphere): B2
+    with mip, ``contract`` and ``want_dx`` against
+    ``fused_mlp_backward_plain`` by ``explain_dx``'s row rule, its weight
+    gradients bit-equal to the launch without dx, dx bit-equal to the
+    kernel on the tile kernels' planes and, at the rows inside the ball,
+    to B2 with mip without contract; B2 with and without dx in turns. The
+    kernel alone (``probes/input_grad.py::run_mip_contract`` on the batch):
+    against plain within MIP_CONTRACT_TOL, its three planted faults past
+    it (the coupled transpose's ``term_n`` dropped, its rank-one coupling
+    dropped, the angles and damps uncontracted), its ms in turns beside the
+    ``MIP`` kernel on the same planes, the plain version and the torch.mm
+    yardstick, its bound. With ``earlier``: B2 with mip and dx without
+    contract bit-equal to the earlier library's."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+    from nerf_simple_tpu_torch.probes.wgrad import turns_ms
+
+    model, cm = NerfMLP(), NerfMLP(contract=True)
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(SEED, model), dev))
+    x = unbounded_batch(dev, scene, mip=True)
+    rows = x.shape[1]
+    inside = x[0:3].norm(dim=0) <= 1.0
+    gT = torch.from_numpy(np.random.default_rng(SEED).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    b2 = mlp.fused_mlp_backward
+    stats = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            st = dict(rows=rows, inside_rows=int(inside.sum()))
+
+            def counts():
+                return (b2.dx_launches, b2.mip_dx_launches, b2.contract_launches,
+                        mlp.input_grad_mip_contract_launches(), mlp.input_grad_mip_launches())
+
+            before = counts()
+            grads, dx = b2(w, x, gT, dt, cm, mip=True, want_dx=True)
+            torch.cuda.synchronize()
+            check(counts() == tuple(n + 1 for n in before), "B2 with mip, contract and dx counted, its MIP && "
+                  "CONTRACT input-gradient kernel counted in C")
+            alone = b2(w, x, gT, dt, cm, mip=True)
+            st["bit_equal_no_dx"] = all(torch.equal(a, c) for a, c in zip(grads, alone))
+            del alone
+            _, res = mlp.forward_residuals(w, x, dt, cm, mip=True)
+            gws = mlp.backward_tile(w, res, gT, dt, cm)
+            del res
+            st["dx_equal_composed"] = torch.equal(dx, mlp.input_grad(w, x, gws, dt, cm, mip=True))
+            del gws
+            st["dx_inside_bit_equal"] = torch.equal(dx[:, inside], b2(w, x, gT, dt, model, mip=True,
+                                                                       want_dx=True)[1][:, inside])
+            if earlier:
+                g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], w, x, gT, dt, model, want_dx=True,
+                                                 mip=True)
+                g_new, dx_new = b2(w, x, gT, dt, model, mip=True, want_dx=True)
+                st["b2_mip_dx_no_contract_bit_equal_earlier"] = torch.equal(dx_old, dx_new) and all(
+                    torch.equal(a, c) for a, c in zip(g_old, g_new))
+                del g_old, dx_old, g_new, dx_new
+            want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, cm, mip=True, want_dx=True)
+            st["rel"], st["err"] = grad_errors(grads, want)
+            ex = ig_probe.explain_dx(w, x, gT, dx, dx_p, dt, cm, None, DX_TOL[dt], mip=True)
+            st["dx_rows"] = ex
+            del grads, dx, want, dx_p
+            torch.cuda.empty_cache()
+            print(f"B2 mip + contract want_dx {name} at {rows} rows ({st['inside_rows']} inside the unit ball): grad "
+                  f"err {st['rel']:.3e} of max (tol {GRAD_TOL['B2', dt]:.0e}); dx rows past {DX_TOL[dt]:.0e} "
+                  f"{ex['n_past']} ({ex['share']:.2e}, tol {DX_ROW_SHARE[dt]:.0e}), with a flipped relu mask "
+                  f"{ex['n_flipped']}, past without one {ex['n_unexplained']}, on the kernel's own masks "
+                  f"{ex['own_masks_err']:.2e}; planted faults: " + ", ".join(
+                      f"{k} {f['share']:.2e} past ({f['n_unexplained']} without a flipped mask)"
+                      for k, f in ex["faults"].items()) + f"; dx bit-equal to the MIP && CONTRACT kernel on the "
+                  f"kernels' planes: {st['dx_equal_composed']}, inside the ball to B2 with mip without contract: "
+                  f"{st['dx_inside_bit_equal']}; grads bit-equal to the launch without dx: {st['bit_equal_no_dx']}"
+                  + "".join(f"; {k} {v}" for k, v in st.items() if k.endswith("earlier")), flush=True)
+            check(st["rel"] <= GRAD_TOL["B2", dt] and st["dx_equal_composed"] and ex["n_unexplained"] == 0
+                  and ex["own_masks_err"] <= DX_TOL[dt] and ex["share"] <= DX_ROW_SHARE[dt],
+                  f"B2 mip + contract want_dx {name} within tolerance")
+            # bf16's row rule (DX_TOL 5e-3) is wider than term_n's move at these frustums; the kernel alone
+            # below holds all three faults at MIP_CONTRACT_TOL in both types, and B2's dx is that kernel's
+            check(set(ig_probe.MIP_CONTRACT_FAULTS) <= set(ex["faults"]) and (dt == torch.bfloat16 or all(
+                f["n_unexplained"] > 0 for f in ex["faults"].values())),
+                  f"the f32 dx rule catches every planted fault, the coupled transpose's three among them ({name})")
+            check(st["bit_equal_no_dx"] and st["dx_inside_bit_equal"]
+                  and st.get("b2_mip_dx_no_contract_bit_equal_earlier", True),
+                  f"B2 mip + contract {name}: the grads without dx, the rows inside the ball and the launch without "
+                  "contract unchanged")
+            ms = turns_ms({"dx": lambda: b2(w, x, gT, dt, cm, mip=True, want_dx=True),
+                           "no_dx": lambda: b2(w, x, gT, dt, cm, mip=True)})
+            st.update(ms=ms["dx"], ms_no_dx=ms["no_dx"])
+            print(f"B2 mip + contract {name} in turns: with dx {st['ms']:.3f} ms, without {st['ms_no_dx']:.3f} ms",
+                  flush=True)
+            stats[name] = st
+            torch.cuda.empty_cache()
+    del gT
+    torch.cuda.empty_cache()
+    ig = ig_probe.run_mip_contract(dev, x=x)
+    del x
+    torch.cuda.empty_cache()
+    for name in ("f32", "bf16"):
+        v = ig[name]
+        print(f"MIP && CONTRACT input-gradient kernel alone {name} at {ig['rows']} rows of the unbounded batch "
+              f"({ig['inside_rows']} inside the unit ball): {v['ms']:.3f} ms (the MIP kernel on the same planes "
+              f"{v['mip_ms']:.3f} ms), plain {v['plain_ms']:.3f} ms, torch.mm yardstick {v['library_ms']:.3f} ms; bound "
+              f"{v['bound_ms']:.3f} ms ({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; dx err "
+              f"{v['rel_err']:.2e} by row group (tol {ig_probe.MIP_CONTRACT_TOL:.0e}); inside the ball bit-equal to "
+              f"the MIP kernel: {v['inside_bit_equal']}; planted faults "
+              f"{', '.join(f'{k} {e:.2e}' for k, e in v['fault_err'].items())}", flush=True)
+    stats["input_grad"] = ig
+    return stats
+
+
+def m360_config(scene: str, work: str, **kw) -> dict:
+    """configs/colmap360.yaml's keys (``c360_config``) with ``mip: true``
+    and the opaque background, M360_ITERS steps, and ``kw``."""
+    cfg = c360_config(scene, work)
+    cfg.update(exp_name="m360", log_dir=os.path.join(work, "logs_m360"), num_iters=M360_ITERS, ckpt_images=10**6,
+               ckpt_model=M360_ITERS, steps_per_call=10, mip=True, opaque_background=True)
+    cfg.update(kw)
+    return cfg
+
+
+def phase_mip360_train(dev, scene, work, mlp) -> dict:
+    """18b. configs/colmap360.yaml + ``mip: true`` with the opaque background
+    (``m360_config``: contract, disparity, proposal Np 64, distortion 0.01)
+    through train() (bf16, pallas, the flagship) on the unbounded scene,
+    M360_ITERS steps: the fused mip x proposal core, one contracted
+    cone-cast B1 launch a step with the weights output, the interval rail
+    and the opaque tail, counted; the loss falls. The step's wall and
+    profile (B1, proposal matmuls, before / after B1, Adam) and idle share
+    from a fresh state; ``evaluate.test`` of test still 0 (Np 64, mip);
+    one frame served by ``python -m nerf_simple_tpu_torch.serve --mip
+    --opaque-background --proposal-samples 64`` in a process of its own,
+    matched to ``render_rays_chunked`` to 1 level."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.evaluate import load_params, test
+    from nerf_simple_tpu_torch.models import model_from_train_config
+    from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.serve import decode_png
+    from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    cfg = m360_config(scene, work)
+    tcfg = train_config(cfg)
+    cm = model_from_train_config(tcfg)
+    check(cm.contract and (cm.Lp, cm.Ld, cm.H) == (10, 4, 256) and tcfg.mip and tcfg.mip_levels == 1
+          and tcfg.proposal and tcfg.Np == NP_PROP and tcfg.opaque_background and tcfg.sampling_space == "disparity"
+          and tcfg.distortion_loss_weight == DIST_LAMBDA and tcfg.compute_dtype == "bf16",
+          "configs/colmap360.yaml's keys + mip (the anti-aliased variant) + the opaque background")
+    b1 = mlp.fused_train_step
+    b1.launches = b1.mip_launches = b1.weights_dist_launches = b1.opaque_launches = b1.contract_launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(b1=b1.launches, mip=b1.mip_launches, weights_and_rail=b1.weights_dist_launches,
+                    opaque=b1.opaque_launches, contract=b1.contract_launches)
+    with open(os.path.join(OUT, "train_m360_log.txt"), "w") as fh:
+        fh.write(log.getvalue())
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train 360 recipe + mip (opaque background): {M360_ITERS} steps in {train_s:.1f} s; B1 launches "
+          f"{launches}; loss (MSE + interval interlevel + interval distortion) {first:.5f} -> {last:.5f} (means of "
+          f"the first and last 10)", flush=True)
+    check(all(v == M360_ITERS for v in launches.values()), "one contracted cone-cast B1 launch a step with the "
+          "weights output, the interval rail and the opaque tail")
+    check(all(np.isfinite(losses)) and len(losses) == M360_ITERS and last < first, "the mip x proposal loss fell")
+
+    rd = RayDataset.from_blender(load_blender(scene, False, UNB_VIEWS[0]), dev)
+    focal = scene_focal(scene, UNB_HW)
+    st = make_train_state(tcfg, cm, dev)
+    step_fn = build_train_step(tcfg, cm, base_radius=mip_radius(focal))
+
+    def step():
+        return step_fn(st, rd.rays["train"], rd.pixels["train"])
+
+    walls = step_walls(step)
+    prof = profile_step(step, split_proposal=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step 360 recipe + mip bf16: {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} rays/s "
+          f"(CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host "
+          f"issues a step in {walls['host_ms']:.3f} ms; profile, device ms a step: " + (", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+              + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured"), flush=True)
+    del st, step_fn, rd
+    torch.cuda.empty_cache()
+
+    exp = os.path.join(work, "models", cfg["exp_name"])
+    elog = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(elog):
+        test(dict(loadpath=exp, datapath=scene, savepath=os.path.join(work, "eval_m360"), im_idxs=[0],
+                  half_res=False, N_samples=N_SAMPLES, Np=NP_PROP, mip=True, opaque_background=True,
+                  sampling_space="disparity", tn=UNB_TN, tf=UNB_TF, compute_dtype="bf16", backend="pallas",
+                  batch_size=16384))
+    eval_s = time.perf_counter() - t0
+    psnr = [float(m) for m in re.findall(r"im \d+: mse=\S+ psnr=(\S+)", elog.getvalue())]
+    check(len(psnr) == 1 and np.isfinite(psnr[0]), "the mip x proposal still rendered")
+
+    path = os.path.join(exp, f"params_{M360_ITERS}.npz")
+    served_focal = scene_focal(scene)  # at the served frame's W
+    data, ctype, health, health_after, http_ms = cli_frame(
+        path, served_focal, ["--mip", "--opaque-background", "--proposal-samples", str(NP_PROP), "--tn",
+                             str(UNB_TN), "--tf", str(UNB_TF), "--sampling-space", "disparity"],
+        "serve_m360_log.txt", "the mip x proposal server started")
+    meta, params = load_model_meta(path), load_params(path, keep_hierarchy=True)
+    pair = ProposalPair.from_jax_params(params, dev, meta, dataclasses.replace(infer_proposal_arch(params["prop"]),
+                                                                               contract=meta.contract))
+    s = RenderSettings(N=N_SAMPLES, N_prop=NP_PROP, mip=True, opaque_background=True,
+                       base_radius=mip_radius(served_focal), tn=UNB_TN, tf=UNB_TF, sampling_space="disparity",
+                       backend="pallas", compute_dtype=torch.bfloat16)
+    pose = torch.as_tensor(spherical_to_pose(4.5, -30.0, 30.0)[None], dtype=torch.float32, device=dev)
+    want = render_rays_chunked(pair, rays_for_poses(pose, H, W, served_focal), 0, s)[0]
+    want = (want.reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8)
+    u8_err = int(np.abs(decode_png(data).astype(int) - want.astype(int)).max())
+    served = health_after["kernel_launches"] - health["kernel_launches"]
+    print(f"eval 360 recipe + mip: test still 0 PSNR {psnr[0]:.2f} dB in {eval_s:.1f} s (evaluate.test wall); served "
+          f"by the CLI with --mip --proposal-samples {NP_PROP}: a {H}x{W} PNG in {http_ms:.1f} ms, {served} forward "
+          f"launches, max diff from render_rays_chunked {u8_err} levels; /health mip {health.get('mip')}, proposal "
+          f"{health.get('proposal')}", flush=True)
+    check(ctype == "image/png" and health.get("mip") is True and health.get("proposal") is True and served > 0
+          and pair.fine.model.contract and pair.prop.model.contract and u8_err <= 1,
+          "the served (contracted) mip x proposal frame matches render_rays_chunked to 1 level")
+    return dict(launches=launches, loss_first=first, loss_last=last, train_s=train_s, step_ms=walls["ms"],
+                host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle, eval_psnr=psnr[0],
+                eval_s=eval_s, served_u8_err=u8_err, served_launches=served, http_ms=http_ms)
+
+
+def _m360_run(cfg: dict, mlp, name: str) -> tuple[dict, list]:
+    """train(cfg) with the launch counts of the forward, B2 (with mip, dx,
+    contract), the input gradient (its MIP && CONTRACT instantiation in C)
+    and B1 reset first; (the counts, the losses)."""
+    from nerf_simple_tpu_torch.train.loop import train
+
+    fwd, b2, b1 = mlp.fused_mlp_forward, mlp.fused_mlp_backward, mlp.fused_train_step
+    fwd.launches = fwd.mip_launches = b2.launches = b2.mip_dx_launches = b2.contract_launches = 0
+    b1.launches = b1.mip_launches = b1.contract_launches = 0
+    mlp.input_grad_launches(reset=True)
+    mlp.input_grad_mip_launches(reset=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        train(cfg)
+    torch.cuda.synchronize()
+    with open(os.path.join(OUT, f"train_{cfg['exp_name']}_log.txt"), "w") as fh:
+        fh.write(log.getvalue())
+    launches = dict(forward_mip=fwd.mip_launches, b2=b2.launches, b2_mip_dx=b2.mip_dx_launches,
+                    b2_contract=b2.contract_launches, input_grad_mip=mlp.input_grad_mip_launches(),
+                    input_grad_mip_contract=mlp.input_grad_mip_contract_launches(), b1=b1.launches,
+                    b1_mip=b1.mip_launches, b1_contract=b1.contract_launches)
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    freeze = [line for line in log.getvalue().splitlines() if "pose freeze at step" in line]
+    print(f"train {name}: {cfg['num_iters']} steps; launches {launches}; loss {np.mean(losses[:5]):.5f} -> "
+          f"{np.mean(losses[-5:]):.5f} (means of the first and last 5)" + (f"; {freeze[0]}" if freeze else ""),
+          flush=True)
+    check(all(np.isfinite(losses)) and len(losses) == cfg["num_iters"], f"{name}: every loss finite")
+    return launches, losses
+
+
+def phase_mip360_pose(dev, scene, pert, work, mlp) -> dict:
+    """18c-d. Pose refinement on the composition, through train() (bf16,
+    pallas, the flagship): (c) ``m360_config`` + configs/colmap360.yaml's
+    pose block on the perturbed unbounded scene of 17b, M360P_ITERS steps,
+    the freeze at M360P_FREEZE: before it one contracted mip forward, one
+    B2 with mip, contract and dx, one MIP && CONTRACT input-gradient
+    launch a step (counted in C), after it one contracted cone-cast B1 a
+    step; the pose step's wall and profile from a fresh state before the
+    freeze. (d) M360S_ITERS steps each of pose + mip + contract
+    (configs/lego_mip.yaml's keys, two levels, with contract on the
+    perturbed scene: two B2 with dx and two MIP && CONTRACT launches a
+    step) and of pose + mip x proposal without contract
+    (configs/lego_proposal.yaml's keys + mip on the phase-7 scene: one B2
+    with the MIP input gradient a step)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models import model_from_train_config
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    out = {}
+    cfg = m360_config(pert, work, exp_name="m360_pose", log_dir=os.path.join(work, "logs_m360_pose"),
+                      num_iters=M360P_ITERS, ckpt_model=M360P_FREEZE, pose_opt=True, pose_warmup=C360P_WARMUP,
+                      pose_freeze_at=M360P_FREEZE)
+    launches, losses = _m360_run(cfg, mlp, "360 recipe + mip + its pose block")
+    n = M360P_FREEZE
+    check(launches["b2_mip_dx"] == launches["b2_contract"] == launches["b2"] == launches["input_grad_mip"]
+          == launches["input_grad_mip_contract"] == n, "one B2 launch with mip, contract and dx a step before the "
+          "freeze, its MIP && CONTRACT input gradient counted in C")
+    check(launches["b1"] == launches["b1_mip"] == launches["b1_contract"] == M360P_ITERS - n,
+          "the fused mip x proposal core (one contracted cone-cast B1 launch a step) after the freeze")
+    check(launches["forward_mip"] >= n, "the contracted mip forwards before the freeze")
+    tcfg = train_config(cfg)
+    cm = model_from_train_config(tcfg)
+    rd = RayDataset.from_blender(load_blender(pert, False, UNB_VIEWS[0]), dev)
+    n_pix = rd.H * rd.W
+    st = make_train_state(tcfg, cm, dev, n_images=rd.rays["train"].shape[0] // n_pix)
+    step_fn = build_train_step(tcfg, cm, rays_per_image=n_pix, base_radius=mip_radius(rd.f))
+
+    def step():  # before the freeze: the MIP && CONTRACT input gradient on every call
+        return step_fn(st, rd.rays["train"], rd.pixels["train"])
+
+    walls = step_walls(step)
+    prof = profile_step(step, split_pose=True, rest="proposal net, frustums, sampling and compositing")
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step 360 recipe + mip + pose bf16 (before the freeze): {walls['ms']:.3f} ms a step (CUDA events "
+          f"over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a step in "
+          f"{walls['host_ms']:.3f} ms; profile, device ms a step: " + (", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+              + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured"), flush=True)
+    out["pose"] = dict(launches=launches, loss_first=float(np.mean(losses[:5])),
+                       loss_last=float(np.mean(losses[-5:])), step_ms=walls["ms"], host_ms=walls["host_ms"],
+                       walls=walls["walls"], profile=prof, idle=idle)
+    del st, step_fn, rd
+    torch.cuda.empty_cache()
+
+    mcfg = load_yaml("configs/lego_mip.yaml")
+    mcfg.pop("test_params")
+    mcfg.update(datapath=pert, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_m360_mc"),
+                exp_name="m360_mc", contract=True, sampling_space="disparity", tn=UNB_TN, tf=UNB_TF, half_res=False,
+                num_train_imgs=UNB_VIEWS[0], num_iters=M360S_ITERS, ckpt_loss=1, ckpt_images=10**6,
+                ckpt_model=M360S_ITERS, steps_per_call=10, pose_opt=True, pose_warmup=C360P_WARMUP)
+    levels = mcfg["mip_levels"]
+    launches, losses = _m360_run(mcfg, mlp, f"pose + mip ({levels} levels) + contract")
+    check(launches["b2_mip_dx"] == launches["b2_contract"] == launches["input_grad_mip_contract"]
+          == levels * M360S_ITERS and launches["b1"] == 0, "pose + mip + contract: one B2 launch with the MIP && "
+          "CONTRACT input gradient a level and step, no B1")
+    out["pose_mip_contract"] = dict(launches=launches, loss_first=float(np.mean(losses[:5])),
+                                    loss_last=float(np.mean(losses[-5:])))
+
+    pcfg = load_yaml("configs/lego_proposal.yaml")
+    pcfg.pop("test_params")
+    pcfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_m360_mp"),
+                exp_name="m360_mp", mip=True, num_iters=M360S_ITERS, ckpt_loss=1, ckpt_images=10**6,
+                ckpt_model=M360S_ITERS, steps_per_call=10, pose_opt=True, pose_warmup=C360P_WARMUP)
+    launches, losses = _m360_run(pcfg, mlp, "pose + mip x proposal")
+    check(launches["b2_mip_dx"] == launches["input_grad_mip"] == M360S_ITERS and launches["b2_contract"] == 0
+          and launches["input_grad_mip_contract"] == 0 and launches["b1"] == 0, "pose + mip x proposal: one B2 "
+          "launch with the MIP input gradient a step, no B1")
+    out["pose_mip_proposal"] = dict(launches=launches, loss_first=float(np.mean(losses[:5])),
+                                    loss_last=float(np.mean(losses[-5:])))
+    return out
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -5029,7 +5412,16 @@ def main() -> None:
         torch.cuda.empty_cache()
         pcn = phase_pose_app_contract_nets(dev, pct["pert"], work, mlp)
         walls["pose and appearance with contract"] = time.perf_counter() - t_phase
-    # 18. the padding probe
+        # 18. the mip-NeRF 360 composition: the MIP && CONTRACT input gradient vs plain, mip x proposal on the
+        # 360 recipe (train, eval, serve), with its pose block, and the sub-cases with pose
+        t_phase = time.perf_counter()
+        m3k = phase_mip360_kernels(dev, unb, mlp, earlier)
+        torch.cuda.empty_cache()
+        m3t = phase_mip360_train(dev, unb, work, mlp)
+        torch.cuda.empty_cache()
+        m3p = phase_mip360_pose(dev, scene, pct["pert"], work, mlp)
+        walls["the mip-NeRF 360 composition"] = time.perf_counter() - t_phase
+    # 19. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -5333,6 +5725,26 @@ def main() -> None:
         "step_profile_ms_bf16": pct["profile"].get("input grad"),
         "launches_nets": nets_dx, "c360_pose": {k: v for k, v in pct.items() if k != "pert"}, "c360_app": pca,
         "contract_nets": nets}
+    # the input gradient's MIP && CONTRACT instantiation alone and in B2 (phase 18a), its launches on the main path
+    # (18c-d: the 360 recipe + mip + its pose block before the freeze, pose + mip + contract)
+    igm = m3k["input_grad"]
+    igm_flops, igm_bytes = input_grad_work(NerfMLP(contract=True), igm["rows"], torch.float32, mip=True)
+    m3_dx = {k: r["launches"]["input_grad_mip_contract"] for k, r in m3p.items()}
+    input_grad_mip_contract = {
+        "name": "input_grad_mip_contract", "route": "cuda", "source": "nerf_simple_tpu_torch/csrc/fused_contract.cu",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:972-983, :1034-1064 (_input_grad_tile_mip's contract branch), "
+                    ":738-742 (_bwd_kernel's want_dx under mip)",
+        "launches": sum(m3_dx.values()), "max_abs_err": igm["f32"]["max_abs_err"], "ms": igm["f32"]["ms"],
+        "plain_ms": igm["f32"]["plain_ms"], "bound_ms": igm["f32"]["bound_ms"], "bound_by": igm["f32"]["bound_by"],
+        "library_ms": igm["f32"]["library_ms"], "max_abs_err_bf16": igm["bf16"]["max_abs_err"],
+        "ms_bf16": igm["bf16"]["ms"], "plain_ms_bf16": igm["bf16"]["plain_ms"], "bound_ms_bf16": igm["bf16"]["bound_ms"],
+        "bound_by_bf16": igm["bf16"]["bound_by"], "library_ms_bf16": igm["bf16"]["library_ms"],
+        "variant": "input_grad_kernel<T, KD, MIP = true, CONTRACT = true> (csrc/input_grad.cuh)",
+        "rows": igm["rows"], "inside_rows": igm["inside_rows"], "flops": igm_flops, "bytes": igm_bytes,
+        **{f"{m}{'' if k == 'f32' else '_bf16'}": igm[k][m] for k in ("f32", "bf16")
+           for m in ("rel_err", "var_rel_err", "mip_ms", "share_of_bound", "fault_err", "inside_bit_equal")},
+        "launches_by_run": m3_dx, "step_profile_ms_bf16": m3p["pose"]["profile"].get("input grad"),
+        "b2": {k: dict(m3k[k]) for k in ("f32", "bf16")}, "m360_pose": m3p}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -5373,6 +5785,7 @@ def main() -> None:
          "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad},
         input_grad_mip,
         input_grad_contract,
+        input_grad_mip_contract,
         entry("fused_train_step", "fused_train_step.cu", "nerf_simple_tpu/kernels/mlp.py:1623",
               tr["launches"]["fused_train_step"], b1, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b1["f32"]["rel"], grad_rel_err_bf16=b1["bf16"]["rel"],
@@ -5388,7 +5801,8 @@ def main() -> None:
               hierarchical_eval_s_per_still=he["s_per_still"], b2_rel_err_1m_rows=hk["B2_f32"]["rel"],
               b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist,
               weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train,
-              contract={**contract["b1"], "name": "fused_train_step"}),
+              contract={**contract["b1"], "name": "fused_train_step"},
+              mip_proposal={**m3t, "launches_pose": m3p["pose"]["launches"]["b1"]}),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),

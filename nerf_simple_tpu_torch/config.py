@@ -21,14 +21,6 @@ import re
 import warnings
 from typing import Any
 
-# What a contracted model cannot train through yet: the gradient of the
-# frustum Gaussians under mip (pose refinement with mip and contract).
-CONTRACT_MIP_INPUT_GRAD = (
-    "ROADMAP Queue B item 4, the contract branch of the mip input-gradient kernel (the linearised Gaussian "
-    "warp's Jacobian in JAX _input_grad_tile_mip)"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     # reference keys (configs/lego.yaml)
@@ -96,7 +88,9 @@ class TrainConfig:
     # mip_levels: 2 renders a coarse and a fine level with one network, the
     # fine edges resampled from the coarse weights (resample_blur the
     # padding), the loss mip_coarse_weight * coarse + fine;
-    # opaque_background makes the last interval absorb what is left
+    # opaque_background makes the last interval absorb what is left; with
+    # proposal: true (mip_levels: 1) the proposal's interval histogram over
+    # Np + 1 probe edges places the Nf + 1 fine edges, mip-NeRF 360's model
     mip: bool = False
     mip_levels: int = 1
     mip_coarse_weight: float = 0.1
@@ -198,16 +192,6 @@ class TrainConfig:
             )
         if self.mip_coarse_weight < 0:
             raise ValueError(f"mip_coarse_weight must be >= 0, got {self.mip_coarse_weight}")
-        if self.mip and self.proposal:
-            raise NotImplementedError(
-                "mip=True with proposal=True (proposal-placed cone casting, mip-NeRF 360) is not "
-                "ported yet: ROADMAP Queue A item 2, mip x proposal"
-            )
-        if self.contract and self.pose_opt and self.mip:
-            raise NotImplementedError(
-                "contract=True with pose_opt and mip trains through the gradient of the contracted frustum "
-                f"Gaussians, which is not ported yet: {CONTRACT_MIP_INPUT_GRAD}"
-            )
         self._check_pose()
         self._check_appearance()
 
@@ -237,8 +221,8 @@ class TrainConfig:
     def _check_pose(self):
         """The JAX TrainConfig's pose rules (nerf_simple_tpu/config.py:
         578-643). Pose composes with mip (one or two levels) and with
-        proposal sampling, as in JAX; pose with mip and proposal together
-        raises with mip x proposal (``__post_init__``, Queue A item 2)."""
+        proposal sampling, and with both (mip-NeRF 360's composition), on a
+        contracted model too, as in JAX."""
         if self.pose_opt and (self.pose_lr_init <= 0 or self.pose_lr_final <= 0):
             raise ValueError(
                 f"pose_lr_init/pose_lr_final must be positive, got {self.pose_lr_init}/{self.pose_lr_final}")
@@ -394,11 +378,6 @@ class TestConfig:
             raise ValueError(f"mip_levels must be 1 or 2, got {self.mip_levels}")
         if self.mip_levels == 2 and not self.mip:
             raise ValueError("mip_levels=2 (coarse+fine cone casting) requires mip=True")
-        if self.mip and self.Np > 0:
-            raise NotImplementedError(
-                "mip=True with Np > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported "
-                "yet: ROADMAP Queue A item 2, mip x proposal"
-            )
         if self.opaque_background and not self.mip:
             # the JAX TrainConfig's rule (config.py:368-373), which its
             # TestConfig lacks (ROADMAP, Queue C's deliberate behaviour

@@ -4,15 +4,17 @@
 // code rows, which the forward, B2's recompute, B1 and the eval render
 // (csrc/fused_mlp_fwd.cu, fused_mlp_bwd.cu, fused_train_step.cu,
 // fused_render.cu) launch through set_contract_forward; and the
-// input-gradient kernel's contract instantiation, which B2 launches
-// through set_contract_input_grad.
+// input-gradient kernel's contract instantiations, point and mip, which B2
+// launches through set_contract_input_grad.
 //
 // Replaces: the `if model.contract:` branch of nerf_simple_tpu/kernels/
 // mlp.py::_encode (:437-456), reached by every _forward_tile: the
 // forward (:669), B1 (:1623), B2's recompute (:1147) and B3 (:1734),
 // composed there with the windows (:491-493) and the code rows (:541-545);
 // and the contract branch of _input_grad_tile (:898-906, :933-938),
-// reached from _bwd_kernel's want_dx (:733-746).
+// reached from _bwd_kernel's want_dx (:733-746), and of
+// _input_grad_tile_mip (:972-983, :1034-1064), reached under mip
+// (:738-742).
 //
 // Contract: x as the forward takes it (csrc/fused_mlp_fwd.cu): rows 0..2
 // the sample positions (under `mip` the frustum Gaussians' means, their
@@ -31,12 +33,15 @@
 // there the launch equals the one without contract to the bit.
 //
 // The input gradient (fused_contract_input_grad): dx of a contracted
-// model without mip, as csrc/input_grad.cuh computes it for one without
-// contract, but with the encoder's transpose taken at the contracted rows
-// g x (contract_point, so its angles are the forward's to the bit) and
-// then the contraction's transpose, dxyz = g dy + c (x . dy) x, onto rows
-// 0..2 (contract_transpose); rows 3..5 and the code rows 8..15 are not
-// touched by it.
+// model, as csrc/input_grad.cuh computes it for one without contract, but
+// with the encoder's transpose taken at the contracted rows g x
+// (contract_point, so its angles are the forward's to the bit) and then
+// the contraction's transpose, dxyz = g dy + c (x . dy) x, onto rows 0..2
+// (contract_transpose); rows 3..5 and the code rows 8..15 are not touched
+// by it. Under mip (dx of 16 rows) the angles and the damps are those of
+// the contracted mean and variances, and the warp's coupled transpose
+// (input_grad.cuh's contract_transpose_mip, at the raw mean and
+// variances) takes the cotangents of both onto rows 0..2 and 11..13.
 //
 // What bounds them: the forward's arithmetic (csrc/fused_mlp_fwd.cu) and
 // the input gradient's (csrc/input_grad.cuh). The contraction adds per row
@@ -79,18 +84,26 @@ long long fwd_contract_launch_count(int reset) {
 }
 
 // The input-gradient kernel of a contracted model on `stream`, as
-// csrc/fused_mlp_bwd.cu's input_grad takes its arguments (no mip).
+// csrc/fused_mlp_bwd.cu's input_grad takes its arguments.
 int fused_contract_input_grad(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, int is_bf16,
-                              Weights w, const float *wx, const float *wd, float *dx, int app, void *stream) {
+                              Weights w, const float *wx, const float *wd, float *dx, int app, int mip,
+                              void *stream) {
   if (!arch_ok(Lp, Ld, H) || rows <= 0) return (int)cudaErrorInvalidValue;
   return ig::launch_contract(gws, x, rows, Lp, Ld, H, is_bf16 != 0, w, wx, wd, dx, static_cast<cudaStream_t>(stream),
-                             app != 0);
+                             app != 0, mip != 0);
 }
 
-// Launches of the input-gradient kernel's contract instantiation so far.
+// Launches of the input-gradient kernel's contract instantiations so far.
 long long input_grad_contract_launch_count(int reset) {
   const long long n = ig::launches;
   if (reset) ig::launches = 0;
+  return n;
+}
+
+// Of them, the launches of the mip one (MIP && CONTRACT).
+long long input_grad_mip_contract_launch_count(int reset) {
+  const long long n = ig::mip_launches;
+  if (reset) ig::mip_launches = 0;
   return n;
 }
 

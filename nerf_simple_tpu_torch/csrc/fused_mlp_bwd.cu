@@ -10,9 +10,9 @@
 // point variant's want_dx, :733-746) also the input gradient of
 // _input_grad_tile (:871-938) by the kernel of csrc/input_grad.cuh, with
 // `mip` and dx its mip instantiation, _input_grad_tile_mip (:941-1078,
-// :738-742; without contraction), and with `contract` and dx (no mip) its
-// contract instantiation, built in csrc/fused_contract.cu (:898-906,
-// :933-938); for an appearance model (`app`)
+// :738-742), and with `contract` and dx its contract instantiations, built
+// in csrc/fused_contract.cu (:898-906, :933-938; under mip :972-983,
+// :1034-1064); for an appearance model (`app`)
 // the recompute with the codes (:716-724), dWca (:854-857) and the codes'
 // rows of dx (:867, :747-748, :1140-1145).
 //
@@ -73,7 +73,7 @@ long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) 
 // `wt` is not read (mlp_tile.cuh's WeightsT). `wx`, `wd`: null, or the
 // anneal windows of the forward it recomputes (FX and enc_rows(Ld) floats
 // on the card). `contract`: a contracted model's recompute and input
-// gradient (not both with mip). `dx`: null, or (8, rows) f32 for the input
+// gradient. `dx`: null, or (8, rows) f32 for the input
 // gradient, (16, rows) with `app` or `mip` (under mip rows 0..2
 // d/d(mean), 3..5 d/d(dir), 11..13 d/d(variance); not with the windows or
 // codes, as in JAX).
@@ -82,7 +82,7 @@ int fused_mlp_bwd(const float *x, const float *g, long long rows, int Lp, int Ld
                   Grads out, int mip, const float *wx, const float *wd, float *dx, int app, int contract,
                   void *stream) {
   if (!arch_ok(Lp, Ld, H) || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rows <= 0 || (mip && (wx || app)) || (contract && mip && dx)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (mip && (wx || app))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(workspace, rows, Lp, Ld, H, is_bf16, app != 0);
   float *out8 = reinterpret_cast<float *>(static_cast<char *>(workspace) + ws.bytes);

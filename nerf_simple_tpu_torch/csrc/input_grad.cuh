@@ -1,7 +1,7 @@
 // The input-gradient kernel of the fused NeRF MLP backward for Hopper
 // (sm_90a): dL/dx of the MLP's input rows, from the cotangent planes the
 // backward tile kernel leaves in the workspace. Included by
-// fused_mlp_bwd.cu and (its CONTRACT instantiation) fused_contract.cu,
+// fused_mlp_bwd.cu and (its CONTRACT instantiations) fused_contract.cu,
 // after mlp_tile.cuh (whose Layout, Weights and helpers it uses);
 // fused_mlp_bwd launches it after the weight-gradient sums when it is
 // asked for dx (pose refinement trains through ray generation).
@@ -16,7 +16,9 @@
 // (cone casting) the integrated encoder's transpose instead,
 // _input_grad_tile_mip (:941-1078, without contraction; :738-742); for
 // a contracted model without mip the contract branch of _input_grad_tile
-// (:898-906, :933-938), in the CONTRACT instantiation.
+// (:898-906, :933-938), in the CONTRACT instantiation, and under mip that
+// of _input_grad_tile_mip (:972-983, :1034-1064), in the MIP && CONTRACT
+// one.
 //
 // Contract: the workspace's cotangent planes (mlp_tile.cuh's Layout) g_h0,
 // g_h5 and g_hc (the first H/2 rows of g_cs), each (features, Rp) in the
@@ -58,15 +60,23 @@
 // are the forward's contracted coordinates to the bit; posx's transpose is
 // taken there, and the contraction's transpose (contract_transpose: g dy
 // + c (x . dy) x at the uncontracted x) then goes onto d[0..2]. posd and
-// the code rows are not contracted. Windows and codes compose with it; mip
-// does not (the mip Jacobian is not ported).
+// the code rows are not contracted. Windows and codes compose with it.
+// Under mip (MIP && CONTRACT, no windows, no codes) contract_point also
+// warps the row's variances (the forward's linearised Gaussian), so the
+// angles and the damps are the forward's; the two chains' cotangents of
+// the contracted mean and variance then go through the warp's coupled
+// transpose at the raw mean and variance (contract_transpose_mip: the
+// variance transform depends on the mean through n and m = x^2), onto dx
+// rows 0..2 and 11..13. Inside the unit ball the row is the MIP kernel's,
+// bit for bit.
 //
 // What bounds it (flagship, 524,288 rows): in bf16 the bytes, 640 plane
 // rows x 2 B, x and dx, ~1,344 B a row: 0.21 ms at 3.35 TB/s (its 83,968
 // flop a row take 0.045 ms on the tensor cores); in f32 the operations,
 // 0.66 ms at 67 TFLOP/s (its bytes 0.41 ms). Under mip it reads 9 rows of
 // x and writes 16 of dx, ~1,380 B a row in bf16 (0.22 ms); the products
-// are the same.
+// are the same. The coupled transpose of MIP && CONTRACT adds ~60 flops a
+// row, after the products.
 //
 // Design: simple SIMT, one thread a sample row, chosen over mma.sync for
 // a first kernel that is right: the products are skinny (K = H rows of
@@ -124,7 +134,7 @@ __device__ __forceinline__ int column(int s, int L) {
 // variances vc (stride `rows`); d gets the angle chain, dv the damp chain.
 // CX: the transpose is taken at the contracted coordinates (contract_point
 // of the row xc, after the products, so that they hold no register
-// through them).
+// through them); with MIP also at the contracted variances.
 template <class T, int K, int LM, bool TWO, bool MIP = false, bool CX = false>
 __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
                                        const float *sa, const float *sb, int O, const float *__restrict__ xc,
@@ -169,12 +179,18 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     b = bn;
   }
   const int sbk = ceil8(3 * L);
-  float cx[3];
+  float cx[3], cv[3];
   if constexpr (CX) {
     float v[3] = {0.f, 0.f, 0.f};
 #pragma unroll
     for (int c = 0; c < 3; ++c) cx[c] = xc[(long long)c * rows];
-    contract_point(cx, v, false);
+    if constexpr (MIP) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cv[c] = vc[(long long)c * rows];
+      contract_point(cx, cv, true);
+    } else {
+      contract_point(cx, v, false);
+    }
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -186,7 +202,10 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     else
       xv = xc[(long long)c * rows];
     float vv = 0.f, dvc = 0.f;
-    if constexpr (MIP) vv = vc[(long long)c * rows];
+    if constexpr (MIP && CX)
+      vv = cv[c];
+    else if constexpr (MIP)
+      vv = vc[(long long)c * rows];
 #pragma unroll
     for (int i = 0; i < LM; ++i) {
       if (i < L) {
@@ -214,9 +233,41 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     for (int j = 0; j < 8; ++j) code[j] = acc[KD + j];
 }
 
+// The transpose of contract_point with mip at the raw mean x[0..2] and
+// variances v[0..2] (JAX _input_grad_tile_mip :1034-1064): the cotangents
+// d of the contracted mean and dv of the contracted variances become, in
+// place, those of x and v. With n = |x| (contract_norm), g, c as there, g'
+// = c n, c' = 6/n^4 - 8/n^5, m = x^2, S = m . v, C = m . dv, A = dv . v, B =
+// dv . (m v): dv_k <- (g^2 + 2 g c m_k) dv_k + c^2 m_k C, and d_k <- g d_k +
+// x_k (c (x . d) + 2 (g g' A + (g' c + g c') B + c c' S C) / n + (4 g c v_k
+// + 2 c^2 S) dv_k + 2 c^2 v_k C). Inside the ball both are left as they are.
+__device__ __forceinline__ void contract_transpose_mip(const float *x, const float *v, float *d, float *dv) {
+  const float n = contract_norm(x);
+  if (n <= 1.f) return;
+  const float n2 = n * n, g = (2.f - 1.f / n) / n, c = (-2.f / n2 + 2.f / (n2 * n)) / n;
+  const float gp = c * n, cp = 6.f / (n2 * n2) - 8.f / (n2 * n2 * n), c2 = c * c;
+  float m[3], S = 0.f, C = 0.f, A = 0.f, B = 0.f, dot = 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    m[k] = x[k] * x[k];
+    S += m[k] * v[k];
+    C += m[k] * dv[k];
+    A += dv[k] * v[k];
+    B += dv[k] * m[k] * v[k];
+    dot += x[k] * d[k];
+  }
+  const float tn = 2.f * (g * gp * A + (gp * c + g * cp) * B + c * cp * S * C) / n;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float dvo = dv[k];
+    d[k] = g * d[k] + (c * dot + tn + (4.f * g * c * v[k] + 2.f * c2 * S) * dvo + 2.f * c2 * v[k] * C) * x[k];
+    dv[k] = (g * g + 2.f * g * c * m[k]) * dvo + c2 * m[k] * C;
+  }
+}
+
 // KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16
 // rows); MIP: the integrated encoder's transpose (x and dx of 16 rows);
-// CONTRACT: a contracted model's (not with MIP).
+// CONTRACT: a contracted model's (with MIP: KD only).
 template <class T, int KP, bool MIP = false, bool CONTRACT = false>
 __global__ void __launch_bounds__(THREADS, 1)
     input_grad_kernel(const T *__restrict__ g0, const T *__restrict__ g5, const T *__restrict__ gc, long long Rp,
@@ -241,8 +292,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     float d[3], e[3], code[8];
     if constexpr (MIP) {
       float dv[3];
-      branch<T, KX, LXM, true, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, nullptr, d, nullptr,
-                                     x + 11 * rows + row, dv);
+      branch<T, KX, LXM, true, true, CONTRACT>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, nullptr, d,
+                                               nullptr, x + 11 * rows + row, dv);
+      if constexpr (CONTRACT) {  // the warp's coupled transpose at the raw mean and variances
+        float xo[3], vo[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          xo[c] = x[c * rows + row];
+          vo[c] = x[(11 + c) * rows + row];
+        }
+        contract_transpose_mip(xo, vo, d, dv);
+      }
 #pragma unroll
       for (int c = 0; c < 3; ++c) dx[(11 + c) * rows + row] = dv[c];
 #pragma unroll
@@ -280,7 +340,9 @@ int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, in
   const long long es = sizeof(T), smem = smem_bytes(H, app);
   decltype(&input_grad_kernel<T, KD>) kernel;
   if constexpr (CONTRACT)
-    kernel = app ? input_grad_kernel<T, KDA, false, true> : input_grad_kernel<T, KD, false, true>;
+    kernel = mip   ? input_grad_kernel<T, KD, true, true>
+             : app ? input_grad_kernel<T, KDA, false, true>
+                   : input_grad_kernel<T, KD, false, true>;
   else
     kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
   int dev = 0, sms = 0;
@@ -299,15 +361,21 @@ int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, in
 }
 
 #ifdef CONTRACT_LIBRARY
-// dx (8, rows), or (16, rows) with `app`, of a contracted model from the
-// cotangent planes `gws` of the workspace, on `stream`; counts the launch.
+// dx (8, rows), or (16, rows) with `app` or `mip`, of a contracted model
+// from the cotangent planes `gws` of the workspace, on `stream`; counts the
+// launch (and the mip ones apart).
 int launch_contract(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
-                    const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app) {
-  if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr)) return (int)cudaErrorInvalidValue;
+                    const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app,
+                    bool mip) {
+  if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr) || (mip && (wx || app)))
+    return (int)cudaErrorInvalidValue;
   const char *g = static_cast<const char *>(gws);
-  const int e = is_bf16 ? launch_t<bf16, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, false)
-                        : launch_t<float, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, false);
-  if (e == 0) ++launches;
+  const int e = is_bf16 ? launch_t<bf16, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, mip)
+                        : launch_t<float, true>(g, x, rows, Lp, Ld, H, w, wx, wd, dx, stream, app, mip);
+  if (e == 0) {
+    ++launches;
+    mip_launches += mip;
+  }
   return e;
 }
 #else
@@ -315,19 +383,19 @@ int launch_contract(const void *gws, const float *x, long long rows, int Lp, int
 // fused_contract_input_grad, which set_contract_input_grad hands to this
 // library (as mlp_tile.cuh's contract_forward, and for the same reason).
 typedef int (*ContractInputGrad)(const void *, const float *, long long, int, int, int, int, Weights, const float *,
-                                 const float *, float *, int, void *);
+                                 const float *, float *, int, int, void *);
 ContractInputGrad contract_input_grad = nullptr;
 
 // dx (8, rows), or (16, rows) with `app` or `mip`, from the cotangent
 // planes `gws` of the workspace, on `stream`; counts the launch (and the
-// mip ones apart). A contracted model's (`contract`, not with mip) goes
-// to contract_input_grad, whose library counts it.
+// mip ones apart). A contracted model's (`contract`, with or without mip)
+// goes to contract_input_grad, whose library counts it.
 int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
            const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false,
            bool mip = false, bool contract = false) {
   if (contract) {
-    if (mip || !contract_input_grad) return (int)cudaErrorInvalidValue;
-    return contract_input_grad(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, app, stream);
+    if (!contract_input_grad) return (int)cudaErrorInvalidValue;
+    return contract_input_grad(gws, x, rows, Lp, Ld, H, is_bf16, w, wx, wd, dx, app, mip, stream);
   }
   if (Lp > LXM || Ld > LDM || rows <= 0 || (wx == nullptr) != (wd == nullptr) || (mip && (wx || app)))
     return (int)cudaErrorInvalidValue;

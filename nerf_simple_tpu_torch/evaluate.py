@@ -16,7 +16,10 @@ deterministic importance samples a ray. With ``Np > 0`` it renders with
 the proposal scheme: the checkpoint's proposal net at Np probes (bin
 midpoints) places N_samples deterministic samples of its main field.
 With ``mip`` it casts cones (at ``mip_levels`` 1 or 2), their radius
-``2 / sqrt(12) / focal`` of the eval frames; normals render point samples.
+``2 / sqrt(12) / focal`` of the eval frames; with ``mip`` and ``Np > 0``
+(mip-NeRF 360's composition) the proposal net's interval histogram over
+Np + 1 probe edges places the cones' N_samples + 1 edges; normals render
+point samples.
 A pose-refined run's train-split stills render from the refined poses:
 the camera deltas of the checkpoint's ``{"field", "cams"}`` params, or
 after a pose freeze those of the ``cam_deltas.npz`` sidecar beside it,
@@ -25,7 +28,7 @@ appearance checkpoint (``{"field", "app"}``) renders its stills, normals
 and orbit under one code: the table's mean for ``appearance_idx`` -1
 (NeRF-W's canonical look), else train image ``appearance_idx``'s.
 
-Mip with Np (mip-NeRF 360), occupancy eval, LLFF (spiral path, NDC),
+Occupancy eval, LLFF (spiral path, NDC),
 the tiny_nerf loader, sharded eval and Orbax checkpoint directories are
 not ported: each raises NotImplementedError.
 """

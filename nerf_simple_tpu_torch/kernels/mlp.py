@@ -66,10 +66,11 @@ outside the unit ball and 1 inside, and under mip warp the variance rows
 through the contraction's Jacobian; the residual planes hold the
 contracted posx, so the backward's weight gradients need no change; its
 input gradient takes the encoder's transpose at the contracted rows and
-then the contraction's, ``g dy + c (x . dy) x`` (``_encode_transpose``).
-The windows and the code rows compose with the contraction as without
-it. Under mip no gradient reaches the input of a contracted model yet
-(ROADMAP Queue B item 4): ``fused_mlp`` and ``want_dx`` raise there.
+then the contraction's, ``g dy + c (x . dy) x`` (``_encode_transpose``);
+under mip the angles and damps are those of the contracted means and
+variances, and the warp's coupled transpose takes both cotangents to the
+raw means and variances (``_contract_transpose_mip``). The windows and
+the code rows compose with the contraction as without it.
 ``pack_weights`` permutes the first-layer columns into 8-aligned raw /
 sin / cos blocks, splits the skip and colour concats into two matrices
 each, and folds the reference's no-activation feature layer into the
@@ -95,7 +96,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerf_simple_tpu_torch.config import CONTRACT_MIP_INPUT_GRAD
 from nerf_simple_tpu_torch.kernels import _build
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP
 from nerf_simple_tpu_torch.ops.volume import s_norm
@@ -490,6 +490,36 @@ def _contract_transpose(xyz: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return g * dy + c * (xyz * dy).sum(0, keepdim=True) * xyz
 
 
+def _contract_transpose_mip(xyz: torch.Tensor, var: torch.Tensor, dy: torch.Tensor,
+                            dvo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of the contraction under mip (``_contract`` with the
+    variances) at the uncontracted means ``xyz (3, rows)`` and variances
+    ``var (3, rows)`` (the JAX ``_input_grad_tile_mip``'s contract branch,
+    :1034-1064): the cotangents ``dy`` of the contracted means and ``dvo``
+    of the contracted variances -> (d/d(mean), d/d(variance)). The warped
+    variance ``g^2 v + 2 g c m2 v + c^2 m2 (m2 . v)``, ``m2 = xyz^2``,
+    depends on the mean through n and m2, so d/d(mean) gains the variance
+    transform's terms (``g' = c n``, ``c' = 6/n^4 - 8/n^5`` outside the
+    unit ball, 0 inside; ``_contract_scales``); d/d(variance) is diagonal
+    in ``dvo`` plus the rank-one ``c^2 m2 (m2 . dvo)``. Inside the ball
+    ``(dy, dvo)``."""
+    g, c = _contract_scales(xyz)
+    n = torch.sqrt(torch.clamp(xyz[0:1] ** 2 + xyz[1:2] ** 2 + xyz[2:3] ** 2, min=1e-20))
+    cp = torch.where(n <= 1.0, 0.0, 6.0 / n**4 - 8.0 / n**5)
+    gp = c * n
+
+    def dot(a, b):
+        return (a * b).sum(0, keepdim=True)
+
+    m2 = xyz**2
+    m2v, Cv, A, Bv = dot(m2, var), dot(m2, dvo), dot(dvo, var), dot(dvo, m2 * var)
+    dv = (g**2 + 2.0 * g * c * m2) * dvo + c**2 * m2 * Cv
+    term_n = (2.0 * g * gp * A + 2.0 * (gp * c + g * cp) * Bv + 2.0 * c * cp * m2v * Cv) / n
+    dmean = (g * dy + c * dot(xyz, dy) * xyz + term_n * xyz + (4.0 * g * c * var + 2.0 * c**2 * m2v) * xyz * dvo
+             + 2.0 * c**2 * var * xyz * Cv)
+    return dmean, dv
+
+
 def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tensor,
                       model: NerfMLP, mip: bool = False) -> torch.Tensor:
     """The transpose of ``_encode`` (without windows) at the inputs ``xT``:
@@ -514,7 +544,11 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
     ``g * f'(ang) * damp`` into the mean, and the damp chain ``-0.5 * g *
     f(ang) * damp``, ``4^i`` times which goes to ``v_c``; posd is not
     damped. dx is (16, rows): rows 0..2 d/d(mean), 3..5 d/d(unit dir),
-    11..13 d/d(variance), the rest zero."""
+    11..13 d/d(variance), the rest zero. A contracted model under mip (the
+    JAX ``_input_grad_tile_mip``'s contract branch, :972-983, :1034-1064)
+    takes both chains at the contracted means and variances (``_contract``
+    with the variances), then the warp's coupled transpose at the raw ones
+    (``_contract_transpose_mip``)."""
 
     def branch(x3, g, L, v3=None):
         sb = _sin_block(L)
@@ -531,18 +565,19 @@ def _encode_transpose(xT: torch.Tensor, g_posx: torch.Tensor, g_posd: torch.Tens
         dang = gs * c - gc * s
         return g[0:3] + (dang.reshape(3, L, -1) * freqs[None, :, None]).sum(1), dv
 
-    if model.contract and mip:
-        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
-                                  f"{CONTRACT_MIP_INPUT_GRAD}")
     FD0 = _enc_rows(model.Ld)
     dt = g_posx.dtype
     dx = torch.zeros((_x_rows(mip, model), xT.shape[1]), dtype=dt, device=xT.device)
     xyz = xT[0:3].to(dt)
-    if model.contract:
+    var = xT[11:14].to(dt) if mip else None
+    if model.contract and mip:
+        xc, vc = _contract(xyz, var)
+        dx[0:3], dv = _contract_transpose_mip(xyz, var, *branch(xc, g_posx, model.Lp, vc))
+    elif model.contract:
         dx[0:3] = _contract_transpose(xyz, branch(_contract(xyz, None)[0], g_posx, model.Lp)[0])
         dv = None
     else:
-        dx[0:3], dv = branch(xyz, g_posx, model.Lp, xT[11:14].to(dt) if mip else None)
+        dx[0:3], dv = branch(xyz, g_posx, model.Lp, var)
     dx[3:6] = branch(xT[3:6].to(g_posd.dtype), g_posd[:FD0], model.Ld)[0]
     if mip:
         dx[11:14] = dv
@@ -1065,8 +1100,9 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
     "fused_contract": {
         "fused_contract_fwd": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _I, _P, _P, _I, _P], _I),
         "fwd_contract_launch_count": ([_I], _LL),
-        "fused_contract_input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _P], _I),
+        "fused_contract_input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _P], _I),
         "input_grad_contract_launch_count": ([_I], _LL),
+        "input_grad_mip_contract_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -1369,12 +1405,10 @@ def fused_mlp_backward(
     windows get no gradient. A contracted model recomputes the contracted
     forward (``contract_launches``), and its dx is the input-gradient
     kernel's contract instantiation (csrc/fused_contract.cu,
-    ``input_grad_contract_launches``); under mip it takes no ``want_dx``
-    (ROADMAP Queue B item 4)."""
+    ``input_grad_contract_launches``), under mip its ``MIP && CONTRACT``
+    one (``input_grad_mip_contract_launches``)."""
     wts = _prepare(wts, compute_dtype, model, mip)
     wx, wd = _enc_w_ptrs(enc_w, model, xT.device, mip)
-    if want_dx and model.contract and mip:
-        raise NotImplementedError(f"want_dx of a contracted mip model is not ported yet: {CONTRACT_MIP_INPUT_GRAD}")
     if _dispatch(xT):
         with torch.no_grad():
             return fused_mlp_backward_plain(wts, xT, gT, compute_dtype, model, mip, want_dx, enc_w)
@@ -1446,13 +1480,8 @@ def fused_mlp(
     packed weights, and ``xT`` when autograd asks for it (B2's
     ``want_dx``, the input-gradient kernel: pose refinement trains through
     ray generation, under mip through the frustum Gaussians' means,
-    directions and variances; appearance codes through rows 8..15). The
-    windows are a schedule and get no gradient. A contracted model under mip
-    takes no input that needs a gradient (ROADMAP Queue B item 4): that
-    raises here, before any launch."""
-    if model.contract and mip and xT.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
-                                  f"{CONTRACT_MIP_INPUT_GRAD}")
+    directions and variances, of a contracted model too; appearance codes
+    through rows 8..15). The windows are a schedule and get no gradient."""
     return _FusedMLP.apply(xT, compute_dtype, model, mip, enc_w, *wts)
 
 
@@ -1721,11 +1750,14 @@ def input_grad_launches(reset: bool = False) -> int:
 
 
 def input_grad_mip_launches(reset: bool = False) -> int:
-    """Of ``input_grad_launches``, those of the kernel's mip instantiation
-    (the integrated encoder's transpose), counted in C where they launch."""
+    """Of ``input_grad_launches``, those of the kernel's mip instantiations
+    (the integrated encoder's transpose; a contracted model's,
+    ``input_grad_mip_contract_launches``, among them), counted in C where
+    they launch."""
+    n = input_grad_mip_contract_launches(reset)
     if "fused_mlp_bwd" not in _build._loaded:
-        return 0
-    return _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
+        return n
+    return n + _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
 
 
 def input_grad_contract_launches(reset: bool = False) -> int:
@@ -1734,6 +1766,15 @@ def input_grad_contract_launches(reset: bool = False) -> int:
     if "fused_contract" not in _build._loaded:
         return 0
     return _lib("fused_contract").input_grad_contract_launch_count(int(reset))
+
+
+def input_grad_mip_contract_launches(reset: bool = False) -> int:
+    """Of ``input_grad_contract_launches``, those of the kernel's ``MIP &&
+    CONTRACT`` instantiation (a contracted model under mip), counted in C
+    where they launch."""
+    if "fused_contract" not in _build._loaded:
+        return 0
+    return _lib("fused_contract").input_grad_mip_contract_launch_count(int(reset))
 
 
 def contract_launches(reset: bool = False) -> int:
@@ -1766,12 +1807,9 @@ def input_grad(
     ``xT`` and ``dx`` have 16 rows, the integrated encoder's transpose
     (``input_grad.mip_launches``). ``input_grad.launches`` counts the
     kernel's launches by this wrapper. A contracted model's is the kernel's
-    contract instantiation (``input_grad.contract_launches``); under mip it
-    raises (ROADMAP Queue B item 4)."""
+    contract instantiation (``input_grad.contract_launches``), under mip its
+    ``MIP && CONTRACT`` one (counted in ``mip_launches`` too)."""
     wts = _prepare(wts, compute_dtype, model, mip)
-    if model.contract and mip:
-        raise NotImplementedError(f"the input gradient of a contracted mip model is not ported yet: "
-                                  f"{CONTRACT_MIP_INPUT_GRAD}")
     L = Layout.of(model)
     rows = xT.shape[1] if xT.dim() == 2 else 0
     Rp = -(-rows // WGRAD_ROW_MULTIPLE) * WGRAD_ROW_MULTIPLE

@@ -1,5 +1,6 @@
 """The density-only proposal MLP of mip-NeRF 360's sampling scheme (port of
-nerf_simple_tpu/models/proposal.py, the point-sampled form).
+nerf_simple_tpu/models/proposal.py): its weights at point probes, and its
+interval histogram over probe edges for cone casting (mip x proposal).
 
 A small MLP, ``[x | gamma(x)] -> D x (H, relu) -> sigma`` (``x`` contracted
 first when ``contract``, as the main field's), probed at
@@ -26,7 +27,7 @@ from torch import nn
 
 from nerf_simple_tpu_torch.models.nerf import LinearField, NerfField, NerfMLP, Params, _rnd
 from nerf_simple_tpu_torch.ops.encoding import gamma, scene_contraction
-from nerf_simple_tpu_torch.ops.volume import weights_from_sigma
+from nerf_simple_tpu_torch.ops.volume import weights_from_sigma, weights_from_sigma_intervals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,3 +143,21 @@ def proposal_weights(field: ProposalField, rays: torch.Tensor, ts: torch.Tensor,
     sigma = proposal_sigma(field, locs, compute_dtype)
     unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
     return weights_from_sigma(sigma, ts, unit_dirs)
+
+
+def proposal_weights_intervals(field: ProposalField, rays: torch.Tensor, edges: torch.Tensor,
+                               compute_dtype=torch.float32, opaque_tail: bool = False) -> torch.Tensor:
+    """(B, N) interval weights of the proposal density over the (B, N + 1)
+    ascending probe ``edges`` of the (B, >= 6) ``[origin | direction | ...]``
+    rays, for cone casting (JAX ``proposal_weights_intervals``): the
+    density at the interval midpoints (the proposal stays point-sampled
+    under mip; a contracted net contracts them in ``proposal_sigma``),
+    composited over the true widths (``weights_from_sigma_intervals``, the
+    last interval opaque with ``opaque_tail``); differentiable in the
+    field's parameters and in the rays."""
+    origins, dirs = rays[:, :3], rays[:, 3:6]
+    mids = 0.5 * (edges[:, 1:] + edges[:, :-1])
+    locs = origins[:, None, :] + dirs[:, None, :] * mids[..., None]
+    sigma = proposal_sigma(field, locs, compute_dtype)
+    unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    return weights_from_sigma_intervals(sigma, edges, unit_dirs, opaque_tail)

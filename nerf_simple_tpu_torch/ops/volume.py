@@ -1,7 +1,7 @@
 """Emission-absorption compositing, the distortion regulariser and the
 proposal scheme's interlevel loss (port of nerf_simple_tpu/ops/volume.py):
-point form, and the interval form of the mip path (finite interval widths,
-no 1e10 tail unless ``opaque_tail``).
+point form, and the interval form of the mip path and of mip x proposal
+(finite interval widths, no 1e10 tail unless ``opaque_tail``).
 
 Plain torch, as the JAX package leaves it to XLA outside any kernel. The
 reference quirks (utils/rendering.py:47-85) stay: softplus density; raw,
@@ -74,6 +74,19 @@ def weights_from_sigma(sigma: torch.Tensor, ts: torch.Tensor, unit_dirs: torch.T
     """(B, N) compositing weights alone from (B, N) raw sigma at ascending
     ts: the colour-free slice of ``composite`` (the proposal net's)."""
     return _weights(sigma, ts, unit_dirs)[1]
+
+
+def weights_from_sigma_intervals(sigma: torch.Tensor, edges: torch.Tensor, unit_dirs: torch.Tensor,
+                                 opaque_tail: bool = False) -> torch.Tensor:
+    """(B, N) interval compositing weights alone from (B, N) raw sigma, one
+    for each interval between the (B, N + 1) ascending ``edges``: the colour-free
+    slice of ``composite_intervals`` (JAX ``weights_from_sigma_intervals``),
+    the proposal net's histogram under mip. No 1e10 tail, unless
+    ``opaque_tail``, whose last interval absorbs what is left."""
+    deltas = edges[:, 1:] - edges[:, :-1]
+    if opaque_tail:
+        deltas = torch.cat([deltas[:, :-1], torch.full_like(deltas[:, -1:], 1e10)], -1)
+    return _interval_weights(sigma, deltas, unit_dirs)[1]
 
 
 def _finish(rgb, alpha, weights, ts) -> CompositeOut:
@@ -155,6 +168,20 @@ def interlevel_loss(w: torch.Tensor, ts: torch.Tensor, w_prop: torch.Tensor, ts_
     proposal distils from the main field, never the other way."""
     mids = 0.5 * (ts_prop[:, 1:] + ts_prop[:, :-1])  # (B, Np - 1) interior edges
     return _interlevel_core(w[:, :-1], ts[:, :-1], w_prop, mids)
+
+
+def interlevel_loss_intervals(w: torch.Tensor, t_mids: torch.Tensor, w_prop: torch.Tensor, edges_prop: torch.Tensor,
+                              opaque_tail: bool = False) -> torch.Tensor:
+    """The interlevel loss in its interval form (mip-NeRF 360 eqn. 13; JAX
+    ``interlevel_loss_intervals``): the main field's (B, N) interval weights
+    ``w`` at their midpoints ``t_mids`` must be covered by the proposal's
+    (B, Np) weights in the probe interval of the (B, Np + 1) ascending
+    ``edges_prop`` that holds them. No tail is left out (interval weights
+    hold absorbed mass alone), except under ``opaque_tail``, whose last fine
+    interval is the background absorber. The caller detaches ``w``."""
+    if opaque_tail:
+        w, t_mids = w[:, :-1], t_mids[:, :-1]
+    return _interlevel_core(w, t_mids, w_prop, edges_prop[:, 1:-1])
 
 
 def _interlevel_core(wi: torch.Tensor, ti: torch.Tensor, w_prop: torch.Tensor,

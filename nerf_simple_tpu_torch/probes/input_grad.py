@@ -66,12 +66,23 @@ log-uniform in [0.1, 32] (about a third inside the unit ball), and
 ``explain_dx`` plants the contraction's two faults besides
 (``CONTRACT_FAULTS``, ``planted``): the transpose's ``c (x . dy) x`` term
 dropped, and the encoder's transpose taken at the uncontracted rows.
+
+For a contracted model under mip (``run_mip_contract``: the kernel's
+``MIP && CONTRACT`` instantiation) x has 16 rows as under mip, the means'
+radii as for a contracted model (or the rows given, such as a batch of the
+unbounded scene), and ``MIP_CONTRACT_FAULTS`` are planted in the warp's
+coupled transpose (``transpose_mip_with``): its ``term_n`` (the variance
+transform's dependence on the mean through n) dropped, its rank-one
+coupling ``c^2 m2 (m2 . dv)`` of the variance rows dropped, and the angles
+and damps taken at the uncontracted means and variances.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -91,8 +102,14 @@ ALPHA = 0.3  # the anneal progress of the windowed case
 # so the sums' few ulps reach dx unevenly: 1e-4 (f32) and 5e-3 (bf16)
 # are wide.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+# The MIP && CONTRACT kernel against plain, in either type (run_mip_contract):
+# the same operands summed in f32 in another order, 7e-7 (f32) and 4e-7
+# (bf16) measured at 524,288 rows on the H100; tighter than REL_TOL's bf16
+# bound, so that each fault of the coupled transpose shows in bf16 too.
+MIP_CONTRACT_TOL = 1e-4
 MIP_ZERO_ROWS = (6, 7, 8, 9, 10, 14, 15)  # dx's rows that the mip transpose leaves zero (JAX :1068-1077)
 CONTRACT_FAULTS = ("jacobian_c_dropped", "angles_uncontracted")  # the faults ``planted`` plants
+MIP_CONTRACT_FAULTS = ("term_n_dropped", "coupling_dropped", "angles_uncontracted")  # and under mip
 
 
 def inputs(model: NerfMLP, rows: int, device, seed: int = 0, mip: bool = False):
@@ -154,25 +171,50 @@ def _fault_windows(model: NerfMLP, enc_w: tuple | None, branch: int, device) -> 
     return tuple(w)
 
 
+def transpose_mip_with(xyz, var, dy, dvo, fault: str | None = None):
+    """``mlp._contract_transpose_mip`` written out again, with one of its
+    terms dropped: ``term_n_dropped`` leaves out ``term_n x`` from
+    d/d(mean), ``coupling_dropped`` the rank-one ``c^2 m2 (m2 . dvo)`` from
+    d/d(variance); with ``fault`` None it is the plain version's (a test
+    holds the two equal)."""
+    g, c = mlp._contract_scales(xyz)
+    n = torch.sqrt(torch.clamp(xyz[0:1] ** 2 + xyz[1:2] ** 2 + xyz[2:3] ** 2, min=1e-20))
+    cp = torch.where(n <= 1.0, 0.0, 6.0 / n**4 - 8.0 / n**5)
+    gp = c * n
+    m2 = xyz**2
+    m2v, Cv = (m2 * var).sum(0, keepdim=True), (m2 * dvo).sum(0, keepdim=True)
+    A, Bv = (dvo * var).sum(0, keepdim=True), (dvo * m2 * var).sum(0, keepdim=True)
+    dv = (g**2 + 2.0 * g * c * m2) * dvo + (fault != "coupling_dropped") * c**2 * m2 * Cv
+    term_n = (2.0 * g * gp * A + 2.0 * (gp * c + g * cp) * Bv + 2.0 * c * cp * m2v * Cv) / n
+    dmean = (g * dy + c * (xyz * dy).sum(0, keepdim=True) * xyz + (fault != "term_n_dropped") * term_n * xyz
+             + (4.0 * g * c * var + 2.0 * c**2 * m2v) * xyz * dvo + 2.0 * c**2 * var * xyz * Cv)
+    return dmean, dv
+
+
 @contextlib.contextmanager
 def planted(fault: str):
-    """One of CONTRACT_FAULTS planted in the plain input gradient of a
-    contracted model: ``jacobian_c_dropped`` leaves the contraction's
-    transpose at ``g dy`` (its ``c (x . dy) x`` term dropped);
+    """One of CONTRACT_FAULTS or MIP_CONTRACT_FAULTS planted in the plain
+    input gradient of a contracted model: ``jacobian_c_dropped`` leaves the
+    contraction's transpose at ``g dy`` (its ``c (x . dy) x`` term dropped);
     ``angles_uncontracted`` takes the encoder's transpose at the
-    uncontracted rows (the forward's plain version is patched too, so plant
-    it only around ``input_grad_plain`` on planes made before)."""
-    contract, transpose = mlp._contract, mlp._contract_transpose
+    uncontracted rows (under mip the damps at the unwarped variances too;
+    the forward's plain version is patched as well, so plant it only around
+    ``input_grad_plain`` on planes made before); ``term_n_dropped`` and
+    ``coupling_dropped`` drop a term of the warp's coupled transpose under
+    mip (``transpose_mip_with``)."""
+    contract, transpose, transpose_mip = mlp._contract, mlp._contract_transpose, mlp._contract_transpose_mip
     if fault == "jacobian_c_dropped":
         mlp._contract_transpose = lambda xyz, dy: mlp._contract_scales(xyz)[0] * dy
     elif fault == "angles_uncontracted":
         mlp._contract = lambda xyz, var: (xyz, var)
+    elif fault in ("term_n_dropped", "coupling_dropped"):
+        mlp._contract_transpose_mip = functools.partial(transpose_mip_with, fault=fault)
     else:
-        raise ValueError(f"no planted fault {fault!r}; the faults are {CONTRACT_FAULTS}")
+        raise ValueError(f"no planted fault {fault!r}; the faults are {CONTRACT_FAULTS + MIP_CONTRACT_FAULTS}")
     try:
         yield
     finally:
-        mlp._contract, mlp._contract_transpose = contract, transpose
+        mlp._contract, mlp._contract_transpose, mlp._contract_transpose_mip = contract, transpose, transpose_mip
 
 
 def row_err(dx: torch.Tensor, want: torch.Tensor, mip: bool = False) -> torch.Tensor:
@@ -202,7 +244,8 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     planes. ``faults``: for each planted fault (``_fault_windows``; for an
     appearance model also the code rows halved; under ``mip`` (x and dx of
     16 rows, no windows) instead the damp dropped from the transpose and
-    the variance rows halved; for a contracted model also CONTRACT_FAULTS)
+    the variance rows halved; for a contracted model also CONTRACT_FAULTS,
+    under mip MIP_CONTRACT_FAULTS)
     its ``share`` and ``n_unexplained`` against ``dx_plain``."""
     tol = REL_TOL[dt] if tol is None else tol
     rows = x.shape[1]
@@ -224,11 +267,12 @@ def explain_dx(wts, x, g, dx, dx_plain, dt, model: NerfMLP, enc_w: tuple | None 
     else:
         faults = [("posx_top_octave_half", 0), ("posd_low_octave_half", 1)]
         faults += [("code_rows_half", None)] if model.app_dim > 0 else []
-        faults += [(name, "contract") for name in CONTRACT_FAULTS] if model.contract else []
+    if model.contract:
+        faults += [(name, "contract") for name in (MIP_CONTRACT_FAULTS if mip else CONTRACT_FAULTS)]
     for name, branch in faults:
         if branch == "contract":
             with planted(name):
-                bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w)
+                bad = mlp.input_grad_plain(wts, x, gws, dt, model, enc_w, mip)
         elif name == "damp_dropped":  # the transpose at zero variance: no damp on either chain
             x0 = x.clone()
             x0[11:14] = 0.0
@@ -352,8 +396,6 @@ def run_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dic
     without contract on the same planes and x, the plain version and the
     library yardstick: ms of each, the bound and its share. Raises if a
     check fails."""
-    import dataclasses
-
     torch.backends.cuda.matmul.allow_tf32 = False
     cm, pm = dataclasses.replace(model, contract=True), dataclasses.replace(model, contract=False)
     wts, gws32, x = inputs(cm, rows, device)
@@ -396,6 +438,65 @@ def run_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dic
     return out
 
 
+def run_mip_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS, x: torch.Tensor | None = None) -> dict:
+    """On the card, per compute type: the kernel's ``MIP && CONTRACT``
+    instantiation (csrc/fused_contract.cu) on a contracted ``model``'s
+    probe mip inputs (or on the (16, rows) ``x`` given) against the plain
+    version (``row_err`` by row group, the rows that must be zero exactly
+    zero), counted by the wrapper and in C; bit-equal to the ``MIP`` kernel
+    on the rows inside the unit ball; MIP_CONTRACT_FAULTS planted in the
+    plain version, which must be past MIP_CONTRACT_TOL, as the kernel must
+    be within it; then, in turns, the kernel,
+    the ``MIP`` kernel on the same planes and x, the plain version and the
+    library yardstick: ms of each, the bound and its share. Raises if a
+    check fails."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cm, pm = dataclasses.replace(model, contract=True), dataclasses.replace(model, contract=False)
+    wts, gws32, xp = inputs(cm, rows, device, mip=True)
+    x = xp if x is None else x
+    del xp
+    inside = x[:3].norm(dim=0) <= 1.0
+    out = {"rows": rows, "inside_rows": int(inside.sum())}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        w = mlp._cast_weights(wts, dt)
+        gws = gws32 if dt == torch.float32 else gws32.to(dt)
+        counts = (lambda: (mlp.input_grad.mip_launches, mlp.input_grad.contract_launches,
+                           mlp.input_grad_mip_contract_launches(), mlp.input_grad_contract_launches()))
+        before = counts()
+        got = mlp.input_grad(w, x, gws, dt, cm, mip=True)
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        want = mlp.input_grad_plain(w, x, gws, dt, cm, mip=True)
+        err = row_err(got, want, mip=True).max().item()
+        fault_err = {}
+        for fault in MIP_CONTRACT_FAULTS:
+            with planted(fault):
+                fault_err[fault] = row_err(mlp.input_grad_plain(w, x, gws, dt, cm, mip=True), want, mip=True).max().item()
+        unc = mlp.input_grad(w, x, gws, dt, pm, mip=True)
+        st = dict(rel_err=err, max_abs_err=(got - want).abs().max().item(), max_abs_dx=want.abs().max().item(),
+                  var_rel_err=((got[11:14] - want[11:14]).abs().max() / want[11:14].abs().max()).item(),
+                  launches=launches[0], launches_in_c=launches[2], fault_err=fault_err,
+                  inside_bit_equal=torch.equal(got[:, inside], unc[:, inside]),
+                  zero_rows_zero=bool((got[list(MIP_ZERO_ROWS)] == 0).all()))
+        del got, want, unc
+        if (err > MIP_CONTRACT_TOL or not st["zero_rows_zero"] or not st["inside_bit_equal"]
+                or launches != (1, 1, 1, 1) or min(fault_err.values()) <= MIP_CONTRACT_TOL):
+            raise RuntimeError(f"{name} mip + contract input gradient: {st}")
+        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, cm, mip=True),
+                       "mip": lambda: mlp.input_grad(w, x, gws, dt, pm, mip=True),
+                       "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, cm, mip=True),
+                       "library": lambda: library(w, x, gws, dt, cm, mip=True)}, calls=CALLS)
+        flops, nbytes = input_grad_work(cm, rows, dt, mip=True)
+        b = bound_ms(flops, nbytes, dt)
+        st.update(ms=ms["kernel"], mip_ms=ms["mip"], plain_ms=ms["plain"], library_ms=ms["library"],
+                  bound_ms=b, bound_by=bound_by(flops, nbytes, dt), share_of_bound=b / ms["kernel"],
+                  gb_s=nbytes / (ms["kernel"] * 1e-3) / 1e9, flops=flops, bytes=nbytes)
+        out[name] = st
+        del gws
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="the input-gradient kernel alone")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu for a smoke test")
@@ -409,19 +510,22 @@ def main(argv=None) -> None:
         _, _, xm = inputs(model, 256, device, mip=True)
         cm = NerfMLP(contract=True)
         _, _, xc = inputs(cm, 256, device)
+        _, _, xcm = inputs(cm, 256, device, mip=True)
         for dt in (torch.float32, torch.bfloat16):
             got = mlp.input_grad(wts, x, gws.to(dt), dt, model, mlp.anneal_row_weights(model, ALPHA))
             mip = mlp.input_grad(wts, xm, gws.to(dt), dt, model, mip=True)
             con = mlp.input_grad(wts, xc, gws.to(dt), dt, cm)
-            if (got.shape != (8, 256) or mip.shape != (16, 256) or con.shape != (8, 256)
-                    or not all(bool(torch.isfinite(t).all()) for t in (got, mip, con))):
+            cmip = mlp.input_grad(wts, xcm, gws.to(dt), dt, cm, mip=True)
+            if (got.shape != (8, 256) or mip.shape != (16, 256) or con.shape != (8, 256) or cmip.shape != (16, 256)
+                    or not all(bool(torch.isfinite(t).all()) for t in (got, mip, con, cmip))):
                 raise RuntimeError(f"{dt}: plain input gradient bad")
-        print("CPU smoke test only: the plain input gradient (point, mip and contract) ran at 256 rows; it times "
-              "nothing on the CPU")
+        print("CPU smoke test only: the plain input gradient (point, mip, contract, mip + contract) ran at 256 "
+              "rows; it times nothing on the CPU")
         return
     res = run(device)
     res["mip"] = run_mip(device)
     res["contract"] = run_contract(device)
+    res["mip_contract"] = run_mip_contract(device)
     print(f"{torch.cuda.get_device_name(device)}: input gradient at {res['rows']} rows")
     for name in ("f32", "bf16"):
         v = res[name]
@@ -435,6 +539,10 @@ def main(argv=None) -> None:
               f"{100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
         v = res["contract"][name]
         print(f"{name} contract: kernel {v['ms']:.3f} ms (without contract {v['point_ms']:.3f}), plain "
+              f"{v['plain_ms']:.3f} ms, library {v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms "
+              f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
+        v = res["mip_contract"][name]
+        print(f"{name} mip + contract: kernel {v['ms']:.3f} ms (mip without contract {v['mip_ms']:.3f}), plain "
               f"{v['plain_ms']:.3f} ms, library {v['library_ms']:.3f} ms; bound {v['bound_ms']:.3f} ms "
               f"({v['bound_by']}), {100 * v['share_of_bound']:.1f}% of it; from plain {v['rel_err']:.2e} by row group")
     print(json.dumps(res))

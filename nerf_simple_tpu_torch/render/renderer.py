@@ -16,9 +16,12 @@ sorted union; ``render_rays_chunked`` takes that path for a ``NerfPair``
 under ``N_coarse > 0``. ``render_rays_proposal`` is mip-NeRF 360's
 scheme: the proposal net's weights at ``N_prop`` probes place the main
 field's N samples; ``render_rays_chunked`` takes that path for a
-``ProposalPair`` under ``N_prop > 0``. ``render_rays_mip`` is mip-NeRF's
-cone casting (``mip``): N + 1 stratified edges, the conical frustums
-between them as Gaussians through the integrated encoder (under
+``ProposalPair`` under ``N_prop > 0``, and under ``mip`` too, mip-NeRF
+360's composition: the proposal's interval histogram over N_prop + 1 probe
+edges places the N + 1 edges of the main field's cones.
+``render_rays_mip`` is mip-NeRF's cone casting (``mip``): N + 1
+stratified edges, the conical frustums between them as Gaussians through
+the integrated encoder (under
 ``"pallas"`` the forward kernel's), interval compositing in torch; with
 ``mip_levels: 2`` the same field renders a coarse level, whose detached
 weights resample the fine level's edges. ``render_rays`` and
@@ -62,7 +65,7 @@ from nerf_simple_tpu_torch.kernels.mlp import (
 )
 from nerf_simple_tpu_torch.models import apply_model, zeros_app_for
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair, check_app, nerf_apply_mip
-from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights
+from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights, proposal_weights_intervals
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
@@ -101,7 +104,7 @@ class RenderSettings:
     ``resample_blur``; ``opaque_background`` makes the last interval
     absorb what is left (mip only). ``mip_shape`` is ``"cone"``: the NDC
     cylinder is not ported. Mip excludes ``N_coarse`` (JAX's rule); mip
-    with ``N_prop`` (mip-NeRF 360's composition) is not ported yet."""
+    with ``N_prop`` is mip-NeRF 360's composition (``render_rays_proposal``)."""
 
     N: int = 128
     tn: float = 2.0
@@ -139,11 +142,6 @@ class RenderSettings:
             raise ValueError(
                 "mip rendering excludes hierarchical sampling: cone casting draws its own interval "
                 "edges (mip_levels=2 is the cone-cast hierarchical scheme)"
-            )
-        if self.mip and self.N_prop > 0:
-            raise NotImplementedError(
-                "mip with N_prop > 0 (proposal-placed cone casting, mip-NeRF 360) is not ported yet: "
-                "ROADMAP Queue A item 2, mip x proposal"
             )
         if self.mip_shape == "cylinder":
             raise NotImplementedError(
@@ -364,9 +362,34 @@ def render_rays_proposal(
     JAX. The codes ``app`` condition the main field only (JAX
     render/renderer.py:669), and ``enc_alpha`` (BARF's anneal progress)
     anneals the main field's encoder only (JAX :665-670): the proposal
-    MLP keeps its own."""
+    MLP keeps its own.
+
+    Under ``settings.mip`` it is mip-NeRF 360's composition (JAX
+    render/renderer.py:614-645): ``N_prop + 1`` stratified probe edges (or
+    the (B, N_prop + 1) ``ts_prop`` given; bin midpoints under
+    ``det_fine``), the proposal's interval weights over them
+    (``proposal_weights_intervals``, its last interval opaque under
+    ``opaque_background``), ``resample_edges`` of those weights, detached
+    and annealed, to ``N + 1`` fine edges (the quantiles under
+    ``det_fine``), and the main field's cones there (``_mip_level``); with
+    ``return_aux`` also ``(probe edges, w_prop, fine edges)``. No windows
+    and no codes under mip (as in JAX)."""
     if settings.N_prop <= 0:
         raise ValueError("the proposal path needs N_prop > 0")
+    if settings.mip:
+        if enc_alpha is not None or app is not None:
+            raise ValueError("the anneal windows and appearance codes are not plumbed through the integrated "
+                             "encoder (as in JAX)")
+        edges_p = ts_prop
+        if edges_p is None:
+            edges_p = stratified_ts_spaced(generator, rays.shape[0], settings.N_prop + 1, settings.tn, settings.tf,
+                                           rays.device, rays.dtype, settings.sampling_space, det=det_fine)
+        w_prop = proposal_weights_intervals(pair.prop, rays, edges_p, settings.compute_dtype,
+                                            settings.opaque_background)
+        edges_f = resample_edges(generator, edges_p, anneal_weights(w_prop.detach(), prop_anneal), settings.N,
+                                 blur=settings.resample_blur, det=det_fine)
+        out = _mip_level(pair.fine, rays, edges_f, settings)
+        return (out, (edges_p, w_prop, edges_f)) if return_aux else out
     ts_p = ts_prop
     if ts_p is None:
         ts_p = stratified_ts_spaced(
@@ -535,8 +558,9 @@ def render_rays_chunked(
     ``NerfPair`` and a chunk renders hierarchically with the deterministic
     quantiles (``det_fine``), as JAX eval does; under ``N_prop > 0`` it is
     a ``ProposalPair`` and a chunk renders with the proposal scheme, its
-    probes at bin midpoints and its samples at the quantiles, so a frame
-    is deterministic end to end. Under ``mip`` a chunk casts cones
+    probes at bin midpoints and its samples at the quantiles (under
+    ``mip`` its probe edges and fine edges), so a frame is deterministic
+    end to end. Under ``mip`` a chunk casts cones
     (``render_rays_mip``, its draws from the chunk's generator, as JAX
     eval draws them)."""
     if occ is not None:

@@ -2,7 +2,7 @@
 
     python -m nerf_simple_tpu_torch.serve --loadpath models/exp/params_10000.npz \\
         --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000] \\
-        [--proposal-samples 64 | --mip [--mip-levels 2] [--resample-blur B] [--opaque-background]]
+        [--proposal-samples 64] [--mip [--mip-levels 2] [--resample-blur B] [--opaque-background]]
 
 Endpoints:
   GET /health                  -> {"status": "ok", ...}
@@ -12,7 +12,9 @@ With ``--proposal-samples Np`` (a proposal-trained checkpoint, its
 ``{prop, fine}`` params) the proposal net at Np probes places the
 ``--samples`` of the main field in each frame. With ``--mip`` (a
 mip-trained checkpoint) each frame casts cones of radius ``2 / sqrt(12) /
-focal``, at ``--mip-levels`` 1 or 2. The params live on one
+focal``, at ``--mip-levels`` 1 or 2; with both (a mip x proposal
+checkpoint, mip-NeRF 360's composition) the proposal net places the
+cones' edges. The params live on one
 device. Renders are serialised through a lock
 (one card, one render at a time). PNGs are encoded with the standard
 library (utils/png.py).

@@ -38,7 +38,12 @@ Cores:
   launches on the same packed weights: the coarse level with the weights
   output, from which ``resample_edges`` draws the fine level's edges; the
   loss and the gradients are ``mip_coarse_weight`` times the coarse
-  level's plus the fine level's;
+  level's plus the fine level's. Mip x proposal (``mip_proposal_fused_loss``,
+  mip-NeRF 360's composition): Np + 1 stratified probe edges, the proposal
+  net's interval weights over them (under autograd), ``resample_edges`` of
+  them, detached and annealed, to Nf + 1 fine edges, and one cone-cast B1
+  launch there with the weights output, the interval rail and the opaque
+  tail; the interval interlevel loss trains the proposal net;
 - ``backend="xla"``, or ``fused=False``: autograd over ``render_rays``
   (``render_rays_hierarchical``) and the loss JAX's ``loss_fn`` builds:
   the MSE (of both nets' colours), ``depth_loss_weight`` times the masked
@@ -46,7 +51,8 @@ Cores:
   distortion in s-space (of the fine net's weights at the union);
   proposal: ``render_rays_proposal``, the MSE, ``proposal_loss_weight``
   times the interlevel loss on the main field's detached weights, the
-  depth term and the distortion at the main field's samples; mip:
+  depth term and the distortion at the main field's samples (under mip
+  their interval forms at the fine edges); mip:
   ``render_rays_mip`` at both levels, the loss weighted as the fused
   core's, the interval distortion. Under ``backend="pallas"`` that
   renders through ``fused_mlp`` (its mip variant under mip), whose
@@ -69,7 +75,8 @@ Under mip (one or two levels) B2's input gradient is the integrated
 encoder's transpose, d/d(mean, direction, variance), which autograd carries
 through ``frustum_gaussians_T`` into the deltas (no anneal: JAX's rule).
 With proposal sampling the main field's ray gradient comes from B2 the same
-way (the anneal on the main field only) and the proposal MLP's from plain
+way (the anneal on the main field only; under mip x proposal B2's mip input
+gradient, a contracted model's included) and the proposal MLP's from plain
 autograd through its probe positions.
 The fused train step (B1) does not take it (JAX's rule); it takes over
 after ``freeze_pose_state``, once the deltas are baked into the ray set
@@ -105,6 +112,7 @@ from nerf_simple_tpu_torch.models.proposal import (
     init_proposal_params,
     proposal_from_train_config,
     proposal_weights,
+    proposal_weights_intervals,
 )
 from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas
 from nerf_simple_tpu_torch.ops.sampling import (
@@ -120,6 +128,7 @@ from nerf_simple_tpu_torch.ops.volume import (
     distortion_loss,
     distortion_loss_intervals,
     interlevel_loss,
+    interlevel_loss_intervals,
     s_norm,
 )
 from nerf_simple_tpu_torch.render.renderer import (
@@ -382,6 +391,35 @@ def proposal_fused_loss(pair: ProposalPair, rays_b, pix_b, ts_p, generator, N_fi
     return loss_mse + loss_weight * il.detach(), w_f
 
 
+def mip_proposal_fused_loss(pair: ProposalPair, rays_b, pix_b, edges_p, generator, N_fine: int, compute_dtype,
+                            model: NerfMLP, base_radius, loss_weight: float = 1.0, anneal: float | None = None,
+                            blur: float = 0.01, opaque_tail: bool = False, dist: tuple | None = None,
+                            edges_f: torch.Tensor | None = None):
+    """The fused mip x proposal core (JAX train/step.py:813-885, mip-NeRF
+    360's composition): the proposal net's interval weights over the (B,
+    Np + 1) probe edges ``edges_p``, under autograd; ``N_fine + 1`` fine
+    edges resampled from them, detached and annealed by ``anneal`` (drawn
+    from ``generator``, or the ``edges_f`` given); one cone-cast launch of
+    the fused train step on the main field there, with the weights output,
+    the interval rail ``dist`` and ``opaque_tail``; the interval interlevel
+    loss of the proposal weights against the kernel's (which carry no
+    gradient) at the fine midpoints. The main field's gradients come from
+    the kernel, the proposal net's from ``loss_weight`` times the interlevel
+    loss. Returns (loss_mse + loss_weight * interlevel, the main field's
+    (B, N_fine) interval weights)."""
+    w_prop = proposal_weights_intervals(pair.prop, rays_b, edges_p, compute_dtype, opaque_tail)
+    if edges_f is None:
+        edges_f = resample_edges(generator, edges_p, anneal_weights(w_prop.detach(), anneal), N_fine, blur=blur)
+    wts = pack_weights(pair.fine, differentiable=True)
+    loss_mse, dwts, w_f = fused_train_step(wts, build_x16_mip(rays_b, edges_f, pix_b, base_radius), N_fine,
+                                           compute_dtype, model, out_weights=True, dist=dist, mip=True,
+                                           opaque_tail=opaque_tail)
+    torch.autograd.backward(list(wts), list(dwts))
+    il = interlevel_loss_intervals(w_f, 0.5 * (edges_f[:, 1:] + edges_f[:, :-1]), w_prop, edges_p, opaque_tail)
+    (loss_weight * il).backward()
+    return loss_mse + loss_weight * il.detach(), w_f
+
+
 def _prop_anneal(cfg: TrainConfig, step: int) -> float | None:
     """The placement anneal's exponent at ``step`` (JAX ``_prop_anneal``):
     a ramp 0 -> 1 over the first ``prop_anneal_frac * num_iters`` steps,
@@ -452,7 +490,9 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     proposal weights against the main field's detached ones, the depth
     term, the distortion of the main field's weights at its samples; the
     placement annealed by ``prop_anneal`` (and the main field's encoder by
-    ``enc_alpha``). Mip (``ts`` are the Nf + 1
+    ``enc_alpha``); under mip (``ts`` are the Np + 1 probe edges) the
+    interval interlevel loss at the fine midpoints and the interval
+    distortion at the fine edges (JAX :505-539). Mip (``ts`` are the Nf + 1
     interval edges): ``render_rays_mip``, the MSE, ``mip_coarse_weight``
     times the coarse level's plus the fine level's at ``mip_levels: 2``
     (the fine edges resampled, or ``edges_fine``), the depth term of the
@@ -478,6 +518,23 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     def mse(rgb):
         return torch.mean((rgb - pix_b) ** 2)
 
+    if cfg.proposal:
+        out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
+                                                         ts_prop=ts, return_aux=True, prop_anneal=prop_anneal,
+                                                         app=app_b, enc_alpha=enc_alpha)
+        if cfg.mip:  # the interval forms, at the fine edges ts_f
+            il = interlevel_loss_intervals(out.weights.detach(), 0.5 * (ts_f[:, 1:] + ts_f[:, :-1]), w_prop, ts_p,
+                                           cfg.opaque_background)
+        else:
+            il = interlevel_loss(out.weights.detach(), ts_f, w_prop, ts_p)
+        loss = mse(out.rgb) + cfg.proposal_loss_weight * il
+        if gt_d is not None:
+            loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
+        if cfg.distortion_loss_weight > 0:
+            loss = loss + cfg.distortion_loss_weight * (
+                distortion_loss_intervals(out.weights, _s_norm(cfg, ts_f), opaque_tail=cfg.opaque_background)
+                if cfg.mip else distortion_loss(out.weights, _s_norm(cfg, ts_f)))
+        return loss
     if cfg.mip:
         outs = render_rays_mip(field, rays_b, generator, settings, edges=ts, edges_fine=edges_fine,
                                return_coarse=True)
@@ -503,16 +560,6 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
             loss = loss + cfg.depth_loss_weight * (_depth_term(coarse, gt_d) + _depth_term(fine, gt_d))
         if cfg.distortion_loss_weight > 0:
             loss = loss + cfg.distortion_loss_weight * distortion_loss(fine.weights, _s_norm(cfg, ts_all))
-        return loss
-    if cfg.proposal:
-        out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
-                                                         ts_prop=ts, return_aux=True, prop_anneal=prop_anneal,
-                                                         app=app_b, enc_alpha=enc_alpha)
-        loss = mse(out.rgb) + cfg.proposal_loss_weight * interlevel_loss(out.weights.detach(), ts_f, w_prop, ts_p)
-        if gt_d is not None:
-            loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
-        if cfg.distortion_loss_weight > 0:
-            loss = loss + cfg.distortion_loss_weight * distortion_loss(out.weights, _s_norm(cfg, ts_f))
         return loss
     out = render_rays(field, rays_b, generator, settings, ts=ts, noise=noise, enc_alpha=enc_alpha, app=app_b)
     loss = mse(out.rgb)
@@ -570,8 +617,10 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             stacklevel=2,
         )
     settings = render_settings(cfg, base_radius)
-    # the stratified draw a ray: coarse samples, proposal probes, mip's interval edges or the samples
-    N_strat = cfg.Nc if cfg.hierarchical else cfg.Np if cfg.proposal else cfg.Nf + 1 if cfg.mip else cfg.Nf
+    # the stratified draw a ray: coarse samples, proposal probes (their edges under mip), mip's interval edges or
+    # the samples
+    N_strat = (cfg.Nc if cfg.hierarchical else cfg.Np + cfg.mip if cfg.proposal else cfg.Nf + 1 if cfg.mip
+               else cfg.Nf)
     lr0, decay = lr_schedule(cfg)
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
@@ -582,6 +631,10 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         ``app``); ``g`` draws the importance samples (and the sigma noise);
         ``anneal`` is the proposal's placement anneal, ``enc_alpha``
         BARF's."""
+        if fused and cfg.mip and cfg.proposal:  # before the mip core, as JAX dispatches (:813)
+            return mip_proposal_fused_loss(field, rays_b, pix_b, ts, g, cfg.Nf, cfg.render_dtype, model, base_radius,
+                                           cfg.proposal_loss_weight, anneal, cfg.resample_blur, cfg.opaque_background,
+                                           dist=dist)[0]
         if fused and cfg.mip:
             return mip_fused_loss(field, rays_b, pix_b, ts, g, cfg.render_dtype, model, base_radius,
                                   cfg.mip_levels, cfg.mip_coarse_weight, cfg.resample_blur,

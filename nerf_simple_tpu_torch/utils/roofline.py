@@ -30,7 +30,9 @@ def input_grad_work(model, rows: int, dtype, mip: bool = False) -> tuple[float, 
     products need the 3 + 6 Lp posx columns of W1 and Wsx and the 3 + 6 Ld
     posd columns of Wcd (and the app_dim code columns of an appearance
     model), 2 (2 H (3 + 6 Lp) + H/2 (3 + 6 Ld + app_dim)) flop a row (the
-    transpose's sincosf, and under mip its expf and damp chain, left out).
+    transpose's sincosf, and under mip its expf and damp chain, left out,
+    as is a contracted model's contraction and its transpose: tens of flop a
+    row against ~84,000).
     At the flagship, 524,288 rows: bf16 bound by its bytes (0.21 ms; 0.22
     under mip), f32 by its operations (0.56 ms)."""
     H, H2 = model.H, model.H // 2

@@ -248,7 +248,8 @@ def test_plain_backward_contract_matches_jax_kernel(mip):
     (its plain version) through the pack against JAX's ``_fused_mlp_bwd``
     in interpret mode through ``jax.vjp(pack_weights)``, f32; the input's
     gradient is B2's ``want_dx`` (point; tests/test_torch_pose_contract.py
-    holds it to JAX), and under mip it raises (ROADMAP Queue B item 4)."""
+    holds it to JAX; under mip tests/test_torch_mip360.py), the same as
+    ``fused_mlp_backward(want_dx=True)``'s."""
     params = init_nerf_params(5, WIDE)
     x, _ = _x(128, 6, mip)
     g = np.zeros((8, 128), np.float32)
@@ -259,17 +260,11 @@ def test_plain_backward_contract_matches_jax_kernel(mip):
     field = NerfField.from_jax_params(params, "cpu", CWIDE)
     mlp.fused_mlp(mlp.pack_weights(field, differentiable=True), _t(x), torch.float32, CWIDE, mip=mip).backward(_t(g))
     _assert_grads(_grads(field), want)
-    if mip:
-        with pytest.raises(NotImplementedError, match="Queue B item 4"):
-            mlp.fused_mlp(mlp.pack_weights(field), _t(x).requires_grad_(True), torch.float32, CWIDE, mip=mip)
-        with pytest.raises(NotImplementedError, match="Queue B item 4"):
-            mlp.fused_mlp_backward(mlp.pack_weights(field), _t(x), _t(g), torch.float32, CWIDE, mip=mip,
+    xT = _t(x).requires_grad_(True)
+    mlp.fused_mlp(mlp.pack_weights(field), xT, torch.float32, CWIDE, mip=mip).backward(_t(g))
+    _, dx = mlp.fused_mlp_backward(mlp.pack_weights(field), _t(x), _t(g), torch.float32, CWIDE, mip=mip,
                                    want_dx=True)
-    else:
-        xT = _t(x).requires_grad_(True)
-        mlp.fused_mlp(mlp.pack_weights(field), xT, torch.float32, CWIDE).backward(_t(g))
-        _, dx = mlp.fused_mlp_backward(mlp.pack_weights(field), _t(x), _t(g), torch.float32, CWIDE, want_dx=True)
-        assert torch.equal(xT.grad, dx) and bool(torch.isfinite(dx).all())
+    assert torch.equal(xT.grad, dx) and bool(torch.isfinite(dx).all())
 
 
 B1_CASES = {"point-weights-rail-disparity": dict(out_weights=True, dist=(0.01, TN, TF, True)),
@@ -546,10 +541,10 @@ def test_contract_config_rules():
     """contract loads (with mip too, which composes, and with the 360
     recipe of configs/colmap360.yaml given the unbounded scene's dataset
     and bounds); JAX's rule: contract with LLFF + NDC is a ValueError in
-    both packages; what is not ported raises naming its ROADMAP item: pose
-    refinement with mip and contract (Queue B item 4, the mip input
-    gradient's contraction), mip + proposal + contract (Queue A item 2);
-    pose refinement or appearance codes with contract load."""
+    both packages; pose refinement with mip and contract (the mip input
+    gradient's contraction, Queue B item 4) and mip + proposal + contract
+    (Queue A item 2) load, as they do in JAX; pose refinement or appearance
+    codes with contract load."""
     assert config.TrainConfig(datapath="x", contract=True, mip=True).contract
     d = {k: v for k, v in config.load_yaml("configs/colmap360.yaml").items()
          if k not in ("dataset", "llff_factor", "ndc", "test_params")}
@@ -565,13 +560,9 @@ def test_contract_config_rules():
         config.train_config_from_dict({"datapath": "x", "contract": True, "dataset": "llff", "ndc": False})
     for kw in (dict(pose_opt=True), dict(appearance_dim=4), dict(pose_opt=True, mip=True)):
         jconfig.TrainConfig(datapath="x", contract=True, **kw)  # JAX composes them
-        if kw.get("mip"):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 4"):
-                config.TrainConfig(datapath="x", contract=True, **kw)
-        else:
-            assert config.TrainConfig(datapath="x", contract=True, **kw).contract
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        config.TrainConfig(datapath="x", contract=True, mip=True, proposal=True)
+        assert config.TrainConfig(datapath="x", contract=True, **kw).contract
+    jconfig.TrainConfig(datapath="x", contract=True, mip=True, proposal=True)
+    assert config.TrainConfig(datapath="x", contract=True, mip=True, proposal=True).proposal
     assert NerfField(NerfMLP(Lp=2, Ld=2, H=16, contract=True, app_dim=2)).model.app_dim == 2
 
 

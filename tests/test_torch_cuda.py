@@ -8,8 +8,9 @@ input-gradient kernel alone, a pose loss against the xla one; the
 appearance variants: the forward, the backward and the input-gradient
 kernel with the code rows, an appearance (and pose) loss against the xla
 one; the contracted variants: the forward (with the windows and the code
-rows), B2 (with the input gradient's contract instantiation), the
-input-gradient kernel alone, B1 and render;
+rows), B2 (with the input gradient's contract instantiation, and under
+mip its MIP && CONTRACT one), the input-gradient kernel alone, B1 and
+render; the mip x proposal core and steps, and pose on them;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -1549,8 +1550,9 @@ def test_f32_forward_contract_residual_planes_match_plain(dev, model, mip):
 def test_backward_contract_matches_plain(dev, model, rows, mip, dtype):
     """B2 recomputing a contracted model's forward against its plain
     version; counted; with every row inside the ball bit-equal to B2
-    without contract; under mip no input gradient (ROADMAP Queue B item 4),
-    without it the input gradient's contract instantiation."""
+    without contract; with dx (the input gradient's contract instantiation,
+    under mip its ``MIP && CONTRACT`` one) the weight gradients bit-equal
+    to the launch without dx, dx finite."""
     cm = _contracted(model)
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
     x, _ = _x_contract(rows, dev, 3, mip)
@@ -1564,12 +1566,12 @@ def test_backward_contract_matches_plain(dev, model, rows, mip, dtype):
     xi, _ = _x_contract(rows, dev, 4, mip, inside_only=True)
     assert all(torch.equal(a, b) for a, b in zip(mlp.fused_mlp_backward(wts, xi, g, dtype, cm, mip=mip),
                                                  mlp.fused_mlp_backward(wts, xi, g, dtype, model, mip=mip)))
-    if mip:
-        with pytest.raises(NotImplementedError, match="Queue B item 4"):
-            mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip, want_dx=True)
-    else:
-        with_dx, dx = mlp.fused_mlp_backward(wts, x, g, dtype, cm, want_dx=True)
-        assert all(torch.equal(a, b) for a, b in zip(with_dx, got)) and bool(torch.isfinite(dx).all())
+    before = (mlp.input_grad_contract_launches(), mlp.input_grad_mip_contract_launches())
+    with_dx, dx = mlp.fused_mlp_backward(wts, x, g, dtype, cm, mip=mip, want_dx=True)
+    torch.cuda.synchronize()
+    assert (mlp.input_grad_contract_launches(), mlp.input_grad_mip_contract_launches()) == (before[0] + 1,
+                                                                                            before[1] + mip)
+    assert all(torch.equal(a, b) for a, b in zip(with_dx, got)) and bool(torch.isfinite(dx).all())
 
 
 def _x16_contract(B, N, dev, seed, mip=False, inside_only=False):
@@ -1648,23 +1650,283 @@ def test_render_contract_matches_plain(dev, dtype):
 
 
 def test_contract_refusals_on_the_card(dev):
-    """What a contracted model does not run yet raises before any launch
-    (ROADMAP Queue B item 4): under mip ``fused_mlp`` on an input that
-    needs a gradient, B2's ``want_dx`` and the input-gradient kernel; a
+    """What the contracted kernels refuse raises before any launch: the
+    windows or the codes under mip (JAX's rules), a wrongly shaped input;
+    what they used to refuse runs: under mip ``fused_mlp`` on an input that
+    needs a gradient (the forward and B2 with the ``MIP && CONTRACT`` input
+    gradient, counted in C), and the input gradient equals B2's; a
     contracted appearance model builds."""
     model = NerfMLP(Lp=4, Ld=2, H=32, contract=True)
     wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, NerfMLP(Lp=4, Ld=2, H=32)), dev))
     x, _ = _x_contract(256, dev, 9, mip=True)
     before = (mlp.contract_launches(), mlp.input_grad_launches())
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        mlp.fused_mlp(wts, x.clone().requires_grad_(True), torch.float32, model, mip=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+    with pytest.raises(ValueError, match="windows"):
         mlp.fused_mlp_backward(wts, x, torch.zeros((8, 256), device=dev), torch.float32, model, mip=True,
-                               want_dx=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+                               want_dx=True, enc_w=mlp.anneal_row_weights(model, 0.3, dev))
+    with pytest.raises(ValueError):
         mlp.input_grad(wts, x, torch.zeros(1, device=dev), torch.float32, model, mip=True)
     assert NerfField(NerfMLP(Lp=4, Ld=2, H=32, contract=True, app_dim=2), dev).model.app_dim == 2
     assert (mlp.contract_launches(), mlp.input_grad_launches()) == before
+    xr = x.clone().requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(10).normal(size=(8, 256)).astype(np.float32)).to(dev)
+    before = (mlp.contract_launches(), mlp.input_grad_mip_contract_launches())
+    mlp.fused_mlp(wts, xr, torch.float32, model, mip=True).backward(g)
+    torch.cuda.synchronize()
+    assert (mlp.contract_launches(), mlp.input_grad_mip_contract_launches()) == (before[0] + 2, before[1] + 1)
+    _, dx = mlp.fused_mlp_backward(wts, x, g, torch.float32, model, mip=True, want_dx=True)
+    assert torch.equal(xr.grad, dx) and bool(torch.isfinite(dx).all())
+
+
+# --- pose refinement on a contracted model under mip: the input gradient's MIP && CONTRACT ------------------
+
+def _x_mip_contract(rows, dev, seed):
+    """(16, rows) mip input of a contracted model (``_x_contract``'s rows
+    on both sides of the unit ball) with wide frustums, the variances
+    log-uniform in [1e-3, 1] (at the unbounded scene's far samples a
+    frustum is ~0.1 wide), so that every term of the coupled transpose
+    moves dx past DX_TOL in bf16 too; and the rows inside the ball."""
+    x, inside = _x_contract(rows, dev, seed, mip=True)
+    x[11:14] = torch.from_numpy(10.0 ** np.random.default_rng(seed + 1).uniform(-3, 0, (3, rows))).float().to(dev)
+    return x, inside
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", CONTRACT_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)],
+                         ids=CONTRACT_IDS + ["flagship-63", "H64-1"])
+def test_input_grad_kernel_mip_contract_matches_plain(dev, model, rows, dtype):
+    """The input-gradient kernel's ``MIP && CONTRACT`` instantiation alone
+    (``input_grad`` of a contracted model under mip, csrc/fused_contract.cu)
+    on the backward tile kernel's planes against ``input_grad_plain``: dx
+    within DX_TOL by row group (the mean, direction and variance rows),
+    the rows JAX leaves zero exactly zero; counted by the wrapper and in C
+    (B2's library's mip count stays); at the rows inside the ball bit-equal
+    to the ``MIP`` kernel on the same planes; the three planted faults
+    (the coupled transpose's ``term_n`` dropped, its rank-one coupling
+    dropped, the angles and damps uncontracted) past DX_TOL."""
+    cm = _contracted(model)
+    x, inside = _x_mip_contract(rows, dev, 23)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    _, res = mlp.forward_residuals(wts, x, dtype, cm, mip=True)
+    gws = mlp.backward_tile(wts, res, g, dtype, cm)
+    counts = (lambda: (mlp.input_grad.mip_launches, mlp.input_grad.contract_launches,
+                       mlp.input_grad_mip_contract_launches(), mlp.input_grad_contract_launches(),
+                       mlp.input_grad_mip_launches()))
+    before = counts()
+    got = mlp.input_grad(wts, x, gws, dtype, cm, mip=True)
+    torch.cuda.synchronize()
+    assert counts() == tuple(n + 1 for n in before)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, cm, mip=True)
+    assert got.shape == (16, rows) and bool(torch.isfinite(got).all())
+    assert bool((got[list(ig_probe.MIP_ZERO_ROWS)] == 0).all())
+    assert ig_probe.row_err(got, want, mip=True).max().item() <= DX_TOL[dtype]
+    unc = mlp.input_grad(wts, x, gws, dtype, model, mip=True)
+    assert torch.equal(got[:, inside], unc[:, inside])
+    if rows > 1:
+        for fault in ig_probe.MIP_CONTRACT_FAULTS:
+            with ig_probe.planted(fault):
+                bad = mlp.input_grad_plain(wts, x, gws, dtype, cm, mip=True)
+            assert ig_probe.row_err(bad, want, mip=True).max().item() > DX_TOL[dtype], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model, rows", CONTRACT_CASES, ids=CONTRACT_IDS)
+def test_backward_mip_contract_want_dx_matches_plain(dev, model, rows, dtype):
+    """B2 with mip, ``contract`` and ``want_dx`` against its plain version:
+    the weight gradients within B2's bounds and bit-equal to the launch
+    without dx; dx bit-equal to the ``MIP && CONTRACT`` kernel on the
+    forward and backward tile kernels' planes and held row by row
+    (``explain_dx(mip=True)``: every row past DX_TOL explained by a flipped
+    relu mask, under DX_ROW_SHARE of them; every planted fault, the three
+    of the coupled transpose among them, caught); counted."""
+    cm = _contracted(model)
+    x, _ = _x_mip_contract(rows, dev, 24)
+    wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(0, model), dev)), dtype)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(8, rows)).astype(np.float32)).to(dev)
+    b = mlp.fused_mlp_backward
+    counts = (lambda: (b.dx_launches, b.mip_dx_launches, b.contract_launches, mlp.input_grad_mip_contract_launches(),
+                       mlp.contract_launches()))
+    before = counts()
+    got, dx = b(wts, x, g, dtype, cm, mip=True, want_dx=True)
+    torch.cuda.synchronize()
+    assert counts() == tuple(n + 1 for n in before)
+    want, dx_p = mlp.fused_mlp_backward_plain(wts, x, g, dtype, cm, mip=True, want_dx=True)
+    errs = _grad_errors(got, want)
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+    assert dx.shape == (16, rows) and bool((dx[list(ig_probe.MIP_ZERO_ROWS)] == 0).all())
+    _, res = mlp.forward_residuals(wts, x, dtype, cm, mip=True)
+    assert torch.equal(dx, mlp.input_grad(wts, x, mlp.backward_tile(wts, res, g, dtype, cm), dtype, cm, mip=True))
+    ex = ig_probe.explain_dx(wts, x, g, dx, dx_p, dtype, cm, None, DX_TOL[dtype], mip=True)
+    print(f"mip + contract dx rows: {ex}")
+    assert ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dtype], ex
+    assert ex["share"] <= DX_ROW_SHARE[dtype], ex
+    assert set(ig_probe.MIP_CONTRACT_FAULTS) <= set(ex["faults"]), ex
+    assert all(f["n_unexplained"] > 0 for f in ex["faults"].values()), ex
+    alone = b(wts, x, g, dtype, cm, mip=True)
+    assert all(torch.equal(a, c) for a, c in zip(got, alone))
+
+
+# --- the mip-NeRF 360 composition: mip x proposal, with pose and contract -----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("contract", [False, True], ids=["linear", "contract-opaque"])
+def test_fused_mip_proposal_core_on_the_card(dev, monkeypatch, contract, dtype):
+    """The fused mip x proposal core (train/step.py::mip_proposal_fused_loss)
+    with the CUDA B1 against the same core with B1's plain version at the
+    same probe edges and fine edges: the loss, both nets' gradients and the
+    main field's interval weights within B1's bounds; one cone-cast launch
+    with the weights output and the interval rail (and, contracted, in
+    disparity space with the opaque tail)."""
+    from nerf_simple_tpu_torch.models.proposal import ProposalField, ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts_spaced
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, pm, B, Np, Nf = NerfMLP(Lp=4, Ld=2, H=64, contract=contract), ProposalMLP(4, 2, 32, contract), 64, 16, 32
+    tn, tf, space = (0.5, 30.0, "disparity") if contract else (2.0, 6.0, "linear")
+    dist = (0.01, tn, tf, contract)
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([-rng.uniform(3, 6, (B, 1)) * d, d], 1).astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (B, 3)).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    edges_p = stratified_ts_spaced(g, B, Np + 1, tn, tf, dev, space=space)
+    edges_f = stratified_ts_spaced(g, B, Nf + 1, tn, tf, dev, space=space)
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            def plain(w, x, N, dt, m, **kw):
+                with torch.no_grad():
+                    return mlp.fused_train_step_plain(mlp._cast_weights(w, dt), x, N, dt, m, **kw)
+            monkeypatch.setattr(step_mod, "fused_train_step", plain)
+        pair = ProposalPair(ProposalField.from_jax_params(init_proposal_params(0, pm), dev, pm),
+                            NerfField.from_jax_params(init_nerf_params(1, model), dev, model))
+        b1 = mlp.fused_train_step
+        before = (b1.launches, b1.mip_launches, b1.weights_dist_launches, b1.opaque_launches, b1.contract_launches)
+        loss, w_f = step_mod.mip_proposal_fused_loss(pair, rays, pix, edges_p, None, Nf, dtype, model, 0.005, 1.0,
+                                                     opaque_tail=contract, dist=dist, edges_f=edges_f)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip((b1.launches, b1.mip_launches, b1.weights_dist_launches,
+                                               b1.opaque_launches, b1.contract_launches), before))
+        runs[name] = loss.item(), w_f, {n: p.grad.clone() for n, p in pair.named_parameters()}, launched
+    (loss, w, grads, launched), (loss_p, w_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+    assert launched == (1, 1, 1, int(contract), int(contract)) and launched_p == (0,) * 5
+    assert w.shape == (B, Nf) and (w - w_p).abs().max().item() <= TOL[dtype]
+    assert abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for n, gp in grads_p.items():
+        assert bool(torch.isfinite(grads[n]).all())
+        err = ((grads[n] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (n, err)
+
+
+def test_mip_proposal_train_steps_on_the_card_fused_match_autograd(dev):
+    """Two f32 steps of the anti-aliased 360 recipe's shape (mip x proposal,
+    contract, disparity, the opaque background, distortion) through
+    ``build_train_step`` from one state and one seed: the fused core (one
+    cone-cast B1 launch a step with the weights output, the rail and the
+    opaque tail) against the autograd path (the contracted mip forward and
+    B2): the losses within JAX's rule (tests/test_mip_proposal.py:
+    738-775: rtol 2e-4, atol 1e-6); both nets move."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    cfg = TrainConfig(datapath="d", Nf=32, batch_size=256, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=4,
+                      net_Ld=2, mip=True, proposal=True, Np=16, prop_Lp=4, prop_D=2, prop_H=32, contract=True,
+                      sampling_space="disparity", tn=0.5, tf=30.0, opaque_background=True,
+                      distortion_loss_weight=0.01)
+    model = NerfMLP(Lp=4, Ld=2, H=64, contract=True)
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(1000, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([-rng.uniform(3, 6, (1000, 1)) * d, d], 1).astype(np.float32)).to(dev)
+    pixels = torch.from_numpy(rng.uniform(0, 1, (1000, 3)).astype(np.float32)).to(dev)
+    losses = {}
+    for fused in (True, False):
+        state = make_train_state(cfg, model, dev)
+        w0 = (state.field.prop.trunk1.weight.detach().clone(), state.field.fine.trunk1.weight.detach().clone())
+        b1 = mlp.fused_train_step
+        before = (b1.launches, b1.mip_launches, b1.weights_dist_launches, b1.opaque_launches)
+        step = build_train_step(dataclasses.replace(cfg), model, fused=fused, base_radius=0.005)
+        losses[fused] = [step(state, rays, pixels).item() for _ in range(2)]
+        n = 2 if fused else 0
+        assert (b1.launches, b1.mip_launches, b1.weights_dist_launches, b1.opaque_launches) == tuple(
+            a + n for a in before)
+        assert not torch.equal(w0[0], state.field.prop.trunk1.weight)
+        assert not torch.equal(w0[1], state.field.fine.trunk1.weight)
+    np.testing.assert_allclose(losses[True], losses[False], rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["mip-contract", "mip-proposal", "mip-proposal-contract"])
+def test_pose_mip_contract_and_proposal_steps_on_the_card_match_xla(dev, kind):
+    """One f32 pose loss from one state of pose + mip + contract, pose +
+    mip x proposal, and pose + mip x proposal + contract (the opaque
+    background) through the kernels (the mip forward and B2 with the mip
+    input gradient, its ``MIP && CONTRACT`` instantiation on a contracted
+    model; the proposal net in plain autograd) against the same loss on
+    the xla backend at the same edges (probe edges, fine edges by
+    ``det_fine``): the loss to LOSS_TOL, each gradient of the field(s)
+    within 1e-3 of the largest gradient entry of the field(s), dr and dt
+    within 1e-3 of the larger of their largest entries (the scales of
+    ``test_pose_mip_and_proposal_steps_on_the_card``); the launches counted
+    where they launch; then one pallas pose step through
+    ``build_train_step`` moves the deltas."""
+    import dataclasses
+
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.models.proposal import ProposalField, ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.train.step import (CamDeltas, autograd_loss, build_train_step, make_train_state,
+                                                  render_settings)
+
+    contract, prop = "contract" in kind, "proposal" in kind
+    model, n_img, hw, B, N = NerfMLP(Lp=6, Ld=3, H=64, contract=contract), 4, 256, 512, 32
+    extra = dict(proposal=True, Np=16, prop_Lp=4, prop_D=2, prop_H=32) if prop else {}
+    if contract:
+        extra.update(contract=True, sampling_space="disparity", tn=0.5, tf=30.0, opaque_background=prop)
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="f32", net_H=64, net_Lp=6,
+                      net_Ld=3, pose_opt=True, pose_warmup=0, mip=True, **extra)
+    rng = np.random.default_rng(15)
+    d = rng.normal(size=(n_img * hw, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([-rng.uniform(3, 6, (n_img * hw, 1)) * d, d], 1)
+                            .astype(np.float32)).to(dev)
+    pix = torch.from_numpy(rng.uniform(0, 1, (n_img * hw, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, n_img * hw, B)).to(dev)
+    n_ts = cfg.Np + 1 if prop else N + 1
+    ts = torch.from_numpy(np.sort(rng.uniform(cfg.tn, min(cfg.tf, 12.0), (B, n_ts)), -1).astype(np.float32)).to(dev)
+    tables = {k: rng.normal(0, 0.02, (n_img, 3)).astype(np.float32) for k in ("dr", "dt")}
+    radius = 2.0 / 12.0**0.5 / 100.0
+    got = {}
+    for backend in ("pallas", "xla"):
+        if prop:
+            pm = ProposalMLP(Lp=4, D=2, H=32, contract=contract)
+            field = ProposalPair(ProposalField.from_jax_params(init_proposal_params(3, pm), dev, pm),
+                                 NerfField.from_jax_params(init_nerf_params(4, model), dev, model))
+        else:
+            field = NerfField.from_jax_params(init_nerf_params(4, model), dev, model)
+        cams = CamDeltas(n_img, dev).copy_tables_(tables)
+        c = dataclasses.replace(cfg, backend=backend)
+        b2 = mlp.fused_mlp_backward
+        counts = (lambda: (b2.mip_dx_launches, mlp.input_grad_mip_launches(), mlp.input_grad_mip_contract_launches()))
+        before = counts()
+        loss = autograd_loss(c, field, rays[idx], pix[idx], ts, None, render_settings(c, radius), det_fine=True,
+                             cams=cams, im_b=idx // hw)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = int(backend == "pallas")
+        assert counts() == (before[0] + n, before[1] + n, before[2] + n * contract)
+        got[backend] = (loss.item(), [p.grad for p in field.parameters()], [cams.dr.grad, cams.dt.grad])
+    (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
+    assert abs(lp / lx - 1) <= LOSS_TOL[torch.float32]
+    for ps, xs in ((fp, fx), (cp, cx)):
+        scale = max(t.abs().max().item() for t in xs)
+        for a, b in zip(ps, xs):
+            assert (a - b).abs().max().item() <= 1e-3 * scale
+    state = make_train_state(cfg, model, dev, n_images=n_img)
+    out = build_train_step(cfg, model, rays_per_image=hw, base_radius=radius)(state, rays, pix)
+    assert bool(torch.isfinite(out)) and float(state.cams.dr.detach().abs().max()) > 0
 
 
 # --- pose refinement and appearance codes on a contracted model ---------------------------------------------------

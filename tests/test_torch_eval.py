@@ -180,8 +180,7 @@ def test_test_config_defaults_and_checks():
     with pytest.raises(ValueError, match="needs mip=True"):  # the JAX TrainConfig's words
         config.test_config_from_dict({**base, "opaque_background": True})
     assert config.test_config_from_dict({**base, "mip": True, "opaque_background": True}).opaque_background
-    with pytest.raises(NotImplementedError, match="mip x proposal"):
-        config.test_config_from_dict({**base, "mip": True, "Np": 32})
+    assert config.test_config_from_dict({**base, "mip": True, "Np": 32}).Np == 32  # mip x proposal: ported
     with pytest.raises(ValueError, match="tn > 0"):
         config.test_config_from_dict({**base, "sampling_space": "disparity", "tn": 0.0})
     assert config.test_config_from_dict({**base, "num_data_shards": 0}).loadpath == "m"

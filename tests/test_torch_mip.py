@@ -574,15 +574,12 @@ def test_lego_mip_yaml_loads_and_each_rule_raises():
         for mod in (config, jconfig):
             with pytest.raises(ValueError, match=match):
                 mod.TestConfig(**tbase, **kw)
-    with pytest.raises(NotImplementedError, match="mip x proposal"):
-        config.TrainConfig(**base, mip=True, proposal=True)
-    with pytest.raises(NotImplementedError, match="mip x proposal"):
-        config.TestConfig(**tbase, mip=True, Np=8)
+    assert config.TrainConfig(**base, mip=True, proposal=True).proposal  # mip x proposal: ported
+    assert config.TestConfig(**tbase, mip=True, Np=8).Np == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config.train_config_from_dict({**base, "mip": True, "mip_multiscale": True})
     assert config.train_config_from_dict({**base, "mip": True, "contract": True}).contract  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):  # with proposal: mip x proposal
-        config.train_config_from_dict({**base, "mip": True, "proposal": True, "contract": True})
+    assert config.train_config_from_dict({**base, "mip": True, "proposal": True, "contract": True}).proposal
     with pytest.raises(ValueError, match="excludes hierarchical"):  # JAX serve.py:59-65
         RenderSettings(mip=True, N_coarse=8)
 

@@ -520,8 +520,9 @@ POSE_RULES = [
 def test_pose_config_keys_load_and_each_rule_raises():
     """lego.yaml with the pose keys loads; each of JAX's pose rules raises
     in both packages; pose with mip or with proposal loads in both (the
-    port composes them since Queue A item 1 landed), pose with both raises
-    NotImplementedError naming ROADMAP Queue A item 2 (mip x proposal);
+    port composes them since Queue A item 1 landed), and pose with both
+    (mip x proposal, Queue A item 2) loads in both too, the fused core
+    refusing it (pose's path is autograd);
     pose with ``appearance_dim`` loads (the real-capture recipe), but not
     with ``pose_freeze_at`` (JAX's rule)."""
     d = config.load_yaml("configs/lego.yaml")
@@ -538,8 +539,8 @@ def test_pose_config_keys_load_and_each_rule_raises():
         jconfig.TrainConfig(datapath="d", **kw)  # both packages compose them
         assert config.TrainConfig(datapath="d", **kw).pose_opt
     jconfig.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True)
+    cfg = config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True)
+    assert cfg.pose_opt and cfg.mip and cfg.proposal and kernel_refusal(cfg).startswith("pose_opt")
     assert config.train_config_from_dict({**d, "pose_opt": True, "appearance_dim": 4}).appearance_dim == 4
     with pytest.raises(ValueError, match="pose_freeze_at cannot combine with appearance_dim"):
         config.train_config_from_dict({**d, **keys, "appearance_dim": 4})

@@ -9,8 +9,8 @@ contract faults; one f32 train step each of pose + contract (single net,
 with and without the anneal; the hierarchical pair; the 360 recipe's keys)
 and of appearance + contract (single, hierarchical, proposal; with and
 without pose) against the JAX ``build_train_step`` (``backend: xla``) from
-the same weights and draws; the config rules and the raise message of
-pose + mip + contract; ``train()`` of the 360 recipe with pose through a
+the same weights and draws; the config rules, and pose + mip + contract
+running where it used to raise; ``train()`` of the 360 recipe with pose through a
 freeze and refined train stills, and of contract + appearance evaluated
 under a code.
 
@@ -352,13 +352,13 @@ def test_pose_and_appearance_steps_of_a_contracted_model_match_jax_step(monkeypa
 def test_contract_with_pose_and_codes_loads_and_pose_mip_contract_raises_item_4():
     """``contract`` with ``pose_opt``, with ``appearance_dim`` and with both
     loads in both packages (and colmap360.yaml with its pose block switched
-    on); pose + mip + contract, which JAX composes, raises
-    NotImplementedError naming ROADMAP Queue B item 4 in the config and at
-    every place that would need its input gradient (the plain transpose,
-    ``fused_mlp``, ``fused_mlp_backward(want_dx=True)``, ``input_grad``);
-    no message names Queue B item 3 any more."""
-    assert "Queue B item 4" in config.CONTRACT_MIP_INPUT_GRAD and "item 3" not in config.CONTRACT_MIP_INPUT_GRAD
-    assert not hasattr(config, "CONTRACT_INPUT_GRAD")
+    on); pose + mip + contract, which JAX composes, loads too (Queue B item
+    4 is ported: no message names it, the refusal's constant is gone), and
+    every place that needs its input gradient runs and agrees with the
+    plain path: the plain transpose, ``fused_mlp`` through autograd,
+    ``fused_mlp_backward(want_dx=True)`` and ``input_grad`` on the backward's
+    planes."""
+    assert not hasattr(config, "CONTRACT_MIP_INPUT_GRAD") and not hasattr(config, "CONTRACT_INPUT_GRAD")
     for kw in (dict(pose_opt=True), dict(appearance_dim=4), dict(pose_opt=True, appearance_dim=4),
                dict(pose_opt=True, hierarchical=True), dict(appearance_dim=4, proposal=True)):
         jconfig.TrainConfig(datapath="x", contract=True, **kw)
@@ -370,20 +370,26 @@ def test_contract_with_pose_and_codes_loads_and_pose_mip_contract_raises_item_4(
                                          "pose_freeze_at": 5000})
     assert (cfg.contract, cfg.proposal, cfg.pose_opt, cfg.pose_freeze_at) == (True, True, True, 5000)
     jconfig.TrainConfig(datapath="x", contract=True, pose_opt=True, mip=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 4"):
-        config.TrainConfig(datapath="x", contract=True, pose_opt=True, mip=True)
+    cfg = config.TrainConfig(datapath="x", contract=True, pose_opt=True, mip=True)
+    assert model_from_train_config(cfg).contract and tstep.kernel_refusal(cfg).startswith("pose_opt")
     cmip = NerfMLP(Lp=4, Ld=2, H=32, contract=True)
-    wts = mlp.pack_weights(NerfField(cmip))
+    wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(33, cmip), "cpu", cmip))
     x16 = torch.zeros((16, 8))
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        mlp._encode_transpose(x16, torch.zeros(mlp._enc_rows(4), 8), torch.zeros(mlp._enc_rows(2), 8), cmip, mip=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        mlp.fused_mlp(wts, x16.clone().requires_grad_(True), torch.float32, cmip, mip=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        mlp.fused_mlp_backward(wts, x16, torch.zeros(8, 8), torch.float32, cmip, mip=True, want_dx=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        mlp.input_grad(wts, x16, torch.zeros(mlp.Layout.of(cmip).FG, 64), torch.float32, cmip, mip=True)
-    assert mlp.fused_mlp(wts, x16, torch.float32, cmip, mip=True).shape == (8, 8)  # no gradient asked: it runs
+    x16[:6] = _t(_x(8, 34))[:6]
+    x16[0:3] *= 3.0  # both sides of the unit sphere
+    x16[11:14] = 0.01
+    g = _t(np.random.default_rng(35).normal(size=(8, 8)).astype(np.float32))
+    xr = x16.clone().requires_grad_(True)
+    mlp.fused_mlp(wts, xr, torch.float32, cmip, mip=True).backward(g)
+    _, dx = mlp.fused_mlp_backward(wts, x16, g, torch.float32, cmip, mip=True, want_dx=True)
+    _, res = mlp.forward_residuals_plain(wts, x16, torch.float32, cmip, mip=True)
+    gws = mlp.backward_tile_plain(wts, res, g, torch.float32, cmip)
+    alone = mlp.input_grad(wts, x16, gws, torch.float32, cmip, mip=True)
+    assert torch.equal(xr.grad, dx) and dx.shape == (16, 8) and bool(torch.isfinite(dx).all())
+    assert (dx[11:14] != 0).any() and (x16[0:3].norm(dim=0) > 1).any()
+    np.testing.assert_allclose(alone.numpy(), dx.numpy(), rtol=1e-5, atol=1e-6 * dx.abs().max().item())
+    assert mlp._encode_transpose(x16, torch.zeros(mlp._enc_rows(4), 8), torch.zeros(mlp._enc_rows(2), 8), cmip,
+                                 mip=True).abs().max() == 0
 
 
 # --- train() and eval through the normal entry points --------------------------------------------------------

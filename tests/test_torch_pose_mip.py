@@ -366,10 +366,10 @@ def test_proposal_render_with_enc_alpha_matches_jax(alpha):
 def test_pose_with_mip_and_proposal_configs_load_and_the_rules_raise():
     """lego_mip.yaml (``mip_levels`` 2 and 1) and lego_proposal.yaml with
     pose_opt load in both packages; JAX's rules raise in both: pose + mip +
-    ``pe_anneal_until`` and mip + ``appearance_dim`` (ValueError); the port
-    still refuses pose + mip + proposal (mip x proposal, Queue A item 2)
-    and pose + mip + ``contract`` (the mip input gradient's contraction,
-    Queue B item 4), which JAX composes; pose + ``contract`` loads."""
+    ``pe_anneal_until`` and mip + ``appearance_dim`` (ValueError); pose +
+    mip + proposal (mip x proposal, Queue A item 2) and pose + mip +
+    ``contract`` (the mip input gradient's contraction, Queue B item 4)
+    load, as in JAX, on the autograd path; pose + ``contract`` loads."""
     pose = dict(pose_opt=True, pose_warmup=10, pose_freeze_at=100)
     for path, extra in (("configs/lego_mip.yaml", {}), ("configs/lego_mip.yaml", {"mip_levels": 1}),
                         ("configs/lego_proposal.yaml", {"pe_anneal_until": 40})):
@@ -384,12 +384,12 @@ def test_pose_with_mip_and_proposal_configs_load_and_the_rules_raise():
         with pytest.raises(ValueError):
             jconfig.TrainConfig(datapath="d", **kw)
     jconfig.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True, Np=8)  # JAX composes it
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True, Np=8)
+    cfg = config.TrainConfig(datapath="d", pose_opt=True, mip=True, proposal=True, Np=8)
+    assert cfg.proposal and tstep.kernel_refusal(cfg).startswith("pose_opt")
     assert config.train_config_from_dict({"datapath": "d", "pose_opt": True, "contract": True}).contract
     jconfig.TrainConfig(datapath="d", pose_opt=True, mip=True, contract=True)  # JAX composes it
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        config.train_config_from_dict({"datapath": "d", "pose_opt": True, "mip": True, "contract": True})
+    cfg = config.train_config_from_dict({"datapath": "d", "pose_opt": True, "mip": True, "contract": True})
+    assert cfg.contract and tstep.kernel_refusal(cfg).startswith("pose_opt")
     for levels in (1, 2):
         cfg = config.TrainConfig(datapath="d", pose_opt=True, mip=True, mip_levels=levels)
         assert tstep.kernel_refusal(cfg).startswith("pose_opt")

@@ -361,8 +361,7 @@ def test_render_rays_chunked_proposal_matches_jax():
                   NerfPair.from_jax_params({"coarse": params["fine"], "fine": params["fine"]}, "cpu")):
         with pytest.raises(ValueError, match="ProposalPair"):
             renderer.render_rays_chunked(field, _t(rays), 0, s)
-    with pytest.raises(NotImplementedError, match="mip"):
-        RenderSettings(N_prop=NP, mip=True)
+    assert RenderSettings(N_prop=NP, mip=True, base_radius=0.01).mip  # mip x proposal: ported
 
 
 # --- the fused core and the step ----------------------------------------------------------------
@@ -541,14 +540,12 @@ def test_lego_proposal_yaml_loads_and_each_check_raises():
     for mod in (config, jconfig):
         with pytest.raises(ValueError, match="alternative samplers"):
             mod.TestConfig(loadpath="m", datapath="d", Np=8, Nc=8)
-    with pytest.raises(NotImplementedError, match="mip x proposal"):
-        config.train_config_from_dict({**d, "mip": True})
+    assert config.train_config_from_dict({**d, "mip": True}).mip  # mip x proposal: ported
     for key, value, match in (("mip_levels", 2, "requires mip=True"), ("opaque_background", True, "needs mip=True")):
         for mod in (config, jconfig):  # JAX's rules, in JAX's words
             with pytest.raises(ValueError, match=match):
                 mod.train_config_from_dict({**d, key: value})
-    with pytest.raises(NotImplementedError, match="mip"):
-        config.test_config_from_dict({**d["test_params"], "mip": True})
+    assert config.test_config_from_dict({**d["test_params"], "mip": True}).mip
 
 
 def test_proposal_checkpoint_resumes_bit_for_bit_and_schemes_are_checked(tmp_path):

@@ -85,9 +85,10 @@ def test_chunked_equals_unchunked_and_pads_with_last_ray():
 
 
 def test_render_settings_reject_unported():
-    for kw in ({"N_prop": 32, "mip": True}, {"mip": True, "mip_shape": "cylinder"}):
+    for kw in ({"N_prop": 32, "mip": True, "mip_shape": "cylinder"}, {"mip": True, "mip_shape": "cylinder"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             RenderSettings(**kw)
+    assert RenderSettings(N_prop=32, mip=True).N_prop == 32  # ported: mip x proposal
     assert RenderSettings(N_prop=32).N_prop == 32  # ported: proposal sampling
     assert RenderSettings(mip=True, mip_levels=2).mip_levels == 2  # ported: cone casting
     assert RenderSettings(sigma_noise=1.0).sigma_noise == 1.0  # ported: a training regulariser
@@ -152,9 +153,10 @@ def test_unknown_path_404(tiny_server):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--occupancy"], ["--proposal-samples", "32", "--mip"], ["--mip", "--occupancy"],
-             ["--mip", "--mip-levels", "2", "--occ-R", "32"], ["--mip", "--opaque-background", "--proposal-samples", "8"],
-             ["--occ-R", "32"], ["--mip", "--resample-blur", "0.1", "--proposal-samples", "8"]],
+    "flag", [["--occupancy"], ["--proposal-samples", "32", "--mip", "--occupancy"], ["--mip", "--occupancy"],
+             ["--mip", "--mip-levels", "2", "--occ-R", "32"],
+             ["--mip", "--opaque-background", "--proposal-samples", "8", "--occ-R", "16"],
+             ["--occ-R", "32"], ["--mip", "--resample-blur", "0.1", "--proposal-samples", "8", "--occupancy"]],
 )
 def test_cli_rejects_unported_flags(flag):
     base = ["--loadpath", "x.npz", "--height", "4", "--width", "4", "--focal", "5"]

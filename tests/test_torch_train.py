@@ -130,8 +130,8 @@ def test_lego_yaml_loads_and_unported_keys_raise():
             config.train_config_from_dict({"datapath": "d", key: value})
     assert config.train_config_from_dict({"datapath": "d", "contract": True}).contract  # ported
     assert config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True}).pose_opt  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 4"):  # not with pose and mip yet
-        config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True, "mip": True})
+    assert config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True,
+                                          "mip": True}).mip  # ported: with pose and mip too
     for key, value in (("sigma_noise", 0.1), ("distortion_loss_weight", 0.01), ("proposal", True),
                        ("Np", 32), ("prop_H", 32), ("proposal_loss_weight", 0.5)):  # ported: they load
         assert getattr(config.train_config_from_dict({"datapath": "d", "proposal": True, key: value}), key) == value
