@@ -150,7 +150,10 @@ NerfMLP(Lp=10, Ld=4, H=256):
    bit-equal to the launch without ``want_dx``), the input-gradient kernel
    alone (csrc/input_grad.cuh, probes/input_grad.py) beside its plain
    version and a torch.mm yardstick; with ``--before``, the forward and B2
-   without the new arguments bit-equal to the earlier library's; (b) 300
+   without the new arguments bit-equal to the earlier library's, and every
+   instantiation of the input-gradient kernel beside the earlier one in
+   turns (``probes/input_grad.py::before_after``: f32 dx bit-equal, bf16
+   within MIP_CONTRACT_TOL, the bf16 ms of both); (b) 300
    steps through ``train()`` with the freeze at 150: one forward and one B2
    launch with the input gradient a step before it (the windows until step
    100), one B1 launch a step after it; the pose step's wall, kernel ms by
@@ -1063,7 +1066,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
         if split_pose:
             if group == "sums_reduce" and "native" in e.name:  # a torch reduction, not the sums'
                 group = "other"
-            if "input_grad_kernel" in e.name:
+            if "::ig::input_grad" in e.name:  # input_grad_kernel (f32) or input_grad_mma (bf16)
                 group = "input grad"
             elif any(k in e.name for k in STEP_GROUPS[1][1]):
                 group, n_fwd = "adam", 0  # the step's last kernels
@@ -2862,6 +2865,14 @@ def phase_pose_kernels(dev, scene, model, mlp, earlier) -> dict:
               f"TFLOP/s; dx err {v['rel_err']:.2e} of max |dx| (windows {ig[name + '_anneal']['rel_err']:.2e}; tol "
               f"{ig_probe.REL_TOL[torch.float32 if name == 'f32' else torch.bfloat16]:.0e})", flush=True)
     stats["input_grad"] = ig
+    if earlier:  # every instantiation beside the earlier library's, in turns
+        ba = ig_probe.before_after(dev, {k: earlier[k] for k in ("fused_mlp_bwd", "fused_contract")})
+        print(f"before/after bf16 input gradient at {ba['rows']} rows, earlier and current in turns: " + "; ".join(
+            f"{case} {v['earlier_ms']:.3f} -> {v['ms']:.3f} ms ({100 * v['earlier_share_of_bound']:.1f}% -> "
+            f"{100 * v['share_of_bound']:.1f}% of its {v['bound_ms']:.3f} ms bound; torch.mm yardstick "
+            f"{v['library_ms']:.3f} ms; dx from the earlier's {v['bf16_err']:.1e} by row group, f32 dx bit-equal "
+            f"{v['f32_bit_equal']})" for case, v in ba.items() if case != "rows"), flush=True)
+        stats["input_grad_before_after"] = ba
     return stats
 
 
@@ -2898,6 +2909,19 @@ def earlier_backward(mlp, lib, w, x, gT, dt, model, want_dx: bool = False, mip: 
                                     None if dx is None else dx.data_ptr(), app, 0, mlp._stream(x)),
                   "earlier fused_mlp_bwd")
     return (grads, dx) if want_dx else grads
+
+
+def dx_as_earlier(dx, dx_earlier, dt, mip: bool = False) -> bool:
+    """B2's dx against an earlier library's on the same inputs: bit-equal in
+    f32; in bf16 within MIP_CONTRACT_TOL by row group (``row_err``), since
+    the bf16 input-gradient kernel runs its products on the tensor cores
+    (csrc/input_grad.cuh's input_grad_mma), which sum the same bf16
+    products in f32 in another order than the SIMT kernel did."""
+    from nerf_simple_tpu_torch.probes import input_grad as ig_probe
+
+    if dt == torch.float32:
+        return torch.equal(dx, dx_earlier)
+    return ig_probe.row_err(dx, dx_earlier, mip).max().item() <= ig_probe.MIP_CONTRACT_TOL
 
 
 def phase_pose_train(dev, scene, work, mlp) -> dict:
@@ -3273,8 +3297,8 @@ def phase_app_kernels(dev, scene, mlp, earlier) -> dict:
             if earlier:
                 g_now, dx_now = b2(wp, x8, gT, dt, plain, want_dx=True)
                 g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], wp, x8, gT, dt, plain, want_dx=True)
-                st["bit_equal_earlier"] = all(torch.equal(a, c) for a, c in zip(g_now, g_old)) and torch.equal(
-                    dx_now, dx_old)
+                st["as_earlier"] = all(torch.equal(a, c) for a, c in zip(g_now, g_old)) and dx_as_earlier(
+                    dx_now, dx_old, dt)
                 del g_now, dx_now, g_old, dx_old
             ms = turns_ms({"codes": lambda: b2(w, x, gT, dt, model, want_dx=True),
                            "none": lambda: b2(wp, x8, gT, dt, plain, want_dx=True)})
@@ -3291,14 +3315,16 @@ def phase_app_kernels(dev, scene, mlp, earlier) -> dict:
                   + f"; dx bit-equal to the input-gradient kernel on the kernels' planes: {composed}; the code plane "
                   f"holds the codes: {code_plane}; grads bit-equal to the launch without dx: {bit_equal}; in turns: "
                   f"codes {st['ms']:.3f} ms, the model without codes {st['ms_no_codes']:.3f} ms; plain "
-                  f"{st['plain_ms']:.3f} ms" + (f"; without codes (with dx) bit-equal to the earlier library's: "
-                                               f"{st['bit_equal_earlier']}" if earlier else ""), flush=True)
+                  f"{st['plain_ms']:.3f} ms" + (f"; without codes (with dx) as the earlier library's (grads "
+                                               f"bit-equal, dx bit-equal in f32, in bf16 within "
+                                               f"{ig_probe.MIP_CONTRACT_TOL:.0e}): {st['as_earlier']}"
+                                               if earlier else ""), flush=True)
             check(rel <= GRAD_TOL["B2", dt] and wca_rel <= GRAD_TOL["B2", dt] and composed
                   and code_plane and pad_zero and ex["n_unexplained"] == 0 and ex["own_masks_err"] <= DX_TOL[dt]
                   and ex["share"] <= DX_ROW_SHARE[dt], f"appearance B2 {name} within tolerance")
             check(len(ex["faults"]) == 3 and all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
                   f"the dx rule catches the three planted faults ({name})")
-            check(bit_equal and st.get("bit_equal_earlier", True), f"B2 {name} unchanged without codes")
+            check(bit_equal and st.get("as_earlier", True), f"B2 {name} unchanged without codes")
             stats[f"b2_{name}"] = st
     del x, x8, x0, gT
     torch.cuda.empty_cache()
@@ -3638,8 +3664,8 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
                     alone, earlier_backward(mlp, lib, w, x, gT, dt, model, mip=True)))
                 pg, pdx = b2(w, x8, gT, dt, model, want_dx=True)
                 eg, edx = earlier_backward(mlp, lib, w, x8, gT, dt, model, want_dx=True)
-                st["point_dx_bit_equal_earlier"] = (all(torch.equal(a, c) for a, c in zip(pg, eg))
-                                                    and torch.equal(pdx, edx))
+                st["point_dx_as_earlier"] = (all(torch.equal(a, c) for a, c in zip(pg, eg))
+                                             and dx_as_earlier(pdx, edx, dt))
                 del pg, pdx, eg, edx
             want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, model, mip=True, want_dx=True)
             rel, abs_err = grad_errors(grads, want)
@@ -3664,15 +3690,16 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
                   f"{st['ms']:.3f} ms, without {st['ms_no_dx']:.3f} ms; plain {st['plain_ms']:.3f} ms; grads "
                   f"bit-equal to the launch without dx: {bit_equal}" + (
                       f"; without dx bit-equal to the earlier library's: {st['mip_no_dx_bit_equal_earlier']}; "
-                      f"the point launch with dx bit-equal to the earlier library's: "
-                      f"{st['point_dx_bit_equal_earlier']}" if earlier else ""), flush=True)
+                      f"the point launch with dx as the earlier library's (grads bit-equal, dx bit-equal in f32, "
+                      f"in bf16 within {ig_probe.MIP_CONTRACT_TOL:.0e}): {st['point_dx_as_earlier']}"
+                      if earlier else ""), flush=True)
             check(rel <= GRAD_TOL["B2", dt] and composed and zero_rows and ex["n_unexplained"] == 0
                   and ex["own_masks_err"] <= DX_TOL[dt] and ex["share"] <= DX_ROW_SHARE[dt],
                   f"B2 mip want_dx {name} within tolerance")
             check(all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
                   f"the mip dx rule catches both planted faults ({name})")
             check(bit_equal and st.get("mip_no_dx_bit_equal_earlier", True)
-                  and st.get("point_dx_bit_equal_earlier", True), f"B2 {name}: the launches without dx, or without "
+                  and st.get("point_dx_as_earlier", True), f"B2 {name}: the launches without dx, or without "
                   "mip, unchanged")
             stats[f"b2_{name}"] = st
     del x, x8, gT, rays_b, pix_b, edges
@@ -3690,22 +3717,33 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
     return stats
 
 
+# The earlier kernels that the current libraries replace by design: the bf16
+# instantiations of the input-gradient kernel's SIMT version, whose work
+# the tensor-core kernel input_grad_mma (csrc/input_grad.cuh) does.
+SASS_REPLACED = ("input_grad_kernelI13__nv_bfloat16",)
+
+
 def sass_against_earlier(before_dir, _build) -> dict:
     """Each library of BEFORE_ENTRIES against the earlier commit's, kernel
-    by kernel (``sass_by_kernel``): every kernel of the earlier library
-    must build to the same SASS in the current one; the current one's
-    other kernels are new."""
+    by kernel (``sass_by_kernel``): every kernel of the earlier library,
+    but those SASS_REPLACED names, must build to the same SASS in the
+    current one (the f32 input-gradient kernels among them); the current
+    one's other kernels are new."""
     sass = {}
     for src in BEFORE_ENTRIES:
         cur = sass_by_kernel(str(_build.library_path(src)))
         old = sass_by_kernel(os.path.join(os.path.dirname(os.path.abspath(before_dir)), "build", f"{src}.so"))
-        same = [k for k in old if cur.get(k) == old[k]]
-        sass[src] = dict(identical=len(same), earlier=len(old), kernels=len(cur),
+        replaced = [k for k in old if any(r in k for r in SASS_REPLACED) and k not in cur]
+        kept = [k for k in old if k not in replaced]
+        same = [k for k in kept if cur.get(k) == old[k]]
+        sass[src] = dict(identical=len(same), earlier=len(kept), replaced=len(replaced), kernels=len(cur),
                          new=sorted(k[:60] for k in cur if k not in old),
-                         differ=sorted(k[:60] for k in old if k not in same))
+                         differ=sorted(k[:60] for k in kept if k not in same))
     print("SASS against the earlier libraries, kernel by kernel: " + "; ".join(
-        f"{src} {v['identical']} of the earlier {v['earlier']} identical, {len(v['new'])} new"
-        + (f", differ: {v['differ']}" if v["differ"] else "") for src, v in sass.items()), flush=True)
+        f"{src} {v['identical']} of the earlier {v['earlier']} identical"
+        + (f" ({v['replaced']} bf16 SIMT input-gradient kernels replaced)" if v["replaced"] else "")
+        + f", {len(v['new'])} new" + (f", differ: {v['differ']}" if v["differ"] else "")
+        for src, v in sass.items()), flush=True)
     check(all(not v["differ"] and v["identical"] == v["earlier"] for v in sass.values()),
           "every kernel of the earlier libraries builds to the same SASS")
     return sass
@@ -4465,7 +4503,7 @@ def phase_pose_contract_kernels(dev, scene, mlp, earlier) -> dict:
                     g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], ww, xx, gT, dt, um, want_dx=True,
                                                      enc_w=e)
                     g_new, dx_new = b2(ww, xx, gT, dt, um, want_dx=True, enc_w=e)
-                    st[f"b2_dx_no_contract_bit_equal_earlier{case}"] = torch.equal(dx_old, dx_new) and all(
+                    st[f"b2_dx_no_contract_as_earlier{case}"] = dx_as_earlier(dx_new, dx_old, dt) and all(
                         torch.equal(a, c) for a, c in zip(g_old, g_new))
                     del g_old, dx_old, g_new, dx_new
                 want, dx_p = mlp.fused_mlp_backward_plain(ww, xx, gT, dt, m, want_dx=True, enc_w=e)
@@ -4492,7 +4530,7 @@ def phase_pose_contract_kernels(dev, scene, mlp, earlier) -> dict:
                       and all(f["n_unexplained"] > 0 for f in ex["faults"].values()),
                       f"the dx rule catches every planted fault, the contraction's two among them ({name}{case})")
                 check(st[f"bit_equal_no_dx{case}"] and st[f"dx_inside_bit_equal{case}"]
-                      and st.get(f"b2_dx_no_contract_bit_equal_earlier{case}", True),
+                      and st.get(f"b2_dx_no_contract_as_earlier{case}", True),
                       f"B2 contract {name}{case}: the grads without dx, the rows inside the ball and the launch "
                       "without contract unchanged")
             # the contracted forward with the windows, with the codes
@@ -4910,7 +4948,7 @@ def phase_mip360_kernels(dev, scene, mlp, earlier) -> dict:
                 g_old, dx_old = earlier_backward(mlp, earlier["fused_mlp_bwd"], w, x, gT, dt, model, want_dx=True,
                                                  mip=True)
                 g_new, dx_new = b2(w, x, gT, dt, model, mip=True, want_dx=True)
-                st["b2_mip_dx_no_contract_bit_equal_earlier"] = torch.equal(dx_old, dx_new) and all(
+                st["b2_mip_dx_no_contract_as_earlier"] = dx_as_earlier(dx_new, dx_old, dt, mip=True) and all(
                     torch.equal(a, c) for a, c in zip(g_old, g_new))
                 del g_old, dx_old, g_new, dx_new
             want, dx_p = mlp.fused_mlp_backward_plain(w, x, gT, dt, cm, mip=True, want_dx=True)
@@ -4938,7 +4976,7 @@ def phase_mip360_kernels(dev, scene, mlp, earlier) -> dict:
                 f["n_unexplained"] > 0 for f in ex["faults"].values())),
                   f"the f32 dx rule catches every planted fault, the coupled transpose's three among them ({name})")
             check(st["bit_equal_no_dx"] and st["dx_inside_bit_equal"]
-                  and st.get("b2_mip_dx_no_contract_bit_equal_earlier", True),
+                  and st.get("b2_mip_dx_no_contract_as_earlier", True),
                   f"B2 mip + contract {name}: the grads without dx, the rows inside the ball and the launch without "
                   "contract unchanged")
             ms = turns_ms({"dx": lambda: b2(w, x, gT, dt, cm, mip=True, want_dx=True),
@@ -5612,7 +5650,7 @@ def main() -> None:
                                  (56 + 16 + 64) * app_rows + app_grad_bytes, appt["launches"]["b2_app"], rows=app_rows,
                                  **app_extra("b2", ("rel", "wca_rel", "code_rel", "dx_rows", "ms_no_codes",
                                                     "bit_equal_no_dx", "dx_equal_composed", "code_plane_equal",
-                                                    "bit_equal_earlier"))),
+                                                    "as_earlier"))),
                     "source": "nerf_simple_tpu_torch/csrc/fused_mlp_bwd.cu (the recompute with the codes; Wcd's sum "
                               "over posd's code rows: dWca; input_grad.cuh: the code rows of dx)",
                     "replaces": "nerf_simple_tpu/kernels/mlp.py:716-724, :747-748, :854-857, :867, :1140-1145",
@@ -5643,7 +5681,8 @@ def main() -> None:
         "library_ms": igm["f32"]["library_ms"], "max_abs_err_bf16": igm["bf16"]["max_abs_err"],
         "ms_bf16": igm["bf16"]["ms"], "plain_ms_bf16": igm["bf16"]["plain_ms"], "bound_ms_bf16": igm["bf16"]["bound_ms"],
         "bound_by_bf16": igm["bf16"]["bound_by"], "library_ms_bf16": igm["bf16"]["library_ms"],
-        "variant": "input_grad_kernel<T, KD, MIP = true>", "rows": igm["rows"], "flops": igm_flops, "bytes": igm_bytes,
+        "variant": "input_grad_kernel<float, KD, MIP = true>, input_grad_mma<KD, MIP = true> (bf16)",
+        "rows": igm["rows"], "flops": igm_flops, "bytes": igm_bytes,
         **{f"{m}{'' if k == 'f32' else '_bf16'}": igm[k][m] for k in ("f32", "bf16")
            for m in ("rel_err", "var_rel_err", "point_ms", "share_of_bound", "fault_err")},
         "b2_mip_dx": {k: {m: v for m, v in pmk[f"b2_{k}"].items()} for k in ("f32", "bf16")},
@@ -5717,7 +5756,8 @@ def main() -> None:
         "max_abs_err_bf16": igc["bf16"]["max_abs_err"], "ms_bf16": igc["bf16"]["ms"],
         "plain_ms_bf16": igc["bf16"]["plain_ms"], "bound_ms_bf16": igc["bf16"]["bound_ms"],
         "bound_by_bf16": igc["bf16"]["bound_by"], "library_ms_bf16": igc["bf16"]["library_ms"],
-        "variant": "input_grad_kernel<T, KD or KDA, MIP = false, CONTRACT = true> (csrc/input_grad.cuh)",
+        "variant": "input_grad_kernel<float, KD or KDA, MIP = false, CONTRACT = true>, input_grad_mma<KD or KDA, "
+                   "MIP = false, CONTRACT = true> (bf16; csrc/input_grad.cuh)",
         "rows": igc["rows"], "inside_rows": igc["inside_rows"], "flops": igc_flops, "bytes": igc_bytes,
         **{f"{m}{'' if k == 'f32' else '_bf16'}": igc[k][m] for k in ("f32", "bf16")
            for m in ("rel_err", "point_ms", "share_of_bound", "fault_err", "inside_bit_equal")},
@@ -5739,7 +5779,8 @@ def main() -> None:
         "library_ms": igm["f32"]["library_ms"], "max_abs_err_bf16": igm["bf16"]["max_abs_err"],
         "ms_bf16": igm["bf16"]["ms"], "plain_ms_bf16": igm["bf16"]["plain_ms"], "bound_ms_bf16": igm["bf16"]["bound_ms"],
         "bound_by_bf16": igm["bf16"]["bound_by"], "library_ms_bf16": igm["bf16"]["library_ms"],
-        "variant": "input_grad_kernel<T, KD, MIP = true, CONTRACT = true> (csrc/input_grad.cuh)",
+        "variant": "input_grad_kernel<float, KD, MIP = true, CONTRACT = true>, input_grad_mma<KD, MIP = true, "
+                   "CONTRACT = true> (bf16; csrc/input_grad.cuh)",
         "rows": igm["rows"], "inside_rows": igm["inside_rows"], "flops": igm_flops, "bytes": igm_bytes,
         **{f"{m}{'' if k == 'f32' else '_bf16'}": igm[k][m] for k in ("f32", "bf16")
            for m in ("rel_err", "var_rel_err", "mip_ms", "share_of_bound", "fault_err", "inside_bit_equal")},

@@ -65,7 +65,7 @@ long long fused_mlp_bwd_workspace_bytes(long long rows, int Lp, int Ld, int H, i
 // Dynamic shared memory of the largest kernel, in bytes.
 long long fused_mlp_bwd_smem_bytes(int Lp, int Ld, int H, int is_bf16, int app) {
   const long long f = fwd_smem(Lp, Ld, H, is_bf16, app != 0), b = bwd_smem(H, is_bf16),
-                  i = ig::smem_bytes(H, app != 0);
+                  i = ig::smem_bytes(H, app != 0, is_bf16 != 0);
   return std::max(std::max(f, b), i);
 }
 

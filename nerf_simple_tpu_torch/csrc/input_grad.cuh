@@ -71,27 +71,82 @@
 // bit for bit.
 //
 // What bounds it (flagship, 524,288 rows): in bf16 the bytes, 640 plane
-// rows x 2 B, x and dx, ~1,344 B a row: 0.21 ms at 3.35 TB/s (its 83,968
-// flop a row take 0.045 ms on the tensor cores); in f32 the operations,
-// 0.66 ms at 67 TFLOP/s (its bytes 0.41 ms). Under mip it reads 9 rows of
-// x and writes 16 of dx, ~1,380 B a row in bf16 (0.22 ms); the products
-// are the same. The coupled transpose of MIP && CONTRACT adds ~60 flops a
-// row, after the products.
+// rows x 2 B, x and dx, ~1,344 B a row: 0.21 ms at 3.35 TB/s (its ~72,000
+// flop a row take ~0.04 ms on the tensor cores, 0.56 ms on the FMA pipes);
+// in f32 the operations, 0.56 ms at 67 TFLOP/s (its bytes 0.41 ms). Under
+// mip it reads 9 rows of x and writes 16 of dx, ~1,380 B a row in bf16
+// (0.22 ms); the products are the same. The coupled transpose of MIP &&
+// CONTRACT adds ~60 flops a row, after the products.
 //
-// Design: simple SIMT, one thread a sample row, chosen over mma.sync for
-// a first kernel that is right: the products are skinny (K = H rows of
-// cotangents to 63 + 27 outputs), and the transpose's sincosf runs per
-// row anyway. A block (512 threads, one an SM: a persistent grid) copies
-// the three weight slices it needs into shared memory once, as f32 and
-// transposed to [o][slot]: only the columns a row of x reads (3 raw, 3 Lp
-// sin, 3 Lp cos of posx in KX = 64 slots; 27 of posd in KD = 32, and
-// with appearance codes their eight in eight more slots, KDA = 40), 147
-// KB at H = 256 (151 KB with codes). Each thread then walks the H cotangent rows of its sample
-// row (coalesced loads along the rows, the next one fetched ahead),
+// Two kernels share the encoder's transpose (`transpose` below, with
+// contract_transpose and contract_transpose_mip: the angles, damps,
+// windows, codes and the contraction's transposes are one piece of code),
+// and differ in the products.
+//
+// f32, input_grad_kernel: SIMT, one thread a sample row. A block (512
+// threads, one an SM: a persistent grid) copies the three weight slices
+// it needs into shared memory once, as f32 and transposed to [o][slot]:
+// only the columns a row of x reads (3 raw, 3 Lp sin, 3 Lp cos of posx in
+// KX = 64 slots; 27 of posd in KD = 32, and with appearance codes their
+// eight in eight more slots, KDA = 40), 147 KB at H = 256 (151 KB with
+// codes). Each thread then walks the H cotangent rows of its sample row
+// (coalesced loads along the rows, the next one fetched ahead),
 // multiplying each into 64 f32 accumulators with weights read as float4
 // broadcasts; posx first (W1 on g_h0 and Wsx on g_h5 into one set of
-// accumulators), then posd (Wcd on g_hc). So f32 and bf16 both run on the
-// FMA pipes: a bf16 launch does not reach its byte bound.
+// accumulators), then posd (Wcd on g_hc). The FMA pipes bound it: the
+// tensor cores would round its operands to TF32.
+//
+// bf16, input_grad_mma: the products on the tensor cores, so that the
+// launch is bound by its bytes, not by the FMA pipes (a bf16 SIMT launch
+// ran at the f32 one's speed, 13% of its bound).
+//  - mma.sync m16n8k16 (bf16 operands, f32 accumulators), the sample rows
+//    as M. posx: N = the 64 slots, K = g_h0 against W1^T and then g_h5
+//    against Wsx^T (2 H) into one accumulator set; posd: N = 32 (40 with
+//    the code slots), K = H/2 (padded to a multiple of 16 with zero
+//    weights, and zero cotangents in the stage). mma.sync, not wgmma: the
+//    products need ~0.04 ms of the tensor cores against the bytes' 0.21.
+//  - A persistent grid, one block an SM, walks 128-row tiles. Eight
+//    product warps own 16 rows each (one m16 tile against every n8 tile);
+//    four transpose warps run the encoder's transpose, a thread a row,
+//    while the product warps go on to the next tile: with the transpose in
+//    the product warps, the loads stood still while it ran. Two product
+//    warps a scheduler (MM = 1) hide the products behind the loads better
+//    than one (MM = 2, four warps of 32 rows; `python -m
+//    nerf_simple_tpu_torch.probes.input_grad --before` times a copy of
+//    csrc/ with MM = 2 beside this one).
+//  - Weights: each block copies the slot columns once, in bf16, as the
+//    B operand [o][slot] in 128-byte lines (80 KB at H = 256: posx 2 H
+//    lines, posd H/2 padded to 16), the 16-byte chunks swizzled by the
+//    line (chunk q at q ^ (o % 8)), and reads the fragments with
+//    ldmatrix.trans, free of bank conflicts.
+//  - Cotangents: the planes are feature-major, (features, Rp). They stream
+//    through a ring of NSTAGE = 5 stages of KC = 64 features x 128 rows (16
+//    KB: two whole 128-byte lines a feature) with 16-byte cp.async copies
+//    by the product warps, a stage for each K-chunk of a tile: g_h0's
+//    chunks, then g_h5's, then g_hc's; 64 KB in flight an SM. The A
+//    fragments are read with ldmatrix.trans from the feature-major stage
+//    (chunk c of feature line f at c ^ (f % 8): conflict-free). One barrier
+//    of the product warps a stage publishes it and frees the one read
+//    before.
+//  - Slot sums: after a branch's products each product warp writes its
+//    accumulators as f32 [slot][row] (a stride of 132 floats: the fragment
+//    stores and the transpose's reads by row are both free of bank
+//    conflicts) into a buffer of their own, posx's or posd's; named
+//    barriers hand each buffer to the transpose warps ("full") and back
+//    ("empty"). A transpose thread copies its row's sums to registers,
+//    frees the buffer, and runs `posx_dx` (rows 0..2, and under mip 11..13)
+//    or posd's `transpose` (rows 3..5, the code rows). No register is held
+//    through the products.
+//  - Shared memory at H = 256: the ring 80 KB, the weights 80 KB, the two
+//    sum buffers 66 KB: 231,424 bytes, one block an SM.
+//  - Ragged rows: a tile's rows past Rp are not read (their sums are never
+//    used); rows past `rows` are not read from x nor written to dx.
+//  - Numerics: bf16 operands, f32 sums, as the TPU kernel's mTg; only the
+//    order of the sums differs from the SIMT kernel. Each output column
+//    sums over the same K in the same order whatever the instantiation, so
+//    the code slots leave rows 0..5 as they are without them, a contracted
+//    row inside the ball is the point (or MIP) kernel's, and two launches
+//    give the same bits (no atomics).
 
 #pragma once
 
@@ -103,10 +158,25 @@ constexpr int LXM = 10, KX = 64;  // octaves of posx held; slots: 3 raw + 3 LXM 
 constexpr int LDM = 4, KD = 32;   // the same for posd
 constexpr int KDA = KD + 8;       // posd's slots with the eight appearance-code columns after them
 
+// The bf16 kernel (input_grad_mma): tiles of MT rows; CWARPS warps of MM
+// m16 tiles each run the products, four warps (a thread a row) the
+// transpose (MTHREADS in all); ring stages of KC features (STAGE bytes),
+// NSTAGE of them; two buffers of slot sums [slot][row], KX slots of ESTR
+// floats (a row stride).
+constexpr int MT = 128, MM = 1, CWARPS = MT / (16 * MM), CTHREADS = 32 * CWARPS, MTHREADS = CTHREADS + MT;
+constexpr int KC = 64, STAGE = KC * MT * 2, NSTAGE = 5;
+constexpr int ESTR = MT + 4, SUMS = KX * ESTR;
+
 long long launches = 0;      // of this library, counted where they launch
 long long mip_launches = 0;  // of them, the integrated encoder's transpose (MIP)
 
-__host__ __device__ inline long long smem_bytes(int H, bool app = false) {
+__host__ __device__ inline int ceil16(int n) { return (n + 15) / 16 * 16; }
+
+// Dynamic shared memory of a launch: f32, the SIMT kernel's slot weights;
+// bf16, the mma kernel's ring, weight lines (posx 2 H, posd H/2 padded)
+// and slot sums.
+__host__ __device__ inline long long smem_bytes(int H, bool app = false, bool is_bf16 = false) {
+  if (is_bf16) return (long long)NSTAGE * STAGE + 128LL * (2 * H + ceil16(H / 2)) + 2 * 4LL * SUMS;
   return 4LL * (2LL * H * KX + (long long)(H / 2) * (app ? KDA : KD));
 }
 
@@ -125,59 +195,19 @@ __device__ __forceinline__ int column(int s, int L) {
   return 8 + cos_row * ceil8(3 * L) + L * c + i;
 }
 
-// One branch of the encoder's transpose for the calling thread's row: the
-// f32 products of its O cotangent rows ga (and gb, TWO) with the slot
-// weights sa (and sb) [o][K], times the windows ew (or none), then the
-// transpose at the row's three coordinates xc (stride `rows`) into d; the
-// products of the slots past KD (the appearance codes', K = KDA) go to
-// `code` as they are. MIP: the sin and cos rows were damped by the
+// One branch of the encoder's transpose for one row, from its slot sums
+// acc (K slots; either kernel's products): times the windows ew (or none),
+// then the transpose at the row's three coordinates xc (stride `rows`)
+// into d; the sums of the slots past KD (the appearance codes', K = KDA)
+// go to `code` as they are. MIP: the sin and cos rows were damped by the
 // variances vc (stride `rows`); d gets the angle chain, dv the damp chain.
 // CX: the transpose is taken at the contracted coordinates (contract_point
 // of the row xc, after the products, so that they hold no register
 // through them); with MIP also at the contracted variances.
-template <class T, int K, int LM, bool TWO, bool MIP = false, bool CX = false>
-__device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
-                                       const float *sa, const float *sb, int O, const float *__restrict__ xc,
-                                       long long rows, int L, const float *__restrict__ ew, float d[3],
-                                       float *code = nullptr, const float *__restrict__ vc = nullptr,
-                                       float *dv = nullptr) {
-  float acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.f;
-  float a = to_f(ga[0]), b = TWO ? to_f(gb[0]) : 0.f;
-  for (int o = 0; o < O; ++o) {
-    float an = 0.f, bn = 0.f;  // the next cotangent row, fetched ahead
-    if (o + 1 < O) {
-      ga += Rp;
-      an = to_f(*ga);
-      if (TWO) {
-        gb += Rp;
-        bn = to_f(*gb);
-      }
-    }
-    const float4 *wa = reinterpret_cast<const float4 *>(sa + o * K);
-#pragma unroll
-    for (int q = 0; q < K / 4; ++q) {
-      const float4 u = wa[q];
-      acc[4 * q] = fmaf(u.x, a, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(u.y, a, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(u.z, a, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(u.w, a, acc[4 * q + 3]);
-    }
-    if (TWO) {
-      const float4 *wb = reinterpret_cast<const float4 *>(sb + o * K);
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q) {
-        const float4 u = wb[q];
-        acc[4 * q] = fmaf(u.x, b, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(u.y, b, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(u.z, b, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(u.w, b, acc[4 * q + 3]);
-      }
-    }
-    a = an;
-    b = bn;
-  }
+template <int K, int LM, bool MIP = false, bool CX = false>
+__device__ __forceinline__ void transpose(const float (&acc)[K], const float *__restrict__ xc, long long rows, int L,
+                                          const float *__restrict__ ew, float d[3], float *code = nullptr,
+                                          const float *__restrict__ vc = nullptr, float *dv = nullptr) {
   const int sbk = ceil8(3 * L);
   float cx[3], cv[3];
   if constexpr (CX) {
@@ -233,6 +263,56 @@ __device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__rest
     for (int j = 0; j < 8; ++j) code[j] = acc[KD + j];
 }
 
+// One branch for the calling thread's row in the f32 SIMT kernel: the f32
+// products of its O cotangent rows ga (and gb, TWO) with the slot weights
+// sa (and sb) [o][K], then `transpose` of their sums (its arguments as
+// there).
+template <class T, int K, int LM, bool TWO, bool MIP = false, bool CX = false>
+__device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
+                                       const float *sa, const float *sb, int O, const float *__restrict__ xc,
+                                       long long rows, int L, const float *__restrict__ ew, float d[3],
+                                       float *code = nullptr, const float *__restrict__ vc = nullptr,
+                                       float *dv = nullptr) {
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  float a = to_f(ga[0]), b = TWO ? to_f(gb[0]) : 0.f;
+  for (int o = 0; o < O; ++o) {
+    float an = 0.f, bn = 0.f;  // the next cotangent row, fetched ahead
+    if (o + 1 < O) {
+      ga += Rp;
+      an = to_f(*ga);
+      if (TWO) {
+        gb += Rp;
+        bn = to_f(*gb);
+      }
+    }
+    const float4 *wa = reinterpret_cast<const float4 *>(sa + o * K);
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const float4 u = wa[q];
+      acc[4 * q] = fmaf(u.x, a, acc[4 * q]);
+      acc[4 * q + 1] = fmaf(u.y, a, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(u.z, a, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(u.w, a, acc[4 * q + 3]);
+    }
+    if (TWO) {
+      const float4 *wb = reinterpret_cast<const float4 *>(sb + o * K);
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q) {
+        const float4 u = wb[q];
+        acc[4 * q] = fmaf(u.x, b, acc[4 * q]);
+        acc[4 * q + 1] = fmaf(u.y, b, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(u.z, b, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(u.w, b, acc[4 * q + 3]);
+      }
+    }
+    a = an;
+    b = bn;
+  }
+  transpose<K, LM, MIP, CX>(acc, xc, rows, L, ew, d, code, vc, dv);
+}
+
 // The transpose of contract_point with mip at the raw mean x[0..2] and
 // variances v[0..2] (JAX _input_grad_tile_mip :1034-1064): the cotangents
 // d of the contracted mean and dv of the contracted variances become, in
@@ -262,6 +342,45 @@ __device__ __forceinline__ void contract_transpose_mip(const float *x, const flo
     const float dvo = dv[k];
     d[k] = g * d[k] + (c * dot + tn + (4.f * g * c * v[k] + 2.f * c2 * S) * dvo + 2.f * c2 * v[k] * C) * x[k];
     dv[k] = (g * g + 2.f * g * c * m[k]) * dvo + c2 * m[k] * C;
+  }
+}
+
+// The bf16 kernel's posx transpose (the SIMT kernel runs the same steps
+// inline) for row `row` from its slot sums acc, into d (the
+// cotangent of x's rows 0..2, not stored here); under MIP it also stores dx
+// rows 11..13 (the variances') and the rows it leaves zero, 8..10, 14, 15;
+// CONTRACT: then the contraction's transpose at the raw row (under MIP the
+// warp's coupled transpose at the raw mean and variances).
+template <bool MIP, bool CONTRACT>
+__device__ __forceinline__ void posx_dx(const float (&acc)[KX], const float *__restrict__ x, long long rows,
+                                        long long row, int Lp, const float *__restrict__ wx, float d[3],
+                                        float *__restrict__ dx) {
+  if constexpr (MIP) {
+    float dv[3];
+    transpose<KX, LXM, true, CONTRACT>(acc, x + row, rows, Lp, nullptr, d, nullptr, x + 11 * rows + row, dv);
+    if constexpr (CONTRACT) {  // the warp's coupled transpose at the raw mean and variances
+      float xo[3], vo[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        xo[c] = x[c * rows + row];
+        vo[c] = x[(11 + c) * rows + row];
+      }
+      contract_transpose_mip(xo, vo, d, dv);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) dx[(11 + c) * rows + row] = dv[c];
+#pragma unroll
+    for (int j = 8; j < 11; ++j) dx[j * rows + row] = 0.f;
+    dx[14 * rows + row] = 0.f;
+    dx[15 * rows + row] = 0.f;
+  } else if constexpr (CONTRACT) {  // posx's transpose at the contracted row, then the contraction's
+    transpose<KX, LXM, false, true>(acc, x + row, rows, Lp, wx, d);
+    float xo[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) xo[c] = x[c * rows + row];
+    contract_transpose(xo, d);
+  } else {
+    transpose<KX, LXM>(acc, x + row, rows, Lp, wx, d);
   }
 }
 
@@ -332,32 +451,265 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ----------------------------------------------------------------------
+// The bf16 kernel's pieces (input_grad_mma).
+
+// d += a b: one mma.sync m16n8k16, bf16 operands, f32 accumulators (d0,
+// d1 at row lane/4, columns 2 (lane%4) + 0, 1; d2, d3 eight rows on).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Named barriers of the bf16 kernel (0 is __syncthreads'): the product
+// warps' ring, and for each buffer of slot sums "full" (the product warps
+// arrive, the transpose warps wait) and "empty" (the other way round).
+constexpr int BAR_RING = 1, BAR_FULL = 2, BAR_EMPTY = 4;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Byte offset of rows 8c .. 8c + 7 of feature f in a ring stage: a
+// feature's 128 rows are 256 bytes, chunk c sits at c ^ (f % 8).
+__device__ __forceinline__ int stage_at(int f, int c) { return f * 256 + ((c ^ (f & 7)) << 4); }
+// Byte offset of slots 8q .. 8q + 7 of weight line o: chunk q at q ^ (o % 8).
+__device__ __forceinline__ int wline_at(int o, int q) { return o * 128 + ((q ^ (o & 7)) << 4); }
+
+// Start the copies of ring chunk q of this block's walk into `stage` (by
+// the product warps), and commit them as one group (an empty one past the
+// last tile). A tile's chunks: g_h0's features in KC-feature chunks (cx
+// of them), g_h5's, g_hc's. Features past the plane's are zeroed (their
+// weights are zero too, but the products must not meet a stale NaN); rows
+// past Rp are not read.
+__device__ __forceinline__ void load_chunk(char *stage, long long q, int nch, int cx, long long ntiles,
+                                           const bf16 *g0, const bf16 *g5, const bf16 *gc, long long Rp, int H) {
+  const long long t = blockIdx.x + q / nch * gridDim.x;
+  if (t < ntiles) {
+    const int j = (int)(q % nch);
+    const bf16 *p = j < cx ? g0 : j < 2 * cx ? g5 : gc;
+    const int f0 = KC * (j < cx ? j : j < 2 * cx ? j - cx : j - 2 * cx), F = j < 2 * cx ? H : H / 2;
+    const int valid = F - f0 < KC ? F - f0 : KC;
+    const long long r0 = t * MT;
+    for (int u = threadIdx.x; u < KC * MT / 8; u += CTHREADS) {
+      const int f = u >> 4, c = u & 15;
+      char *dst = stage + stage_at(f, c);
+      if (f >= valid)
+        *reinterpret_cast<uint4 *>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else if (r0 + 8 * c < Rp)
+        cp_async16(dst, p + (long long)(f0 + f) * Rp + r0 + 8 * c);
+    }
+  }
+  cp_async_commit();
+}
+
+// acc[m][n] += this warp's 16 MM rows (MM m16 tiles) of a stage's first
+// `valid` features (A, feature-major: ldmatrix.trans) times weight lines
+// wl[0 .. valid) (B [o][slot], ldmatrix.trans), NT n8 tiles of slots.
+// FULL: all KC features, without a branch between the k16 steps.
+template <int NT, bool FULL>
+__device__ __forceinline__ void mma_steps(float (&acc)[MM][NT][4], const char *stage, const char *wl, int valid,
+                                          int warp, int lane) {
+  const int j = lane >> 3, i = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < KC / 16; ++ks) {
+    if (!FULL && 16 * ks >= valid) break;
+    uint32_t a[MM][4], b[NT][2];
+#pragma unroll
+    for (int m = 0; m < MM; ++m)  // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (0-7, 8-15), (8-15, 8-15)
+      bb::ldsm4t(stage + stage_at(16 * ks + 8 * (j >> 1) + i, 2 * (MM * warp + m) + (j & 1)), a[m][0], a[m][1],
+                 a[m][2], a[m][3]);
+    const char *w = wl + (16 * ks + 8 * (j & 1)) * 128;  // matrices (k 0-7, n), (k 8-15, n), then n + 8
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n)
+      bb::ldsm4t(w + wline_at(i, 2 * n + (j >> 1)), b[2 * n][0], b[2 * n][1], b[2 * n + 1][0], b[2 * n + 1][1]);
+    if constexpr (NT % 2) bb::ldsm2t(w + wline_at(i, NT - 1), b[NT - 1][0], b[NT - 1][1]);
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma16816(acc[m][n], a[m], b[n][0], b[n][1]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void mma_stage(float (&acc)[MM][NT][4], const char *stage, const char *wl, int valid,
+                                          int warp, int lane) {
+  if (valid >= KC)
+    mma_steps<NT, true>(acc, stage, wl, valid, warp, lane);
+  else
+    mma_steps<NT, false>(acc, stage, wl, valid, warp, lane);
+}
+
+// The warp's accumulators to the slot sums e[slot][row] (rows of the tile).
+template <int NT>
+__device__ __forceinline__ void store_sums(const float (&acc)[MM][NT][4], float *e, int warp, int lane) {
+  const int r = 16 * MM * warp + (lane >> 2), s = 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < MM; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float *p = e + (8 * n + s) * ESTR + r + 16 * m;
+      p[0] = acc[m][n][0];
+      p[ESTR] = acc[m][n][1];
+      p[8] = acc[m][n][2];
+      p[ESTR + 8] = acc[m][n][3];
+    }
+}
+
+// The bf16 kernel, as input_grad_kernel takes its arguments (KP, MIP,
+// CONTRACT as there). The CWARPS product warps stream the cotangents
+// through the ring and run the products of each tile: posx's sums to
+// buffer 0, posd's to buffer 1. The four warps after them run the
+// transpose from those sums, a thread a row, while the product warps go on
+// to the next tile's stages.
+template <int KP, bool MIP = false, bool CONTRACT = false>
+__global__ void __launch_bounds__(MTHREADS, 1)
+    input_grad_mma(const bf16 *__restrict__ g0, const bf16 *__restrict__ g5, const bf16 *__restrict__ gc,
+                   long long Rp, const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
+                   const bf16 *__restrict__ W1, const bf16 *__restrict__ Wsx, const bf16 *__restrict__ Wcd,
+                   const float *__restrict__ wx, const float *__restrict__ wd, float *__restrict__ dx) {
+  constexpr int ND = KP / 8;  // posd's n8 tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H2 = H / 2, cx = (H + KC - 1) / KC, cd = (H2 + KC - 1) / KC, nch = 2 * cx + cd, kd = ceil16(H2);
+  char *ring = reinterpret_cast<char *>(smem), *wpx = ring + NSTAGE * STAGE, *wpd = wpx + 2 * H * 128;
+  float *e = reinterpret_cast<float *>(wpd + kd * 128);  // the two buffers of slot sums
+  const long long ntiles = (rows + MT - 1) / MT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < CWARPS)
+    for (int s = 0; s < NSTAGE - 1; ++s) load_chunk(ring + s * STAGE, s, nch, cx, ntiles, g0, g5, gc, Rp, H);
+  {  // the weight lines, while the first stages load: W1^T then Wsx^T [o][slot], then Wcd^T
+    const int n = threadIdx.x & 63, k = column<LXM>(n, Lp);
+    const int kp = n < KD ? column<LDM>(n, Ld) : n < KP ? enc_rows(Ld) + n - KD : -1;
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int o = threadIdx.x >> 6; o < 2 * H; o += MTHREADS / 64)
+      *reinterpret_cast<bf16 *>(wpx + wline_at(o, n >> 3) + 2 * (n & 7)) =
+          k < 0 ? zero : o < H ? W1[o * FX + k] : Wsx[(o - H) * FX + k];
+    for (int o = threadIdx.x >> 6; o < kd; o += MTHREADS / 64)
+      *reinterpret_cast<bf16 *>(wpd + wline_at(o, n >> 3) + 2 * (n & 7)) =
+          kp < 0 || o >= H2 ? zero : Wcd[o * FD + kp];
+  }
+  __syncthreads();
+  if (warp < CWARPS) {
+    long long q = 0;  // the ring chunk this block reads next
+    auto stage = [&]() {  // wait for chunk q, refill the stage read before, return chunk q's stage
+      cp_async_wait<NSTAGE - 2>();
+      bar_sync(BAR_RING, CTHREADS);
+      load_chunk(ring + (q + NSTAGE - 1) % NSTAGE * STAGE, q + NSTAGE - 1, nch, cx, ntiles, g0, g5, gc, Rp, H);
+      return ring + q++ % NSTAGE * STAGE;
+    };
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const bool first = t == blockIdx.x;
+      {  // posx: g_h0 against W1^T, then g_h5 against Wsx^T, into one accumulator set
+        float acc[MM][8][4] = {};
+        for (int j = 0; j < 2 * cx; ++j) {
+          const int f0 = KC * (j < cx ? j : j - cx);
+          const char *s = stage();
+          mma_stage<8>(acc, s, wpx + (j < cx ? f0 : H + f0) * 128, H - f0, warp, lane);
+        }
+        if (!first) bar_sync(BAR_EMPTY, MTHREADS);
+        store_sums<8>(acc, e, warp, lane);
+        bar_arrive(BAR_FULL, MTHREADS);
+      }
+      {  // posd: g_hc against Wcd^T (and Wca^T in the code slots)
+        float acc[MM][ND][4] = {};
+        for (int j = 0; j < cd; ++j) {
+          const char *s = stage();
+          mma_stage<ND>(acc, s, wpd + KC * j * 128, H2 - KC * j, warp, lane);
+        }
+        if (!first) bar_sync(BAR_EMPTY + 1, MTHREADS);
+        store_sums<ND>(acc, e + SUMS, warp, lane);
+        bar_arrive(BAR_FULL + 1, MTHREADS);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+  const int r = 32 * (warp - CWARPS) + lane;  // this thread's row of a tile
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long row = t * MT + r;
+    const bool live = row < rows, more = t + gridDim.x < ntiles;
+    float d[3];
+    {
+      float sums[KX];
+      bar_sync(BAR_FULL, MTHREADS);
+#pragma unroll
+      for (int k = 0; k < KX; ++k) sums[k] = e[k * ESTR + r];
+      if (more) bar_arrive(BAR_EMPTY, MTHREADS);
+      if (live) {
+        posx_dx<MIP, CONTRACT>(sums, x, rows, row, Lp, wx, d, dx);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dx[c * rows + row] = d[c];
+      }
+    }
+    float sums[KP], code[8];
+    bar_sync(BAR_FULL + 1, MTHREADS);
+#pragma unroll
+    for (int k = 0; k < KP; ++k) sums[k] = e[SUMS + k * ESTR + r];
+    if (more) bar_arrive(BAR_EMPTY + 1, MTHREADS);
+    if (live) {
+      transpose<KP, LDM>(sums, x + 3 * rows + row, rows, Ld, wd, d, code);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dx[(3 + c) * rows + row] = d[c];
+      dx[6 * rows + row] = 0.f;
+      dx[7 * rows + row] = 0.f;
+      if constexpr (KP == KDA)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dx[(8 + j) * rows + row] = code[j];
+    }
+  }
+}
+
+// Start kernel `k` on `threads`-thread blocks with `smem` bytes, a block
+// an SM at most, one for every `per_block` rows.
+template <class K, class T>
+int start(K k, int threads, long long per_block, long long smem, cudaStream_t stream, const T *g0, const T *g5,
+          const T *gc, long long Rp, const float *x, long long rows, int Lp, int Ld, int H, int FX, int FD,
+          const Weights &w, const float *wx, const float *wd, float *dx) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  const unsigned grid = (unsigned)(blocks < sms ? blocks : sms);
+  k<<<grid, threads, smem, stream>>>(g0, g5, gc, Rp, x, rows, Lp, Ld, H, FX, FD, static_cast<const T *>(w.W1),
+                                     static_cast<const T *>(w.Wsx), static_cast<const T *>(w.Wcd), wx, wd, dx);
+  return (int)cudaGetLastError();
+}
+
 // CONTRACT: a contracted model's instantiations (and no other is built).
+// bf16 launches the mma kernel, f32 the SIMT one.
 template <class T, bool CONTRACT = false>
 int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, int H, const Weights &w,
              const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app, bool mip) {
   const Layout L = make_layout(rows, Lp, Ld, H, app);
-  const long long es = sizeof(T), smem = smem_bytes(H, app);
-  decltype(&input_grad_kernel<T, KD>) kernel;
-  if constexpr (CONTRACT)
-    kernel = mip   ? input_grad_kernel<T, KD, true, true>
-             : app ? input_grad_kernel<T, KDA, false, true>
-                   : input_grad_kernel<T, KD, false, true>;
-  else
-    kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (rows + THREADS - 1) / THREADS;
-  const unsigned grid = (unsigned)(blocks < sms ? blocks : sms);
+  const long long es = sizeof(T);
   auto plane = [&](int f) { return reinterpret_cast<const T *>(gws + es * f * L.Rp); };
-  kernel<<<grid, THREADS, smem, stream>>>(
-      plane(L.gh(0)), plane(L.gh(5)), plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD,
-      static_cast<const T *>(w.W1), static_cast<const T *>(w.Wsx), static_cast<const T *>(w.Wcd), wx, wd, dx);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (reinterpret_cast<uintptr_t>(gws) % 16) return (int)cudaErrorInvalidValue;  // the 16-byte copies
+    decltype(&input_grad_mma<KD>) kernel;
+    if constexpr (CONTRACT)
+      kernel = mip ? input_grad_mma<KD, true, true> : app ? input_grad_mma<KDA, false, true>
+                                                          : input_grad_mma<KD, false, true>;
+    else
+      kernel = mip ? input_grad_mma<KD, true> : app ? input_grad_mma<KDA> : input_grad_mma<KD>;
+    return start(kernel, MTHREADS, MT, smem_bytes(H, app, true), stream, plane(L.gh(0)), plane(L.gh(5)),
+                 plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD, w, wx, wd, dx);
+  } else {
+    decltype(&input_grad_kernel<T, KD>) kernel;
+    if constexpr (CONTRACT)
+      kernel = mip   ? input_grad_kernel<T, KD, true, true>
+               : app ? input_grad_kernel<T, KDA, false, true>
+                     : input_grad_kernel<T, KD, false, true>;
+    else
+      kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
+    return start(kernel, THREADS, THREADS, smem_bytes(H, app), stream, plane(L.gh(0)), plane(L.gh(5)),
+                 plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD, w, wx, wd, dx);
+  }
 }
 
 #ifdef CONTRACT_LIBRARY

@@ -4,6 +4,7 @@ version ``input_grad_plain`` and beside a library yardstick.
 
     python -m nerf_simple_tpu_torch.probes.input_grad
     python -m nerf_simple_tpu_torch.probes.input_grad --device cpu   # smoke test
+    python -m nerf_simple_tpu_torch.probes.input_grad --before CSRC [CSRC ...]
 
 For the flagship ``NerfMLP(Lp=10, Ld=4, H=256)`` at 524,288 rows (a
 4096-ray x 128-sample batch), from numpy seed 0: the workspace's
@@ -15,13 +16,25 @@ uniform in [-4, 4] and a unit direction; random weights
 windows off and at alpha 0.3 it runs the kernel and the plain version,
 compares ``dx`` (max abs error over max |dx|) and times them: CUDA events
 around CALLS calls back to back, the median of 5 in turns kernel / plain /
-library / library / plain / kernel ...
+library / library / plain / kernel ...; the kernel straight through ctypes
+(``kernel_call``), so that the wrapper's host work, of the bf16 kernel's
+order, is not timed with it.
 
 What the kernel must move and compute (the bound) is
 ``utils/roofline.py::input_grad_work``: 640 plane rows a row in the
 compute type, x and dx, and 71,424 flop a row at the flagship; bf16 is
 then bound by its bytes (0.21 ms), f32 by its operations at 67 TFLOP/s
-(0.56 ms).
+(0.56 ms). The f32 kernel runs its products on the FMA pipes (SIMT, a
+thread a row); the bf16 one on the tensor cores (mma.sync), so that only
+its bytes bound it.
+
+``before_after`` holds the kernel of an earlier commit's csrc/ against the
+current one for every instantiation (``INSTANCES``): f32 bit-equal, bf16
+within MIP_CONTRACT_TOL, and the bf16 launches of both in turns. With
+``--before`` the probe builds the ``fused_mlp_bwd`` and ``fused_contract``
+sources of each csrc/ directory given (an earlier commit's, or a copy with
+a constant changed, under a gitignored ``build/``) and runs
+``before_after`` on each, in place of the runs above.
 
 The library yardstick (``library``, timed here and used nowhere in the
 package): ``torch.mm`` in the compute type for the three products, added
@@ -137,6 +150,37 @@ def inputs(model: NerfMLP, rows: int, device, seed: int = 0, mip: bool = False):
         x[11:14] = 10.0 ** rng.uniform(-6, -2, (3, rows))
     wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(seed, model), device, model))
     return wts, gws, torch.from_numpy(x).to(device)
+
+
+def kernel_call(w, x, gws, dt, model: NerfMLP, enc_w: tuple | None = None, mip: bool = False, lib=None):
+    """A callable that launches the kernel as ``mlp.input_grad(w, x, gws,
+    dt, model, enc_w, mip)`` does, straight through ctypes with its
+    arguments made once and one dx for every call, and returns that dx: a
+    timing of calls back to back then holds the kernel and none of the
+    wrapper's host work (its checks and allocation), which is of the bf16
+    kernel's order. ``lib``: an
+    earlier commit's libraries (``{"fused_mlp_bwd": ..., "fused_contract":
+    ...}``, their input-gradient entries bound) instead of the current
+    ones; without it the wrapper runs once first (its checks, the contract
+    library's link). The wrapper counts none of these launches; the
+    library does."""
+    if lib is None:
+        mlp.input_grad(w, x, gws, dt, model, enc_w, mip)
+        entry = mlp._lib("fused_mlp_bwd").input_grad
+    else:
+        entry = lib["fused_contract"].fused_contract_input_grad if model.contract else lib["fused_mlp_bwd"].input_grad
+    wx, wd = mlp._enc_w_ptrs(enc_w, model, x.device, mip)
+    dx = torch.empty((mlp._x_rows(mip, model), x.shape[1]), dtype=torch.float32, device=x.device)
+    args = (gws.data_ptr(), x.data_ptr(), x.shape[1], model.Lp, model.Ld, model.H, int(dt == torch.bfloat16),
+            mlp._CPtrs(*mlp._ptrs(w)), wx, wd, dx.data_ptr(), mlp._app(model), int(mip))
+    args += (mlp._stream(x),) if lib is not None and model.contract else (int(model.contract), mlp._stream(x))
+
+    def call() -> torch.Tensor:
+        mlp._raise_on(entry(*args), "input_grad")
+        return dx
+
+    call.keep = (w, x, gws, enc_w)  # alive while the callable is
+    return call
 
 
 def library(wts, x, gws, dt, model: NerfMLP, mip: bool = False) -> torch.Tensor:
@@ -319,10 +363,10 @@ def run(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
                                    f"{out[name + case].get('code_rel_err')}) > {REL_TOL[dt]:.0e}, or rows 6..7 not "
                                    "zero")
             del got, want
-        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, model),
+        ms = turns_ms({"kernel": kernel_call(w, x, gws, dt, model),
                        "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, model),
                        "library": lambda: library(w, x, gws, dt, model)}, calls=CALLS)
-        ms_anneal = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, model, enc_w)}, calls=CALLS)["kernel"]
+        ms_anneal = turns_ms({"kernel": kernel_call(w, x, gws, dt, model, enc_w)}, calls=CALLS)["kernel"]
         flops, nbytes = input_grad_work(model, rows, dt)
         b = bound_ms(flops, nbytes, dt)
         out[name].update(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"], ms_anneal=ms_anneal,
@@ -371,8 +415,8 @@ def run_mip(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dict:
         if (err > REL_TOL[dt] or not st["zero_rows_zero"] or launches != (1, 1)
                 or min(fault_err.values()) <= REL_TOL[dt]):
             raise RuntimeError(f"{name} mip input gradient: {st}")
-        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, model, mip=True),
-                       "point": lambda: mlp.input_grad(w, x8, gws, dt, model),
+        ms = turns_ms({"kernel": kernel_call(w, x, gws, dt, model, mip=True),
+                       "point": kernel_call(w, x8, gws, dt, model),
                        "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, model, mip=True),
                        "library": lambda: library(w, x, gws, dt, model, mip=True)}, calls=CALLS)
         flops, nbytes = input_grad_work(model, rows, dt, mip=True)
@@ -423,8 +467,8 @@ def run_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS) -> dic
         if (err > REL_TOL[dt] or not st["rows_6_7_zero"] or not st["inside_bit_equal"] or launches != (1, 1)
                 or min(fault_err.values()) <= REL_TOL[dt]):
             raise RuntimeError(f"{name} contract input gradient: {st}")
-        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, cm),
-                       "point": lambda: mlp.input_grad(w, x, gws, dt, pm),
+        ms = turns_ms({"kernel": kernel_call(w, x, gws, dt, cm),
+                       "point": kernel_call(w, x, gws, dt, pm),
                        "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, cm),
                        "library": lambda: library(w, x, gws, dt, cm)}, calls=CALLS)
         flops, nbytes = input_grad_work(cm, rows, dt)
@@ -482,8 +526,8 @@ def run_mip_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS, x:
         if (err > MIP_CONTRACT_TOL or not st["zero_rows_zero"] or not st["inside_bit_equal"]
                 or launches != (1, 1, 1, 1) or min(fault_err.values()) <= MIP_CONTRACT_TOL):
             raise RuntimeError(f"{name} mip + contract input gradient: {st}")
-        ms = turns_ms({"kernel": lambda: mlp.input_grad(w, x, gws, dt, cm, mip=True),
-                       "mip": lambda: mlp.input_grad(w, x, gws, dt, pm, mip=True),
+        ms = turns_ms({"kernel": kernel_call(w, x, gws, dt, cm, mip=True),
+                       "mip": kernel_call(w, x, gws, dt, pm, mip=True),
                        "plain": lambda: mlp.input_grad_plain(w, x, gws, dt, cm, mip=True),
                        "library": lambda: library(w, x, gws, dt, cm, mip=True)}, calls=CALLS)
         flops, nbytes = input_grad_work(cm, rows, dt, mip=True)
@@ -497,13 +541,84 @@ def run_mip_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS, x:
     return out
 
 
+# The kernel's instantiations by case: (app_dim, mip, contract). The
+# contract ones are built into csrc/fused_contract.cu's library.
+INSTANCES = {"point": (0, False, False), "codes": (8, False, False), "mip": (0, True, False),
+             "contract": (0, False, True), "contract_codes": (8, False, True), "mip_contract": (0, True, True)}
+
+
+def before_after(device, libs: dict, rows: int = ROWS, model: NerfMLP = mlp.FLAGSHIP) -> dict:
+    """On the card, for each instantiation (INSTANCES) on the probe's inputs
+    at ``rows``: an earlier commit's kernel (``libs``: its ``fused_mlp_bwd``
+    and ``fused_contract`` libraries, built from its csrc/) against the
+    current one. f32 dx must be bit-equal; bf16 within MIP_CONTRACT_TOL by
+    row group (``row_err``: both sum the same bf16 products in f32, in
+    another order). Then the bf16 launches of both in turns (earlier,
+    current, current, earlier, ...; CALLS calls back to back a timing) and
+    the torch.mm yardstick, with the bound and each kernel's share of it.
+    Raises if a check fails."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {"fused_mlp_bwd": mlp._bind(libs["fused_mlp_bwd"], "fused_mlp_bwd", ("input_grad",)),
+            "fused_contract": mlp._bind(libs["fused_contract"], "fused_contract", ("fused_contract_input_grad",))}
+    out = {"rows": rows}
+    for case, (app_dim, mip, contract) in INSTANCES.items():
+        m = dataclasses.replace(model, app_dim=app_dim, contract=contract)
+        wts, gws32, x = inputs(m, rows, device, mip=mip)
+        st = {}
+        for dt in (torch.float32, torch.bfloat16):
+            w = mlp._cast_weights(wts, dt)
+            gws = gws32 if dt == torch.float32 else gws32.to(dt)
+            cur = mlp.input_grad(w, x, gws, dt, m, mip=mip)
+            old = kernel_call(w, x, gws, dt, m, mip=mip, lib=libs)()
+            if dt == torch.float32:
+                st["f32_bit_equal"] = torch.equal(cur, old)
+                del gws
+                continue
+            st["bf16_err"] = row_err(cur, old, mip).max().item()
+            st["bf16_twice_bit_equal"] = torch.equal(cur, mlp.input_grad(w, x, gws, dt, m, mip=mip))
+            del cur, old
+            ms = turns_ms({"earlier": kernel_call(w, x, gws, dt, m, mip=mip, lib=libs),
+                           "current": kernel_call(w, x, gws, dt, m, mip=mip),
+                           "library": lambda: library(w, x, gws, dt, m, mip)}, calls=CALLS)
+            flops, nbytes = input_grad_work(m, rows, dt, mip=mip)
+            b = bound_ms(flops, nbytes, dt)
+            st.update(ms=ms["current"], earlier_ms=ms["earlier"], library_ms=ms["library"], bound_ms=b,
+                      bound_by=bound_by(flops, nbytes, dt), share_of_bound=b / ms["current"],
+                      earlier_share_of_bound=b / ms["earlier"], gb_s=nbytes / (ms["current"] * 1e-3) / 1e9)
+            del gws
+        out[case] = st
+        del wts, gws32, x
+        torch.cuda.empty_cache()
+        if not (st["f32_bit_equal"] and st["bf16_twice_bit_equal"] and st["bf16_err"] <= MIP_CONTRACT_TOL):
+            raise RuntimeError(f"{case} input gradient against the earlier kernel: {st}")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="the input-gradient kernel alone")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu for a smoke test")
+    ap.add_argument("--before", nargs="+", metavar="CSRC", help="csrc/ directories of an earlier commit or of "
+                    "variants: each one's kernel beside the current one, every instantiation in turns")
     args = ap.parse_args(argv)
     from nerf_simple_tpu_torch.utils.device import require_device
 
     device = require_device(args.device)
+    if args.before:
+        if device.type != "cuda":
+            raise RuntimeError("--before builds and times kernels: it runs on the card only")
+        from nerf_simple_tpu_torch.kernels import _build
+
+        _build.build("fused_mlp_bwd", "fused_contract")
+        copies = _build.build_copies(args.before, ["fused_mlp_bwd", "fused_contract"])
+        out = {d: before_after(device, copies[d]) for d in args.before}
+        print(f"{torch.cuda.get_device_name(device)}: bf16 input gradient at {ROWS} rows, each copy and the "
+              "current kernel in turns")
+        for d, ba in out.items():
+            print(f"{d}: " + "; ".join(f"{case} {v['earlier_ms']:.3f} -> {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, "
+                                       f"torch.mm yardstick {v['library_ms']:.3f}; dx {v['bf16_err']:.1e} apart)"
+                                       for case, v in ba.items() if case != "rows"))
+        print(json.dumps(out))
+        return
     if device.type == "cpu":
         model = mlp.FLAGSHIP
         wts, gws, x = inputs(model, 256, device)

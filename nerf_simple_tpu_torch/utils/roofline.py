@@ -34,7 +34,8 @@ def input_grad_work(model, rows: int, dtype, mip: bool = False) -> tuple[float, 
     as is a contracted model's contraction and its transpose: tens of flop a
     row against ~84,000).
     At the flagship, 524,288 rows: bf16 bound by its bytes (0.21 ms; 0.22
-    under mip), f32 by its operations (0.56 ms)."""
+    under mip: the kernel runs its bf16 products on the tensor cores), f32
+    by its operations (0.56 ms: the SIMT kernel's FMA pipes)."""
     H, H2 = model.H, model.H // 2
     nx, nd = 3 + 6 * model.Lp, 3 + 6 * model.Ld + model.app_dim
     es = torch.finfo(dtype).bits // 8

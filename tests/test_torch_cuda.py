@@ -912,6 +912,12 @@ DX_ROW_SHARE = {torch.float32: 1e-4, torch.bfloat16: 3e-3}
 POSE_CASES = [(NerfMLP(Lp=4, Ld=2, H=32), 1000), (NerfMLP(Lp=3, Ld=1, H=48), 65), (NerfMLP(), 4096 + 17),
               (NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)]
 POSE_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged", "flagship-63", "H64-1"]
+# Row counts around the bf16 input-gradient kernel's 128-row tile (with
+# POSE_CASES' 63 and 4,113): a partial tile, a whole 64-row plane unit, one
+# past it, a tile less one, a tile and one.
+TILE_ROWS = (1, 64, 65, 127, 129)
+TILE_CASES = [(NerfMLP(), r) for r in TILE_ROWS]
+TILE_IDS = [f"flagship-{r}" for r in TILE_ROWS]
 
 
 def _dx_err(got, want):
@@ -948,13 +954,14 @@ def test_forward_anneal_matches_plain(dev, model, rows, alpha, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("windows", [False, True], ids=["no-windows", "a0.3"])
-@pytest.mark.parametrize("model, rows", POSE_CASES, ids=POSE_IDS)
+@pytest.mark.parametrize("model, rows", POSE_CASES + TILE_CASES, ids=POSE_IDS + TILE_IDS)
 def test_input_grad_kernel_matches_plain(dev, model, rows, windows, dtype):
     """The input-gradient kernel alone (``input_grad``) against
     ``input_grad_plain`` on the backward tile kernel's cotangent planes of
     random output cotangents, at ragged row counts (rows not a multiple of
-    64, one row): ``dx`` within DX_TOL of max |dx|, rows 6..7 zero, the
-    launch counted by the wrapper and in C."""
+    64, one row, around the bf16 kernel's 128-row tile): ``dx`` within
+    DX_TOL of max |dx|, rows 6..7 zero, the launch counted by the wrapper
+    and in C; a second launch gives the same bits."""
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
     x = _xT(rows, dev, seed=6)
     enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
@@ -968,6 +975,7 @@ def test_input_grad_kernel_matches_plain(dev, model, rows, windows, dtype):
     want = mlp.input_grad_plain(wts, x, gws, dtype, model, enc_w)
     assert got.shape == (8, rows) and bool(torch.isfinite(got).all()) and bool((got[6:] == 0).all())
     assert _dx_err(got, want) <= DX_TOL[dtype]
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, model, enc_w))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1195,13 +1203,15 @@ def test_backward_with_codes_matches_plain(dev, model, rows, windows, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("model, rows", APP_CASES, ids=APP_IDS)
+@pytest.mark.parametrize("model, rows", APP_CASES + [(NerfMLP(app_dim=8), r) for r in (63,) + TILE_ROWS],
+                         ids=APP_IDS + [f"flagship-{r}" for r in (63,) + TILE_ROWS])
 def test_input_grad_kernel_with_codes_matches_plain(dev, model, rows, dtype):
     """The input-gradient kernel alone on an appearance model's planes
     against ``input_grad_plain``: dx (16 rows) within DX_TOL of max |dx|,
     the code rows within DX_TOL of their own largest entry, rows 6..7
     zero, counted in ``input_grad.app_launches``; its rows 0..5 bit-equal
-    to the kernel's on the same planes laid out without the code rows."""
+    to the kernel's on the same planes laid out without the code rows; a
+    second launch gives the same bits."""
     import dataclasses
 
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev, model)),
@@ -1218,6 +1228,7 @@ def test_input_grad_kernel_with_codes_matches_plain(dev, model, rows, dtype):
     assert got.shape == (16, rows) and bool(torch.isfinite(got).all()) and bool((got[6:8] == 0).all())
     assert _dx_err(got, want) <= DX_TOL[dtype]
     assert _dx_err(got[8:], want[8:]) <= DX_TOL[dtype]
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, model))
     plain_model = dataclasses.replace(model, app_dim=0)
     FD0 = mlp._enc_rows(model.Ld)
     w0 = wts._replace(Wcd=wts.Wcd[:, :FD0].contiguous())
@@ -1290,7 +1301,7 @@ MIP_ZERO_ROWS = list(ig_probe.MIP_ZERO_ROWS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("model, rows", POSE_CASES, ids=POSE_IDS)
+@pytest.mark.parametrize("model, rows", POSE_CASES + TILE_CASES, ids=POSE_IDS + TILE_IDS)
 def test_input_grad_kernel_mip_matches_plain(dev, model, rows, dtype):
     """The input-gradient kernel's mip instantiation alone (``input_grad(mip=
     True)``) against ``input_grad_plain(mip=True)`` on the backward tile
@@ -1298,8 +1309,9 @@ def test_input_grad_kernel_mip_matches_plain(dev, model, rows, dtype):
     variances) within DX_TOL of its own largest entry, the rows JAX leaves
     zero exactly zero; two planted faults (the damp dropped, the variance
     rows halved) lie past DX_TOL by the same measure; the launch counted by
-    the wrapper and in C. At zero variance its rows 0..5 are the point
-    launch's on the same planes bit for bit (damp exactly 1)."""
+    the wrapper and in C; a second launch gives the same bits. At zero
+    variance its rows 0..5 are the point launch's on the same planes bit for
+    bit (damp exactly 1)."""
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
     x = _x16_pose_mip(rows, dev, seed=6)
     g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
@@ -1314,6 +1326,7 @@ def test_input_grad_kernel_mip_matches_plain(dev, model, rows, dtype):
     want = mlp.input_grad_plain(wts, x, gws, dtype, model, mip=True)
     assert got.shape == (16, rows) and bool(torch.isfinite(got).all()) and bool((got[MIP_ZERO_ROWS] == 0).all())
     assert ig_probe.row_err(got, want, mip=True).max().item() <= DX_TOL[dtype]
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, model, mip=True))
     x0 = x.clone()
     x0[11:14] = 0.0
     bad = {"damp_dropped": mlp.input_grad_plain(wts, x0, gws, dtype, model, mip=True), "variance_rows_half": want.clone()}
@@ -1691,16 +1704,17 @@ def _x_mip_contract(rows, dev, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("model, rows", CONTRACT_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)],
-                         ids=CONTRACT_IDS + ["flagship-63", "H64-1"])
+@pytest.mark.parametrize("model, rows", CONTRACT_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)] + TILE_CASES,
+                         ids=CONTRACT_IDS + ["flagship-63", "H64-1"] + TILE_IDS)
 def test_input_grad_kernel_mip_contract_matches_plain(dev, model, rows, dtype):
     """The input-gradient kernel's ``MIP && CONTRACT`` instantiation alone
     (``input_grad`` of a contracted model under mip, csrc/fused_contract.cu)
     on the backward tile kernel's planes against ``input_grad_plain``: dx
     within DX_TOL by row group (the mean, direction and variance rows),
     the rows JAX leaves zero exactly zero; counted by the wrapper and in C
-    (B2's library's mip count stays); at the rows inside the ball bit-equal
-    to the ``MIP`` kernel on the same planes; the three planted faults
+    (B2's library's mip count stays); a second launch gives the same bits;
+    at the rows inside the ball bit-equal to the ``MIP`` kernel on the same
+    planes; the three planted faults
     (the coupled transpose's ``term_n`` dropped, its rank-one coupling
     dropped, the angles and damps uncontracted) past DX_TOL."""
     cm = _contracted(model)
@@ -1720,6 +1734,7 @@ def test_input_grad_kernel_mip_contract_matches_plain(dev, model, rows, dtype):
     assert got.shape == (16, rows) and bool(torch.isfinite(got).all())
     assert bool((got[list(ig_probe.MIP_ZERO_ROWS)] == 0).all())
     assert ig_probe.row_err(got, want, mip=True).max().item() <= DX_TOL[dtype]
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, cm, mip=True))
     unc = mlp.input_grad(wts, x, gws, dtype, model, mip=True)
     assert torch.equal(got[:, inside], unc[:, inside])
     if rows > 1:
@@ -1983,15 +1998,16 @@ def test_forward_contract_with_windows_and_codes_matches_plain(dev, model, rows,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", list(CPOSE_KINDS))
-@pytest.mark.parametrize("model, rows", CPOSE_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)],
-                         ids=CPOSE_IDS + ["flagship-63", "H64-1"])
+@pytest.mark.parametrize("model, rows", CPOSE_CASES + [(NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)] + TILE_CASES,
+                         ids=CPOSE_IDS + ["flagship-63", "H64-1"] + TILE_IDS)
 def test_input_grad_kernel_contract_matches_plain(dev, model, rows, kind, dtype):
     """The input-gradient kernel's contract instantiation alone
     (``input_grad`` of a contracted model, csrc/fused_contract.cu) on the
     backward tile kernel's planes against ``input_grad_plain``: dx within
     DX_TOL by row group (``row_err``), rows 6..7 zero; counted by the
     wrapper and in the contract library's C count (B2's library's stays);
-    at the rows inside the ball bit-equal to the kernel without contract
+    a second launch gives the same bits; at the rows inside the ball
+    bit-equal to the kernel without contract
     on the same planes (its angles are the forward's own contracted
     coordinates; inside the ball they are x); the two planted faults of the
     contraction past DX_TOL."""
@@ -2008,6 +2024,7 @@ def test_input_grad_kernel_contract_matches_plain(dev, model, rows, kind, dtype)
     want = mlp.input_grad_plain(wts, x, gws, dtype, cm, enc_w)
     assert got.shape == x.shape and bool(torch.isfinite(got).all()) and bool((got[6:8] == 0).all())
     assert ig_probe.row_err(got, want).max().item() <= DX_TOL[dtype]
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, cm, enc_w))
     unc = mlp.input_grad(wts, x, gws, dtype, _uncontracted(cm), enc_w)
     assert torch.equal(got[:, inside], unc[:, inside])
     if rows > 1:
