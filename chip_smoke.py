@@ -88,11 +88,11 @@ NerfMLP(Lp=10, Ld=4, H=256):
    (524,288 rows) and the hierarchical fine pass (1,048,576 rows): loss
    and gradients to B1's bounds, B1 with and without the rail in turns,
    ``composite_grad``'s profiled ms with and without it beside its bound
-   and its plain version; (b) trains 300 bf16 steps through ``train()``
+   and its plain version; (b) trains 200 bf16 steps through ``train()``
    with each regulariser: lego.yaml's keys + ``distortion_loss_weight``
    (the fused step, one B1 launch a step, each with the rail; the trained
-   field's distortion below phase 7's field's, trained without it at the
-   same steps and seed), + ``depth_loss_weight`` (autograd through the
+   field's distortion below that of phase 7's checkpoint at step 200,
+   trained without it from the same seed), + ``depth_loss_weight`` (autograd through the
    forward kernel and B2; depth RMSE of a train view against the scene's
    metric depth falls), + ``sigma_noise`` (the same path), and
    lego_hierarchical.yaml's keys + ``distortion_loss_weight`` (the fine
@@ -260,7 +260,17 @@ NerfMLP(Lp=10, Ld=4, H=256):
    pose step's wall and profile; (d) 20 steps each of pose + mip + contract
    (lego_mip.yaml's keys) and of pose + mip x proposal (lego_proposal.yaml's
    keys + mip, on the phase-7 scene);
-19. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+19. multiscale training and the data options, on the phase-7 scene: (a)
+   B1's cone-cast launch on a 524,288-row batch drawn from the scene's
+   4-scale pyramid (each ray's own cone, its area weight on row 14)
+   against plain, f32 and bf16; with row 14 at 1 and at twice the
+   weights; (b) configs/lego_mip.yaml + mip_multiscale, 100 steps (two
+   cone-cast B1 launches a step, counted in C), the loss falls; the
+   step's wall, host time, profile and idle share; test image 0 at 1,
+   1/2, 1/4 and 1/8 against block-mean gt beside phase 12's single-scale
+   model; 20 steps of mip x proposal + multiscale; (c) 20 steps each on a
+   tiny_nerf npz and on the hard scene;
+20. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -278,6 +288,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import functools
 import glob
 import io
 import json
@@ -343,8 +354,10 @@ NC, NF = 64, 192  # configs/lego_hierarchical.yaml: coarse samples, importance s
 HIER_LOSS_RTOL, BIN_FLIP_SHARE = 1e-4, 1e-3
 # The regularisers: the distortion weight of configs/colmap360.yaml (the
 # JAX package's 360 recipe); the original NeRF's sigma noise std (1.0); a
-# depth weight of the JAX package's tests; steps of each training run.
-DIST_LAMBDA, SIGMA_NOISE, DEPTH_WEIGHT, REG_ITERS = 0.01, 1.0, 0.1, 300
+# depth weight of the JAX package's tests; steps of each training run (cut
+# from 300 to 200 to pay for phase 19; phase 7's run checkpoints at step
+# 200, the field the distortion run is held against).
+DIST_LAMBDA, SIGMA_NOISE, DEPTH_WEIGHT, REG_ITERS = 0.01, 1.0, 0.1, 200
 # configs/lego_proposal.yaml: proposal probes a ray (Nf = N_SAMPLES main
 # samples). Its f32 fused and autograd steps from one state: JAX's rule
 # (tests/test_proposal.py, test_proposal_fused_matches_xla): loss rtol
@@ -1797,7 +1810,7 @@ def phase_reg_train(dev, scene, work, mlp):
             check(launches["fused_train_step"] == REG_ITERS and launches["dist_rail"] == REG_ITERS,
                   "distortion: one B1 launch a step, each with the rail")
             plain = NerfField.from_jax_params(
-                load_params(os.path.join(work, "models", "lego", f"params_{REG_ITERS}.npz")), dev)
+                load_params(os.path.join(work, "models", "lego", f"ckpt_{REG_ITERS}.pth")), dev)
             st["probe_distortion"], st["probe_distortion_without"] = (probe_distortion(state.field, probe, dev),
                                                                       probe_distortion(plain, probe, dev))
             check(st["probe_distortion"] < st["probe_distortion_without"],
@@ -5242,6 +5255,285 @@ def phase_mip360_pose(dev, scene, pert, work, mlp) -> dict:
     return out
 
 
+# Multiscale training (mip-NeRF sec. 4; configs/lego_mip.yaml + mip_multiscale): the run's steps on phase 7's
+# scene's pyramid, cut from lego's 10,000 as phase 12's mip run; mip x proposal on the pyramid and each data
+# option (a tiny_nerf npz, the hard scene) train DATA_ITERS steps: enough to show the path runs on the card and the
+# loss moves, not to converge.
+MS_ITERS, DATA_ITERS = 100, 20
+
+
+def phase_multiscale_kernels(dev, scene, mlp) -> dict:
+    """19a. B1's cone-cast launch on one training batch drawn from the
+    pyramid of phase 7's scene (``multiscale_train_arrays``: 25 views at
+    400x400, 200x200, 100x100 and 50x50; 4096 rays, every scale present,
+    x N_SAMPLES intervals, 524,288 rows; each ray's own cone in rows
+    11..13, its area weight on row 14), the flagship from
+    ``derive_seed(SEED, 0)``, f32 and bf16, against its plain version
+    (loss and gradients to B1's bounds); the same batch with row 14 at 1
+    (the loss the weights change), and at twice the weights (the loss and
+    each gradient twice theirs, to B1's bounds): the weight reaches the
+    loss. ms of each (CUDA events, median of 5) and the plain version's."""
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import MULTISCALE_SCALES, multiscale_train_arrays, sample_ray_batch
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.ops.sampling import stratified_ts
+    from nerf_simple_tpu_torch.render.renderer import derive_seed
+    from nerf_simple_tpu_torch.train.step import build_x16_mip
+
+    model = NerfMLP()
+    radius = mip_radius(scene_focal(scene))
+    t0 = time.perf_counter()
+    rays, pixels = multiscale_train_arrays(load_blender(scene, True, 25), radius, dev)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 19)
+    rays_b, pix_b = sample_ray_batch(g, rays, pixels, BATCH)
+    scale = torch.round(rays_b[:, 6] / radius).to(torch.int64)
+    per_scale = {s: int((scale == s).sum()) for s in MULTISCALE_SCALES}
+    check(rays.shape[1] == 8 and min(per_scale.values()) > 0 and sum(per_scale.values()) == BATCH,
+          "the batch draws 8-column rays of every scale")
+    edges = stratified_ts(g, BATCH, N_SAMPLES + 1, 2.0, 6.0, dev)
+    x16 = build_x16_mip(rays_b, edges, pix_b, radius)
+    scalar = build_x16_mip(rays_b[:, :6], edges, pix_b, radius)
+    check(torch.equal(x16[:11], scalar[:11]) and not torch.equal(x16[11:14], scalar[11:14]),
+          "rows 11..13 carry each ray's own cone")
+    check(float(x16[14].min()) < 1.0 < float(x16[14].max()), "row 14 carries the area weights")
+    del scalar
+    x_one, x_two = x16.clone(), x16.clone()
+    x_one[14] = 1.0
+    x_two[14] *= 2.0
+    packed = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(derive_seed(SEED, 0), model), dev))
+    stats = dict(rows=x16.shape[1], pool_rays=rays.shape[0], per_scale=per_scale, pool_s=pool_s)
+    del rays, pixels
+    b1, plain = mlp.fused_train_step, mlp.fused_train_step_plain
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            name = "f32" if dt == torch.float32 else "bf16"
+            w = mlp._cast_weights(packed, dt)
+            before = (b1.launches, b1.mip_launches)
+            out = b1(w, x16, N_SAMPLES, dt, model, mip=True)
+            torch.cuda.synchronize()
+            launched = (b1.launches - before[0], b1.mip_launches - before[1])
+            want = plain(w, x16, N_SAMPLES, dt, model, mip=True)
+            check(all(bool(torch.isfinite(t).all()) for t in out[1]), f"B1 multiscale {name} finite")
+            rel, abs_err = grad_errors(out[1], want[1])
+            loss_err = abs(out[0].item() / want[0].item() - 1)
+            one, one_p = b1(w, x_one, N_SAMPLES, dt, model, mip=True), plain(w, x_one, N_SAMPLES, dt, model, mip=True)
+            rel_one = grad_errors(one[1], one_p[1])[0]
+            loss_one_err = abs(one[0].item() / one_p[0].item() - 1)
+            two = b1(w, x_two, N_SAMPLES, dt, model, mip=True)
+            two_loss_err = abs(two[0].item() / (2 * out[0].item()) - 1)
+            two_rel = grad_errors(two[1], [2 * t for t in out[1]])[0]
+            st = dict(err=abs_err, rel=rel, loss_err=loss_err, loss=out[0].item(), loss_plain=want[0].item(),
+                      loss_one=one[0].item(), loss_one_plain=one_p[0].item(), rel_one=rel_one,
+                      loss_one_err=loss_one_err, two_loss_err=two_loss_err, two_rel=two_rel,
+                      weights_move_loss=abs(out[0].item() / one[0].item() - 1))
+            del out, want, one, one_p, two
+            torch.cuda.empty_cache()
+            st.update(ms=cuda_ms(lambda: b1(w, x16, N_SAMPLES, dt, model, mip=True)),
+                      ms_one=cuda_ms(lambda: b1(w, x_one, N_SAMPLES, dt, model, mip=True)),
+                      plain_ms=cuda_ms(lambda: plain(w, x16, N_SAMPLES, dt, model, mip=True), reps=3))
+            torch.cuda.empty_cache()
+            print(f"B1 multiscale vs plain {name} at {stats['rows']} rows of the pyramid (rays a scale {per_scale}): grad "
+                  f"err {rel:.3e} of max (tol {GRAD_TOL['B1', dt]:.0e}), loss rel err {loss_err:.2e} (tol "
+                  f"{LOSS_TOL[dt]:.0e}); loss {st['loss']:.6f} with the area weights, {st['loss_one']:.6f} with row 14 "
+                  f"at 1 (kernel vs plain {loss_one_err:.2e}, grads {rel_one:.3e}); twice the weights: loss x2 within "
+                  f"{two_loss_err:.2e}, grads within {two_rel:.3e} of max; kernel {st['ms']:.3f} ms (row 14 at 1: "
+                  f"{st['ms_one']:.3f}), plain {st['plain_ms']:.3f} ms; launches (all, mip) {launched}", flush=True)
+            check(launched == (1, 1), f"B1 multiscale {name} counted as a cone-cast launch")
+            check(rel <= GRAD_TOL["B1", dt] and loss_err <= LOSS_TOL[dt], f"B1 multiscale {name} within B1's bounds")
+            check(rel_one <= GRAD_TOL["B1", dt] and loss_one_err <= LOSS_TOL[dt],
+                  f"B1 with row 14 at 1 {name} within B1's bounds")
+            check(two_loss_err <= LOSS_TOL[dt] and two_rel <= GRAD_TOL["B1", dt],
+                  f"twice the weights give twice the loss and gradients ({name})")
+            stats[name] = st
+    stats["pool_MB"] = stats["pool_rays"] * 11 * 4 / 1e6
+    print(f"multiscale pool: {stats['pool_rays']:,} rays (8 columns) and their colours built in {pool_s:.2f} s "
+          f"(scene loaded and the block means included)", flush=True)
+    return stats
+
+
+def psnr_at_scales(field, scene: str, dev, radius: float) -> dict:
+    """PSNR of test image 0 of the scene rendered at 1, 1/2, 1/4 and 1/8 of
+    400x400 (block-centred rays, each scale's cone ``s * radius`` in their
+    column 6, column 7 unread; two mip levels, bf16, pallas) against the
+    block means of its gt."""
+    from nerf_simple_tpu_torch.data.blender import block_mean, load_blender
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses_scaled
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
+    from nerf_simple_tpu_torch.train.metrics import img_psnr
+
+    data = load_blender(scene, True, 1)
+    gt, pose = data.splits["test"].images[0], torch.as_tensor(data.splits["test"].poses[:1], device=dev)
+    s_ = RenderSettings(N=N_SAMPLES, backend="pallas", compute_dtype=torch.bfloat16, mip=True, mip_levels=2,
+                        base_radius=radius)
+    out = {}
+    for s in (1, 2, 4, 8):
+        rays = rays_for_poses_scaled(pose, data.H, data.W, data.f, s)
+        rays = torch.cat([rays, torch.tensor([s * radius, 1.0], device=dev).expand(rays.shape[0], 2)], 1)
+        rgb, _ = render_rays_chunked(field, rays, 0, s_, chunk=CHUNK)
+        want = gt if s == 1 else block_mean(gt, s)
+        out[s] = float(img_psnr(want[None], rgb.reshape(1, *want.shape).cpu().numpy()))
+    return out
+
+
+def phase_multiscale_train(dev, scene, work, mlp, mip_exp: str) -> dict:
+    """19b. configs/lego_mip.yaml + mip_multiscale: true through train() on
+    phase 7's scene (bf16, pallas, two levels, MS_ITERS steps): the sampler
+    draws from the 4-scale pool (5.3 M 8-column rays); two cone-cast B1
+    launches a step, the coarse with the weights output, the sums and the
+    backward tile kernel counted in C; the loss falls. The step's wall
+    (CUDA events), the host's issue time, kernel ms by pass (coarse B1,
+    fine B1, before / between / after, Adam) and the idle share. Test
+    image 0 at the four scales against block-mean gt, beside phase 12's
+    single-scale mip model (300 + 100 steps) at the same scales. Then
+    DATA_ITERS steps of mip x proposal on the pyramid (lego_proposal.yaml
+    + mip, the opaque background and distortion DIST_LAMBDA): one
+    cone-cast launch a step with the weights output, the rail and the
+    opaque tail."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import multiscale_train_arrays
+    from nerf_simple_tpu_torch.evaluate import load_params
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP
+    from nerf_simple_tpu_torch.train.loop import train
+    from nerf_simple_tpu_torch.train.step import build_train_step
+
+    cfg = load_yaml("configs/lego_mip.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), exp_name="lego_mip_ms", mip_multiscale=True,
+               log_dir=os.path.join(work, "logs_mip_ms"), num_iters=MS_ITERS, ckpt_loss=1, ckpt_images=10 * MS_ITERS,
+               ckpt_model=MS_ITERS, steps_per_call=50)
+    b1 = mlp.fused_train_step
+    counts = ("launches", "weights_launches", "mip_launches", "opaque_launches", "dist_launches")
+    for c in counts:
+        setattr(b1, c, 0)
+    mlp.wgrad_sums_launches(reset=True)
+    mlp.bwd_tile_launches(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {c: getattr(b1, c) for c in counts}
+    launches.update(wgrad_sums=mlp.wgrad_sums_launches(), bwd_tile=mlp.bwd_tile_launches())
+    with open(os.path.join(OUT, "train_mip_ms_log.txt"), "w") as fh:
+        fh.write(log.getvalue())
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train multiscale (lego_mip.yaml + mip_multiscale): {MS_ITERS} steps in {train_s:.1f} s with the pool's "
+          f"build and the step-0 renders; launches {launches}; mean loss (area-weighted, 0.1 coarse + fine) of the "
+          f"first 10 steps {first:.5f}, of the last 10 {last:.5f}", flush=True)
+    check(launches["launches"] == launches["mip_launches"] == 2 * MS_ITERS, "two cone-cast B1 launches a multiscale step")
+    check(launches["weights_launches"] == MS_ITERS and launches["opaque_launches"] == launches["dist_launches"] == 0,
+          "one of them, the coarse level, with the weights output")
+    check(launches["wgrad_sums"] == launches["bwd_tile"] == 2 * MS_ITERS,
+          "the sums and the backward tile kernel twice a step (counted in C)")
+    check(len(losses) == MS_ITERS and all(np.isfinite(losses)), "every multiscale loss logged and finite")
+    check(last < 0.7 * first, "the multiscale loss fell")
+
+    tcfg = train_config(cfg)
+    model = NerfMLP(Lp=tcfg.net_Lp, Ld=tcfg.net_Ld, H=tcfg.net_H)
+    radius = mip_radius(scene_focal(scene))
+    rays, pixels = multiscale_train_arrays(load_blender(scene, True, 25), radius, dev)
+    step_fn = build_train_step(tcfg, model, base_radius=radius)
+
+    def step():
+        return step_fn(state, rays, pixels)
+
+    walls = step_walls(step)
+    others, host = {}, {}
+    prof = profile_step(step, others, host, split_mip=True)
+    busy = sum(prof.values())
+    idle = 1 - busy / walls["ms"] if prof else None
+    print(f"train step multiscale bf16 steady state: {walls['ms']:.3f} ms a step, {BATCH / walls['ms'] * 1e3:,.0f} "
+          f"rays/s (CUDA events over 20 steps, median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); "
+          f"host issues a step in {walls['host_ms']:.3f} ms; profile, device ms a step: " + (", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+              + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured"), flush=True)
+    del rays, pixels
+    torch.cuda.empty_cache()
+    psnr_ms = psnr_at_scales(state.field, scene, dev, radius)
+    psnr_single = psnr_at_scales(NerfField.from_jax_params(load_params(mip_exp), dev), scene, dev, radius)
+    print("test image 0 at 1, 1/2, 1/4, 1/8 (two-level bf16 renders, each scale's cone, against block-mean gt): "
+          f"multiscale {MS_ITERS} steps " + ", ".join(f"{p:.2f}" for p in psnr_ms.values())
+          + " dB; phase 12's single-scale mip model (400 steps) " + ", ".join(f"{p:.2f}" for p in psnr_single.values())
+          + " dB", flush=True)
+    check(all(np.isfinite(list(psnr_ms.values()))), "the multiscale stills are finite")
+    del state
+    torch.cuda.empty_cache()
+
+    pcfg = load_yaml("configs/lego_proposal.yaml")
+    pcfg.update(datapath=scene, savepath=os.path.join(work, "models"), exp_name="prop_mip_ms", mip=True,
+                mip_multiscale=True, opaque_background=True, distortion_loss_weight=DIST_LAMBDA,
+                log_dir=os.path.join(work, "logs_prop_mip_ms"), num_iters=DATA_ITERS, ckpt_loss=1,
+                ckpt_images=10 * DATA_ITERS, ckpt_model=DATA_ITERS, steps_per_call=DATA_ITERS)
+    for c in ("launches", "mip_launches", "weights_dist_launches", "opaque_launches"):
+        setattr(b1, c, 0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train(pcfg)
+    torch.cuda.synchronize()
+    prop_launches = {c: getattr(b1, c) for c in ("launches", "mip_launches", "weights_dist_launches",
+                                                 "opaque_launches")}
+    prop_losses = scalars(pcfg["log_dir"], "Loss/train")
+    print(f"train mip x proposal + multiscale: {DATA_ITERS} steps; launches {prop_launches}; loss (area-weighted MSE "
+          f"+ interval interlevel + interval distortion) {np.mean(prop_losses[:5]):.5f} -> "
+          f"{np.mean(prop_losses[-5:]):.5f} (means of the first and last 5)", flush=True)
+    check(all(v == DATA_ITERS for v in prop_launches.values()),
+          "one cone-cast B1 launch a mip x proposal step, with the weights, the rail and the opaque tail")
+    check(len(prop_losses) == DATA_ITERS and all(np.isfinite(prop_losses)), "every mip x proposal loss finite")
+    return dict(launches=launches, train_s=train_s, first=first, last=last, step_ms=walls["ms"],
+                host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle,
+                host_top={k: v for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:8]},
+                psnr_multiscale=psnr_ms, psnr_single_scale=psnr_single, proposal_launches=prop_launches,
+                proposal_loss=(float(np.mean(prop_losses[:5])), float(np.mean(prop_losses[-5:]))))
+
+
+def phase_data_options(dev, work, mlp) -> dict:
+    """19c. The data options training took last: ``dataset: tiny_nerf`` (an
+    npz of 106 renders of the blob scene at 100x100 from an orbit, as
+    tiny_nerf_data.npz lays them out: 100 train, 3 val, 3 test) and the
+    ``hard`` style (a scene of 8/2/2 views at 200x200), each trained
+    DATA_ITERS steps of configs/lego.yaml's keys (bf16, pallas, the fused
+    step: one B1 launch a step); the loss finite and lower at the end."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.synthetic import _FOV_X, orbit_cameras, render_gt, write_blender_scene
+    from nerf_simple_tpu_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    npz = os.path.join(work, "tiny_nerf_data.npz")
+    poses = orbit_cameras(106, seed_jitter=3)
+    focal = 100 / (2.0 * np.tan(_FOV_X / 2.0))
+    np.savez(npz, images=render_gt(poses, 100, 100, focal, device=dev), poses=poses, focal=np.float64(focal))
+    hard = os.path.join(work, "hard")
+    write_blender_scene(hard, 8, 2, 2, H=200, W=200, device=dev, style="hard")
+    print(f"data options: the tiny_nerf npz (106 views at 100x100) and the hard scene (8/2/2 at 200x200) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    res = {}
+    for name, kw in (("tiny_nerf", dict(datapath=npz, dataset="tiny_nerf")),
+                     ("hard", dict(datapath=hard, half_res=False, num_train_imgs=8))):
+        cfg = load_yaml("configs/lego.yaml")
+        cfg.update(savepath=os.path.join(work, "models_data"), exp_name=name, log_dir=os.path.join(work, f"logs_{name}"),
+                   backend="pallas", compute_dtype="bf16", num_iters=DATA_ITERS, ckpt_loss=1,
+                   ckpt_images=10 * DATA_ITERS, ckpt_model=DATA_ITERS, steps_per_call=DATA_ITERS, **kw)
+        mlp.fused_train_step.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train(cfg)
+        torch.cuda.synchronize()
+        losses = scalars(cfg["log_dir"], "Loss/train")
+        res[name] = dict(launches=mlp.fused_train_step.launches, first=float(np.mean(losses[:5])),
+                         last=float(np.mean(losses[-5:])), train_s=time.perf_counter() - t0)
+        print(f"train {name} (lego.yaml's keys): {DATA_ITERS} steps in {res[name]['train_s']:.1f} s with loading; B1 "
+              f"launches {res[name]['launches']}; loss {res[name]['first']:.5f} -> {res[name]['last']:.5f} (means of "
+              "the first and last 5)", flush=True)
+        check(res[name]["launches"] == DATA_ITERS and len(losses) == DATA_ITERS and all(np.isfinite(losses)),
+              f"{name}: one B1 launch a step, every loss finite")
+        check(res[name]["last"] < res[name]["first"], f"{name}: the loss fell")
+    return res
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -5459,11 +5751,22 @@ def main() -> None:
         torch.cuda.empty_cache()
         m3p = phase_mip360_pose(dev, scene, pct["pert"], work, mlp)
         walls["the mip-NeRF 360 composition"] = time.perf_counter() - t_phase
-    # 19. the padding probe
+        # 19. multiscale training: B1 on a pyramid batch vs plain, lego_mip.yaml + mip_multiscale, mip x proposal on
+        # the pyramid; the data options (a tiny_nerf npz, the hard scene)
+        t_phase = time.perf_counter()
+        msk = phase_multiscale_kernels(dev, scene, mlp)
+        torch.cuda.empty_cache()
+        mst = phase_multiscale_train(dev, scene, work, mlp, mt["exp"])
+        torch.cuda.empty_cache()
+        dopt = phase_data_options(dev, work, mlp)
+        walls["multiscale and the data options"] = time.perf_counter() - t_phase
+    # 20. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
-    print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    print("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; total {sum(walls.values()):.1f} s", flush=True)
+    print("sub-phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in SUBWALLS.items()), flush=True)
 
     # bounds from the shapes (utils/roofline.py): MACs a row of the forward
     # (every packed matrix once) and of B1/B2 (forward recompute, W^T g of
@@ -5843,7 +6146,18 @@ def main() -> None:
               b2_rel_err_1m_rows_bf16=hk["B2_bf16"]["rel"], kernel_phase_peak_gb=hk["peak_gb"], dist=dist,
               weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train,
               contract={**contract["b1"], "name": "fused_train_step"},
-              mip_proposal={**m3t, "launches_pose": m3p["pose"]["launches"]["b1"]}),
+              mip_proposal={**m3t, "launches_pose": m3p["pose"]["launches"]["b1"]},
+              multiscale={"launches": mst["launches"]["mip_launches"], "weights_launches": mst["launches"][
+                  "weights_launches"], "c_launches": {k: mst["launches"][k] for k in ("wgrad_sums", "bwd_tile")},
+                  "max_abs_err": msk["f32"]["err"], "ms": msk["f32"]["ms"], "plain_ms": msk["f32"]["plain_ms"],
+                  **bounds(2 * train_macs * msk["rows"], 4 * 15 * msk["rows"] + grad_bytes), "library_ms": None,
+                  "max_abs_err_bf16": msk["bf16"]["err"], "ms_bf16": msk["bf16"]["ms"],
+                  "plain_ms_bf16": msk["bf16"]["plain_ms"], "library_ms_bf16": None,
+                  "source": "nerf_simple_tpu_torch/csrc/fused_train_step.cu (the mip branch; row 14's weight, "
+                            "rows 11..13 from each ray's cone)",
+                  "replaces": "nerf_simple_tpu/kernels/mlp.py:1623 (the mip branch of _train_kernel, row 14 :1406)",
+                  "batch": {k: v for k, v in msk.items() if k not in ("f32", "bf16")},
+                  "cases": {k: msk[k] for k in ("f32", "bf16")}, "train": mst, "data_options": dopt}),
         entry("wgrad_sums", "wgrad.cuh", "nerf_simple_tpu/kernels/mlp.py:774",
               tr["launches"]["wgrad_sums"], sums, (wg_flops, wg_bytes, wg_bytes_bf16),
               (wg["f32"]["library_ms"], wg["bf16"]["library_ms"]),
@@ -5883,6 +6197,27 @@ def main() -> None:
         "count": torch.cuda.device_count(),
     }}))
 
+
+# every phase function's wall: printed as it ends (also when a check
+# fails) and together after the phase walls
+SUBWALLS: dict = {}
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            wall = time.perf_counter() - t0
+            SUBWALLS[fn.__name__] = SUBWALLS.get(fn.__name__, 0.0) + wall
+            print(f"wall of {fn.__name__}: {wall:.1f} s", flush=True)
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed(globals()[_name])
 
 if __name__ == "__main__":
     main()

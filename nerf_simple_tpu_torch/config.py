@@ -21,6 +21,15 @@ import re
 import warnings
 from typing import Any
 
+
+def _check_dataset(dataset: str) -> None:
+    """The scene loaders: "blender" and "tiny_nerf"; LLFF is not ported."""
+    if dataset == "llff":
+        raise NotImplementedError("dataset='llff' is not ported yet (ROADMAP Queue A item 6, LLFF/NDC)")
+    if dataset not in ("blender", "tiny_nerf"):
+        raise ValueError(f"dataset must be 'blender', 'tiny_nerf' or 'llff', got {dataset!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     # reference keys (configs/lego.yaml)
@@ -96,6 +105,12 @@ class TrainConfig:
     mip_coarse_weight: float = 0.1
     resample_blur: float = 0.01
     opaque_background: bool = False
+    # mip-NeRF's multiscale training (paper sec. 4): the ray pool is the
+    # union of the train images' 1, 1/2, 1/4 and 1/8 pyramid, each ray with
+    # its cone radius and its footprint-area loss weight
+    # (data/dataset.py::multiscale_train_arrays); eval and checkpoints are
+    # unchanged
+    mip_multiscale: bool = False
     # BARF-style camera-pose refinement: per-train-image se(3) deltas (an
     # axis-angle rotation about the camera centre and a world translation)
     # refine every sampled ray and train through ray generation, on their
@@ -115,6 +130,13 @@ class TrainConfig:
     # schedule; each ray's image's code conditions the colour head only.
     # Eval renders the mean code, or one image's (TestConfig.appearance_idx)
     appearance_dim: int = 0
+    # sample the training rays from these train images only (a random
+    # listed image, then a random pixel of it): the reference's
+    # commented-out select_imgs mode (train.py:48). Empty: the whole split
+    train_im_idxs: tuple[int, ...] = ()
+    # the scene loader: "blender" (nerf_synthetic layout) or "tiny_nerf"
+    # (tiny_nerf_data.npz); "llff" is not ported
+    dataset: str = "blender"
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -192,8 +214,34 @@ class TrainConfig:
             )
         if self.mip_coarse_weight < 0:
             raise ValueError(f"mip_coarse_weight must be >= 0, got {self.mip_coarse_weight}")
+        self._check_multiscale()
         self._check_pose()
         self._check_appearance()
+        _check_dataset(self.dataset)
+
+    def _check_multiscale(self):
+        """The JAX TrainConfig's multiscale rules (nerf_simple_tpu/config.py:
+        392-413, :557-560): the pyramid needs mip, no depth supervision, no
+        ``train_im_idxs``, the Blender loader, and no per-image tables (pose
+        deltas or appearance codes)."""
+        if not self.mip_multiscale:
+            return
+        if not self.mip:
+            raise ValueError("mip_multiscale=True (pyramid training) requires mip=True")
+        if self.depth_loss_weight > 0:
+            raise ValueError(
+                "mip_multiscale is incompatible with depth supervision (the pyramid pixels carry no depth sidecars)")
+        if self.train_im_idxs:
+            raise ValueError(
+                "mip_multiscale is incompatible with train_im_idxs (pyramid rays break the per-image H*W row mapping)")
+        if self.dataset != "blender":
+            raise ValueError(
+                "mip_multiscale needs dataset=blender (the pyramid builder downsamples pinhole frames); LLFF mip uses "
+                "per-ray radii instead")
+        if self.appearance_dim > 0 or self.pose_opt:
+            what = "appearance_dim > 0" if self.appearance_dim > 0 else "pose_opt"
+            raise ValueError(
+                f"{what} cannot combine with mip_multiscale: the pyramid ray pool breaks the per-image H*W row mapping")
 
     def _check_appearance(self):
         """The JAX TrainConfig's appearance rules (nerf_simple_tpu/config.py:
@@ -268,8 +316,6 @@ class TrainConfig:
 # (JAX default, ROADMAP item). At the default a key changes nothing.
 _UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "item 2, mip multiscale training": {"mip_multiscale": False},
-    "item 4, train_im_idxs": {"train_im_idxs": ()},
     "item 8, the hashgrid/cpgrid families": {
         "model_family": "nerf", "hash_L": 8, "hash_F": 4, "hash_log2_T": 14, "hash_Nmin": 16,
         "hash_Nmax": 256, "hash_H": 64, "hash_aabb": 4.0, "hash_grad_mode": "sample",
@@ -278,7 +324,7 @@ for _item, _keys in {
     "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_update_every": 16,
                   "occ_decay": 0.95, "occ_floor": 0.01, "occ_aabb": 4.0},
     "item 9, data parallelism": {"num_data_shards": 1, "distributed": False, "shard_dataset": False},
-    "item 6, LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
+    "item 6, LLFF/NDC": {"llff_factor": 8, "ndc": True},
     "item 4, tracing and debug guards": {"profile_dir": "", "debug_nan": False},
 }.items():
     _UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
@@ -360,6 +406,8 @@ class TestConfig:
     # appearance checkpoints: the train image whose code conditions the
     # render, or -1 for the mean code (NeRF-W's canonical look)
     appearance_idx: int = -1
+    # the scene loader, as TrainConfig.dataset
+    dataset: str = "blender"
 
     def __post_init__(self):
         if self.Np > 0 and self.Nc > 0:
@@ -401,6 +449,7 @@ class TestConfig:
             raise ValueError(f"backend must be 'xla' or 'pallas', got {self.backend!r}")
         if self.batch_size <= 0 or self.N_samples <= 0 or self.num_poses <= 0:
             raise ValueError("batch_size, N_samples and num_poses must be positive")
+        _check_dataset(self.dataset)
 
     @property
     def render_dtype(self):
@@ -416,7 +465,7 @@ for _item, _keys in {
     "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
                   "occ_aabb": 4.0, "occ_group": 1},
     "item 9, data parallelism": {"num_data_shards": 1},
-    "item 6, LLFF/NDC": {"dataset": "blender", "llff_factor": 8, "ndc": True},
+    "item 6, LLFF/NDC": {"llff_factor": 8, "ndc": True},
 }.items():
     _TEST_UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
 

@@ -21,7 +21,8 @@ Behaviour of the JAX loader, which follows the reference
   under ``half_res``.
 
 Host-side numpy; the arrays go to the device once, in bulk
-(data/dataset.py). The test split's depth/normal PNG maps are not ported.
+(data/dataset.py). ``load_test_maps`` adds the test split's depth and
+normal PNG maps (the reference's visualisations, which nothing trains on).
 """
 
 from __future__ import annotations
@@ -63,19 +64,32 @@ def imread_rgb(path: str, white_bkgd: bool = False) -> np.ndarray:
     return img
 
 
+def block_mean(img: np.ndarray, s: int) -> np.ndarray:
+    """Shrink both sides of an (H, W) or (H, W, C) image s times by the mean
+    of each s x s block: cv2's INTER_AREA at an integer scale. Sides that s
+    does not divide raise."""
+    H, W = img.shape[:2]
+    if H % s or W % s:
+        raise ValueError(f"a 1/{s} block mean needs image sides divisible by {s}, got {H}x{W}")
+    return img.reshape(H // s, s, W // s, s, *img.shape[2:]).mean(axis=(1, 3))
+
+
 def half(img: np.ndarray) -> np.ndarray:
     """Halve both sides of an (H, W) or (H, W, C) image by the 2x2 mean of
-    each block."""
+    each block (``block_mean`` at s = 2)."""
     H, W = img.shape[:2]
     if H % 2 or W % 2:
         raise ValueError(f"half_res needs even image sides, got {H}x{W}")
-    return img.reshape(H // 2, 2, W // 2, 2, *img.shape[2:]).mean(axis=(1, 3))
+    return block_mean(img, 2)
 
 
 @dataclasses.dataclass
 class BlenderSplit:
     images: np.ndarray  # (N, H, W, 3) float32 in [0, 1]
     poses: np.ndarray  # (N, 4, 4) float32
+    # the test split's depth and normal PNG maps (load_test_maps), (N, H, W, 3) float32 at full resolution
+    depth_images: np.ndarray | None = None
+    normal_images: np.ndarray | None = None
     metric_depth: np.ndarray | None = None  # (N, H, W) float32, from the sidecars
 
     def __len__(self) -> int:
@@ -90,9 +104,24 @@ class BlenderData:
     f: float
 
 
-def load_blender(path: str, half_res: bool = True, num_imgs: int = -1,
+def load_scene(dataset: str, path: str, half_res: bool = True, num_imgs: int = -1,
+               white_bkgd: bool = False) -> BlenderData:
+    """The scene of a config's ``dataset``: "tiny_nerf" reads the npz at
+    ``path`` (which knows no half_res, num_imgs or white_bkgd, as in JAX),
+    "blender" the scene directory."""
+    if dataset == "tiny_nerf":
+        from nerf_simple_tpu_torch.data.tiny_nerf import load_tiny_nerf
+
+        return load_tiny_nerf(path)
+    return load_blender(path, half_res, num_imgs, white_bkgd=white_bkgd)
+
+
+def load_blender(path: str, half_res: bool = True, num_imgs: int = -1, load_test_maps: bool = False,
                  white_bkgd: bool = False) -> BlenderData:
-    """Load a nerf_synthetic-format scene directory."""
+    """Load a nerf_synthetic-format scene directory. ``load_test_maps``
+    also reads the test split's ``r_<i>_depth*`` and ``r_<i>_normal*``
+    PNGs, natural-sorted, cut to the split's image count, at full
+    resolution (JAX data/blender.py:162-186)."""
     splits: dict[str, BlenderSplit] = {}
     fov = None
     for split in ("train", "val", "test"):
@@ -111,8 +140,15 @@ def load_blender(path: str, half_res: bool = True, num_imgs: int = -1,
             img = imread_rgb(paths[i], white_bkgd)
             imgs.append((half(img) if half_res else img).astype(np.float32))
             poses.append(np.asarray(meta["frames"][i]["transform_matrix"], np.float32))
+        maps = {}
+        if split == "test" and load_test_maps:
+            for kind in ("depth", "normal"):
+                found = sorted((os.path.join(split_dir, fn) for fn in os.listdir(split_dir)
+                                if re.match(rf"r_[0-9]+_{kind}", fn)), key=_natural_key)
+                if found:
+                    maps[f"{kind}_images"] = np.stack([imread_rgb(p).astype(np.float32) for p in found[:n]])
         splits[split] = BlenderSplit(np.stack(imgs), np.stack(poses),
-                                     _metric_depth(path, split, n, half_res))
+                                     metric_depth=_metric_depth(path, split, n, half_res), **maps)
     H, W = splits["test"].images.shape[1:3]
     return BlenderData(splits, H, W, float(W / (2.0 * np.tan(fov / 2.0))))
 

@@ -1,5 +1,5 @@
 """Procedural synthetic scenes (port of nerf_simple_tpu/data/synthetic.py,
-the ``blobs`` and ``unbounded`` styles).
+the ``blobs``, ``hard`` and ``unbounded`` styles).
 
 No dataset ships with the repo, so the port writes its own scene: a
 cluster of coloured Gaussian density blobs near the origin, seen from the
@@ -14,8 +14,9 @@ twin at the same pose (the appearance codes' check). The ``unbounded``
 style adds a distant shell at radius 20 behind the cluster, the scene
 that scene contraction and disparity spacing are for; ``camera_r_range``
 draws each camera's radius (the background parallax that tells a
-world-space far field from a camera-centred one). The JAX package's
-``hard`` style is not ported (ROADMAP Queue A item 4).
+world-space far field from a camera-centred one). The ``hard`` style is a
+machine of sharp-edged boxes, near-binary density over ~2% of the volume:
+lego's regime of opaque surfaces and empty margins.
 """
 
 from __future__ import annotations
@@ -42,6 +43,21 @@ _BLOBS = (
 )
 
 
+# (center, half-extents, color) of the hard style's boxes: base, body, cab,
+# mast, arm and four wheels
+_HARD_PARTS = (
+    ((0.0, 0.0, -0.55), (0.90, 0.60, 0.10), (0.80, 0.72, 0.20)),
+    ((0.0, 0.0, -0.25), (0.55, 0.45, 0.20), (0.85, 0.12, 0.10)),
+    ((-0.15, 0.0, 0.10), (0.30, 0.30, 0.15), (0.90, 0.85, 0.30)),
+    ((0.55, 0.0, -0.05), (0.12, 0.12, 0.45), (0.40, 0.40, 0.45)),
+    ((0.80, 0.0, 0.32), (0.35, 0.10, 0.08), (0.30, 0.30, 0.35)),
+    ((-0.45, 0.45, -0.62), (0.15, 0.08, 0.15), (0.10, 0.10, 0.12)),
+    ((0.35, 0.45, -0.62), (0.15, 0.08, 0.15), (0.10, 0.10, 0.12)),
+    ((-0.45, -0.45, -0.62), (0.15, 0.08, 0.15), (0.10, 0.10, 0.12)),
+    ((0.35, -0.45, -0.62), (0.15, 0.08, 0.15), (0.10, 0.10, 0.12)),
+)
+
+
 def _field_blobs(locs: torch.Tensor) -> torch.Tensor:
     sigma = torch.full(locs.shape[:-1], -10.0, dtype=locs.dtype, device=locs.device)
     rgb_acc = torch.zeros((*locs.shape[:-1], 3), dtype=locs.dtype, device=locs.device)
@@ -52,6 +68,24 @@ def _field_blobs(locs: torch.Tensor) -> torch.Tensor:
         sigma = sigma + peak * g
         rgb_acc = rgb_acc + g[..., None] * torch.tensor(color, dtype=locs.dtype, device=locs.device)
         w_acc = w_acc + g
+    rgb = rgb_acc / torch.clamp(w_acc[..., None], min=1e-6)
+    return torch.cat([rgb, sigma[..., None]], dim=-1)
+
+
+def _field_hard(locs: torch.Tensor) -> torch.Tensor:
+    """Near-binary box densities (the JAX ``_field_hard``): sigma rises over
+    ~0.07 world units (sigmoid sharpness 30) to a pre-softplus peak of 40,
+    so one sample inside a wall saturates alpha, as at an opaque surface."""
+    sharp, peak = 30.0, 40.0
+    sigma = torch.full(locs.shape[:-1], -10.0, dtype=locs.dtype, device=locs.device)
+    rgb_acc = torch.zeros((*locs.shape[:-1], 3), dtype=locs.dtype, device=locs.device)
+    w_acc = torch.zeros_like(sigma)
+    for center, half, color in _HARD_PARTS:
+        c, h = (torch.tensor(v, dtype=locs.dtype, device=locs.device) for v in (center, half))
+        m = torch.sigmoid(sharp * (1.0 - torch.amax(torch.abs(locs - c) / h, dim=-1)))
+        sigma = sigma + peak * m
+        rgb_acc = rgb_acc + m[..., None] * torch.tensor(color, dtype=locs.dtype, device=locs.device)
+        w_acc = w_acc + m
     rgb = rgb_acc / torch.clamp(w_acc[..., None], min=1e-6)
     return torch.cat([rgb, sigma[..., None]], dim=-1)
 
@@ -74,14 +108,14 @@ def _field_unbounded(locs: torch.Tensor) -> torch.Tensor:
     return torch.cat([rgb, sigma[..., None]], dim=-1)
 
 
-_STYLES = {"blobs": _field_blobs, "unbounded": _field_unbounded}
+_STYLES = {"blobs": _field_blobs, "hard": _field_hard, "unbounded": _field_unbounded}
 
 
 def field(locs: torch.Tensor, style: str = "blobs") -> torch.Tensor:
     """Analytic radiance field of a style: (..., 3) positions -> (..., 4)
     rgb and pre-softplus sigma."""
-    if style == "hard":
-        raise NotImplementedError("the 'hard' synthetic style is not ported yet: ROADMAP Queue A item 4")
+    if style not in _STYLES:
+        raise ValueError(f"unknown synthetic style {style!r}; one of {', '.join(_STYLES)}")
     return _STYLES[style](locs)
 
 
@@ -155,12 +189,14 @@ def write_blender_scene(
     Blender loader lists. ``train_jitter``: the seed of the train cameras'
     elevation jitter (``orbit_cameras``' ``seed_jitter``); 0 keeps every
     train view at theta = -30, a circle of views, as the JAX writer's
-    default does. ``style``: "blobs" or "unbounded" (whose ground truth
-    integrates 576 samples on [0.5, 30], past the shell, as JAX's does);
+    default does. ``style``: "blobs", "hard" (whose ground truth takes 576
+    samples a ray, three times the blobs' 192, to resolve its walls) or
+    "unbounded" (576 samples on [0.5, 30], past the shell), as JAX's;
     ``camera_r_range``: each camera's radius drawn from it."""
     f = W / (2.0 * np.tan(_FOV_X / 2.0))
-    field(torch.zeros(1, 3), style)  # an unknown or unported style raises before anything is written
-    gt_N, gt_tn, gt_tf = (576, 0.5, 30.0) if style == "unbounded" else (192, 2.0, 6.0)
+    field(torch.zeros(1, 3), style)  # an unknown style raises before anything is written
+    gt_N = 576 if style in ("hard", "unbounded") else 192
+    gt_tn, gt_tf = (0.5, 30.0) if style == "unbounded" else (2.0, 6.0)
     specs = {
         "train": orbit_cameras(n_train, seed_jitter=train_jitter, r_range=camera_r_range),
         "val": orbit_cameras(n_val, seed_jitter=1, r_range=camera_r_range),

@@ -28,9 +28,9 @@ appearance checkpoint (``{"field", "app"}``) renders its stills, normals
 and orbit under one code: the table's mean for ``appearance_idx`` -1
 (NeRF-W's canonical look), else train image ``appearance_idx``'s.
 
-Occupancy eval, LLFF (spiral path, NDC),
-the tiny_nerf loader, sharded eval and Orbax checkpoint directories are
-not ported: each raises NotImplementedError.
+``dataset: tiny_nerf`` reads the scene from a tiny_nerf npz. Occupancy
+eval, LLFF (spiral path, NDC), sharded eval and Orbax checkpoint
+directories are not ported: each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def load_params(loadpath: str, return_aux: bool = False, keep_hierarchy: bool = 
             if any(n.startswith("ckpt_") for n in os.listdir(loadpath)):
                 raise NotImplementedError(
                     f"{loadpath!r} holds Orbax ckpt_* directories, which are not readable "
-                    "without orbax; export the params to .npz or .pth first (ROADMAP Queue A, "
-                    "checkpoint full state)"
+                    "without orbax; export the params to .npz or .pth first (a deliberate "
+                    "behaviour change: ROADMAP, Queue C's list of deliberate behaviour changes)"
                 )
             raise FileNotFoundError(f"no ckpt_*.pth under {loadpath}")
         loadpath, name = found, os.path.basename(found)
@@ -79,8 +79,8 @@ def load_params(loadpath: str, return_aux: bool = False, keep_hierarchy: bool = 
     else:
         raise NotImplementedError(
             f"{loadpath!r}: Orbax checkpoint directories are not readable "
-            "without orbax; export the params to .npz or .pth first "
-            "(ROADMAP Queue A, checkpoint full state)"
+            "without orbax; export the params to .npz or .pth first (a deliberate "
+            "behaviour change: ROADMAP, Queue C's list of deliberate behaviour changes)"
         )
     aux = {}
     if isinstance(params, dict) and "field" in params:
@@ -163,7 +163,7 @@ def _write_png(path: str, img: np.ndarray) -> None:
 def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     """Run evaluation per the reference test_params interface, on
     ``device`` (default: the card; the CPU only when asked for)."""
-    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.blender import load_scene
     from nerf_simple_tpu_torch.data.dataset import RayDataset
     from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
     from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
@@ -204,7 +204,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
         field = ProposalPair.from_jax_params(params, device, model, prop_model)
     else:
         field = (NerfPair if cfg.Nc > 0 else NerfField).from_jax_params(params, device, model)
-    data = load_blender(cfg.datapath, cfg.half_res)
+    data = load_scene(cfg.dataset, cfg.datapath, cfg.half_res)
     rd = RayDataset.from_blender(data, device)
     deltas = cam_deltas(cfg, aux)
     if deltas is not None:  # the train split's refined rig: only train images have deltas

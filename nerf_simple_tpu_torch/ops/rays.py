@@ -29,15 +29,39 @@ def camera_ray_dirs(
     return torch.stack([x, y, z], dim=-1).reshape(H * W, 3)
 
 
-def rays_for_poses(poses: torch.Tensor, H: int, W: int, f: float) -> torch.Tensor:
-    """(P, 4, 4) camera-to-world poses -> (P*H*W, 6) ``[origin | dir]``
-    rays, camera-major then row-major (utils/dataload.py:127)."""
-    cam_dirs = camera_ray_dirs(H, W, f, poses.device, poses.dtype)  # (HW, 3)
+def _world_rays(poses: torch.Tensor, cam_dirs: torch.Tensor) -> torch.Tensor:
+    """(P, 4, 4) poses and (n, 3) camera-frame directions -> (P*n, 6)
+    ``[origin | dir]`` rays, camera-major."""
     # R_p @ d as an elementwise product and sum: exact f32 on every
     # device (a CUDA matmul could run in TF32 if a caller enabled it)
     world_dirs = (poses[:, None, :3, :3] * cam_dirs[None, :, None, :]).sum(-1)
     origins = poses[:, None, :3, 3].expand_as(world_dirs)
     return torch.cat([origins, world_dirs], dim=-1).reshape(-1, 6)
+
+
+def rays_for_poses(poses: torch.Tensor, H: int, W: int, f: float) -> torch.Tensor:
+    """(P, 4, 4) camera-to-world poses -> (P*H*W, 6) ``[origin | dir]``
+    rays, camera-major then row-major (utils/dataload.py:127)."""
+    return _world_rays(poses, camera_ray_dirs(H, W, f, poses.device, poses.dtype))
+
+
+def rays_for_poses_scaled(poses: torch.Tensor, H: int, W: int, f: float, s: int) -> torch.Tensor:
+    """Rays of a 1/s-scale frame whose pixel centres are the centres of the
+    s x s blocks an area downsample averages (JAX ``rays_for_poses_scaled``):
+    pixel i samples the full-resolution coordinate ``s*i + (s-1)/2``. The
+    integer-centred grid of ``rays_for_poses(poses, H//s, W//s, f/s)``
+    would sit (s-1)/2 full-resolution pixels off those centres. At s = 1 it
+    is ``rays_for_poses``. Returns (P * (H//s) * (W//s), 6)."""
+    if s == 1:
+        return rays_for_poses(poses, H, W, f)
+    Hs, Ws = H // s, W // s
+    dev, dt = poses.device, poses.dtype
+    rows = torch.arange(Hs, dtype=dt, device=dev) * s + (s - 1) / 2.0 - H // 2
+    cols = torch.arange(Ws, dtype=dt, device=dev) * s + (s - 1) / 2.0 - W // 2
+    x = (cols[None, :] / f).expand(Hs, Ws)
+    y = (-rows[:, None] / f).expand(Hs, Ws)
+    cam_dirs = torch.stack([x, y, -torch.ones((Hs, Ws), dtype=dt, device=dev)], dim=-1).reshape(Hs * Ws, 3)
+    return _world_rays(poses, cam_dirs)
 
 
 # Camera-pose refinement: per-image se(3) deltas, an axis-angle rotation

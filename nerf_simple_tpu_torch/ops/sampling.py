@@ -200,7 +200,9 @@ def frustum_gaussians_T(rays: torch.Tensor, edges: torch.Tensor, radius, shape: 
     kernels' feature-major layout, shared by the fused train step's input
     and the mip render: (meanT (3, B, N), unitT (3, B), varT (3, B, N),
     mu_t (B, N)). The diagonal covariance is ``sig_t2 d^2 + sig_r2 (1 -
-    d^2 / |d|^2)`` along the unnormalised direction d."""
+    d^2 / |d|^2)`` along the unnormalised direction d. ``radius`` is a
+    scalar, or a (B, 1) tensor of per-ray radii (multiscale training's
+    column 6), broadcast over the intervals as JAX broadcasts it."""
     oT, dT = rays[:, :3].T, rays[:, 3:6].T
     n2 = torch.sum(dT * dT, dim=0, keepdim=True)  # (1, B)
     unitT = dT / torch.sqrt(n2)

@@ -67,14 +67,16 @@ def groups(model: NerfMLP) -> dict[str, tuple[int, int]]:
 
 def inputs(model: NerfMLP, rows: int, device, seed: int = 0):
     """(packed f32 weights, residual planes (FA, Rp) f32, g (8, rows) f32)
-    from numpy seed ``seed``, the planes made 64 features at a time."""
+    from numpy seed ``seed``, the planes made 64 features at a time: numpy
+    draws the uniforms, the map to planes runs on ``device`` in f32
+    (numpy's f32 values bit for bit)."""
     rng = np.random.default_rng(seed)
     L = mlp.Layout.of(model)
     Rp = -(-rows // 64) * 64
     res = torch.empty((L.FA, Rp), dtype=torch.float32, device=device)
     for f0 in range(0, L.FA, 64):
-        u = rng.random((min(64, L.FA - f0), Rp), dtype=np.float32)
-        res[f0 : f0 + u.shape[0]] = torch.from_numpy(np.where(u < 0.5, 0.0, 2 * (u - 0.5)).astype(np.float32))
+        u = torch.from_numpy(rng.random((min(64, L.FA - f0), Rp), dtype=np.float32)).to(device)
+        res[f0 : f0 + u.shape[0]] = torch.where(u < 0.5, 0.0, 2 * (u - 0.5))
     g = np.zeros((8, rows), np.float32)
     g[:4] = rng.normal(size=(4, rows))
     wts = mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(seed, model), device))

@@ -60,15 +60,17 @@ def sums(model: NerfMLP) -> tuple[list[mlp.WgradTask], int, int]:
 def planes(FG: int, FA: int, rows: int, device, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """G (FG, rows) and A (FA, rows) f32 from numpy seed ``seed``, made 64
     features at a time: G zero where u < 0.5 and 4 (u - 0.75) elsewhere, A
-    zero where u < 0.5 and 2 (u - 0.5) elsewhere, each u uniform."""
+    zero where u < 0.5 and 2 (u - 0.5) elsewhere, each u uniform. numpy
+    draws the u; the map runs on ``device`` in f32, which gives numpy's
+    f32 values bit for bit and takes the host's passes over ~9 GB out of
+    the set-up."""
     rng = np.random.default_rng(seed)
     out = []
     for F, lo, scale in ((FG, 0.75, 4.0), (FA, 0.5, 2.0)):
         t = torch.empty((F, rows), dtype=torch.float32, device=device)
         for f0 in range(0, F, 64):
-            u = rng.random((min(64, F - f0), rows), dtype=np.float32)
-            t[f0 : f0 + u.shape[0]] = torch.from_numpy(np.where(u < 0.5, 0.0, (u - lo) * scale)
-                                                       .astype(np.float32))
+            u = torch.from_numpy(rng.random((min(64, F - f0), rows), dtype=np.float32)).to(device)
+            t[f0 : f0 + u.shape[0]] = torch.where(u < 0.5, 0.0, (u - lo) * scale)
         out.append(t)
     return out[0], out[1]
 

@@ -172,8 +172,9 @@ def render_rays(
     app: torch.Tensor | None = None,
 ) -> CompositeOut:
     """Render (B, 6) ``[origin | direction]`` rays (direction
-    unnormalised) at stratified ``ts`` drawn from ``generator``, or at the
-    (B, N) ``ts`` given. ``.rgb`` is raw, like the reference. ``enc_alpha``:
+    unnormalised; under mip also (B, 8) rays with their own cone radius in
+    column 6 and a loss weight in column 7) at stratified ``ts`` drawn
+    from ``generator``, or at the (B, N) ``ts`` given. ``.rgb`` is raw, like the reference. ``enc_alpha``:
     the BARF anneal progress in [0, 1] of the encoder, or None (the
     standard one). ``app``: (B, app_dim) appearance codes of an appearance
     model's rays (required iff ``app_dim > 0``).
@@ -253,7 +254,9 @@ def _mip_level(field: NerfField, rays: torch.Tensor, edges: torch.Tensor, settin
     the frustum Gaussians through the integrated encoder (under
     ``"pallas"`` the forward kernel's, ``_fused_mlp_bn_mip``; else
     ``nerf_apply_mip``), ``sigma_noise * noise`` on raw sigma, then
-    ``composite_intervals`` (with ``opaque_background``'s tail)."""
+    ``composite_intervals`` (with ``opaque_background``'s tail). Rays of
+    more than 6 columns (multiscale training's 8) carry their own cone
+    radius in column 6, in place of ``settings.base_radius``."""
     B, N = edges.shape[0], edges.shape[1] - 1
     dirs = rays[:, 3:6]
     unit_dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
@@ -261,13 +264,19 @@ def _mip_level(field: NerfField, rays: torch.Tensor, edges: torch.Tensor, settin
         outT, t_mids = _fused_mlp_bn_mip(field, rays, edges, settings)
         out = outT.permute(1, 2, 0)
     else:
-        means, vars_, t_mids = conical_gaussian(rays, edges, settings.base_radius, settings.mip_shape)
+        means, vars_, t_mids = conical_gaussian(rays, edges, _cone_radius(rays, settings), settings.mip_shape)
         q = unit_dirs[:, None, :].expand(B, N, 3).reshape(B * N, 3)
         out = nerf_apply_mip(field, means.reshape(B * N, 3), vars_.reshape(B * N, 3), q,
                              settings.compute_dtype).reshape(B, N, 4)
     if noise is not None:
         out = torch.cat([out[..., :3], (out[..., 3] + settings.sigma_noise * noise)[..., None]], dim=-1)
     return composite_intervals(out, edges, t_mids, unit_dirs, opaque_tail=settings.opaque_background)
+
+
+def _cone_radius(rays: torch.Tensor, settings: RenderSettings):
+    """The cone radius a unit of t: the rays' own (B, 1) column 6 where
+    they have one (JAX :263), else the settings' scalar."""
+    return rays[:, 6:7] if rays.shape[1] >= 7 else settings.base_radius
 
 
 def _fused_mlp_bn_mip(field: NerfField, rays: torch.Tensor, edges: torch.Tensor,
@@ -284,7 +293,7 @@ def _fused_mlp_bn_mip(field: NerfField, rays: torch.Tensor, edges: torch.Tensor,
     ``frustum_gaussians_T`` to the rays."""
     _require_kernel_arch(field)
     B, N = edges.shape[0], edges.shape[1] - 1
-    meanT, unitT, varT, mu_t = frustum_gaussians_T(rays, edges, settings.base_radius, settings.mip_shape)
+    meanT, unitT, varT, mu_t = frustum_gaussians_T(rays, edges, _cone_radius(rays, settings), settings.mip_shape)
     x = torch.zeros((16, B, N), dtype=torch.float32, device=rays.device)
     x[0:3] = meanT
     x[3:6] = unitT[:, :, None]
@@ -543,7 +552,9 @@ def render_rays_chunked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render R rays in fixed-size chunks -> (rgb clipped to [0, 1] (R, 3),
     disparity (R,)), the remainder included (the reference drops it,
-    utils/rendering.py:100). ``enc_alpha``: the BARF anneal progress of a
+    utils/rendering.py:100). Rays are (R, 6), or under mip (R, 8) with
+    each ray's cone radius in column 6 (JAX :919; the last chunk is padded
+    with copies of the last ray, all columns). ``enc_alpha``: the BARF anneal progress of a
     mid-anneal training preview (the encoder the field is being trained
     with; the proposal scheme's main field only), or None; with it no
     chunk takes the fused render kernel.

@@ -31,6 +31,12 @@ the run finishes on the plain config's step (the fused kernel under
 ``"pallas"``). A checkpoint at the boundary is pre-freeze; a resume past
 it re-bakes from the sidecar.
 
+Multiscale training (``mip_multiscale``): the sampler draws from the
+train images' 1, 1/2, 1/4 and 1/8 pyramid (8-column rays with their cone
+radii and loss weights); the renders, checkpoints and exports are those of
+a mip run. ``train_im_idxs`` restricts the sampler to the listed train
+images. ``dataset: tiny_nerf`` reads the scene from a tiny_nerf npz.
+
 Appearance codes (``appearance_dim``): the state holds one code a train
 image; train-split renders use the image's own code, val renders the
 mean code (NeRF-W's canonical look). The checkpoints and
@@ -51,8 +57,8 @@ import numpy as np
 import torch
 
 from nerf_simple_tpu_torch.config import TrainConfig, train_config_from_dict
-from nerf_simple_tpu_torch.data.blender import load_blender
-from nerf_simple_tpu_torch.data.dataset import RayDataset
+from nerf_simple_tpu_torch.data.blender import load_scene
+from nerf_simple_tpu_torch.data.dataset import RayDataset, multiscale_train_arrays
 from nerf_simple_tpu_torch.models import model_from_train_config
 from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas, bake_cam_deltas
 from nerf_simple_tpu_torch.render.renderer import render_rays_chunked
@@ -137,9 +143,14 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
     ckpt.save_model_meta(exp_dir, model)
     logger = Logger(run_log_dir(cfg.log_dir))
 
-    data = load_blender(cfg.datapath, cfg.half_res, cfg.num_train_imgs, white_bkgd=cfg.white_bkgd)
+    data = load_scene(cfg.dataset, cfg.datapath, cfg.half_res, cfg.num_train_imgs, white_bkgd=cfg.white_bkgd)
     rd = RayDataset.from_blender(data, device)
     rays, pixels = rd.rays["train"], rd.pixels["train"]
+    # mip's cone radius: a pixel's world-space half-width at unit distance
+    # (2 / sqrt(12) times the direction grid's spacing 1 / f; mip-NeRF sec. 3.1)
+    base_radius = 2.0 / math.sqrt(12.0) / rd.f if cfg.mip else 0.0
+    if cfg.mip_multiscale:  # the pyramid's 8-column rays: only the sampler's pool; renders and checkpoints as before
+        rays, pixels = multiscale_train_arrays(data, base_radius, device)
     if cfg.depth_loss_weight > 0:  # the metric depth rides as a 4th pixel channel (step.py splits it)
         md = data.splits["train"].metric_depth
         if md is None:
@@ -176,9 +187,6 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
                 state, frozen = make_train_state(cfg_frozen, model, device), True
             ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} at step {state.step}")
-    # mip's cone radius: a pixel's world-space half-width at unit distance
-    # (2 / sqrt(12) times the direction grid's spacing 1 / f; mip-NeRF sec. 3.1)
-    base_radius = 2.0 / math.sqrt(12.0) / rd.f if cfg.mip else 0.0
     step_fns = {}
 
     def step_fn_for(pose: bool):
@@ -187,7 +195,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         if pose not in step_fns:
             c = cfg if pose else cfg_frozen
             step_fns[pose] = build_train_step(c, model, base_radius=base_radius,
-                                              **({"rays_per_image": n_pix} if aux else {}))
+                                              **({"rays_per_image": n_pix} if aux or cfg.train_im_idxs else {}))
         return step_fns[pose]
 
     eval_settings = dataclasses.replace(render_settings(cfg, base_radius), sigma_noise=0.0)  # no training noise

@@ -293,10 +293,12 @@ def build_x16_mip(rays_b: torch.Tensor, edges: torch.Tensor, pix_b: torch.Tensor
     at (B, N + 1) interval ``edges``: the frustum Gaussians' means in rows
     0..2, unit dirs 3..5, the interval widths 6, their near edges t0 7,
     the gt colour 8..10, the diagonal variances 11..13, the ray's loss
-    weight 14 (1: multiscale training's footprint weights are not
-    ported)."""
+    weight 14. 8-column rays (multiscale training) carry their own cone
+    radius in column 6 and their loss weight in column 7; 6-column rays
+    take the scalar ``base_radius`` and weight 1."""
     B, N = edges.shape[0], edges.shape[1] - 1
-    meanT, unitT, varT, _ = frustum_gaussians_T(rays_b, edges, base_radius, shape)
+    per_ray = rays_b.shape[1] >= 8
+    meanT, unitT, varT, _ = frustum_gaussians_T(rays_b, edges, rays_b[:, 6:7] if per_ray else base_radius, shape)
     t0, t1 = edges[:, :-1], edges[:, 1:]
     x = torch.zeros((16, B, N), dtype=torch.float32, device=rays_b.device)
     x[0:3] = meanT
@@ -305,7 +307,7 @@ def build_x16_mip(rays_b: torch.Tensor, edges: torch.Tensor, pix_b: torch.Tensor
     x[7] = t0
     x[8:11] = pix_b[:, :3].T[:, :, None]
     x[11:14] = varT
-    x[14] = 1.0
+    x[14] = rays_b[:, 7:8] if per_ray else 1.0
     return x.reshape(16, B * N)
 
 
@@ -496,8 +498,9 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     interval edges): ``render_rays_mip``, the MSE, ``mip_coarse_weight``
     times the coarse level's plus the fine level's at ``mip_levels: 2``
     (the fine edges resampled, or ``edges_fine``), the depth term of the
-    last level, the interval distortion at ``mip_levels: 1``.
-    ``generator`` draws the importance samples (the quantiles with
+    last level, the interval distortion at ``mip_levels: 1``; with
+    8-column rays (multiscale training) each ray's squared error weighed by
+    its column 7 and its cone by its column 6. ``generator`` draws the importance samples (the quantiles with
     ``det_fine``) and the sigma noise (or ``noise``, a (B, N) standard
     normal, is taken; under mip it is always drawn). Pose refinement: the
     rays refined by the deltas ``cams`` of their images ``im_b`` first (the
@@ -517,6 +520,9 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
 
     def mse(rgb):
         return torch.mean((rgb - pix_b) ** 2)
+
+    def mip_mse(rgb):  # multiscale: the footprint-area loss weight rides ray column 7 (JAX :557-560, :587-589)
+        return torch.mean(rays_b[:, 7:8] * (rgb - pix_b) ** 2) if rays_b.shape[1] >= 8 else mse(rgb)
 
     if cfg.proposal:
         out, (ts_p, w_prop, ts_f) = render_rays_proposal(field, rays_b, generator, settings, det_fine=det_fine,
@@ -540,10 +546,10 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
                                return_coarse=True)
         if cfg.mip_levels == 2:
             out = outs[1]
-            loss = cfg.mip_coarse_weight * mse(outs[0].rgb) + mse(out.rgb)
+            loss = cfg.mip_coarse_weight * mip_mse(outs[0].rgb) + mip_mse(out.rgb)
         else:
             out = outs
-            loss = mse(out.rgb)
+            loss = mip_mse(out.rgb)
         if gt_d is not None:
             loss = loss + cfg.depth_loss_weight * _depth_term(out, gt_d)
         if cfg.distortion_loss_weight > 0:
@@ -591,12 +597,19 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     the frame's cone radius a unit of t, ``2 / sqrt(12) / focal`` (the
     loop passes it). ``pose_opt`` and ``appearance_dim`` need
     ``rays_per_image`` (H * W: ray i belongs to image i // rays_per_image)
-    and a state with ``cams`` / ``app``."""
+    and a state with ``cams`` / ``app``; so does ``train_im_idxs``, whose
+    batch is a random image of the list and a random pixel of it for each
+    ray (the reference's select_imgs mode). Multiscale training
+    (``mip_multiscale``) draws 8-column rays from the pyramid pool, each
+    with its cone radius and loss weight."""
     if cfg.mip and base_radius <= 0:
         raise ValueError(
             "cfg.mip=True needs base_radius > 0 (2/sqrt(12)/focal; the train driver passes it automatically)"
         )
     aux = cfg.pose_opt or cfg.appearance_dim > 0
+    if cfg.train_im_idxs and rays_per_image is None:
+        raise ValueError("cfg.train_im_idxs needs rays_per_image (= H*W) to map image indices to ray rows; train() "
+                         "passes it")
     if aux and rays_per_image is None:
         raise ValueError("pose_opt / appearance_dim need rays_per_image (= H*W) to map sampled rays to their "
                          "images; train() passes it")
@@ -653,9 +666,20 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
         loss.backward()
         return loss.detach()
 
+    def sample_idx(g: torch.Generator, n_rows: int, device) -> torch.Tensor:
+        """The batch's ray rows: uniform over the split, or under
+        ``train_im_idxs`` a random listed image and a random pixel of it for
+        each ray (JAX ``sample_idx``)."""
+        B = cfg.batch_size
+        if not cfg.train_im_idxs:
+            return torch.randint(0, n_rows, (B,), generator=g, device=device)
+        listed = torch.tensor(cfg.train_im_idxs, dtype=torch.int64, device=device)
+        im = listed[torch.randint(0, len(listed), (B,), generator=g, device=device)]
+        return im * rays_per_image + torch.randint(0, rays_per_image, (B,), generator=g, device=device)
+
     def step_fn(state: TrainState, rays: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
         g = state.generator
-        idx = torch.randint(0, rays.shape[0], (cfg.batch_size,), generator=g, device=rays.device)
+        idx = sample_idx(g, rays.shape[0], rays.device)
         ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
                                   space=cfg.sampling_space)
         state.optimizer.zero_grad(set_to_none=True)

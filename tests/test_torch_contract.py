@@ -471,7 +471,7 @@ def test_contract_rides_the_sidecar_and_eval_and_serve_rebuild_both_nets(tmp_pat
 def test_unbounded_field_and_orbit_cameras_match_jax():
     """The ``unbounded`` style's field (the blob cluster and the shell at
     radius 20) and ``orbit_cameras`` with varied radii against JAX's;
-    the ``hard`` style raises (ROADMAP Queue A item 4)."""
+    an unknown style raises before anything is written."""
     rng = np.random.default_rng(14)
     u = rng.normal(size=(600, 3))
     locs = (u / np.linalg.norm(u, axis=1, keepdims=True) * rng.uniform(0, 24, (600, 1))).astype(np.float32)
@@ -483,8 +483,9 @@ def test_unbounded_field_and_orbit_cameras_match_jax():
         np.testing.assert_allclose(synthetic.orbit_cameras(7, **kw), jsynthetic.orbit_cameras(7, **kw), atol=1e-6)
     radii = np.linalg.norm(synthetic.orbit_cameras(7, seed_jitter=3, r_range=(3.0, 6.0))[:, :3, 3], axis=1)
     assert (radii >= 3.0).all() and (radii <= 6.0).all() and radii.std() > 0.1
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        synthetic.write_blender_scene("unused", style="hard")
+    with pytest.raises(ValueError, match="unknown synthetic style"):
+        synthetic.write_blender_scene("unused", style="glass")
+    assert not os.path.exists("unused")
 
 
 def test_train_and_evaluate_the_360_recipe_on_an_unbounded_scene(tmp_path, capsys, monkeypatch):

@@ -2208,3 +2208,115 @@ def test_contract_pose_and_appearance_steps_on_the_card_match_xla(dev, kind):
         assert float(state.cams.dr.detach().abs().max()) > 0
     if app_dim:
         assert float(state.app.table.detach().abs().max()) > 0
+
+
+# --- multiscale training: 8-column rays (per-ray cone radii and loss weights) ------------------------------------
+
+def _rays8(B, dev, seed):
+    """(B, 8) rays from a radius-4 shell with radii of the four pyramid
+    scales (s * MIP_RADIUS) and area weights s^2 over their mean, and gt
+    colours."""
+    rays, pix = _rays_mip(B, dev, seed)
+    s = torch.from_numpy(np.random.default_rng(seed + 3).choice([1.0, 2.0, 4.0, 8.0], B).astype(np.float32)).to(dev)
+    w = s * s
+    return torch.cat([rays, (s * MIP_RADIUS)[:, None], (w / w.mean())[:, None]], 1), pix
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("core", ["mip1", "mip2", "proposal"])
+def test_multiscale_cores_on_the_card_match_plain(dev, monkeypatch, core, dtype):
+    """The fused mip cores on 8-column rays (rows 11..13 from each ray's
+    own cone, row 14 its loss weight) with the CUDA B1 against the same
+    cores with B1's plain version: one level, two levels (the same fine
+    edges), mip x proposal (the same probe and fine edges, the opaque
+    tail); loss and gradients within B1's bounds, every launch cone-cast.
+    The weights reach the loss: doubled, they double the MSE (the whole
+    loss of the mip cores, all but the interlevel loss under proposal)."""
+    from nerf_simple_tpu_torch.models.proposal import ProposalField, ProposalMLP, ProposalPair, init_proposal_params
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, B, N = NerfMLP(Lp=4, Ld=2, H=64), 64, 32
+    rays, pix = _rays8(B, dev, 11)
+    rng = np.random.default_rng(12)
+    edges, edges_f = (torch.from_numpy(np.sort(rng.uniform(2, 6, (B, N + 1)), -1).astype(np.float32)).to(dev)
+                      for _ in range(2))
+    edges_p = torch.from_numpy(np.sort(rng.uniform(2, 6, (B, 17)), -1).astype(np.float32)).to(dev)
+
+    def run(r):
+        if core == "proposal":
+            pm = ProposalMLP(4, 2, 32)
+            pair = ProposalPair(ProposalField.from_jax_params(init_proposal_params(0, pm), dev, pm),
+                                NerfField.from_jax_params(init_nerf_params(1, model), dev, model))
+            loss = step_mod.mip_proposal_fused_loss(pair, r, pix, edges_p, None, N, dtype, model, 0.5,
+                                                    opaque_tail=True, edges_f=edges_f)[0]
+            return loss, pair
+        field = NerfField.from_jax_params(init_nerf_params(1, model), dev)
+        loss = step_mod.mip_fused_loss(field, r, pix, edges, None, dtype, model, 0.5, mip_levels=int(core[-1]),
+                                       edges_fine=edges_f)
+        return loss, field
+
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            def plain(w, x, N, dt, m, *a, **kw):
+                with torch.no_grad():
+                    return mlp.fused_train_step_plain(mlp._cast_weights(w, dt), x, N, dt, m, *a, **kw)
+            monkeypatch.setattr(step_mod, "fused_train_step", plain)
+        b1 = mlp.fused_train_step
+        before = (b1.launches, b1.mip_launches)
+        loss, net = run(rays)
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()},
+                      (b1.launches - before[0], b1.mip_launches - before[1]))
+    monkeypatch.undo()
+    (loss, grads, launched), (loss_p, grads_p, launched_p) = runs["kernel"], runs["plain"]
+    n = 2 if core == "mip2" else 1
+    assert launched == (n, n) and launched_p == (0, 0)
+    assert abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for name, gp in grads_p.items():
+        assert bool(torch.isfinite(grads[name]).all())
+        err = ((grads[name] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (name, err)
+    doubled = rays.clone()
+    doubled[:, 7] *= 2.0
+    loss2 = run(doubled)[0].item()
+    if core == "proposal":
+        assert loss2 > (1 + 10 * LOSS_TOL[dtype]) * loss
+    else:
+        assert abs(loss2 / (2 * loss) - 1) <= 2 * LOSS_TOL[dtype]
+
+
+def test_multiscale_pallas_step_matches_xla_on_the_card(dev):
+    """One f32 multiscale step (mip_levels 2) from one state and one seed on
+    a pool of 8-column rays: the fused core (two cone-cast B1 launches,
+    each counted in C by the weight-gradient sums and the backward tile
+    kernel) against the xla autograd step (the weighted MSE of
+    ``render_rays_mip`` at both levels): the losses within JAX's rule
+    (rtol 2e-4); then a bf16 pallas step moves the field."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    model = NerfMLP(Lp=4, Ld=2, H=64)
+    rays, pixels = _rays8(1000, dev, 13)
+    losses = {}
+    for backend in ("pallas", "xla"):
+        cfg = TrainConfig(datapath="d", Nf=32, batch_size=256, backend=backend, compute_dtype="f32", net_H=64,
+                          net_Lp=4, net_Ld=2, mip=True, mip_levels=2, mip_multiscale=True)
+        state = make_train_state(cfg, model, dev)
+        b1 = mlp.fused_train_step
+        before = (b1.launches, b1.mip_launches, b1.weights_launches)
+        mlp.wgrad_sums_launches(reset=True)
+        mlp.bwd_tile_launches(reset=True)
+        losses[backend] = build_train_step(cfg, model, base_radius=0.5)(state, rays, pixels).item()
+        torch.cuda.synchronize()
+        n = 2 if backend == "pallas" else 0
+        assert (b1.launches, b1.mip_launches, b1.weights_launches) == (before[0] + n, before[1] + n, before[2] + n // 2)
+        if backend == "pallas":
+            assert mlp.wgrad_sums_launches() == 2 and mlp.bwd_tile_launches() == 2
+    np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=2e-4, atol=1e-6)
+    cfg = TrainConfig(datapath="d", Nf=32, batch_size=256, backend="pallas", compute_dtype="bf16", net_H=64,
+                      net_Lp=4, net_Ld=2, mip=True, mip_levels=2, mip_multiscale=True)
+    state = make_train_state(cfg, model, dev)
+    w0 = state.field.trunk1.weight.detach().clone()
+    out = build_train_step(cfg, model, base_radius=0.5)(state, rays, pixels)
+    assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.trunk1.weight)

@@ -1,10 +1,13 @@
 """The port's data path on CPU against the JAX package: the PNG reader
 against cv2, the synthetic scene against JAX ``render_gt``, the Blender
 loader against the JAX loader on a JAX-written scene, the device ray set
-(mirrors tests/test_data.py)."""
+(mirrors tests/test_data.py); the loaders and options of ROADMAP Queue A
+item 4: the ``hard`` style, the tiny_nerf npz (and train() + eval on it),
+the test split's depth and normal maps, ``train_im_idxs``."""
 
 import json
 import os
+import re
 import struct
 import zlib
 
@@ -337,3 +340,156 @@ def test_png_reader_probe_writes_what_it_times(ftype, capsys, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["png_reader", "--size", "24", "--reps", "1", "--filter", str(ftype)])
     png_reader.main()
     assert json.loads(capsys.readouterr().out)["decode_s"] > 0
+
+
+# --- the loaders and options of ROADMAP Queue A item 4 -------------------------------------------------------
+
+
+def test_hard_style_matches_jax_and_its_scene_is_sharp_and_sparse(tmp_path):
+    """The ``hard`` style (sharp-edged boxes, near-binary density) against
+    JAX's field and ``render_gt``, then JAX's statistics of it
+    (tests/test_data.py:180-210): ~2% of [-2, 2]^3 occupied, saturated
+    interiors, a thin transition shell; a written scene loads in both
+    loaders alike, the machine in view and the background empty."""
+    g = np.stack(np.meshgrid(*([np.linspace(-2, 2, 32, dtype=np.float32)] * 3), indexing="ij"), -1).reshape(-1, 3)
+    got = synthetic.field(torch.from_numpy(g), style="hard").numpy()
+    np.testing.assert_allclose(got, np.asarray(jsynth.field(jnp.asarray(g), style="hard")), rtol=1e-5, atol=1e-4)
+    sigma = got[:, 3]
+    assert 0.005 < float((sigma > 0).mean()) < 0.06
+    assert float((sigma > 30.0).mean()) > 0.001
+    assert float(((sigma > 0) & (sigma < 30.0)).mean()) < 0.02
+    poses = jsynth.orbit_cameras(2, seed_jitter=3)
+    want = jsynth.render_gt(poses, 12, 12, 14.0, N=576, style="hard")
+    np.testing.assert_allclose(synthetic.render_gt(poses, 12, 12, 14.0, N=576, style="hard"), want, atol=1e-4)
+    d = str(tmp_path / "hard")
+    synthetic.write_blender_scene(d, n_train=2, n_val=1, n_test=1, H=24, W=24, style="hard")
+    data = blender.load_blender(d, half_res=False)
+    np.testing.assert_array_equal(data.splits["train"].images, jblender.load_blender(d, half_res=False).splits[
+        "train"].images)
+    cover = float((data.splits["train"].images[0].sum(-1) > 0.05).mean())
+    assert 0.05 < cover < 0.7
+
+
+def _tiny_npz(path, n=106, H=20, seed=0, scene=False):
+    """A tiny_nerf npz: seeded noise as JAX's test writes it
+    (tests/test_data.py:106), or the blob scene's renders from an orbit."""
+    rng = np.random.default_rng(seed)
+    if scene:
+        poses = synthetic.orbit_cameras(n, seed_jitter=3)
+        focal = H / (2.0 * np.tan(synthetic._FOV_X / 2.0))
+        images = synthetic.render_gt(poses, H, H, focal, N=64)
+    else:
+        poses, focal = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1)), 25.0
+        poses[:, :3, 3] = rng.normal(size=(n, 3))
+        images = rng.uniform(0, 1, (n, H, H, 3)).astype(np.float32)
+    np.savez(path, images=images, poses=poses, focal=np.float64(focal))
+    return path
+
+
+def test_load_tiny_nerf_matches_jax(tmp_path):
+    """``load_tiny_nerf`` against JAX's on an npz the test writes: 100
+    train images, the rest split between val and test, H, W and focal;
+    fewer images keep two held out."""
+    from nerf_simple_tpu.data.tiny_nerf import load_tiny_nerf as jload
+    from nerf_simple_tpu_torch.data.tiny_nerf import load_tiny_nerf
+
+    for n in (106, 7):
+        p = _tiny_npz(str(tmp_path / f"tiny{n}.npz"), n=n)
+        got, want = load_tiny_nerf(p), jload(p)
+        assert (got.H, got.W, got.f) == (want.H, want.W, want.f) == (20, 20, 25.0)
+        for s in ("train", "val", "test"):
+            assert len(got.splits[s]) == len(want.splits[s])
+            np.testing.assert_array_equal(got.splits[s].images, want.splits[s].images)
+            np.testing.assert_array_equal(got.splits[s].poses, want.splits[s].poses)
+    assert [len(got.splits[s]) for s in ("train", "val", "test")] == [5, 1, 1]
+    assert [len(load_tiny_nerf(str(tmp_path / "tiny106.npz")).splits[s]) for s in ("train", "val", "test")] == [100, 3, 3]
+    rd = RayDataset.from_blender(load_tiny_nerf(str(tmp_path / "tiny106.npz")), "cpu")
+    assert rd.rays["train"].shape == (100 * 400, 6)
+
+
+def test_train_and_evaluate_a_tiny_nerf_scene_on_cpu(tmp_path, capsys, monkeypatch):
+    """``dataset: tiny_nerf`` through train() (20 steps, sampling only
+    train image 0 and 2 under ``train_im_idxs``: the loss falls) and
+    evaluate.test on the same npz (a still of the test split, its PNGs);
+    ``dataset: llff`` still raises in both configs."""
+    import sys
+
+    from nerf_simple_tpu_torch.config import TestConfig, TrainConfig
+    from nerf_simple_tpu_torch.evaluate import test
+    from nerf_simple_tpu_torch.train.loop import train
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    npz = _tiny_npz(str(tmp_path / "tiny.npz"), n=8, H=16, scene=True)
+    cfg = TrainConfig(datapath=npz, dataset="tiny_nerf", savepath=str(tmp_path / "models"), exp_name="tiny", Nf=16,
+                      num_iters=30, batch_size=128, net_H=32, net_Lp=4, net_Ld=2, steps_per_call=10, ckpt_loss=1,
+                      ckpt_images=10**6, ckpt_model=10**6, train_im_idxs=(0, 2), backend="pallas",
+                      log_dir=str(tmp_path / "logs"))
+    state = train(cfg, device="cpu")
+    losses = [float(v) for v in re.findall(r"loss: ([0-9.]+)", capsys.readouterr().out)]
+    assert state.step == 30 and len(losses) == 30 and np.mean(losses[-5:]) < np.mean(losses[:5])
+    test(TestConfig(loadpath=str(tmp_path / "models" / "tiny"), datapath=npz, dataset="tiny_nerf",
+                    savepath=str(tmp_path / "results"), exp_name="tiny", im_idxs=(0,), N_samples=16, batch_size=256,
+                    backend="pallas"), device="cpu")
+    out = capsys.readouterr().out
+    assert re.search(r"im 0: mse=[0-9.]+ psnr=[0-9.]+ ssim=", out)
+    assert os.path.exists(str(tmp_path / "results" / "tiny" / "rgb_0.png"))
+    for cls, kw in ((TrainConfig, dict(datapath="d")), (TestConfig, dict(loadpath="m", datapath="d"))):
+        with pytest.raises(NotImplementedError, match="item 6, LLFF"):
+            cls(**kw, dataset="llff")
+
+
+@pytest.mark.parametrize("num_imgs", [-1, 1])
+def test_load_test_maps_matches_jax(tmp_path, num_imgs):
+    """``load_blender(load_test_maps=True)`` against JAX's on depth and
+    normal PNGs the test writes beside the test images (greyscale and
+    RGBA, named as lego's ``r_<i>_depth_0000.png``): natural-sorted, read
+    as cv2.imread reads them, cut to the split's count; without the
+    argument, or on other splits, there are none."""
+    d = str(tmp_path / "scene")
+    synthetic.write_blender_scene(d, n_train=1, n_val=1, n_test=2, H=12, W=12)
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        for kind, C in (("depth", 1), ("normal", 4)):
+            img = rng.integers(0, 256, (12, 12, C) if C > 1 else (12, 12), dtype=np.uint8)
+            with open(os.path.join(d, "test", f"r_{i}_{kind}_0000.png"), "wb") as fh:
+                fh.write(encode_png(img))
+    got = blender.load_blender(d, half_res=True, num_imgs=num_imgs, load_test_maps=True)
+    want = jblender.load_blender(d, half_res=True, num_imgs=num_imgs, load_test_maps=True)
+    n = 2 if num_imgs < 0 else 1
+    for kind in ("depth_images", "normal_images"):
+        g, w = getattr(got.splits["test"], kind), getattr(want.splits["test"], kind)
+        assert g.shape == w.shape == (n, 12, 12, 3) and g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+        assert getattr(got.splits["train"], kind) is None
+    assert got.splits["test"].images.shape == (n, 6, 6, 3)
+    assert blender.load_blender(d, half_res=True).splits["test"].depth_images is None
+
+
+@pytest.mark.parametrize("idxs", [(0,), (1, 3)], ids=["image-0", "images-1-3"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_train_im_idxs_restricts_sampling(jax_scene, idxs, backend):
+    """``train_im_idxs``: every sampled ray comes from a listed image
+    (JAX tests/test_train.py:350-375): the rows of every other image hold
+    NaN, so one stray row makes the loss NaN; 10 steps stay finite on the
+    autograd and the fused step. Without ``rays_per_image`` the step does
+    not build."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train.step import build_train_step, make_train_state
+
+    rd = RayDataset.from_blender(blender.load_blender(jax_scene, half_res=True), "cpu")
+    per_img = rd.H * rd.W
+    rays, pixels = rd.rays["train"].clone(), rd.pixels["train"].clone()
+    for im in range(4):
+        if im not in idxs:
+            rays[im * per_img : (im + 1) * per_img] = float("nan")
+            pixels[im * per_img : (im + 1) * per_img] = float("nan")
+    cfg = TrainConfig(datapath="d", Nf=8, batch_size=64, net_H=32, net_Lp=4, net_Ld=2, num_iters=10,
+                      train_im_idxs=idxs, backend=backend)
+    model = NerfMLP(Lp=4, Ld=2, H=32)
+    state = make_train_state(cfg, model, "cpu")
+    step = build_train_step(cfg, model, rays_per_image=per_img)
+    losses = [float(step(state, rays, pixels)) for _ in range(10)]
+    assert np.isfinite(losses).all()
+    with pytest.raises(ValueError, match="rays_per_image"):
+        build_train_step(cfg, model)

@@ -162,6 +162,7 @@ def test_test_config_matches_jax(path):
     tp = d["test_params"]
     unported = {k for k, v in tp.items() if k in config._TEST_UNPORTED
                 and v != config._TEST_UNPORTED[k][0] and not (k == "num_data_shards" and v == 0)}
+    unported |= {"dataset"} if tp.get("dataset") == "llff" else set()  # a ported key whose llff value is not
     if unported:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             config.test_config_from_dict(d)

@@ -124,8 +124,8 @@ def test_lego_yaml_loads_and_unported_keys_raise():
     cfg = config.train_config_from_dict(config.load_yaml("configs/lego.yaml"))
     assert (cfg.batch_size, cfg.Nf, cfg.compute_dtype, cfg.steps_per_call) == (4096, 128, "bf16", 100)
     assert cfg.val_idxs == (0, 1) and cfg.render_dtype == torch.bfloat16
-    for key, value in (("mip_multiscale", True), ("num_data_shards", 4),
-                       ("model_family", "hashgrid"), ("train_im_idxs", [0]), ("occupancy", True)):
+    for key, value in (("profile_dir", "prof"), ("num_data_shards", 4),
+                       ("model_family", "hashgrid"), ("debug_nan", True), ("occupancy", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.train_config_from_dict({"datapath": "d", key: value})
     assert config.train_config_from_dict({"datapath": "d", "contract": True}).contract  # ported
