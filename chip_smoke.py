@@ -270,7 +270,24 @@ NerfMLP(Lp=10, Ld=4, H=256):
    1/2, 1/4 and 1/8 against block-mean gt beside phase 12's single-scale
    model; 20 steps of mip x proposal + multiscale; (c) 20 steps each on a
    tiny_nerf npz and on the hard scene;
-20. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
+20. occupancy-grid sampling and mesh export (``configs/lego_occ.yaml``:
+   Nf 64 placed by a 64^3 EMA grid over [-2, 2]^3, 32 probe bins, a refresh
+   every 16 steps), on the phase-7 scene: (a) the grid's density probe
+   through the forward kernel at one refresh's 262,144 cell points, f32
+   and bf16, against plain; ms of the probe, one refresh and the sampler;
+   (b) the config's keys through ``train()`` for 300 steps (cut from
+   10,000): one B1 launch a step at the sampler's ts, 19 refreshes, the
+   loss falls; the step's wall, host issue, kernel ms by pass (B1, the
+   refresh's forward, before / after B1, Adam) and idle share beside the
+   same config without occupancy; a ``debug_nan`` step on NaN rays raises;
+   (c) ``evaluate.test`` with its ``test_params`` (the grid rebuilt from
+   the checkpoint, ``occ_group`` 4) on the 2 test images, PSNR no lower
+   than stratified at the same N less 0.21 dB (JAX's mse rule); a
+   ``fused_eval`` frame with the grid (B3) against the unfused one; a frame
+   served over HTTP with ``occupancy``; (d) ``python -m
+   nerf_simple_tpu_torch.export_mesh`` of the checkpoint at resolution 128:
+   faces, a valid .obj, its seconds;
+21. the padding probe (B4) at full reps: kernel vs plain for K = 40, 72,
    80, 128, ms a launch, TFLOP/s and the ratios.
 
 Every failed check raises, so the script exits non-zero without its last
@@ -1026,9 +1043,10 @@ PROP_MATMUL = re.compile(r"gemm|gemv|cutlass|xmma|Kernel2", re.IGNORECASE)
 
 def profile_step(step, others: dict | None = None, host: dict | None = None, split_b1: bool = False,
                  split_proposal: bool = False, split_mip: bool = False, split_pose: bool = False,
-                 rest: str = "rays and compositing", forwards: int = 1) -> dict:
+                 rest: str = "rays and compositing", forwards: int = 1, split_occ: bool = False,
+                 steps: int = 10) -> dict:
     """Device time of each kernel group in one call of ``step`` (ms, mean of
-    10 calls after 3 warm-up) under torch.profiler; {} when the profiler
+    ``steps`` calls after 3 warm-up) under torch.profiler; {} when the profiler
     sees no device activity. ``others``, where given, gets the ms of each
     kernel of the group "other" by name; ``host``, the host's self time
     of each torch op a call (ms; the profiler's own cost included). With
@@ -1055,7 +1073,10 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     and reduce), "input grad" (csrc/input_grad.cuh), "adam" (by name), and
     the rest to ``rest`` (the ray refinement or the code gather, the input
     build, the pack, torch compositing and their autograd); ``others``
-    then gets that group by kernel."""
+    then gets that group by kernel. With ``split_occ`` (an occupancy step:
+    a refresh's forward launch every few steps, one B1 launch), as
+    ``split_proposal`` but a forward launch that no compositing follows is
+    the refresh's ("refresh"), and no kernel is "proposal matmuls"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,7 +1084,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
     groups = (("sums", "sums_"), ("sums_reduce", "reduce_kernel"), ("bwd_tile", "bwd_kernel"),
@@ -1073,9 +1094,37 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)),  # a user annotation spans kernels
                      key=lambda e: e.time_range.start)
-    b1, n_b1, after_b1, phase, n_fwd = None, 0, False, "before B1", 0
+    b1, n_b1, after_b1, phase, n_fwd, pending = None, 0, False, "before B1", 0, None
+
+    def add(group, e):
+        ms = e.time_range.elapsed_us() / (steps * 1e3)  # ms a step
+        out[group] = out.get(group, 0.0) + ms
+        if group in ("other", rest) and others is not None:
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + ms
+
     for e in kernels:
         group = next((g for g, key in groups if key in e.name), "other")
+        if split_occ:
+            if group == "weight_image" and b1 is None:  # a B1 launch or a refresh's forward: compositing tells
+                b1, pending = "B1", []
+            if pending is not None:
+                if group in ("weight_image", "fwd_tile"):
+                    pending.append(e)
+                    continue
+                for p in pending:
+                    add("B1" if group == "compositing" else "refresh", p)
+                b1 = "B1" if group == "compositing" else None
+                pending = None
+            if b1:
+                group = b1
+                if "reduce_kernel" in e.name and "native" not in e.name:  # the sums' reduce, B1's last
+                    b1, after_b1 = None, True
+            elif any(k in e.name for k in STEP_GROUPS[1][1]):
+                group, after_b1 = "adam", False
+            else:
+                group = "after B1" if after_b1 else "before B1"
+            add(group, e)
+            continue
         if split_pose:
             if group == "sums_reduce" and "native" in e.name:  # a torch reduction, not the sums'
                 group = "other"
@@ -1121,14 +1170,11 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
             last = b1 is not None and group == "sums_reduce"  # the last one
             group = b1 or next((g for g, keys in STEP_GROUPS if any(k in e.name for k in keys)), "other")
             b1 = None if last else b1
-        ms = e.time_range.elapsed_us() / 1e4  # ms a step over 10 steps
-        out[group] = out.get(group, 0.0) + ms
-        if group in ("other", rest) and others is not None:
-            others[e.name[:60]] = others.get(e.name[:60], 0.0) + ms
+        add(group, e)
     if host is not None:
         for a in prof.key_averages():
             if a.self_cpu_time_total > 0:
-                host[a.key[:60]] = a.self_cpu_time_total / 1e4  # us over 10 calls -> ms a call
+                host[a.key[:60]] = a.self_cpu_time_total / (steps * 1e3)  # us over the calls -> ms a call
     return out
 
 
@@ -1686,15 +1732,15 @@ def phase_dist_kernels(dev, scene, model, mlp):
                     out8, rail = mlp.fused_mlp_forward(w, x16[:8].contiguous(), dt, model), mlp._dist_rail(dist, BATCH)
                     plain_composite_ms = cuda_ms(lambda: mlp._composite_grad(out8, x16, Np, rail))
                     del out8
-                    if dt == torch.bfloat16:
-                        turns = walls_in_turns({"off": off, "zero": zero, "on": on})
-                    else:  # a call of 47-93 ms: runs of 3 hide the wrapper's host time as well
-                        turns = {"zero": float("nan"), **walls_in_turns({"off": off, "on": on}, steps=3)}
+                    if dt == torch.bfloat16:  # runs of 5 calls of 6-12 ms hide the wrapper's host time
+                        turns = walls_in_turns({"off": off, "zero": zero, "on": on}, steps=5)
+                    else:  # a call of 47-93 ms: single calls, the wrapper's host time (~0.1 ms) under 0.3% of one
+                        turns = {"zero": float("nan"), **walls_in_turns({"off": off, "on": on}, steps=1)}
                     prof = {k: profile_step(f) for k, f in (("off", off), ("on", on))} if dt == torch.bfloat16 else {}
                     st = dict(err=abs_err, rel=rel, loss_err=loss_err, rows=x16.shape[1], N=Np, dist_added=added,
                               ms=turns["on"], ms_no_rail=turns["off"], ms_rail_weight_0=turns["zero"], profile=prof,
-                              composite_ms=kernel_ms(on, "composite_grad"),
-                              composite_ms_no_rail=kernel_ms(off, "composite_grad"),
+                              composite_ms=kernel_ms(on, "composite_grad", calls=20 if prof else 5),
+                              composite_ms_no_rail=kernel_ms(off, "composite_grad", calls=20 if prof else 5),
                               plain_composite_ms=plain_composite_ms,
                               plain_ms=cuda_ms(lambda: mlp.fused_train_step_plain(w, x16, Np, dt, model, dist=dist),
                                                reps=3))
@@ -1703,11 +1749,12 @@ def phase_dist_kernels(dev, scene, model, mlp):
                           f"{DIST_LAMBDA}): grad err {rel:.3e} of max (tol {GRAD_TOL['B1', dt]:.0e}), max abs "
                           f"{abs_err:.3e}; loss rel err {loss_err:.2e} (tol {LOSS_TOL[dt]:.0e}), the rail adds "
                           f"{added:.3e}; B1 {st['ms']:.3f} ms with the rail, {st['ms_no_rail']:.3f} without, "
-                          f"{st['ms_rail_weight_0']:.3f} with it at weight 0 (runs of {10 if prof else 3} calls, "
+                          f"{st['ms_rail_weight_0']:.3f} with it at weight 0 (runs of {5 if prof else 1} calls, "
                           "median of 5, in turns)" + "".join(f"; profiled {k}: " + ", ".join(
                               f"{g} {v:.3f}" for g, v in sorted(p.items(), key=lambda kv: -kv[1])) for k, p in prof.items())
                           + f"; composite_grad {st['composite_ms']:.4f} ms with, "
-                          f"{st['composite_ms_no_rail']:.4f} without (profiled, median of 20), its plain version (torch "
+                          f"{st['composite_ms_no_rail']:.4f} without (profiled, median of {20 if prof else 5}), its plain "
+                          "version (torch "
                           f"cumsums, with the rail) {plain_composite_ms:.3f} ms; plain B1 {st['plain_ms']:.3f} ms",
                           flush=True)
                     check(rel <= GRAD_TOL["B1", dt] and loss_err <= LOSS_TOL[dt],
@@ -1972,12 +2019,12 @@ def phase_prop_kernels(dev, scene, model, mlp):
             fns = {"weights_and_rail": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model, True, dist),
                    "weights": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model, True),
                    "neither": lambda: mlp.fused_train_step(wts, x16, N_SAMPLES, dt, model)}
-            turns = walls_in_turns(fns, steps=10 if dt == torch.bfloat16 else 3)
+            turns = walls_in_turns(fns, steps=10 if dt == torch.bfloat16 else 1)  # f32: single calls of ~47 ms
             stats[f"turns_{name}"] = turns
             stats[f"plain_ms_{name}"] = cuda_ms(lambda: mlp.fused_train_step_plain(
                 wts, x16, N_SAMPLES, dt, model, True, dist), reps=3)
             print(f"B1 at the proposal batch, {name}, {BATCH * N_SAMPLES} rows (runs of "
-                  f"{10 if dt == torch.bfloat16 else 3} calls, median of 5, in turns): " + ", ".join(
+                  f"{10 if dt == torch.bfloat16 else 1} calls, median of 5, in turns): " + ", ".join(
                       f"{k} {v:.3f} ms" for k, v in turns.items()) + f"; plain (both) {stats[f'plain_ms_{name}']:.3f} ms",
                   flush=True)
     # the core's other pieces alone, bf16: kernel ms a call (profiled) and wall ms a call (runs of 20)
@@ -3198,10 +3245,11 @@ def phase_pose_eval(dev, work, recipe) -> dict:
 # (the kernels' eight rows, full), the steps of the runs through train()
 # (flagship, and each with pose refinement, the hierarchical pair and the
 # proposal scheme), and the exposure-twin recipe's (the JAX package's
-# 1200, tests/test_pose_app.py:513-573) with its bounds: the loss with
-# codes below APP_LOSS_RATIO of the loss without, the twins' brightness
-# ratio in APP_BRIGHTNESS (1 / 0.55 injected).
-APP_DIM, APP_ITERS, APP_SIDE_ITERS, APP_TWIN_ITERS = 8, 100, 60, 1200
+# 1200, tests/test_pose_app.py:513-573, cut to 800 to pay for phase 20; at
+# 1200 the loss ratio was 0.006 and the brightness ratio 1.846) with its
+# bounds: the loss with codes below APP_LOSS_RATIO of the loss without,
+# the twins' brightness ratio in APP_BRIGHTNESS (1 / 0.55 injected).
+APP_DIM, APP_ITERS, APP_SIDE_ITERS, APP_TWIN_ITERS = 8, 100, 60, 800
 APP_LOSS_RATIO, APP_BRIGHTNESS = 0.35, (1.4, 2.3)
 
 
@@ -5534,6 +5582,306 @@ def phase_data_options(dev, work, mlp) -> dict:
     return res
 
 
+# Phase 20 (occupancy, mesh export, debug_nan): configs/lego_occ.yaml's keys; steps cut from its 10,000 to
+# 300, as phases 7, 9, 11 and 12 run: at 100 steps no cell of the rebuilt grid reads alpha above 0.1 (the
+# density is still spread), so its samples are the uniform PDF's quantiles, 0.2 dB under stratified at N 64
+# (measured on the card); at 300 the blobs' cells stand out (PERF.md, section 6).
+OCC_ITERS, OCC_R, MESH_R = 300, 64, 128
+# the eval PSNR with the grid may trail stratified sampling at the same N by
+# no more than JAX's own rule allows (tests/test_occupancy.py:325: mse_occ
+# <= 1.05 mse_strat, i.e. 10 log10(1.05) = 0.212 dB)
+OCC_PSNR_SLACK = 0.21
+
+
+def occ_points(dev, R: int, aabb: float, seed: int) -> torch.Tensor:
+    """One jittered point a cell of the R^3 grid over [-aabb, aabb]^3, as
+    ``update_occ_grid`` places its probe (R^3 rows)."""
+    ii = torch.arange(R, dtype=torch.float32, device=dev)
+    corners = torch.stack(torch.meshgrid(ii, ii, ii, indexing="ij"), -1).reshape(-1, 3)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return -aabb + (corners + torch.rand(corners.shape, generator=g, device=dev)) * (2.0 * aabb / R)
+
+
+def phase_occ_kernels(dev, mlp) -> dict:
+    """20a. The occupancy grid's density probe (``ops/occupancy.py::
+    density_fn`` under "pallas") through the forward kernel at one refresh's
+    OCC_R^3 = 262,144 jittered cell points, the flagship from
+    ``derive_seed(SEED, 20)``, f32 and bf16: one launch each, raw sigma
+    against the forward's plain version on the same input (the renderer's
+    ``_kernel_input`` at t = 0, unit -z directions); ms of the probe, its
+    plain version and one refresh (``update_occ_grid``, bf16, CUDA events,
+    median of 5); the sampler alone on a 4096-ray batch (occ_Nb 32, Nf
+    64)."""
+    from nerf_simple_tpu_torch.models.nerf import NerfField, NerfMLP, init_nerf_params
+    from nerf_simple_tpu_torch.ops import occupancy as occ
+    from nerf_simple_tpu_torch.render.renderer import _kernel_input, derive_seed
+
+    model = NerfMLP()
+    field = NerfField.from_jax_params(init_nerf_params(derive_seed(SEED, 20), model), dev)
+    pts = occ_points(dev, OCC_R, 2.0, SEED + 20)
+    dirs = torch.zeros_like(pts)
+    dirs[:, 2] = -1.0
+    x8 = _kernel_input(torch.cat([pts, dirs], 1), torch.zeros((pts.shape[0], 1), device=dev), 8)
+    fwd, stats = mlp.fused_mlp_forward, {"rows": pts.shape[0]}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        probe = occ.density_fn(field, "pallas", dt)
+        before = fwd.launches
+        got = probe(pts)
+        torch.cuda.synchronize()
+        launched = fwd.launches - before
+        w = mlp._cast_weights(mlp.pack_weights(field), dt)
+        with torch.no_grad():
+            want = mlp.fused_mlp_forward_plain(w, x8, dt, model)[3]
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        st = dict(err=err, scale=scale, launched=launched, ms=cuda_ms(lambda: probe(pts)),
+                  plain_ms=cuda_ms(lambda: mlp.fused_mlp_forward_plain(w, x8, dt, model), reps=3))
+        stats[name] = st
+        print(f"occupancy density probe {name} at {stats['rows']} rows (R = {OCC_R}): kernel vs plain max abs sigma "
+              f"err {err:.3e} (tol {TOL[dt]:.0e} x max(1, |sigma| max {scale:.2f})); {launched} forward launch; probe "
+              f"{st['ms']:.3f} ms, plain {st['plain_ms']:.3f} ms", flush=True)
+        check(launched == 1 and err <= TOL[dt] * scale, f"the density probe {name} through the forward kernel")
+    grid = occ.init_occ_grid(OCC_R, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    probe = occ.density_fn(field, "pallas", torch.bfloat16)
+    stats["refresh_ms"] = cuda_ms(lambda: occ.update_occ_grid(grid, probe, g, 2.0, 0.95))
+    rays = torch.cat([4.0 * torch.nn.functional.normalize(torch.randn(BATCH, 3, generator=g, device=dev), dim=1),
+                      torch.randn(BATCH, 3, generator=g, device=dev)], 1)
+    grid = occ.update_occ_grid(grid, probe, g, 2.0, 0.95)
+    stats["sampler_ms"] = cuda_ms(lambda: occ.occupancy_ts(g, rays, grid, 64, 2.0, 6.0, 2.0, Nb=32, floor=0.01))
+    print(f"occupancy: one refresh (bf16 probe, the EMA) {stats['refresh_ms']:.3f} ms; the sampler on {BATCH} rays "
+          f"(Nb 32, N 64) {stats['sampler_ms']:.3f} ms", flush=True)
+    return stats
+
+
+def phase_occ_train(dev, scene, work, mlp) -> dict:
+    """20b. configs/lego_occ.yaml's keys (bf16, pallas, Nf 64, occ_R 64,
+    occ_Nb 32, a refresh every 16 steps) through train() on phase 7's scene,
+    OCC_ITERS steps: one B1 launch a step, a refresh at steps 0, 16, ...
+    (19 in 300, each one forward launch; the step-0 previews' 40 besides),
+    the grid moved off its all-ones start, the loss falls. The step's wall (CUDA
+    events), host issue, kernel ms by pass (B1, before B1: the refresh and
+    the sampler, after B1, Adam; 16 steps profiled, so one refresh) and
+    idle share, beside the same config with ``occupancy: false`` at Nf 64.
+    A ``debug_nan`` step on NaN rays raises, naming NaN and the step.
+    Returns (the stats, the scene's RayDataset for 20c)."""
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.data.blender import load_blender
+    from nerf_simple_tpu_torch.data.dataset import RayDataset
+    from nerf_simple_tpu_torch.models.nerf import NerfMLP
+    from nerf_simple_tpu_torch.train import step as step_mod
+    from nerf_simple_tpu_torch.train.loop import train
+
+    cfg = load_yaml("configs/lego_occ.yaml")
+    cfg.update(datapath=scene, savepath=os.path.join(work, "models"), log_dir=os.path.join(work, "logs_occ"),
+               num_iters=OCC_ITERS, ckpt_loss=1, ckpt_images=10 * OCC_ITERS, ckpt_model=OCC_ITERS, steps_per_call=50)
+    b1, fwd = mlp.fused_train_step, mlp.fused_mlp_forward
+    b1.launches = fwd.launches = 0
+    refreshes = []
+    real_update = step_mod.update_occ_grid
+
+    def counted(grid, *a, **kw):
+        refreshes.append(int((grid == 1).all()))
+        return real_update(grid, *a, **kw)
+
+    step_mod.update_occ_grid = counted
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            state = train(cfg)
+        torch.cuda.synchronize()
+    finally:
+        step_mod.update_occ_grid = real_update
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(OUT, "train_occ_log.txt"), "w") as fh:
+        fh.write(log.getvalue())
+    launches = dict(fused_train_step=b1.launches, fused_mlp_forward=fwd.launches, refreshes=len(refreshes))
+    previews = 4 * -(-H * W // CHUNK)  # step 0: train and val renders of val_idxs [0, 1], 10 chunks each
+    losses = scalars(cfg["log_dir"], "Loss/train")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"train occupancy (lego_occ.yaml): {OCC_ITERS} steps in {train_s:.1f} s with loading and the step-0 "
+          f"previews; launches {launches} (previews {previews}); grid occupied share (> 0.5) "
+          f"{float((state.occ > 0.5).float().mean()):.3f}, mean {float(state.occ.mean()):.3f}; mean loss of the first "
+          f"10 steps {first:.5f}, of the last 10 {last:.5f}", flush=True)
+    check(b1.launches == OCC_ITERS, "one B1 launch an occupancy step")
+    check(len(refreshes) == -(-OCC_ITERS // 16) and refreshes[0] == 1 and sum(refreshes) == 1,
+          "a refresh every 16 steps from the all-ones grid")
+    check(fwd.launches == len(refreshes) + previews, "each refresh and each preview chunk through the forward kernel")
+    check(not bool((state.occ == 1).all()), "the grid moved off its all-ones start")
+    check(len(losses) == OCC_ITERS and all(np.isfinite(losses)) and last < 0.7 * first, "the occupancy loss fell")
+
+    rd = RayDataset.from_blender(load_blender(scene, True, 25), dev)
+    rays, pixels = rd.rays["train"], rd.pixels["train"]
+    tcfg = train_config(cfg)
+    model = NerfMLP()
+    res = dict(launches=launches, train_s=train_s, first=first, last=last, losses=losses[::10],
+               occupied=float((state.occ > 0.5).float().mean()))
+    for name, c in (("occupancy", tcfg), ("stratified", dataclasses.replace(tcfg, occupancy=False))):
+        st = state if name == "occupancy" else step_mod.make_train_state(c, model, dev)
+        step_fn = step_mod.build_train_step(c, model)
+
+        def step():
+            return step_fn(st, rays, pixels)
+
+        walls = step_walls(step)
+        prof = profile_step(step, split_occ=True, steps=16)
+        busy = sum(prof.values())
+        idle = 1 - busy / walls["ms"] if prof else None
+        res[name] = dict(step_ms=walls["ms"], host_ms=walls["host_ms"], walls=walls["walls"], profile=prof, idle=idle)
+        print(f"train step {name} (lego_occ.yaml, Nf 64) bf16: {walls['ms']:.3f} ms a step (CUDA events over 20 steps, "
+              f"median of 5; runs {', '.join(f'{w:.3f}' for w in walls['walls'])}); host issues a step in "
+              f"{walls['host_ms']:.3f} ms; profile over 16 steps, device ms a step: " + (", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(prof.items(), key=lambda kv: -kv[1]))
+                  + f"; kernels {busy:.3f}, idle share {idle:.3f}" if prof else "not measured"), flush=True)
+
+    nan_cfg = dataclasses.replace(tcfg, debug_nan=True)
+    nan_state = step_mod.make_train_state(nan_cfg, model, dev)
+    nan_step = step_mod.build_train_step(nan_cfg, model)
+    try:
+        nan_step(nan_state, torch.full_like(rays[:BATCH], float("nan")), pixels[:BATCH])
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"debug_nan step on NaN rays: {'raised: ' + raised if raised else 'did not raise'}", flush=True)
+    check(raised is not None and "nan" in raised.lower() and "step 0" in raised, "debug_nan raises on NaN rays")
+    loss = nan_step(nan_state, rays[:BATCH * 4], pixels[:BATCH * 4])
+    check(bool(torch.isfinite(loss)) and nan_state.step == 1, "debug_nan passes a clean step")
+    res["debug_nan"] = raised
+    del rays, pixels
+    torch.cuda.empty_cache()
+    return res, rd
+
+
+def phase_occ_eval(dev, scene, work, mlp, rd) -> dict:
+    """20c-d. ``evaluate.test`` with lego_occ.yaml's test_params (the grid
+    rebuilt from the checkpoint: 4 forward launches; N_samples 64 at the
+    deterministic quantiles, occ_group 4) on the 2 test images, beside the
+    same stills at stratified samples (N 64): PSNR with the grid no lower
+    than stratified's less OCC_PSNR_SLACK; one fused_eval frame with the
+    grid (10 B3 launches) against the forward kernel plus torch compositing;
+    one frame served over HTTP by a RenderServer with ``occupancy`` (what
+    ``--occupancy`` builds) matching its render; then ``python -m
+    nerf_simple_tpu_torch.export_mesh`` of the checkpoint at resolution
+    MESH_R (129^3 lattice points through the forward kernel, 9 launches):
+    faces, a valid .obj, its seconds. ``rd``: the scene's RayDataset
+    (20b's)."""
+    from nerf_simple_tpu_torch import evaluate, export_mesh
+    from nerf_simple_tpu_torch.config import load_yaml
+    from nerf_simple_tpu_torch.models.nerf import NerfField
+    from nerf_simple_tpu_torch.ops.occupancy import rebuild_occ
+    from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
+    from nerf_simple_tpu_torch.render.renderer import RenderSettings, derive_seed, render_image, render_rays_chunked
+    from nerf_simple_tpu_torch.serve import RenderServer, decode_png, serve
+    from nerf_simple_tpu_torch.train.metrics import img_psnr
+
+    exp = os.path.join(work, "models", "lego_occ")
+    tp = load_yaml("configs/lego_occ.yaml")["test_params"]
+    tp.update(loadpath=exp, datapath=scene, savepath=os.path.join(work, "results"), im_idxs=[0, 1], animation=False)
+    fwd, b3 = mlp.fused_mlp_forward, mlp.fused_render
+    fwd.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        evaluate.test(tp)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    psnr_occ = [float(m) for m in re.findall(r"psnr=([0-9.]+)", log.getvalue())]
+    n_chunks = -(-H * W // CHUNK)
+    eval_launches = fwd.launches
+    check(eval_launches == 4 + 2 * n_chunks, "the rebuild's 4 probes and each still's chunks through the forward kernel")
+
+    tc = evaluate.test_config_from_dict(tp)
+    field = NerfField.from_jax_params(evaluate.load_params(exp), dev)
+    s = RenderSettings(N=tc.N_samples, backend="pallas", compute_dtype=torch.bfloat16, occ_Nb=tc.occ_Nb,
+                       occ_floor=tc.occ_floor, occ_aabb=tc.occ_aabb, occ_group=tc.occ_group)
+    n = rd.H * rd.W
+    psnr_strat = []
+    for idx in (0, 1):
+        rgb, _ = render_image(field, rd.rays["test"], rd.H, rd.W, idx, derive_seed(tc.seed, idx), s, chunk=tc.batch_size)
+        gt = rd.pixels["test"][idx * n : (idx + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
+        psnr_strat.append(float(img_psnr(gt, rgb)))
+    print(f"eval lego_occ test_params (N_samples {tc.N_samples}, occ_group {tc.occ_group}) on 2 test stills in "
+          f"{eval_s:.1f} s with loading and the grid's rebuild: PSNR with the grid {psnr_occ}, stratified at the same N "
+          f"{[round(p, 2) for p in psnr_strat]}; forward launches {eval_launches}", flush=True)
+    check(len(psnr_occ) == 2 and all(np.isfinite(psnr_occ)), "occupancy eval PSNR printed")
+    check(min(po - ps for po, ps in zip(psnr_occ, psnr_strat)) >= -OCC_PSNR_SLACK,
+          "eval PSNR with the grid >= stratified at the same N less 0.21 dB (JAX's mse rule)")
+
+    grid = rebuild_occ(field, "pallas", torch.bfloat16, tc.occ_R, tc.occ_aabb, derive_seed(tc.seed, 99))
+    low_n = {}  # the same stills at fewer samples (JAX's test compares at N 8): reported, not held
+    for n_low in (16, 8):
+        s_low = dataclasses.replace(s, N=n_low)
+        for label, g_ in (("grid", grid), ("stratified", None)):
+            low_n[f"{label}_{n_low}"] = [float(img_psnr(
+                rd.pixels["test"][idx * n : (idx + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy(),
+                render_image(field, rd.rays["test"], rd.H, rd.W, idx, derive_seed(tc.seed, idx), s_low,
+                             chunk=tc.batch_size, occ=g_)[0])) for idx in (0, 1)]
+    print("the same stills at fewer samples (reported): " + "; ".join(
+        f"{k} {', '.join(f'{p:.2f}' for p in v)} dB" for k, v in low_n.items())
+          + f"; rebuilt grid: cells above alpha 0.1 {float((grid > 0.1).float().mean()):.4f}, mean "
+          f"{float(grid.mean()):.4f}", flush=True)
+    pose = torch.as_tensor(spherical_to_pose(4.0, -30.0, 30.0)[None], dtype=torch.float32, device=dev)
+    frame_rays = rays_for_poses(pose, rd.H, rd.W, rd.f)
+    b3.launches = 0
+    fused, _ = render_rays_chunked(field, frame_rays, 0, dataclasses.replace(s, fused_eval=True), CHUNK, occ=grid)
+    torch.cuda.synchronize()
+    b3_launches = b3.launches
+    unfused, _ = render_rays_chunked(field, frame_rays, 0, s, CHUNK, occ=grid)
+    frame_err = (fused - unfused).abs().max().item()
+    print(f"fused_eval frame with the grid: {b3_launches} B3 launches, max abs rgb diff from the forward kernel + torch "
+          f"compositing {frame_err:.3e} (tol {FRAME_TOL:.0e})", flush=True)
+    check(b3_launches == n_chunks and frame_err <= FRAME_TOL, "B3 at the occupancy samples matches the unfused frame")
+
+    params = evaluate.load_params(exp)
+    srv = RenderServer(params, rd.H, rd.W, rd.f, s, device=dev, occupancy=True, occ_R=tc.occ_R)
+    httpd = serve(srv, 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        health = json.loads(get(url + "/health")[0])
+        t0 = time.perf_counter()
+        data, ctype = get(f"{url}/render?r=4&theta=-30&phi=30")
+        http_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    served = decode_png(data)
+    direct = srv.render(4.0, -30.0, 30.0)
+    print(f"served /render with the grid: {len(data)} B PNG, {http_ms:.1f} ms (HTTP); /health occupancy "
+          f"{health['occupancy']}; max diff from the server's own render {int(np.abs(served.astype(int) - direct).max())}"
+          f" levels", flush=True)
+    check(ctype == "image/png" and health["occupancy"] and np.array_equal(served, direct),
+          "the occupancy server serves its grid's frame")
+    del srv
+    torch.cuda.empty_cache()
+
+    out = os.path.join(work, "lego_occ.obj")
+    fwd.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        export_mesh.main(["--loadpath", exp, "--out", out, "--resolution", str(MESH_R), "--aabb", "2.0", "--iso", "1.0",
+                          "--backend", "pallas", "--dtype", "bf16"])
+    mesh_s = time.perf_counter() - t0
+    with open(out) as fh:
+        lines = fh.read().splitlines()
+    nv = sum(ln.startswith("v ") for ln in lines)
+    faces = np.array([[int(t) for t in ln.split()[1:]] for ln in lines if ln.startswith("f ")], np.int64).reshape(-1, 3)
+    print(f"mesh export at resolution {MESH_R}: {log.getvalue().strip()}; {mesh_s:.2f} s with loading; forward launches "
+          f"{fwd.launches}", flush=True)
+    check(len(faces) > 0 and faces.min() >= 1 and faces.max() <= nv == 3 * len(faces), "the mesh has faces, a valid .obj")
+    check(fwd.launches == -(-(MESH_R + 1) ** 3 // 262144), "the lattice through the forward kernel in 262,144-row chunks")
+    return dict(psnr_occ=psnr_occ, psnr_strat=psnr_strat, psnr_low_n=low_n, eval_s=eval_s, eval_launches=eval_launches,
+                b3_launches=b3_launches, frame_err=frame_err, served_ms=http_ms, mesh_s=mesh_s, mesh_faces=len(faces),
+                mesh_launches=fwd.launches)
+
+
 def phase_probe(dev):
     """The padding probe at full reps: kernel vs plain for each K, ms a
     launch by differencing launch counts, the ratios."""
@@ -5760,7 +6108,16 @@ def main() -> None:
         torch.cuda.empty_cache()
         dopt = phase_data_options(dev, work, mlp)
         walls["multiscale and the data options"] = time.perf_counter() - t_phase
-    # 20. the padding probe
+        # 20. occupancy: the density probe through the forward kernel, lego_occ.yaml's training and its step, eval
+        # with the grid beside stratified, B3 and a served frame with the grid, the mesh export, debug_nan
+        t_phase = time.perf_counter()
+        occk = phase_occ_kernels(dev, mlp)
+        torch.cuda.empty_cache()
+        occt, occ_rd = phase_occ_train(dev, scene, work, mlp)
+        occe = phase_occ_eval(dev, scene, work, mlp, occ_rd)
+        del occ_rd
+        walls["occupancy and mesh export"] = time.perf_counter() - t_phase
+    # 21. the padding probe
     t_phase = time.perf_counter()
     probe, probe_launches = phase_probe(dev)
     walls["probe"] = time.perf_counter() - t_phase
@@ -6089,6 +6446,25 @@ def main() -> None:
            for m in ("rel_err", "var_rel_err", "mip_ms", "share_of_bound", "fault_err", "inside_bit_equal")},
         "launches_by_run": m3_dx, "step_profile_ms_bf16": m3p["pose"]["profile"].get("input grad"),
         "b2": {k: dict(m3k[k]) for k in ("f32", "bf16")}, "m360_pose": m3p}
+    # occupancy (phase 20): the density probe is the forward at one refresh's
+    # rows (xyz and dirs read, the 8 output rows written); B1 at the
+    # sampler's ts is the point launch at Nf 64
+    occ_rows = occk["rows"]
+    occ_forward = {
+        **mip_fields({k: dict(err=occk[k]["err"], ms=occk[k]["ms"], plain_ms=occk[k]["plain_ms"]) for k in ("f32", "bf16")},
+                     2 * fwd_macs * occ_rows, 64 * occ_rows,
+                     occt["launches"]["refreshes"] + occe["eval_launches"] + occe["mesh_launches"], rows=occ_rows,
+                     refresh_ms_bf16=occk["refresh_ms"], sampler_ms=occk["sampler_ms"],
+                     launches_train=occt["launches"]["fused_mlp_forward"], launches_eval=occe["eval_launches"],
+                     launches_mesh=occe["mesh_launches"], mesh_s=occe["mesh_s"], mesh_faces=occe["mesh_faces"]),
+        "source": "nerf_simple_tpu_torch/csrc/fused_mlp_fwd.cu (ops/occupancy.py::density_fn)",
+        "replaces": "nerf_simple_tpu/kernels/mlp.py:669, reached from nerf_simple_tpu/ops/occupancy.py:187-208 (JAX "
+                    "probes with XLA there)"}
+    occ_b1 = {"launches": occt["launches"]["fused_train_step"], "refreshes": occt["launches"]["refreshes"],
+              "train": {k: v for k, v in occt.items() if k != "launches"},
+              "eval_psnr": occe["psnr_occ"], "eval_psnr_stratified": occe["psnr_strat"],
+              "eval_psnr_low_n": occe["psnr_low_n"],
+              "served_ms": occe["served_ms"]}
     probe_bound = {K: bound_ms(2 * pad_passes.M * K * probe["TR"] * probe["reps"], 0, torch.bfloat16)
                    for K in probe["K"]}
     fwd_bound_bf16 = bound_ms(2 * fwd_macs * chunk_rows, 64 * chunk_rows, torch.bfloat16)
@@ -6108,7 +6484,8 @@ def main() -> None:
               proposal_eval_launches=pe["launches"], proposal_frame_launches=pe["frame_launches"],
               proposal_served_launches=pe["served_launches"], proposal_frame_ms_bf16=pe["frame_ms"],
               eval_psnr=ev["psnr"], eval_s_per_still=ev["s_per_still"], eval_s_per_frame=ev["s_per_frame"],
-              mip=mip_forward, anneal=anneal, app=app_forward, contract={**contract["fwd"], "name": "fused_mlp_forward"}),
+              mip=mip_forward, anneal=anneal, app=app_forward, contract={**contract["fwd"], "name": "fused_mlp_forward"},
+              occupancy=occ_forward),
         entry("fused_mlp_backward", "fused_mlp_bwd.cu", "nerf_simple_tpu/kernels/mlp.py:1147",
               tr["b2_launches"], b2, (2 * train_macs * batch_rows, 64 * batch_rows + grad_bytes),
               grad_rel_err=b2["f32"]["rel"], grad_rel_err_bf16=b2["bf16"]["rel"], mip=mip_backward, want_dx=want_dx,
@@ -6147,6 +6524,7 @@ def main() -> None:
               weights_dist_launches=pt["launches"]["weights_and_rail"], proposal=proposal, mip=mip_train,
               contract={**contract["b1"], "name": "fused_train_step"},
               mip_proposal={**m3t, "launches_pose": m3p["pose"]["launches"]["b1"]},
+              occupancy=occ_b1,
               multiscale={"launches": mst["launches"]["mip_launches"], "weights_launches": mst["launches"][
                   "weights_launches"], "c_launches": {k: mst["launches"][k] for k in ("wgrad_sums", "bwd_tile")},
                   "max_abs_err": msk["f32"]["err"], "ms": msk["f32"]["ms"], "plain_ms": msk["f32"]["plain_ms"],
@@ -6179,7 +6557,8 @@ def main() -> None:
               render_launches, rnd, (2 * fwd_macs * chunk_rows, 96 * chunk_rows),
               frame_ms=fused_frame_ms["f32"]["fused"], unfused_frame_ms=fused_frame_ms["f32"]["unfused"],
               frame_ms_bf16=fused_frame_ms["bf16"]["fused"],
-              unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"], contract={**contract["b3"], "name": "fused_render"}),
+              unfused_frame_ms_bf16=fused_frame_ms["bf16"]["unfused"], contract={**contract["b3"], "name": "fused_render"},
+              occupancy={"launches": occe["b3_launches"], "frame_err": occe["frame_err"]}),
         {"name": "pad_passes_probe", "route": "cuda",
          "source": "nerf_simple_tpu_torch/csrc/pad_passes_probe.cu",
          "replaces": "scripts/pad_passes_probe.py:82", "launches": probe_launches,

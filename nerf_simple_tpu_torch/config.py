@@ -137,6 +137,24 @@ class TrainConfig:
     # the scene loader: "blender" (nerf_synthetic layout) or "tiny_nerf"
     # (tiny_nerf_data.npz); "llff" is not ported
     dataset: str = "blender"
+    # occupancy-grid sampling (ops/occupancy.py): an (occ_R)^3 EMA grid of
+    # cell opacities over [-occ_aabb, occ_aabb]^3, refreshed every
+    # occ_update_every steps (decay occ_decay) from one density probe of the
+    # field, places each ray's samples by inverse CDF over occ_Nb probe bins
+    # (occ_floor the least mass a bin keeps); off: stratified sampling
+    occupancy: bool = False
+    occ_R: int = 64
+    occ_Nb: int = 64
+    occ_update_every: int = 16
+    occ_decay: float = 0.95
+    occ_floor: float = 0.01
+    occ_aabb: float = 4.0
+    # a directory: trace the two chunks after the first with torch.profiler
+    # (utils/profiling.py) into a Chrome trace there
+    profile_dir: str = ""
+    # check the loss, every gradient and every updated parameter of each step
+    # for NaN/Inf and raise naming the first (utils/guards.py)
+    debug_nan: bool = False
 
     def __post_init__(self):
         for name in ("batch_size", "Nf", "num_iters", "steps_per_call",
@@ -186,10 +204,16 @@ class TrainConfig:
         if self.distortion_loss_weight < 0:
             raise ValueError(f"distortion_loss_weight must be >= 0, got {self.distortion_loss_weight}")
         # the JAX TrainConfig's mip rules (nerf_simple_tpu/config.py:335-390, :451)
-        if self.mip and self.hierarchical:
+        bad = [name for name, on in (("hierarchical", self.hierarchical), ("occupancy", self.occupancy)) if on]
+        if self.mip and bad:
             raise ValueError(
-                "mip=True is incompatible with hierarchical: cone casting integrates frustum VOLUMES "
+                f"mip=True is incompatible with {', '.join(bad)}: cone casting integrates frustum VOLUMES "
                 "(NerfMLP IPE only) and draws its own interval edges"
+            )
+        if self.sampling_space == "disparity" and self.occupancy:  # JAX config.py:434-437
+            raise ValueError(
+                "sampling_space='disparity' is dead under occupancy=True (the occupancy grid redistributes LINEAR "
+                "bins of [tn, tf] and its aabb cannot cover an unbounded far field); drop one of the two"
             )
         if self.mip_levels not in (1, 2):
             raise ValueError(f"mip_levels must be 1 or 2, got {self.mip_levels}")
@@ -321,11 +345,8 @@ for _item, _keys in {
         "hash_Nmax": 256, "hash_H": 64, "hash_aabb": 4.0, "hash_grad_mode": "sample",
         "hash_fwd_mode": "exact", "cp_Rs": (64, 256), "cp_Cs": 32, "cp_Ca": 96, "cp_P": 27,
         "cp_H": 64, "cp_aabb": 4.0, "cp_lr_grid": 2e-2},
-    "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_update_every": 16,
-                  "occ_decay": 0.95, "occ_floor": 0.01, "occ_aabb": 4.0},
     "item 9, data parallelism": {"num_data_shards": 1, "distributed": False, "shard_dataset": False},
     "item 6, LLFF/NDC": {"llff_factor": 8, "ndc": True},
-    "item 4, tracing and debug guards": {"profile_dir": "", "debug_nan": False},
 }.items():
     _UNPORTED.update({k: (v, _item) for k, v in _keys.items()})
 
@@ -408,6 +429,15 @@ class TestConfig:
     appearance_idx: int = -1
     # the scene loader, as TrainConfig.dataset
     dataset: str = "blender"
+    # occupancy-informed eval: the grid rebuilt once from the loaded density
+    # field, each ray's N_samples at the deterministic quantiles of its PDF;
+    # occ_group > 1 shares one probe among each run of that many adjacent rays
+    occupancy: bool = False
+    occ_R: int = 64
+    occ_Nb: int = 64
+    occ_floor: float = 0.01
+    occ_aabb: float = 4.0
+    occ_group: int = 1
 
     def __post_init__(self):
         if self.Np > 0 and self.Nc > 0:
@@ -415,9 +445,9 @@ class TestConfig:
                 "Np > 0 (proposal-guided eval) and Nc > 0 (hierarchical eval) are alternative "
                 "samplers; set at most one"
             )
-        if self.mip and self.Nc > 0:  # the JAX TestConfig's mip rules (config.py:736-759)
+        if self.mip and (self.Nc > 0 or self.occupancy):  # the JAX TestConfig's mip rules (config.py:736-759)
             raise ValueError(
-                "mip=True (cone-cast eval) draws its own interval edges; it excludes Nc point "
+                "mip=True (cone-cast eval) draws its own interval edges; it excludes Nc/occupancy point "
                 "resampling (mip_levels: 2 is the cone-cast hierarchical scheme)"
             )
         if self.mip and self.mip_levels == 2 and self.Np > 0:
@@ -443,6 +473,11 @@ class TestConfig:
             raise ValueError(
                 f"sampling_space='disparity' needs tn > 0 (bins are uniform in 1/t); got tn={self.tn}"
             )
+        if self.sampling_space == "disparity" and self.occupancy:  # JAX config.py:781-784
+            raise ValueError(
+                "sampling_space='disparity' is dead under occupancy (the occupancy grid redistributes LINEAR "
+                "bins of [tn, tf]); drop one of the two"
+            )
         if self.compute_dtype not in ("f32", "bf16"):
             raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {self.compute_dtype!r}")
         if self.backend not in ("xla", "pallas"):
@@ -462,8 +497,6 @@ class TestConfig:
 # _UNPORTED for TrainConfig. num_data_shards also takes 0 (single chip).
 _TEST_UNPORTED: dict[str, tuple[Any, str]] = {}
 for _item, _keys in {
-    "item 5, occupancy": {"occupancy": False, "occ_R": 64, "occ_Nb": 64, "occ_floor": 0.01,
-                  "occ_aabb": 4.0, "occ_group": 1},
     "item 9, data parallelism": {"num_data_shards": 1},
     "item 6, LLFF/NDC": {"llff_factor": 8, "ndc": True},
 }.items():

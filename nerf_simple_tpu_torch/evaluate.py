@@ -28,9 +28,15 @@ appearance checkpoint (``{"field", "app"}``) renders its stills, normals
 and orbit under one code: the table's mean for ``appearance_idx`` -1
 (NeRF-W's canonical look), else train image ``appearance_idx``'s.
 
-``dataset: tiny_nerf`` reads the scene from a tiny_nerf npz. Occupancy
-eval, LLFF (spiral path, NDC), sharded eval and Orbax checkpoint
-directories are not ported: each raises NotImplementedError.
+With ``occupancy`` the occupancy grid is rebuilt once from the loaded
+field (``ops/occupancy.py::rebuild_occ``: the fine field of a pair, the
+forward kernel under ``backend: pallas``) and the stills and the orbit
+draw their samples from it (deterministic quantiles, ``occ_group`` rays a
+probe); normals keep stratified samples, as in JAX.
+
+``dataset: tiny_nerf`` reads the scene from a tiny_nerf npz. LLFF (spiral
+path, NDC), sharded eval and Orbax checkpoint directories are not ported:
+each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -167,6 +173,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     from nerf_simple_tpu_torch.data.dataset import RayDataset
     from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair
     from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
+    from nerf_simple_tpu_torch.ops.occupancy import rebuild_occ
     from nerf_simple_tpu_torch.ops.rays import bake_cam_deltas, orbit_poses
     from nerf_simple_tpu_torch.render.renderer import (
         RenderSettings,
@@ -221,12 +228,16 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
         resample_blur=cfg.resample_blur, opaque_background=cfg.opaque_background,
         # the cone radius from the eval frames' focal (JAX evaluate.py:208-211)
         base_radius=2.0 / 12.0**0.5 / rd.f if cfg.mip else 0.0,
+        occ_Nb=cfg.occ_Nb, occ_floor=cfg.occ_floor, occ_aabb=cfg.occ_aabb, occ_group=cfg.occ_group,
     )
+    # the grid is derived state: rebuilt from the loaded field (JAX evaluate.py:178-187)
+    occ = (rebuild_occ(field, cfg.backend, cfg.render_dtype, cfg.occ_R, cfg.occ_aabb, derive_seed(cfg.seed, 99))
+           if cfg.occupancy else None)
 
     if cfg.animation:
         poses = orbit_poses(cfg.orbit_radius, -cfg.theta, cfg.num_poses)
         out = render_orbit_video(field, poses, rd.H, rd.W, rd.f, out_dir, cfg.seed, settings,
-                                 chunk=cfg.batch_size, app=app)
+                                 chunk=cfg.batch_size, app=app, occ=occ)
         print(f"wrote {out}")
         return
 
@@ -234,7 +245,7 @@ def test(params_or_cfg: dict[str, Any] | TestConfig, device="cuda") -> None:
     n = rd.H * rd.W
     for idx in cfg.im_idxs:
         rgb, disp = render_image(field, rd.rays[cfg.im_set], rd.H, rd.W, idx,
-                                 derive_seed(cfg.seed, idx), settings, chunk=cfg.batch_size, app=app)
+                                 derive_seed(cfg.seed, idx), settings, chunk=cfg.batch_size, app=app, occ=occ)
         gt = rd.pixels[cfg.im_set][idx * n : (idx + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
         ssim_txt = ""
         if min(rd.H, rd.W) >= 11:  # SSIM needs one full 11x11 window

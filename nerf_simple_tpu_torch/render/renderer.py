@@ -66,6 +66,7 @@ from nerf_simple_tpu_torch.kernels.mlp import (
 from nerf_simple_tpu_torch.models import apply_model, zeros_app_for
 from nerf_simple_tpu_torch.models.nerf import NerfField, NerfPair, check_app, nerf_apply_mip
 from nerf_simple_tpu_torch.models.proposal import ProposalPair, proposal_weights, proposal_weights_intervals
+from nerf_simple_tpu_torch.ops.occupancy import occupancy_ts
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
@@ -122,6 +123,13 @@ class RenderSettings:
     opaque_background: bool = False
     fused_eval: bool = False
     sigma_noise: float = 0.0
+    # the occupancy sampler of a chunked render given a grid (``occ``): its
+    # probe bins, floor mass and grid extent, and ``occ_group`` adjacent
+    # rays a probe (ops/occupancy.py::occupancy_ts)
+    occ_Nb: int = 64
+    occ_floor: float = 0.01
+    occ_aabb: float = 4.0
+    occ_group: int = 1
 
     def __post_init__(self):
         if self.backend not in ("xla", "pallas"):
@@ -573,12 +581,18 @@ def render_rays_chunked(
     ``mip`` its probe edges and fine edges), so a frame is deterministic
     end to end. Under ``mip`` a chunk casts cones
     (``render_rays_mip``, its draws from the chunk's generator, as JAX
-    eval draws them)."""
-    if occ is not None:
-        raise NotImplementedError(
-            "occupancy-informed sampling is not ported yet: ROADMAP Queue A item 5, occupancy"
-        )
+    eval draws them).
+
+    ``occ``: an (R, R, R) occupancy grid (JAX :764-830): a chunk's samples
+    are the deterministic quantiles of the grid's PDF
+    (``occupancy_ts(det=True)`` at the settings' ``occ_*``), in place of
+    the stratified draw: the N samples (the fused render kernel's too),
+    the hierarchical coarse pass's N_coarse or the proposal probes'
+    N_prop. Not with ``mip`` (cone casting draws its own edges)."""
     hier, prop = settings.N_coarse > 0, settings.N_prop > 0
+    if occ is not None and settings.mip:
+        raise ValueError("mip rendering draws its own interval edges: occupancy sampling is for point samples "
+                         "(as in JAX)")
     if enc_alpha is not None and settings.mip:
         raise ValueError("the anneal windows are for the point renders: not with mip (as in JAX)")
     want = NerfPair if hier else ProposalPair if prop else NerfField
@@ -592,22 +606,33 @@ def render_rays_chunked(
              and not (hier or prop or settings.mip))
     app_c = None if app is None else torch.as_tensor(app, dtype=torch.float32, device=rays.device).expand(chunk, -1)
     rgbs, disps = [], []
+
+    def occ_ts(rays_c, n):
+        if occ is None:
+            return None
+        return occupancy_ts(None, rays_c, occ, n, settings.tn, settings.tf, settings.occ_aabb, Nb=settings.occ_Nb,
+                            floor=settings.occ_floor, det=True, group=settings.occ_group)
+
     for i in range(rays.shape[0] // chunk):
         rays_c = rays[i * chunk : (i + 1) * chunk]
         g = chunk_generator(seed, i, rays.device)
         if fused:
-            ts = stratified_ts_spaced(g, chunk, settings.N, settings.tn, settings.tf,
-                                      rays.device, rays.dtype, settings.sampling_space)
+            ts = occ_ts(rays_c, settings.N)
+            if ts is None:
+                ts = stratified_ts_spaced(g, chunk, settings.N, settings.tn, settings.tf,
+                                          rays.device, rays.dtype, settings.sampling_space)
             rgb, disp = _fused_render_rays(field, rays_c, ts, settings)
         else:
             if hier:
                 out = render_rays_hierarchical(field.coarse, field.fine, rays_c, g, settings, det_fine=True,
-                                               enc_alpha=enc_alpha, app=app_c)[1]
+                                               ts_coarse=occ_ts(rays_c, settings.N_coarse), enc_alpha=enc_alpha,
+                                               app=app_c)[1]
             elif prop:
-                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True, app=app_c,
-                                           enc_alpha=enc_alpha)
+                out = render_rays_proposal(field, rays_c, g, settings, det_fine=True,
+                                           ts_prop=occ_ts(rays_c, settings.N_prop), app=app_c, enc_alpha=enc_alpha)
             else:
-                out = render_rays(field, rays_c, g, settings, enc_alpha=enc_alpha, app=app_c)
+                out = render_rays(field, rays_c, g, settings, ts=occ_ts(rays_c, settings.N), enc_alpha=enc_alpha,
+                                  app=app_c)
             rgb, disp = torch.clamp(out.rgb, 0.0, 1.0), out.disp  # eval clip: rendering.py:103
         rgbs.append(rgb)
         disps.append(disp)
@@ -681,15 +706,17 @@ def render_image(
     settings: RenderSettings = RenderSettings(),
     chunk: int = 16384,
     app: torch.Tensor | None = None,
+    occ: torch.Tensor | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Image ``im_idx`` of a split's ray tensor -> host numpy (1, H, W, 3)
     rgb in [0, 1] and (1, H, W, 1) disparity (utils/rendering.py:88-113);
-    ``app``: an appearance model's code (``render_rays_chunked``)."""
+    ``app``: an appearance model's code, ``occ``: an occupancy grid
+    (``render_rays_chunked``)."""
     n = H * W
     if not 0 <= im_idx < rays_split.shape[0] // n:
         raise IndexError(f"image {im_idx} of a split with {rays_split.shape[0] // n} images")
     rgb, disp = render_rays_chunked(field, rays_split[im_idx * n : (im_idx + 1) * n], seed,
-                                    settings, chunk, app=app)
+                                    settings, chunk, app=app, occ=occ)
     return rgb.reshape(1, H, W, 3).cpu().numpy(), disp.reshape(1, H, W, 1).cpu().numpy()
 
 
@@ -705,11 +732,12 @@ def render_orbit_video(
     chunk: int = 16384,
     fps: int = 15,
     app: torch.Tensor | None = None,
+    occ: torch.Tensor | None = None,
 ) -> str:
     """Render the (P, 4, 4) poses and write them as a video of frame size
     (W, H) at ``fps`` (utils/rendering.py:116-160, which passed (H, W));
     frame ``i`` is rendered from ``derive_seed(seed, i)`` (with an
-    appearance model's code ``app``). Returns the written path
+    appearance model's code ``app``, an occupancy grid ``occ``). Returns the written path
     (utils/video.py picks the format)."""
     from nerf_simple_tpu_torch.utils.video import open_video
 
@@ -721,7 +749,7 @@ def render_orbit_video(
     try:
         for i in range(len(poses)):
             rgb, _ = render_rays_chunked(field, rays_all[i * n : (i + 1) * n], derive_seed(seed, i),
-                                         settings, chunk, app=app)
+                                         settings, chunk, app=app, occ=occ)
             writer.write((rgb.reshape(H, W, 3).cpu().numpy() * 255).astype(np.uint8))
     finally:
         writer.close()

@@ -2,7 +2,8 @@
 
     python -m nerf_simple_tpu_torch.serve --loadpath models/exp/params_10000.npz \\
         --height 400 --width 400 --focal 555.0 --backend pallas [--port 8000] \\
-        [--proposal-samples 64] [--mip [--mip-levels 2] [--resample-blur B] [--opaque-background]]
+        [--proposal-samples 64] [--mip [--mip-levels 2] [--resample-blur B] [--opaque-background]] \\
+        [--occupancy [--occ-R 64]]
 
 Endpoints:
   GET /health                  -> {"status": "ok", ...}
@@ -14,8 +15,10 @@ With ``--proposal-samples Np`` (a proposal-trained checkpoint, its
 mip-trained checkpoint) each frame casts cones of radius ``2 / sqrt(12) /
 focal``, at ``--mip-levels`` 1 or 2; with both (a mip x proposal
 checkpoint, mip-NeRF 360's composition) the proposal net places the
-cones' edges. The params live on one
-device. Renders are serialised through a lock
+cones' edges. With ``--occupancy`` the server rebuilds an ``--occ-R``
+occupancy grid once from the field (a fixed seed) and each frame draws its
+samples from it (deterministic quantiles); not with ``--mip``. The params
+live on one device. Renders are serialised through a lock
 (one card, one render at a time). PNGs are encoded with the standard
 library (utils/png.py).
 """
@@ -36,6 +39,7 @@ from nerf_simple_tpu_torch.kernels.mlp import fused_mlp_forward
 from nerf_simple_tpu_torch.models import infer_model
 from nerf_simple_tpu_torch.models.nerf import NerfField
 from nerf_simple_tpu_torch.models.proposal import ProposalPair, infer_proposal_arch
+from nerf_simple_tpu_torch.ops.occupancy import rebuild_occ
 from nerf_simple_tpu_torch.ops.rays import rays_for_poses, spherical_to_pose
 from nerf_simple_tpu_torch.render.renderer import RenderSettings, render_rays_chunked
 from nerf_simple_tpu_torch.utils.png import decode_png, encode_png  # noqa: F401 (re-exported)
@@ -54,10 +58,17 @@ class RenderServer:
         model=None,
         warmup: bool = True,
         device="cuda",
+        occupancy: bool = False,
+        occ_R: int = 64,
     ):
         self.device = torch.device(device)
         self.model = model or infer_model(params)
         self.settings = settings or RenderSettings()
+        if self.settings.mip and occupancy:  # JAX serve.py:59-68
+            raise ValueError(
+                "mip serving excludes hierarchical/occupancy sampling: cone casting draws its own interval edges "
+                "(mip_levels=2 is the cone-cast hierarchical scheme); proposal-guided mip serving IS supported "
+                "(--proposal-samples)")
         self.prop_model = None
         if self.settings.N_prop > 0:
             if not (isinstance(params, dict) and "prop" in params):
@@ -70,6 +81,10 @@ class RenderServer:
         else:
             self.field = NerfField.from_jax_params(params, self.device, self.model)
         self.H, self.W, self.f = H, W, float(f)
+        self.occ = None
+        if occupancy:  # derived state: one rebuild from the field, a fixed seed (JAX serve.py:102-115)
+            self.occ = rebuild_occ(self.field, self.settings.backend, self.settings.compute_dtype, occ_R,
+                                   self.settings.occ_aabb, 42)
         self._lock = threading.Lock()
         self.seed = 0
         if warmup:
@@ -83,7 +98,7 @@ class RenderServer:
         )
         with self._lock:
             rays = rays_for_poses(pose, self.H, self.W, self.f)
-            rgb, _ = render_rays_chunked(self.field, rays, self.seed, self.settings)
+            rgb, _ = render_rays_chunked(self.field, rays, self.seed, self.settings, occ=self.occ)
             frame = rgb.reshape(self.H, self.W, 3).cpu().numpy()
         return (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
 
@@ -112,7 +127,7 @@ def _make_handler(server: RenderServer):
                     "model": type(server.model).__name__,
                     "arch": dataclasses.asdict(server.model),
                     "backend": server.settings.backend,
-                    "occupancy": False,
+                    "occupancy": server.occ is not None,
                     "proposal": server.prop_model is not None,
                     "mip": server.settings.mip,
                     "device": str(server.device),
@@ -142,14 +157,6 @@ def serve(server: RenderServer, port: int = 8000) -> ThreadingHTTPServer:
     return ThreadingHTTPServer(("0.0.0.0", port), _make_handler(server))
 
 
-# Flags of the JAX server whose features are not ported: name -> (value
-# that means "off", ROADMAP item).
-_UNPORTED_FLAGS = {
-    "occupancy": (False, "item 5, occupancy"),
-    "occ_R": (64, "item 5, occupancy"),
-}
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="NeRF novel-view render server (PyTorch)")
     ap.add_argument("--loadpath", required=True, help="params .npz or .pth")
@@ -172,11 +179,6 @@ def main(argv=None) -> None:
     ap.add_argument("--tf", type=float, default=6.0)
     ap.add_argument("--sampling-space", default="linear", choices=["linear", "disparity"])
     args = ap.parse_args(argv)
-    for name, (off, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet: ROADMAP Queue A, {item}"
-            )
 
     from nerf_simple_tpu_torch.evaluate import load_params
     from nerf_simple_tpu_torch.train.checkpoint import load_model_meta
@@ -200,13 +202,14 @@ def main(argv=None) -> None:
     model = load_model_meta(args.loadpath)  # None -> inferred from shapes
     srv = RenderServer(
         params, args.height, args.width, args.focal, settings, model=model,
-        device=args.device,
+        device=args.device, occupancy=args.occupancy, occ_R=args.occ_R,
     )
     httpd = serve(srv, args.port)
     print(f"serving on :{args.port} (frame {args.height}x{args.width}, "
           f"{args.backend}/{args.dtype}, N={args.samples}"
           + (f", Np={args.proposal_samples}" if args.proposal_samples > 0 else "")
-          + (f", mip levels {args.mip_levels}" if args.mip else "") + f", {srv.device})")
+          + (f", mip levels {args.mip_levels}" if args.mip else "")
+          + (f", occupancy grid {args.occ_R}^3" if args.occupancy else "") + f", {srv.device})")
     httpd.serve_forever()
 
 

@@ -5,9 +5,9 @@ training state (the field's params, ``{"coarse", "fine"}`` for a
 hierarchical run, ``{"prop", "fine"}`` for a proposal run, and while pose
 refinement or appearance codes train the JAX ``{"field", "cams", "app"}``
 wrapper with the camera delta tables and the code table; Adam's state
-over all of them; the step and the generator's state), so a run resumes
-where it stopped and draws the batches it would have drawn. After a
-pose freeze the checkpoint is plain-shaped again. Orbax is absent on the
+over all of them; the step and the generator's state; an occupancy run's
+grid), so a run resumes where it stopped and draws the batches it would
+have drawn. After a pose freeze the checkpoint is plain-shaped again. Orbax is absent on the
 card's machine, so the JAX package's Orbax directories are not read here.
 
 Params travel as the JAX package's pytree of numpy ``(in, out)`` arrays,
@@ -44,11 +44,13 @@ def save_checkpoint(direc: str, state) -> str:
     os.makedirs(direc, exist_ok=True)
     path = os.path.abspath(os.path.join(direc, f"ckpt_{state.step}.pth"))
     params = state_params(state)
+    occ = getattr(state, "occ", None)
     torch.save({
         "step": state.step,
         "params": params,
         "optimizer": state.optimizer.state_dict(),
         "generator": state.generator.get_state(),
+        **({} if occ is None else {"occ": occ.detach().cpu()}),
     }, path)
     return path
 
@@ -88,7 +90,12 @@ def _scheme(params_or_field) -> str:
 def restore_checkpoint(path: str, state) -> None:
     """Load a checkpoint into ``state`` (a TrainState of the same model and
     scheme: one field, a coarse and fine pair, or a proposal net and a
-    main field), in place."""
+    main field), in place. The occupancy grid is derived state (JAX
+    checkpoint.py:59-90): a grid in the checkpoint restores exactly into a
+    run with a grid of the same resolution; a run with occupancy keeps its
+    fresh grid when the checkpoint has none or one of another resolution
+    (the run's resolution wins); a run without occupancy drops the
+    checkpoint's."""
     ck = torch.load(path, map_location="cpu", weights_only=False)
     params = ck["params"]
     for key, what, knob in (("cams", "camera deltas", "`pose_opt`, and a resume past `pose_freeze_at`"),
@@ -110,6 +117,9 @@ def restore_checkpoint(path: str, state) -> None:
     state.optimizer.load_state_dict(ck["optimizer"])
     state.generator.set_state(ck["generator"])
     state.step = int(ck["step"])
+    occ = ck.get("occ")
+    if occ is not None and getattr(state, "occ", None) is not None and occ.shape == state.occ.shape:
+        state.occ = occ.to(state.occ.device, state.occ.dtype)
 
 
 def save_model_meta(direc: str, model) -> str:

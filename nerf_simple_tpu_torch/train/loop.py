@@ -43,6 +43,15 @@ mean code (NeRF-W's canonical look). The checkpoints and
 ``params_<N>.npz`` carry the JAX ``{"field", "app"[, "cams"]}`` params;
 the reference-format ``.pth`` export is skipped (the widened colour head
 does not fit the reference ``Nerf``), as JAX skips it.
+
+Occupancy (``occupancy``): the state holds the grid (train/step.py) and
+the previews render with the live grid, as eval would (JAX loop.py:294-297).
+
+``profile_dir``: the first two chunks run before the walk, and the second
+is traced with ``torch.profiler`` into a Chrome trace under ``profile_dir``
+(utils/profiling.py; JAX loop.py:419-450); the rate is measured from the
+walk on. The trace is skipped, with JAX's message, when fewer than two
+chunks are left or when the two would cross ``pose_freeze_at``.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from nerf_simple_tpu_torch.train.step import (
     render_settings,
 )
 from nerf_simple_tpu_torch.utils.device import require_device
+from nerf_simple_tpu_torch.utils.profiling import trace_context
 from nerf_simple_tpu_torch.utils.tb import Logger, run_log_dir
 
 
@@ -222,7 +232,7 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
             table = state.app.table.detach()
             app = table[ii] if split == "train" else table.mean(0)
         rgb, disp = render_rays_chunked(state.field, rays_img, cfg.seed + i, eval_settings, chunk=16384,
-                                        enc_alpha=enc_alpha, app=app)
+                                        enc_alpha=enc_alpha, app=app, occ=state.occ if cfg.occupancy else None)
         rgb = rgb.reshape(1, rd.H, rd.W, 3).cpu().numpy()
         disp = disp.reshape(1, rd.H, rd.W, 1).cpu().numpy()
         gt = rd.pixels[split][ii * n : (ii + 1) * n].reshape(1, rd.H, rd.W, 3).cpu().numpy()
@@ -282,6 +292,22 @@ def train(params_or_cfg: dict[str, Any] | TrainConfig, device="cuda") -> TrainSt
         print(f"pose freeze at step {state.step}: deltas baked into the ray set (|dr| max "
               f"{np.abs(tables['dr']).max():.4f} rad, |dt| max {np.abs(tables['dt']).max():.4f}); continuing on "
               f"the plain {cfg.backend} step")
+
+    if cfg.profile_dir and freeze_at and not frozen and start + 2 * cfg.steps_per_call > freeze_at:
+        # the two chunks run outside the walk, on the pose step: past the boundary they would train poses
+        # beyond the configured freeze
+        print(f"profile_dir set but the trace chunks would cross pose_freeze_at ({freeze_at}); skipping trace "
+              "(profile a resumed post-freeze run instead)")
+    elif cfg.profile_dir and cfg.num_iters - start >= 2 * cfg.steps_per_call:
+        step_fn = step_fn_for(cfg.pose_opt and not frozen)
+        for traced in (False, True):  # the first chunk builds the kernels; the second is traced
+            with trace_context(cfg.profile_dir if traced else None) as prof:
+                torch.stack([step_fn(state, rays, pixels) for _ in range(cfg.steps_per_call)]).cpu()
+        print(f"wrote trace {prof.trace_path}")
+        meter, start = SteadyStateMeter(cfg.batch_size, device), state.step  # the rate from the walk on
+    elif cfg.profile_dir:
+        print(f"profile_dir set but only {cfg.num_iters - start} iters remain (< 2*steps_per_call="
+              f"{2 * cfg.steps_per_call}); skipping trace")
 
     if freeze_at and not frozen:
         walk(start, freeze_at)

@@ -90,6 +90,20 @@ takes the same autograd path through ``fused_mlp``: the codes ride the
 kernels' input rows 8..15, B2's input gradient gives their rows of dx,
 and autograd carries those through the gather into the table (JAX's
 ``pallas_aux`` path). B1 has no slot for codes.
+
+Occupancy (``occupancy``, ops/occupancy.py): the state also holds the
+(occ_R)^3 grid, all ones at the start. A step whose count is a multiple of
+``occ_update_every`` first refreshes it from the field's pre-step weights
+(the fine field of a pair; ``density_fn``: the forward kernel under
+``"pallas"``), then draws its samples from it (``occupancy_ts``) in place
+of the stratified draw: the single net's Nf, the hierarchical coarse
+pass's Nc, the proposal probes' Np, on every core. Under pose refinement
+they are drawn from the refined rays, as JAX's ``loss_fn`` draws them.
+
+``debug_nan`` (utils/guards.py, the part of JAX's ``checkify``): each step
+checks its loss and every gradient before Adam and every parameter after
+it, and runs under ``torch.autograd.detect_anomaly``; the first NaN or Inf
+raises, naming the tensor and the step. Off, the step has no check.
 """
 
 from __future__ import annotations
@@ -114,6 +128,7 @@ from nerf_simple_tpu_torch.models.proposal import (
     proposal_weights,
     proposal_weights_intervals,
 )
+from nerf_simple_tpu_torch.ops.occupancy import density_fn, init_occ_grid, occupancy_ts, update_occ_grid
 from nerf_simple_tpu_torch.ops.rays import apply_cam_deltas
 from nerf_simple_tpu_torch.ops.sampling import (
     anneal_weights,
@@ -139,6 +154,7 @@ from nerf_simple_tpu_torch.render.renderer import (
     render_rays_mip,
     render_rays_proposal,
 )
+from nerf_simple_tpu_torch.utils.guards import finite_guard
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -219,7 +235,8 @@ class TrainState:
     proposal sampling), its optimizer, the
     step count and the generator that draws batches and samples, on the
     training device; with ``pose_opt`` (until a freeze) the camera deltas
-    ``cams``; with ``appearance_dim`` the appearance codes ``app``."""
+    ``cams``; with ``appearance_dim`` the appearance codes ``app``; with
+    ``occupancy`` the (occ_R)^3 occupancy grid ``occ``."""
 
     field: NerfField | NerfPair | ProposalPair
     optimizer: torch.optim.Adam
@@ -227,6 +244,7 @@ class TrainState:
     step: int = 0
     cams: CamDeltas | None = None
     app: AppCodes | None = None
+    occ: torch.Tensor | None = None
 
 
 def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | None = None) -> TrainState:
@@ -255,7 +273,8 @@ def make_train_state(cfg: TrainConfig, model: NerfMLP, device, n_images: int | N
     app = AppCodes(n_images, cfg.appearance_dim, device) if cfg.appearance_dim > 0 else None
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
-    return TrainState(field, make_optimizer(cfg, field.parameters(), cams, app), gen, cams=cams, app=app)
+    occ = init_occ_grid(cfg.occ_R, device) if cfg.occupancy else None
+    return TrainState(field, make_optimizer(cfg, field.parameters(), cams, app), gen, cams=cams, app=app, occ=occ)
 
 
 def freeze_pose_state(state: TrainState) -> TrainState:
@@ -271,7 +290,7 @@ def freeze_pose_state(state: TrainState) -> TrainState:
     for p in params:
         if p in old.state:
             opt.state[p] = old.state[p]
-    return TrainState(state.field, opt, state.generator, state.step)
+    return TrainState(state.field, opt, state.generator, state.step, occ=state.occ)
 
 
 def build_x16(rays_b: torch.Tensor, ts: torch.Tensor, pix_b: torch.Tensor) -> torch.Tensor:
@@ -479,7 +498,7 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
                   settings: RenderSettings, det_fine: bool = False, noise=None,
                   prop_anneal: float | None = None, edges_fine: torch.Tensor | None = None,
                   cams: CamDeltas | None = None, im_b: torch.Tensor | None = None,
-                  enc_alpha: float | None = None, app: AppCodes | None = None) -> torch.Tensor:
+                  enc_alpha: float | None = None, app: AppCodes | None = None, occ_sampler=None) -> torch.Tensor:
     """The differentiable loss of one batch at the stratified ``ts``, as
     JAX's ``loss_fn`` builds it: the raw-colour MSE (train.py:52), plus
     ``depth_loss_weight`` times ``_depth_term`` (the metric depth is
@@ -510,9 +529,13 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
     ``enc_alpha`` (the proposal scheme's main field only). Appearance
     codes: each ray's image's row of ``app`` (gathered after the pose
     deltas, JAX ``loss_fn``) conditions both hierarchical nets, or the
-    proposal scheme's main field, or the single net."""
+    proposal scheme's main field, or the single net. ``occ_sampler``: with
+    ``ts`` None, the occupancy sampler, a function of the (refined) batch
+    rays to their ts."""
     if cams is not None:
         rays_b = apply_cam_deltas(rays_b, cams.dr[im_b], cams.dt[im_b])
+    if ts is None:
+        ts = occ_sampler(rays_b)
     app_b = None if app is None else app.table[im_b]
     gt_d = None
     if cfg.depth_loss_weight > 0:
@@ -578,13 +601,15 @@ def autograd_loss(cfg: TrainConfig, field: NerfField | NerfPair | ProposalPair, 
 
 def render_settings(cfg: TrainConfig, base_radius: float = 0.0) -> RenderSettings:
     """The training render's settings (the sigma noise with them; under
-    mip the cone radius ``base_radius`` and the mip keys)."""
+    mip the cone radius ``base_radius`` and the mip keys; the occupancy
+    sampler's, for renders given the grid)."""
     return RenderSettings(
         N=cfg.Nf, N_coarse=cfg.Nc if cfg.hierarchical else 0, N_prop=cfg.Np if cfg.proposal else 0,
         tn=cfg.tn, tf=cfg.tf,
         sampling_space=cfg.sampling_space, compute_dtype=cfg.render_dtype, backend=cfg.backend,
         sigma_noise=cfg.sigma_noise, mip=cfg.mip, base_radius=base_radius if cfg.mip else 0.0,
         mip_levels=cfg.mip_levels, resample_blur=cfg.resample_blur, opaque_background=cfg.opaque_background,
+        occ_Nb=cfg.occ_Nb, occ_floor=cfg.occ_floor, occ_aabb=cfg.occ_aabb,
     )
 
 
@@ -638,9 +663,10 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
     dist = ((cfg.distortion_loss_weight, cfg.tn, cfg.tf, cfg.sampling_space == "disparity")
             if cfg.distortion_loss_weight > 0 else None)
 
-    def core(field, rays_b, pix_b, ts, g, anneal, cams=None, im_b=None, enc_alpha=None, app=None):
-        """The loss of one batch at the stratified ``ts``, gradients left
-        in the fields (and in the camera deltas ``cams`` and the codes
+    def core(field, rays_b, pix_b, ts, g, anneal, cams=None, im_b=None, enc_alpha=None, app=None, occ_sampler=None):
+        """The loss of one batch at the stratified or occupancy ``ts`` (None:
+        ``occ_sampler`` draws them from the refined rays), gradients left in
+        the fields (and in the camera deltas ``cams`` and the codes
         ``app``); ``g`` draws the importance samples (and the sigma noise);
         ``anneal`` is the proposal's placement anneal, ``enc_alpha``
         BARF's."""
@@ -662,9 +688,38 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             return fused_loss(field, rays_b, pix_b, ts, cfg.render_dtype, model, dist=dist)[0]
 
         loss = autograd_loss(cfg, field, rays_b, pix_b, ts, g, settings, prop_anneal=anneal, cams=cams, im_b=im_b,
-                             enc_alpha=enc_alpha, app=app)
+                             enc_alpha=enc_alpha, app=app, occ_sampler=occ_sampler)
         loss.backward()
         return loss.detach()
+
+    def refresh_occ(state: TrainState) -> torch.Tensor:
+        """The EMA refresh of the state's grid from its field's weights (the
+        fine field of a pair, which eval renders), jitter from its generator."""
+        dp = getattr(state.field, "fine", state.field)
+        return update_occ_grid(state.occ, density_fn(dp, cfg.backend, cfg.render_dtype), state.generator,
+                               cfg.occ_aabb, decay=cfg.occ_decay)
+
+    def occ_sampler(state: TrainState):
+        """The batch rays -> their (B, N_strat) occupancy ts, from the state's
+        grid and generator (JAX ``_maybe_occ_ts``)."""
+        return lambda r: occupancy_ts(state.generator, r, state.occ, N_strat, cfg.tn, cfg.tf, cfg.occ_aabb,
+                                      Nb=cfg.occ_Nb, floor=cfg.occ_floor)
+
+    def guarded(state: TrainState, fn, *args, **kw):
+        """``fn`` under ``torch.autograd.detect_anomaly``, its NaN re-raised
+        naming the step (``debug_nan``)."""
+        try:
+            with torch.autograd.detect_anomaly():
+                return fn(*args, **kw)
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(f"NaN in the backward of step {state.step}: {e}") from e
+
+    def named_tensors(state: TrainState, grads: bool):
+        mods = [("", state.field), ("cams.", state.cams), ("app.", state.app)]
+        return [(f"{'grad of ' if grads else ''}{pre}{n}", p.grad if grads else p)
+                for pre, m in mods if m is not None for n, p in m.named_parameters()]
 
     def sample_idx(g: torch.Generator, n_rows: int, device) -> torch.Tensor:
         """The batch's ray rows: uniform over the split, or under
@@ -679,9 +734,17 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
 
     def step_fn(state: TrainState, rays: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
         g = state.generator
+        if cfg.occupancy and state.step % cfg.occ_update_every == 0:  # before the loss, the pre-step weights
+            state.occ = refresh_occ(state)
         idx = sample_idx(g, rays.shape[0], rays.device)
-        ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
-                                  space=cfg.sampling_space)
+        rays_b, sampler = rays[idx], None
+        if not cfg.occupancy:
+            ts = stratified_ts_spaced(g, cfg.batch_size, N_strat, cfg.tn, cfg.tf, rays.device,
+                                      space=cfg.sampling_space)
+        elif cfg.pose_opt:  # drawn from the refined rays, in autograd_loss
+            ts, sampler = None, occ_sampler(state)
+        else:
+            ts = occ_sampler(state)(rays_b)
         state.optimizer.zero_grad(set_to_none=True)
         extras = {}
         if cfg.pose_opt:
@@ -696,10 +759,19 @@ def build_train_step(cfg: TrainConfig, model: NerfMLP, fused: bool | None = None
             extras["app"] = state.app
         if aux:
             extras["im_b"] = idx // rays_per_image
-        loss = core(state.field, rays[idx], pixels[idx], ts, g, _prop_anneal(cfg, state.step), **extras)
+        if sampler is not None:
+            extras["occ_sampler"] = sampler
+        args = (state.field, rays_b, pixels[idx], ts, g, _prop_anneal(cfg, state.step))
+        if cfg.debug_nan:
+            loss = guarded(state, core, *args, **extras)
+            finite_guard(state.step, [("loss", loss), *named_tensors(state, grads=True)])
+        else:
+            loss = core(*args, **extras)
         for group in state.optimizer.param_groups:
             group["lr"] = pose_lr(cfg, state.step) if group.get("name") == "cams" else lr0 * decay**state.step
         state.optimizer.step()
+        if cfg.debug_nan:
+            finite_guard(state.step, named_tensors(state, grads=False), "after Adam")
         state.step += 1
         return loss
 

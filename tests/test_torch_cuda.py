@@ -10,7 +10,9 @@ kernel with the code rows, an appearance (and pose) loss against the xla
 one; the contracted variants: the forward (with the windows and the code
 rows), B2 (with the input gradient's contract instantiation, and under
 mip its MIP && CONTRACT one), the input-gradient kernel alone, B1 and
-render; the mip x proposal core and steps, and pose on them;
+render; the mip x proposal core and steps, and pose on them; the
+occupancy grid's density probe through the forward kernel and B1 at the
+occupancy sampler's ts;
 the forward's residual planes, the weight-gradient sums and the backward
 tile kernel alone; the padding probe) against their plain PyTorch
 versions, on the card.
@@ -2320,3 +2322,81 @@ def test_multiscale_pallas_step_matches_xla_on_the_card(dev):
     w0 = state.field.trunk1.weight.detach().clone()
     out = build_train_step(cfg, model, base_radius=0.5)(state, rays, pixels)
     assert bool(torch.isfinite(out)) and not torch.equal(w0, state.field.trunk1.weight)
+
+
+# --- occupancy: the density probe through the forward kernel, B1 at the sampler's ts ---------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("model", [NerfMLP(Lp=4, Ld=2, H=32), NerfMLP(), NerfMLP(Lp=4, Ld=2, H=32, app_dim=4)],
+                         ids=["small", "flagship", "app"])
+def test_density_probe_through_the_forward_kernel_matches_plain(dev, model, dtype):
+    """``density_fn`` under "pallas" on the card (one forward launch at the
+    points, unit -z directions, zero code rows) against its plain version
+    on a CPU copy of the field; a refresh through each agrees to the
+    forward's tolerance (alpha is 1-Lipschitz in sigma over a cell width
+    under 1)."""
+    from nerf_simple_tpu_torch.ops import occupancy as occ
+
+    params = init_nerf_params(0, model)
+    field, field_cpu = (NerfField.from_jax_params(params, d, model) for d in (dev, "cpu"))
+    R = 16
+    pts = torch.from_numpy(np.random.default_rng(3).uniform(-2, 2, (R**3, 3)).astype(np.float32))
+    before = mlp.fused_mlp_forward.launches
+    got = occ.density_fn(field, "pallas", dtype)(pts.to(dev))
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_forward.launches == before + 1 and got.shape == (R**3,)
+    want = occ.density_fn(field_cpu, "pallas", dtype)(pts)
+    scale = max(1.0, want.abs().max().item())
+    assert (got.cpu() - want).abs().max().item() <= TOL[dtype] * scale
+    jitter = torch.rand((R**3, 3), generator=torch.Generator().manual_seed(4))
+    g_card = occ.update_occ_grid(torch.ones(R, R, R, device=dev), occ.density_fn(field, "pallas", dtype), None, 2.0,
+                                 jitter=jitter.to(dev))
+    g_plain = occ.update_occ_grid(torch.ones(R, R, R), occ.density_fn(field_cpu, "pallas", dtype), None, 2.0,
+                                  jitter=jitter)
+    assert (g_card.cpu() - g_plain).abs().max().item() <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_step_at_occupancy_ts_matches_plain(dev, monkeypatch, dtype):
+    """B1 at the occupancy sampler's ts (bins of uneven widths, drawn from a
+    grid with empty space) against B1's plain version on the same ts: loss
+    and gradients within B1's bounds; then occupancy steps on the card: one
+    forward launch a refresh, one B1 launch a step."""
+    from nerf_simple_tpu_torch.config import TrainConfig
+    from nerf_simple_tpu_torch.ops import occupancy as occ
+    from nerf_simple_tpu_torch.train import step as step_mod
+
+    model, B, N = NerfMLP(Lp=4, Ld=2, H=64), 256, 32
+    rays, pix = _rays_mip(B, dev, 21)
+    grid = (torch.rand((16, 16, 16), generator=torch.Generator().manual_seed(5)) > 0.8).float().to(dev)
+    ts = occ.occupancy_ts(torch.Generator(device=dev).manual_seed(6), rays, grid, N, 2.0, 6.0, 2.0, Nb=32)
+    gaps = ts.diff(dim=-1)
+    assert bool((gaps >= 0).all()) and gaps.std().item() > 0.5 * gaps.mean().item()  # not stratified
+    runs = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            def plain(w, x, N, dt, m, *a, **kw):
+                with torch.no_grad():
+                    return mlp.fused_train_step_plain(mlp._cast_weights(w, dt), x, N, dt, m, *a, **kw)
+            monkeypatch.setattr(step_mod, "fused_train_step", plain)
+        field = NerfField.from_jax_params(init_nerf_params(1, model), dev)
+        before = mlp.fused_train_step.launches
+        loss = step_mod.fused_loss(field, rays, pix, ts, dtype, model)[0]
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), {n: p.grad.clone() for n, p in field.named_parameters()},
+                      mlp.fused_train_step.launches - before)
+    monkeypatch.undo()
+    (loss, grads, n_k), (loss_p, grads_p, n_p) = runs["kernel"], runs["plain"]
+    assert (n_k, n_p) == (1, 0) and abs(loss / loss_p - 1) <= LOSS_TOL[dtype]
+    for name, gp in grads_p.items():
+        err = ((grads[name] - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+        assert err <= GRAD_TOL[dtype], (name, err)
+    cfg = TrainConfig(datapath="d", Nf=N, batch_size=B, backend="pallas", compute_dtype="bf16", net_H=64, net_Lp=4,
+                      net_Ld=2, occupancy=True, occ_R=16, occ_Nb=32, occ_update_every=2, occ_aabb=2.0)
+    state = step_mod.make_train_state(cfg, model, dev)
+    fwd, b1 = mlp.fused_mlp_forward.launches, mlp.fused_train_step.launches
+    step_fn = step_mod.build_train_step(cfg, model)
+    losses = [step_fn(state, rays, pix) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert (mlp.fused_mlp_forward.launches - fwd, mlp.fused_train_step.launches - b1) == (3, 5)
+    assert all(bool(torch.isfinite(v)) for v in losses) and not bool((state.occ == 1).all())

@@ -185,9 +185,12 @@ def test_test_config_defaults_and_checks():
     with pytest.raises(ValueError, match="tn > 0"):
         config.test_config_from_dict({**base, "sampling_space": "disparity", "tn": 0.0})
     assert config.test_config_from_dict({**base, "num_data_shards": 0}).loadpath == "m"
-    for key, value in (("num_data_shards", -1), ("occ_R", 32), ("occupancy", True), ("ndc", False)):
+    for key, value in (("num_data_shards", -1), ("llff_factor", 4), ("ndc", False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.test_config_from_dict({**base, key: value})
+    assert config.test_config_from_dict({**base, "occ_R": 32}).occ_R == 32  # ported: occupancy eval
+    with pytest.raises(ValueError, match="Nc/occupancy"):  # JAX's rule (config.py:736-745)
+        config.test_config_from_dict({**base, "occupancy": True, "mip": True})
     assert config.test_config_from_dict({**base, "Np": 32}).Np == 32  # ported: proposal eval
     with pytest.warns(UserWarning, match="unknown config key"):
         config.test_config_from_dict({**base, "heirarchical": 1})

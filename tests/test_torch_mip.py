@@ -577,8 +577,9 @@ def test_lego_mip_yaml_loads_and_each_rule_raises():
     assert config.TrainConfig(**base, mip=True, proposal=True).proposal  # mip x proposal: ported
     assert config.TestConfig(**tbase, mip=True, Np=8).Np == 8
     assert config.train_config_from_dict({**base, "mip": True, "mip_multiscale": True}).mip_multiscale  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.train_config_from_dict({**base, "mip": True, "occupancy": True})
+    for mod in (config, jconfig):  # occupancy is ported: with mip JAX's ValueError (config.py:342-350)
+        with pytest.raises(ValueError, match="incompatible with occupancy"):
+            mod.TrainConfig(**base, mip=True, occupancy=True)
     assert config.train_config_from_dict({**base, "mip": True, "contract": True}).contract  # ported
     assert config.train_config_from_dict({**base, "mip": True, "proposal": True, "contract": True}).proposal
     with pytest.raises(ValueError, match="excludes hierarchical"):  # JAX serve.py:59-65

@@ -443,8 +443,9 @@ def test_mip_proposal_config_and_render_settings_rules():
         with pytest.raises(ValueError, match="mip_levels=2 and Np"):
             mod.TestConfig(**tbase, mip=True, mip_levels=2, Np=8)
     assert config.train_config_from_dict({**base, "mip": True, "proposal": True, "mip_multiscale": True}).proposal
-    with pytest.raises(NotImplementedError, match="item 5, occupancy"):
-        config.train_config_from_dict({**base, "mip": True, "proposal": True, "occupancy": True})
+    for mod in (config, jconfig):  # occupancy is ported: with mip JAX's ValueError (config.py:342-350)
+        with pytest.raises(ValueError, match="incompatible with occupancy"):
+            mod.TrainConfig(**base, mip=True, proposal=True, occupancy=True)
     s = RenderSettings(mip=True, N_prop=8, base_radius=0.01, opaque_background=True)
     assert s.mip and s.N_prop == 8
     with pytest.raises(ValueError, match="excludes hierarchical"):

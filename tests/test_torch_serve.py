@@ -96,8 +96,11 @@ def test_render_settings_reject_unported():
     with pytest.raises(ValueError, match="backend"):
         RenderSettings(backend="cuda")
     field = NerfField.from_jax_params(init_nerf_params(0, SMALL), "cpu")
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        render_rays_chunked(field, _frame_rays(), 0, RenderSettings(N=N), occ=torch.zeros(4, 4, 4))
+    rgb, disp = render_rays_chunked(field, _frame_rays(), 0, RenderSettings(N=N), occ=torch.zeros(4, 4, 4))  # ported
+    assert rgb.shape == (FH * FW, 3) and bool(torch.isfinite(disp).all())
+    with pytest.raises(ValueError, match="interval edges"):  # occupancy with mip: JAX's rule
+        render_rays_chunked(field, _frame_rays(), 0, RenderSettings(N=N, mip=True, base_radius=0.01),
+                            occ=torch.zeros(4, 4, 4))
 
 
 def test_png_round_trip():
@@ -152,13 +155,48 @@ def test_unknown_path_404(tiny_server):
     assert ei.value.code == 404
 
 
+@pytest.fixture(scope="module")
+def cli_exports(tmp_path_factory):
+    """A single net's and a proposal pair's params as .npz exports."""
+    from nerf_simple_tpu_torch.models.proposal import ProposalMLP, init_proposal_params
+    from nerf_simple_tpu_torch.train.checkpoint import export_params_npz
+
+    d = tmp_path_factory.mktemp("cli")
+    export_params_npz(str(d / "net.npz"), init_nerf_params(0, SMALL))
+    export_params_npz(str(d / "prop.npz"), {"prop": init_proposal_params(0, ProposalMLP(4, 2, 16)),
+                                            "fine": init_nerf_params(1, SMALL)})
+    return d
+
+
 @pytest.mark.parametrize(
-    "flag", [["--occupancy"], ["--proposal-samples", "32", "--mip", "--occupancy"], ["--mip", "--occupancy"],
-             ["--mip", "--mip-levels", "2", "--occ-R", "32"],
-             ["--mip", "--opaque-background", "--proposal-samples", "8", "--occ-R", "16"],
-             ["--occ-R", "32"], ["--mip", "--resample-blur", "0.1", "--proposal-samples", "8", "--occupancy"]],
+    "flag, expect",
+    [(["--occupancy"], "grid 64"), (["--proposal-samples", "32", "--mip", "--occupancy"], ValueError),
+     (["--mip", "--occupancy"], ValueError), (["--mip", "--mip-levels", "2", "--occ-R", "32"], "no grid"),
+     (["--mip", "--opaque-background", "--proposal-samples", "8", "--occ-R", "16"], "no grid"),
+     (["--occ-R", "32"], "no grid"), (["--mip", "--resample-blur", "0.1", "--proposal-samples", "8", "--occupancy"],
+                                      ValueError)],
 )
-def test_cli_rejects_unported_flags(flag):
-    base = ["--loadpath", "x.npz", "--height", "4", "--width", "4", "--focal", "5"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(base + flag)
+def test_cli_rejects_unported_flags(flag, expect, cli_exports, monkeypatch):
+    """The JAX server's flags, each as JAX takes it: ``--occupancy`` serves a
+    rebuilt grid (64^3 by default), ``--occ-R`` alone changes nothing, and
+    ``--mip`` with ``--occupancy`` raises JAX's ValueError (serve.py:59-68)."""
+    import nerf_simple_tpu_torch.serve as serve_mod
+
+    served = []
+
+    class Httpd:
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(serve_mod, "serve", lambda srv, port: served.append(srv) or Httpd())
+    npz = cli_exports / ("prop.npz" if "--proposal-samples" in flag else "net.npz")
+    base = ["--loadpath", str(npz), "--height", "4", "--width", "4", "--focal", "5", "--samples", "8",
+            "--device", "cpu"]
+    if expect is ValueError:
+        with pytest.raises(ValueError, match="excludes hierarchical/occupancy"):
+            main(base + flag)
+        return
+    main(base + flag)
+    (srv,) = served
+    assert srv.render(4.0, -30.0, 0.0).shape == (4, 4, 3)
+    assert (srv.occ.shape == (64, 64, 64)) if expect == "grid 64" else srv.occ is None

@@ -124,10 +124,13 @@ def test_lego_yaml_loads_and_unported_keys_raise():
     cfg = config.train_config_from_dict(config.load_yaml("configs/lego.yaml"))
     assert (cfg.batch_size, cfg.Nf, cfg.compute_dtype, cfg.steps_per_call) == (4096, 128, "bf16", 100)
     assert cfg.val_idxs == (0, 1) and cfg.render_dtype == torch.bfloat16
-    for key, value in (("profile_dir", "prof"), ("num_data_shards", 4),
-                       ("model_family", "hashgrid"), ("debug_nan", True), ("occupancy", True)):
+    for key, value in (("llff_factor", 4), ("num_data_shards", 4), ("model_family", "hashgrid")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             config.train_config_from_dict({"datapath": "d", key: value})
+    for key, value in (("profile_dir", "prof"), ("debug_nan", True), ("occupancy", True)):  # ported: they load
+        assert getattr(config.train_config_from_dict({"datapath": "d", key: value}), key) == value
+    occ = config.train_config_from_dict(config.load_yaml("configs/lego_occ.yaml"))
+    assert (occ.occupancy, occ.Nf, occ.occ_Nb, occ.occ_aabb) == (True, 64, 32, 2.0)
     assert config.train_config_from_dict({"datapath": "d", "contract": True}).contract  # ported
     assert config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True}).pose_opt  # ported
     assert config.train_config_from_dict({"datapath": "d", "contract": True, "pose_opt": True,
