@@ -152,8 +152,9 @@ NerfMLP(Lp=10, Ld=4, H=256):
    version and a torch.mm yardstick; with ``--before``, the forward and B2
    without the new arguments bit-equal to the earlier library's, and every
    instantiation of the input-gradient kernel beside the earlier one in
-   turns (``probes/input_grad.py::before_after``: f32 dx bit-equal, bf16
-   within MIP_CONTRACT_TOL, the bf16 ms of both); (b) 300
+   turns (``probes/input_grad.py::before_after``: dx bit-equal to the
+   earlier's in f32 and bf16, two launches bit-equal, the f32 and bf16 ms
+   of both); (b) 300
    steps through ``train()`` with the freeze at 150: one forward and one B2
    launch with the input gradient a step before it (the windows until step
    100), one B1 launch a step after it; the pose step's wall, kernel ms by
@@ -164,7 +165,8 @@ NerfMLP(Lp=10, Ld=4, H=256):
    refined rotation must keep at most POSE_ROT_KEPT of the perturbation's
    (the translation is reported); an f32 pose step's loss and gradients
    (field, dr, dt) through the kernels against the xla step from one
-   state; (d) ``evaluate.test`` of the refined run's train stills from the
+   state, its one f32 input-gradient launch counted in C (the ``kernels``
+   line's ``launches_f32``); (d) ``evaluate.test`` of the refined run's train stills from the
    checkpoint's live deltas and from the freeze's sidecar, beside the
    unrefined render;
 14. appearance codes (``appearance_dim: 8`` with lego.yaml's keys): (a) the
@@ -509,7 +511,7 @@ def build_before(dirs, _build, mlp) -> list[dict]:
     for d in dirs:
         for kernel, line in _build.ptxas_usage(_build.build_log[f"{d}/fused_mlp_bwd"]):
             if "bwd_kernel" in kernel:
-                print(f"ptxas {d} {short_name(kernel)[:48]}: {line}", flush=True)
+                print(f"ptxas {d} {_build.short_name(kernel)[:48]}: {line}", flush=True)
     copies = [{name: mlp._bind(lib, name, BEFORE_ENTRIES[name]) for name, lib in libs[d].items()} for d in dirs]
     for d, c in zip(dirs, copies):
         with open(os.path.join(d, "fused_train_step.cu")) as fh:
@@ -672,13 +674,6 @@ def step_walls(step, steps: int = 20, reps: int = 5) -> dict:
     return {"ms": float(np.median(walls)), "host_ms": float(np.median(hosts)), "walls": walls, "hosts": hosts}
 
 
-def short_name(mangled: str) -> str:
-    """A kernel's mangled name without its anonymous namespace's prefix
-    (``_ZN<n><n characters>``), so that the kernel's own name shows."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    return mangled[m.end() + int(m.group(1)):] if m else mangled
-
-
 def phase_build(sources, _build) -> None:
     fresh = [n for n in sources if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
@@ -691,7 +686,7 @@ def phase_build(sources, _build) -> None:
             log = _build.build_log.get(name, "")
             fh.write(f"===== {name}\n{log}\n")
             for kernel, line in _build.ptxas_usage(log):
-                print(f"ptxas {name} {short_name(kernel)[:48]}: {line}")
+                print(f"ptxas {name} {_build.short_name(kernel)[:48]}: {line}")
 
 
 def phase_forward(dev, params, model, mlp, x16):
@@ -1128,7 +1123,7 @@ def profile_step(step, others: dict | None = None, host: dict | None = None, spl
         if split_pose:
             if group == "sums_reduce" and "native" in e.name:  # a torch reduction, not the sums'
                 group = "other"
-            if "::ig::input_grad" in e.name:  # input_grad_kernel (f32) or input_grad_mma (bf16)
+            if "::ig::input_grad" in e.name:  # input_grad_fma (f32) or input_grad_mma (bf16)
                 group = "input grad"
             elif any(k in e.name for k in STEP_GROUPS[1][1]):
                 group, n_fwd = "adam", 0  # the step's last kernels
@@ -2927,11 +2922,7 @@ def phase_pose_kernels(dev, scene, model, mlp, earlier) -> dict:
     stats["input_grad"] = ig
     if earlier:  # every instantiation beside the earlier library's, in turns
         ba = ig_probe.before_after(dev, {k: earlier[k] for k in ("fused_mlp_bwd", "fused_contract")})
-        print(f"before/after bf16 input gradient at {ba['rows']} rows, earlier and current in turns: " + "; ".join(
-            f"{case} {v['earlier_ms']:.3f} -> {v['ms']:.3f} ms ({100 * v['earlier_share_of_bound']:.1f}% -> "
-            f"{100 * v['share_of_bound']:.1f}% of its {v['bound_ms']:.3f} ms bound; torch.mm yardstick "
-            f"{v['library_ms']:.3f} ms; dx from the earlier's {v['bf16_err']:.1e} by row group, f32 dx bit-equal "
-            f"{v['f32_bit_equal']})" for case, v in ba.items() if case != "rows"), flush=True)
+        print(ig_probe.before_after_line(ba), flush=True)
         stats["input_grad_before_after"] = ba
     return stats
 
@@ -3175,6 +3166,7 @@ def phase_pose_recipe(dev, work, mlp) -> dict:
     dr, dt = (np.random.default_rng(SEED + k).normal(0, 0.01, (12, 3)).astype(np.float32) for k in (1, 2))
     got = {}
     mlp.fused_mlp_backward.dx_launches = mlp.fused_mlp_backward.anneal_launches = 0
+    mlp.input_grad_f32_launches(reset=True)
     for backend in ("pallas", "xla"):
         field = NerfField.from_jax_params(init_nerf_params(SEED, model), dev, model)
         cams = CamDeltas(12, dev).copy_tables_({"dr": dr, "dt": dt})
@@ -3185,6 +3177,7 @@ def phase_pose_recipe(dev, work, mlp) -> dict:
         got[backend] = (loss.item(), {n: p.grad.clone() for n, p in field.named_parameters()},
                         {k: getattr(cams, k).grad.clone() for k in ("dr", "dt")})
         del field, cams
+    f32_dx = mlp.input_grad_f32_launches()
     (lp, fp, cp), (lx, fx, cx) = got["pallas"], got["xla"]
     loss_rel = abs(lp / lx - 1)
     field_rel = max(((fp[n] - fx[n]).abs().max() / fx[n].abs().max()).item() for n in fx)
@@ -3192,12 +3185,15 @@ def phase_pose_recipe(dev, work, mlp) -> dict:
     print(f"f32 pose step from one state, the kernels (forward + B2 with the input gradient and windows at alpha 0.5) "
           f"against xla: loss rel {loss_rel:.2e} (tol {LOSS_TOL[torch.float32]:.0e}); field grads {field_rel:.2e} of max, "
           f"dr {cams_rel['dr']:.2e}, dt {cams_rel['dt']:.2e} (tol {POSE_GRAD_RTOL:.0e}); B2 launches with dx "
-          f"{mlp.fused_mlp_backward.dx_launches}, with windows {mlp.fused_mlp_backward.anneal_launches}", flush=True)
+          f"{mlp.fused_mlp_backward.dx_launches}, with windows {mlp.fused_mlp_backward.anneal_launches}; f32 "
+          f"input-gradient launches (input_grad_fma, counted in C) {f32_dx}", flush=True)
     check(loss_rel <= LOSS_TOL[torch.float32] and field_rel <= POSE_GRAD_RTOL and max(cams_rel.values()) <= POSE_GRAD_RTOL,
           "the f32 kernel pose step matches the xla step")
     check(mlp.fused_mlp_backward.dx_launches == mlp.fused_mlp_backward.anneal_launches == 1,
           "the kernel pose step ran B2 with the input gradient and the windows")
-    out.update(loss_rel_f32=loss_rel, field_rel_f32=field_rel, cams_rel_f32=cams_rel, clean=clean, pert=pert)
+    check(f32_dx == 1, "the f32 pose step launched the f32 input-gradient kernel once")
+    out.update(loss_rel_f32=loss_rel, field_rel_f32=field_rel, cams_rel_f32=cams_rel, clean=clean, pert=pert,
+               input_grad_f32_launches=f32_dx)
     return out
 
 
@@ -3639,28 +3635,6 @@ PM_ITERS, PM_WARMUP, PM_FREEZE = 150, 10, 100
 PP_ITERS, PP_ANNEAL, PP_PREVIEW = 60, 40, 30
 
 
-def sass_by_kernel(so: str) -> dict:
-    """{kernel's short name: its SASS instructions, addresses stripped} of a
-    library, by cuobjdump; the input-gradient kernel's names lose the
-    ``false`` of its MIP switch (``Lb0E``), and the forward tile kernels'
-    the ``false`` of their last switch, CONTRACT, so a launch without mip
-    or contract pairs with the same kernel of a library that has no
-    switch."""
-    cuobj = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([cuobj, "-sass", so], capture_output=True, text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s+Function : (\S+)", line)
-        if m:
-            name = short_name(m.group(1))
-            name = name.replace("Lb0E", "") if "input_grad_kernel" in name else name
-            name = re.sub(r"(fwd_kernelILi-?\d+ELb[01]E)Lb0EE", r"\1E", name)
-            funcs[name] = []
-        elif name and re.match(r"\s+/\*[0-9a-f]+\*/", line):
-            funcs[name].append(re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip())
-    return funcs
-
-
 def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
     """15a. The input gradient's mip instantiation, nets from numpy seed
     SEED, f32 and bf16: B2 with ``mip`` and ``want_dx`` at the mip training
@@ -3778,33 +3752,17 @@ def phase_pose_mip_kernels(dev, scene, model, mlp, earlier) -> dict:
     return stats
 
 
-# The earlier kernels that the current libraries replace by design: the bf16
-# instantiations of the input-gradient kernel's SIMT version, whose work
-# the tensor-core kernel input_grad_mma (csrc/input_grad.cuh) does.
-SASS_REPLACED = ("input_grad_kernelI13__nv_bfloat16",)
-
-
 def sass_against_earlier(before_dir, _build) -> dict:
     """Each library of BEFORE_ENTRIES against the earlier commit's, kernel
-    by kernel (``sass_by_kernel``): every kernel of the earlier library,
-    but those SASS_REPLACED names, must build to the same SASS in the
-    current one (the f32 input-gradient kernels among them); the current
-    one's other kernels are new."""
-    sass = {}
-    for src in BEFORE_ENTRIES:
-        cur = sass_by_kernel(str(_build.library_path(src)))
-        old = sass_by_kernel(os.path.join(os.path.dirname(os.path.abspath(before_dir)), "build", f"{src}.so"))
-        replaced = [k for k in old if any(r in k for r in SASS_REPLACED) and k not in cur]
-        kept = [k for k in old if k not in replaced]
-        same = [k for k in kept if cur.get(k) == old[k]]
-        sass[src] = dict(identical=len(same), earlier=len(kept), replaced=len(replaced), kernels=len(cur),
-                         new=sorted(k[:60] for k in cur if k not in old),
-                         differ=sorted(k[:60] for k in kept if k not in same))
-    print("SASS against the earlier libraries, kernel by kernel: " + "; ".join(
-        f"{src} {v['identical']} of the earlier {v['earlier']} identical"
-        + (f" ({v['replaced']} bf16 SIMT input-gradient kernels replaced)" if v["replaced"] else "")
-        + f", {len(v['new'])} new" + (f", differ: {v['differ']}" if v["differ"] else "")
-        for src, v in sass.items()), flush=True)
+    by kernel (``_build.sass_against``): every kernel of the earlier
+    library, but the SIMT input-gradient kernels that the current ones
+    replace by design (``probes/input_grad.py::SASS_REPLACED``), must build
+    to the same SASS in the current one; the current one's other kernels
+    are new."""
+    from nerf_simple_tpu_torch.probes.input_grad import SASS_REPLACED, sass_line
+
+    sass = _build.sass_against(before_dir, BEFORE_ENTRIES, SASS_REPLACED)
+    print(sass_line(sass), flush=True)
     check(all(not v["differ"] and v["identical"] == v["earlier"] for v in sass.values()),
           "every kernel of the earlier libraries builds to the same SASS")
     return sass
@@ -4205,7 +4163,7 @@ def phase_contract_kernels(dev, scene, mlp, earlier, before_dir) -> dict:
         stats["sass"] = sass_against_earlier(before_dir, _build)
     for k, line in _build.ptxas_usage(_build.build_log.get("fused_contract", "")):
         if "fwd_kernel" in k:
-            print(f"ptxas fused_contract {short_name(k)[:48]}: {line}", flush=True)
+            print(f"ptxas fused_contract {_build.short_name(k)[:48]}: {line}", flush=True)
     return stats
 
 
@@ -6503,7 +6461,8 @@ def main() -> None:
          "ms_windows": ig["f32"]["ms_anneal"], "ms_windows_bf16": ig["bf16"]["ms_anneal"],
          "share_of_bound": ig["f32"]["share_of_bound"], "share_of_bound_bf16": ig["bf16"]["share_of_bound"],
          "flops": ig_flops, "bytes": ig_bytes,
-         "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad},
+         "step_profile_ms_bf16": poset["profile"].get("input grad"), "app": app_input_grad,
+         "launches_f32": poser["input_grad_f32_launches"]},
         input_grad_mip,
         input_grad_contract,
         input_grad_mip_contract,

@@ -53,8 +53,8 @@
 // (fwd_f32.cuh, fwd_bf16.cuh: the encoders call contract_point of
 // mlp_tile.cuh; in the f32 encoder each of a row's four threads contracts
 // the row for itself, in the bf16 one each of its two) and of the
-// input-gradient kernel (input_grad.cuh, a thread a row), built here
-// once: kept out of the libraries that launch them, whose kernels without
+// input-gradient kernels (input_grad.cuh: their transpose warps contract
+// a row a thread), built here once: kept out of the libraries that launch them, whose kernels without
 // contract keep their SASS (mlp_tile.cuh's forward_contract).
 
 #define CONTRACT_LIBRARY
@@ -104,6 +104,13 @@ long long input_grad_contract_launch_count(int reset) {
 long long input_grad_mip_contract_launch_count(int reset) {
   const long long n = ig::mip_launches;
   if (reset) ig::mip_launches = 0;
+  return n;
+}
+
+// Of them, the launches in f32 (input_grad_fma).
+long long input_grad_contract_f32_launch_count(int reset) {
+  const long long n = ig::f32_launches;
+  if (reset) ig::f32_launches = 0;
   return n;
 }
 

@@ -126,6 +126,13 @@ long long input_grad_mip_launch_count(int reset) {
   return n;
 }
 
+// Of them, the launches in f32 (input_grad_fma).
+long long input_grad_f32_launch_count(int reset) {
+  const long long n = ig::f32_launches;
+  if (reset) ig::f32_launches = 0;
+  return n;
+}
+
 // Where ig::launch finds the contract instantiation (csrc/fused_contract.cu's
 // fused_contract_input_grad).
 void set_contract_input_grad(void *f) { ig::contract_input_grad = reinterpret_cast<ig::ContractInputGrad>(f); }

@@ -78,23 +78,81 @@
 // (0.22 ms); the products are the same. The coupled transpose of MIP &&
 // CONTRACT adds ~60 flops a row, after the products.
 //
-// Two kernels share the encoder's transpose (`transpose` below, with
-// contract_transpose and contract_transpose_mip: the angles, damps,
-// windows, codes and the contraction's transposes are one piece of code),
-// and differ in the products.
+// Two kernels share the encoder's transpose (`transpose` and `posx_dx`
+// below, with contract_transpose and contract_transpose_mip: the angles,
+// damps, windows, codes and the contraction's transposes are one piece of
+// code, run by transpose warps of their own, a thread a row), and differ
+// in the products. Both take only the slot columns a row of x reads (3
+// raw, 3 Lp sin, 3 Lp cos of posx in KX = 64 slots; 27 of posd in KD = 32,
+// and with appearance codes their eight in eight more slots, KDA = 40).
 //
-// f32, input_grad_kernel: SIMT, one thread a sample row. A block (512
-// threads, one an SM: a persistent grid) copies the three weight slices
-// it needs into shared memory once, as f32 and transposed to [o][slot]:
-// only the columns a row of x reads (3 raw, 3 Lp sin, 3 Lp cos of posx in
-// KX = 64 slots; 27 of posd in KD = 32, and with appearance codes their
-// eight in eight more slots, KDA = 40), 147 KB at H = 256 (151 KB with
-// codes). Each thread then walks the H cotangent rows of its sample row
-// (coalesced loads along the rows, the next one fetched ahead),
-// multiplying each into 64 f32 accumulators with weights read as float4
-// broadcasts; posx first (W1 on g_h0 and Wsx on g_h5 into one set of
-// accumulators), then posd (Wcd on g_hc). The FMA pipes bound it: the
-// tensor cores would round its operands to TF32.
+// f32, input_grad_fma: a register-blocked product on the FMA pipes, in f32
+// (no TF32, no split TF32: f32 is the port's parity mode), fed by bulk
+// copies.
+//  - A persistent grid, one block an SM, walks 256-row tiles as small
+//    GEMMs: posx's slot sums (256 rows x 64 slots) = the tile's g_h0 and
+//    g_h5 cotangents (2 H features) against W1^T and Wsx^T, posd's (256 x
+//    32, or 40 with the code slots) = g_hc (H/2) against Wcd^T.
+//  - Eight product warps: warp w sums posx's slots 8 w .. 8 w + 7 (posd's
+//    KP/8 w .. KP/8 w + KP/8 - 1) of all 256 rows, a thread 8 rows (4 lane
+//    + i and 128 + 4 lane + i, i < 4) x 8 slots. For each feature a thread
+//    reads its rows' cotangents (two float4s: a warp's 32 lanes read 512
+//    contiguous bytes, free of bank conflicts) and its warp's slot weights
+//    (two float4s at one address for the whole warp), then does 64 FMAs.
+//    The layout is the shared-memory pipe's: a 128-bit shared load takes a
+//    cycle a quarter warp, so the SIMT kernel this replaced (a thread a
+//    row, 36% of the bound, a float4 of weights a 4 FMAs) and a first
+//    version with 4 x 8 blocks (three loads a 32 FMAs) were held by that
+//    pipe; at 8 x 8 it carries as many cycles as the FMA pipes.
+//  - Cotangents: a ring of 5 stages (4 with the code slots) of FKC = 8
+//    features x 256 rows (8 KB, [feature][row]), a stage for each K-chunk
+//    of a tile: first posx's, each 4 features o of g_h0 and of g_h5
+//    interleaved (stage feature 2 i is g_h0's o0 + i, 2 i + 1 g_h5's), then
+//    g_hc's. A copy warp of its own (RingF32, CopierF32) fills a stage once
+//    the eight product warps have released it ("empty" mbarrier): a
+//    feature's 256 rows are one cp.async.bulk of 1 KB, completing on the
+//    stage's "full" mbarrier, which each product warp waits on for itself.
+//    A bulk copy holds the warp that issues it for a while: when the last
+//    product warp to release a stage refilled it (the f32 forward's
+//    ring), that warp stood still for eight copies a stage, fell behind
+//    and so stayed the last, and copies and products ran nearly one after
+//    the other; hence a copy warp of its own. Bulk, not 16-byte cp.async:
+//    the same copy warp with cp.async (16 copies a lane a stage, arriving
+//    on "full" by cp.async.mbarrier.arrive.noinc) took 2.06-2.53 ms at
+//    524,288 rows against this kernel's 1.15-1.27, in turns, dx to the
+//    bit (probes/input_grad.py --before on that copy of csrc/, an H100 at
+//    700 W): one warp cannot issue 512 copies a stage fast enough. The
+//    tile is 256 rows for the copies' sake: in a streaming test of these
+//    planes (development only, not kept), 512-byte bulk pieces (128-row
+//    tiles) streamed far slower than 1 KB pieces, whatever the depth of
+//    the ring. A 512-row tile would not fit.
+//  - Weights: each block copies the slot columns once, as f32 [k][slot],
+//    posx's in the stage's order (line 2 o W1's column o, 2 o + 1 Wsx's),
+//    then posd's H/2 lines.
+//  - Slot sums: one buffer [row][slot] of 256 rows, a row FSTR = 41 floats
+//    (odd: a transpose thread's loads of its row meet 32 rows on 32 banks),
+//    handed to the transpose threads and back by named barriers ("full",
+//    "empty") three times a tile: posx's slots 0..31 (warps 0..3), 32..63
+//    (warps 4..7), then posd's. A transpose thread copies them to registers
+//    and frees the buffer before it transposes, long before the next
+//    hand-over; the product warps wait on it only for the copy of posx's
+//    first half. (Four transpose warps of two rows a thread would give the
+//    block 13 warps and 128 registers a thread, but their second row's
+//    copy waits on the first row's transpose, and the product warps on
+//    that: slower, most under mip.)
+//  - Shared memory at H = 256: the weights 2 H x 64 x 4 = 131,072 B and
+//    128 x 32 x 4 = 16,384 B (20,480 with the code slots), the sums 256 x
+//    41 x 4 = 41,984 B, the ring 5 x 8,192 = 40,960 B (4 stages, 32,768 B,
+//    with codes), its barriers 80 B (64): 230,480 B (226,368 with codes) of
+//    the 232,448 a block may use. A buffer of all 64 posx slots (68 KB)
+//    would leave the ring no stage beside the resident weights.
+//  - 544 threads (8 product warps, 8 transpose warps, the copy warp): 17
+//    warps take 20 warps' registers, so 96 a thread; ptxas spills 12-16
+//    bytes, 60-64 in the point and MIP && CONTRACT instantiations, the
+//    slowest two.
+//  - Numerics: each slot sums over k in the SIMT kernel's order (posx: for
+//    each o, g_h0's product then g_h5's; posd: o upwards), with fmaf, so
+//    dx is that kernel's to the bit.
 //
 // bf16, input_grad_mma: the products on the tensor cores, so that the
 // launch is bound by its bytes, not by the FMA pipes (a bf16 SIMT launch
@@ -142,7 +200,7 @@
 //  - Ragged rows: a tile's rows past Rp are not read (their sums are never
 //    used); rows past `rows` are not read from x nor written to dx.
 //  - Numerics: bf16 operands, f32 sums, as the TPU kernel's mTg; only the
-//    order of the sums differs from the SIMT kernel. Each output column
+//    order of the sums differs from the f32 kernel's. Each output column
 //    sums over the same K in the same order whatever the instantiation, so
 //    the code slots leave rows 0..5 as they are without them, a contracted
 //    row inside the ball is the point (or MIP) kernel's, and two launches
@@ -153,7 +211,6 @@
 namespace {
 namespace ig {
 
-constexpr int THREADS = 512;
 constexpr int LXM = 10, KX = 64;  // octaves of posx held; slots: 3 raw + 3 LXM sin + 3 LXM cos, padded
 constexpr int LDM = 4, KD = 32;   // the same for posd
 constexpr int KDA = KD + 8;       // posd's slots with the eight appearance-code columns after them
@@ -167,21 +224,30 @@ constexpr int MT = 128, MM = 1, CWARPS = MT / (16 * MM), CTHREADS = 32 * CWARPS,
 constexpr int KC = 64, STAGE = KC * MT * 2, NSTAGE = 5;
 constexpr int ESTR = MT + 4, SUMS = KX * ESTR;
 
+// The f32 kernel (input_grad_fma): tiles of FT rows; FWARPS warps run the
+// products, FT threads (a thread a row) the transpose (FHAND threads, which
+// hand the slot sums over), one warp the copies (FTHREADS in all); ring
+// stages of FKC features (FSTAGE floats),
+// fstages(app) of them; one buffer of slot sums [row][slot], a row FSTR
+// floats.
+constexpr int FT = 256, FWARPS = 8, FCTHREADS = 32 * FWARPS, FHAND = FCTHREADS + FT, FTHREADS = FHAND + 32;
+constexpr int FKC = 8, FSTAGE = FKC * FT, FSTR = 41;
+__host__ __device__ constexpr int fstages(bool app) { return app ? 4 : 5; }
+
 long long launches = 0;      // of this library, counted where they launch
 long long mip_launches = 0;  // of them, the integrated encoder's transpose (MIP)
+long long f32_launches = 0;  // of them, f32 (input_grad_fma)
 
 __host__ __device__ inline int ceil16(int n) { return (n + 15) / 16 * 16; }
 
-// Dynamic shared memory of a launch: f32, the SIMT kernel's slot weights;
-// bf16, the mma kernel's ring, weight lines (posx 2 H, posd H/2 padded)
-// and slot sums.
+// Dynamic shared memory of a launch: the ring, the weight lines (posx 2 H,
+// posd H/2 padded to 16) and the slot sums; f32 as input_grad_fma lays
+// them out, bf16 as input_grad_mma.
 __host__ __device__ inline long long smem_bytes(int H, bool app = false, bool is_bf16 = false) {
   if (is_bf16) return (long long)NSTAGE * STAGE + 128LL * (2 * H + ceil16(H / 2)) + 2 * 4LL * SUMS;
-  return 4LL * (2LL * H * KX + (long long)(H / 2) * (app ? KDA : KD));
+  return 4LL * (fstages(app) * FSTAGE + 2LL * H * KX + (long long)(H / 2) * (app ? KDA : KD) + FT * FSTR) +
+         16LL * fstages(app);
 }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 // The encoded-row column (kernel layout, L octaves) of slot s of a branch
 // holding LM octaves: raw 0..2; then the sin rows, then the cos rows, each
@@ -263,56 +329,6 @@ __device__ __forceinline__ void transpose(const float (&acc)[K], const float *__
     for (int j = 0; j < 8; ++j) code[j] = acc[KD + j];
 }
 
-// One branch for the calling thread's row in the f32 SIMT kernel: the f32
-// products of its O cotangent rows ga (and gb, TWO) with the slot weights
-// sa (and sb) [o][K], then `transpose` of their sums (its arguments as
-// there).
-template <class T, int K, int LM, bool TWO, bool MIP = false, bool CX = false>
-__device__ __forceinline__ void branch(const T *__restrict__ ga, const T *__restrict__ gb, long long Rp,
-                                       const float *sa, const float *sb, int O, const float *__restrict__ xc,
-                                       long long rows, int L, const float *__restrict__ ew, float d[3],
-                                       float *code = nullptr, const float *__restrict__ vc = nullptr,
-                                       float *dv = nullptr) {
-  float acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.f;
-  float a = to_f(ga[0]), b = TWO ? to_f(gb[0]) : 0.f;
-  for (int o = 0; o < O; ++o) {
-    float an = 0.f, bn = 0.f;  // the next cotangent row, fetched ahead
-    if (o + 1 < O) {
-      ga += Rp;
-      an = to_f(*ga);
-      if (TWO) {
-        gb += Rp;
-        bn = to_f(*gb);
-      }
-    }
-    const float4 *wa = reinterpret_cast<const float4 *>(sa + o * K);
-#pragma unroll
-    for (int q = 0; q < K / 4; ++q) {
-      const float4 u = wa[q];
-      acc[4 * q] = fmaf(u.x, a, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(u.y, a, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(u.z, a, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(u.w, a, acc[4 * q + 3]);
-    }
-    if (TWO) {
-      const float4 *wb = reinterpret_cast<const float4 *>(sb + o * K);
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q) {
-        const float4 u = wb[q];
-        acc[4 * q] = fmaf(u.x, b, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(u.y, b, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(u.z, b, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(u.w, b, acc[4 * q + 3]);
-      }
-    }
-    a = an;
-    b = bn;
-  }
-  transpose<K, LM, MIP, CX>(acc, xc, rows, L, ew, d, code, vc, dv);
-}
-
 // The transpose of contract_point with mip at the raw mean x[0..2] and
 // variances v[0..2] (JAX _input_grad_tile_mip :1034-1064): the cotangents
 // d of the contracted mean and dv of the contracted variances become, in
@@ -345,10 +361,9 @@ __device__ __forceinline__ void contract_transpose_mip(const float *x, const flo
   }
 }
 
-// The bf16 kernel's posx transpose (the SIMT kernel runs the same steps
-// inline) for row `row` from its slot sums acc, into d (the
-// cotangent of x's rows 0..2, not stored here); under MIP it also stores dx
-// rows 11..13 (the variances') and the rows it leaves zero, 8..10, 14, 15;
+// Both kernels' posx transpose for row `row` from its slot sums acc, into
+// d (the cotangent of x's rows 0..2, not stored here); under MIP it also
+// stores dx rows 11..13 (the variances') and the rows it leaves zero, 8..10, 14, 15;
 // CONTRACT: then the contraction's transpose at the raw row (under MIP the
 // warp's coupled transpose at the raw mean and variances).
 template <bool MIP, bool CONTRACT>
@@ -384,70 +399,248 @@ __device__ __forceinline__ void posx_dx(const float (&acc)[KX], const float *__r
   }
 }
 
-// KP: posd's slots, KD, or KDA with the appearance codes (dx then has 16
-// rows); MIP: the integrated encoder's transpose (x and dx of 16 rows);
-// CONTRACT: a contracted model's (with MIP: KD only).
-template <class T, int KP, bool MIP = false, bool CONTRACT = false>
-__global__ void __launch_bounds__(THREADS, 1)
-    input_grad_kernel(const T *__restrict__ g0, const T *__restrict__ g5, const T *__restrict__ gc, long long Rp,
-                      const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
-                      const T *__restrict__ W1, const T *__restrict__ Wsx, const T *__restrict__ Wcd,
-                      const float *__restrict__ wx, const float *__restrict__ wd, float *__restrict__ dx) {
-  extern __shared__ __align__(16) float sm[];
-  const int H2 = H / 2;
-  float *sA = sm, *sB = sA + H * KX, *sC = sB + H * KX;
-  for (int u = threadIdx.x; u < H * KX; u += THREADS) {  // W1^T, Wsx^T in their slots
-    const int o = u / KX, k = column<LXM>(u % KX, Lp);
-    sA[u] = k < 0 ? 0.f : to_f(W1[o * FX + k]);
-    sB[u] = k < 0 ? 0.f : to_f(Wsx[o * FX + k]);
+// ----------------------------------------------------------------------
+// The f32 kernel's pieces (input_grad_fma).
+
+// Named barriers of both kernels (0 is __syncthreads'): the bf16 product
+// warps' ring, and for each buffer of slot sums (the f32 kernel has one)
+// "full" (the product warps arrive, the transpose warps wait) and "empty"
+// (the other way round).
+constexpr int BAR_RING = 1, BAR_FULL = 2, BAR_EMPTY = 4;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The f32 kernel's ring as the block walks it: chunk n of the block's
+// sequence (every tile's chunks in order, tile after tile) sits in stage n
+// % stages, filled in a round of parity (n / stages) % 2. A tile's chunks:
+// cx of posx, each FKC / 2 features o of g_h0 and of g_h5 interleaved
+// (stage feature 2 i is g_h0's o0 + i, 2 i + 1 g_h5's), then g_hc's
+// features, FKC a chunk (H/2 is a multiple of FKC). The copy warp fills a
+// stage once every product warp has released it ("empty", FWARPS
+// arrivals): each feature's rows of the tile are one cp.async.bulk (rows
+// past Rp are not read) completing on the stage's "full" barrier, which
+// each product warp waits on for itself.
+struct RingF32 {
+  float *buf;
+  uint64_t *full, *empty;
+  int stages;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  // The current stage, once its copies have landed.
+  __device__ __forceinline__ const float *wait() const {
+    fb::mbar_wait(full + stage, phase);
+    return buf + stage * FSTAGE;
   }
-  for (int u = threadIdx.x; u < H2 * KP; u += THREADS) {  // Wcd^T (its Wca columns in the slots past KD)
+  // The warp has read the current stage.
+  __device__ __forceinline__ void release(int lane) {
+    __syncwarp();
+    if (lane == 0) fb::mbar_arrive(empty + stage);
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
+};
+
+// The copy warp's walk over the block's chunks (tile tn, chunk j, chunk
+// n of the sequence): lane `lane` < FKC copies feature `lane`.
+struct CopierF32 {
+  const RingF32 &rg;
+  const float *g0, *g5, *gc;
+  long long Rp, ntiles;
+  int cx, nch;
+  long long tn = blockIdx.x, n = 0;
+  int j = 0;
+
+  // Fill the next stage (once it is empty, past the first round) with
+  // the tracked chunk, if its tile is the block's; false past the last.
+  __device__ __forceinline__ bool next(int lane) {
+    if (tn >= ntiles) return false;
+    const int s = (int)(n % rg.stages);
+    const long long round = n / rg.stages;
+    if (round > 0) fb::mbar_wait(rg.empty + s, (uint32_t)((round - 1) & 1));
+    if (lane < FKC) {
+      const float *src = j < cx ? (lane & 1 ? g5 : g0) + (long long)(FKC / 2 * j + (lane >> 1)) * Rp
+                                : gc + (long long)(FKC * (j - cx) + lane) * Rp;
+      const long long r0 = tn * FT;
+      fb::bulk_load(rg.buf + s * FSTAGE + lane * FT, src + r0, (uint32_t)(4 * (Rp - r0 < FT ? Rp - r0 : FT)),
+                    rg.full + s);
+    }
+    if (++j == nch) j = 0, tn += gridDim.x;
+    ++n;
+    return true;
+  }
+};
+
+// acc[i][s] += a stage's FKC features of this thread's rows (g: the stage
+// from its first row; rows 4 lane + i for i < 4, 128 + 4 lane + i - 4
+// after) times weight lines w[0 .. FKC) of KP slots (w: this warp's first
+// slot, KP / 8 slots a warp, the same for every lane). Each sum takes its
+// features in the stage's order.
+template <int KP>
+__device__ __forceinline__ void fma_stage(float (&acc)[8][KP / 8], const float *g, const float *w) {
+  constexpr int NS = KP / 8;
+#pragma unroll
+  for (int k = 0; k < FKC; ++k) {
+    const float4 ra = *reinterpret_cast<const float4 *>(g + k * FT);
+    const float4 rb = *reinterpret_cast<const float4 *>(g + k * FT + 128);
+    const float *wk = w + k * KP;
+    float v[NS];
+    if constexpr (NS == 5) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) v[s] = wk[s];
+    } else {
+#pragma unroll
+      for (int q = 0; q < NS; q += 4) {
+        const float4 a = *reinterpret_cast<const float4 *>(wk + q);
+        v[q] = a.x;
+        v[q + 1] = a.y;
+        v[q + 2] = a.z;
+        v[q + 3] = a.w;
+      }
+    }
+    const float rv[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[i][s] = fmaf(v[s], rv[i], acc[i][s]);
+  }
+}
+
+// This thread's sums of NS slots to columns c0 .. c0 + NS - 1 of its eight
+// rows of e[row][column] (a row FSTR floats).
+template <int NS>
+__device__ __forceinline__ void store_fsums(const float (&acc)[8][NS], float *e, int lane, int c0) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float *p = e + (i < 4 ? 4 * lane + i : 124 + 4 * lane + i) * FSTR + c0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) p[s] = acc[i][s];
+  }
+}
+
+// The f32 kernel. KP: posd's slots, KD, or KDA with the appearance codes
+// (dx then has 16 rows); MIP: the integrated encoder's transpose (x and dx
+// of 16 rows); CONTRACT: a contracted model's (with MIP: KD only). The last
+// warp fills the ring; the FWARPS product warps run the products of each
+// tile from it, warp w
+// the posx slots 8 w .. 8 w + 7 and the posd slots KP / 8 w .. of all FT
+// rows, a thread eight rows; they hand the sums to the transpose threads
+// through the one buffer: posx's first 32 slots (warps 0..3), its last 32
+// (warps 4..7), then posd's. The FT threads after them run the transpose, a
+// thread a row, while the product warps go on.
+template <int KP, bool MIP = false, bool CONTRACT = false>
+__global__ void __launch_bounds__(FTHREADS, 1)
+    input_grad_fma(const float *__restrict__ g0, const float *__restrict__ g5, const float *__restrict__ gc,
+                   long long Rp, const float *__restrict__ x, long long rows, int Lp, int Ld, int H, int FX, int FD,
+                   const float *__restrict__ W1, const float *__restrict__ Wsx, const float *__restrict__ Wcd,
+                   const float *__restrict__ wx, const float *__restrict__ wd, float *__restrict__ dx) {
+  constexpr int NS = KP / 8, STAGES = fstages(KP == KDA);  // posd's slots a warp
+  extern __shared__ __align__(16) float fsm[];
+  const int H2 = H / 2, cx = 2 * H / FKC;
+  float *wpx = fsm + STAGES * FSTAGE, *wpd = wpx + 2 * H * KX, *e = wpd + H2 * KP;
+  uint64_t *full = reinterpret_cast<uint64_t *>(e + FT * FSTR);
+  const long long ntiles = (rows + FT - 1) / FT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  RingF32 rg{fsm, full, full + STAGES, STAGES};
+  const bool copier = warp == FTHREADS / 32 - 1;
+  CopierF32 cp{rg, g0, g5, gc, Rp, ntiles, cx, cx + H2 / FKC};
+  if (copier) {
+    if (lane == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        fb::mbar_init(full + s, FKC);
+        fb::mbar_init(rg.empty + s, FWARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    for (int s = 0; s < STAGES && cp.next(lane); ++s) {
+    }
+  }
+  // the weight lines, while the first stages load: W1^T and Wsx^T
+  // interleaved [2 o + (0, 1)][slot], then Wcd^T [o][slot]
+#pragma unroll 4
+  for (int u = threadIdx.x; u < 2 * H * KX; u += FTHREADS) {
+    const int o = u / (2 * KX), k = column<LXM>(u % KX, Lp);
+    wpx[u] = k < 0 ? 0.f : ((u / KX) & 1 ? Wsx : W1)[o * FX + k];
+  }
+#pragma unroll 4
+  for (int u = threadIdx.x; u < H2 * KP; u += FTHREADS) {
     const int o = u / KP, s = u % KP, k = s < KD ? column<LDM>(s, Ld) : enc_rows(Ld) + s - KD;
-    sC[u] = k < 0 ? 0.f : to_f(Wcd[o * FD + k]);
+    wpd[u] = k < 0 ? 0.f : Wcd[o * FD + k];
   }
   __syncthreads();
-  for (long long row = (long long)blockIdx.x * THREADS + threadIdx.x; row < rows;
-       row += (long long)gridDim.x * THREADS) {
-    float d[3], e[3], code[8];
-    if constexpr (MIP) {
-      float dv[3];
-      branch<T, KX, LXM, true, true, CONTRACT>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, nullptr, d,
-                                               nullptr, x + 11 * rows + row, dv);
-      if constexpr (CONTRACT) {  // the warp's coupled transpose at the raw mean and variances
-        float xo[3], vo[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          xo[c] = x[c * rows + row];
-          vo[c] = x[(11 + c) * rows + row];
+  if (copier) {
+    while (cp.next(lane)) {
+    }
+    return;
+  }
+  if (warp < FWARPS) {
+    for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      {  // posx: g_h0 against W1^T and g_h5 against Wsx^T, feature by feature
+        float acc[8][8] = {};
+        for (int j = 0; j < cx; ++j) {
+          fma_stage<KX>(acc, rg.wait() + 4 * lane, wpx + FKC * KX * j + 8 * warp);
+          rg.release(lane);
         }
-        contract_transpose_mip(xo, vo, d, dv);
+        if (t != blockIdx.x) bar_sync(BAR_EMPTY, FHAND);
+        if (warp < 4) store_fsums(acc, e, lane, 8 * warp);
+        bar_arrive(BAR_FULL, FHAND);
+        bar_sync(BAR_EMPTY, FHAND);
+        if (warp >= 4) store_fsums(acc, e, lane, 8 * warp - 32);
+        bar_arrive(BAR_FULL, FHAND);
       }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) dx[(11 + c) * rows + row] = dv[c];
-#pragma unroll
-      for (int j = 8; j < 11; ++j) dx[j * rows + row] = 0.f;
-      dx[14 * rows + row] = 0.f;
-      dx[15 * rows + row] = 0.f;
-    } else if constexpr (CONTRACT) {  // posx's transpose at the contracted row, then the contraction's
-      branch<T, KX, LXM, true, false, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
-      float xo[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) xo[c] = x[c * rows + row];
-      contract_transpose(xo, d);
-    } else {
-      branch<T, KX, LXM, true>(g0 + row, g5 + row, Rp, sA, sB, H, x + row, rows, Lp, wx, d);
+      {  // posd: g_hc against Wcd^T (and Wca^T in the code slots)
+        float acc[8][NS] = {};
+        for (int j = 0; j < H2 / FKC; ++j) {
+          fma_stage<KP>(acc, rg.wait() + 4 * lane, wpd + FKC * KP * j + NS * warp);
+          rg.release(lane);
+        }
+        bar_sync(BAR_EMPTY, FHAND);
+        store_fsums(acc, e, lane, NS * warp);
+        bar_arrive(BAR_FULL, FHAND);
+      }
     }
-    branch<T, KP, LDM, false>(gc + row, nullptr, Rp, sC, nullptr, H2, x + 3 * rows + row, rows, Ld, wd, e, code);
+    return;
+  }
+  const int r = threadIdx.x - FCTHREADS;  // this thread's row of a tile
+  const float *er = e + r * FSTR;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long row = t * FT + r;
+    const bool live = row < rows, more = t + gridDim.x < ntiles;
+    float d[3];
+    {
+      float sums[KX];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      dx[c * rows + row] = d[c];
-      dx[(3 + c) * rows + row] = e[c];
+      for (int h = 0; h < 2; ++h) {  // the first 32 slots, then the last
+        bar_sync(BAR_FULL, FHAND);
+#pragma unroll
+        for (int k = 0; k < 32; ++k) sums[32 * h + k] = er[k];
+        bar_arrive(BAR_EMPTY, FHAND);
+      }
+      if (live) {
+        posx_dx<MIP, CONTRACT>(sums, x, rows, row, Lp, wx, d, dx);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dx[c * rows + row] = d[c];
+      }
     }
-    dx[6 * rows + row] = 0.f;
-    dx[7 * rows + row] = 0.f;
-    if constexpr (KP == KDA)
+    float sums[KP], code[8];
+    bar_sync(BAR_FULL, FHAND);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dx[(8 + j) * rows + row] = code[j];
+    for (int k = 0; k < KP; ++k) sums[k] = er[k];
+    if (more) bar_arrive(BAR_EMPTY, FHAND);
+    if (live) {
+      transpose<KP, LDM>(sums, x + 3 * rows + row, rows, Ld, wd, d, code);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dx[(3 + c) * rows + row] = d[c];
+      dx[6 * rows + row] = 0.f;
+      dx[7 * rows + row] = 0.f;
+      if constexpr (KP == KDA)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dx[(8 + j) * rows + row] = code[j];
+    }
   }
 }
 
@@ -461,17 +654,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Named barriers of the bf16 kernel (0 is __syncthreads'): the product
-// warps' ring, and for each buffer of slot sums "full" (the product warps
-// arrive, the transpose warps wait) and "empty" (the other way round).
-constexpr int BAR_RING = 1, BAR_FULL = 2, BAR_EMPTY = 4;
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Byte offset of rows 8c .. 8c + 7 of feature f in a ring stage: a
@@ -682,15 +864,15 @@ int start(K k, int threads, long long per_block, long long smem, cudaStream_t st
 }
 
 // CONTRACT: a contracted model's instantiations (and no other is built).
-// bf16 launches the mma kernel, f32 the SIMT one.
+// bf16 launches the mma kernel, f32 the FMA one.
 template <class T, bool CONTRACT = false>
 int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, int H, const Weights &w,
              const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app, bool mip) {
   const Layout L = make_layout(rows, Lp, Ld, H, app);
   const long long es = sizeof(T);
   auto plane = [&](int f) { return reinterpret_cast<const T *>(gws + es * f * L.Rp); };
+  if (reinterpret_cast<uintptr_t>(gws) % 16) return (int)cudaErrorInvalidValue;  // the 16-byte copies
   if constexpr (std::is_same<T, bf16>::value) {
-    if (reinterpret_cast<uintptr_t>(gws) % 16) return (int)cudaErrorInvalidValue;  // the 16-byte copies
     decltype(&input_grad_mma<KD>) kernel;
     if constexpr (CONTRACT)
       kernel = mip ? input_grad_mma<KD, true, true> : app ? input_grad_mma<KDA, false, true>
@@ -700,22 +882,21 @@ int launch_t(const char *gws, const float *x, long long rows, int Lp, int Ld, in
     return start(kernel, MTHREADS, MT, smem_bytes(H, app, true), stream, plane(L.gh(0)), plane(L.gh(5)),
                  plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD, w, wx, wd, dx);
   } else {
-    decltype(&input_grad_kernel<T, KD>) kernel;
+    decltype(&input_grad_fma<KD>) kernel;
     if constexpr (CONTRACT)
-      kernel = mip   ? input_grad_kernel<T, KD, true, true>
-               : app ? input_grad_kernel<T, KDA, false, true>
-                     : input_grad_kernel<T, KD, false, true>;
+      kernel = mip ? input_grad_fma<KD, true, true> : app ? input_grad_fma<KDA, false, true>
+                                                          : input_grad_fma<KD, false, true>;
     else
-      kernel = mip ? input_grad_kernel<T, KD, true> : app ? input_grad_kernel<T, KDA> : input_grad_kernel<T, KD>;
-    return start(kernel, THREADS, THREADS, smem_bytes(H, app), stream, plane(L.gh(0)), plane(L.gh(5)),
-                 plane(L.gcs()), L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD, w, wx, wd, dx);
+      kernel = mip ? input_grad_fma<KD, true> : app ? input_grad_fma<KDA> : input_grad_fma<KD>;
+    return start(kernel, FTHREADS, FT, smem_bytes(H, app), stream, plane(L.gh(0)), plane(L.gh(5)), plane(L.gcs()),
+                 L.Rp, x, rows, Lp, Ld, H, L.FX, L.FD, w, wx, wd, dx);
   }
 }
 
 #ifdef CONTRACT_LIBRARY
 // dx (8, rows), or (16, rows) with `app` or `mip`, of a contracted model
 // from the cotangent planes `gws` of the workspace, on `stream`; counts the
-// launch (and the mip ones apart).
+// launch (and the mip and f32 ones apart).
 int launch_contract(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
                     const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app,
                     bool mip) {
@@ -727,6 +908,7 @@ int launch_contract(const void *gws, const float *x, long long rows, int Lp, int
   if (e == 0) {
     ++launches;
     mip_launches += mip;
+    f32_launches += !is_bf16;
   }
   return e;
 }
@@ -740,7 +922,7 @@ ContractInputGrad contract_input_grad = nullptr;
 
 // dx (8, rows), or (16, rows) with `app` or `mip`, from the cotangent
 // planes `gws` of the workspace, on `stream`; counts the launch (and the
-// mip ones apart). A contracted model's (`contract`, with or without mip)
+// mip and f32 ones apart). A contracted model's (`contract`, with or without mip)
 // goes to contract_input_grad, whose library counts it.
 int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int H, bool is_bf16,
            const Weights &w, const float *wx, const float *wd, float *dx, cudaStream_t stream, bool app = false,
@@ -757,6 +939,7 @@ int launch(const void *gws, const float *x, long long rows, int Lp, int Ld, int 
   if (e == 0) {
     ++launches;
     mip_launches += mip;
+    f32_launches += !is_bf16;
   }
   return e;
 }

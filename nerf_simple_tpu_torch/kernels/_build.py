@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -120,6 +121,57 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
             kernel = line.split("'")[1] if "'" in line else line
         elif "registers" in line or "spill" in line:
             out.append((kernel, line.strip()))
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's mangled name without its anonymous namespace's prefix
+    (``_ZN<n><n characters>``), so that the kernel's own name shows."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    return mangled[m.end() + int(m.group(1)):] if m else mangled
+
+
+def sass_by_kernel(so: str) -> dict[str, list[str]]:
+    """{kernel's short name: its SASS instructions, addresses stripped} of a
+    library, by cuobjdump; the SIMT input-gradient kernel's names lose the
+    ``false`` of its MIP switch (``Lb0E``), and the forward tile kernels'
+    the ``false`` of their last switch, CONTRACT, so a launch without mip
+    or contract pairs with the same kernel of a library that has no
+    switch."""
+    cuobj = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobj, "-sass", so], capture_output=True, text=True, check=True).stdout
+    funcs: dict[str, list[str]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = short_name(m.group(1))
+            name = name.replace("Lb0E", "") if "input_grad_kernel" in name else name
+            name = re.sub(r"(fwd_kernelILi-?\d+ELb[01]E)Lb0EE", r"\1E", name)
+            funcs[name] = []
+        elif name and re.match(r"\s+/\*[0-9a-f]+\*/", line):
+            funcs[name].append(re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip())
+    return funcs
+
+
+def sass_against(before_dir: str, names, replaced=()) -> dict[str, dict]:
+    """Each named library against the build of another copy of csrc/
+    (``before_dir``, built by ``build_copies``), kernel by kernel
+    (``sass_by_kernel``): for each, the earlier kernels whose SASS the
+    current library repeats (``identical`` of ``earlier``), those missing
+    from it whose names hold one of ``replaced`` (replaced by design), the
+    current kernels the earlier library lacks (``new``) and the earlier
+    ones that differ (``differ``)."""
+    out = {}
+    for name in names:
+        cur = sass_by_kernel(str(library_path(name)))
+        old = sass_by_kernel(str(Path(before_dir).resolve().parent / "build" / f"{name}.so"))
+        gone = [k for k in old if any(r in k for r in replaced) and k not in cur]
+        kept = [k for k in old if k not in gone]
+        same = [k for k in kept if cur.get(k) == old[k]]
+        out[name] = dict(identical=len(same), earlier=len(kept), replaced=len(gone), kernels=len(cur),
+                         new=sorted(k[:60] for k in cur if k not in old),
+                         differ=sorted(k[:60] for k in kept if k not in same))
     return out
 
 

@@ -1070,6 +1070,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _I, _P], _I),
         "input_grad_launch_count": ([_I], _LL),
         "input_grad_mip_launch_count": ([_I], _LL),
+        "input_grad_f32_launch_count": ([_I], _LL),
         "fused_mlp_bwd_smem_bytes": ([_I] * 5, _LL),
         "fused_mlp_bwd_workspace_bytes": ([_LL, _I, _I, _I, _I, _I], _LL),
         "wgrad_sums": ([_P, _I, _P, _I, _LL, _I, _P, _P, _P, _P], _I),
@@ -1103,6 +1104,7 @@ _SIGNATURES = {  # source -> {entry: (argtypes, restype)}
         "fused_contract_input_grad": ([_P, _P, _LL, _I, _I, _I, _I, _CPtrs, _P, _P, _P, _I, _I, _P], _I),
         "input_grad_contract_launch_count": ([_I], _LL),
         "input_grad_mip_contract_launch_count": ([_I], _LL),
+        "input_grad_contract_f32_launch_count": ([_I], _LL),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -1758,6 +1760,17 @@ def input_grad_mip_launches(reset: bool = False) -> int:
     if "fused_mlp_bwd" not in _build._loaded:
         return n
     return n + _lib("fused_mlp_bwd").input_grad_mip_launch_count(int(reset))
+
+
+def input_grad_f32_launches(reset: bool = False) -> int:
+    """Of ``input_grad_launches``, those in f32 (csrc/input_grad.cuh's
+    ``input_grad_fma``; a contracted model's among them), counted in C where
+    they launch."""
+    n = 0 if "fused_contract" not in _build._loaded else _lib("fused_contract").input_grad_contract_f32_launch_count(
+        int(reset))
+    if "fused_mlp_bwd" not in _build._loaded:
+        return n
+    return n + _lib("fused_mlp_bwd").input_grad_f32_launch_count(int(reset))
 
 
 def input_grad_contract_launches(reset: bool = False) -> int:

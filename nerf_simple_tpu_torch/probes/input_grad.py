@@ -24,17 +24,24 @@ What the kernel must move and compute (the bound) is
 ``utils/roofline.py::input_grad_work``: 640 plane rows a row in the
 compute type, x and dx, and 71,424 flop a row at the flagship; bf16 is
 then bound by its bytes (0.21 ms), f32 by its operations at 67 TFLOP/s
-(0.56 ms). The f32 kernel runs its products on the FMA pipes (SIMT, a
-thread a row); the bf16 one on the tensor cores (mma.sync), so that only
-its bytes bound it.
+(0.56 ms). The f32 kernel runs its products on the FMA pipes (a
+register-blocked product fed by cp.async, ``input_grad_fma``); the bf16
+one on the tensor cores (mma.sync, ``input_grad_mma``), so that only its
+bytes bound it.
 
 ``before_after`` holds the kernel of an earlier commit's csrc/ against the
-current one for every instantiation (``INSTANCES``): f32 bit-equal, bf16
-within MIP_CONTRACT_TOL, and the bf16 launches of both in turns. With
+current one for every instantiation (``INSTANCES``): dx bit-equal in both
+types (each kernel of csrc/input_grad.cuh sums every slot in the order of
+the kernel it replaced), two launches of the current one bit-equal, and
+the launches of both in turns in each type. With
 ``--before`` the probe builds the ``fused_mlp_bwd`` and ``fused_contract``
 sources of each csrc/ directory given (an earlier commit's, or a copy with
 a constant changed, under a gitignored ``build/``) and runs
-``before_after`` on each, in place of the runs above.
+``before_after`` on each, in place of the runs above, and prints how many
+of each earlier library's kernels build to the same SASS in the current one
+(``kernels/_build.py::sass_against``; the SIMT input-gradient kernels,
+SASS_REPLACED, are replaced by design). It does not fail on a SASS
+difference: a variant copy differs on purpose.
 
 The library yardstick (``library``, timed here and used nowhere in the
 package): ``torch.mm`` in the compute type for the three products, added
@@ -541,6 +548,22 @@ def run_mip_contract(device, model: NerfMLP = mlp.FLAGSHIP, rows: int = ROWS, x:
     return out
 
 
+# The earlier kernels that the current libraries replace by design: the
+# instantiations of the input-gradient kernel's SIMT version, whose work the
+# tensor-core kernel input_grad_mma (bf16) and the register-blocked
+# input_grad_fma (f32) of csrc/input_grad.cuh do.
+SASS_REPLACED = ("input_grad_kernel",)
+
+
+def sass_line(sass: dict) -> str:
+    """``kernels/_build.py::sass_against``'s result as one line."""
+    return "SASS against the earlier libraries, kernel by kernel: " + "; ".join(
+        f"{src} {v['identical']} of the earlier {v['earlier']} identical"
+        + (f" ({v['replaced']} SIMT input-gradient kernels replaced)" if v["replaced"] else "")
+        + f", {len(v['new'])} new" + (f", differ: {v['differ']}" if v["differ"] else "")
+        for src, v in sass.items())
+
+
 # The kernel's instantiations by case: (app_dim, mip, contract). The
 # contract ones are built into csrc/fused_contract.cu's library.
 INSTANCES = {"point": (0, False, False), "codes": (8, False, False), "mip": (0, True, False),
@@ -549,11 +572,12 @@ INSTANCES = {"point": (0, False, False), "codes": (8, False, False), "mip": (0, 
 
 def before_after(device, libs: dict, rows: int = ROWS, model: NerfMLP = mlp.FLAGSHIP) -> dict:
     """On the card, for each instantiation (INSTANCES) on the probe's inputs
-    at ``rows``: an earlier commit's kernel (``libs``: its ``fused_mlp_bwd``
-    and ``fused_contract`` libraries, built from its csrc/) against the
-    current one. f32 dx must be bit-equal; bf16 within MIP_CONTRACT_TOL by
-    row group (``row_err``: both sum the same bf16 products in f32, in
-    another order). Then the bf16 launches of both in turns (earlier,
+    at ``rows``, in f32 and in bf16: an earlier commit's kernel (``libs``:
+    its ``fused_mlp_bwd`` and ``fused_contract`` libraries, built from its
+    csrc/) against the current one. dx must be the earlier's to the bit
+    (``err``: how far a copy that sums in another order lies from it, by
+    row group, ``row_err``), and two launches of the current kernel must
+    give the same bits. Then the launches of both in turns (earlier,
     current, current, earlier, ...; CALLS calls back to back a timing) and
     the torch.mm yardstick, with the bound and each kernel's share of it.
     Raises if a check fails."""
@@ -564,18 +588,14 @@ def before_after(device, libs: dict, rows: int = ROWS, model: NerfMLP = mlp.FLAG
     for case, (app_dim, mip, contract) in INSTANCES.items():
         m = dataclasses.replace(model, app_dim=app_dim, contract=contract)
         wts, gws32, x = inputs(m, rows, device, mip=mip)
-        st = {}
+        out[case] = {}
         for dt in (torch.float32, torch.bfloat16):
             w = mlp._cast_weights(wts, dt)
             gws = gws32 if dt == torch.float32 else gws32.to(dt)
             cur = mlp.input_grad(w, x, gws, dt, m, mip=mip)
             old = kernel_call(w, x, gws, dt, m, mip=mip, lib=libs)()
-            if dt == torch.float32:
-                st["f32_bit_equal"] = torch.equal(cur, old)
-                del gws
-                continue
-            st["bf16_err"] = row_err(cur, old, mip).max().item()
-            st["bf16_twice_bit_equal"] = torch.equal(cur, mlp.input_grad(w, x, gws, dt, m, mip=mip))
+            st = dict(err=row_err(cur, old, mip).max().item(), bit_equal=torch.equal(cur, old),
+                      twice_bit_equal=torch.equal(cur, mlp.input_grad(w, x, gws, dt, m, mip=mip)))
             del cur, old
             ms = turns_ms({"earlier": kernel_call(w, x, gws, dt, m, mip=mip, lib=libs),
                            "current": kernel_call(w, x, gws, dt, m, mip=mip),
@@ -585,13 +605,27 @@ def before_after(device, libs: dict, rows: int = ROWS, model: NerfMLP = mlp.FLAG
             st.update(ms=ms["current"], earlier_ms=ms["earlier"], library_ms=ms["library"], bound_ms=b,
                       bound_by=bound_by(flops, nbytes, dt), share_of_bound=b / ms["current"],
                       earlier_share_of_bound=b / ms["earlier"], gb_s=nbytes / (ms["current"] * 1e-3) / 1e9)
+            out[case]["f32" if dt == torch.float32 else "bf16"] = st
             del gws
-        out[case] = st
+            if not (st["twice_bit_equal"] and st["bit_equal"]):
+                raise RuntimeError(f"{case} {dt} input gradient against the earlier kernel: {st}")
         del wts, gws32, x
         torch.cuda.empty_cache()
-        if not (st["f32_bit_equal"] and st["bf16_twice_bit_equal"] and st["bf16_err"] <= MIP_CONTRACT_TOL):
-            raise RuntimeError(f"{case} input gradient against the earlier kernel: {st}")
     return out
+
+
+def before_after_line(ba: dict) -> str:
+    """``before_after``'s result as one line a type: each instantiation's
+    earlier and current ms, their shares of the bound, the yardstick and
+    the distance of dx from the earlier's."""
+    cases = [c for c in ba if c in INSTANCES]
+    return "\n".join(
+        f"before/after {name} input gradient at {ba['rows']} rows, earlier and current in turns: " + "; ".join(
+            f"{case} {v['earlier_ms']:.3f} -> {v['ms']:.3f} ms ({100 * v['earlier_share_of_bound']:.1f}% -> "
+            f"{100 * v['share_of_bound']:.1f}% of its {v['bound_ms']:.3f} ms bound; torch.mm yardstick "
+            f"{v['library_ms']:.3f} ms; dx {v['err']:.1e} from the earlier's by row group, bit-equal "
+            f"{v['bit_equal']})" for case in cases for v in [ba[case][name]])
+        for name in ("f32", "bf16"))
 
 
 def main(argv=None) -> None:
@@ -608,15 +642,15 @@ def main(argv=None) -> None:
             raise RuntimeError("--before builds and times kernels: it runs on the card only")
         from nerf_simple_tpu_torch.kernels import _build
 
-        _build.build("fused_mlp_bwd", "fused_contract")
-        copies = _build.build_copies(args.before, ["fused_mlp_bwd", "fused_contract"])
+        sources = ["fused_mlp_bwd", "fused_contract"]
+        _build.build(*sources)
+        copies = _build.build_copies(args.before, sources)
         out = {d: before_after(device, copies[d]) for d in args.before}
-        print(f"{torch.cuda.get_device_name(device)}: bf16 input gradient at {ROWS} rows, each copy and the "
+        print(f"{torch.cuda.get_device_name(device)}: the input gradient at {ROWS} rows, each copy and the "
               "current kernel in turns")
         for d, ba in out.items():
-            print(f"{d}: " + "; ".join(f"{case} {v['earlier_ms']:.3f} -> {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, "
-                                       f"torch.mm yardstick {v['library_ms']:.3f}; dx {v['bf16_err']:.1e} apart)"
-                                       for case, v in ba.items() if case != "rows"))
+            ba["sass"] = _build.sass_against(d, sources, SASS_REPLACED)
+            print(f"{d}:\n{before_after_line(ba)}\n{sass_line(ba['sass'])}")
         print(json.dumps(out))
         return
     if device.type == "cpu":

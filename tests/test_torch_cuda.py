@@ -914,10 +914,13 @@ DX_ROW_SHARE = {torch.float32: 1e-4, torch.bfloat16: 3e-3}
 POSE_CASES = [(NerfMLP(Lp=4, Ld=2, H=32), 1000), (NerfMLP(Lp=3, Ld=1, H=48), 65), (NerfMLP(), 4096 + 17),
               (NerfMLP(), 63), (NerfMLP(Lp=10, Ld=4, H=64), 1)]
 POSE_IDS = ["small-ragged", "odd-widths-65", "flagship-ragged", "flagship-63", "H64-1"]
-# Row counts around the bf16 input-gradient kernel's 128-row tile (with
-# POSE_CASES' 63 and 4,113): a partial tile, a whole 64-row plane unit, one
-# past it, a tile less one, a tile and one.
-TILE_ROWS = (1, 64, 65, 127, 129)
+# Row counts around the input-gradient kernels' tiles, 128 rows in bf16 and
+# 256 in f32 (with POSE_CASES' 63 and 4,113): a partial tile, a whole 64-row
+# plane unit, one past it, 128 less one, 128, 128 and one, 256 less one, 256
+# and one, and 132 tiles and one of each type's tile (a last tile one row
+# long, which block 0 of an H100's persistent grid of 132 blocks runs as its
+# second, after carrying its ring across the first).
+TILE_ROWS = (1, 64, 65, 127, 128, 129, 255, 257, 132 * 128 + 1, 132 * 256 + 1)
 TILE_CASES = [(NerfMLP(), r) for r in TILE_ROWS]
 TILE_IDS = [f"flagship-{r}" for r in TILE_ROWS]
 
@@ -961,19 +964,20 @@ def test_input_grad_kernel_matches_plain(dev, model, rows, windows, dtype):
     """The input-gradient kernel alone (``input_grad``) against
     ``input_grad_plain`` on the backward tile kernel's cotangent planes of
     random output cotangents, at ragged row counts (rows not a multiple of
-    64, one row, around the bf16 kernel's 128-row tile): ``dx`` within
+    64, one row, around the kernels' 128-row tile): ``dx`` within
     DX_TOL of max |dx|, rows 6..7 zero, the launch counted by the wrapper
-    and in C; a second launch gives the same bits."""
+    and in C (the f32 ones apart); a second launch gives the same bits."""
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev)), dtype)
     x = _xT(rows, dev, seed=6)
     enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
     g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
     _, res = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
     gws = mlp.backward_tile(wts, res, g, dtype, model)
-    before = (mlp.input_grad.launches, mlp.input_grad_launches())
+    before = (mlp.input_grad.launches, mlp.input_grad_launches(), mlp.input_grad_f32_launches())
     got = mlp.input_grad(wts, x, gws, dtype, model, enc_w)
     torch.cuda.synchronize()
-    assert (mlp.input_grad.launches, mlp.input_grad_launches()) == (before[0] + 1, before[1] + 1)
+    assert (mlp.input_grad.launches, mlp.input_grad_launches(), mlp.input_grad_f32_launches()) == (
+        before[0] + 1, before[1] + 1, before[2] + (dtype == torch.float32))
     want = mlp.input_grad_plain(wts, x, gws, dtype, model, enc_w)
     assert got.shape == (8, rows) and bool(torch.isfinite(got).all()) and bool((got[6:] == 0).all())
     assert _dx_err(got, want) <= DX_TOL[dtype]
@@ -1205,38 +1209,41 @@ def test_backward_with_codes_matches_plain(dev, model, rows, windows, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("windows", [False, True], ids=["no-windows", "a0.3"])
 @pytest.mark.parametrize("model, rows", APP_CASES + [(NerfMLP(app_dim=8), r) for r in (63,) + TILE_ROWS],
                          ids=APP_IDS + [f"flagship-{r}" for r in (63,) + TILE_ROWS])
-def test_input_grad_kernel_with_codes_matches_plain(dev, model, rows, dtype):
+def test_input_grad_kernel_with_codes_matches_plain(dev, model, rows, windows, dtype):
     """The input-gradient kernel alone on an appearance model's planes
-    against ``input_grad_plain``: dx (16 rows) within DX_TOL of max |dx|,
-    the code rows within DX_TOL of their own largest entry, rows 6..7
-    zero, counted in ``input_grad.app_launches``; its rows 0..5 bit-equal
-    to the kernel's on the same planes laid out without the code rows; a
-    second launch gives the same bits."""
+    (with and without the anneal windows) against ``input_grad_plain``: dx
+    (16 rows) within DX_TOL of max |dx|, the code rows within DX_TOL of
+    their own largest entry, rows 6..7 zero, counted in
+    ``input_grad.app_launches``; its rows 0..5 bit-equal to the kernel's on
+    the same planes laid out without the code rows; a second launch gives
+    the same bits."""
     import dataclasses
 
     wts = mlp._cast_weights(mlp.pack_weights(NerfField.from_jax_params(init_nerf_params(2, model), dev, model)),
                             dtype)
     x = _x16_app(model, rows, dev, 6)
+    enc_w = mlp.anneal_row_weights(model, 0.3, dev) if windows else None
     g = torch.from_numpy(np.random.default_rng(7).normal(size=(8, rows)).astype(np.float32)).to(dev)
-    _, res = mlp.forward_residuals(wts, x, dtype, model)
+    _, res = mlp.forward_residuals(wts, x, dtype, model, enc_w=enc_w)
     gws = mlp.backward_tile(wts, res, g, dtype, model)
     before = (mlp.input_grad.launches, mlp.input_grad.app_launches)
-    got = mlp.input_grad(wts, x, gws, dtype, model)
+    got = mlp.input_grad(wts, x, gws, dtype, model, enc_w)
     torch.cuda.synchronize()
     assert (mlp.input_grad.launches, mlp.input_grad.app_launches) == (before[0] + 1, before[1] + 1)
-    want = mlp.input_grad_plain(wts, x, gws, dtype, model)
+    want = mlp.input_grad_plain(wts, x, gws, dtype, model, enc_w)
     assert got.shape == (16, rows) and bool(torch.isfinite(got).all()) and bool((got[6:8] == 0).all())
     assert _dx_err(got, want) <= DX_TOL[dtype]
     assert _dx_err(got[8:], want[8:]) <= DX_TOL[dtype]
-    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, model))
+    assert torch.equal(got, mlp.input_grad(wts, x, gws, dtype, model, enc_w))
     plain_model = dataclasses.replace(model, app_dim=0)
     FD0 = mlp._enc_rows(model.Ld)
     w0 = wts._replace(Wcd=wts.Wcd[:, :FD0].contiguous())
     L, L0 = mlp.Layout.of(model), mlp.Layout.of(plain_model)
     assert L.FG == L0.FG  # the cotangent planes do not move
-    no_codes = mlp.input_grad(w0, x[:8].contiguous(), gws, dtype, plain_model)
+    no_codes = mlp.input_grad(w0, x[:8].contiguous(), gws, dtype, plain_model, enc_w)
     assert torch.equal(got[:8], no_codes)
 
 
